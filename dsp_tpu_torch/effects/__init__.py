@@ -1,0 +1,61 @@
+"""Effect implementations. Importing this package registers all effects.
+
+Every effect name of dsp_tpu is registered, in the reference's order and with
+the same usage strings, so the grammar, ``-h`` and allow-fail behave the
+same. An effect that is not ported yet fails at init with an EffectError.
+"""
+
+from dsp_tpu_torch.effects.base import (
+    EFFECT_FLAG_ALIGN_BARRIER,
+    EFFECT_FLAG_CH_DEPS_IDENTITY,
+    EFFECT_FLAG_NO_DITHER,
+    EFFECT_FLAG_OPT_REORDERABLE,
+    EFFECT_FLAG_PLOT_MIX,
+    Effect,
+    EffectError,
+    EffectInfo,
+    get_effect_info,
+    print_all_effects,
+    register_effect,
+)
+
+# (name, usage) of the effects still to port, in dsp_tpu's registry order
+NOT_PORTED = [
+    ("matrix4", "matrix4 [options ...] [surround_level][/surround_level_rear]"),
+    ("matrix4_mb", "matrix4_mb [options ...] [surround_level][/surround_level_rear]"),
+    ("remix", "remix channel_selector|. ..."),
+    ("delay", "delay [-f[order]] [-m|M depth[s|m|S|%]] [-b bw[k]] [-q quality] delay[s|m|S]"),
+    ("resample", "resample [bandwidth] fs[k]|x{mult}|/{div}"),
+    ("fir", "fir [-a[offset[s|m|S]]] [input_options] [file:][~/]filter_path|coefs:list[/list...]"),
+    ("fir_p", "fir_p [-a[offset[s|m|S]]] [input_options] [max_part_len] [file:][~/]filter_path|coefs:list[/list...]"),
+    ("zita_convolver", "zita_convolver [-a[offset[s|m|S]]] [input_options] [min_part_len [max_part_len]] [file:][~/]filter_path|coefs:list[/list...]"),
+    ("hilbert", "hilbert [-pzc] [-a angle] taps"),
+    ("decorrelate", "decorrelate [options] [stages]"),
+    ("noise", "noise level[b]"),
+    ("dither", "dither [shape] [[quantize_bits] bits]"),
+    ("ladspa_host", "ladspa_host module_path plugin_label [control ...]"),
+    ("stats", "stats [-i] [-w cols] [ref_level]"),
+    ("watch", "watch [-e] [~/]path"),
+    ("levels", "levels [-t time_const]"),
+]
+
+
+def _not_ported_init(ei, istream, selector, dir_, argv):
+    raise EffectError(f"{ei.name}: not yet ported to dsp_tpu_torch")
+
+
+def _register_builtins():
+    from dsp_tpu_torch.effects import biquad  # noqa: F401
+    from dsp_tpu_torch.effects import gain  # noqa: F401
+    from dsp_tpu_torch.effects import crossfeed  # noqa: F401
+    from dsp_tpu_torch.effects import st2ms  # noqa: F401
+
+    for name, usage in NOT_PORTED:
+        register_effect(name, usage, _not_ported_init)
+
+
+_register_builtins()
+
+from dsp_tpu_torch.effects.base import reorder_registry as _ro  # noqa: E402
+
+_ro()

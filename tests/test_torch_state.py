@@ -1,0 +1,131 @@
+"""Stream state crosses between dsp_tpu and dsp_tpu_torch, and the port
+stands alone (no jax, no dsp_tpu)."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from torch_parity import CHAIN_LIMIT_DBFS, FLAGSHIP, jax_chain, port_chain, stereo_signal, worst_dbfs
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("block", [2048, 1000])
+@pytest.mark.parametrize("first", ["dsp_tpu", "dsp_tpu_torch"])
+def test_checkpoint_crosses_packages(first, block, tmp_path):
+    """Half a stream in one package, save_state, load_state in the other,
+    finish there: matches one uninterrupted dsp_tpu pass."""
+    x = stereo_signal(2.0, seed=block)
+    half = 40 * block  # a whole number of blocks: no zero padding mid-stream
+    whole = jax_chain(FLAGSHIP, block).process_array(x)
+
+    make = {"dsp_tpu": jax_chain, "dsp_tpu_torch": port_chain}
+    second = "dsp_tpu_torch" if first == "dsp_tpu" else "dsp_tpu"
+    a = make[first](FLAGSHIP, block)
+    y1 = np.asarray(a.process_array(x[:half], drain=False))
+    ckpt = tmp_path / "state.npz"
+    a.save_state(str(ckpt))
+    b = make[second](FLAGSHIP, block)
+    b.load_state(str(ckpt))
+    y2 = np.asarray(b.process_array(x[half:]))
+    y = np.concatenate([y1, y2])
+    assert y.shape == whole.shape
+    assert worst_dbfs(y, whole) <= CHAIN_LIMIT_DBFS
+
+
+@pytest.mark.parametrize("block", [2048, 1000])
+def test_treedef_string_is_jax_s(block):
+    import jax
+
+    from dsp_tpu_torch.convert import flatten_states, states_to_numpy
+
+    t = port_chain(FLAGSHIP, block)
+    j = jax_chain(FLAGSHIP, block)
+    assert flatten_states(t.states)[1] == str(jax.tree_util.tree_structure(j.states))
+    leaves_t = states_to_numpy(t.states)
+    leaves_j = jax.tree_util.tree_leaves(j.states)
+    assert [(a.shape, a.dtype) for a in leaves_t] == [(np.shape(a), np.asarray(a).dtype) for a in leaves_j]
+
+
+def test_convert_round_trip_and_nesting():
+    import jax
+    import torch
+
+    from dsp_tpu_torch.convert import (
+        flatten_states,
+        states_from_numpy,
+        states_to_numpy,
+        unflatten_states,
+    )
+
+    states = [(), torch.ones(2, 3), (torch.zeros(1), torch.full((2,), 2.0)), (torch.ones(1),), None]
+    like = [(), np.ones((2, 3)), (np.zeros(1), np.full(2, 2.0)), (np.ones(1),), None]
+    assert flatten_states(states)[1] == str(jax.tree_util.tree_structure(like))
+    leaves = states_to_numpy(states)
+    back = unflatten_states(states, states_from_numpy(leaves, "cpu"))
+    assert flatten_states(back)[1] == flatten_states(states)[1]
+    for a, b in zip(states_to_numpy(back), leaves):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError):
+        unflatten_states(states, states_from_numpy(leaves[:-1], "cpu"))
+
+
+def test_load_state_validates(tmp_path):
+    from dsp_tpu_torch.chain import ChainError
+
+    cc = port_chain("eq 1k 1.0 +3", 512)
+    ckpt = str(tmp_path / "s.npz")
+    cc.save_state(ckpt)
+    with pytest.raises(ChainError):
+        port_chain("eq 1k 1.0 +3 lowpass 2k 0.7071", 512).load_state(ckpt)
+    with pytest.raises(ChainError):
+        port_chain("lowpass 2k 0.7071", 512).load_state(ckpt)
+    bogus = str(tmp_path / "b.npz")
+    np.savez(bogus, a=np.zeros(3))
+    with pytest.raises(ChainError):
+        cc.load_state(bogus)
+
+
+_STANDALONE = r"""
+import sys
+import dsp_tpu_torch
+import dsp_tpu_torch.chain, dsp_tpu_torch.cli.main, dsp_tpu_torch.codecs
+import dsp_tpu_torch.convert, dsp_tpu_torch.effects, dsp_tpu_torch.kernels
+import dsp_tpu_torch.ops.iir
+from dsp_tpu_torch.cli.main import main
+rc = main(["-q", "-s", sys.argv[1], "-o", "-e", "double", sys.argv[2],
+           "gain", "-3", "eq", "1k", "1.0", "+3", "crossfeed", "700", "4.5"])
+assert rc == 0, rc
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "dsp_tpu"))
+assert not bad, bad
+print("standalone ok")
+"""
+
+
+def test_port_imports_no_jax_nor_dsp_tpu(tmp_path):
+    """In a fresh interpreter, the port's modules and CLI run without
+    loading jax or dsp_tpu."""
+    from torch_parity import write_wav
+
+    src = tmp_path / "in.wav"
+    write_wav(src, stereo_signal(0.3, seed=1))
+    env = dict(os.environ, DSP_TPU_TORCH_DEVICE="cpu", PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", _STANDALONE, str(src), str(tmp_path / "out.wav")],
+        capture_output=True, text=True, env=env, cwd=str(tmp_path), timeout=120,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "standalone ok" in out.stdout
+
+
+def test_port_sources_import_no_jax_nor_dsp_tpu():
+    pat = re.compile(r"^\s*(import\s+(jax|dsp_tpu)\b|from\s+(jax|dsp_tpu)(\.|\s))", re.M)
+    files = sorted((REPO / "dsp_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        assert not pat.search(f.read_text()), f"{f} imports jax or dsp_tpu"
