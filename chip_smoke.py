@@ -8,16 +8,23 @@ nvcc and PyTorch built for CUDA. It
 
 1. prints the card's name and power limit (nvidia-smi) and builds the CUDA
    kernels from dsp_tpu_torch/csrc with nvcc;
-2. runs each kernel (K1 lti_blocked, K2 biquad_scan) against its plain
-   PyTorch version on the card, on the same inputs at the main path's
-   shapes, fails above -200 dBFS, and times both with CUDA events;
+2. runs each kernel (K1 lti_blocked, K2 biquad_scan, K5-K7 fdl_mac) against
+   its plain PyTorch version on the card, on the same inputs at the main
+   path's shapes, fails above -200 dBFS, and times both with CUDA events;
 3. writes 300 s of stereo 44.1 kHz float64 wav (seeded noise plus sines), a
-   full track, and runs
-   the port's CLI on it file to file with the flagship chain, at the default
-   block (2048) and at -b 65536. Each run must produce the expected frame
-   count, launch both kernels (their launch counts are zeroed just before
-   the run), and match the port's CPU run on the first 10 s within -200 dBFS;
-4. prints the kernels' record as one JSON line, then as the last line
+   full track, and runs the port's CLI on it file to file: the flagship
+   chain at the default block (2048) and at -b 65536; then the FFT
+   convolution paths, with seeded flat-noise filters it writes itself:
+   `fir` 64k taps at -b 65536 (OLS) and 2048 (Upols), `fir_p` 1M taps at
+   2048 (Nupols) and -b 65536 (Upols), and the shipped linear-phase
+   crossover example (remix, forward and time-reversed biquads). Each run
+   must produce the expected frame count, launch its kernels (their launch
+   counts are zeroed just before the run), and match the port's CPU run on
+   the first 10 s within -200 dBFS;
+4. runs 96 blocks of the Nupols path (fir_p 1M at B = 2048) with the input
+   on the card under torch.cuda.set_sync_debug_mode("error"): a step must
+   not wait on the device;
+5. prints the kernels' record as one JSON line, then as the last line
    {"ok": true, "device": {...}}.
 
 Any failed phase exits nonzero before the last line. Without CUDA, or
@@ -46,6 +53,9 @@ FLAGSHIP = (
 LIMIT_DBFS = -200.0
 COMPARE_SECONDS = 10
 SECONDS = 300  # the main path's input: a full track
+# the linear-phase crossover that ships with the repo: remix 2 -> 4, forward
+# biquads (K1) and time-reversed ones (the reverse IIR on fdl_mac)
+CROSSOVER = ROOT / "examples" / "crossover_lr4_2kHz_riir_linphase"
 
 
 class SmokeError(Exception):
@@ -176,6 +186,61 @@ def kernel_phases(records):
                     k2["ms"], k2["plain_ms"] = ms, plain_ms
 
 
+# (K, NB) of each fdl_mac call on the main path, C = 2 throughout
+FDL_MAC_SHAPES = (
+    (1, 65537, "OLS: fir 64k at B=65536"),
+    (32, 2049, "Upols: fir 64k at B=2048, and the Nupols head"),
+    (15, 65537, "the Nupols tail: fir_p 1M at B=2048"),
+    (16, 65537, "Upols: fir_p 1M at B=65536"),
+    (1, 2049, "the reverse IIR at B=2048"),
+)
+
+
+def fdl_mac_phase(rec):
+    """fdl_mac against fdl_mac_ref on the card at the main path's shapes,
+    seeded inputs and a nonzero FDL; both Y and FDL_out are held to
+    LIMIT_DBFS (and Y alone for the K = 1 form without a delay line, as
+    OlsConv calls it). Times both with CUDA events."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.ops.fft_conv import fdl_mac, fdl_mac_ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20261)
+
+    def cnormal(*shape):
+        return torch.as_tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape),
+                               device=dev)
+
+    print("K5-K7 fdl_mac (complex128)")
+    rec["times"] = []
+    for K, NB, what in FDL_MAC_SHAPES:
+        X, H = cnormal(NB, CHANNELS), cnormal(K, NB, CHANNELS)
+        fdl = torch.as_tensor(rng.standard_normal((K, NB, CHANNELS, 2)), device=dev)
+        y_k, f_k = fdl_mac(X, H, fdl)
+        y_r, f_r = fdl_mac_ref(X, H, fdl)
+        torch.cuda.synchronize()
+        err = max((y_k - y_r).abs().max().item(), (f_k - f_r).abs().max().item())
+        check_close(f"K={K} NB={NB} ({what}) kernel vs plain", err)
+        if K == 1:
+            y_k, _ = fdl_mac(X, H)
+            y_r, _ = fdl_mac_ref(X, H)
+            torch.cuda.synchronize()
+            e1 = (y_k - y_r).abs().max().item()
+            check_close(f"K={K} NB={NB} without a delay line, kernel vs plain", e1)
+            err = max(err, e1)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        ms = cuda_ms(lambda: fdl_mac(X, H, fdl), 50)
+        plain_ms = cuda_ms(lambda: fdl_mac_ref(X, H, fdl), 20)
+        mb = (3 * K + 1) * NB * CHANNELS * 16 / 1e6
+        print(f"  K={K} NB={NB}: kernel {ms:.4f} ms ({mb / ms:.0f} GB/s of {mb:.1f} MB), "
+              f"plain {plain_ms:.4f} ms")
+        rec["times"].append({"K": K, "NB": NB, "ms": ms, "plain_ms": plain_ms})
+        if (K, NB) == (32, 2049):
+            rec["ms"], rec["plain_ms"] = ms, plain_ms
+
+
 def write_input(path, seconds):
     """Seeded stereo test signal: sines summing to -6 dBFS plus noise."""
     import numpy as np
@@ -215,55 +280,136 @@ def read_wav(path, frames=None):
         r.close()
 
 
-def main_path(records, seconds, tmp):
-    import os
-
+def write_filter(path, taps, seed):
+    """Seeded flat-noise impulse response, mono, scaled to an L1 norm of
+    0.5 so the output stays inside full scale; every partition, the tail
+    included, carries weight."""
     import numpy as np
 
-    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
+    from dsp_tpu_torch.codecs.base import CODEC_MODE_WRITE, CodecParams
+    from dsp_tpu_torch.codecs.wav import WavWriter
+
+    h = np.random.default_rng(seed).standard_normal((taps, 1))
+    h *= 0.5 / np.abs(h).sum(axis=0).max()
+    w = WavWriter(CodecParams(path=str(path), enc="double", fs=FS, channels=1,
+                              mode=CODEC_MODE_WRITE))
+    try:
+        w.write(h)
+    finally:
+        w.close()
+
+
+def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, seconds, tmp):
+    """One file-to-file run of dsp-torch on the card. Fails unless it
+    writes the expected frame count, launches every kernel in `wrappers`
+    (their counts are zeroed just before the run) and matches the port's
+    CPU run on the first COMPARE_SECONDS within LIMIT_DBFS."""
+    import numpy as np
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_args
     from dsp_tpu_torch.chain.chain import expected_out_frames
     from dsp_tpu_torch.cli.main import main as cli_main
     from dsp_tpu_torch.core.types import StreamInfo
-    from dsp_tpu_torch.ops import iir
+
+    chain = build_chain_from_args(chain_words, StreamInfo(FS, CHANNELS))
+    want = expected_out_frames(chain, n_in) - chain.output_discard
+    out = tmp / "out.wav"
+    argv = (["-b", str(block)] if block != 2048 else []) + [
+        "-q", str(src), "-o", "-e", "double", str(out), *chain_words]
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    rc = cli_main(argv)
+    wall = time.perf_counter() - t0
+    counts = {name: w.launches for name, w in wrappers.items()}
+    if rc != 0:
+        raise SmokeError(f"{label}: dsp-torch exited {rc}")
+    print(f"  {label}: {wall:.3f} s wall, {seconds / wall:.1f}x realtime, launches {counts}")
+    for name, c in counts.items():
+        if c <= 0:
+            raise SmokeError(f"{label}: {name} kernel was not launched")
+        records[name]["launches"] += c
+    got, y = read_wav(out, COMPARE_SECONDS * FS)
+    if got != want:
+        raise SmokeError(f"{label}: {got} output frames, expected {want}")
+    cpu = CompiledChain(build_chain_from_args(chain_words, StreamInfo(FS, CHANNELS)), block,
+                        device="cpu")
+    ref = cpu.process_array(head, drain=False)
+    if not np.isfinite(y).all():
+        raise SmokeError(f"{label}: non-finite output")
+    if len(ref) == 0 or len(y) < len(ref):
+        raise SmokeError(f"{label}: {len(y)} frames to compare with {len(ref)} of the CPU run")
+    check_close(f"{label}: first {COMPARE_SECONDS} s vs the port on the CPU",
+                float(np.abs(y[: len(ref)] - ref).max()))
+    out.unlink()
+
+
+def main_path(records, seconds, tmp):
+    """The flagship chain, then the FFT-convolution paths, file to file."""
+    import os
+
+    from dsp_tpu_torch.ops import fft_conv, iir
 
     src = tmp / "in.wav"
     t0 = time.perf_counter()
     n_in, head = write_input(src, seconds)
     print(f"main path: wrote {seconds} s of stereo {FS} Hz float64 ({n_in} frames, "
           f"{src.stat().st_size / 1e6:.1f} MB) in {time.perf_counter() - t0:.2f} s")
-    chain = build_chain_from_string(FLAGSHIP, StreamInfo(FS, CHANNELS))
-    want = expected_out_frames(chain, n_in) - chain.output_discard
     os.environ["DSP_TPU_TORCH_DEVICE"] = "cuda"
-    wrappers = {"lti_blocked": iir.lti_blocked, "biquad_scan": iir.biquad_scan}
+    common = (records, src, n_in, head, seconds, tmp)
+    k12 = {"lti_blocked": iir.lti_blocked, "biquad_scan": iir.biquad_scan}
     for block in (2048, 65536):
-        out = tmp / f"out_{block}.wav"
-        argv = (["-b", str(block)] if block != 2048 else []) + [
-            "-q", str(src), "-o", "-e", "double", str(out), *FLAGSHIP.split()]
-        for w in wrappers.values():
-            w.launches = 0
-        t0 = time.perf_counter()
-        rc = cli_main(argv)
-        wall = time.perf_counter() - t0
-        counts = {name: w.launches for name, w in wrappers.items()}
-        if rc != 0:
-            raise SmokeError(f"dsp-torch -b {block} exited {rc}")
-        print(f"  dsp-torch -b {block}: {wall:.3f} s wall, {seconds / wall:.1f}x realtime, "
-              f"launches {counts}")
-        for name, c in counts.items():
-            if c <= 0:
-                raise SmokeError(f"-b {block}: {name} kernel was not launched")
-            records[name]["launches"] += c
-        got, y = read_wav(out, COMPARE_SECONDS * FS)
-        if got != want:
-            raise SmokeError(f"-b {block}: {got} output frames, expected {want}")
-        cpu = CompiledChain(build_chain_from_string(FLAGSHIP, StreamInfo(FS, CHANNELS)),
-                            block, device="cpu")
-        ref = cpu.process_array(head, drain=False)
-        if not np.isfinite(y).all():
-            raise SmokeError(f"-b {block}: non-finite output")
-        check_close(f"-b {block} first {COMPARE_SECONDS} s vs the port on the CPU",
-                    float(np.abs(y - ref).max()))
-        out.unlink()
+        cli_run(f"flagship -b {block}", FLAGSHIP.split(), block, k12, *common)
+
+    f64k, f1m = tmp / "f64k.wav", tmp / "f1m.wav"
+    write_filter(f64k, 1 << 16, seed=0xBE)
+    write_filter(f1m, 1 << 20, seed=0xBF)
+    mac = {"fdl_mac": fft_conv.fdl_mac}
+    for label, words, block, wrappers in (
+        ("fir 64k -b 65536 (OLS)", ["fir", str(f64k)], 65536, mac),
+        ("fir 64k -b 2048 (Upols, K = 32)", ["fir", str(f64k)], 2048, mac),
+        ("fir_p 1M -b 2048 (Nupols, m = 32)", ["fir_p", str(f1m)], 2048, mac),
+        ("fir_p 1M -b 65536 (Upols, K = 16)", ["fir_p", str(f1m)], 65536, mac),
+        ("crossover_lr4_2kHz_riir_linphase -b 2048", [f"@{CROSSOVER}"], 2048,
+         {"lti_blocked": iir.lti_blocked, **mac}),
+    ):
+        cli_run(label, words, block, wrappers, *common)
+    return f1m
+
+
+def nupols_no_sync(f1m):
+    """The Nupols step does not synchronise: CompiledChain.run_blocks over
+    3 super-blocks (96 blocks at B = 2048) of input already on the card,
+    under torch.cuda.set_sync_debug_mode("error")."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_args
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.ops.fft_conv import NupolsConv
+
+    cc = CompiledChain(build_chain_from_args(["fir_p", str(f1m)], StreamInfo(FS, CHANNELS)),
+                       2048, device="cuda")
+    eng = cc._runtime_effects[0]._engine(2048)
+    if not isinstance(eng, NupolsConv) or (eng.m, eng.K1, eng.head.K) != (32, 15, 32):
+        raise SmokeError(f"fir_p 1M at B=2048: engine {type(eng).__name__}, expected Nupols m=32")
+    rng = np.random.default_rng(11)
+    warm = torch.as_tensor(rng.standard_normal((40, 2048, CHANNELS)) * 0.1, device="cuda")
+    xs = torch.as_tensor(rng.standard_normal((96, 2048, CHANNELS)) * 0.1, device="cuda")
+    cc.run_blocks(warm)  # uploads the spectra, plans the FFTs, fires once
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ys = cc.run_blocks(xs)
+    except RuntimeError as e:
+        raise SmokeError(f"the Nupols step synchronised: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if not torch.isfinite(ys).all():
+        raise SmokeError("the Nupols run without syncs gave non-finite output")
+    print(f"Nupols step: 96 blocks (3 super-blocks of 32) ran with no host sync, "
+          f"cnt = {int(cc.states[0]['cnt'])}")
 
 
 def main():
@@ -286,9 +432,12 @@ def main():
     records = {
         name: {"name": name, "route": "cuda", "source": f"dsp_tpu_torch/csrc/{name}.cu",
                "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
-               "ms": None, "plain_ms": None, "timed_at": "B=2048"}
-        for name, replaces in (("lti_blocked", "dsp_tpu/ops/iir.py:566"),
-                               ("biquad_scan", "dsp_tpu/ops/iir.py:77"))
+               "ms": None, "plain_ms": None, "timed_at": timed_at}
+        for name, replaces, timed_at in (
+            ("lti_blocked", "dsp_tpu/ops/iir.py:566", "B=2048"),
+            ("biquad_scan", "dsp_tpu/ops/iir.py:77", "B=2048"),
+            ("fdl_mac", "dsp_tpu/ops/fft_conv.py:85,137,204", "K=32, NB=2049, C=2"),
+        )
     }
     tmp = ROOT / ".smoke_tmp"
     try:
@@ -297,8 +446,10 @@ def main():
               f"{torch.cuda.get_device_name(0)}")
         build_kernels()
         kernel_phases(records)
+        fdl_mac_phase(records["fdl_mac"])
         tmp.mkdir(exist_ok=True)
-        main_path(records, SECONDS, tmp)
+        f1m = main_path(records, SECONDS, tmp)
+        nupols_no_sync(f1m)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

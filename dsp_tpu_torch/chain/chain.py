@@ -457,8 +457,9 @@ class CompiledChain:
     CUDA is asked for and absent). ``dtype`` defaults to float64, the only
     dtype the CUDA kernels take.
 
-    ``states`` holds one entry per runtime effect: a tensor, or a tuple of
-    tensors (``()`` for stateless effects). Offline use: process_array()
+    ``states`` holds one entry per runtime effect: a tensor, a tuple of
+    tensors (``()`` for stateless effects), or a dict of them (the FFT
+    convolution engines, dsp_tpu's layout). Offline use: process_array()
     runs every block of a whole array on the device and copies back once.
     """
 
@@ -526,9 +527,16 @@ class CompiledChain:
         return self._to_device(e.state0())
 
     def _to_device(self, tree):
-        """numpy state (arrays in nested tuples/lists) -> tensors on the device."""
+        """numpy state (arrays in nested tuples, lists and dicts) -> tensors
+        on the device. A leaf that is already a tensor stays where the
+        effect put it: a counter the host reads every block lives on the
+        CPU (fft_conv.NupolsConv's ``cnt``)."""
         if isinstance(tree, (tuple, list)):
             return type(tree)(self._to_device(t) for t in tree)
+        if isinstance(tree, dict):
+            return {k: self._to_device(v) for k, v in tree.items()}
+        if isinstance(tree, torch.Tensor):
+            return tree
         a = np.asarray(tree)
         if a.dtype in (np.float64, np.float32):
             return torch.as_tensor(a, dtype=self.dtype, device=self.device)
@@ -600,7 +608,10 @@ class CompiledChain:
                         f"{a.shape}/{a.dtype} vs chain {tuple(cur.shape)}/{cur_dtype}"
                     )
                 new.append(a)
-        self.states = unflatten_states(self.states, states_from_numpy(new, self.device))
+        # each leaf goes back to the device its current leaf lives on
+        self.states = unflatten_states(
+            self.states, states_from_numpy(new, [cur.device for cur in leaves])
+        )
 
     def set_valid_frames(self, n_in_frames):
         """Tell measurement effects (stats) the true stream length in chain

@@ -169,10 +169,12 @@ def print_all_codecs(file=None):
 
 def _register_builtins():
     # imports at call time to avoid cycles; order = codec.c's table order.
-    # Only null and wav are ported so far: sgen, pcm, sndfile, ffmpeg, mp3
-    # and the device codecs (alsa, pulse, ao) come in later slices, and the
-    # fallback probes above skip the names that are not registered.
+    # Only null, pcm (with raw and wavpipe) and wav are ported so far: sgen,
+    # sndfile, ffmpeg, mp3 and the device codecs (alsa, pulse, ao) come in
+    # later slices, and the fallback probes above skip the names that are
+    # not registered.
     from dsp_tpu_torch.codecs import null as _null  # noqa: F401
+    from dsp_tpu_torch.codecs import pcm as _pcm  # noqa: F401
     from dsp_tpu_torch.codecs import wav as _wav  # noqa: F401
 
 

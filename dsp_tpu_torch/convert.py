@@ -3,9 +3,10 @@
 Neither package has weights: both derive every coefficient from the same
 chain string. What has to cross is the live stream state. dsp_tpu holds it
 as a jax pytree (a list with one entry per runtime effect); the port holds
-the same nesting of tuples and lists with torch tensors as leaves. Leaves
-are taken depth first, in jax's order, so ``leaf_i`` means the same array
-in both packages' checkpoints (``CompiledChain.save_state``).
+the same nesting of tuples, lists and dicts with torch tensors as leaves.
+Leaves are taken depth first, in jax's order (a dict's values by sorted
+key), so ``leaf_i`` means the same array in both packages' checkpoints
+(``CompiledChain.save_state``).
 
 ``states_to_numpy`` / ``states_from_numpy`` map between the port's states
 and dsp_tpu's flat list of leaves (``jax.tree_util.tree_leaves``);
@@ -29,6 +30,8 @@ def flatten_states(states):
         if isinstance(t, tuple):
             inner = ", ".join(walk(c) for c in t)
             return "(" + inner + ("," if len(t) == 1 else "") + ")"
+        if isinstance(t, dict):
+            return "{" + ", ".join(f"{k!r}: {walk(t[k])}" for k in sorted(t)) + "}"
         leaves.append(t)
         return "*"
 
@@ -48,6 +51,8 @@ def unflatten_states(template, leaves):
             return None
         if isinstance(t, (tuple, list)):
             return type(t)(build(c) for c in t)
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
         return next(it)
 
     return build(template)
@@ -61,6 +66,8 @@ def states_to_numpy(states):
 
 def states_from_numpy(leaves, device):
     """dsp_tpu's leaves (numpy or anything np.asarray takes) -> a list of
-    tensors on `device`, keeping each leaf's dtype. Rebuild the nesting with
+    tensors, keeping each leaf's dtype. `device` is one device for every
+    leaf, or a list with one device per leaf. Rebuild the nesting with
     unflatten_states(compiled_chain.states, tensors)."""
-    return [torch.as_tensor(np.array(a), device=device) for a in leaves]
+    devices = device if isinstance(device, (list, tuple)) else [device] * len(leaves)
+    return [torch.as_tensor(np.array(a), device=d) for a, d in zip(leaves, devices)]

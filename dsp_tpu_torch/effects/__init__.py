@@ -23,14 +23,8 @@ from dsp_tpu_torch.effects.base import (
 NOT_PORTED = [
     ("matrix4", "matrix4 [options ...] [surround_level][/surround_level_rear]"),
     ("matrix4_mb", "matrix4_mb [options ...] [surround_level][/surround_level_rear]"),
-    ("remix", "remix channel_selector|. ..."),
     ("delay", "delay [-f[order]] [-m|M depth[s|m|S|%]] [-b bw[k]] [-q quality] delay[s|m|S]"),
     ("resample", "resample [bandwidth] fs[k]|x{mult}|/{div}"),
-    ("fir", "fir [-a[offset[s|m|S]]] [input_options] [file:][~/]filter_path|coefs:list[/list...]"),
-    ("fir_p", "fir_p [-a[offset[s|m|S]]] [input_options] [max_part_len] [file:][~/]filter_path|coefs:list[/list...]"),
-    ("zita_convolver", "zita_convolver [-a[offset[s|m|S]]] [input_options] [min_part_len [max_part_len]] [file:][~/]filter_path|coefs:list[/list...]"),
-    ("hilbert", "hilbert [-pzc] [-a angle] taps"),
-    ("decorrelate", "decorrelate [options] [stages]"),
     ("noise", "noise level[b]"),
     ("dither", "dither [shape] [[quantize_bits] bits]"),
     ("ladspa_host", "ladspa_host module_path plugin_label [control ...]"),
@@ -48,7 +42,13 @@ def _register_builtins():
     from dsp_tpu_torch.effects import biquad  # noqa: F401
     from dsp_tpu_torch.effects import gain  # noqa: F401
     from dsp_tpu_torch.effects import crossfeed  # noqa: F401
+    from dsp_tpu_torch.effects import remix  # noqa: F401
     from dsp_tpu_torch.effects import st2ms  # noqa: F401
+    from dsp_tpu_torch.effects import fir  # noqa: F401
+    from dsp_tpu_torch.effects import fir_p  # noqa: F401
+    from dsp_tpu_torch.effects import zita_convolver  # noqa: F401
+    from dsp_tpu_torch.effects import hilbert  # noqa: F401
+    from dsp_tpu_torch.effects import decorrelate  # noqa: F401
 
     for name, usage in NOT_PORTED:
         register_effect(name, usage, _not_ported_init)

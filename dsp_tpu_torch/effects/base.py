@@ -7,8 +7,9 @@ init functions). The compute path is ``step(state, x)`` on torch tensors:
 is ``(new_state, y)`` with ``y`` shaped ``[frames * ratio, out_channels]``.
 ``step`` returns new tensors and leaves its inputs unchanged.
 
-State is a tensor, or a tuple of tensors (``()`` when stateless), carried
-across blocks (filter memories, delay lines). ``ratio`` is a Fraction: output/input frame ratio
+State is a tensor, a tuple of tensors (``()`` when stateless), or a dict of
+them (the FFT convolution engines), carried across blocks (filter memories,
+delay lines). ``ratio`` is a Fraction: output/input frame ratio
 (1 except for resample). Effects whose runtime is a no-op (``step is None``,
 e.g. an integer ``delay`` folded into the alignment pass) still contribute
 ``channel_offsets`` to the chain passes, mirroring run==NULL effects
@@ -187,3 +188,42 @@ class Effect:
             hit = (host.copy(), torch.as_tensor(host, dtype=dtype, device=like.device))
             cache[key] = hit
         return hit[1]
+
+
+class ChannelPick:
+    """Gather and scatter of the selected channels of a [B, C] block: the
+    torch form of dsp_tpu's ``x[:, sel_idx]`` and ``x.at[:, sel_idx].set(ys)``.
+
+    All channels in order pass the block itself; a contiguous run is a
+    slice; any other set uses an index tensor made once per device. No step
+    builds an index on the host or reads one back from the device."""
+
+    def __init__(self, sel_idx, channels):
+        self.idx = np.asarray(sel_idx, dtype=np.int64)
+        n = len(self.idx)
+        lo = int(self.idx[0]) if n else 0
+        self.all = n == channels and np.array_equal(self.idx, np.arange(channels))
+        self.run = slice(lo, lo + n) if np.array_equal(self.idx, np.arange(lo, lo + n)) else None
+        self._index = {}
+
+    def _index_on(self, device):
+        t = self._index.get(device)
+        if t is None:
+            t = self._index[device] = torch.as_tensor(self.idx, device=device)
+        return t
+
+    def take(self, x):
+        if self.all:
+            return x
+        if self.run is not None:
+            return x[:, self.run].contiguous()
+        return x.index_select(1, self._index_on(x.device))
+
+    def put(self, x, ys):
+        if self.all:
+            return ys
+        y = x.clone()
+        if self.run is not None:
+            y[:, self.run] = ys
+            return y
+        return y.index_copy_(1, self._index_on(x.device), ys)

@@ -488,8 +488,9 @@ def biquad_effect_init(ei, istream, selector, dir_, argv):
     c = normalize(*coeffs)
 
     if reverse:
-        # reverse_iir runs on the partitioned convolution (slice B)
-        raise EffectError(f"{name}: -r (reverse IIR) not yet ported to dsp_tpu_torch")
+        from dsp_tpu_torch.effects.reverse_iir import reverse_iir_from_biquad
+
+        return reverse_iir_from_biquad(name, istream, selector, c, thresh)
 
     return BiquadEffect(name, istream, selector, c)
 

@@ -1,0 +1,3 @@
+"""zita_convolver is registered by dsp_tpu_torch.effects.fir (shared UPOLS engine)."""
+
+from dsp_tpu_torch.effects import fir as _fir  # noqa: F401

@@ -7,10 +7,10 @@ keyed by a hash of the sources and flags, so an edited source rebuilds and
 an unchanged one loads the library already built. A missing ``nvcc`` or a
 failed build raises ``KernelBuildError``; nothing falls back.
 
-Each launch function here takes tensors the caller (``ops/iir.py``) has
-checked, passes raw pointers and the current stream, and raises
-``KernelLaunchError`` when the C function returns a CUDA error. None of them
-synchronises or allocates.
+Each launch function here takes tensors the caller (``ops/iir.py``,
+``ops/fft_conv.py``) has checked, passes raw pointers and the current
+stream, and raises ``KernelLaunchError`` when the C function returns a CUDA
+error. None of them synchronises or allocates.
 """
 
 import ctypes
@@ -104,6 +104,8 @@ class _Library:
                 lib.dsp_lti_blocked_f64.restype = i
                 lib.dsp_biquad_scan_f64.argtypes = [p] * 7 + [i] * 2 + [p]
                 lib.dsp_biquad_scan_f64.restype = i
+                lib.dsp_fdl_mac_c128.argtypes = [p] * 5 + [ctypes.c_longlong, i, p]
+                lib.dsp_fdl_mac_c128.restype = i
                 lib.dsp_cuda_error_string.argtypes = [i]
                 lib.dsp_cuda_error_string.restype = ctypes.c_char_p
                 self.lib = lib
@@ -119,7 +121,7 @@ def load():
 
 
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _stream(device):
@@ -149,3 +151,11 @@ def launch_biquad_scan(A, Bv, c0, state_in, state_out, x, y):
         B, C, _stream(x.device),
     )
     _check(rc, "biquad_scan")
+
+
+def launch_fdl_mac(X, H, fdl_in, Y, fdl_out):
+    rc = load().dsp_fdl_mac_c128(
+        _ptr(X), _ptr(H), _ptr(fdl_in), _ptr(Y), _ptr(fdl_out), X.numel(), H.shape[0],
+        _stream(X.device),
+    )
+    _check(rc, "fdl_mac")

@@ -125,7 +125,7 @@ def test_unported_effect_fails_the_chain():
     with pytest.raises(ChainParseError, match="not yet ported"):
         port_chain("gain -3 matrix4", 2048)
     with pytest.raises(ChainParseError, match="not yet ported"):
-        port_chain("eq -r 1k 1.0 +3", 2048)
+        port_chain("eq -r 1k 1.0 +3 resample 48k", 2048)
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):

@@ -75,6 +75,98 @@ def test_convert_round_trip_and_nesting():
         unflatten_states(states, states_from_numpy(leaves[:-1], "cpu"))
 
 
+# dict-state chains (the FFT-convolution engines keep dsp_tpu's dicts):
+# spec, block, blocks before the checkpoint, pinned limit (test_torch_fir.py)
+_FIR_P = "fir_p coefs:" + ",".join(
+    f"{v:.17g}" for v in np.random.default_rng(5).uniform(-0.1, 0.1, 9000)
+)
+DICT_CHAINS = {
+    "decorrelate": ("decorrelate -s 7", 1024, 30, -270.0),
+    # Nupols at B = 128 with m = 8: 21 blocks stop mid-super-block (cnt = 5)
+    "fir_p_nupols": (_FIR_P, 128, 21, -255.0),
+}
+
+
+@pytest.mark.parametrize("name", list(DICT_CHAINS))
+@pytest.mark.parametrize("first", ["dsp_tpu", "dsp_tpu_torch"])
+def test_dict_state_checkpoint_crosses_packages(first, name, tmp_path):
+    """save_state in one package, load_state in the other, for states that
+    are dicts, with an int32 leaf (NupolsConv's cnt) stopped mid-super-block."""
+    import jax
+
+    spec, block, n_blocks, limit = DICT_CHAINS[name]
+    x = stereo_signal(1.0, seed=block)
+    half = n_blocks * block
+    whole = jax_chain(spec, block).process_array(x)
+
+    make = {"dsp_tpu": jax_chain, "dsp_tpu_torch": port_chain}
+    second = "dsp_tpu_torch" if first == "dsp_tpu" else "dsp_tpu"
+    a = make[first](spec, block)
+    y1 = np.asarray(a.process_array(x[:half], drain=False))
+    ckpt = tmp_path / "state.npz"
+    a.save_state(str(ckpt))
+    with np.load(ckpt) as z:
+        treedef = str(z["__treedef__"])
+        ints = [z[k] for k in z.files if k.startswith("leaf_") and z[k].dtype == np.int32]
+    b = make[second](spec, block)
+    if second == "dsp_tpu":
+        assert treedef == str(jax.tree_util.tree_structure(b.states))
+    if name == "fir_p_nupols":
+        assert "'cnt': *" in treedef and [int(v) for v in ints] == [5]
+    else:
+        assert treedef == "PyTreeDef([{'fdl': *, 'prev': *}])"
+    b.load_state(str(ckpt))
+    y2 = np.asarray(b.process_array(x[half:]))
+    y = np.concatenate([y1, y2])
+    assert y.shape == whole.shape
+    assert worst_dbfs(y, whole) <= limit
+
+
+@pytest.mark.parametrize("name", list(DICT_CHAINS))
+def test_dict_treedef_string_is_jax_s(name):
+    import jax
+
+    from dsp_tpu_torch.convert import flatten_states, states_to_numpy
+
+    spec, block, _, _ = DICT_CHAINS[name]
+    t = port_chain(spec, block)
+    j = jax_chain(spec, block)
+    assert flatten_states(t.states)[1] == str(jax.tree_util.tree_structure(j.states))
+    leaves_t = states_to_numpy(t.states)
+    leaves_j = jax.tree_util.tree_leaves(j.states)
+    assert [(a.shape, a.dtype) for a in leaves_t] == [(np.shape(a), np.asarray(a).dtype) for a in leaves_j]
+
+
+def test_convert_round_trip_of_dicts():
+    """Dicts flatten by sorted key, nest, and keep integer leaves' dtype."""
+    import jax
+    import torch
+
+    from dsp_tpu_torch.convert import (
+        flatten_states,
+        states_from_numpy,
+        states_to_numpy,
+        unflatten_states,
+    )
+
+    f64 = torch.float64
+    states = [{"prev": torch.ones(2, dtype=f64), "fdl": torch.zeros(3, 2, dtype=f64)}, (),
+              {"tail": torch.ones(1, dtype=f64), "cnt": torch.tensor(3, dtype=torch.int32),
+               "head": {"prev": torch.ones(1, dtype=f64), "fdl": torch.ones(2, 2, dtype=f64)}}, {}]
+    like = [{"prev": np.ones(2), "fdl": np.zeros((3, 2))}, (),
+            {"tail": np.ones(1), "cnt": np.int32(3),
+             "head": {"prev": np.ones(1), "fdl": np.ones((2, 2))}}, {}]
+    leaves, treedef = flatten_states(states)
+    assert treedef == str(jax.tree_util.tree_structure(like))
+    as_np = states_to_numpy(states)
+    for a, b in zip(as_np, jax.tree_util.tree_leaves(like)):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == np.asarray(b).dtype
+    back = unflatten_states(states, states_from_numpy(as_np, "cpu"))
+    assert flatten_states(back)[1] == treedef
+    assert back[2]["cnt"].dtype == torch.int32 and int(back[2]["cnt"]) == 3
+
+
 def test_load_state_validates(tmp_path):
     from dsp_tpu_torch.chain import ChainError
 
@@ -96,10 +188,11 @@ import sys
 import dsp_tpu_torch
 import dsp_tpu_torch.chain, dsp_tpu_torch.cli.main, dsp_tpu_torch.codecs
 import dsp_tpu_torch.convert, dsp_tpu_torch.effects, dsp_tpu_torch.kernels
-import dsp_tpu_torch.ops.iir
+import dsp_tpu_torch.ops.iir, dsp_tpu_torch.ops.fft_conv
 from dsp_tpu_torch.cli.main import main
 rc = main(["-q", "-s", sys.argv[1], "-o", "-e", "double", sys.argv[2],
-           "gain", "-3", "eq", "1k", "1.0", "+3", "crossfeed", "700", "4.5"])
+           "gain", "-3", "eq", "1k", "1.0", "+3", "crossfeed", "700", "4.5",
+           "fir", "coefs:0.5,0.5", "lowpass", "-r", "1k", "0.7071", "decorrelate", "-s", "3"])
 assert rc == 0, rc
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "dsp_tpu"))
 assert not bad, bad
