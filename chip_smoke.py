@@ -8,9 +8,10 @@ nvcc and PyTorch built for CUDA. It
 
 1. prints the card's name and power limit (nvidia-smi) and builds the CUDA
    kernels from dsp_tpu_torch/csrc with nvcc;
-2. runs each kernel (K1 lti_blocked, K2 biquad_scan, K5-K7 fdl_mac) against
-   its plain PyTorch version on the card, on the same inputs at the main
-   path's shapes, fails above -200 dBFS, and times both with CUDA events;
+2. runs each kernel (K1 lti_blocked, K2 biquad_scan; K5-K7 rfft_pack,
+   fdl_mac, irfft_crop and splice) against its plain PyTorch version on the
+   card, on the same inputs at the main path's shapes, fails above
+   -200 dBFS, and times both with CUDA events;
 3. writes 300 s of stereo 44.1 kHz float64 wav (seeded noise plus sines), a
    full track, and runs the port's CLI on it file to file: the flagship
    chain at the default block (2048) and at -b 65536; then the FFT
@@ -241,6 +242,82 @@ def fdl_mac_phase(rec):
             rec["ms"], rec["plain_ms"] = ms, plain_ms
 
 
+# One FFT-convolution step of each engine on the main path:
+# (label, C, N, La, Lx, lo, L, with_add). rfft_pack transforms [a | x | 0]
+# (a: La rows, x: Lx rows) at N; irfft_crop keeps rows [lo, lo + L) of the
+# inverse, plus the Nupols tail's rows when with_add.
+STEP_SHAPES = (
+    ("OLS: fir 64k at B=65536", 2, 131072, 65535, 65536, 65535, 65536, False),
+    ("Upols: fir 64k at B=2048", 2, 4096, 2048, 2048, 2048, 2048, False),
+    ("the Nupols head: fir_p 1M at B=2048", 2, 4096, 2048, 2048, 2048, 2048, True),
+    ("the Nupols tail, and Upols: fir_p 1M at B=65536", 2, 131072, 65536, 65536, 65536,
+     65536, False),
+    ("the reverse IIR of the crossover at B=2048", 4, 4096, 2048, 2048, 2048, 2048, False),
+)
+# The carried inputs: (label, C, La, Lx, L, lo, shift); see fft_conv.splice.
+SPLICE_SHAPES = (
+    ("OLS history: fir 64k at B=65536", 2, 65535, 65536, 65535, -1, 65536),
+    ("Upols previous block at B=2048", 2, 2048, 2048, 2048, 0, 2048),
+    ("Nupols stage write, block 17 of 32", 2, 65536, 2048, 65536, 17 * 2048, 0),
+)
+
+
+def step_kernels_phase(records):
+    """rfft_pack, irfft_crop and splice against their plain versions on the
+    card at the main path's shapes, seeded audio-scale inputs; held to
+    LIMIT_DBFS (splice exactly). Times both with CUDA events."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.ops import fft_conv as fc
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20262)
+
+    def normal(*shape):
+        return torch.as_tensor(rng.standard_normal(shape) * 0.3, device=dev)
+
+    print("K5-K7 rfft_pack and irfft_crop (float64, hand-written Stockham FFT)")
+    for name in ("rfft_pack", "irfft_crop", "splice"):
+        records[name]["times"] = []
+    for what, C, N, La, Lx, lo, L, with_add in STEP_SHAPES:
+        a, x = normal(La, C), normal(Lx, C)
+        X_k, X_r = fc.rfft_pack(a, x, N), fc.rfft_pack_ref(a, x, N).contiguous()
+        add = normal(L, C) if with_add else None
+        y_k, y_r = fc.irfft_crop(X_r, N, lo, L, add), fc.irfft_crop_ref(X_r, N, lo, L, add)
+        torch.cuda.synchronize()
+        for name, err in (("rfft_pack", (X_k - X_r).abs().max().item()),
+                          ("irfft_crop", (y_k - y_r).abs().max().item())):
+            check_close(f"{name} N={N} C={C} ({what}) kernel vs plain", err)
+            rec = records[name]
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        timed = {
+            "rfft_pack": (lambda: fc.rfft_pack(a, x, N), lambda: fc.rfft_pack_ref(a, x, N)),
+            "irfft_crop": (lambda: fc.irfft_crop(X_r, N, lo, L, add),
+                           lambda: fc.irfft_crop_ref(X_r, N, lo, L, add)),
+        }
+        for name, (kern, plain) in timed.items():
+            ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 50)
+            print(f"  {name} N={N} C={C}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            records[name]["times"].append({"N": N, "C": C, "ms": ms, "plain_ms": plain_ms})
+            if (N, C, with_add) == (4096, 2, False):
+                records[name]["ms"], records[name]["plain_ms"] = ms, plain_ms
+    print("K5-K7 splice (float64)")
+    rec = records["splice"]
+    for what, C, La, Lx, L, lo, shift in SPLICE_SHAPES:
+        a, x = normal(La, C), normal(Lx, C)
+        o_k, o_r = fc.splice(a, x, L, lo, shift), fc.splice_ref(a, x, L, lo, shift)
+        torch.cuda.synchronize()
+        if not torch.equal(o_k, o_r):
+            raise SmokeError(f"splice ({what}): kernel and plain version differ")
+        ms = cuda_ms(lambda: fc.splice(a, x, L, lo, shift), 50)
+        plain_ms = cuda_ms(lambda: fc.splice_ref(a, x, L, lo, shift), 50)
+        print(f"  splice L={L} ({what}): equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        rec["times"].append({"L": L, "ms": ms, "plain_ms": plain_ms})
+        if L == 2048:
+            rec["ms"], rec["plain_ms"] = ms, plain_ms
+
+
 def write_input(path, seconds):
     """Seeded stereo test signal: sines summing to -6 dBFS plus noise."""
     import numpy as np
@@ -364,7 +441,8 @@ def main_path(records, seconds, tmp):
     f64k, f1m = tmp / "f64k.wav", tmp / "f1m.wav"
     write_filter(f64k, 1 << 16, seed=0xBE)
     write_filter(f1m, 1 << 20, seed=0xBF)
-    mac = {"fdl_mac": fft_conv.fdl_mac}
+    mac = {name: getattr(fft_conv, name)
+           for name in ("rfft_pack", "fdl_mac", "irfft_crop", "splice")}
     for label, words, block, wrappers in (
         ("fir 64k -b 65536 (OLS)", ["fir", str(f64k)], 65536, mac),
         ("fir 64k -b 2048 (Upols, K = 32)", ["fir", str(f64k)], 2048, mac),
@@ -430,16 +508,19 @@ def main():
         return 1
 
     records = {
-        name: {"name": name, "route": "cuda", "source": f"dsp_tpu_torch/csrc/{name}.cu",
+        name: {"name": name, "route": "cuda", "source": f"dsp_tpu_torch/csrc/{src}.cu",
                "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
                "ms": None, "plain_ms": None, "timed_at": timed_at}
-        for name, replaces, timed_at in (
-            ("lti_blocked", "dsp_tpu/ops/iir.py:566", "B=2048"),
-            ("biquad_scan", "dsp_tpu/ops/iir.py:77", "B=2048"),
-            ("fdl_mac", "dsp_tpu/ops/fft_conv.py:85,137,204", "K=32, NB=2049, C=2"),
+        for name, src, replaces, timed_at in (
+            ("lti_blocked", "lti_blocked", "dsp_tpu/ops/iir.py:566", "B=2048"),
+            ("biquad_scan", "biquad_scan", "dsp_tpu/ops/iir.py:77", "B=2048"),
+            ("rfft_pack", "fft_conv", "dsp_tpu/ops/fft_conv.py:85,137,204", "N=4096, C=2"),
+            ("fdl_mac", "fdl_mac", "dsp_tpu/ops/fft_conv.py:85,137,204", "K=32, NB=2049, C=2"),
+            ("irfft_crop", "fft_conv", "dsp_tpu/ops/fft_conv.py:85,137,204", "N=4096, C=2"),
+            ("splice", "fft_conv", "dsp_tpu/ops/fft_conv.py:85,137,204", "L=2048, C=2"),
         )
     }
-    tmp = ROOT / ".smoke_tmp"
+    tmp = ROOT / ".smoke_tmp" / "run"  # removed at the end; scratch scripts may sit beside it
     try:
         print(card_info())
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -447,7 +528,8 @@ def main():
         build_kernels()
         kernel_phases(records)
         fdl_mac_phase(records["fdl_mac"])
-        tmp.mkdir(exist_ok=True)
+        step_kernels_phase(records)
+        tmp.mkdir(parents=True, exist_ok=True)
         f1m = main_path(records, SECONDS, tmp)
         nupols_no_sync(f1m)
     except SmokeError as e:

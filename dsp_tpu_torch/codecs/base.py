@@ -169,7 +169,7 @@ def print_all_codecs(file=None):
 
 def _register_builtins():
     # imports at call time to avoid cycles; order = codec.c's table order.
-    # Only null, pcm (with raw and wavpipe) and wav are ported so far: sgen,
+    # Only null, pcm (with raw) and wav are ported so far: wavpipe, sgen,
     # sndfile, ffmpeg, mp3 and the device codecs (alsa, pulse, ao) come in
     # later slices, and the fallback probes above skip the names that are
     # not registered.

@@ -1,15 +1,12 @@
-"""pcm (raw headerless) and wavpipe codecs (reference: pcm.c).
+"""pcm (raw headerless) codec (reference: pcm.c).
 
 ``pcm``/``raw``: raw interleaved samples in any supported encoding; seekable
-when backed by a regular file. ``wavpipe``: write-only streaming WAV whose
-header carries 0xFFFFFFFF sizes so it can be written to a pipe (pcm.c:98-142).
-Reads go through Python file I/O (dsp_tpu's optional native prefetching
+when backed by a regular file. Reads go through Python file I/O (dsp_tpu's optional native prefetching
 reader is not ported).
 """
 
 import io
 import os
-import struct
 import sys
 
 import numpy as np
@@ -106,64 +103,6 @@ class PcmCodec(Codec):
             self._f.close()
 
 
-_WAVPIPE_ENCODINGS = ("s16", "u8", "s24_3", "s32", "float", "double")
-
-
-class WavPipeCodec(Codec):
-    """Write-only streaming WAV: header sizes 0xFFFFFFFF, written once."""
-
-    def __init__(self, params):
-        if params.mode != CODEC_MODE_WRITE:
-            raise CodecError("wavpipe: write only")
-        enc = params.enc or "s16"
-        if enc not in _WAVPIPE_ENCODINGS:
-            raise CodecError(f"wavpipe: unsupported encoding: {enc}")
-        self.path = params.path
-        self.type = "wavpipe"
-        self.enc = enc
-        self.fs = params.fs
-        self.channels = params.channels
-        bps, prec, can_dither = sampleconv.encoding_info(enc)
-        self._bps = bps
-        self.prec = prec
-        self.hints = CODEC_HINT_CAN_DITHER if can_dither else 0
-        self.buf_ratio = params.buf_ratio
-        self.frames = -1
-        self._f, _ = _open_file(params.path, "wb")
-        self._wrote_header = False
-        self._pos = 0
-
-    def _write_header(self):
-        fmt = 3 if self.enc in ("float", "double") else 1
-        block_align = self._bps * self.channels
-        hdr = b"RIFF" + struct.pack("<I", 0xFFFFFFFF) + b"WAVE"
-        hdr += b"fmt " + struct.pack(
-            "<IHHIIHH",
-            16,
-            fmt,
-            self.channels,
-            self.fs,
-            self.fs * block_align,
-            block_align,
-            self._bps * 8,
-        )
-        hdr += b"data" + struct.pack("<I", 0xFFFFFFFF)
-        self._f.write(hdr)
-        self._wrote_header = True
-
-    def write(self, buf):
-        if not self._wrote_header:
-            self._write_header()
-        data = sampleconv.sample_to_raw(np.asarray(buf).reshape(-1), self.enc, "<")
-        self._f.write(data)
-        self._pos += len(buf)
-        return len(buf)
-
-    def close(self):
-        if self._f is not getattr(sys.stdout, "buffer", None):
-            self._f.close()
-
-
 register_codec(
     CodecInfo(
         name="pcm",
@@ -179,13 +118,5 @@ register_codec(
         modes=CODEC_MODE_READ | CODEC_MODE_WRITE,
         init=PcmCodec,
         encodings=_PCM_ENCODINGS,
-    )
-)
-register_codec(
-    CodecInfo(
-        name="wavpipe",
-        modes=CODEC_MODE_WRITE,
-        init=WavPipeCodec,
-        encodings=_WAVPIPE_ENCODINGS,
     )
 )

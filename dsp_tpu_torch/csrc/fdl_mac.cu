@@ -4,8 +4,8 @@
 // Replaces the work between the transforms of three TPU functions of
 // dsp_tpu/ops/fft_conv.py: `OlsConv.step` (:85, the product X*H at :99),
 // `UpolsConv.step` (:137, the FDL shift and MAC at :146-151) and
-// `NupolsConv.step` (:204, the tail's at :226-233). For every bin f and
-// channel c:
+// `NupolsConv.step` (:204, the tail's at :226-233); the transforms and
+// copies around it are csrc/fft_conv.cu. For every bin f and channel c:
 //   Y[f, c]       = X[f, c] H[0, f, c] + sum_{k=1..K-1} FDL_in[k-1, f, c] H[k, f, c]
 //   FDL_out[0]    = X,   FDL_out[k] = FDL_in[k-1]   (k = 1..K-1)
 // X, Y are [NB, C]; H, FDL_in, FDL_out are [K, NB, C] complex128, the FDL as

@@ -194,16 +194,13 @@ class ChannelPick:
     """Gather and scatter of the selected channels of a [B, C] block: the
     torch form of dsp_tpu's ``x[:, sel_idx]`` and ``x.at[:, sel_idx].set(ys)``.
 
-    All channels in order pass the block itself; a contiguous run is a
-    slice; any other set uses an index tensor made once per device. No step
-    builds an index on the host or reads one back from the device."""
+    All channels in order pass the block itself; any other set uses an
+    index tensor made once per device. No step builds an index on the host
+    or reads one back from the device."""
 
     def __init__(self, sel_idx, channels):
         self.idx = np.asarray(sel_idx, dtype=np.int64)
-        n = len(self.idx)
-        lo = int(self.idx[0]) if n else 0
-        self.all = n == channels and np.array_equal(self.idx, np.arange(channels))
-        self.run = slice(lo, lo + n) if np.array_equal(self.idx, np.arange(lo, lo + n)) else None
+        self.all = len(self.idx) == channels and np.array_equal(self.idx, np.arange(channels))
         self._index = {}
 
     def _index_on(self, device):
@@ -215,15 +212,10 @@ class ChannelPick:
     def take(self, x):
         if self.all:
             return x
-        if self.run is not None:
-            return x[:, self.run].contiguous()
         return x.index_select(1, self._index_on(x.device))
 
     def put(self, x, ys):
         if self.all:
             return ys
         y = x.clone()
-        if self.run is not None:
-            y[:, self.run] = ys
-            return y
         return y.index_copy_(1, self._index_on(x.device), ys)

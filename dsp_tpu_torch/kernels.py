@@ -106,6 +106,13 @@ class _Library:
                 lib.dsp_biquad_scan_f64.restype = i
                 lib.dsp_fdl_mac_c128.argtypes = [p] * 5 + [ctypes.c_longlong, i, p]
                 lib.dsp_fdl_mac_c128.restype = i
+                ll = ctypes.c_longlong
+                lib.dsp_rfft_pack_c128.argtypes = [p, ll, p, ll, p, p, i, i, p]
+                lib.dsp_rfft_pack_c128.restype = i
+                lib.dsp_irfft_crop_c128.argtypes = [p, p, p, ll, ll, p, i, i, p]
+                lib.dsp_irfft_crop_c128.restype = i
+                lib.dsp_splice_f64.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
+                lib.dsp_splice_f64.restype = i
                 lib.dsp_cuda_error_string.argtypes = [i]
                 lib.dsp_cuda_error_string.restype = ctypes.c_char_p
                 self.lib = lib
@@ -159,3 +166,27 @@ def launch_fdl_mac(X, H, fdl_in, Y, fdl_out):
         _stream(X.device),
     )
     _check(rc, "fdl_mac")
+
+
+def launch_rfft_pack(a, x, X, work, N):
+    rc = load().dsp_rfft_pack_c128(
+        _ptr(a), a.shape[0], _ptr(x), x.shape[0], _ptr(X), _ptr(work), N, x.shape[1],
+        _stream(x.device),
+    )
+    _check(rc, "rfft_pack")
+
+
+def launch_irfft_crop(Y, work, out, N, lo, add):
+    rc = load().dsp_irfft_crop_c128(
+        _ptr(Y), _ptr(work), _ptr(out), lo, out.shape[0], _ptr(add), N, Y.shape[1],
+        _stream(Y.device),
+    )
+    _check(rc, "irfft_crop")
+
+
+def launch_splice(a, x, out, lo, shift):
+    rc = load().dsp_splice_f64(
+        _ptr(a), _ptr(x), _ptr(out), out.shape[0], x.shape[0], lo, shift, out.shape[1],
+        _stream(x.device),
+    )
+    _check(rc, "splice")

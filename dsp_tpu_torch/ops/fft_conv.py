@@ -17,13 +17,19 @@ The three engines, their host tables and their state layouts are dsp_tpu's:
 
 The host tables are numpy float64, computed exactly as dsp_tpu computes
 them, so both packages build bit-identical filter spectra from the same
-taps. The transforms go through ``torch.fft`` (cuFFT on the card), along
-axis 0 of [N, C] as in dsp_tpu, because the states depend on that layout.
-cuFFT may hand back a transform along axis 0 in another memory layout, so
-each spectrum is made contiguous before the kernel reads it. The spectral
-work between the transforms is ``fdl_mac``: on a CUDA tensor
-the kernel of csrc/fdl_mac.cu, on a CPU tensor its plain version
-``fdl_mac_ref``.
+taps. A step is four wrappers, each a hand-written kernel on a CUDA tensor
+and its plain PyTorch version (``*_ref``) on a CPU tensor:
+
+* ``rfft_pack`` (csrc/fft_conv.cu): the spectrum of [a | x | 0] at N,
+  along axis 0 of [N, C] as in dsp_tpu, because the states depend on that
+  layout; the pack is the transform's first load.
+* ``fdl_mac`` (csrc/fdl_mac.cu): the FDL shift and the spectral
+  multiply-accumulate.
+* ``irfft_crop`` (csrc/fft_conv.cu): the kept rows of the inverse
+  transform, plus the Nupols tail's contribution, in its last store.
+* ``splice`` (csrc/fft_conv.cu): the carried input (history, previous
+  block, the Nupols stage), always a copy the engine owns, never the
+  caller's block.
 
 Each engine uploads its spectra once per device and dtype (``spectra``):
 an upload per block would copy up to tens of MB host to device every step.
@@ -98,13 +104,14 @@ class OlsConv(_Spectra):
         B = x.shape[0]
         if B != self.B:
             raise ValueError(f"OlsConv: block of {B} frames, built for {self.B}")
-        buf = torch.cat([state.to(x.dtype), x])  # [hist+B, C]
-        X = torch.fft.rfft(buf, n=self.N, dim=0).contiguous()  # zero-padded to N
+        hist = state.to(x.dtype)
+        X = rfft_pack(hist, x, self.N)  # [hist | x] zero-padded to N
         Y, _ = fdl_mac(X, self.spectra("H_dev", x))
-        y = torch.fft.irfft(Y, n=self.N, dim=0)
-        out = y[self.hist : self.hist + B]
-        new_state = buf[-self.hist :] if self.hist > 0 else state
-        return new_state, out
+        out = irfft_crop(Y, self.N, self.hist, B)
+        if self.hist == 0:
+            return state, out
+        # the last hist rows of [hist | x]
+        return splice(hist, x, self.hist, self.hist - B, B), out
 
 
 class UpolsConv(_Spectra):
@@ -136,15 +143,17 @@ class UpolsConv(_Spectra):
             "fdl": np.zeros((self.K, self.B + 1, self.C, 2), dtype=np.float64),
         }
 
-    def step(self, state, x):
+    def step(self, state, x, add=None):
+        """One block; `add` ([B, C] or None) is added to the output (the
+        Nupols tail's contribution)."""
         B = self.B
         if x.shape[0] != B:
             raise ValueError(f"UpolsConv: block of {x.shape[0]} frames, built for {B}")
-        seg = torch.cat([state["prev"].to(x.dtype), x])  # [2B, C]
-        X = torch.fft.rfft(seg, dim=0).contiguous()  # [B+1, C]
+        prev = state["prev"].to(x.dtype)
+        X = rfft_pack(prev, x, self.N)  # [B+1, C]
         Y, fdl = fdl_mac(X, self.spectra("H_dev", x), state["fdl"].to(x.dtype))
-        y = torch.fft.irfft(Y, n=self.N, dim=0)
-        return {"prev": x, "fdl": fdl}, y[B:]
+        out = irfft_crop(Y, self.N, B, B, add)
+        return {"prev": splice(prev, x, B, 0, B), "fdl": fdl}, out
 
 
 class NupolsConv(_Spectra):
@@ -192,20 +201,18 @@ class NupolsConv(_Spectra):
         B, P, m = self.B, self.P, self.m
         if x.shape[0] != B:
             raise ValueError(f"NupolsConv: block of {x.shape[0]} frames, built for {B}")
-        hstate, y_head = self.head.step(state["head"], x)
         i = int(state["cnt"])  # a CPU tensor: no device read
         if not 0 <= i < m:
             raise ValueError(f"NupolsConv: block counter {i} outside [0, {m})")
         off = i * B
-        out = y_head + state["tail_out"][off : off + B].to(x.dtype)
-        stage = state["stage"].to(x.dtype, copy=True)
-        stage[off : off + B] = x
+        tail_seg = state["tail_out"].to(x.dtype)[off : off + B]
+        hstate, out = self.head.step(state["head"], x, add=tail_seg)  # y_head + tail_seg
+        stage = splice(state["stage"].to(x.dtype), x, P, off, 0)  # x written at rows [off, off+B)
         last = i == m - 1
         if last:
-            seg = torch.cat([state["prev_super"].to(x.dtype), stage])  # [2P, C]
-            X = torch.fft.rfft(seg, dim=0).contiguous()  # [P+1, C]
+            X = rfft_pack(state["prev_super"].to(x.dtype), stage, 2 * P)  # [P+1, C]
             Y, tail_fdl = fdl_mac(X, self.spectra("H1_dev", x), state["tail_fdl"].to(x.dtype))
-            tail_out = torch.fft.irfft(Y, n=2 * P, dim=0)[P:]
+            tail_out = irfft_crop(Y, 2 * P, P, P)
             prev_super = stage
         else:
             prev_super, tail_fdl, tail_out = (
@@ -222,7 +229,101 @@ class NupolsConv(_Spectra):
         return new_state, out
 
 
-# --- K5-K7: the spectral multiply-accumulate --------------------------------
+# --- K5-K7: the kernels of a step --------------------------------------------
+
+
+def rfft_pack(a, x, N):
+    """Spectrum [N//2+1, C] of the real signal [a | x | 0] of length N along
+    axis 0 (a: [La, C], may be empty; x: [Lx, C]; La + Lx <= N). CPU
+    tensors run rfft_pack_ref; CUDA tensors launch csrc/fft_conv.cu
+    (float64 only)."""
+    if x.device.type == "cpu":
+        return rfft_pack_ref(a, x, N)
+    from dsp_tpu_torch import kernels
+
+    _check_cuda("rfft_pack", x, (a, torch.float64), (x, torch.float64))
+    if a.shape[1:] != x.shape[1:] or x.dim() != 2 or a.shape[0] + x.shape[0] > N:
+        raise ValueError(f"rfft_pack: a {tuple(a.shape)}, x {tuple(x.shape)} at N = {N}")
+    C = x.shape[1]
+    X = torch.empty((N // 2 + 1, C), dtype=torch.complex128, device=x.device)
+    work = torch.empty((2, N, C), dtype=torch.complex128, device=x.device)
+    kernels.launch_rfft_pack(a, x, X, work, N)
+    rfft_pack.launches += 1
+    return X
+
+
+rfft_pack.launches = 0
+
+
+def rfft_pack_ref(a, x, N):
+    """Plain PyTorch version of rfft_pack: dsp_tpu's concatenate, then rfft."""
+    return torch.fft.rfft(torch.cat([a, x]), n=N, dim=0)
+
+
+def irfft_crop(Y, N, lo, L, add=None):
+    """Rows [lo, lo+L) of irfft(Y, n=N) along axis 0 (Y: [N//2+1, C]),
+    plus `add` ([L, C]) when given: [L, C] real. CPU tensors run
+    irfft_crop_ref; CUDA tensors launch csrc/fft_conv.cu (complex128
+    only)."""
+    if Y.device.type == "cpu":
+        return irfft_crop_ref(Y, N, lo, L, add)
+    from dsp_tpu_torch import kernels
+
+    checks = [(Y, torch.complex128)] + ([] if add is None else [(add, torch.float64)])
+    _check_cuda("irfft_crop", Y, *checks)
+    C = Y.shape[1]
+    if Y.dim() != 2 or Y.shape[0] != N // 2 + 1 or not (0 <= lo and L > 0 and lo + L <= N):
+        raise ValueError(f"irfft_crop: Y {tuple(Y.shape)}, rows [{lo}, {lo + L}) at N = {N}")
+    if add is not None and tuple(add.shape) != (L, C):
+        raise ValueError(f"irfft_crop: add {tuple(add.shape)}, expected {(L, C)}")
+    out = torch.empty((L, C), dtype=torch.float64, device=Y.device)
+    work = torch.empty((2, N, C), dtype=torch.complex128, device=Y.device)
+    kernels.launch_irfft_crop(Y, work, out, N, lo, add)
+    irfft_crop.launches += 1
+    return out
+
+
+irfft_crop.launches = 0
+
+
+def irfft_crop_ref(Y, N, lo, L, add=None):
+    """Plain PyTorch version of irfft_crop: dsp_tpu's irfft, slice, add."""
+    y = torch.fft.irfft(Y, n=N, dim=0)[lo : lo + L]
+    return y if add is None else y + add
+
+
+def splice(a, x, L, lo, shift):
+    """[L, C] with out[n] = x[n - lo] for lo <= n < lo + len(x), else
+    a[n + shift]: the last L rows of [a | x] (lo = L - len(x),
+    shift = len(a) + len(x) - L), or a copy of a with x written at row lo
+    (shift = 0). Always a new tensor. CPU tensors run splice_ref; CUDA
+    tensors launch csrc/fft_conv.cu (float64 only)."""
+    if x.device.type == "cpu":
+        return splice_ref(a, x, L, lo, shift)
+    from dsp_tpu_torch import kernels
+
+    _check_cuda("splice", x, (a, torch.float64), (x, torch.float64))
+    # the rows of out read from a: [0, lo) and [lo + len(x), L)
+    reads = ((0, min(lo, L)), (max(lo + x.shape[0], 0), L))
+    if a.shape[1:] != x.shape[1:] or x.dim() != 2 or L <= 0 or any(
+        n0 < n1 and not (0 <= n0 + shift and n1 + shift <= a.shape[0]) for n0, n1 in reads
+    ):
+        raise ValueError(f"splice: a {tuple(a.shape)}, x {tuple(x.shape)}, L {L}, "
+                         f"lo {lo}, shift {shift}")
+    out = torch.empty((L, x.shape[1]), dtype=torch.float64, device=x.device)
+    kernels.launch_splice(a, x, out, lo, shift)
+    splice.launches += 1
+    return out
+
+
+splice.launches = 0
+
+
+def splice_ref(a, x, L, lo, shift):
+    """Plain PyTorch version of splice: slices of a and x, concatenated."""
+    lo_c = min(max(lo, 0), L)
+    hi_c = min(max(lo + x.shape[0], 0), L)
+    return torch.cat([a[shift : shift + lo_c], x[lo_c - lo : hi_c - lo], a[hi_c + shift : L + shift]])
 
 
 def fdl_mac(X, H, fdl_in=None):
@@ -240,7 +341,10 @@ def fdl_mac(X, H, fdl_in=None):
         return fdl_mac_ref(X, H, fdl_in)
     from dsp_tpu_torch import kernels
 
-    _check_fdl_mac(X, H, fdl_in)
+    _check_cuda("fdl_mac", X, *[(t, dt) for t, dt in (
+        (X, torch.complex128), (H, torch.complex128), (fdl_in, torch.float64)) if t is not None],
+        align=16)  # the (re, im) pairs of fdl_in are read as double2
+    _check_fdl_mac_shapes(X, H, fdl_in)
     Y = torch.empty_like(X)
     fdl_out = None if fdl_in is None else torch.empty_like(fdl_in)
     kernels.launch_fdl_mac(X, H, fdl_in, Y, fdl_out)
@@ -262,10 +366,23 @@ def fdl_mac_ref(X, H, fdl_in=None):
     return (fdl * H).sum(dim=0), torch.view_as_real(fdl)
 
 
-def _check_fdl_mac(X, H, fdl_in):
-    """Raise unless the tensors fit the CUDA kernel."""
-    if X.device.type != "cuda":
-        raise ValueError(f"fdl_mac: no kernel for device {X.device}")
+def _check_cuda(name, like, *tensors, align=8):
+    """Raise unless every (tensor, dtype) pair is on `like`'s CUDA device,
+    of that dtype, contiguous and aligned to its element and to `align`
+    bytes."""
+    if like.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {like.device}")
+    for t, dtype in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
+        if t.device != like.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {like.device}")
+        if not t.is_contiguous() or t.data_ptr() % max(t.element_size(), align):
+            raise ValueError(f"{name}: tensors must be contiguous and {align}-byte aligned")
+
+
+def _check_fdl_mac_shapes(X, H, fdl_in):
+    """Raise unless the shapes fit the fdl_mac kernel."""
     if X.dim() != 2 or H.dim() != 3 or tuple(H.shape[1:]) != tuple(X.shape):
         raise ValueError(f"fdl_mac: X {tuple(X.shape)} and H {tuple(H.shape)} do not fit")
     NB, C = X.shape
@@ -275,13 +392,3 @@ def _check_fdl_mac(X, H, fdl_in):
             raise ValueError(f"fdl_mac: no delay line given for K = {K}")
     elif tuple(fdl_in.shape) != (K, NB, C, 2):
         raise ValueError(f"fdl_mac: fdl {tuple(fdl_in.shape)}, expected {(K, NB, C, 2)}")
-    tensors = [(X, torch.complex128), (H, torch.complex128)]
-    if fdl_in is not None:
-        tensors.append((fdl_in, torch.float64))
-    for t, dtype in tensors:
-        if t.dtype != dtype:
-            raise TypeError(f"fdl_mac: the kernel takes {dtype}, got {t.dtype}")
-        if t.device != X.device:
-            raise ValueError(f"fdl_mac: tensors on {t.device} and {X.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("fdl_mac: tensors must be contiguous and 16-byte aligned")

@@ -186,6 +186,48 @@ def test_fdl_mac_ref_matches_einsum(K, NB, C):
         assert _err(Y1.numpy().real, want.real) <= 1e-12 and _err(Y1.numpy().imag, want.imag) <= 1e-12
 
 
+@pytest.mark.parametrize("N, La, Lx", [(1, 0, 1), (12, 3, 5), (30, 0, 30), (98, 40, 40), (600, 299, 64)])
+def test_rfft_pack_and_irfft_crop_refs_match_numpy(N, La, Lx):
+    rng = np.random.default_rng(N + La)
+    a, x = rng.standard_normal((La, 2)), rng.standard_normal((Lx, 2))
+    want = np.fft.rfft(np.concatenate([a, x, np.zeros((N - La - Lx, 2))]), axis=0)
+    X = tfc.rfft_pack(torch.as_tensor(a), torch.as_tensor(x), N)
+    assert tuple(X.shape) == (N // 2 + 1, 2)
+    assert _err(X.numpy().real, want.real) <= 1e-12 and _err(X.numpy().imag, want.imag) <= 1e-12
+    lo, L = N // 3, N - N // 3
+    add = rng.standard_normal((L, 2))
+    y = np.fft.irfft(want, n=N, axis=0)[lo : lo + L]
+    assert _err(tfc.irfft_crop(X, N, lo, L), y) <= 1e-12
+    assert _err(tfc.irfft_crop(X, N, lo, L, torch.as_tensor(add)), y + add) <= 1e-12
+
+
+# (La, Lx, L, lo, shift): the engines' three uses of splice
+SPLICES = {
+    "history_shorter_than_block": (5, 8, 5, 5 - 8, 8),  # OlsConv, hist < B
+    "history_longer_than_block": (20, 8, 20, 20 - 8, 8),  # OlsConv, hist > B
+    "previous_block": (8, 8, 8, 0, 8),  # UpolsConv's prev
+    "stage_first": (32, 8, 32, 0, 0),  # NupolsConv's stage write
+    "stage_middle": (32, 8, 32, 16, 0),
+    "stage_last": (32, 8, 32, 24, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLICES))
+def test_splice_ref_matches_numpy(case):
+    La, Lx, L, lo, shift = SPLICES[case]
+    rng = np.random.default_rng(La * Lx + lo)
+    a, x = rng.standard_normal((La, 3)), rng.standard_normal((Lx, 3))
+    if shift:  # the last L rows of [a | x]
+        want = np.concatenate([a, x])[-L:]
+    else:  # a with x written at row lo
+        want = a.copy()
+        want[lo : lo + Lx] = x
+    at, xt = torch.as_tensor(a), torch.as_tensor(x)
+    out = tfc.splice(at, xt, L, lo, shift)
+    np.testing.assert_array_equal(out.numpy(), want)
+    assert out.data_ptr() not in (at.data_ptr(), xt.data_ptr())  # always a copy
+
+
 def test_fdl_mac_has_no_fallback_off_the_cpu():
     """A tensor that is neither on the CPU nor on a CUDA card gets no plain
     version: the wrapper checks for the kernel and raises."""
@@ -196,3 +238,16 @@ def test_fdl_mac_has_no_fallback_off_the_cpu():
     with pytest.raises(ValueError, match="no delay line"):
         tfc.fdl_mac_ref(torch.zeros(5, 2, dtype=torch.complex128),
                         torch.zeros(2, 5, 2, dtype=torch.complex128))
+
+
+@pytest.mark.parametrize("wrapper", ["rfft_pack", "irfft_crop", "splice"])
+def test_step_kernels_have_no_fallback_off_the_cpu(wrapper):
+    x = torch.zeros((8, 2), dtype=torch.float64, device="meta")
+    Y = torch.zeros((9, 2), dtype=torch.complex128, device="meta")
+    call = {
+        "rfft_pack": lambda: tfc.rfft_pack(x, x, 16),
+        "irfft_crop": lambda: tfc.irfft_crop(Y, 16, 8, 8),
+        "splice": lambda: tfc.splice(x, x, 8, 0, 8),
+    }[wrapper]
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        call()

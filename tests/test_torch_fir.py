@@ -72,6 +72,30 @@ def test_chain_matches_dsp_tpu(name, tmp_path):
         assert err <= limit, f"block {block}: {err:.1f} dBFS above {limit}"
 
 
+@pytest.mark.parametrize(
+    "spec, block",
+    [("fir coefs:0.5,0.25,-0.125", 64),  # OLS
+     (f"fir coefs:{_coefs(np.random.default_rng(3), 300)}", 32),  # Upols
+     (f"fir_p coefs:{_coefs(np.random.default_rng(4), 3000)}", 16),  # Nupols
+     ("decorrelate -s 7", 256)],
+    ids=["ols", "upols", "nupols", "decorrelate"],
+)
+def test_run_block_owns_its_state(spec, block):
+    """A caller that refills one input buffer between run_block calls gets
+    the same output as one that passes fresh arrays: no engine keeps the
+    caller's block as its state."""
+    x = stereo_signal(0.1, seed=5)[: 12 * block]
+    fresh, reused = port_chain(spec, block), port_chain(spec, block)
+    buf = np.empty((block, 2))
+    for i in range(12):
+        blk = x[i * block : (i + 1) * block]
+        want = fresh.run_block(blk.copy()).numpy()
+        buf[:] = blk
+        got = reused.run_block(buf).numpy()
+        buf[:] = 0.0
+        np.testing.assert_array_equal(got, want)
+
+
 def test_crossover_runs_the_slice_kernels_path():
     """The shipped crossover: 2 channels in, 4 out, a remix, the forward
     biquads fused into one K1 cascade's effect and the time-reversed ones
