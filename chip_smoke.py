@@ -9,22 +9,37 @@ nvcc and PyTorch built for CUDA. It
 1. prints the card's name and power limit (nvidia-smi) and builds the CUDA
    kernels from dsp_tpu_torch/csrc with nvcc;
 2. runs each kernel (K1 lti_blocked, K2 biquad_scan; K5-K7 rfft_pack,
-   fdl_mac, irfft_crop and splice) against its plain PyTorch version on the
-   card, on the same inputs at the main path's shapes, fails above
-   -200 dBFS, and times both with CUDA events;
+   fdl_mac, irfft_crop and splice; K14 mod_delay, K15 tpdf_dither, K16
+   stats_step, K17 levels_step and K18-noise tpdf_noise) against its plain
+   PyTorch version on the same inputs at the main path's shapes: the
+   earlier slices' within -200 dBFS, slice C's equal (noise, dither, the
+   stats decisions), within 1e-12 relative (sums, levels) or -280 dBFS (the
+   modulated read). Times each kernel, its plain version and, where one
+   PyTorch call computes the same function, that call, with CUDA events,
+   and computes each kernel's roofline bound from its shapes;
 3. writes 300 s of stereo 44.1 kHz float64 wav (seeded noise plus sines), a
    full track, and runs the port's CLI on it file to file: the flagship
    chain at the default block (2048) and at -b 65536; then the FFT
    convolution paths, with seeded flat-noise filters it writes itself:
    `fir` 64k taps at -b 65536 (OLS) and 2048 (Upols), `fir_p` 1M taps at
    2048 (Nupols) and -b 65536 (Upols), and the shipped linear-phase
-   crossover example (remix, forward and time-reversed biquads). Each run
-   must produce the expected frame count, launch its kernels (their launch
-   counts are zeroed just before the run), and match the port's CPU run on
-   the first 10 s within -200 dBFS;
-4. runs 96 blocks of the Nupols path (fir_p 1M at B = 2048) with the input
-   on the card under torch.cuda.set_sync_debug_mode("error"): a step must
-   not wait on the device;
+   crossover example (remix, forward and time-reversed biquads); then
+   slice C's two chains at the default block: "delivery" to s16 (gain,
+   a Thiran-fractional delay on one channel, lipshitz dither at auto 16
+   bits, stats -i) and "modulated" to double (delay -M q2, noise, sloped2
+   dither, stats, levels). Each run must produce the expected frame count,
+   launch its kernels (their launch counts are zeroed just before the run),
+   and match the port's CPU run on the first 10 s: within -200 dBFS, the
+   delivery chain's s16 samples exactly, the modulated chain within -280
+   dBFS (numpy's global generator is seeded alike before both runs, so
+   both draw the same keys). The delivery chain's stats table, from a
+   card run and a CPU run of the CLI on the first 10 s, must be equal
+   character for character;
+4. runs 96 blocks of the Nupols path (fir_p 1M at B = 2048), and 320 of the
+   delivery chain, with the input on the card under
+   torch.cuda.set_sync_debug_mode("error"): a step must not wait on the
+   device; then times 256 blocks of each slice C chain and profiles them
+   (torch.profiler: device time a block by kernel, the device's share);
 5. prints the kernels' record as one JSON line, then as the last line
    {"ok": true, "device": {...}}.
 
@@ -59,8 +74,32 @@ SECONDS = 300  # the main path's input: a full track
 CROSSOVER = ROOT / "examples" / "crossover_lr4_2kHz_riir_linphase"
 
 
+# slice C's chains (section 4 of its plan): a CD master to s16 with a
+# speaker-distance fractional delay, and a modulated, dithered double render
+DELIVERY = "gain -1 :1 delay -f 0.37m : dither lipshitz stats -i"
+MODULATED = "delay -M 0.5m -q 2 10m noise -90 dither sloped2 16 stats levels"
+SLICE_C_SEED = 20263  # numpy's global generator, seeded before each run
+# the roofline's two rates: NVIDIA's H100 SXM data sheet, float64 outside
+# the tensor cores, and HBM3
+F64_PEAK = 34e12
+HBM_BYTES_PER_S = 3.35e12
+
+
 class SmokeError(Exception):
     pass
+
+
+def bound(nbytes, flops):
+    """The least time the card could take: bytes (each input read and each
+    output written once) over the memory rate, or float64 operations over
+    the float64 peak, whichever is larger. Returns (ms, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F64_PEAK
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def set_times(rec, ms, plain_ms, nbytes, flops, library_ms=None):
+    rec["ms"], rec["plain_ms"], rec["library_ms"] = ms, plain_ms, library_ms
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
 
 
 def dbfs(err):
@@ -164,7 +203,12 @@ def kernel_phases(records):
         print(f"  B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         k1["max_abs_err"] = max(k1["max_abs_err"], err)
         if B == 2048:
-            k1["ms"], k1["plain_ms"] = ms, plain_ms
+            # x and y, the state in and out, the tables h, V, P, A^L, c0;
+            # per chunk and channel the L-tap FIR, V·x, P·s and the carry
+            n, C, L = plan.n, plan.C, plan.L
+            nbytes = 8 * (2 * B * C + 4 * C * n + C * L + 2 * C * n * L + C * n * n + C)
+            flops = 2 * C * (B // L) * (L * (L - 1) // 2 + 2 * n * L + n * n) + 2 * B * C
+            set_times(k1, ms, plain_ms, nbytes, flops)
 
     print("K2 biquad_scan")
     for label, (A, Bv, c0) in scans.items():
@@ -184,7 +228,10 @@ def kernel_phases(records):
                 plain_ms = cuda_ms(lambda: iir.biquad_scan_ref(A_t, Bv_t, c0_t, st, x), 5)
                 print(f"  {label} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
                 if B == 2048 and label.startswith("crossfeed"):
-                    k2["ms"], k2["plain_ms"] = ms, plain_ms
+                    # x and y, A, Bv, c0, the state in and out; 10 operations
+                    # a sample and lane, in a chain of B dependent steps
+                    nbytes = 8 * (2 * B * C + 4 * C + 2 * C + C + 4 * C)
+                    set_times(k2, ms, plain_ms, nbytes, 10 * B * C)
 
 
 # (K, NB) of each fdl_mac call on the main path, C = 2 throughout
@@ -239,7 +286,8 @@ def fdl_mac_phase(rec):
               f"plain {plain_ms:.4f} ms")
         rec["times"].append({"K": K, "NB": NB, "ms": ms, "plain_ms": plain_ms})
         if (K, NB) == (32, 2049):
-            rec["ms"], rec["plain_ms"] = ms, plain_ms
+            # X, H and the FDL in; Y and the FDL out; a complex MAC is 8
+            set_times(rec, ms, plain_ms, 16 * NB * CHANNELS * (3 * K + 2), 8 * K * NB * CHANNELS)
 
 
 # One FFT-convolution step of each engine on the main path:
@@ -291,17 +339,28 @@ def step_kernels_phase(records):
             check_close(f"{name} N={N} C={C} ({what}) kernel vs plain", err)
             rec = records[name]
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        packed = torch.cat([a, x])
         timed = {
-            "rfft_pack": (lambda: fc.rfft_pack(a, x, N), lambda: fc.rfft_pack_ref(a, x, N)),
+            # (kernel, plain version, the one torch call: rfft of the
+            # packed [a | x | 0]; irfft then the slice)
+            "rfft_pack": (lambda: fc.rfft_pack(a, x, N), lambda: fc.rfft_pack_ref(a, x, N),
+                          lambda: torch.fft.rfft(packed, n=N, dim=0)),
             "irfft_crop": (lambda: fc.irfft_crop(X_r, N, lo, L, add),
-                           lambda: fc.irfft_crop_ref(X_r, N, lo, L, add)),
+                           lambda: fc.irfft_crop_ref(X_r, N, lo, L, add),
+                           lambda: torch.fft.irfft(X_r, n=N, dim=0)[lo:lo + L]),
         }
-        for name, (kern, plain) in timed.items():
-            ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 50)
-            print(f"  {name} N={N} C={C}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            records[name]["times"].append({"N": N, "C": C, "ms": ms, "plain_ms": plain_ms})
+        # a real FFT of N points is about 2.5·N·log2(N) operations a channel
+        fft_flops = 2.5 * N * math.log2(N) * C
+        io = {"rfft_pack": 8 * (La + Lx) * C + 16 * (N // 2 + 1) * C,
+              "irfft_crop": 16 * (N // 2 + 1) * C + 8 * L * C * (2 if with_add else 1)}
+        for name, (kern, plain, lib) in timed.items():
+            ms, plain_ms, lib_ms = cuda_ms(kern, 50), cuda_ms(plain, 50), cuda_ms(lib, 50)
+            print(f"  {name} N={N} C={C}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"torch.fft {lib_ms:.4f} ms")
+            records[name]["times"].append({"N": N, "C": C, "ms": ms, "plain_ms": plain_ms,
+                                           "library_ms": lib_ms})
             if (N, C, with_add) == (4096, 2, False):
-                records[name]["ms"], records[name]["plain_ms"] = ms, plain_ms
+                set_times(records[name], ms, plain_ms, io[name], fft_flops, lib_ms)
     print("K5-K7 splice (float64)")
     rec = records["splice"]
     for what, C, La, Lx, L, lo, shift in SPLICE_SHAPES:
@@ -312,10 +371,211 @@ def step_kernels_phase(records):
             raise SmokeError(f"splice ({what}): kernel and plain version differ")
         ms = cuda_ms(lambda: fc.splice(a, x, L, lo, shift), 50)
         plain_ms = cuda_ms(lambda: fc.splice_ref(a, x, L, lo, shift), 50)
-        print(f"  splice L={L} ({what}): equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        rec["times"].append({"L": L, "ms": ms, "plain_ms": plain_ms})
+        # the one torch call: torch.cat of the same slices
+        lo_c, hi_c = min(max(lo, 0), L), min(max(lo + x.shape[0], 0), L)
+        parts = (a[shift:shift + lo_c], x[lo_c - lo:hi_c - lo], a[hi_c + shift:L + shift])
+        lib_ms = cuda_ms(lambda: torch.cat(parts), 50)
+        print(f"  splice L={L} ({what}): equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.cat {lib_ms:.4f} ms")
+        rec["times"].append({"L": L, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms})
         if L == 2048:
-            rec["ms"], rec["plain_ms"] = ms, plain_ms
+            set_times(rec, ms, plain_ms, 2 * 8 * L * C, 0, lib_ms)
+
+
+def _to_cpu(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def _diff(a, b):
+    """max |a - b| over two tensors (compared on the host)."""
+    a, b = a.cpu(), b.cpu()
+    if a.dtype.is_floating_point:
+        return float((a - b).abs().max()) if a.numel() else 0.0
+    return float((a.to(float) - b.to(float)).abs().max()) if a.numel() else 0.0
+
+
+def _require(what, ok):
+    if not ok:
+        raise SmokeError(what)
+
+
+def time_domain_phase(records):
+    """Slice C's kernels against their plain versions at the main path's
+    shape (B = 2048, stereo): the plain version runs on a host copy of the
+    same inputs, which the CPU tests hold to dsp_tpu. Noise, dither, the
+    stats decisions and the -i estimator's state must come out equal; the
+    stats sums and the levels meters within 1e-12 relative (sums in another
+    order); the modulated read within -280 dBFS. Times kernel and plain
+    version on the card."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.core.prng import prng_key
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.effects.delay import ModDelayEffect
+    from dsp_tpu_torch.effects.dither import DitherEffect
+    from dsp_tpu_torch.effects.stats import StatsEffect
+    from dsp_tpu_torch.ops import time_domain as td
+    from dsp_tpu_torch.ops.fft_conv import splice
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20264)
+    B, C = 2048, CHANNELS
+    f64 = torch.float64
+    x = torch.as_tensor(rng.standard_normal((B, C)) * 0.3, device=dev)
+    x_c = x.cpu()
+    key = prng_key(987654).to(dev)
+
+    print("K18-noise tpdf_noise (threefry, B=2048, stereo)")
+    rec = records["tpdf_noise"]
+    for sel in (None, torch.tensor([True, False], device=dev)):
+        k_k, y_k = td.tpdf_noise(key, x, 1e-3 / 0x7FFFFFFF, sel)
+        k_r, y_r = td.tpdf_noise_ref(key.cpu(), x_c, 1e-3 / 0x7FFFFFFF,
+                                     None if sel is None else sel.cpu())
+        _require("tpdf_noise: kernel and plain version differ",
+                 torch.equal(y_k.cpu(), y_r) and torch.equal(k_k.cpu(), k_r))
+    ms = cuda_ms(lambda: td.tpdf_noise(key, x, 1e-3, None), 50)
+    plain_ms = cuda_ms(lambda: td.tpdf_noise_ref(key, x, 1e-3, None), 10)
+    # x in, y out, the keys; 3 float64 operations a sample (the threefry
+    # integer rounds, ~200 a sample, are not counted)
+    set_times(rec, ms, plain_ms, 16 * B * C + 16, 3 * B * C)
+    print(f"  equal, with and without a channel selection; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms")
+
+    print("K15 tpdf_dither (all six shapes at 16 bits, B=2048, stereo; lipshitz at B=65536)")
+    rec = records["tpdf_dither"]
+    for shape in ("flat", "sloped", "sloped2", "lipshitz", "wan3", "wan9"):
+        for blocks in ((B,) if shape != "lipshitz" else (B, 65536)):
+            e = DitherEffect("dither", StreamInfo(FS, C), np.ones(C, dtype=bool), shape, 16.0, 16,
+                             False, False, seed=4242)
+            xin = torch.as_tensor(rng.standard_normal((blocks, C)) * 0.3, device=dev)
+            args = [torch.as_tensor(v, device=dev) for v in (
+                e.n_mult, e.q_mult0, e.q_mult1, e.enabled, e.fir)]
+            st = {k: torch.as_tensor(v, device=dev) for k, v in e.state0().items()}
+            st["ehist"] = torch.as_tensor(rng.standard_normal((9, C)) * 1e-5, device=dev)
+            st["nprev"] = torch.as_tensor(rng.uniform(0, 0x7FFFFFFF, C), device=dev)
+
+            def run_k():
+                return td.tpdf_dither(st["key"], xin, st["ehist"], st["nprev"], *args, e.mode)
+
+            out_k = run_k()
+            out_r = td.tpdf_dither_ref(*_to_cpu([st["key"], xin, st["ehist"], st["nprev"], *args]),
+                                       e.mode)
+            torch.cuda.synchronize()
+            for what, a, b in zip(("key", "ehist", "nprev", "y"), out_k, out_r):
+                _require(f"tpdf_dither {shape} B={blocks}: {what} differs from the plain version",
+                         torch.equal(a.cpu(), b.cpu()))
+            if shape == "lipshitz" and blocks == B:
+                ms = cuda_ms(run_k, 50)
+                plain_ms = cuda_ms(lambda: td.tpdf_dither_ref(
+                    st["key"], xin, st["ehist"], st["nprev"], *args, e.mode), 2)
+                # x in, y out, the states; 2 operations a sample for the
+                # noise, 23 for the 9-tap feedback quantizer; each channel
+                # is a chain of B dependent steps
+                set_times(rec, ms, plain_ms, 16 * B * C + 8 * C * 22 + 16, 25 * B * C)
+                print(f"  lipshitz B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                      f"(a chain of {B} samples a channel)")
+        print(f"  {shape}: key, ehist, nprev and y equal")
+
+    print("K16 stats_step (B=2048, stereo, quantized input; 3 blocks, a limit in the third)")
+    rec = records["stats_step"]
+    rec["times"] = []
+    q = torch.as_tensor(np.round(rng.standard_normal((3, B, C)) * 0.3 * 32768) / 32768, device=dev)
+    for interp in (False, True):
+        e = StatsEffect("stats", StreamInfo(FS, C), np.ones(C, dtype=bool), None, 80, interp)
+        table = torch.as_tensor(e._insert_table, device=dev) if interp else None
+        st = {k: torch.as_tensor(v, device=dev) for k, v in e.state0().items()}
+        sr = _to_cpu(st)
+        for blk in range(3):
+            if blk == 2:
+                st["limit"] = torch.tensor(2 * B + 1000, device=dev)
+                sr["limit"] = st["limit"].cpu()
+            st = td.stats_step(st, q[blk], table)
+            sr = td.stats_step_ref(sr, q[blk].cpu(), None if table is None else table.cpu())
+            torch.cuda.synchronize()
+            for k in st:
+                d = _diff(st[k], sr[k])
+                if k in ("sum", "sum_sq"):
+                    ok = d <= 1e-12 * max(1.0, float(sr[k].abs().max()))
+                    rec["max_abs_err"] = max(rec["max_abs_err"], d)
+                else:
+                    ok = d == 0.0
+                _require(f"stats_step {'-i' if interp else 'plain'} block {blk}: {k} differs "
+                         f"({d:.3e})", ok)
+        s0 = {k: torch.as_tensor(v, device=dev) for k, v in e.state0().items()}
+        ms = cuda_ms(lambda: td.stats_step(s0, q[0], table), 50)
+        plain_ms = cuda_ms(lambda: td.stats_step_ref(s0, q[0], table), 2)  # sets gated_samples
+        state_bytes = 8 * (5 * C * 2 + 2 * C * 2 + 2) + (8 * C * 2 * 81 + 67 * 8 if interp else 0)
+        # the accumulators, 4 operations a sample; -i, a gated sample
+        # (counted on this input) adds 134 for the buffer and direct taps
+        # and 4 fits of about 12; each channel is a chain of B steps
+        flops = 4 * B * C + (182 * td.stats_step_ref.gated_samples if interp else 0)
+        label = "-i" if interp else "plain"
+        print(f"  {label}: decisions and state equal over 3 blocks; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms")
+        rec["times"].append({"mode": label, "ms": ms, "plain_ms": plain_ms})
+        if interp:
+            set_times(rec, ms, plain_ms, 8 * B * C + state_bytes, flops)
+
+    print("K17 levels_step (B=2048, stereo)")
+    rec = records["levels_step"]
+    g = 1.0 - math.exp(-1.0 / (FS * 0.3))
+    st = [torch.as_tensor(rng.uniform(0, 0.1, C), device=dev) for _ in range(3)]
+    out_k = td.levels_step(*st, x, g)
+    out_r = td.levels_step_ref(*_to_cpu(st), x_c, g)
+    for a, b in zip(out_k, out_r):
+        d = _diff(a, b) / float(b.abs().max())
+        _require(f"levels_step: {d:.3e} relative to the plain version", d <= 1e-12)
+        rec["max_abs_err"] = max(rec["max_abs_err"], _diff(a, b))
+    ms = cuda_ms(lambda: td.levels_step(*st, x, g), 50)
+    plain_ms = cuda_ms(lambda: td.levels_step_ref(*st, x, g), 10)
+    set_times(rec, ms, plain_ms, 8 * B * C + 48 * C, 6 * B * C)
+    print(f"  within 1e-12 relative; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+          f"(a chain of {B} samples a channel)")
+
+    print("K14 mod_delay (0.5 ms depth, q0/q1/q2, -m and -M, 3 blocks of 2048, stereo)")
+    rec = records["mod_delay"]
+    limit = 10.0 ** (-280.0 / 20.0)
+    for qual in (0, 1, 2):
+        for mono in (False, True):
+            e = ModDelayEffect("delay", StreamInfo(FS, C), np.ones(C, dtype=bool),
+                               0.5e-3 * FS, 1.0, mono, qual, seed=31337)
+            st = {k: torch.as_tensor(v, device=dev) for k, v in e.state0().items()}
+            table = None if e.table is None else torch.as_tensor(e.table, device=dev)
+            sel = torch.ones(C, dtype=torch.bool, device=dev)
+            H = e.len + e.n_taps
+            for blk in range(3):
+                xin = torch.as_tensor(rng.standard_normal((B, C)) * 0.3, device=dev)
+                args = (st["key"], st["y"], st["t"], st["buf"], xin, sel, table)
+                k_k, y_k, t_k, o_k = td.mod_delay(*args, e.depth, e.step_size, e.n_taps, qual)
+                k_r, y_r, t_r, o_r = td.mod_delay_ref(*_to_cpu(args), e.depth, e.step_size,
+                                                      e.n_taps, qual)
+                torch.cuda.synchronize()
+                err = max(_diff(o_k, o_r), _diff(y_k, y_r), _diff(t_k, t_r))
+                _require(f"mod_delay q{qual} {'-M' if mono else '-m'} block {blk}: key differs",
+                         torch.equal(k_k.cpu(), k_r))
+                _require(f"mod_delay q{qual} block {blk}: {dbfs(err):.1f} dBFS", err <= limit)
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                st = {"key": k_k, "y": y_k, "t": t_k, "buf": splice(st["buf"], xin, H, H - B, B)}
+            if qual == 2 and mono:
+                run = (lambda: td.mod_delay(st["key"], st["y"], st["t"], st["buf"], xin, sel,
+                                            table, e.depth, e.step_size, e.n_taps, qual))
+                ms = cuda_ms(run, 50)
+                plain_ms = cuda_ms(lambda: td.mod_delay_ref(
+                    st["key"], st["y"], st["t"], st["buf"], xin, sel, table, e.depth,
+                    e.step_size, e.n_taps, qual), 10)
+                # x and the line in, y out, the table; the B-spline (~20),
+                # 4 x 32 multiply-adds and the join (~15) a sample
+                nbytes = 8 * (2 * B * C + H * C + table.numel()) + 80
+                set_times(rec, ms, plain_ms, nbytes, (20 + 8 * e.n_taps + 15) * B * C)
+                print(f"  q2 -M: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    print(f"  all within {dbfs(rec['max_abs_err']):.1f} dBFS, keys equal")
 
 
 def write_input(path, seconds):
@@ -376,31 +636,47 @@ def write_filter(path, taps, seed):
         w.close()
 
 
-def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, seconds, tmp):
+def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, seconds, tmp,
+            enc="double", limit_dbfs=LIMIT_DBFS, seed=None):
     """One file-to-file run of dsp-torch on the card. Fails unless it
     writes the expected frame count, launches every kernel in `wrappers`
     (their counts are zeroed just before the run) and matches the port's
-    CPU run on the first COMPARE_SECONDS within LIMIT_DBFS."""
+    CPU run on the first COMPARE_SECONDS within `limit_dbfs` (None: equal).
+    With `seed`, numpy's global generator is seeded before the card run and
+    before the CPU run's chain, which then draws as the CLI does (the
+    chain's init, the output writer's two dither seeds, the effects'
+    initial states). The CPU run's output goes through what the CLI's
+    writer does for `enc`: its dither policy, its app-level dither, the
+    clip and the encoding. Returns what the run wrote to stderr."""
+    import contextlib
+    import io
+
     import numpy as np
 
     from dsp_tpu_torch.chain import CompiledChain, build_chain_from_args
-    from dsp_tpu_torch.chain.chain import expected_out_frames
+    from dsp_tpu_torch.chain.chain import chain_set_dither_params, expected_out_frames
     from dsp_tpu_torch.cli.main import main as cli_main
+    from dsp_tpu_torch.codecs.sampleconv import encoding_info, raw_to_sample, sample_to_raw
+    from dsp_tpu_torch.core.prng import TpdfNoise, tpdf_dither_get_mult
     from dsp_tpu_torch.core.types import StreamInfo
 
     chain = build_chain_from_args(chain_words, StreamInfo(FS, CHANNELS))
     want = expected_out_frames(chain, n_in) - chain.output_discard
     out = tmp / "out.wav"
     argv = (["-b", str(block)] if block != 2048 else []) + [
-        "-q", str(src), "-o", "-e", "double", str(out), *chain_words]
+        "-q", str(src), "-o", "-e", enc, str(out), *chain_words]
     for w in wrappers.values():
         w.launches = 0
+    if seed is not None:
+        np.random.seed(seed)
+    err = io.StringIO()
     t0 = time.perf_counter()
-    rc = cli_main(argv)
+    with contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
     wall = time.perf_counter() - t0
     counts = {name: w.launches for name, w in wrappers.items()}
     if rc != 0:
-        raise SmokeError(f"{label}: dsp-torch exited {rc}")
+        raise SmokeError(f"{label}: dsp-torch exited {rc}: {err.getvalue()[-2000:]}")
     print(f"  {label}: {wall:.3f} s wall, {seconds / wall:.1f}x realtime, launches {counts}")
     for name, c in counts.items():
         if c <= 0:
@@ -409,16 +685,165 @@ def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, secon
     got, y = read_wav(out, COMPARE_SECONDS * FS)
     if got != want:
         raise SmokeError(f"{label}: {got} output frames, expected {want}")
-    cpu = CompiledChain(build_chain_from_args(chain_words, StreamInfo(FS, CHANNELS)), block,
-                        device="cpu")
-    ref = cpu.process_array(head, drain=False)
+    if seed is not None:
+        np.random.seed(seed)
+    chain = build_chain_from_args(chain_words, StreamInfo(FS, CHANNELS))
+    # the output writer's two seeds for its app-level dither, drawn as the
+    # CLI draws them (cli/main.py OutputWriter), and the CLI's dither policy
+    seeds = np.random.randint(1, 1 << 30), np.random.randint(1, 1 << 30)
+    prec, can_dither = encoding_info(enc)[1:]
+    app_dither = chain_set_dither_params(chain, prec, can_dither and prec < 24)
+    ref = CompiledChain(chain, block, device="cpu").process_array(head, drain=False)
+    if app_dither:
+        # the alignment pass can put an align effect after a dither effect
+        # (delivery: the delay's integer part), and then the writer dithers
+        # too, as dsp_tpu's does
+        ref = ref + TpdfNoise(*seeds).block(ref.size, tpdf_dither_get_mult(prec)).reshape(ref.shape)
+    # what the writer stores and read_wav returns: clipped, encoded, decoded
+    ref = raw_to_sample(sample_to_raw(np.clip(ref, -1.0, 1.0), enc), enc).reshape(ref.shape)
     if not np.isfinite(y).all():
         raise SmokeError(f"{label}: non-finite output")
     if len(ref) == 0 or len(y) < len(ref):
         raise SmokeError(f"{label}: {len(y)} frames to compare with {len(ref)} of the CPU run")
-    check_close(f"{label}: first {COMPARE_SECONDS} s vs the port on the CPU",
-                float(np.abs(y[: len(ref)] - ref).max()))
+    what = f"{label}: first {COMPARE_SECONDS} s vs the port on the CPU"
+    diff = float(np.abs(y[: len(ref)] - ref).max())
+    if limit_dbfs is None:
+        print(f"  {what}: max |diff| {diff:.3e}")
+        if diff != 0.0:
+            raise SmokeError(f"{what}: not equal")
+    else:
+        print(f"  {what}: max |diff| {diff:.3e} ({dbfs(diff):.1f} dBFS)")
+        if not dbfs(diff) <= limit_dbfs:
+            raise SmokeError(f"{what}: {dbfs(diff):.1f} dBFS is above {limit_dbfs} dBFS")
     out.unlink()
+    return err.getvalue()
+
+
+def stats_table(text):
+    """The stats table in a run's stderr: the "Channel" row to the blank
+    line after the table, or None."""
+    lines = text.splitlines()
+    start = next((i for i, l in enumerate(lines) if l.startswith("Channel ")), None)
+    if start is None:
+        return None
+    end = next((i for i in range(start, len(lines)) if not lines[i].strip()), len(lines))
+    return "\n".join(lines[start:end])
+
+
+def stats_table_check(head, tmp):
+    """The delivery chain's stats table from the CLI on the card and on the
+    CPU, on the same COMPARE_SECONDS of input: equal character for
+    character (min, max, peak, peak count and frame are exact; the sums
+    print to 8 decimals and 4 of a dB)."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+
+    from dsp_tpu_torch.cli.main import main as cli_main
+    from dsp_tpu_torch.codecs.base import CODEC_MODE_WRITE, CodecParams
+    from dsp_tpu_torch.codecs.wav import WavWriter
+
+    src = tmp / "head.wav"
+    w = WavWriter(CodecParams(path=str(src), enc="double", fs=FS, channels=CHANNELS,
+                              mode=CODEC_MODE_WRITE))
+    try:
+        w.write(head)
+    finally:
+        w.close()
+    tables = {}
+    for device in ("cuda", "cpu"):
+        os.environ["DSP_TPU_TORCH_DEVICE"] = device
+        np.random.seed(SLICE_C_SEED)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli_main(["-q", str(src), "-o", "-e", "s16", str(tmp / "head_out.wav"),
+                           *DELIVERY.split()])
+        if rc != 0:
+            raise SmokeError(f"stats table run on {device}: dsp-torch exited {rc}")
+        tables[device] = stats_table(err.getvalue())
+    os.environ["DSP_TPU_TORCH_DEVICE"] = "cuda"
+    if tables["cuda"] is None or tables["cuda"] != tables["cpu"]:
+        raise SmokeError(f"delivery stats table, card:\n{tables['cuda']}\nCPU:\n{tables['cpu']}")
+    print(f"  delivery stats table on {COMPARE_SECONDS} s: card and CPU equal")
+
+
+def delivery_no_sync():
+    """The delivery chain's step does not synchronise: run_blocks over 320
+    blocks at B = 2048 of input already on the card, under
+    torch.cuda.set_sync_debug_mode("error")."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_args
+    from dsp_tpu_torch.chain.chain import chain_set_dither_params
+    from dsp_tpu_torch.core.types import StreamInfo
+
+    chain = build_chain_from_args(DELIVERY.split(), StreamInfo(FS, CHANNELS))
+    chain_set_dither_params(chain, 16, True)
+    cc = CompiledChain(chain, 2048, device="cuda")
+    rng = np.random.default_rng(12)
+    warm = torch.as_tensor(rng.standard_normal((8, 2048, CHANNELS)) * 0.1, device="cuda")
+    xs = torch.as_tensor(rng.standard_normal((320, 2048, CHANNELS)) * 0.1, device="cuda")
+    cc.run_blocks(warm)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ys = cc.run_blocks(xs)
+    except RuntimeError as e:
+        raise SmokeError(f"the delivery chain's step synchronised: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    if not torch.isfinite(ys).all():
+        raise SmokeError("the delivery chain's run without syncs gave non-finite output")
+    print(f"delivery step: 320 blocks ran with no host sync, stats samples = "
+          f"{int(cc.states[-1]['samples'])}")
+
+
+def profile_chains():
+    """Where a block's time goes in slice C's chains: CompiledChain.run_blocks
+    over 256 blocks of B = 2048 on the card, timed unprofiled (host clock to
+    a synchronize), then under torch.profiler for the device time of each
+    kernel. Prints the step time a block, the device time a block by
+    kernel, and the device's busy share of the unprofiled step."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_args
+    from dsp_tpu_torch.chain.chain import chain_set_dither_params
+    from dsp_tpu_torch.core.types import StreamInfo
+
+    rng = np.random.default_rng(13)
+    n = 256
+    xs = torch.as_tensor(rng.standard_normal((n, 2048, CHANNELS)) * 0.1, device="cuda")
+    for label, words, prec in (("delivery", DELIVERY, 16), ("modulated", MODULATED, 53)):
+        np.random.seed(SLICE_C_SEED)
+        chain = build_chain_from_args(words.split(), StreamInfo(FS, CHANNELS))
+        chain_set_dither_params(chain, prec, prec < 24)
+        cc = CompiledChain(chain, 2048, device="cuda")
+        cc.run_blocks(xs[:8])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cc.run_blocks(xs)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            cc.run_blocks(xs)
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():  # the kernels the card ran, by name
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+        dev_ms = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        print(f"profile {label} (B=2048, {n} blocks): step {step_ms:.4f} ms a block unprofiled, "
+              f"device {dev_ms:.4f} ms a block ({100 * dev_ms / step_ms:.1f}% of the step)")
+        for name, ms in top:
+            print(f"  {ms:.4f} ms ({100 * ms / dev_ms:.1f}%)  {name[:90]}")
 
 
 def main_path(records, seconds, tmp):
@@ -452,6 +877,24 @@ def main_path(records, seconds, tmp):
          {"lti_blocked": iir.lti_blocked, **mac}),
     ):
         cli_run(label, words, block, wrappers, *common)
+
+    from dsp_tpu_torch.ops import time_domain as td
+
+    # slice C: numpy's generator seeded alike before the card and CPU runs
+    err = cli_run("delivery -e s16 -b 2048", DELIVERY.split(), 2048,
+                  {"biquad_scan": iir.biquad_scan, "tpdf_dither": td.tpdf_dither,
+                   "stats_step": td.stats_step},
+                  *common, enc="s16", limit_dbfs=None, seed=SLICE_C_SEED)
+    table = stats_table(err)
+    if table is None:
+        raise SmokeError("the delivery run printed no stats table")
+    print("  " + table.replace("\n", "\n  "))
+    cli_run("modulated -b 2048", MODULATED.split(), 2048,
+            {"mod_delay": td.mod_delay, "splice": fft_conv.splice, "tpdf_noise": td.tpdf_noise,
+             "tpdf_dither": td.tpdf_dither, "stats_step": td.stats_step,
+             "levels_step": td.levels_step},
+            *common, limit_dbfs=-280.0, seed=SLICE_C_SEED)
+    stats_table_check(head, tmp)
     return f1m
 
 
@@ -507,10 +950,12 @@ def main():
               f"not from beside this script", file=sys.stderr)
         return 1
 
+    # library_ms stays null where no one PyTorch call computes the function
     records = {
         name: {"name": name, "route": "cuda", "source": f"dsp_tpu_torch/csrc/{src}.cu",
                "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
-               "ms": None, "plain_ms": None, "timed_at": timed_at}
+               "ms": None, "plain_ms": None, "bound_ms": None, "bound_by": None,
+               "library_ms": None, "timed_at": timed_at}
         for name, src, replaces, timed_at in (
             ("lti_blocked", "lti_blocked", "dsp_tpu/ops/iir.py:566", "B=2048"),
             ("biquad_scan", "biquad_scan", "dsp_tpu/ops/iir.py:77", "B=2048"),
@@ -518,6 +963,11 @@ def main():
             ("fdl_mac", "fdl_mac", "dsp_tpu/ops/fft_conv.py:85,137,204", "K=32, NB=2049, C=2"),
             ("irfft_crop", "fft_conv", "dsp_tpu/ops/fft_conv.py:85,137,204", "N=4096, C=2"),
             ("splice", "fft_conv", "dsp_tpu/ops/fft_conv.py:85,137,204", "L=2048, C=2"),
+            ("mod_delay", "mod_delay", "dsp_tpu/effects/delay.py:292,337", "q2 -M, B=2048, C=2"),
+            ("tpdf_dither", "tpdf", "dsp_tpu/effects/dither.py:107", "lipshitz, B=2048, C=2"),
+            ("tpdf_noise", "tpdf", "dsp_tpu/effects/noise.py:51", "B=2048, C=2"),
+            ("stats_step", "stats", "dsp_tpu/effects/stats.py:159,197,266", "-i, B=2048, C=2"),
+            ("levels_step", "levels", "dsp_tpu/effects/levels.py:62", "B=2048, C=2"),
         )
     }
     tmp = ROOT / ".smoke_tmp" / "run"  # removed at the end; scratch scripts may sit beside it
@@ -529,9 +979,12 @@ def main():
         kernel_phases(records)
         fdl_mac_phase(records["fdl_mac"])
         step_kernels_phase(records)
+        time_domain_phase(records)
         tmp.mkdir(parents=True, exist_ok=True)
         f1m = main_path(records, SECONDS, tmp)
         nupols_no_sync(f1m)
+        delivery_no_sync()
+        profile_chains()
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -23,14 +23,9 @@ from dsp_tpu_torch.effects.base import (
 NOT_PORTED = [
     ("matrix4", "matrix4 [options ...] [surround_level][/surround_level_rear]"),
     ("matrix4_mb", "matrix4_mb [options ...] [surround_level][/surround_level_rear]"),
-    ("delay", "delay [-f[order]] [-m|M depth[s|m|S|%]] [-b bw[k]] [-q quality] delay[s|m|S]"),
     ("resample", "resample [bandwidth] fs[k]|x{mult}|/{div}"),
-    ("noise", "noise level[b]"),
-    ("dither", "dither [shape] [[quantize_bits] bits]"),
     ("ladspa_host", "ladspa_host module_path plugin_label [control ...]"),
-    ("stats", "stats [-i] [-w cols] [ref_level]"),
     ("watch", "watch [-e] [~/]path"),
-    ("levels", "levels [-t time_const]"),
 ]
 
 
@@ -49,6 +44,11 @@ def _register_builtins():
     from dsp_tpu_torch.effects import zita_convolver  # noqa: F401
     from dsp_tpu_torch.effects import hilbert  # noqa: F401
     from dsp_tpu_torch.effects import decorrelate  # noqa: F401
+    from dsp_tpu_torch.effects import delay  # noqa: F401
+    from dsp_tpu_torch.effects import noise  # noqa: F401
+    from dsp_tpu_torch.effects import dither  # noqa: F401
+    from dsp_tpu_torch.effects import stats  # noqa: F401
+    from dsp_tpu_torch.effects import levels  # noqa: F401
 
     for name, usage in NOT_PORTED:
         register_effect(name, usage, _not_ported_init)

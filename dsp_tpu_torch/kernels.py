@@ -1,16 +1,18 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
-runs at first use, never at import, into ``dsp_tpu_torch/_build/<hash>/``,
-keyed by a hash of the sources and flags, so an edited source rebuilds and
-an unchanged one loads the library already built. A missing ``nvcc`` or a
-failed build raises ``KernelBuildError``; nothing falls back.
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` process per ``.cu`` file, all started together, and linked into
+one shared library with a plain C interface, loaded with ``ctypes``. The
+build runs at first use, never at import, into
+``dsp_tpu_torch/_build/<hash>/``, keyed by a hash of the sources (headers
+included) and flags, so an edited source rebuilds and an unchanged one loads
+the library already built. A missing ``nvcc`` or a failed build raises
+``KernelBuildError``; nothing falls back.
 
 Each launch function here takes tensors the caller (``ops/iir.py``,
-``ops/fft_conv.py``) has checked, passes raw pointers and the current
-stream, and raises ``KernelLaunchError`` when the C function returns a CUDA
-error. None of them synchronises or allocates.
+``ops/fft_conv.py``, ``ops/time_domain.py``) has checked, passes raw
+pointers and the current stream, and raises ``KernelLaunchError`` when the C
+function returns a CUDA error. None of them synchronises or allocates.
 """
 
 import ctypes
@@ -29,8 +31,12 @@ BUILD_ROOT = PKG_DIR / "_build"
 LIB_NAME = "libdsp_tpu_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# the dither kernel keeps a block's noise and input in shared memory up to
+# this size (csrc/tpdf.cu holds the same number), else the noise in a
+# scratch tensor
+DITHER_SHARED_BYTES = 200 * 1024
 
 
 class KernelBuildError(RuntimeError):
@@ -67,6 +73,14 @@ def find_nvcc():
     raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+class StatsState(ctypes.Structure):
+    """csrc/stats.cu's StatsState: device pointers of one stats state."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "sum", "sum_sq", "min", "max", "peak", "peak_count", "peak_frame", "samples",
+        "m", "y", "z", "nctr", "tmin", "tmax")]
+
+
 class _Library:
     """The loaded shared library and the log of the build that made it."""
 
@@ -76,21 +90,43 @@ class _Library:
         self.build_log = ""  # empty when the library was built before
 
     def build(self):
-        """Compile the sources unless this hash is built; return the path."""
+        """Compile the sources unless this hash is built; return the path.
+        Every .cu file compiles in its own nvcc process, all at once; then
+        one nvcc links the objects."""
         out_dir = build_dir()
         lib_path = out_dir / LIB_NAME
         if lib_path.exists():
             return lib_path
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        self.build_log = proc.stdout + proc.stderr
-        (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + self.build_log)
-        if proc.returncode != 0:
+        nvcc = find_nvcc()
+        tag = f"{os.getpid()}.tmp"
+        jobs = []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = out_dir / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            logs.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(f"{Path(cmd[-1]).name} (exit {proc.returncode})")
+        tmp = out_dir / f"{LIB_NAME}.{tag}"
+        if not failed:
+            cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"the link (exit {proc.returncode})")
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+        self.build_log = "\n".join(logs)
+        (out_dir / "build.log").write_text(self.build_log)
+        if failed:
             tmp.unlink(missing_ok=True)
             raise KernelBuildError(
-                f"nvcc failed (exit {proc.returncode}):\n{self.build_log[-4000:]}"
+                f"nvcc failed: {', '.join(failed)}:\n{self.build_log[-4000:]}"
             )
         os.replace(tmp, lib_path)
         return lib_path
@@ -113,6 +149,17 @@ class _Library:
                 lib.dsp_irfft_crop_c128.restype = i
                 lib.dsp_splice_f64.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
                 lib.dsp_splice_f64.restype = i
+                d = ctypes.c_double
+                lib.dsp_tpdf_noise_f64.argtypes = [p] * 5 + [d, i, i, p]
+                lib.dsp_tpdf_noise_f64.restype = i
+                lib.dsp_tpdf_dither_f64.argtypes = [p] * 13 + [i, i, i, p, p]
+                lib.dsp_tpdf_dither_f64.restype = i
+                lib.dsp_levels_f64.argtypes = [p] * 7 + [d, i, i, p]
+                lib.dsp_levels_f64.restype = i
+                lib.dsp_stats_f64.argtypes = [ctypes.POINTER(StatsState)] * 2 + [p] * 3 + [i, i, p]
+                lib.dsp_stats_f64.restype = i
+                lib.dsp_mod_delay_f64.argtypes = [p] * 12 + [i] * 7 + [d] * 3 + [p]
+                lib.dsp_mod_delay_f64.restype = i
                 lib.dsp_cuda_error_string.argtypes = [i]
                 lib.dsp_cuda_error_string.restype = ctypes.c_char_p
                 self.lib = lib
@@ -190,3 +237,57 @@ def launch_splice(a, x, out, lo, shift):
         _stream(x.device),
     )
     _check(rc, "splice")
+
+
+def launch_tpdf_noise(key, key_out, x, y, sel, mult):
+    B, C = x.shape
+    rc = load().dsp_tpdf_noise_f64(
+        _ptr(key), _ptr(key_out), _ptr(x), _ptr(y), _ptr(sel), mult, B, C, _stream(x.device),
+    )
+    _check(rc, "tpdf_noise")
+
+
+def launch_tpdf_dither(key, key_out, x, y, ehist, ehist_out, nprev, nprev_out, n_mult, q0, q1,
+                       enabled, fir, mode, scratch):
+    B, C = x.shape
+    rc = load().dsp_tpdf_dither_f64(
+        _ptr(key), _ptr(key_out), _ptr(x), _ptr(y), _ptr(ehist), _ptr(ehist_out), _ptr(nprev),
+        _ptr(nprev_out), _ptr(n_mult), _ptr(q0), _ptr(q1), _ptr(enabled), _ptr(fir), mode, B, C,
+        _ptr(scratch), _stream(x.device),
+    )
+    _check(rc, "tpdf_dither")
+
+
+def launch_levels(avg, peak, block_peak, avg_out, peak_out, bp_out, xs, g):
+    B, n = xs.shape
+    rc = load().dsp_levels_f64(
+        _ptr(avg), _ptr(peak), _ptr(block_peak), _ptr(avg_out), _ptr(peak_out), _ptr(bp_out),
+        _ptr(xs), g, B, n, _stream(xs.device),
+    )
+    _check(rc, "levels")
+
+
+def launch_stats(state, new, keys, xs, insert_h):
+    """state, new: the stats state dicts; keys: the leaves the kernel reads
+    and writes (the -i ones included or not)."""
+    B, n = xs.shape
+
+    def ptrs(d):
+        return StatsState(**{k: d[k].data_ptr() for k in keys})
+
+    rc = load().dsp_stats_f64(
+        ctypes.byref(ptrs(state)), ctypes.byref(ptrs(new)), _ptr(state["limit"]), _ptr(xs),
+        _ptr(insert_h), B, n, _stream(xs.device),
+    )
+    _check(rc, "stats")
+
+
+def launch_mod_delay(key, key_out, yk, yk_out, t, t_out, knots, buf, x, y, sel, table, n_new,
+                     n_phases, n_taps, depth, step, step_b):
+    B, C = x.shape
+    rc = load().dsp_mod_delay_f64(
+        _ptr(key), _ptr(key_out), _ptr(yk), _ptr(yk_out), _ptr(t), _ptr(t_out), _ptr(knots),
+        _ptr(buf), _ptr(x), _ptr(y), _ptr(sel), _ptr(table), buf.shape[0], B, C, yk.shape[1],
+        n_new, n_phases, n_taps, depth, step, step_b, _stream(x.device),
+    )
+    _check(rc, "mod_delay")

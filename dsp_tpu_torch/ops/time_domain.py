@@ -1,0 +1,559 @@
+"""The time-domain kernels of slice C, their wrappers and plain versions.
+
+* K18-noise ``tpdf_noise`` (dsp_tpu/effects/noise.py:51): x + TPDF noise.
+* K15 ``tpdf_dither`` (dsp_tpu/effects/dither.py:107): TPDF dither, flat or
+  with 9-tap error feedback.
+* K16 ``stats_step`` (dsp_tpu/effects/stats.py:159, :197, :266): the stats
+  accumulators, plain or with the gated true-peak estimator (``-i``).
+* K17 ``levels_step`` (dsp_tpu/effects/levels.py:62): the RMS and peak meters.
+* K14 ``mod_delay`` (dsp_tpu/effects/delay.py:292, :337): the modulator and
+  the interpolated read of the modulated delay line.
+
+Each wrapper dispatches on the tensor's device only: a CPU tensor runs the
+plain version ``<name>_ref``, a CUDA tensor launches the kernel in
+``dsp_tpu_torch/csrc/`` (tpdf.cu, stats.cu, levels.cu, mod_delay.cu) or
+raises. Each counts its launches in ``<wrapper>.launches``. Noise comes from
+jax's threefry (core/prng.py), so both paths draw dsp_tpu's numbers.
+
+dsp_tpu runs these steps through XLA, whose CPU backend contracts a + b·c
+into one fused multiply-add wherever a product feeds a sum in one fusion
+(measured: the flat dither's x + (u1 - u2)·n_mult, noise's x + (u1 -
+u2)·mult when every channel is selected, the -i estimator's M + x·H,
+M[k] + c_k·x and yq = y - dy·p4), but not across a select (noise on some
+channels, x + where(sel, ·, 0)) nor in the error-feedback dot. The plain versions
+and the kernels take an FMA exactly there (``torch.addcmul``, ``_fma``,
+``__fma_rn``) and round every other product and sum on its own, so the
+noise, the dither's output and every stats decision equal dsp_tpu's.
+
+The serial recurrences (the shaped dither, ``stats -i``) have plain versions
+that loop over samples on the host in Python floats (IEEE float64); they
+take tensors on any device and return them on the input's device.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from dsp_tpu_torch.core import prng
+from dsp_tpu_torch.core.prng import PM_RAND_MAX
+from dsp_tpu_torch.ops.fft_conv import _check_cuda
+
+# tpdf_dither modes: flat (no feedback), shaped (9-tap error feedback on
+# TPDF noise), sloped2 (error feedback on first-difference noise)
+DITHER_FLAT, DITHER_SHAPED, DITHER_SLOPED2 = 0, 1, 2
+DITHER_TAPS = 9
+
+STATS_INTERP_DELAY = 18  # stats.c:76
+NO_LIMIT = 1 << 62
+
+MOD_NOISE_N = 6  # uniform pairs summed per knot (delay.c:505-543)
+MOD_MAXVAL = float(0x7FFFFFFF)
+
+
+def _fma(a, b, c):
+    """a·b + c rounded once (IEEE fused multiply-add) on Python floats:
+    exact integer arithmetic, then Python's correctly rounded int / int."""
+    na, da = a.as_integer_ratio()
+    nb, db = b.as_integer_ratio()
+    nc, dc = c.as_integer_ratio()
+    r = (na * nb * dc + nc * da * db) / (da * db * dc)
+    return r if r != 0.0 else a * b + c  # an exact zero takes IEEE's sign
+
+
+def _rint(v):
+    """jnp.round / CUDA rint on a Python float: ties to even, sign kept."""
+    return math.copysign(float(round(v)), v) if math.isfinite(v) else v
+
+
+def _check_shape(name, what, t, shape):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {what} {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+# --- K18-noise: x + (u1 - u2)·mult -----------------------------------------
+
+
+def tpdf_noise(key, x, mult, sel=None):
+    """key' and x + where(sel, (u1 - u2)·mult, 0): key, k1, k2 = split(key,
+    3), u1 and u2 uniform in [0, PM_RAND_MAX] over x's [B, C] (counter
+    b·C + c). key: uint32 [2]; x: float64 [B, C]; sel: bool [C], or None
+    for every channel, where the sum is one FMA, x + (u1 - u2)·mult, as
+    XLA:CPU folds dsp_tpu's all-true select away and fuses it. CPU tensors
+    run tpdf_noise_ref; CUDA tensors launch csrc/tpdf.cu."""
+    if x.device.type == "cpu":
+        return tpdf_noise_ref(key, x, mult, sel)
+    from dsp_tpu_torch import kernels
+
+    checks = [(x, torch.float64), (key, torch.uint32)]
+    if sel is not None:
+        checks.append((sel, torch.bool))
+    _check_cuda("tpdf_noise", x, *checks, align=1)
+    B, C = x.shape
+    _check_shape("tpdf_noise", "key", key, (2,))
+    if sel is not None:
+        _check_shape("tpdf_noise", "sel", sel, (C,))
+    key_out = torch.empty_like(key)
+    y = torch.empty_like(x)
+    kernels.launch_tpdf_noise(key, key_out, x, y, sel, float(mult))
+    tpdf_noise.launches += 1
+    return key_out, y
+
+
+tpdf_noise.launches = 0
+
+
+def tpdf_noise_ref(key, x, mult, sel=None):
+    """Plain version of tpdf_noise: dsp_tpu's noise step on torch tensors."""
+    keys = prng.split(key, 3)
+    u1 = prng.uniform_f64(keys[1], x.shape, PM_RAND_MAX)
+    u2 = prng.uniform_f64(keys[2], x.shape, PM_RAND_MAX)
+    if sel is None:
+        return keys[0], torch.addcmul(x, u1 - u2, torch.tensor(mult, dtype=x.dtype))
+    noise = (u1 - u2) * mult
+    return keys[0], x + torch.where(sel, noise, torch.zeros_like(noise))
+
+
+# --- K15: TPDF dither with error feedback ----------------------------------
+
+
+def tpdf_dither(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode):
+    """One block of dsp_tpu's dither step. key: uint32 [2]; x: [B, C];
+    ehist: [9, C] error history (newest first); nprev: [C] the sloped
+    noise's carried uniform; n_mult, q0, q1: [C]; enabled: bool [C]; fir:
+    [9] feedback taps; mode: DITHER_FLAT, DITHER_SHAPED or DITHER_SLOPED2.
+    Returns (key', ehist', nprev', y). CPU tensors run tpdf_dither_ref;
+    CUDA tensors launch csrc/tpdf.cu."""
+    if x.device.type == "cpu":
+        return tpdf_dither_ref(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode)
+    from dsp_tpu_torch import kernels
+
+    f64 = torch.float64
+    _check_cuda("tpdf_dither", x, (x, f64), (key, torch.uint32), (ehist, f64), (nprev, f64),
+                (n_mult, f64), (q0, f64), (q1, f64), (enabled, torch.bool), (fir, f64), align=1)
+    B, C = x.shape
+    for what, t, shape in (("key", key, (2,)), ("ehist", ehist, (DITHER_TAPS, C)),
+                           ("nprev", nprev, (C,)), ("n_mult", n_mult, (C,)), ("q0", q0, (C,)),
+                           ("q1", q1, (C,)), ("enabled", enabled, (C,)),
+                           ("fir", fir, (DITHER_TAPS,))):
+        _check_shape("tpdf_dither", what, t, shape)
+    if mode not in (DITHER_FLAT, DITHER_SHAPED, DITHER_SLOPED2):
+        raise ValueError(f"tpdf_dither: mode {mode}")
+    key_out = torch.empty_like(key)
+    ehist_out = torch.empty_like(ehist)
+    nprev_out = torch.empty_like(nprev)
+    y = torch.empty_like(x)
+    # the feedback loop reads the block's noise and input from shared
+    # memory; above DITHER_SHARED_BYTES the noise from a scratch in device
+    # memory
+    scratch = None
+    if mode != DITHER_FLAT and 2 * B * C * 8 > kernels.DITHER_SHARED_BYTES:
+        scratch = torch.empty_like(x)
+    kernels.launch_tpdf_dither(key, key_out, x, y, ehist, ehist_out, nprev, nprev_out, n_mult,
+                               q0, q1, enabled, fir, mode, scratch)
+    tpdf_dither.launches += 1
+    return key_out, ehist_out, nprev_out, y
+
+
+tpdf_dither.launches = 0
+
+
+def tpdf_dither_ref(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode):
+    """Plain version of tpdf_dither: the noise and the flat quantizer as
+    torch ops, the error-feedback loop over samples in Python floats (the
+    taps summed in order, each product and sum rounded on its own, as
+    dsp_tpu's scan does)."""
+    B, C = x.shape
+    keys = prng.split(key, 3)
+    u1 = prng.uniform_f64(keys[1], (B, C), PM_RAND_MAX)
+    u2 = prng.uniform_f64(keys[2], (B, C), PM_RAND_MAX)
+    if mode == DITHER_SLOPED2:
+        prev = torch.cat([nprev[None].to(x.dtype), u1[:-1]])
+        noise = (u1 - prev) * n_mult
+        nprev_out = u1[-1]
+    else:
+        noise = (u1 - u2) * n_mult
+        nprev_out = nprev
+    if mode == DITHER_FLAT:
+        # x + (u1 - u2)·n_mult as one FMA, as XLA:CPU fuses it
+        y = q1 * torch.round(q0 * torch.addcmul(x, u1 - u2, n_mult))
+        return keys[0], ehist, nprev_out, torch.where(enabled, y, x)
+    xs, ns = x.tolist(), noise.tolist()
+    taps = fir.tolist()
+    qa, qb, en = q0.tolist(), q1.tolist(), enabled.tolist()
+    eh = ehist.t().tolist()  # [C][9]
+    out = [[0.0] * C for _ in range(B)]
+    for c in range(C):
+        e = eh[c]
+        for b in range(B):
+            fb = 0.0
+            for t in range(DITHER_TAPS):
+                fb = fb + taps[t] * e[t]
+            xn = xs[b][c]
+            p0 = xn - fb
+            p1 = qb[c] * _rint(qa[c] * (p0 + ns[b][c]))
+            e = [p1 - p0] + e[:-1]
+            out[b][c] = p1 if en[c] else xn
+        eh[c] = e
+    ehist_out = torch.tensor(eh, dtype=x.dtype).t().contiguous().to(x.device)
+    return keys[0], ehist_out, nprev_out, torch.tensor(out, dtype=x.dtype, device=x.device)
+
+
+# --- K17: levels meters ----------------------------------------------------
+
+
+def levels_step(avg, peak, block_peak, xs, g):
+    """One block of the levels meters on xs [B, n] (the selected channels):
+    avg' = EWMA of x² (weight g), peak' = the set-min EWMA
+    m' = max(x², (1 - g)·m + g·x²), block_peak' = max(block_peak, every m of
+    the block). Returns (avg', peak', block_peak'), each [n]. CPU tensors
+    run levels_step_ref; CUDA tensors launch csrc/levels.cu."""
+    if xs.device.type == "cpu":
+        return levels_step_ref(avg, peak, block_peak, xs, g)
+    from dsp_tpu_torch import kernels
+
+    f64 = torch.float64
+    _check_cuda("levels_step", xs, (xs, f64), (avg, f64), (peak, f64), (block_peak, f64), align=1)
+    B, n = xs.shape
+    for what, t in (("avg", avg), ("peak", peak), ("block_peak", block_peak)):
+        _check_shape("levels_step", what, t, (n,))
+    outs = tuple(torch.empty_like(avg) for _ in range(3))
+    kernels.launch_levels(avg, peak, block_peak, *outs, xs, float(g))
+    levels_step.launches += 1
+    return outs
+
+
+levels_step.launches = 0
+
+
+def levels_step_ref(avg, peak, block_peak, xs, g):
+    """Plain version of levels_step: dsp_tpu's associative scan of
+    (a, b, c) = (1 - g, g·x², x²) triples under m -> max(c, a·m + b), as a
+    Hillis-Steele doubling scan over the block."""
+    s2 = xs * xs
+    B = s2.shape[0]
+    a = torch.full_like(s2, 1.0 - g)
+    b = g * s2
+    c = s2
+    d = 1
+    while d < B:
+        a1, b1, c1 = a[:-d], b[:-d], c[:-d]
+        a2, b2, c2 = a[d:], b[d:], c[d:]
+        a = torch.cat([a[:d], a2 * a1])
+        b = torch.cat([b[:d], a2 * b1 + b2])
+        c = torch.cat([c[:d], torch.maximum(c2, a2 * c1 + b2)])
+        d *= 2
+    avg_new = a[-1] * avg + b[-1]
+    peaks = torch.maximum(c, a * peak + b)
+    return avg_new, peaks[-1], torch.maximum(block_peak, peaks.max(dim=0).values)
+
+
+# --- K16: stats ------------------------------------------------------------
+
+# the state leaves of both modes; the -i estimator adds the last six
+STATS_KEYS = ("sum", "sum_sq", "min", "max", "peak", "peak_count", "peak_frame", "samples")
+STATS_INTERP_KEYS = ("m", "y", "z", "nctr", "tmin", "tmax")
+
+
+def stats_step(s, xs, insert_h=None):
+    """One block of dsp_tpu's stats step on xs [B, n] (the selected
+    channels). s: the state dict (float64 [n] sums, min, max and peak, int64
+    [n] peak_count and peak_frame, int64 0-d samples and limit; with -i
+    also m [64, n], y [6, n], z [9, n], int32 nctr [n], tmin, tmax [n]).
+    insert_h: None for plain stats, or the -i estimator's float64 [67]
+    table (the 64-slot insert template, then the three direct taps).
+    Returns the new state dict; nothing is read back to the host. CPU
+    tensors run stats_step_ref; CUDA tensors launch csrc/stats.cu."""
+    if xs.device.type == "cpu":
+        return stats_step_ref(s, xs, insert_h)
+    from dsp_tpu_torch import kernels
+
+    f64, i64 = torch.float64, torch.int64
+    B, n = xs.shape
+    keys = STATS_KEYS + (STATS_INTERP_KEYS if insert_h is not None else ())
+    want = {"peak_count": (i64, (n,)), "peak_frame": (i64, (n,)), "samples": (i64, ()),
+            "m": (f64, (64, n)), "y": (f64, (6, n)), "z": (f64, (9, n)),
+            "nctr": (torch.int32, (n,))}
+    checks = [(xs, f64), (s["limit"], i64)]
+    for k in keys:
+        dtype, shape = want.get(k, (f64, (n,)))
+        checks.append((s[k], dtype))
+        _check_shape("stats_step", k, s[k], shape)
+    _check_shape("stats_step", "limit", s["limit"], ())
+    if insert_h is not None:
+        checks.append((insert_h, f64))
+        _check_shape("stats_step", "insert_h", insert_h, (67,))
+    _check_cuda("stats_step", xs, *checks, align=1)
+    new = dict(s)
+    for k in keys:
+        new[k] = torch.empty_like(s[k])
+    kernels.launch_stats(s, new, keys, xs, insert_h)
+    stats_step.launches += 1
+    return new
+
+
+stats_step.launches = 0
+
+
+def _jmin(a, b):
+    """jnp.minimum on tensors: -0.0 orders below +0.0."""
+    return torch.where((a < b) | ((a == b) & torch.signbit(a)), a, b)
+
+
+def _jmax(a, b):
+    """jnp.maximum on tensors: +0.0 orders above -0.0."""
+    return torch.where((a > b) | ((a == b) & ~torch.signbit(a)), a, b)
+
+
+def stats_step_ref(s, xs, insert_h=None):
+    """Plain version of stats_step: dsp_tpu's vectorized plain mode
+    (cummin/cummax, exact comparisons) as torch ops, or the -i estimator
+    over samples in Python floats."""
+    B = xs.shape[0]
+    idx = s["samples"] + torch.arange(B, dtype=torch.int64, device=xs.device)
+    active = idx < s["limit"]
+    new = dict(s)
+    xz = torch.where(active[:, None], xs, torch.zeros_like(xs))
+    new["sum"] = s["sum"] + xz.sum(dim=0)
+    new["sum_sq"] = s["sum_sq"] + (xz * xz).sum(dim=0)
+    if insert_h is None:
+        new.update(_stats_plain_ref(s, xs, idx, active))
+    else:
+        new.update(_stats_interp_ref(s, xs, insert_h))
+    new["samples"] = torch.minimum(s["samples"] + B, s["limit"])
+    return new
+
+
+# samples the -i gate opened in the last stats_step_ref call, summed over
+# channels: the data-dependent operation count of a roofline bound
+stats_step_ref.gated_samples = 0
+
+
+def _stats_plain_ref(s, xs, idx, active):
+    inf = torch.full_like(xs, math.inf)
+    x_min = torch.where(active[:, None], xs, inf)
+    x_max = torch.where(active[:, None], xs, -inf)
+    # exclusive running min/max including the carried state (compared only,
+    # so the sign of a zero does not matter here)
+    cmin = torch.cummin(x_min, dim=0).values
+    cmax = torch.cummax(x_max, dim=0).values
+    runmin_x = torch.cat([s["min"][None], torch.minimum(s["min"][None], cmin[:-1])])
+    runmax_x = torch.cat([s["max"][None], torch.maximum(s["max"][None], cmax[:-1])])
+    pk_min = active[:, None] & (xs <= runmin_x)
+    pk_max = active[:, None] & ~pk_min & (xs >= runmax_x)
+    pk = pk_min | pk_max
+    # the block's min and max in jnp.minimum's order, where -0.0 < +0.0
+    zero = x_min == 0
+    bmin = torch.where(cmin[-1] == 0, torch.where((zero & torch.signbit(x_min)).any(dim=0),
+                                                  -0.0, 0.0).to(xs.dtype), cmin[-1])
+    zero = x_max == 0
+    bmax = torch.where(cmax[-1] == 0, torch.where((zero & ~torch.signbit(x_max)).any(dim=0),
+                                                  0.0, -0.0).to(xs.dtype), cmax[-1])
+    a = xs.abs()
+    a_pk = torch.where(pk, a, torch.zeros_like(a))
+    peak_new = torch.maximum(s["peak"], a_pk.max(dim=0).values)
+    eq = pk & (a == peak_new[None, :]) & (a > 0)
+    cnt = eq.sum(dim=0)
+    first = torch.where(eq, idx[:, None], torch.full_like(idx[:, None], NO_LIMIT)).min(dim=0).values
+    higher = peak_new > s["peak"]
+    return {
+        "min": _jmin(s["min"], bmin),
+        "max": _jmax(s["max"], bmax),
+        "peak": peak_new,
+        "peak_count": torch.where(higher, cnt, s["peak_count"] + cnt),
+        "peak_frame": torch.where(higher, first, s["peak_frame"]),
+    }
+
+
+def _stats_interp_ref(s, xs, insert_h):
+    """dsp_tpu's _step_interp, sample by sample: the 64-slot shift buffer as
+    one fused multiply-add a sample (torch.addcmul on the host), the rest
+    in Python floats with the three FMAs dsp_tpu's XLA takes."""
+    dev = xs.device
+    h = insert_h.to("cpu")
+    H = h[:64]
+    c0, c1, c2 = h[64:].tolist()
+    zeros4 = torch.zeros(4, dtype=torch.float64)
+    samples, limit = int(s["samples"]), int(s["limit"])
+    B, n = xs.shape
+    x_l = xs.tolist()
+    # per channel: the [6, n] and [9, n] leaves as rows, the [n] ones as values
+    cols = {k: s[k].to("cpu").t().tolist() if s[k].dim() == 2 else s[k].tolist()
+            for k in ("y", "z", "nctr", "tmin", "tmax", "min", "max", "peak", "peak_count",
+                      "peak_frame")}
+    m_all = s["m"].to("cpu")
+    out = {k: [] for k in cols}
+    m_out = []
+    n_act = max(0, min(B, limit - samples))  # active samples: index < limit
+    gated = 0
+    for c in range(n):
+        M = m_all[:, c].clone()
+        y, z = cols["y"][c], cols["z"][c]
+        nc, tmin, tmax = cols["nctr"][c], cols["tmin"][c], cols["tmax"][c]
+        mn, mx, pk = cols["min"][c], cols["max"][c], cols["peak"][c]
+        cnt, frm = cols["peak_count"][c], cols["peak_frame"][c]
+        for b in range(n_act):
+            t = samples + b
+            sv = x_l[b][c]
+            if sv < tmin or sv > tmax:
+                nc = STATS_INTERP_DELAY
+            if nc > 0:
+                gated += 1
+                x = z[0]
+                m0, m1, m2, m3 = M[:4].tolist()
+                y = [y[4], y[5], _fma(c0, x, m0), _fma(c1, x, m1), _fma(c2, x, m2), m3]
+                M = torch.addcmul(torch.cat([M[4:], zeros4]), H,
+                                  torch.tensor(x, dtype=torch.float64))
+                r = 0
+                for i in range(1, 5):
+                    d0 = y[i] - y[i - 1]
+                    d1 = y[i] - y[i + 1]
+                    if (d0 > 0 and d1 < 0) or (d0 < 0 and d1 > 0) or (d0 == 0 and d1 == 0):
+                        continue
+                    dy = y[i - 1] - y[i + 1]
+                    den = y[i - 1] - 2.0 * y[i] + y[i + 1]
+                    p4 = dy / (8.0 * (1.0 if den == 0 else den))
+                    yq = _fma(-dy, p4, y[i])
+                    if yq <= mn:
+                        mn, tmin = yq, 0.5 * yq
+                    elif yq >= mx:
+                        mx, tmax = yq, 0.5 * yq
+                    else:
+                        continue
+                    ayq = abs(yq)
+                    if ayq > pk:
+                        pk, r = ayq, 2
+                    elif ayq > 0 and ayq == pk:
+                        r = 1
+                if r == 2:
+                    frm, cnt = t - (STATS_INTERP_DELAY - 1), 1
+                elif r == 1:
+                    cnt += 1
+                nc -= 1
+            z = z[1:] + [sv]
+        m_out.append(M)
+        for k, v in (("y", y), ("z", z), ("nctr", nc), ("tmin", tmin), ("tmax", tmax),
+                     ("min", mn), ("max", mx), ("peak", pk), ("peak_count", cnt),
+                     ("peak_frame", frm)):
+            out[k].append(v)
+    new = {}
+    for k, v in out.items():
+        t = torch.tensor(v, dtype=s[k].dtype).reshape(tuple(s[k].shape)[::-1])
+        new[k] = t.t().contiguous().to(dev)  # rows back to [6, n] / [9, n]
+    new["m"] = torch.stack(m_out, dim=1).to(dev) if m_out else s["m"].clone()
+    stats_step_ref.gated_samples = gated
+    return new
+
+
+# --- K14: the modulated delay ----------------------------------------------
+
+
+def mod_delay(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
+    """One block of dsp_tpu's modulated delay read, without the carried
+    buffer's update (the caller splices it). key: uint32 [2]; yk: the knot
+    window [4, lanes] (lanes 1 for -M, else C); t: float64 0-d phase; buf:
+    [H, C] the line before this block; x: [B, C]; sel: bool [C]; table:
+    [n_phases, taps] polyphase filters for q1/q2, or None for q0 (Hermite).
+    Returns (key', yk', t', y [B, C]). CPU tensors run mod_delay_ref; CUDA
+    tensors launch csrc/mod_delay.cu (the knots, then the read)."""
+    if x.device.type == "cpu":
+        return mod_delay_ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual)
+    from dsp_tpu_torch import kernels
+
+    f64 = torch.float64
+    checks = [(x, f64), (key, torch.uint32), (yk, f64), (t, f64), (buf, f64), (sel, torch.bool)]
+    if table is not None:
+        checks.append((table, f64))
+    _check_cuda("mod_delay", x, *checks, align=1)
+    B, C = x.shape
+    lanes = yk.shape[1] if yk.dim() == 2 else -1
+    H = buf.shape[0]
+    _check_shape("mod_delay", "key", key, (2,))
+    _check_shape("mod_delay", "t", t, ())
+    _check_shape("mod_delay", "buf", buf, (H, C))
+    _check_shape("mod_delay", "sel", sel, (C,))
+    if lanes not in (1, C) or yk.shape[0] != 4:
+        raise ValueError(f"mod_delay: knot window {tuple(yk.shape)} for {C} channels")
+    if (qual == 0) != (table is None) or (table is not None and table.shape[1] != n_taps):
+        raise ValueError(f"mod_delay: quality {qual} with table "
+                         f"{None if table is None else tuple(table.shape)}")
+    # the lowest row the read reaches (H - depth - taps, or - 3 for Hermite)
+    # must lie in the line
+    n_phases = 0 if table is None else table.shape[0]
+    if H - int(math.floor(depth)) - (n_taps if qual else 3) < 0:
+        raise ValueError(f"mod_delay: a line of {H} rows is short for depth {depth}")
+    n_new = int(np.ceil(B * step)) + 1
+    knots = torch.empty((4 + n_new, lanes), dtype=f64, device=x.device)
+    key_out, yk_out, t_out = torch.empty_like(key), torch.empty_like(yk), torch.empty_like(t)
+    y = torch.empty_like(x)
+    kernels.launch_mod_delay(key, key_out, yk, yk_out, t, t_out, knots, buf, x, y, sel, table,
+                             n_new, n_phases, n_taps, float(depth), float(step),
+                             float(step * B))
+    mod_delay.launches += 1
+    return key_out, yk_out, t_out, y
+
+
+mod_delay.launches = 0
+
+
+def mod_delay_ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
+    """Plain version of mod_delay: dsp_tpu's _mod_noise_block and step on
+    torch tensors (gathers from the concatenated line)."""
+    B, C = x.shape
+    lanes = yk.shape[1]
+    dev, dt = x.device, x.dtype
+    tev = t + step * torch.arange(B, dtype=dt, device=dev)
+    kidx = torch.floor(tev).to(torch.int64)
+    frac = tev - torch.floor(tev)
+    n_new = int(np.ceil(B * step)) + 1
+    keys = prng.split(key, 2)
+    u = prng.uniform_f64(keys[1], (n_new, MOD_NOISE_N, 2, lanes), MOD_MAXVAL)
+    scale = 0.77 / MOD_NOISE_N / MOD_MAXVAL
+    knots = torch.cat([yk.to(dt), ((u[:, :, 0] - u[:, :, 1]) * scale).sum(dim=1)])
+    z0, z1, z2, z3 = (knots[kidx + k] for k in range(4))
+    a = z0 + z2
+    c0 = (1.0 / 6.0) * a + (2.0 / 3.0) * z1 + 0.5
+    c1 = 0.5 * (z2 - z0)
+    c2 = 0.5 * a - z1
+    c3 = 0.5 * (z1 - z2) + (1.0 / 6.0) * (z3 - z0)
+    tc = frac[:, None]
+    z = torch.clamp(((c3 * tc + c2) * tc + c1) * tc + c0, 0.0, 1.0)
+    n_consumed = int(np.floor(float(t) + step * B))
+    yk_next = knots[n_consumed:n_consumed + 4]
+    t_next = t + step * B - n_consumed
+    z = z.expand(B, C)
+    mod = z * depth
+    d_int = mod.to(torch.int64)  # truncation, like (ssize_t) mod
+    d_frac = mod - d_int.to(dt)
+    H = buf.shape[0]
+    line = torch.cat([buf.to(dt), x])  # [H + B, C]
+    base = H + torch.arange(B, device=dev)[:, None] - d_int
+    if qual == 0:
+        ym3, ym2, ym1, y0 = (torch.gather(line, 0, base + off) for off in (-3, -2, -1, 0))
+        h0 = ym1
+        h1 = 0.5 * (ym2 - y0)
+        h2 = y0 - 2.5 * ym1 + 2.0 * ym2 - 0.5 * ym3
+        h3 = 0.5 * (ym3 - y0) + 1.5 * (ym1 - ym2)
+        td = d_frac
+        y = ((h3 * td + h2) * td + h1) * td + h0
+    else:
+        nph = table.shape[0]
+        t_os = d_frac * nph
+        ph0 = t_os.to(torch.int64)
+        offs = torch.arange(n_taps, device=dev)
+        zs = []
+        for i in range(4):
+            phi = ph0 + i
+            flt = table[phi % nph]  # [B, C, taps]
+            idx = (base - phi // nph)[..., None] - offs  # [B, C, taps]
+            vals = torch.gather(line[:, :, None].expand(-1, -1, n_taps), 0, idx)
+            zs.append((vals * flt).sum(dim=-1))
+        q0, q1, q2, q3 = zs
+        td = t_os - ph0.to(dt)
+        a = q0 + q2
+        b0 = (1.0 / 6.0) * a + (2.0 / 3.0) * q1
+        b1 = 0.5 * (q2 - q0)
+        b2 = 0.5 * a - q1
+        b3 = 0.5 * (q1 - q2) + (1.0 / 6.0) * (q3 - q0)
+        y = ((b3 * td + b2) * td + b1) * td + b0
+    return keys[0], yk_next, t_next, torch.where(sel, y, x)

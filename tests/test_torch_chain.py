@@ -119,6 +119,29 @@ def test_unported_effect_raises(name):
         info.init(info, StreamInfo(FS, 2), np.ones(2, dtype=bool), ".", [name])
 
 
+# slice C's effects, with arguments each one takes
+SLICE_C = {
+    "delay": ["delay", "-f", "-m", "1m", "10m"],
+    "noise": ["noise", "-60"],
+    "dither": ["dither", "lipshitz"],
+    "stats": ["stats", "-i"],
+    "levels": ["levels", "-t", "0.1"],
+}
+
+
+@pytest.mark.parametrize("name", list(SLICE_C))
+def test_slice_c_effect_is_ported(name):
+    """The five effects of slice C build in the port; none is in NOT_PORTED."""
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.effects import get_effect_info
+
+    assert name not in _not_ported()
+    info = get_effect_info(name)
+    made = info.init(info, StreamInfo(FS, 2), np.ones(2, dtype=bool), ".", SLICE_C[name])
+    for e in made if isinstance(made, list) else [made]:
+        assert e.name == name
+
+
 def test_unported_effect_fails_the_chain():
     from dsp_tpu_torch.chain.parser import ChainParseError
 

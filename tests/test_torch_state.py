@@ -167,6 +167,57 @@ def test_convert_round_trip_of_dicts():
     assert back[2]["cnt"].dtype == torch.int32 and int(back[2]["cnt"]) == 3
 
 
+# slice C chains: threefry keys (uint32 [2]), int64 and int32 leaves, 0-d
+# leaves (the modulated delay's phase, the stats sample count and limit)
+KEY_CHAINS = {
+    "modulated": "delay -M 0.5m -q 2 10m noise -90 dither sloped2 16 stats levels",
+    "delivery_i": "gain -1 noise -70 dither lipshitz 16 stats -i",
+}
+
+
+@pytest.mark.parametrize("name", list(KEY_CHAINS))
+@pytest.mark.parametrize("first", ["dsp_tpu", "dsp_tpu_torch"])
+def test_key_state_checkpoint_crosses_packages(first, name, tmp_path):
+    """Blocks in one package, save_state, load_state in the other, and run
+    on in both: the two continue the same noise (keys cross as uint32),
+    the same dither, delay and meters."""
+    import jax
+
+    from dsp_tpu_torch.convert import states_to_numpy
+
+    spec, B, k, n = KEY_CHAINS[name], 1024, 17, 30
+    x = stereo_signal(1.0, seed=k)[: n * B].reshape(n, B, 2)
+    make = {"dsp_tpu": jax_chain, "dsp_tpu_torch": port_chain}
+    second = "dsp_tpu_torch" if first == "dsp_tpu" else "dsp_tpu"
+    np.random.seed(99)
+    a = make[first](spec, B)
+    np.random.seed(12345)  # the second chain's own keys: the checkpoint replaces them
+    b = make[second](spec, B)
+    a.run_blocks(x[:k])
+    ckpt = tmp_path / "state.npz"
+    a.save_state(str(ckpt))
+    with np.load(ckpt) as z:
+        leaves = [z[f"leaf_{i}"] for i in range(len(z.files) - 2)]
+    assert any(leaf.dtype == np.uint32 and leaf.shape == (2,) for leaf in leaves)
+    assert any(leaf.dtype == np.int64 and leaf.shape == () for leaf in leaves)
+    b.load_state(str(ckpt))
+    y_a = np.asarray(a.run_blocks(x[k:]))
+    y_b = np.asarray(b.run_blocks(x[k:]))
+    np.testing.assert_array_equal(y_a, y_b)  # quantized by the dither: equal
+    if second == "dsp_tpu":
+        got, want = [np.asarray(v) for v in jax.tree_util.tree_leaves(b.states)], states_to_numpy(a.states)
+    else:
+        got, want = states_to_numpy(b.states), [np.asarray(v) for v in jax.tree_util.tree_leaves(a.states)]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        if g.dtype.kind == "f":
+            # the modulated read agrees to -280 dBFS (1e-14), and the
+            # dither's error history carries that difference
+            np.testing.assert_allclose(g, w, rtol=1e-12, atol=1e-13)
+        else:
+            np.testing.assert_array_equal(g, w)
+
+
 def test_load_state_validates(tmp_path):
     from dsp_tpu_torch.chain import ChainError
 
@@ -188,11 +239,14 @@ import sys
 import dsp_tpu_torch
 import dsp_tpu_torch.chain, dsp_tpu_torch.cli.main, dsp_tpu_torch.codecs
 import dsp_tpu_torch.convert, dsp_tpu_torch.effects, dsp_tpu_torch.kernels
-import dsp_tpu_torch.ops.iir, dsp_tpu_torch.ops.fft_conv
+import dsp_tpu_torch.ops.iir, dsp_tpu_torch.ops.fft_conv, dsp_tpu_torch.ops.time_domain
+import dsp_tpu_torch.cli.terminal
 from dsp_tpu_torch.cli.main import main
-rc = main(["-q", "-s", sys.argv[1], "-o", "-e", "double", sys.argv[2],
+rc = main(["-q", "-s", sys.argv[1], "-o", "-e", "s16", sys.argv[2],
            "gain", "-3", "eq", "1k", "1.0", "+3", "crossfeed", "700", "4.5",
-           "fir", "coefs:0.5,0.5", "lowpass", "-r", "1k", "0.7071", "decorrelate", "-s", "3"])
+           "fir", "coefs:0.5,0.5", "lowpass", "-r", "1k", "0.7071", "decorrelate", "-s", "3",
+           "delay", "-M", "0.2m", "-q", "0", "1m", "noise", "-80", "dither", "lipshitz",
+           "stats", "-i", "levels"])
 assert rc == 0, rc
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "dsp_tpu"))
 assert not bad, bad
