@@ -74,8 +74,8 @@ SECONDS = 300  # the main path's input: a full track
 CROSSOVER = ROOT / "examples" / "crossover_lr4_2kHz_riir_linphase"
 
 
-# slice C's chains (section 4 of its plan): a CD master to s16 with a
-# speaker-distance fractional delay, and a modulated, dithered double render
+# slice C's chains (ROADMAP.md): a CD master to s16 with a speaker-distance
+# fractional delay, and a modulated, dithered double render
 DELIVERY = "gain -1 :1 delay -f 0.37m : dither lipshitz stats -i"
 MODULATED = "delay -M 0.5m -q 2 10m noise -90 dither sloped2 16 stats levels"
 SLICE_C_SEED = 20263  # numpy's global generator, seeded before each run
