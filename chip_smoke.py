@@ -10,13 +10,21 @@ nvcc and PyTorch built for CUDA. It
    kernels from dsp_tpu_torch/csrc with nvcc;
 2. runs each kernel (K1 lti_blocked, K2 biquad_scan; K5-K7 rfft_pack,
    fdl_mac, irfft_crop and splice; K14 mod_delay, K15 tpdf_dither, K16
-   stats_step, K17 levels_step and K18-noise tpdf_noise) against its plain
+   stats_step, K17 levels_step and K18-noise tpdf_noise; K8 resample_fold,
+   K11 m4_env, K9 + K10 m4_event and K12 + K13 m4_audio) against its plain
    PyTorch version on the same inputs at the main path's shapes: the
    earlier slices' within -200 dBFS, slice C's equal (noise, dither, the
    stats decisions), within 1e-12 relative (sums, levels) or -280 dBFS (the
-   modulated read). Times each kernel, its plain version and, where one
-   PyTorch call computes the same function, that call, with CUDA events,
-   and computes each kernel's roofline bound from its shapes;
+   modulated read). K8 at 48 and 192 kHz: equal, the whole step within
+   -280 dBFS. K9-K13 over 3 blocks of transient material for v4, v1,
+   direct_path, phase_flip=false,shelf=none,lowpass=none and the 48 kHz
+   block of Nc = 80: the engine's decisions equal, its floats within 1e-12
+   relative, the audio within -280 dBFS. Times each kernel, its plain
+   version and, where one PyTorch call computes the same function, that
+   call, with CUDA events, and computes each kernel's roofline bound from
+   its shapes. Then renders the 4 s program signal at -b 65536 and holds
+   it to bench_goldens/resample.npz and matrix4.npz (dsp_tpu f64) within
+   -200 dBFS;
 3. writes 300 s of stereo 44.1 kHz float64 wav (seeded noise plus sines), a
    full track, and runs the port's CLI on it file to file: the flagship
    chain at the default block (2048) and at -b 65536; then the FFT
@@ -27,19 +35,24 @@ nvcc and PyTorch built for CUDA. It
    slice C's two chains at the default block: "delivery" to s16 (gain,
    a Thiran-fractional delay on one channel, lipshitz dither at auto 16
    bits, stats -i) and "modulated" to double (delay -M q2, noise, sloped2
-   dither, stats, levels). Each run must produce the expected frame count,
-   launch its kernels (their launch counts are zeroed just before the run),
-   and match the port's CPU run on the first 10 s: within -200 dBFS, the
-   delivery chain's s16 samples exactly, the modulated chain within -280
-   dBFS (numpy's global generator is seeded alike before both runs, so
-   both draw the same keys). The delivery chain's stats table, from a
+   dither, stats, levels); then slices D and E's upmixes at the default
+   block: `matrix4 -6` (44.1 kHz to 4 channels) and `resample 48k matrix4
+   -6` (a 48 kHz quad: the rate change, blocks of 2352 in and 2560 out).
+   Each run must produce the expected frame count, launch its kernels
+   (their launch counts are zeroed just before the run), and match the
+   port's CPU run on the first 10 s: within -200 dBFS, the delivery
+   chain's s16 samples exactly, the modulated chain within -280 dBFS
+   (numpy's global generator is seeded alike before both runs, so both
+   draw the same keys), the 48 kHz upmix from 5 s on (its first seconds
+   within -100 dBFS, see ONSET). The delivery chain's stats table, from a
    card run and a CPU run of the CLI on the first 10 s, must be equal
    character for character;
-4. runs 96 blocks of the Nupols path (fir_p 1M at B = 2048), and 320 of the
-   delivery chain, with the input on the card under
+4. runs 96 blocks of the Nupols path (fir_p 1M at B = 2048), 320 of the
+   delivery chain and 16 of matrix4, with the input on the card under
    torch.cuda.set_sync_debug_mode("error"): a step must not wait on the
-   device; then times 256 blocks of each slice C chain and profiles them
-   (torch.profiler: device time a block by kernel, the device's share);
+   device; then times 256 blocks of each slice C chain and each upmix and
+   profiles them (torch.profiler: device time a block by kernel, the
+   device's share);
 5. prints the kernels' record as one JSON line, then as the last line
    {"ok": true, "device": {...}}.
 
@@ -79,6 +92,19 @@ CROSSOVER = ROOT / "examples" / "crossover_lr4_2kHz_riir_linphase"
 DELIVERY = "gain -1 :1 delay -f 0.37m : dither lipshitz stats -i"
 MODULATED = "delay -M 0.5m -q 2 10m noise -90 dither sloped2 16 stats levels"
 SLICE_C_SEED = 20263  # numpy's global generator, seeded before each run
+# slices D and E (bench.py:494): the 4-channel upmix of a CD master, and a
+# 48 kHz quad upmix, which exercises the rate change and both quanta (588
+# in, 32 after it: -b 2048 becomes 2352 in, 2560 out)
+MATRIX4 = "matrix4 -6"
+UPMIX48 = "resample 48k matrix4 -6"
+# matrix4 after a resampler forgets its start slowly: the steering axes are
+# ratios of envelopes that start from zero, so over the resampler's
+# pre-ringing at the stream's start the card's and the CPU's FFT rounding
+# (~1e-16) is a difference in the envelopes' low digits, which the engine's
+# slow EWMAs carry for seconds (tests/test_torch_matrix4.py shows the same
+# between dsp_tpu and the port on the CPU). The run prints its difference a
+# second; the first ONSET[0] s are held to ONSET[1], the rest to LIMIT_DBFS
+ONSET = (5.0, -100.0)
 # the roofline's two rates: NVIDIA's H100 SXM data sheet, float64 outside
 # the tensor cores, and HBM3
 F64_PEAK = 34e12
@@ -578,6 +604,279 @@ def time_domain_phase(records):
     print(f"  all within {dbfs(rec['max_abs_err']):.1f} dBFS, keys equal")
 
 
+def resample_phase(rec):
+    """K8 at the main path's shapes (block 2048 rounded up to 4 inner
+    blocks of 588 frames, stereo: 8 columns), 44.1 kHz to 48 and 192 kHz:
+    resample_fold against its plain version on a host copy, within 1e-15
+    relative (the same products, the same order: equal unless the card's
+    product rounds otherwise); the whole step (rfft_pack, fold,
+    irfft_crop, scale and overlap-add) against the plain step on the host
+    within -280 dBFS. Times the fold and its plain version on the card."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.ops.resample_ops import SpectralResampler, resample_fold, resample_fold_ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20265)
+    limit = 10.0 ** (-280.0 / 20.0)
+    print("K8 resample_fold (complex128; 4 inner blocks of 588 frames, stereo)")
+    for out_fs in (48000, 192000):
+        rs = SpectralResampler(FS, out_fs)
+        n = 4
+        ncol = n * CHANNELS
+        X = torch.as_tensor(rng.standard_normal((rs.in_len + 1, ncol))
+                            + 1j * rng.standard_normal((rs.in_len + 1, ncol)), device=dev)
+        Y_k = resample_fold(X, rs.fold)
+        Y_r = resample_fold_ref(X.cpu(), rs.fold)
+        torch.cuda.synchronize()
+        err = _diff(torch.view_as_real(Y_k), torch.view_as_real(Y_r))
+        scale = float(Y_r.abs().max())
+        _require(f"resample_fold {out_fs}: {err:.3e} against the plain version",
+                 err <= 1e-15 * scale)
+        x = torch.as_tensor(rng.standard_normal((n * rs.in_len, CHANNELS)) * 0.3, device=dev)
+        ov = torch.as_tensor(rng.standard_normal((rs.out_len, CHANNELS)) * 0.1, device=dev)
+        ov_k, y_k = rs.block(ov, x)
+        ov_r, y_r = rs.block(ov.cpu(), x.cpu())
+        step_err = max(_diff(y_k, y_r), _diff(ov_k, ov_r))
+        _require(f"resample step {out_fs}: {dbfs(step_err):.1f} dBFS", step_err <= limit)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        ms = cuda_ms(lambda: resample_fold(X, rs.fold), 50)
+        plain_ms = cuda_ms(lambda: resample_fold_ref(X, rs.fold), 10)
+        step_ms = cuda_ms(lambda: rs.block(ov, x), 20)
+        T = len(rs.tab_l)
+        print(f"  {FS} -> {out_fs}: {T} entries into {rs.out_len + 1} bins, fold "
+              f"{'equal' if err == 0 else f'within {err:.3e}'}, step {dbfs(step_err):.1f} dBFS; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, whole step {step_ms:.4f} ms")
+        rec.setdefault("times", []).append({"out_fs": out_fs, "ms": ms, "plain_ms": plain_ms,
+                                            "step_ms": step_ms})
+        if out_fs == 48000:
+            # X in and Y out, the tables (ptr, j, flags, s) once; a complex
+            # product and sum (8 operations) an entry and column
+            nbytes = 16 * ncol * (rs.in_len + 1 + rs.out_len + 1) + 4 * (rs.out_len + 2) + 24 * T
+            set_times(rec, ms, plain_ms, nbytes, 8 * T * ncol)
+
+
+def transient_signal(seconds, fs=FS, seed=5):
+    """Program material with transients, so that matrix4's events sample,
+    hold and release: a quiet stereo bed (two tones and noise) and decaying
+    noise bursts, one every 0.15-0.45 s, each panned left, right, centre,
+    to the rear (the channels in antiphase) or between."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = int(seconds * fs)
+    t = np.arange(n) / fs
+    x = 0.02 * np.stack([np.sin(2 * np.pi * 220 * t), np.sin(2 * np.pi * 330 * t)], 1)
+    x += 0.005 * rng.standard_normal((n, 2))
+    pans = np.array([[1.0, 0.05], [0.05, 1.0], [0.7, 0.7], [0.7, -0.7], [1.0, 0.5], [-0.3, 1.0]])
+    pos = int(0.1 * fs)
+    while pos < n:
+        m = min(n - pos, int(0.3 * fs))
+        burst = rng.standard_normal(m) * np.exp(-np.arange(m) / (0.04 * fs)) * 0.3
+        x[pos:pos + m] += burst[:, None] * pans[rng.integers(len(pans))]
+        pos += int(rng.uniform(0.15, 0.45) * fs)
+    return x
+
+
+# the matrix4 kernel checks: (options, rate, block); the last is the block
+# that follows `resample 48k` at -b 2048 (2352 in, 2560 out: Nc = 80)
+M4_KERNEL_CASES = (
+    ("matrix4 -6", FS, 2048),
+    ("matrix4 matrix=v1 -6", FS, 2048),
+    ("matrix4 direct_path -6", FS, 2048),
+    ("matrix4 phase_flip=false,shelf=none,lowpass=none -6", FS, 2048),
+    ("matrix4 -6", 48000, 2560),
+)
+M4_DECISIONS = ("ord_count", "diff_count", "early_count", "ignore_count")
+
+
+def _rel(a, b):
+    """max |a - b| over max(1, max |b|), compared on the host."""
+    b = b.cpu()
+    return _diff(a, b) / max(1.0, float(b.abs().max()) if b.numel() else 0.0)
+
+
+def matrix4_phase(records):
+    """K11 m4_env, K9 + K10 m4_event and K12 + K13 m4_audio against their
+    plain versions on the card, on the same inputs, over 3 blocks of
+    transient material after 2 s of it through the kernels, for each case
+    of M4_KERNEL_CASES. The event state's bool and integer leaves must be
+    equal (the decisions); its floats, the coefficient sets and the
+    interpolator window within 1e-12 relative (the plain version runs the
+    same operations through torch's CUDA ops); the envelopes within 1e-12
+    relative (a scan of another grouping); the audio within -280 dBFS. The
+    event counters of each case are printed. Times the three kernels and
+    their plain versions at B = 2048 (v4)."""
+    import torch
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.ops import iir
+    from dsp_tpu_torch.ops import m4_engine as m4
+
+    limit = 10.0 ** (-280.0 / 20.0)
+    print("K9-K13 matrix4: m4_env, m4_event, m4_audio (3 blocks after 2 s of transients)")
+    for words, fs, B in M4_KERNEL_CASES:
+        cc = CompiledChain(build_chain_from_string(words, StreamInfo(fs, CHANNELS)), B,
+                           device="cuda")
+        e = cc._runtime_effects[0]
+        x = torch.as_tensor(transient_signal(2.5, fs), device="cuda")
+        warm = x.shape[0] // B - 3
+        cc.run_blocks(x[: warm * B].reshape(warm, B, CHANNELS))
+        errs = {"m4_env": 0.0, "m4_event": 0.0, "m4_audio": 0.0}
+        for blk in range(warm, warm + 3):
+            st = cc.states[0]
+            xb = x[blk * B:(blk + 1) * B].contiguous()
+            args = [e.device_array(k, xb) for k in ("A_hp", "B_hp", "c0_hp")]
+            _, y_hp = iir.biquad_scan(*args, st["bp_m"][:2].contiguous(), xb)
+            args = [e.device_array(k, xb) for k in ("A_lp", "B_lp", "c0_lp")]
+            _, y_bp = iir.biquad_scan(*args, st["bp_m"][2:].contiguous(), y_hp)
+            env_k = m4.m4_env(y_bp, st["env_m"], e.g_env)
+            env_r = m4.m4_env_ref(y_bp, st["env_m"], e.g_env)
+            errs["m4_env"] = max(errs["m4_env"], *(_rel(a, b) for a, b in zip(env_k, env_r)))
+            fade_p, disable = int(st["fade_p"]), bool(st["disable"])
+            ev1 = {k: v[None] for k, v in st["ev"].items()}
+            ins = (ev1, st["bg_cs"][None], env_k[1][None], st["interp_y"][None], fade_p, disable)
+            out_k = m4.m4_event(e.ctl, *ins)
+            out_r = m4.m4_event_ref(e.ctl, *ins)
+            torch.cuda.synchronize()
+            for k, kind in m4.EV_LEAVES:
+                a, b = out_k[0][k], out_r[0][k]
+                if kind != "f":
+                    _require(f"m4_event {words} at {fs} block {blk}: {k} differs from the plain "
+                             f"version", torch.equal(a, b))
+                else:
+                    errs["m4_event"] = max(errs["m4_event"], _rel(a, b))
+            for a, b in zip(out_k[1:], out_r[1:]):
+                errs["m4_event"] = max(errs["m4_event"], _rel(a, b))
+            ics = out_k[2][0]
+            a_ins = (e.audio, xb, st["buf"], st["interp_c"], ics, st["shelf_m"], st["lp_m"],
+                     st["pf_m"])
+            y_k, y_r = m4.m4_audio(*a_ins), m4.m4_audio_ref(*a_ins)
+            errs["m4_audio"] = max(errs["m4_audio"], *(_diff(a, b) for a, b in zip(y_k, y_r)))
+            cc.run_blocks(xb[None])
+        ev = cc.states[0]["ev"]
+        counters = {k: int(ev[k]) for k in M4_DECISIONS}
+        print(f"  {words} at {fs} Hz, B={B}: decisions equal; floats within "
+              f"{errs['m4_event']:.3e}, envelopes {errs['m4_env']:.3e} relative, audio "
+              f"{dbfs(errs['m4_audio']):.1f} dBFS; after {int(ev['t'])} ticks {counters}")
+        _require(f"matrix4 {words}: no event in the check's input", counters["diff_count"]
+                 + counters["ord_count"] > 0)
+        _require(f"m4_env {words}: {errs['m4_env']:.3e} relative", errs["m4_env"] <= 1e-12)
+        _require(f"m4_event {words}: {errs['m4_event']:.3e} relative", errs["m4_event"] <= 1e-12)
+        _require(f"m4_audio {words}: {dbfs(errs['m4_audio']):.1f} dBFS", errs["m4_audio"] <= limit)
+        for name, err in errs.items():
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+        if (words, fs, B) != M4_KERNEL_CASES[0]:
+            continue
+        Nc, L, n_in, n_out = B // 32, e.ctl.p["buf_len"], CHANNELS, e.audio.n_out
+        st = cc.states[0]
+        ev1 = {k: v[None] for k, v in st["ev"].items()}
+        ins = (ev1, st["bg_cs"][None], env_k[1][None], st["interp_y"][None], 0, False)
+        a_ins = (e.audio, xb, st["buf"], st["interp_c"], ics, st["shelf_m"], st["lp_m"],
+                 st["pf_m"])
+        timed = {
+            # the pair in, the envelopes in and out, the ticks out; the
+            # input (|.| or a square) and the EWMA's two operations a
+            # sample and envelope
+            "m4_env": (lambda: m4.m4_env(y_bp, st["env_m"], e.g_env),
+                       lambda: m4.m4_env_ref(y_bp, st["env_m"], e.g_env),
+                       16 * B + 128 + 64 * Nc, 8 * 3 * B),
+            # the state in and out (about 70 values and 10 rings of L), the
+            # ticks in, the coefficient sets, window and display out; about
+            # 300 operations a tick for the engine, 250 for the epilogue and
+            # 112 for the insert
+            "m4_event": (lambda: m4.m4_event(e.ctl, *ins), lambda: m4.m4_event_ref(e.ctl, *ins),
+                         2 * 8 * (80 + 10 * L) + 64 * Nc + 8 * Nc * (48 + 4) + 2 * 512,
+                         (300 + 250 + 112) * Nc),
+            # x in and y out, the line, the coefficient sets, the states;
+            # per sample 10 interpolated values (4 operations each), the
+            # matrix (12), two shelves (4 x 8 each) and two allpasses (5)
+            "m4_audio": (lambda: m4.m4_audio(*a_ins), lambda: m4.m4_audio_ref(*a_ins),
+                         8 * (B * (n_in + n_out) + 2 * e.len + 48 * (Nc + 1) + 32),
+                         (40 + 12 + 64 + 10) * B),
+        }
+        for name, (kern, plain, nbytes, flops) in timed.items():
+            ms = cuda_ms(kern, 20)
+            plain_ms = cuda_ms(plain, 2)
+            set_times(records[name], ms, plain_ms, nbytes, flops)
+            print(f"  {name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+
+def matrix4_no_sync():
+    """One matrix4 step does not synchronise: run_blocks over 16 blocks at
+    B = 2048 of input already on the card, the status line off, under
+    torch.cuda.set_sync_debug_mode("error")."""
+    import torch
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_args
+    from dsp_tpu_torch.core.types import StreamInfo
+
+    cc = CompiledChain(build_chain_from_args(["matrix4", "-6"], StreamInfo(FS, CHANNELS)), 2048,
+                       device="cuda")
+    xs = torch.as_tensor(transient_signal(1.0)[: 20 * 2048], device="cuda").reshape(20, 2048,
+                                                                                 CHANNELS)
+    cc.run_blocks(xs[:4])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ys = cc.run_blocks(xs[4:])
+    except RuntimeError as e:
+        raise SmokeError(f"the matrix4 step synchronised: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    _require("the matrix4 run without syncs gave non-finite output", bool(torch.isfinite(ys).all()))
+    print(f"matrix4 step: 16 blocks ran with no host sync, t = {int(cc.states[0]['ev']['t'])}")
+
+
+def program_signal(dur=4.0, fs=FS):
+    """scripts/gen_bench_goldens.py's program material (crossing sweeps and
+    tones, stereo), the input of bench_goldens/*.npz."""
+    import numpy as np
+
+    n = int(dur * fs)
+    t = np.arange(n) / fs
+    g = 10 ** (-14 / 20)
+    v = np.log(16000 / 35)
+    x = np.zeros((n, 2))
+    x[:, 0] = g * (np.sin(35 / v * dur * (np.exp(v * t / dur) - 1)) + np.sin(2 * np.pi * 997 * t))
+    x[:, 1] = g * (np.sin(2 * np.pi * 1497 * t)
+                   + np.sin(16000 / np.log(35 / 16000) * dur * (np.exp(np.log(35 / 16000) * t / dur) - 1)))
+    return x
+
+
+def bench_golden_check():
+    """bench_goldens/resample.npz and matrix4.npz (dsp_tpu float64 on the
+    CPU, stored as float32 hi + lo) against the card: the 4 s program
+    signal through `resample 192k` and `matrix4 -6` at block 65536, raw
+    (zero-padded whole blocks from the initial state, no drain or discard),
+    as gen_bench_goldens.render_blocks renders them; within -200 dBFS."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+
+    x = program_signal()
+    for name, words in (("resample", "resample 192k"), ("matrix4", "matrix4 -6")):
+        z = np.load(ROOT / "bench_goldens" / f"{name}.npz")
+        want = z["hi"].astype(np.float64) + z["lo"].astype(np.float64)
+        cc = CompiledChain(build_chain_from_string(words, StreamInfo(FS, CHANNELS)), 65536,
+                           device="cuda")
+        B = cc.block_frames
+        n_blocks = -(-len(x) // B)
+        xp = np.zeros((n_blocks * B, CHANNELS))
+        xp[: len(x)] = x
+        ys = cc.run_blocks(xp.reshape(n_blocks, B, CHANNELS))
+        got = ys.reshape(-1, ys.shape[-1]).to("cpu", torch.float64).numpy()
+        got = got[: int(len(x) * float(cc.chain.ratio))]
+        _require(f"bench golden {name}: {got.shape} against {want.shape}", got.shape == want.shape)
+        check_close(f"bench_goldens/{name}.npz ({words}, -b 65536) on the card vs dsp_tpu f64",
+                    float(np.abs(got - want).max()))
+
+
 def write_input(path, seconds):
     """Seeded stereo test signal: sines summing to -6 dBFS plus noise."""
     import numpy as np
@@ -637,7 +936,7 @@ def write_filter(path, taps, seed):
 
 
 def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, seconds, tmp,
-            enc="double", limit_dbfs=LIMIT_DBFS, seed=None):
+            enc="double", limit_dbfs=LIMIT_DBFS, seed=None, onset=None):
     """One file-to-file run of dsp-torch on the card. Fails unless it
     writes the expected frame count, launches every kernel in `wrappers`
     (their counts are zeroed just before the run) and matches the port's
@@ -647,7 +946,9 @@ def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, secon
     chain's init, the output writer's two dither seeds, the effects'
     initial states). The CPU run's output goes through what the CLI's
     writer does for `enc`: its dither policy, its app-level dither, the
-    clip and the encoding. Returns what the run wrote to stderr."""
+    clip and the encoding. With `onset` = (seconds, dBFS), the output's
+    first seconds are held to that limit instead (see ONSET). Returns what
+    the run wrote to stderr."""
     import contextlib
     import io
 
@@ -682,7 +983,7 @@ def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, secon
         if c <= 0:
             raise SmokeError(f"{label}: {name} kernel was not launched")
         records[name]["launches"] += c
-    got, y = read_wav(out, COMPARE_SECONDS * FS)
+    got, y = read_wav(out, COMPARE_SECONDS * chain.ostream.fs)
     if got != want:
         raise SmokeError(f"{label}: {got} output frames, expected {want}")
     if seed is not None:
@@ -706,7 +1007,22 @@ def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, secon
     if len(ref) == 0 or len(y) < len(ref):
         raise SmokeError(f"{label}: {len(y)} frames to compare with {len(ref)} of the CPU run")
     what = f"{label}: first {COMPARE_SECONDS} s vs the port on the CPU"
-    diff = float(np.abs(y[: len(ref)] - ref).max())
+    y = y[: len(ref)]
+    if onset is not None:
+        fs_out = chain.ostream.fs
+        per_s = [float(np.abs(y[i:i + fs_out] - ref[i:i + fs_out]).max())
+                 for i in range(0, len(ref), fs_out)]
+        print(f"  {label}: vs the port on the CPU, a second at a time (dBFS): "
+              + " ".join(f"{dbfs(e):.1f}" for e in per_s))
+        n0 = int(onset[0] * fs_out)
+        early = float(np.abs(y[:n0] - ref[:n0]).max())
+        print(f"  {label}: first {onset[0]} s vs the port on the CPU: max |diff| {early:.3e} "
+              f"({dbfs(early):.1f} dBFS, limit {onset[1]})")
+        if not dbfs(early) <= onset[1]:
+            raise SmokeError(f"{label}: first {onset[0]} s at {dbfs(early):.1f} dBFS")
+        what = f"{label}: {onset[0]} s to {COMPARE_SECONDS} s vs the port on the CPU"
+        y, ref = y[n0:], ref[n0:]
+    diff = float(np.abs(y - ref).max())
     if limit_dbfs is None:
         print(f"  {what}: max |diff| {diff:.3e}")
         if diff != 0.0:
@@ -803,11 +1119,12 @@ def delivery_no_sync():
 
 
 def profile_chains():
-    """Where a block's time goes in slice C's chains: CompiledChain.run_blocks
-    over 256 blocks of B = 2048 on the card, timed unprofiled (host clock to
-    a synchronize), then under torch.profiler for the device time of each
-    kernel. Prints the step time a block, the device time a block by
-    kernel, and the device's busy share of the unprofiled step."""
+    """Where a block's time goes in slice C's chains and slices D and E's
+    upmixes: CompiledChain.run_blocks over 256 blocks (-b 2048) on the card,
+    timed unprofiled (host clock to a synchronize), then under
+    torch.profiler for the device time of each kernel. Prints the step time
+    a block, the device time a block by kernel, and the device's busy share
+    of the unprofiled step."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -819,13 +1136,20 @@ def profile_chains():
 
     rng = np.random.default_rng(13)
     n = 256
-    xs = torch.as_tensor(rng.standard_normal((n, 2048, CHANNELS)) * 0.1, device="cuda")
-    for label, words, prec in (("delivery", DELIVERY, 16), ("modulated", MODULATED, 53)):
+    for label, words, prec in (("delivery", DELIVERY, 16), ("modulated", MODULATED, 53),
+                               ("matrix4", MATRIX4, 53), ("upmix48", UPMIX48, 53)):
         np.random.seed(SLICE_C_SEED)
         chain = build_chain_from_args(words.split(), StreamInfo(FS, CHANNELS))
         chain_set_dither_params(chain, prec, prec < 24)
         cc = CompiledChain(chain, 2048, device="cuda")
+        B = cc.block_frames
+        if label in ("matrix4", "upmix48"):
+            x = transient_signal((n + 8) * B / FS + 0.01)[: (n + 8) * B]
+        else:
+            x = rng.standard_normal(((n + 8) * B, CHANNELS)) * 0.1
+        xs = torch.as_tensor(x, device="cuda").reshape(n + 8, B, CHANNELS)
         cc.run_blocks(xs[:8])
+        xs = xs[8:]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cc.run_blocks(xs)
@@ -839,9 +1163,10 @@ def profile_chains():
             if e.device_type == DeviceType.CUDA:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
         dev_ms = sum(by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        print(f"profile {label} (B=2048, {n} blocks): step {step_ms:.4f} ms a block unprofiled, "
-              f"device {dev_ms:.4f} ms a block ({100 * dev_ms / step_ms:.1f}% of the step)")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        print(f"profile {label} (B={B}, {n} blocks): step {step_ms:.4f} ms a block unprofiled "
+              f"({B / FS * 1e3 / step_ms:.1f}x realtime), device {dev_ms:.4f} ms a block "
+              f"({100 * dev_ms / step_ms:.1f}% of the step)")
         for name, ms in top:
             print(f"  {ms:.4f} ms ({100 * ms / dev_ms:.1f}%)  {name[:90]}")
 
@@ -895,6 +1220,17 @@ def main_path(records, seconds, tmp):
              "levels_step": td.levels_step},
             *common, limit_dbfs=-280.0, seed=SLICE_C_SEED)
     stats_table_check(head, tmp)
+
+    from dsp_tpu_torch.ops import m4_engine as m4
+    from dsp_tpu_torch.ops import resample_ops
+
+    # slices D and E: the upmixes
+    m4w = {"biquad_scan": iir.biquad_scan, "m4_env": m4.m4_env, "m4_event": m4.m4_event,
+           "m4_audio": m4.m4_audio, "splice": fft_conv.splice}
+    cli_run("matrix4 -6 -b 2048 (44.1 kHz -> 4 ch)", MATRIX4.split(), 2048, m4w, *common)
+    cli_run("resample 48k matrix4 -6 -b 2048 (48 kHz quad)", UPMIX48.split(), 2048,
+            {**m4w, "rfft_pack": fft_conv.rfft_pack, "resample_fold": resample_ops.resample_fold,
+             "irfft_crop": fft_conv.irfft_crop}, *common, onset=ONSET)
     return f1m
 
 
@@ -968,6 +1304,12 @@ def main():
             ("tpdf_noise", "tpdf", "dsp_tpu/effects/noise.py:51", "B=2048, C=2"),
             ("stats_step", "stats", "dsp_tpu/effects/stats.py:159,197,266", "-i, B=2048, C=2"),
             ("levels_step", "levels", "dsp_tpu/effects/levels.py:62", "B=2048, C=2"),
+            ("resample_fold", "resample", "dsp_tpu/ops/resample_ops.py:144",
+             "48 kHz, 4 x 588 frames, C=2"),
+            ("m4_env", "m4_env", "dsp_tpu/ops/m4_engine.py:267", "B=2048"),
+            ("m4_event", "m4_event", "dsp_tpu/ops/m4_engine.py:395,730,784,887",
+             "Nc=64, v4, S=1"),
+            ("m4_audio", "m4_audio", "dsp_tpu/effects/matrix4.py:597,673,699", "B=2048, v4"),
         )
     }
     tmp = ROOT / ".smoke_tmp" / "run"  # removed at the end; scratch scripts may sit beside it
@@ -980,10 +1322,14 @@ def main():
         fdl_mac_phase(records["fdl_mac"])
         step_kernels_phase(records)
         time_domain_phase(records)
+        resample_phase(records["resample_fold"])
+        matrix4_phase(records)
+        bench_golden_check()
         tmp.mkdir(parents=True, exist_ok=True)
         f1m = main_path(records, SECONDS, tmp)
         nupols_no_sync(f1m)
         delivery_no_sync()
+        matrix4_no_sync()
         profile_chains()
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -1,0 +1,85 @@
+// K11: matrix4's envelope followers, float64, for Hopper (sm_90a).
+//
+// Replaces dsp_tpu/ops/m4_engine.py:267 `env_ewma_scan` as matrix4 calls it
+// (effects/matrix4.py:444-456): from the band-limited pair (l, r) of a
+// block, the eight audio-rate EWMAs
+//   m' = (1 - g)·m + g·s,  s in |l|, |r|, |l+r|, |l-r|, l², r², (l+r)², (l-r)²
+// and their values at the control ticks D-1, 2D-1, ... (D = 32), which is
+// all the event engine reads. dsp_tpu ran an associative scan of the affine
+// maps over the block and then took every D-th row; this kernel writes only
+// those rows and the carried m.
+//
+// What bounds it on the card: each envelope is a dependent chain of B
+// samples (two operations a sample) and reads 16·B bytes: latency. Design:
+// one block of eight warps, a warp an envelope. Each lane composes its
+// segment of B/32 samples into one map (A, b), a shuffle scan gives each
+// segment its start value, and each lane reruns its segment, writing the
+// ticks that fall in it. The chain a lane walks is 2·B/32 + 5 steps long.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ double env_input(int j, double l, double r) {
+    switch (j) {
+        case 0: return fabs(l);
+        case 1: return fabs(r);
+        case 2: return fabs(l + r);
+        case 3: return fabs(l - r);
+        case 4: return l * l;
+        case 5: return r * r;
+        case 6: { const double s = l + r; return s * s; }
+        default: { const double d = l - r; return d * d; }
+    }
+}
+
+__global__ void m4_env_kernel(const double* __restrict__ ybp, const double* __restrict__ env_in,
+                              double* __restrict__ env_out, double* __restrict__ env_ds, double g,
+                              int B, int D) {
+    const unsigned full = 0xffffffffu;
+    const int j = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const double a = 1.0 - g;
+    const int seg = B / 32;  // B % 32 == 0 (the host checks)
+    const int t0 = lane * seg, t1 = t0 + seg;
+    // 1. this lane's segment as one map m -> A·m + b
+    double A = 1.0, b = 0.0;
+    for (int t = t0; t < t1; ++t) {
+        const double s = env_input(j, ybp[2 * t], ybp[2 * t + 1]);
+        A = a * A;
+        b = a * b + g * s;
+    }
+    // 2. inclusive scan of the lanes' maps, then shift to exclusive
+    for (int d = 1; d < 32; d <<= 1) {
+        const double Ao = __shfl_up_sync(full, A, d), bo = __shfl_up_sync(full, b, d);
+        if (lane >= d) {
+            b = A * bo + b;
+            A = A * Ao;
+        }
+    }
+    double Ap = __shfl_up_sync(full, A, 1), bp = __shfl_up_sync(full, b, 1);
+    if (lane == 0) {
+        Ap = 1.0;
+        bp = 0.0;
+    }
+    // 3. rerun the segment from its start value; write the ticks in it
+    double m = Ap * env_in[j] + bp;
+    for (int t = t0; t < t1; ++t) {
+        const double s = env_input(j, ybp[2 * t], ybp[2 * t + 1]);
+        m = a * m + g * s;
+        if ((t + 1) % D == 0) env_ds[(size_t)((t + 1) / D - 1) * 8 + j] = m;
+    }
+    if (lane == 31) env_out[j] = m;
+}
+
+}  // namespace
+
+// ybp [B, 2], env_in and env_out [8], env_ds [B / D, 8]. Returns
+// cudaGetLastError() after the launch (0 on success). The caller
+// (dsp_tpu_torch/ops/m4_engine.py) checks shapes, dtypes and contiguity.
+extern "C" int dsp_m4_env_f64(const double* ybp, const double* env_in, double* env_out,
+                              double* env_ds, double g, int B, int D, void* stream) {
+    if (B <= 0 || B % 32 || D <= 0 || B % D) return (int)cudaErrorInvalidValue;
+    m4_env_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(ybp, env_in, env_out, env_ds,
+                                                                       g, B, D);
+    return (int)cudaGetLastError();
+}

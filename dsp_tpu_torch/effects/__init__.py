@@ -21,9 +21,7 @@ from dsp_tpu_torch.effects.base import (
 
 # (name, usage) of the effects still to port, in dsp_tpu's registry order
 NOT_PORTED = [
-    ("matrix4", "matrix4 [options ...] [surround_level][/surround_level_rear]"),
     ("matrix4_mb", "matrix4_mb [options ...] [surround_level][/surround_level_rear]"),
-    ("resample", "resample [bandwidth] fs[k]|x{mult}|/{div}"),
     ("ladspa_host", "ladspa_host module_path plugin_label [control ...]"),
     ("watch", "watch [-e] [~/]path"),
 ]
@@ -49,6 +47,8 @@ def _register_builtins():
     from dsp_tpu_torch.effects import dither  # noqa: F401
     from dsp_tpu_torch.effects import stats  # noqa: F401
     from dsp_tpu_torch.effects import levels  # noqa: F401
+    from dsp_tpu_torch.effects import resample  # noqa: F401
+    from dsp_tpu_torch.effects import matrix4  # noqa: F401
 
     for name, usage in NOT_PORTED:
         register_effect(name, usage, _not_ported_init)

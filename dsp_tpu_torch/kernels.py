@@ -33,6 +33,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# extra nvcc flags of one source: the matrix4 engine rounds every product
+# and sum on its own, as the plain version's torch ops do (csrc/m4_event.cu)
+FILE_FLAGS = {"m4_event.cu": ("-fmad=false",)}
 # the dither kernel keeps a block's noise and input in shared memory up to
 # this size (csrc/tpdf.cu holds the same number), else the noise in a
 # scratch tensor
@@ -53,7 +56,7 @@ def sources():
 
 def build_dir():
     h = hashlib.sha256()
-    for flag in NVCC_FLAGS:
+    for flag in NVCC_FLAGS + tuple(f for name in sorted(FILE_FLAGS) for f in (name, *FILE_FLAGS[name])):
         h.update(flag.encode() + b"\0")
     for src in sources():
         h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
@@ -81,6 +84,52 @@ class StatsState(ctypes.Structure):
         "m", "y", "z", "nctr", "tmin", "tmax")]
 
 
+class M4EvPtrs(ctypes.Structure):
+    """csrc/m4_event.cu's EvPtrs: the event state's leaves in
+    ops/m4_engine.EV_LEAVES order (11 bool, 28 float64, 8 int64)."""
+
+    _fields_ = [("b", ctypes.c_void_p * 11), ("f", ctypes.c_void_p * 28), ("i", ctypes.c_void_p * 8)]
+
+
+class M4EvParams(ctypes.Structure):
+    """csrc/m4_event.cu's EvParams."""
+
+    _fields_ = (
+        [(k, ctypes.c_double) for k in (
+            "g_accom", "g_norm", "g_norm_fast", "g_slow", "g_smooth", "g_avg", "g_drift_slow",
+            "g_drift_fast", "g_dpwr_slow", "g_dpwr_fast", "g_ds0", "g_ds1", "g_pwrcmp",
+            "g_ord_notch_scale", "base_ord_ns")]
+        + [("ord_lp_c", ctypes.c_double * 5)]
+        + [(k, ctypes.c_double) for k in (
+            "svf1_a0", "svf1_alpha", "svf1_beta", "svf2_a0", "svf2_alpha", "svf2_beta",
+            "clip_thresh", "pcf_sens", "ord_factor_c", "diff_lim", "rear_ev_mask",
+            "accom_mask_fall", "norm_accom_factor", "thresh", "bg_g0", "bg_c0", "bg_c1")]
+        + [(k, ctypes.c_int) for k in ("buf_len", "sample_frames", "max_hold_frames",
+                                       "min_hold_frames")]
+    )
+
+
+class M4K10Params(ctypes.Structure):
+    """csrc/m4_event.cu's K10Params."""
+
+    _fields_ = (
+        [(k, ctypes.c_double) for k in ("surr_mult0", "surr_mult1", "contour_pwrcmp", "shelf_mult",
+                                        "lowpass_mult", "matrix_param", "pf_c0", "pf_c1")]
+        + [(k, ctypes.c_int) for k in ("matrix_v4", "dpwr_decouple", "fade_frames", "D")]
+    )
+
+
+class M4AudioCfg(ctypes.Structure):
+    """csrc/m4_audio.cu's AudioCfg."""
+
+    _fields_ = (
+        [(k, ctypes.c_double) for k in ("shelf_sin", "shelf_cos1", "shelf_norm", "shelf_c2",
+                                        "lp_sin", "lp_cos1", "lp_norm", "lp_c2")]
+        + [(k, ctypes.c_int) for k in ("c0", "c1", "n_in", "n_out", "len", "D", "shelf_on",
+                                       "lp_on", "phase_flip", "direct")]
+    )
+
+
 class _Library:
     """The loaded shared library and the log of the build that made it."""
 
@@ -103,7 +152,7 @@ class _Library:
         jobs = []
         for src in sorted(CSRC_DIR.glob("*.cu")):
             obj = out_dir / f"{src.stem}.{tag}.o"
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, *FILE_FLAGS.get(src.name, ()), "-c", "-o", str(obj), str(src)]
             jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                     stderr=subprocess.STDOUT, text=True)))
         logs, failed = [], []
@@ -160,6 +209,14 @@ class _Library:
                 lib.dsp_stats_f64.restype = i
                 lib.dsp_mod_delay_f64.argtypes = [p] * 12 + [i] * 7 + [d] * 3 + [p]
                 lib.dsp_mod_delay_f64.restype = i
+                lib.dsp_resample_fold_c128.argtypes = [p] * 6 + [i, i, p]
+                lib.dsp_resample_fold_c128.restype = i
+                lib.dsp_m4_env_f64.argtypes = [p] * 4 + [d, i, i, p]
+                lib.dsp_m4_env_f64.restype = i
+                lib.dsp_m4_event_f64.argtypes = [p] * 13 + [i, i, ll, i, p]
+                lib.dsp_m4_event_f64.restype = i
+                lib.dsp_m4_audio_f64.argtypes = [p] * 13 + [i, p]
+                lib.dsp_m4_audio_f64.restype = i
                 lib.dsp_cuda_error_string.argtypes = [i]
                 lib.dsp_cuda_error_string.restype = ctypes.c_char_p
                 self.lib = lib
@@ -282,6 +339,14 @@ def launch_stats(state, new, keys, xs, insert_h):
     _check(rc, "stats")
 
 
+def launch_resample_fold(X, Y, ptr, j, flags, s):
+    rc = load().dsp_resample_fold_c128(
+        _ptr(X), _ptr(Y), _ptr(ptr), _ptr(j), _ptr(flags), _ptr(s), Y.shape[0], Y.shape[1],
+        _stream(X.device),
+    )
+    _check(rc, "resample_fold")
+
+
 def launch_mod_delay(key, key_out, yk, yk_out, t, t_out, knots, buf, x, y, sel, table, n_new,
                      n_phases, n_taps, depth, step, step_b):
     B, C = x.shape
@@ -291,3 +356,45 @@ def launch_mod_delay(key, key_out, yk, yk_out, t, t_out, knots, buf, x, y, sel, 
         n_new, n_phases, n_taps, depth, step, step_b, _stream(x.device),
     )
     _check(rc, "mod_delay")
+
+
+def launch_m4_env(ybp, env_m, env_out, env_ds, g):
+    B = ybp.shape[0]
+    rc = load().dsp_m4_env_f64(
+        _ptr(ybp), _ptr(env_m), _ptr(env_out), _ptr(env_ds), g, B, B // env_ds.shape[0],
+        _stream(ybp.device),
+    )
+    _check(rc, "m4_env")
+
+
+def _ev_ptrs(ev):
+    from dsp_tpu_torch.ops.m4_engine import EV_LEAVES
+
+    ptrs = M4EvPtrs()
+    slots = {"b": 0, "f": 0, "i": 0}
+    for name, kind in EV_LEAVES:
+        getattr(ptrs, kind)[slots[kind]] = ev[name].data_ptr()
+        slots[kind] += 1
+    return ptrs
+
+
+def launch_m4_event(ctl, ev, ev_out, bg, bg_out, env_ds, eo, vt, iy_in, ics, iy_out, aux, fade_p,
+                    disable):
+    S, Nc = env_ds.shape[0], env_ds.shape[1]
+    evp, k10 = ctl.c_structs()
+    rc = load().dsp_m4_event_f64(
+        ctypes.byref(_ev_ptrs(ev)), ctypes.byref(_ev_ptrs(ev_out)), _ptr(bg), _ptr(bg_out),
+        _ptr(env_ds), _ptr(eo), _ptr(vt), _ptr(iy_in), _ptr(ics), _ptr(iy_out), _ptr(aux),
+        ctypes.byref(evp), ctypes.byref(k10), S, Nc, fade_p, int(disable), _stream(env_ds.device),
+    )
+    _check(rc, "m4_event")
+
+
+def launch_m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m, y, shelf_out, lp_out, pf_out,
+                    scratch):
+    rc = load().dsp_m4_audio_f64(
+        _ptr(x), _ptr(buf), _ptr(interp_c), _ptr(ics), _ptr(shelf_m), _ptr(lp_m), _ptr(pf_m),
+        _ptr(y), _ptr(shelf_out), _ptr(lp_out), _ptr(pf_out), _ptr(scratch),
+        ctypes.byref(cfg.c_struct()), x.shape[0], _stream(x.device),
+    )
+    _check(rc, "m4_audio")

@@ -1,0 +1,258 @@
+"""Rational-ratio spectral resampler (reference: resample.c), ported from
+dsp_tpu.ops.resample_ops.
+
+Windowed-sinc prototype (Albrecht 9-term window, -220 dB stopband, up to 2x
+oversampled) applied by frequency-domain convolution: each inner block
+consumes in_len = d*L input frames and produces out_len = n*L output frames.
+Rate conversion happens in the spectral multiply: the input spectrum is
+conjugate-mirrored (periodized) across the lcm-rate band while the product is
+aliased (folded) back into the output band — the index walk of
+resample.c:116-131 — with 50% overlap-add.
+
+The plan and the index walk's tables are host numpy, computed exactly as
+dsp_tpu computes them. One step (K8, ``SpectralResampler.block``) is three
+kernel wrappers over all inner blocks of a chain block at once, the inner
+blocks (times channels) as columns:
+
+* ``rfft_pack`` (ops/fft_conv.py, csrc/fft_conv.cu): rfft at 2·in_len;
+* ``resample_fold`` (csrc/resample.cu): the gather by ``tab_j``, the conj
+  masks, the product with ``tab_s`` and the segment sum into out_len+1 bins;
+* ``irfft_crop`` (csrc/fft_conv.cu): irfft at 2·out_len;
+
+then the scale and the 50% overlap-add, as dsp_tpu orders them, as a
+shifted add across the columns. The float32 double-float path of dsp_tpu
+(``_block_df``) is not ported: the port computes in float64.
+"""
+
+import math
+from math import gcd
+
+import numpy as np
+import torch
+
+from dsp_tpu_torch.ops.fft_conv import _check_cuda, irfft_crop, next_fast_len, rfft_pack
+
+M_FACT = 17.7822
+_ALBRECHT9 = np.array(
+    [
+        2.318028013590306028393e-1, 3.932575471789488615081e-1, 2.385434764970747429454e-1,
+        1.014370437785239811268e-1, 2.911516061918003918645e-2, 5.280988177252078698806e-3,
+        5.382909093381945363528e-4, 2.442086527507867730168e-5, 2.706153764205043532817e-7,
+    ]
+)
+SINC_MAX_OVERSAMPLE = 2
+
+
+def _window(x):
+    if x >= 1.0 or x <= 0.0:
+        return 0.0
+    i = np.arange(len(_ALBRECHT9))
+    c = np.where(i % 2 == 1, -_ALBRECHT9, _ALBRECHT9)
+    return float(np.sum(c * np.cos(2 * i * np.pi * x)))
+
+
+def _norm_sinc(x, fc):
+    if abs(x) < 1e-9:
+        return fc
+    return np.sin(np.pi * fc * x) / (np.pi * x)
+
+
+class SpectralResampler:
+    """Plan + tables for one (in_fs, out_fs, bandwidth) conversion."""
+
+    def __init__(self, in_fs, out_fs, bw=0.939):
+        self.in_fs, self.out_fs = in_fs, out_fs
+        g = gcd(in_fs, out_fs)
+        self.n = out_fs // g
+        self.d = in_fs // g
+        max_rate, min_rate = max(in_fs, out_fs), min(in_fs, out_fs)
+        max_factor, min_factor = max(self.n, self.d), min(self.n, self.d)
+
+        # lround (half-away-from-zero), NOT Python round (banker's):
+        # ties like 60.5 must round to 61 as in the C build
+        m = int(math.floor(2.0 * M_FACT * max_rate / (min_rate * (1.0 - bw)) + 0.5))
+        width = M_FACT * max_rate / m
+        fc = (min_rate - width) / max_rate
+        sinc_os = min(min_factor, SINC_MAX_OVERSAMPLE)
+        fc_os = fc / sinc_os
+        m_os = (m + 1) * sinc_os - 1
+        m1 = m
+        len_mult = -(-(m1 + 1) // max_factor)
+        if len_mult > 16:
+            fast = next_fast_len(len_mult)
+            if fast != len_mult and (
+                self.n <= 16
+                or self.d <= 16
+                or next_fast_len(self.n) == self.n
+                or next_fast_len(self.d) == self.d
+            ):
+                len_mult = fast
+        sinc_len = max_factor * len_mult * sinc_os
+        self.in_len = self.d * len_mult
+        self.out_len = self.n * len_mult
+        self.sinc_fr_len = sinc_len + 1
+        if out_fs == max_rate:
+            self.out_delay = m1 // 2
+        else:
+            self.out_delay = int(math.floor(m1 // 2 * (self.n / self.d) + 0.5))  # lround
+        self.filter_len = m1 + 1
+        self.width = width
+        self.fc = fc
+        self.sinc_os = sinc_os
+
+        # windowed sinc prototype and its spectrum
+        sinc = np.zeros(sinc_len * 2, dtype=np.float64)
+        for i in range(1, m_os):
+            sinc[i] = _norm_sinc((i * 2 - m_os) / 2.0, fc_os) * _window(i / m_os)
+        self.sinc_fr = np.fft.rfft(sinc)[: self.sinc_fr_len]
+
+        self._build_tables()
+
+    def _build_tables(self):
+        """Simulate the spectral index walk (resample.c:116-131) into COO
+        tables: for each contribution: input bin j, filter bin k, output bin
+        l, conj flags."""
+        in_len, out_len = self.in_len, self.out_len
+        ks, js, ls, c1s, c2s = [0], [0], [0], [False], [False]
+        k, j, l, d1, d2 = 1, 1, 1, 1, 1
+        while True:
+            ks.append(k)
+            js.append(j)
+            ls.append(l)
+            c1s.append(d1 != 1)
+            c2s.append(d2 != 1)
+            if k + 1 == self.sinc_fr_len:
+                break
+            if l == out_len:
+                ks.append(k); js.append(j); ls.append(l)
+                c1s.append(d1 != 1); c2s.append(False)
+            elif l == 0:
+                ks.append(k); js.append(j); ls.append(l)
+                c1s.append(d1 != 1); c2s.append(True)
+            j += d1
+            l += d2
+            if j == 0:
+                d1 = 1
+            elif j == in_len:
+                d1 = -1
+            if l == 0:
+                d2 = 1
+            elif l == out_len:
+                d2 = -1
+            k += 1
+        self.tab_k = np.array(ks, dtype=np.int32)
+        self.tab_j = np.array(js, dtype=np.int32)
+        self.tab_l = np.array(ls, dtype=np.int32)
+        self.tab_c1 = np.array(c1s, dtype=bool)
+        self.tab_c2 = np.array(c2s, dtype=bool)
+        # sign convention folded into precomputed complex filter weights:
+        # value = conj^c2( conj^c1(X[j]) * S[k] )
+        self.tab_s = self.sinc_fr[self.tab_k]
+        self.fold = FoldTables(self.tab_j, self.tab_l, self.tab_c1, self.tab_c2, self.tab_s,
+                               in_len + 1, out_len + 1)
+
+    def state0(self, channels):
+        """Overlap-add carry [out_len, C] (blocks are exact-length)."""
+        return np.zeros((self.out_len, channels), dtype=np.float64)
+
+    def block(self, overlap, x):
+        """Every inner block of x at once: x [n·in_len, C] -> (overlap'
+        [out_len, C], y [n·out_len, C]). Inner block i is column block i of
+        each transform; its overlap-add takes the second half of inner
+        block i-1's inverse (the carried overlap for i = 0)."""
+        in_len, out_len = self.in_len, self.out_len
+        B, C = x.shape
+        n = B // in_len
+        if n * in_len != B:
+            raise ValueError(f"resample: block of {B} frames is not a multiple of {in_len}")
+        cols = x.reshape(n, in_len, C).permute(1, 0, 2).reshape(in_len, n * C)
+        X = rfft_pack(cols[:0], cols, 2 * in_len)  # [in_len+1, n·C]
+        Y = resample_fold(X, self.fold)  # [out_len+1, n·C]
+        y2 = irfft_crop(Y, 2 * out_len, 0, 2 * out_len) * (out_len / in_len)
+        y2 = y2.reshape(2, out_len, n, C)
+        head, tail = y2[0], y2[1]
+        prev = torch.cat([overlap.to(x.dtype)[:, None], tail[:, :-1]], dim=1)
+        y = (head + prev).permute(1, 0, 2).reshape(n * out_len, C)
+        return tail[:, -1].contiguous(), y
+
+
+class FoldTables:
+    """The index walk's contributions grouped by output bin (CSR), in table
+    order within a bin: bin l sums entries ptr[l] .. ptr[l+1]-1. Per entry:
+    the input bin ``j``, ``flags`` (1: conj the input, 2: conj the product)
+    and the filter weight ``s``. Uploaded once per device."""
+
+    def __init__(self, tab_j, tab_l, tab_c1, tab_c2, tab_s, n_in, n_out):
+        order = np.argsort(tab_l, kind="stable")
+        self.n_in, self.n_out = n_in, n_out
+        self.ptr = np.concatenate([[0], np.cumsum(np.bincount(tab_l, minlength=n_out))]).astype(np.int32)
+        self.j = np.ascontiguousarray(tab_j[order], dtype=np.int32)
+        self.flags = (tab_c1[order].astype(np.int32) | (tab_c2[order].astype(np.int32) << 1))
+        self.s = np.ascontiguousarray(tab_s[order], dtype=np.complex128)
+        # the plain version's padded form: slot k of bin l is entry
+        # ptr[l] + k where that is below ptr[l+1]
+        counts = np.diff(self.ptr)
+        self.width = int(counts.max())
+        slot = self.ptr[:-1, None] + np.arange(self.width)[None, :]
+        self.pad_mask = slot < self.ptr[1:, None]
+        self.pad_idx = np.where(self.pad_mask, slot, 0).astype(np.int64)
+        self._device = {}
+
+    def on(self, device):
+        """(ptr, j, flags, s, pad_idx, pad_mask) as tensors on `device`."""
+        device = torch.device(device)
+        t = self._device.get(device)
+        if t is None:
+            t = self._device[device] = tuple(
+                torch.as_tensor(np.ascontiguousarray(a), device=device)
+                for a in (self.ptr, self.j, self.flags, self.s, self.pad_idx, self.pad_mask))
+        return t
+
+
+# --- K8: the spectral fold ----------------------------------------------------
+
+
+def resample_fold(X, fold):
+    """Y[l, c] = sum over bin l's entries e, in table order, of
+    conj^c2(conj^c1(X[j_e, c]) · s_e): X [n_in, ncol] complex128 ->
+    Y [n_out, ncol]. CPU tensors run resample_fold_ref; CUDA tensors launch
+    csrc/resample.cu."""
+    if X.device.type == "cpu":
+        return resample_fold_ref(X, fold)
+    from dsp_tpu_torch import kernels
+
+    _check_cuda("resample_fold", X, (X, torch.complex128))
+    if X.dim() != 2 or X.shape[0] != fold.n_in:
+        raise ValueError(f"resample_fold: X {tuple(X.shape)}, expected [{fold.n_in}, ncol]")
+    ptr, j, flags, s, _, _ = fold.on(X.device)
+    Y = torch.empty((fold.n_out, X.shape[1]), dtype=torch.complex128, device=X.device)
+    kernels.launch_resample_fold(X, Y, ptr, j, flags, s)
+    resample_fold.launches += 1
+    return Y
+
+
+resample_fold.launches = 0
+
+
+def resample_fold_ref(X, fold):
+    """Plain PyTorch version of resample_fold: the gather, the conj masks
+    and the product, then each bin's entries added in table order (slot by
+    slot of the padded CSR: an empty slot adds nothing), as dsp_tpu's
+    segment_sum adds them. The product is written out on the real and
+    imaginary parts, (ac - bd) + (ad + bc)i, each product and sum rounded on
+    its own, as the kernel computes it: torch's complex product takes FMAs
+    on some of its CPU paths and not on others."""
+    _, j, flags, s, pad_idx, pad_mask = fold.on(X.device)
+    g = X[j.long()]
+    gr, gi = g.real, torch.where((flags & 1).bool()[:, None], -g.imag, g.imag)
+    sr, si = s.real[:, None], s.imag[:, None]
+    vr = gr * sr - gi * si
+    vi = gr * si + gi * sr
+    vi = torch.where((flags & 2).bool()[:, None], -vi, vi)
+    Yr = torch.zeros((fold.n_out, X.shape[1]), dtype=vr.dtype, device=X.device)
+    Yi = torch.zeros_like(Yr)
+    for k in range(fold.width):
+        m, idx = pad_mask[:, k, None], pad_idx[:, k]
+        Yr = torch.where(m, Yr + vr[idx], Yr)
+        Yi = torch.where(m, Yi + vi[idx], Yi)
+    return torch.complex(Yr, Yi)

@@ -119,25 +119,29 @@ def test_unported_effect_raises(name):
         info.init(info, StreamInfo(FS, 2), np.ones(2, dtype=bool), ".", [name])
 
 
-# slice C's effects, with arguments each one takes
-SLICE_C = {
+# the effects of slices C, D and E, with arguments each one takes
+PORTED_LATER = {
     "delay": ["delay", "-f", "-m", "1m", "10m"],
     "noise": ["noise", "-60"],
     "dither": ["dither", "lipshitz"],
     "stats": ["stats", "-i"],
     "levels": ["levels", "-t", "0.1"],
+    "resample": ["resample", "0.95", "48k"],
+    "matrix4": ["matrix4", "direct_path", "-6"],
 }
 
 
-@pytest.mark.parametrize("name", list(SLICE_C))
+@pytest.mark.parametrize("name", list(PORTED_LATER))
 def test_slice_c_effect_is_ported(name):
-    """The five effects of slice C build in the port; none is in NOT_PORTED."""
+    """The effects of slice C (delay, noise, dither, stats, levels), slice D
+    (resample) and slice E (matrix4) build in the port; none is in
+    NOT_PORTED."""
     from dsp_tpu_torch.core.types import StreamInfo
     from dsp_tpu_torch.effects import get_effect_info
 
     assert name not in _not_ported()
     info = get_effect_info(name)
-    made = info.init(info, StreamInfo(FS, 2), np.ones(2, dtype=bool), ".", SLICE_C[name])
+    made = info.init(info, StreamInfo(FS, 2), np.ones(2, dtype=bool), ".", PORTED_LATER[name])
     for e in made if isinstance(made, list) else [made]:
         assert e.name == name
 
@@ -146,9 +150,9 @@ def test_unported_effect_fails_the_chain():
     from dsp_tpu_torch.chain.parser import ChainParseError
 
     with pytest.raises(ChainParseError, match="not yet ported"):
-        port_chain("gain -3 matrix4", 2048)
+        port_chain("gain -3 matrix4_mb", 2048)
     with pytest.raises(ChainParseError, match="not yet ported"):
-        port_chain("eq -r 1k 1.0 +3 resample 48k", 2048)
+        port_chain("eq -r 1k 1.0 +3 watch x.dsp", 2048)
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
