@@ -19,12 +19,19 @@ nvcc and PyTorch built for CUDA. It
    -280 dBFS. K9-K13 over 3 blocks of transient material for v4, v1,
    direct_path, phase_flip=false,shelf=none,lowpass=none and the 48 kHz
    block of Nc = 80: the engine's decisions equal, its floats within 1e-12
-   relative, the audio within -280 dBFS. Times each kernel, its plain
-   version and, where one PyTorch call computes the same function, that
-   call, with CUDA events, and computes each kernel's roofline bound from
-   its shapes. Then renders the 4 s program signal at -b 65536 and holds
-   it to bench_goldens/resample.npz and matrix4.npz (dsp_tpu f64) within
-   -200 dBFS;
+   relative, the audio within -280 dBFS. matrix4_mb's (slice F): K1 on
+   its 13-band bank, K11 m4mb_env over 13 lanes, K9 + K10 m4mb_event (the
+   13 engines coupled through their thresholds every tick) and K12 + K13
+   m4mb_audio, over 3 blocks of transients in seven configurations (v4,
+   v1, direct_path, butterworth with freq_mask, 48 kHz, block 1056 for the
+   bank's L = 1 plan, 192 kHz): decisions and thresholds equal, floats
+   within 1e-13 relative, the bank and the audio within -290 dBFS. Times
+   each kernel, its plain version and, where one PyTorch call computes the
+   same function, that call, with CUDA events, and computes each kernel's
+   roofline bound from its shapes. Then renders the 4 s program signal at
+   -b 65536 and holds it to bench_goldens/resample.npz and matrix4.npz
+   (dsp_tpu f64) within -200 dBFS, and replays bench_goldens/matrix4_mb.npz's
+   control stream through the card's audio path within -120 dBFS;
 3. writes 300 s of stereo 44.1 kHz float64 wav (seeded noise plus sines), a
    full track, and runs the port's CLI on it file to file: the flagship
    chain at the default block (2048) and at -b 65536; then the FFT
@@ -37,7 +44,11 @@ nvcc and PyTorch built for CUDA. It
    bits, stats -i) and "modulated" to double (delay -M q2, noise, sloped2
    dither, stats, levels); then slices D and E's upmixes at the default
    block: `matrix4 -6` (44.1 kHz to 4 channels) and `resample 48k matrix4
-   -6` (a 48 kHz quad: the rate change, blocks of 2352 in and 2560 out).
+   -6` (a 48 kHz quad: the rate change, blocks of 2352 in and 2560 out);
+   then slice F's: `matrix4_mb -6`, bench.py's `mixed` chain (an EQ, a
+   fractional delay, a 4,096-tap filter, matrix4_mb) and, on 60 s,
+   examples/matrix4_mb_2_4 (6 channels), each compared on its first
+   5 s (the engine's chaotic start held to MB_ONSET).
    Each run must produce the expected frame count, launch its kernels
    (their launch counts are zeroed just before the run), and match the
    port's CPU run on the first 10 s: within -200 dBFS, the delivery
@@ -48,11 +59,12 @@ nvcc and PyTorch built for CUDA. It
    card run and a CPU run of the CLI on the first 10 s, must be equal
    character for character;
 4. runs 96 blocks of the Nupols path (fir_p 1M at B = 2048), 320 of the
-   delivery chain and 16 of matrix4, with the input on the card under
-   torch.cuda.set_sync_debug_mode("error"): a step must not wait on the
-   device; then times 256 blocks of each slice C chain and each upmix and
-   profiles them (torch.profiler: device time a block by kernel, the
-   device's share);
+   delivery chain and 16 each of matrix4 and matrix4_mb, with the input on
+   the card under torch.cuda.set_sync_debug_mode("error"): a step must not
+   wait on the device; then times 256 blocks of each slice C chain and
+   each upmix (matrix4_mb and the mixed chain among them) and profiles
+   them (torch.profiler: device time a block by kernel, the device's
+   share);
 5. prints the kernels' record as one JSON line, then as the last line
    {"ok": true, "device": {...}}.
 
@@ -97,6 +109,29 @@ SLICE_C_SEED = 20263  # numpy's global generator, seeded before each run
 # in, 32 after it: -b 2048 becomes 2352 in, 2560 out)
 MATRIX4 = "matrix4 -6"
 UPMIX48 = "resample 48k matrix4 -6"
+# slice F (bench.py:495-496): the 13-band upmix of a CD master, the `mixed`
+# chain before it (an EQ, a fractional speaker delay, a 4,096-tap room
+# filter) and the 6-channel example
+MATRIX4_MB = "matrix4_mb -6"
+MB_EXAMPLE = ROOT / "examples" / "matrix4_mb_2_4"
+
+
+def mixed_chain(f4k):
+    return f"eq 1k 1.0 +3 delay -f 0.3m fir {f4k} matrix4_mb -6"
+
+
+# matrix4_mb's engine is chaotic where a band sits at crosstalk level: at the
+# stream's start the phase-linearising FIR's pre-ringing leaves the upper
+# bands at ~1e-15, and the card's and the CPU's FFT rounding (~1e-16) is a
+# large part of them (tests/test_torch_matrix4_mb.py shows the same between
+# dsp_tpu and the port on the CPU). The runs print their difference a
+# second; the first MB_ONSET[0] s are held to MB_ONSET[1], the rest of the
+# MB_COMPARE_SECONDS compared to LIMIT_DBFS (the plain engine is a Python
+# loop a tick: the CPU run takes ~6 s a second of audio). Measured on an
+# NVIDIA H100 80GB HBM3 (700 W), `matrix4_mb -6` on the sine input, a
+# second at a time: -118.2, -140.7, -176.1, -199.9, -225.2 dBFS
+MB_ONSET = (4.0, -90.0)
+MB_COMPARE_SECONDS = 5
 # matrix4 after a resampler forgets its start slowly: the steering axes are
 # ratios of envelopes that start from zero, so over the resampler's
 # pre-ringing at the stream's start the card's and the CPU's FFT rounding
@@ -831,6 +866,190 @@ def matrix4_no_sync():
     print(f"matrix4 step: 16 blocks ran with no host sync, t = {int(cc.states[0]['ev']['t'])}")
 
 
+# the matrix4_mb kernel checks: (options, rate, block). 1056 = 33 x 32 takes
+# the bank's L = 1 plan; at 192 kHz the 13 bands' rings need 93.6 KB of
+# shared memory
+MB_KERNEL_CASES = (
+    ("matrix4_mb -6", FS, 2048),
+    ("matrix4_mb matrix=v1 -6", FS, 2048),
+    ("matrix4_mb direct_path -6", FS, 2048),
+    ("matrix4_mb filter_type=butterworth,freq_mask=0.5 -6", FS, 2048),
+    ("matrix4_mb -6", 48000, 2048),
+    ("matrix4_mb -6", FS, 1056),
+    ("matrix4_mb -6", 192000, 8192),
+)
+# the audio path against its plain version: the allpass scans group
+# another way, the band sums are the same order
+MB_AUDIO_DBFS = -290.0
+
+
+def mb_effect(words, fs, B):
+    """A matrix4_mb chain on the card at block B: (its Matrix4MbEffect, that
+    effect's state)."""
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.effects.matrix4_mb import Matrix4MbEffect
+
+    cc = CompiledChain(build_chain_from_string(words, StreamInfo(fs, CHANNELS)), B, device="cuda")
+    i = next(i for i, e in enumerate(cc._runtime_effects) if isinstance(e, Matrix4MbEffect))
+    return cc._runtime_effects[i], cc.states[i]
+
+
+def matrix4_mb_phase(records):
+    """matrix4_mb's kernels against their plain versions on the card, on the
+    same inputs, over 3 blocks of transient material after 2 s of it
+    through the effect, for each case of MB_KERNEL_CASES: K1 on the 13-band
+    bank (26 lanes, 40 states; L = 128, or L = 1), K11 m4mb_env (13 lanes,
+    with the frequency-mask mix where asked), K9 + K10 m4mb_event and
+    K12 + K13 m4mb_audio. The bank and the envelopes within -290 dBFS and
+    1e-13 relative; the engines' decisions and their thresholds equal; the
+    engines' other floats and the coefficient sets within 1e-13 relative;
+    the audio within MB_AUDIO_DBFS. Times the kernels and their plain
+    versions at B = 2048 (v4), and the bank at L = 1."""
+    import torch
+
+    from dsp_tpu_torch.ops import iir
+    from dsp_tpu_torch.ops import m4_engine as m4
+
+    print("K1, K9-K13 matrix4_mb: the bank, m4mb_env, m4mb_event, m4mb_audio "
+          "(3 blocks after 2 s of transients)")
+    for words, fs, B in MB_KERNEL_CASES:
+        e, st = mb_effect(words, fs, B)
+        x = torch.as_tensor(transient_signal(2.5, fs), device="cuda")
+        warm = x.shape[0] // B - 3
+        for blk in range(warm):
+            st, _ = e.step(st, x[blk * B:(blk + 1) * B].contiguous())
+        errs = {"bank": 0.0, "m4mb_env": 0.0, "m4mb_event": 0.0, "m4mb_audio": 0.0}
+        plan = e._bank_plan(B)
+        for blk in range(warm, warm + 3):
+            xb = x[blk * B:(blk + 1) * B].contiguous()
+            _, s_pre = e._cascade("fsh", st["fshape_m"].reshape(2, 2, 2), e._pair.take(xb).contiguous())
+            xt = s_pre.repeat(1, m4.N_BANDS)
+            bank_k = iir.lti_blocked(plan, st["bank"]["fused"], xt)
+            bank_r = iir.lti_blocked_ref(plan, st["bank"]["fused"], xt)
+            errs["bank"] = max(errs["bank"], *(_diff(a, b) for a, b in zip(bank_k, bank_r)))
+            bands = bank_k[1].view(B, m4.N_BANDS, 2)
+            w = None if e.fmw is None else e.device_array("fmw", xb)
+            env_k = m4.m4mb_env(bands, st["env_m"], e.g_env, w)
+            env_r = m4.m4mb_env_ref(bands, st["env_m"], e.g_env, w)
+            errs["m4mb_env"] = max(errs["m4mb_env"], *(_rel(a, b) for a, b in zip(env_k, env_r)))
+            ins = (e.ctl, st["ev"], st["ev_thresh"], env_k[1], st["interp_y"], int(st["fade_p"]),
+                   bool(st["disable"]))
+            out_k = m4.m4mb_event(*ins)
+            out_r = m4.m4mb_event_ref(*ins)
+            torch.cuda.synchronize()
+            for k, kind in m4.EV_LEAVES:
+                a, b = out_k[0][k], out_r[0][k]
+                if kind != "f":
+                    _require(f"m4mb_event {words} at {fs} block {blk}: {k} differs from the "
+                             f"plain version", torch.equal(a, b))
+                else:
+                    errs["m4mb_event"] = max(errs["m4mb_event"], _rel(a, b))
+            _require(f"m4mb_event {words} at {fs} block {blk}: the thresholds differ from the "
+                     f"plain version by {_diff(out_k[1], out_r[1]):.3e}", torch.equal(out_k[1], out_r[1]))
+            for a, b in zip(out_k[2:], out_r[2:]):
+                errs["m4mb_event"] = max(errs["m4mb_event"], _rel(a, b))
+            a_ins = (e.audio, bands, st["fb_buf"], st["interp_c"], out_k[2], st["pf_m"])
+            y_k, y_r = m4.m4mb_audio(*a_ins), m4.m4mb_audio_ref(*a_ins)
+            errs["m4mb_audio"] = max(errs["m4mb_audio"], *(_diff(a, b) for a, b in zip(y_k, y_r)))
+            st, _ = e.step(st, xb)
+        ev = st["ev"]
+        counters = {k: int(ev[k].sum()) for k in M4_DECISIONS}
+        print(f"  {words} at {fs} Hz, B={B} (bank L={plan.L}): decisions and thresholds equal; "
+              f"bank {dbfs(errs['bank']):.1f} dBFS, envelopes {errs['m4mb_env']:.3e}, engine floats "
+              f"{errs['m4mb_event']:.3e} relative, audio {dbfs(errs['m4mb_audio']):.1f} dBFS; after "
+              f"{int(ev['t'][0])} ticks, over the 13 bands {counters}")
+        _require(f"matrix4_mb {words}: no event in the check's input",
+                 counters["diff_count"] + counters["ord_count"] > 0)
+        _require(f"bank {words}: {dbfs(errs['bank']):.1f} dBFS", dbfs(errs["bank"]) <= -290.0)
+        _require(f"m4mb_env {words}: {errs['m4mb_env']:.3e}", errs["m4mb_env"] <= 1e-13)
+        _require(f"m4mb_event {words}: {errs['m4mb_event']:.3e}", errs["m4mb_event"] <= 1e-13)
+        _require(f"m4mb_audio {words}: {dbfs(errs['m4mb_audio']):.1f} dBFS",
+                 dbfs(errs["m4mb_audio"]) <= MB_AUDIO_DBFS)
+        records["lti_blocked@bank"]["max_abs_err"] = max(records["lti_blocked@bank"]["max_abs_err"],
+                                                         errs["bank"])
+        for name in ("m4mb_env", "m4mb_event", "m4mb_audio"):
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"], errs[name])
+        n, C, L = plan.n, plan.C, plan.L
+        bank_bytes = 8 * (2 * B * C + 4 * C * n + C * L + 2 * C * n * L + C * n * n + C)
+        bank_flops = 2 * C * (B // L) * (L * (L - 1) // 2 + 2 * n * L + n * n) + 2 * B * C
+        bank_st = st["bank"]["fused"]
+        if L == 1:
+            ms = cuda_ms(lambda: iir.lti_blocked(plan, bank_st, xt), 10)
+            print(f"  the bank at L = 1, B={B}: kernel {ms:.4f} ms (bound "
+                  f"{bound(bank_bytes, bank_flops)[0]:.6f} ms)")
+        if (words, fs, B) != MB_KERNEL_CASES[0]:
+            continue
+        Nc, Lr, S = B // 32, e.ctl.p["buf_len"], m4.N_BANDS
+        ins = (e.ctl, st["ev"], st["ev_thresh"], env_k[1], st["interp_y"], 0, False)
+        a_ins = (e.audio, bands, st["fb_buf"], st["interp_c"], out_k[2], st["pf_m"])
+        timed = {
+            # the 26 lanes in and out, the tables; per chunk and lane the
+            # L-tap FIR, V·x, P·s and the 40 x 40 carry
+            "lti_blocked@bank": (lambda: iir.lti_blocked(plan, bank_st, xt),
+                                 lambda: iir.lti_blocked_ref(plan, bank_st, xt),
+                                 bank_bytes, bank_flops),
+            # the bands in, the envelopes in and out, the ticks out; the
+            # input and the EWMA's two operations a sample, envelope and band
+            "m4mb_env": (lambda: m4.m4mb_env(bands, st["env_m"], e.g_env, w),
+                         lambda: m4.m4mb_env_ref(bands, st["env_m"], e.g_env, w),
+                         8 * (2 * B * S + 2 * 8 * S + 8 * Nc * S), 8 * 3 * B * S),
+            # the 13 states in and out (about 80 values and 10 rings of L
+            # each), the thresholds, the ticks in, the coefficient sets, the
+            # window and the display out; about 300 operations a tick and band
+            # for the engine, 13 x 12 for the modulation, 250 for the
+            # epilogue, 7 a value for the insert
+            "m4mb_event": (lambda: m4.m4mb_event(*ins), lambda: m4.m4mb_event_ref(*ins),
+                           8 * (2 * S * (80 + 10 * Lr) + 2 * S + 8 * Nc * S + 3 * Nc * S * 12
+                                + 2 * 4 * S * 12 + 2 * Nc * S),
+                           (300 + 156 + 250) * S * Nc + 7 * S * 12 * Nc),
+            # the bands and the delayed line in, the coefficient sets, the
+            # states, the 4 signals out; per sample and band 12 interpolated
+            # values (4 operations each), the matrix (12), two allpasses (10)
+            # and the sums (6)
+            "m4mb_audio": (lambda: m4.m4mb_audio(*a_ins), lambda: m4.m4mb_audio_ref(*a_ins),
+                           8 * (2 * B * S + 2 * min(B, e.fb_buf_len) * S + 3 * (Nc + 1) * S * 12
+                                + 2 * 4 * S + 4 * B),
+                           (48 + 12 + 10 + 6) * S * B),
+        }
+        for name, (kern, plain, nbytes, flops) in timed.items():
+            ms = cuda_ms(kern, 20)
+            plain_ms = cuda_ms(plain, 2)
+            set_times(records[name], ms, plain_ms, nbytes, flops)
+            print(f"  {name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{records[name]['bound_ms']:.6f} ms ({records[name]['bound_by']})")
+
+
+def matrix4_mb_no_sync():
+    """One matrix4_mb chain step (the phase-linearising FIR and the effect)
+    does not synchronise: run_blocks over 16 blocks at B = 2048 of input
+    already on the card, the status lines off, under
+    torch.cuda.set_sync_debug_mode("error")."""
+    import torch
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_args
+    from dsp_tpu_torch.core.types import StreamInfo
+
+    cc = CompiledChain(build_chain_from_args(["matrix4_mb", "-6"], StreamInfo(FS, CHANNELS)),
+                       2048, device="cuda")
+    xs = torch.as_tensor(transient_signal(1.0)[: 20 * 2048], device="cuda").reshape(20, 2048,
+                                                                                 CHANNELS)
+    cc.run_blocks(xs[:4])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ys = cc.run_blocks(xs[4:])
+    except RuntimeError as e:
+        raise SmokeError(f"the matrix4_mb step synchronised: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    _require("the matrix4_mb run without syncs gave non-finite output",
+             bool(torch.isfinite(ys).all()))
+    st = next(s for s in cc.states if isinstance(s, dict) and "ev_thresh" in s)
+    print(f"matrix4_mb step: 16 blocks ran with no host sync, t = {int(st['ev']['t'][0])}")
+
+
 def program_signal(dur=4.0, fs=FS):
     """scripts/gen_bench_goldens.py's program material (crossing sweeps and
     tones, stereo), the input of bench_goldens/*.npz."""
@@ -875,6 +1094,73 @@ def bench_golden_check():
         _require(f"bench golden {name}: {got.shape} against {want.shape}", got.shape == want.shape)
         check_close(f"bench_goldens/{name}.npz ({words}, -b 65536) on the card vs dsp_tpu f64",
                     float(np.abs(got - want).max()))
+
+
+# bench.py's matrix4_mb accuracy check (_matrix4_mb_accuracy): dsp_tpu f64's
+# control stream, stored as float32 coefficient sets a tick, replayed
+# through the audio path. The float32 sets bound it: measured -120.8 dBFS on
+# an NVIDIA H100 80GB HBM3 (700 W), at BASELINE's -120 dBFS budget, which is
+# the limit
+MB_REPLAY_DBFS = -120.0
+
+
+def mb_golden_check():
+    """bench_goldens/matrix4_mb.npz (dsp_tpu f64, `matrix4_mb -6` on the 4 s
+    program signal, raw from the initial state, with its control stream:
+    the interpolator's coefficient sets of every tick, fitted and stored as
+    float32) on the card. The replay: the phase-linearising FIR and the
+    effect's control path run on the card, the golden's coefficient sets
+    replace the engines' in the audio path (as bench.py replays them), at
+    block 32768; the output within MB_REPLAY_DBFS of the golden. Then the
+    free run (the card's own control) against the golden, a second at a
+    time, for information: the engine is chaotic where a band sits at
+    crosstalk level (PARITY.md)."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.effects.fir import FirEffect
+    from dsp_tpu_torch.effects.matrix4_mb import Matrix4MbEffect
+
+    z = np.load(ROOT / "bench_goldens" / "matrix4_mb.npz")
+    want = z["hi"].astype(np.float64) + z["lo"].astype(np.float64)
+    gold_ics = torch.as_tensor(z["ics"].astype(np.float64), device="cuda")
+    x = program_signal()
+    B = 32768
+    n_blocks = -(-len(x) // B)
+    xp = np.zeros((n_blocks * B, CHANNELS))
+    xp[: len(x)] = x
+    xs = torch.as_tensor(xp, device="cuda")
+    Nc = B // 32
+    # hold the last coefficient set over the padding, as bench.py does
+    pad = n_blocks * Nc - gold_ics.shape[0]
+    gold_ics = torch.cat([gold_ics, gold_ics[-1:].expand(pad, *gold_ics.shape[1:])])
+    for mode in ("replay", "free run"):
+        from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
+        from dsp_tpu_torch.core.types import StreamInfo
+
+        cc = CompiledChain(build_chain_from_string("matrix4_mb -6", StreamInfo(FS, CHANNELS)), B,
+                           device="cuda")
+        fir = next(e for e in cc.chain.effects if isinstance(e, FirEffect))
+        mb = next(e for e in cc.chain.effects if isinstance(e, Matrix4MbEffect))
+        fst, mst = cc._initial_state(fir), cc._initial_state(mb)
+        ys = []
+        for i in range(n_blocks):
+            fst, xf = fir.step(fst, xs[i * B:(i + 1) * B])
+            ctl = mb._control(mst, xf)
+            if mode == "replay":
+                ctl = dict(ctl, ics=gold_ics[i * Nc:(i + 1) * Nc].contiguous())
+            mst, y = mb._audio(mst, xf, ctl)
+            ys.append(y)
+        got = torch.cat(ys).cpu().numpy()[: len(want)]
+        err = float(np.abs(got - want).max())
+        if mode == "replay":
+            print(f"bench_goldens/matrix4_mb.npz, the golden's control replayed on the card, "
+                  f"-b {B}: max |diff| {err:.3e} ({dbfs(err):.1f} dBFS, limit {MB_REPLAY_DBFS})")
+            _require(f"matrix4_mb golden replay at {dbfs(err):.1f} dBFS", dbfs(err) <= MB_REPLAY_DBFS)
+        else:
+            per_s = [float(np.abs(got[i:i + FS] - want[i:i + FS]).max()) for i in range(0, len(want), FS)]
+            print("bench_goldens/matrix4_mb.npz, free run on the card, a second at a time (dBFS): "
+                  + " ".join(f"{dbfs(e):.1f}" for e in per_s))
 
 
 def write_input(path, seconds):
@@ -936,11 +1222,11 @@ def write_filter(path, taps, seed):
 
 
 def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, seconds, tmp,
-            enc="double", limit_dbfs=LIMIT_DBFS, seed=None, onset=None):
+            enc="double", limit_dbfs=LIMIT_DBFS, seed=None, onset=None, compare=COMPARE_SECONDS):
     """One file-to-file run of dsp-torch on the card. Fails unless it
     writes the expected frame count, launches every kernel in `wrappers`
     (their counts are zeroed just before the run) and matches the port's
-    CPU run on the first COMPARE_SECONDS within `limit_dbfs` (None: equal).
+    CPU run on the first `compare` seconds within `limit_dbfs` (None: equal).
     With `seed`, numpy's global generator is seeded before the card run and
     before the CPU run's chain, which then draws as the CLI does (the
     chain's init, the output writer's two dither seeds, the effects'
@@ -983,7 +1269,8 @@ def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, secon
         if c <= 0:
             raise SmokeError(f"{label}: {name} kernel was not launched")
         records[name]["launches"] += c
-    got, y = read_wav(out, COMPARE_SECONDS * chain.ostream.fs)
+    head = head[: compare * FS]
+    got, y = read_wav(out, compare * chain.ostream.fs)
     if got != want:
         raise SmokeError(f"{label}: {got} output frames, expected {want}")
     if seed is not None:
@@ -1006,7 +1293,7 @@ def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, secon
         raise SmokeError(f"{label}: non-finite output")
     if len(ref) == 0 or len(y) < len(ref):
         raise SmokeError(f"{label}: {len(y)} frames to compare with {len(ref)} of the CPU run")
-    what = f"{label}: first {COMPARE_SECONDS} s vs the port on the CPU"
+    what = f"{label}: first {compare} s vs the port on the CPU"
     y = y[: len(ref)]
     if onset is not None:
         fs_out = chain.ostream.fs
@@ -1020,7 +1307,7 @@ def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, secon
               f"({dbfs(early):.1f} dBFS, limit {onset[1]})")
         if not dbfs(early) <= onset[1]:
             raise SmokeError(f"{label}: first {onset[0]} s at {dbfs(early):.1f} dBFS")
-        what = f"{label}: {onset[0]} s to {COMPARE_SECONDS} s vs the port on the CPU"
+        what = f"{label}: {onset[0]} s to {compare} s vs the port on the CPU"
         y, ref = y[n0:], ref[n0:]
     diff = float(np.abs(y - ref).max())
     if limit_dbfs is None:
@@ -1118,9 +1405,10 @@ def delivery_no_sync():
           f"{int(cc.states[-1]['samples'])}")
 
 
-def profile_chains():
-    """Where a block's time goes in slice C's chains and slices D and E's
-    upmixes: CompiledChain.run_blocks over 256 blocks (-b 2048) on the card,
+def profile_chains(f4k):
+    """Where a block's time goes in slice C's chains, slices D and E's
+    upmixes and slice F's (matrix4_mb and the mixed chain with the 4,096-tap
+    filter f4k): CompiledChain.run_blocks over 256 blocks (-b 2048) on the card,
     timed unprofiled (host clock to a synchronize), then under
     torch.profiler for the device time of each kernel. Prints the step time
     a block, the device time a block by kernel, and the device's busy share
@@ -1137,13 +1425,14 @@ def profile_chains():
     rng = np.random.default_rng(13)
     n = 256
     for label, words, prec in (("delivery", DELIVERY, 16), ("modulated", MODULATED, 53),
-                               ("matrix4", MATRIX4, 53), ("upmix48", UPMIX48, 53)):
+                               ("matrix4", MATRIX4, 53), ("upmix48", UPMIX48, 53),
+                               ("matrix4_mb", MATRIX4_MB, 53), ("mixed", mixed_chain(f4k), 53)):
         np.random.seed(SLICE_C_SEED)
         chain = build_chain_from_args(words.split(), StreamInfo(FS, CHANNELS))
         chain_set_dither_params(chain, prec, prec < 24)
         cc = CompiledChain(chain, 2048, device="cuda")
         B = cc.block_frames
-        if label in ("matrix4", "upmix48"):
+        if label in ("matrix4", "upmix48", "matrix4_mb", "mixed"):
             x = transient_signal((n + 8) * B / FS + 0.01)[: (n + 8) * B]
         else:
             x = rng.standard_normal(((n + 8) * B, CHANNELS)) * 0.1
@@ -1231,7 +1520,25 @@ def main_path(records, seconds, tmp):
     cli_run("resample 48k matrix4 -6 -b 2048 (48 kHz quad)", UPMIX48.split(), 2048,
             {**m4w, "rfft_pack": fft_conv.rfft_pack, "resample_fold": resample_ops.resample_fold,
              "irfft_crop": fft_conv.irfft_crop}, *common, onset=ONSET)
-    return f1m
+
+    # slice F: the multiband upmixes (the fir before the effect is its
+    # phase-linearising FIR, on K5/K6)
+    f4k = tmp / "f4k.wav"
+    write_filter(f4k, 1 << 12, seed=0xC4)
+    mbw = {"biquad_scan": iir.biquad_scan, "lti_blocked": iir.lti_blocked,
+           "m4mb_env": m4.m4mb_env, "m4mb_event": m4.m4mb_event, "m4mb_audio": m4.m4mb_audio,
+           "splice": fft_conv.splice, "rfft_pack": fft_conv.rfft_pack,
+           "fdl_mac": fft_conv.fdl_mac, "irfft_crop": fft_conv.irfft_crop}
+    cli_run("matrix4_mb -6 -b 2048 (44.1 kHz -> 4 ch)", MATRIX4_MB.split(), 2048, mbw, *common,
+            onset=MB_ONSET, compare=MB_COMPARE_SECONDS)
+    records["lti_blocked@bank"]["launches"] += iir.lti_blocked.launches
+    cli_run("mixed -b 2048 (eq, delay -f, fir 4k, matrix4_mb)", mixed_chain(f4k).split(), 2048,
+            mbw, *common, onset=MB_ONSET, compare=MB_COMPARE_SECONDS)
+    src60 = tmp / "in60.wav"
+    n60, head60 = write_input(src60, 60)
+    cli_run("examples/matrix4_mb_2_4 -b 2048 (6 ch)", [f"@{MB_EXAMPLE}"], 2048, mbw, records, src60,
+            n60, head60, 60, tmp, onset=MB_ONSET, compare=MB_COMPARE_SECONDS)
+    return f1m, f4k
 
 
 def nupols_no_sync(f1m):
@@ -1310,6 +1617,13 @@ def main():
             ("m4_event", "m4_event", "dsp_tpu/ops/m4_engine.py:395,730,784,887",
              "Nc=64, v4, S=1"),
             ("m4_audio", "m4_audio", "dsp_tpu/effects/matrix4.py:597,673,699", "B=2048, v4"),
+            ("lti_blocked@bank", "lti_blocked", "dsp_tpu/ops/iir.py:566",
+             "matrix4_mb's 13-band bank: C=26, n=40, L=128, B=2048"),
+            ("m4mb_env", "m4_env", "dsp_tpu/ops/m4_engine.py:267 (effects/matrix4_mb.py:397-432)",
+             "B=2048, S=13"),
+            ("m4mb_event", "m4_event",
+             "dsp_tpu/ops/m4_engine.py:395 (effects/matrix4_mb.py:445-551)", "Nc=64, v4, 13 bands"),
+            ("m4mb_audio", "m4mb_audio", "dsp_tpu/effects/matrix4_mb.py:569,778", "B=2048, v4"),
         )
     }
     tmp = ROOT / ".smoke_tmp" / "run"  # removed at the end; scratch scripts may sit beside it
@@ -1324,13 +1638,16 @@ def main():
         time_domain_phase(records)
         resample_phase(records["resample_fold"])
         matrix4_phase(records)
+        matrix4_mb_phase(records)
         bench_golden_check()
+        mb_golden_check()
         tmp.mkdir(parents=True, exist_ok=True)
-        f1m = main_path(records, SECONDS, tmp)
+        f1m, f4k = main_path(records, SECONDS, tmp)
         nupols_no_sync(f1m)
         delivery_no_sync()
         matrix4_no_sync()
-        profile_chains()
+        matrix4_mb_no_sync()
+        profile_chains(f4k)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

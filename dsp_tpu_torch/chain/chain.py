@@ -594,6 +594,12 @@ class CompiledChain:
                     f"this chain runs [{names}]"
                 )
             if str(z["__treedef__"]) != treedef:
+                if "'bank': {'a1': " in str(z["__treedef__"]):
+                    raise ChainError(
+                        "state checkpoint carries matrix4_mb's sequential filter-bank state "
+                        "(per-cap 'a1', 'a2p', 'a2o', 'comp'); dsp_tpu_torch runs only the "
+                        "fused bank ('bank': {'fused': ...}) and does not convert it"
+                    )
                 raise ChainError("state checkpoint does not match this chain's structure")
             new = []
             for i, cur in enumerate(leaves):

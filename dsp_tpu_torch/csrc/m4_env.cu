@@ -9,6 +9,14 @@
 // maps over the block and then took every D-th row; this kernel writes only
 // those rows and the carried m.
 //
+// matrix4_mb (dsp_tpu/effects/matrix4_mb.py:397-432) runs the same EWMAs on
+// each of its 13 bands: the input is S lanes of pairs [B, S, 2] (S = 1 for
+// matrix4), a block of the grid a lane, and with freq_mask the lanes are
+// first mixed by the lower-triangular weights w [S, S] (lane k's pair is
+// sum over j <= k of w[k, j]·pair_j, summed from j = 0 up with each product
+// rounded, as the plain version sums it). The outputs are [S, 8] and
+// [B/D, S, 8].
+//
 // What bounds it on the card: each envelope is a dependent chain of B
 // samples (two operations a sample) and reads 16·B bytes: latency. Design:
 // one block of eight warps, a warp an envelope. Each lane composes its
@@ -33,20 +41,42 @@ __device__ __forceinline__ double env_input(int j, double l, double r) {
     }
 }
 
-__global__ void m4_env_kernel(const double* __restrict__ ybp, const double* __restrict__ env_in,
-                              double* __restrict__ env_out, double* __restrict__ env_ds, double g,
-                              int B, int D) {
+// lane s's pair at sample t, mixed by w when given
+__device__ __forceinline__ void lane_pair(const double* __restrict__ ybp,
+                                          const double* __restrict__ w, int S, int s, int t,
+                                          double& l, double& r) {
+    const double* row = ybp + (size_t)t * S * 2;
+    if (w == nullptr) {
+        l = row[2 * s];
+        r = row[2 * s + 1];
+        return;
+    }
+    const double* ws = w + (size_t)s * S;
+    l = __dmul_rn(row[0], ws[0]);
+    r = __dmul_rn(row[1], ws[0]);
+    for (int j = 1; j <= s; ++j) {
+        l = __dadd_rn(l, __dmul_rn(row[2 * j], ws[j]));
+        r = __dadd_rn(r, __dmul_rn(row[2 * j + 1], ws[j]));
+    }
+}
+
+__global__ void m4_env_kernel(const double* __restrict__ ybp, const double* __restrict__ w,
+                              const double* __restrict__ env_in, double* __restrict__ env_out,
+                              double* __restrict__ env_ds, double g, int B, int S, int D) {
     const unsigned full = 0xffffffffu;
     const int j = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int s = blockIdx.x;
     const double a = 1.0 - g;
     const int seg = B / 32;  // B % 32 == 0 (the host checks)
     const int t0 = lane * seg, t1 = t0 + seg;
     // 1. this lane's segment as one map m -> A·m + b
     double A = 1.0, b = 0.0;
     for (int t = t0; t < t1; ++t) {
-        const double s = env_input(j, ybp[2 * t], ybp[2 * t + 1]);
+        double l, r;
+        lane_pair(ybp, w, S, s, t, l, r);
+        const double in = env_input(j, l, r);
         A = a * A;
-        b = a * b + g * s;
+        b = a * b + g * in;
     }
     // 2. inclusive scan of the lanes' maps, then shift to exclusive
     for (int d = 1; d < 32; d <<= 1) {
@@ -62,24 +92,27 @@ __global__ void m4_env_kernel(const double* __restrict__ ybp, const double* __re
         bp = 0.0;
     }
     // 3. rerun the segment from its start value; write the ticks in it
-    double m = Ap * env_in[j] + bp;
+    double m = Ap * env_in[(size_t)s * 8 + j] + bp;
     for (int t = t0; t < t1; ++t) {
-        const double s = env_input(j, ybp[2 * t], ybp[2 * t + 1]);
-        m = a * m + g * s;
-        if ((t + 1) % D == 0) env_ds[(size_t)((t + 1) / D - 1) * 8 + j] = m;
+        double l, r;
+        lane_pair(ybp, w, S, s, t, l, r);
+        m = a * m + g * env_input(j, l, r);
+        if ((t + 1) % D == 0) env_ds[((size_t)((t + 1) / D - 1) * S + s) * 8 + j] = m;
     }
-    if (lane == 31) env_out[j] = m;
+    if (lane == 31) env_out[(size_t)s * 8 + j] = m;
 }
 
 }  // namespace
 
-// ybp [B, 2], env_in and env_out [8], env_ds [B / D, 8]. Returns
-// cudaGetLastError() after the launch (0 on success). The caller
-// (dsp_tpu_torch/ops/m4_engine.py) checks shapes, dtypes and contiguity.
-extern "C" int dsp_m4_env_f64(const double* ybp, const double* env_in, double* env_out,
-                              double* env_ds, double g, int B, int D, void* stream) {
-    if (B <= 0 || B % 32 || D <= 0 || B % D) return (int)cudaErrorInvalidValue;
-    m4_env_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(ybp, env_in, env_out, env_ds,
-                                                                       g, B, D);
+// ybp [B, S, 2], w [S, S] or null, env_in and env_out [S, 8], env_ds
+// [B / D, S, 8]. Returns cudaGetLastError() after the launch (0 on
+// success). The caller (dsp_tpu_torch/ops/m4_engine.py) checks shapes,
+// dtypes and contiguity.
+extern "C" int dsp_m4_env_f64(const double* ybp, const double* w, const double* env_in,
+                              double* env_out, double* env_ds, double g, int B, int S, int D,
+                              void* stream) {
+    if (B <= 0 || B % 32 || S <= 0 || D <= 0 || B % D) return (int)cudaErrorInvalidValue;
+    m4_env_kernel<<<S, 256, 0, static_cast<cudaStream_t>(stream)>>>(ybp, w, env_in, env_out,
+                                                                       env_ds, g, B, S, D);
     return (int)cudaGetLastError();
 }

@@ -20,6 +20,22 @@
 // tick's engine outputs. Then every thread of the block takes ticks of the
 // epilogue, which has no carried state, and then of the interpolator insert.
 //
+// matrix4_mb (`dsp_m4mb_event_f64`, replacing effects/matrix4_mb.py:445-551)
+// runs 13 of these engines, one a band, coupled every tick: each band's
+// event threshold is an EWMA toward a target built from every band's
+// previous-tick `last`, `slope_last` and `diff_last` (:460-480). So the 13
+// engines run in lockstep in one warp of one block: lanes 0-12 each hold a
+// band's state in registers and its rings in shared memory, publish the three
+// pairs to shared memory at the start of each tick, and after a __syncwarp
+// each computes every band's candidacy, its own row of the similarity
+// matrix, the sum `fact` from band 0 up and its threshold; then it runs
+// event_step with that threshold. Where dsp_tpu's XLA:CPU contracts a
+// product into a sum (`1 - max(d)·16/π`, the target's last product and
+// sum, and the threshold's EWMA) the kernel writes fma(), and nowhere else. After the ticks every thread takes
+// (tick, band) pairs of matrix4_mb's epilogue, then of the interpolator
+// insert. A lane that replays its lookback while the others do not makes the
+// warp diverge for those steps: correct, only slower.
+//
 // The arithmetic is dsp_tpu's, operation for operation, in the order the
 // plain version (ops/m4_engine.py) writes it. This file is compiled with
 // -fmad=false (kernels.py): no product is fused into a sum, so each
@@ -76,6 +92,14 @@ struct EvParams {
         norm_accom_factor;
     double thresh, bg_g0, bg_c0, bg_c1;
     int buf_len, sample_frames, max_hold_frames, min_hold_frames;
+};
+
+// matrix4_mb's constants: the bands' threshold bounds, contour and the
+// event parameters that differ by band, then the epilogue's.
+struct MbParams {
+    double etmax[13], etmin[13], contour[13], base_ord_ns[13], clip_thresh[13], pcf_sens[13];
+    double g_evt, surr_mult0, surr_mult1, contour_pwrcmp, matrix_param, pf_c0, pf_c1;
+    int matrix_v4, dpwr_decouple, fade_frames, D;
 };
 
 // The per-tick epilogue's constants (matrix4's config).
@@ -798,6 +822,145 @@ __global__ void m4_event_kernel(EvPtrs in, EvPtrs out, const double* __restrict_
 #undef EXT
 }
 
+// --- matrix4_mb ---
+
+constexpr int kBands = 13;
+constexpr int kSigMb = 12;
+
+__device__ __forceinline__ double fade_at(int i, int D, long long fade_p, int fade_frames,
+                                          int disable) {
+    const long long tick = (long long)i * D + (D - 1);
+    const long long at = fade_p - tick > 0 ? fade_p - tick : 0;
+    const double posf = (double)at / (double)fade_frames;
+    const double fade_lin = disable ? posf : 1.0 - posf;
+    const double fade_sm = (1.0 - cos(fade_lin * kPi)) * 0.5;
+    return at > 0 ? fade_sm : (disable ? 0.0 : 1.0);
+}
+
+// The 12 matrix values of one tick and band (matrix4_mb.py:505-526).
+__device__ void tick_vals_mb(const MbParams& k, const double* eo, double fade, double contour,
+                             double* v) {
+    const double ax_lr = eo[0], ax_cs = eo[1], pwrcmp = eo[6];
+    const double w = smoothstep(ax_cs * (-2.0 / kPi4));
+    const double surr_mult = (w * k.surr_mult1 + (1.0 - w) * k.surr_mult0) * fade;
+    const double ct_pcf = k.contour_pwrcmp * pwrcmp;
+    const double ct0 = w + (1.0 - w) * contour;
+    const double ct1 = (ct0 - 1.0) * ct_pcf + 1.0;
+    const double ct2 = ct0 / ct1;
+    const double dp_lr = k.dpwr_decouple ? eo[4] : ax_lr;
+    const double dp_cs = k.dpwr_decouple ? eo[5] : ax_cs;
+    const double no_shelf[2] = {1.0, 1.0};  // matrix4_mb asks for no shelf gains
+    double m[8], rets[4];
+    if (k.matrix_v4) {
+        calc_matrix_coefs_v4(ax_lr, ax_cs, dp_lr, dp_cs, surr_mult * ct1, k.surr_mult1 * fade,
+                             k.matrix_param, no_shelf, m, rets);
+    } else {
+        calc_matrix_coefs_v1(ax_lr, ax_cs, dp_lr, dp_cs, surr_mult * ct1, no_shelf, m, rets);
+    }
+    for (int j = 0; j < 4; ++j) v[j] = m[j];
+    for (int j = 4; j < 8; ++j) v[j] = m[j] * ct2;
+    double x = ax_cs * (-2.0 / kPi4);
+    x = x * x * 0.5 + 0.5;
+    const double pf_pos = ax_cs >= 0.0 ? 0.5 : dmin(x, 1.0);
+    const double dc = k.pf_c1 - k.pf_c0;
+    v[8] = exp((1.0 - pf_pos) * dc + k.pf_c0) - 1.0;
+    v[9] = exp(pf_pos * dc + k.pf_c0) - 1.0;
+    const double ax = fabs(ax_lr);
+    const double y0 = ax_cs + (kPi4 / 2);
+    const double y = ax_cs > -kPi4 / 2 ? y0 * 2.0 : y0;
+    const double z = dmin(dmax(ax - y, 0.0) * 6.0, kPi2);
+    v[10] = ax_cs >= 0.0 ? 1.0 : cos(z);
+    v[11] = ax_cs >= 0.0 ? 0.0 : sin(z);
+}
+
+__global__ void m4mb_event_kernel(EvPtrs in, EvPtrs out, const double* __restrict__ evt_in,
+                                  double* __restrict__ evt_out, const double* __restrict__ env_ds,
+                                  double* __restrict__ eo, double* __restrict__ vt,
+                                  const double* __restrict__ iy_in, double* __restrict__ ics,
+                                  double* __restrict__ iy_out, double* __restrict__ aux,
+                                  EvParams base, MbParams k, int Nc, long long fade_p,
+                                  int disable) {
+    extern __shared__ double ring[];
+    __shared__ double pub[kBands][6];  // a band's last, slope_last and diff_last pairs
+    const int L = base.buf_len;
+    const int b = threadIdx.x;
+    if (b < kBands) {
+        const unsigned lanes = (1u << kBands) - 1u;
+        EvParams p = base;
+        p.base_ord_ns = k.base_ord_ns[b];
+        p.clip_thresh = k.clip_thresh[b];
+        p.pcf_sens = k.pcf_sens[b];
+        Ev e;
+        load_ev(e, in, b, L, ring + (size_t)b * 10 * L);
+        double evt = evt_in[b];
+        const double etmax = k.etmax[b], etmin = k.etmin[b];
+        double* eo_b = eo + (size_t)b * Nc * 8;
+        for (int i = 0; i < Nc; ++i) {
+            pub[b][0] = e.last[0];
+            pub[b][1] = e.last[1];
+            pub[b][2] = e.slope_last[0];
+            pub[b][3] = e.slope_last[1];
+            pub[b][4] = e.diff_last[0];
+            pub[b][5] = e.diff_last[1];
+            __syncwarp(lanes);
+            // the cross-band threshold modulation (matrix4_mb.py:467-480)
+            double fact = 0.0;
+            bool cand = false;
+            for (int j = 0; j < kBands; ++j) {
+                const bool cj = (pub[j][2] > 0.0 && pub[j][0] > k.etmin[j]) ||
+                                (pub[j][3] > 0.0 && pub[j][1] > k.etmin[j]);
+                const double d_lr = fabs(pub[b][4] - pub[j][4]);
+                const double d_cs = fabs(pub[b][5] - pub[j][5]);
+                const double term =
+                    smoothstep(fma(-dmax(d_lr, d_cs), 16.0 / kPi, 1.0)) * (cj ? 1.0 : 0.0);
+                fact = j == 0 ? term : fact + term;
+                if (j == b) cand = cj;
+            }
+            __syncwarp(lanes);
+            fact = cand ? fact - 1.0 : 0.0;
+            const double target = fma(-((etmax - etmin) * fact), 1.0 / (kBands - 1), etmax);
+            const double up = fma(k.g_evt, target - evt, evt);
+            evt = target >= evt ? up : target;
+            p.thresh = 1.8 * (evt * (1.0 / 1.8));  // EVENT_THRESH * thresh_scale
+            const double* e8 = env_ds + ((size_t)i * kBands + b) * 8;
+            event_step(p, e, e8, eo_b + (size_t)i * 8);
+        }
+        store_ev(e, out, b, L);
+        evt_out[b] = evt;
+    }
+    __syncthreads();
+    // the epilogue for every tick and band
+    for (int idx = threadIdx.x; idx < Nc * kBands; idx += blockDim.x) {
+        const int i = idx / kBands, bb = idx % kBands;
+        const double* o = eo + ((size_t)bb * Nc + i) * 8;
+        tick_vals_mb(k, o, fade_at(i, k.D, fade_p, k.fade_frames, disable), k.contour[bb],
+                     vt + (size_t)idx * kSigMb);
+        aux[(size_t)idx * 2] = o[0];
+        aux[(size_t)idx * 2 + 1] = o[1];
+    }
+    __syncthreads();
+    // the interpolator insert: row r of [interp_y[1:] | vals], [.., 13, 12] each
+    constexpr int kRow = kBands * kSigMb;
+#define EXT(r, c) ((r) < 3 ? iy_in[((r) + 1) * kRow + (c)] : vt[((r) - 3) * kRow + (c)])
+    for (int j = threadIdx.x; j < Nc * kRow; j += blockDim.x) {
+        const int i = j / kRow, c = j % kRow;
+        const double iy0 = EXT(i, c), iy1 = EXT(i + 1, c), iy2 = EXT(i + 2, c), iy3 = EXT(i + 3, c);
+        const double ia = iy2 - iy0;
+        double* o = ics + (size_t)i * 3 * kRow + c;
+        o[0] = 0.5 * iy1 + 0.25 * (iy0 + iy2);
+        o[kRow] = 0.5 * ia;
+        o[2 * kRow] = 0.25 * (iy3 - iy1 - ia);
+    }
+    for (int j = threadIdx.x; j < 4 * kRow; j += blockDim.x) {
+        const int r = j / kRow, c = j % kRow;
+        iy_out[j] = EXT(Nc - 1 + r, c);
+    }
+#undef EXT
+}
+
+// the dynamic shared memory a launch may ask for on Hopper (227 KB)
+constexpr size_t kMaxSmem = 227 * 1024;
+
 }  // namespace
 
 // S lanes of Nc ticks: the event state in and out (EvPtrs), bg [S, 2],
@@ -814,9 +977,40 @@ extern "C" int dsp_m4_event_f64(const EvPtrs* in, const EvPtrs* out, const doubl
         return (int)cudaErrorInvalidValue;
     }
     const size_t smem = sizeof(double) * 10 * (size_t)p->buf_len;
-    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+    if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            m4_event_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
     m4_event_kernel<<<S, 128, smem, static_cast<cudaStream_t>(stream)>>>(
         *in, *out, bg_in, bg_out, env_ds, eo, vt, iy_in, ics, iy_out, aux, *p, *k, Nc, fade_p,
+        disable);
+    return (int)cudaGetLastError();
+}
+
+// matrix4_mb's 13 coupled band engines over Nc ticks: the event state in and
+// out (EvPtrs, every leaf [13, ...]), the thresholds evt [13], env_ds
+// [Nc, 13, 8], the scratch eo [13, Nc, 8] and vt [Nc, 13, 12], interp_y
+// [4, 13, 12] in and out, ics [Nc, 3, 13, 12], aux [Nc, 13, 2]. `p` holds
+// band 0's event parameters; MbParams the ones that differ by band. Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int dsp_m4mb_event_f64(const EvPtrs* in, const EvPtrs* out, const double* evt_in,
+                                  double* evt_out, const double* env_ds, double* eo, double* vt,
+                                  const double* iy_in, double* ics, double* iy_out, double* aux,
+                                  const EvParams* p, const MbParams* k, int Nc, long long fade_p,
+                                  int disable, void* stream) {
+    if (Nc <= 0 || p->buf_len <= 0 || k->fade_frames <= 0) return (int)cudaErrorInvalidValue;
+    // the 13 bands' rings: 21.8 KB at 44.1 kHz, 93.6 KB at 192 kHz
+    const size_t smem = sizeof(double) * 10 * (size_t)p->buf_len * kBands;
+    if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            m4mb_event_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    m4mb_event_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+        *in, *out, evt_in, evt_out, env_ds, eo, vt, iy_in, ics, iy_out, aux, *p, *k, Nc, fade_p,
         disable);
     return (int)cudaGetLastError();
 }

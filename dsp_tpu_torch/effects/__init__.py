@@ -21,7 +21,6 @@ from dsp_tpu_torch.effects.base import (
 
 # (name, usage) of the effects still to port, in dsp_tpu's registry order
 NOT_PORTED = [
-    ("matrix4_mb", "matrix4_mb [options ...] [surround_level][/surround_level_rear]"),
     ("ladspa_host", "ladspa_host module_path plugin_label [control ...]"),
     ("watch", "watch [-e] [~/]path"),
 ]
@@ -49,6 +48,7 @@ def _register_builtins():
     from dsp_tpu_torch.effects import levels  # noqa: F401
     from dsp_tpu_torch.effects import resample  # noqa: F401
     from dsp_tpu_torch.effects import matrix4  # noqa: F401
+    from dsp_tpu_torch.effects import matrix4_mb  # noqa: F401
 
     for name, usage in NOT_PORTED:
         register_effect(name, usage, _not_ported_init)

@@ -10,8 +10,8 @@ the library already built. A missing ``nvcc`` or a failed build raises
 ``KernelBuildError``; nothing falls back.
 
 Each launch function here takes tensors the caller (``ops/iir.py``,
-``ops/fft_conv.py``, ``ops/time_domain.py``) has checked, passes raw
-pointers and the current stream, and raises ``KernelLaunchError`` when the C
+``ops/fft_conv.py``, ``ops/time_domain.py``, ``ops/resample_ops.py``,
+``ops/m4_engine.py``) has checked, passes raw pointers and the current stream, and raises ``KernelLaunchError`` when the C
 function returns a CUDA error. None of them synchronises or allocates.
 """
 
@@ -119,6 +119,24 @@ class M4K10Params(ctypes.Structure):
     )
 
 
+class M4MbParams(ctypes.Structure):
+    """csrc/m4_event.cu's MbParams."""
+
+    _fields_ = (
+        [(k, ctypes.c_double * 13) for k in ("etmax", "etmin", "contour", "base_ord_ns",
+                                             "clip_thresh", "pcf_sens")]
+        + [(k, ctypes.c_double) for k in ("g_evt", "surr_mult0", "surr_mult1", "contour_pwrcmp",
+                                          "matrix_param", "pf_c0", "pf_c1")]
+        + [(k, ctypes.c_int) for k in ("matrix_v4", "dpwr_decouple", "fade_frames", "D")]
+    )
+
+
+class M4MbAudioCfg(ctypes.Structure):
+    """csrc/m4mb_audio.cu's MbAudioCfg."""
+
+    _fields_ = [(k, ctypes.c_int) for k in ("len", "D", "phase_flip", "direct")]
+
+
 class M4AudioCfg(ctypes.Structure):
     """csrc/m4_audio.cu's AudioCfg."""
 
@@ -211,12 +229,16 @@ class _Library:
                 lib.dsp_mod_delay_f64.restype = i
                 lib.dsp_resample_fold_c128.argtypes = [p] * 6 + [i, i, p]
                 lib.dsp_resample_fold_c128.restype = i
-                lib.dsp_m4_env_f64.argtypes = [p] * 4 + [d, i, i, p]
+                lib.dsp_m4_env_f64.argtypes = [p] * 5 + [d, i, i, i, p]
                 lib.dsp_m4_env_f64.restype = i
                 lib.dsp_m4_event_f64.argtypes = [p] * 13 + [i, i, ll, i, p]
                 lib.dsp_m4_event_f64.restype = i
                 lib.dsp_m4_audio_f64.argtypes = [p] * 13 + [i, p]
                 lib.dsp_m4_audio_f64.restype = i
+                lib.dsp_m4mb_event_f64.argtypes = [p] * 13 + [i, ll, i, p]
+                lib.dsp_m4mb_event_f64.restype = i
+                lib.dsp_m4mb_audio_f64.argtypes = [p] * 9 + [i, p]
+                lib.dsp_m4mb_audio_f64.restype = i
                 lib.dsp_cuda_error_string.argtypes = [i]
                 lib.dsp_cuda_error_string.restype = ctypes.c_char_p
                 self.lib = lib
@@ -358,11 +380,13 @@ def launch_mod_delay(key, key_out, yk, yk_out, t, t_out, knots, buf, x, y, sel, 
     _check(rc, "mod_delay")
 
 
-def launch_m4_env(ybp, env_m, env_out, env_ds, g):
+def launch_m4_env(ybp, env_m, env_out, env_ds, g, w=None):
+    """ybp [B, 2] (one lane) or [B, S, 2]; w the [S, S] mix weights or None."""
     B = ybp.shape[0]
+    S = 1 if ybp.dim() == 2 else ybp.shape[1]
     rc = load().dsp_m4_env_f64(
-        _ptr(ybp), _ptr(env_m), _ptr(env_out), _ptr(env_ds), g, B, B // env_ds.shape[0],
-        _stream(ybp.device),
+        _ptr(ybp), _ptr(w), _ptr(env_m), _ptr(env_out), _ptr(env_ds), g, B, S,
+        B // env_ds.shape[0], _stream(ybp.device),
     )
     _check(rc, "m4_env")
 
@@ -398,3 +422,26 @@ def launch_m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m, y, shelf_ou
         ctypes.byref(cfg.c_struct()), x.shape[0], _stream(x.device),
     )
     _check(rc, "m4_audio")
+
+
+def launch_m4mb_event(ctl, ev, ev_out, evt, evt_out, env_ds, eo, vt, iy_in, ics, iy_out, aux,
+                      fade_p, disable):
+    evp, mb = ctl.c_structs()
+    rc = load().dsp_m4mb_event_f64(
+        ctypes.byref(_ev_ptrs(ev)), ctypes.byref(_ev_ptrs(ev_out)), _ptr(evt), _ptr(evt_out),
+        _ptr(env_ds), _ptr(eo), _ptr(vt), _ptr(iy_in), _ptr(ics), _ptr(iy_out), _ptr(aux),
+        ctypes.byref(evp), ctypes.byref(mb), env_ds.shape[0], fade_p, int(disable),
+        _stream(env_ds.device),
+    )
+    _check(rc, "m4mb_event")
+
+
+def launch_m4mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m, sig, pf_out, scratch):
+    from dsp_tpu_torch.ops.m4_engine import DOWNSAMPLE_FACTOR
+
+    c = M4MbAudioCfg(cfg.len, DOWNSAMPLE_FACTOR, int(cfg.phase_flip), int(cfg.direct_path))
+    rc = load().dsp_m4mb_audio_f64(
+        _ptr(bands), _ptr(fb_buf), _ptr(interp_c), _ptr(ics), _ptr(pf_m), _ptr(sig), _ptr(pf_out),
+        _ptr(scratch), ctypes.byref(c), bands.shape[0], _stream(bands.device),
+    )
+    _check(rc, "m4mb_audio")

@@ -21,6 +21,17 @@ masked EWMA replay. Three kernels run them on the card:
   values, the lookahead-delayed 2 -> 4 matrix, the dynamic shelf and
   lowpass, the phase-flip allpasses and the output columns.
 
+matrix4_mb runs 13 engines, one a band, whose event thresholds the bands
+modulate together every tick (``mb_threshold_ref``), on three more:
+
+* ``m4mb_env`` (K11 over lanes, csrc/m4_env.cu): the frequency-mask mix
+  and the envelopes of the 13 bands;
+* ``m4mb_event`` (K9 + K10, csrc/m4_event.cu): the 13 coupled engines in
+  one warp, then matrix4_mb's epilogue and interpolator insert;
+* ``m4mb_audio`` (K12 + K13, csrc/m4mb_audio.cu): the delayed bands
+  through their matrices, the 26 phase-flip allpasses, the band sums and
+  the direct path.
+
 Each wrapper takes CUDA tensors (or raises) and counts its launches; a CPU
 tensor runs ``<name>_ref``. dsp_tpu's f64 path is plain jnp (dfx's f64
 branches pass straight through: atan_pos is arctan), so the plain versions
@@ -302,14 +313,25 @@ def _set(buf, lanes, idx, val):
     return out
 
 
+def _lanes(v, like):
+    """A parameter as `like` [S, 2]: a float everywhere, or a [S] tensor (a
+    value a lane) along the lane axis."""
+    if isinstance(v, torch.Tensor):
+        return v[:, None].expand_as(like)
+    return torch.full_like(like, v)
+
+
 def event_step(p, st, env, pwr_env, thresh_scale=1.0):
     """One control-rate step (process_events_priv) of S lanes at once.
 
-    p: host_params of make_event_params; st: the state dict with a leading
-    lane axis on every leaf; env, pwr_env: dicts with l, r, sum, diff of
-    shape [S]. Returns (st', outputs) with outputs ax_lr, ax_cs, ax_ev_lr,
-    ax_ev_cs, ax_dpwr_lr, ax_dpwr_cs, pwrcmp_factor, hold. The arithmetic
-    is dsp_tpu's, operation for operation."""
+    p: host_params of make_event_params, where base_ord_ns, clip_thresh and
+    pcf_sens may be [S] tensors (matrix4_mb's bands differ in them); st: the
+    state dict with a leading lane axis on every leaf; env, pwr_env: dicts
+    with l, r, sum, diff of shape [S]; thresh_scale: a float or a [S]
+    tensor (matrix4_mb's modulated thresholds). Returns (st', outputs)
+    with outputs ax_lr, ax_cs, ax_ev_lr, ax_ev_cs, ax_dpwr_lr, ax_dpwr_cs,
+    pwrcmp_factor, hold. The arithmetic is dsp_tpu's, operation for
+    operation."""
     s = dict(st)
     L = p["buf_len"]
     bp = st["buf_p"]
@@ -359,9 +381,9 @@ def event_step(p, st, env, pwr_env, thresh_scale=1.0):
     ac45 = _ewma_scale_asym(ac[:, 4:], pw2, p["g_accom"], 1.0, p["accom_mask_fall"])
     s["accom"] = torch.cat([ac03, ac45], -1)
     mask = torch.clamp(pw2 - ac45, min=0.0)
-    mask_norm = torch.where(n01 >= DBL_MIN, mask / n01,
-                            torch.where(mask < DBL_MIN, 0.0, torch.full_like(mask, p["clip_thresh"])))
-    sm = _ewma(st["smooth"], torch.clamp(mask_norm, max=p["clip_thresh"]), p["g_smooth"])
+    clip = _lanes(p["clip_thresh"], mask)
+    mask_norm = torch.where(n01 >= DBL_MIN, mask / n01, torch.where(mask < DBL_MIN, 0.0, clip))
+    sm = _ewma(st["smooth"], torch.minimum(mask_norm, clip), p["g_smooth"])
     sl = _ewma(st["slow"], sm, p["g_slow"])
     s["smooth"], s["slow"] = sm, sl
     events = (sm - sl) * adj[:, None]
@@ -1114,3 +1136,400 @@ def m4_audio_ref(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m):
     else:
         cols += [surr_pf[:, 0] - 1e-15, surr_pf[:, 1] - 1e-15]
     return torch.stack(cols, dim=1), shelf_m, lp_m, pf_m
+
+
+# --- matrix4_mb: 13 coupled band engines (effects/matrix4_mb.py) -------------
+
+N_BANDS = 13
+N_SIG_MB = 12  # ll lr rl rr lsl lsr rsl rsr pf0 pf1 amb dir
+# make_event_params' entries that differ by band (the rest are equal), and
+# its integers (they index and bound loops: one value for all bands)
+LANE_PARAMS = ("base_ord_ns", "clip_thresh", "pcf_sens")
+INT_PARAMS = ("buf_len", "sample_frames", "max_hold_frames", "min_hold_frames")
+_SPLIT = 134217729.0  # 2**27 + 1, Veltkamp's splitter for float64
+
+
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a, b):
+    p = a * b
+    ta, tb = a * _SPLIT, b * _SPLIT
+    ah, bh = ta - (ta - a), tb - (tb - b)
+    al, bl = a - ah, b - bh
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def fma_ref(a, b, c):
+    """a·b + c rounded once, as a fused multiply-add rounds it, from
+    float64 tensor operations that each round: the product as an exact
+    pair, the three-term sum by Boldo and Melquiond's rounding-to-odd
+    (a sum of three correctly rounded). dsp_tpu's XLA:CPU contracts some
+    products into their sums; the plain versions do the same where the
+    result decides an event threshold."""
+    a, b, c = torch.broadcast_tensors(*(torch.as_tensor(v, dtype=torch.float64,
+                                                        device=_device_of(a, b, c))
+                                        for v in (a, b, c)))
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    v, e = _two_sum(tl, ul)
+    even = (v.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, math.inf, -math.inf).to(v.dtype)
+    v = torch.where((e != 0) & even, torch.nextafter(v, toward), v)
+    return th + v
+
+
+def _device_of(*vs):
+    return next((v.device for v in vs if isinstance(v, torch.Tensor)), torch.device("cpu"))
+
+
+class M4MbControl:
+    """What the control path of one matrix4_mb needs besides its state: the
+    13 bands' engine parameters (equal but for LANE_PARAMS), the event
+    threshold's bounds and EWMA gain, the band contour and the per-tick
+    epilogue's constants. Built once by the effect."""
+
+    def __init__(self, ev_params, ev_thresh_max, ev_thresh_min, g_ev_thresh, contour, *,
+                 matrix_v4, matrix_param, dpwr_decouple, surr_mult, contour_pwrcmp, pf_c0,
+                 pf_c1, fade_frames):
+        band0 = {k: (v if k in INT_PARAMS
+                     else {kk: np.asarray(vv)[0] for kk, vv in v.items()} if isinstance(v, dict)
+                     else np.asarray(v)[0])
+                 for k, v in ev_params.items()}
+        self.p = host_params(band0)
+        self.lanes = {k: np.asarray(ev_params[k], dtype=np.float64) for k in LANE_PARAMS}
+        for k, v in ev_params.items():
+            if k not in LANE_PARAMS and k != "base_thresh_scale" and not isinstance(v, (int, dict)):
+                if not np.all(np.asarray(v) == np.asarray(v)[:1]):
+                    raise ValueError(f"matrix4_mb: event parameter {k} differs by band")
+        self.etmax = np.asarray(ev_thresh_max, dtype=np.float64)
+        self.etmin = np.asarray(ev_thresh_min, dtype=np.float64)
+        self.g_evt = float(g_ev_thresh)
+        self.contour = np.asarray(contour, dtype=np.float64)
+        self.matrix_v4 = bool(matrix_v4)
+        self.matrix_param = float(matrix_param)
+        self.dpwr_decouple = bool(dpwr_decouple)
+        self.surr_mult = (float(surr_mult[0]), float(surr_mult[1]))
+        self.contour_pwrcmp = float(contour_pwrcmp)
+        self.pf_c0, self.pf_c1 = float(pf_c0), float(pf_c1)
+        self.fade_frames = int(fade_frames)
+        self._tensors = {}
+
+    def tensors(self, device):
+        """(the engine parameters with LANE_PARAMS as [13] tensors, etmax,
+        etmin, contour) on `device`, cached."""
+        key = torch.device(device)
+        if key not in self._tensors:
+            def t(a):
+                return torch.as_tensor(a, dtype=torch.float64, device=key)
+
+            p = dict(self.p, **{k: t(v) for k, v in self.lanes.items()})
+            self._tensors[key] = (p, t(self.etmax), t(self.etmin), t(self.contour))
+        return self._tensors[key]
+
+    def c_structs(self):
+        """(EvParams of band 0, MbParams) for csrc/m4_event.cu, cached."""
+        if not hasattr(self, "_c"):
+            from dsp_tpu_torch import kernels
+
+            p = self.p
+            ev = kernels.M4EvParams(
+                *(p[k] for k in ("g_accom", "g_norm", "g_norm_fast", "g_slow", "g_smooth",
+                                 "g_avg", "g_drift_slow", "g_drift_fast", "g_dpwr_slow",
+                                 "g_dpwr_fast", "g_ds0", "g_ds1", "g_pwrcmp",
+                                 "g_ord_notch_scale", "base_ord_ns")),
+                (ctypes.c_double * 5)(*p["ord_lp_c"]),
+                *(p[s][k] for s in ("svf1", "svf2") for k in ("a0", "alpha", "beta")),
+                *(p[k] for k in ("clip_thresh", "pcf_sens", "ord_factor_c", "diff_lim",
+                                 "rear_ev_mask", "accom_mask_fall", "norm_accom_factor")),
+                EVENT_THRESH, 0.0, 0.0, 0.0,
+                *(p[k] for k in ("buf_len", "sample_frames", "max_hold_frames",
+                                 "min_hold_frames")),
+            )
+            arr = ctypes.c_double * N_BANDS
+            mb = kernels.M4MbParams(
+                arr(*self.etmax), arr(*self.etmin), arr(*self.contour),
+                *(arr(*self.lanes[k]) for k in LANE_PARAMS),
+                self.g_evt, self.surr_mult[0], self.surr_mult[1], self.contour_pwrcmp,
+                self.matrix_param, self.pf_c0, self.pf_c1,
+                int(self.matrix_v4), int(self.dpwr_decouple), self.fade_frames, DOWNSAMPLE_FACTOR,
+            )
+            self._c = (ev, mb)
+        return self._c
+
+
+def mb_threshold_ref(ctl, ev, evt):
+    """The cross-band event threshold modulation of one tick
+    (matrix4_mb.c:379-418, dsp_tpu/effects/matrix4_mb.py:467-480): every
+    band's threshold [13] moves toward a target set by the bands that are
+    rising past their minimum threshold (`cand`) and by how alike their
+    previous tick's steering is (`sim`). Reads the engines' state before
+    the tick. As dsp_tpu's XLA:CPU computes it: `fact` summed left to
+    right; `1 - max(d)·16/π`, the target's last product and sum, and the
+    EWMA each one fused multiply-add (measured against dsp_tpu's own scan,
+    tests/test_torch_matrix4_mb.py)."""
+    _, etmax, etmin, _ = ctl.tensors(evt.device)
+    sl, la, d = ev["slope_last"], ev["last"], ev["diff_last"]
+    cand = ((sl[:, 0] > 0.0) & (la[:, 0] > etmin)) | ((sl[:, 1] > 0.0) & (la[:, 1] > etmin))
+    d_lr = (d[:, None, 0] - d[None, :, 0]).abs()
+    d_cs = (d[:, None, 1] - d[None, :, 1]).abs()
+    sim = smoothstep(fma_ref(-torch.maximum(d_lr, d_cs), float(16.0 / np.pi), 1.0))
+    terms = sim * cand[None, :].to(sim.dtype)
+    fact = terms[:, 0]
+    for j in range(1, N_BANDS):
+        fact = fact + terms[:, j]
+    fact = torch.where(cand, fact - 1.0, 0.0)
+    target = fma_ref(-((etmax - etmin) * fact), 1.0 / (N_BANDS - 1), etmax)
+    up = fma_ref(ctl.g_evt, target - evt, evt)
+    return torch.where(target >= evt, up, target)
+
+
+def m4mb_event(ctl, ev, evt, env_ds, interp_y, fade_p, disable):
+    """K9 + K10 of matrix4_mb for one block: the 13 band engines, coupled
+    through their thresholds every tick, then the per-tick epilogue and the
+    interpolator insert. ev: the event state, every leaf [13, ...]; evt:
+    the thresholds [13]; env_ds: [Nc, 13, 8]; interp_y: [4, 13, 12];
+    fade_p, disable: host ints. Returns (ev', evt', ics [Nc, 3, 13, 12],
+    interp_y', aux [Nc, 13, 2]), dsp_tpu's layouts. CPU tensors run
+    m4mb_event_ref; CUDA tensors launch csrc/m4_event.cu."""
+    if env_ds.device.type == "cpu":
+        return m4mb_event_ref(ctl, ev, evt, env_ds, interp_y, fade_p, disable)
+    from dsp_tpu_torch import kernels
+
+    leaves = [(ev[k], {"b": torch.bool, "f": torch.float64, "i": torch.int64}[kind])
+              for k, kind in EV_LEAVES]
+    _check_cuda("m4mb_event", env_ds, (env_ds, torch.float64), (evt, torch.float64),
+                (interp_y, torch.float64), *leaves, align=1)
+    Nc = env_ds.shape[0]
+    L = ctl.p["buf_len"]
+    if (env_ds.dim() != 3 or tuple(env_ds.shape[1:]) != (N_BANDS, 8)
+            or tuple(evt.shape) != (N_BANDS,) or tuple(interp_y.shape) != (4, N_BANDS, N_SIG_MB)
+            or ev["ord_buf"].shape[:2] != (N_BANDS, L)):
+        raise ValueError(f"m4mb_event: env_ds {tuple(env_ds.shape)}, evt {tuple(evt.shape)}, "
+                         f"interp_y {tuple(interp_y.shape)}, ord_buf {tuple(ev['ord_buf'].shape)}")
+    out = {k: torch.empty_like(v) for k, v in ev.items()}
+    evt_out = torch.empty_like(evt)
+    dev = env_ds.device
+    eo = torch.empty((N_BANDS, Nc, 8), dtype=torch.float64, device=dev)
+    vt = torch.empty((Nc, N_BANDS, N_SIG_MB), dtype=torch.float64, device=dev)
+    ics = torch.empty((Nc, 3, N_BANDS, N_SIG_MB), dtype=torch.float64, device=dev)
+    iy_out = torch.empty_like(interp_y)
+    aux = torch.empty((Nc, N_BANDS, 2), dtype=torch.float64, device=dev)
+    kernels.launch_m4mb_event(ctl, ev, out, evt, evt_out, env_ds, eo, vt, interp_y, ics, iy_out,
+                              aux, int(fade_p), bool(disable))
+    m4mb_event.launches += 1
+    return out, evt_out, ics, iy_out, aux
+
+
+m4mb_event.launches = 0
+
+
+def m4mb_event_ref(ctl, ev, evt, env_ds, interp_y, fade_p, disable):
+    """Plain PyTorch version of m4mb_event: a loop over the ticks of the
+    threshold modulation and event_step over the 13 band lanes, then the
+    epilogue over every tick and band at once."""
+    p = ctl.tensors(env_ds.device)[0]
+    Nc = env_ds.shape[0]
+    st = dict(ev)
+    keep = ("ax_lr", "ax_cs", "ax_dpwr_lr", "ax_dpwr_cs", "pwrcmp_factor")
+    outs = {k: [] for k in keep}
+    for i in range(Nc):
+        evt = mb_threshold_ref(ctl, st, evt)
+        e8 = env_ds[i]
+        env = {"l": e8[:, 0], "r": e8[:, 1], "sum": e8[:, 2], "diff": e8[:, 3]}
+        pwr = {"l": e8[:, 4], "r": e8[:, 5], "sum": e8[:, 6], "diff": e8[:, 7]}
+        st, out = event_step(p, st, env, pwr, evt * (1.0 / EVENT_THRESH))
+        for k in keep:
+            outs[k].append(out[k])
+    out = {k: torch.stack(v) for k, v in outs.items()}  # [Nc, 13]
+    vals, aux = m4mb_epilogue_ref(ctl, out, fade_ticks(fade_p, disable, ctl.fade_frames, Nc, evt))
+    ext = torch.cat([interp_y[1:], vals])  # [Nc + 3, 13, 12]
+    iy0, iy1, iy2, iy3 = ext[:Nc], ext[1:Nc + 1], ext[2:Nc + 2], ext[3:]
+    ia = iy2 - iy0
+    ics = torch.stack([0.5 * iy1 + 0.25 * (iy0 + iy2), 0.5 * ia, 0.25 * (iy3 - iy1 - ia)], dim=1)
+    return st, evt, ics, ext[-4:], aux
+
+
+def m4mb_epilogue_ref(ctl, out, fade):
+    """K10 of matrix4_mb over every tick and band (matrix4_mb.py:505-527):
+    (vals [Nc, 13, 12], aux [Nc, 13, 2]) from the engines' outputs (each
+    [Nc, 13]) and the fade at the ticks [Nc]. No background smoother: the
+    weight w comes from ax_cs itself; each band has its static contour."""
+    contour = ctl.tensors(fade.device)[3]
+    fade = fade[:, None]
+    w = smoothstep(out["ax_cs"] * (-2.0 / M_PI_4))
+    sm0, sm1 = ctl.surr_mult
+    surr_mult = (w * sm1 + (1.0 - w) * sm0) * fade
+    ct_pcf = ctl.contour_pwrcmp * out["pwrcmp_factor"]
+    ct0 = w + (1.0 - w) * contour[None, :]
+    ct1 = (ct0 - 1.0) * ct_pcf + 1.0
+    ct2 = ct0 / ct1
+    dp_lr = out["ax_dpwr_lr"] if ctl.dpwr_decouple else out["ax_lr"]
+    dp_cs = out["ax_dpwr_cs"] if ctl.dpwr_decouple else out["ax_cs"]
+    calc = calc_matrix_coefs_v4 if ctl.matrix_v4 else calc_matrix_coefs_v1
+    m, _ = calc(out["ax_lr"], out["ax_cs"], dp_lr, dp_cs, surr_mult * ct1, sm1 * fade,
+                ctl.matrix_param, [])
+    pf_pos = phase_flip_pos_rs(out["ax_lr"], out["ax_cs"])
+    pf0 = phase_flip_ap1_c0(ctl.pf_c0, ctl.pf_c1, 1.0 - pf_pos)
+    pf1 = phase_flip_ap1_c0(ctl.pf_c0, ctl.pf_c1, pf_pos)
+    amb, dire = surr_direct_pan(out["ax_lr"], out["ax_cs"])
+    vals = torch.stack([m["ll"], m["lr"], m["rl"], m["rr"], m["lsl"] * ct2, m["lsr"] * ct2,
+                        m["rsl"] * ct2, m["rsr"] * ct2, pf0, pf1, amb, dire], -1)
+    return vals, torch.stack([out["ax_lr"], out["ax_cs"]], -1)
+
+
+def band_mix_weights(freq_mask):
+    """The lower-triangular frequency-mask mix (matrix4_mb.c:391-392) as a
+    [13, 13] numpy array, or None when freq_mask is 0 (no mix)."""
+    if freq_mask == 0.0:
+        return None
+    k = np.arange(N_BANDS)
+    return np.tril(freq_mask ** (k[:, None] - k[None, :])) * np.tril(np.ones((N_BANDS, N_BANDS)))
+
+
+def m4mb_env(bands, env_m, g, w=None):
+    """K11 over the 13 band lanes: the analysis signals (bands [B, 13, 2],
+    mixed by the frequency mask's weights w [13, 13] when given, a tensor
+    on the bands' device), their eight envelope EWMAs from env_m [13, 8],
+    and the envelopes at the ticks. Returns (env_m' [13, 8], env_ds
+    [Nc, 13, 8]). CPU tensors run m4mb_env_ref; CUDA tensors launch
+    csrc/m4_env.cu."""
+    if bands.device.type == "cpu":
+        return m4mb_env_ref(bands, env_m, g, w)
+    from dsp_tpu_torch import kernels
+
+    S = bands.shape[1] if bands.dim() == 3 else 0
+    _check_cuda("m4mb_env", bands, (bands, torch.float64), (env_m, torch.float64),
+                *([(w, torch.float64)] if w is not None else []))
+    B = bands.shape[0]
+    if (bands.dim() != 3 or bands.shape[2] != 2 or B % DOWNSAMPLE_FACTOR
+            or tuple(env_m.shape) != (S, 8) or (w is not None and tuple(w.shape) != (S, S))):
+        raise ValueError(f"m4mb_env: bands {tuple(bands.shape)}, env_m {tuple(env_m.shape)}, "
+                         f"weights {None if w is None else tuple(w.shape)}")
+    env_out = torch.empty_like(env_m)
+    env_ds = torch.empty((B // DOWNSAMPLE_FACTOR, S, 8), dtype=torch.float64, device=bands.device)
+    kernels.launch_m4_env(bands, env_m, env_out, env_ds, float(g), w)
+    m4mb_env.launches += 1
+    return env_out, env_ds
+
+
+m4mb_env.launches = 0
+
+
+def band_mix_ref(bands, w):
+    """ana[:, k] = sum over j <= k of w[k, j]·bands[:, j], summed from j = 0
+    up, each product rounded (the kernel's order)."""
+    cols = []
+    for k in range(bands.shape[1]):
+        acc = bands[:, 0] * w[k, 0]
+        for j in range(1, k + 1):
+            acc = acc + bands[:, j] * w[k, j]
+        cols.append(acc)
+    return torch.stack(cols, 1)
+
+
+def mb_envelopes_ref(bands, env_m, g, w=None):
+    """The eight envelope EWMAs of every band at every sample, [B, 13, 8]:
+    what m4mb_env computes before it keeps the ticks."""
+    ana = bands if w is None else band_mix_ref(bands, w)
+    l, r = ana[:, :, 0], ana[:, :, 1]
+    sum_, diff = l + r, l - r
+    env_in = torch.stack([l.abs(), r.abs(), sum_.abs(), diff.abs(),
+                          l * l, r * r, sum_ * sum_, diff * diff], dim=2)  # [B, S, 8]
+    a = torch.full((1,) + tuple(env_m.shape), 1.0 - g, dtype=env_in.dtype, device=env_in.device)
+    return _affine_scan_ref(a, g * env_in, env_m)
+
+
+def m4mb_env_ref(bands, env_m, g, w=None):
+    """Plain PyTorch version of m4mb_env."""
+    envs = mb_envelopes_ref(bands, env_m, g, w)
+    return envs[-1], envs[DOWNSAMPLE_FACTOR - 1 :: DOWNSAMPLE_FACTOR]
+
+
+class M4MbAudio:
+    """matrix4_mb's audio path constants: the lookahead line's length, the
+    phase flip and the direct path."""
+
+    def __init__(self, fb_buf_len, phase_flip, direct_path):
+        self.len = int(fb_buf_len)
+        self.phase_flip, self.direct_path = bool(phase_flip), bool(direct_path)
+        self.n_sig = 6 if direct_path else 4
+
+
+def m4mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m):
+    """K12 + K13 of matrix4_mb for one block: the interpolated matrix values
+    of every band, the lookahead-delayed bands (fb_buf [len, 13, 2], then
+    this block's bands [B, 13, 2]) through each band's 2 -> 4 matrix, the
+    band sums, the phase-flip allpasses over the 26 surround lanes (state
+    pf_m [13, 2, 2]) and the direct path. Returns (sig [B, 4 or 6]: l, r,
+    ls, rs (and the direct pair) with the 1e-15/324 offsets, ready for the
+    inverse fshape; pf_m'). CPU tensors run m4mb_audio_ref; CUDA tensors
+    launch csrc/m4mb_audio.cu."""
+    if bands.device.type == "cpu":
+        return m4mb_audio_ref(cfg, bands, fb_buf, interp_c, ics, pf_m)
+    from dsp_tpu_torch import kernels
+
+    _check_cuda("m4mb_audio", bands, *[(t, torch.float64) for t in (bands, fb_buf, interp_c, ics,
+                                                                      pf_m)])
+    B = bands.shape[0]
+    Nc = B // DOWNSAMPLE_FACTOR
+    if (tuple(bands.shape[1:]) != (N_BANDS, 2) or B % DOWNSAMPLE_FACTOR
+            or tuple(fb_buf.shape) != (cfg.len, N_BANDS, 2)
+            or tuple(interp_c.shape) != (3, N_BANDS, N_SIG_MB)
+            or tuple(ics.shape) != (Nc, 3, N_BANDS, N_SIG_MB)
+            or tuple(pf_m.shape) != (N_BANDS, 2, 2)):
+        raise ValueError(f"m4mb_audio: bands {tuple(bands.shape)}, fb_buf {tuple(fb_buf.shape)}, "
+                         f"ics {tuple(ics.shape)}, pf_m {tuple(pf_m.shape)}")
+    sig = torch.empty((B, cfg.n_sig), dtype=torch.float64, device=bands.device)
+    pf_out = torch.empty_like(pf_m)
+    scratch = torch.empty((2 * N_BANDS, B), dtype=torch.float64, device=bands.device)
+    kernels.launch_m4mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m, sig, pf_out, scratch)
+    m4mb_audio.launches += 1
+    return sig, pf_out
+
+
+m4mb_audio.launches = 0
+
+
+def _sum_bands(x):
+    """x [B, 13] summed over the bands from band 0 up (dsp_tpu's order)."""
+    acc = x[:, 0]
+    for k in range(1, x.shape[1]):
+        acc = acc + x[:, k]
+    return acc
+
+
+def m4mb_audio_ref(cfg, bands, fb_buf, interp_c, ics, pf_m):
+    """Plain PyTorch version of m4mb_audio (matrix4_mb.py:569-620)."""
+    B = bands.shape[0]
+    D = DOWNSAMPLE_FACTOR
+    all_ics = torch.cat([interp_c[None], ics])  # [Nc + 1, 3, 13, 12]
+    i = torch.arange(B, device=bands.device)
+    t = (((i + 1) % D).to(bands.dtype) / D)[:, None, None]
+    coefs = all_ics[(i + 1) // D]
+    vals = (coefs[:, 2] * t + coefs[:, 1]) * t + coefs[:, 0]  # [B, 13, 12]
+    delayed = torch.cat([fb_buf, bands])[:B]
+    s0, s1 = delayed[:, :, 0], delayed[:, :, 1]
+    b_l = s0 * vals[:, :, 0] + s1 * vals[:, :, 1]
+    b_r = s0 * vals[:, :, 2] + s1 * vals[:, :, 3]
+    b_ls = s0 * vals[:, :, 4] + s1 * vals[:, :, 5]
+    b_rs = s0 * vals[:, :, 6] + s1 * vals[:, :, 7]
+    b_ls_pf, b_rs_pf = b_ls, b_rs
+    if cfg.phase_flip:
+        st = torch.cat([pf_m[:, 0], pf_m[:, 1]])  # [26, 2]: the ls lanes, then the rs lanes
+        sig2 = torch.cat([b_ls + 1e-15, b_rs + 1e-15], dim=1)
+        st, y = _ap1_ref(st, sig2, torch.cat([vals[:, :, 8], vals[:, :, 9]], dim=1))
+        b_ls_pf, b_rs_pf = y[:, :N_BANDS] - 1e-15, y[:, N_BANDS:] - 1e-15
+        pf_m = torch.stack([st[:N_BANDS], st[N_BANDS:]], dim=1)
+    eps = 1e-15 / 324
+    outs = [_sum_bands(b_l), _sum_bands(b_r)]
+    if cfg.direct_path:
+        amb, dire = vals[:, :, 10], vals[:, :, 11]
+        outs += [_sum_bands(b_ls_pf * amb) + eps, _sum_bands(b_rs_pf * amb) + eps,
+                 _sum_bands(b_ls * dire) + eps, -_sum_bands(b_rs * dire) + eps]
+    else:
+        outs += [_sum_bands(b_ls_pf) + eps, _sum_bands(b_rs_pf) + eps]
+    return torch.stack(outs, dim=1), pf_m

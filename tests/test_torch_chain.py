@@ -119,7 +119,7 @@ def test_unported_effect_raises(name):
         info.init(info, StreamInfo(FS, 2), np.ones(2, dtype=bool), ".", [name])
 
 
-# the effects of slices C, D and E, with arguments each one takes
+# the effects of slices C, D, E and F, with arguments each one takes
 PORTED_LATER = {
     "delay": ["delay", "-f", "-m", "1m", "10m"],
     "noise": ["noise", "-60"],
@@ -128,13 +128,15 @@ PORTED_LATER = {
     "levels": ["levels", "-t", "0.1"],
     "resample": ["resample", "0.95", "48k"],
     "matrix4": ["matrix4", "direct_path", "-6"],
+    "matrix4_mb": ["matrix4_mb", "direct_path", "-6"],
 }
 
 
 @pytest.mark.parametrize("name", list(PORTED_LATER))
 def test_slice_c_effect_is_ported(name):
     """The effects of slice C (delay, noise, dither, stats, levels), slice D
-    (resample) and slice E (matrix4) build in the port; none is in
+    (resample), slice E (matrix4) and slice F (matrix4_mb, whose init makes
+    its phase-linearising fir and the effect) build in the port; none is in
     NOT_PORTED."""
     from dsp_tpu_torch.core.types import StreamInfo
     from dsp_tpu_torch.effects import get_effect_info
@@ -150,7 +152,7 @@ def test_unported_effect_fails_the_chain():
     from dsp_tpu_torch.chain.parser import ChainParseError
 
     with pytest.raises(ChainParseError, match="not yet ported"):
-        port_chain("gain -3 matrix4_mb", 2048)
+        port_chain("gain -3 ladspa_host x.so label", 2048)
     with pytest.raises(ChainParseError, match="not yet ported"):
         port_chain("eq -r 1k 1.0 +3 watch x.dsp", 2048)
 
