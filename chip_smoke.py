@@ -48,7 +48,19 @@ nvcc and PyTorch built for CUDA. It
    then slice F's: `matrix4_mb -6`, bench.py's `mixed` chain (an EQ, a
    fractional delay, a 4,096-tap filter, matrix4_mb) and, on 60 s,
    examples/matrix4_mb_2_4 (6 channels), each compared on its first
-   5 s (the engine's chaotic start held to MB_ONSET).
+   5 s (the engine's chaotic start held to MB_ONSET); then the float32
+   phase (slices J1 and J2): K1-df lti_blocked_f32 on the flagship
+   cascade and on matrix4_mb's bank with its (hi, lo) output, K3
+   biquad_scan_df at B = 1000 and 100, K2 in float32 biquad_scan_f32 on
+   crossfeed's lanes, a (hi, lo) state handed from K1-df to K3 and back,
+   and the float32 resampler step (rfft_pack_f32, the fold,
+   irfft_ola_f32) to 48 and 192 kHz against their plain versions (float32
+   outputs within one float32 ulp of their scale, (hi, lo) sums within
+   1e-13 relative), timed as above; and DSP_TPU_TORCH_DTYPE=float32
+   dsp-torch on the same 300 s, the flagship at blocks 2048 and 1000 and
+   `resample 48k`, each held on the whole run against the port's float64
+   run on the card within -120 dBFS, its float32 kernels launched and no
+   float64 kernel.
    Each run must produce the expected frame count, launch its kernels
    (their launch counts are zeroed just before the run), and match the
    port's CPU run on the first 10 s: within -200 dBFS, the delivery
@@ -59,12 +71,13 @@ nvcc and PyTorch built for CUDA. It
    card run and a CPU run of the CLI on the first 10 s, must be equal
    character for character;
 4. runs 96 blocks of the Nupols path (fir_p 1M at B = 2048), 320 of the
-   delivery chain and 16 each of matrix4 and matrix4_mb, with the input on
-   the card under torch.cuda.set_sync_debug_mode("error"): a step must not
-   wait on the device; then times 256 blocks of each slice C chain and
-   each upmix (matrix4_mb and the mixed chain among them) and profiles
-   them (torch.profiler: device time a block by kernel, the device's
-   share);
+   delivery chain, 16 each of matrix4 and matrix4_mb and of the float32
+   flagship (blocks 2048 and 1000) and resample, with the input on the card
+   under torch.cuda.set_sync_debug_mode("error"): a step must not wait on
+   the device; then times 256 blocks of each slice C chain, each upmix
+   (matrix4_mb and the mixed chain among them) and each float32 run in
+   both dtypes, and profiles them (torch.profiler: kernels a block, device
+   time a block by kernel, the device's share);
 5. prints the kernels' record as one JSON line, then as the last line
    {"ok": true, "device": {...}}.
 
@@ -140,27 +153,35 @@ MB_COMPARE_SECONDS = 5
 # between dsp_tpu and the port on the CPU). The run prints its difference a
 # second; the first ONSET[0] s are held to ONSET[1], the rest to LIMIT_DBFS
 ONSET = (5.0, -100.0)
-# the roofline's two rates: NVIDIA's H100 SXM data sheet, float64 outside
-# the tensor cores, and HBM3
+# the roofline's rates: NVIDIA's H100 SXM data sheet, float64 and float32
+# outside the tensor cores, and HBM3
 F64_PEAK = 34e12
+F32_PEAK = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# the float32 mode (slices J1 and J2): the chains dsp-torch renders in
+# float32, each held on the whole 300 s against the port's own float64 run
+# of the same input on the card to BASELINE's -120 dBFS budget (dsp_tpu's
+# float32 reaches -136.6 to -141.4 dBFS on these chains on the CPU)
+F32_RUNS = ((FLAGSHIP, 2048), (FLAGSHIP, 1000), ("resample 48k", 2048))
+F32_LIMIT_DBFS = -120.0
 
 
 class SmokeError(Exception):
     pass
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=F64_PEAK):
     """The least time the card could take: bytes (each input read and each
-    output written once) over the memory rate, or float64 operations over
-    the float64 peak, whichever is larger. Returns (ms, what bounds it)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F64_PEAK
+    output written once) over the memory rate, or operations over the peak
+    of their type (float64 unless given), whichever is larger. Returns (ms,
+    what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def set_times(rec, ms, plain_ms, nbytes, flops, library_ms=None):
+def set_times(rec, ms, plain_ms, nbytes, flops, library_ms=None, peak=F64_PEAK):
     rec["ms"], rec["plain_ms"], rec["library_ms"] = ms, plain_ms, library_ms
-    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, peak)
 
 
 def dbfs(err):
@@ -1407,12 +1428,13 @@ def delivery_no_sync():
 
 def profile_chains(f4k):
     """Where a block's time goes in slice C's chains, slices D and E's
-    upmixes and slice F's (matrix4_mb and the mixed chain with the 4,096-tap
-    filter f4k): CompiledChain.run_blocks over 256 blocks (-b 2048) on the card,
+    upmixes, slice F's (matrix4_mb and the mixed chain with the 4,096-tap
+    filter f4k) and the float32 mode's chains beside their float64 twins:
+    CompiledChain.run_blocks over 256 blocks on the card,
     timed unprofiled (host clock to a synchronize), then under
     torch.profiler for the device time of each kernel. Prints the step time
-    a block, the device time a block by kernel, and the device's busy share
-    of the unprofiled step."""
+    a block, the kernels the card ran a block, the device time a block by
+    kernel, and the device's busy share of the unprofiled step."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -1424,13 +1446,20 @@ def profile_chains(f4k):
 
     rng = np.random.default_rng(13)
     n = 256
-    for label, words, prec in (("delivery", DELIVERY, 16), ("modulated", MODULATED, 53),
-                               ("matrix4", MATRIX4, 53), ("upmix48", UPMIX48, 53),
-                               ("matrix4_mb", MATRIX4_MB, 53), ("mixed", mixed_chain(f4k), 53)):
+    f64, f32 = torch.float64, torch.float32
+    runs = [(label, words, prec, 2048, f64) for label, words, prec in (
+        ("delivery", DELIVERY, 16), ("modulated", MODULATED, 53), ("matrix4", MATRIX4, 53),
+        ("upmix48", UPMIX48, 53), ("matrix4_mb", MATRIX4_MB, 53),
+        ("mixed", mixed_chain(f4k), 53))]
+    for words, block in F32_RUNS:
+        label = f"{'flagship' if words == FLAGSHIP else words} -b {block}"
+        runs += [(f"{label} float64", words, 53, block, f64),
+                 (f"{label} float32", words, 53, block, f32)]
+    for label, words, prec, block, dtype in runs:
         np.random.seed(SLICE_C_SEED)
         chain = build_chain_from_args(words.split(), StreamInfo(FS, CHANNELS))
         chain_set_dither_params(chain, prec, prec < 24)
-        cc = CompiledChain(chain, 2048, device="cuda")
+        cc = CompiledChain(chain, block, dtype=dtype, device="cuda")
         B = cc.block_frames
         if label in ("matrix4", "upmix48", "matrix4_mb", "mixed"):
             x = transient_signal((n + 8) * B / FS + 0.01)[: (n + 8) * B]
@@ -1447,17 +1476,354 @@ def profile_chains(f4k):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             cc.run_blocks(xs)
             torch.cuda.synchronize()
-        by_name = {}
+        by_name, kernels = {}, 0
         for e in prof.events():  # the kernels the card ran, by name
             if e.device_type == DeviceType.CUDA:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+                kernels += 1
         dev_ms = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         print(f"profile {label} (B={B}, {n} blocks): step {step_ms:.4f} ms a block unprofiled "
-              f"({B / FS * 1e3 / step_ms:.1f}x realtime), device {dev_ms:.4f} ms a block "
-              f"({100 * dev_ms / step_ms:.1f}% of the step)")
+              f"({B / FS * 1e3 / step_ms:.1f}x realtime), {kernels / n:.1f} kernels a block, "
+              f"device {dev_ms:.4f} ms a block ({100 * dev_ms / step_ms:.1f}% of the step)")
         for name, ms in top:
             print(f"  {ms:.4f} ms ({100 * ms / dev_ms:.1f}%)  {name[:90]}")
+
+
+F32_STATE_REL = 1e-13  # a (hi, lo) state's hi + lo, kernel against plain version
+
+
+def _ulps(got, want):
+    """max |got - want| in float32 ulps of the output scale (the spacing of
+    float32 numbers at max |want|), and the max |got - want|."""
+    got, want = got.cpu().double(), want.cpu().double()
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    if scale == 0.0:
+        return (0.0 if err == 0.0 else math.inf), err
+    return err / 2.0 ** (math.floor(math.log2(scale)) - 23), err
+
+
+def _pair_rel(a, b):
+    """max |(a_hi + a_lo) - (b_hi + b_lo)| over float32 (hi, lo) pairs,
+    relative to max |b_hi + b_lo|."""
+    sa, sb = (p[0].cpu().double() + p[1].cpu().double() for p in (a, b))
+    scale = float(sb.abs().max())
+    return float((sa - sb).abs().max()) / scale if scale > 0 else float((sa - sb).abs().max())
+
+
+def _hold_f32(rec, what, y_k, y_r, st_k=None, st_r=None):
+    """Fail unless the float32 output y is within one float32 ulp of its
+    scale of the plain version's and the (hi, lo) state's sum within
+    F32_STATE_REL; records the max |diff| of y."""
+    ulps, err = _ulps(y_k, y_r)
+    rel = 0.0 if st_k is None else _pair_rel(st_k, st_r)
+    equal = torch_equal(y_k, y_r) and (st_k is None or torch_equal(st_k, st_r))
+    print(f"  {what}: {'equal' if equal else f'y within {ulps:.2f} ulp of its scale'}"
+          + ("" if st_k is None else f", state hi + lo within {rel:.2e} relative"))
+    _require(f"{what}: y {ulps:.2f} ulp of its scale from the plain version", ulps <= 1.0)
+    _require(f"{what}: state {rel:.2e} relative from the plain version", rel <= F32_STATE_REL)
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+
+
+def torch_equal(a, b):
+    import torch
+
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def float32_phase(records, tmp):
+    """The float32 mode (slices J1 and J2) on the card. Its kernels against
+    their plain versions, on the same inputs: K1-df (lti_blocked_f32) on the flagship cascade
+    (C = 2, n = 12) at B = 2048 and 65536 and on matrix4_mb's bank (C = 26,
+    n = 40, L = 128) at B = 2048 with its (hi, lo) output; K3
+    (biquad_scan_df) on the flagship's 30 Hz highpass (coupled form, 2
+    lanes) at B = 1000 and 100; K2 in float32 (biquad_scan_f32) on
+    crossfeed's 4 lanes at B = 1000 and 2048; a (hi, lo) state handed from
+    K1-df to K3 and back; the float32 resampler step (rfft_pack_f32,
+    resample_fold, irfft_ola_f32) from 44.1 to 48 and 192 kHz. float32
+    outputs within one float32 ulp of the output scale, (hi, lo) sums
+    within F32_STATE_REL. Times each kernel and its plain version. Then
+    the float32 CLI runs (float32_cli) on the main path's input in tmp."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain import build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.ops import iir
+    from dsp_tpu_torch.ops.fft_conv import rfft_pack_f32, rfft_pack_f32_ref
+    from dsp_tpu_torch.ops.resample_ops import (SpectralResampler, irfft_ola_f32,
+                                                irfft_ola_f32_ref, resample_fold_ref)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20267)
+    plan, _ = flagship_parts()
+    bank = mb_effect(MATRIX4_MB, FS, 2048)[0]._bank_plan(2048)
+    effects = build_chain_from_string(FLAGSHIP, StreamInfo(FS, CHANNELS)).effects
+    hp = next(e for e in effects if e.name == "highpass")
+    cf = next(e for e in effects if e.name == "crossfeed")
+
+    def f32(*shape, scale=0.3):
+        return torch.as_tensor(rng.standard_normal(shape) * scale, dtype=torch.float32,
+                               device=dev)
+
+    def pair(*shape):
+        return torch.stack(iir.split_f64(torch.as_tensor(rng.standard_normal(shape) * 1e-2,
+                                                         device=dev)))
+
+    rec = records["lti_blocked_f32"]
+    print("K1-df lti_blocked_f32 (float32 samples and (hi, lo) state, float64 inside)")
+    for label, pl, B, df in (("flagship cascade", plan, 2048, False),
+                             ("flagship cascade", plan, 65536, False),
+                             ("matrix4_mb's bank, (hi, lo) out", bank, 2048, True)):
+        x, st = f32(B, pl.C), pair(pl.C, pl.n)
+        s_k, y_k = iir.lti_blocked_f32(pl, st, x, df)
+        s_r, y_r = iir.lti_blocked_f32_ref(pl, st, x, df)
+        torch.cuda.synchronize()
+        what = f"{label} C={pl.C} n={pl.n} B={B}"
+        _hold_f32(rec, what, y_k[0] if df else y_k, y_r[0] if df else y_r, s_k, s_r)
+        if df:
+            rel = _pair_rel(y_k, y_r)
+            print(f"  {what}: y hi + lo within {rel:.2e} relative")
+            _require(f"{what}: y hi + lo {rel:.2e} relative from the plain version",
+                     rel <= F32_STATE_REL)
+        if (pl is plan and B == 2048) or df:
+            ms = cuda_ms(lambda: iir.lti_blocked_f32(pl, st, x, df), 50)
+            plain_ms = cuda_ms(lambda: iir.lti_blocked_f32_ref(pl, st, x, df), 5)
+            print(f"  {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            rec.setdefault("times", []).append({"C": pl.C, "n": pl.n, "B": B, "ms": ms,
+                                                "plain_ms": plain_ms})
+            if pl is plan:
+                # float32 x and y, the float32 state pair in and out, the
+                # float64 tables h, V, P, A^L, c0; K1's operations
+                n, C, L = pl.n, pl.C, pl.L
+                nbytes = 4 * (2 * B * C + 4 * C * n) + 8 * (C * L + 2 * C * n * L + C * n * n + C)
+                flops = 2 * C * (B // L) * (L * (L - 1) // 2 + 2 * n * L + n * n) + 2 * B * C
+                set_times(rec, ms, plain_ms, nbytes, flops)
+
+    rec = records["biquad_scan_df"]
+    print("K3 biquad_scan_df (flagship's highpass 30, coupled form, 2 lanes)")
+    A, Bv, c0 = (torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                 for a in (hp._ss_A, hp._ss_Bv, hp._ss_c0))
+    for B in (1000, 100):
+        x, st = f32(B, CHANNELS), pair(CHANNELS, 2)
+        s_k, y_k = iir.biquad_scan_df(A, Bv, c0, st, x)
+        s_r, y_r = iir.biquad_scan_df_ref(A, Bv, c0, st, x)
+        torch.cuda.synchronize()
+        _hold_f32(rec, f"B={B}", y_k, y_r, s_k, s_r)
+        if B == 1000:
+            ms = cuda_ms(lambda: iir.biquad_scan_df(A, Bv, c0, st, x), 50)
+            plain_ms = cuda_ms(lambda: iir.biquad_scan_df_ref(A, Bv, c0, st, x), 5)
+            print(f"  B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            # float32 x and y and state pairs, float64 A, Bv, c0; 10
+            # float64 operations a sample and lane
+            C = CHANNELS
+            set_times(rec, ms, plain_ms, 4 * (2 * B * C + 8 * C) + 8 * 7 * C, 10 * B * C)
+
+    print("K1-df -> K3 -> K1-df: the highpass's (hi, lo) state handed over (2048, 1000, 2048)")
+    hp_plan = iir.BiquadBlockedPlan(hp.c)
+    x = f32(5096, CHANNELS)
+    parts = ((0, 2048), (2048, 3048), (3048, 5096))
+    ys = {}
+    for side, k1, k3 in (("kernel", iir.lti_blocked_f32, iir.biquad_scan_df),
+                         ("plain", iir.lti_blocked_f32_ref, iir.biquad_scan_df_ref)):
+        st = torch.zeros((2, CHANNELS, 2), dtype=torch.float32, device=dev)
+        out = []
+        for i, (a, b) in enumerate(parts):
+            st, y = k1(hp_plan, st, x[a:b]) if i != 1 else k3(A, Bv, c0, st, x[a:b])
+            out.append(y)
+        ys[side] = (torch.cat(out), st)
+    torch.cuda.synchronize()
+    _hold_f32(rec, "handover", ys["kernel"][0], ys["plain"][0], ys["kernel"][1], ys["plain"][1])
+    st64 = torch.zeros((CHANNELS, 2), dtype=torch.float64, device=dev)
+    _, y64 = iir.biquad_scan_ref(A, Bv, c0, st64, x.double())
+    err = _diff(ys["kernel"][0].double(), y64)
+    print(f"  handover against one float64 run: {dbfs(err):.1f} dBFS")
+    _require(f"handover: {dbfs(err):.1f} dBFS against one float64 run",
+             dbfs(err) <= F32_LIMIT_DBFS)
+
+    rec = records["biquad_scan_f32"]
+    print("K2 biquad_scan_f32 (crossfeed, companion form in float32, 4 lanes)")
+    A, Bv, c0 = (torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                 for a in (cf._ss32_A, cf._ss32_Bv, cf._ss32_c0))
+    for B in (1000, 2048):
+        x, st = f32(B, 4), f32(4, 2, scale=1e-2)
+        s_k, y_k = iir.biquad_scan_f32(A, Bv, c0, st, x)
+        s_r, y_r = iir.biquad_scan_f32_ref(A, Bv, c0, st, x)
+        torch.cuda.synchronize()
+        _hold_f32(rec, f"B={B}", y_k, y_r)
+        _hold_f32(rec, f"B={B} end state", s_k, s_r)
+        if B == 2048:
+            ms = cuda_ms(lambda: iir.biquad_scan_f32(A, Bv, c0, st, x), 50)
+            plain_ms = cuda_ms(lambda: iir.biquad_scan_f32_ref(A, Bv, c0, st, x), 5)
+            print(f"  B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            # x and y, the state in and out, A, Bv, c0, all float32; 10
+            # float32 operations a sample and lane
+            set_times(rec, ms, plain_ms, 4 * (2 * B * 4 + 4 * 4 + 7 * 4), 10 * B * 4,
+                      peak=F32_PEAK)
+
+    print("K8-df, K19's FFT: rfft_pack_f32, resample_fold, irfft_ola_f32 "
+          "(4 inner blocks, stereo)")
+    for out_fs in (48000, 192000):
+        rs = SpectralResampler(FS, out_fs)
+        n, ncol = 4, 4 * CHANNELS
+        x, ov = f32(n * rs.in_len, CHANNELS), f32(rs.out_len, CHANNELS, scale=0.1)
+        ov_k, y_k = rs.block(ov, x)
+        ov_r, y_r = rs.block(ov.cpu(), x.cpu())
+        cols = x.reshape(n, rs.in_len, CHANNELS).permute(1, 0, 2).reshape(rs.in_len, ncol)
+        N_in, N_out = 2 * rs.in_len, 2 * rs.out_len
+        X_k = rfft_pack_f32(cols, N_in)
+        X_r = rfft_pack_f32_ref(cols, N_in).contiguous()
+        Y = resample_fold_ref(X_r, rs.fold).contiguous()
+        ratio = rs.out_len / rs.in_len
+        o_k, o_r = irfft_ola_f32(Y, N_out, ov, ratio), irfft_ola_f32_ref(Y, N_out, ov, ratio)
+        torch.cuda.synchronize()
+        x_rel = _diff(torch.view_as_real(X_k), torch.view_as_real(X_r)) / float(X_r.abs().max())
+        print(f"  {FS} -> {out_fs}: rfft_pack_f32 within {x_rel:.2e} relative")
+        _require(f"rfft_pack_f32 {out_fs}: {x_rel:.2e} relative", x_rel <= 1e-13)
+        records["rfft_pack_f32"]["max_abs_err"] = max(
+            records["rfft_pack_f32"]["max_abs_err"],
+            _diff(torch.view_as_real(X_k), torch.view_as_real(X_r)))
+        _hold_f32(records["irfft_ola_f32"], f"{out_fs} irfft_ola_f32 y", o_k[1], o_r[1])
+        _hold_f32(records["irfft_ola_f32"], f"{out_fs} irfft_ola_f32 overlap", o_k[0], o_r[0])
+        _hold_f32(records["irfft_ola_f32"], f"{out_fs} whole step y", y_k, y_r)
+        _hold_f32(records["irfft_ola_f32"], f"{out_fs} whole step overlap", ov_k, ov_r)
+        times = {
+            "rfft_pack_f32": (lambda: rfft_pack_f32(cols, N_in),
+                              lambda: rfft_pack_f32_ref(cols, N_in),
+                              # the one torch call: cuFFT's rfft of the float32
+                              # columns (complex64, so less exact)
+                              lambda: torch.fft.rfft(cols, n=N_in, dim=0)),
+            "irfft_ola_f32": (lambda: irfft_ola_f32(Y, N_out, ov, ratio),
+                              lambda: irfft_ola_f32_ref(Y, N_out, ov, ratio), None),
+        }
+        step_ms = cuda_ms(lambda: rs.block(ov, x), 20)
+        fft_in, fft_out = (2.5 * N * math.log2(N) * ncol for N in (N_in, N_out))
+        io = {"rfft_pack_f32": (4 * rs.in_len * ncol + 16 * (rs.in_len + 1) * ncol, fft_in),
+              "irfft_ola_f32": (16 * (rs.out_len + 1) * ncol + 4 * rs.out_len * (ncol + 2 * CHANNELS),
+                                fft_out + 3 * rs.out_len * ncol)}
+        for name, (kern, plain, lib) in times.items():
+            ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 20)
+            lib_ms = None if lib is None else cuda_ms(lib, 50)
+            print(f"  {out_fs} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+                  + ("" if lib_ms is None else f", torch.fft.rfft (float32) {lib_ms:.4f} ms")
+                  + f"; the whole float32 step {step_ms:.4f} ms")
+            records[name].setdefault("times", []).append(
+                {"out_fs": out_fs, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                 "step_ms": step_ms})
+            if out_fs == 48000:
+                set_times(records[name], ms, plain_ms, *io[name], library_ms=lib_ms)
+    float32_cli(records, tmp)
+
+
+def float32_cli(records, tmp):
+    """DSP_TPU_TORCH_DTYPE=float32 dsp-torch on the main path's 300 s input
+    (tmp/in.wav, written by main_path) for each of F32_RUNS, and the same
+    chain in float64 on the card: exact frame counts, the float32 run's
+    kernels launched and no float64 kernel, the two within F32_LIMIT_DBFS on
+    the whole run. Prints the measured dBFS and both runs' x realtime."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+
+    from dsp_tpu_torch.chain import build_chain_from_args
+    from dsp_tpu_torch.chain.chain import expected_out_frames
+    from dsp_tpu_torch.cli.main import main as cli_main
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.ops import fft_conv, iir, resample_ops
+
+    src = tmp / "in.wav"
+    n_in = SECONDS * FS
+    f32w = {"lti_blocked_f32": iir.lti_blocked_f32, "biquad_scan_df": iir.biquad_scan_df,
+            "biquad_scan_f32": iir.biquad_scan_f32, "rfft_pack_f32": fft_conv.rfft_pack_f32,
+            "resample_fold": resample_ops.resample_fold,
+            "irfft_ola_f32": resample_ops.irfft_ola_f32}
+    f64w = {"lti_blocked": iir.lti_blocked, "biquad_scan": iir.biquad_scan,
+            "rfft_pack": fft_conv.rfft_pack, "irfft_crop": fft_conv.irfft_crop}
+    expect = {FLAGSHIP: {2048: ("lti_blocked_f32", "biquad_scan_f32"),
+                         1000: ("biquad_scan_df", "biquad_scan_f32")},
+              "resample 48k": {2048: ("rfft_pack_f32", "resample_fold", "irfft_ola_f32")}}
+    print(f"float32 mode: dsp-torch on {SECONDS} s, float32 against float64 on the card")
+    for words, block in F32_RUNS:
+        label = f"{'flagship' if words == FLAGSHIP else words} -b {block}"
+        chain = build_chain_from_args(words.split(), StreamInfo(FS, CHANNELS))
+        want = expected_out_frames(chain, n_in) - chain.output_discard
+        walls, ys = {}, {}
+        for dtype in ("float64", "float32"):
+            out = tmp / f"out_{dtype}.wav"
+            argv = (["-b", str(block)] if block != 2048 else []) + [
+                "-q", str(src), "-o", "-e", "double", str(out), *words.split()]
+            for w in (*f32w.values(), *f64w.values()):
+                w.launches = 0
+            os.environ["DSP_TPU_TORCH_DTYPE"] = dtype
+            err = io.StringIO()
+            try:
+                t0 = time.perf_counter()
+                with contextlib.redirect_stderr(err):
+                    rc = cli_main(argv)
+                walls[dtype] = time.perf_counter() - t0
+            finally:
+                os.environ.pop("DSP_TPU_TORCH_DTYPE")
+            if rc != 0:
+                raise SmokeError(f"{label} {dtype}: dsp-torch exited {rc}: {err.getvalue()[-2000:]}")
+            if dtype == "float32":
+                counts = {name: f32w[name].launches for name in expect[words][block]}
+                stray = {name: w.launches for name, w in f64w.items() if w.launches}
+                print(f"  {label}: float32 launches {counts}")
+                _require(f"{label}: a float32 kernel was not launched: {counts}",
+                         all(c > 0 for c in counts.values()))
+                _require(f"{label}: float64 kernels ran in the float32 chain: {stray}", not stray)
+                for name, c in counts.items():
+                    records[name]["launches"] += c
+            got, ys[dtype] = read_wav(out)
+            out.unlink()
+            _require(f"{label} {dtype}: {got} output frames, expected {want}", got == want)
+        y32, y64 = ys["float32"], ys["float64"]
+        if not np.isfinite(y32).all():
+            raise SmokeError(f"{label}: non-finite float32 output")
+        diff = float(np.abs(y32 - y64).max())
+        print(f"  {label}: float32 {walls['float32']:.3f} s wall, "
+              f"{SECONDS / walls['float32']:.1f}x realtime; float64 {walls['float64']:.3f} s, "
+              f"{SECONDS / walls['float64']:.1f}x; float32 against float64 on all {SECONDS} s: "
+              f"max |diff| {diff:.3e} ({dbfs(diff):.1f} dBFS, limit {F32_LIMIT_DBFS})")
+        _require(f"{label}: float32 {dbfs(diff):.1f} dBFS from float64", dbfs(diff) <= F32_LIMIT_DBFS)
+
+
+def float32_no_sync():
+    """A float32 chain's step does not synchronise: run_blocks over 16
+    blocks of input already on the card, under
+    torch.cuda.set_sync_debug_mode("error"), for the flagship at blocks
+    2048 (K1-df) and 1000 (K3) and resample 48k."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+
+    rng = np.random.default_rng(14)
+    for words, block in F32_RUNS:
+        cc = CompiledChain(build_chain_from_string(words, StreamInfo(FS, CHANNELS)), block,
+                           dtype=torch.float32, device="cuda")
+        B = cc.block_frames
+        xs = torch.as_tensor(rng.standard_normal((20, B, CHANNELS)) * 0.1, dtype=torch.float32,
+                             device="cuda")
+        cc.run_blocks(xs[:4])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ys = cc.run_blocks(xs[4:])
+        except RuntimeError as e:
+            raise SmokeError(f"float32 {words} -b {block}: the step synchronised: {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if ys.dtype != torch.float32 or not torch.isfinite(ys).all():
+            raise SmokeError(f"float32 {words} -b {block}: output {ys.dtype}, finite "
+                             f"{bool(torch.isfinite(ys).all())}")
+    print("float32 steps: the flagship at blocks 2048 and 1000 and resample 48k ran 16 blocks "
+          "each with no host sync")
 
 
 def main_path(records, seconds, tmp):
@@ -1624,6 +1990,19 @@ def main():
             ("m4mb_event", "m4_event",
              "dsp_tpu/ops/m4_engine.py:395 (effects/matrix4_mb.py:445-551)", "Nc=64, v4, 13 bands"),
             ("m4mb_audio", "m4mb_audio", "dsp_tpu/effects/matrix4_mb.py:569,778", "B=2048, v4"),
+            ("lti_blocked_f32", "lti_blocked", "dsp_tpu/ops/iir.py:574-631 (lti_blocked_df :556)",
+             "float32, flagship cascade: C=2, n=12, L=128, B=2048"),
+            ("biquad_scan_df", "biquad_scan", "dsp_tpu/ops/iir.py:89 (biquad_scan_auto :129)",
+             "float32, highpass 30: C=2, B=1000"),
+            ("biquad_scan_f32", "biquad_scan",
+             "dsp_tpu/ops/iir.py:77 in float32 (effects/crossfeed.py:48, effects/delay.py:172)",
+             "float32, crossfeed: C=4, B=2048"),
+            ("rfft_pack_f32", "fft_conv",
+             "dsp_tpu/ops/resample_ops.py:191 (dfx_fft.py:30,123: the forward DfDft)",
+             "float32, 48 kHz: N=1176, 8 columns"),
+            ("irfft_ola_f32", "fft_conv",
+             "dsp_tpu/ops/resample_ops.py:191-233 (dfx_fft.py:30,123: the inverse DfDft)",
+             "float32, 48 kHz: N=1280, 8 columns"),
         )
     }
     tmp = ROOT / ".smoke_tmp" / "run"  # removed at the end; scratch scripts may sit beside it
@@ -1643,10 +2022,12 @@ def main():
         mb_golden_check()
         tmp.mkdir(parents=True, exist_ok=True)
         f1m, f4k = main_path(records, SECONDS, tmp)
+        float32_phase(records, tmp)
         nupols_no_sync(f1m)
         delivery_no_sync()
         matrix4_no_sync()
         matrix4_mb_no_sync()
+        float32_no_sync()
         profile_chains(f4k)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -18,7 +18,7 @@ import torch
 
 from dsp_tpu_torch import config
 from dsp_tpu_torch.chain import ChainError, CompiledChain, build_chain_from_args
-from dsp_tpu_torch.chain.chain import chain_needs_dither, chain_set_dither_params
+from dsp_tpu_torch.chain.chain import check_float32, chain_needs_dither, chain_set_dither_params
 from dsp_tpu_torch.chain.parser import ChainParseError
 from dsp_tpu_torch.codecs import (
     CODEC_HINT_CAN_DITHER,
@@ -397,14 +397,18 @@ def _input_chunks(state, want_frames):
                 break
 
 
-def run_offline(state, chain, out_writer, progress_cb=None, device=None):
+def run_offline(state, chain, out_writer, progress_cb=None, device=None, dtype=None):
     """Concatenate-mode batch processing: read -> chain -> write.
+
+    The host buffers stay float64, as dsp_tpu's do; a float32 chain casts
+    each chunk once, on its device copy, and its output comes back to the
+    codecs as float64.
 
     Input is pushed in chunks of ``meta_blocks`` blocks (about 1M samples):
     each chunk is one host->device copy, a loop of chain steps on the
     device, and one device->host copy. The last chunk is padded with zeros
     to whole blocks, and their output is trimmed. Returns frames written."""
-    cc = CompiledChain(chain, block_frames=state.block_frames, device=device)
+    cc = CompiledChain(chain, block_frames=state.block_frames, dtype=dtype, device=device)
     B = cc.block_frames
     meta_blocks = max(1, (1 << 20) // max(1, B * chain.istream.channels))  # ~1M samples / chunk
     CH = meta_blocks * B
@@ -535,7 +539,10 @@ def main(argv=None):
         return 1
     try:
         device = config.resolve_device()
-    except RuntimeError as e:
+        dtype = config.resolve_dtype()
+        if dtype == torch.float32:
+            check_float32(chain)
+    except (RuntimeError, ValueError, ChainError) as e:
         log.error("error: %s", e)
         return 1
 
@@ -580,7 +587,7 @@ def main(argv=None):
     ret = 0
     try:
         cb = _offline_progress(state)
-        run_offline(state, chain, writer, progress_cb=cb, device=device)
+        run_offline(state, chain, writer, progress_cb=cb, device=device, dtype=dtype)
         if cb is not None:
             sys.stderr.write("\r\033[K")
             sys.stderr.flush()

@@ -1,8 +1,15 @@
 """Device, dtype and stream defaults for dsp_tpu_torch.
 
 The reference (dsp.h:42) fixes ``sample_t`` to C ``double``. Hopper has
-float64 in hardware, so the port computes in float64 by default; its CUDA
-kernels take float64 only.
+float64 in hardware, so the port computes in float64 by default.
+
+The sample dtype is explicit too. ``CompiledChain`` takes ``dtype``; None
+reads ``DSP_TPU_TORCH_DTYPE`` (``float32``, ``float64``, ``f32`` or ``f64``,
+as dsp_tpu/config.py reads ``DSP_TPU_DTYPE``) and defaults to float64 on
+every device. That differs on purpose from dsp_tpu, which picks float32 on
+any backend but the CPU: dsp_tpu's float32 exists because the TPU has no
+usable float64, and the port's first dtype is float64. A float32 chain runs
+only the effects whose float32 path is ported (``Effect.float32_slice``).
 
 The device is explicit. ``CompiledChain`` takes a ``torch.device``; the CLI
 reads ``DSP_TPU_TORCH_DEVICE`` (default ``cuda``). Asking for CUDA where
@@ -25,6 +32,9 @@ DEFAULT_OUTPUT_BUF_RATIO = 8
 DEFAULT_DTYPE = torch.float64
 
 DEVICE_ENV = "DSP_TPU_TORCH_DEVICE"
+DTYPE_ENV = "DSP_TPU_TORCH_DTYPE"
+_DTYPES = {"float32": torch.float32, "f32": torch.float32,
+           "float64": torch.float64, "f64": torch.float64}
 
 
 def resolve_device(device=None):
@@ -41,3 +51,18 @@ def resolve_device(device=None):
             f"(set {DEVICE_ENV}=cpu to run the plain PyTorch versions on the CPU)"
         )
     return device
+
+
+def resolve_dtype(dtype=None):
+    """``dtype`` (torch.float32, torch.float64, one of their names, or None)
+    -> torch dtype. None reads ``DSP_TPU_TORCH_DTYPE`` and defaults to
+    float64. Raises ValueError on any other value."""
+    if dtype is None:
+        dtype = os.environ.get(DTYPE_ENV) or DEFAULT_DTYPE
+    if isinstance(dtype, str):
+        if dtype.lower() not in _DTYPES:
+            raise ValueError(f"unknown sample dtype {dtype!r} (float32, float64, f32 or f64)")
+        return _DTYPES[dtype.lower()]
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unknown sample dtype {dtype!r} (torch.float32 or torch.float64)")
+    return dtype

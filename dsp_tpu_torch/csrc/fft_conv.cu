@@ -35,6 +35,24 @@
 // What bounds it on the card: at the main path's sizes (N = 4,096 to
 // 131,072, C = 2, 4-7 launches a transform) each launch is short, so launch
 // latency and the host's enqueue bound it, not bandwidth or f64 rate.
+//
+// float32 samples: the resampler's float32 step (dsp_tpu's `_block_df`,
+// resample_ops.py:191, whose transforms are the two-float32 Stockham and
+// Bluestein DFTs of dfx_fft.py:30 `DfFft` and :123 `DfDft`) runs the same
+// float64 transforms with a float32 load and a float32 store:
+// * rfft_pack_f32: the pack reads float32 [a | x] into float64;
+// * irfft_ola_f32: the inverse's last stage is the resampler's overlap-add.
+//   Its columns are inner blocks times channels; output point d < N/2 of
+//   column b·ch + c is (head of column b) + (tail of column b-1), the tail
+//   of the block before the first one being the carried overlap, each
+//   times 1/N and then the rate ratio, as the float64 step orders them.
+//   A thread computes both points by the stage's direct sum from the
+//   previous stage's buffer, rounds the tail to float32 (the overlap a
+//   block carries, as dsp_tpu's float32 state holds it), adds in float64
+//   and stores y rounded once; the tails of the last column become the
+//   float32 overlap carried out. So the sums stay float64 from the
+//   float32 input to the float32 output, which the two-float32 transforms
+//   only approach, and the store takes no extra pass.
 
 #include <cuda_runtime.h>
 
@@ -43,8 +61,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 132 * 16;  // 16 blocks per SM, then grid-stride
 
-enum LoadMode { kLoadComplex = 0, kLoadRealPack = 1, kLoadHermitian = 2 };
-enum StoreMode { kStoreComplex = 0, kStoreRealCrop = 1 };
+enum LoadMode { kLoadComplex = 0, kLoadRealPack = 1, kLoadHermitian = 2, kLoadRealPackF32 = 3 };
+enum StoreMode { kStoreComplex = 0, kStoreRealCrop = 1, kStoreOlaF32 = 2 };
 
 struct Load {
     int mode;
@@ -54,6 +72,8 @@ struct Load {
     const double* x;    // kLoadRealPack: [Lx, C]
     long long Lx;
     long long NB;       // kLoadHermitian: rows of the half spectrum
+    const float* af;    // kLoadRealPackF32: [La, C]
+    const float* xf;    // kLoadRealPackF32: [Lx, C]
 };
 
 struct Store {
@@ -64,6 +84,11 @@ struct Store {
     long long lo, L;
     const double* add;  // kStoreRealCrop: [L, C] or null
     double scale;
+    float* y;           // kStoreOlaF32: [C / ch, N / 2, ch]
+    float* ov_out;      // kStoreOlaF32: [N / 2, ch]
+    const float* ov_in; // kStoreOlaF32: [N / 2, ch]
+    double ratio;       // kStoreOlaF32: applied after scale
+    int ch;             // kStoreOlaF32: channels; C / ch inner blocks
 };
 
 __device__ __forceinline__ double2 load_point(const Load& ld, long long n, int c, int C, int N) {
@@ -71,6 +96,10 @@ __device__ __forceinline__ double2 load_point(const Load& ld, long long n, int c
         case kLoadRealPack:
             if (n < ld.La) return make_double2(ld.a[n * C + c], 0.0);
             if (n < ld.La + ld.Lx) return make_double2(ld.x[(n - ld.La) * C + c], 0.0);
+            return make_double2(0.0, 0.0);
+        case kLoadRealPackF32:
+            if (n < ld.La) return make_double2((double)ld.af[n * C + c], 0.0);
+            if (n < ld.La + ld.Lx) return make_double2((double)ld.xf[(n - ld.La) * C + c], 0.0);
             return make_double2(0.0, 0.0);
         case kLoadHermitian:
             if (n < ld.NB) return ld.c[n * C + c];
@@ -83,10 +112,33 @@ __device__ __forceinline__ double2 load_point(const Load& ld, long long n, int c
     }
 }
 
-// N * C < 2^31 (the host checks), so every index of a stage is an int.
-__global__ void fft_stage_kernel(Load ld, Store st, int N, int C, int R, int Ns, double sign) {
+// Output point d of column c of a radix-R stage: the direct sum over the
+// R inputs it reads. N * C < 2^31 (the host checks), so every index of a
+// stage is an int.
+__device__ __forceinline__ double2 stage_point(const Load& ld, int d, int c, int N, int C, int R,
+                                               int Ns, double sign) {
     const int M = N / R;
     const int span = N / (Ns * R);
+    const int k = d % Ns;
+    const int q = (d / Ns) % R;
+    const int j = (d / (Ns * R)) * Ns + k;
+    const int e = k * span + q * M;  // < N
+    double2 acc = load_point(ld, j, c, C, N);
+    int idx = 0;
+    for (int r = 1; r < R; ++r) {
+        idx += e;
+        if (idx >= N) idx -= N;
+        double s, co;
+        sincospi(2.0 * (double)idx / (double)N, &s, &co);
+        s *= sign;  // forward: W = cos - i sin; inverse: cos + i sin
+        const double2 v = load_point(ld, j + r * M, c, C, N);
+        acc.x = fma(v.x, co, fma(v.y, s, acc.x));
+        acc.y = fma(v.y, co, fma(-v.x, s, acc.y));
+    }
+    return acc;
+}
+
+__global__ void fft_stage_kernel(Load ld, Store st, int N, int C, int R, int Ns, double sign) {
     const int total = N * C;
     const int stride = gridDim.x * blockDim.x;
     for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
@@ -94,22 +146,7 @@ __global__ void fft_stage_kernel(Load ld, Store st, int N, int C, int R, int Ns,
         const int c = i % C;
         if (st.mode == kStoreComplex && d >= st.keep) continue;
         if (st.mode == kStoreRealCrop && (d < st.lo || d >= st.lo + st.L)) continue;
-        const int k = d % Ns;
-        const int q = (d / Ns) % R;
-        const int j = (d / (Ns * R)) * Ns + k;
-        const int e = k * span + q * M;  // < N
-        double2 acc = load_point(ld, j, c, C, N);
-        int idx = 0;
-        for (int r = 1; r < R; ++r) {
-            idx += e;
-            if (idx >= N) idx -= N;
-            double s, co;
-            sincospi(2.0 * (double)idx / (double)N, &s, &co);
-            s *= sign;  // forward: W = cos - i sin; inverse: cos + i sin
-            const double2 v = load_point(ld, j + r * M, c, C, N);
-            acc.x = fma(v.x, co, fma(v.y, s, acc.x));
-            acc.y = fma(v.y, co, fma(-v.x, s, acc.y));
-        }
+        const double2 acc = stage_point(ld, d, c, N, C, R, Ns, sign);
         if (st.mode == kStoreComplex) {
             st.c[i] = acc;
         } else {
@@ -117,6 +154,37 @@ __global__ void fft_stage_kernel(Load ld, Store st, int N, int C, int R, int Ns,
             double y = acc.x * st.scale;
             if (st.add != nullptr) y += st.add[o];
             st.r[o] = y;
+        }
+    }
+}
+
+// The last stage of the resampler's inverse, with its overlap-add
+// (kStoreOlaF32): over rows d < N/2 and columns col < C + ch, column
+// col < C stores y at (col / ch, d, col % ch) = head + tail of column
+// col - ch (the carried overlap for the first block), and column col >= C
+// stores the overlap carried out, the tail of column col - ch.
+__global__ void fft_ola_f32_kernel(Load ld, Store st, int N, int C, int R, int Ns, double sign) {
+    const int half = N / 2;
+    const int ch = st.ch;
+    const int cols = C + ch;
+    const long long total = (long long)half * cols;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
+        const int d = (int)(i / cols);
+        const int col = (int)(i % cols);
+        double prev;
+        if (col >= ch) {
+            const double2 t = stage_point(ld, half + d, col - ch, N, C, R, Ns, sign);
+            prev = (double)(float)((t.x * st.scale) * st.ratio);
+        } else {
+            prev = (double)st.ov_in[(long long)d * ch + col];
+        }
+        if (col < C) {
+            const double2 h = stage_point(ld, d, col, N, C, R, Ns, sign);
+            const long long o = ((long long)(col / ch) * half + d) * ch + col % ch;
+            st.y[o] = (float)((h.x * st.scale) * st.ratio + prev);
+        } else {
+            st.ov_out[(long long)d * ch + (col - C)] = (float)prev;
         }
     }
 }
@@ -175,7 +243,13 @@ int run_fft(const Load& first, const Store& last, double2* work, int N, int C, d
         if (s < stages - 1) {
             st = Store{kStoreComplex, work + (s % 2) * nc, N, nullptr, 0, 0, nullptr, 0.0};
         }
-        fft_stage_kernel<<<grid_for(nc), kThreads, 0, stream>>>(ld, st, N, C, radix[s], Ns, sign);
+        if (st.mode == kStoreOlaF32) {
+            fft_ola_f32_kernel<<<grid_for((long long)(N / 2) * (C + st.ch)), kThreads, 0, stream>>>(
+                ld, st, N, C, radix[s], Ns, sign);
+        } else {
+            fft_stage_kernel<<<grid_for(nc), kThreads, 0, stream>>>(ld, st, N, C, radix[s], Ns,
+                                                                   sign);
+        }
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
         Ns *= radix[s];
@@ -214,6 +288,42 @@ extern "C" int dsp_irfft_crop_c128(const void* Y, void* work, void* out, long lo
                      N / 2 + 1};
     const Store last{kStoreRealCrop, nullptr, 0, static_cast<double*>(out), lo, L,
                      static_cast<const double*>(add), 1.0 / N};
+    return run_fft(first, last, static_cast<double2*>(work), N, C, -1.0,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// rfft_pack on float32 a and x: the spectrum is complex128.
+extern "C" int dsp_rfft_pack_f32(const void* a, long long La, const void* x, long long Lx,
+                                 void* X, void* work, int N, int C, void* stream) {
+    if (N <= 0 || C <= 0 || (long long)N * C >= (1LL << 31) || La < 0 || Lx < 0 || La + Lx > N) {
+        return (int)cudaErrorInvalidValue;
+    }
+    Load first{kLoadRealPackF32, nullptr, nullptr, La, nullptr, Lx, 0};
+    first.af = static_cast<const float*>(a);
+    first.xf = static_cast<const float*>(x);
+    const Store last{kStoreComplex, static_cast<double2*>(X), N / 2 + 1, nullptr, 0, 0, nullptr,
+                     0.0};
+    return run_fft(first, last, static_cast<double2*>(work), N, C, 1.0,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// The resampler's inverse and overlap-add in float32 out: Y [N/2+1, C]
+// half spectra, C = blocks * ch columns (block-major); y [blocks, N/2, ch],
+// ov_out and ov_in [N/2, ch] float32; every value times 1/N, then ratio.
+extern "C" int dsp_irfft_ola_f32(const void* Y, void* work, void* y, void* ov_out,
+                                 const void* ov_in, double ratio, int N, int C, int ch,
+                                 void* stream) {
+    if (N <= 0 || N % 2 || C <= 0 || ch <= 0 || C % ch || (long long)N * C >= (1LL << 31)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const Load first{kLoadHermitian, static_cast<const double2*>(Y), nullptr, 0, nullptr, 0,
+                     N / 2 + 1};
+    Store last{kStoreOlaF32, nullptr, 0, nullptr, 0, 0, nullptr, 1.0 / N};
+    last.y = static_cast<float*>(y);
+    last.ov_out = static_cast<float*>(ov_out);
+    last.ov_in = static_cast<const float*>(ov_in);
+    last.ratio = ratio;
+    last.ch = ch;
     return run_fft(first, last, static_cast<double2*>(work), N, C, -1.0,
                    static_cast<cudaStream_t>(stream));
 }

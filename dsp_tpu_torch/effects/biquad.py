@@ -284,6 +284,8 @@ def normalize(b0, b1, b2, a0, a1, a2):
 
 
 class BiquadEffect(Effect):
+    float32_slice = None
+
     def __init__(self, name, istream, selector, coeffs):
         """coeffs: (c0..c4) applied on selected channels; identity elsewhere."""
         self.name = name
@@ -322,10 +324,17 @@ class BiquadEffect(Effect):
 
     def step(self, state, x):
         if x.shape[0] % iir.BLOCKED_L == 0 and x.shape[0] >= 2 * iir.BLOCKED_L:
-            # blocked path (K1) from the host-precomputed f64 tables
+            # blocked path (K1, K1-df under float32) from the host-precomputed
+            # f64 tables
             return iir.lti_blocked(self._plan(), state, x)
+        names = ("_ss_A", "_ss_Bv", "_ss_c0")
+        if x.dtype == torch.float32:
+            # per-sample path under float32 (K3): the float64 coupled form
+            # and the (hi, lo) state, as dsp_tpu's biquad_scan_df
+            A, Bv, c0 = (self.device_array(k, x, torch.float64) for k in names)
+            return iir.biquad_scan_df(A, Bv, c0, state, x)
         # per-sample path (K2)
-        A, Bv, c0 = (self.device_array(k, x) for k in ("_ss_A", "_ss_Bv", "_ss_c0"))
+        A, Bv, c0 = (self.device_array(k, x) for k in names)
         s_end, y = iir.biquad_scan(A, Bv, c0, state[0] + state[1], x)
         return torch.stack([s_end, torch.zeros_like(s_end)]), y
 
@@ -535,6 +544,7 @@ class FusedBiquadCascade:
     name = "biquad(fused-cascade)"
     ratio = 1
     runtime_noop = False
+    float32_slice = None
 
     def __init__(self, effects):
         self.effects = effects

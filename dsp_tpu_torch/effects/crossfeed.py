@@ -5,6 +5,9 @@ out0 = direct*s0 + cross*LP(s1) + cross*HP(s0) (and symmetrically for out1)
 with first-order low/high-pass at f0; direct = sep/(1+sep), cross = 1/(1+sep),
 sep = 10^(separation_dB/20). The four first-order filters run as one 4-lane
 biquad scan (K2, dsp_tpu_torch.ops.iir.biquad_scan); the mix is torch ops.
+Under float32 the coefficients are cast to float32 before the state-space
+form is computed, and the scan and the mix run in float32, as dsp_tpu's
+do.
 """
 
 import numpy as np
@@ -17,6 +20,8 @@ from dsp_tpu_torch.ops import iir
 
 
 class CrossfeedEffect(Effect):
+    float32_slice = None
+
     def __init__(self, name, istream, selector, freq, sep_db):
         self.name = name
         self.istream = istream
@@ -36,12 +41,14 @@ class CrossfeedEffect(Effect):
         self.c = np.stack([np.array(lp), np.array(lp), np.array(hp), np.array(hp)], axis=1)
         # companion-form lanes, as dsp_tpu's crossfeed passes them to the scan
         self._ss_A, self._ss_Bv, self._ss_c0 = iir.biquad_coeffs_to_ss(self.c)
+        self._ss32_A, self._ss32_Bv, self._ss32_c0 = iir.biquad_coeffs_to_ss(self.c, np.float32)
 
     def state0(self):
         return np.zeros((4, 2), dtype=np.float64)
 
     def step(self, state, x):
-        A, Bv, c0c = (self.device_array(k, x) for k in ("_ss_A", "_ss_Bv", "_ss_c0"))
+        ss = "_ss32" if x.dtype == torch.float32 else "_ss"
+        A, Bv, c0c = (self.device_array(ss + k, x) for k in ("_A", "_Bv", "_c0"))
         s0 = x[:, self.c0]
         s1 = x[:, self.c1]
         lanes = torch.stack([s1, s0, s0, s1], dim=1)  # [B, 4]

@@ -93,6 +93,8 @@ def allpass_sections(a):
 class DelayEffect(Effect):
     """Integer + fractional delay. Integer part feeds the alignment pass."""
 
+    float32_slice = None
+
     def __init__(self, name, istream, selector, samples_int, samples_frac, fd_ap_n):
         self.name = name
         self.istream = istream
@@ -158,6 +160,10 @@ class DelayEffect(Effect):
         # each section's state-space form for K2 ([S, C, 2, 2], [S, C, 2], [S, C])
         ss = [iir.biquad_coeffs_to_ss(sections[s]) for s in range(S)]
         self._ss_A, self._ss_Bv, self._ss_c0 = (np.stack(t) for t in zip(*ss))
+        # under float32, dsp_tpu casts each section's coefficients to float32
+        # before the state-space form and scans in float32 (K2 in float32)
+        ss = [iir.biquad_coeffs_to_ss(sections[s], np.float32) for s in range(S)]
+        self._ss32_A, self._ss32_Bv, self._ss32_c0 = (np.stack(t) for t in zip(*ss))
 
     def state0(self):
         if self._sections is None:
@@ -168,7 +174,8 @@ class DelayEffect(Effect):
     def step(self, state, x):
         if self._sections is None:
             return state, x
-        A, Bv, c0 = (self.device_array(k, x) for k in ("_ss_A", "_ss_Bv", "_ss_c0"))
+        ss = "_ss32" if x.dtype == torch.float32 else "_ss"
+        A, Bv, c0 = (self.device_array(ss + k, x) for k in ("_A", "_Bv", "_c0"))
         new_states = []
         for s in range(self._sections.shape[0]):
             st, x = iir.biquad_scan(A[s], Bv[s], c0[s], state[s], x)

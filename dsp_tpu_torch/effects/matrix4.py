@@ -278,6 +278,7 @@ class Matrix4Effect(Effect):
     # adaptive event engine: multi-second ring buffers and discrete
     # decisions make zero-state priming content-dependent, not bounded
     split_safe = False
+    float32_slice = "J3"  # the df engine and envelopes (K9-K11)
 
     def __init__(self, name, istream, selector, argv):
         cfg = matrix4_config_init(name, istream, selector, argv, is_mb=False)

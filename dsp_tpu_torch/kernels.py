@@ -205,18 +205,25 @@ class _Library:
                 p, i = ctypes.c_void_p, ctypes.c_int
                 lib.dsp_lti_blocked_f64.argtypes = [p] * 11 + [i] * 4 + [p]
                 lib.dsp_lti_blocked_f64.restype = i
-                lib.dsp_biquad_scan_f64.argtypes = [p] * 7 + [i] * 2 + [p]
-                lib.dsp_biquad_scan_f64.restype = i
+                lib.dsp_lti_blocked_f32.argtypes = [p] * 12 + [i] * 4 + [p]
+                lib.dsp_lti_blocked_f32.restype = i
+                for fn in (lib.dsp_biquad_scan_f64, lib.dsp_biquad_scan_f32,
+                           lib.dsp_biquad_scan_df):
+                    fn.argtypes = [p] * 7 + [i] * 2 + [p]
+                    fn.restype = i
                 lib.dsp_fdl_mac_c128.argtypes = [p] * 5 + [ctypes.c_longlong, i, p]
                 lib.dsp_fdl_mac_c128.restype = i
                 ll = ctypes.c_longlong
-                lib.dsp_rfft_pack_c128.argtypes = [p, ll, p, ll, p, p, i, i, p]
-                lib.dsp_rfft_pack_c128.restype = i
+                for fn in (lib.dsp_rfft_pack_c128, lib.dsp_rfft_pack_f32):
+                    fn.argtypes = [p, ll, p, ll, p, p, i, i, p]
+                    fn.restype = i
                 lib.dsp_irfft_crop_c128.argtypes = [p, p, p, ll, ll, p, i, i, p]
                 lib.dsp_irfft_crop_c128.restype = i
                 lib.dsp_splice_f64.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
                 lib.dsp_splice_f64.restype = i
                 d = ctypes.c_double
+                lib.dsp_irfft_ola_f32.argtypes = [p] * 5 + [d, i, i, i, p]
+                lib.dsp_irfft_ola_f32.restype = i
                 lib.dsp_tpdf_noise_f64.argtypes = [p] * 5 + [d, i, i, p]
                 lib.dsp_tpdf_noise_f64.restype = i
                 lib.dsp_tpdf_dither_f64.argtypes = [p] * 13 + [i, i, i, p, p]
@@ -267,22 +274,34 @@ def _check(rc, name):
         raise KernelLaunchError(f"{name}: CUDA error {rc}: {what}")
 
 
-def launch_lti_blocked(x, y, state_in, state_out, h, V, P, AL, c0, v_scratch, s_scratch, L):
+def launch_lti_blocked(x, y, state_in, state_out, h, V, P, AL, c0, v_scratch, s_scratch, L,
+                       y_lo=None):
+    """float64 x, or float32 x with a float32 (hi, lo) state and, when
+    y_lo is given, the (hi, lo) split of y."""
     B, C = x.shape
     n = AL.shape[-1]
-    rc = load().dsp_lti_blocked_f64(
-        _ptr(x), _ptr(y), _ptr(state_in), _ptr(state_out), _ptr(h), _ptr(V), _ptr(P),
-        _ptr(AL), _ptr(c0), _ptr(v_scratch), _ptr(s_scratch), B, C, n, L, _stream(x.device),
-    )
+    tail = (_ptr(h), _ptr(V), _ptr(P), _ptr(AL), _ptr(c0), _ptr(v_scratch), _ptr(s_scratch),
+            B, C, n, L, _stream(x.device))
+    if x.dtype == torch.float32:
+        rc = load().dsp_lti_blocked_f32(_ptr(x), _ptr(y), _ptr(y_lo), _ptr(state_in),
+                                        _ptr(state_out), *tail)
+    else:
+        rc = load().dsp_lti_blocked_f64(_ptr(x), _ptr(y), _ptr(state_in), _ptr(state_out), *tail)
     _check(rc, "lti_blocked")
 
 
 def launch_biquad_scan(A, Bv, c0, state_in, state_out, x, y):
+    """K2 on float64 or float32 (coefficients of x's dtype), or K3 (float64
+    coefficients, float32 x and a [2, C, 2] (hi, lo) state)."""
     B, C = x.shape
-    rc = load().dsp_biquad_scan_f64(
-        _ptr(A), _ptr(Bv), _ptr(c0), _ptr(state_in), _ptr(state_out), _ptr(x), _ptr(y),
-        B, C, _stream(x.device),
-    )
+    if x.dtype == torch.float64:
+        fn = load().dsp_biquad_scan_f64
+    elif A.dtype == torch.float32:
+        fn = load().dsp_biquad_scan_f32
+    else:
+        fn = load().dsp_biquad_scan_df
+    rc = fn(_ptr(A), _ptr(Bv), _ptr(c0), _ptr(state_in), _ptr(state_out), _ptr(x), _ptr(y),
+            B, C, _stream(x.device))
     _check(rc, "biquad_scan")
 
 
@@ -295,7 +314,8 @@ def launch_fdl_mac(X, H, fdl_in, Y, fdl_out):
 
 
 def launch_rfft_pack(a, x, X, work, N):
-    rc = load().dsp_rfft_pack_c128(
+    fn = load().dsp_rfft_pack_f32 if x.dtype == torch.float32 else load().dsp_rfft_pack_c128
+    rc = fn(
         _ptr(a), a.shape[0], _ptr(x), x.shape[0], _ptr(X), _ptr(work), N, x.shape[1],
         _stream(x.device),
     )
@@ -308,6 +328,14 @@ def launch_irfft_crop(Y, work, out, N, lo, add):
         _stream(Y.device),
     )
     _check(rc, "irfft_crop")
+
+
+def launch_irfft_ola_f32(Y, work, y, ov_out, ov_in, ratio, N):
+    rc = load().dsp_irfft_ola_f32(
+        _ptr(Y), _ptr(work), _ptr(y), _ptr(ov_out), _ptr(ov_in), ratio, N, Y.shape[1],
+        ov_in.shape[1], _stream(Y.device),
+    )
+    _check(rc, "irfft_ola_f32")
 
 
 def launch_splice(a, x, out, lo, shift):

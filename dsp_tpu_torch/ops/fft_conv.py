@@ -260,6 +260,36 @@ def rfft_pack_ref(a, x, N):
     return torch.fft.rfft(torch.cat([a, x]), n=N, dim=0)
 
 
+def rfft_pack_f32(x, N):
+    """The spectrum [N//2+1, C] complex128 of float32 x [Lx, C] (Lx <= N)
+    zero-padded to N, read into float64: the float32 resampler's forward
+    transform, in place of dsp_tpu's two-float32 DFT. CPU tensors run
+    rfft_pack_f32_ref; CUDA tensors launch csrc/fft_conv.cu."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"rfft_pack_f32: the kernel takes torch.float32, got {x.dtype}")
+    if x.device.type == "cpu":
+        return rfft_pack_f32_ref(x, N)
+    from dsp_tpu_torch import kernels
+
+    _check_cuda("rfft_pack_f32", x, (x, torch.float32), align=4)
+    if x.dim() != 2 or x.shape[0] > N:
+        raise ValueError(f"rfft_pack_f32: x {tuple(x.shape)} at N = {N}")
+    C = x.shape[1]
+    X = torch.empty((N // 2 + 1, C), dtype=torch.complex128, device=x.device)
+    work = torch.empty((2, N, C), dtype=torch.complex128, device=x.device)
+    kernels.launch_rfft_pack(x[:0], x, X, work, N)
+    rfft_pack_f32.launches += 1
+    return X
+
+
+rfft_pack_f32.launches = 0
+
+
+def rfft_pack_f32_ref(x, N):
+    """Plain PyTorch version of rfft_pack_f32: the rfft of the upcast x."""
+    return torch.fft.rfft(x.double(), n=N, dim=0)
+
+
 def irfft_crop(Y, N, lo, L, add=None):
     """Rows [lo, lo+L) of irfft(Y, n=N) along axis 0 (Y: [N//2+1, C]),
     plus `add` ([L, C]) when given: [L, C] real. CPU tensors run

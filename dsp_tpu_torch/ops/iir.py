@@ -8,22 +8,38 @@ recurrence (biquad.c:296-315, biquad.h:76-92)
 
     A = [[-c3, 1], [-c4, 0]],   B = [c1 - c3 c0,  c2 - c4 c0]
 
-Two kernels run these recurrences on the device:
+These kernels run the recurrences on the device:
 
 * K1, ``lti_blocked``: an n-state LTI system (a fused cascade of biquads, or
   one biquad) over B = Nc·L samples, in chunks of L = 128, from a
-  ``CascadeBlockedPlan``'s host-precomputed tables.
-* K2, ``biquad_scan``: per-lane biquads over any B >= 1, with any 2x2 A.
+  ``CascadeBlockedPlan``'s host-precomputed tables. On float32 samples it
+  is ``lti_blocked_f32`` (K1-df), which also gives ``lti_blocked_df``'s
+  (hi, lo) output.
+* K2, ``biquad_scan``: per-lane biquads over any B >= 1, with any 2x2 A,
+  in float64, or in float32 throughout (``biquad_scan_f32``).
+* K3, ``biquad_scan_df``: K2 on float32 samples with float64 coefficients
+  and a [2, C, 2] float32 (hi, lo) state; ``biquad_scan_auto`` picks it
+  under float32.
 
-Each wrapper dispatches on the tensor's device only: a CPU tensor runs the
-plain version (``lti_blocked_ref``, ``biquad_scan_ref``), a CUDA tensor
-launches the CUDA kernel (``dsp_tpu_torch/csrc/``) or raises. Each wrapper
-counts its kernel launches in ``<wrapper>.launches``.
+dsp_tpu runs its float32 forms of K1 and K3 in two-float32 (hi, lo)
+arithmetic, because the TPU has no usable float64. Hopper has float64 in
+hardware, so the port's float32 forms read float32 samples, carry every
+product and sum in float64 and store float32: y rounded once, and a state
+s split as hi = float32(s), lo = float32(s - hi). That computes the same
+function at least as accurately from the plan's float64 tables, with none
+of dsp_tpu's hi/lo table splits or df carry; its outputs are not dsp_tpu
+float32's bit for bit.
+
+Each wrapper checks the dtypes it takes, then dispatches on the tensor's
+device only: a CPU tensor runs the plain version (``*_ref``), a CUDA
+tensor launches the CUDA kernel (``dsp_tpu_torch/csrc/``) or raises. Each
+wrapper counts its kernel launches in ``<wrapper>.launches``.
 
 The host algebra (``_coupled_form_ss``, ``ss_*``, the plans) is numpy
 float64, as in dsp_tpu/ops/iir.py, so both packages build the same tables
-from the same coefficients. States keep dsp_tpu's [2, C, n] (hi, lo) layout
-with lo = 0, so a state passes between the packages unchanged.
+from the same coefficients. States keep dsp_tpu's [2, C, n] (hi, lo)
+layout (lo = 0 in float64), so a state passes between the packages
+unchanged.
 """
 
 import numpy as np
@@ -35,12 +51,13 @@ import torch
 BLOCKED_L = 128
 
 
-def biquad_coeffs_to_ss(c):
+def biquad_coeffs_to_ss(c, dtype=np.float64):
     """c: array [5, C] (c0..c4, already normalized by a0) -> companion-form
-    (A [C,2,2], Bv [C,2], c0 [C]), numpy float64."""
-    c = np.asarray(c, dtype=np.float64)
+    (A [C,2,2], Bv [C,2], c0 [C]), numpy, computed in `dtype` (float32 as
+    dsp_tpu's float32 callers cast the coefficients first)."""
+    c = np.asarray(c, dtype=dtype)
     c0, c1, c2, c3, c4 = c
-    A = np.zeros((c.shape[1], 2, 2))
+    A = np.zeros((c.shape[1], 2, 2), dtype=dtype)
     A[:, 0, 0] = -c3
     A[:, 0, 1] = 1.0
     A[:, 1, 0] = -c4
@@ -272,31 +289,66 @@ class BiquadBlockedPlan(CascadeBlockedPlan):
 def lti_blocked(plan, state, x):
     """Run a block through a CascadeBlockedPlan (K1).
 
-    state: [2, C, n] (hi, lo); x: [B, C] with B a multiple of plan.L.
-    Returns (state' [2, C, n] with lo = 0, y [B, C]). CPU tensors run
+    state: [2, C, n] (hi, lo); x: [B, C] with B a multiple of plan.L, both
+    float64, or both float32 (then this is lti_blocked_f32). Returns
+    (state' [2, C, n] with lo = 0 in float64, y [B, C]). CPU tensors run
     lti_blocked_ref; CUDA tensors launch csrc/lti_blocked.cu."""
+    if x.dtype == torch.float32:
+        return lti_blocked_f32(plan, state, x)
+    _check_dtypes("lti_blocked", torch.float64, x, state)
     if x.device.type == "cpu":
         return lti_blocked_ref(plan, state, x)
-    from dsp_tpu_torch import kernels
-
-    B, C = _check_cuda_f64("lti_blocked", x, state)
-    L, n = plan.L, plan.n
-    if C != plan.C or B % L:
-        raise ValueError(f"lti_blocked: x {tuple(x.shape)} does not fit a plan of C={plan.C}, L={L}")
-    if tuple(state.shape) != (2, C, n):
-        raise ValueError(f"lti_blocked: state {tuple(state.shape)}, expected {(2, C, n)}")
-    h, V, P, AL, c0 = (plan.table(k, x.device) for k in ("h", "V", "P", "AL", "c0"))
-    Nc = B // L
-    y = torch.empty_like(x)
-    state_out = torch.empty_like(state)
-    v = torch.empty((Nc, C, n), dtype=x.dtype, device=x.device)
-    s_start = torch.empty_like(v)
-    kernels.launch_lti_blocked(x, y, state, state_out, h, V, P, AL, c0, v, s_start, L)
-    lti_blocked.launches += 1
-    return state_out, y
+    return _launch_lti_blocked(lti_blocked, plan, state, x, False)
 
 
 lti_blocked.launches = 0
+
+
+def lti_blocked_f32(plan, state, x, df_out=False):
+    """K1-df: lti_blocked on float32 x [B, C] and a float32 (hi, lo)
+    state [2, C, n], carried in float64 from the plan's float64 tables.
+    Returns (state', y), with the state split into (hi, lo); with df_out,
+    (state', (y_hi, y_lo)), y split the same way. CPU tensors run
+    lti_blocked_f32_ref; CUDA tensors launch csrc/lti_blocked.cu."""
+    _check_dtypes("lti_blocked_f32", torch.float32, x, state)
+    if x.device.type == "cpu":
+        return lti_blocked_f32_ref(plan, state, x, df_out)
+    return _launch_lti_blocked(lti_blocked_f32, plan, state, x, df_out)
+
+
+lti_blocked_f32.launches = 0
+
+
+def lti_blocked_df(plan, state, x):
+    """dsp_tpu's lti_blocked_df (iir.py:556): lti_blocked with the output
+    as a (hi, lo) pair, for consumers that read it better than float32.
+    Returns (state', (y_hi, y_lo)); under float64 y_lo is zeros."""
+    if x.dtype == torch.float32:
+        return lti_blocked_f32(plan, state, x, df_out=True)
+    state, y = lti_blocked(plan, state, x)
+    return state, (y, torch.zeros_like(y))
+
+
+def _launch_lti_blocked(wrapper, plan, state, x, df_out):
+    from dsp_tpu_torch import kernels
+
+    B, C = _check_cuda(wrapper.__name__, x, state)
+    L, n = plan.L, plan.n
+    if C != plan.C or B % L:
+        raise ValueError(f"{wrapper.__name__}: x {tuple(x.shape)} does not fit a plan of "
+                         f"C={plan.C}, L={L}")
+    if tuple(state.shape) != (2, C, n):
+        raise ValueError(f"{wrapper.__name__}: state {tuple(state.shape)}, expected {(2, C, n)}")
+    h, V, P, AL, c0 = (plan.table(k, x.device) for k in ("h", "V", "P", "AL", "c0"))
+    Nc = B // L
+    y = torch.empty_like(x)
+    y_lo = torch.empty_like(x) if df_out else None
+    state_out = torch.empty_like(state)
+    v = torch.empty((Nc, C, n), dtype=torch.float64, device=x.device)
+    s_start = torch.empty_like(v)
+    kernels.launch_lti_blocked(x, y, state, state_out, h, V, P, AL, c0, v, s_start, L, y_lo)
+    wrapper.launches += 1
+    return state_out, ((y, y_lo) if df_out else y)
 
 
 def lti_blocked_ref(plan, state, x):
@@ -319,37 +371,92 @@ def lti_blocked_ref(plan, state, x):
     return torch.stack([s, torch.zeros_like(s)]), y.reshape(B, C)
 
 
-# --- K2: per-lane biquad scan -----------------------------------------------
+def lti_blocked_f32_ref(plan, state, x, df_out=False):
+    """Plain PyTorch version of K1-df: lti_blocked_ref in float64 on the
+    upcast x and state (hi + lo), then the state and y split to float32."""
+    st, y = lti_blocked_ref(plan, state.double(), x.double())
+    y_hi, y_lo = split_f64(y)
+    return torch.stack(split_f64(st[0])), ((y_hi, y_lo) if df_out else y_hi)
+
+
+def split_f64(v):
+    """float64 tensor -> its float32 (hi, lo) pair: hi = float32(v),
+    lo = float32(v - hi), so hi + lo holds v to ~48 bits."""
+    hi = v.float()
+    return hi, (v - hi.double()).float()
+
+
+# --- K2 and K3: per-lane biquad scans ----------------------------------------
 
 
 def biquad_scan(A, Bv, c0, state, x):
     """Run one block of per-lane biquads (K2).
 
-    A [C,2,2], Bv [C,2], c0 [C]; state [C,2] (TDF2 memories); x [B,C].
-    Returns (state' [C,2], y [B,C]). CPU tensors run biquad_scan_ref; CUDA
-    tensors launch csrc/biquad_scan.cu."""
+    A [C,2,2], Bv [C,2], c0 [C]; state [C,2] (TDF2 memories); x [B,C]; all
+    float64, or all float32 (then this is biquad_scan_f32). Returns
+    (state' [C,2], y [B,C]). CPU tensors run biquad_scan_ref; CUDA tensors
+    launch csrc/biquad_scan.cu."""
+    if x.dtype == torch.float32:
+        return biquad_scan_f32(A, Bv, c0, state, x)
+    _check_dtypes("biquad_scan", torch.float64, x, state, A, Bv, c0)
     if x.device.type == "cpu":
         return biquad_scan_ref(A, Bv, c0, state, x)
-    from dsp_tpu_torch import kernels
-
-    B, C = _check_cuda_f64("biquad_scan", x, state, A, Bv, c0)
-    for name, t, shape in (("A", A, (C, 2, 2)), ("Bv", Bv, (C, 2)), ("c0", c0, (C,)),
-                           ("state", state, (C, 2))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"biquad_scan: {name} {tuple(t.shape)}, expected {shape}")
-    y = torch.empty_like(x)
-    state_out = torch.empty_like(state)
-    kernels.launch_biquad_scan(A, Bv, c0, state, state_out, x, y)
-    biquad_scan.launches += 1
-    return state_out, y
+    return _launch_biquad_scan(biquad_scan, A, Bv, c0, state, x, (x.shape[1], 2))
 
 
 biquad_scan.launches = 0
 
 
+def biquad_scan_f32(A, Bv, c0, state, x):
+    """K2 in float32: coefficients, state, samples and every product and
+    sum in float32, as dsp_tpu's float32 scan (crossfeed, the Thiran
+    delay). CPU tensors run biquad_scan_f32_ref; CUDA tensors launch
+    csrc/biquad_scan.cu."""
+    _check_dtypes("biquad_scan_f32", torch.float32, x, state, A, Bv, c0)
+    if x.device.type == "cpu":
+        return biquad_scan_f32_ref(A, Bv, c0, state, x)
+    return _launch_biquad_scan(biquad_scan_f32, A, Bv, c0, state, x, (x.shape[1], 2))
+
+
+biquad_scan_f32.launches = 0
+
+
+def biquad_scan_df(A, Bv, c0, state, x):
+    """K3, dsp_tpu's biquad_scan_df (iir.py:89): the per-sample biquad on
+    float32 x [B, C] with float64 A [C,2,2], Bv [C,2] and c0 [C] (the
+    coupled form) and a float32 (hi, lo) state [2, C, 2], so that it hands
+    a state to and from K1-df. Returns (state' [2, C, 2], y [B, C] float32).
+    CPU tensors run biquad_scan_df_ref; CUDA tensors launch
+    csrc/biquad_scan.cu."""
+    _check_dtypes("biquad_scan_df", torch.float32, x, state)
+    _check_dtypes("biquad_scan_df", torch.float64, A, Bv, c0)
+    if x.device.type == "cpu":
+        return biquad_scan_df_ref(A, Bv, c0, state, x)
+    return _launch_biquad_scan(biquad_scan_df, A, Bv, c0, state, x, (2, x.shape[1], 2))
+
+
+biquad_scan_df.launches = 0
+
+
+def _launch_biquad_scan(wrapper, A, Bv, c0, state, x, state_shape):
+    from dsp_tpu_torch import kernels
+
+    B, C = _check_cuda(wrapper.__name__, x, state, A, Bv, c0)
+    for name, t, shape in (("A", A, (C, 2, 2)), ("Bv", Bv, (C, 2)), ("c0", c0, (C,)),
+                           ("state", state, state_shape)):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{wrapper.__name__}: {name} {tuple(t.shape)}, expected {shape}")
+    y = torch.empty_like(x)
+    state_out = torch.empty_like(state)
+    kernels.launch_biquad_scan(A, Bv, c0, state, state_out, x, y)
+    wrapper.launches += 1
+    return state_out, y
+
+
 def biquad_scan_ref(A, Bv, c0, state, x):
-    """Plain PyTorch version of K2 (any device): a Hillis-Steele doubling
-    scan of the affine maps over the sample axis, log2(B) steps."""
+    """Plain PyTorch version of K2 (any device, float64 or float32): a
+    Hillis-Steele doubling scan of the affine maps over the sample axis,
+    log2(B) steps."""
     B = x.shape[0]
     M = A.expand((B,) + tuple(A.shape))  # [B, C, 2, 2]
     v = x[..., None] * Bv  # [B, C, 2]
@@ -364,16 +471,106 @@ def biquad_scan_ref(A, Bv, c0, state, x):
     return s[-1], c0 * x + m0_prev
 
 
-def _check_cuda_f64(name, x, *others):
-    """Raise unless every tensor is a contiguous float64 on x's CUDA device;
-    returns x's (B, C)."""
+def _compose(first, second):
+    """`second` after `first`, for affine maps (m00, m01, m10, m11, v0, v1)
+    of tensors, as csrc/biquad_scan.cu's compose."""
+    f, s = first, second
+    return (s[0] * f[0] + s[1] * f[2], s[0] * f[1] + s[1] * f[3],
+            s[2] * f[0] + s[3] * f[2], s[2] * f[1] + s[3] * f[3],
+            s[0] * f[4] + s[1] * f[5] + s[4], s[2] * f[4] + s[3] * f[5] + s[5])
+
+
+def biquad_scan_f32_ref(A, Bv, c0, state, x):
+    """Plain PyTorch version of biquad_scan_f32, in the kernel's order of
+    operations, so that its float32 rounding is the kernel's but for the
+    card's fused multiply-adds: T threads a lane (B/16 rounded up to a warp,
+    32..1024), each composing its segment of ceil(B/T) samples; an
+    inclusive scan of the maps inside each warp of 32 (doubling), the warp
+    totals scanned in order; each segment rerun from its start state. The
+    float64 K2 keeps its doubling scan (biquad_scan_ref)."""
+    B, C = x.shape
+    T = min(1024, max(32, ((B + 15) // 16 + 31) // 32 * 32))
+    seg = -(-B // T)
+    xs = torch.cat([x, x.new_zeros((T * seg - B, C))]).reshape(T, seg, C)
+    valid = (torch.arange(T * seg, device=x.device) < B).reshape(T, seg, 1)
+    a00, a01, a10, a11 = A[:, 0, 0], A[:, 0, 1], A[:, 1, 0], A[:, 1, 1]
+    one, zero = x.new_ones((T, C)), x.new_zeros((T, C))
+    f = (one, zero, zero, one, zero, zero)
+    for t in range(seg):  # 1. each segment's map
+        xt = xs[:, t]
+        step = (a00 * f[0] + a01 * f[2], a00 * f[1] + a01 * f[3],
+                a10 * f[0] + a11 * f[2], a10 * f[1] + a11 * f[3],
+                a00 * f[4] + a01 * f[5] + Bv[:, 0] * xt, a10 * f[4] + a11 * f[5] + Bv[:, 1] * xt)
+        f = tuple(torch.where(valid[:, t], n, o) for n, o in zip(step, f))
+    # 2. inclusive scan inside each warp, then its totals in order
+    f = tuple(m.reshape(T // 32, 32, C) for m in f)
+    for d in (1, 2, 4, 8, 16):
+        g = _compose(tuple(m[:, :-d] for m in f), tuple(m[:, d:] for m in f))
+        f = tuple(torch.cat([m[:, :d], n], dim=1) for m, n in zip(f, g))
+    ident = (one[:1], zero[:1], zero[:1], one[:1], zero[:1], zero[:1])
+    excl = tuple(torch.cat([i[:, None].expand(T // 32, 1, C), m[:, :-1]], dim=1)
+                 for i, m in zip(ident, f))
+    run, starts = ident, []
+    for w in range(T // 32):
+        starts.append(run)
+        run = _compose(run, tuple(m[w:w + 1, -1] for m in f))
+    starts = tuple(torch.stack(m).expand(T // 32, 32, C) for m in zip(*starts))
+    pre = tuple(m.reshape(T, C) for m in _compose(starts, excl))
+    # 3. each segment rerun from its start state
+    u0 = pre[0] * state[:, 0] + pre[1] * state[:, 1] + pre[4]
+    u1 = pre[2] * state[:, 0] + pre[3] * state[:, 1] + pre[5]
+    ys = []
+    for t in range(seg):
+        xt = xs[:, t]
+        ys.append(c0 * xt + u0)
+        n0 = a00 * u0 + a01 * u1 + Bv[:, 0] * xt
+        n1 = a10 * u0 + a11 * u1 + Bv[:, 1] * xt
+        u0 = torch.where(valid[:, t], n0, u0)
+        u1 = torch.where(valid[:, t], n1, u1)
+    y = torch.stack(ys, dim=1).reshape(T * seg, C)[:B]
+    return torch.stack([u0[-1], u1[-1]], dim=-1), y
+
+
+def biquad_scan_df_ref(A, Bv, c0, state, x):
+    """Plain PyTorch version of K3: biquad_scan_ref in float64 on the
+    upcast x and state (hi + lo), then the state split and y rounded to
+    float32."""
+    s_end, y = biquad_scan_ref(A, Bv, c0, state[0].double() + state[1].double(), x.double())
+    return torch.stack(split_f64(s_end)), y.float()
+
+
+def biquad_scan_auto(c, state, x):
+    """dsp_tpu's biquad_scan_auto (iir.py:129): the biquads of host
+    coefficients c [5, C] (numpy) on state [C, 2] and x [B, C]. Under
+    float32 the coupled form on K3, the state handed in and out as one
+    float32 array (hi + lo rounded, as dsp_tpu does); under float64 the
+    same coupled form on K2."""
+    c = np.asarray(c, dtype=np.float64)
+    A, Bv = _coupled_form_ss(c)
+    if x.dtype == torch.float32:
+        coef = (torch.as_tensor(a, dtype=torch.float64, device=x.device) for a in (A, Bv, c[0]))
+        st, y = biquad_scan_df(*coef, torch.stack([state, torch.zeros_like(state)]), x)
+        return st[0] + st[1], y
+    coef = (torch.as_tensor(a, dtype=x.dtype, device=x.device) for a in (A, Bv, c[0]))
+    return biquad_scan(*coef, state, x)
+
+
+def _check_dtypes(name, dtype, *tensors):
+    """Raise unless every tensor is of `dtype` (the one this wrapper's
+    kernel takes)."""
+    for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
+
+
+def _check_cuda(name, x, *others):
+    """Raise unless x is [B, C] on a CUDA device and every tensor is
+    contiguous on x's device; returns x's (B, C)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if x.dim() != 2:
         raise ValueError(f"{name}: x must be [B, C], got {tuple(x.shape)}")
     for t in (x,) + others:
-        if t.dtype != torch.float64:
-            raise TypeError(f"{name}: the kernel takes float64, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
         if not t.is_contiguous():

@@ -20,8 +20,14 @@ blocks (times channels) as columns:
 * ``irfft_crop`` (csrc/fft_conv.cu): irfft at 2·out_len;
 
 then the scale and the 50% overlap-add, as dsp_tpu orders them, as a
-shifted add across the columns. The float32 double-float path of dsp_tpu
-(``_block_df``) is not ported: the port computes in float64.
+shifted add across the columns.
+
+Under float32 (dsp_tpu's ``_block_df``, K8-df, whose transforms are the
+two-float32 DFTs of dsp_tpu/ops/dfx_fft.py) the step reads float32 and
+stores float32 around the same float64 transforms and fold:
+``rfft_pack_f32`` reads the float32 columns, and ``irfft_ola_f32`` is the
+inverse whose last stage does the scale and the overlap-add and stores y
+and the carried overlap in float32 (csrc/fft_conv.cu).
 """
 
 import math
@@ -30,7 +36,14 @@ from math import gcd
 import numpy as np
 import torch
 
-from dsp_tpu_torch.ops.fft_conv import _check_cuda, irfft_crop, next_fast_len, rfft_pack
+from dsp_tpu_torch.ops.fft_conv import (
+    _check_cuda,
+    irfft_crop,
+    irfft_crop_ref,
+    next_fast_len,
+    rfft_pack,
+    rfft_pack_f32,
+)
 
 M_FACT = 17.7822
 _ALBRECHT9 = np.array(
@@ -166,6 +179,10 @@ class SpectralResampler:
         if n * in_len != B:
             raise ValueError(f"resample: block of {B} frames is not a multiple of {in_len}")
         cols = x.reshape(n, in_len, C).permute(1, 0, 2).reshape(in_len, n * C)
+        if x.dtype == torch.float32:
+            X = rfft_pack_f32(cols, 2 * in_len)
+            return irfft_ola_f32(resample_fold(X, self.fold), 2 * out_len, overlap,
+                                 out_len / in_len)
         X = rfft_pack(cols[:0], cols, 2 * in_len)  # [in_len+1, n·C]
         Y = resample_fold(X, self.fold)  # [out_len+1, n·C]
         y2 = irfft_crop(Y, 2 * out_len, 0, 2 * out_len) * (out_len / in_len)
@@ -174,6 +191,52 @@ class SpectralResampler:
         prev = torch.cat([overlap.to(x.dtype)[:, None], tail[:, :-1]], dim=1)
         y = (head + prev).permute(1, 0, 2).reshape(n * out_len, C)
         return tail[:, -1].contiguous(), y
+
+
+def irfft_ola_f32(Y, N, overlap, ratio):
+    """The float32 resampler's inverse and overlap-add. Y [N//2+1, n·C]:
+    the half spectra of n inner blocks (block-major columns); overlap
+    [N//2, C] float32, the tail carried in. y2 = irfft(Y, n=N)·ratio; each
+    block's tail (rows N//2..N) is rounded to float32, as the carried
+    overlap is, and added to the next block's head (rows 0..N//2) in
+    float64, the carried overlap to the first block's. Returns (overlap'
+    [N//2, C], the last block's tail, and y [n·N//2, C]), both float32.
+    CPU tensors run irfft_ola_f32_ref; CUDA tensors launch
+    csrc/fft_conv.cu."""
+    if overlap.dtype != torch.float32:
+        raise TypeError(f"irfft_ola_f32: the kernel takes torch.float32, got {overlap.dtype}")
+    if Y.device.type == "cpu":
+        return irfft_ola_f32_ref(Y, N, overlap, ratio)
+    from dsp_tpu_torch import kernels
+
+    _check_cuda("irfft_ola_f32", Y, (Y, torch.complex128), (overlap, torch.float32))
+    half, C = N // 2, overlap.shape[1]
+    if (Y.dim() != 2 or N % 2 or Y.shape[0] != half + 1 or Y.shape[1] % C
+            or tuple(overlap.shape) != (half, C)):
+        raise ValueError(f"irfft_ola_f32: Y {tuple(Y.shape)}, overlap {tuple(overlap.shape)} "
+                         f"at N = {N}")
+    y = torch.empty((Y.shape[1] // C * half, C), dtype=torch.float32, device=Y.device)
+    ov = torch.empty_like(overlap)
+    work = torch.empty((2, N, Y.shape[1]), dtype=torch.complex128, device=Y.device)
+    kernels.launch_irfft_ola_f32(Y, work, y, ov, overlap, ratio, N)
+    irfft_ola_f32.launches += 1
+    return ov, y
+
+
+irfft_ola_f32.launches = 0
+
+
+def irfft_ola_f32_ref(Y, N, overlap, ratio):
+    """Plain PyTorch version of irfft_ola_f32: the float64 step's inverse,
+    scale and overlap-add, with the tails rounded to float32 and y rounded
+    once."""
+    half, C = N // 2, overlap.shape[1]
+    n = Y.shape[1] // C
+    y2 = (irfft_crop_ref(Y, N, 0, N) * ratio).reshape(2, half, n, C)
+    head, tail = y2[0], y2[1].float()
+    prev = torch.cat([overlap[:, None], tail[:, :-1]], dim=1).double()
+    y = (head + prev).float().permute(1, 0, 2).reshape(n * half, C)
+    return tail[:, -1].contiguous(), y
 
 
 class FoldTables:
