@@ -51,16 +51,30 @@ nvcc and PyTorch built for CUDA. It
    5 s (the engine's chaotic start held to MB_ONSET); then the float32
    phase (slices J1 and J2): K1-df lti_blocked_f32 on the flagship
    cascade and on matrix4_mb's bank with its (hi, lo) output, K3
-   biquad_scan_df at B = 1000 and 100, K2 in float32 biquad_scan_f32 on
+   biquad_scan_df at B = 1000 and 100 (and with a single float32 state at
+   matrix4_mb's fshape and inverse widths), K2 in float32 biquad_scan_f32 on
    crossfeed's lanes, a (hi, lo) state handed from K1-df to K3 and back,
    and the float32 resampler step (rfft_pack_f32, the fold,
    irfft_ola_f32) to 48 and 192 kHz against their plain versions (float32
    outputs within one float32 ulp of their scale, (hi, lo) sums within
-   1e-13 relative), timed as above; and DSP_TPU_TORCH_DTYPE=float32
-   dsp-torch on the same 300 s, the flagship at blocks 2048 and 1000 and
-   `resample 48k`, each held on the whole run against the port's float64
-   run on the card within -120 dBFS, its float32 kernels launched and no
-   float64 kernel.
+   1e-13 relative), timed as above; slice J3's float32 kernels the same
+   way: K5-K7 in float32 (rfft_pack_f32 with its head, fdl_mac_f32 with a
+   float32 FDL, irfft_crop_f32, splice_f32) and the OLS, Upols and Nupols
+   steps on the card against their plain versions on the CPU, and
+   matrix4's and matrix4_mb's K9-K13 in float32 (m4_env_f32,
+   m4_event_f32, m4_audio_f32; after K3 and K1-df, m4mb_env_f32,
+   m4mb_event_f32, m4mb_audio_f32) over 3 blocks of transients in eight
+   configurations, decisions equal; both upmixes' float32 audio paths
+   replaying their float64 control on 10 s of two signals, against a
+   float64 audio path fed the same float32-rounded inputs within -120
+   dBFS; and
+   DSP_TPU_TORCH_DTYPE=float32 dsp-torch on the same 300 s, the flagship
+   at blocks 2048 and 1000, `resample 48k`, `matrix4 -6`, `matrix4_mb -6`,
+   `fir` 64k at blocks 65536 and 2048 and `fir_p` 1M at 2048, each held on
+   the whole run against the port's float64 run on the card (kept from
+   step 3 where it ran there) within -120 dBFS, matrix4_mb's free run
+   within MB_F32_LATE_DBFS from MB_ONSET[0] s on (its chaotic start within
+   MB_F32_FREE_DBFS), its float32 kernels launched and no float64 kernel.
    Each run must produce the expected frame count, launch its kernels
    (their launch counts are zeroed just before the run), and match the
    port's CPU run on the first 10 s: within -200 dBFS, the delivery
@@ -72,12 +86,13 @@ nvcc and PyTorch built for CUDA. It
    character for character;
 4. runs 96 blocks of the Nupols path (fir_p 1M at B = 2048), 320 of the
    delivery chain, 16 each of matrix4 and matrix4_mb and of the float32
-   flagship (blocks 2048 and 1000) and resample, with the input on the card
-   under torch.cuda.set_sync_debug_mode("error"): a step must not wait on
-   the device; then times 256 blocks of each slice C chain, each upmix
-   (matrix4_mb and the mixed chain among them) and each float32 run in
-   both dtypes, and profiles them (torch.profiler: kernels a block, device
-   time a block by kernel, the device's share);
+   flagship (blocks 2048 and 1000), resample and upmixes, with the input on
+   the card under torch.cuda.set_sync_debug_mode("error"): a step must not
+   wait on the device; then times 256 blocks of each slice C chain, each
+   upmix (matrix4_mb and the mixed chain among them) and each float32 run
+   (the upmixes and `fir` 64k at block 2048 among them) in both dtypes,
+   and profiles them (torch.profiler: kernels a block, device time a block
+   by kernel, the device's share);
 5. prints the kernels' record as one JSON line, then as the last line
    {"ok": true, "device": {...}}.
 
@@ -164,6 +179,9 @@ HBM_BYTES_PER_S = 3.35e12
 # float32 reaches -136.6 to -141.4 dBFS on these chains on the CPU)
 F32_RUNS = ((FLAGSHIP, 2048), (FLAGSHIP, 1000), ("resample 48k", 2048))
 F32_LIMIT_DBFS = -120.0
+# slice J3's float32 upmixes: float32_no_sync and profile_chains run them
+# beside F32_RUNS (float32_cli runs them too, with the FFT-convolution chains)
+F32_UPMIXES = ((MATRIX4, 2048), (MATRIX4_MB, 2048))
 
 
 class SmokeError(Exception):
@@ -904,14 +922,15 @@ MB_KERNEL_CASES = (
 MB_AUDIO_DBFS = -290.0
 
 
-def mb_effect(words, fs, B):
-    """A matrix4_mb chain on the card at block B: (its Matrix4MbEffect, that
-    effect's state)."""
+def mb_effect(words, fs, B, dtype=None):
+    """A matrix4_mb chain on the card at block B (float64 unless dtype is
+    given): (its Matrix4MbEffect, that effect's state)."""
     from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
     from dsp_tpu_torch.core.types import StreamInfo
     from dsp_tpu_torch.effects.matrix4_mb import Matrix4MbEffect
 
-    cc = CompiledChain(build_chain_from_string(words, StreamInfo(fs, CHANNELS)), B, device="cuda")
+    cc = CompiledChain(build_chain_from_string(words, StreamInfo(fs, CHANNELS)), B, dtype=dtype,
+                       device="cuda")
     i = next(i for i, e in enumerate(cc._runtime_effects) if isinstance(e, Matrix4MbEffect))
     return cc._runtime_effects[i], cc.states[i]
 
@@ -1243,7 +1262,8 @@ def write_filter(path, taps, seed):
 
 
 def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, seconds, tmp,
-            enc="double", limit_dbfs=LIMIT_DBFS, seed=None, onset=None, compare=COMPARE_SECONDS):
+            enc="double", limit_dbfs=LIMIT_DBFS, seed=None, onset=None, compare=COMPARE_SECONDS,
+            keep=None):
     """One file-to-file run of dsp-torch on the card. Fails unless it
     writes the expected frame count, launches every kernel in `wrappers`
     (their counts are zeroed just before the run) and matches the port's
@@ -1254,8 +1274,9 @@ def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, secon
     initial states). The CPU run's output goes through what the CLI's
     writer does for `enc`: its dither policy, its app-level dither, the
     clip and the encoding. With `onset` = (seconds, dBFS), the output's
-    first seconds are held to that limit instead (see ONSET). Returns what
-    the run wrote to stderr."""
+    first seconds are held to that limit instead (see ONSET). With `keep`
+    (a path), the run's output file is kept there (the float32 phase holds
+    its own runs against it). Returns what the run wrote to stderr."""
     import contextlib
     import io
 
@@ -1339,7 +1360,10 @@ def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, secon
         print(f"  {what}: max |diff| {diff:.3e} ({dbfs(diff):.1f} dBFS)")
         if not dbfs(diff) <= limit_dbfs:
             raise SmokeError(f"{what}: {dbfs(diff):.1f} dBFS is above {limit_dbfs} dBFS")
-    out.unlink()
+    if keep is None:
+        out.unlink()
+    else:
+        out.replace(keep)
     return err.getvalue()
 
 
@@ -1426,10 +1450,12 @@ def delivery_no_sync():
           f"{int(cc.states[-1]['samples'])}")
 
 
-def profile_chains(f4k):
+def profile_chains(f4k, f64k):
     """Where a block's time goes in slice C's chains, slices D and E's
     upmixes, slice F's (matrix4_mb and the mixed chain with the 4,096-tap
-    filter f4k) and the float32 mode's chains beside their float64 twins:
+    filter f4k) and the float32 mode's chains (F32_RUNS, F32_UPMIXES, and
+    `fir` with the 65,536-tap filter f64k at block 2048) beside their
+    float64 twins:
     CompiledChain.run_blocks over 256 blocks on the card,
     timed unprofiled (host clock to a synchronize), then under
     torch.profiler for the device time of each kernel. Prints the step time
@@ -1451,8 +1477,9 @@ def profile_chains(f4k):
         ("delivery", DELIVERY, 16), ("modulated", MODULATED, 53), ("matrix4", MATRIX4, 53),
         ("upmix48", UPMIX48, 53), ("matrix4_mb", MATRIX4_MB, 53),
         ("mixed", mixed_chain(f4k), 53))]
-    for words, block in F32_RUNS:
-        label = f"{'flagship' if words == FLAGSHIP else words} -b {block}"
+    for words, block in F32_RUNS + F32_UPMIXES + ((f"fir {f64k}", 2048),):
+        name = "flagship" if words == FLAGSHIP else words.replace(str(f64k), "64k")
+        label = f"{name} -b {block}"
         runs += [(f"{label} float64", words, 53, block, f64),
                  (f"{label} float32", words, 53, block, f32)]
     for label, words, prec, block, dtype in runs:
@@ -1461,7 +1488,7 @@ def profile_chains(f4k):
         chain_set_dither_params(chain, prec, prec < 24)
         cc = CompiledChain(chain, block, dtype=dtype, device="cuda")
         B = cc.block_frames
-        if label in ("matrix4", "upmix48", "matrix4_mb", "mixed"):
+        if label in ("upmix48", "mixed") or label.startswith("matrix4"):
             x = transient_signal((n + 8) * B / FS + 0.01)[: (n + 8) * B]
         else:
             x = rng.standard_normal(((n + 8) * B, CHANNELS)) * 0.1
@@ -1532,8 +1559,449 @@ def torch_equal(a, b):
     return torch.equal(a.cpu(), b.cpu())
 
 
-def float32_phase(records, tmp):
-    """The float32 mode (slices J1 and J2) on the card. Its kernels against
+# slice J3's float32 FFT convolution engines on the main path's shapes:
+# (label, engine, taps, block, super-block multiple)
+F32_FFT_ENGINES = (
+    ("OLS: fir 64k at B=65536", "ols", 1 << 16, 65536, None),
+    ("Upols K=32: fir 64k at B=2048", "upols", 1 << 16, 2048, None),
+    ("Nupols m=32: fir_p 1M at B=2048", "nupols", 1 << 20, 2048, 32),
+    ("OLS: matrix4_mb's 1,306-tap FIR at B=2048", "ols", 1306, 2048, None),
+)
+
+
+def _f32_tree(tree, device):
+    """An engine's numpy state0 as float32 tensors on `device`, as a
+    float32 CompiledChain holds it (the Nupols block counter stays a CPU
+    int32 tensor)."""
+    import numpy as np
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _f32_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree
+    return torch.as_tensor(np.asarray(tree), dtype=torch.float32, device=device)
+
+
+def float32_fft_phase(records):
+    """K5-K7 in float32 (slice J3) on the card: rfft_pack_f32 with its head,
+    fdl_mac_f32, irfft_crop_f32 with the Nupols addend and splice_f32
+    against their plain versions at the Upols shape of fir 64k at
+    B = 2048 (N = 4096, K = 32; the spectrum and sums within F32_STATE_REL
+    relative, the float32 outputs within one float32 ulp of their scale,
+    the shifted FDL and the splice equal), timed with their plain versions
+    and torch.fft's float32 transforms; then the engines' float32 steps on
+    the card against the same steps' plain versions on the CPU, from the
+    same state and input, for each of F32_FFT_ENGINES (a super-block and two
+    more blocks for Nupols, so that its tail fires): every output and every
+    float32 state leaf within one float32 ulp of its scale, the counter
+    equal."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.ops import fft_conv as fc
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20270)
+
+    def f32(*shape, scale=0.3):
+        return torch.as_tensor(rng.standard_normal(shape) * scale, dtype=torch.float32,
+                               device=dev)
+
+    print("K5-K7 in float32: rfft_pack_f32, fdl_mac_f32, irfft_crop_f32, splice_f32 "
+          "(Upols at B=2048: N=4096, K=32, stereo)")
+    N, C, K, L = 4096, CHANNELS, 32, 2048
+    NB = N // 2 + 1
+    a, x, add = f32(L, C), f32(L, C), f32(L, C)
+    X_k, X_r = fc.rfft_pack_f32(x, N, a), fc.rfft_pack_f32_ref(x, N, a).contiguous()
+    H = torch.as_tensor(rng.standard_normal((K, NB, C)) + 1j * rng.standard_normal((K, NB, C)),
+                        device=dev)
+    fdl = f32(K, NB, C, 2, scale=10.0)
+    (Y_k, F_k), (Y_r, F_r) = fc.fdl_mac_f32(X_r, H, fdl), fc.fdl_mac_f32_ref(X_r, H, fdl)
+    y_k, y_r = fc.irfft_crop_f32(Y_r, N, L, L, add), fc.irfft_crop_f32_ref(Y_r, N, L, L, add)
+    s_k, s_r = fc.splice_f32(a, x, L, 0, L), fc.splice_ref(a, x, L, 0, L)
+    torch.cuda.synchronize()
+    for name, k_out, r_out in (("rfft_pack_f32", X_k, X_r), ("fdl_mac_f32", Y_k, Y_r)):
+        rel = _diff(torch.view_as_real(k_out), torch.view_as_real(r_out)) / float(r_out.abs().max())
+        print(f"  {name}: within {rel:.2e} relative")
+        _require(f"{name}: {rel:.2e} relative from the plain version", rel <= F32_STATE_REL)
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                           _diff(torch.view_as_real(k_out),
+                                                 torch.view_as_real(r_out)))
+    _require("fdl_mac_f32: the shifted FDL differs from the plain version", torch_equal(F_k, F_r))
+    _hold_f32(records["irfft_crop_f32"], "irfft_crop_f32 with the addend", y_k, y_r)
+    _require("splice_f32: kernel and plain version differ", torch_equal(s_k, s_r))
+    packed = torch.cat([a, x])
+    Y64 = Y_r.to(torch.complex64)
+    fft_flops = 2.5 * N * math.log2(N) * C
+    timed = {
+        # (kernel, plain version, the one torch call (float32, complex64),
+        # bytes, operations): a real FFT is ~2.5·N·log2(N) operations a
+        # channel; the MAC 8 a partition, bin and channel
+        "rfft_pack_f32": (lambda: fc.rfft_pack_f32(x, N, a), lambda: fc.rfft_pack_f32_ref(x, N, a),
+                          lambda: torch.fft.rfft(packed, n=N, dim=0),
+                          4 * 2 * L * C + 16 * NB * C, fft_flops),
+        "fdl_mac_f32": (lambda: fc.fdl_mac_f32(X_r, H, fdl),
+                        lambda: fc.fdl_mac_f32_ref(X_r, H, fdl),
+                        None, NB * C * (16 * 2 + 16 * K + 8 * (K - 1) + 8 * K), 8 * K * NB * C),
+        "irfft_crop_f32": (lambda: fc.irfft_crop_f32(Y_r, N, L, L, add),
+                           lambda: fc.irfft_crop_f32_ref(Y_r, N, L, L, add),
+                           lambda: torch.fft.irfft(Y64, n=N, dim=0)[L:2 * L],
+                           16 * NB * C + 2 * 4 * L * C, fft_flops),
+        "splice_f32": (lambda: fc.splice_f32(a, x, L, 0, L), lambda: fc.splice_ref(a, x, L, 0, L),
+                       lambda: torch.cat([a[L:], x]), 2 * 4 * L * C, 0),
+    }
+    for name, (kern, plain, lib, nbytes, flops) in timed.items():
+        ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 50)
+        lib_ms = None if lib is None else cuda_ms(lib, 50)
+        rec = records[name]
+        if name == "rfft_pack_f32":  # its record is timed on the resampler's shape
+            rec.setdefault("times", []).append({"N": N, "C": C, "ms": ms, "plain_ms": plain_ms,
+                                                "library_ms": lib_ms})
+        else:
+            set_times(rec, ms, plain_ms, nbytes, flops, library_ms=lib_ms)
+        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+              + ("" if lib_ms is None else f", torch (float32) {lib_ms:.4f} ms")
+              + f", bound {bound(nbytes, flops)[0]:.6f} ms")
+
+    print("K5-K7 in float32: the engines' steps on the card against their plain versions")
+    for label, kind, taps, B, m in F32_FFT_ENGINES:
+        h = rng.standard_normal((C, taps))
+        h /= np.sqrt((h * h).sum(axis=1, keepdims=True))
+        eng = (fc.OlsConv(h, B) if kind == "ols" else fc.UpolsConv(h, B) if kind == "upols"
+               else fc.NupolsConv(h, B, m))
+        st_k, st_r = _f32_tree(eng.state0(), dev), _f32_tree(eng.state0(), "cpu")
+        xs = f32(((m or 1) + 2) * B, C)
+        worst = 0.0
+        for b in range(xs.shape[0] // B):
+            xb = xs[b * B:(b + 1) * B]
+            st_k, y_k = eng.step(st_k, xb)
+            st_r, y_r = eng.step(st_r, xb.cpu())
+            torch.cuda.synchronize()
+            ulps, _ = _ulps(y_k, y_r)
+            worst = max(worst, ulps)
+            _require(f"{label} block {b}: y {ulps:.2f} ulp of its scale", ulps <= 1.0)
+            leaves_k = st_k.values() if isinstance(st_k, dict) else [st_k]
+            leaves_r = st_r.values() if isinstance(st_r, dict) else [st_r]
+            for lk, lr in zip(leaves_k, leaves_r):
+                if isinstance(lk, dict):
+                    lk, lr = torch.cat([t.flatten() for t in lk.values()]), \
+                        torch.cat([t.flatten() for t in lr.values()])
+                if lk.dtype == torch.int32:
+                    _require(f"{label}: the block counter differs", torch_equal(lk, lr))
+                else:
+                    ulps, _ = _ulps(lk, lr)
+                    _require(f"{label} block {b}: a state leaf {ulps:.2f} ulp of its scale",
+                             ulps <= 1.0)
+        print(f"  {label}: {xs.shape[0] // B} blocks, y within {worst:.2f} ulp of its scale, "
+              f"the state within one ulp")
+
+
+# slice J3's float32 upmix checks: (options, rate, block); 1056 = 33 x 32
+# takes the band-limit's and the bank's L = 1 plans
+M4_F32_CASES = (
+    ("matrix4 -6", FS, 2048),
+    ("matrix4 matrix=v1 -6", FS, 2048),
+    ("matrix4 direct_path -6", FS, 2048),
+    ("matrix4 -6", FS, 1056),
+)
+MB_F32_CASES = (
+    ("matrix4_mb -6", FS, 2048),
+    ("matrix4_mb filter_type=butterworth,freq_mask=0.5 -6", FS, 2048),
+    ("matrix4_mb -6", 48000, 2048),
+    ("matrix4_mb -6", FS, 1056),
+)
+# the (hi, lo) sums of the float32 engines against their plain versions, as
+# each float64 phase holds its engine's floats (matrix4_phase, matrix4_mb_phase)
+M4_F32_REL = 1e-12
+MB_F32_REL = 1e-13
+
+
+def _hold_engine(what, out_k, out_r, rel_limit):
+    """A float32 engine's results (ev, ev_lo, carry, carry_lo, ics,
+    interp_y, aux) against the plain version's: the decisions equal, the
+    (hi, lo) sums within rel_limit (relative to max(1, scale)), the
+    coefficient sets, window and display within one float32 ulp of their
+    scale. Returns (the largest relative error, the largest ulps)."""
+    from dsp_tpu_torch.ops import m4_engine as m4
+
+    rel = 0.0
+    for k, kind in m4.EV_LEAVES:
+        a, b = out_k[0][k], out_r[0][k]
+        if kind != "f":
+            _require(f"{what}: {k} differs from the plain version", torch_equal(a, b))
+        else:
+            rel = max(rel, _rel(a.double() + out_k[1][k].double(),
+                                b.double() + out_r[1][k].double()))
+    rel = max(rel, _rel(out_k[2].double() + out_k[3].double(),
+                        out_r[2].double() + out_r[3].double()))
+    _require(f"{what}: the (hi, lo) state {rel:.3e} relative from the plain version",
+             rel <= rel_limit)
+    ulps = 0.0
+    for name, a, b in zip(("ics", "interp_y", "aux"), out_k[4:], out_r[4:]):
+        u, _ = _ulps(a, b)
+        _require(f"{what}: {name} {u:.2f} ulp of its scale from the plain version", u <= 1.0)
+        ulps = max(ulps, u)
+    return rel, ulps
+
+
+def float32_m4_phase(records):
+    """K9-K13 in float32 (slice J3) on the card: m4_env_f32, m4_event_f32
+    and m4_audio_f32 for each case of M4_F32_CASES, m4mb_env_f32,
+    m4mb_event_f32 and m4mb_audio_f32 (after K3 on the fshape and K1-df on
+    the bank) for each of MB_F32_CASES, against their plain versions on the
+    same inputs, over 3 blocks of transients after 2 s of them through the
+    float32 chain: the decisions equal, the (hi, lo) state sums within
+    M4_F32_REL or MB_F32_REL relative, the envelopes at the ticks
+    (float64) within the same, every float32 output within one float32 ulp
+    of its scale. Times the kernels and their plain versions at B = 2048
+    (v4)."""
+    import torch
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.ops import iir
+    from dsp_tpu_torch.ops import m4_engine as m4
+
+    f32 = torch.float32
+    print("K9-K13 in float32 (matrix4): m4_env_f32, m4_event_f32, m4_audio_f32 "
+          "(3 blocks after 2 s of transients)")
+    for words, fs, B in M4_F32_CASES:
+        cc = CompiledChain(build_chain_from_string(words, StreamInfo(fs, CHANNELS)), B, dtype=f32,
+                           device="cuda")
+        e = cc._runtime_effects[0]
+        x = torch.as_tensor(transient_signal(2.5, fs), dtype=f32, device="cuda")
+        warm = x.shape[0] // B - 3
+        cc.run_blocks(x[: warm * B].reshape(warm, B, CHANNELS))
+        rel = ulps = 0.0
+        for blk in range(warm, warm + 3):
+            st = cc.states[0]
+            xb = x[blk * B:(blk + 1) * B].contiguous()
+            _, (hi, lo) = iir.lti_blocked_df(e._bp_plan(B), st["bpc"], xb)
+            env_args = (hi, lo, st["env_m"], st["env_m_lo"], e.g_env)
+            env_k, env_r = m4.m4_env_f32(*env_args), m4.m4_env_f32_ref(*env_args)
+            rel = max(rel, _rel(env_k[2], env_r[2]),
+                      _rel(env_k[0].double() + env_k[1].double(),
+                           env_r[0].double() + env_r[1].double()))
+            ins = (e.ctl, {k: v[None] for k, v in st["ev"].items()},
+                   {k: v[None] for k, v in st["ev_lo"].items()}, st["bg_cs"][None],
+                   st["bg_cs_lo"][None], env_k[2][None], st["interp_y"][None],
+                   int(st["fade_p"]), bool(st["disable"]))
+            out_k, out_r = m4.m4_event_f32(*ins), m4.m4_event_f32_ref(*ins)
+            torch.cuda.synchronize()
+            r, u = _hold_engine(f"m4_event_f32 {words} at {fs} block {blk}", out_k, out_r,
+                                M4_F32_REL)
+            rel, ulps = max(rel, r), max(ulps, u)
+            a_ins = (e.audio, xb, st["buf"], st["interp_c"], out_k[4][0], st["shelf_m"],
+                     st["lp_m"], st["pf_m"])
+            for what, a, b in zip(("y", "shelf_m", "lp_m", "pf_m"), m4.m4_audio_f32(*a_ins),
+                                  m4.m4_audio_f32_ref(*a_ins)):
+                _hold_f32(records["m4_audio_f32"], f"m4_audio_f32 {words} block {blk} {what}",
+                          a, b)
+            cc.run_blocks(xb[None])
+        ev = cc.states[0]["ev"]
+        counters = {k: int(ev[k]) for k in M4_DECISIONS}
+        print(f"  {words} at {fs} Hz, B={B}: decisions equal; (hi, lo) sums and envelopes within "
+              f"{rel:.3e} relative, ics/window/aux within {ulps:.2f} ulp; after {int(ev['t'])} "
+              f"ticks {counters}")
+        _require(f"matrix4 {words}: no event in the check's input",
+                 counters["diff_count"] + counters["ord_count"] > 0)
+        _require(f"m4_env_f32 {words}: {rel:.3e} relative", rel <= M4_F32_REL)
+        for name in ("m4_env_f32", "m4_event_f32"):
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"], rel)
+        if (words, fs, B) != M4_F32_CASES[0]:
+            continue
+        Nc, Lr, n_out = B // 32, e.ctl.p["buf_len"], e.audio.n_out
+        st = cc.states[0]
+        ins = ins[:-2] + (0, False)
+        a_ins = (e.audio, xb, st["buf"], st["interp_c"], out_k[4][0], st["shelf_m"], st["lp_m"],
+                 st["pf_m"])
+        timed = {
+            # the (hi, lo) input and envelope pairs, the ticks out (float64);
+            # the hi + lo sum, the input and the EWMA a sample and envelope
+            "m4_env_f32": (lambda: m4.m4_env_f32(*env_args), lambda: m4.m4_env_f32_ref(*env_args),
+                           16 * B + 128 + 64 * Nc, 8 * 3 * B + 4 * B),
+            # the state's pairs in and out (about 80 values and 10 rings of
+            # L), the ticks in, the coefficient sets, window and display out
+            # in float32; operations as the float64 engine's
+            "m4_event_f32": (lambda: m4.m4_event_f32(*ins), lambda: m4.m4_event_f32_ref(*ins),
+                             2 * 8 * (80 + 10 * Lr) + 64 * Nc + 4 * Nc * (48 + 4) + 2 * 256,
+                             (300 + 250 + 112) * Nc),
+            # float32 x, y, line, coefficient sets and states
+            "m4_audio_f32": (lambda: m4.m4_audio_f32(*a_ins), lambda: m4.m4_audio_f32_ref(*a_ins),
+                             4 * (B * (CHANNELS + n_out) + 2 * e.len + 48 * (Nc + 1) + 32),
+                             (40 + 12 + 64 + 10) * B),
+        }
+        for name, (kern, plain, nbytes, flops) in timed.items():
+            ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 2)
+            set_times(records[name], ms, plain_ms, nbytes, flops)
+            print(f"  {name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{records[name]['bound_ms']:.6f} ms ({records[name]['bound_by']})")
+
+    print("K1-df, K3, K9-K13 in float32 (matrix4_mb): the fshape, the bank, m4mb_env_f32, "
+          "m4mb_event_f32, m4mb_audio_f32 (3 blocks after 2 s of transients)")
+    for words, fs, B in MB_F32_CASES:
+        e, st = mb_effect(words, fs, B, f32)
+        x = torch.as_tensor(transient_signal(2.5, fs), dtype=f32, device="cuda")
+        warm = x.shape[0] // B - 3
+        for blk in range(warm):
+            st, _ = e.step(st, x[blk * B:(blk + 1) * B].contiguous())
+        plan = e._bank_plan(B)
+        rel = ulps = 0.0
+        for blk in range(warm, warm + 3):
+            xb = x[blk * B:(blk + 1) * B].contiguous()
+            _, s_pre = e._cascade("fsh", st["fshape_m"].reshape(2, 2, 2), xb)
+            _, (hi, lo) = iir.lti_blocked_df(plan, st["bank"]["fused"], s_pre.repeat(1, 13))
+            bands, bands_lo = hi.view(B, 13, 2), lo.view(B, 13, 2)
+            w = None if e.fmw is None else e.device_array("fmw", xb, torch.float64)
+            env_args = (bands, bands_lo, st["env_m"], st["env_m_lo"], e.g_env, w)
+            env_k, env_r = m4.m4mb_env_f32(*env_args), m4.m4mb_env_f32_ref(*env_args)
+            rel = max(rel, _rel(env_k[2], env_r[2]),
+                      _rel(env_k[0].double() + env_k[1].double(),
+                           env_r[0].double() + env_r[1].double()))
+            ins = (e.ctl, st["ev"], st["ev_lo"], st["ev_thresh"], st["ev_thresh_lo"], env_k[2],
+                   st["interp_y"], int(st["fade_p"]), bool(st["disable"]))
+            out_k, out_r = m4.m4mb_event_f32(*ins), m4.m4mb_event_f32_ref(*ins)
+            torch.cuda.synchronize()
+            r, u = _hold_engine(f"m4mb_event_f32 {words} at {fs} block {blk}", out_k, out_r,
+                                MB_F32_REL)
+            rel, ulps = max(rel, r), max(ulps, u)
+            a_ins = (e.audio, bands, st["fb_buf"], st["interp_c"], out_k[4], st["pf_m"])
+            for what, a, b in zip(("sig", "pf_m"), m4.m4mb_audio_f32(*a_ins),
+                                  m4.m4mb_audio_f32_ref(*a_ins)):
+                _hold_f32(records["m4mb_audio_f32"], f"m4mb_audio_f32 {words} block {blk} {what}",
+                          a, b)
+            st, _ = e.step(st, xb)
+        ev = st["ev"]
+        counters = {k: int(ev[k].sum()) for k in M4_DECISIONS}
+        print(f"  {words} at {fs} Hz, B={B} (bank L={plan.L}): decisions equal; (hi, lo) sums and "
+              f"envelopes within {rel:.3e} relative, ics/window/aux within {ulps:.2f} ulp; after "
+              f"{int(ev['t'][0])} ticks, over the 13 bands {counters}")
+        _require(f"matrix4_mb {words}: no event in the check's input",
+                 counters["diff_count"] + counters["ord_count"] > 0)
+        _require(f"m4mb_env_f32 {words}: {rel:.3e} relative", rel <= MB_F32_REL)
+        for name in ("m4mb_env_f32", "m4mb_event_f32"):
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"], rel)
+        if (words, fs, B) != MB_F32_CASES[0]:
+            continue
+        Nc, Lr, S = B // 32, e.ctl.p["buf_len"], 13
+        ins = ins[:-2] + (0, False)
+        a_ins = (e.audio, bands, st["fb_buf"], st["interp_c"], out_k[4], st["pf_m"])
+        timed = {
+            "m4mb_env_f32": (lambda: m4.m4mb_env_f32(*env_args),
+                             lambda: m4.m4mb_env_f32_ref(*env_args),
+                             8 * (2 * B * S + 2 * 8 * S + 8 * Nc * S), 8 * 3 * B * S + 4 * B * S),
+            "m4mb_event_f32": (lambda: m4.m4mb_event_f32(*ins),
+                               lambda: m4.m4mb_event_f32_ref(*ins),
+                               8 * (2 * S * (80 + 10 * Lr) + 2 * S + 8 * Nc * S)
+                               + 4 * (3 * Nc * S * 12 + 2 * 4 * S * 12 + 2 * Nc * S),
+                               (300 + 156 + 250) * S * Nc + 7 * S * 12 * Nc),
+            "m4mb_audio_f32": (lambda: m4.m4mb_audio_f32(*a_ins),
+                               lambda: m4.m4mb_audio_f32_ref(*a_ins),
+                               4 * (2 * B * S + 2 * min(B, e.fb_buf_len) * S
+                                    + 3 * (Nc + 1) * S * 12 + 2 * 4 * S + 4 * B),
+                               (48 + 12 + 10 + 6) * S * B),
+        }
+        for name, (kern, plain, nbytes, flops) in timed.items():
+            ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 2)
+            set_times(records[name], ms, plain_ms, nbytes, flops)
+            print(f"  {name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{records[name]['bound_ms']:.6f} ms ({records[name]['bound_by']})")
+
+
+REPLAY_SECONDS = 10
+# matrix4_mb's float32 audio path on the main input against the plain
+# float64 run: the coefficient sets are float32 (dsp_tpu's layout), and
+# rounding only them (the phase-flip allpass's coefficient near -1 meets
+# the 55 Hz tone) moves the output by as much as the float32 path's whole
+# difference (-118.4 dBFS on an NVIDIA H100 80GB HBM3, 700 W). The replay
+# shows it in every run: a float64 audio path fed the float32-rounded
+# inputs (the witness) is printed against the plain float64 run, and the
+# float32 path is held to F32_LIMIT_DBFS against the witness; against the
+# plain run only to this bound there, to F32_LIMIT_DBFS everywhere else
+MB_F32_REPLAY_DBFS = -110.0
+
+
+def control_split_signal(seconds, fs=FS):
+    """tests/test_f32_accuracy.py's control-split signal: a 440 Hz tone on
+    both channels (0.4 rad apart), a 97 Hz tone on the left and a
+    Hann-windowed noise burst on the right."""
+    import numpy as np
+
+    n = int(seconds * fs)
+    rng = np.random.default_rng(1)
+    t = np.arange(n) / fs
+    x = np.zeros((n, 2))
+    x[:, 0] = 0.35 * np.sin(2 * np.pi * 440 * t) + 0.1 * np.sin(2 * np.pi * 97 * t)
+    x[:, 1] = (0.35 * np.sin(2 * np.pi * 440 * t + 0.4)
+               + 0.1 * rng.standard_normal(n) * np.hanning(n))
+    return x
+
+
+def float32_control_replay(src):
+    """The float32 audio paths under float64 control, on the card (dsp_tpu
+    holds its float32 upmixes the same way, tests/test_f32_accuracy.py):
+    each upmix effect runs float64 _control and _audio, and its float32
+    _audio replays that control (the coefficient sets, and matrix4_mb's
+    bands, rounded to float32) on the float32 input. A float64 _audio fed
+    the same rounded inputs (the witness) isolates the audio path's own
+    precision: the float32 output within F32_LIMIT_DBFS of the witness,
+    and of the plain float64 output, on REPLAY_SECONDS of the control
+    split's signal and of the main path's input (src), matrix4_mb's on the
+    latter within MB_F32_REPLAY_DBFS of the plain float64 output."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+
+    B = 2048
+    inputs = (("the control split's signal", control_split_signal(REPLAY_SECONDS)),
+              ("the main input", read_wav(src, REPLAY_SECONDS * FS)[1]))
+    print(f"float32 audio paths under float64 control, {REPLAY_SECONDS} s")
+    for what, x in inputs:
+        n = len(x) // B
+        xs = torch.as_tensor(x[: n * B], device="cuda")
+        for words in (MATRIX4, MATRIX4_MB):
+            runs = {}
+            for dtype in (torch.float64, torch.float32):
+                cc = CompiledChain(build_chain_from_string(words, StreamInfo(FS, CHANNELS)), B,
+                                   dtype=dtype, device="cuda")
+                i = next(i for i, e in enumerate(cc._runtime_effects)
+                         if type(e).__name__.startswith("Matrix4"))
+                runs[dtype] = [cc._runtime_effects[i], cc.states[i]]
+            (e64, s64), (e32, s32) = runs[torch.float64], runs[torch.float32]
+            sw = s64  # the witness: float64 _audio on the float32-rounded inputs
+            worst = {"float64": 0.0, "witness": 0.0, "witness-float64": 0.0}
+            for b in range(n):
+                xb = xs[b * B:(b + 1) * B]
+                ctl = e64._control(s64, xb)
+                s64, y64 = e64._audio(s64, xb, ctl)
+                pinned = {k: ctl[k].float() for k in ("ics", "bands") if k in ctl}
+                s32, y32 = e32._audio(s32, xb.float(), dict(pinned, aux=s32["aux"]))
+                sw, yw = e64._audio(sw, xb.float().double(), dict(
+                    ctl, **{k: v.double() for k, v in pinned.items()}))
+                for key, (a, c) in (("float64", (y32.double(), y64)),
+                                    ("witness", (y32.double(), yw)),
+                                    ("witness-float64", (yw, y64))):
+                    worst[key] = max(worst[key], float((a - c).abs().max()))
+            limit = (MB_F32_REPLAY_DBFS if (words, what) == (MATRIX4_MB, "the main input")
+                     else F32_LIMIT_DBFS)
+            _require(f"{words}: the float32 audio path replay gave non-finite output",
+                     all(np.isfinite(v) for v in worst.values()))
+            print(f"  {words} on {what}: the float32 audio path under the float64 control: "
+                  f"max |diff| {worst['float64']:.3e} ({dbfs(worst['float64']):.1f} dBFS, "
+                  f"limit {limit}); against the witness {worst['witness']:.3e} "
+                  f"({dbfs(worst['witness']):.1f} dBFS, limit {F32_LIMIT_DBFS}); the witness "
+                  f"against float64 {dbfs(worst['witness-float64']):.1f} dBFS")
+            _require(f"{words} on {what}: float32 audio path {dbfs(worst['float64']):.1f} dBFS "
+                     f"from float64", dbfs(worst["float64"]) <= limit)
+            _require(f"{words} on {what}: float32 audio path {dbfs(worst['witness']):.1f} dBFS "
+                     f"from the witness", dbfs(worst["witness"]) <= F32_LIMIT_DBFS)
+
+
+def float32_phase(records, tmp, kept):
+    """The float32 mode (slices J1 to J3) on the card. Its kernels against
     their plain versions, on the same inputs: K1-df (lti_blocked_f32) on the flagship cascade
     (C = 2, n = 12) at B = 2048 and 65536 and on matrix4_mb's bank (C = 26,
     n = 40, L = 128) at B = 2048 with its (hi, lo) output; K3
@@ -1544,7 +2012,11 @@ def float32_phase(records, tmp):
     resample_fold, irfft_ola_f32) from 44.1 to 48 and 192 kHz. float32
     outputs within one float32 ulp of the output scale, (hi, lo) sums
     within F32_STATE_REL. Times each kernel and its plain version. Then
-    the float32 CLI runs (float32_cli) on the main path's input in tmp."""
+    slice J3's: K5-K7 in float32 (float32_fft_phase), the upmixes' K9-K13 in
+    float32 (float32_m4_phase) and their float32 audio paths under float64
+    control (float32_control_replay). Then the float32 CLI runs
+    (float32_cli) on the main path's input in tmp, against the float64
+    renders main_path kept (kept)."""
     import numpy as np
     import torch
 
@@ -1619,6 +2091,16 @@ def float32_phase(records, tmp):
             # float64 operations a sample and lane
             C = CHANNELS
             set_times(rec, ms, plain_ms, 4 * (2 * B * C + 8 * C) + 8 * 7 * C, 10 * B * C)
+    # the single float32 state matrix4_mb's fshape (2 lanes) and its inverse
+    # (4 lanes) hand in and out, a stage at a time
+    for C in (2, 4):
+        Ac, Bc, cc = A.repeat(C // 2, 1, 1), Bv.repeat(C // 2, 1), c0.repeat(C // 2)
+        x, st = f32(2048, C), f32(C, 2, scale=1e-2)
+        s_k, y_k = iir.biquad_scan_df(Ac, Bc, cc, st, x)
+        s_r, y_r = iir.biquad_scan_df_ref(Ac, Bc, cc, st, x)
+        torch.cuda.synchronize()
+        _hold_f32(rec, f"single state, B=2048, C={C}: y", y_k, y_r)
+        _hold_f32(rec, f"single state, B=2048, C={C}: the end state", s_k, s_r)
 
     print("K1-df -> K3 -> K1-df: the highpass's (hi, lo) state handed over (2048, 1000, 2048)")
     hp_plan = iir.BiquadBlockedPlan(hp.c)
@@ -1713,15 +2195,38 @@ def float32_phase(records, tmp):
                  "step_ms": step_ms})
             if out_fs == 48000:
                 set_times(records[name], ms, plain_ms, *io[name], library_ms=lib_ms)
-    float32_cli(records, tmp)
+    float32_fft_phase(records)
+    float32_m4_phase(records)
+    float32_control_replay(tmp / "in.wav")
+    float32_cli(records, tmp, kept)
 
 
-def float32_cli(records, tmp):
+# matrix4_mb's free run from the stream's start: its engines flip decisions
+# under any rounding where a band sits at crosstalk level (PARITY.md:192-214:
+# rounding only the input to float32 moves the band matrices by up to 0.124;
+# dsp_tpu's float32 free run on the TPU: -29 dBFS). Its first MB_ONSET[0] s
+# against the float64 render are held only to MB_F32_FREE_DBFS, which
+# catches a gross fault (measured on an NVIDIA H100 80GB HBM3, 700 W, a
+# second at a time: -36.7, -66.0, -98.8, -100.5 dBFS; the CPU: -36.8 in the
+# first 0.1 s); the rest of the run to MB_F32_LATE_DBFS, dsp_tpu's own bound
+# on its float32 free run (tests/test_f32_accuracy.py; measured there
+# -100.2 dBFS on the same card)
+MB_F32_FREE_DBFS = -20.0
+MB_F32_LATE_DBFS = -95.0
+
+
+def float32_cli(records, tmp, kept):
     """DSP_TPU_TORCH_DTYPE=float32 dsp-torch on the main path's 300 s input
-    (tmp/in.wav, written by main_path) for each of F32_RUNS, and the same
-    chain in float64 on the card: exact frame counts, the float32 run's
-    kernels launched and no float64 kernel, the two within F32_LIMIT_DBFS on
-    the whole run. Prints the measured dBFS and both runs' x realtime."""
+    (tmp/in.wav, written by main_path) for each of F32_RUNS and slice J3's
+    chains (matrix4 -6, matrix4_mb -6, fir 64k at blocks 65536 and 2048,
+    fir_p 1M at 2048), held against the same chain's float64 render on the
+    card: the one main_path kept where it kept one (kept, {(chain, block):
+    path}), else a float64 run here. Exact frame counts, the float32 run's
+    kernels launched and no float64 kernel, the two within F32_LIMIT_DBFS
+    on the whole run; matrix4_mb's free run within MB_F32_LATE_DBFS from
+    MB_ONSET[0] s on and within MB_F32_FREE_DBFS before, its difference
+    printed a second at a time for the first 10 s. Prints the measured dBFS
+    and the runs' x realtime."""
     import contextlib
     import io
     import os
@@ -1733,28 +2238,55 @@ def float32_cli(records, tmp):
     from dsp_tpu_torch.cli.main import main as cli_main
     from dsp_tpu_torch.core.types import StreamInfo
     from dsp_tpu_torch.ops import fft_conv, iir, resample_ops
+    from dsp_tpu_torch.ops import m4_engine as m4
 
     src = tmp / "in.wav"
     n_in = SECONDS * FS
     f32w = {"lti_blocked_f32": iir.lti_blocked_f32, "biquad_scan_df": iir.biquad_scan_df,
             "biquad_scan_f32": iir.biquad_scan_f32, "rfft_pack_f32": fft_conv.rfft_pack_f32,
             "resample_fold": resample_ops.resample_fold,
-            "irfft_ola_f32": resample_ops.irfft_ola_f32}
+            "irfft_ola_f32": resample_ops.irfft_ola_f32, "fdl_mac_f32": fft_conv.fdl_mac_f32,
+            "irfft_crop_f32": fft_conv.irfft_crop_f32, "splice_f32": fft_conv.splice_f32,
+            **{f"{name}_f32": getattr(m4, f"{name}_f32") for name in (
+                "m4_env", "m4_event", "m4_audio", "m4mb_env", "m4mb_event", "m4mb_audio")}}
     f64w = {"lti_blocked": iir.lti_blocked, "biquad_scan": iir.biquad_scan,
-            "rfft_pack": fft_conv.rfft_pack, "irfft_crop": fft_conv.irfft_crop}
-    expect = {FLAGSHIP: {2048: ("lti_blocked_f32", "biquad_scan_f32"),
-                         1000: ("biquad_scan_df", "biquad_scan_f32")},
-              "resample 48k": {2048: ("rfft_pack_f32", "resample_fold", "irfft_ola_f32")}}
+            **{name: getattr(fft_conv, name) for name in (
+                "rfft_pack", "fdl_mac", "irfft_crop", "splice")},
+            **{name: getattr(m4, name) for name in (
+                "m4_env", "m4_event", "m4_audio", "m4mb_env", "m4mb_event", "m4mb_audio")}}
+    fft = ("rfft_pack_f32", "fdl_mac_f32", "irfft_crop_f32", "splice_f32")
+    f64k, f1m = ["fir", str(tmp / "f64k.wav")], ["fir_p", str(tmp / "f1m.wav")]
+    # (label, words, block, the float32 kernels it must launch, the key of
+    # main_path's float64 render or None)
+    runs = [(f"{'flagship' if words == FLAGSHIP else words} -b {block}", words.split(), block,
+             {(FLAGSHIP, 2048): ("lti_blocked_f32", "biquad_scan_f32"),
+              (FLAGSHIP, 1000): ("biquad_scan_df", "biquad_scan_f32"),
+              ("resample 48k", 2048): ("rfft_pack_f32", "resample_fold",
+                                       "irfft_ola_f32")}[words, block],
+             (words, block)) for words, block in F32_RUNS]
+    runs += [
+        ("matrix4 -6 -b 2048", MATRIX4.split(), 2048,
+         ("lti_blocked_f32", "m4_env_f32", "m4_event_f32", "m4_audio_f32", "splice_f32"),
+         (MATRIX4, 2048)),
+        ("matrix4_mb -6 -b 2048", MATRIX4_MB.split(), 2048,
+         fft + ("biquad_scan_df", "lti_blocked_f32", "m4mb_env_f32", "m4mb_event_f32",
+                "m4mb_audio_f32"), (MATRIX4_MB, 2048)),
+        ("fir 64k -b 65536 (OLS)", f64k, 65536, fft, ("fir 64k", 65536)),
+        ("fir 64k -b 2048 (Upols, K = 32)", f64k, 2048, fft, ("fir 64k", 2048)),
+        ("fir_p 1M -b 2048 (Nupols, m = 32)", f1m, 2048, fft, ("fir_p 1M", 2048)),
+    ]
     print(f"float32 mode: dsp-torch on {SECONDS} s, float32 against float64 on the card")
-    for words, block in F32_RUNS:
-        label = f"{'flagship' if words == FLAGSHIP else words} -b {block}"
-        chain = build_chain_from_args(words.split(), StreamInfo(FS, CHANNELS))
+    for label, words, block, expect, key in runs:
+        chain = build_chain_from_args(words, StreamInfo(FS, CHANNELS))
         want = expected_out_frames(chain, n_in) - chain.output_discard
         walls, ys = {}, {}
         for dtype in ("float64", "float32"):
+            if dtype == "float64" and key in kept:
+                ys[dtype] = read_wav(kept.pop(key))
+                continue
             out = tmp / f"out_{dtype}.wav"
             argv = (["-b", str(block)] if block != 2048 else []) + [
-                "-q", str(src), "-o", "-e", "double", str(out), *words.split()]
+                "-q", str(src), "-o", "-e", "double", str(out), *words]
             for w in (*f32w.values(), *f64w.values()):
                 w.launches = 0
             os.environ["DSP_TPU_TORCH_DTYPE"] = dtype
@@ -1769,7 +2301,7 @@ def float32_cli(records, tmp):
             if rc != 0:
                 raise SmokeError(f"{label} {dtype}: dsp-torch exited {rc}: {err.getvalue()[-2000:]}")
             if dtype == "float32":
-                counts = {name: f32w[name].launches for name in expect[words][block]}
+                counts = {name: f32w[name].launches for name in expect}
                 stray = {name: w.launches for name, w in f64w.items() if w.launches}
                 print(f"  {label}: float32 launches {counts}")
                 _require(f"{label}: a float32 kernel was not launched: {counts}",
@@ -1777,25 +2309,44 @@ def float32_cli(records, tmp):
                 _require(f"{label}: float64 kernels ran in the float32 chain: {stray}", not stray)
                 for name, c in counts.items():
                     records[name]["launches"] += c
-            got, ys[dtype] = read_wav(out)
+            ys[dtype] = read_wav(out)
             out.unlink()
+        for dtype, (got, _) in ys.items():
             _require(f"{label} {dtype}: {got} output frames, expected {want}", got == want)
-        y32, y64 = ys["float32"], ys["float64"]
+        y32, y64 = ys["float32"][1], ys["float64"][1]
         if not np.isfinite(y32).all():
             raise SmokeError(f"{label}: non-finite float32 output")
         diff = float(np.abs(y32 - y64).max())
+        wall64 = (f"float64 {walls['float64']:.3f} s, {SECONDS / walls['float64']:.1f}x"
+                  if "float64" in walls else "float64 kept from the main path")
         print(f"  {label}: float32 {walls['float32']:.3f} s wall, "
-              f"{SECONDS / walls['float32']:.1f}x realtime; float64 {walls['float64']:.3f} s, "
-              f"{SECONDS / walls['float64']:.1f}x; float32 against float64 on all {SECONDS} s: "
-              f"max |diff| {diff:.3e} ({dbfs(diff):.1f} dBFS, limit {F32_LIMIT_DBFS})")
-        _require(f"{label}: float32 {dbfs(diff):.1f} dBFS from float64", dbfs(diff) <= F32_LIMIT_DBFS)
+              f"{SECONDS / walls['float32']:.1f}x realtime; {wall64}; float32 against float64 on "
+              f"all {SECONDS} s: max |diff| {diff:.3e} ({dbfs(diff):.1f} dBFS)")
+        limit = F32_LIMIT_DBFS
+        if key == (MATRIX4_MB, 2048):
+            per_s = [float(np.abs(y32[i:i + FS] - y64[i:i + FS]).max())
+                     for i in range(0, COMPARE_SECONDS * FS, FS)]
+            n0 = int(MB_ONSET[0] * FS)
+            late = float(np.abs(y32[n0:] - y64[n0:]).max(initial=0.0))
+            print(f"  {label}: the free run against float64, a second at a time (dBFS): "
+                  + " ".join(f"{dbfs(e):.1f}" for e in per_s)
+                  + f"; after {MB_ONSET[0]:g} s {dbfs(late):.1f} (limit {MB_F32_LATE_DBFS})")
+            _require(f"{label}: float32 {dbfs(late):.1f} dBFS from float64 after "
+                     f"{MB_ONSET[0]:g} s (limit {MB_F32_LATE_DBFS})", dbfs(late) <= MB_F32_LATE_DBFS)
+            diff = float(np.abs(y32[:n0] - y64[:n0]).max())
+            limit = MB_F32_FREE_DBFS
+        _require(f"{label}: float32 {dbfs(diff):.1f} dBFS from float64 (limit {limit})",
+                 dbfs(diff) <= limit)
+    for path in kept.values():  # renders no float32 run asked for
+        path.unlink(missing_ok=True)
 
 
 def float32_no_sync():
     """A float32 chain's step does not synchronise: run_blocks over 16
     blocks of input already on the card, under
     torch.cuda.set_sync_debug_mode("error"), for the flagship at blocks
-    2048 (K1-df) and 1000 (K3) and resample 48k."""
+    2048 (K1-df) and 1000 (K3), resample 48k, matrix4 -6 and matrix4_mb -6
+    (with its phase-linearising FIR)."""
     import numpy as np
     import torch
 
@@ -1803,7 +2354,7 @@ def float32_no_sync():
     from dsp_tpu_torch.core.types import StreamInfo
 
     rng = np.random.default_rng(14)
-    for words, block in F32_RUNS:
+    for words, block in F32_RUNS + F32_UPMIXES:
         cc = CompiledChain(build_chain_from_string(words, StreamInfo(FS, CHANNELS)), block,
                            dtype=torch.float32, device="cuda")
         B = cc.block_frames
@@ -1822,12 +2373,14 @@ def float32_no_sync():
         if ys.dtype != torch.float32 or not torch.isfinite(ys).all():
             raise SmokeError(f"float32 {words} -b {block}: output {ys.dtype}, finite "
                              f"{bool(torch.isfinite(ys).all())}")
-    print("float32 steps: the flagship at blocks 2048 and 1000 and resample 48k ran 16 blocks "
-          "each with no host sync")
+    print("float32 steps: the flagship at blocks 2048 and 1000, resample 48k, matrix4 -6 and "
+          "matrix4_mb -6 ran 16 blocks each with no host sync")
 
 
 def main_path(records, seconds, tmp):
-    """The flagship chain, then the FFT-convolution paths, file to file."""
+    """The flagship chain, then the FFT-convolution paths, file to file.
+    Returns the 1M- and 4k-tap filter files and the float64 renders it kept
+    for the float32 phase ({(chain, block): path})."""
     import os
 
     from dsp_tpu_torch.ops import fft_conv, iir
@@ -1839,24 +2392,32 @@ def main_path(records, seconds, tmp):
           f"{src.stat().st_size / 1e6:.1f} MB) in {time.perf_counter() - t0:.2f} s")
     os.environ["DSP_TPU_TORCH_DEVICE"] = "cuda"
     common = (records, src, n_in, head, seconds, tmp)
+    kept = {}
+
+    def keep(key):  # a float64 render the float32 phase compares with
+        kept[key] = tmp / f"f64_{len(kept)}.wav"
+        return kept[key]
+
     k12 = {"lti_blocked": iir.lti_blocked, "biquad_scan": iir.biquad_scan}
     for block in (2048, 65536):
-        cli_run(f"flagship -b {block}", FLAGSHIP.split(), block, k12, *common)
+        cli_run(f"flagship -b {block}", FLAGSHIP.split(), block, k12, *common,
+                keep=keep((FLAGSHIP, block)) if block == 2048 else None)
 
     f64k, f1m = tmp / "f64k.wav", tmp / "f1m.wav"
     write_filter(f64k, 1 << 16, seed=0xBE)
     write_filter(f1m, 1 << 20, seed=0xBF)
     mac = {name: getattr(fft_conv, name)
            for name in ("rfft_pack", "fdl_mac", "irfft_crop", "splice")}
-    for label, words, block, wrappers in (
-        ("fir 64k -b 65536 (OLS)", ["fir", str(f64k)], 65536, mac),
-        ("fir 64k -b 2048 (Upols, K = 32)", ["fir", str(f64k)], 2048, mac),
-        ("fir_p 1M -b 2048 (Nupols, m = 32)", ["fir_p", str(f1m)], 2048, mac),
-        ("fir_p 1M -b 65536 (Upols, K = 16)", ["fir_p", str(f1m)], 65536, mac),
+    for label, words, block, wrappers, kept_as in (
+        ("fir 64k -b 65536 (OLS)", ["fir", str(f64k)], 65536, mac, "fir 64k"),
+        ("fir 64k -b 2048 (Upols, K = 32)", ["fir", str(f64k)], 2048, mac, "fir 64k"),
+        ("fir_p 1M -b 2048 (Nupols, m = 32)", ["fir_p", str(f1m)], 2048, mac, "fir_p 1M"),
+        ("fir_p 1M -b 65536 (Upols, K = 16)", ["fir_p", str(f1m)], 65536, mac, None),
         ("crossover_lr4_2kHz_riir_linphase -b 2048", [f"@{CROSSOVER}"], 2048,
-         {"lti_blocked": iir.lti_blocked, **mac}),
+         {"lti_blocked": iir.lti_blocked, **mac}, None),
     ):
-        cli_run(label, words, block, wrappers, *common)
+        cli_run(label, words, block, wrappers, *common,
+                keep=None if kept_as is None else keep((kept_as, block)))
 
     from dsp_tpu_torch.ops import time_domain as td
 
@@ -1882,7 +2443,8 @@ def main_path(records, seconds, tmp):
     # slices D and E: the upmixes
     m4w = {"biquad_scan": iir.biquad_scan, "m4_env": m4.m4_env, "m4_event": m4.m4_event,
            "m4_audio": m4.m4_audio, "splice": fft_conv.splice}
-    cli_run("matrix4 -6 -b 2048 (44.1 kHz -> 4 ch)", MATRIX4.split(), 2048, m4w, *common)
+    cli_run("matrix4 -6 -b 2048 (44.1 kHz -> 4 ch)", MATRIX4.split(), 2048, m4w, *common,
+            keep=keep((MATRIX4, 2048)))
     cli_run("resample 48k matrix4 -6 -b 2048 (48 kHz quad)", UPMIX48.split(), 2048,
             {**m4w, "rfft_pack": fft_conv.rfft_pack, "resample_fold": resample_ops.resample_fold,
              "irfft_crop": fft_conv.irfft_crop}, *common, onset=ONSET)
@@ -1896,7 +2458,7 @@ def main_path(records, seconds, tmp):
            "splice": fft_conv.splice, "rfft_pack": fft_conv.rfft_pack,
            "fdl_mac": fft_conv.fdl_mac, "irfft_crop": fft_conv.irfft_crop}
     cli_run("matrix4_mb -6 -b 2048 (44.1 kHz -> 4 ch)", MATRIX4_MB.split(), 2048, mbw, *common,
-            onset=MB_ONSET, compare=MB_COMPARE_SECONDS)
+            onset=MB_ONSET, compare=MB_COMPARE_SECONDS, keep=keep((MATRIX4_MB, 2048)))
     records["lti_blocked@bank"]["launches"] += iir.lti_blocked.launches
     cli_run("mixed -b 2048 (eq, delay -f, fir 4k, matrix4_mb)", mixed_chain(f4k).split(), 2048,
             mbw, *common, onset=MB_ONSET, compare=MB_COMPARE_SECONDS)
@@ -1904,7 +2466,7 @@ def main_path(records, seconds, tmp):
     n60, head60 = write_input(src60, 60)
     cli_run("examples/matrix4_mb_2_4 -b 2048 (6 ch)", [f"@{MB_EXAMPLE}"], 2048, mbw, records, src60,
             n60, head60, 60, tmp, onset=MB_ONSET, compare=MB_COMPARE_SECONDS)
-    return f1m, f4k
+    return f1m, f4k, kept
 
 
 def nupols_no_sync(f1m):
@@ -1998,11 +2560,32 @@ def main():
              "dsp_tpu/ops/iir.py:77 in float32 (effects/crossfeed.py:48, effects/delay.py:172)",
              "float32, crossfeed: C=4, B=2048"),
             ("rfft_pack_f32", "fft_conv",
-             "dsp_tpu/ops/resample_ops.py:191 (dfx_fft.py:30,123: the forward DfDft)",
+             "dsp_tpu/ops/resample_ops.py:191 (dfx_fft.py:30,123: the forward DfDft); "
+             "dsp_tpu/ops/fft_conv.py:97,144,220 (complex64)",
              "float32, 48 kHz: N=1176, 8 columns"),
             ("irfft_ola_f32", "fft_conv",
              "dsp_tpu/ops/resample_ops.py:191-233 (dfx_fft.py:30,123: the inverse DfDft)",
              "float32, 48 kHz: N=1280, 8 columns"),
+            ("fdl_mac_f32", "fdl_mac", "dsp_tpu/ops/fft_conv.py:97,144,220 (complex64)",
+             "float32 FDL, K=32, NB=2049, C=2"),
+            ("irfft_crop_f32", "fft_conv", "dsp_tpu/ops/fft_conv.py:97,144,220 (complex64)",
+             "float32, N=4096, C=2, with the addend"),
+            ("splice_f32", "fft_conv", "dsp_tpu/ops/fft_conv.py:97,144,220",
+             "float32, L=2048, C=2"),
+            ("m4_env_f32", "m4_env", "dsp_tpu/ops/m4_engine.py:267 (df=True)", "float32, B=2048"),
+            ("m4_event_f32", "m4_event",
+             "dsp_tpu/ops/m4_engine.py:395 over dfx.DF, :225 (dfx.py:113-520)",
+             "float32, Nc=64, v4, S=1"),
+            ("m4_audio_f32", "m4_audio", "dsp_tpu/effects/matrix4.py:597,673,699 in float32",
+             "float32, B=2048, v4"),
+            ("m4mb_env_f32", "m4_env",
+             "dsp_tpu/ops/m4_engine.py:267 (df=True; effects/matrix4_mb.py:397-432)",
+             "float32, B=2048, S=13"),
+            ("m4mb_event_f32", "m4_event",
+             "dsp_tpu/ops/m4_engine.py:395 over dfx.DF (effects/matrix4_mb.py:445-551)",
+             "float32, Nc=64, v4, 13 bands"),
+            ("m4mb_audio_f32", "m4mb_audio", "dsp_tpu/effects/matrix4_mb.py:569,778 in float32",
+             "float32, B=2048, v4"),
         )
     }
     tmp = ROOT / ".smoke_tmp" / "run"  # removed at the end; scratch scripts may sit beside it
@@ -2010,25 +2593,34 @@ def main():
         print(card_info())
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"{torch.cuda.get_device_name(0)}")
-        build_kernels()
-        kernel_phases(records)
-        fdl_mac_phase(records["fdl_mac"])
-        step_kernels_phase(records)
-        time_domain_phase(records)
-        resample_phase(records["resample_fold"])
-        matrix4_phase(records)
-        matrix4_mb_phase(records)
-        bench_golden_check()
-        mb_golden_check()
+        t0 = time.perf_counter()
+
+        def timed(fn, *args):  # a phase, with its wall seconds printed
+            t = time.perf_counter()
+            out = fn(*args)
+            print(f"[{fn.__name__}: {time.perf_counter() - t:.1f} s, "
+                  f"{time.perf_counter() - t0:.1f} s in all]")
+            return out
+
+        timed(build_kernels)
+        timed(kernel_phases, records)
+        timed(fdl_mac_phase, records["fdl_mac"])
+        timed(step_kernels_phase, records)
+        timed(time_domain_phase, records)
+        timed(resample_phase, records["resample_fold"])
+        timed(matrix4_phase, records)
+        timed(matrix4_mb_phase, records)
+        timed(bench_golden_check)
+        timed(mb_golden_check)
         tmp.mkdir(parents=True, exist_ok=True)
-        f1m, f4k = main_path(records, SECONDS, tmp)
-        float32_phase(records, tmp)
-        nupols_no_sync(f1m)
-        delivery_no_sync()
-        matrix4_no_sync()
-        matrix4_mb_no_sync()
-        float32_no_sync()
-        profile_chains(f4k)
+        f1m, f4k, kept = timed(main_path, records, SECONDS, tmp)
+        timed(float32_phase, records, tmp, kept)
+        timed(nupols_no_sync, f1m)
+        timed(delivery_no_sync)
+        timed(matrix4_no_sync)
+        timed(matrix4_mb_no_sync)
+        timed(float32_no_sync)
+        timed(profile_chains, f4k, tmp / "f64k.wav")
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -7,11 +7,14 @@
 // for crossfeed, crossfeed.py:42-48, and the Thiran delay, delay.py:172).
 // K3 replaces iir.py:89 `biquad_scan_df` (dsp_biquad_scan_df): float32
 // samples and a [2, C, 2] float32 (hi, lo) state, with float64
-// coefficients. dsp_tpu composes its affine maps in two-float32 arithmetic
-// there, because the TPU has no usable float64 and a plain float32 scan of
-// a near-DC pole loses ~60 dB; here the same kernel runs with float64
-// registers, reads x and the state pair (hi + lo) into float64, and stores
-// y rounded once and the end state split hi = (float)s, lo = (float)(s - hi).
+// coefficients; dsp_biquad_scan_df1 takes a single [C, 2] float32 state,
+// as `biquad_scan_auto` (iir.py:129) hands it in and out. dsp_tpu composes
+// its affine maps in two-float32 arithmetic there, because the TPU has no
+// usable float64 and a plain float32 scan of a near-DC pole loses ~60 dB;
+// here the same kernel runs with float64 registers, reads x and the state
+// (hi + lo) into float64, and stores y rounded once and the end state
+// split hi = (float)s, lo = (float)(s - hi), or, single, rounded once
+// (dsp_tpu's float32 hi + lo is that hi).
 // For each lane c, with any 2x2 A (the coupled
 // form from BiquadEffect or the companion form from crossfeed; the kernel
 // assumes neither):
@@ -211,4 +214,12 @@ extern "C" int dsp_biquad_scan_df(const double* A, const double* Bv, const doubl
                                   const float* state_in, float* state_out, const float* x,
                                   float* y, int B, int C, void* stream) {
     return biquad_scan<float, double, true>(A, Bv, c0, state_in, state_out, x, y, B, C, stream);
+}
+
+// K3 with a single float32 state [C, 2]: float64 coefficients and
+// registers, float32 samples, the end state rounded once.
+extern "C" int dsp_biquad_scan_df1(const double* A, const double* Bv, const double* c0,
+                                   const float* state_in, float* state_out, const float* x,
+                                   float* y, int B, int C, void* stream) {
+    return biquad_scan<float, double, false>(A, Bv, c0, state_in, state_out, x, y, B, C, stream);
 }

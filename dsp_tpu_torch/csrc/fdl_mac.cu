@@ -29,9 +29,21 @@
 
 namespace {
 
+// The FDL's slots as dsp_tpu stores them: float64 (re, im) pairs, or
+// float32 pairs under float32 (read into float64, written rounded)
+__device__ __forceinline__ double2 fdl_load(const double2& v) { return v; }
+__device__ __forceinline__ double2 fdl_load(const float2& v) {
+    return make_double2((double)v.x, (double)v.y);
+}
+__device__ __forceinline__ void fdl_store(double2& d, double2 v) { d = v; }
+__device__ __forceinline__ void fdl_store(float2& d, double2 v) {
+    d = make_float2((float)v.x, (float)v.y);
+}
+
+template <class F>
 __global__ void fdl_mac_kernel(const double2* __restrict__ X, const double2* __restrict__ H,
-                               const double2* __restrict__ fdl_in, double2* __restrict__ Y,
-                               double2* __restrict__ fdl_out, long long n, int K) {
+                               const F* __restrict__ fdl_in, double2* __restrict__ Y,
+                               F* __restrict__ fdl_out, long long n, int K) {
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
         const double2 x = X[i];
@@ -40,18 +52,35 @@ __global__ void fdl_mac_kernel(const double2* __restrict__ X, const double2* __r
         double im = x.x * h0.y;
         re = fma(-x.y, h0.y, re);
         im = fma(x.y, h0.x, im);
-        if (fdl_out != nullptr) fdl_out[i] = x;
+        if (fdl_out != nullptr) fdl_store(fdl_out[i], x);
         for (int k = 1; k < K; ++k) {
-            const double2 d = fdl_in[(long long)(k - 1) * n + i];
+            const F raw = fdl_in[(long long)(k - 1) * n + i];
+            const double2 d = fdl_load(raw);
             const double2 h = H[(long long)k * n + i];
             re = fma(d.x, h.x, re);
             re = fma(-d.y, h.y, re);
             im = fma(d.x, h.y, im);
             im = fma(d.y, h.x, im);
-            fdl_out[(long long)k * n + i] = d;
+            fdl_out[(long long)k * n + i] = raw;
         }
         Y[i] = make_double2(re, im);
     }
+}
+
+template <class F>
+int launch(const void* X, const void* H, const void* fdl_in, void* Y, void* fdl_out,
+           long long n, int K, void* stream) {
+    if (n <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+    if (K > 1 && (fdl_in == nullptr || fdl_out == nullptr)) return (int)cudaErrorInvalidValue;
+    if ((fdl_in == nullptr) != (fdl_out == nullptr)) return (int)cudaErrorInvalidValue;
+    const int threads = 256;
+    long long blocks = (n + threads - 1) / threads;
+    if (blocks > 132 * 16) blocks = 132 * 16;  // 16 blocks per SM, then grid-stride
+    fdl_mac_kernel<F><<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const double2*>(X), static_cast<const double2*>(H),
+        static_cast<const F*>(fdl_in), static_cast<double2*>(Y), static_cast<F*>(fdl_out), n,
+        K);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -60,15 +89,13 @@ __global__ void fdl_mac_kernel(const double2* __restrict__ X, const double2* __r
 // The caller checks shapes, dtypes, contiguity and 16-byte alignment.
 extern "C" int dsp_fdl_mac_c128(const void* X, const void* H, const void* fdl_in, void* Y,
                                 void* fdl_out, long long n, int K, void* stream) {
-    if (n <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-    if (K > 1 && (fdl_in == nullptr || fdl_out == nullptr)) return (int)cudaErrorInvalidValue;
-    if ((fdl_in == nullptr) != (fdl_out == nullptr)) return (int)cudaErrorInvalidValue;
-    const int threads = 256;
-    long long blocks = (n + threads - 1) / threads;
-    if (blocks > 132 * 16) blocks = 132 * 16;  // 16 blocks per SM, then grid-stride
-    fdl_mac_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const double2*>(X), static_cast<const double2*>(H),
-        static_cast<const double2*>(fdl_in), static_cast<double2*>(Y),
-        static_cast<double2*>(fdl_out), n, K);
-    return (int)cudaGetLastError();
+    return launch<double2>(X, H, fdl_in, Y, fdl_out, n, K, stream);
+}
+
+// The same with the FDL as float32 (re, im) pairs (8-byte aligned): X, H
+// and Y complex128, the slots read into float64 and X stored rounded as the
+// newest slot.
+extern "C" int dsp_fdl_mac_f32(const void* X, const void* H, const void* fdl_in, void* Y,
+                               void* fdl_out, long long n, int K, void* stream) {
+    return launch<float2>(X, H, fdl_in, Y, fdl_out, n, K, stream);
 }

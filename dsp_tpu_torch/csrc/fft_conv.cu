@@ -53,6 +53,12 @@
 //   float32 overlap carried out. So the sums stay float64 from the
 //   float32 input to the float32 output, which the two-float32 transforms
 //   only approach, and the store takes no extra pass.
+//
+// float32 FFT convolution (dsp_tpu runs K5-K7 in complex64 under float32,
+// fft_conv.py:97, :144, :220): the engines' steps take rfft_pack_f32 (the
+// float32 [a | x] pack), irfft_crop_f32 (the crop, and the Nupols tail's
+// float32 addend added in float64, stored rounded once) and splice_f32; the
+// transforms between stay float64.
 
 #include <cuda_runtime.h>
 
@@ -62,7 +68,9 @@ constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 132 * 16;  // 16 blocks per SM, then grid-stride
 
 enum LoadMode { kLoadComplex = 0, kLoadRealPack = 1, kLoadHermitian = 2, kLoadRealPackF32 = 3 };
-enum StoreMode { kStoreComplex = 0, kStoreRealCrop = 1, kStoreOlaF32 = 2 };
+enum StoreMode {
+    kStoreComplex = 0, kStoreRealCrop = 1, kStoreOlaF32 = 2, kStoreRealCropF32 = 3
+};
 
 struct Load {
     int mode;
@@ -89,6 +97,8 @@ struct Store {
     const float* ov_in; // kStoreOlaF32: [N / 2, ch]
     double ratio;       // kStoreOlaF32: applied after scale
     int ch;             // kStoreOlaF32: channels; C / ch inner blocks
+    float* rf;          // kStoreRealCropF32: [L, C], with lo, L, scale
+    const float* addf;  // kStoreRealCropF32: [L, C] or null
 };
 
 __device__ __forceinline__ double2 load_point(const Load& ld, long long n, int c, int C, int N) {
@@ -145,15 +155,20 @@ __global__ void fft_stage_kernel(Load ld, Store st, int N, int C, int R, int Ns,
         const int d = i / C;
         const int c = i % C;
         if (st.mode == kStoreComplex && d >= st.keep) continue;
-        if (st.mode == kStoreRealCrop && (d < st.lo || d >= st.lo + st.L)) continue;
+        if (st.mode != kStoreComplex && (d < st.lo || d >= st.lo + st.L)) continue;
         const double2 acc = stage_point(ld, d, c, N, C, R, Ns, sign);
         if (st.mode == kStoreComplex) {
             st.c[i] = acc;
-        } else {
+        } else if (st.mode == kStoreRealCrop) {
             const long long o = (d - st.lo) * C + c;
             double y = acc.x * st.scale;
             if (st.add != nullptr) y += st.add[o];
             st.r[o] = y;
+        } else {
+            const long long o = (d - st.lo) * C + c;
+            double y = acc.x * st.scale;
+            if (st.addf != nullptr) y += (double)st.addf[o];
+            st.rf[o] = (float)y;
         }
     }
 }
@@ -189,8 +204,9 @@ __global__ void fft_ola_f32_kernel(Load ld, Store st, int N, int C, int R, int N
     }
 }
 
-__global__ void splice_kernel(const double* __restrict__ a, const double* __restrict__ x,
-                              double* __restrict__ out, long long L, long long Lx, long long lo,
+template <class T>
+__global__ void splice_kernel(const T* __restrict__ a, const T* __restrict__ x,
+                              T* __restrict__ out, long long L, long long Lx, long long lo,
                               long long shift, int C) {
     const long long total = L * C;
     const long long stride = (long long)gridDim.x * blockDim.x;
@@ -292,6 +308,22 @@ extern "C" int dsp_irfft_crop_c128(const void* Y, void* work, void* out, long lo
                    static_cast<cudaStream_t>(stream));
 }
 
+// irfft_crop with a float32 out and add: the inverse in float64, each
+// point rounded once on its store.
+extern "C" int dsp_irfft_crop_f32(const void* Y, void* work, void* out, long long lo, long long L,
+                                  const void* add, int N, int C, void* stream) {
+    if (N <= 0 || C <= 0 || (long long)N * C >= (1LL << 31) || L <= 0 || lo < 0 || lo + L > N) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const Load first{kLoadHermitian, static_cast<const double2*>(Y), nullptr, 0, nullptr, 0,
+                     N / 2 + 1};
+    Store last{kStoreRealCropF32, nullptr, 0, nullptr, lo, L, nullptr, 1.0 / N};
+    last.rf = static_cast<float*>(out);
+    last.addf = static_cast<const float*>(add);
+    return run_fft(first, last, static_cast<double2*>(work), N, C, -1.0,
+                   static_cast<cudaStream_t>(stream));
+}
+
 // rfft_pack on float32 a and x: the spectrum is complex128.
 extern "C" int dsp_rfft_pack_f32(const void* a, long long La, const void* x, long long Lx,
                                  void* X, void* work, int N, int C, void* stream) {
@@ -328,13 +360,25 @@ extern "C" int dsp_irfft_ola_f32(const void* Y, void* work, void* y, void* ov_ou
                    static_cast<cudaStream_t>(stream));
 }
 
+template <class T>
+int splice(const void* a, const void* x, void* out, long long L, long long Lx, long long lo,
+           long long shift, int C, void* stream) {
+    if (L <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+    splice_kernel<T><<<grid_for(L * C), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(a), static_cast<const T*>(x), static_cast<T*>(out), L, Lx, lo,
+        shift, C);
+    return (int)cudaGetLastError();
+}
+
 // out[n, c] = x[n - lo, c] for lo <= n < lo + Lx, else a[n + shift, c];
 // n in [0, L). Every row read lies inside its tensor (the caller checks).
 extern "C" int dsp_splice_f64(const void* a, const void* x, void* out, long long L, long long Lx,
                               long long lo, long long shift, int C, void* stream) {
-    if (L <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-    splice_kernel<<<grid_for(L * C), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const double*>(a), static_cast<const double*>(x), static_cast<double*>(out),
-        L, Lx, lo, shift, C);
-    return (int)cudaGetLastError();
+    return splice<double>(a, x, out, L, Lx, lo, shift, C, stream);
+}
+
+// The same on float32.
+extern "C" int dsp_splice_f32(const void* a, const void* x, void* out, long long L, long long Lx,
+                              long long lo, long long shift, int C, void* stream) {
+    return splice<float>(a, x, out, L, Lx, lo, shift, C, stream);
 }

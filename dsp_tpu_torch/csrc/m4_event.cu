@@ -1,5 +1,5 @@
-// K9 + K10: matrix4's event engine and matrix coefficients, float64, for
-// Hopper (sm_90a).
+// K9 + K10: matrix4's event engine and matrix coefficients, float64 or
+// float32, for Hopper (sm_90a).
 //
 // Replaces dsp_tpu/ops/m4_engine.py:395 `event_step` (with `smf_asym_run`,
 // :192), as effects/matrix4.py:482-503 scans it over the Nc = B/32 control
@@ -43,8 +43,26 @@
 // sqrt are the CUDA math library's, as torch's CUDA ops call them. The
 // decisions (booleans, counters, tick stamps) are exact comparisons of those
 // values.
+//
+// float32 (`dsp_m4_event_f32`, `dsp_m4mb_event_f32`): dsp_tpu runs the whole
+// control path of both upmixes in two-float32 under float32
+// (`event_step` over dfx.DF with cast_params(df=True), m4_engine.py:225,
+// and dfx's add, multiply, divide, sqrt, sin, cos, tan, exp and atan_pos,
+// dfx.py:113-520). These entries run the same float64 code: every float
+// leaf of the event state comes in as its float32 (hi, lo) pair (`ev`,
+// `ev_lo`; the background weight's `bg_cs`, `bg_cs_lo`; the thresholds'
+// `ev_thresh`, `ev_thresh_lo`), is read into float64 registers and goes out
+// split again (f32_pair.cuh). The per-tick values are rounded to float32
+// where dsp_tpu collapses its pairs, before the interpolator insert; the
+// insert runs in float64 on those values and stores the coefficient sets,
+// the window and the display values in float32, so the coefficient set a
+// block carries equals the one computed inside the next, whatever the
+// block size. The kernels are templates on the state's pointers and the
+// output's storage type.
 
 #include <cuda_runtime.h>
+
+#include "f32_pair.cuh"
 
 namespace {
 
@@ -79,6 +97,14 @@ enum { I_T, I_T_SAMPLE, I_T_HOLD, I_BUF_P, I_ORD_COUNT, I_DIFF_COUNT, I_EARLY_CO
 struct EvPtrs {
     unsigned char* b[NB];
     double* f[NF];
+    long long* i[NI];
+};
+
+// The same under float32: each float leaf as its (hi, lo) pair.
+struct EvPtrsF32 {
+    unsigned char* b[NB];
+    float* f[NF];
+    float* lo[NF];
     long long* i[NI];
 };
 
@@ -185,8 +211,27 @@ struct Ev {
     double *ord_buf, *ord_lp_buf, *diff_buf, *slope_buf, *ds_ord_buf, *max_buf;
 };
 
-__device__ void copy_vals(double* dst, const double* src, int n) {
-    for (int k = 0; k < n; ++k) dst[k] = src[k];
+// element k of float leaf `idx`, read into and written from float64
+__device__ __forceinline__ double leaf_get(const EvPtrs& P, int idx, size_t k) {
+    return P.f[idx][k];
+}
+__device__ __forceinline__ double leaf_get(const EvPtrsF32& P, int idx, size_t k) {
+    return pair_load(P.f[idx], P.lo[idx], k);
+}
+__device__ __forceinline__ void leaf_put(const EvPtrs& P, int idx, size_t k, double v) {
+    P.f[idx][k] = v;
+}
+__device__ __forceinline__ void leaf_put(const EvPtrsF32& P, int idx, size_t k, double v) {
+    pair_store(P.f[idx], P.lo[idx], k, v);
+}
+
+template <class P>
+__device__ void load_vals(double* dst, const P& in, int idx, size_t off, int n) {
+    for (int k = 0; k < n; ++k) dst[k] = leaf_get(in, idx, off + k);
+}
+template <class P>
+__device__ void store_vals(const P& out, int idx, size_t off, const double* src, int n) {
+    for (int k = 0; k < n; ++k) leaf_put(out, idx, off + k, src[k]);
 }
 
 // The float leaves held in registers: (Ev member, leaf, values a lane).
@@ -203,33 +248,35 @@ __device__ void copy_vals(double* dst, const double* src, int n) {
     X(ord_buf, F_ORD_BUF, 2) X(ord_lp_buf, F_ORD_LP_BUF, 2) X(diff_buf, F_DIFF_BUF, 2)     \
     X(slope_buf, F_SLOPE_BUF, 2) X(ds_ord_buf, F_DS_ORD_BUF, 1) X(max_buf, F_MAX_BUF, 1)
 
-__device__ void load_ev(Ev& e, const EvPtrs& in, int s, int L, double* ring) {
+template <class P>
+__device__ void load_ev(Ev& e, const P& in, int s, int L, double* ring) {
     for (int k = 0; k < NB; ++k) e.b[k] = in.b[k][s] != 0;
     for (int k = 0; k < NI; ++k) e.i[k] = in.i[k][s];
-#define LOAD_REG(MEM, IDX, N) copy_vals(e.MEM, in.f[IDX] + (size_t)s * (N), N);
+#define LOAD_REG(MEM, IDX, N) load_vals(e.MEM, in, IDX, (size_t)s * (N), N);
     EV_REG_LEAVES(LOAD_REG)
 #undef LOAD_REG
-#define LOAD_SCALAR(MEM, IDX) e.MEM = in.f[IDX][s];
+#define LOAD_SCALAR(MEM, IDX) e.MEM = leaf_get(in, IDX, s);
     EV_SCALAR_LEAVES(LOAD_SCALAR)
 #undef LOAD_SCALAR
-#define LOAD_RING(MEM, IDX, N)                                    \
-    e.MEM = ring;                                                 \
-    copy_vals(ring, in.f[IDX] + (size_t)s * (N) * L, (N) * L);    \
+#define LOAD_RING(MEM, IDX, N)                                   \
+    e.MEM = ring;                                                \
+    load_vals(ring, in, IDX, (size_t)s * (N) * L, (N) * L);      \
     ring += (N) * L;
     EV_RINGS(LOAD_RING)
 #undef LOAD_RING
 }
 
-__device__ void store_ev(const Ev& e, const EvPtrs& out, int s, int L) {
+template <class P>
+__device__ void store_ev(const Ev& e, const P& out, int s, int L) {
     for (int k = 0; k < NB; ++k) out.b[k][s] = e.b[k] ? 1 : 0;
     for (int k = 0; k < NI; ++k) out.i[k][s] = e.i[k];
-#define STORE_REG(MEM, IDX, N) copy_vals(out.f[IDX] + (size_t)s * (N), e.MEM, N);
+#define STORE_REG(MEM, IDX, N) store_vals(out, IDX, (size_t)s * (N), e.MEM, N);
     EV_REG_LEAVES(STORE_REG)
 #undef STORE_REG
-#define STORE_SCALAR(MEM, IDX) out.f[IDX][s] = e.MEM;
+#define STORE_SCALAR(MEM, IDX) leaf_put(out, IDX, s, e.MEM);
     EV_SCALAR_LEAVES(STORE_SCALAR)
 #undef STORE_SCALAR
-#define STORE_RING(MEM, IDX, N) copy_vals(out.f[IDX] + (size_t)s * (N) * L, e.MEM, (N) * L);
+#define STORE_RING(MEM, IDX, N) store_vals(out, IDX, (size_t)s * (N) * L, e.MEM, (N) * L);
     EV_RINGS(STORE_RING)
 #undef STORE_RING
 }
@@ -745,11 +792,15 @@ __device__ void tick_vals(const K10Params& k, const double* eo, double fade, dou
     v[15] = ax_cs >= 0.0 ? 0.0 : sin(z);
 }
 
-__global__ void m4_event_kernel(EvPtrs in, EvPtrs out, const double* __restrict__ bg_in,
-                                double* __restrict__ bg_out, const double* __restrict__ env_ds,
+// the state's pointers P (EvPtrs or EvPtrsF32) and the storage type T of
+// the background weight's pair, the window, the coefficient sets and aux
+template <class P, class T>
+__global__ void m4_event_kernel(P in, P out, const T* __restrict__ bg_in,
+                                const T* __restrict__ bg_in_lo, T* __restrict__ bg_out,
+                                T* __restrict__ bg_out_lo, const double* __restrict__ env_ds,
                                 double* __restrict__ eo, double* __restrict__ vt,
-                                const double* __restrict__ iy_in, double* __restrict__ ics,
-                                double* __restrict__ iy_out, double* __restrict__ aux, EvParams p,
+                                const T* __restrict__ iy_in, T* __restrict__ ics,
+                                T* __restrict__ iy_out, T* __restrict__ aux, EvParams p,
                                 K10Params k, int Nc, long long fade_p, int disable) {
     extern __shared__ double ring[];
     const int s = blockIdx.x;
@@ -758,7 +809,7 @@ __global__ void m4_event_kernel(EvPtrs in, EvPtrs out, const double* __restrict_
     if (threadIdx.x == 0) {
         Ev e;
         load_ev(e, in, s, L, ring);
-        double m0 = bg_in[2 * s], m1 = bg_in[2 * s + 1];
+        double m0 = pair_load(bg_in, bg_in_lo, 2 * s), m1 = pair_load(bg_in, bg_in_lo, 2 * s + 1);
         const double* env = env_ds + (size_t)s * Nc * 8;
         double cur[8], nxt[8];
         for (int k = 0; k < 8; ++k) cur[k] = env[k];
@@ -779,8 +830,8 @@ __global__ void m4_event_kernel(EvPtrs in, EvPtrs out, const double* __restrict_
             for (int k = 0; k < 8; ++k) cur[k] = nxt[k];
         }
         store_ev(e, out, s, L);
-        bg_out[2 * s] = m0;
-        bg_out[2 * s + 1] = m1;
+        pair_store(bg_out, bg_out_lo, 2 * s, m0);
+        pair_store(bg_out, bg_out_lo, 2 * s + 1, m1);
     }
     __syncthreads();
     // K10 for every tick: the fade (fade_mult, matrix4_common.h:265-280)
@@ -794,30 +845,30 @@ __global__ void m4_event_kernel(EvPtrs in, EvPtrs out, const double* __restrict_
         const double fade_sm = (1.0 - cos(fade_lin * kPi)) * 0.5;
         const double fade = at > 0 ? fade_sm : (disable ? 0.0 : 1.0);
         const double* o = eo_s + (size_t)i * 8;
-        tick_vals(k, o, fade, vt_s + (size_t)i * kInterp);
-        double* a = aux + ((size_t)s * Nc + i) * 4;
-        a[0] = o[0];
-        a[1] = o[1];
-        a[2] = o[2];
-        a[3] = o[3];
+        double* v = vt_s + (size_t)i * kInterp;
+        tick_vals(k, o, fade, v);
+        for (int q = 0; q < kInterp; ++q) v[q] = (double)(T)v[q];  // float32: rounded here
+        T* a = aux + ((size_t)s * Nc + i) * 4;
+        for (int q = 0; q < 4; ++q) a[q] = (T)o[q];
     }
     __syncthreads();
     // the interpolator insert (matrix4_common.h:358-367): row r of
     // [interp_y[1:] | vals]
-    const double* iy_s = iy_in + (size_t)s * 4 * kInterp;
-#define EXT(r, c) ((r) < 3 ? iy_s[((r) + 1) * kInterp + (c)] : vt_s[((r) - 3) * kInterp + (c)])
+    const T* iy_s = iy_in + (size_t)s * 4 * kInterp;
+#define EXT(r, c)                                                                     \
+    ((r) < 3 ? (double)iy_s[((r) + 1) * kInterp + (c)] : vt_s[((r) - 3) * kInterp + (c)])
     for (int j = threadIdx.x; j < Nc * kInterp; j += blockDim.x) {
         const int i = j / kInterp, c = j % kInterp;
         const double iy0 = EXT(i, c), iy1 = EXT(i + 1, c), iy2 = EXT(i + 2, c), iy3 = EXT(i + 3, c);
         const double ia = iy2 - iy0;
-        double* o = ics + (((size_t)s * Nc + i) * 3) * kInterp + c;
-        o[0] = 0.5 * iy1 + 0.25 * (iy0 + iy2);
-        o[kInterp] = 0.5 * ia;
-        o[2 * kInterp] = 0.25 * (iy3 - iy1 - ia);
+        T* o = ics + (((size_t)s * Nc + i) * 3) * kInterp + c;
+        o[0] = (T)(0.5 * iy1 + 0.25 * (iy0 + iy2));
+        o[kInterp] = (T)(0.5 * ia);
+        o[2 * kInterp] = (T)(0.25 * (iy3 - iy1 - ia));
     }
     for (int j = threadIdx.x; j < 4 * kInterp; j += blockDim.x) {
         const int r = j / kInterp, c = j % kInterp;
-        iy_out[(size_t)s * 4 * kInterp + j] = EXT(Nc - 1 + r, c);
+        iy_out[(size_t)s * 4 * kInterp + j] = (T)EXT(Nc - 1 + r, c);
     }
 #undef EXT
 }
@@ -873,13 +924,16 @@ __device__ void tick_vals_mb(const MbParams& k, const double* eo, double fade, d
     v[11] = ax_cs >= 0.0 ? 0.0 : sin(z);
 }
 
-__global__ void m4mb_event_kernel(EvPtrs in, EvPtrs out, const double* __restrict__ evt_in,
-                                  double* __restrict__ evt_out, const double* __restrict__ env_ds,
+// P and T as m4_event_kernel's; the thresholds are a (hi, lo) pair under
+// float32
+template <class P, class T>
+__global__ void m4mb_event_kernel(P in, P out, const T* __restrict__ evt_in,
+                                  const T* __restrict__ evt_in_lo, T* __restrict__ evt_out,
+                                  T* __restrict__ evt_out_lo, const double* __restrict__ env_ds,
                                   double* __restrict__ eo, double* __restrict__ vt,
-                                  const double* __restrict__ iy_in, double* __restrict__ ics,
-                                  double* __restrict__ iy_out, double* __restrict__ aux,
-                                  EvParams base, MbParams k, int Nc, long long fade_p,
-                                  int disable) {
+                                  const T* __restrict__ iy_in, T* __restrict__ ics,
+                                  T* __restrict__ iy_out, T* __restrict__ aux, EvParams base,
+                                  MbParams k, int Nc, long long fade_p, int disable) {
     extern __shared__ double ring[];
     __shared__ double pub[kBands][6];  // a band's last, slope_last and diff_last pairs
     const int L = base.buf_len;
@@ -892,7 +946,7 @@ __global__ void m4mb_event_kernel(EvPtrs in, EvPtrs out, const double* __restric
         p.pcf_sens = k.pcf_sens[b];
         Ev e;
         load_ev(e, in, b, L, ring + (size_t)b * 10 * L);
-        double evt = evt_in[b];
+        double evt = pair_load(evt_in, evt_in_lo, b);
         const double etmax = k.etmax[b], etmin = k.etmin[b];
         double* eo_b = eo + (size_t)b * Nc * 8;
         for (int i = 0; i < Nc; ++i) {
@@ -926,40 +980,82 @@ __global__ void m4mb_event_kernel(EvPtrs in, EvPtrs out, const double* __restric
             event_step(p, e, e8, eo_b + (size_t)i * 8);
         }
         store_ev(e, out, b, L);
-        evt_out[b] = evt;
+        pair_store(evt_out, evt_out_lo, b, evt);
     }
     __syncthreads();
     // the epilogue for every tick and band
     for (int idx = threadIdx.x; idx < Nc * kBands; idx += blockDim.x) {
         const int i = idx / kBands, bb = idx % kBands;
         const double* o = eo + ((size_t)bb * Nc + i) * 8;
-        tick_vals_mb(k, o, fade_at(i, k.D, fade_p, k.fade_frames, disable), k.contour[bb],
-                     vt + (size_t)idx * kSigMb);
-        aux[(size_t)idx * 2] = o[0];
-        aux[(size_t)idx * 2 + 1] = o[1];
+        double* v = vt + (size_t)idx * kSigMb;
+        tick_vals_mb(k, o, fade_at(i, k.D, fade_p, k.fade_frames, disable), k.contour[bb], v);
+        for (int q = 0; q < kSigMb; ++q) v[q] = (double)(T)v[q];  // float32: rounded here
+        aux[(size_t)idx * 2] = (T)o[0];
+        aux[(size_t)idx * 2 + 1] = (T)o[1];
     }
     __syncthreads();
     // the interpolator insert: row r of [interp_y[1:] | vals], [.., 13, 12] each
     constexpr int kRow = kBands * kSigMb;
-#define EXT(r, c) ((r) < 3 ? iy_in[((r) + 1) * kRow + (c)] : vt[((r) - 3) * kRow + (c)])
+#define EXT(r, c) ((r) < 3 ? (double)iy_in[((r) + 1) * kRow + (c)] : vt[((r) - 3) * kRow + (c)])
     for (int j = threadIdx.x; j < Nc * kRow; j += blockDim.x) {
         const int i = j / kRow, c = j % kRow;
         const double iy0 = EXT(i, c), iy1 = EXT(i + 1, c), iy2 = EXT(i + 2, c), iy3 = EXT(i + 3, c);
         const double ia = iy2 - iy0;
-        double* o = ics + (size_t)i * 3 * kRow + c;
-        o[0] = 0.5 * iy1 + 0.25 * (iy0 + iy2);
-        o[kRow] = 0.5 * ia;
-        o[2 * kRow] = 0.25 * (iy3 - iy1 - ia);
+        T* o = ics + (size_t)i * 3 * kRow + c;
+        o[0] = (T)(0.5 * iy1 + 0.25 * (iy0 + iy2));
+        o[kRow] = (T)(0.5 * ia);
+        o[2 * kRow] = (T)(0.25 * (iy3 - iy1 - ia));
     }
     for (int j = threadIdx.x; j < 4 * kRow; j += blockDim.x) {
         const int r = j / kRow, c = j % kRow;
-        iy_out[j] = EXT(Nc - 1 + r, c);
+        iy_out[j] = (T)EXT(Nc - 1 + r, c);
     }
 #undef EXT
 }
 
 // the dynamic shared memory a launch may ask for on Hopper (227 KB)
 constexpr size_t kMaxSmem = 227 * 1024;
+
+template <class P, class T>
+int launch_m4(const P* in, const P* out, const T* bg_in, const T* bg_in_lo, T* bg_out,
+              T* bg_out_lo, const double* env_ds, double* eo, double* vt, const T* iy_in, T* ics,
+              T* iy_out, T* aux, const EvParams* p, const K10Params* k, int S, int Nc,
+              long long fade_p, int disable, void* stream) {
+    if (S <= 0 || Nc <= 0 || p->buf_len <= 0 || k->fade_frames <= 0) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const size_t smem = sizeof(double) * 10 * (size_t)p->buf_len;
+    if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            m4_event_kernel<P, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    m4_event_kernel<P, T><<<S, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+        *in, *out, bg_in, bg_in_lo, bg_out, bg_out_lo, env_ds, eo, vt, iy_in, ics, iy_out, aux,
+        *p, *k, Nc, fade_p, disable);
+    return (int)cudaGetLastError();
+}
+
+template <class P, class T>
+int launch_m4mb(const P* in, const P* out, const T* evt_in, const T* evt_in_lo, T* evt_out,
+                T* evt_out_lo, const double* env_ds, double* eo, double* vt, const T* iy_in,
+                T* ics, T* iy_out, T* aux, const EvParams* p, const MbParams* k, int Nc,
+                long long fade_p, int disable, void* stream) {
+    if (Nc <= 0 || p->buf_len <= 0 || k->fade_frames <= 0) return (int)cudaErrorInvalidValue;
+    // the 13 bands' rings: 21.8 KB at 44.1 kHz, 93.6 KB at 192 kHz
+    const size_t smem = sizeof(double) * 10 * (size_t)p->buf_len * kBands;
+    if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            m4mb_event_kernel<P, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    m4mb_event_kernel<P, T><<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
+        *in, *out, evt_in, evt_in_lo, evt_out, evt_out_lo, env_ds, eo, vt, iy_in, ics, iy_out,
+        aux, *p, *k, Nc, fade_p, disable);
+    return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -973,20 +1069,23 @@ extern "C" int dsp_m4_event_f64(const EvPtrs* in, const EvPtrs* out, const doubl
                                 const double* iy_in, double* ics, double* iy_out, double* aux,
                                 const EvParams* p, const K10Params* k, int S, int Nc,
                                 long long fade_p, int disable, void* stream) {
-    if (S <= 0 || Nc <= 0 || p->buf_len <= 0 || k->fade_frames <= 0) {
-        return (int)cudaErrorInvalidValue;
-    }
-    const size_t smem = sizeof(double) * 10 * (size_t)p->buf_len;
-    if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            m4_event_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    m4_event_kernel<<<S, 128, smem, static_cast<cudaStream_t>(stream)>>>(
-        *in, *out, bg_in, bg_out, env_ds, eo, vt, iy_in, ics, iy_out, aux, *p, *k, Nc, fade_p,
-        disable);
-    return (int)cudaGetLastError();
+    return launch_m4<EvPtrs, double>(in, out, bg_in, nullptr, bg_out, nullptr, env_ds, eo, vt,
+                                     iy_in, ics, iy_out, aux, p, k, S, Nc, fade_p, disable,
+                                     stream);
+}
+
+// The same under float32: the state as (hi, lo) pairs (EvPtrsF32), bg as
+// the pair (bg_in, bg_in_lo) in and (bg_out, bg_out_lo) out; env_ds and
+// the scratch float64; interp_y, ics and aux float32.
+extern "C" int dsp_m4_event_f32(const EvPtrsF32* in, const EvPtrsF32* out, const float* bg_in,
+                                const float* bg_in_lo, float* bg_out, float* bg_out_lo,
+                                const double* env_ds, double* eo, double* vt, const float* iy_in,
+                                float* ics, float* iy_out, float* aux, const EvParams* p,
+                                const K10Params* k, int S, int Nc, long long fade_p, int disable,
+                                void* stream) {
+    return launch_m4<EvPtrsF32, float>(in, out, bg_in, bg_in_lo, bg_out, bg_out_lo, env_ds, eo,
+                                       vt, iy_in, ics, iy_out, aux, p, k, S, Nc, fade_p, disable,
+                                       stream);
 }
 
 // matrix4_mb's 13 coupled band engines over Nc ticks: the event state in and
@@ -1000,17 +1099,20 @@ extern "C" int dsp_m4mb_event_f64(const EvPtrs* in, const EvPtrs* out, const dou
                                   const double* iy_in, double* ics, double* iy_out, double* aux,
                                   const EvParams* p, const MbParams* k, int Nc, long long fade_p,
                                   int disable, void* stream) {
-    if (Nc <= 0 || p->buf_len <= 0 || k->fade_frames <= 0) return (int)cudaErrorInvalidValue;
-    // the 13 bands' rings: 21.8 KB at 44.1 kHz, 93.6 KB at 192 kHz
-    const size_t smem = sizeof(double) * 10 * (size_t)p->buf_len * kBands;
-    if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            m4mb_event_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    m4mb_event_kernel<<<1, 128, smem, static_cast<cudaStream_t>(stream)>>>(
-        *in, *out, evt_in, evt_out, env_ds, eo, vt, iy_in, ics, iy_out, aux, *p, *k, Nc, fade_p,
-        disable);
-    return (int)cudaGetLastError();
+    return launch_m4mb<EvPtrs, double>(in, out, evt_in, nullptr, evt_out, nullptr, env_ds, eo, vt,
+                                       iy_in, ics, iy_out, aux, p, k, Nc, fade_p, disable, stream);
+}
+
+// The same under float32: the state (EvPtrsF32) and the thresholds as
+// (hi, lo) pairs; env_ds and the scratch float64; interp_y, ics and aux
+// float32.
+extern "C" int dsp_m4mb_event_f32(const EvPtrsF32* in, const EvPtrsF32* out, const float* evt_in,
+                                  const float* evt_in_lo, float* evt_out, float* evt_out_lo,
+                                  const double* env_ds, double* eo, double* vt,
+                                  const float* iy_in, float* ics, float* iy_out, float* aux,
+                                  const EvParams* p, const MbParams* k, int Nc, long long fade_p,
+                                  int disable, void* stream) {
+    return launch_m4mb<EvPtrsF32, float>(in, out, evt_in, evt_in_lo, evt_out, evt_out_lo, env_ds,
+                                         eo, vt, iy_in, ics, iy_out, aux, p, k, Nc, fade_p,
+                                         disable, stream);
 }

@@ -1,4 +1,4 @@
-// K12 + K13: matrix4_mb's audio path, float64, for Hopper (sm_90a).
+// K12 + K13: matrix4_mb's audio path, float64 or float32, for Hopper (sm_90a).
 //
 // Replaces dsp_tpu/effects/matrix4_mb.py:569 `_audio` (to the inverse
 // fshape, which runs on K2) with its time-varying allpass `_ap1_lanes`
@@ -29,6 +29,13 @@
 //      The input x is recomputed where it is needed (the sample before a
 //      segment included), so nothing else is stored.
 //   2. m4mb_sum, a thread a sample: the band sums and the offsets.
+//
+// float32 (`dsp_m4mb_audio_f32`, dsp_tpu's float32 _audio): the bands (the
+// hi half of the bank's float32 (hi, lo) output), the line, the
+// coefficient sets and the allpass states are float32, read into float64;
+// the same float64 arithmetic runs, and the 4 or 6 signals and the states
+// are stored rounded once to float32. Both kernels are templates on that
+// storage type; the scratch rows stay float64.
 
 #include <cuda_runtime.h>
 
@@ -62,31 +69,32 @@ __device__ Map exclusive_scan(Map f) {
 }
 
 // value q of band k at sample t
-__device__ __forceinline__ double interp_val(const double* __restrict__ interp_c,
-                                             const double* __restrict__ ics, int t, int k, int q,
+template <class T>
+__device__ __forceinline__ double interp_val(const T* __restrict__ interp_c,
+                                             const T* __restrict__ ics, int t, int k, int q,
                                              int D) {
     const int set = (t + 1) / D;
     const double u = (double)((t + 1) % D) / (double)D;
-    const double* c = (set == 0 ? interp_c : ics + (size_t)(set - 1) * 3 * kRow) + k * kSig + q;
-    return (c[2 * kRow] * u + c[kRow]) * u + c[0];
+    const T* c = (set == 0 ? interp_c : ics + (size_t)(set - 1) * 3 * kRow) + k * kSig + q;
+    return ((double)c[2 * kRow] * u + (double)c[kRow]) * u + (double)c[0];
 }
 
 // band k's delayed pair at sample t
-__device__ __forceinline__ void delayed(const double* __restrict__ bands,
-                                        const double* __restrict__ fb_buf, int len, int t, int k,
-                                        double& s0, double& s1) {
-    const double* row = t < len ? fb_buf + ((size_t)t * kBands + k) * 2
-                                : bands + ((size_t)(t - len) * kBands + k) * 2;
-    s0 = row[0];
-    s1 = row[1];
+template <class T>
+__device__ __forceinline__ void delayed(const T* __restrict__ bands, const T* __restrict__ fb_buf,
+                                        int len, int t, int k, double& s0, double& s1) {
+    const T* row = t < len ? fb_buf + ((size_t)t * kBands + k) * 2
+                           : bands + ((size_t)(t - len) * kBands + k) * 2;
+    s0 = (double)row[0];
+    s1 = (double)row[1];
 }
 
 // surround lane j (ls of band j for j < 13, else rs of band j - 13) at t:
 // the allpass input (the matrix output + 1e-15) and its coefficient
-__device__ __forceinline__ void lane_input(const double* bands, const double* fb_buf,
-                                           const double* interp_c, const double* ics,
-                                           const MbAudioCfg& cfg, int j, int t, double& x,
-                                           double& c0) {
+template <class T>
+__device__ __forceinline__ void lane_input(const T* bands, const T* fb_buf, const T* interp_c,
+                                           const T* ics, const MbAudioCfg& cfg, int j, int t,
+                                           double& x, double& c0) {
     const int k = j < kBands ? j : j - kBands;
     const int q = j < kBands ? 4 : 6;
     double s0, s1;
@@ -96,9 +104,10 @@ __device__ __forceinline__ void lane_input(const double* bands, const double* fb
     c0 = interp_val(interp_c, ics, t, k, j < kBands ? 8 : 9, cfg.D);
 }
 
-__global__ void m4mb_allpass(const double* __restrict__ bands, const double* __restrict__ fb_buf,
-                             const double* __restrict__ interp_c, const double* __restrict__ ics,
-                             const double* __restrict__ pf_in, double* __restrict__ pf_out,
+template <class T>
+__global__ void m4mb_allpass(const T* __restrict__ bands, const T* __restrict__ fb_buf,
+                             const T* __restrict__ interp_c, const T* __restrict__ ics,
+                             const T* __restrict__ pf_in, T* __restrict__ pf_out,
                              double* __restrict__ scratch, MbAudioCfg cfg, int B) {
     const int j = blockIdx.x;  // the surround lane
     const int lane = threadIdx.x;
@@ -108,7 +117,7 @@ __global__ void m4mb_allpass(const double* __restrict__ bands, const double* __r
     const int t0 = lane * seg, t1 = t0 + seg;
     double x_prev, c0;
     if (t0 == 0) {
-        x_prev = pf_in[st];
+        x_prev = (double)pf_in[st];
     } else {
         lane_input(bands, fb_buf, interp_c, ics, cfg, j, t0 - 1, x_prev, c0);
     }
@@ -124,7 +133,7 @@ __global__ void m4mb_allpass(const double* __restrict__ bands, const double* __r
     }
     // 2. the start of each segment, 3. the rerun
     const Map pre = exclusive_scan(f);
-    double o0 = pre.a * pf_in[st + 1] + pre.b;
+    double o0 = pre.a * (double)pf_in[st + 1] + pre.b;
     i0 = x_prev;
     double* y = scratch + (size_t)j * B;
     for (int t = t0; t < t1; ++t) {
@@ -136,15 +145,16 @@ __global__ void m4mb_allpass(const double* __restrict__ bands, const double* __r
         i0 = x;
     }
     if (lane == 31) {
-        pf_out[st] = i0;
-        pf_out[st + 1] = o0;
+        pf_out[st] = (T)i0;
+        pf_out[st + 1] = (T)o0;
     }
 }
 
-__global__ void m4mb_sum(const double* __restrict__ bands, const double* __restrict__ fb_buf,
-                         const double* __restrict__ interp_c, const double* __restrict__ ics,
-                         const double* __restrict__ scratch, double* __restrict__ sig,
-                         MbAudioCfg cfg, int B) {
+template <class T>
+__global__ void m4mb_sum(const T* __restrict__ bands, const T* __restrict__ fb_buf,
+                         const T* __restrict__ interp_c, const T* __restrict__ ics,
+                         const double* __restrict__ scratch, T* __restrict__ sig, MbAudioCfg cfg,
+                         int B) {
     const int t = blockIdx.x * blockDim.x + threadIdx.x;
     if (t >= B) return;
     double out_l = 0.0, out_r = 0.0, out_ls = 0.0, out_rs = 0.0, dir_ls = 0.0, dir_rs = 0.0;
@@ -172,19 +182,40 @@ __global__ void m4mb_sum(const double* __restrict__ bands, const double* __restr
     }
     constexpr double eps = 1e-15 / 324;
     const int n = cfg.direct ? 6 : 4;
-    double* row = sig + (size_t)t * n;
-    row[0] = out_l;
-    row[1] = out_r;
-    row[2] = out_ls + eps;
-    row[3] = out_rs + eps;
+    T* row = sig + (size_t)t * n;
+    row[0] = (T)out_l;
+    row[1] = (T)out_r;
+    row[2] = (T)(out_ls + eps);
+    row[3] = (T)(out_rs + eps);
     if (cfg.direct) {
-        row[4] = dir_ls + eps;
-        row[5] = -dir_rs + eps;
+        row[4] = (T)(dir_ls + eps);
+        row[5] = (T)(-dir_rs + eps);
     }
 }
 
-__global__ void copy_state(const double* __restrict__ in, double* __restrict__ out, int n) {
+template <class T>
+__global__ void copy_state(const T* __restrict__ in, T* __restrict__ out, int n) {
     for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = in[i];
+}
+
+template <class T>
+int launch(const T* bands, const T* fb_buf, const T* interp_c, const T* ics, const T* pf_in,
+           T* sig, T* pf_out, double* scratch, const MbAudioCfg* cfg, int B, void* stream) {
+    if (B <= 0 || B % 32 || cfg->D <= 0 || B % cfg->D || cfg->len < 0) {
+        return (int)cudaErrorInvalidValue;
+    }
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (cfg->phase_flip) {
+        m4mb_allpass<T><<<2 * kBands, 32, 0, st>>>(bands, fb_buf, interp_c, ics, pf_in, pf_out,
+                                                    scratch, *cfg, B);
+    } else {
+        copy_state<T><<<1, 64, 0, st>>>(pf_in, pf_out, kBands * 4);
+    }
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    m4mb_sum<T><<<(B + 127) / 128, 128, 0, st>>>(bands, fb_buf, interp_c, ics, scratch, sig,
+                                                  *cfg, B);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -198,18 +229,15 @@ extern "C" int dsp_m4mb_audio_f64(const double* bands, const double* fb_buf,
                                   const double* interp_c, const double* ics, const double* pf_in,
                                   double* sig, double* pf_out, double* scratch,
                                   const MbAudioCfg* cfg, int B, void* stream) {
-    if (B <= 0 || B % 32 || cfg->D <= 0 || B % cfg->D || cfg->len < 0) {
-        return (int)cudaErrorInvalidValue;
-    }
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (cfg->phase_flip) {
-        m4mb_allpass<<<2 * kBands, 32, 0, st>>>(bands, fb_buf, interp_c, ics, pf_in, pf_out,
-                                                 scratch, *cfg, B);
-    } else {
-        copy_state<<<1, 64, 0, st>>>(pf_in, pf_out, kBands * 4);
-    }
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    m4mb_sum<<<(B + 127) / 128, 128, 0, st>>>(bands, fb_buf, interp_c, ics, scratch, sig, *cfg, B);
-    return (int)cudaGetLastError();
+    return launch<double>(bands, fb_buf, interp_c, ics, pf_in, sig, pf_out, scratch, cfg, B,
+                          stream);
+}
+
+// The same with the bands, the line, the coefficient sets, the states and
+// the signals float32 (scratch float64).
+extern "C" int dsp_m4mb_audio_f32(const float* bands, const float* fb_buf, const float* interp_c,
+                                  const float* ics, const float* pf_in, float* sig, float* pf_out,
+                                  double* scratch, const MbAudioCfg* cfg, int B, void* stream) {
+    return launch<float>(bands, fb_buf, interp_c, ics, pf_in, sig, pf_out, scratch, cfg, B,
+                         stream);
 }

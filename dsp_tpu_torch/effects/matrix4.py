@@ -14,12 +14,21 @@ A block runs in five launches and a splice (ops/m4_engine.py):
     phase-flip allpasses and the output columns;
   * the carried lookahead line as a ``splice`` (ops/fft_conv.py).
 
+Under float32 (dsp_tpu's float32 step, matrix4.py:391-423) the band-limit
+is one blocked cascade on K1-df (``iir.lti_blocked_df``, an L = 128 plan,
+or L = 1 where the block is not a multiple of 128) on the ``bpc`` state,
+and its (hi, lo) output feeds the float32 forms of the other kernels
+(``m4_env_f32``, ``m4_event_f32``, ``m4_audio_f32``, ``splice_f32``),
+which carry the ``*_lo`` leaves; ``bp_m`` passes through untouched, as in
+dsp_tpu. Under float64 ``bpc`` and the ``*_lo`` leaves pass through.
+
 The state's leaves, dtypes and shapes are dsp_tpu's, so a checkpoint
-crosses between the packages both ways; the float32 path's leaves (``ev_lo``,
-``env_m_lo``, ``bg_cs_lo``, ``bpc``) are carried untouched, as dsp_tpu's
-float64 path carries them. ``fade_p`` and ``disable`` are CPU tensors: the
-host passes them to the kernels as scalars and toggles them on a signal
-without reading the device.
+crosses between the packages both ways. ``fade_p`` and ``disable`` are CPU
+tensors: the host passes them to the kernels as scalars and toggles them
+on a signal without reading the device. A step is ``_control`` (the
+band-limit, the envelopes and the engine: everything that decides the
+coefficient sets) and ``_audio``, split as dsp_tpu splits it, so that a
+replay can put another control stream into the audio path.
 
 Config options (status/matrix/shelf/lowpass/contour_pwrcmp/phase_flip/
 signal/direct_path/rear_event_mask/surround_delay) follow
@@ -278,7 +287,7 @@ class Matrix4Effect(Effect):
     # adaptive event engine: multi-second ring buffers and discrete
     # decisions make zero-state priming content-dependent, not bounded
     split_safe = False
-    float32_slice = "J3"  # the df engine and envelopes (K9-K11)
+    float32_slice = None
 
     def __init__(self, name, istream, selector, argv):
         cfg = matrix4_config_init(name, istream, selector, argv, is_mb=False)
@@ -297,6 +306,7 @@ class Matrix4Effect(Effect):
         lp = np.array(bq.normalize(*bq.design(bq.LOWPASS, fs, 5000.0, 0.5)))
         self.A_hp, self.B_hp, self.c0_hp = iir.biquad_coeffs_to_ss(np.stack([hp, hp], axis=1))
         self.A_lp, self.B_lp, self.c0_lp = iir.biquad_coeffs_to_ss(np.stack([lp, lp], axis=1))
+        self.bp_c = np.stack([hp, hp, lp, lp], axis=1)  # the float32 path's cascade
         self.g_env = float(m4.ewma_g(fs, m4.ENV_SMOOTH_TIME))
         # dynamic shelf params (matrix4.c:79-87)
         self.shelf = self._dyn_shelf_params(fs, cfg.shelf_f0)
@@ -332,6 +342,15 @@ class Matrix4Effect(Effect):
         self._statusline = None
         self._signal_flag = False
 
+    def _bp_plan(self, block):
+        """The float32 band-limit's blocked plan (dsp_tpu's _bp_plan): L =
+        128 when the block fits the chunked kernel, else L = 1."""
+        L = iir.BLOCKED_L if (block % iir.BLOCKED_L == 0 and block >= 2 * iir.BLOCKED_L) else 1
+        plans = self.__dict__.setdefault("_bp_plans", {})
+        if L not in plans:
+            plans[L] = iir.CascadeBlockedPlan([self.bp_c[:, :2], self.bp_c[:, 2:]], L=L)
+        return plans[L]
+
     @staticmethod
     def _dyn_shelf_params(fs, f0):
         w0 = 2 * np.pi * f0 / fs
@@ -353,12 +372,12 @@ class Matrix4Effect(Effect):
         init_interp[14] = 1.0  # m_surr_amb
         st = {
             "ev": m4.make_event_state(p),
-            # dsp_tpu's float32 path's lo parts and blocked band-limit state:
-            # carried untouched
+            # the float32 path's lo parts (carried untouched under float64)
             "ev_lo": m4.make_event_state_lo(p),
             "env_m_lo": np.zeros(8, dtype=np.float32),
             "bg_cs_lo": np.zeros(2, dtype=np.float32),
-            "bp_m": np.zeros((4, 2)),  # band-limit biquad memories
+            "bp_m": np.zeros((4, 2)),  # band-limit biquad memories (float64)
+            # the float32 band-limit: the hp + lp cascade's (hi, lo) state
             "bpc": np.zeros((2, 2, 4)),
             "env_m": np.zeros(8),  # envelope EWMAs
             "bg_cs": np.array([1.0, 1.0]),  # smf state (m0, m1)
@@ -389,28 +408,55 @@ class Matrix4Effect(Effect):
         return None
 
     def step(self, state, x):
-        B = x.shape[0]
+        return self._audio(state, x, self._control(state, x))
+
+    def _control(self, state, x):
+        """The band-limit, the envelopes and the engine (K2 or K1-df, K11,
+        K9 + K10): the state leaves they carry, and the block's coefficient
+        sets ``ics`` [Nc, 3, 16] and display values ``aux`` [Nc, 4]."""
         pair = self._pair.take(x).contiguous()  # [B, 2]: the selected channels
-        dev = x
-        st_hp, y_hp = iir.biquad_scan(self.device_array("A_hp", dev), self.device_array("B_hp", dev),
-                                      self.device_array("c0_hp", dev), state["bp_m"][:2], pair)
-        st_lp, y_bp = iir.biquad_scan(self.device_array("A_lp", dev), self.device_array("B_lp", dev),
-                                      self.device_array("c0_lp", dev), state["bp_m"][2:], y_hp)
-        env_m, env_ds = m4.m4_env(y_bp, state["env_m"], self.g_env)
         fade_p, disable = int(state["fade_p"]), bool(state["disable"])  # CPU tensors
-        ev, bg, ics, iy, aux = m4.m4_event(
-            self.ctl, {k: v[None] for k, v in state["ev"].items()}, state["bg_cs"][None],
-            env_ds[None], state["interp_y"][None], fade_p, disable)
-        ics = ics[0]
-        y, shelf_m, lp_m, pf_m = m4.m4_audio(self.audio, x, state["buf"], state["interp_c"], ics,
-                                             state["shelf_m"], state["lp_m"], state["pf_m"])
+        ev = {k: v[None] for k, v in state["ev"].items()}  # one lane
+        if x.dtype == torch.float32:
+            bpc, (y_hi, y_lo) = iir.lti_blocked_df(self._bp_plan(x.shape[0]), state["bpc"], pair)
+            env_m, env_m_lo, env_ds = m4.m4_env_f32(y_hi, y_lo, state["env_m"], state["env_m_lo"],
+                                                    self.g_env)
+            ev, ev_lo, bg, bg_lo, ics, iy, aux = m4.m4_event_f32(
+                self.ctl, ev, {k: v[None] for k, v in state["ev_lo"].items()},
+                state["bg_cs"][None], state["bg_cs_lo"][None], env_ds[None],
+                state["interp_y"][None], fade_p, disable)
+            ctl = {"bpc": bpc, "env_m_lo": env_m_lo, "ev_lo": {k: v[0] for k, v in ev_lo.items()},
+                   "bg_cs_lo": bg_lo[0]}
+        else:
+            dev = x
+            st_hp, y_hp = iir.biquad_scan(
+                self.device_array("A_hp", dev), self.device_array("B_hp", dev),
+                self.device_array("c0_hp", dev), state["bp_m"][:2], pair)
+            st_lp, y_bp = iir.biquad_scan(
+                self.device_array("A_lp", dev), self.device_array("B_lp", dev),
+                self.device_array("c0_lp", dev), state["bp_m"][2:], y_hp)
+            env_m, env_ds = m4.m4_env(y_bp, state["env_m"], self.g_env)
+            ev, bg, ics, iy, aux = m4.m4_event(self.ctl, ev, state["bg_cs"][None], env_ds[None],
+                                               state["interp_y"][None], fade_p, disable)
+            ctl = {"bp_m": torch.cat([st_hp, st_lp])}
+        ctl.update(ev={k: v[0] for k, v in ev.items()}, env_m=env_m, bg_cs=bg[0], interp_y=iy[0],
+                   ics=ics[0], aux=aux[0])
+        return ctl
+
+    def _audio(self, state, x, ctl):
+        """The lookahead-delayed matrix, the dynamic shelf and lowpass and
+        the phase-flip allpasses (K12 + K13), and the lookahead line's
+        splice, from ctl (_control's result)."""
+        B = x.shape[0]
+        pair = self._pair.take(x).contiguous()
+        audio = m4.m4_audio_f32 if x.dtype == torch.float32 else m4.m4_audio
+        ics = ctl["ics"]
+        y, shelf_m, lp_m, pf_m = audio(self.audio, x, state["buf"], state["interp_c"], ics,
+                                       state["shelf_m"], state["lp_m"], state["pf_m"])
+        fade_p = int(state["fade_p"])
         new_state = dict(
             state,
-            ev={k: v[0] for k, v in ev.items()},
-            bp_m=torch.cat([st_hp, st_lp]),
-            env_m=env_m,
-            bg_cs=bg[0],
-            interp_y=iy[0],
+            **{k: v for k, v in ctl.items() if k not in ("ics", "aux")},
             interp_c=ics[-1],
             buf=splice(state["buf"], pair, self.len, self.len - B, B),
             shelf_m=shelf_m,
@@ -419,7 +465,7 @@ class Matrix4Effect(Effect):
             fade_p=torch.tensor(max(fade_p - B, 0), dtype=torch.int64),
         )
         if "aux" in state:
-            new_state["aux"] = aux[0]
+            new_state["aux"] = ctl["aux"]
         return new_state, y
 
     # --- chain hooks ---

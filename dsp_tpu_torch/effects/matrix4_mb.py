@@ -26,10 +26,18 @@ and a splice:
   * the inverse fshape's two biquads on K2 over 4 or 6 signals;
   * the carried lookahead line as a ``splice`` (ops/fft_conv.py).
 
+Under float32 (dsp_tpu's float32 _control and _audio, matrix4_mb.py:338-349,
+:616-622, :255-275) the fshape and its inverse run on K3
+(``iir.biquad_scan_coupled``, the coupled form, each stage's state handed
+in and out as one float32 array, as dsp_tpu's biquad_scan_auto does), the bank
+on K1-df with its (hi, lo) output (``iir.lti_blocked_df``): the pair feeds
+the envelopes, hi the audio path and the lookahead line. The float32 forms
+``m4mb_env_f32``, ``m4mb_event_f32``, ``m4mb_audio_f32`` and ``splice_f32``
+carry the ``*_lo`` leaves (``ev_lo``, ``ev_thresh_lo``, ``env_m_lo``), which
+float64 passes through untouched.
+
 The state's leaves, dtypes and shapes are dsp_tpu's, so a checkpoint
-crosses between the packages both ways; the float32 path's leaves (``ev_lo``,
-``ev_thresh_lo``, ``env_m_lo``) are carried untouched, as dsp_tpu's float64
-path carries them. The bank is always the fused one: dsp_tpu's sequential
+crosses between the packages both ways. The bank is always the fused one: dsp_tpu's sequential
 per-cap bank (state0's dict of ``a1``, ``a2p``, ``a2o``, ``comp``) is not
 ported, and a checkpoint that carries it does not load.
 """
@@ -88,7 +96,7 @@ def _cascade_stages(coeffs, lanes):
 
 class Matrix4MbEffect(Effect):
     split_safe = False  # see Matrix4Effect: adaptive event engine
-    float32_slice = "J3"  # see Matrix4Effect
+    float32_slice = None
 
     def __init__(self, name, istream, selector, argv):
         cfg = matrix4_config_init(name, istream, selector, argv, is_mb=True)
@@ -282,11 +290,14 @@ class Matrix4MbEffect(Effect):
 
     def _cascade(self, tag, st, x):
         """The two-biquad cascade `tag` ("fsh" or "inv") on x [B, C] from
-        st [2, C, 2] (a stage a row). Returns (st', y)."""
+        st [2, C, 2] (a stage a row). Returns (st', y). float64 on K2;
+        float32 on K3 with a single float32 state a stage, as dsp_tpu's
+        biquad_scan_auto."""
         out = []
         for s_i in range(2):
-            A, Bv, c0 = (self.device_array(f"{tag}{s_i}_{k}", x) for k in ("A", "Bv", "c0"))
-            s, x = iir.biquad_scan(A, Bv, c0, st[s_i].contiguous(), x)
+            A, Bv, c0 = (self.device_array(f"{tag}{s_i}_{k}", x, torch.float64)
+                         for k in ("A", "Bv", "c0"))
+            s, x = iir.biquad_scan_coupled(A, Bv, c0, st[s_i].contiguous(), x)
             out.append(s)
         return torch.stack(out), x
 
@@ -294,34 +305,47 @@ class Matrix4MbEffect(Effect):
         return self._audio(state, x, self._control(state, x))
 
     def _control(self, state, x):
-        """The fshape, the bank, the envelopes and the engines (K2, K1, K11,
-        K9 + K10): everything the audio path needs from the block's input.
-        Split from _audio as dsp_tpu splits it, so that a replay can put
-        another control stream (ics) into the audio path."""
+        """The fshape, the bank, the envelopes and the engines (K2 or K3, K1
+        or K1-df, K11, K9 + K10): everything the audio path needs from the
+        block's input. Split from _audio as dsp_tpu splits it, so that a
+        replay can put another control stream (ics) into the audio path."""
         B = x.shape[0]
         pair = self._pair.take(x).contiguous()
         fsh, s_pre = self._cascade("fsh", state["fshape_m"].reshape(2, 2, 2), pair)
         # cols: [b0L, b0R, b1L, ...]
-        bst, yb = iir.lti_blocked(self._bank_plan(B), state["bank"]["fused"],
-                                  s_pre.repeat(1, N_BANDS))
-        w = None if self.fmw is None else self.device_array("fmw", yb)
-        env_m, env_ds = m4.m4mb_env(yb.view(B, N_BANDS, 2), state["env_m"], self.g_env, w)
+        xt = s_pre.repeat(1, N_BANDS)
+        w = None if self.fmw is None else self.device_array("fmw", x, torch.float64)
         fade_p, disable = int(state["fade_p"]), bool(state["disable"])  # CPU tensors
-        ev, evt, ics, iy, aux = m4.m4mb_event(self.ctl, state["ev"], state["ev_thresh"], env_ds,
-                                               state["interp_y"], fade_p, disable)
-        return {"fshape_m": fsh.reshape(4, 2), "bank": {"fused": bst}, "bands": yb,
-                "env_m": env_m, "ev": ev, "ev_thresh": evt, "ics": ics, "interp_y": iy,
-                "aux": aux}
+        if x.dtype == torch.float32:
+            bst, (yb, yb_lo) = iir.lti_blocked_df(self._bank_plan(B), state["bank"]["fused"], xt)
+            env_m, env_m_lo, env_ds = m4.m4mb_env_f32(
+                yb.view(B, N_BANDS, 2), yb_lo.view(B, N_BANDS, 2), state["env_m"],
+                state["env_m_lo"], self.g_env, w)
+            ev, ev_lo, evt, evt_lo, ics, iy, aux = m4.m4mb_event_f32(
+                self.ctl, state["ev"], state["ev_lo"], state["ev_thresh"], state["ev_thresh_lo"],
+                env_ds, state["interp_y"], fade_p, disable)
+            ctl = {"env_m_lo": env_m_lo, "ev_lo": ev_lo, "ev_thresh_lo": evt_lo}
+        else:
+            bst, yb = iir.lti_blocked(self._bank_plan(B), state["bank"]["fused"], xt)
+            env_m, env_ds = m4.m4mb_env(yb.view(B, N_BANDS, 2), state["env_m"], self.g_env, w)
+            ev, evt, ics, iy, aux = m4.m4mb_event(self.ctl, state["ev"], state["ev_thresh"],
+                                                   env_ds, state["interp_y"], fade_p, disable)
+            ctl = {}
+        ctl.update(fshape_m=fsh.reshape(4, 2), bank={"fused": bst}, bands=yb, env_m=env_m, ev=ev,
+                   ev_thresh=evt, ics=ics, interp_y=iy, aux=aux)
+        return ctl
 
     def _audio(self, state, x, ctl):
         """The delayed bands through the matrices, the allpasses and the sums
-        (K12 + K13), the inverse fshape (K2), the output columns and the
-        lookahead line's splice, from ctl (_control's result)."""
+        (K12 + K13), the inverse fshape (K2, or K3 under float32), the
+        output columns and the lookahead line's splice, from ctl (_control's
+        result)."""
         B = x.shape[0]
         L = self.fb_buf_len
         yb = ctl["bands"]
-        sig, pf_m = m4.m4mb_audio(self.audio, yb.view(B, N_BANDS, 2), state["fb_buf"],
-                                  state["interp_c"], ctl["ics"], state["pf_m"])
+        audio = m4.m4mb_audio_f32 if x.dtype == torch.float32 else m4.m4mb_audio
+        sig, pf_m = audio(self.audio, yb.view(B, N_BANDS, 2), state["fb_buf"], state["interp_c"],
+                          ctl["ics"], state["pf_m"])
         inv, sig = self._cascade("inv", state["inv_fshape_m"].transpose(0, 1), sig)
         cols = []
         for k in range(self.istream.channels):
@@ -330,12 +354,7 @@ class Matrix4MbEffect(Effect):
         cols += [sig[:, j] - 1e-15 for j in range(2, self.audio.n_sig)]
         new_state = dict(
             state,
-            ev=ctl["ev"],
-            ev_thresh=ctl["ev_thresh"],
-            fshape_m=ctl["fshape_m"],
-            bank=ctl["bank"],
-            env_m=ctl["env_m"],
-            interp_y=ctl["interp_y"],
+            **{k: v for k, v in ctl.items() if k not in ("bands", "ics", "aux")},
             interp_c=ctl["ics"][-1],
             fb_buf=splice(state["fb_buf"].view(L, 2 * N_BANDS), yb, L, L - B, B).view(
                 L, N_BANDS, 2),

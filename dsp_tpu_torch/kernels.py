@@ -91,6 +91,14 @@ class M4EvPtrs(ctypes.Structure):
     _fields_ = [("b", ctypes.c_void_p * 11), ("f", ctypes.c_void_p * 28), ("i", ctypes.c_void_p * 8)]
 
 
+class M4EvPtrsF32(ctypes.Structure):
+    """csrc/m4_event.cu's EvPtrsF32: the float32 event state, each float
+    leaf as its (hi, lo) pair."""
+
+    _fields_ = [("b", ctypes.c_void_p * 11), ("f", ctypes.c_void_p * 28),
+                ("lo", ctypes.c_void_p * 28), ("i", ctypes.c_void_p * 8)]
+
+
 class M4EvParams(ctypes.Structure):
     """csrc/m4_event.cu's EvParams."""
 
@@ -208,19 +216,22 @@ class _Library:
                 lib.dsp_lti_blocked_f32.argtypes = [p] * 12 + [i] * 4 + [p]
                 lib.dsp_lti_blocked_f32.restype = i
                 for fn in (lib.dsp_biquad_scan_f64, lib.dsp_biquad_scan_f32,
-                           lib.dsp_biquad_scan_df):
+                           lib.dsp_biquad_scan_df, lib.dsp_biquad_scan_df1):
                     fn.argtypes = [p] * 7 + [i] * 2 + [p]
                     fn.restype = i
-                lib.dsp_fdl_mac_c128.argtypes = [p] * 5 + [ctypes.c_longlong, i, p]
-                lib.dsp_fdl_mac_c128.restype = i
+                for fn in (lib.dsp_fdl_mac_c128, lib.dsp_fdl_mac_f32):
+                    fn.argtypes = [p] * 5 + [ctypes.c_longlong, i, p]
+                    fn.restype = i
                 ll = ctypes.c_longlong
                 for fn in (lib.dsp_rfft_pack_c128, lib.dsp_rfft_pack_f32):
                     fn.argtypes = [p, ll, p, ll, p, p, i, i, p]
                     fn.restype = i
-                lib.dsp_irfft_crop_c128.argtypes = [p, p, p, ll, ll, p, i, i, p]
-                lib.dsp_irfft_crop_c128.restype = i
-                lib.dsp_splice_f64.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
-                lib.dsp_splice_f64.restype = i
+                for fn in (lib.dsp_irfft_crop_c128, lib.dsp_irfft_crop_f32):
+                    fn.argtypes = [p, p, p, ll, ll, p, i, i, p]
+                    fn.restype = i
+                for fn in (lib.dsp_splice_f64, lib.dsp_splice_f32):
+                    fn.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
+                    fn.restype = i
                 d = ctypes.c_double
                 lib.dsp_irfft_ola_f32.argtypes = [p] * 5 + [d, i, i, i, p]
                 lib.dsp_irfft_ola_f32.restype = i
@@ -238,14 +249,22 @@ class _Library:
                 lib.dsp_resample_fold_c128.restype = i
                 lib.dsp_m4_env_f64.argtypes = [p] * 5 + [d, i, i, i, p]
                 lib.dsp_m4_env_f64.restype = i
+                lib.dsp_m4_env_f32.argtypes = [p] * 8 + [d, i, i, i, p]
+                lib.dsp_m4_env_f32.restype = i
                 lib.dsp_m4_event_f64.argtypes = [p] * 13 + [i, i, ll, i, p]
                 lib.dsp_m4_event_f64.restype = i
-                lib.dsp_m4_audio_f64.argtypes = [p] * 13 + [i, p]
-                lib.dsp_m4_audio_f64.restype = i
+                lib.dsp_m4_event_f32.argtypes = [p] * 15 + [i, i, ll, i, p]
+                lib.dsp_m4_event_f32.restype = i
+                for fn in (lib.dsp_m4_audio_f64, lib.dsp_m4_audio_f32):
+                    fn.argtypes = [p] * 13 + [i, p]
+                    fn.restype = i
                 lib.dsp_m4mb_event_f64.argtypes = [p] * 13 + [i, ll, i, p]
                 lib.dsp_m4mb_event_f64.restype = i
-                lib.dsp_m4mb_audio_f64.argtypes = [p] * 9 + [i, p]
-                lib.dsp_m4mb_audio_f64.restype = i
+                lib.dsp_m4mb_event_f32.argtypes = [p] * 15 + [i, ll, i, p]
+                lib.dsp_m4mb_event_f32.restype = i
+                for fn in (lib.dsp_m4mb_audio_f64, lib.dsp_m4mb_audio_f32):
+                    fn.argtypes = [p] * 9 + [i, p]
+                    fn.restype = i
                 lib.dsp_cuda_error_string.argtypes = [i]
                 lib.dsp_cuda_error_string.restype = ctypes.c_char_p
                 self.lib = lib
@@ -292,12 +311,15 @@ def launch_lti_blocked(x, y, state_in, state_out, h, V, P, AL, c0, v_scratch, s_
 
 def launch_biquad_scan(A, Bv, c0, state_in, state_out, x, y):
     """K2 on float64 or float32 (coefficients of x's dtype), or K3 (float64
-    coefficients, float32 x and a [2, C, 2] (hi, lo) state)."""
+    coefficients, float32 x and a [2, C, 2] (hi, lo) state or a single
+    [C, 2] float32 state)."""
     B, C = x.shape
     if x.dtype == torch.float64:
         fn = load().dsp_biquad_scan_f64
     elif A.dtype == torch.float32:
         fn = load().dsp_biquad_scan_f32
+    elif state_in.dim() == 2:
+        fn = load().dsp_biquad_scan_df1
     else:
         fn = load().dsp_biquad_scan_df
     rc = fn(_ptr(A), _ptr(Bv), _ptr(c0), _ptr(state_in), _ptr(state_out), _ptr(x), _ptr(y),
@@ -305,8 +327,11 @@ def launch_biquad_scan(A, Bv, c0, state_in, state_out, x, y):
     _check(rc, "biquad_scan")
 
 
-def launch_fdl_mac(X, H, fdl_in, Y, fdl_out):
-    rc = load().dsp_fdl_mac_c128(
+def launch_fdl_mac(X, H, fdl_in, Y, fdl_out, f32=False):
+    """f32: the FDL as float32 (re, im) pairs (or none, for an overlap-save
+    step of a float32 chain)."""
+    fn = load().dsp_fdl_mac_f32 if f32 else load().dsp_fdl_mac_c128
+    rc = fn(
         _ptr(X), _ptr(H), _ptr(fdl_in), _ptr(Y), _ptr(fdl_out), X.numel(), H.shape[0],
         _stream(X.device),
     )
@@ -323,7 +348,8 @@ def launch_rfft_pack(a, x, X, work, N):
 
 
 def launch_irfft_crop(Y, work, out, N, lo, add):
-    rc = load().dsp_irfft_crop_c128(
+    fn = load().dsp_irfft_crop_f32 if out.dtype == torch.float32 else load().dsp_irfft_crop_c128
+    rc = fn(
         _ptr(Y), _ptr(work), _ptr(out), lo, out.shape[0], _ptr(add), N, Y.shape[1],
         _stream(Y.device),
     )
@@ -339,7 +365,8 @@ def launch_irfft_ola_f32(Y, work, y, ov_out, ov_in, ratio, N):
 
 
 def launch_splice(a, x, out, lo, shift):
-    rc = load().dsp_splice_f64(
+    fn = load().dsp_splice_f32 if x.dtype == torch.float32 else load().dsp_splice_f64
+    rc = fn(
         _ptr(a), _ptr(x), _ptr(out), out.shape[0], x.shape[0], lo, shift, out.shape[1],
         _stream(x.device),
     )
@@ -408,43 +435,60 @@ def launch_mod_delay(key, key_out, yk, yk_out, t, t_out, knots, buf, x, y, sel, 
     _check(rc, "mod_delay")
 
 
-def launch_m4_env(ybp, env_m, env_out, env_ds, g, w=None):
-    """ybp [B, 2] (one lane) or [B, S, 2]; w the [S, S] mix weights or None."""
+def launch_m4_env(ybp, env_m, env_out, env_ds, g, w=None, lo=None):
+    """ybp [B, 2] (one lane) or [B, S, 2]; w the [S, S] mix weights or None;
+    lo None (float64), or the float32 entry's lo parts (ybp_lo, env_m_lo,
+    env_out_lo)."""
     B = ybp.shape[0]
     S = 1 if ybp.dim() == 2 else ybp.shape[1]
-    rc = load().dsp_m4_env_f64(
-        _ptr(ybp), _ptr(w), _ptr(env_m), _ptr(env_out), _ptr(env_ds), g, B, S,
-        B // env_ds.shape[0], _stream(ybp.device),
-    )
+    tail = (_ptr(env_ds), g, B, S, B // env_ds.shape[0], _stream(ybp.device))
+    if lo is None:
+        rc = load().dsp_m4_env_f64(_ptr(ybp), _ptr(w), _ptr(env_m), _ptr(env_out), *tail)
+    else:
+        ybp_lo, env_lo, env_out_lo = lo
+        rc = load().dsp_m4_env_f32(_ptr(ybp), _ptr(ybp_lo), _ptr(w), _ptr(env_m), _ptr(env_lo),
+                                   _ptr(env_out), _ptr(env_out_lo), *tail)
     _check(rc, "m4_env")
 
 
-def _ev_ptrs(ev):
+def _ev_ptrs(ev, ev_lo=None):
+    """EvPtrs of the event state ev, or EvPtrsF32 with the lo parts ev_lo."""
     from dsp_tpu_torch.ops.m4_engine import EV_LEAVES
 
-    ptrs = M4EvPtrs()
+    ptrs = M4EvPtrs() if ev_lo is None else M4EvPtrsF32()
     slots = {"b": 0, "f": 0, "i": 0}
     for name, kind in EV_LEAVES:
         getattr(ptrs, kind)[slots[kind]] = ev[name].data_ptr()
+        if kind == "f" and ev_lo is not None:
+            ptrs.lo[slots[kind]] = ev_lo[name].data_ptr()
         slots[kind] += 1
     return ptrs
 
 
 def launch_m4_event(ctl, ev, ev_out, bg, bg_out, env_ds, eo, vt, iy_in, ics, iy_out, aux, fade_p,
-                    disable):
+                    disable, lo=None):
+    """lo None (float64), or the float32 entry's lo parts (ev_lo, ev_out_lo,
+    bg_lo, bg_out_lo)."""
     S, Nc = env_ds.shape[0], env_ds.shape[1]
     evp, k10 = ctl.c_structs()
-    rc = load().dsp_m4_event_f64(
-        ctypes.byref(_ev_ptrs(ev)), ctypes.byref(_ev_ptrs(ev_out)), _ptr(bg), _ptr(bg_out),
-        _ptr(env_ds), _ptr(eo), _ptr(vt), _ptr(iy_in), _ptr(ics), _ptr(iy_out), _ptr(aux),
-        ctypes.byref(evp), ctypes.byref(k10), S, Nc, fade_p, int(disable), _stream(env_ds.device),
-    )
+    tail = (_ptr(env_ds), _ptr(eo), _ptr(vt), _ptr(iy_in), _ptr(ics), _ptr(iy_out), _ptr(aux),
+            ctypes.byref(evp), ctypes.byref(k10), S, Nc, fade_p, int(disable),
+            _stream(env_ds.device))
+    if lo is None:
+        rc = load().dsp_m4_event_f64(ctypes.byref(_ev_ptrs(ev)), ctypes.byref(_ev_ptrs(ev_out)),
+                                     _ptr(bg), _ptr(bg_out), *tail)
+    else:
+        ev_lo, out_lo, bg_lo, bg_out_lo = lo
+        rc = load().dsp_m4_event_f32(
+            ctypes.byref(_ev_ptrs(ev, ev_lo)), ctypes.byref(_ev_ptrs(ev_out, out_lo)), _ptr(bg),
+            _ptr(bg_lo), _ptr(bg_out), _ptr(bg_out_lo), *tail)
     _check(rc, "m4_event")
 
 
 def launch_m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m, y, shelf_out, lp_out, pf_out,
                     scratch):
-    rc = load().dsp_m4_audio_f64(
+    fn = load().dsp_m4_audio_f32 if x.dtype == torch.float32 else load().dsp_m4_audio_f64
+    rc = fn(
         _ptr(x), _ptr(buf), _ptr(interp_c), _ptr(ics), _ptr(shelf_m), _ptr(lp_m), _ptr(pf_m),
         _ptr(y), _ptr(shelf_out), _ptr(lp_out), _ptr(pf_out), _ptr(scratch),
         ctypes.byref(cfg.c_struct()), x.shape[0], _stream(x.device),
@@ -453,14 +497,21 @@ def launch_m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m, y, shelf_ou
 
 
 def launch_m4mb_event(ctl, ev, ev_out, evt, evt_out, env_ds, eo, vt, iy_in, ics, iy_out, aux,
-                      fade_p, disable):
+                      fade_p, disable, lo=None):
+    """lo None (float64), or the float32 entry's lo parts (ev_lo, ev_out_lo,
+    evt_lo, evt_out_lo)."""
     evp, mb = ctl.c_structs()
-    rc = load().dsp_m4mb_event_f64(
-        ctypes.byref(_ev_ptrs(ev)), ctypes.byref(_ev_ptrs(ev_out)), _ptr(evt), _ptr(evt_out),
-        _ptr(env_ds), _ptr(eo), _ptr(vt), _ptr(iy_in), _ptr(ics), _ptr(iy_out), _ptr(aux),
-        ctypes.byref(evp), ctypes.byref(mb), env_ds.shape[0], fade_p, int(disable),
-        _stream(env_ds.device),
-    )
+    tail = (_ptr(env_ds), _ptr(eo), _ptr(vt), _ptr(iy_in), _ptr(ics), _ptr(iy_out), _ptr(aux),
+            ctypes.byref(evp), ctypes.byref(mb), env_ds.shape[0], fade_p, int(disable),
+            _stream(env_ds.device))
+    if lo is None:
+        rc = load().dsp_m4mb_event_f64(ctypes.byref(_ev_ptrs(ev)), ctypes.byref(_ev_ptrs(ev_out)),
+                                       _ptr(evt), _ptr(evt_out), *tail)
+    else:
+        ev_lo, out_lo, evt_lo, evt_out_lo = lo
+        rc = load().dsp_m4mb_event_f32(
+            ctypes.byref(_ev_ptrs(ev, ev_lo)), ctypes.byref(_ev_ptrs(ev_out, out_lo)), _ptr(evt),
+            _ptr(evt_lo), _ptr(evt_out), _ptr(evt_out_lo), *tail)
     _check(rc, "m4mb_event")
 
 
@@ -468,7 +519,8 @@ def launch_m4mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m, sig, pf_out, scra
     from dsp_tpu_torch.ops.m4_engine import DOWNSAMPLE_FACTOR
 
     c = M4MbAudioCfg(cfg.len, DOWNSAMPLE_FACTOR, int(cfg.phase_flip), int(cfg.direct_path))
-    rc = load().dsp_m4mb_audio_f64(
+    fn = load().dsp_m4mb_audio_f32 if bands.dtype == torch.float32 else load().dsp_m4mb_audio_f64
+    rc = fn(
         _ptr(bands), _ptr(fb_buf), _ptr(interp_c), _ptr(ics), _ptr(pf_m), _ptr(sig), _ptr(pf_out),
         _ptr(scratch), ctypes.byref(c), bands.shape[0], _stream(bands.device),
     )

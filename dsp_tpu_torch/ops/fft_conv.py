@@ -31,7 +31,18 @@ and its plain PyTorch version (``*_ref``) on a CPU tensor:
   block, the Nupols stage), always a copy the engine owns, never the
   caller's block.
 
-Each engine uploads its spectra once per device and dtype (``spectra``):
+On float32 samples (dsp_tpu runs K5-K7 in complex64 under float32,
+fft_conv.py:97, :144, :220) a step reads float32, transforms and
+multiplies in float64 against the complex128 spectra and stores float32:
+``rfft_pack_f32`` packs float32 [a | x], ``fdl_mac_f32`` reads and writes
+the FDL as float32 (re, im) pairs (dsp_tpu's float32 leaf), and
+``irfft_crop_f32`` and ``splice_f32`` store float32. Each float64 wrapper
+forwards to its float32 form on float32 samples: ``rfft_pack`` and
+``splice`` read them from x, ``fdl_mac`` and ``irfft_crop`` (whose
+operands are spectra, and an overlap-save step has neither an FDL nor an
+addend) take the samples' dtype as ``dtype``.
+
+Each engine uploads its complex128 spectra once per device (``spectra``):
 an upload per block would copy up to tens of MB host to device every step.
 NupolsConv decides its fire on the host, from a block counter that is a CPU
 int32 tensor (``cnt``, dsp_tpu's leaf), so a step never waits on the card.
@@ -64,17 +75,16 @@ def next_fast_len(n):
 
 
 class _Spectra:
-    """Per-device cache of an engine's host spectra ([K, NB, C] complex)."""
+    """Per-device cache of an engine's host spectra ([K, NB, C] complex128)."""
 
     def spectra(self, name, like):
-        """Host table `name` as a contiguous tensor on `like`'s device, in the
-        complex dtype of `like` (cast on the host, as dsp_tpu does)."""
+        """Host table `name` as a contiguous complex128 tensor on `like`'s
+        device, for samples of either dtype."""
         cache = self.__dict__.setdefault("_device_spectra", {})
-        cdtype = np.complex64 if like.dtype == torch.float32 else np.complex128
-        key = (name, like.device, cdtype)
+        key = (name, like.device)
         t = cache.get(key)
         if t is None:
-            host = np.ascontiguousarray(getattr(self, name), dtype=cdtype)
+            host = np.ascontiguousarray(getattr(self, name), dtype=np.complex128)
             t = cache[key] = torch.as_tensor(host, device=like.device)
         return t
 
@@ -106,8 +116,8 @@ class OlsConv(_Spectra):
             raise ValueError(f"OlsConv: block of {B} frames, built for {self.B}")
         hist = state.to(x.dtype)
         X = rfft_pack(hist, x, self.N)  # [hist | x] zero-padded to N
-        Y, _ = fdl_mac(X, self.spectra("H_dev", x))
-        out = irfft_crop(Y, self.N, self.hist, B)
+        Y, _ = fdl_mac(X, self.spectra("H_dev", x), dtype=x.dtype)
+        out = irfft_crop(Y, self.N, self.hist, B, dtype=x.dtype)
         if self.hist == 0:
             return state, out
         # the last hist rows of [hist | x]
@@ -151,8 +161,8 @@ class UpolsConv(_Spectra):
             raise ValueError(f"UpolsConv: block of {x.shape[0]} frames, built for {B}")
         prev = state["prev"].to(x.dtype)
         X = rfft_pack(prev, x, self.N)  # [B+1, C]
-        Y, fdl = fdl_mac(X, self.spectra("H_dev", x), state["fdl"].to(x.dtype))
-        out = irfft_crop(Y, self.N, B, B, add)
+        Y, fdl = fdl_mac(X, self.spectra("H_dev", x), state["fdl"].to(x.dtype), dtype=x.dtype)
+        out = irfft_crop(Y, self.N, B, B, add, dtype=x.dtype)
         return {"prev": splice(prev, x, B, 0, B), "fdl": fdl}, out
 
 
@@ -211,8 +221,9 @@ class NupolsConv(_Spectra):
         last = i == m - 1
         if last:
             X = rfft_pack(state["prev_super"].to(x.dtype), stage, 2 * P)  # [P+1, C]
-            Y, tail_fdl = fdl_mac(X, self.spectra("H1_dev", x), state["tail_fdl"].to(x.dtype))
-            tail_out = irfft_crop(Y, 2 * P, P, P)
+            Y, tail_fdl = fdl_mac(X, self.spectra("H1_dev", x), state["tail_fdl"].to(x.dtype),
+                                  dtype=x.dtype)
+            tail_out = irfft_crop(Y, 2 * P, P, P, dtype=x.dtype)
             prev_super = stage
         else:
             prev_super, tail_fdl, tail_out = (
@@ -234,9 +245,11 @@ class NupolsConv(_Spectra):
 
 def rfft_pack(a, x, N):
     """Spectrum [N//2+1, C] of the real signal [a | x | 0] of length N along
-    axis 0 (a: [La, C], may be empty; x: [Lx, C]; La + Lx <= N). CPU
-    tensors run rfft_pack_ref; CUDA tensors launch csrc/fft_conv.cu
-    (float64 only)."""
+    axis 0 (a: [La, C], may be empty; x: [Lx, C]; La + Lx <= N), float64,
+    or float32 (then this is rfft_pack_f32). CPU tensors run rfft_pack_ref;
+    CUDA tensors launch csrc/fft_conv.cu."""
+    if x.dtype == torch.float32:
+        return rfft_pack_f32(x, N, a)
     if x.device.type == "cpu":
         return rfft_pack_ref(a, x, N)
     from dsp_tpu_torch import kernels
@@ -260,24 +273,28 @@ def rfft_pack_ref(a, x, N):
     return torch.fft.rfft(torch.cat([a, x]), n=N, dim=0)
 
 
-def rfft_pack_f32(x, N):
-    """The spectrum [N//2+1, C] complex128 of float32 x [Lx, C] (Lx <= N)
-    zero-padded to N, read into float64: the float32 resampler's forward
-    transform, in place of dsp_tpu's two-float32 DFT. CPU tensors run
-    rfft_pack_f32_ref; CUDA tensors launch csrc/fft_conv.cu."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"rfft_pack_f32: the kernel takes torch.float32, got {x.dtype}")
+def rfft_pack_f32(x, N, a=None):
+    """The spectrum [N//2+1, C] complex128 of the float32 [a | x] (a [La, C]
+    or None, x [Lx, C], La + Lx <= N) zero-padded to N, read into float64:
+    the float32 FFT convolution step's and the float32 resampler's forward
+    transform, in place of dsp_tpu's complex64 rfft and two-float32 DFT.
+    CPU tensors run rfft_pack_f32_ref; CUDA tensors launch
+    csrc/fft_conv.cu."""
+    a = x[:0] if a is None else a
+    for t in (a, x):
+        if t.dtype != torch.float32:
+            raise TypeError(f"rfft_pack_f32: the kernel takes torch.float32, got {t.dtype}")
     if x.device.type == "cpu":
-        return rfft_pack_f32_ref(x, N)
+        return rfft_pack_f32_ref(x, N, a)
     from dsp_tpu_torch import kernels
 
-    _check_cuda("rfft_pack_f32", x, (x, torch.float32), align=4)
-    if x.dim() != 2 or x.shape[0] > N:
-        raise ValueError(f"rfft_pack_f32: x {tuple(x.shape)} at N = {N}")
+    _check_cuda("rfft_pack_f32", x, (a, torch.float32), (x, torch.float32), align=4)
+    if a.shape[1:] != x.shape[1:] or x.dim() != 2 or a.shape[0] + x.shape[0] > N:
+        raise ValueError(f"rfft_pack_f32: a {tuple(a.shape)}, x {tuple(x.shape)} at N = {N}")
     C = x.shape[1]
     X = torch.empty((N // 2 + 1, C), dtype=torch.complex128, device=x.device)
     work = torch.empty((2, N, C), dtype=torch.complex128, device=x.device)
-    kernels.launch_rfft_pack(x[:0], x, X, work, N)
+    kernels.launch_rfft_pack(a, x, X, work, N)
     rfft_pack_f32.launches += 1
     return X
 
@@ -285,16 +302,21 @@ def rfft_pack_f32(x, N):
 rfft_pack_f32.launches = 0
 
 
-def rfft_pack_f32_ref(x, N):
-    """Plain PyTorch version of rfft_pack_f32: the rfft of the upcast x."""
-    return torch.fft.rfft(x.double(), n=N, dim=0)
+def rfft_pack_f32_ref(x, N, a=None):
+    """Plain PyTorch version of rfft_pack_f32: the rfft of the upcast
+    [a | x]."""
+    xs = x if a is None else torch.cat([a, x])
+    return torch.fft.rfft(xs.double(), n=N, dim=0)
 
 
-def irfft_crop(Y, N, lo, L, add=None):
-    """Rows [lo, lo+L) of irfft(Y, n=N) along axis 0 (Y: [N//2+1, C]),
-    plus `add` ([L, C]) when given: [L, C] real. CPU tensors run
-    irfft_crop_ref; CUDA tensors launch csrc/fft_conv.cu (complex128
-    only)."""
+def irfft_crop(Y, N, lo, L, add=None, dtype=torch.float64):
+    """Rows [lo, lo+L) of irfft(Y, n=N) along axis 0 (Y: [N//2+1, C]
+    complex128), plus `add` ([L, C] float64) when given: [L, C] float64.
+    With dtype float32 (the samples' dtype) this is irfft_crop_f32. CPU
+    tensors run irfft_crop_ref; CUDA tensors launch csrc/fft_conv.cu."""
+    if dtype == torch.float32:
+        return irfft_crop_f32(Y, N, lo, L, add)
+    _check_dtypes("irfft_crop", (Y, torch.complex128), (add, torch.float64))
     if Y.device.type == "cpu":
         return irfft_crop_ref(Y, N, lo, L, add)
     from dsp_tpu_torch import kernels
@@ -322,31 +344,84 @@ def irfft_crop_ref(Y, N, lo, L, add=None):
     return y if add is None else y + add
 
 
+def irfft_crop_f32(Y, N, lo, L, add=None):
+    """irfft_crop with a float32 result: the inverse of complex128 Y in
+    float64, plus the float32 `add` ([L, C]) read into float64, each point
+    rounded once to float32. CPU tensors run irfft_crop_f32_ref; CUDA
+    tensors launch csrc/fft_conv.cu."""
+    _check_dtypes("irfft_crop_f32", (Y, torch.complex128), (add, torch.float32))
+    if Y.device.type == "cpu":
+        return irfft_crop_f32_ref(Y, N, lo, L, add)
+    from dsp_tpu_torch import kernels
+
+    checks = [(Y, torch.complex128)] + ([] if add is None else [(add, torch.float32)])
+    _check_cuda("irfft_crop_f32", Y, *checks)
+    C = Y.shape[1]
+    if Y.dim() != 2 or Y.shape[0] != N // 2 + 1 or not (0 <= lo and L > 0 and lo + L <= N):
+        raise ValueError(f"irfft_crop_f32: Y {tuple(Y.shape)}, rows [{lo}, {lo + L}) at N = {N}")
+    if add is not None and tuple(add.shape) != (L, C):
+        raise ValueError(f"irfft_crop_f32: add {tuple(add.shape)}, expected {(L, C)}")
+    out = torch.empty((L, C), dtype=torch.float32, device=Y.device)
+    work = torch.empty((2, N, C), dtype=torch.complex128, device=Y.device)
+    kernels.launch_irfft_crop(Y, work, out, N, lo, add)
+    irfft_crop_f32.launches += 1
+    return out
+
+
+irfft_crop_f32.launches = 0
+
+
+def irfft_crop_f32_ref(Y, N, lo, L, add=None):
+    """Plain PyTorch version of irfft_crop_f32: irfft_crop_ref on the
+    upcast add, rounded to float32."""
+    return irfft_crop_ref(Y, N, lo, L, None if add is None else add.double()).float()
+
+
 def splice(a, x, L, lo, shift):
     """[L, C] with out[n] = x[n - lo] for lo <= n < lo + len(x), else
     a[n + shift]: the last L rows of [a | x] (lo = L - len(x),
     shift = len(a) + len(x) - L), or a copy of a with x written at row lo
-    (shift = 0). Always a new tensor. CPU tensors run splice_ref; CUDA
-    tensors launch csrc/fft_conv.cu (float64 only)."""
+    (shift = 0). Always a new tensor, of a's and x's dtype: float64, or
+    float32 (then this is splice_f32). CPU tensors run splice_ref; CUDA
+    tensors launch csrc/fft_conv.cu."""
+    if x.dtype == torch.float32:
+        return splice_f32(a, x, L, lo, shift)
     if x.device.type == "cpu":
         return splice_ref(a, x, L, lo, shift)
+    return _launch_splice(splice, a, x, L, lo, shift)
+
+
+splice.launches = 0
+
+
+def splice_f32(a, x, L, lo, shift):
+    """splice on float32 a and x. CPU tensors run splice_ref; CUDA tensors
+    launch csrc/fft_conv.cu."""
+    _check_dtypes("splice_f32", (a, torch.float32), (x, torch.float32))
+    if x.device.type == "cpu":
+        return splice_ref(a, x, L, lo, shift)
+    return _launch_splice(splice_f32, a, x, L, lo, shift)
+
+
+splice_f32.launches = 0
+
+
+def _launch_splice(wrapper, a, x, L, lo, shift):
     from dsp_tpu_torch import kernels
 
-    _check_cuda("splice", x, (a, torch.float64), (x, torch.float64))
+    name = wrapper.__name__
+    _check_cuda(name, x, (a, x.dtype), (x, x.dtype), align=x.element_size())
     # the rows of out read from a: [0, lo) and [lo + len(x), L)
     reads = ((0, min(lo, L)), (max(lo + x.shape[0], 0), L))
     if a.shape[1:] != x.shape[1:] or x.dim() != 2 or L <= 0 or any(
         n0 < n1 and not (0 <= n0 + shift and n1 + shift <= a.shape[0]) for n0, n1 in reads
     ):
-        raise ValueError(f"splice: a {tuple(a.shape)}, x {tuple(x.shape)}, L {L}, "
+        raise ValueError(f"{name}: a {tuple(a.shape)}, x {tuple(x.shape)}, L {L}, "
                          f"lo {lo}, shift {shift}")
-    out = torch.empty((L, x.shape[1]), dtype=torch.float64, device=x.device)
+    out = torch.empty((L, x.shape[1]), dtype=x.dtype, device=x.device)
     kernels.launch_splice(a, x, out, lo, shift)
-    splice.launches += 1
+    wrapper.launches += 1
     return out
-
-
-splice.launches = 0
 
 
 def splice_ref(a, x, L, lo, shift):
@@ -356,7 +431,7 @@ def splice_ref(a, x, L, lo, shift):
     return torch.cat([a[shift : shift + lo_c], x[lo_c - lo : hi_c - lo], a[hi_c + shift : L + shift]])
 
 
-def fdl_mac(X, H, fdl_in=None):
+def fdl_mac(X, H, fdl_in=None, dtype=torch.float64):
     """The spectral multiply-accumulate of K5, K6 and K7.
 
         Y[f, c]    = X[f, c] H[0, f, c] + sum_{k=1..K-1} FDL_in[k-1, f, c] H[k, f, c]
@@ -365,8 +440,13 @@ def fdl_mac(X, H, fdl_in=None):
     X: [NB, C] complex; H: [K, NB, C] complex; fdl_in: [K, NB, C, 2] real,
     the (re, im) pairs of dsp_tpu's state, or None when there is no delay
     line (K = 1, OlsConv). Returns (Y [NB, C], FDL_out [K, NB, C, 2] or
-    None). CPU tensors run fdl_mac_ref; CUDA tensors launch
-    csrc/fdl_mac.cu, which takes complex128 only."""
+    None). X and H are complex128, fdl_in float64; with dtype float32 (the
+    samples' dtype) this is fdl_mac_f32. CPU tensors run fdl_mac_ref; CUDA
+    tensors launch csrc/fdl_mac.cu."""
+    if dtype == torch.float32:
+        return fdl_mac_f32(X, H, fdl_in)
+    _check_dtypes("fdl_mac", (X, torch.complex128), (H, torch.complex128),
+                  (fdl_in, torch.float64))
     if X.device.type == "cpu":
         return fdl_mac_ref(X, H, fdl_in)
     from dsp_tpu_torch import kernels
@@ -385,6 +465,40 @@ def fdl_mac(X, H, fdl_in=None):
 fdl_mac.launches = 0
 
 
+def fdl_mac_f32(X, H, fdl_in=None):
+    """fdl_mac with the FDL as float32 (re, im) pairs, dsp_tpu's float32
+    leaf: the slots read into complex128, the product and sum in complex128
+    against the complex128 H, X stored rounded as the newest slot; Y is
+    complex128. With fdl_in None (an overlap-save step) the product of
+    fdl_mac. CPU tensors run fdl_mac_f32_ref; CUDA tensors launch
+    csrc/fdl_mac.cu."""
+    _check_dtypes("fdl_mac_f32", (X, torch.complex128), (H, torch.complex128),
+                  (fdl_in, torch.float32))
+    if X.device.type == "cpu":
+        return fdl_mac_f32_ref(X, H, fdl_in)
+    from dsp_tpu_torch import kernels
+
+    _check_cuda("fdl_mac_f32", X, *[(t, dt) for t, dt in (
+        (X, torch.complex128), (H, torch.complex128), (fdl_in, torch.float32)) if t is not None],
+        align=16)
+    _check_fdl_mac_shapes(X, H, fdl_in)
+    Y = torch.empty_like(X)
+    fdl_out = None if fdl_in is None else torch.empty_like(fdl_in)
+    kernels.launch_fdl_mac(X, H, fdl_in, Y, fdl_out, f32=True)
+    fdl_mac_f32.launches += 1
+    return Y, fdl_out
+
+
+fdl_mac_f32.launches = 0
+
+
+def fdl_mac_f32_ref(X, H, fdl_in=None):
+    """Plain PyTorch version of fdl_mac_f32: fdl_mac_ref on the upcast
+    FDL, the shifted FDL rounded to float32."""
+    Y, fdl = fdl_mac_ref(X, H, None if fdl_in is None else fdl_in.double())
+    return Y, None if fdl is None else fdl.float()
+
+
 def fdl_mac_ref(X, H, fdl_in=None):
     """Plain PyTorch version of fdl_mac (any device): dsp_tpu's
     concatenate-then-sum (fft_conv.py:99, :145-151, :225-233)."""
@@ -394,6 +508,14 @@ def fdl_mac_ref(X, H, fdl_in=None):
         return X * H[0], None
     fdl = torch.cat([X[None], torch.view_as_complex(fdl_in.contiguous())[:-1]])
     return (fdl * H).sum(dim=0), torch.view_as_real(fdl)
+
+
+def _check_dtypes(name, *tensors):
+    """Raise unless every (tensor, dtype) pair, the tensor not None, is of
+    that dtype (the one this wrapper's kernel takes), on every device."""
+    for t, dtype in tensors:
+        if t is not None and t.dtype != dtype:
+            raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
 
 
 def _check_cuda(name, like, *tensors, align=8):

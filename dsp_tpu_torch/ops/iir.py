@@ -45,6 +45,8 @@ unchanged.
 import numpy as np
 import torch
 
+from dsp_tpu_torch.ops.fft_conv import _check_dtypes
+
 # chunk length of the blocked kernel; block sizes must be multiples of this
 # (and >= 2*BLOCKED_L) to take the blocked path (see BiquadEffect.step and
 # chain.CompiledChain._fuse)
@@ -295,7 +297,7 @@ def lti_blocked(plan, state, x):
     lti_blocked_ref; CUDA tensors launch csrc/lti_blocked.cu."""
     if x.dtype == torch.float32:
         return lti_blocked_f32(plan, state, x)
-    _check_dtypes("lti_blocked", torch.float64, x, state)
+    _check_dtypes("lti_blocked", (x, torch.float64), (state, torch.float64))
     if x.device.type == "cpu":
         return lti_blocked_ref(plan, state, x)
     return _launch_lti_blocked(lti_blocked, plan, state, x, False)
@@ -310,7 +312,7 @@ def lti_blocked_f32(plan, state, x, df_out=False):
     Returns (state', y), with the state split into (hi, lo); with df_out,
     (state', (y_hi, y_lo)), y split the same way. CPU tensors run
     lti_blocked_f32_ref; CUDA tensors launch csrc/lti_blocked.cu."""
-    _check_dtypes("lti_blocked_f32", torch.float32, x, state)
+    _check_dtypes("lti_blocked_f32", (x, torch.float32), (state, torch.float32))
     if x.device.type == "cpu":
         return lti_blocked_f32_ref(plan, state, x, df_out)
     return _launch_lti_blocked(lti_blocked_f32, plan, state, x, df_out)
@@ -398,7 +400,7 @@ def biquad_scan(A, Bv, c0, state, x):
     launch csrc/biquad_scan.cu."""
     if x.dtype == torch.float32:
         return biquad_scan_f32(A, Bv, c0, state, x)
-    _check_dtypes("biquad_scan", torch.float64, x, state, A, Bv, c0)
+    _check_dtypes("biquad_scan", *[(t, torch.float64) for t in (x, state, A, Bv, c0)])
     if x.device.type == "cpu":
         return biquad_scan_ref(A, Bv, c0, state, x)
     return _launch_biquad_scan(biquad_scan, A, Bv, c0, state, x, (x.shape[1], 2))
@@ -412,7 +414,7 @@ def biquad_scan_f32(A, Bv, c0, state, x):
     sum in float32, as dsp_tpu's float32 scan (crossfeed, the Thiran
     delay). CPU tensors run biquad_scan_f32_ref; CUDA tensors launch
     csrc/biquad_scan.cu."""
-    _check_dtypes("biquad_scan_f32", torch.float32, x, state, A, Bv, c0)
+    _check_dtypes("biquad_scan_f32", *[(t, torch.float32) for t in (x, state, A, Bv, c0)])
     if x.device.type == "cpu":
         return biquad_scan_f32_ref(A, Bv, c0, state, x)
     return _launch_biquad_scan(biquad_scan_f32, A, Bv, c0, state, x, (x.shape[1], 2))
@@ -425,14 +427,16 @@ def biquad_scan_df(A, Bv, c0, state, x):
     """K3, dsp_tpu's biquad_scan_df (iir.py:89): the per-sample biquad on
     float32 x [B, C] with float64 A [C,2,2], Bv [C,2] and c0 [C] (the
     coupled form) and a float32 (hi, lo) state [2, C, 2], so that it hands
-    a state to and from K1-df. Returns (state' [2, C, 2], y [B, C] float32).
-    CPU tensors run biquad_scan_df_ref; CUDA tensors launch
-    csrc/biquad_scan.cu."""
-    _check_dtypes("biquad_scan_df", torch.float32, x, state)
-    _check_dtypes("biquad_scan_df", torch.float64, A, Bv, c0)
+    a state to and from K1-df, or a single float32 state [C, 2] (as
+    biquad_scan_auto hands it). Returns (state' of the state's shape,
+    y [B, C] float32). CPU tensors run biquad_scan_df_ref; CUDA tensors
+    launch csrc/biquad_scan.cu."""
+    _check_dtypes("biquad_scan_df", (x, torch.float32), (state, torch.float32),
+                  *[(t, torch.float64) for t in (A, Bv, c0)])
     if x.device.type == "cpu":
         return biquad_scan_df_ref(A, Bv, c0, state, x)
-    return _launch_biquad_scan(biquad_scan_df, A, Bv, c0, state, x, (2, x.shape[1], 2))
+    shape = (x.shape[1], 2) if state.dim() == 2 else (2, x.shape[1], 2)
+    return _launch_biquad_scan(biquad_scan_df, A, Bv, c0, state, x, shape)
 
 
 biquad_scan_df.launches = 0
@@ -533,34 +537,32 @@ def biquad_scan_f32_ref(A, Bv, c0, state, x):
 
 def biquad_scan_df_ref(A, Bv, c0, state, x):
     """Plain PyTorch version of K3: biquad_scan_ref in float64 on the
-    upcast x and state (hi + lo), then the state split and y rounded to
-    float32."""
-    s_end, y = biquad_scan_ref(A, Bv, c0, state[0].double() + state[1].double(), x.double())
-    return torch.stack(split_f64(s_end)), y.float()
+    upcast x and state (hi + lo), then y rounded to float32 and the state
+    split, or, a single state, rounded."""
+    s = state.double() if state.dim() == 2 else state[0].double() + state[1].double()
+    s_end, y = biquad_scan_ref(A, Bv, c0, s, x.double())
+    return (s_end.float() if state.dim() == 2 else torch.stack(split_f64(s_end))), y.float()
 
 
 def biquad_scan_auto(c, state, x):
     """dsp_tpu's biquad_scan_auto (iir.py:129): the biquads of host
     coefficients c [5, C] (numpy) on state [C, 2] and x [B, C]. Under
     float32 the coupled form on K3, the state handed in and out as one
-    float32 array (hi + lo rounded, as dsp_tpu does); under float64 the
-    same coupled form on K2."""
+    float32 array (dsp_tpu's hi + lo, rounded); under float64 the same
+    coupled form on K2."""
     c = np.asarray(c, dtype=np.float64)
     A, Bv = _coupled_form_ss(c)
+    coef = (torch.as_tensor(a, dtype=torch.float64, device=x.device) for a in (A, Bv, c[0]))
+    return biquad_scan_coupled(*coef, state, x)
+
+
+def biquad_scan_coupled(A, Bv, c0, state, x):
+    """The biquads of float64 coupled-form coefficients (A [C,2,2],
+    Bv [C,2], c0 [C]) on a state [C, 2] and x [B, C] of x's dtype: K2 on
+    float64, K3 with a single float32 state on float32."""
     if x.dtype == torch.float32:
-        coef = (torch.as_tensor(a, dtype=torch.float64, device=x.device) for a in (A, Bv, c[0]))
-        st, y = biquad_scan_df(*coef, torch.stack([state, torch.zeros_like(state)]), x)
-        return st[0] + st[1], y
-    coef = (torch.as_tensor(a, dtype=x.dtype, device=x.device) for a in (A, Bv, c[0]))
-    return biquad_scan(*coef, state, x)
-
-
-def _check_dtypes(name, dtype, *tensors):
-    """Raise unless every tensor is of `dtype` (the one this wrapper's
-    kernel takes)."""
-    for t in tensors:
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
+        return biquad_scan_df(A, Bv, c0, state, x)
+    return biquad_scan(A, Bv, c0, state, x)
 
 
 def _check_cuda(name, x, *others):

@@ -36,6 +36,21 @@ Each wrapper takes CUDA tensors (or raises) and counts its launches; a CPU
 tensor runs ``<name>_ref``. dsp_tpu's f64 path is plain jnp (dfx's f64
 branches pass straight through: atan_pos is arctan), so the plain versions
 are plain torch; the two-float32 machinery is not ported.
+
+Under float32 dsp_tpu runs the whole control path of both upmixes in
+two-float32 (dfx.DF: its add, multiply, divide, sqrt, sin, cos, tan, exp and
+atan_pos, dfx.py:113-520, under env_ewma_scan(..., df=True) and event_step
+with cast_params(df=True)), and the audio path in float32. Each wrapper has
+a float32 form (``<name>_f32``) that reads float32, computes the float64
+function above in float64 registers and stores float32: a float32 (hi, lo)
+pair is read as hi + lo, and a state leaf that dsp_tpu keeps as a pair
+(``ev``/``ev_lo``, ``env_m``/``env_m_lo``, ``bg_cs``/``bg_cs_lo``,
+``ev_thresh``/``ev_thresh_lo``) is written back split, hi = float32(v),
+lo = float32(v - hi). The envelopes at the ticks stay float64 (control-rate
+scratch); the per-tick matrix values are rounded to float32 where dsp_tpu
+collapses its pairs, so the coefficient sets, the window and the display
+values are float32, as dsp_tpu's are. The plain float32 forms run the
+float64 plain versions on the upcast inputs and round the same way.
 """
 
 import ctypes
@@ -44,7 +59,8 @@ import math
 import numpy as np
 import torch
 
-from dsp_tpu_torch.ops.fft_conv import _check_cuda
+from dsp_tpu_torch.ops.fft_conv import _check_cuda, _check_dtypes
+from dsp_tpu_torch.ops.iir import split_f64
 
 EVENT_THRESH = 1.8
 EVENT_END_THRESH = 0.2
@@ -850,17 +866,9 @@ def m4_env(ybp, env_m, g):
     CUDA tensors launch csrc/m4_env.cu."""
     if ybp.device.type == "cpu":
         return m4_env_ref(ybp, env_m, g)
-    from dsp_tpu_torch import kernels
-
-    _check_cuda("m4_env", ybp, (ybp, torch.float64), (env_m, torch.float64))
-    B = ybp.shape[0]
-    if ybp.dim() != 2 or ybp.shape[1] != 2 or B % DOWNSAMPLE_FACTOR or tuple(env_m.shape) != (8,):
-        raise ValueError(f"m4_env: ybp {tuple(ybp.shape)}, env_m {tuple(env_m.shape)}")
-    env_out = torch.empty_like(env_m)
-    env_ds = torch.empty((B // DOWNSAMPLE_FACTOR, 8), dtype=torch.float64, device=ybp.device)
-    kernels.launch_m4_env(ybp, env_m, env_out, env_ds, float(g))
+    env_out, env_ds = _launch_env("m4_env", ybp[:, None], env_m[None], g)
     m4_env.launches += 1
-    return env_out, env_ds
+    return env_out[0], env_ds[:, 0]
 
 
 m4_env.launches = 0
@@ -876,6 +884,58 @@ def m4_env_ref(ybp, env_m, g):
     envs = _affine_scan_ref(torch.full((1, 8), 1.0 - g, dtype=env_in.dtype, device=env_in.device),
                             g * env_in, env_m)
     return envs[-1], envs[DOWNSAMPLE_FACTOR - 1 :: DOWNSAMPLE_FACTOR]
+
+
+def m4_env_f32(ybp, ybp_lo, env_m, env_m_lo, g):
+    """K11 in float32: m4_env on the (hi, lo) pair (ybp, ybp_lo) [B, 2] of
+    the band-limit's output, from the carried pair (env_m, env_m_lo) [8],
+    all float32, in float64 inside. Returns (env_m', env_m_lo', env_ds
+    [Nc, 8] float64). CPU tensors run m4_env_f32_ref; CUDA tensors launch
+    csrc/m4_env.cu."""
+    _check_dtypes("m4_env_f32", *[(t, torch.float32) for t in (ybp, ybp_lo, env_m, env_m_lo)])
+    if ybp.device.type == "cpu":
+        return m4_env_f32_ref(ybp, ybp_lo, env_m, env_m_lo, g)
+    env_out, env_out_lo, env_ds = _launch_env("m4_env_f32", ybp[:, None], env_m[None], g,
+                                              lo=(ybp_lo[:, None], env_m_lo[None]))
+    m4_env_f32.launches += 1
+    return env_out[0], env_out_lo[0], env_ds[:, 0]
+
+
+m4_env_f32.launches = 0
+
+
+def m4_env_f32_ref(ybp, ybp_lo, env_m, env_m_lo, g):
+    """Plain PyTorch version of m4_env_f32: m4_env_ref on hi + lo in
+    float64, the carried envelopes split."""
+    env, env_ds = m4_env_ref(ybp.double() + ybp_lo.double(), env_m.double() + env_m_lo.double(), g)
+    return (*split_f64(env), env_ds)
+
+
+def _launch_env(name, bands, env_m, g, w=None, lo=None):
+    """csrc/m4_env.cu on S lanes: bands [B, S, 2] and env_m [S, 8] float64,
+    or float32 with their lo parts lo = (bands_lo, env_m_lo); w [S, S]
+    float64 or None. Returns (env_m', env_ds [Nc, S, 8] float64), with
+    env_m_lo' between them under float32."""
+    from dsp_tpu_torch import kernels
+
+    dtype = torch.float64 if lo is None else torch.float32
+    _check_cuda(name, bands, *[(t, dtype) for t in (bands, env_m, *(lo or ()))],
+                *([(w, torch.float64)] if w is not None else []), align=4)
+    B = bands.shape[0]
+    S = bands.shape[1] if bands.dim() == 3 else 0
+    if (bands.dim() != 3 or bands.shape[2] != 2 or B % DOWNSAMPLE_FACTOR
+            or tuple(env_m.shape) != (S, 8) or (w is not None and tuple(w.shape) != (S, S))
+            or (lo is not None and (lo[0].shape != bands.shape or lo[1].shape != env_m.shape))):
+        raise ValueError(f"{name}: bands {tuple(bands.shape)}, env_m {tuple(env_m.shape)}, "
+                         f"weights {None if w is None else tuple(w.shape)}")
+    env_out = torch.empty_like(env_m)
+    env_ds = torch.empty((B // DOWNSAMPLE_FACTOR, S, 8), dtype=torch.float64, device=bands.device)
+    if lo is None:
+        kernels.launch_m4_env(bands, env_m, env_out, env_ds, float(g), w)
+        return env_out, env_ds
+    env_out_lo = torch.empty_like(env_m)
+    kernels.launch_m4_env(bands, env_m, env_out, env_ds, float(g), w, lo=(*lo, env_out_lo))
+    return env_out, env_out_lo, env_ds
 
 
 def fade_ticks(fade_p, disable, fade_frames, Nc, like):
@@ -910,11 +970,8 @@ def m4_event(ctl, ev, bg, env_ds, interp_y, fade_p, disable):
     _check_cuda("m4_event", env_ds, (env_ds, torch.float64), (bg, torch.float64),
                 (interp_y, torch.float64), *leaves, align=1)
     S, Nc = env_ds.shape[0], env_ds.shape[1]
-    L = ctl.p["buf_len"]
-    if (env_ds.dim() != 3 or env_ds.shape[2] != 8 or tuple(bg.shape) != (S, 2)
-            or tuple(interp_y.shape) != (S, 4, N_INTERP) or ev["ord_buf"].shape[:2] != (S, L)):
-        raise ValueError(f"m4_event: env_ds {tuple(env_ds.shape)}, bg {tuple(bg.shape)}, "
-                         f"interp_y {tuple(interp_y.shape)}, ord_buf {tuple(ev['ord_buf'].shape)}")
+    _check_event_shapes("m4_event", ctl, ev, env_ds, (S, Nc, 8), bg, (S, 2), interp_y,
+                        (S, 4, N_INTERP), S)
     out = {k: torch.empty_like(v) for k, v in ev.items()}
     bg_out = torch.empty_like(bg)
     dev = env_ds.device
@@ -932,9 +989,100 @@ def m4_event(ctl, ev, bg, env_ds, interp_y, fade_p, disable):
 m4_event.launches = 0
 
 
-def m4_event_ref(ctl, ev, bg, env_ds, interp_y, fade_p, disable):
+def m4_event_f32(ctl, ev, ev_lo, bg, bg_lo, env_ds, interp_y, fade_p, disable):
+    """K9 + K10 in float32: m4_event with every float leaf of ev as the
+    float32 pair (ev[k], ev_lo[k]) and the background smoother as the pair
+    (bg, bg_lo) [S, 2], env_ds [S, Nc, 8] float64 and interp_y [S, 4, 16]
+    float32. The engine and the epilogue run in float64; the per-tick values
+    are rounded to float32 before the insert. Returns (ev', ev_lo', bg',
+    bg_lo', ics [S, Nc, 3, 16], interp_y', aux [S, Nc, 4]), the last three
+    float32. CPU tensors run m4_event_f32_ref; CUDA tensors launch
+    csrc/m4_event.cu."""
+    _check_f32_state("m4_event_f32", ev, ev_lo, (bg, bg_lo, interp_y), env_ds)
+    if env_ds.device.type == "cpu":
+        return m4_event_f32_ref(ctl, ev, ev_lo, bg, bg_lo, env_ds, interp_y, fade_p, disable)
+    from dsp_tpu_torch import kernels
+
+    _check_cuda("m4_event_f32", env_ds, (env_ds, torch.float64), *_leaf_checks(ev, ev_lo),
+                *[(t, torch.float32) for t in (bg, bg_lo, interp_y)], align=1)
+    S, Nc = env_ds.shape[0], env_ds.shape[1]
+    _check_event_shapes("m4_event_f32", ctl, ev, env_ds, (S, Nc, 8), bg, (S, 2), interp_y,
+                        (S, 4, N_INTERP), S)
+    out, out_lo = _empty_state(ev, ev_lo)
+    bg_out, bg_out_lo = torch.empty_like(bg), torch.empty_like(bg_lo)
+    dev, f32 = env_ds.device, torch.float32
+    eo = torch.empty((S, Nc, 8), dtype=torch.float64, device=dev)
+    vt = torch.empty((S, Nc, N_INTERP), dtype=torch.float64, device=dev)
+    ics = torch.empty((S, Nc, 3, N_INTERP), dtype=f32, device=dev)
+    iy_out = torch.empty_like(interp_y)
+    aux = torch.empty((S, Nc, 4), dtype=f32, device=dev)
+    kernels.launch_m4_event(ctl, ev, out, bg, bg_out, env_ds, eo, vt, interp_y, ics, iy_out, aux,
+                            int(fade_p), bool(disable), lo=(ev_lo, out_lo, bg_lo, bg_out_lo))
+    m4_event_f32.launches += 1
+    return out, out_lo, bg_out, bg_out_lo, ics, iy_out, aux
+
+
+m4_event_f32.launches = 0
+
+
+def m4_event_f32_ref(ctl, ev, ev_lo, bg, bg_lo, env_ds, interp_y, fade_p, disable):
+    """Plain PyTorch version of m4_event_f32: m4_event_ref on the joined
+    pairs in float64, the per-tick values rounded to float32, the state
+    split."""
+    st, bg2, ics, iy, aux = m4_event_ref(ctl, join_pairs(ev, ev_lo), bg.double() + bg_lo.double(),
+                                         env_ds, interp_y, fade_p, disable, torch.float32)
+    return (*split_pairs(st, ev_lo), *split_f64(bg2), ics, iy, aux)
+
+
+def join_pairs(ev, ev_lo):
+    """The state ev with each float leaf that has a lo part in ev_lo read
+    as hi + lo in float64."""
+    return {k: v.double() + ev_lo[k].double() if k in ev_lo else v for k, v in ev.items()}
+
+
+def split_pairs(ev, ev_lo):
+    """(ev with each leaf of ev_lo's names rounded to float32, those leaves'
+    lo parts): the inverse of join_pairs."""
+    hi, lo = dict(ev), {}
+    for k in ev_lo:
+        hi[k], lo[k] = split_f64(ev[k])
+    return hi, lo
+
+
+def _check_f32_state(name, ev, ev_lo, f32s, env_ds):
+    """The float32 engines' dtypes, on every device: each float leaf of ev
+    and its lo part and every tensor of f32s float32, env_ds float64."""
+    _check_dtypes(name, (env_ds, torch.float64), *_leaf_checks(ev, ev_lo),
+                  *[(t, torch.float32) for t in f32s])
+
+
+def _leaf_checks(ev, ev_lo):
+    """(tensor, dtype) for every leaf of the float32 event state: the bools,
+    the float32 pairs, the int64 counters, in EV_LEAVES order."""
+    kinds = {"b": torch.bool, "f": torch.float32, "i": torch.int64}
+    checks = [(ev[k], kinds[kind]) for k, kind in EV_LEAVES]
+    return checks + [(ev_lo[k], torch.float32) for k, kind in EV_LEAVES if kind == "f"]
+
+
+def _empty_state(ev, ev_lo):
+    return ({k: torch.empty_like(v) for k, v in ev.items()},
+            {k: torch.empty_like(v) for k, v in ev_lo.items()})
+
+
+def _check_event_shapes(name, ctl, ev, env_ds, env_shape, carry, carry_shape, interp_y, iy_shape,
+                        S):
+    if (tuple(env_ds.shape) != env_shape or tuple(carry.shape) != carry_shape
+            or tuple(interp_y.shape) != iy_shape
+            or tuple(ev["ord_buf"].shape[:2]) != (S, ctl.p["buf_len"])):
+        raise ValueError(f"{name}: env_ds {tuple(env_ds.shape)}, carry {tuple(carry.shape)}, "
+                         f"interp_y {tuple(interp_y.shape)}, ord_buf {tuple(ev['ord_buf'].shape)}")
+
+
+def m4_event_ref(ctl, ev, bg, env_ds, interp_y, fade_p, disable, out_dtype=torch.float64):
     """Plain PyTorch version of m4_event: event_step and smf_asym_run tick
-    by tick over the lanes, then the epilogue over all ticks at once."""
+    by tick over the lanes, then the epilogue over all ticks at once. With
+    out_dtype float32 the per-tick values are rounded to it before the
+    insert, and the coefficient sets, window and aux come out in it."""
     p = ctl.p
     S, Nc = env_ds.shape[0], env_ds.shape[1]
     st = dict(ev)
@@ -956,8 +1104,9 @@ def m4_event_ref(ctl, ev, bg, env_ds, interp_y, fade_p, disable):
     out = {k: torch.stack(v, 1) for k, v in outs.items()}  # [S, Nc]
     w1s = torch.stack(w1s, 1)
     vals, aux = m4_epilogue_ref(ctl, out, w1s, fade_p, disable)
-    ics, iy_new = interp_insert_ref(interp_y, vals)
-    return st, torch.stack([bg0, bg1], -1), ics, iy_new, aux
+    ics, iy_new = interp_insert_ref(interp_y.double(), vals.to(out_dtype).double())
+    return (st, torch.stack([bg0, bg1], -1), ics.to(out_dtype), iy_new.to(out_dtype),
+            aux.to(out_dtype))
 
 
 def m4_epilogue_ref(ctl, out, w1s, fade_p, disable):
@@ -1064,13 +1213,8 @@ def m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m):
 
     _check_cuda("m4_audio", x, *[(t, torch.float64) for t in (x, buf, interp_c, ics, shelf_m,
                                                                lp_m, pf_m)])
+    _check_audio_shapes("m4_audio", cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m)
     B = x.shape[0]
-    if (x.dim() != 2 or x.shape[1] != cfg.n_in or B % DOWNSAMPLE_FACTOR
-            or tuple(buf.shape) != (cfg.len, 2) or tuple(ics.shape) != (B // DOWNSAMPLE_FACTOR, 3, N_INTERP)
-            or tuple(interp_c.shape) != (3, N_INTERP) or tuple(shelf_m.shape) != (4,)
-            or tuple(lp_m.shape) != (4,) or tuple(pf_m.shape) != (2, 2)):
-        raise ValueError(f"m4_audio: x {tuple(x.shape)}, buf {tuple(buf.shape)}, "
-                         f"ics {tuple(ics.shape)}")
     y = torch.empty((B, cfg.n_out), dtype=torch.float64, device=x.device)
     scratch = torch.empty((4, B), dtype=torch.float64, device=x.device)
     outs = (torch.empty_like(shelf_m), torch.empty_like(lp_m), torch.empty_like(pf_m))
@@ -1080,6 +1224,49 @@ def m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m):
 
 
 m4_audio.launches = 0
+
+
+def m4_audio_f32(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m):
+    """K12 + K13 in float32: m4_audio with x, the line, the coefficient sets
+    and the states float32, computed in float64 registers; y and the states
+    stored float32. CPU tensors run m4_audio_f32_ref; CUDA tensors launch
+    csrc/m4_audio.cu."""
+    ins = (x, buf, interp_c, ics, shelf_m, lp_m, pf_m)
+    _check_dtypes("m4_audio_f32", *[(t, torch.float32) for t in ins])
+    if x.device.type == "cpu":
+        return m4_audio_f32_ref(cfg, *ins)
+    from dsp_tpu_torch import kernels
+
+    _check_cuda("m4_audio_f32", x, *[(t, torch.float32) for t in ins], align=4)
+    _check_audio_shapes("m4_audio_f32", cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m)
+    B = x.shape[0]
+    y = torch.empty((B, cfg.n_out), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((4, B), dtype=torch.float64, device=x.device)
+    outs = (torch.empty_like(shelf_m), torch.empty_like(lp_m), torch.empty_like(pf_m))
+    kernels.launch_m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m, y, *outs, scratch)
+    m4_audio_f32.launches += 1
+    return (y, *outs)
+
+
+m4_audio_f32.launches = 0
+
+
+def m4_audio_f32_ref(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m):
+    """Plain PyTorch version of m4_audio_f32: m4_audio_ref on the upcast
+    inputs, every output rounded to float32."""
+    outs = m4_audio_ref(cfg, *(t.double() for t in (x, buf, interp_c, ics, shelf_m, lp_m, pf_m)))
+    return tuple(t.float() for t in outs)
+
+
+def _check_audio_shapes(name, cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m):
+    B = x.shape[0]
+    Nc = B // DOWNSAMPLE_FACTOR
+    if (x.dim() != 2 or x.shape[1] != cfg.n_in or B % DOWNSAMPLE_FACTOR
+            or tuple(buf.shape) != (cfg.len, 2) or tuple(ics.shape) != (Nc, 3, N_INTERP)
+            or tuple(interp_c.shape) != (3, N_INTERP) or tuple(shelf_m.shape) != (4,)
+            or tuple(lp_m.shape) != (4,) or tuple(pf_m.shape) != (2, 2)):
+        raise ValueError(f"{name}: x {tuple(x.shape)}, buf {tuple(buf.shape)}, "
+                         f"ics {tuple(ics.shape)}")
 
 
 def _dyn_shelf_ref(pr, m0, sig, g):
@@ -1304,12 +1491,8 @@ def m4mb_event(ctl, ev, evt, env_ds, interp_y, fade_p, disable):
     _check_cuda("m4mb_event", env_ds, (env_ds, torch.float64), (evt, torch.float64),
                 (interp_y, torch.float64), *leaves, align=1)
     Nc = env_ds.shape[0]
-    L = ctl.p["buf_len"]
-    if (env_ds.dim() != 3 or tuple(env_ds.shape[1:]) != (N_BANDS, 8)
-            or tuple(evt.shape) != (N_BANDS,) or tuple(interp_y.shape) != (4, N_BANDS, N_SIG_MB)
-            or ev["ord_buf"].shape[:2] != (N_BANDS, L)):
-        raise ValueError(f"m4mb_event: env_ds {tuple(env_ds.shape)}, evt {tuple(evt.shape)}, "
-                         f"interp_y {tuple(interp_y.shape)}, ord_buf {tuple(ev['ord_buf'].shape)}")
+    _check_event_shapes("m4mb_event", ctl, ev, env_ds, (Nc, N_BANDS, 8), evt, (N_BANDS,),
+                        interp_y, (4, N_BANDS, N_SIG_MB), N_BANDS)
     out = {k: torch.empty_like(v) for k, v in ev.items()}
     evt_out = torch.empty_like(evt)
     dev = env_ds.device
@@ -1327,10 +1510,58 @@ def m4mb_event(ctl, ev, evt, env_ds, interp_y, fade_p, disable):
 m4mb_event.launches = 0
 
 
-def m4mb_event_ref(ctl, ev, evt, env_ds, interp_y, fade_p, disable):
+def m4mb_event_f32(ctl, ev, ev_lo, evt, evt_lo, env_ds, interp_y, fade_p, disable):
+    """K9 + K10 of matrix4_mb in float32: m4mb_event with every float leaf
+    of ev as the float32 pair (ev[k], ev_lo[k]) and the thresholds as the
+    pair (evt, evt_lo) [13], env_ds [Nc, 13, 8] float64 and interp_y
+    [4, 13, 12] float32. The engines, the threshold modulation and the
+    epilogue run in float64; the per-tick values are rounded to float32
+    before the insert. Returns (ev', ev_lo', evt', evt_lo', ics
+    [Nc, 3, 13, 12], interp_y', aux [Nc, 13, 2]), the last three float32.
+    CPU tensors run m4mb_event_f32_ref; CUDA tensors launch
+    csrc/m4_event.cu."""
+    _check_f32_state("m4mb_event_f32", ev, ev_lo, (evt, evt_lo, interp_y), env_ds)
+    if env_ds.device.type == "cpu":
+        return m4mb_event_f32_ref(ctl, ev, ev_lo, evt, evt_lo, env_ds, interp_y, fade_p, disable)
+    from dsp_tpu_torch import kernels
+
+    _check_cuda("m4mb_event_f32", env_ds, (env_ds, torch.float64), *_leaf_checks(ev, ev_lo),
+                *[(t, torch.float32) for t in (evt, evt_lo, interp_y)], align=1)
+    Nc = env_ds.shape[0]
+    _check_event_shapes("m4mb_event_f32", ctl, ev, env_ds, (Nc, N_BANDS, 8), evt, (N_BANDS,),
+                        interp_y, (4, N_BANDS, N_SIG_MB), N_BANDS)
+    out, out_lo = _empty_state(ev, ev_lo)
+    evt_out, evt_out_lo = torch.empty_like(evt), torch.empty_like(evt_lo)
+    dev, f32 = env_ds.device, torch.float32
+    eo = torch.empty((N_BANDS, Nc, 8), dtype=torch.float64, device=dev)
+    vt = torch.empty((Nc, N_BANDS, N_SIG_MB), dtype=torch.float64, device=dev)
+    ics = torch.empty((Nc, 3, N_BANDS, N_SIG_MB), dtype=f32, device=dev)
+    iy_out = torch.empty_like(interp_y)
+    aux = torch.empty((Nc, N_BANDS, 2), dtype=f32, device=dev)
+    kernels.launch_m4mb_event(ctl, ev, out, evt, evt_out, env_ds, eo, vt, interp_y, ics, iy_out,
+                              aux, int(fade_p), bool(disable),
+                              lo=(ev_lo, out_lo, evt_lo, evt_out_lo))
+    m4mb_event_f32.launches += 1
+    return out, out_lo, evt_out, evt_out_lo, ics, iy_out, aux
+
+
+m4mb_event_f32.launches = 0
+
+
+def m4mb_event_f32_ref(ctl, ev, ev_lo, evt, evt_lo, env_ds, interp_y, fade_p, disable):
+    """Plain PyTorch version of m4mb_event_f32: m4mb_event_ref on the joined
+    pairs in float64, the per-tick values rounded to float32, the state and
+    thresholds split."""
+    st, evt2, ics, iy, aux = m4mb_event_ref(ctl, join_pairs(ev, ev_lo),
+                                            evt.double() + evt_lo.double(), env_ds, interp_y,
+                                            fade_p, disable, torch.float32)
+    return (*split_pairs(st, ev_lo), *split_f64(evt2), ics, iy, aux)
+
+
+def m4mb_event_ref(ctl, ev, evt, env_ds, interp_y, fade_p, disable, out_dtype=torch.float64):
     """Plain PyTorch version of m4mb_event: a loop over the ticks of the
     threshold modulation and event_step over the 13 band lanes, then the
-    epilogue over every tick and band at once."""
+    epilogue over every tick and band at once. out_dtype as m4_event_ref's."""
     p = ctl.tensors(env_ds.device)[0]
     Nc = env_ds.shape[0]
     st = dict(ev)
@@ -1346,11 +1577,11 @@ def m4mb_event_ref(ctl, ev, evt, env_ds, interp_y, fade_p, disable):
             outs[k].append(out[k])
     out = {k: torch.stack(v) for k, v in outs.items()}  # [Nc, 13]
     vals, aux = m4mb_epilogue_ref(ctl, out, fade_ticks(fade_p, disable, ctl.fade_frames, Nc, evt))
-    ext = torch.cat([interp_y[1:], vals])  # [Nc + 3, 13, 12]
+    ext = torch.cat([interp_y[1:].double(), vals.to(out_dtype).double()])  # [Nc + 3, 13, 12]
     iy0, iy1, iy2, iy3 = ext[:Nc], ext[1:Nc + 1], ext[2:Nc + 2], ext[3:]
     ia = iy2 - iy0
     ics = torch.stack([0.5 * iy1 + 0.25 * (iy0 + iy2), 0.5 * ia, 0.25 * (iy3 - iy1 - ia)], dim=1)
-    return st, evt, ics, ext[-4:], aux
+    return st, evt, ics.to(out_dtype), ext[-4:].to(out_dtype), aux.to(out_dtype)
 
 
 def m4mb_epilogue_ref(ctl, out, fade):
@@ -1399,24 +1630,37 @@ def m4mb_env(bands, env_m, g, w=None):
     csrc/m4_env.cu."""
     if bands.device.type == "cpu":
         return m4mb_env_ref(bands, env_m, g, w)
-    from dsp_tpu_torch import kernels
-
-    S = bands.shape[1] if bands.dim() == 3 else 0
-    _check_cuda("m4mb_env", bands, (bands, torch.float64), (env_m, torch.float64),
-                *([(w, torch.float64)] if w is not None else []))
-    B = bands.shape[0]
-    if (bands.dim() != 3 or bands.shape[2] != 2 or B % DOWNSAMPLE_FACTOR
-            or tuple(env_m.shape) != (S, 8) or (w is not None and tuple(w.shape) != (S, S))):
-        raise ValueError(f"m4mb_env: bands {tuple(bands.shape)}, env_m {tuple(env_m.shape)}, "
-                         f"weights {None if w is None else tuple(w.shape)}")
-    env_out = torch.empty_like(env_m)
-    env_ds = torch.empty((B // DOWNSAMPLE_FACTOR, S, 8), dtype=torch.float64, device=bands.device)
-    kernels.launch_m4_env(bands, env_m, env_out, env_ds, float(g), w)
+    out = _launch_env("m4mb_env", bands, env_m, g, w)
     m4mb_env.launches += 1
-    return env_out, env_ds
+    return out
 
 
 m4mb_env.launches = 0
+
+
+def m4mb_env_f32(bands, bands_lo, env_m, env_m_lo, g, w=None):
+    """K11 over the 13 band lanes in float32: m4mb_env on the (hi, lo) pair
+    (bands, bands_lo) [B, 13, 2] of the bank's output, from the carried
+    pair (env_m, env_m_lo) [13, 8], the mix and the sums in float64.
+    Returns (env_m', env_m_lo', env_ds [Nc, 13, 8] float64). CPU tensors
+    run m4mb_env_f32_ref; CUDA tensors launch csrc/m4_env.cu."""
+    _check_dtypes("m4mb_env_f32", *[(t, torch.float32) for t in (bands, bands_lo, env_m, env_m_lo)])
+    if bands.device.type == "cpu":
+        return m4mb_env_f32_ref(bands, bands_lo, env_m, env_m_lo, g, w)
+    out = _launch_env("m4mb_env_f32", bands, env_m, g, w, lo=(bands_lo, env_m_lo))
+    m4mb_env_f32.launches += 1
+    return out
+
+
+m4mb_env_f32.launches = 0
+
+
+def m4mb_env_f32_ref(bands, bands_lo, env_m, env_m_lo, g, w=None):
+    """Plain PyTorch version of m4mb_env_f32: m4mb_env_ref on hi + lo in
+    float64, the carried envelopes split."""
+    env, env_ds = m4mb_env_ref(bands.double() + bands_lo.double(),
+                               env_m.double() + env_m_lo.double(), g, w)
+    return (*split_f64(env), env_ds)
 
 
 def band_mix_ref(bands, w):
@@ -1474,15 +1718,8 @@ def m4mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m):
 
     _check_cuda("m4mb_audio", bands, *[(t, torch.float64) for t in (bands, fb_buf, interp_c, ics,
                                                                       pf_m)])
+    _check_mb_audio_shapes("m4mb_audio", cfg, bands, fb_buf, interp_c, ics, pf_m)
     B = bands.shape[0]
-    Nc = B // DOWNSAMPLE_FACTOR
-    if (tuple(bands.shape[1:]) != (N_BANDS, 2) or B % DOWNSAMPLE_FACTOR
-            or tuple(fb_buf.shape) != (cfg.len, N_BANDS, 2)
-            or tuple(interp_c.shape) != (3, N_BANDS, N_SIG_MB)
-            or tuple(ics.shape) != (Nc, 3, N_BANDS, N_SIG_MB)
-            or tuple(pf_m.shape) != (N_BANDS, 2, 2)):
-        raise ValueError(f"m4mb_audio: bands {tuple(bands.shape)}, fb_buf {tuple(fb_buf.shape)}, "
-                         f"ics {tuple(ics.shape)}, pf_m {tuple(pf_m.shape)}")
     sig = torch.empty((B, cfg.n_sig), dtype=torch.float64, device=bands.device)
     pf_out = torch.empty_like(pf_m)
     scratch = torch.empty((2 * N_BANDS, B), dtype=torch.float64, device=bands.device)
@@ -1492,6 +1729,51 @@ def m4mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m):
 
 
 m4mb_audio.launches = 0
+
+
+def m4mb_audio_f32(cfg, bands, fb_buf, interp_c, ics, pf_m):
+    """K12 + K13 of matrix4_mb in float32: m4mb_audio with the bands (the
+    hi half of the bank's (hi, lo) output), the line, the coefficient sets
+    and the allpass states float32, computed in float64 registers; the 4 or
+    6 signals and the states stored float32. CPU tensors run
+    m4mb_audio_f32_ref; CUDA tensors launch csrc/m4mb_audio.cu."""
+    ins = (bands, fb_buf, interp_c, ics, pf_m)
+    _check_dtypes("m4mb_audio_f32", *[(t, torch.float32) for t in ins])
+    if bands.device.type == "cpu":
+        return m4mb_audio_f32_ref(cfg, *ins)
+    from dsp_tpu_torch import kernels
+
+    _check_cuda("m4mb_audio_f32", bands, *[(t, torch.float32) for t in ins], align=4)
+    _check_mb_audio_shapes("m4mb_audio_f32", cfg, *ins)
+    B = bands.shape[0]
+    sig = torch.empty((B, cfg.n_sig), dtype=torch.float32, device=bands.device)
+    pf_out = torch.empty_like(pf_m)
+    scratch = torch.empty((2 * N_BANDS, B), dtype=torch.float64, device=bands.device)
+    kernels.launch_m4mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m, sig, pf_out, scratch)
+    m4mb_audio_f32.launches += 1
+    return sig, pf_out
+
+
+m4mb_audio_f32.launches = 0
+
+
+def m4mb_audio_f32_ref(cfg, bands, fb_buf, interp_c, ics, pf_m):
+    """Plain PyTorch version of m4mb_audio_f32: m4mb_audio_ref on the
+    upcast inputs, its outputs rounded to float32."""
+    sig, pf = m4mb_audio_ref(cfg, *(t.double() for t in (bands, fb_buf, interp_c, ics, pf_m)))
+    return sig.float(), pf.float()
+
+
+def _check_mb_audio_shapes(name, cfg, bands, fb_buf, interp_c, ics, pf_m):
+    B = bands.shape[0]
+    Nc = B // DOWNSAMPLE_FACTOR
+    if (tuple(bands.shape[1:]) != (N_BANDS, 2) or B % DOWNSAMPLE_FACTOR
+            or tuple(fb_buf.shape) != (cfg.len, N_BANDS, 2)
+            or tuple(interp_c.shape) != (3, N_BANDS, N_SIG_MB)
+            or tuple(ics.shape) != (Nc, 3, N_BANDS, N_SIG_MB)
+            or tuple(pf_m.shape) != (N_BANDS, 2, 2)):
+        raise ValueError(f"{name}: bands {tuple(bands.shape)}, fb_buf {tuple(fb_buf.shape)}, "
+                         f"ics {tuple(ics.shape)}, pf_m {tuple(pf_m.shape)}")
 
 
 def _sum_bands(x):

@@ -12,6 +12,8 @@ dsp_tpu's float32 chains compile slowly on the CPU (the df scan at block
 1000, the DfDft), so each runs once, on 1 s of input, in a module fixture.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -310,9 +312,49 @@ def _fir_file(tmp_path):
     return path
 
 
+# chain, the bound of its float32 render against its float64 render on the
+# CLI test's input: the budget; None for matrix4_mb, whose free run from the
+# stream's start flips its engines' decisions under any rounding (PARITY.md;
+# tests/test_torch_f32_matrix4.py holds its float32 path by the control
+# split)
+J3_CLI = {
+    "fir": ("gain -3 fir {h}", -120.0),
+    "matrix4": ("matrix4 -6", -120.0),
+    "matrix4_mb": ("matrix4_mb -6", None),
+}
+
+
+@pytest.mark.parametrize("name", list(J3_CLI))
+def test_cli_float32_writes_the_library_output_j3(name, tmp_path, monkeypatch):
+    """test_cli_float32_writes_the_library_output for the chains slice J3
+    brought to float32 (the FFT convolution step, matrix4, matrix4_mb), on
+    0.05 s at half the level (an upmix's front outputs must not clip in the
+    CLI's writer): the CLI's file equals CompiledChain(dtype=float32)'s
+    output sample for sample."""
+    from dsp_tpu_torch.cli.main import main
+
+    spec, bound = J3_CLI[name]
+    spec = spec.format(h=_fir_file(tmp_path))
+    x = 0.5 * stereo_signal(0.05, seed=35)
+    src, out = tmp_path / "in.wav", tmp_path / "out.wav"
+    write_wav(src, x)
+    monkeypatch.setenv("DSP_TPU_TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("DSP_TPU_TORCH_DTYPE", "float32")
+    assert main(["-q", str(src), "-o", "-e", "double", str(out), *spec.split()]) == 0
+    want = _port(spec, 2048).process_array(x)
+    got = read_wav(out)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    assert np.isfinite(got).all()
+    if bound is not None:
+        err = worst_dbfs(got, _port(spec, 2048, torch.float64).process_array(x))
+        print(f"{name}: float32 against float64 {err:.1f} dBFS")
+        assert err <= bound
+
+
 @pytest.mark.parametrize("spec,name,slice_", [
-    ("gain -3 fir {h}", "fir", "J4"),
-    ("eq 1k 1.0 +3 matrix4 -6", "matrix4", "J3"),
+    ("gain -3 noise -90", "noise", "J4"),
+    ("eq 1k 1.0 +3 dither", "dither", "J4"),
     ("delay -m 0.5m 10m", "delay", "J4"),
 ])
 def test_float32_chain_refuses_unported_effect(spec, name, slice_, tmp_path, monkeypatch, capsys):
@@ -334,6 +376,26 @@ def test_float32_chain_refuses_unported_effect(spec, name, slice_, tmp_path, mon
     assert main(["-q", str(src), "-o", "-e", "double", str(out), *spec.split()]) == 1
     assert f"{name}: not yet ported to float32" in capsys.readouterr().err
     assert not out.exists()
+
+
+UPMIX_EXAMPLES = sorted(p.name for p in (Path(__file__).resolve().parents[1] / "examples").iterdir()
+                        if p.name.startswith("matrix4"))
+
+
+@pytest.mark.parametrize("name", UPMIX_EXAMPLES)
+def test_example_builds_in_float32(name):
+    """Every shipped upmix example (matrix4, and matrix4_mb with its FIR,
+    the direct path and 6 channels) builds in a float32 chain: none of
+    their effects is refused, and every float state leaf is float32."""
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_args
+    from dsp_tpu_torch.convert import flatten_states
+    from dsp_tpu_torch.core.types import StreamInfo
+
+    example = Path(__file__).resolve().parents[1] / "examples" / name
+    cc = CompiledChain(build_chain_from_args([f"@{example}"], StreamInfo(FS, 2)), 2048,
+                       dtype=torch.float32, device="cpu")
+    dtypes = {t.dtype for t in flatten_states(cc.states)[0] if t.dtype.is_floating_point}
+    assert dtypes <= {torch.float32}
 
 
 @pytest.mark.parametrize("value,want", [(None, torch.float64), ("float32", torch.float32),
