@@ -83,12 +83,20 @@ nvcc and PyTorch built for CUDA. It
    draw the same keys), the 48 kHz upmix from 5 s on (its first seconds
    within -100 dBFS, see ONSET). The delivery chain's stats table, from a
    card run and a CPU run of the CLI on the first 10 s, must be equal
-   character for character;
+   character for character. Last, slice J4's float32 runs of the delivery
+   (s16) and modulated (double) chains (float32_time_domain_cli): their
+   float32 kernels launched and no float64 one, the first 10 s against the
+   port's float32 CPU run (s16 equal; within one float32 ulp), the float32
+   stats table equal on card and CPU, and the whole 300 s against the
+   float64 renders by the stats table's DC, peak and RMS, with the RMS of
+   the difference printed beside the level two independent noise and
+   dither draws predict;
 4. runs 96 blocks of the Nupols path (fir_p 1M at B = 2048), 320 of the
-   delivery chain, 16 each of matrix4 and matrix4_mb and of the float32
+   delivery chain in float64 and in float32, 16 each of matrix4 and matrix4_mb and of the float32
    flagship (blocks 2048 and 1000), resample and upmixes, with the input on
    the card under torch.cuda.set_sync_debug_mode("error"): a step must not
-   wait on the device; then times 256 blocks of each slice C chain, each
+   wait on the device; then times 256 blocks of each slice C chain (in
+   both dtypes), each
    upmix (matrix4_mb and the mixed chain among them) and each float32 run
    (the upmixes and `fir` 64k at block 2048 among them) in both dtypes,
    and profiles them (torch.profiler: kernels a block, device time a block
@@ -1418,9 +1426,9 @@ def stats_table_check(head, tmp):
 
 
 def delivery_no_sync():
-    """The delivery chain's step does not synchronise: run_blocks over 320
-    blocks at B = 2048 of input already on the card, under
-    torch.cuda.set_sync_debug_mode("error")."""
+    """The delivery chain's step does not synchronise, in float64 and in
+    float32: run_blocks over 320 blocks at B = 2048 of input already on the
+    card, under torch.cuda.set_sync_debug_mode("error")."""
     import numpy as np
     import torch
 
@@ -1428,30 +1436,34 @@ def delivery_no_sync():
     from dsp_tpu_torch.chain.chain import chain_set_dither_params
     from dsp_tpu_torch.core.types import StreamInfo
 
-    chain = build_chain_from_args(DELIVERY.split(), StreamInfo(FS, CHANNELS))
-    chain_set_dither_params(chain, 16, True)
-    cc = CompiledChain(chain, 2048, device="cuda")
-    rng = np.random.default_rng(12)
-    warm = torch.as_tensor(rng.standard_normal((8, 2048, CHANNELS)) * 0.1, device="cuda")
-    xs = torch.as_tensor(rng.standard_normal((320, 2048, CHANNELS)) * 0.1, device="cuda")
-    cc.run_blocks(warm)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        ys = cc.run_blocks(xs)
-    except RuntimeError as e:
-        raise SmokeError(f"the delivery chain's step synchronised: {e}") from e
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    if not torch.isfinite(ys).all():
-        raise SmokeError("the delivery chain's run without syncs gave non-finite output")
-    print(f"delivery step: 320 blocks ran with no host sync, stats samples = "
-          f"{int(cc.states[-1]['samples'])}")
+    for dtype in (torch.float64, torch.float32):
+        chain = build_chain_from_args(DELIVERY.split(), StreamInfo(FS, CHANNELS))
+        chain_set_dither_params(chain, 16, True)
+        cc = CompiledChain(chain, 2048, dtype=dtype, device="cuda")
+        rng = np.random.default_rng(12)
+        warm = torch.as_tensor(rng.standard_normal((8, 2048, CHANNELS)) * 0.1, dtype=dtype,
+                               device="cuda")
+        xs = torch.as_tensor(rng.standard_normal((320, 2048, CHANNELS)) * 0.1, dtype=dtype,
+                             device="cuda")
+        cc.run_blocks(warm)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ys = cc.run_blocks(xs)
+        except RuntimeError as e:
+            raise SmokeError(f"the {dtype} delivery chain's step synchronised: {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        if ys.dtype != dtype or not torch.isfinite(ys).all():
+            raise SmokeError(f"the {dtype} delivery chain's run without syncs gave output "
+                             f"{ys.dtype}, finite {bool(torch.isfinite(ys).all())}")
+        print(f"delivery step ({dtype}): 320 blocks ran with no host sync, stats samples = "
+              f"{int(cc.states[-1]['samples'])}")
 
 
 def profile_chains(f4k, f64k):
-    """Where a block's time goes in slice C's chains, slices D and E's
+    """Where a block's time goes in slice C's chains (in both dtypes), slices D and E's
     upmixes, slice F's (matrix4_mb and the mixed chain with the 4,096-tap
     filter f4k) and the float32 mode's chains (F32_RUNS, F32_UPMIXES, and
     `fir` with the 65,536-tap filter f64k at block 2048) beside their
@@ -1477,6 +1489,8 @@ def profile_chains(f4k, f64k):
         ("delivery", DELIVERY, 16), ("modulated", MODULATED, 53), ("matrix4", MATRIX4, 53),
         ("upmix48", UPMIX48, 53), ("matrix4_mb", MATRIX4_MB, 53),
         ("mixed", mixed_chain(f4k), 53))]
+    runs += [("delivery float32", DELIVERY, 16, 2048, f32),
+             ("modulated float32", MODULATED, 53, 2048, f32)]
     for words, block in F32_RUNS + F32_UPMIXES + ((f"fir {f64k}", 2048),):
         name = "flagship" if words == FLAGSHIP else words.replace(str(f64k), "64k")
         label = f"{name} -b {block}"
@@ -1492,7 +1506,7 @@ def profile_chains(f4k, f64k):
             x = transient_signal((n + 8) * B / FS + 0.01)[: (n + 8) * B]
         else:
             x = rng.standard_normal(((n + 8) * B, CHANNELS)) * 0.1
-        xs = torch.as_tensor(x, device="cuda").reshape(n + 8, B, CHANNELS)
+        xs = torch.as_tensor(x, dtype=dtype, device="cuda").reshape(n + 8, B, CHANNELS)
         cc.run_blocks(xs[:8])
         xs = xs[8:]
         torch.cuda.synchronize()
@@ -1557,6 +1571,211 @@ def torch_equal(a, b):
     import torch
 
     return torch.equal(a.cpu(), b.cpu())
+
+
+def _f32_state(e, dev):
+    """An effect's numpy state0 as a float32 chain holds it: float leaves
+    float32, keys and counters in their own dtypes."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for k, v in e.state0().items():
+        v = np.asarray(v)
+        dt = torch.float32 if v.dtype.kind == "f" else None
+        out[k] = torch.as_tensor(v, dtype=dt, device=dev)
+    return out
+
+
+def _hold_td32(rec, what, got, want, exact=()):
+    """Fail unless each (name, kernel, plain) float leaf is within one
+    float32 ulp of its scale and each leaf named in `exact` (draws,
+    decisions, quantized output, counts) is equal; records the max |diff|."""
+    worst = 0.0
+    for name, a, b in zip(got[0], got[1], want):
+        if name in exact or not a.dtype.is_floating_point:
+            _require(f"{what}: {name} differs from the plain version", torch_equal(a, b))
+            continue
+        ulps, err = _ulps(a, b)
+        _require(f"{what}: {name} {ulps:.2f} ulp of its scale from the plain version",
+                 ulps <= 1.0)
+        worst = max(worst, ulps)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    return worst
+
+
+def float32_time_domain_phase(records):
+    """Slice J4's float32 kernels against their plain versions at the main
+    path's shape (B = 2048, stereo), each over 3 blocks carried through its
+    state; the plain version runs on a host copy of the same inputs, which
+    tests/test_torch_f32_time_domain.py holds to dsp_tpu float32. The draws
+    and every decision equal: keys, noise, the dither's quantized output,
+    error history and noise carry, the modulator's knots and phase, the
+    stats counts and frames, min, max, peak and the -i estimator's state;
+    float outputs (the modulated read, the stats sums, the levels meters)
+    within one float32 ulp of their scale. Configurations: noise with and
+    without a channel selection; dither in all six shapes at 16 bits (wan3
+    and wan9 at 48 kHz); delay -m and -M at q0, q1 and q2 with the modulator
+    at 1 kHz (a knot every 22 samples); stats plain and -i on quantized
+    input (a limit in the third block); levels. Times each kernel and its
+    plain version with CUDA events."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.core.prng import prng_key
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.effects.delay import ModDelayEffect
+    from dsp_tpu_torch.effects.dither import DitherEffect
+    from dsp_tpu_torch.effects.stats import StatsEffect
+    from dsp_tpu_torch.ops import time_domain as td
+    from dsp_tpu_torch.ops.fft_conv import splice
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20265)
+    B, C = 2048, CHANNELS
+    f32 = torch.float32
+
+    def block(scale=0.3):
+        return torch.as_tensor(rng.standard_normal((B, C)) * scale, dtype=f32, device=dev)
+
+    print("K18-noise tpdf_noise_f32 (float32 draws, B=2048, stereo, 3 blocks)")
+    rec = records["tpdf_noise_f32"]
+    for sel in (None, torch.tensor([True, False], device=dev)):
+        key = prng_key(987654).to(dev)
+        for blk in range(3):
+            x = block()
+            out_k = td.tpdf_noise_f32(key, x, 1e-3 / 0x7FFFFFFF, sel)
+            out_r = td.tpdf_noise_f32_ref(key.cpu(), x.cpu(), 1e-3 / 0x7FFFFFFF,
+                                          None if sel is None else sel.cpu())
+            _hold_td32(rec, f"tpdf_noise_f32 block {blk}", (("key", "y"), out_k), out_r,
+                       exact=("key", "y"))
+            key = out_k[0]
+    ms = cuda_ms(lambda: td.tpdf_noise_f32(key, x, 1e-3, None), 50)
+    plain_ms = cuda_ms(lambda: td.tpdf_noise_f32_ref(key, x, 1e-3, None), 10)
+    set_times(rec, ms, plain_ms, 8 * B * C + 16, 3 * B * C, peak=F32_PEAK)
+    print(f"  equal, with and without a channel selection; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms")
+
+    print("K15 tpdf_dither_f32 (all six shapes at 16 bits, B=2048, stereo, 3 blocks)")
+    rec = records["tpdf_dither_f32"]
+    for shape in ("flat", "sloped", "sloped2", "lipshitz", "wan3", "wan9"):
+        fs = 48000 if shape.startswith("wan") else FS
+        e = DitherEffect("dither", StreamInfo(fs, C), np.ones(C, dtype=bool), shape, 16.0, 16,
+                         False, False, seed=4243)
+        args = [torch.as_tensor(v, dtype=None if v.dtype == bool else f32, device=dev)
+                for v in (e.n_mult, e.q_mult0, e.q_mult1, e.enabled, e.fir)]
+        st = _f32_state(e, dev)
+        for blk in range(3):
+            xin = block()
+            ins = [st["key"], xin, st["ehist"], st["nprev"], *args]
+            out_k = td.tpdf_dither_f32(*ins, e.mode)
+            out_r = td.tpdf_dither_f32_ref(*_to_cpu(ins), e.mode)
+            names = ("key", "ehist", "nprev", "y")
+            _hold_td32(rec, f"tpdf_dither_f32 {shape} block {blk}", (names, out_k), out_r,
+                       exact=names)
+            st = dict(zip(("key", "ehist", "nprev"), out_k[:3]))
+        if shape == "lipshitz":
+            ins = [st["key"], xin, st["ehist"], st["nprev"], *args]
+            ms = cuda_ms(lambda: td.tpdf_dither_f32(*ins, e.mode), 50)
+            plain_ms = cuda_ms(lambda: td.tpdf_dither_f32_ref(*ins, e.mode), 2)
+            # x in, y out, the states; 2 float32 operations a sample for the
+            # noise, 23 for the 9-tap feedback quantizer; each channel is a
+            # chain of B dependent steps
+            set_times(rec, ms, plain_ms, 8 * B * C + 4 * C * 22 + 16, 25 * B * C, peak=F32_PEAK)
+            print(f"  lipshitz: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                  f"(a chain of {B} samples a channel)")
+        print(f"  {shape}: key, ehist, nprev and y equal over 3 blocks")
+
+    print("K16 stats_step_f32 (B=2048, stereo, quantized input; 3 blocks, a limit in the third)")
+    rec = records["stats_step_f32"]
+    rec["times"] = []
+    q = torch.as_tensor(np.round(rng.standard_normal((3, B, C)) * 0.3 * 32768) / 32768,
+                        dtype=f32, device=dev)
+    for interp in (False, True):
+        e = StatsEffect("stats", StreamInfo(FS, C), np.ones(C, dtype=bool), None, 80, interp)
+        table = torch.as_tensor(e._insert_table, dtype=f32, device=dev) if interp else None
+        st = _f32_state(e, dev)
+        sr = _to_cpu(st)
+        for blk in range(3):
+            if blk == 2:
+                st["limit"] = torch.tensor(2 * B + 1000, device=dev)
+                sr["limit"] = st["limit"].cpu()
+            st = td.stats_step_f32(st, q[blk], table)
+            sr = td.stats_step_ref(sr, q[blk].cpu(), None if table is None else table.cpu())
+            torch.cuda.synchronize()
+            names = tuple(st)
+            _hold_td32(rec, f"stats_step_f32 {'-i' if interp else 'plain'} block {blk}",
+                       (names, [st[k] for k in names]), [sr[k] for k in names],
+                       exact=tuple(k for k in names if k not in ("sum", "sum_sq")))
+        s0 = _f32_state(e, dev)
+        ms = cuda_ms(lambda: td.stats_step_f32(s0, q[0], table), 50)
+        plain_ms = cuda_ms(lambda: td.stats_step_ref(s0, q[0], table), 2)
+        gated = td.stats_step_ref.gated_samples if interp else 0
+        state_bytes = 4 * 5 * C * 2 + 8 * (2 * C * 2 + 2) + (4 * C * 2 * 81 + 67 * 4 if interp else 0)
+        # the accumulators, 4 operations a sample; -i, a gated sample
+        # (counted on this input) adds 134 for the buffer and direct taps
+        # and 4 fits of about 12, in float32
+        flops = 4 * B * C + 182 * gated
+        label = "-i" if interp else "plain"
+        print(f"  {label}: decisions and state equal, sums within one ulp, over 3 blocks; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        rec["times"].append({"mode": label, "ms": ms, "plain_ms": plain_ms})
+        if interp:
+            set_times(rec, ms, plain_ms, 4 * B * C + state_bytes, flops, peak=F32_PEAK)
+
+    print("K17 levels_step_f32 (B=2048, stereo, 3 blocks)")
+    rec = records["levels_step_f32"]
+    g = 1.0 - math.exp(-1.0 / (FS * 0.3))
+    st = [torch.as_tensor(rng.uniform(0, 0.1, C), dtype=f32, device=dev) for _ in range(3)]
+    for blk in range(3):
+        x = block()
+        out_k = td.levels_step_f32(*st, x, g)
+        out_r = td.levels_step_f32_ref(*_to_cpu(st), x.cpu(), g)
+        _hold_td32(rec, f"levels_step_f32 block {blk}", (("avg", "peak", "block_peak"), out_k),
+                   out_r)
+        st = list(out_k)
+    ms = cuda_ms(lambda: td.levels_step_f32(*st, x, g), 50)
+    plain_ms = cuda_ms(lambda: td.levels_step_f32_ref(*st, x, g), 10)
+    # float32 in and out; the scan runs in float64 registers
+    set_times(rec, ms, plain_ms, 4 * B * C + 24 * C, 6 * B * C)
+    print(f"  within one ulp over 3 blocks; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+          f"(a chain of {B} samples a channel)")
+
+    print("K14 mod_delay_f32 (0.5 ms depth, 1 kHz modulator, q0/q1/q2, -m and -M, "
+          "3 blocks of 2048, stereo)")
+    rec = records["mod_delay_f32"]
+    for qual in (0, 1, 2):
+        for mono in (False, True):
+            e = ModDelayEffect("delay", StreamInfo(FS, C), np.ones(C, dtype=bool),
+                               0.5e-3 * FS, 1000.0, mono, qual, seed=31338)
+            st = _f32_state(e, dev)
+            table = None if e.table is None else torch.as_tensor(e.table, dtype=f32, device=dev)
+            sel = torch.ones(C, dtype=torch.bool, device=dev)
+            H = e.len + e.n_taps
+            for blk in range(3):
+                xin = block()
+                args = (st["key"], st["y"], st["t"], st["buf"], xin, sel, table)
+                out_k = td.mod_delay_f32(*args, e.depth, e.step_size, e.n_taps, qual)
+                out_r = td.mod_delay_f32_ref(*_to_cpu(args), e.depth, e.step_size, e.n_taps,
+                                             qual)
+                _hold_td32(rec, f"mod_delay_f32 q{qual} {'-M' if mono else '-m'} block {blk}",
+                           (("key", "y", "t", "out"), out_k), out_r, exact=("key", "y", "t"))
+                k_k, y_k, t_k, _ = out_k
+                st = {"key": k_k, "y": y_k, "t": t_k, "buf": splice(st["buf"], xin, H, H - B, B)}
+            if qual == 2 and mono:
+                run = (lambda: td.mod_delay_f32(st["key"], st["y"], st["t"], st["buf"], xin, sel,
+                                                table, e.depth, e.step_size, e.n_taps, qual))
+                ms = cuda_ms(run, 50)
+                plain_ms = cuda_ms(lambda: td.mod_delay_f32_ref(
+                    st["key"], st["y"], st["t"], st["buf"], xin, sel, table, e.depth,
+                    e.step_size, e.n_taps, qual), 10)
+                # x and the line in, y out, the table, float32; the B-spline
+                # (~20 float32 operations), 4 x 32 multiply-adds and the join
+                # (~15) in float64 a sample
+                nbytes = 4 * (2 * B * C + H * C + table.numel()) + 40
+                set_times(rec, ms, plain_ms, nbytes, (20 + 8 * e.n_taps + 15) * B * C)
+                print(f"  q2 -M: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    print("  keys, knots and phases equal, the reads within one ulp of their scale")
 
 
 # slice J3's float32 FFT convolution engines on the main path's shapes:
@@ -2341,6 +2560,111 @@ def float32_cli(records, tmp, kept):
         path.unlink(missing_ok=True)
 
 
+# slice J4's float32 runs of slice C's chains (float32_time_domain_cli): the
+# table's levels of the float32 run against the float64 run of the same
+# 300 s, whose dither, noise and modulator are other draws (jax's float32
+# uniform draws other numbers than its float64 one): RMS and peak in dB, DC
+# offset absolute. The modulated chain's peak moves with its modulator's
+# draws (measured 0.025 dB on 6 s on the CPU), the delivery chain's only
+# with its dither's (0.002 dB)
+F32_TABLE_DB = 0.01
+F32_TABLE_PEAK_DB = {"delivery": 0.01, "modulated": 0.1}
+F32_TABLE_DC = 1e-6
+
+
+def _table_rows(table):
+    """A stats table as {row label: [value per channel]}."""
+    return {line[:18].strip(): [float(v) for v in line[18:].split()]
+            for line in table.splitlines() if line.strip()}
+
+
+def float32_time_domain_cli(records, tmp):
+    """DSP_TPU_TORCH_DTYPE=float32 dsp-torch on the main path's 300 s input
+    (tmp/in.wav) for slice C's two chains at block 2048: the delivery chain
+    to s16 and the modulated chain to double. Each run must write the
+    expected frame count, launch the float32 kernels of its effects and no
+    float64 one (counts zeroed just before the run), and match the port's
+    float32 run on the CPU on the first COMPARE_SECONDS: the s16 samples
+    equal (delivery), within one float32 ulp of full scale (modulated); the
+    delivery chain's stats table from a card run and a CPU run of the CLI on
+    those seconds equal character for character. On the whole run, held
+    against the float64 render main_path kept (tmp/f64_delivery.wav,
+    tmp/f64_modulated.wav, and their stats tables) by what does not depend
+    on the draws: the stats table's DC offset within F32_TABLE_DC, its RMS
+    level within F32_TABLE_DB and its peak within F32_TABLE_PEAK_DB; the RMS of the float32 output minus
+    the float64 one is printed beside the level that the noise and dither
+    settings predict for two independent draws (the modulated chain's
+    difference is larger: its modulator's other draws move the delay)."""
+    import os
+
+    import numpy as np
+
+    from dsp_tpu_torch.ops import fft_conv, iir
+    from dsp_tpu_torch.ops import time_domain as td
+
+    src = tmp / "in.wav"
+    n_in = SECONDS * FS
+    _, head = read_wav(src, COMPARE_SECONDS * FS)
+    f64w = {"biquad_scan": iir.biquad_scan, "splice": fft_conv.splice,
+            **{name: getattr(td, name) for name in (
+                "tpdf_noise", "tpdf_dither", "stats_step", "levels_step", "mod_delay")}}
+    step = 2.0 ** -15  # a 16-bit step
+    lipshitz = (2.033, -2.165, 1.959, -1.590, 0.6149)
+    runs = (
+        ("delivery", DELIVERY, "s16", None,
+         {"biquad_scan_f32": iir.biquad_scan_f32, "tpdf_dither_f32": td.tpdf_dither_f32,
+          "stats_step_f32": td.stats_step_f32},
+         # TPDF of +-1 step and the quantizer's error (var step^2 / 4),
+         # shaped by 1 - H(z): gain 1 + sum h^2; two draws
+         math.sqrt(2 * (1 + sum(h * h for h in lipshitz)) * step ** 2 / 4)),
+        ("modulated", MODULATED, "double", -20 * math.log10(2.0 ** 24),
+         {"mod_delay_f32": td.mod_delay_f32, "splice_f32": fft_conv.splice_f32,
+          "tpdf_noise_f32": td.tpdf_noise_f32, "tpdf_dither_f32": td.tpdf_dither_f32,
+          "stats_step_f32": td.stats_step_f32, "levels_step_f32": td.levels_step_f32},
+         # noise -90's TPDF (var level^2 / 6) and the sloped2 dither's
+         # first difference of its error (var 2 step^2 / 4), two draws each
+         math.sqrt(2 * (10 ** (-90 / 10) / 6 + 2 * step ** 2 / 4))),
+    )
+    print(f"float32 slice C chains: dsp-torch on {SECONDS} s with DSP_TPU_TORCH_DTYPE=float32")
+    os.environ["DSP_TPU_TORCH_DTYPE"] = "float32"
+    try:
+        for label, words, enc, limit, f32w, predicted in runs:
+            for w in f64w.values():
+                w.launches = 0
+            err = cli_run(f"{label} float32 -e {enc} -b 2048", words.split(), 2048, f32w,
+                          records, src, n_in, head, SECONDS, tmp, enc=enc, limit_dbfs=limit,
+                          seed=SLICE_C_SEED, keep=tmp / f"f32_{label}.wav")
+            stray = {name: w.launches for name, w in f64w.items() if w.launches}
+            _require(f"{label} float32: float64 kernels ran in the float32 chain: {stray}",
+                     not stray)
+            table = stats_table(err)
+            _require(f"{label} float32: no stats table", table is not None)
+            rows32 = _table_rows(table)
+            rows64 = _table_rows((tmp / f"f64_{label}.txt").read_text())
+            worst = {}
+            for row, tol in (("DC offset", F32_TABLE_DC),
+                             ("Peak level (dBFS)", F32_TABLE_PEAK_DB[label]),
+                             ("RMS level (dBFS)", F32_TABLE_DB)):
+                worst[row] = max(abs(a - b) for a, b in zip(rows32[row], rows64[row]))
+                _require(f"{label} float32: stats {row} {rows32[row]} against float64 "
+                         f"{rows64[row]} (limit {tol})", worst[row] <= tol)
+            _require(f"{label} float32: {rows32['Samples']} samples, float64 {rows64['Samples']}",
+                     rows32["Samples"] == rows64["Samples"])
+            _, y32 = read_wav(tmp / f"f32_{label}.wav")
+            _, y64 = read_wav(tmp / f"f64_{label}.wav")
+            rms = float(np.sqrt(np.mean((y32 - y64) ** 2)))
+            print(f"  {label} float32 against float64 on {SECONDS} s: stats table within "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+                  + f"; RMS of the difference {dbfs(rms):.2f} dBFS; two independent draws of "
+                  f"the noise and dither alone predict {dbfs(predicted):.2f} dBFS"
+                  + (" (the modulator's draws move the delay too)" if "delay -M" in words else ""))
+            (tmp / f"f32_{label}.wav").unlink()
+            (tmp / f"f64_{label}.wav").unlink()
+        stats_table_check(head, tmp)
+    finally:
+        os.environ.pop("DSP_TPU_TORCH_DTYPE")
+
+
 def float32_no_sync():
     """A float32 chain's step does not synchronise: run_blocks over 16
     blocks of input already on the card, under
@@ -2422,19 +2746,27 @@ def main_path(records, seconds, tmp):
     from dsp_tpu_torch.ops import time_domain as td
 
     # slice C: numpy's generator seeded alike before the card and CPU runs
+    # (their renders and stats tables kept as tmp/f64_<label>.wav and .txt
+    # for float32_time_domain_cli)
     err = cli_run("delivery -e s16 -b 2048", DELIVERY.split(), 2048,
                   {"biquad_scan": iir.biquad_scan, "tpdf_dither": td.tpdf_dither,
                    "stats_step": td.stats_step},
-                  *common, enc="s16", limit_dbfs=None, seed=SLICE_C_SEED)
+                  *common, enc="s16", limit_dbfs=None, seed=SLICE_C_SEED,
+                  keep=tmp / "f64_delivery.wav")
     table = stats_table(err)
     if table is None:
         raise SmokeError("the delivery run printed no stats table")
     print("  " + table.replace("\n", "\n  "))
-    cli_run("modulated -b 2048", MODULATED.split(), 2048,
-            {"mod_delay": td.mod_delay, "splice": fft_conv.splice, "tpdf_noise": td.tpdf_noise,
-             "tpdf_dither": td.tpdf_dither, "stats_step": td.stats_step,
-             "levels_step": td.levels_step},
-            *common, limit_dbfs=-280.0, seed=SLICE_C_SEED)
+    (tmp / "f64_delivery.txt").write_text(table)
+    err = cli_run("modulated -b 2048", MODULATED.split(), 2048,
+                  {"mod_delay": td.mod_delay, "splice": fft_conv.splice,
+                   "tpdf_noise": td.tpdf_noise, "tpdf_dither": td.tpdf_dither,
+                   "stats_step": td.stats_step, "levels_step": td.levels_step},
+                  *common, limit_dbfs=-280.0, seed=SLICE_C_SEED, keep=tmp / "f64_modulated.wav")
+    table = stats_table(err)
+    if table is None:
+        raise SmokeError("the modulated run printed no stats table")
+    (tmp / "f64_modulated.txt").write_text(table)
     stats_table_check(head, tmp)
 
     from dsp_tpu_torch.ops import m4_engine as m4
@@ -2586,6 +2918,16 @@ def main():
              "float32, Nc=64, v4, 13 bands"),
             ("m4mb_audio_f32", "m4mb_audio", "dsp_tpu/effects/matrix4_mb.py:569,778 in float32",
              "float32, B=2048, v4"),
+            ("mod_delay_f32", "mod_delay", "dsp_tpu/effects/delay.py:292,337 in float32",
+             "float32, q2 -M, B=2048, C=2"),
+            ("tpdf_dither_f32", "tpdf", "dsp_tpu/effects/dither.py:107 in float32",
+             "float32, lipshitz, B=2048, C=2"),
+            ("tpdf_noise_f32", "tpdf", "dsp_tpu/effects/noise.py:51 in float32",
+             "float32, B=2048, C=2"),
+            ("stats_step_f32", "stats", "dsp_tpu/effects/stats.py:159,197,266 in float32",
+             "float32, -i, B=2048, C=2"),
+            ("levels_step_f32", "levels", "dsp_tpu/effects/levels.py:62 in float32",
+             "float32, B=2048, C=2"),
         )
     }
     tmp = ROOT / ".smoke_tmp" / "run"  # removed at the end; scratch scripts may sit beside it
@@ -2607,6 +2949,7 @@ def main():
         timed(fdl_mac_phase, records["fdl_mac"])
         timed(step_kernels_phase, records)
         timed(time_domain_phase, records)
+        timed(float32_time_domain_phase, records)
         timed(resample_phase, records["resample_fold"])
         timed(matrix4_phase, records)
         timed(matrix4_mb_phase, records)
@@ -2615,6 +2958,7 @@ def main():
         tmp.mkdir(parents=True, exist_ok=True)
         f1m, f4k, kept = timed(main_path, records, SECONDS, tmp)
         timed(float32_phase, records, tmp, kept)
+        timed(float32_time_domain_cli, records, tmp)
         timed(nupols_no_sync, f1m)
         timed(delivery_no_sync)
         timed(matrix4_no_sync)

@@ -448,18 +448,6 @@ def block_quantum_for(effects):
     return q
 
 
-def check_float32(chain):
-    """Raise ChainError naming the first effect of `chain` whose float32
-    path is not ported yet (Effect.float32_slice), and the ROADMAP slice
-    that ports it. Nothing runs in float64 behind a float32 chain."""
-    for e in chain.effects:
-        if e.float32_slice is not None:
-            raise ChainError(
-                f"{e.name}: not yet ported to float32 in dsp_tpu_torch (ROADMAP slice "
-                f"{e.float32_slice}); run the chain in float64 ({config.DTYPE_ENV}=float64)"
-            )
-
-
 class CompiledChain:
     """A chain set up for a fixed input block size on one device.
 
@@ -469,9 +457,8 @@ class CompiledChain:
     CUDA is asked for and absent). ``dtype`` is torch.float64 or
     torch.float32 (None reads DSP_TPU_TORCH_DTYPE, default float64); every
     state leaf is cast to it, so a float32 chain carries the biquads' state
-    as a float32 (hi, lo) pair, dsp_tpu's layout. A float32 chain that holds
-    an effect whose float32 path is not ported yet is refused
-    (check_float32).
+    as a float32 (hi, lo) pair, dsp_tpu's layout, and the keys and counters
+    keep their integer dtypes.
 
     ``states`` holds one entry per runtime effect: a tensor, a tuple of
     tensors (``()`` for stateless effects), or a dict of them (the FFT
@@ -482,8 +469,6 @@ class CompiledChain:
     def __init__(self, chain, block_frames=None, dtype=None, device=None):
         self.chain = chain
         self.dtype = config.resolve_dtype(dtype)
-        if self.dtype == torch.float32:
-            check_float32(chain)
         self.device = config.resolve_device(device)
         block_frames = block_frames or config.DEFAULT_BLOCK_FRAMES
         q = block_quantum_for(chain.effects)

@@ -18,7 +18,7 @@ import torch
 
 from dsp_tpu_torch import config
 from dsp_tpu_torch.chain import ChainError, CompiledChain, build_chain_from_args
-from dsp_tpu_torch.chain.chain import check_float32, chain_needs_dither, chain_set_dither_params
+from dsp_tpu_torch.chain.chain import chain_needs_dither, chain_set_dither_params
 from dsp_tpu_torch.chain.parser import ChainParseError
 from dsp_tpu_torch.codecs import (
     CODEC_HINT_CAN_DITHER,
@@ -540,9 +540,7 @@ def main(argv=None):
     try:
         device = config.resolve_device()
         dtype = config.resolve_dtype()
-        if dtype == torch.float32:
-            check_float32(chain)
-    except (RuntimeError, ValueError, ChainError) as e:
+    except (RuntimeError, ValueError) as e:
         log.error("error: %s", e)
         return 1
 

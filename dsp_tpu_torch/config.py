@@ -8,8 +8,9 @@ reads ``DSP_TPU_TORCH_DTYPE`` (``float32``, ``float64``, ``f32`` or ``f64``,
 as dsp_tpu/config.py reads ``DSP_TPU_DTYPE``) and defaults to float64 on
 every device. That differs on purpose from dsp_tpu, which picks float32 on
 any backend but the CPU: dsp_tpu's float32 exists because the TPU has no
-usable float64, and the port's first dtype is float64. A float32 chain runs
-only the effects whose float32 path is ported (``Effect.float32_slice``).
+usable float64, and the port's first dtype is float64. Every effect runs
+in a float32 chain (``ladspa_host`` and ``watch`` are refused at init in
+both dtypes).
 
 The device is explicit. ``CompiledChain`` takes a ``torch.device``; the CLI
 reads ``DSP_TPU_TORCH_DEVICE`` (default ``cuda``). Asking for CUDA where

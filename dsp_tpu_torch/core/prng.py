@@ -7,16 +7,21 @@ tests. TPDF noise is the difference of the two generators scaled by
 dither on the host with these generators (OutputWriter).
 
 The device noise of the noise, dither and modulated-delay effects is
-dsp_tpu's: ``jax.random.split`` and ``jax.random.uniform(..., float64)``
-over a threefry key, with jax's partitionable counters (the default,
+dsp_tpu's: ``jax.random.split`` and ``jax.random.uniform`` over a threefry
+key, with jax's partitionable counters (the default,
 ``jax_threefry_partitionable``). Both come down to one threefry2x32 call per
 element, keyed by the key and fed the element's flat index split into
 (hi, lo) words, so each element's bits stand alone:
 
 * ``split(key, n)[i] = threefry2x32(key, (0, i))``;
-* ``uniform(key, shape, maxval)`` takes the 64 bits ``(x0 << 32) | x1`` of
-  flat element i, keeps the top 52 as the mantissa of a float in [1, 2),
-  subtracts 1 and scales by maxval.
+* ``uniform(key, shape, float64, maxval)`` takes the 64 bits
+  ``(x0 << 32) | x1`` of flat element i, keeps the top 52 as the mantissa
+  of a float in [1, 2), subtracts 1 and scales by maxval;
+* ``uniform(key, shape, float32, maxval)`` takes the 32 bits ``x0 ^ x1``,
+  keeps the top 23 as the mantissa, subtracts 1 and scales by
+  ``float32(maxval)``, all in float32. The two dtypes draw different
+  numbers from one key, so a float32 chain's noise is not its float64
+  chain's noise rounded.
 
 The functions below are that arithmetic on int64 tensors masked to 32 bits
 (the plain version; ``csrc/threefry.cuh`` is the kernels' copy). Keys are
@@ -151,3 +156,16 @@ def uniform_f64(key, shape, maxval):
     mant = (x0 << 20) | (x1 >> 12)  # < 2^52: exact in float64
     u = mant.to(torch.float64) * 2.0**-52  # exact: (1.m - 1)
     return (u * float(maxval)).reshape(shape)
+
+
+def uniform_f32(key, shape, maxval):
+    """jax.random.uniform(key, shape, float32, minval=0, maxval=maxval): the
+    top 23 of element i's 32 bits x0 ^ x1 of threefry2x32(key, (i >> 32,
+    i & mask)) as a mantissa, (1.m - 1) · float32(maxval) in float32."""
+    k0, k1 = _key_words(key)
+    n = int(np.prod(shape, dtype=np.int64))
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    x0, x1 = threefry2x32(k0, k1, i >> 32, i & MASK32)
+    bits = ((x0 ^ x1) >> 9) | 0x3F800000  # 1.m, below 2^31: fits int32
+    u = bits.to(torch.int32).view(torch.float32) - 1.0  # exact
+    return (u * torch.tensor(maxval, dtype=torch.float32, device=key.device)).reshape(shape)

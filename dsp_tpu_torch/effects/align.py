@@ -18,8 +18,6 @@ from dsp_tpu_torch.effects.base import EFFECT_FLAG_CH_DEPS_IDENTITY, Effect
 
 
 class AlignEffect(Effect):
-    float32_slice = None
-
     def __init__(self, istream, lens, discard_frames=0):
         self.name = "align"
         self.istream = istream

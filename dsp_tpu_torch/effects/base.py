@@ -106,12 +106,6 @@ class Effect:
     # matrix4 event engines (multi-second ring buffers + discrete decisions).
     split_safe = True
 
-    # float32 mode (config.DTYPE_ENV): None where this effect's step runs on
-    # float32 samples (every kernel it launches takes them, or it launches
-    # none); else the ROADMAP slice that ports its float32 form.
-    # CompiledChain refuses a float32 chain holding such an effect.
-    float32_slice = "J4"
-
     def split_lookback(self):
         """Frames of preceding input (at this effect's input rate) that
         re-establish steady state from zeros for split processing. Stateless

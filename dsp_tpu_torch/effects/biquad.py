@@ -284,8 +284,6 @@ def normalize(b0, b1, b2, a0, a1, a2):
 
 
 class BiquadEffect(Effect):
-    float32_slice = None
-
     def __init__(self, name, istream, selector, coeffs):
         """coeffs: (c0..c4) applied on selected channels; identity elsewhere."""
         self.name = name
@@ -544,7 +542,6 @@ class FusedBiquadCascade:
     name = "biquad(fused-cascade)"
     ratio = 1
     runtime_noop = False
-    float32_slice = None
 
     def __init__(self, effects):
         self.effects = effects

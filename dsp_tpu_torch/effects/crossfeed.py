@@ -20,8 +20,6 @@ from dsp_tpu_torch.ops import iir
 
 
 class CrossfeedEffect(Effect):
-    float32_slice = None
-
     def __init__(self, name, istream, selector, freq, sep_db):
         self.name = name
         self.istream = istream

@@ -65,8 +65,6 @@ def sch_ap_coeffs(fs, delay_samples, fc, rt60_lf, rt60_hf):
 
 
 class DecorrelateEffect(Effect):
-    float32_slice = None  # see FirEffect
-
     def __init__(self, name, istream, selector, stage_coeffs, ir_len):
         """stage_coeffs: {channel: [(num, den, meta), ...]}."""
         from scipy.signal import lfilter

@@ -93,8 +93,6 @@ def allpass_sections(a):
 class DelayEffect(Effect):
     """Integer + fractional delay. Integer part feeds the alignment pass."""
 
-    float32_slice = None
-
     def __init__(self, name, istream, selector, samples_int, samples_frac, fd_ap_n):
         self.name = name
         self.istream = istream

@@ -33,9 +33,6 @@ from dsp_tpu_torch.ops.fft_conv import NupolsConv, OlsConv, UpolsConv
 
 
 class FirEffect(Effect):
-    # float32: the engines' float32 step (ops/fft_conv.py)
-    float32_slice = None
-
     def __init__(self, name, istream, selector, filter_data, ref=0, partitioned=False):
         """filter_data: [frames, filter_channels] (1 or n_selected channels)."""
         self.name = name

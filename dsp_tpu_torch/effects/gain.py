@@ -20,8 +20,6 @@ from dsp_tpu_torch.effects.base import (
 class GainEffect(Effect):
     """Multiplicative (gain/mult) or additive (add) per-channel constant."""
 
-    float32_slice = None
-
     def __init__(self, name, istream, selector, v, additive):
         self.name = name
         self.istream = istream

@@ -287,8 +287,6 @@ class Matrix4Effect(Effect):
     # adaptive event engine: multi-second ring buffers and discrete
     # decisions make zero-state priming content-dependent, not bounded
     split_safe = False
-    float32_slice = None
-
     def __init__(self, name, istream, selector, argv):
         cfg = matrix4_config_init(name, istream, selector, argv, is_mb=False)
         self.cfg = cfg

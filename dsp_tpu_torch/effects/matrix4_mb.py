@@ -96,8 +96,6 @@ def _cascade_stages(coeffs, lanes):
 
 class Matrix4MbEffect(Effect):
     split_safe = False  # see Matrix4Effect: adaptive event engine
-    float32_slice = None
-
     def __init__(self, name, istream, selector, argv):
         cfg = matrix4_config_init(name, istream, selector, argv, is_mb=True)
         self.cfg = cfg

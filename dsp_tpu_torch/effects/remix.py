@@ -23,8 +23,6 @@ from dsp_tpu_torch.effects.base import (
 
 
 class RemixEffect(Effect):
-    float32_slice = None
-
     def __init__(self, name, istream, selectors):
         """selectors: bool matrix [out_ch, in_ch]."""
         self.name = name

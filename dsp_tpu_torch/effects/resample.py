@@ -25,8 +25,6 @@ from dsp_tpu_torch.ops.resample_ops import SpectralResampler
 
 
 class ResampleEffect(Effect):
-    float32_slice = None
-
     def __init__(self, name, istream, out_fs, bw):
         self.name = name
         self.istream = istream

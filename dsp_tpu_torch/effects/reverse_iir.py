@@ -65,8 +65,6 @@ def _reversed_impulse(b, a, n):
 class ReverseIirEffect(Effect):
     """Anticausal IIR as an advanced FIR (per-channel cascades)."""
 
-    float32_slice = None  # see FirEffect
-
     def __init__(self, name, istream, selector, coeffs, thresh):
         """coeffs: (c0..c4) normalized biquad applied reversed on selected chs."""
         self.name = name

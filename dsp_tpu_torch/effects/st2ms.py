@@ -10,8 +10,6 @@ from dsp_tpu_torch.effects.base import EFFECT_FLAG_PLOT_MIX, Effect, EffectError
 
 
 class St2MsEffect(Effect):
-    float32_slice = None
-
     def __init__(self, name, istream, selector, scale):
         self.name = name
         self.istream = istream

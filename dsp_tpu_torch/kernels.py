@@ -77,7 +77,8 @@ def find_nvcc():
 
 
 class StatsState(ctypes.Structure):
-    """csrc/stats.cu's StatsState: device pointers of one stats state."""
+    """csrc/stats.cu's StatsState<T>: device pointers of one stats state
+    (the same layout for either sample type)."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "sum", "sum_sq", "min", "max", "peak", "peak_count", "peak_frame", "samples",
@@ -235,16 +236,21 @@ class _Library:
                 d = ctypes.c_double
                 lib.dsp_irfft_ola_f32.argtypes = [p] * 5 + [d, i, i, i, p]
                 lib.dsp_irfft_ola_f32.restype = i
-                lib.dsp_tpdf_noise_f64.argtypes = [p] * 5 + [d, i, i, p]
-                lib.dsp_tpdf_noise_f64.restype = i
-                lib.dsp_tpdf_dither_f64.argtypes = [p] * 13 + [i, i, i, p, p]
-                lib.dsp_tpdf_dither_f64.restype = i
-                lib.dsp_levels_f64.argtypes = [p] * 7 + [d, i, i, p]
-                lib.dsp_levels_f64.restype = i
-                lib.dsp_stats_f64.argtypes = [ctypes.POINTER(StatsState)] * 2 + [p] * 3 + [i, i, p]
-                lib.dsp_stats_f64.restype = i
-                lib.dsp_mod_delay_f64.argtypes = [p] * 12 + [i] * 7 + [d] * 3 + [p]
-                lib.dsp_mod_delay_f64.restype = i
+                for fn in (lib.dsp_tpdf_noise_f64, lib.dsp_tpdf_noise_f32):
+                    fn.argtypes = [p] * 5 + [d, i, i, p]
+                    fn.restype = i
+                for fn in (lib.dsp_tpdf_dither_f64, lib.dsp_tpdf_dither_f32):
+                    fn.argtypes = [p] * 13 + [i, i, i, p, p]
+                    fn.restype = i
+                for fn in (lib.dsp_levels_f64, lib.dsp_levels_f32):
+                    fn.argtypes = [p] * 7 + [d, i, i, p]
+                    fn.restype = i
+                for fn in (lib.dsp_stats_f64, lib.dsp_stats_f32):
+                    fn.argtypes = [ctypes.POINTER(StatsState)] * 2 + [p] * 3 + [i, i, p]
+                    fn.restype = i
+                for fn in (lib.dsp_mod_delay_f64, lib.dsp_mod_delay_f32):
+                    fn.argtypes = [p] * 12 + [i] * 7 + [d] * 3 + [p]
+                    fn.restype = i
                 lib.dsp_resample_fold_c128.argtypes = [p] * 6 + [i, i, p]
                 lib.dsp_resample_fold_c128.restype = i
                 lib.dsp_m4_env_f64.argtypes = [p] * 5 + [d, i, i, i, p]
@@ -373,9 +379,14 @@ def launch_splice(a, x, out, lo, shift):
     _check(rc, "splice")
 
 
+def _by_dtype(t, name):
+    """The float64 or float32 entry point `name`_f64 / `name`_f32 for t's dtype."""
+    return getattr(load(), f"{name}_{'f32' if t.dtype == torch.float32 else 'f64'}")
+
+
 def launch_tpdf_noise(key, key_out, x, y, sel, mult):
     B, C = x.shape
-    rc = load().dsp_tpdf_noise_f64(
+    rc = _by_dtype(x, "dsp_tpdf_noise")(
         _ptr(key), _ptr(key_out), _ptr(x), _ptr(y), _ptr(sel), mult, B, C, _stream(x.device),
     )
     _check(rc, "tpdf_noise")
@@ -384,7 +395,7 @@ def launch_tpdf_noise(key, key_out, x, y, sel, mult):
 def launch_tpdf_dither(key, key_out, x, y, ehist, ehist_out, nprev, nprev_out, n_mult, q0, q1,
                        enabled, fir, mode, scratch):
     B, C = x.shape
-    rc = load().dsp_tpdf_dither_f64(
+    rc = _by_dtype(x, "dsp_tpdf_dither")(
         _ptr(key), _ptr(key_out), _ptr(x), _ptr(y), _ptr(ehist), _ptr(ehist_out), _ptr(nprev),
         _ptr(nprev_out), _ptr(n_mult), _ptr(q0), _ptr(q1), _ptr(enabled), _ptr(fir), mode, B, C,
         _ptr(scratch), _stream(x.device),
@@ -394,7 +405,7 @@ def launch_tpdf_dither(key, key_out, x, y, ehist, ehist_out, nprev, nprev_out, n
 
 def launch_levels(avg, peak, block_peak, avg_out, peak_out, bp_out, xs, g):
     B, n = xs.shape
-    rc = load().dsp_levels_f64(
+    rc = _by_dtype(xs, "dsp_levels")(
         _ptr(avg), _ptr(peak), _ptr(block_peak), _ptr(avg_out), _ptr(peak_out), _ptr(bp_out),
         _ptr(xs), g, B, n, _stream(xs.device),
     )
@@ -409,7 +420,7 @@ def launch_stats(state, new, keys, xs, insert_h):
     def ptrs(d):
         return StatsState(**{k: d[k].data_ptr() for k in keys})
 
-    rc = load().dsp_stats_f64(
+    rc = _by_dtype(xs, "dsp_stats")(
         ctypes.byref(ptrs(state)), ctypes.byref(ptrs(new)), _ptr(state["limit"]), _ptr(xs),
         _ptr(insert_h), B, n, _stream(xs.device),
     )
@@ -427,7 +438,7 @@ def launch_resample_fold(X, Y, ptr, j, flags, s):
 def launch_mod_delay(key, key_out, yk, yk_out, t, t_out, knots, buf, x, y, sel, table, n_new,
                      n_phases, n_taps, depth, step, step_b):
     B, C = x.shape
-    rc = load().dsp_mod_delay_f64(
+    rc = _by_dtype(x, "dsp_mod_delay")(
         _ptr(key), _ptr(key_out), _ptr(yk), _ptr(yk_out), _ptr(t), _ptr(t_out), _ptr(knots),
         _ptr(buf), _ptr(x), _ptr(y), _ptr(sel), _ptr(table), buf.shape[0], B, C, yk.shape[1],
         n_new, n_phases, n_taps, depth, step, step_b, _stream(x.device),

@@ -1,4 +1,5 @@
-"""The time-domain kernels of slice C, their wrappers and plain versions.
+"""The time-domain kernels of slices C and J4, their wrappers and plain
+versions.
 
 * K18-noise ``tpdf_noise`` (dsp_tpu/effects/noise.py:51): x + TPDF noise.
 * K15 ``tpdf_dither`` (dsp_tpu/effects/dither.py:107): TPDF dither, flat or
@@ -9,35 +10,63 @@
 * K14 ``mod_delay`` (dsp_tpu/effects/delay.py:292, :337): the modulator and
   the interpolated read of the modulated delay line.
 
-Each wrapper dispatches on the tensor's device only: a CPU tensor runs the
-plain version ``<name>_ref``, a CUDA tensor launches the kernel in
+Each takes float64 tensors and hands float32 ones to its float32 entry,
+``<name>_f32`` (slice J4), which refuses float64, as the float64 entry
+refuses a float32 leaf among float64 ones, on every device. Each entry
+dispatches on the tensor's device only: a CPU tensor runs the plain version
+``<name>_ref`` / ``<name>_f32_ref`` (``stats_step_ref`` serves both), a
+CUDA tensor launches the kernel in
 ``dsp_tpu_torch/csrc/`` (tpdf.cu, stats.cu, levels.cu, mod_delay.cu) or
-raises. Each counts its launches in ``<wrapper>.launches``. Noise comes from
-jax's threefry (core/prng.py), so both paths draw dsp_tpu's numbers.
+raises. Each counts its launches in ``<entry>.launches``. Noise comes from
+jax's threefry (core/prng.py), so both paths draw dsp_tpu's numbers: its
+float64 uniform in float64, its float32 uniform (other bits) in float32.
 
 dsp_tpu runs these steps through XLA, whose CPU backend contracts a + b·c
 into one fused multiply-add wherever a product feeds a sum in one fusion
 (measured: the flat dither's x + (u1 - u2)·n_mult, noise's x + (u1 -
 u2)·mult when every channel is selected, the -i estimator's M + x·H,
 M[k] + c_k·x and yq = y - dy·p4), but not across a select (noise on some
-channels, x + where(sel, ·, 0)) nor in the error-feedback dot. The plain versions
-and the kernels take an FMA exactly there (``torch.addcmul``, ``_fma``,
-``__fma_rn``) and round every other product and sum on its own, so the
-noise, the dither's output and every stats decision equal dsp_tpu's.
+channels, x + where(sel, ·, 0)) nor in the float64 error-feedback dot. The
+plain versions and the kernels take an FMA exactly there (``torch.addcmul``,
+``_fma``, ``_fma32``, ``__fma_rn``) and round every other product and sum
+on its own, so the noise, the dither's output and every stats decision
+equal dsp_tpu's, in both dtypes.
+
+The float32 forms: each value follows one of two routes.
+
+* float32 arithmetic, each operation rounded as dsp_tpu float32 rounds it,
+  wherever a value feeds a draw or a decision: the noise; the dither's
+  quantizer and its error feedback; stats' comparisons (min, max, peak,
+  the peak count and frame) and the whole -i estimator (its gate, buffer,
+  fits and vertex); the modulator (knots, B-spline, the read position's
+  integer part and polyphase phase). Where XLA:CPU's own float32 choices
+  change with the fusion around them, the port keeps one order, so some
+  values differ from dsp_tpu float32's in their last bits (measured): the
+  multi-tap feedback dot (an FMA chain for lipshitz at B = 2048, in order
+  at B = 1000; the port sums in order, each product rounded), and the
+  modulator's knot sums and B-spline (FMAs that differ between the
+  effect's own jit and a copy of it; the port takes none): its z within
+  2 ulps of dsp_tpu float32's.
+* read float32, carry float64, store float32 (PR 6's route) where nothing
+  is decided: stats' sums and sums of squares, levels' meters (its scan
+  in float64 with g unrounded), and the modulated delay's interpolating
+  read (Hermite or polyphase taps and their B-spline).
 
 The serial recurrences (the shaped dither, ``stats -i``) have plain versions
-that loop over samples on the host in Python floats (IEEE float64); they
-take tensors on any device and return them on the input's device.
+that loop over samples on the host (Python floats for float64, numpy
+float32 scalars for float32); they take tensors on any device and return
+them on the input's device.
 """
 
 import math
+import struct
 
 import numpy as np
 import torch
 
 from dsp_tpu_torch.core import prng
 from dsp_tpu_torch.core.prng import PM_RAND_MAX
-from dsp_tpu_torch.ops.fft_conv import _check_cuda
+from dsp_tpu_torch.ops.fft_conv import _check_cuda, _check_dtypes
 
 # tpdf_dither modes: flat (no feedback), shaped (9-tap error feedback on
 # TPDF noise), sloped2 (error feedback on first-difference noise)
@@ -66,6 +95,46 @@ def _rint(v):
     return math.copysign(float(round(v)), v) if math.isfinite(v) else v
 
 
+def _fma32(a, b, c):
+    """a·b + c rounded once to float32 (CUDA's __fmaf_rn) on float32
+    tensors: the product is exact in float64, and the float64 sum is
+    rounded to odd (TwoSum's error moves an even result one ulp toward the
+    exact sum), so its one rounding to float32 is the correct one."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c = c.to(torch.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    odd = torch.nextafter(s, torch.copysign(torch.full_like(s, math.inf), err))
+    return torch.where((err != 0) & ((s.view(torch.int64) & 1) == 0), odd, s).to(torch.float32)
+
+
+def _fma32_np(a, b, c):
+    """_fma32 on numpy float32 arrays (the -i estimator's 64-slot buffer, a
+    sample at a time)."""
+    p = a.astype(np.float64) * b
+    c = c.astype(np.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    fix = (err != 0) & ((s.view(np.int64) & 1) == 0)
+    if fix.any():
+        s = np.where(fix, np.nextafter(s, np.copysign(np.inf, err)), s)
+    return s.astype(np.float32)
+
+
+def _fma32s(a, b, c):
+    """_fma32 on numpy float32 scalars."""
+    a, b, c = float(a), float(b), float(c)
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    if err != 0 and not struct.unpack("<q", struct.pack("<d", s))[0] & 1:
+        s = math.nextafter(s, math.copysign(math.inf, err))
+    return np.float32(s)
+
+
 def _check_shape(name, what, t, shape):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: {what} {tuple(t.shape)}, expected {tuple(shape)}")
@@ -77,30 +146,49 @@ def _check_shape(name, what, t, shape):
 def tpdf_noise(key, x, mult, sel=None):
     """key' and x + where(sel, (u1 - u2)·mult, 0): key, k1, k2 = split(key,
     3), u1 and u2 uniform in [0, PM_RAND_MAX] over x's [B, C] (counter
-    b·C + c). key: uint32 [2]; x: float64 [B, C]; sel: bool [C], or None
-    for every channel, where the sum is one FMA, x + (u1 - u2)·mult, as
-    XLA:CPU folds dsp_tpu's all-true select away and fuses it. CPU tensors
-    run tpdf_noise_ref; CUDA tensors launch csrc/tpdf.cu."""
-    if x.device.type == "cpu":
-        return tpdf_noise_ref(key, x, mult, sel)
-    from dsp_tpu_torch import kernels
-
-    checks = [(x, torch.float64), (key, torch.uint32)]
-    if sel is not None:
-        checks.append((sel, torch.bool))
-    _check_cuda("tpdf_noise", x, *checks, align=1)
-    B, C = x.shape
-    _check_shape("tpdf_noise", "key", key, (2,))
-    if sel is not None:
-        _check_shape("tpdf_noise", "sel", sel, (C,))
-    key_out = torch.empty_like(key)
-    y = torch.empty_like(x)
-    kernels.launch_tpdf_noise(key, key_out, x, y, sel, float(mult))
-    tpdf_noise.launches += 1
-    return key_out, y
+    b·C + c). key: uint32 [2]; x: float64 [B, C] (float32: tpdf_noise_f32);
+    sel: bool [C], or None for every channel, where the sum is one FMA,
+    x + (u1 - u2)·mult, as XLA:CPU folds dsp_tpu's all-true select away and
+    fuses it. CPU tensors run tpdf_noise_ref; CUDA tensors launch
+    csrc/tpdf.cu."""
+    if x.dtype == torch.float32:
+        return tpdf_noise_f32(key, x, mult, sel)
+    return _tpdf_noise(tpdf_noise, tpdf_noise_ref, torch.float64, key, x, mult, sel)
 
 
 tpdf_noise.launches = 0
+
+
+def tpdf_noise_f32(key, x, mult, sel=None):
+    """tpdf_noise on float32 x: dsp_tpu float32's draws (prng.uniform_f32)
+    and float32 arithmetic, mult rounded to float32. CPU tensors run
+    tpdf_noise_f32_ref; CUDA tensors launch csrc/tpdf.cu."""
+    return _tpdf_noise(tpdf_noise_f32, tpdf_noise_f32_ref, torch.float32, key, x, mult, sel)
+
+
+tpdf_noise_f32.launches = 0
+
+
+def _tpdf_noise(entry, ref, dt, key, x, mult, sel):
+    name = entry.__name__
+    _check_dtypes(name, (x, dt), (key, torch.uint32), (sel, torch.bool))
+    if x.device.type == "cpu":
+        return ref(key, x, mult, sel)
+    from dsp_tpu_torch import kernels
+
+    checks = [(x, dt), (key, torch.uint32)]
+    if sel is not None:
+        checks.append((sel, torch.bool))
+    _check_cuda(name, x, *checks, align=1)
+    B, C = x.shape
+    _check_shape(name, "key", key, (2,))
+    if sel is not None:
+        _check_shape(name, "sel", sel, (C,))
+    key_out = torch.empty_like(key)
+    y = torch.empty_like(x)
+    kernels.launch_tpdf_noise(key, key_out, x, y, sel, float(mult))
+    entry.launches += 1
+    return key_out, y
 
 
 def tpdf_noise_ref(key, x, mult, sel=None):
@@ -114,6 +202,18 @@ def tpdf_noise_ref(key, x, mult, sel=None):
     return keys[0], x + torch.where(sel, noise, torch.zeros_like(noise))
 
 
+def tpdf_noise_f32_ref(key, x, mult, sel=None):
+    """Plain version of tpdf_noise_f32: dsp_tpu float32's noise step."""
+    keys = prng.split(key, 3)
+    u1 = prng.uniform_f32(keys[1], x.shape, PM_RAND_MAX)
+    u2 = prng.uniform_f32(keys[2], x.shape, PM_RAND_MAX)
+    m = torch.tensor(mult, dtype=torch.float32, device=x.device)
+    if sel is None:
+        return keys[0], _fma32(u1 - u2, m, x)
+    noise = (u1 - u2) * m
+    return keys[0], x + torch.where(sel, noise, torch.zeros_like(noise))
+
+
 # --- K15: TPDF dither with error feedback ----------------------------------
 
 
@@ -122,23 +222,47 @@ def tpdf_dither(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode):
     ehist: [9, C] error history (newest first); nprev: [C] the sloped
     noise's carried uniform; n_mult, q0, q1: [C]; enabled: bool [C]; fir:
     [9] feedback taps; mode: DITHER_FLAT, DITHER_SHAPED or DITHER_SLOPED2.
-    Returns (key', ehist', nprev', y). CPU tensors run tpdf_dither_ref;
-    CUDA tensors launch csrc/tpdf.cu."""
+    The floats are float64 (float32: tpdf_dither_f32). Returns (key',
+    ehist', nprev', y). CPU tensors run tpdf_dither_ref; CUDA tensors
+    launch csrc/tpdf.cu."""
+    if x.dtype == torch.float32:
+        return tpdf_dither_f32(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode)
+    return _tpdf_dither(tpdf_dither, tpdf_dither_ref, torch.float64, key, x, ehist, nprev,
+                        n_mult, q0, q1, enabled, fir, mode)
+
+
+tpdf_dither.launches = 0
+
+
+def tpdf_dither_f32(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode):
+    """tpdf_dither with every float float32: dsp_tpu float32's draws and
+    its float32 quantizer and feedback. CPU tensors run
+    tpdf_dither_f32_ref; CUDA tensors launch csrc/tpdf.cu."""
+    return _tpdf_dither(tpdf_dither_f32, tpdf_dither_f32_ref, torch.float32, key, x, ehist,
+                        nprev, n_mult, q0, q1, enabled, fir, mode)
+
+
+tpdf_dither_f32.launches = 0
+
+
+def _tpdf_dither(entry, ref, dt, key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode):
+    name = entry.__name__
+    checks = [(x, dt), (key, torch.uint32), (ehist, dt), (nprev, dt), (n_mult, dt), (q0, dt),
+              (q1, dt), (enabled, torch.bool), (fir, dt)]
+    _check_dtypes(name, *checks)
     if x.device.type == "cpu":
-        return tpdf_dither_ref(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode)
+        return ref(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode)
     from dsp_tpu_torch import kernels
 
-    f64 = torch.float64
-    _check_cuda("tpdf_dither", x, (x, f64), (key, torch.uint32), (ehist, f64), (nprev, f64),
-                (n_mult, f64), (q0, f64), (q1, f64), (enabled, torch.bool), (fir, f64), align=1)
+    _check_cuda(name, x, *checks, align=1)
     B, C = x.shape
     for what, t, shape in (("key", key, (2,)), ("ehist", ehist, (DITHER_TAPS, C)),
                            ("nprev", nprev, (C,)), ("n_mult", n_mult, (C,)), ("q0", q0, (C,)),
                            ("q1", q1, (C,)), ("enabled", enabled, (C,)),
                            ("fir", fir, (DITHER_TAPS,))):
-        _check_shape("tpdf_dither", what, t, shape)
+        _check_shape(name, what, t, shape)
     if mode not in (DITHER_FLAT, DITHER_SHAPED, DITHER_SLOPED2):
-        raise ValueError(f"tpdf_dither: mode {mode}")
+        raise ValueError(f"{name}: mode {mode}")
     key_out = torch.empty_like(key)
     ehist_out = torch.empty_like(ehist)
     nprev_out = torch.empty_like(nprev)
@@ -147,15 +271,12 @@ def tpdf_dither(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode):
     # memory; above DITHER_SHARED_BYTES the noise from a scratch in device
     # memory
     scratch = None
-    if mode != DITHER_FLAT and 2 * B * C * 8 > kernels.DITHER_SHARED_BYTES:
+    if mode != DITHER_FLAT and 2 * B * C * x.element_size() > kernels.DITHER_SHARED_BYTES:
         scratch = torch.empty_like(x)
     kernels.launch_tpdf_dither(key, key_out, x, y, ehist, ehist_out, nprev, nprev_out, n_mult,
                                q0, q1, enabled, fir, mode, scratch)
-    tpdf_dither.launches += 1
+    entry.launches += 1
     return key_out, ehist_out, nprev_out, y
-
-
-tpdf_dither.launches = 0
 
 
 def tpdf_dither_ref(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode):
@@ -199,6 +320,46 @@ def tpdf_dither_ref(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode):
     return keys[0], ehist_out, nprev_out, torch.tensor(out, dtype=x.dtype, device=x.device)
 
 
+def tpdf_dither_f32_ref(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode):
+    """Plain version of tpdf_dither_f32: the noise and the flat quantizer as
+    float32 torch ops, the error-feedback loop over samples on numpy
+    float32 scalars (the taps summed in order, each product and sum
+    rounded to float32 on its own, as dsp_tpu float32's scan does)."""
+    B, C = x.shape
+    keys = prng.split(key, 3)
+    u1 = prng.uniform_f32(keys[1], (B, C), PM_RAND_MAX)
+    u2 = prng.uniform_f32(keys[2], (B, C), PM_RAND_MAX)
+    if mode == DITHER_SLOPED2:
+        noise = (u1 - torch.cat([nprev[None], u1[:-1]])) * n_mult
+        nprev_out = u1[-1]
+    else:
+        noise = (u1 - u2) * n_mult
+        nprev_out = nprev
+    if mode == DITHER_FLAT:
+        y = q1 * torch.round(q0 * _fma32(u1 - u2, n_mult, x))
+        return keys[0], ehist, nprev_out, torch.where(enabled, y, x)
+    xs, ns = x.cpu().numpy(), noise.cpu().numpy()
+    taps = list(fir.cpu().numpy())
+    qa, qb, en = q0.cpu().numpy(), q1.cpu().numpy(), enabled.tolist()
+    eh = ehist.cpu().numpy().copy()
+    out = xs.copy()
+    zero = np.float32(0.0)
+    for c in range(C):
+        e = list(eh[:, c])
+        for b, (xn, nn) in enumerate(zip(xs[:, c], ns[:, c])):
+            fb = zero
+            for t in range(DITHER_TAPS):
+                fb = fb + taps[t] * e[t]
+            p0 = xn - fb
+            p1 = qb[c] * np.rint(qa[c] * (p0 + nn))
+            e = [p1 - p0] + e[:-1]
+            if en[c]:
+                out[b, c] = p1
+        eh[:, c] = e
+    dev = x.device
+    return keys[0], torch.from_numpy(eh).to(dev), nprev_out, torch.from_numpy(out).to(dev)
+
+
 # --- K17: levels meters ----------------------------------------------------
 
 
@@ -206,24 +367,45 @@ def levels_step(avg, peak, block_peak, xs, g):
     """One block of the levels meters on xs [B, n] (the selected channels):
     avg' = EWMA of x² (weight g), peak' = the set-min EWMA
     m' = max(x², (1 - g)·m + g·x²), block_peak' = max(block_peak, every m of
-    the block). Returns (avg', peak', block_peak'), each [n]. CPU tensors
-    run levels_step_ref; CUDA tensors launch csrc/levels.cu."""
-    if xs.device.type == "cpu":
-        return levels_step_ref(avg, peak, block_peak, xs, g)
-    from dsp_tpu_torch import kernels
-
-    f64 = torch.float64
-    _check_cuda("levels_step", xs, (xs, f64), (avg, f64), (peak, f64), (block_peak, f64), align=1)
-    B, n = xs.shape
-    for what, t in (("avg", avg), ("peak", peak), ("block_peak", block_peak)):
-        _check_shape("levels_step", what, t, (n,))
-    outs = tuple(torch.empty_like(avg) for _ in range(3))
-    kernels.launch_levels(avg, peak, block_peak, *outs, xs, float(g))
-    levels_step.launches += 1
-    return outs
+    the block). Returns (avg', peak', block_peak'), each [n], float64
+    (float32: levels_step_f32). CPU tensors run levels_step_ref; CUDA
+    tensors launch csrc/levels.cu."""
+    if xs.dtype == torch.float32:
+        return levels_step_f32(avg, peak, block_peak, xs, g)
+    return _levels_step(levels_step, levels_step_ref, torch.float64, avg, peak, block_peak, xs, g)
 
 
 levels_step.launches = 0
+
+
+def levels_step_f32(avg, peak, block_peak, xs, g):
+    """levels_step on float32 samples and meters: each read as float64, the
+    scan run in float64 with g unrounded, each meter rounded to float32 once
+    when stored. CPU tensors run levels_step_f32_ref; CUDA tensors launch
+    csrc/levels.cu."""
+    return _levels_step(levels_step_f32, levels_step_f32_ref, torch.float32, avg, peak,
+                        block_peak, xs, g)
+
+
+levels_step_f32.launches = 0
+
+
+def _levels_step(entry, ref, dt, avg, peak, block_peak, xs, g):
+    name = entry.__name__
+    checks = [(xs, dt), (avg, dt), (peak, dt), (block_peak, dt)]
+    _check_dtypes(name, *checks)
+    if xs.device.type == "cpu":
+        return ref(avg, peak, block_peak, xs, g)
+    from dsp_tpu_torch import kernels
+
+    _check_cuda(name, xs, *checks, align=1)
+    B, n = xs.shape
+    for what, t in (("avg", avg), ("peak", peak), ("block_peak", block_peak)):
+        _check_shape(name, what, t, (n,))
+    outs = tuple(torch.empty_like(avg) for _ in range(3))
+    kernels.launch_levels(avg, peak, block_peak, *outs, xs, float(g))
+    entry.launches += 1
+    return outs
 
 
 def levels_step_ref(avg, peak, block_peak, xs, g):
@@ -248,6 +430,14 @@ def levels_step_ref(avg, peak, block_peak, xs, g):
     return avg_new, peaks[-1], torch.maximum(block_peak, peaks.max(dim=0).values)
 
 
+def levels_step_f32_ref(avg, peak, block_peak, xs, g):
+    """Plain version of levels_step_f32: levels_step_ref in float64 on the
+    upcast leaves, rounded to float32."""
+    f64 = torch.float64
+    outs = levels_step_ref(avg.to(f64), peak.to(f64), block_peak.to(f64), xs.to(f64), g)
+    return tuple(t.to(torch.float32) for t in outs)
+
+
 # --- K16: stats ------------------------------------------------------------
 
 # the state leaves of both modes; the -i estimator adds the last six
@@ -261,38 +451,60 @@ def stats_step(s, xs, insert_h=None):
     [n] peak_count and peak_frame, int64 0-d samples and limit; with -i
     also m [64, n], y [6, n], z [9, n], int32 nctr [n], tmin, tmax [n]).
     insert_h: None for plain stats, or the -i estimator's float64 [67]
-    table (the 64-slot insert template, then the three direct taps).
-    Returns the new state dict; nothing is read back to the host. CPU
-    tensors run stats_step_ref; CUDA tensors launch csrc/stats.cu."""
+    table (the 64-slot insert template, then the three direct taps). Float
+    leaves and xs float32: stats_step_f32. Returns the new state dict;
+    nothing is read back to the host. CPU tensors run stats_step_ref; CUDA
+    tensors launch csrc/stats.cu."""
+    if xs.dtype == torch.float32:
+        return stats_step_f32(s, xs, insert_h)
+    return _stats_step(stats_step, torch.float64, s, xs, insert_h)
+
+
+stats_step.launches = 0
+
+
+def stats_step_f32(s, xs, insert_h=None):
+    """stats_step with float32 samples, float leaves and table: every
+    comparison and the -i estimator's arithmetic in float32, as dsp_tpu
+    float32's; the block's sums in float64, added to the float32 sums and
+    rounded once. CPU tensors run stats_step_ref; CUDA tensors launch
+    csrc/stats.cu."""
+    return _stats_step(stats_step_f32, torch.float32, s, xs, insert_h)
+
+
+stats_step_f32.launches = 0
+
+
+def _stats_step(entry, dt, s, xs, insert_h):
+    name = entry.__name__
+    i64 = torch.int64
+    B, n = xs.shape
+    keys = STATS_KEYS + (STATS_INTERP_KEYS if insert_h is not None else ())
+    want = {"peak_count": (i64, (n,)), "peak_frame": (i64, (n,)), "samples": (i64, ()),
+            "m": (dt, (64, n)), "y": (dt, (6, n)), "z": (dt, (9, n)),
+            "nctr": (torch.int32, (n,))}
+    checks = [(xs, dt), (s["limit"], i64)]
+    if insert_h is not None:
+        checks.append((insert_h, dt))
+    for k in keys:
+        checks.append((s[k], want.get(k, (dt,))[0]))
+    _check_dtypes(name, *checks)
     if xs.device.type == "cpu":
         return stats_step_ref(s, xs, insert_h)
     from dsp_tpu_torch import kernels
 
-    f64, i64 = torch.float64, torch.int64
-    B, n = xs.shape
-    keys = STATS_KEYS + (STATS_INTERP_KEYS if insert_h is not None else ())
-    want = {"peak_count": (i64, (n,)), "peak_frame": (i64, (n,)), "samples": (i64, ()),
-            "m": (f64, (64, n)), "y": (f64, (6, n)), "z": (f64, (9, n)),
-            "nctr": (torch.int32, (n,))}
-    checks = [(xs, f64), (s["limit"], i64)]
     for k in keys:
-        dtype, shape = want.get(k, (f64, (n,)))
-        checks.append((s[k], dtype))
-        _check_shape("stats_step", k, s[k], shape)
-    _check_shape("stats_step", "limit", s["limit"], ())
+        _check_shape(name, k, s[k], want.get(k, (dt, (n,)))[1])
+    _check_shape(name, "limit", s["limit"], ())
     if insert_h is not None:
-        checks.append((insert_h, f64))
-        _check_shape("stats_step", "insert_h", insert_h, (67,))
-    _check_cuda("stats_step", xs, *checks, align=1)
+        _check_shape(name, "insert_h", insert_h, (67,))
+    _check_cuda(name, xs, *checks, align=1)
     new = dict(s)
     for k in keys:
         new[k] = torch.empty_like(s[k])
     kernels.launch_stats(s, new, keys, xs, insert_h)
-    stats_step.launches += 1
+    entry.launches += 1
     return new
-
-
-stats_step.launches = 0
 
 
 def _jmin(a, b):
@@ -306,18 +518,23 @@ def _jmax(a, b):
 
 
 def stats_step_ref(s, xs, insert_h=None):
-    """Plain version of stats_step: dsp_tpu's vectorized plain mode
-    (cummin/cummax, exact comparisons) as torch ops, or the -i estimator
-    over samples in Python floats."""
+    """Plain version of stats_step and stats_step_f32: the sums in float64
+    (for float32 samples, rounded to float32 once they are added to the
+    carried sums); dsp_tpu's vectorized plain mode (cummin/cummax, exact
+    comparisons) as torch ops; or the -i estimator over samples, in Python
+    floats (float64) or numpy float32 scalars (float32)."""
+    f64 = torch.float64
     B = xs.shape[0]
     idx = s["samples"] + torch.arange(B, dtype=torch.int64, device=xs.device)
     active = idx < s["limit"]
     new = dict(s)
-    xz = torch.where(active[:, None], xs, torch.zeros_like(xs))
-    new["sum"] = s["sum"] + xz.sum(dim=0)
-    new["sum_sq"] = s["sum_sq"] + (xz * xz).sum(dim=0)
+    xz = torch.where(active[:, None], xs, torch.zeros_like(xs)).to(f64)
+    new["sum"] = (s["sum"].to(f64) + xz.sum(dim=0)).to(xs.dtype)
+    new["sum_sq"] = (s["sum_sq"].to(f64) + (xz * xz).sum(dim=0)).to(xs.dtype)
     if insert_h is None:
         new.update(_stats_plain_ref(s, xs, idx, active))
+    elif xs.dtype == torch.float32:
+        new.update(_stats_interp_f32_ref(s, xs, insert_h))
     else:
         new.update(_stats_interp_ref(s, xs, insert_h))
     new["samples"] = torch.minimum(s["samples"] + B, s["limit"])
@@ -445,55 +662,156 @@ def _stats_interp_ref(s, xs, insert_h):
     return new
 
 
+def _stats_interp_f32_ref(s, xs, insert_h):
+    """dsp_tpu float32's _step_interp, sample by sample: the 64-slot shift
+    buffer as one fused multiply-add a sample (_fma32_np), the rest on numpy
+    float32 scalars with the three FMAs dsp_tpu's XLA takes (_fma32s)."""
+    f = np.float32
+    dev = xs.device
+    h = insert_h.cpu().numpy()
+    H = h[:64]
+    c0, c1, c2 = (f(v) for v in h[64:])
+    zeros4 = np.zeros(4, dtype=np.float32)
+    two, eight, half, one, zero = f(2.0), f(8.0), f(0.5), f(1.0), f(0.0)
+    samples, limit = int(s["samples"]), int(s["limit"])
+    B, n = xs.shape
+    x_np = xs.cpu().numpy()
+    st = {k: s[k].cpu().numpy() for k in ("y", "z", "nctr", "tmin", "tmax", "min", "max",
+                                          "peak", "peak_count", "peak_frame")}
+    m_all = s["m"].cpu().numpy()
+    out = {k: [] for k in st}
+    m_out = []
+    n_act = max(0, min(B, limit - samples))  # active samples: index < limit
+    gated = 0
+    for c in range(n):
+        M = m_all[:, c].copy()
+        y, z = list(st["y"][:, c]), list(st["z"][:, c])
+        nc = int(st["nctr"][c])
+        tmin, tmax = st["tmin"][c], st["tmax"][c]
+        mn, mx, pk = st["min"][c], st["max"][c], st["peak"][c]
+        cnt, frm = int(st["peak_count"][c]), int(st["peak_frame"][c])
+        for b in range(n_act):
+            sv = x_np[b, c]
+            if sv < tmin or sv > tmax:
+                nc = STATS_INTERP_DELAY
+            if nc > 0:
+                gated += 1
+                x = z[0]
+                m0, m1, m2, m3 = M[:4]
+                y = [y[4], y[5], _fma32s(c0, x, m0), _fma32s(c1, x, m1), _fma32s(c2, x, m2), m3]
+                M = _fma32_np(H, x, np.concatenate([M[4:], zeros4]))
+                r = 0
+                for i in range(1, 5):
+                    d0 = y[i] - y[i - 1]
+                    d1 = y[i] - y[i + 1]
+                    if (d0 > 0 and d1 < 0) or (d0 < 0 and d1 > 0) or (d0 == 0 and d1 == 0):
+                        continue
+                    dy = y[i - 1] - y[i + 1]
+                    den = y[i - 1] - two * y[i] + y[i + 1]
+                    p4 = dy / (eight * (one if den == 0 else den))
+                    yq = _fma32s(-dy, p4, y[i])
+                    if yq <= mn:
+                        mn, tmin = yq, half * yq
+                    elif yq >= mx:
+                        mx, tmax = yq, half * yq
+                    else:
+                        continue
+                    ayq = abs(yq)
+                    if ayq > pk:
+                        pk, r = ayq, 2
+                    elif ayq > zero and ayq == pk:
+                        r = 1
+                if r == 2:
+                    frm, cnt = samples + b - (STATS_INTERP_DELAY - 1), 1
+                elif r == 1:
+                    cnt += 1
+                nc -= 1
+            z = z[1:] + [sv]
+        m_out.append(M)
+        for k, v in (("y", y), ("z", z), ("nctr", nc), ("tmin", tmin), ("tmax", tmax),
+                     ("min", mn), ("max", mx), ("peak", pk), ("peak_count", cnt),
+                     ("peak_frame", frm)):
+            out[k].append(v)
+    new = {}
+    for k, v in out.items():
+        t = torch.tensor(np.array(v, dtype=st[k].dtype)).reshape(tuple(s[k].shape)[::-1])
+        new[k] = t.t().contiguous().to(dev)  # rows back to [6, n] / [9, n]
+    new["m"] = torch.from_numpy(np.stack(m_out, axis=1)).to(dev) if m_out else s["m"].clone()
+    stats_step_ref.gated_samples = gated
+    return new
+
+
 # --- K14: the modulated delay ----------------------------------------------
 
 
 def mod_delay(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
     """One block of dsp_tpu's modulated delay read, without the carried
     buffer's update (the caller splices it). key: uint32 [2]; yk: the knot
-    window [4, lanes] (lanes 1 for -M, else C); t: float64 0-d phase; buf:
-    [H, C] the line before this block; x: [B, C]; sel: bool [C]; table:
+    window [4, lanes] (lanes 1 for -M, else C); t: 0-d phase; buf: [H, C]
+    the line before this block; x: [B, C]; sel: bool [C]; table:
     [n_phases, taps] polyphase filters for q1/q2, or None for q0 (Hermite).
-    Returns (key', yk', t', y [B, C]). CPU tensors run mod_delay_ref; CUDA
-    tensors launch csrc/mod_delay.cu (the knots, then the read)."""
+    The floats are float64 (float32: mod_delay_f32). Returns (key', yk',
+    t', y [B, C]). CPU tensors run mod_delay_ref; CUDA tensors launch
+    csrc/mod_delay.cu (the knots, then the read)."""
+    if x.dtype == torch.float32:
+        return mod_delay_f32(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual)
+    return _mod_delay(mod_delay, mod_delay_ref, torch.float64, key, yk, t, buf, x, sel, table,
+                      depth, step, n_taps, qual)
+
+
+mod_delay.launches = 0
+
+
+def mod_delay_f32(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
+    """mod_delay with every float float32: jax's float32 draws; the knots,
+    the B-spline and each read position's integer and phase in float32,
+    each operation rounded on its own in dsp_tpu's order; the interpolating
+    read in float64 from the float32 line, rounded to float32 once. CPU
+    tensors run mod_delay_f32_ref; CUDA tensors launch csrc/mod_delay.cu."""
+    return _mod_delay(mod_delay_f32, mod_delay_f32_ref, torch.float32, key, yk, t, buf, x, sel,
+                      table, depth, step, n_taps, qual)
+
+
+mod_delay_f32.launches = 0
+
+
+def _mod_delay(entry, ref, dt, key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
+    name = entry.__name__
+    checks = [(x, dt), (key, torch.uint32), (yk, dt), (t, dt), (buf, dt), (sel, torch.bool)]
+    if table is not None:
+        checks.append((table, dt))
+    _check_dtypes(name, *checks)
     if x.device.type == "cpu":
-        return mod_delay_ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual)
+        return ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual)
     from dsp_tpu_torch import kernels
 
-    f64 = torch.float64
-    checks = [(x, f64), (key, torch.uint32), (yk, f64), (t, f64), (buf, f64), (sel, torch.bool)]
-    if table is not None:
-        checks.append((table, f64))
-    _check_cuda("mod_delay", x, *checks, align=1)
+    _check_cuda(name, x, *checks, align=1)
     B, C = x.shape
     lanes = yk.shape[1] if yk.dim() == 2 else -1
     H = buf.shape[0]
-    _check_shape("mod_delay", "key", key, (2,))
-    _check_shape("mod_delay", "t", t, ())
-    _check_shape("mod_delay", "buf", buf, (H, C))
-    _check_shape("mod_delay", "sel", sel, (C,))
+    _check_shape(name, "key", key, (2,))
+    _check_shape(name, "t", t, ())
+    _check_shape(name, "buf", buf, (H, C))
+    _check_shape(name, "sel", sel, (C,))
     if lanes not in (1, C) or yk.shape[0] != 4:
-        raise ValueError(f"mod_delay: knot window {tuple(yk.shape)} for {C} channels")
+        raise ValueError(f"{name}: knot window {tuple(yk.shape)} for {C} channels")
     if (qual == 0) != (table is None) or (table is not None and table.shape[1] != n_taps):
-        raise ValueError(f"mod_delay: quality {qual} with table "
+        raise ValueError(f"{name}: quality {qual} with table "
                          f"{None if table is None else tuple(table.shape)}")
     # the lowest row the read reaches (H - depth - taps, or - 3 for Hermite)
     # must lie in the line
     n_phases = 0 if table is None else table.shape[0]
     if H - int(math.floor(depth)) - (n_taps if qual else 3) < 0:
-        raise ValueError(f"mod_delay: a line of {H} rows is short for depth {depth}")
+        raise ValueError(f"{name}: a line of {H} rows is short for depth {depth}")
     n_new = int(np.ceil(B * step)) + 1
-    knots = torch.empty((4 + n_new, lanes), dtype=f64, device=x.device)
+    knots = torch.empty((4 + n_new, lanes), dtype=dt, device=x.device)
     key_out, yk_out, t_out = torch.empty_like(key), torch.empty_like(yk), torch.empty_like(t)
     y = torch.empty_like(x)
     kernels.launch_mod_delay(key, key_out, yk, yk_out, t, t_out, knots, buf, x, y, sel, table,
                              n_new, n_phases, n_taps, float(depth), float(step),
                              float(step * B))
-    mod_delay.launches += 1
+    entry.launches += 1
     return key_out, yk_out, t_out, y
-
-
-mod_delay.launches = 0
 
 
 def mod_delay_ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
@@ -521,39 +839,112 @@ def mod_delay_ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
     n_consumed = int(np.floor(float(t) + step * B))
     yk_next = knots[n_consumed:n_consumed + 4]
     t_next = t + step * B - n_consumed
-    z = z.expand(B, C)
-    mod = z * depth
+    mod = z.expand(B, C) * depth
     d_int = mod.to(torch.int64)  # truncation, like (ssize_t) mod
     d_frac = mod - d_int.to(dt)
+    t_os = None if table is None else d_frac * table.shape[0]
+    y = _mod_read(buf, x, d_int, d_frac, t_os, table, n_taps)
+    return keys[0], yk_next, t_next, torch.where(sel, y, x)
+
+
+def _mod_read(buf, x, d_int, d_frac, t_os, table, n_taps):
+    """The modulated delay's read at each sample's integer delay d_int and
+    fraction d_frac (t_os = d_frac·n_phases for the polyphase filters, or
+    None for the Hermite read), in float64 on the line [buf | x]."""
+    f64 = torch.float64
+    B = x.shape[0]
     H = buf.shape[0]
-    line = torch.cat([buf.to(dt), x])  # [H + B, C]
-    base = H + torch.arange(B, device=dev)[:, None] - d_int
-    if qual == 0:
+    line = torch.cat([buf, x]).to(f64)  # [H + B, C]
+    base = H + torch.arange(B, device=x.device)[:, None] - d_int
+    if table is None:
         ym3, ym2, ym1, y0 = (torch.gather(line, 0, base + off) for off in (-3, -2, -1, 0))
-        h0 = ym1
         h1 = 0.5 * (ym2 - y0)
         h2 = y0 - 2.5 * ym1 + 2.0 * ym2 - 0.5 * ym3
         h3 = 0.5 * (ym3 - y0) + 1.5 * (ym1 - ym2)
-        td = d_frac
-        y = ((h3 * td + h2) * td + h1) * td + h0
-    else:
-        nph = table.shape[0]
-        t_os = d_frac * nph
-        ph0 = t_os.to(torch.int64)
-        offs = torch.arange(n_taps, device=dev)
-        zs = []
-        for i in range(4):
-            phi = ph0 + i
-            flt = table[phi % nph]  # [B, C, taps]
-            idx = (base - phi // nph)[..., None] - offs  # [B, C, taps]
-            vals = torch.gather(line[:, :, None].expand(-1, -1, n_taps), 0, idx)
-            zs.append((vals * flt).sum(dim=-1))
-        q0, q1, q2, q3 = zs
-        td = t_os - ph0.to(dt)
-        a = q0 + q2
-        b0 = (1.0 / 6.0) * a + (2.0 / 3.0) * q1
-        b1 = 0.5 * (q2 - q0)
-        b2 = 0.5 * a - q1
-        b3 = 0.5 * (q1 - q2) + (1.0 / 6.0) * (q3 - q0)
-        y = ((b3 * td + b2) * td + b1) * td + b0
-    return keys[0], yk_next, t_next, torch.where(sel, y, x)
+        td = d_frac.to(f64)
+        return ((h3 * td + h2) * td + h1) * td + ym1
+    nph = table.shape[0]
+    ph0 = t_os.to(torch.int64)
+    offs = torch.arange(n_taps, device=x.device)
+    tab = table.to(f64)
+    zs = []
+    for i in range(4):
+        phi = ph0 + i
+        idx = (base - phi // nph)[..., None] - offs  # [B, C, taps]
+        vals = torch.gather(line[:, :, None].expand(-1, -1, n_taps), 0, idx)
+        zs.append((vals * tab[phi % nph]).sum(dim=-1))  # tab[..]: [B, C, taps]
+    q0, q1, q2, q3 = zs
+    td = (t_os - ph0.to(t_os.dtype)).to(f64)  # exact
+    a = q0 + q2
+    b0 = (1.0 / 6.0) * a + (2.0 / 3.0) * q1
+    b1 = 0.5 * (q2 - q0)
+    b2 = 0.5 * a - q1
+    b3 = 0.5 * (q1 - q2) + (1.0 / 6.0) * (q3 - q0)
+    return ((b3 * td + b2) * td + b1) * td + b0
+
+
+def mod_delay_f32_ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
+    """Plain version of mod_delay_f32: the float32 modulator and read
+    positions (mod_noise_f32_ref), the read in float64 on the float32 line
+    and table."""
+    B, C = x.shape
+    dev, f32 = x.device, torch.float32
+    key_next, yk_next, t_next, z = mod_noise_f32_ref(key, yk, t, B, step)
+    mod = z.expand(B, C) * _f32c(depth, dev)
+    d_int = mod.to(torch.int64)  # truncation, like (ssize_t) mod
+    d_frac = mod - d_int.to(f32)  # exact
+    # the polyphase phase in float32: its integer part picks the filters
+    t_os = None if table is None else d_frac * _f32c(table.shape[0], dev)
+    y = _mod_read(buf, x, d_int, d_frac, t_os, table, n_taps)
+    return key_next, yk_next, t_next, torch.where(sel, y.to(f32), x)
+
+
+def mod_noise_f32_ref(key, yk, t, B, step):
+    """dsp_tpu float32's _mod_noise_block: (key', yk', t', z [B, lanes]),
+    the modulation in [0, 1] of each sample of a block of B, in float32:
+    the draws, the phases and the carried phase as dsp_tpu float32 rounds
+    them; the knots' six-term sums and the B-spline with every operation
+    rounded on its own, in order (where dsp_tpu's XLA:CPU takes FMAs and
+    orders of its own; see _mod_bspline_f32)."""
+    dev, f32 = yk.device, torch.float32
+    lanes = yk.shape[1]
+    # step·n is a float64 product in dsp_tpu too (jnp.arange is int64),
+    # rounded to float32 where it meets the float32 phase
+    tev = t + (step * torch.arange(B, dtype=torch.float64, device=dev)).to(f32)
+    kidx = torch.floor(tev).to(torch.int64)
+    frac = tev - torch.floor(tev)
+    n_new = int(np.ceil(B * step)) + 1
+    keys = prng.split(key, 2)
+    u = prng.uniform_f32(keys[1], (n_new, MOD_NOISE_N, 2, lanes), MOD_MAXVAL)
+    d = (u[:, :, 0] - u[:, :, 1]) * _f32c(0.77 / MOD_NOISE_N / MOD_MAXVAL, dev)
+    acc = torch.zeros_like(d[:, 0])
+    for j in range(MOD_NOISE_N):  # summed in order from 0
+        acc = acc + d[:, j]
+    knots = torch.cat([yk, acc])
+    z = _mod_bspline_f32(*(knots[kidx + k] for k in range(4)), frac[:, None])
+    tb = t + _f32c(step * B, dev)
+    n_consumed = int(torch.floor(tb))
+    return keys[0], knots[n_consumed:n_consumed + 4], tb - float(n_consumed), torch.clamp(z, 0.0, 1.0)
+
+
+def _mod_bspline_f32(z0, z1, z2, z3, tc):
+    """The modulator's B-spline at phase tc in float32, each product and sum
+    rounded on its own, in dsp_tpu's order. dsp_tpu float32's XLA:CPU
+    contracts some of them into FMAs, and which ones changes with the
+    fusion around them (measured: a copy of _mod_noise_block jitted alone
+    rounds 37 of 4096 values otherwise than the effect's own step), so no
+    choice of FMAs reproduces it everywhere."""
+    dev = z0.device
+    sixth, two3, half = (_f32c(v, dev) for v in (1.0 / 6.0, 2.0 / 3.0, 0.5))
+    a = z0 + z2
+    c0 = sixth * a + two3 * z1 + half
+    c1 = half * (z2 - z0)
+    c2 = half * a - z1
+    c3 = half * (z1 - z2) + sixth * (z3 - z0)
+    return ((c3 * tc + c2) * tc + c1) * tc + c0
+
+
+def _f32c(v, device):
+    """A Python number as a float32 0-d tensor: jax's weak-typed constant
+    in a float32 expression."""
+    return torch.tensor(v, dtype=torch.float32, device=device)

@@ -54,8 +54,23 @@ def _chains(path, block):
     return port, JaxChain(jax_build(path, JaxStream(FS, 2)), block)
 
 
-@pytest.mark.parametrize("example,block,limit", CASES, ids=[f"{c[0]} -b {c[1]}" for c in CASES])
+def example_cases(*names):
+    """pytest.param of each case of CASES whose example is in names, with
+    its id."""
+    return [pytest.param(*c, id=f"{c[0]} -b {c[1]}") for c in CASES if c[0] in names]
+
+
+# the matrix4_mb examples run from test_torch_examples_mb*.py: one file runs
+# on one worker of the parallel runner, and each of them takes minutes
+@pytest.mark.parametrize("example,block,limit", example_cases(
+    "eq_demo", "crossover_lr4_2kHz", "matrix4_2_2", "matrix4_2_4"))
 def test_example_matches_dsp_tpu(example, block, limit):
+    check_example(example, block, limit)
+
+
+def check_example(example, block, limit):
+    """One example of CASES through both packages, held as the module's
+    notes say."""
     from pathlib import Path
 
     from dsp_tpu_torch.chain.chain import expected_out_frames

@@ -357,25 +357,39 @@ def test_cli_float32_writes_the_library_output_j3(name, tmp_path, monkeypatch):
     ("eq 1k 1.0 +3 dither", "dither", "J4"),
     ("delay -m 0.5m 10m", "delay", "J4"),
 ])
-def test_float32_chain_refuses_unported_effect(spec, name, slice_, tmp_path, monkeypatch, capsys):
-    """A float32 chain holding an effect whose float32 path is not ported
-    is refused at build, naming the effect and its slice, in the library
-    and in dsp-torch; in float64 the same chain builds."""
-    from dsp_tpu_torch.chain import ChainError
+def test_float32_chain_refuses_unported_effect(spec, name, slice_, tmp_path, monkeypatch):
+    """The chains once refused in float32 until slice J4 build there now,
+    with every float state leaf float32 (keys and counters keep their
+    integer dtypes), and run through dsp-torch with DSP_TPU_TORCH_DTYPE=f32:
+    the CLI's file equals CompiledChain(dtype=float32)'s output sample for
+    sample (numpy's global generator seeded alike before each build). The
+    CLI's output writer draws its dither seeds from that generator before
+    the noise effect draws its key, so the CLI's noise is another draw of
+    the same level: that file is held within twice the noise's peak."""
     from dsp_tpu_torch.cli.main import main
+    from dsp_tpu_torch.convert import flatten_states
 
-    spec = spec.format(h=_fir_file(tmp_path))
-    with pytest.raises(ChainError, match=rf"^{name}: not yet ported to float32 .*slice {slice_}"):
-        _port(spec, 2048)
-    assert _port(spec, 2048, torch.float64).dtype == torch.float64
-    src = tmp_path / "in.wav"
-    write_wav(src, stereo_signal(0.1))
+    cc = _port(spec, 2048)
+    assert any(e.name == name for e in cc._runtime_effects)
+    leaves = flatten_states(cc.states)[0]
+    assert {t.dtype for t in leaves if t.dtype.is_floating_point} <= {torch.float32}
+    assert torch.uint32 in {t.dtype for t in leaves}  # the effect's threefry key
+    x = 0.5 * stereo_signal(0.1)  # below full scale, so the CLI's writer clips nothing
+    src, out = tmp_path / "in.wav", tmp_path / "out.wav"
+    write_wav(src, x)
     monkeypatch.setenv("DSP_TPU_TORCH_DEVICE", "cpu")
     monkeypatch.setenv("DSP_TPU_TORCH_DTYPE", "f32")
-    out = tmp_path / "out.wav"
-    assert main(["-q", str(src), "-o", "-e", "double", str(out), *spec.split()]) == 1
-    assert f"{name}: not yet ported to float32" in capsys.readouterr().err
-    assert not out.exists()
+    np.random.seed(7)
+    assert main(["-q", "-D", str(src), "-o", "-e", "double", str(out), *spec.split()]) == 0
+    np.random.seed(7)
+    want = _port(spec, 2048).process_array(x)
+    got = read_wav(out)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    if name == "noise":
+        assert worst_dbfs(got, want) <= -90.0 + 20 * np.log10(2.0) + 1e-9
+    else:
+        np.testing.assert_array_equal(got, want)
+    assert slice_ == "J4"
 
 
 UPMIX_EXAMPLES = sorted(p.name for p in (Path(__file__).resolve().parents[1] / "examples").iterdir()
@@ -433,6 +447,36 @@ def test_kernel_wrappers_refuse_the_other_dtype():
         lambda: fft_conv.rfft_pack_f32(f64, 512),
         lambda: resample_ops.irfft_ola_f32(torch.zeros((257, 2), dtype=torch.complex128), 512,
                                            torch.zeros((256, 2), dtype=torch.float64), 1.0),
+    ]
+    # slice J4's float32 entries, and their float64 ones given a float32 leaf
+    from dsp_tpu_torch.ops import time_domain as td
+
+    key, sel = torch.zeros(2, dtype=torch.uint32), torch.ones(2, dtype=torch.bool)
+    v64, v32 = torch.zeros(2, dtype=torch.float64), torch.zeros(2)
+    e64, e32 = torch.zeros((9, 2), dtype=torch.float64), torch.zeros((9, 2))
+    fir64, fir32 = torch.zeros(9, dtype=torch.float64), torch.zeros(9)
+
+    def stats_state(dt):
+        s = {k: torch.zeros(2, dtype=dt) for k in ("sum", "sum_sq", "min", "max", "peak")}
+        s.update(peak_count=torch.zeros(2, dtype=torch.int64),
+                 peak_frame=torch.zeros(2, dtype=torch.int64),
+                 samples=torch.zeros((), dtype=torch.int64),
+                 limit=torch.tensor(1 << 62))
+        return s
+
+    yk64, yk32 = torch.zeros((4, 2), dtype=torch.float64), torch.zeros((4, 2))
+    t64, t32 = torch.zeros((), dtype=torch.float64), torch.zeros(())
+    buf64, buf32 = torch.zeros((80, 2), dtype=torch.float64), torch.zeros((80, 2))
+    calls += [
+        lambda: td.tpdf_noise_f32(key, f64, 1e-3),
+        lambda: td.tpdf_dither_f32(key, f64, e32, v32, v32, v32, v32, sel, fir32, td.DITHER_FLAT),
+        lambda: td.tpdf_dither(key, f64, e32, v64, v64, v64, v64, sel, fir64, td.DITHER_FLAT),
+        lambda: td.levels_step_f32(v32, v32, v32, f64, 0.01),
+        lambda: td.levels_step(v32, v64, v64, f64, 0.01),
+        lambda: td.stats_step_f32(stats_state(torch.float32), f64),
+        lambda: td.stats_step(stats_state(torch.float32), f64),
+        lambda: td.mod_delay_f32(key, yk32, t32, buf32, f64, sel, None, 30.0, 1e-3, 3, 0),
+        lambda: td.mod_delay(key, yk64, t32, buf64, f64, sel, None, 30.0, 1e-3, 3, 0),
     ]
     for call in calls:
         with pytest.raises(TypeError, match="the kernel takes"):

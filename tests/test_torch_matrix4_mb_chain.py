@@ -36,8 +36,22 @@ def _ev(cc):
     return next(st for st in cc.states if isinstance(st, dict) and "ev_thresh" in st)["ev"]
 
 
-@pytest.mark.parametrize("spec,block,limit,settled", CHAINS, ids=[f"{c[0]} -b {c[1]}" for c in CHAINS])
+def chain_cases(*indices):
+    """pytest.param of CHAINS[i] for each index, with its id."""
+    return [pytest.param(*CHAINS[i], id=f"{CHAINS[i][0]} -b {CHAINS[i][1]}") for i in indices]
+
+
+# the other two cases run from test_torch_matrix4_mb_chain_1056.py and
+# test_torch_matrix4_mb_chain_direct.py: one file runs on one worker of the
+# parallel runner, and each case takes minutes
+@pytest.mark.parametrize("spec,block,limit,settled", chain_cases(0, 2))
 def test_chain_matches_dsp_tpu(spec, block, limit, settled):
+    check_chain(spec, block, limit, settled)
+
+
+def check_chain(spec, block, limit, settled):
+    """One free run of CHAINS through both packages, held as the module's
+    notes say."""
     from dsp_tpu_torch.chain.chain import expected_out_frames
 
     x = transient_signal(1.0, seed=12)[:-123]

@@ -1,11 +1,11 @@
 """Slice F of dsp_tpu_torch against dsp_tpu, on the CPU in float64: the
-`matrix4_mb` chain's state, hooks and display, its CLI runs and the bench
-golden's control replayed. Each limit is pinned ~30 dB above its
+`matrix4_mb` chain's state, hooks and display (its CLI runs:
+test_torch_matrix4_mb_cli.py; the bench golden's control replayed:
+test_torch_matrix4_mb_golden.py, files of their own so that the parallel
+runner can place them on other workers). Each limit is pinned ~30 dB above its
 measurement unless named; the stream's first tenths of a second carry the
 engine's chaotic start (test_torch_matrix4_mb_chain.py).
 """
-
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -14,9 +14,7 @@ import torch
 import dsp_tpu  # noqa: F401  (its config turns on jax's float64, as dsp_tpu runs)
 from test_torch_matrix4 import transient_signal
 from test_torch_matrix4_mb import _effects, _tensors
-from torch_parity import FS, jax_chain, port_chain, read_wav, worst_dbfs, write_wav
-
-REPO = Path(__file__).resolve().parents[1]
+from torch_parity import jax_chain, port_chain, worst_dbfs
 
 
 # --- state and display ---------------------------------------------------------------
@@ -127,68 +125,3 @@ def test_chain_hooks_equal_dsp_tpu():
                 assert np.array_equal(a.channel_deps(), b.channel_deps())
                 for u, v in zip(a.channel_offsets(), b.channel_offsets()):
                     assert np.array_equal(u, v)
-
-
-
-# --- the CLI and the bench golden ------------------------------------------------------
-
-# (chain words, output channels, limit): 0.5 s of transients through both
-# CLIs, -e double; measured -125.7 and -126.1 dBFS (the chaotic start)
-CLI_CASES = [
-    (["matrix4_mb", "-6"], 4, -95.0),
-    ([f"@{REPO / 'examples' / 'matrix4_mb_2_4'}"], 6, -96.0),
-]
-
-
-@pytest.mark.parametrize("words,channels,limit", CLI_CASES, ids=["matrix4_mb -6", "matrix4_mb_2_4"])
-def test_clis_write_the_same_upmix(words, channels, limit, tmp_path, monkeypatch):
-    """`DSP_TPU_TORCH_DEVICE=cpu dsp-torch in.wav -o -e double out.wav <chain>`
-    and dsp's CLI on the same file: the same frames and channels (the
-    6-channel example adds the surround's delays, decorrelators and remix)."""
-    from dsp_tpu.cli.main import main as dsp
-    from dsp_tpu_torch.cli.main import main as dsp_torch
-
-    monkeypatch.setenv("DSP_TPU_TORCH_DEVICE", "cpu")
-    src = tmp_path / "in.wav"
-    write_wav(src, transient_signal(0.5, seed=13)[:-77])
-    for name, main in (("torch", dsp_torch), ("jax", dsp)):
-        assert main(["-q", str(src), "-o", "-e", "double", str(tmp_path / f"{name}.wav"),
-                     *words]) == 0
-    y_t, y_j = read_wav(tmp_path / "torch.wav"), read_wav(tmp_path / "jax.wav")
-    assert y_t.shape == y_j.shape and y_t.shape[1] == channels and len(y_t) > int(0.5 * FS) - 77
-    assert worst_dbfs(y_t, y_j) <= limit
-
-
-def test_bench_golden_control_replay():
-    """bench_goldens/matrix4_mb.npz holds dsp_tpu f64's output of `matrix4_mb
-    -6` on the 4 s program signal and its control stream (the interpolator's
-    coefficient sets of every tick, fitted, stored as float32). The port's
-    FIR and control path run, the golden's sets replace the engines' in the
-    audio path, at block 32768, as bench.py replays them: over the first
-    two blocks within -120 dBFS of the golden (BASELINE's budget; the
-    float32 sets bound it: measured -137.1 here, -120.8 over the whole 4 s
-    on the card by chip_smoke.py)."""
-    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
-    from dsp_tpu_torch.core.types import StreamInfo
-    from dsp_tpu_torch.effects.fir import FirEffect
-    from dsp_tpu_torch.effects.matrix4_mb import Matrix4MbEffect
-    from test_torch_resample import program_signal
-
-    z = np.load(REPO / "bench_goldens" / "matrix4_mb.npz")
-    want = z["hi"].astype(np.float64) + z["lo"].astype(np.float64)
-    ics = torch.as_tensor(z["ics"].astype(np.float64))
-    B, n_blocks = 32768, 2
-    cc = CompiledChain(build_chain_from_string("matrix4_mb -6", StreamInfo(FS, 2)), B, device="cpu")
-    fir = next(e for e in cc.chain.effects if isinstance(e, FirEffect))
-    mb = next(e for e in cc.chain.effects if isinstance(e, Matrix4MbEffect))
-    fst, mst = cc._initial_state(fir), cc._initial_state(mb)
-    x = torch.as_tensor(program_signal()[: n_blocks * B])
-    ys = []
-    for i in range(n_blocks):
-        fst, xf = fir.step(fst, x[i * B:(i + 1) * B])
-        ctl = dict(mb._control(mst, xf), ics=ics[i * B // 32:(i + 1) * B // 32])
-        mst, y = mb._audio(mst, xf, ctl)
-        ys.append(y.numpy())
-    got = np.concatenate(ys)
-    print(f"golden replay: {worst_dbfs(got, want[: len(got)]):.1f} dBFS")
-    assert worst_dbfs(got, want[: len(got)]) <= -120.0
