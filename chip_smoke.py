@@ -8,8 +8,12 @@ nvcc and PyTorch built for CUDA. It
 
 1. prints the card's name and power limit (nvidia-smi) and builds the CUDA
    kernels from dsp_tpu_torch/csrc with nvcc;
-2. runs each kernel (K1 lti_blocked, K2 biquad_scan; K5-K7 rfft_pack,
-   fdl_mac, irfft_crop and splice; K14 mod_delay, K15 tpdf_dither, K16
+2. runs each kernel (K1 lti_blocked, K2 biquad_scan; K5-K7 rfft_pack with
+   the engines' kept rows (held to splice_ref exactly), fdl_mac, irfft_crop
+   and splice, the transforms at one size of each path of their plan: one
+   pass (4096, 1176, 3430), two (131072) and a global pass (2·8221), each
+   held to the number of kernels its plan launches; K14 mod_delay, K15
+   tpdf_dither, K16
    stats_step, K17 levels_step and K18-noise tpdf_noise; K8 resample_fold,
    K11 m4_env, K9 + K10 m4_event and K12 + K13 m4_audio) against its plain
    PyTorch version on the same inputs at the main path's shapes: the
@@ -28,7 +32,10 @@ nvcc and PyTorch built for CUDA. It
    within 1e-13 relative, the bank and the audio within -290 dBFS. Times
    each kernel, its plain version and, where one PyTorch call computes the
    same function, that call, with CUDA events, and computes each kernel's
-   roofline bound from its shapes. Then renders the 4 s program signal at
+   roofline bound from its shapes; the transforms, the splices and their
+   PyTorch calls also device-only (timed_row: torch.profiler's kernel time
+   a call, beside the kernels a call), since a back-to-back call this
+   short times the host's enqueue. Then renders the 4 s program signal at
    -b 65536 and holds it to bench_goldens/resample.npz and matrix4.npz
    (dsp_tpu f64) within -200 dBFS, and replays bench_goldens/matrix4_mb.npz's
    control stream through the card's audio path within -120 dBFS;
@@ -55,7 +62,8 @@ nvcc and PyTorch built for CUDA. It
    matrix4_mb's fshape and inverse widths), K2 in float32 biquad_scan_f32 on
    crossfeed's lanes, a (hi, lo) state handed from K1-df to K3 and back,
    and the float32 resampler step (rfft_pack_f32, the fold,
-   irfft_ola_f32) to 48 and 192 kHz against their plain versions (float32
+   irfft_ola_f32) to 48 and 192 kHz, with irfft_ola_f32 also on plans of
+   two passes, against their plain versions (float32
    outputs within one float32 ulp of their scale, (hi, lo) sums within
    1e-13 relative), timed as above; slice J3's float32 kernels the same
    way: K5-K7 in float32 (rfft_pack_f32 with its head, fdl_mac_f32 with a
@@ -99,8 +107,10 @@ nvcc and PyTorch built for CUDA. It
    both dtypes), each
    upmix (matrix4_mb and the mixed chain among them) and each float32 run
    (the upmixes and `fir` 64k at block 2048 among them) in both dtypes,
-   and profiles them (torch.profiler: kernels a block, device time a block
-   by kernel, the device's share);
+   and profiles them (torch.profiler: kernels a block, beside the count
+   before the one-launch transforms, which no chain may exceed, and at most
+   3 for the Upols step of `fir` 64k and 4 for the float32 resampler;
+   device time a block by kernel, the device's share);
 5. prints the kernels' record as one JSON line, then as the last line
    {"ok": true, "device": {...}}.
 
@@ -236,6 +246,56 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps=20, tries=3):
+    """(device milliseconds a call, kernels a call) of fn(): the time of the
+    card's kernels as torch.profiler records them over `reps` calls after a
+    warm-up, summed and divided by reps. A profile can come back with no
+    event or miss a few, so it is taken up to `tries` times
+    and the one that saw the most kernels counts; if none saw any, the time
+    is a CUDA graph's replay of the same calls between CUDA events (no host
+    enqueue in it) and the kernels a call are None."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    best = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if len(times) > len(best):
+            best = times
+        if best and len(best) % reps == 0:
+            break
+    if best:
+        return sum(best) / 1e3 / reps, len(best) / reps
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(reps):
+                fn()
+    torch.cuda.synchronize()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    print("  (torch.profiler saw no kernel: a CUDA graph's replay timed instead)")
+    return start.elapsed_time(stop) / reps, None
 
 
 def card_info():
@@ -398,17 +458,26 @@ def fdl_mac_phase(rec):
             set_times(rec, ms, plain_ms, 16 * NB * CHANNELS * (3 * K + 2), 8 * K * NB * CHANNELS)
 
 
-# One FFT-convolution step of each engine on the main path:
-# (label, C, N, La, Lx, lo, L, with_add). rfft_pack transforms [a | x | 0]
-# (a: La rows, x: Lx rows) at N; irfft_crop keeps rows [lo, lo + L) of the
-# inverse, plus the Nupols tail's rows when with_add.
+# One FFT-convolution step of each engine on the main path, and one size
+# of each other path of the transform's plan (ops/fft_conv.fft_plan):
+# (label, C, N, La, Lx, lo, L, with_add, keep). rfft_pack transforms
+# [a | x | 0] (a: La rows, x: Lx rows) at N and stores the last `keep` rows
+# of [a | x] beside it (None: none; the engines' carried input); irfft_crop
+# keeps rows [lo, lo + L) of the inverse, plus the Nupols tail's rows when
+# with_add.
 STEP_SHAPES = (
-    ("OLS: fir 64k at B=65536", 2, 131072, 65535, 65536, 65535, 65536, False),
-    ("Upols: fir 64k at B=2048", 2, 4096, 2048, 2048, 2048, 2048, False),
-    ("the Nupols head: fir_p 1M at B=2048", 2, 4096, 2048, 2048, 2048, 2048, True),
+    ("OLS: fir 64k at B=65536", 2, 131072, 65535, 65536, 65535, 65536, False, 65535),
+    ("Upols: fir 64k at B=2048", 2, 4096, 2048, 2048, 2048, 2048, False, 2048),
+    ("the Nupols head: fir_p 1M at B=2048", 2, 4096, 2048, 2048, 2048, 2048, True, 2048),
     ("the Nupols tail, and Upols: fir_p 1M at B=65536", 2, 131072, 65536, 65536, 65536,
-     65536, False),
-    ("the reverse IIR of the crossover at B=2048", 4, 4096, 2048, 2048, 2048, 2048, False),
+     65536, False, 65536),
+    ("the reverse IIR of the crossover at B=2048", 4, 4096, 2048, 2048, 2048, 2048, False, 2048),
+    ("one pass, not a power of two: the resampler's 44.1 kHz inner blocks", 8, 1176, 0, 588,
+     0, 1176, False, None),
+    ("one pass, 2·5·7^3: matrix4_mb's FIR by OLS at B=2048", 2, 3430, 1305, 2048, 1305, 2048,
+     False, 1305),
+    ("a prime radix above a block (a global pass): N = 2·8221", 2, 16442, 4000, 4000, 100,
+     8000, True, 3000),
 )
 # The carried inputs: (label, C, La, Lx, L, lo, shift); see fft_conv.splice.
 SPLICE_SHAPES = (
@@ -418,10 +487,57 @@ SPLICE_SHAPES = (
 )
 
 
+def timed_row(kern, plain, lib, reps=50):
+    """A kernel, its plain version and its library call (or None) timed in
+    turns two ways: per call (cuda_ms: back to back, so for a short call
+    the host's enqueue) and device-only (device_ms: the kernels' own time).
+    Returns the row's dict, with the kernels a call of each."""
+    ms, plain_ms = cuda_ms(kern, reps), cuda_ms(plain, reps)
+    lib_ms = None if lib is None else cuda_ms(lib, reps)
+    dev, calls = device_ms(kern)
+    lib_dev, lib_calls = (None, None) if lib is None else device_ms(lib)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "device_ms": dev,
+            "kernels_a_call": calls, "library_device_ms": lib_dev,
+            "library_kernels_a_call": lib_calls}
+
+
+def fft_kernels(fn):
+    """The kernels one call of fn launches through csrc/fft_conv.cu's
+    transforms, by the library's own count (torch.profiler can miss a
+    launch's events, or record none)."""
+    from dsp_tpu_torch import kernels
+
+    before = kernels.fft_launches()
+    fn()
+    return kernels.fft_launches() - before
+
+
+def require_kernels(what, got, want):
+    if got != want:
+        raise SmokeError(f"{what}: {got} kernels launched a call, expected {want}")
+
+
+def row_text(row):
+    lib = ("" if row["library_ms"] is None else
+           f"; library {row['library_ms']:.4f} ms a call, {row['library_device_ms']:.4f} ms "
+           f"device-only ({row['library_kernels_a_call']} kernels)")
+    return (f"kernel {row['ms']:.4f} ms a call, {row['device_ms']:.4f} ms device-only "
+            f"({row['kernels_a_call']} kernels a call), plain {row['plain_ms']:.4f} ms{lib}")
+
+
+def set_row(rec, row, nbytes, flops, peak=F64_PEAK):
+    set_times(rec, row["ms"], row["plain_ms"], nbytes, flops, row["library_ms"], peak)
+    rec["device_ms"], rec["library_device_ms"] = row["device_ms"], row["library_device_ms"]
+
+
 def step_kernels_phase(records):
-    """rfft_pack, irfft_crop and splice against their plain versions on the
-    card at the main path's shapes, seeded audio-scale inputs; held to
-    LIMIT_DBFS (splice exactly). Times both with CUDA events."""
+    """rfft_pack (with the engines' kept rows), irfft_crop and splice
+    against their plain versions on the card at the main path's shapes and
+    one shape of each other path of the plan, seeded audio-scale inputs;
+    held to LIMIT_DBFS (the kept rows and splice exactly). A transform must
+    run as its plan's passes: one kernel a call up to N = 8192, two at the
+    four-step sizes (fft_kernels: the library's own count). Times each row
+    both ways (timed_row)."""
     import numpy as np
     import torch
 
@@ -433,12 +549,25 @@ def step_kernels_phase(records):
     def normal(*shape):
         return torch.as_tensor(rng.standard_normal(shape) * 0.3, device=dev)
 
-    print("K5-K7 rfft_pack and irfft_crop (float64, hand-written Stockham FFT)")
+    print("K5-K7 rfft_pack and irfft_crop (float64, Stockham passes in shared memory)")
     for name in ("rfft_pack", "irfft_crop", "splice"):
         records[name]["times"] = []
-    for what, C, N, La, Lx, lo, L, with_add in STEP_SHAPES:
+    for what, C, N, La, Lx, lo, L, with_add, keep in STEP_SHAPES:
+        plan = fc.fft_plan(N, C)
+        print(f"  N={N} C={C}: {plan.path}, radices "
+              f"{' | '.join(','.join(map(str, p.radices)) for p in plan.passes)}, "
+              f"{plan.smem_bytes} bytes of shared memory a block")
         a, x = normal(La, C), normal(Lx, C)
-        X_k, X_r = fc.rfft_pack(a, x, N), fc.rfft_pack_ref(a, x, N).contiguous()
+        if keep is None:
+            X_k = fc.rfft_pack(a, x, N)
+        else:
+            X_k, kept = fc.rfft_pack(a, x, N, keep=keep)
+            want = fc.splice_ref(a, x, keep, keep - Lx, La + Lx - keep)
+            torch.cuda.synchronize()
+            if not torch.equal(kept, want):
+                raise SmokeError(f"rfft_pack N={N} ({what}): the kept rows differ from splice_ref")
+            print(f"  rfft_pack N={N}: the last {keep} rows of [a | x] kept, equal")
+        X_r = fc.rfft_pack_ref(a, x, N).contiguous()
         add = normal(L, C) if with_add else None
         y_k, y_r = fc.irfft_crop(X_r, N, lo, L, add), fc.irfft_crop_ref(X_r, N, lo, L, add)
         torch.cuda.synchronize()
@@ -451,7 +580,7 @@ def step_kernels_phase(records):
         timed = {
             # (kernel, plain version, the one torch call: rfft of the
             # packed [a | x | 0]; irfft then the slice)
-            "rfft_pack": (lambda: fc.rfft_pack(a, x, N), lambda: fc.rfft_pack_ref(a, x, N),
+            "rfft_pack": (lambda: fc.rfft_pack(a, x, N, keep=keep), lambda: fc.rfft_pack_ref(a, x, N),
                           lambda: torch.fft.rfft(packed, n=N, dim=0)),
             "irfft_crop": (lambda: fc.irfft_crop(X_r, N, lo, L, add),
                            lambda: fc.irfft_crop_ref(X_r, N, lo, L, add),
@@ -459,17 +588,18 @@ def step_kernels_phase(records):
         }
         # a real FFT of N points is about 2.5·N·log2(N) operations a channel
         fft_flops = 2.5 * N * math.log2(N) * C
-        io = {"rfft_pack": 8 * (La + Lx) * C + 16 * (N // 2 + 1) * C,
+        io = {"rfft_pack": 8 * (La + Lx) * C + 16 * (N // 2 + 1) * C + 8 * (keep or 0) * C,
               "irfft_crop": 16 * (N // 2 + 1) * C + 8 * L * C * (2 if with_add else 1)}
         for name, (kern, plain, lib) in timed.items():
-            ms, plain_ms, lib_ms = cuda_ms(kern, 50), cuda_ms(plain, 50), cuda_ms(lib, 50)
-            print(f"  {name} N={N} C={C}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"torch.fft {lib_ms:.4f} ms")
-            records[name]["times"].append({"N": N, "C": C, "ms": ms, "plain_ms": plain_ms,
-                                           "library_ms": lib_ms})
+            row = timed_row(kern, plain, lib)
+            launched = fft_kernels(kern)
+            print(f"  {name} N={N} C={C}: {row_text(row)}; {launched} launched a call")
+            require_kernels(f"{name} N={N} (its plan's passes)", launched, len(plan.passes))
+            records[name]["times"].append({"N": N, "C": C, "keep": keep, "passes": len(plan.passes),
+                                           **row})
             if (N, C, with_add) == (4096, 2, False):
-                set_times(records[name], ms, plain_ms, io[name], fft_flops, lib_ms)
-    print("K5-K7 splice (float64)")
+                set_row(records[name], row, io[name], fft_flops)
+    print("K5-K7 splice (float64; 16-byte copies of at most three row ranges)")
     rec = records["splice"]
     for what, C, La, Lx, L, lo, shift in SPLICE_SHAPES:
         a, x = normal(La, C), normal(Lx, C)
@@ -477,17 +607,15 @@ def step_kernels_phase(records):
         torch.cuda.synchronize()
         if not torch.equal(o_k, o_r):
             raise SmokeError(f"splice ({what}): kernel and plain version differ")
-        ms = cuda_ms(lambda: fc.splice(a, x, L, lo, shift), 50)
-        plain_ms = cuda_ms(lambda: fc.splice_ref(a, x, L, lo, shift), 50)
         # the one torch call: torch.cat of the same slices
         lo_c, hi_c = min(max(lo, 0), L), min(max(lo + x.shape[0], 0), L)
         parts = (a[shift:shift + lo_c], x[lo_c - lo:hi_c - lo], a[hi_c + shift:L + shift])
-        lib_ms = cuda_ms(lambda: torch.cat(parts), 50)
-        print(f"  splice L={L} ({what}): equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"torch.cat {lib_ms:.4f} ms")
-        rec["times"].append({"L": L, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms})
+        row = timed_row(lambda: fc.splice(a, x, L, lo, shift),
+                        lambda: fc.splice_ref(a, x, L, lo, shift), lambda: torch.cat(parts))
+        print(f"  splice L={L} ({what}): equal; {row_text(row)}")
+        rec["times"].append({"L": L, **row})
         if L == 2048:
-            set_times(rec, ms, plain_ms, 2 * 8 * L * C, 0, lib_ms)
+            set_row(rec, row, 2 * 8 * L * C, 0)
 
 
 def _to_cpu(tree):
@@ -726,10 +854,12 @@ def resample_phase(rec):
         ms = cuda_ms(lambda: resample_fold(X, rs.fold), 50)
         plain_ms = cuda_ms(lambda: resample_fold_ref(X, rs.fold), 10)
         step_ms = cuda_ms(lambda: rs.block(ov, x), 20)
+        step_dev, step_kernels = device_ms(lambda: rs.block(ov, x))
         T = len(rs.tab_l)
         print(f"  {FS} -> {out_fs}: {T} entries into {rs.out_len + 1} bins, fold "
               f"{'equal' if err == 0 else f'within {err:.3e}'}, step {dbfs(step_err):.1f} dBFS; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, whole step {step_ms:.4f} ms")
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, whole step {step_ms:.4f} ms a "
+              f"call, {step_dev:.4f} ms device-only, {step_kernels} kernels")
         rec.setdefault("times", []).append({"out_fs": out_fs, "ms": ms, "plain_ms": plain_ms,
                                             "step_ms": step_ms})
         if out_fs == 48000:
@@ -1462,6 +1592,30 @@ def delivery_no_sync():
               f"{int(cc.states[-1]['samples'])}")
 
 
+# kernels a block of the profiled chains before the FFT-convolution
+# transforms ran in one launch and the engines' carried input moved into
+# rfft_pack (PERF.md section 5: the profiles of the float32 slices, on
+# NVIDIA H100 80GB HBM3 at 700 W); a chain may not launch more now
+OLD_KERNELS_A_BLOCK = {
+    "delivery": 8, "modulated": 10, "matrix4": 10, "matrix4_mb": 36,
+    "delivery float32": 8, "modulated float32": 10,
+    "flagship -b 2048 float64": 33, "flagship -b 2048 float32": 33,
+    "flagship -b 1000 float64": 54, "flagship -b 1000 float32": 36,
+    "resample 48k -b 2048 float64": 15, "resample 48k -b 2048 float32": 10,
+    "matrix4 -6 -b 2048 float64": 10, "matrix4 -6 -b 2048 float32": 10,
+    "matrix4_mb -6 -b 2048 float64": 36, "matrix4_mb -6 -b 2048 float32": 36,
+    "fir 64k -b 2048 float64": 10, "fir 64k -b 2048 float32": 10,
+}
+# what the one-launch transforms must bring them to: the Upols step is
+# rfft_pack, fdl_mac and irfft_crop; the float32 resampler step
+# rfft_pack_f32 (reading the inner blocks in place), the fold and
+# irfft_ola_f32
+MOST_KERNELS_A_BLOCK = {
+    "fir 64k -b 2048 float64": 3, "fir 64k -b 2048 float32": 3,
+    "resample 48k -b 2048 float32": 4,
+}
+
+
 def profile_chains(f4k, f64k):
     """Where a block's time goes in slice C's chains (in both dtypes), slices D and E's
     upmixes, slice F's (matrix4_mb and the mixed chain with the 4,096-tap
@@ -1514,21 +1668,35 @@ def profile_chains(f4k, f64k):
         cc.run_blocks(xs)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / n
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            cc.run_blocks(xs)
-            torch.cuda.synchronize()
-        by_name, kernels = {}, 0
-        for e in prof.events():  # the kernels the card ran, by name
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
-                kernels += 1
+        by_name, kernels, tries = {}, 0, 3
+        for _ in range(tries):  # a profile can come back empty: take it again
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                cc.run_blocks(xs)
+                torch.cuda.synchronize()
+            for e in prof.events():  # the kernels the card ran, by name
+                if e.device_type == DeviceType.CUDA:
+                    by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+                    kernels += 1
+            if kernels:
+                break
+        limits = [v for v in (OLD_KERNELS_A_BLOCK.get(label), MOST_KERNELS_A_BLOCK.get(label))
+                  if v is not None]
+        if not kernels and limits:
+            raise SmokeError(f"profile {label}: torch.profiler recorded no kernel in {tries} "
+                             f"tries, so its limit of {min(limits)} kernels a block is unchecked")
         dev_ms = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        old = OLD_KERNELS_A_BLOCK.get(label)
         print(f"profile {label} (B={B}, {n} blocks): step {step_ms:.4f} ms a block unprofiled "
-              f"({B / FS * 1e3 / step_ms:.1f}x realtime), {kernels / n:.1f} kernels a block, "
+              f"({B / FS * 1e3 / step_ms:.1f}x realtime), {kernels / n:.1f} kernels a block "
+              f"(before the one-launch transforms: {'not profiled' if old is None else old}), "
               f"device {dev_ms:.4f} ms a block ({100 * dev_ms / step_ms:.1f}% of the step)")
         for name, ms in top:
             print(f"  {ms:.4f} ms ({100 * ms / dev_ms:.1f}%)  {name[:90]}")
+        # (a profile can miss or add an event of 256 blocks: the count rounds)
+        if limits and round(kernels / n) > min(limits):
+            raise SmokeError(f"profile {label}: {kernels / n:.2f} kernels a block, "
+                             f"at most {min(limits)}")
 
 
 F32_STATE_REL = 1e-13  # a (hi, lo) state's hi + lo, kernel against plain version
@@ -1832,7 +2000,7 @@ def float32_fft_phase(records):
     N, C, K, L = 4096, CHANNELS, 32, 2048
     NB = N // 2 + 1
     a, x, add = f32(L, C), f32(L, C), f32(L, C)
-    X_k, X_r = fc.rfft_pack_f32(x, N, a), fc.rfft_pack_f32_ref(x, N, a).contiguous()
+    (X_k, kept), X_r = fc.rfft_pack_f32(x, N, a, keep=L), fc.rfft_pack_f32_ref(x, N, a).contiguous()
     H = torch.as_tensor(rng.standard_normal((K, NB, C)) + 1j * rng.standard_normal((K, NB, C)),
                         device=dev)
     fdl = f32(K, NB, C, 2, scale=10.0)
@@ -1850,6 +2018,8 @@ def float32_fft_phase(records):
     _require("fdl_mac_f32: the shifted FDL differs from the plain version", torch_equal(F_k, F_r))
     _hold_f32(records["irfft_crop_f32"], "irfft_crop_f32 with the addend", y_k, y_r)
     _require("splice_f32: kernel and plain version differ", torch_equal(s_k, s_r))
+    _require("rfft_pack_f32: the kept rows differ from splice_ref",
+             torch_equal(kept, fc.splice_ref(a, x, L, 0, L)))
     packed = torch.cat([a, x])
     Y64 = Y_r.to(torch.complex64)
     fft_flops = 2.5 * N * math.log2(N) * C
@@ -1857,7 +2027,8 @@ def float32_fft_phase(records):
         # (kernel, plain version, the one torch call (float32, complex64),
         # bytes, operations): a real FFT is ~2.5·N·log2(N) operations a
         # channel; the MAC 8 a partition, bin and channel
-        "rfft_pack_f32": (lambda: fc.rfft_pack_f32(x, N, a), lambda: fc.rfft_pack_f32_ref(x, N, a),
+        "rfft_pack_f32": (lambda: fc.rfft_pack_f32(x, N, a, keep=L),
+                          lambda: fc.rfft_pack_f32_ref(x, N, a),
                           lambda: torch.fft.rfft(packed, n=N, dim=0),
                           4 * 2 * L * C + 16 * NB * C, fft_flops),
         "fdl_mac_f32": (lambda: fc.fdl_mac_f32(X_r, H, fdl),
@@ -1871,17 +2042,13 @@ def float32_fft_phase(records):
                        lambda: torch.cat([a[L:], x]), 2 * 4 * L * C, 0),
     }
     for name, (kern, plain, lib, nbytes, flops) in timed.items():
-        ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 50)
-        lib_ms = None if lib is None else cuda_ms(lib, 50)
+        row = timed_row(kern, plain, lib)
         rec = records[name]
         if name == "rfft_pack_f32":  # its record is timed on the resampler's shape
-            rec.setdefault("times", []).append({"N": N, "C": C, "ms": ms, "plain_ms": plain_ms,
-                                                "library_ms": lib_ms})
+            rec.setdefault("times", []).append({"N": N, "C": C, "keep": L, **row})
         else:
-            set_times(rec, ms, plain_ms, nbytes, flops, library_ms=lib_ms)
-        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-              + ("" if lib_ms is None else f", torch (float32) {lib_ms:.4f} ms")
-              + f", bound {bound(nbytes, flops)[0]:.6f} ms")
+            set_row(rec, row, nbytes, flops)
+        print(f"  {name}: {row_text(row)}, bound {bound(nbytes, flops)[0]:.6f} ms")
 
     print("K5-K7 in float32: the engines' steps on the card against their plain versions")
     for label, kind, taps, B, m in F32_FFT_ENGINES:
@@ -2228,7 +2395,8 @@ def float32_phase(records, tmp, kept):
     lanes) at B = 1000 and 100; K2 in float32 (biquad_scan_f32) on
     crossfeed's 4 lanes at B = 1000 and 2048; a (hi, lo) state handed from
     K1-df to K3 and back; the float32 resampler step (rfft_pack_f32,
-    resample_fold, irfft_ola_f32) from 44.1 to 48 and 192 kHz. float32
+    resample_fold, irfft_ola_f32) from 44.1 to 48 and 192 kHz, and
+    irfft_ola_f32 on plans of two passes (N = 11760, 2·8221). float32
     outputs within one float32 ulp of the output scale, (hi, lo) sums
     within F32_STATE_REL. Times each kernel and its plain version. Then
     slice J3's: K5-K7 in float32 (float32_fft_phase), the upmixes' K9-K13 in
@@ -2242,7 +2410,7 @@ def float32_phase(records, tmp, kept):
     from dsp_tpu_torch.chain import build_chain_from_string
     from dsp_tpu_torch.core.types import StreamInfo
     from dsp_tpu_torch.ops import iir
-    from dsp_tpu_torch.ops.fft_conv import rfft_pack_f32, rfft_pack_f32_ref
+    from dsp_tpu_torch.ops.fft_conv import fft_plan, rfft_pack_f32, rfft_pack_f32_ref
     from dsp_tpu_torch.ops.resample_ops import (SpectralResampler, irfft_ola_f32,
                                                 irfft_ola_f32_ref, resample_fold_ref)
 
@@ -2373,7 +2541,7 @@ def float32_phase(records, tmp, kept):
         ov_r, y_r = rs.block(ov.cpu(), x.cpu())
         cols = x.reshape(n, rs.in_len, CHANNELS).permute(1, 0, 2).reshape(rs.in_len, ncol)
         N_in, N_out = 2 * rs.in_len, 2 * rs.out_len
-        X_k = rfft_pack_f32(cols, N_in)
+        X_k = rfft_pack_f32(x, N_in, blocks=n)  # the inner blocks read in place
         X_r = rfft_pack_f32_ref(cols, N_in).contiguous()
         Y = resample_fold_ref(X_r, rs.fold).contiguous()
         ratio = rs.out_len / rs.in_len
@@ -2390,8 +2558,8 @@ def float32_phase(records, tmp, kept):
         _hold_f32(records["irfft_ola_f32"], f"{out_fs} whole step y", y_k, y_r)
         _hold_f32(records["irfft_ola_f32"], f"{out_fs} whole step overlap", ov_k, ov_r)
         times = {
-            "rfft_pack_f32": (lambda: rfft_pack_f32(cols, N_in),
-                              lambda: rfft_pack_f32_ref(cols, N_in),
+            "rfft_pack_f32": (lambda: rfft_pack_f32(x, N_in, blocks=n),
+                              lambda: rfft_pack_f32_ref(x, N_in, blocks=n),
                               # the one torch call: cuFFT's rfft of the float32
                               # columns (complex64, so less exact)
                               lambda: torch.fft.rfft(cols, n=N_in, dim=0)),
@@ -2403,17 +2571,39 @@ def float32_phase(records, tmp, kept):
         io = {"rfft_pack_f32": (4 * rs.in_len * ncol + 16 * (rs.in_len + 1) * ncol, fft_in),
               "irfft_ola_f32": (16 * (rs.out_len + 1) * ncol + 4 * rs.out_len * (ncol + 2 * CHANNELS),
                                 fft_out + 3 * rs.out_len * ncol)}
+        step_dev, step_kernels = device_ms(lambda: rs.block(ov, x))
         for name, (kern, plain, lib) in times.items():
-            ms, plain_ms = cuda_ms(kern, 50), cuda_ms(plain, 20)
-            lib_ms = None if lib is None else cuda_ms(lib, 50)
-            print(f"  {out_fs} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-                  + ("" if lib_ms is None else f", torch.fft.rfft (float32) {lib_ms:.4f} ms")
-                  + f"; the whole float32 step {step_ms:.4f} ms")
+            row = timed_row(kern, plain, lib)
+            launched = fft_kernels(kern)
+            print(f"  {out_fs} {name}: {row_text(row)}; {launched} launched a call; the whole "
+                  f"float32 step {step_ms:.4f} ms a call, {step_dev:.4f} ms device-only, "
+                  f"{step_kernels} kernels")
+            require_kernels(f"{name} {out_fs}", launched, 1)
             records[name].setdefault("times", []).append(
-                {"out_fs": out_fs, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                 "step_ms": step_ms})
+                {"out_fs": out_fs, **row, "step_ms": step_ms, "step_device_ms": step_dev,
+                 "step_kernels": step_kernels})
             if out_fs == 48000:
-                set_times(records[name], ms, plain_ms, *io[name], library_ms=lib_ms)
+                set_row(records[name], row, *io[name])
+    # the inverse of a resampler whose N is above 8192 (7-smooth: the
+    # four-step split) or has a prime above 8192 (a global pass): a plan of
+    # two passes stores the scaled inverse, then ola_f32_kernel adds
+    print("irfft_ola_f32 on plans of two passes (4 inner blocks, stereo)")
+    for N in (11760, 2 * 8221):
+        ncol, ratio = 4 * CHANNELS, 0.9
+        ola_plan = fft_plan(N, ncol, ola=True)
+        Y = torch.fft.rfft(torch.as_tensor(rng.standard_normal((N, ncol)) * 0.3, device=dev),
+                           dim=0).contiguous()
+        ov = f32(N // 2, CHANNELS, scale=0.1)
+        o_k, o_r = irfft_ola_f32(Y, N, ov, ratio), irfft_ola_f32_ref(Y, N, ov, ratio)
+        torch.cuda.synchronize()
+        radices = " | ".join(",".join(map(str, p.radices)) for p in ola_plan.passes)
+        what = f"N={N} ({ola_plan.path}: {radices})"
+        _hold_f32(records["irfft_ola_f32"], f"{what} y", o_k[1], o_r[1])
+        _hold_f32(records["irfft_ola_f32"], f"{what} overlap", o_k[0], o_r[0])
+        # the plan's passes, then the overlap-add
+        launched = fft_kernels(lambda: irfft_ola_f32(Y, N, ov, ratio))
+        print(f"  {what}: {launched} kernels launched a call")
+        require_kernels(f"irfft_ola_f32 {what}", launched, len(ola_plan.passes) + 1)
     float32_fft_phase(records)
     float32_m4_phase(records)
     float32_control_replay(tmp / "in.wav")
@@ -2473,7 +2663,9 @@ def float32_cli(records, tmp, kept):
                 "rfft_pack", "fdl_mac", "irfft_crop", "splice")},
             **{name: getattr(m4, name) for name in (
                 "m4_env", "m4_event", "m4_audio", "m4mb_env", "m4mb_event", "m4mb_audio")}}
-    fft = ("rfft_pack_f32", "fdl_mac_f32", "irfft_crop_f32", "splice_f32")
+    # the engines' carried input comes out of rfft_pack_f32; only the
+    # Nupols stage write (and matrix4_mb's lookahead line) splice
+    fft = ("rfft_pack_f32", "fdl_mac_f32", "irfft_crop_f32")
     f64k, f1m = ["fir", str(tmp / "f64k.wav")], ["fir_p", str(tmp / "f1m.wav")]
     # (label, words, block, the float32 kernels it must launch, the key of
     # main_path's float64 render or None)
@@ -2488,11 +2680,12 @@ def float32_cli(records, tmp, kept):
          ("lti_blocked_f32", "m4_env_f32", "m4_event_f32", "m4_audio_f32", "splice_f32"),
          (MATRIX4, 2048)),
         ("matrix4_mb -6 -b 2048", MATRIX4_MB.split(), 2048,
-         fft + ("biquad_scan_df", "lti_blocked_f32", "m4mb_env_f32", "m4mb_event_f32",
-                "m4mb_audio_f32"), (MATRIX4_MB, 2048)),
+         fft + ("splice_f32", "biquad_scan_df", "lti_blocked_f32", "m4mb_env_f32",
+                "m4mb_event_f32", "m4mb_audio_f32"), (MATRIX4_MB, 2048)),
         ("fir 64k -b 65536 (OLS)", f64k, 65536, fft, ("fir 64k", 65536)),
         ("fir 64k -b 2048 (Upols, K = 32)", f64k, 2048, fft, ("fir 64k", 2048)),
-        ("fir_p 1M -b 2048 (Nupols, m = 32)", f1m, 2048, fft, ("fir_p 1M", 2048)),
+        ("fir_p 1M -b 2048 (Nupols, m = 32)", f1m, 2048, fft + ("splice_f32",),
+         ("fir_p 1M", 2048)),
     ]
     print(f"float32 mode: dsp-torch on {SECONDS} s, float32 against float64 on the card")
     for label, words, block, expect, key in runs:
@@ -2730,12 +2923,14 @@ def main_path(records, seconds, tmp):
     f64k, f1m = tmp / "f64k.wav", tmp / "f1m.wav"
     write_filter(f64k, 1 << 16, seed=0xBE)
     write_filter(f1m, 1 << 20, seed=0xBF)
-    mac = {name: getattr(fft_conv, name)
-           for name in ("rfft_pack", "fdl_mac", "irfft_crop", "splice")}
+    # the OLS and Upols steps take their carried input from rfft_pack; the
+    # Nupols step splices its stage
+    mac = {name: getattr(fft_conv, name) for name in ("rfft_pack", "fdl_mac", "irfft_crop")}
     for label, words, block, wrappers, kept_as in (
         ("fir 64k -b 65536 (OLS)", ["fir", str(f64k)], 65536, mac, "fir 64k"),
         ("fir 64k -b 2048 (Upols, K = 32)", ["fir", str(f64k)], 2048, mac, "fir 64k"),
-        ("fir_p 1M -b 2048 (Nupols, m = 32)", ["fir_p", str(f1m)], 2048, mac, "fir_p 1M"),
+        ("fir_p 1M -b 2048 (Nupols, m = 32)", ["fir_p", str(f1m)], 2048,
+         {**mac, "splice": fft_conv.splice}, "fir_p 1M"),
         ("fir_p 1M -b 65536 (Upols, K = 16)", ["fir_p", str(f1m)], 65536, mac, None),
         ("crossover_lr4_2kHz_riir_linphase -b 2048", [f"@{CROSSOVER}"], 2048,
          {"lti_blocked": iir.lti_blocked, **mac}, None),

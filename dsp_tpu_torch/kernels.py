@@ -225,17 +225,19 @@ class _Library:
                     fn.restype = i
                 ll = ctypes.c_longlong
                 for fn in (lib.dsp_rfft_pack_c128, lib.dsp_rfft_pack_f32):
-                    fn.argtypes = [p, ll, p, ll, p, p, i, i, p]
+                    fn.argtypes = [p, p, p, ll, p, ll, i, p, ll, p, p, i, i, p]
                     fn.restype = i
                 for fn in (lib.dsp_irfft_crop_c128, lib.dsp_irfft_crop_f32):
-                    fn.argtypes = [p, p, p, ll, ll, p, i, i, p]
+                    fn.argtypes = [p, p, p, p, p, ll, ll, p, i, i, p]
                     fn.restype = i
                 for fn in (lib.dsp_splice_f64, lib.dsp_splice_f32):
                     fn.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
                     fn.restype = i
                 d = ctypes.c_double
-                lib.dsp_irfft_ola_f32.argtypes = [p] * 5 + [d, i, i, i, p]
+                lib.dsp_irfft_ola_f32.argtypes = [p] * 7 + [d, i, i, i, p]
                 lib.dsp_irfft_ola_f32.restype = i
+                lib.dsp_fft_launches.argtypes = []
+                lib.dsp_fft_launches.restype = ctypes.c_ulonglong
                 for fn in (lib.dsp_tpdf_noise_f64, lib.dsp_tpdf_noise_f32):
                     fn.argtypes = [p] * 5 + [d, i, i, p]
                     fn.restype = i
@@ -282,15 +284,18 @@ LIBRARY = _Library()
 
 def load():
     """Build (if needed) and load the kernel library; returns the ctypes handle."""
-    return LIBRARY.get()
+    return LIBRARY.lib or LIBRARY.get()
 
 
 def _ptr(t):
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+    """A tensor's device address for a c_void_p argument (None: NULL)."""
+    return None if t is None else t.data_ptr()
 
 
-def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def _stream(t):
+    """The handle of PyTorch's current stream on the CUDA device of tensor t,
+    taken raw, without the Stream object torch.cuda.current_stream builds."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _check(rc, name):
@@ -306,7 +311,7 @@ def launch_lti_blocked(x, y, state_in, state_out, h, V, P, AL, c0, v_scratch, s_
     B, C = x.shape
     n = AL.shape[-1]
     tail = (_ptr(h), _ptr(V), _ptr(P), _ptr(AL), _ptr(c0), _ptr(v_scratch), _ptr(s_scratch),
-            B, C, n, L, _stream(x.device))
+            B, C, n, L, _stream(x))
     if x.dtype == torch.float32:
         rc = load().dsp_lti_blocked_f32(_ptr(x), _ptr(y), _ptr(y_lo), _ptr(state_in),
                                         _ptr(state_out), *tail)
@@ -329,7 +334,7 @@ def launch_biquad_scan(A, Bv, c0, state_in, state_out, x, y):
     else:
         fn = load().dsp_biquad_scan_df
     rc = fn(_ptr(A), _ptr(Bv), _ptr(c0), _ptr(state_in), _ptr(state_out), _ptr(x), _ptr(y),
-            B, C, _stream(x.device))
+            B, C, _stream(x))
     _check(rc, "biquad_scan")
 
 
@@ -339,43 +344,51 @@ def launch_fdl_mac(X, H, fdl_in, Y, fdl_out, f32=False):
     fn = load().dsp_fdl_mac_f32 if f32 else load().dsp_fdl_mac_c128
     rc = fn(
         _ptr(X), _ptr(H), _ptr(fdl_in), _ptr(Y), _ptr(fdl_out), X.numel(), H.shape[0],
-        _stream(X.device),
+        _stream(X),
     )
     _check(rc, "fdl_mac")
 
 
-def launch_rfft_pack(a, x, X, work, N):
+def launch_rfft_pack(plan, tables, a, x, Lx, blocks, kept, X, work):
+    """plan: ops/fft_conv.FftPlan of X's N and columns; tables its
+    fft_tables on the card; x [blocks * Lx, C / blocks]; kept [keep, C] or
+    None."""
     fn = load().dsp_rfft_pack_f32 if x.dtype == torch.float32 else load().dsp_rfft_pack_c128
     rc = fn(
-        _ptr(a), a.shape[0], _ptr(x), x.shape[0], _ptr(X), _ptr(work), N, x.shape[1],
-        _stream(x.device),
+        plan.c_plan, tables.data_ptr(), a.data_ptr(), a.shape[0], x.data_ptr(), Lx, blocks,
+        _ptr(kept), 0 if kept is None else kept.shape[0], X.data_ptr(), _ptr(work), plan.N,
+        plan.C, _stream(x),
     )
     _check(rc, "rfft_pack")
 
 
-def launch_irfft_crop(Y, work, out, N, lo, add):
+def launch_irfft_crop(plan, tables, Y, work, out, lo, add):
     fn = load().dsp_irfft_crop_f32 if out.dtype == torch.float32 else load().dsp_irfft_crop_c128
     rc = fn(
-        _ptr(Y), _ptr(work), _ptr(out), lo, out.shape[0], _ptr(add), N, Y.shape[1],
-        _stream(Y.device),
+        plan.c_plan, tables.data_ptr(), Y.data_ptr(), _ptr(work), out.data_ptr(), lo, out.shape[0],
+        _ptr(add), plan.N, plan.C, _stream(Y),
     )
     _check(rc, "irfft_crop")
 
 
-def launch_irfft_ola_f32(Y, work, y, ov_out, ov_in, ratio, N):
+def launch_irfft_ola_f32(plan, tables, Y, work, y, ov_out, ov_in, ratio):
     rc = load().dsp_irfft_ola_f32(
-        _ptr(Y), _ptr(work), _ptr(y), _ptr(ov_out), _ptr(ov_in), ratio, N, Y.shape[1],
-        ov_in.shape[1], _stream(Y.device),
+        plan.c_plan, tables.data_ptr(), Y.data_ptr(), _ptr(work), y.data_ptr(), ov_out.data_ptr(),
+        ov_in.data_ptr(), ratio, plan.N, plan.C, ov_in.shape[1], _stream(Y),
     )
     _check(rc, "irfft_ola_f32")
 
 
-def launch_splice(a, x, out, lo, shift):
+def fft_launches():
+    """The kernels csrc/fft_conv.cu's transforms have launched in this
+    process, every pass counted (the library's own count)."""
+    return load().dsp_fft_launches()
+
+
+def launch_splice(a, x, out, L, lo, shift):
     fn = load().dsp_splice_f32 if x.dtype == torch.float32 else load().dsp_splice_f64
-    rc = fn(
-        _ptr(a), _ptr(x), _ptr(out), out.shape[0], x.shape[0], lo, shift, out.shape[1],
-        _stream(x.device),
-    )
+    rc = fn(a.data_ptr(), x.data_ptr(), out.data_ptr(), L, x.shape[0], lo, shift, x.shape[1],
+            _stream(x))
     _check(rc, "splice")
 
 
@@ -387,7 +400,7 @@ def _by_dtype(t, name):
 def launch_tpdf_noise(key, key_out, x, y, sel, mult):
     B, C = x.shape
     rc = _by_dtype(x, "dsp_tpdf_noise")(
-        _ptr(key), _ptr(key_out), _ptr(x), _ptr(y), _ptr(sel), mult, B, C, _stream(x.device),
+        _ptr(key), _ptr(key_out), _ptr(x), _ptr(y), _ptr(sel), mult, B, C, _stream(x),
     )
     _check(rc, "tpdf_noise")
 
@@ -398,7 +411,7 @@ def launch_tpdf_dither(key, key_out, x, y, ehist, ehist_out, nprev, nprev_out, n
     rc = _by_dtype(x, "dsp_tpdf_dither")(
         _ptr(key), _ptr(key_out), _ptr(x), _ptr(y), _ptr(ehist), _ptr(ehist_out), _ptr(nprev),
         _ptr(nprev_out), _ptr(n_mult), _ptr(q0), _ptr(q1), _ptr(enabled), _ptr(fir), mode, B, C,
-        _ptr(scratch), _stream(x.device),
+        _ptr(scratch), _stream(x),
     )
     _check(rc, "tpdf_dither")
 
@@ -407,7 +420,7 @@ def launch_levels(avg, peak, block_peak, avg_out, peak_out, bp_out, xs, g):
     B, n = xs.shape
     rc = _by_dtype(xs, "dsp_levels")(
         _ptr(avg), _ptr(peak), _ptr(block_peak), _ptr(avg_out), _ptr(peak_out), _ptr(bp_out),
-        _ptr(xs), g, B, n, _stream(xs.device),
+        _ptr(xs), g, B, n, _stream(xs),
     )
     _check(rc, "levels")
 
@@ -422,7 +435,7 @@ def launch_stats(state, new, keys, xs, insert_h):
 
     rc = _by_dtype(xs, "dsp_stats")(
         ctypes.byref(ptrs(state)), ctypes.byref(ptrs(new)), _ptr(state["limit"]), _ptr(xs),
-        _ptr(insert_h), B, n, _stream(xs.device),
+        _ptr(insert_h), B, n, _stream(xs),
     )
     _check(rc, "stats")
 
@@ -430,7 +443,7 @@ def launch_stats(state, new, keys, xs, insert_h):
 def launch_resample_fold(X, Y, ptr, j, flags, s):
     rc = load().dsp_resample_fold_c128(
         _ptr(X), _ptr(Y), _ptr(ptr), _ptr(j), _ptr(flags), _ptr(s), Y.shape[0], Y.shape[1],
-        _stream(X.device),
+        _stream(X),
     )
     _check(rc, "resample_fold")
 
@@ -441,7 +454,7 @@ def launch_mod_delay(key, key_out, yk, yk_out, t, t_out, knots, buf, x, y, sel, 
     rc = _by_dtype(x, "dsp_mod_delay")(
         _ptr(key), _ptr(key_out), _ptr(yk), _ptr(yk_out), _ptr(t), _ptr(t_out), _ptr(knots),
         _ptr(buf), _ptr(x), _ptr(y), _ptr(sel), _ptr(table), buf.shape[0], B, C, yk.shape[1],
-        n_new, n_phases, n_taps, depth, step, step_b, _stream(x.device),
+        n_new, n_phases, n_taps, depth, step, step_b, _stream(x),
     )
     _check(rc, "mod_delay")
 
@@ -452,7 +465,7 @@ def launch_m4_env(ybp, env_m, env_out, env_ds, g, w=None, lo=None):
     env_out_lo)."""
     B = ybp.shape[0]
     S = 1 if ybp.dim() == 2 else ybp.shape[1]
-    tail = (_ptr(env_ds), g, B, S, B // env_ds.shape[0], _stream(ybp.device))
+    tail = (_ptr(env_ds), g, B, S, B // env_ds.shape[0], _stream(ybp))
     if lo is None:
         rc = load().dsp_m4_env_f64(_ptr(ybp), _ptr(w), _ptr(env_m), _ptr(env_out), *tail)
     else:
@@ -484,7 +497,7 @@ def launch_m4_event(ctl, ev, ev_out, bg, bg_out, env_ds, eo, vt, iy_in, ics, iy_
     evp, k10 = ctl.c_structs()
     tail = (_ptr(env_ds), _ptr(eo), _ptr(vt), _ptr(iy_in), _ptr(ics), _ptr(iy_out), _ptr(aux),
             ctypes.byref(evp), ctypes.byref(k10), S, Nc, fade_p, int(disable),
-            _stream(env_ds.device))
+            _stream(env_ds))
     if lo is None:
         rc = load().dsp_m4_event_f64(ctypes.byref(_ev_ptrs(ev)), ctypes.byref(_ev_ptrs(ev_out)),
                                      _ptr(bg), _ptr(bg_out), *tail)
@@ -502,7 +515,7 @@ def launch_m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m, y, shelf_ou
     rc = fn(
         _ptr(x), _ptr(buf), _ptr(interp_c), _ptr(ics), _ptr(shelf_m), _ptr(lp_m), _ptr(pf_m),
         _ptr(y), _ptr(shelf_out), _ptr(lp_out), _ptr(pf_out), _ptr(scratch),
-        ctypes.byref(cfg.c_struct()), x.shape[0], _stream(x.device),
+        ctypes.byref(cfg.c_struct()), x.shape[0], _stream(x),
     )
     _check(rc, "m4_audio")
 
@@ -514,7 +527,7 @@ def launch_m4mb_event(ctl, ev, ev_out, evt, evt_out, env_ds, eo, vt, iy_in, ics,
     evp, mb = ctl.c_structs()
     tail = (_ptr(env_ds), _ptr(eo), _ptr(vt), _ptr(iy_in), _ptr(ics), _ptr(iy_out), _ptr(aux),
             ctypes.byref(evp), ctypes.byref(mb), env_ds.shape[0], fade_p, int(disable),
-            _stream(env_ds.device))
+            _stream(env_ds))
     if lo is None:
         rc = load().dsp_m4mb_event_f64(ctypes.byref(_ev_ptrs(ev)), ctypes.byref(_ev_ptrs(ev_out)),
                                        _ptr(evt), _ptr(evt_out), *tail)
@@ -533,6 +546,6 @@ def launch_m4mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m, sig, pf_out, scra
     fn = load().dsp_m4mb_audio_f32 if bands.dtype == torch.float32 else load().dsp_m4mb_audio_f64
     rc = fn(
         _ptr(bands), _ptr(fb_buf), _ptr(interp_c), _ptr(ics), _ptr(pf_m), _ptr(sig), _ptr(pf_out),
-        _ptr(scratch), ctypes.byref(c), bands.shape[0], _stream(bands.device),
+        _ptr(scratch), ctypes.byref(c), bands.shape[0], _stream(bands),
     )
     _check(rc, "m4mb_audio")

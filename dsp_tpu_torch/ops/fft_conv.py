@@ -17,19 +17,23 @@ The three engines, their host tables and their state layouts are dsp_tpu's:
 
 The host tables are numpy float64, computed exactly as dsp_tpu computes
 them, so both packages build bit-identical filter spectra from the same
-taps. A step is four wrappers, each a hand-written kernel on a CUDA tensor
-and its plain PyTorch version (``*_ref``) on a CPU tensor:
+taps. A step is three wrappers (the Nupols step a fourth), each a
+hand-written kernel on a CUDA tensor and its plain PyTorch version
+(``*_ref``) on a CPU tensor:
 
 * ``rfft_pack`` (csrc/fft_conv.cu): the spectrum of [a | x | 0] at N,
   along axis 0 of [N, C] as in dsp_tpu, because the states depend on that
-  layout; the pack is the transform's first load.
+  layout; the pack is the transform's first load, and the same load stores
+  the carried input (the overlap-save history, the previous block) as a
+  copy the engine owns, never the caller's block.
 * ``fdl_mac`` (csrc/fdl_mac.cu): the FDL shift and the spectral
   multiply-accumulate.
 * ``irfft_crop`` (csrc/fft_conv.cu): the kept rows of the inverse
   transform, plus the Nupols tail's contribution, in its last store.
-* ``splice`` (csrc/fft_conv.cu): the carried input (history, previous
-  block, the Nupols stage), always a copy the engine owns, never the
-  caller's block.
+* ``splice`` (csrc/fft_conv.cu): the Nupols stage write.
+
+A transform runs as the passes of its ``fft_plan``: one launch up to
+N = BLOCK_POINTS, two for the four-step sizes above (csrc/fft_conv.cu).
 
 On float32 samples (dsp_tpu runs K5-K7 in complex64 under float32,
 fft_conv.py:97, :144, :220) a step reads float32, transforms and
@@ -48,8 +52,14 @@ NupolsConv decides its fire on the host, from a block counter that is a CPU
 int32 tensor (``cnt``, dsp_tpu's leaf), so a step never waits on the card.
 """
 
+import ctypes
+import functools
+import math
+
 import numpy as np
 import torch
+
+from dsp_tpu_torch import kernels
 
 
 def next_fast_len(n):
@@ -115,13 +125,12 @@ class OlsConv(_Spectra):
         if B != self.B:
             raise ValueError(f"OlsConv: block of {B} frames, built for {self.B}")
         hist = state.to(x.dtype)
-        X = rfft_pack(hist, x, self.N)  # [hist | x] zero-padded to N
+        # [hist | x] zero-padded to N; the new history, its last hist rows,
+        # stored by the same launch
+        X, new_hist = rfft_pack(hist, x, self.N, keep=self.hist)
         Y, _ = fdl_mac(X, self.spectra("H_dev", x), dtype=x.dtype)
         out = irfft_crop(Y, self.N, self.hist, B, dtype=x.dtype)
-        if self.hist == 0:
-            return state, out
-        # the last hist rows of [hist | x]
-        return splice(hist, x, self.hist, self.hist - B, B), out
+        return (state if self.hist == 0 else new_hist), out
 
 
 class UpolsConv(_Spectra):
@@ -160,10 +169,11 @@ class UpolsConv(_Spectra):
         if x.shape[0] != B:
             raise ValueError(f"UpolsConv: block of {x.shape[0]} frames, built for {B}")
         prev = state["prev"].to(x.dtype)
-        X = rfft_pack(prev, x, self.N)  # [B+1, C]
+        # [B+1, C], and the engine's own copy of the block as the next prev
+        X, new_prev = rfft_pack(prev, x, self.N, keep=B)
         Y, fdl = fdl_mac(X, self.spectra("H_dev", x), state["fdl"].to(x.dtype), dtype=x.dtype)
         out = irfft_crop(Y, self.N, B, B, add, dtype=x.dtype)
-        return {"prev": splice(prev, x, B, 0, B), "fdl": fdl}, out
+        return {"prev": new_prev, "fdl": fdl}, out
 
 
 class NupolsConv(_Spectra):
@@ -240,73 +250,286 @@ class NupolsConv(_Spectra):
         return new_state, out
 
 
+# --- the transform's plan (csrc/fft_conv.cu) ---------------------------------
+
+# A block pass holds T·P points of 16 bytes in dynamic shared memory, at
+# most BLOCK_POINTS (128 KB), with up to BLOCK_THREADS threads; in a stage
+# of a radix other than BUTTERFLIES a thread holds at most HELD_POINTS
+# output points across the barrier. A radix above BLOCK_POINTS is a global
+# pass. SMEM_LIMIT is a Hopper block's most dynamic shared memory.
+# csrc/fft_conv.cu holds the same numbers and checks every plan against them.
+BLOCK_POINTS = 8192
+BLOCK_THREADS = 512
+HELD_POINTS = 16
+SMEM_LIMIT = 232448
+BUTTERFLIES = (2, 3, 4, 5, 7, 8)  # radices a thread transforms in registers
+_SMS = 132  # an H100's SMs: a pass's lanes a block grow until its blocks about fill them
+
+
+def lane_points(P):
+    """The points a lane of P takes in shared memory: a gap after every 8
+    and one more after every 512 (csrc/fft_conv.cu `pad`)."""
+    return (P - 1) + (P - 1) // 8 + (P - 1) // 512 + 1
+
+
+class FftPass:
+    """One launch of a transform: a block pass runs the P-point DFT of
+    `radices` (their product P, the stages innermost first) on T
+    sub-transforms a thread block, in shared memory; a global pass is one
+    stage of a radix above BLOCK_POINTS (P = that radix), one thread an
+    output point. nsa is the product of the earlier passes' radices."""
+
+    def __init__(self, kind, radices, nsa, T=0, threads=256, smem_bytes=0):
+        self.kind, self.radices, self.nsa = kind, tuple(radices), nsa
+        self.P = math.prod(radices)
+        self.T, self.threads, self.smem_bytes = T, threads, smem_bytes
+
+    def __repr__(self):
+        return (f"FftPass({self.kind}, radices={self.radices}, P={self.P}, nsa={self.nsa}, "
+                f"T={self.T}, threads={self.threads}, smem={self.smem_bytes})")
+
+
+class FftPlan:
+    """How csrc/fft_conv.cu runs a transform of N points on C columns.
+
+    The radices (8, 4, 2, 3, 5, 7 and larger primes) are grouped into
+    passes, each one launch: one block pass when N fits a block
+    (N <= BLOCK_POINTS), else the fewest block passes whose radix products
+    fit (two for the four-step split N = N1·N2), with each prime above
+    BLOCK_POINTS a global pass after them. `ola`: the plan of the
+    resampler's inverse with its overlap-add, whose one block pass takes
+    one column a block and keeps a float32 tail beside it. The twiddle
+    table is W^i = exp(-2 pi i i / N), i < N, complex128
+    (fft_twiddles(N)), read by every pass, and each block pass loads its
+    points to the digit-reversed positions of `dit_positions`
+    (fft_tables(N) holds both); `work_slots` complex128 [N, C] buffers
+    carry the passes between (one more, for the scaled inverse, when an
+    overlap-add plan has more than one pass)."""
+
+    def __init__(self, N, C, ola=False):
+        if N < 1 or C < 1:
+            raise ValueError(f"fft_plan: N = {N}, C = {C}")
+        self.N, self.C, self.ola = N, C, ola
+        small, large = _radices(N)
+        groups = _group(small) if small or not large else []
+        passes, nsa = [], 1
+        for g in groups:
+            P = math.prod(g)
+            lanes = N // P * C
+            T = 1 if ola else max(1, min(BLOCK_POINTS // P, -(-lanes // _SMS)))
+            # about 4 points a thread (at most HELD_POINTS: 512 threads)
+            threads = min(BLOCK_THREADS, max(32, -(-T * P // 4 // 32) * 32))
+            smem = T * lane_points(P) * 16
+            if ola and len(groups) == 1 and not large:
+                smem += N // 2 * 4  # the float32 tail the fused overlap-add keeps
+            passes.append(FftPass("block", g, nsa, T, threads, smem))
+            nsa *= P
+        for R in large:
+            passes.append(FftPass("global", (R,), nsa))
+            nsa *= R
+        self.passes = tuple(passes)
+        n = len(passes)
+        self.path = "one pass" if n == 1 else "two passes" if n == 2 else f"{n} passes"
+        self.work_slots = min(n - 1, 2) + (1 if ola and n > 1 else 0)
+        self.smem_bytes = max(p.smem_bytes for p in passes)
+        words = [n]
+        for p in passes:
+            words += [0 if p.kind == "block" else 1, p.P, p.T, p.threads, p.smem_bytes,
+                      len(p.radices), *p.radices]
+        self._c_plan = (ctypes.c_int * len(words))(*words)
+        self.c_plan = ctypes.addressof(self._c_plan)
+
+    def work(self, like):
+        """The plan's complex128 work slots on like's device, or None."""
+        if not self.work_slots:
+            return None
+        return torch.empty((self.work_slots, self.N, self.C), dtype=torch.complex128,
+                           device=like.device)
+
+    def __repr__(self):
+        return f"FftPlan(N={self.N}, C={self.C}, {self.path}: {list(self.passes)})"
+
+
+def _radices(N):
+    """(radices a block can take, primes above BLOCK_POINTS) of N: 8s, then
+    a 4 or a 2, then 3, 5, 7 and the larger primes, ascending."""
+    n, small, large = N, [], []
+    while n % 8 == 0:
+        small.append(8)
+        n //= 8
+    for r in (4, 2, 3, 5, 7):
+        while n % r == 0:
+            small.append(r)
+            n //= r
+    p = 11
+    while n > 1:
+        if p * p > n:
+            p = n
+        while n % p == 0:
+            (small if p <= BLOCK_POINTS else large).append(p)
+            n //= p
+        p += 2
+    return small, large
+
+
+def _group(radices):
+    """The fewest groups of the radices whose products are at most
+    BLOCK_POINTS, as even as the greedy fill (largest first, into the
+    smallest group) makes them, the largest product first. One group of
+    no radix for N = 1."""
+    if not radices:
+        return [()]
+    order = sorted(radices, reverse=True)
+    n = max(1, math.ceil(math.log(math.prod(radices)) / math.log(BLOCK_POINTS) - 1e-9))
+    while True:
+        groups = [[] for _ in range(n)]
+        prods = [1] * n
+        for r in order:
+            i = min(range(n), key=lambda k: prods[k])
+            if prods[i] * r > BLOCK_POINTS:
+                break
+            groups[i].append(r)
+            prods[i] *= r
+        else:
+            return [tuple(g) for g in sorted(groups, key=lambda g: -math.prod(g)) if g] or [()]
+        n += 1
+
+
+@functools.lru_cache(maxsize=256)
+def fft_plan(N, C, ola=False):
+    """The FftPlan of a transform of N points on C columns (cached)."""
+    return FftPlan(N, C, ola)
+
+
+def dit_positions(radices):
+    """Where each input point of a block pass goes for its in-place
+    decimation-in-time: input point sum_s d_s R_m ... R_(s+1) to position
+    sum_s d_s P / (R_m ... R_s) (the digits of the input, the last stage's
+    radix lowest, reversed; csrc/fft_conv.cu `load_tile`)."""
+    P = math.prod(radices)
+    r, pos, span = np.arange(P), np.zeros(P, dtype=np.int64), P
+    for R in reversed(radices):
+        r, d = np.divmod(r, R)
+        span //= R
+        pos += d * span
+    return pos.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def fft_twiddles(N):
+    """W^i = exp(-2 pi i i / N), i < N, complex128: computed in long double
+    and rounded once; the zeros of cos and sin (at multiples of N/4) exact."""
+    t = np.arange(N, dtype=np.longdouble) * (2 * np.arctan(np.longdouble(1)) * 4 / N)
+    re, im = np.cos(t).astype(np.float64), -np.sin(t).astype(np.float64)
+    re[np.abs(re) < 1e-15] = 0.0
+    im[np.abs(im) < 1e-15] = 0.0
+    w = re + 1j * im
+    w.setflags(write=False)
+    return w
+
+
+def fft_tables(N):
+    """What every plan of N points reads on the card, as bytes: the
+    twiddles fft_twiddles(N), then for each block pass its dit_positions,
+    int32 (the grouping of radices into passes depends on N alone)."""
+    orders = [dit_positions(p.radices) for p in fft_plan(N, 1).passes if p.kind == "block"]
+    return np.concatenate([fft_twiddles(N).view(np.uint8)] + [o.view(np.uint8) for o in orders])
+
+
+@functools.lru_cache(maxsize=32)
+def _tables_on(N, index):
+    """fft_tables(N) on CUDA device `index` (cached)."""
+    return torch.tensor(fft_tables(N), device=torch.device("cuda", index))
+
+
 # --- K5-K7: the kernels of a step --------------------------------------------
 
 
-def rfft_pack(a, x, N):
+def rfft_pack(a, x, N, keep=None, blocks=1):
     """Spectrum [N//2+1, C] of the real signal [a | x | 0] of length N along
     axis 0 (a: [La, C], may be empty; x: [Lx, C]; La + Lx <= N), float64,
-    or float32 (then this is rfft_pack_f32). CPU tensors run rfft_pack_ref;
-    CUDA tensors launch csrc/fft_conv.cu."""
+    or float32 (then this is rfft_pack_f32). With `keep` (an int), returns
+    (X, the last keep rows of [a | x] as a new tensor). With blocks > 1, x
+    is `blocks` inner blocks [blocks·Lx, ch] (a empty) and the columns are
+    block-major: C = blocks·ch. CPU tensors run rfft_pack_ref; CUDA tensors
+    launch csrc/fft_conv.cu."""
     if x.dtype == torch.float32:
-        return rfft_pack_f32(x, N, a)
-    if x.device.type == "cpu":
-        return rfft_pack_ref(a, x, N)
-    from dsp_tpu_torch import kernels
-
-    _check_cuda("rfft_pack", x, (a, torch.float64), (x, torch.float64))
-    if a.shape[1:] != x.shape[1:] or x.dim() != 2 or a.shape[0] + x.shape[0] > N:
-        raise ValueError(f"rfft_pack: a {tuple(a.shape)}, x {tuple(x.shape)} at N = {N}")
-    C = x.shape[1]
-    X = torch.empty((N // 2 + 1, C), dtype=torch.complex128, device=x.device)
-    work = torch.empty((2, N, C), dtype=torch.complex128, device=x.device)
-    kernels.launch_rfft_pack(a, x, X, work, N)
-    rfft_pack.launches += 1
-    return X
+        return rfft_pack_f32(x, N, a, keep, blocks)
+    if x.is_cpu:
+        return rfft_pack_ref(a, x, N, keep, blocks)
+    return _launch_rfft_pack(rfft_pack, a, x, N, keep, blocks, torch.float64)
 
 
 rfft_pack.launches = 0
 
 
-def rfft_pack_ref(a, x, N):
-    """Plain PyTorch version of rfft_pack: dsp_tpu's concatenate, then rfft."""
-    return torch.fft.rfft(torch.cat([a, x]), n=N, dim=0)
+def _columns(x, blocks):
+    """[blocks·Lx, ch] inner blocks as [Lx, blocks·ch] block-major columns."""
+    if blocks == 1:
+        return x
+    Lx, ch = x.shape[0] // blocks, x.shape[1]
+    return x.reshape(blocks, Lx, ch).permute(1, 0, 2).reshape(Lx, blocks * ch)
 
 
-def rfft_pack_f32(x, N, a=None):
+def _kept(a, x, keep):
+    return splice_ref(a, x, keep, keep - x.shape[0], a.shape[0] + x.shape[0] - keep)
+
+
+def rfft_pack_ref(a, x, N, keep=None, blocks=1):
+    """Plain PyTorch version of rfft_pack: dsp_tpu's concatenate, then
+    rfft; the kept rows by splice_ref."""
+    xs = _columns(x, blocks) if blocks > 1 else torch.cat([a, x])
+    X = torch.fft.rfft(xs, n=N, dim=0)
+    return X if keep is None else (X, _kept(a, x, keep))
+
+
+def rfft_pack_f32(x, N, a=None, keep=None, blocks=1):
     """The spectrum [N//2+1, C] complex128 of the float32 [a | x] (a [La, C]
     or None, x [Lx, C], La + Lx <= N) zero-padded to N, read into float64:
     the float32 FFT convolution step's and the float32 resampler's forward
     transform, in place of dsp_tpu's complex64 rfft and two-float32 DFT.
-    CPU tensors run rfft_pack_f32_ref; CUDA tensors launch
-    csrc/fft_conv.cu."""
+    `keep` and `blocks` as for rfft_pack (the kept rows float32). CPU
+    tensors run rfft_pack_f32_ref; CUDA tensors launch csrc/fft_conv.cu."""
     a = x[:0] if a is None else a
     for t in (a, x):
         if t.dtype != torch.float32:
             raise TypeError(f"rfft_pack_f32: the kernel takes torch.float32, got {t.dtype}")
-    if x.device.type == "cpu":
-        return rfft_pack_f32_ref(x, N, a)
-    from dsp_tpu_torch import kernels
-
-    _check_cuda("rfft_pack_f32", x, (a, torch.float32), (x, torch.float32), align=4)
-    if a.shape[1:] != x.shape[1:] or x.dim() != 2 or a.shape[0] + x.shape[0] > N:
-        raise ValueError(f"rfft_pack_f32: a {tuple(a.shape)}, x {tuple(x.shape)} at N = {N}")
-    C = x.shape[1]
-    X = torch.empty((N // 2 + 1, C), dtype=torch.complex128, device=x.device)
-    work = torch.empty((2, N, C), dtype=torch.complex128, device=x.device)
-    kernels.launch_rfft_pack(a, x, X, work, N)
-    rfft_pack_f32.launches += 1
-    return X
+    if x.is_cpu:
+        return rfft_pack_f32_ref(x, N, a, keep, blocks)
+    return _launch_rfft_pack(rfft_pack_f32, a, x, N, keep, blocks, torch.float32)
 
 
 rfft_pack_f32.launches = 0
 
 
-def rfft_pack_f32_ref(x, N, a=None):
+def rfft_pack_f32_ref(x, N, a=None, keep=None, blocks=1):
     """Plain PyTorch version of rfft_pack_f32: the rfft of the upcast
-    [a | x]."""
-    xs = x if a is None else torch.cat([a, x])
-    return torch.fft.rfft(xs.double(), n=N, dim=0)
+    [a | x]; the kept rows by splice_ref."""
+    xs = _columns(x, blocks) if a is None or blocks > 1 else torch.cat([a, x])
+    X = torch.fft.rfft(xs.double(), n=N, dim=0)
+    return X if keep is None else (X, _kept(x[:0] if a is None else a, x, keep))
+
+
+def _launch_rfft_pack(wrapper, a, x, N, keep, blocks, dtype):
+    name = wrapper.__name__
+    _check_cuda(name, x, (a, dtype), (x, dtype), align=x.element_size())
+    La, Lx = a.shape[0], x.shape[0] // max(blocks, 1)
+    k = 0 if keep is None else keep
+    if (x.dim() != 2 or a.dim() != 2 or a.shape[1] != x.shape[1] or blocks < 1
+            or Lx * blocks != x.shape[0] or La + Lx > N or not 0 <= k <= La + Lx
+            or (blocks > 1 and (La or k))):
+        raise ValueError(f"{name}: a {tuple(a.shape)}, x {tuple(x.shape)}, blocks {blocks}, "
+                         f"keep {keep} at N = {N}")
+    C = x.shape[1] * blocks
+    plan = fft_plan(N, C)
+    X = x.new_empty((N // 2 + 1, C), dtype=torch.complex128)
+    kept = x.new_empty((k, x.shape[1])) if k else None
+    kernels.launch_rfft_pack(plan, _tables_on(N, x.get_device()), a, x, Lx, blocks, kept, X,
+                             plan.work(x))
+    wrapper.launches += 1
+    if keep is None:
+        return X
+    return X, x.new_empty((0, x.shape[1])) if kept is None else kept
 
 
 def irfft_crop(Y, N, lo, L, add=None, dtype=torch.float64):
@@ -317,22 +540,9 @@ def irfft_crop(Y, N, lo, L, add=None, dtype=torch.float64):
     if dtype == torch.float32:
         return irfft_crop_f32(Y, N, lo, L, add)
     _check_dtypes("irfft_crop", (Y, torch.complex128), (add, torch.float64))
-    if Y.device.type == "cpu":
+    if Y.is_cpu:
         return irfft_crop_ref(Y, N, lo, L, add)
-    from dsp_tpu_torch import kernels
-
-    checks = [(Y, torch.complex128)] + ([] if add is None else [(add, torch.float64)])
-    _check_cuda("irfft_crop", Y, *checks)
-    C = Y.shape[1]
-    if Y.dim() != 2 or Y.shape[0] != N // 2 + 1 or not (0 <= lo and L > 0 and lo + L <= N):
-        raise ValueError(f"irfft_crop: Y {tuple(Y.shape)}, rows [{lo}, {lo + L}) at N = {N}")
-    if add is not None and tuple(add.shape) != (L, C):
-        raise ValueError(f"irfft_crop: add {tuple(add.shape)}, expected {(L, C)}")
-    out = torch.empty((L, C), dtype=torch.float64, device=Y.device)
-    work = torch.empty((2, N, C), dtype=torch.complex128, device=Y.device)
-    kernels.launch_irfft_crop(Y, work, out, N, lo, add)
-    irfft_crop.launches += 1
-    return out
+    return _launch_irfft_crop(irfft_crop, Y, N, lo, L, add, torch.float64)
 
 
 irfft_crop.launches = 0
@@ -350,22 +560,9 @@ def irfft_crop_f32(Y, N, lo, L, add=None):
     rounded once to float32. CPU tensors run irfft_crop_f32_ref; CUDA
     tensors launch csrc/fft_conv.cu."""
     _check_dtypes("irfft_crop_f32", (Y, torch.complex128), (add, torch.float32))
-    if Y.device.type == "cpu":
+    if Y.is_cpu:
         return irfft_crop_f32_ref(Y, N, lo, L, add)
-    from dsp_tpu_torch import kernels
-
-    checks = [(Y, torch.complex128)] + ([] if add is None else [(add, torch.float32)])
-    _check_cuda("irfft_crop_f32", Y, *checks)
-    C = Y.shape[1]
-    if Y.dim() != 2 or Y.shape[0] != N // 2 + 1 or not (0 <= lo and L > 0 and lo + L <= N):
-        raise ValueError(f"irfft_crop_f32: Y {tuple(Y.shape)}, rows [{lo}, {lo + L}) at N = {N}")
-    if add is not None and tuple(add.shape) != (L, C):
-        raise ValueError(f"irfft_crop_f32: add {tuple(add.shape)}, expected {(L, C)}")
-    out = torch.empty((L, C), dtype=torch.float32, device=Y.device)
-    work = torch.empty((2, N, C), dtype=torch.complex128, device=Y.device)
-    kernels.launch_irfft_crop(Y, work, out, N, lo, add)
-    irfft_crop_f32.launches += 1
-    return out
+    return _launch_irfft_crop(irfft_crop_f32, Y, N, lo, L, add, torch.float32)
 
 
 irfft_crop_f32.launches = 0
@@ -377,6 +574,22 @@ def irfft_crop_f32_ref(Y, N, lo, L, add=None):
     return irfft_crop_ref(Y, N, lo, L, None if add is None else add.double()).float()
 
 
+def _launch_irfft_crop(wrapper, Y, N, lo, L, add, dtype):
+    name = wrapper.__name__
+    _check_cuda(name, Y, (Y, torch.complex128), *(() if add is None else ((add, dtype),)))
+    C = Y.shape[1]
+    if Y.dim() != 2 or Y.shape[0] != N // 2 + 1 or not (0 <= lo and L > 0 and lo + L <= N):
+        raise ValueError(f"{name}: Y {tuple(Y.shape)}, rows [{lo}, {lo + L}) at N = {N}")
+    if add is not None and tuple(add.shape) != (L, C):
+        raise ValueError(f"{name}: add {tuple(add.shape)}, expected {(L, C)}")
+    plan = fft_plan(N, C)
+    out = Y.new_empty((L, C), dtype=dtype)
+    kernels.launch_irfft_crop(plan, _tables_on(N, Y.get_device()), Y, plan.work(Y), out, lo,
+                              add)
+    wrapper.launches += 1
+    return out
+
+
 def splice(a, x, L, lo, shift):
     """[L, C] with out[n] = x[n - lo] for lo <= n < lo + len(x), else
     a[n + shift]: the last L rows of [a | x] (lo = L - len(x),
@@ -386,8 +599,10 @@ def splice(a, x, L, lo, shift):
     tensors launch csrc/fft_conv.cu."""
     if x.dtype == torch.float32:
         return splice_f32(a, x, L, lo, shift)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return splice_ref(a, x, L, lo, shift)
+    if x.dtype != torch.float64:
+        raise TypeError(f"splice: the kernel takes torch.float64, got {x.dtype}")
     return _launch_splice(splice, a, x, L, lo, shift)
 
 
@@ -398,7 +613,7 @@ def splice_f32(a, x, L, lo, shift):
     """splice on float32 a and x. CPU tensors run splice_ref; CUDA tensors
     launch csrc/fft_conv.cu."""
     _check_dtypes("splice_f32", (a, torch.float32), (x, torch.float32))
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return splice_ref(a, x, L, lo, shift)
     return _launch_splice(splice_f32, a, x, L, lo, shift)
 
@@ -407,19 +622,28 @@ splice_f32.launches = 0
 
 
 def _launch_splice(wrapper, a, x, L, lo, shift):
-    from dsp_tpu_torch import kernels
-
-    name = wrapper.__name__
-    _check_cuda(name, x, (a, x.dtype), (x, x.dtype), align=x.element_size())
-    # the rows of out read from a: [0, lo) and [lo + len(x), L)
-    reads = ((0, min(lo, L)), (max(lo + x.shape[0], 0), L))
-    if a.shape[1:] != x.shape[1:] or x.dim() != 2 or L <= 0 or any(
-        n0 < n1 and not (0 <= n0 + shift and n1 + shift <= a.shape[0]) for n0, n1 in reads
-    ):
-        raise ValueError(f"{name}: a {tuple(a.shape)}, x {tuple(x.shape)}, L {L}, "
+    """The checks of _check_cuda and of the rows read, written out for the
+    two tensors of a call that is mostly host time."""
+    if not x.is_cuda:
+        raise ValueError(f"{wrapper.__name__}: no kernel for device {x.device}")
+    if a.dtype != x.dtype:
+        raise TypeError(f"{wrapper.__name__}: the kernel takes {x.dtype}, got {a.dtype}")
+    if a.get_device() != x.get_device():
+        raise ValueError(f"{wrapper.__name__}: tensors on {a.device} and {x.device}")
+    if (not (a.is_contiguous() and x.is_contiguous())
+            or (a.data_ptr() | x.data_ptr()) % x.element_size()):
+        raise ValueError(f"{wrapper.__name__}: tensors must be contiguous and aligned")
+    # out reads a at rows [0, lo_c) and [hi_c, L), each shifted by `shift`
+    La, Lx = a.shape[0], x.shape[0]
+    lo_c = 0 if lo < 0 else L if lo > L else lo
+    hi_c = 0 if lo + Lx < 0 else L if lo + Lx > L else lo + Lx
+    if (x.dim() != 2 or a.dim() != 2 or a.shape[1] != x.shape[1] or L <= 0
+            or (lo_c > 0 and not (0 <= shift and lo_c + shift <= La))
+            or (hi_c < L and not (0 <= hi_c + shift and L + shift <= La))):
+        raise ValueError(f"{wrapper.__name__}: a {tuple(a.shape)}, x {tuple(x.shape)}, L {L}, "
                          f"lo {lo}, shift {shift}")
-    out = torch.empty((L, x.shape[1]), dtype=x.dtype, device=x.device)
-    kernels.launch_splice(a, x, out, lo, shift)
+    out = x.new_empty((L, x.shape[1]))
+    kernels.launch_splice(a, x, out, L, lo, shift)
     wrapper.launches += 1
     return out
 
@@ -522,12 +746,13 @@ def _check_cuda(name, like, *tensors, align=8):
     """Raise unless every (tensor, dtype) pair is on `like`'s CUDA device,
     of that dtype, contiguous and aligned to its element and to `align`
     bytes."""
-    if like.device.type != "cuda":
+    if not like.is_cuda:
         raise ValueError(f"{name}: no kernel for device {like.device}")
+    dev = like.get_device()
     for t, dtype in tensors:
         if t.dtype != dtype:
             raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
-        if t.device != like.device:
+        if t.get_device() != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {like.device}")
         if not t.is_contiguous() or t.data_ptr() % max(t.element_size(), align):
             raise ValueError(f"{name}: tensors must be contiguous and {align}-byte aligned")

@@ -14,7 +14,8 @@ dsp_tpu computes them. One step (K8, ``SpectralResampler.block``) is three
 kernel wrappers over all inner blocks of a chain block at once, the inner
 blocks (times channels) as columns:
 
-* ``rfft_pack`` (ops/fft_conv.py, csrc/fft_conv.cu): rfft at 2·in_len;
+* ``rfft_pack`` (ops/fft_conv.py, csrc/fft_conv.cu): rfft at 2·in_len,
+  reading the inner blocks in place;
 * ``resample_fold`` (csrc/resample.cu): the gather by ``tab_j``, the conj
   masks, the product with ``tab_s`` and the segment sum into out_len+1 bins;
 * ``irfft_crop`` (csrc/fft_conv.cu): irfft at 2·out_len;
@@ -25,7 +26,7 @@ shifted add across the columns.
 Under float32 (dsp_tpu's ``_block_df``, K8-df, whose transforms are the
 two-float32 DFTs of dsp_tpu/ops/dfx_fft.py) the step reads float32 and
 stores float32 around the same float64 transforms and fold:
-``rfft_pack_f32`` reads the float32 columns, and ``irfft_ola_f32`` is the
+``rfft_pack_f32`` reads the float32 inner blocks, and ``irfft_ola_f32`` is the
 inverse whose last stage does the scale and the overlap-add and stores y
 and the carried overlap in float32 (csrc/fft_conv.cu).
 """
@@ -38,6 +39,8 @@ import torch
 
 from dsp_tpu_torch.ops.fft_conv import (
     _check_cuda,
+    _tables_on,
+    fft_plan,
     irfft_crop,
     irfft_crop_ref,
     next_fast_len,
@@ -178,12 +181,12 @@ class SpectralResampler:
         n = B // in_len
         if n * in_len != B:
             raise ValueError(f"resample: block of {B} frames is not a multiple of {in_len}")
-        cols = x.reshape(n, in_len, C).permute(1, 0, 2).reshape(in_len, n * C)
+        x = x.contiguous()
         if x.dtype == torch.float32:
-            X = rfft_pack_f32(cols, 2 * in_len)
+            X = rfft_pack_f32(x, 2 * in_len, blocks=n)
             return irfft_ola_f32(resample_fold(X, self.fold), 2 * out_len, overlap,
                                  out_len / in_len)
-        X = rfft_pack(cols[:0], cols, 2 * in_len)  # [in_len+1, n·C]
+        X = rfft_pack(x[:0], x, 2 * in_len, blocks=n)  # [in_len+1, n·C]
         Y = resample_fold(X, self.fold)  # [out_len+1, n·C]
         y2 = irfft_crop(Y, 2 * out_len, 0, 2 * out_len) * (out_len / in_len)
         y2 = y2.reshape(2, out_len, n, C)
@@ -205,7 +208,7 @@ def irfft_ola_f32(Y, N, overlap, ratio):
     csrc/fft_conv.cu."""
     if overlap.dtype != torch.float32:
         raise TypeError(f"irfft_ola_f32: the kernel takes torch.float32, got {overlap.dtype}")
-    if Y.device.type == "cpu":
+    if Y.is_cpu:
         return irfft_ola_f32_ref(Y, N, overlap, ratio)
     from dsp_tpu_torch import kernels
 
@@ -215,10 +218,11 @@ def irfft_ola_f32(Y, N, overlap, ratio):
             or tuple(overlap.shape) != (half, C)):
         raise ValueError(f"irfft_ola_f32: Y {tuple(Y.shape)}, overlap {tuple(overlap.shape)} "
                          f"at N = {N}")
-    y = torch.empty((Y.shape[1] // C * half, C), dtype=torch.float32, device=Y.device)
+    plan = fft_plan(N, Y.shape[1], ola=True)
+    y = overlap.new_empty((Y.shape[1] // C * half, C))
     ov = torch.empty_like(overlap)
-    work = torch.empty((2, N, Y.shape[1]), dtype=torch.complex128, device=Y.device)
-    kernels.launch_irfft_ola_f32(Y, work, y, ov, overlap, ratio, N)
+    kernels.launch_irfft_ola_f32(plan, _tables_on(N, Y.get_device()), Y, plan.work(Y), y, ov,
+                                 overlap, ratio)
     irfft_ola_f32.launches += 1
     return ov, y
 

@@ -228,6 +228,70 @@ def test_splice_ref_matches_numpy(case):
     assert out.data_ptr() not in (at.data_ptr(), xt.data_ptr())  # always a copy
 
 
+# (La, Lx, keep): the carried rows rfft_pack stores beside the spectrum
+KEEPS = {
+    "history_shorter_than_block": (5, 8, 5),  # OlsConv, hist < B
+    "history_longer_than_block": (20, 8, 20),  # OlsConv, hist > B
+    "previous_block": (8, 8, 8),  # UpolsConv's prev
+    "all_rows": (3, 5, 8),
+    "none": (4, 4, 0),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["float64", "float32"])
+@pytest.mark.parametrize("case", list(KEEPS))
+def test_rfft_pack_keeps_the_splice_rows(case, dtype):
+    """rfft_pack's kept rows are splice_ref's last rows of [a | x], a new
+    tensor of the samples' dtype, and the spectrum is rfft_pack's."""
+    La, Lx, keep = KEEPS[case]
+    rng = np.random.default_rng(La * 7 + Lx + keep)
+    a = torch.as_tensor(rng.standard_normal((La, 3)), dtype=dtype)
+    x = torch.as_tensor(rng.standard_normal((Lx, 3)), dtype=dtype)
+    X, kept = tfc.rfft_pack(a, x, 32, keep=keep)
+    want = tfc.splice_ref(a, x, keep, keep - Lx, La + Lx - keep)
+    assert kept.dtype == dtype and torch.equal(kept, want)
+    np.testing.assert_array_equal(kept.numpy(), np.concatenate([a.numpy(), x.numpy()])[La + Lx - keep:])
+    if keep:
+        assert kept.data_ptr() not in (a.data_ptr(), x.data_ptr())  # always a copy
+    assert torch.equal(X, tfc.rfft_pack(a, x, 32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["float64", "float32"])
+def test_rfft_pack_reads_inner_blocks(dtype):
+    """blocks = 3: x [3·Lx, ch] is three inner blocks, the spectrum's
+    columns block-major (the resampler's layout)."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((3 * 7, 2))
+    cols = x.reshape(3, 7, 2).transpose(1, 0, 2).reshape(7, 6)
+    X = tfc.rfft_pack(torch.as_tensor(x[:0], dtype=dtype), torch.as_tensor(x, dtype=dtype), 16,
+                      blocks=3)
+    if dtype == torch.float32:
+        cols = cols.astype(np.float32).astype(np.float64)
+    want = np.fft.rfft(cols, n=16, axis=0)
+    assert tuple(X.shape) == (9, 6) and X.dtype == torch.complex128
+    assert _err(X.numpy().real, want.real) <= 1e-12 and _err(X.numpy().imag, want.imag) <= 1e-12
+
+
+@pytest.mark.parametrize("kind", ["ols", "upols", "nupols"])
+def test_engine_state_is_a_copy(kind):
+    """The carried input the step returns (OLS history, Upols prev, the
+    Nupols head's prev) is the engine's own tensor, not a view of x."""
+    rng = np.random.default_rng(9)
+    filters = rng.standard_normal((2, 300 if kind != "nupols" else 700)) * 0.1
+    eng = {"ols": lambda: tfc.OlsConv(filters, 128), "upols": lambda: tfc.UpolsConv(filters, 64),
+           "nupols": lambda: tfc.NupolsConv(filters, 64, 4)}[kind]()
+    st = _to_torch(eng.state0())
+    B = eng.B
+    for _ in range(3):
+        x = torch.as_tensor(rng.standard_normal((B, 2)))
+        st, _ = eng.step(st, x)
+        carried = st if kind == "ols" else st["prev"] if kind == "upols" else st["head"]["prev"]
+        start, end = x.data_ptr(), x.data_ptr() + x.numel() * 8
+        assert not start <= carried.data_ptr() < end
+        x.zero_()  # the caller reuses its buffer
+        assert carried.abs().max() > 0
+
+
 def test_fdl_mac_has_no_fallback_off_the_cpu():
     """A tensor that is neither on the CPU nor on a CUDA card gets no plain
     version: the wrapper checks for the kernel and raises."""
@@ -240,12 +304,13 @@ def test_fdl_mac_has_no_fallback_off_the_cpu():
                         torch.zeros(2, 5, 2, dtype=torch.complex128))
 
 
-@pytest.mark.parametrize("wrapper", ["rfft_pack", "irfft_crop", "splice"])
+@pytest.mark.parametrize("wrapper", ["rfft_pack", "rfft_pack_keep", "irfft_crop", "splice"])
 def test_step_kernels_have_no_fallback_off_the_cpu(wrapper):
     x = torch.zeros((8, 2), dtype=torch.float64, device="meta")
     Y = torch.zeros((9, 2), dtype=torch.complex128, device="meta")
     call = {
         "rfft_pack": lambda: tfc.rfft_pack(x, x, 16),
+        "rfft_pack_keep": lambda: tfc.rfft_pack(x, x, 16, keep=8),
         "irfft_crop": lambda: tfc.irfft_crop(Y, 16, 8, 8),
         "splice": lambda: tfc.splice(x, x, 8, 0, 8),
     }[wrapper]
