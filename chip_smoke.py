@@ -22,13 +22,15 @@ nvcc and PyTorch built for CUDA. It
    modulated read). K8 at 48 and 192 kHz: equal, the whole step within
    -280 dBFS. K9-K13 over 3 blocks of transient material for v4, v1,
    direct_path, phase_flip=false,shelf=none,lowpass=none and the 48 kHz
-   block of Nc = 80: the engine's decisions equal, its floats within 1e-12
-   relative, the audio within -280 dBFS. matrix4_mb's (slice F): K1 on
-   its 13-band bank, K11 m4mb_env over 13 lanes, K9 + K10 m4mb_event (the
+   block of Nc = 80, and over one block of 65536 (Nc = 2048: the event
+   engine's chunk pipeline wraps many times): the engine's decisions
+   equal, its floats within 1e-12 relative, the audio within -280 dBFS.
+   matrix4_mb's (slice F): K1 on its 13-band bank, K11 m4mb_env over 13 lanes, K9 + K10 m4mb_event (the
    13 engines coupled through their thresholds every tick) and K12 + K13
    m4mb_audio, over 3 blocks of transients in seven configurations (v4,
    v1, direct_path, butterworth with freq_mask, 48 kHz, block 1056 for the
-   bank's L = 1 plan, 192 kHz): decisions and thresholds equal, floats
+   bank's L = 1 plan, 192 kHz) and one block of 65536: decisions and
+   thresholds equal, floats
    within 1e-13 relative, the bank and the audio within -290 dBFS. Times
    each kernel, its plain version and, where one PyTorch call computes the
    same function, that call, with CUDA events, and computes each kernel's
@@ -50,9 +52,10 @@ nvcc and PyTorch built for CUDA. It
    a Thiran-fractional delay on one channel, lipshitz dither at auto 16
    bits, stats -i) and "modulated" to double (delay -M q2, noise, sloped2
    dither, stats, levels); then slices D and E's upmixes at the default
-   block: `matrix4 -6` (44.1 kHz to 4 channels) and `resample 48k matrix4
-   -6` (a 48 kHz quad: the rate change, blocks of 2352 in and 2560 out);
-   then slice F's: `matrix4_mb -6`, bench.py's `mixed` chain (an EQ, a
+   block: `matrix4 -6` (44.1 kHz to 4 channels; also at -b 65536, where
+   the event engine sets the pace) and `resample 48k matrix4 -6` (a 48 kHz
+   quad: the rate change, blocks of 2352 in and 2560 out); then slice F's:
+   `matrix4_mb -6` (also at -b 65536), bench.py's `mixed` chain (an EQ, a
    fractional delay, a 4,096-tap filter, matrix4_mb) and, on 60 s,
    examples/matrix4_mb_2_4 (6 channels), each compared on its first
    5 s (the engine's chaotic start held to MB_ONSET); then the float32
@@ -72,8 +75,9 @@ nvcc and PyTorch built for CUDA. It
    matrix4's and matrix4_mb's K9-K13 in float32 (m4_env_f32,
    m4_event_f32, m4_audio_f32; after K3 and K1-df, m4mb_env_f32,
    m4mb_event_f32, m4mb_audio_f32) over 3 blocks of transients in eight
-   configurations, decisions equal; both upmixes' float32 audio paths
-   replaying their float64 control on 10 s of two signals, against a
+   configurations and one block of 65536 for each, decisions equal; each
+   event engine's microseconds a tick at Nc = 64 and 2048 on one line;
+   both upmixes' float32 audio paths replaying their float64 control on 10 s of two signals, against a
    float64 audio path fed the same float32-rounded inputs within -120
    dBFS; and
    DSP_TPU_TORCH_DTYPE=float32 dsp-torch on the same 300 s, the flagship
@@ -891,15 +895,41 @@ def transient_signal(seconds, fs=FS, seed=5):
     return x
 
 
-# the matrix4 kernel checks: (options, rate, block); the last is the block
-# that follows `resample 48k` at -b 2048 (2352 in, 2560 out: Nc = 80)
+# the matrix4 kernel checks: (options, rate, block); the fifth is the block
+# that follows `resample 48k` at -b 2048 (2352 in, 2560 out: Nc = 80); the
+# last one block of -b 65536 (Nc = 2048: the engine's chunks wrap many times)
 M4_KERNEL_CASES = (
     ("matrix4 -6", FS, 2048),
     ("matrix4 matrix=v1 -6", FS, 2048),
     ("matrix4 direct_path -6", FS, 2048),
     ("matrix4 phase_flip=false,shelf=none,lowpass=none -6", FS, 2048),
     ("matrix4 -6", 48000, 2560),
+    ("matrix4 -6", FS, 65536),
 )
+# the serial event engines, whose records carry their microseconds a tick
+ENGINES = ("m4_event", "m4_event_f32", "m4mb_event", "m4mb_event_f32")
+
+
+def check_blocks(B, fs):
+    """(seconds of transient input, blocks held to the plain version) of a
+    kernel check at block B: 3 blocks after 2 s of warm-up, or 1 block of
+    65536 after one."""
+    blocks = 1 if B > 8192 else 3
+    return max(2.5, (blocks + 1) * B / fs + 0.01), blocks
+
+
+def set_tick_us(rec, Nc, ms):
+    """An event engine's microseconds a tick, from `ms` a call of Nc ticks,
+    kept in its record (us_a_tick: {"Nc=64": .., "Nc=2048": ..}): the
+    checks' timing at B = 2048 and one call at the B = 65536 case."""
+    rec.setdefault("us_a_tick", {})[f"Nc={Nc}"] = ms * 1e3 / Nc
+
+
+def engine_tick_line(records):
+    """One line: each event engine's microseconds a tick on this card."""
+    print("event engines, us a tick a call: " + "; ".join(
+        f"{name} {Nc} {us:.3f}" for name in ENGINES
+        for Nc, us in records[name].get("us_a_tick", {}).items()))
 M4_DECISIONS = ("ord_count", "diff_count", "early_count", "ignore_count")
 
 
@@ -933,11 +963,12 @@ def matrix4_phase(records):
         cc = CompiledChain(build_chain_from_string(words, StreamInfo(fs, CHANNELS)), B,
                            device="cuda")
         e = cc._runtime_effects[0]
-        x = torch.as_tensor(transient_signal(2.5, fs), device="cuda")
-        warm = x.shape[0] // B - 3
+        seconds, blocks = check_blocks(B, fs)
+        x = torch.as_tensor(transient_signal(seconds, fs), device="cuda")
+        warm = x.shape[0] // B - blocks
         cc.run_blocks(x[: warm * B].reshape(warm, B, CHANNELS))
         errs = {"m4_env": 0.0, "m4_event": 0.0, "m4_audio": 0.0}
-        for blk in range(warm, warm + 3):
+        for blk in range(warm, warm + blocks):
             st = cc.states[0]
             xb = x[blk * B:(blk + 1) * B].contiguous()
             args = [e.device_array(k, xb) for k in ("A_hp", "B_hp", "c0_hp")]
@@ -980,6 +1011,8 @@ def matrix4_phase(records):
         _require(f"m4_audio {words}: {dbfs(errs['m4_audio']):.1f} dBFS", errs["m4_audio"] <= limit)
         for name, err in errs.items():
             records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+        if B == 65536:
+            set_tick_us(records["m4_event"], B // 32, cuda_ms(lambda: m4.m4_event(e.ctl, *ins), 3))
         if (words, fs, B) != M4_KERNEL_CASES[0]:
             continue
         Nc, L, n_in, n_out = B // 32, e.ctl.p["buf_len"], CHANNELS, e.audio.n_out
@@ -1014,6 +1047,7 @@ def matrix4_phase(records):
             plain_ms = cuda_ms(plain, 2)
             set_times(records[name], ms, plain_ms, nbytes, flops)
             print(f"  {name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        set_tick_us(records["m4_event"], Nc, records["m4_event"]["ms"])
 
 
 def matrix4_no_sync():
@@ -1054,6 +1088,7 @@ MB_KERNEL_CASES = (
     ("matrix4_mb -6", 48000, 2048),
     ("matrix4_mb -6", FS, 1056),
     ("matrix4_mb -6", 192000, 8192),
+    ("matrix4_mb -6", FS, 65536),
 )
 # the audio path against its plain version: the allpass scans group
 # another way, the band sums are the same order
@@ -1093,13 +1128,14 @@ def matrix4_mb_phase(records):
           "(3 blocks after 2 s of transients)")
     for words, fs, B in MB_KERNEL_CASES:
         e, st = mb_effect(words, fs, B)
-        x = torch.as_tensor(transient_signal(2.5, fs), device="cuda")
-        warm = x.shape[0] // B - 3
+        seconds, blocks = check_blocks(B, fs)
+        x = torch.as_tensor(transient_signal(seconds, fs), device="cuda")
+        warm = x.shape[0] // B - blocks
         for blk in range(warm):
             st, _ = e.step(st, x[blk * B:(blk + 1) * B].contiguous())
         errs = {"bank": 0.0, "m4mb_env": 0.0, "m4mb_event": 0.0, "m4mb_audio": 0.0}
         plan = e._bank_plan(B)
-        for blk in range(warm, warm + 3):
+        for blk in range(warm, warm + blocks):
             xb = x[blk * B:(blk + 1) * B].contiguous()
             _, s_pre = e._cascade("fsh", st["fshape_m"].reshape(2, 2, 2), e._pair.take(xb).contiguous())
             xt = s_pre.repeat(1, m4.N_BANDS)
@@ -1156,6 +1192,8 @@ def matrix4_mb_phase(records):
             ms = cuda_ms(lambda: iir.lti_blocked(plan, bank_st, xt), 10)
             print(f"  the bank at L = 1, B={B}: kernel {ms:.4f} ms (bound "
                   f"{bound(bank_bytes, bank_flops)[0]:.6f} ms)")
+        if B == 65536:
+            set_tick_us(records["m4mb_event"], B // 32, cuda_ms(lambda: m4.m4mb_event(*ins), 3))
         if (words, fs, B) != MB_KERNEL_CASES[0]:
             continue
         Nc, Lr, S = B // 32, e.ctl.p["buf_len"], m4.N_BANDS
@@ -1196,6 +1234,7 @@ def matrix4_mb_phase(records):
             set_times(records[name], ms, plain_ms, nbytes, flops)
             print(f"  {name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                   f"{records[name]['bound_ms']:.6f} ms ({records[name]['bound_by']})")
+        set_tick_us(records["m4mb_event"], Nc, records["m4mb_event"]["ms"])
 
 
 def matrix4_mb_no_sync():
@@ -2090,12 +2129,14 @@ M4_F32_CASES = (
     ("matrix4 matrix=v1 -6", FS, 2048),
     ("matrix4 direct_path -6", FS, 2048),
     ("matrix4 -6", FS, 1056),
+    ("matrix4 -6", FS, 65536),
 )
 MB_F32_CASES = (
     ("matrix4_mb -6", FS, 2048),
     ("matrix4_mb filter_type=butterworth,freq_mask=0.5 -6", FS, 2048),
     ("matrix4_mb -6", 48000, 2048),
     ("matrix4_mb -6", FS, 1056),
+    ("matrix4_mb -6", FS, 65536),
 )
 # the (hi, lo) sums of the float32 engines against their plain versions, as
 # each float64 phase holds its engine's floats (matrix4_phase, matrix4_mb_phase)
@@ -2156,11 +2197,12 @@ def float32_m4_phase(records):
         cc = CompiledChain(build_chain_from_string(words, StreamInfo(fs, CHANNELS)), B, dtype=f32,
                            device="cuda")
         e = cc._runtime_effects[0]
-        x = torch.as_tensor(transient_signal(2.5, fs), dtype=f32, device="cuda")
-        warm = x.shape[0] // B - 3
+        seconds, blocks = check_blocks(B, fs)
+        x = torch.as_tensor(transient_signal(seconds, fs), dtype=f32, device="cuda")
+        warm = x.shape[0] // B - blocks
         cc.run_blocks(x[: warm * B].reshape(warm, B, CHANNELS))
         rel = ulps = 0.0
-        for blk in range(warm, warm + 3):
+        for blk in range(warm, warm + blocks):
             st = cc.states[0]
             xb = x[blk * B:(blk + 1) * B].contiguous()
             _, (hi, lo) = iir.lti_blocked_df(e._bp_plan(B), st["bpc"], xb)
@@ -2195,6 +2237,8 @@ def float32_m4_phase(records):
         _require(f"m4_env_f32 {words}: {rel:.3e} relative", rel <= M4_F32_REL)
         for name in ("m4_env_f32", "m4_event_f32"):
             records[name]["max_abs_err"] = max(records[name]["max_abs_err"], rel)
+        if B == 65536:
+            set_tick_us(records["m4_event_f32"], B // 32, cuda_ms(lambda: m4.m4_event_f32(*ins), 3))
         if (words, fs, B) != M4_F32_CASES[0]:
             continue
         Nc, Lr, n_out = B // 32, e.ctl.p["buf_len"], e.audio.n_out
@@ -2223,18 +2267,20 @@ def float32_m4_phase(records):
             set_times(records[name], ms, plain_ms, nbytes, flops)
             print(f"  {name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                   f"{records[name]['bound_ms']:.6f} ms ({records[name]['bound_by']})")
+        set_tick_us(records["m4_event_f32"], Nc, records["m4_event_f32"]["ms"])
 
     print("K1-df, K3, K9-K13 in float32 (matrix4_mb): the fshape, the bank, m4mb_env_f32, "
           "m4mb_event_f32, m4mb_audio_f32 (3 blocks after 2 s of transients)")
     for words, fs, B in MB_F32_CASES:
         e, st = mb_effect(words, fs, B, f32)
-        x = torch.as_tensor(transient_signal(2.5, fs), dtype=f32, device="cuda")
-        warm = x.shape[0] // B - 3
+        seconds, blocks = check_blocks(B, fs)
+        x = torch.as_tensor(transient_signal(seconds, fs), dtype=f32, device="cuda")
+        warm = x.shape[0] // B - blocks
         for blk in range(warm):
             st, _ = e.step(st, x[blk * B:(blk + 1) * B].contiguous())
         plan = e._bank_plan(B)
         rel = ulps = 0.0
-        for blk in range(warm, warm + 3):
+        for blk in range(warm, warm + blocks):
             xb = x[blk * B:(blk + 1) * B].contiguous()
             _, s_pre = e._cascade("fsh", st["fshape_m"].reshape(2, 2, 2), xb)
             _, (hi, lo) = iir.lti_blocked_df(plan, st["bank"]["fused"], s_pre.repeat(1, 13))
@@ -2268,6 +2314,9 @@ def float32_m4_phase(records):
         _require(f"m4mb_env_f32 {words}: {rel:.3e} relative", rel <= MB_F32_REL)
         for name in ("m4mb_env_f32", "m4mb_event_f32"):
             records[name]["max_abs_err"] = max(records[name]["max_abs_err"], rel)
+        if B == 65536:
+            set_tick_us(records["m4mb_event_f32"], B // 32,
+                        cuda_ms(lambda: m4.m4mb_event_f32(*ins), 3))
         if (words, fs, B) != MB_F32_CASES[0]:
             continue
         Nc, Lr, S = B // 32, e.ctl.p["buf_len"], 13
@@ -2293,6 +2342,7 @@ def float32_m4_phase(records):
             set_times(records[name], ms, plain_ms, nbytes, flops)
             print(f"  {name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                   f"{records[name]['bound_ms']:.6f} ms ({records[name]['bound_by']})")
+        set_tick_us(records["m4mb_event_f32"], Nc, records["m4mb_event_f32"]["ms"])
 
 
 REPLAY_SECONDS = 10
@@ -2972,6 +3022,8 @@ def main_path(records, seconds, tmp):
            "m4_audio": m4.m4_audio, "splice": fft_conv.splice}
     cli_run("matrix4 -6 -b 2048 (44.1 kHz -> 4 ch)", MATRIX4.split(), 2048, m4w, *common,
             keep=keep((MATRIX4, 2048)))
+    # a block of 2048 control ticks, where the engine sets the pace
+    cli_run("matrix4 -6 -b 65536 (44.1 kHz -> 4 ch)", MATRIX4.split(), 65536, m4w, *common)
     cli_run("resample 48k matrix4 -6 -b 2048 (48 kHz quad)", UPMIX48.split(), 2048,
             {**m4w, "rfft_pack": fft_conv.rfft_pack, "resample_fold": resample_ops.resample_fold,
              "irfft_crop": fft_conv.irfft_crop}, *common, onset=ONSET)
@@ -2987,6 +3039,8 @@ def main_path(records, seconds, tmp):
     cli_run("matrix4_mb -6 -b 2048 (44.1 kHz -> 4 ch)", MATRIX4_MB.split(), 2048, mbw, *common,
             onset=MB_ONSET, compare=MB_COMPARE_SECONDS, keep=keep((MATRIX4_MB, 2048)))
     records["lti_blocked@bank"]["launches"] += iir.lti_blocked.launches
+    cli_run("matrix4_mb -6 -b 65536 (44.1 kHz -> 4 ch)", MATRIX4_MB.split(), 65536, mbw, *common,
+            onset=MB_ONSET, compare=MB_COMPARE_SECONDS)
     cli_run("mixed -b 2048 (eq, delay -f, fir 4k, matrix4_mb)", mixed_chain(f4k).split(), 2048,
             mbw, *common, onset=MB_ONSET, compare=MB_COMPARE_SECONDS)
     src60 = tmp / "in60.wav"
@@ -3153,6 +3207,7 @@ def main():
         tmp.mkdir(parents=True, exist_ok=True)
         f1m, f4k, kept = timed(main_path, records, SECONDS, tmp)
         timed(float32_phase, records, tmp, kept)
+        engine_tick_line(records)
         timed(float32_time_domain_cli, records, tmp)
         timed(nupols_no_sync, f1m)
         timed(delivery_no_sync)

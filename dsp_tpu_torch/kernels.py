@@ -259,16 +259,16 @@ class _Library:
                 lib.dsp_m4_env_f64.restype = i
                 lib.dsp_m4_env_f32.argtypes = [p] * 8 + [d, i, i, i, p]
                 lib.dsp_m4_env_f32.restype = i
-                lib.dsp_m4_event_f64.argtypes = [p] * 13 + [i, i, ll, i, p]
+                lib.dsp_m4_event_f64.argtypes = [p] * 12 + [i] * 4 + [ll, ll, i, p]
                 lib.dsp_m4_event_f64.restype = i
-                lib.dsp_m4_event_f32.argtypes = [p] * 15 + [i, i, ll, i, p]
+                lib.dsp_m4_event_f32.argtypes = [p] * 14 + [i] * 4 + [ll, ll, i, p]
                 lib.dsp_m4_event_f32.restype = i
                 for fn in (lib.dsp_m4_audio_f64, lib.dsp_m4_audio_f32):
                     fn.argtypes = [p] * 13 + [i, p]
                     fn.restype = i
-                lib.dsp_m4mb_event_f64.argtypes = [p] * 13 + [i, ll, i, p]
+                lib.dsp_m4mb_event_f64.argtypes = [p] * 12 + [i] * 3 + [ll, ll, i, p]
                 lib.dsp_m4mb_event_f64.restype = i
-                lib.dsp_m4mb_event_f32.argtypes = [p] * 15 + [i, ll, i, p]
+                lib.dsp_m4mb_event_f32.argtypes = [p] * 14 + [i] * 3 + [ll, ll, i, p]
                 lib.dsp_m4mb_event_f32.restype = i
                 for fn in (lib.dsp_m4mb_audio_f64, lib.dsp_m4mb_audio_f32):
                     fn.argtypes = [p] * 9 + [i, p]
@@ -489,14 +489,15 @@ def _ev_ptrs(ev, ev_lo=None):
     return ptrs
 
 
-def launch_m4_event(ctl, ev, ev_out, bg, bg_out, env_ds, eo, vt, iy_in, ics, iy_out, aux, fade_p,
-                    disable, lo=None):
-    """lo None (float64), or the float32 entry's lo parts (ev_lo, ev_out_lo,
-    bg_lo, bg_out_lo)."""
+def launch_m4_event(ctl, ev, ev_out, bg, bg_out, env_ds, vt, iy_in, ics, iy_out, aux, fade_p,
+                    disable, geometry, lo=None):
+    """geometry: (threads, chunk, shared memory bytes), ops/m4_engine's
+    event_geometry; lo None (float64), or the float32 entry's lo parts
+    (ev_lo, ev_out_lo, bg_lo, bg_out_lo)."""
     S, Nc = env_ds.shape[0], env_ds.shape[1]
     evp, k10 = ctl.c_structs()
-    tail = (_ptr(env_ds), _ptr(eo), _ptr(vt), _ptr(iy_in), _ptr(ics), _ptr(iy_out), _ptr(aux),
-            ctypes.byref(evp), ctypes.byref(k10), S, Nc, fade_p, int(disable),
+    tail = (_ptr(env_ds), _ptr(vt), _ptr(iy_in), _ptr(ics), _ptr(iy_out), _ptr(aux),
+            ctypes.byref(evp), ctypes.byref(k10), S, Nc, *geometry, fade_p, int(disable),
             _stream(env_ds))
     if lo is None:
         rc = load().dsp_m4_event_f64(ctypes.byref(_ev_ptrs(ev)), ctypes.byref(_ev_ptrs(ev_out)),
@@ -520,14 +521,14 @@ def launch_m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m, y, shelf_ou
     _check(rc, "m4_audio")
 
 
-def launch_m4mb_event(ctl, ev, ev_out, evt, evt_out, env_ds, eo, vt, iy_in, ics, iy_out, aux,
-                      fade_p, disable, lo=None):
-    """lo None (float64), or the float32 entry's lo parts (ev_lo, ev_out_lo,
-    evt_lo, evt_out_lo)."""
+def launch_m4mb_event(ctl, ev, ev_out, evt, evt_out, env_ds, vt, iy_in, ics, iy_out, aux, fade_p,
+                      disable, geometry, lo=None):
+    """geometry and lo as launch_m4_event's (lo: ev_lo, ev_out_lo, evt_lo,
+    evt_out_lo)."""
     evp, mb = ctl.c_structs()
-    tail = (_ptr(env_ds), _ptr(eo), _ptr(vt), _ptr(iy_in), _ptr(ics), _ptr(iy_out), _ptr(aux),
-            ctypes.byref(evp), ctypes.byref(mb), env_ds.shape[0], fade_p, int(disable),
-            _stream(env_ds))
+    tail = (_ptr(env_ds), _ptr(vt), _ptr(iy_in), _ptr(ics), _ptr(iy_out), _ptr(aux),
+            ctypes.byref(evp), ctypes.byref(mb), env_ds.shape[0], *geometry, fade_p,
+            int(disable), _stream(env_ds))
     if lo is None:
         rc = load().dsp_m4mb_event_f64(ctypes.byref(_ev_ptrs(ev)), ctypes.byref(_ev_ptrs(ev_out)),
                                        _ptr(evt), _ptr(evt_out), *tail)

@@ -12,11 +12,14 @@ masked EWMA replay. Three kernels run them on the card:
 
 * ``m4_env`` (K11, csrc/m4_env.cu): the eight envelope EWMAs of the
   band-limited pair, decimated to the fs/32 ticks;
-* ``m4_event`` (K9 + K10, csrc/m4_event.cu): the event engine and the
-  background-weight smoother tick by tick, one thread a lane; then, for
-  every tick at once, the fade, the contour gains, the matrix coefficients,
-  the phase flip and the direct pan, and the parabolic interpolator's
-  coefficient sets;
+* ``m4_event`` (K9 + K10, csrc/m4_event.cu): the event engine tick by
+  tick, one block a lane, in three overlapped roles over chunks of ticks
+  (``event_geometry``): a warp computes the decision-free part of each
+  tick ahead of the chain, one thread runs the decisions, and two warps run
+  the background-weight smoother, the fade, the contour gains, the matrix
+  coefficients, the phase flip and the direct pan, and the parabolic
+  interpolator's coefficient sets, a chunk behind (the whole block takes
+  the first chunk's pre-phase and the last chunk's epilogue);
 * ``m4_audio`` (K12 + K13, csrc/m4_audio.cu): the interpolated matrix
   values, the lookahead-delayed 2 -> 4 matrix, the dynamic shelf and
   lowpass, the phase-flip allpasses and the output columns.
@@ -27,7 +30,8 @@ modulate together every tick (``mb_threshold_ref``), on three more:
 * ``m4mb_env`` (K11 over lanes, csrc/m4_env.cu): the frequency-mask mix
   and the envelopes of the 13 bands;
 * ``m4mb_event`` (K9 + K10, csrc/m4_event.cu): the 13 coupled engines in
-  one warp, then matrix4_mb's epilogue and interpolator insert;
+  one warp, with the same roles around them, and matrix4_mb's epilogue and
+  interpolator insert;
 * ``m4mb_audio`` (K12 + K13, csrc/m4mb_audio.cu): the delayed bands
   through their matrices, the 26 phase-flip allpasses, the band sums and
   the direct path.
@@ -59,7 +63,7 @@ import math
 import numpy as np
 import torch
 
-from dsp_tpu_torch.ops.fft_conv import _check_cuda, _check_dtypes
+from dsp_tpu_torch.ops.fft_conv import SMEM_LIMIT, _check_cuda, _check_dtypes
 from dsp_tpu_torch.ops.iir import split_f64
 
 EVENT_THRESH = 1.8
@@ -938,6 +942,39 @@ def _launch_env(name, bands, env_m, g, w=None, lo=None):
     return env_out, env_out_lo, env_ds
 
 
+# csrc/m4_event.cu's launch: four warps (the chain, the pre-phase and two of
+# epilogue), a chunk of at most EVENT_MAX_CHUNK ticks (16 for matrix4_mb,
+# whose table a tick is 13 times matrix4's), and its shared memory: the
+# rings (10 buf_len doubles a band), two tables of EVENT_TABLE_SLOTS and two
+# of EVENT_OUTPUTS doubles a tick and band, and for matrix4_mb two chunks of
+# its 169 similarity terms a tick and the 26 diffs before a chunk. A block
+# may hold SMEM_LIMIT bytes.
+EVENT_THREADS = 128
+EVENT_MAX_CHUNK = 32
+EVENT_MB_CHUNK = 16
+EVENT_TABLE_SLOTS = 14
+EVENT_OUTPUTS = 8
+
+
+def event_geometry(bands, buf_len, Nc):
+    """(threads, chunk, shared memory bytes) of one m4_event (bands = 1)
+    or m4mb_event (bands = 13) launch over Nc ticks with rings of buf_len:
+    the largest chunk up to the engine's cap, and no longer than Nc, whose
+    memory fits. Raises ValueError if none does."""
+    def smem(chunk):
+        mb = 2 * chunk * N_BANDS * N_BANDS + 2 * N_BANDS if bands == N_BANDS else 0
+        return 8 * (bands * 10 * buf_len
+                    + 2 * chunk * bands * (EVENT_TABLE_SLOTS + EVENT_OUTPUTS) + mb)
+
+    chunk = min(EVENT_MB_CHUNK if bands == N_BANDS else EVENT_MAX_CHUNK, Nc)
+    while chunk > 1 and smem(chunk) > SMEM_LIMIT:
+        chunk -= 1
+    if chunk < 1 or smem(chunk) > SMEM_LIMIT:
+        raise ValueError(f"event engine: {bands} band(s) with rings of {buf_len} need "
+                         f"{smem(1)} bytes of shared memory, more than {SMEM_LIMIT}")
+    return EVENT_THREADS, chunk, smem(chunk)
+
+
 def fade_ticks(fade_p, disable, fade_frames, Nc, like):
     """The fade multiplier at each control tick (fade_mult,
     matrix4_common.h:265-280; fade_p counts down per audio sample)."""
@@ -975,13 +1012,12 @@ def m4_event(ctl, ev, bg, env_ds, interp_y, fade_p, disable):
     out = {k: torch.empty_like(v) for k, v in ev.items()}
     bg_out = torch.empty_like(bg)
     dev = env_ds.device
-    eo = torch.empty((S, Nc, 8), dtype=torch.float64, device=dev)
     vt = torch.empty((S, Nc, N_INTERP), dtype=torch.float64, device=dev)
     ics = torch.empty((S, Nc, 3, N_INTERP), dtype=torch.float64, device=dev)
     iy_out = torch.empty_like(interp_y)
     aux = torch.empty((S, Nc, 4), dtype=torch.float64, device=dev)
-    kernels.launch_m4_event(ctl, ev, out, bg, bg_out, env_ds, eo, vt, interp_y, ics, iy_out, aux,
-                            int(fade_p), bool(disable))
+    kernels.launch_m4_event(ctl, ev, out, bg, bg_out, env_ds, vt, interp_y, ics, iy_out, aux,
+                            int(fade_p), bool(disable), event_geometry(1, ctl.p["buf_len"], Nc))
     m4_event.launches += 1
     return out, bg_out, ics, iy_out, aux
 
@@ -1011,13 +1047,13 @@ def m4_event_f32(ctl, ev, ev_lo, bg, bg_lo, env_ds, interp_y, fade_p, disable):
     out, out_lo = _empty_state(ev, ev_lo)
     bg_out, bg_out_lo = torch.empty_like(bg), torch.empty_like(bg_lo)
     dev, f32 = env_ds.device, torch.float32
-    eo = torch.empty((S, Nc, 8), dtype=torch.float64, device=dev)
     vt = torch.empty((S, Nc, N_INTERP), dtype=torch.float64, device=dev)
     ics = torch.empty((S, Nc, 3, N_INTERP), dtype=f32, device=dev)
     iy_out = torch.empty_like(interp_y)
     aux = torch.empty((S, Nc, 4), dtype=f32, device=dev)
-    kernels.launch_m4_event(ctl, ev, out, bg, bg_out, env_ds, eo, vt, interp_y, ics, iy_out, aux,
-                            int(fade_p), bool(disable), lo=(ev_lo, out_lo, bg_lo, bg_out_lo))
+    kernels.launch_m4_event(ctl, ev, out, bg, bg_out, env_ds, vt, interp_y, ics, iy_out, aux,
+                            int(fade_p), bool(disable), event_geometry(1, ctl.p["buf_len"], Nc),
+                            lo=(ev_lo, out_lo, bg_lo, bg_out_lo))
     m4_event_f32.launches += 1
     return out, out_lo, bg_out, bg_out_lo, ics, iy_out, aux
 
@@ -1496,13 +1532,13 @@ def m4mb_event(ctl, ev, evt, env_ds, interp_y, fade_p, disable):
     out = {k: torch.empty_like(v) for k, v in ev.items()}
     evt_out = torch.empty_like(evt)
     dev = env_ds.device
-    eo = torch.empty((N_BANDS, Nc, 8), dtype=torch.float64, device=dev)
     vt = torch.empty((Nc, N_BANDS, N_SIG_MB), dtype=torch.float64, device=dev)
     ics = torch.empty((Nc, 3, N_BANDS, N_SIG_MB), dtype=torch.float64, device=dev)
     iy_out = torch.empty_like(interp_y)
     aux = torch.empty((Nc, N_BANDS, 2), dtype=torch.float64, device=dev)
-    kernels.launch_m4mb_event(ctl, ev, out, evt, evt_out, env_ds, eo, vt, interp_y, ics, iy_out,
-                              aux, int(fade_p), bool(disable))
+    kernels.launch_m4mb_event(ctl, ev, out, evt, evt_out, env_ds, vt, interp_y, ics, iy_out, aux,
+                              int(fade_p), bool(disable),
+                              event_geometry(N_BANDS, ctl.p["buf_len"], Nc))
     m4mb_event.launches += 1
     return out, evt_out, ics, iy_out, aux
 
@@ -1533,13 +1569,13 @@ def m4mb_event_f32(ctl, ev, ev_lo, evt, evt_lo, env_ds, interp_y, fade_p, disabl
     out, out_lo = _empty_state(ev, ev_lo)
     evt_out, evt_out_lo = torch.empty_like(evt), torch.empty_like(evt_lo)
     dev, f32 = env_ds.device, torch.float32
-    eo = torch.empty((N_BANDS, Nc, 8), dtype=torch.float64, device=dev)
     vt = torch.empty((Nc, N_BANDS, N_SIG_MB), dtype=torch.float64, device=dev)
     ics = torch.empty((Nc, 3, N_BANDS, N_SIG_MB), dtype=f32, device=dev)
     iy_out = torch.empty_like(interp_y)
     aux = torch.empty((Nc, N_BANDS, 2), dtype=f32, device=dev)
-    kernels.launch_m4mb_event(ctl, ev, out, evt, evt_out, env_ds, eo, vt, interp_y, ics, iy_out,
-                              aux, int(fade_p), bool(disable),
+    kernels.launch_m4mb_event(ctl, ev, out, evt, evt_out, env_ds, vt, interp_y, ics, iy_out, aux,
+                              int(fade_p), bool(disable),
+                              event_geometry(N_BANDS, ctl.p["buf_len"], Nc),
                               lo=(ev_lo, out_lo, evt_lo, evt_out_lo))
     m4mb_event_f32.launches += 1
     return out, out_lo, evt_out, evt_out_lo, ics, iy_out, aux

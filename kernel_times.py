@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Time dsp_tpu_torch's FFT-convolution transforms and splice on one CUDA
-card, per call and device-only, beside the PyTorch call that computes the
-same function, and compare two trees of the repository on the same card.
+"""Time dsp_tpu_torch's FFT-convolution transforms and splice and the
+matrix4 / matrix4_mb event engines on one CUDA card, beside the PyTorch call
+that computes the same function where there is one, and compare two trees
+of the repository on the same card.
 
     python3 kernel_times.py                    # this checkout: one JSON line
     python3 kernel_times.py --tree DIR         # the dsp_tpu_torch beside DIR
     python3 kernel_times.py --against DIR      # DIR and this checkout in turns
                                                # (DIR, this, this, DIR), a table
+    python3 kernel_times.py --rows engines ... # only the engine rows (or fft,
+                                               # or cli)
 
 DIR is an unpacked checkout of another commit (e.g. `git archive <commit> |
 tar -x -C .smoke_tmp/parent`). Each tree runs in a process of its own, since
@@ -19,8 +22,26 @@ splice_f32, and the Upols and resampler steps. A row's times:
   between CUDA events, after a warm-up (for a call this short, the host's
   enqueue);
 * device-only: chip_smoke.py's device_ms, the card's kernels as
-  torch.profiler records them over 20 calls, summed, a call; with the
-  kernels a call.
+  torch.profiler records them over 20 calls (5 for a block of 2048 ticks),
+  summed, a call; with the kernels a call.
+
+The engine rows time m4_event, m4_event_f32, m4mb_event and m4mb_event_f32
+per call and device-only at Nc = 64 and 2048 control ticks (blocks of 2048
+and 65536 at 44.1 kHz), with the microseconds a tick. Their inputs are the arguments
+`matrix4 -6` and `matrix4_mb -6` hand the engine after 1 s (B = 2048) or one
+block (B = 65536) of chip_smoke.py's transient material through the chain
+on the card, made once and saved (ENGINE_INPUTS), so that every tree runs the
+same ones. With --against each tree also saves the engines' outputs on those
+inputs, and the table says whether the two trees' outputs are bit-equal; if
+not, the largest difference and whether a decision (a bool or integer leaf)
+moved.
+
+The cli rows (asked for alone) run dsp-torch file to file on
+chip_smoke.py's 300 s main-path input (written once beside ENGINE_INPUTS),
+`matrix4 -6` and `matrix4_mb -6` at -b 2048 and 65536, and give each run's
+x realtime (seconds of audio over wall seconds, the kernels built before)
+and a digest of its render; the table says whether the trees' renders are
+bit-equal.
 
 The rows are chip_smoke.py's main-path shapes, where chip_smoke.py holds
 each kernel against its plain version; this script only times them. Prints
@@ -29,14 +50,25 @@ CUDA card; exits nonzero without one.
 """
 
 import argparse
+import contextlib
+import hashlib
+import io
 import json
+import os
+import time
 import subprocess
 import sys
 from pathlib import Path
 
-from chip_smoke import card_info, cuda_ms, device_ms
+from chip_smoke import CHANNELS, FS, MATRIX4, MATRIX4_MB, SECONDS, card_info, cuda_ms, \
+    device_ms, transient_signal, write_input
 
 ROOT = Path(__file__).resolve().parent
+ENGINE_INPUTS = ROOT / ".smoke_tmp" / "engine_inputs.pt"
+# (entry, chain, block, float32): Nc = block / 32 ticks
+ENGINE_CASES = tuple((f"{name}{sfx}", chain, B, sfx == "_f32")
+                     for name, chain in (("m4_event", MATRIX4), ("m4mb_event", MATRIX4_MB))
+                     for sfx in ("", "_f32") for B in (2048, 65536))
 
 
 def rows():
@@ -92,12 +124,134 @@ def rows():
     ]
 
 
-def measure():
+def _engine_chain(chain, B, f32):
+    """The chain on the card, and the engine's control object (M4Control
+    or M4MbControl) of its upmix."""
+    import torch
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+
+    cc = CompiledChain(build_chain_from_string(chain, StreamInfo(FS, CHANNELS)), B,
+                       dtype=torch.float32 if f32 else None, device="cuda")
+    return cc, next(e.ctl for e in cc._runtime_effects if hasattr(e, "ctl"))
+
+
+def engine_inputs(path):
+    """{entry@B: the engine's arguments after ctl, on the CPU}: made on the
+    card by the chain itself (a spy on the wrapper catches the arguments of
+    the block after the warm-up) unless `path` holds them already."""
+    import torch
+
+    from dsp_tpu_torch.ops import m4_engine as m4
+
+    if path.exists():
+        return torch.load(path)
+    got = {}
+    for entry, chain, B, f32 in ENGINE_CASES:
+        cc, _ = _engine_chain(chain, B, f32)
+        warm = 21 if B == 2048 else 1
+        x = torch.as_tensor(transient_signal((warm + 1) * B / FS + 0.01),
+                            dtype=torch.float32 if f32 else torch.float64, device="cuda")
+        x = x[: (warm + 1) * B].reshape(warm + 1, B, CHANNELS)
+        cc.run_blocks(x[:warm])
+        fn, caught = getattr(m4, entry), []
+
+        def spy(*args, fn=fn, caught=caught):
+            caught.append(args[1:])
+            return fn(*args)
+
+        spy.launches = 0  # the wrapper counts its launches on the module's name
+        setattr(m4, entry, spy)
+        try:
+            cc.run_blocks(x[warm:])
+        finally:
+            setattr(m4, entry, fn)
+        got[f"{entry}@{B}"] = _to(caught[-1], "cpu")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(got, path)
+    return got
+
+
+def _to(tree, device):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree
+
+
+def engine_rows(inputs_path):
+    """(name, the engine's call, Nc) for each of ENGINE_CASES."""
+    from dsp_tpu_torch.ops import m4_engine as m4
+
+    inputs = engine_inputs(inputs_path)
+    out = []
+    for entry, chain, B, f32 in ENGINE_CASES:
+        _, ctl = _engine_chain(chain, B, f32)
+        args = _to(inputs[f"{entry}@{B}"], "cuda")
+        fn = getattr(m4, entry)
+        out.append((f"{entry} Nc={B // 32}", lambda fn=fn, ctl=ctl, args=args: fn(ctl, *args),
+                    B // 32))
+    return out
+
+
+CLI_CASES = ((MATRIX4, 2048), (MATRIX4, 65536), (MATRIX4_MB, 2048), (MATRIX4_MB, 65536))
+
+
+def cli_rows(inputs_path):
+    """Each of CLI_CASES through dsp-torch on the card: x realtime and a
+    digest of the render."""
+    from dsp_tpu_torch import kernels
+    from dsp_tpu_torch.cli.main import main as cli_main
+
+    src = inputs_path.parent / "cli_in.wav"
+    if not src.exists():
+        src.parent.mkdir(parents=True, exist_ok=True)
+        write_input(src, SECONDS)
+    kernels.load()
+    os.environ["DSP_TPU_TORCH_DEVICE"] = "cuda"
+    dst = inputs_path.parent / f"cli_out_{os.getpid()}.wav"
+    out = []
+    for chain, block in CLI_CASES:
+        argv = ["-b", str(block), "-q", str(src), "-o", "-e", "double", str(dst), *chain.split()]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = cli_main(argv)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise SystemExit(f"kernel_times: dsp-torch {' '.join(argv)} exited {rc}")
+        out.append({"name": f"{chain} -b {block}", "x_realtime": SECONDS / wall,
+                    "digest": hashlib.sha256(dst.read_bytes()).hexdigest()[:16]})
+    dst.unlink()
+    return out
+
+
+def measure(which, inputs_path, save=None):
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: CUDA is not available")
+    if which == "cli":
+        return cli_rows(inputs_path)
     out = []
+    if which in ("all", "engines"):
+        outputs = {}
+        for name, kern, Nc in engine_rows(inputs_path):
+            ms = cuda_ms(kern, 50 if Nc <= 64 else 10)
+            dev_ms, kernels = device_ms(kern, 20 if Nc <= 64 else 5)
+            out.append({"name": name, "ms": ms, "us_a_tick": ms * 1e3 / Nc, "device_ms": dev_ms,
+                        "device_us_a_tick": dev_ms * 1e3 / Nc, "kernels": kernels})
+            if save is not None:
+                outputs[name] = _to(kern(), "cpu")
+        if save is not None:
+            torch.save(outputs, save)
+    if which == "engines":
+        return out
     for name, kern, lib in rows():
         r = {"name": name, "ms": cuda_ms(kern, 50)}
         r["device_ms"], r["kernels"] = device_ms(kern)
@@ -108,20 +262,61 @@ def measure():
     return out
 
 
-def run_tree(tree):
+def run_tree(tree, which, inputs_path, save):
     """This script on the dsp_tpu_torch beside `tree`, in a process of its
     own; returns its rows."""
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--tree", str(tree)],
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--tree", str(tree),
+                           "--rows", which, "--inputs", str(inputs_path), "--save", str(save)],
                           capture_output=True, text=True, timeout=1200)
     if proc.returncode != 0:
         raise SystemExit(f"kernel_times: {tree}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])["rows"]
 
 
+def compare_outputs(before, after):
+    """{row: "bit-equal", or the largest difference and whether a decision
+    moved} between two trees' saved engine outputs."""
+    import torch
+
+    a_all, b_all = torch.load(before), torch.load(after)
+    verdict = {}
+    for name in a_all:
+        flat_a, flat_b = [], []
+        _flatten(a_all[name], flat_a)
+        _flatten(b_all[name], flat_b)
+        if len(flat_a) == len(flat_b) and all(torch.equal(a, b) for a, b in zip(flat_a, flat_b)):
+            verdict[name] = "bit-equal"
+            continue
+        worst, moved = 0.0, False
+        for a, b in zip(flat_a, flat_b):
+            if a.dtype.is_floating_point:
+                if a.numel():
+                    worst = max(worst, float((a.double() - b.double()).abs().max()))
+            elif not torch.equal(a, b):
+                moved = True
+        verdict[name] = (f"differs: max |diff| {worst:.3e}, "
+                         f"{'a decision moved' if moved else 'no decision moved'}")
+    return verdict
+
+
+def _flatten(tree, out):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _flatten(tree[k], out)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            _flatten(v, out)
+    else:
+        out.append(tree)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=None)
     ap.add_argument("--against", type=Path, default=None)
+    ap.add_argument("--rows", choices=("all", "fft", "engines", "cli"), default="all")
+    ap.add_argument("--inputs", type=Path, default=ENGINE_INPUTS)
+    ap.add_argument("--save", type=Path, default=None)
     args = ap.parse_args()
     if args.against is None:
         tree = (args.tree or ROOT).resolve()
@@ -130,14 +325,19 @@ def main():
 
         if Path(dsp_tpu_torch.__file__).resolve().parent.parent != tree:
             raise SystemExit(f"kernel_times: dsp_tpu_torch imported from {dsp_tpu_torch.__file__}")
-        rows_out = measure()
+        rows_out = measure(args.rows, args.inputs, args.save)
         print(json.dumps({"tree": str(tree), "card": card_info(), "rows": rows_out}))
         return 0
     card = card_info()
     order = [("before", args.against), ("after", ROOT), ("after", ROOT), ("before", args.against)]
-    runs = [(label, run_tree(tree)) for label, tree in order]
+    saves = [args.inputs.parent / f"engine_out_{i}_{label}.pt"
+             for i, (label, _) in enumerate(order)]
+    runs = [(label, run_tree(tree, args.rows, args.inputs, save))
+            for (label, tree), save in zip(order, saves)]
     print(f"card: {card}; order: before, after, after, before")
-    keys = ("ms", "device_ms", "kernels", "library_ms", "library_device_ms")
+    verdict = compare_outputs(saves[0], saves[1]) if args.rows in ("all", "engines") else {}
+    keys = ("ms", "us_a_tick", "device_ms", "device_us_a_tick", "kernels", "library_ms",
+            "library_device_ms", "x_realtime", "digest")
     table = []
     for i, first in enumerate(runs[0][1]):
         name = first["name"]
@@ -149,6 +349,21 @@ def main():
                 if vals:
                     row[f"{label}_{k}"] = vals
         table.append(row)
+        if "before_x_realtime" in row:
+            same = len(set(row["before_digest"] + row["after_digest"])) == 1
+            print(f"{name}: " + "; ".join(
+                f"{label} {'/'.join(f'{v:.1f}' for v in row[f'{label}_x_realtime'])}x realtime"
+                for label in ("before", "after"))
+                + f"; renders {'bit-equal' if same else 'differ'} across the runs")
+            continue
+        if "before_us_a_tick" in row:
+            row["outputs"] = verdict[name]
+            print(f"{name}: " + "; ".join(
+                f"{label} {'/'.join(f'{v:.4f}' for v in row[f'{label}_ms'])} ms a call, "
+                f"{'/'.join(f'{v:.3f}' for v in row[f'{label}_us_a_tick'])} us a tick, "
+                f"device-only {'/'.join(f'{v:.3f}' for v in row[f'{label}_device_us_a_tick'])}"
+                for label in ("before", "after")) + f"; outputs {verdict[name]}")
+            continue
         print(f"{name}: " + "; ".join(
             f"{label} {'/'.join(f'{v:.4f}' for v in row[f'{label}_ms'])} ms a call, "
             f"{'/'.join(f'{v:.4f}' for v in row[f'{label}_device_ms'])} ms device-only, "
