@@ -19,7 +19,10 @@ nvcc and PyTorch built for CUDA. It
    PyTorch version on the same inputs at the main path's shapes: the
    earlier slices' within -200 dBFS, slice C's equal (noise, dither, the
    stats decisions), within 1e-12 relative (sums, levels) or -280 dBFS (the
-   modulated read). K8 at 48 and 192 kHz: equal, the whole step within
+   modulated read); K16's -i walk also on gate-sparse, silent and click
+   input and at B = 1000 and 65536, K15 in every shape at B = 1000 and
+   2048 with zero and -0.0 error histories and lipshitz and wan9 at 65536
+   (stats_interp_cases, dither_cases: every leaf bit-equal but the sums). K8 at 48 and 192 kHz: equal, the whole step within
    -280 dBFS. K9-K13 over 3 blocks of transient material for v4, v1,
    direct_path, phase_flip=false,shelf=none,lowpass=none and the 48 kHz
    block of Nc = 80, and over one block of 65536 (Nc = 2048: the event
@@ -29,7 +32,9 @@ nvcc and PyTorch built for CUDA. It
    13 engines coupled through their thresholds every tick) and K12 + K13
    m4mb_audio, over 3 blocks of transients in seven configurations (v4,
    v1, direct_path, butterworth with freq_mask, 48 kHz, block 1056 for the
-   bank's L = 1 plan, 192 kHz) and one block of 65536: decisions and
+   bank's L = 1 plan, 192 kHz), one block of 65536 and one block each at
+   441, 470.4 and 768 kHz (HIGH_RATE_MB: the 13 bands' rings in a device
+   scratch from 461.9 kHz; also in float32): decisions and
    thresholds equal, floats
    within 1e-13 relative, the bank and the audio within -290 dBFS. Times
    each kernel, its plain version and, where one PyTorch call computes the
@@ -645,6 +650,133 @@ def _require(what, ok):
         raise SmokeError(what)
 
 
+def bits_equal(a, b):
+    """Equal dtype, shape and bits: -0.0 and +0.0 differ."""
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {torch.float64: torch.int64, torch.float32: torch.int32}.get(a.dtype)
+    return torch.equal(a.view(view), b.view(view)) if view else torch.equal(a, b)
+
+
+def td_signal(kind, n, rng):
+    """[n, 2] of one stats -i input: quantized noise (the gate always
+    open), "gate-sparse" (loud, -40 dB, loud, with edges off the 32-sample
+    grid: the gate closes and reopens, also inside a window of the walk),
+    silence, or one click a channel."""
+    import numpy as np
+
+    if kind == "noise":
+        return np.round(rng.standard_normal((n, CHANNELS)) * 0.3 * 32768) / 32768
+    if kind == "gate-sparse":
+        g = np.ones(n)
+        g[int(n * .2) + 5:int(n * .35) + 17] = 0.01
+        g[int(n * .55) + 3:int(n * .7) + 29] = 0.01
+        return rng.standard_normal((n, CHANNELS)) * 0.3 * g[:, None]
+    x = np.zeros((n, CHANNELS))
+    if kind == "click":
+        x[n // 3 + 7, 0] = 0.9
+        x[n // 3 + 40, 1] = -0.7
+    return x
+
+
+# stats -i beyond the main path's noise: (input, block, blocks carried)
+STATS_CASES = (("gate-sparse", 2048, 2), ("silence", 2048, 1), ("click", 2048, 2),
+               ("noise", 1000, 3), ("noise", 65536, 1))
+# the shaped dither beyond the main path's: (block, blocks, error history)
+# for every shape, and B = 65536 for lipshitz and wan9
+DITHER_CASES = ((1000, 2, "zeros"), (2048, 1, "-0.0"))
+
+
+def stats_interp_cases(rec, dtype, rng):
+    """stats -i (stats_step or stats_step_f32) on STATS_CASES, the state
+    carried across the blocks: every leaf bit-equal to the plain version's
+    but the sums (another order: within 1e-12 relative, float32 one ulp of
+    their scale)."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.effects.stats import StatsEffect
+    from dsp_tpu_torch.ops import time_domain as td
+
+    dev = torch.device("cuda")
+    f32 = dtype == torch.float32
+    step = td.stats_step_f32 if f32 else td.stats_step
+    for kind, B, blocks in STATS_CASES:
+        e = StatsEffect("stats", StreamInfo(FS, CHANNELS), np.ones(CHANNELS, dtype=bool), None, 80,
+                        True)
+        table = torch.as_tensor(e._insert_table, dtype=dtype, device=dev)
+        st = {k: torch.as_tensor(v, device=dev) for k, v in e.state0().items()}
+        st = {k: v.to(dtype) if v.is_floating_point() else v for k, v in st.items()}
+        sr = _to_cpu(st)
+        x = torch.as_tensor(td_signal(kind, B * blocks, rng), dtype=dtype,
+                            device=dev).reshape(blocks, B, CHANNELS)
+        for blk in range(blocks):
+            st = step(st, x[blk], table)
+            sr = td.stats_step_ref(sr, x[blk].cpu(), table.cpu())
+            torch.cuda.synchronize()
+            what = f"{step.__name__} -i {kind} B={B} block {blk}"
+            for k in st:
+                if k not in ("sum", "sum_sq"):
+                    _require(f"{what}: {k} differs from the plain version", bits_equal(st[k], sr[k]))
+                elif f32:
+                    ulps, err = _ulps(st[k], sr[k])
+                    _require(f"{what}: {k} {ulps:.2f} ulp of its scale", ulps <= 1.0)
+                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                else:
+                    d = _diff(st[k], sr[k])
+                    _require(f"{what}: {k} {d:.3e}", d <= 1e-12 * max(1.0, float(sr[k].abs().max())))
+                    rec["max_abs_err"] = max(rec["max_abs_err"], d)
+        print(f"  -i {kind} B={B}: every leaf equal over {blocks} block(s)")
+
+
+def dither_cases(dtype, rng):
+    """The shaped dither (tpdf_dither or tpdf_dither_f32) in all six shapes
+    on DITHER_CASES, and lipshitz and wan9 at B = 65536: key, ehist, nprev
+    and y bit-equal to the plain version's."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.effects.dither import DitherEffect
+    from dsp_tpu_torch.ops import time_domain as td
+
+    dev = torch.device("cuda")
+    f32 = dtype == torch.float32
+    fn, ref = (td.tpdf_dither_f32, td.tpdf_dither_f32_ref) if f32 else (td.tpdf_dither,
+                                                                        td.tpdf_dither_ref)
+    for shape in ("flat", "sloped", "sloped2", "lipshitz", "wan3", "wan9"):
+        cases = DITHER_CASES + (((65536, 1, "noise"),) if shape in ("lipshitz", "wan9") else ())
+        for B, blocks, hist in cases:
+            e = DitherEffect("dither", StreamInfo(48000 if shape.startswith("wan") else FS,
+                                                  CHANNELS),
+                             np.ones(CHANNELS, dtype=bool), shape, 16.0, 16, False, False,
+                             seed=4244)
+            args = [torch.as_tensor(v, dtype=None if v.dtype == bool else dtype, device=dev)
+                    for v in (e.n_mult, e.q_mult0, e.q_mult1, e.enabled, e.fir)]
+            eh = {"zeros": np.zeros((9, CHANNELS)), "-0.0": np.full((9, CHANNELS), -0.0),
+                  "noise": rng.standard_normal((9, CHANNELS)) * 1e-5}[hist]
+            st = {"key": torch.as_tensor(e.state0()["key"], device=dev),
+                  "ehist": torch.as_tensor(eh, dtype=dtype, device=dev),
+                  "nprev": torch.as_tensor(rng.uniform(0, 0x7FFFFFFF, CHANNELS), dtype=dtype,
+                                           device=dev)}
+            for blk in range(blocks):
+                xin = torch.as_tensor(rng.standard_normal((B, CHANNELS)) * 0.3, dtype=dtype,
+                                      device=dev)
+                ins = [st["key"], xin, st["ehist"], st["nprev"], *args]
+                out_k = fn(*ins, e.mode)
+                out_r = ref(*_to_cpu(ins), e.mode)
+                torch.cuda.synchronize()
+                for what, a, b in zip(("key", "ehist", "nprev", "y"), out_k, out_r):
+                    _require(f"{fn.__name__} {shape} B={B} ehist {hist} block {blk}: {what} "
+                             f"differs from the plain version", bits_equal(a, b))
+                st = dict(zip(("key", "ehist", "nprev"), out_k[:3]))
+        print(f"  {shape}: equal at " + ", ".join(f"B={B} ({hist})" for B, _, hist in cases))
+
+
 def time_domain_phase(records):
     """Slice C's kernels against their plain versions at the main path's
     shape (B = 2048, stereo): the plain version runs on a host copy of the
@@ -722,6 +854,7 @@ def time_domain_phase(records):
                 print(f"  lipshitz B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
                       f"(a chain of {B} samples a channel)")
         print(f"  {shape}: key, ehist, nprev and y equal")
+    dither_cases(f64, rng)
 
     print("K16 stats_step (B=2048, stereo, quantized input; 3 blocks, a limit in the third)")
     rec = records["stats_step"]
@@ -745,7 +878,7 @@ def time_domain_phase(records):
                     ok = d <= 1e-12 * max(1.0, float(sr[k].abs().max()))
                     rec["max_abs_err"] = max(rec["max_abs_err"], d)
                 else:
-                    ok = d == 0.0
+                    ok = bits_equal(st[k], sr[k])
                 _require(f"stats_step {'-i' if interp else 'plain'} block {blk}: {k} differs "
                          f"({d:.3e})", ok)
         s0 = {k: torch.as_tensor(v, device=dev) for k, v in e.state0().items()}
@@ -762,6 +895,7 @@ def time_domain_phase(records):
         rec["times"].append({"mode": label, "ms": ms, "plain_ms": plain_ms})
         if interp:
             set_times(rec, ms, plain_ms, 8 * B * C + state_bytes, flops)
+    stats_interp_cases(rec, f64, rng)
 
     print("K17 levels_step (B=2048, stereo)")
     rec = records["levels_step"]
@@ -913,8 +1047,8 @@ ENGINES = ("m4_event", "m4_event_f32", "m4mb_event", "m4mb_event_f32")
 def check_blocks(B, fs):
     """(seconds of transient input, blocks held to the plain version) of a
     kernel check at block B: 3 blocks after 2 s of warm-up, or 1 block of
-    65536 after one."""
-    blocks = 1 if B > 8192 else 3
+    65536 after one, or 1 block above 192 kHz."""
+    blocks = 1 if B > 8192 or fs > 192000 else 3
     return max(2.5, (blocks + 1) * B / fs + 0.01), blocks
 
 
@@ -1077,6 +1211,9 @@ def matrix4_no_sync():
     print(f"matrix4 step: 16 blocks ran with no host sync, t = {int(cc.states[0]['ev']['t'])}")
 
 
+# matrix4_mb at the rates where its 13 bands' rings leave shared memory for
+# a device scratch (from 461.9 kHz), and just below: one block each
+HIGH_RATE_MB = tuple(("matrix4_mb -6", fs, 2048) for fs in (441000, 470400, 768000))
 # the matrix4_mb kernel checks: (options, rate, block). 1056 = 33 x 32 takes
 # the bank's L = 1 plan; at 192 kHz the 13 bands' rings need 93.6 KB of
 # shared memory
@@ -1089,6 +1226,7 @@ MB_KERNEL_CASES = (
     ("matrix4_mb -6", FS, 1056),
     ("matrix4_mb -6", 192000, 8192),
     ("matrix4_mb -6", FS, 65536),
+    *HIGH_RATE_MB,
 )
 # the audio path against its plain version: the allpass scans group
 # another way, the band sums are the same order
@@ -1892,6 +2030,7 @@ def float32_time_domain_phase(records):
             print(f"  lipshitz: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
                   f"(a chain of {B} samples a channel)")
         print(f"  {shape}: key, ehist, nprev and y equal over 3 blocks")
+    dither_cases(f32, rng)
 
     print("K16 stats_step_f32 (B=2048, stereo, quantized input; 3 blocks, a limit in the third)")
     rec = records["stats_step_f32"]
@@ -1929,6 +2068,7 @@ def float32_time_domain_phase(records):
         rec["times"].append({"mode": label, "ms": ms, "plain_ms": plain_ms})
         if interp:
             set_times(rec, ms, plain_ms, 4 * B * C + state_bytes, flops, peak=F32_PEAK)
+    stats_interp_cases(rec, f32, rng)
 
     print("K17 levels_step_f32 (B=2048, stereo, 3 blocks)")
     rec = records["levels_step_f32"]
@@ -2137,6 +2277,7 @@ MB_F32_CASES = (
     ("matrix4_mb -6", 48000, 2048),
     ("matrix4_mb -6", FS, 1056),
     ("matrix4_mb -6", FS, 65536),
+    *HIGH_RATE_MB,
 )
 # the (hi, lo) sums of the float32 engines against their plain versions, as
 # each float64 phase holds its engine's floats (matrix4_phase, matrix4_mb_phase)

@@ -38,7 +38,9 @@
 //  * warp 0, the chain: lane 0 (matrix4) or lanes 0-12 (matrix4_mb, one a
 //    band, in lockstep) run the decision-dependent rest of each tick from
 //    the table, with the state in registers and the rings in shared memory
-//    at fixed offsets, and write the tick's engine outputs to shared memory.
+//    at fixed offsets (in a device scratch, L2-resident, where they would
+//    not fit: matrix4_mb from 461.9 kHz), and write the tick's engine
+//    outputs to shared memory.
 //    The lookback walk runs only when a fresh event starts (its result is
 //    read nowhere else). matrix4_mb's threshold modulation is a ballot of the
 //    bands' candidacy and each band's sum of its 13 table terms.
@@ -251,13 +253,16 @@ constexpr int NEO = 8;
 // max_buf (one)
 enum { R_ORD = 0, R_ORD_LP = 2, R_DIFF = 4, R_SLOPE = 6, R_DS_ORD = 8, R_MAX = 9, R_ALL = 10 };
 
-// The shared memory of one launch, in doubles: nb bands' rings, then two
-// tables and two engine-output buffers of a chunk of C ticks, and for
-// matrix4_mb two buffers of similarity terms and the diffs before a chunk.
-// ops/m4_engine.py's event_geometry computes the same size.
-__host__ __device__ inline size_t smem_doubles(int nb, int L, int C) {
+// The shared memory of one launch, in doubles: nb bands' rings (unless
+// they sit in a device scratch: ring_dev), then two tables and two
+// engine-output buffers of a chunk of C ticks, and for matrix4_mb two
+// buffers of similarity terms and the diffs before a chunk.
+// ops/m4_engine.py's event_geometry computes the same size, and moves the
+// rings to the device scratch where they would not fit beside a chunk of
+// one tick (matrix4_mb from 461.9 kHz); there they stay in the L2.
+__host__ __device__ inline size_t smem_doubles(int nb, int L, int C, bool ring_dev) {
     const size_t mb = nb == kBands ? 2 * (size_t)C * kSim + 2 * kBands : 0;
-    return (size_t)nb * R_ALL * L + 2 * (size_t)C * nb * (NT + NEO) + mb;
+    return (ring_dev ? 0 : (size_t)nb * R_ALL * L) + 2 * (size_t)C * nb * (NT + NEO) + mb;
 }
 
 struct Smem {
@@ -268,10 +273,10 @@ struct Smem {
     double* dprev;  // matrix4_mb: diff_lr of the 13 bands, then diff_cs
 };
 
-__device__ inline Smem carve(double* base, int nb, int L, int C) {
+__device__ inline Smem carve(double* base, int nb, int L, int C, double* ring_dev) {
     Smem s;
-    s.ring = base;
-    base += (size_t)nb * R_ALL * L;
+    s.ring = ring_dev != nullptr ? ring_dev : base;
+    base += ring_dev != nullptr ? 0 : (size_t)nb * R_ALL * L;
     for (int k = 0; k < 2; ++k) {
         s.tab[k] = base;
         base += (size_t)C * nb * NT;
@@ -1157,14 +1162,15 @@ __global__ void __launch_bounds__(kMaxThreads)
                     T* __restrict__ bg_out, T* __restrict__ bg_out_lo,
                     const double* __restrict__ env_ds, double* __restrict__ vt,
                     const T* __restrict__ iy_in, T* __restrict__ ics, T* __restrict__ iy_out,
-                    T* __restrict__ aux, EvParams p, K10Params k, int Nc, int C, long long fade_p,
-                    int disable) {
+                    T* __restrict__ aux, double* ring_dev, EvParams p, K10Params k, int Nc,
+                    int C, long long fade_p, int disable) {
     extern __shared__ double smem[];
     const int s = blockIdx.x;
     const int L = p.buf_len;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int nch = (Nc + C - 1) / C;
-    const Smem sm = carve(smem, 1, L, C);
+    const Smem sm =
+        carve(smem, 1, L, C, ring_dev != nullptr ? ring_dev + (size_t)s * R_ALL * L : nullptr);
     const double* env = env_ds + (size_t)s * Nc * 8;
     const int rec = warp == 1 && lane == 0 ? 0 : -1;  // the recurrences' thread
     Pre q;
@@ -1257,13 +1263,13 @@ __global__ void __launch_bounds__(kMaxThreads)
                       T* __restrict__ evt_out, T* __restrict__ evt_out_lo,
                       const double* __restrict__ env_ds, double* __restrict__ vt,
                       const T* __restrict__ iy_in, T* __restrict__ ics, T* __restrict__ iy_out,
-                      T* __restrict__ aux, EvParams base, MbParams k, int Nc, int C,
-                      long long fade_p, int disable) {
+                      T* __restrict__ aux, double* ring_dev, EvParams base, MbParams k, int Nc,
+                      int C, long long fade_p, int disable) {
     extern __shared__ double smem[];
     const int L = base.buf_len;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int nch = (Nc + C - 1) / C;
-    const Smem sm = carve(smem, kBands, L, C);
+    const Smem sm = carve(smem, kBands, L, C, ring_dev);
     constexpr int kRow = kBands * kSigMb;
     const size_t ts = kBands * 8;  // a tick's envelopes
     const int rec = warp == 1 && lane < kBands ? lane : -1;  // band rec's recurrences
@@ -1364,9 +1370,10 @@ __global__ void __launch_bounds__(kMaxThreads)
 // What a launch's geometry must hold: the roles' threads, a chunk of 1 to
 // kMaxChunk ticks, and the shared memory its layout needs (no more than
 // Hopper gives a block).
-__host__ inline bool geometry_ok(int nb, int L, int threads, int C, size_t smem) {
+__host__ inline bool geometry_ok(int nb, int L, int threads, int C, size_t smem, bool ring_dev) {
     return threads >= kMinThreads && threads <= kMaxThreads && threads % 32 == 0 && C >= 1 &&
-           C <= kMaxChunk && smem >= sizeof(double) * smem_doubles(nb, L, C) && smem <= kMaxSmem;
+           C <= kMaxChunk && smem >= sizeof(double) * smem_doubles(nb, L, C, ring_dev) &&
+           smem <= kMaxSmem;
 }
 
 template <class K>
@@ -1379,34 +1386,34 @@ int set_smem(K kernel, size_t smem) {
 template <class P, class T>
 int launch_m4(const P* in, const P* out, const T* bg_in, const T* bg_in_lo, T* bg_out,
               T* bg_out_lo, const double* env_ds, double* vt, const T* iy_in, T* ics, T* iy_out,
-              T* aux, const EvParams* p, const K10Params* k, int S, int Nc, int threads, int C,
-              size_t smem, long long fade_p, int disable, void* stream) {
+              T* aux, double* ring_dev, const EvParams* p, const K10Params* k, int S, int Nc,
+              int threads, int C, size_t smem, long long fade_p, int disable, void* stream) {
     if (S <= 0 || Nc <= 0 || p->buf_len <= 0 || k->fade_frames <= 0 ||
-        !geometry_ok(1, p->buf_len, threads, C, smem)) {
+        !geometry_ok(1, p->buf_len, threads, C, smem, ring_dev != nullptr)) {
         return (int)cudaErrorInvalidValue;
     }
     const int err = set_smem(m4_event_kernel<P, T>, smem);
     if (err != 0) return err;
     m4_event_kernel<P, T><<<S, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-        *in, *out, bg_in, bg_in_lo, bg_out, bg_out_lo, env_ds, vt, iy_in, ics, iy_out, aux, *p,
-        *k, Nc, C, fade_p, disable);
+        *in, *out, bg_in, bg_in_lo, bg_out, bg_out_lo, env_ds, vt, iy_in, ics, iy_out, aux,
+        ring_dev, *p, *k, Nc, C, fade_p, disable);
     return (int)cudaGetLastError();
 }
 
 template <class P, class T>
 int launch_m4mb(const P* in, const P* out, const T* evt_in, const T* evt_in_lo, T* evt_out,
                 T* evt_out_lo, const double* env_ds, double* vt, const T* iy_in, T* ics,
-                T* iy_out, T* aux, const EvParams* p, const MbParams* k, int Nc, int threads, int C,
-                size_t smem, long long fade_p, int disable, void* stream) {
+                T* iy_out, T* aux, double* ring_dev, const EvParams* p, const MbParams* k, int Nc,
+                int threads, int C, size_t smem, long long fade_p, int disable, void* stream) {
     if (Nc <= 0 || p->buf_len <= 0 || k->fade_frames <= 0 ||
-        !geometry_ok(kBands, p->buf_len, threads, C, smem)) {
+        !geometry_ok(kBands, p->buf_len, threads, C, smem, ring_dev != nullptr)) {
         return (int)cudaErrorInvalidValue;
     }
     const int err = set_smem(m4mb_event_kernel<P, T>, smem);
     if (err != 0) return err;
     m4mb_event_kernel<P, T><<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
         *in, *out, evt_in, evt_in_lo, evt_out, evt_out_lo, env_ds, vt, iy_in, ics, iy_out, aux,
-        *p, *k, Nc, C, fade_p, disable);
+        ring_dev, *p, *k, Nc, C, fade_p, disable);
     return (int)cudaGetLastError();
 }
 
@@ -1414,63 +1421,65 @@ int launch_m4mb(const P* in, const P* out, const T* evt_in, const T* evt_in_lo, 
 
 // S lanes of Nc ticks: the event state in and out (EvPtrs), bg [S, 2],
 // env_ds [S, Nc, 8], the scratch vt [S, Nc, 16], interp_y [S, 4, 16] in and
-// out, ics [S, Nc, 3, 16], aux [S, Nc, 4]; the launch's threads, chunk and
-// dynamic shared memory from ops/m4_engine.py's event_geometry. Returns
-// cudaErrorInvalidValue for a geometry the kernel cannot hold, else
-// cudaGetLastError() after the launch (0 on success). The caller checks
-// shapes, dtypes and contiguity.
+// out, ics [S, Nc, 3, 16], aux [S, Nc, 4], ring: null (the rings in shared
+// memory) or the rings' device scratch [S, 10 · buf_len]; the launch's
+// threads, chunk and dynamic shared memory from ops/m4_engine.py's
+// event_geometry. Returns cudaErrorInvalidValue for a geometry the kernel
+// cannot hold, else cudaGetLastError() after the launch (0 on success). The
+// caller checks shapes, dtypes and contiguity.
 extern "C" int dsp_m4_event_f64(const EvPtrs* in, const EvPtrs* out, const double* bg_in,
                                 double* bg_out, const double* env_ds, double* vt,
                                 const double* iy_in, double* ics, double* iy_out, double* aux,
-                                const EvParams* p, const K10Params* k, int S, int Nc, int threads,
-                                int chunk, long long smem, long long fade_p, int disable,
-                                void* stream) {
+                                double* ring, const EvParams* p, const K10Params* k, int S,
+                                int Nc, int threads, int chunk, long long smem, long long fade_p,
+                                int disable, void* stream) {
     return launch_m4<EvPtrs, double>(in, out, bg_in, nullptr, bg_out, nullptr, env_ds, vt, iy_in,
-                                     ics, iy_out, aux, p, k, S, Nc, threads, chunk, (size_t)smem,
-                                     fade_p, disable, stream);
+                                     ics, iy_out, aux, ring, p, k, S, Nc, threads, chunk,
+                                     (size_t)smem, fade_p, disable, stream);
 }
 
 // The same under float32: the state as (hi, lo) pairs (EvPtrsF32), bg as
-// the pair (bg_in, bg_in_lo) in and (bg_out, bg_out_lo) out; env_ds and
-// the scratch float64; interp_y, ics and aux float32.
+// the pair (bg_in, bg_in_lo) in and (bg_out, bg_out_lo) out; env_ds, the
+// scratch and the rings float64; interp_y, ics and aux float32.
 extern "C" int dsp_m4_event_f32(const EvPtrsF32* in, const EvPtrsF32* out, const float* bg_in,
                                 const float* bg_in_lo, float* bg_out, float* bg_out_lo,
                                 const double* env_ds, double* vt, const float* iy_in, float* ics,
-                                float* iy_out, float* aux, const EvParams* p, const K10Params* k,
-                                int S, int Nc, int threads, int chunk, long long smem,
-                                long long fade_p, int disable, void* stream) {
+                                float* iy_out, float* aux, double* ring, const EvParams* p,
+                                const K10Params* k, int S, int Nc, int threads, int chunk,
+                                long long smem, long long fade_p, int disable, void* stream) {
     return launch_m4<EvPtrsF32, float>(in, out, bg_in, bg_in_lo, bg_out, bg_out_lo, env_ds, vt,
-                                       iy_in, ics, iy_out, aux, p, k, S, Nc, threads, chunk,
+                                       iy_in, ics, iy_out, aux, ring, p, k, S, Nc, threads, chunk,
                                        (size_t)smem, fade_p, disable, stream);
 }
 
 // matrix4_mb's 13 coupled band engines over Nc ticks: the event state in and
 // out (EvPtrs, every leaf [13, ...]), the thresholds evt [13], env_ds
 // [Nc, 13, 8], the scratch vt [Nc, 13, 12], interp_y [4, 13, 12] in and out,
-// ics [Nc, 3, 13, 12], aux [Nc, 13, 2]; threads, chunk and shared memory as
-// dsp_m4_event_f64's. `p` holds band 0's event parameters; MbParams the ones
-// that differ by band. Returns as dsp_m4_event_f64.
+// ics [Nc, 3, 13, 12], aux [Nc, 13, 2], ring null or [13 · 10 · buf_len];
+// threads, chunk and shared memory as dsp_m4_event_f64's. `p` holds band
+// 0's event parameters; MbParams the ones that differ by band. Returns as
+// dsp_m4_event_f64.
 extern "C" int dsp_m4mb_event_f64(const EvPtrs* in, const EvPtrs* out, const double* evt_in,
                                   double* evt_out, const double* env_ds, double* vt,
                                   const double* iy_in, double* ics, double* iy_out, double* aux,
-                                  const EvParams* p, const MbParams* k, int Nc, int threads,
-                                  int chunk, long long smem, long long fade_p, int disable,
-                                  void* stream) {
+                                  double* ring, const EvParams* p, const MbParams* k, int Nc,
+                                  int threads, int chunk, long long smem, long long fade_p,
+                                  int disable, void* stream) {
     return launch_m4mb<EvPtrs, double>(in, out, evt_in, nullptr, evt_out, nullptr, env_ds, vt,
-                                       iy_in, ics, iy_out, aux, p, k, Nc, threads, chunk,
+                                       iy_in, ics, iy_out, aux, ring, p, k, Nc, threads, chunk,
                                        (size_t)smem, fade_p, disable, stream);
 }
 
 // The same under float32: the state (EvPtrsF32) and the thresholds as
-// (hi, lo) pairs; env_ds and the scratch float64; interp_y, ics and aux
-// float32.
+// (hi, lo) pairs; env_ds, the scratch and the rings float64; interp_y, ics
+// and aux float32.
 extern "C" int dsp_m4mb_event_f32(const EvPtrsF32* in, const EvPtrsF32* out, const float* evt_in,
                                   const float* evt_in_lo, float* evt_out, float* evt_out_lo,
                                   const double* env_ds, double* vt, const float* iy_in, float* ics,
-                                  float* iy_out, float* aux, const EvParams* p, const MbParams* k,
-                                  int Nc, int threads, int chunk, long long smem, long long fade_p,
-                                  int disable, void* stream) {
+                                  float* iy_out, float* aux, double* ring, const EvParams* p,
+                                  const MbParams* k, int Nc, int threads, int chunk,
+                                  long long smem, long long fade_p, int disable, void* stream) {
     return launch_m4mb<EvPtrsF32, float>(in, out, evt_in, evt_in_lo, evt_out, evt_out_lo, env_ds,
-                                         vt, iy_in, ics, iy_out, aux, p, k, Nc, threads, chunk,
-                                         (size_t)smem, fade_p, disable, stream);
+                                         vt, iy_in, ics, iy_out, aux, ring, p, k, Nc, threads,
+                                         chunk, (size_t)smem, fade_p, disable, stream);
 }

@@ -25,14 +25,23 @@
 // channel is one dependent chain of B samples, with 64 + 3 fused
 // multiply-adds and 4 fits a gated sample; plain mode's running min and max
 // are scans. Latency bounds both, not the 32 KB they read at B = 2048.
-// Design: one warp a channel. Plain mode splits the block into 32 segments:
-// a warp scan of the segments' min and max gives each sample the running
-// min and max the sequential rule compares it with (min and max are exact,
-// so any grouping gives the same numbers), then one pass finds the peak and
-// one counts the events equal to it. -i walks the block in order (its gate
-// depends on every fit before it): the 64-slot buffer lives in the warp's
-// registers, two slots a lane, so a gated sample's 64 FMAs run in parallel
-// and the shift is two shuffles; the gate and the fits run on every lane.
+// Design: a block a channel. Plain mode (one warp) splits the block into 32
+// segments: a warp scan of the segments' min and max gives each sample the
+// running min and max the sequential rule compares it with (min and max are
+// exact, so any grouping gives the same numbers), then one pass finds the
+// peak and one counts the events equal to it. -i (two warps) shortens the
+// chain to what must be serial: the gate test and the fits' compares
+// against the running min and max. The buffer, y and the four vertices of a
+// gated sample depend only on the delayed inputs and on which samples were
+// gated, so warp 0 computes them for 32 samples at once on the assumption
+// that the gate stays open, finds by ballots where that holds, and runs in
+// order only the samples whose fits can move the min or max (rare once a
+// stream has played a while); a vertex's division runs only where a bound
+// without it lets the vertex cross the running min or max; warp 1 sums.
+// No lane branches on its own data (the per-lane logic is bitwise), since
+// a divergent branch cost more than the arithmetic it guarded. The
+// redesign and its model: interp_channel below,
+// tests/test_torch_stats_window.py.
 //
 // Rounding. dsp_tpu's XLA fuses three of the estimator's sums into FMAs
 // (the buffer insert M + x·H, the direct taps M[k] + c_k·x, and the vertex
@@ -70,6 +79,54 @@ struct StatsState {
 namespace {
 
 constexpr int INTERP_DELAY = 18;
+// -i stages this many of a channel's samples in shared memory at a time
+constexpr int kStage = 2048;
+
+// -i's insert template H in the constant bank, so that the nest's fused
+// multiply-adds take their H operand with no load of their own. The
+// wrapper (kernels.py launch_stats) uploads the call's table with
+// dsp_stats_set_insert_f64/_f32, stream-ordered, whenever it is another
+// table than the one uploaded last; the table's three direct taps are read
+// where they lie
+__constant__ double kInsertF64[64];
+__constant__ float kInsertF32[64];
+template <typename T>
+__device__ __forceinline__ T insert_h(int k);
+template <>
+__device__ __forceinline__ double insert_h<double>(int k) { return kInsertF64[k]; }
+template <>
+__device__ __forceinline__ float insert_h<float>(int k) { return kInsertF32[k]; }
+
+// A fit's vertex, exactly as stats.py:222-250 computes it. Kept out of line,
+// so that the compiler cannot hoist its division out of the rare branch
+// that needs it.
+template <typename T>
+__device__ __noinline__ T fit_vertex(T yc, T dy, T den) {
+    const T p4 = div_rn(dy, mul_rn((T)8, den == 0 ? (T)1 : den));
+    return fma_rn(-dy, p4, yc);
+}
+
+// Whether a fit's vertex yq = RN(yc - dy·RN(dy / (8·den))) (den != 0) can
+// be a new min or max. |yq - yc| <= X = dy²/(8|den|)(1+u)² + u|yc| (u the
+// sample type's unit roundoff; 8·den exact), so yq >= mx needs yc + X >= mx
+// and yq <= mn needs yc - X <= mn. The test runs in float64 with a slack of
+// 2^-20 for its own roundings, and answers true (the exact vertex is then
+// computed) outside the ranges where its products neither overflow nor
+// underflow and where a subnormal p4 or yq could round by more than X
+// (|yc| below 1e-290, float32 1e-30), and on a NaN. A false rules an
+// event out, so the division it spares could not have changed a decision.
+template <typename T>
+__device__ __forceinline__ bool may_cross(T yc, T dy, T den, T mn, T mx) {
+    const double u = sizeof(T) == 4 ? 0x1p-24 : 0x1p-53, s = 0x1p-20;
+    const double tiny = sizeof(T) == 4 ? 1e-30 : 1e-290;
+    const double a = fabs((double)dy), b = fabs((double)den), c = (double)yc;
+    const bool safe = (a >= 1e-140) & (a <= 1e140) & (b >= 1e-280) & (b <= 1e280) &
+                      (fabs(c) >= tiny) & (fabs(c) <= 1e280);
+    const double lhs = a * a * (1.0 + s) + 8.0 * b * (4.0 * u * fabs(c));
+    const double rhs = 8.0 * b * (1.0 - s);
+    const bool below_mx = ((double)mx - c) * rhs > lhs, above_mn = (c - (double)mn) * rhs > lhs;
+    return !(safe & below_mx & above_mn);
+}
 
 // jnp.minimum / jnp.maximum: -0.0 orders below +0.0
 template <typename T>
@@ -163,106 +220,301 @@ __device__ void plain_channel(const StatsState<T>& in, const StatsState<T>& out,
     out.peak_frame[c] = higher ? first : in.peak_frame[c];
 }
 
-// -i: one warp a channel. Lane l keeps slots l and l + 32 of the 64-slot
-// buffer in registers; the shift by 4 is two warp shuffles, the insert two
-// FMAs a lane, and every lane runs the (uniform) gate, fits and counts on
-// its own copy of y, z and the scalars, so the warp never diverges. The
-// input comes 32 samples at a time, one load a lane, then a shuffle.
+// -i, the windowed walk. The block's two warps stage the channel's input in
+// shared memory, kStage samples at a time (seq: the carried z, then the
+// samples; x of sample j is seq[j], its sv seq[j + 9]); warp 1 then adds
+// the stage's samples to the sums one by one, in order (the order their
+// bits depend on), while warp 0 walks them 32 at a time, one a lane.
+//
+// While the gate stays open, slot k of the 64-slot buffer M before a sample
+// is a fixed nest of fused multiply-adds over the gated inputs before it,
+// fma(x_1, H[k], fma(x_2, H[k+4], ...)), x_1 the latest, at most 16 levels
+// deep, down to the block's carried M (M0[k + 4g] after g gated samples,
+// g < 16) or a zero slot (stats.py:212-217). So the walk keeps, instead of
+// M, the last 16 gated inputs (gx[0..15], the latest last) and their count
+// since the block began (tg, at most 16), and builds M from them once, at
+// the end of the block.
+//
+//  1. gate closed (nc == 0): the thresholds cannot move, so a ballot of the
+//     window's triggers finds the first one; none skips the window (z, M
+//     and y do not change while the gate is closed).
+//  2. gate open: every lane assumes every sample of the window from its
+//     start is gated. Lane l computes its sample's slots 0-3 as the nest
+//     over the 16 gated inputs before it (the history, then the window's
+//     earlier lanes: gx[16 + l - 1 - i] at level i), with the operations
+//     of the plain version in its order (so the same bits; H from the
+//     constant bank), its y[2..5] from them, y[0..1] from lane l-1, and its
+//     four fits, each vertex divided out only where may_cross lets it be a
+//     new min or max (NaN elsewhere, which no compare takes).
+//  3. decide: until the first sample whose fits can be a new min or max
+//     (a ballot of yq <= min or yq >= max), nothing moves the thresholds,
+//     so the trigger count alone gates the samples (a ballot of the
+//     triggers and each lane's distance to the last one). That sample's
+//     fits run on every lane in order (stats_interp_peak's serial part),
+//     and the ballots run again over the lanes after it.
+//  4. close at the first sample the gate leaves, or at the window's end:
+//     y from the last gated lane; the window's gated inputs join the
+//     history.
+template <typename T>
+struct InterpScratch {
+    T seq[kStage + 9 + 32];
+    T gx[16 + 32];  // the last 16 gated inputs, then the open window's inputs
+    T m[64];        // the block's carried M
+};
+
+// The stage seq[cs .. ce + 9) of channel c, by the block's 64 threads.
+template <typename T>
+__device__ void stage_in(const StatsState<T>& in, const T* __restrict__ xs, T* seq, int c,
+                         int n, int cs, int ce) {
+    constexpr int kBatch = 8;
+    const int cnt = ce - cs + 9;
+    for (int b = 0; b < cnt; b += 64 * kBatch) {
+        T v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+            const int i = b + u * 64 + (int)threadIdx.x, j = cs + i;
+            v[u] = i >= cnt ? (T)0 : (j < 9 ? in.z[j * n + c] : xs[(size_t)(j - 9) * n + c]);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+            const int i = b + u * 64 + (int)threadIdx.x;
+            if (i < cnt) seq[i] = v[u];
+        }
+    }
+}
+
+// The stage's samples added in order (warp 1, every lane alike).
+template <typename T>
+__device__ void stage_sums(const T* w, int m, double& sum, double& sq) {
+    int k = 0;
+    for (; k + 8 <= m; k += 8) {
+        T v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) v[u] = w[k + u];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+            sum = __dadd_rn(sum, (double)v[u]);
+            sq = __dadd_rn(sq, __dmul_rn((double)v[u], (double)v[u]));
+        }
+    }
+    for (; k < m; ++k) {
+        const double v = (double)w[k];
+        sum = __dadd_rn(sum, v);
+        sq = __dadd_rn(sq, __dmul_rn(v, v));
+    }
+}
+
 template <typename T>
 __device__ void interp_channel(const StatsState<T>& in, const StatsState<T>& out,
                                const T* __restrict__ xs, const T* __restrict__ hc,
-                               int c, int n, int n_act, long long s0) {
+                               InterpScratch<T>& sh, int c, int n, int n_act, long long s0) {
     const unsigned full = 0xffffffffu;
-    const int lane = threadIdx.x & 31;
-    T mA = in.m[lane * n + c], mB = in.m[(lane + 32) * n + c];
-    const T hA = hc[lane], hB = hc[lane + 32];
-    T y[6], z[9];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (warp == 0) {
+        sh.m[lane] = in.m[lane * n + c];
+        sh.m[lane + 32] = in.m[(lane + 32) * n + c];
+    }
+    const T c0 = hc[64], c1 = hc[65], c2 = hc[66];
+    T y[6];
 #pragma unroll
     for (int k = 0; k < 6; ++k) y[k] = in.y[k * n + c];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) z[k] = in.z[k * n + c];
-    const T c0 = hc[64], c1 = hc[65], c2 = hc[66];
-    int nc = in.nctr[c];
+    int nc = in.nctr[c], tg = 0;
     T tmin = in.tmin[c], tmax = in.tmax[c];
     T mn = in.mn[c], mx = in.mx[c], pk = in.peak[c];
     long long cnt = in.peak_count[c], frm = in.peak_frame[c];
     double sum = 0.0, sq = 0.0;
-    for (int b0 = 0; b0 < n_act; b0 += 32) {
-        const T mine = b0 + lane < n_act ? xs[(size_t)(b0 + lane) * n + c] : (T)0;
-        const int m = n_act - b0 < 32 ? n_act - b0 : 32;
-        for (int k = 0; k < m; ++k) {
-            const T sv = __shfl_sync(full, mine, k);
-            sum = __dadd_rn(sum, (double)sv);
-            sq = __dadd_rn(sq, __dmul_rn((double)sv, (double)sv));
-            if (sv < tmin || sv > tmax) nc = INTERP_DELAY;
-            if (nc > 0) {
-                const T x = z[0];
-                const T m0 = __shfl_sync(full, mA, 0), m1 = __shfl_sync(full, mA, 1);
-                const T m2 = __shfl_sync(full, mA, 2), m3 = __shfl_sync(full, mA, 3);
-                // shift by 4: slot j takes slot j + 4; the last 4 take zero
-                const T a4 = __shfl_down_sync(full, mA, 4);
-                const T b4 = __shfl_sync(full, mB, (lane + 4) & 31);
-                mA = fma_rn(x, hA, lane < 28 ? a4 : b4);
-                mB = fma_rn(x, hB, lane < 28 ? b4 : (T)0);
-                y[0] = y[4];
-                y[1] = y[5];
-                y[2] = fma_rn(c0, x, m0);
-                y[3] = fma_rn(c1, x, m1);
-                y[4] = fma_rn(c2, x, m2);
-                y[5] = m3;
-                int r = 0;
+    const unsigned upto = (2u << lane) - 1u;  // this lane and the ones before it
+    for (int cs = 0; cs < n_act; cs += kStage) {
+        const int ce = min(n_act, cs + kStage);
+        __syncthreads();
+        stage_in(in, xs, sh.seq, c, n, cs, ce);
+        __syncthreads();
+        if (warp == 1) {
+            stage_sums(sh.seq + 9, ce - cs, sum, sq);
+            continue;
+        }
+        int p = cs;
+        while (p < ce) {
+            const int L = min(32, ce - p);
+            const bool valid = lane < L;
+            const T* w = sh.seq + (p - cs);  // w[l] = x of lane l, w[l + 9] its sv
+            const T sv = w[lane + 9];
+            if (nc == 0) {
+                // 1. the gate is closed: the first trigger, or the next window
+                const unsigned tm = __ballot_sync(full, valid & ((sv < tmin) | (sv > tmax)));
+                if (tm == 0u) {
+                    p += L;
+                    continue;
+                }
+                const int f = __ffs(tm) - 1;
+                if (f > 0) {
+                    p += f;
+                    continue;
+                }
+            }
+            // 2. every sample from p assumed gated: slots 0-3 before lane's
+            const T x = w[lane];
+            sh.gx[16 + lane] = x;
+            __syncwarp();
+            const T* gl = sh.gx + 15 + lane;  // gl[-i]: the input i + 1 gated inputs back
+            T mb[4];
+            if (tg >= 16) {
+                T xi[16];
+#pragma unroll
+                for (int i = 0; i < 16; ++i) xi[i] = gl[-i];
+#pragma unroll
+                for (int k = 0; k < 4; ++k) mb[k] = (T)0;
+#pragma unroll
+                for (int i = 15; i >= 0; --i) {
+#pragma unroll
+                    for (int k = 0; k < 4; ++k) mb[k] = fma_rn(xi[i], insert_h<T>(k + 4 * i), mb[k]);
+                }
+            } else {
+                // fewer than 16 gated inputs since the block began: the nest
+                // ends at the carried M
+                const int g = tg + lane;
+#pragma unroll
+                for (int k = 0; k < 4; ++k) mb[k] = g < 16 ? sh.m[k + 4 * g] : (T)0;
+#pragma unroll
+                for (int i = 15; i >= 0; --i) {
+                    const T xi = gl[-i];
+#pragma unroll
+                    for (int k = 0; k < 4; ++k) {
+                        const T v = fma_rn(xi, insert_h<T>(k + 4 * i), mb[k]);
+                        mb[k] = i < g ? v : mb[k];
+                    }
+                }
+            }
+            T yy[6];
+            yy[2] = fma_rn(c0, x, mb[0]);
+            yy[3] = fma_rn(c1, x, mb[1]);
+            yy[4] = fma_rn(c2, x, mb[2]);
+            yy[5] = mb[3];
+            yy[0] = __shfl_up_sync(full, yy[4], 1);
+            yy[1] = __shfl_up_sync(full, yy[5], 1);
+            if (lane == 0) {
+                yy[0] = y[4];
+                yy[1] = y[5];
+            }
+            // the fits: the vertex only where it can be a new min or max
+            // (may_cross; NaN elsewhere, which no compare takes), so the
+            // divisions run only in the windows that can hold an event
+            T yq[4], dyv[4], denv[4];
+            unsigned skip = 0, need = 0;
+#pragma unroll
+            for (int i = 1; i < 5; ++i) {
+                // (bitwise logic, so that no lane branches)
+                const T d0 = sub_rn(yy[i], yy[i - 1]);
+                const T d1 = sub_rn(yy[i], yy[i + 1]);
+                const bool sk = ((d0 > 0) & (d1 < 0)) | ((d0 < 0) & (d1 > 0)) | ((d0 == 0) & (d1 == 0));
+                dyv[i - 1] = sub_rn(yy[i - 1], yy[i + 1]);
+                denv[i - 1] = add_rn(sub_rn(yy[i - 1], mul_rn((T)2, yy[i])), yy[i + 1]);
+                yq[i - 1] = (T)CUDART_NAN;
+                skip |= (unsigned)sk << (i - 1);
+                need |= (unsigned)(!sk & ((denv[i - 1] == 0) |
+                                          may_cross(yy[i], dyv[i - 1], denv[i - 1], mn, mx)))
+                        << (i - 1);
+            }
+            if (__any_sync(full, valid & (need != 0u))) {
 #pragma unroll
                 for (int i = 1; i < 5; ++i) {
-                    const T d0 = sub_rn(y[i], y[i - 1]);
-                    const T d1 = sub_rn(y[i], y[i + 1]);
-                    if ((d0 > 0 && d1 < 0) || (d0 < 0 && d1 > 0) || (d0 == 0 && d1 == 0))
-                        continue;
-                    const T dy = sub_rn(y[i - 1], y[i + 1]);
-                    const T den = add_rn(sub_rn(y[i - 1], mul_rn((T)2, y[i])), y[i + 1]);
-                    const T p4 = div_rn(dy, mul_rn((T)8, den == 0 ? (T)1 : den));
-                    const T yq = fma_rn(-dy, p4, y[i]);
-                    if (yq <= mn) {
-                        mn = yq;
-                        tmin = mul_rn((T)0.5, yq);
-                    } else if (yq >= mx) {
-                        mx = yq;
-                        tmax = mul_rn((T)0.5, yq);
+                    if ((need >> (i - 1)) & 1u) yq[i - 1] = fit_vertex(yy[i], dyv[i - 1], denv[i - 1]);
+                }
+            }
+            // 3. decide, from lane q on
+            int q = 0, ncq = nc, G = 0;
+            while (true) {
+                const bool on = valid & (lane >= q);
+                const unsigned tm = __ballot_sync(full, on & ((sv < tmin) | (sv > tmax))) & upto;
+                const int ncb = tm != 0u ? INTERP_DELAY - (lane - (31 - __clz((int)tm)))
+                                         : ncq - (lane - q);
+                const unsigned offm = __ballot_sync(full, on & (ncb <= 0));
+                const int close = offm != 0u ? __ffs(offm) - 1 : L;
+                bool cand = false;
+#pragma unroll
+                for (int i = 0; i < 4; ++i) cand |= (yq[i] <= mn) | (yq[i] >= mx);
+                const unsigned evm = __ballot_sync(full, on & cand);
+                const int ev = evm != 0u ? __ffs(evm) - 1 : L;
+                if (ev >= close) {
+                    G = close;
+                    const int nlast = __shfl_sync(full, ncb, G > 0 ? G - 1 : 0);
+                    nc = G > q ? nlast - 1 : ncq;
+                    break;
+                }
+                // the sample at ev, in order, on every lane
+                const unsigned sk = __shfl_sync(full, skip, ev);
+                int r = 0;
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const T v = __shfl_sync(full, yq[i], ev);
+                    if ((sk >> i) & 1u) continue;
+                    if (v <= mn) {
+                        mn = v;
+                        tmin = mul_rn((T)0.5, v);
+                    } else if (v >= mx) {
+                        mx = v;
+                        tmax = mul_rn((T)0.5, v);
                     } else {
                         continue;
                     }
-                    const T ayq = fabs_t(yq);
-                    if (ayq > pk) {
-                        pk = ayq;
+                    const T a = fabs_t(v);
+                    if (a > pk) {
+                        pk = a;
                         r = 2;
-                    } else if (ayq > 0 && ayq == pk) {
+                    } else if (a > 0 && a == pk) {
                         r = 1;
                     }
                 }
                 if (r == 2) {
-                    frm = s0 + b0 + k - (INTERP_DELAY - 1);
+                    frm = s0 + p + ev - (INTERP_DELAY - 1);
                     cnt = 1;
                 } else if (r == 1) {
                     ++cnt;
                 }
-                --nc;
+                q = ev + 1;
+                ncq = __shfl_sync(full, ncb, ev) - 1;
+                if (q == L) {
+                    G = L;
+                    nc = ncq;
+                    break;
+                }
             }
+            // 4. close after G gated samples: y, and the history
 #pragma unroll
-            for (int q = 0; q < 8; ++q) z[q] = z[q + 1];
-            z[8] = sv;
+            for (int k = 0; k < 6; ++k) y[k] = __shfl_sync(full, yy[k], G - 1);
+            const T keep = sh.gx[G + (lane & 15)];
+            __syncwarp();
+            if (lane < 16) sh.gx[lane] = keep;
+            __syncwarp();
+            tg = min(16, tg + G);
+            p += G;
         }
     }
-    out.m[lane * n + c] = mA;
-    out.m[(lane + 32) * n + c] = mB;
+    if (warp == 1) {
+        if (lane == 0) {
+            out.sum[c] = (T)__dadd_rn((double)in.sum[c], sum);
+            out.sum_sq[c] = (T)__dadd_rn((double)in.sum_sq[c], sq);
+        }
+        return;
+    }
+    // M after the block's last gated sample: slots lane and lane + 32
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int sl = lane + 32 * h, nlev = 16 - sl / 4, d = min(tg, nlev);
+        T v = tg < nlev ? sh.m[sl + 4 * tg] : (T)0;
+        for (int i = d - 1; i >= 0; --i) v = fma_rn(sh.gx[15 - i], insert_h<T>(sl + 4 * i), v);
+        out.m[sl * n + c] = v;
+    }
+    if (lane >= 9) return;
+    // z: the last 9 of the carried z and the samples
+    const int j = n_act + lane;
+    out.z[lane * n + c] = j < 9 ? in.z[j * n + c] : xs[(size_t)(j - 9) * n + c];
     if (lane != 0) return;
 #pragma unroll
     for (int k = 0; k < 6; ++k) out.y[k * n + c] = y[k];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) out.z[k * n + c] = z[k];
     out.nctr[c] = nc;
     out.tmin[c] = tmin;
     out.tmax[c] = tmax;
-    out.sum[c] = (T)__dadd_rn((double)in.sum[c], sum);
-    out.sum_sq[c] = (T)__dadd_rn((double)in.sum_sq[c], sq);
     out.mn[c] = mn;
     out.mx[c] = mx;
     out.peak[c] = pk;
@@ -274,17 +526,17 @@ template <typename T>
 __global__ void stats_kernel(StatsState<T> in, StatsState<T> out,
                              const long long* __restrict__ limit, const T* __restrict__ xs,
                              const T* __restrict__ hc, int B, int n) {
-    const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-    const int c = blockIdx.x;  // a warp (a block of 32) a channel
+    __shared__ InterpScratch<T> sh;
+    const int c = blockIdx.x;  // a block a channel
     const long long s0 = *in.samples, lim = *limit;
-    if (tid == 0) *out.samples = s0 + B < lim ? s0 + B : lim;
+    if (c == 0 && threadIdx.x == 0) *out.samples = s0 + B < lim ? s0 + B : lim;
     if (c >= n) return;
     const long long left = lim - s0;
     const int n_act = left <= 0 ? 0 : (left < B ? (int)left : B);
     if (hc == nullptr) {
         plain_channel<T>(in, out, xs, c, n, n_act, s0);
     } else {
-        interp_channel<T>(in, out, xs, hc, c, n, n_act, s0);
+        interp_channel<T>(in, out, xs, hc, sh, c, n, n_act, s0);
     }
 }
 
@@ -292,13 +544,29 @@ template <typename T>
 int launch_stats(const StatsState<T>* in, const StatsState<T>* out, const long long* limit,
                  const T* xs, const T* hc, int B, int n, void* stream) {
     if (B <= 0 || n < 0) return (int)cudaErrorInvalidValue;
-    // a warp (a block of 32) a channel; one block when no channel is selected
-    stats_kernel<T><<<n > 0 ? n : 1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+    // a block a channel (one warp plain, two with -i); one block when no
+    // channel is selected
+    stats_kernel<T><<<n > 0 ? n : 1, hc != nullptr ? 64 : 32, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
         *in, *out, limit, xs, hc, B, n);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// The -i insert template H[64] (the first 64 of a [67] table on the device)
+// into the constant bank, on the stream; returns the copy's error code.
+extern "C" int dsp_stats_set_insert_f64(const double* hc, void* stream) {
+    return (int)cudaMemcpyToSymbolAsync(kInsertF64, hc, 64 * sizeof(double), 0,
+                                        cudaMemcpyDeviceToDevice,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int dsp_stats_set_insert_f32(const float* hc, void* stream) {
+    return (int)cudaMemcpyToSymbolAsync(kInsertF32, hc, 64 * sizeof(float), 0,
+                                        cudaMemcpyDeviceToDevice,
+                                        static_cast<cudaStream_t>(stream));
+}
 
 // Returns cudaGetLastError() after the launch (0 on success). in and out
 // point to host structs of device pointers (the -i fields null in plain

@@ -36,10 +36,6 @@ NVCC_FLAGS = (
 # extra nvcc flags of one source: the matrix4 engine rounds every product
 # and sum on its own, as the plain version's torch ops do (csrc/m4_event.cu)
 FILE_FLAGS = {"m4_event.cu": ("-fmad=false",)}
-# the dither kernel keeps a block's noise and input in shared memory up to
-# this size (csrc/tpdf.cu holds the same number), else the noise in a
-# scratch tensor
-DITHER_SHARED_BYTES = 200 * 1024
 
 
 class KernelBuildError(RuntimeError):
@@ -242,13 +238,16 @@ class _Library:
                     fn.argtypes = [p] * 5 + [d, i, i, p]
                     fn.restype = i
                 for fn in (lib.dsp_tpdf_dither_f64, lib.dsp_tpdf_dither_f32):
-                    fn.argtypes = [p] * 13 + [i, i, i, p, p]
+                    fn.argtypes = [p] * 13 + [i, i, i, p]
                     fn.restype = i
                 for fn in (lib.dsp_levels_f64, lib.dsp_levels_f32):
                     fn.argtypes = [p] * 7 + [d, i, i, p]
                     fn.restype = i
                 for fn in (lib.dsp_stats_f64, lib.dsp_stats_f32):
                     fn.argtypes = [ctypes.POINTER(StatsState)] * 2 + [p] * 3 + [i, i, p]
+                    fn.restype = i
+                for fn in (lib.dsp_stats_set_insert_f64, lib.dsp_stats_set_insert_f32):
+                    fn.argtypes = [p, p]
                     fn.restype = i
                 for fn in (lib.dsp_mod_delay_f64, lib.dsp_mod_delay_f32):
                     fn.argtypes = [p] * 12 + [i] * 7 + [d] * 3 + [p]
@@ -259,16 +258,16 @@ class _Library:
                 lib.dsp_m4_env_f64.restype = i
                 lib.dsp_m4_env_f32.argtypes = [p] * 8 + [d, i, i, i, p]
                 lib.dsp_m4_env_f32.restype = i
-                lib.dsp_m4_event_f64.argtypes = [p] * 12 + [i] * 4 + [ll, ll, i, p]
+                lib.dsp_m4_event_f64.argtypes = [p] * 13 + [i] * 4 + [ll, ll, i, p]
                 lib.dsp_m4_event_f64.restype = i
-                lib.dsp_m4_event_f32.argtypes = [p] * 14 + [i] * 4 + [ll, ll, i, p]
+                lib.dsp_m4_event_f32.argtypes = [p] * 15 + [i] * 4 + [ll, ll, i, p]
                 lib.dsp_m4_event_f32.restype = i
                 for fn in (lib.dsp_m4_audio_f64, lib.dsp_m4_audio_f32):
                     fn.argtypes = [p] * 13 + [i, p]
                     fn.restype = i
-                lib.dsp_m4mb_event_f64.argtypes = [p] * 12 + [i] * 3 + [ll, ll, i, p]
+                lib.dsp_m4mb_event_f64.argtypes = [p] * 13 + [i] * 3 + [ll, ll, i, p]
                 lib.dsp_m4mb_event_f64.restype = i
-                lib.dsp_m4mb_event_f32.argtypes = [p] * 14 + [i] * 3 + [ll, ll, i, p]
+                lib.dsp_m4mb_event_f32.argtypes = [p] * 15 + [i] * 3 + [ll, ll, i, p]
                 lib.dsp_m4mb_event_f32.restype = i
                 for fn in (lib.dsp_m4mb_audio_f64, lib.dsp_m4mb_audio_f32):
                     fn.argtypes = [p] * 9 + [i, p]
@@ -406,12 +405,12 @@ def launch_tpdf_noise(key, key_out, x, y, sel, mult):
 
 
 def launch_tpdf_dither(key, key_out, x, y, ehist, ehist_out, nprev, nprev_out, n_mult, q0, q1,
-                       enabled, fir, mode, scratch):
+                       enabled, fir, mode):
     B, C = x.shape
     rc = _by_dtype(x, "dsp_tpdf_dither")(
         _ptr(key), _ptr(key_out), _ptr(x), _ptr(y), _ptr(ehist), _ptr(ehist_out), _ptr(nprev),
         _ptr(nprev_out), _ptr(n_mult), _ptr(q0), _ptr(q1), _ptr(enabled), _ptr(fir), mode, B, C,
-        _ptr(scratch), _stream(x),
+        _stream(x),
     )
     _check(rc, "tpdf_dither")
 
@@ -425,10 +424,25 @@ def launch_levels(avg, peak, block_peak, avg_out, peak_out, bp_out, xs, g):
     _check(rc, "levels")
 
 
+# the -i insert template in csrc/stats.cu's constant bank, by (device,
+# dtype): the table tensor last uploaded (held, so its memory is not reused)
+# and its version counter
+_STATS_INSERT = {}
+
+
 def launch_stats(state, new, keys, xs, insert_h):
     """state, new: the stats state dicts; keys: the leaves the kernel reads
-    and writes (the -i ones included or not)."""
+    and writes (the -i ones included or not). With -i, the table's insert
+    template goes to the kernel's constant bank first unless that table
+    (the same tensor, unmodified) is there already: an effect hands the
+    same cached table every block."""
     B, n = xs.shape
+    if insert_h is not None:
+        slot = (xs.device.index, xs.dtype)
+        held = _STATS_INSERT.get(slot)
+        if held is None or held[0] is not insert_h or held[1] != insert_h._version:
+            _check(_by_dtype(xs, "dsp_stats_set_insert")(_ptr(insert_h), _stream(xs)), "stats")
+            _STATS_INSERT[slot] = (insert_h, insert_h._version)
 
     def ptrs(d):
         return StatsState(**{k: d[k].data_ptr() for k in keys})
@@ -490,14 +504,15 @@ def _ev_ptrs(ev, ev_lo=None):
 
 
 def launch_m4_event(ctl, ev, ev_out, bg, bg_out, env_ds, vt, iy_in, ics, iy_out, aux, fade_p,
-                    disable, geometry, lo=None):
-    """geometry: (threads, chunk, shared memory bytes), ops/m4_engine's
-    event_geometry; lo None (float64), or the float32 entry's lo parts
-    (ev_lo, ev_out_lo, bg_lo, bg_out_lo)."""
+                    disable, geometry, ring, lo=None):
+    """geometry: (threads, chunk, shared memory bytes, ring doubles),
+    ops/m4_engine's event_geometry; ring: the rings' device scratch, or None
+    where they sit in shared memory; lo None (float64), or the float32
+    entry's lo parts (ev_lo, ev_out_lo, bg_lo, bg_out_lo)."""
     S, Nc = env_ds.shape[0], env_ds.shape[1]
     evp, k10 = ctl.c_structs()
-    tail = (_ptr(env_ds), _ptr(vt), _ptr(iy_in), _ptr(ics), _ptr(iy_out), _ptr(aux),
-            ctypes.byref(evp), ctypes.byref(k10), S, Nc, *geometry, fade_p, int(disable),
+    tail = (_ptr(env_ds), _ptr(vt), _ptr(iy_in), _ptr(ics), _ptr(iy_out), _ptr(aux), _ptr(ring),
+            ctypes.byref(evp), ctypes.byref(k10), S, Nc, *geometry[:3], fade_p, int(disable),
             _stream(env_ds))
     if lo is None:
         rc = load().dsp_m4_event_f64(ctypes.byref(_ev_ptrs(ev)), ctypes.byref(_ev_ptrs(ev_out)),
@@ -522,12 +537,12 @@ def launch_m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m, y, shelf_ou
 
 
 def launch_m4mb_event(ctl, ev, ev_out, evt, evt_out, env_ds, vt, iy_in, ics, iy_out, aux, fade_p,
-                      disable, geometry, lo=None):
-    """geometry and lo as launch_m4_event's (lo: ev_lo, ev_out_lo, evt_lo,
-    evt_out_lo)."""
+                      disable, geometry, ring, lo=None):
+    """geometry, ring and lo as launch_m4_event's (lo: ev_lo, ev_out_lo,
+    evt_lo, evt_out_lo)."""
     evp, mb = ctl.c_structs()
-    tail = (_ptr(env_ds), _ptr(vt), _ptr(iy_in), _ptr(ics), _ptr(iy_out), _ptr(aux),
-            ctypes.byref(evp), ctypes.byref(mb), env_ds.shape[0], *geometry, fade_p,
+    tail = (_ptr(env_ds), _ptr(vt), _ptr(iy_in), _ptr(ics), _ptr(iy_out), _ptr(aux), _ptr(ring),
+            ctypes.byref(evp), ctypes.byref(mb), env_ds.shape[0], *geometry[:3], fade_p,
             int(disable), _stream(env_ds))
     if lo is None:
         rc = load().dsp_m4mb_event_f64(ctypes.byref(_ev_ptrs(ev)), ctypes.byref(_ev_ptrs(ev_out)),

@@ -948,31 +948,48 @@ def _launch_env(name, bands, env_m, g, w=None, lo=None):
 # rings (10 buf_len doubles a band), two tables of EVENT_TABLE_SLOTS and two
 # of EVENT_OUTPUTS doubles a tick and band, and for matrix4_mb two chunks of
 # its 169 similarity terms a tick and the 26 diffs before a chunk. A block
-# may hold SMEM_LIMIT bytes.
+# may hold SMEM_LIMIT bytes. Where the rings alone with a chunk of one tick
+# would not fit (matrix4_mb from buf_len 217, 461.9 kHz: a chunk of one
+# tick would need 237,328 bytes at 470.4 kHz, 381,888 at 768 kHz), they
+# move to a scratch in device memory, which stays in the 50 MB L2, and the
+# shared memory holds the tables alone.
 EVENT_THREADS = 128
 EVENT_MAX_CHUNK = 32
 EVENT_MB_CHUNK = 16
 EVENT_TABLE_SLOTS = 14
 EVENT_OUTPUTS = 8
+EVENT_RING_SLOTS = 10
 
 
 def event_geometry(bands, buf_len, Nc):
-    """(threads, chunk, shared memory bytes) of one m4_event (bands = 1)
-    or m4mb_event (bands = 13) launch over Nc ticks with rings of buf_len:
-    the largest chunk up to the engine's cap, and no longer than Nc, whose
-    memory fits. Raises ValueError if none does."""
-    def smem(chunk):
-        mb = 2 * chunk * N_BANDS * N_BANDS + 2 * N_BANDS if bands == N_BANDS else 0
-        return 8 * (bands * 10 * buf_len
-                    + 2 * chunk * bands * (EVENT_TABLE_SLOTS + EVENT_OUTPUTS) + mb)
+    """(threads, chunk, shared memory bytes, ring doubles) of one m4_event
+    (bands = 1) or m4mb_event (bands = 13) launch over Nc ticks with rings
+    of buf_len: the largest chunk up to the engine's cap, and no longer than
+    Nc, whose memory fits. Ring doubles is 0 when the rings sit in shared
+    memory, else the size of each block's ring scratch in device memory
+    (bands · 10 · buf_len), taken when the rings would not fit beside a
+    chunk of one tick."""
+    rings = bands * EVENT_RING_SLOTS * buf_len
 
+    def smem(chunk, ring):
+        mb = 2 * chunk * N_BANDS * N_BANDS + 2 * N_BANDS if bands == N_BANDS else 0
+        return 8 * (ring + 2 * chunk * bands * (EVENT_TABLE_SLOTS + EVENT_OUTPUTS) + mb)
+
+    ring = rings if smem(1, rings) <= SMEM_LIMIT else 0
     chunk = min(EVENT_MB_CHUNK if bands == N_BANDS else EVENT_MAX_CHUNK, Nc)
-    while chunk > 1 and smem(chunk) > SMEM_LIMIT:
+    while chunk > 1 and smem(chunk, ring) > SMEM_LIMIT:
         chunk -= 1
-    if chunk < 1 or smem(chunk) > SMEM_LIMIT:
-        raise ValueError(f"event engine: {bands} band(s) with rings of {buf_len} need "
-                         f"{smem(1)} bytes of shared memory, more than {SMEM_LIMIT}")
-    return EVENT_THREADS, chunk, smem(chunk)
+    if chunk < 1 or smem(chunk, ring) > SMEM_LIMIT:
+        raise ValueError(f"event engine: {bands} band(s) need {smem(1, 0)} bytes of shared "
+                         f"memory for a chunk of one tick, more than {SMEM_LIMIT}")
+    return EVENT_THREADS, chunk, smem(chunk, ring), 0 if ring else rings
+
+
+def _ring_scratch(geometry, lanes, device):
+    """The device ring scratch of a launch (one a block of `lanes`), or
+    None where the rings sit in shared memory."""
+    n = geometry[3]
+    return torch.empty(lanes * n, dtype=torch.float64, device=device) if n else None
 
 
 def fade_ticks(fade_p, disable, fade_frames, Nc, like):
@@ -1016,8 +1033,9 @@ def m4_event(ctl, ev, bg, env_ds, interp_y, fade_p, disable):
     ics = torch.empty((S, Nc, 3, N_INTERP), dtype=torch.float64, device=dev)
     iy_out = torch.empty_like(interp_y)
     aux = torch.empty((S, Nc, 4), dtype=torch.float64, device=dev)
+    geo = event_geometry(1, ctl.p["buf_len"], Nc)
     kernels.launch_m4_event(ctl, ev, out, bg, bg_out, env_ds, vt, interp_y, ics, iy_out, aux,
-                            int(fade_p), bool(disable), event_geometry(1, ctl.p["buf_len"], Nc))
+                            int(fade_p), bool(disable), geo, _ring_scratch(geo, S, dev))
     m4_event.launches += 1
     return out, bg_out, ics, iy_out, aux
 
@@ -1051,8 +1069,9 @@ def m4_event_f32(ctl, ev, ev_lo, bg, bg_lo, env_ds, interp_y, fade_p, disable):
     ics = torch.empty((S, Nc, 3, N_INTERP), dtype=f32, device=dev)
     iy_out = torch.empty_like(interp_y)
     aux = torch.empty((S, Nc, 4), dtype=f32, device=dev)
+    geo = event_geometry(1, ctl.p["buf_len"], Nc)
     kernels.launch_m4_event(ctl, ev, out, bg, bg_out, env_ds, vt, interp_y, ics, iy_out, aux,
-                            int(fade_p), bool(disable), event_geometry(1, ctl.p["buf_len"], Nc),
+                            int(fade_p), bool(disable), geo, _ring_scratch(geo, S, dev),
                             lo=(ev_lo, out_lo, bg_lo, bg_out_lo))
     m4_event_f32.launches += 1
     return out, out_lo, bg_out, bg_out_lo, ics, iy_out, aux
@@ -1536,9 +1555,9 @@ def m4mb_event(ctl, ev, evt, env_ds, interp_y, fade_p, disable):
     ics = torch.empty((Nc, 3, N_BANDS, N_SIG_MB), dtype=torch.float64, device=dev)
     iy_out = torch.empty_like(interp_y)
     aux = torch.empty((Nc, N_BANDS, 2), dtype=torch.float64, device=dev)
+    geo = event_geometry(N_BANDS, ctl.p["buf_len"], Nc)
     kernels.launch_m4mb_event(ctl, ev, out, evt, evt_out, env_ds, vt, interp_y, ics, iy_out, aux,
-                              int(fade_p), bool(disable),
-                              event_geometry(N_BANDS, ctl.p["buf_len"], Nc))
+                              int(fade_p), bool(disable), geo, _ring_scratch(geo, 1, dev))
     m4mb_event.launches += 1
     return out, evt_out, ics, iy_out, aux
 
@@ -1573,9 +1592,9 @@ def m4mb_event_f32(ctl, ev, ev_lo, evt, evt_lo, env_ds, interp_y, fade_p, disabl
     ics = torch.empty((Nc, 3, N_BANDS, N_SIG_MB), dtype=f32, device=dev)
     iy_out = torch.empty_like(interp_y)
     aux = torch.empty((Nc, N_BANDS, 2), dtype=f32, device=dev)
+    geo = event_geometry(N_BANDS, ctl.p["buf_len"], Nc)
     kernels.launch_m4mb_event(ctl, ev, out, evt, evt_out, env_ds, vt, interp_y, ics, iy_out, aux,
-                              int(fade_p), bool(disable),
-                              event_geometry(N_BANDS, ctl.p["buf_len"], Nc),
+                              int(fade_p), bool(disable), geo, _ring_scratch(geo, 1, dev),
                               lo=(ev_lo, out_lo, evt_lo, evt_out_lo))
     m4mb_event_f32.launches += 1
     return out, out_lo, evt_out, evt_out_lo, ics, iy_out, aux

@@ -267,14 +267,8 @@ def _tpdf_dither(entry, ref, dt, key, x, ehist, nprev, n_mult, q0, q1, enabled, 
     ehist_out = torch.empty_like(ehist)
     nprev_out = torch.empty_like(nprev)
     y = torch.empty_like(x)
-    # the feedback loop reads the block's noise and input from shared
-    # memory; above DITHER_SHARED_BYTES the noise from a scratch in device
-    # memory
-    scratch = None
-    if mode != DITHER_FLAT and 2 * B * C * x.element_size() > kernels.DITHER_SHARED_BYTES:
-        scratch = torch.empty_like(x)
     kernels.launch_tpdf_dither(key, key_out, x, y, ehist, ehist_out, nprev, nprev_out, n_mult,
-                               q0, q1, enabled, fir, mode, scratch)
+                               q0, q1, enabled, fir, mode)
     entry.launches += 1
     return key_out, ehist_out, nprev_out, y
 

@@ -9,7 +9,7 @@ of the repository on the same card.
     python3 kernel_times.py --against DIR      # DIR and this checkout in turns
                                                # (DIR, this, this, DIR), a table
     python3 kernel_times.py --rows engines ... # only the engine rows (or fft,
-                                               # or cli)
+                                               # cli, td or tdcli)
 
 DIR is an unpacked checkout of another commit (e.g. `git archive <commit> |
 tar -x -C .smoke_tmp/parent`). Each tree runs in a process of its own, since
@@ -43,6 +43,22 @@ x realtime (seconds of audio over wall seconds, the kernels built before)
 and a digest of its render; the table says whether the trees' renders are
 bit-equal.
 
+The td rows time slice C's serial kernels: stats -i (stats_step and
+stats_step_f32, K16) at B = 2048 on chip_smoke.py's gate-always-open
+quantized noise, a gate-sparse input (loud, -40 dB, loud), silence and one
+click, and on the noise at B = 1000 and 65536; the shaped dither
+(tpdf_dither and tpdf_dither_f32, K15) in lipshitz and wan9 at B = 2048 and
+lipshitz at B = 65536; each from a state one block into the same input,
+stereo, made from a seed in each tree, so that with --against the trees'
+outputs (every leaf, the sums included) are compared bit for bit. They
+also time K2 (biquad_scan, crossfeed's 4 lanes), K2 in float32
+(biquad_scan_f32) at B = 2048 and K3 (biquad_scan_df, the flagship's
+highpass, 2 lanes, a (hi, lo) state) at B = 1000, for their device-only
+time. The tdcli rows run chip_smoke.py's delivery chain (dither lipshitz,
+stats -i) through dsp-torch to s16 at -b 2048 and 65536 in float64 and
+float32, numpy's generator seeded alike before each run, with each run's
+x realtime and a digest of its render.
+
 The rows are chip_smoke.py's main-path shapes, where chip_smoke.py holds
 each kernel against its plain version; this script only times them. Prints
 the card's name and power limit (nvidia-smi) with the results. Needs a
@@ -60,8 +76,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-from chip_smoke import CHANNELS, FS, MATRIX4, MATRIX4_MB, SECONDS, card_info, cuda_ms, \
-    device_ms, transient_signal, write_input
+from chip_smoke import CHANNELS, DELIVERY, FLAGSHIP, FS, MATRIX4, MATRIX4_MB, SECONDS, SLICE_C_SEED, \
+    card_info, cuda_ms, device_ms, flagship_parts, td_signal, transient_signal, write_input
 
 ROOT = Path(__file__).resolve().parent
 ENGINE_INPUTS = ROOT / ".smoke_tmp" / "engine_inputs.pt"
@@ -231,6 +247,119 @@ def cli_rows(inputs_path):
     return out
 
 
+TD_STATS = (("noise", 2048), ("gate-sparse", 2048), ("silence", 2048), ("click", 2048),
+            ("noise", 1000), ("noise", 65536))
+TD_DITHER = (("lipshitz", 2048), ("wan9", 2048), ("lipshitz", 65536))
+
+
+def td_rows():
+    """(name, the call, reps) of the td rows, their inputs seeded."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain import build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.effects.dither import DitherEffect
+    from dsp_tpu_torch.effects.stats import StatsEffect
+    from dsp_tpu_torch.ops import iir
+    from dsp_tpu_torch.ops import time_domain as td
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20311)
+    out = []
+    for dt, sfx in ((torch.float64, ""), (torch.float32, "_f32")):
+        step = getattr(td, f"stats_step{sfx}")
+        for kind, B in TD_STATS:
+            e = StatsEffect("stats", StreamInfo(FS, CHANNELS), np.ones(CHANNELS, dtype=bool), None,
+                            80, True)
+            table = torch.as_tensor(e._insert_table, dtype=dt, device=dev)
+            s0 = {k: torch.as_tensor(v, device=dev) for k, v in e.state0().items()}
+            s0 = {k: v.to(dt) if v.is_floating_point() else v for k, v in s0.items()}
+            x = torch.as_tensor(td_signal(kind, 2 * B, rng), dtype=dt, device=dev)
+            s1 = step(s0, x[:B].contiguous(), table)
+            xb = x[B:].contiguous()
+            out.append((f"stats_step{sfx} -i {kind} B={B}",
+                        lambda step=step, s1=s1, xb=xb, table=table: step(s1, xb, table),
+                        5 if B > 8192 else 50))
+        fn = getattr(td, f"tpdf_dither{sfx}")
+        for shape, B in TD_DITHER:
+            e = DitherEffect("dither", StreamInfo(48000 if shape.startswith("wan") else FS,
+                                                  CHANNELS),
+                             np.ones(CHANNELS, dtype=bool), shape, 16.0, 16, False, False,
+                             seed=4242)
+            args = [torch.as_tensor(v, dtype=None if v.dtype == bool else dt, device=dev)
+                    for v in (e.n_mult, e.q_mult0, e.q_mult1, e.enabled, e.fir)]
+            st = {k: torch.as_tensor(v, device=dev) for k, v in e.state0().items()}
+            eh = torch.as_tensor(rng.standard_normal((9, CHANNELS)) * 1e-5, dtype=dt, device=dev)
+            x = torch.as_tensor(rng.standard_normal((B, CHANNELS)) * 0.3, dtype=dt, device=dev)
+            ins = (st["key"], x, eh, st["nprev"].to(dt), *args)
+            out.append((f"tpdf_dither{sfx} {shape} B={B}",
+                        lambda fn=fn, ins=ins, mode=e.mode: fn(*ins, mode),
+                        5 if B > 8192 else 50))
+    # K2, K2 in float32 and K3, at chip_smoke.py's shapes
+    _, scans = flagship_parts()
+    A, Bv, c0 = (torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                 for a in scans["crossfeed (companion, 4 lanes)"])
+    x = torch.as_tensor(rng.standard_normal((2048, 4)) * 0.3, device=dev)
+    st = torch.as_tensor(rng.standard_normal((4, 2)) * 1e-2, device=dev)
+    out.append(("biquad_scan (K2) crossfeed B=2048",
+                lambda: iir.biquad_scan(A, Bv, c0, st, x), 50))
+    effects = build_chain_from_string(FLAGSHIP, StreamInfo(FS, CHANNELS)).effects
+    cf = next(e for e in effects if e.name == "crossfeed")
+    hp = next(e for e in effects if e.name == "highpass")
+    A32, Bv32, c032 = (torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                       for a in (cf._ss32_A, cf._ss32_Bv, cf._ss32_c0))
+    x32 = x.float()
+    st32 = st.float()
+    out.append(("biquad_scan_f32 (K2 f32) crossfeed B=2048",
+                lambda: iir.biquad_scan_f32(A32, Bv32, c032, st32, x32), 50))
+    Ah, Bh, ch = (torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                  for a in (hp._ss_A, hp._ss_Bv, hp._ss_c0))
+    xh = torch.as_tensor(rng.standard_normal((1000, CHANNELS)) * 0.3, dtype=torch.float32,
+                         device=dev)
+    sth = torch.stack(iir.split_f64(torch.as_tensor(rng.standard_normal((CHANNELS, 2)) * 1e-2,
+                                                    device=dev)))
+    out.append(("biquad_scan_df (K3) highpass B=1000",
+                lambda: iir.biquad_scan_df(Ah, Bh, ch, sth, xh), 50))
+    return out
+
+
+TDCLI_CASES = tuple((dtype, block) for dtype in ("float64", "float32") for block in (2048, 65536))
+
+
+def tdcli_rows(inputs_path):
+    """The delivery chain through dsp-torch to s16 on the card, in each
+    dtype and block of TDCLI_CASES: x realtime and a digest of the render."""
+    import numpy as np
+
+    from dsp_tpu_torch import kernels
+    from dsp_tpu_torch.cli.main import main as cli_main
+
+    src = inputs_path.parent / "cli_in.wav"
+    if not src.exists():
+        src.parent.mkdir(parents=True, exist_ok=True)
+        write_input(src, SECONDS)
+    kernels.load()
+    os.environ["DSP_TPU_TORCH_DEVICE"] = "cuda"
+    dst = inputs_path.parent / f"cli_out_{os.getpid()}.wav"
+    out = []
+    for dtype, block in TDCLI_CASES:
+        os.environ["DSP_TPU_TORCH_DTYPE"] = dtype
+        argv = ["-b", str(block), "-q", str(src), "-o", "-e", "s16", str(dst), *DELIVERY.split()]
+        np.random.seed(SLICE_C_SEED)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = cli_main(argv)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise SystemExit(f"kernel_times: dsp-torch {' '.join(argv)} exited {rc}")
+        out.append({"name": f"delivery {dtype} -b {block}", "x_realtime": SECONDS / wall,
+                    "digest": hashlib.sha256(dst.read_bytes()).hexdigest()[:16]})
+    os.environ.pop("DSP_TPU_TORCH_DTYPE")
+    dst.unlink()
+    return out
+
+
 def measure(which, inputs_path, save=None):
     import torch
 
@@ -238,7 +367,20 @@ def measure(which, inputs_path, save=None):
         raise SystemExit("kernel_times: CUDA is not available")
     if which == "cli":
         return cli_rows(inputs_path)
+    if which == "tdcli":
+        return tdcli_rows(inputs_path)
     out = []
+    if which == "td":
+        outputs = {}
+        for name, kern, reps in td_rows():
+            r = {"name": name, "ms": cuda_ms(kern, reps)}
+            r["device_ms"], r["kernels"] = device_ms(kern, min(reps, 20))
+            out.append(r)
+            if save is not None:
+                outputs[name] = _to(kern(), "cpu")
+        if save is not None:
+            torch.save(outputs, save)
+        return out
     if which in ("all", "engines"):
         outputs = {}
         for name, kern, Nc in engine_rows(inputs_path):
@@ -314,7 +456,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=None)
     ap.add_argument("--against", type=Path, default=None)
-    ap.add_argument("--rows", choices=("all", "fft", "engines", "cli"), default="all")
+    ap.add_argument("--rows", choices=("all", "fft", "engines", "cli", "td", "tdcli"),
+                    default="all")
     ap.add_argument("--inputs", type=Path, default=ENGINE_INPUTS)
     ap.add_argument("--save", type=Path, default=None)
     args = ap.parse_args()
@@ -335,7 +478,8 @@ def main():
     runs = [(label, run_tree(tree, args.rows, args.inputs, save))
             for (label, tree), save in zip(order, saves)]
     print(f"card: {card}; order: before, after, after, before")
-    verdict = compare_outputs(saves[0], saves[1]) if args.rows in ("all", "engines") else {}
+    verdict = (compare_outputs(saves[0], saves[1]) if args.rows in ("all", "engines", "td")
+               else {})
     keys = ("ms", "us_a_tick", "device_ms", "device_us_a_tick", "kernels", "library_ms",
             "library_device_ms", "x_realtime", "digest")
     table = []
@@ -364,6 +508,8 @@ def main():
                 f"device-only {'/'.join(f'{v:.3f}' for v in row[f'{label}_device_us_a_tick'])}"
                 for label in ("before", "after")) + f"; outputs {verdict[name]}")
             continue
+        if name in verdict:
+            row["outputs"] = verdict[name]
         print(f"{name}: " + "; ".join(
             f"{label} {'/'.join(f'{v:.4f}' for v in row[f'{label}_ms'])} ms a call, "
             f"{'/'.join(f'{v:.4f}' for v in row[f'{label}_device_ms'])} ms device-only, "
@@ -371,7 +517,8 @@ def main():
             + (f", library {'/'.join(f'{v:.4f}' for v in row[f'{label}_library_ms'])} ms a call, "
                f"{'/'.join(f'{v:.4f}' for v in row[f'{label}_library_device_ms'])} ms device-only"
                if f"{label}_library_ms" in row else "")
-            for label in ("before", "after")))
+            for label in ("before", "after"))
+            + (f"; outputs {verdict[name]}" if name in verdict else ""))
     print(json.dumps({"card": card, "rows": table}))
     return 0
 

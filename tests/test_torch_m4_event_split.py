@@ -15,10 +15,12 @@ and equal across the packages (the port holds dsp_tpu's event_step to
 1e-12 relative elsewhere, tests/test_torch_matrix4.py; here the values are
 compared to the same bound and reported).
 
-The second holds ops/m4_engine.event_geometry, the one place that sizes an
-engine launch, at every rate and block the upmixes run: shared memory within
-a Hopper block's 232,448 bytes, at least one tick a chunk, chunks that cover
-the block's ticks.
+The others hold ops/m4_engine.event_geometry, the one place that sizes an
+engine launch, at every rate from 32 kHz to 768 kHz and the blocks the
+upmixes run: shared memory within a Hopper block's 232,448 bytes, at least
+one tick a chunk, chunks that cover the block's ticks, and the rings in a
+device scratch only where they would not fit in shared memory (matrix4_mb
+from 461.9 kHz).
 """
 
 import math
@@ -131,6 +133,30 @@ def test_decision_free_leaves_do_not_depend_on_the_decisions():
     assert worst <= 1e-12, worst
 
 
+def _hold_geometry(fs, bands, Nc, L, geo):
+    from dsp_tpu_torch.ops import m4_engine as m4
+
+    threads, chunk, smem, ring = geo
+    n_chunks = math.ceil(Nc / chunk)
+    where = (fs, bands, Nc, L, geo)
+    assert threads % 32 == 0 and 96 <= threads <= 256, where
+    assert 1 <= chunk <= 32, where
+    assert n_chunks * chunk >= Nc and (n_chunks - 1) * chunk < Nc, where
+    assert smem <= 232448, where
+    rings = 8 * bands * 10 * L
+    if ring == 0:
+        # the rings in shared memory, beside the chunk tables
+        assert smem >= rings, where
+    else:
+        # the rings in a device scratch only where they would not fit
+        # beside a chunk of one tick
+        assert ring == bands * 10 * L, where
+        one_tick = 2 * bands * (m4.EVENT_TABLE_SLOTS + m4.EVENT_OUTPUTS)
+        if bands == m4.N_BANDS:
+            one_tick += 2 * bands * bands + 2 * bands  # the similarity terms, the diffs
+        assert rings + 8 * one_tick > 232448, where
+
+
 @pytest.mark.parametrize("fs", [44100, 48000, 96000, 192000])
 def test_event_geometry_fits_every_launch(fs):
     from dsp_tpu_torch.ops import m4_engine as m4
@@ -139,11 +165,40 @@ def test_event_geometry_fits_every_launch(fs):
     for bands in (1, m4.N_BANDS):
         for B in (1056, 2048, 8192, 65536):
             Nc = B // 32
-            threads, chunk, smem = m4.event_geometry(bands, L, Nc)
-            n_chunks = math.ceil(Nc / chunk)
-            assert threads % 32 == 0 and 96 <= threads <= 256, (fs, bands, B, threads)
-            assert 1 <= chunk <= 32, (fs, bands, B, chunk)
-            assert n_chunks * chunk >= Nc and (n_chunks - 1) * chunk < Nc, (fs, bands, B, chunk)
-            assert smem <= 232448, (fs, bands, B, smem)
-            # the rings alone must fit beside the chunk tables
-            assert smem >= 8 * bands * 10 * L, (fs, bands, B, smem)
+            geo = m4.event_geometry(bands, L, Nc)
+            _hold_geometry(fs, bands, Nc, L, geo)
+            # up to 192 kHz the rings sit in shared memory, as before
+            assert geo[3] == 0, (fs, bands, B, geo)
+
+
+# matrix4_mb's 13 bands' rings outgrow a block's shared memory from buf_len
+# 217 (461.9 kHz; 470.4 kHz: buf_len 221, 229,840 bytes of rings); dsp_tpu
+# takes any rate from 32 kHz (dsp_tpu/effects/matrix4.py:79-80)
+@pytest.mark.parametrize("fs", [32000, 88200, 176400, 352800, 384000, 441000, 470400, 705600,
+                                768000])
+def test_event_geometry_launches_at_high_rates(fs):
+    from dsp_tpu_torch.ops import m4_engine as m4
+
+    L = m4.make_event_params(fs / 32)["buf_len"]
+    for bands in (1, m4.N_BANDS):
+        for Nc in (64, 2048):
+            geo = m4.event_geometry(bands, L, Nc)
+            _hold_geometry(fs, bands, Nc, L, geo)
+            assert (geo[3] > 0) == (bands == m4.N_BANDS and fs > 441000), (fs, bands, Nc, geo)
+
+
+def test_event_geometry_launches_at_every_rate():
+    """Every rate from 32 kHz to 768 kHz in steps of 100 Hz, with buf_len
+    from the engine's own parameters."""
+    from dsp_tpu_torch.ops import m4_engine as m4
+
+    seen = set()
+    for fs in range(32000, 768001, 100):
+        L = m4.make_event_params(fs / 32)["buf_len"]
+        for bands in (1, m4.N_BANDS):
+            for Nc in (64, 2048):
+                if (L, bands, Nc) in seen:
+                    continue
+                seen.add((L, bands, Nc))
+                _hold_geometry(fs, bands, Nc, L, m4.event_geometry(bands, L, Nc))
+    assert len(seen) > 4 * 300, len(seen)

@@ -220,11 +220,29 @@ def _control_probe(je, B):
     return run
 
 
+@pytest.fixture(scope="module")
+def control_of():
+    """control_of(opts, B) -> (port effect, dsp_tpu effect, its
+    _control_probe run) for `matrix4_mb <opts>` at block B, made once a
+    module: the engine and audio tests of one configuration share
+    dsp_tpu's jitted control instead of compiling it each."""
+    made = {}
+
+    def get(opts, B):
+        key = (tuple(opts), B)
+        if key not in made:
+            e, je = _effects(opts)
+            made[key] = (e, je, _control_probe(je, B))
+        return made[key]
+
+    return get
+
+
 ENGINE_CASES = [["-6"], ["matrix=v1", "-6"], ["direct_path", "-3/0"]]
 
 
 @pytest.mark.parametrize("opts", ENGINE_CASES, ids=[" ".join(o) for o in ENGINE_CASES])
-def test_coupled_engines_match_dsp_tpu(opts):
+def test_coupled_engines_match_dsp_tpu(opts, control_of):
     """The 13 band engines with the threshold modulation: the port's
     m4mb_event_ref and dsp_tpu's own control scan fed the same envelopes
     and the same start state (dsp_tpu's, after 0.28 s of transients), each
@@ -238,8 +256,7 @@ def test_coupled_engines_match_dsp_tpu(opts):
     from dsp_tpu_torch.ops import m4_engine as m4
 
     B = 2048
-    e, je = _effects(opts)
-    run = _control_probe(je, B)
+    e, je, run = control_of(opts, B)
     step = jax.jit(je.step)
     x = transient_signal(0.5, seed=8)
     jst = jax.tree_util.tree_map(jnp.asarray, je.state_for_block(B))
@@ -357,7 +374,7 @@ AUDIO_CASES = [["-6"], ["direct_path", "-3/0"], ["phase_flip=false", "-6"]]
 
 
 @pytest.mark.parametrize("opts", AUDIO_CASES, ids=[" ".join(o) for o in AUDIO_CASES])
-def test_audio_path_under_dsp_tpus_control(opts):
+def test_audio_path_under_dsp_tpus_control(opts, control_of):
     """dsp_tpu's _control output (its bands and its coefficient sets) through
     both audio paths: the port's _audio (m4mb_audio's plain version, the
     inverse fshape on K2's, the output columns) against dsp_tpu's _audio,
@@ -366,8 +383,7 @@ def test_audio_path_under_dsp_tpus_control(opts):
     import jax.numpy as jnp
 
     B = 2048
-    e, je = _effects(opts)
-    run = _control_probe(je, B)
+    e, je, run = control_of(opts, B)
     audio = jax.jit(je._audio)
     x = transient_signal(0.5, seed=10)
     jst = jax.tree_util.tree_map(jnp.asarray, je.state_for_block(B))

@@ -422,6 +422,13 @@ def test_delivery_chain_cli_s16_bytes_equal(chain, tmp_path, monkeypatch, capsys
     from dsp_tpu.cli.main import main as dsp
     from dsp_tpu_torch.cli.main import main as dsp_torch
 
+    # both CLIs set their package's log level for the process: -v must not
+    # outlast the test (matrix4 turns its status bars on at verbose)
+    from dsp_tpu.core import log as jax_log
+    from dsp_tpu_torch.core import log as torch_log
+
+    monkeypatch.setattr(jax_log, "_level", jax_log._level)
+    monkeypatch.setattr(torch_log, "_level", torch_log._level)
     monkeypatch.setenv("DSP_TPU_TORCH_DEVICE", "cpu")
     src = tmp_path / "in.wav"
     write_wav(src, stereo_signal(1.5, seed=3)[:66000])
