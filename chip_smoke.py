@@ -27,7 +27,8 @@ nvcc and PyTorch built for CUDA. It
    direct_path, phase_flip=false,shelf=none,lowpass=none and the 48 kHz
    block of Nc = 80, and over one block of 65536 (Nc = 2048: the event
    engine's chunk pipeline wraps many times): the engine's decisions
-   equal, its floats within 1e-12 relative, the audio within -280 dBFS.
+   equal, its floats within 1e-12 relative, the audio within -280 dBFS
+   (m4_audio timed a call and device-only at B = 2048 and 65536).
    matrix4_mb's (slice F): K1 on its 13-band bank, K11 m4mb_env over 13 lanes, K9 + K10 m4mb_event (the
    13 engines coupled through their thresholds every tick) and K12 + K13
    m4mb_audio, over 3 blocks of transients in seven configurations (v4,
@@ -409,6 +410,136 @@ def kernel_phases(records):
                     # a sample and lane, in a chain of B dependent steps
                     nbytes = 8 * (2 * B * C + 4 * C + 2 * C + C + 4 * C)
                     set_times(k2, ms, plain_ms, nbytes, 10 * B * C)
+
+
+# K2's launches in the chain: (channels, crossfeed's two columns) for
+# crossfeed_step, and the blocks each fused form is held at
+CROSSFEED_LAYOUTS = ((2, (0, 1)), (4, (3, 1)))
+FUSED_BLOCKS = (1, 7, 1000, 2048, 2560, 65536)
+
+
+def k2_fused_phase(records):
+    """K2 in the launches the chain makes with it, on the card: crossfeed's
+    step (crossfeed_step, crossfeed_step_f32) on 2 channels and on 4 with
+    the pair at columns 3 and 1, matrix4's band-limit pair
+    (biquad_scan_series) and the per-sample biquad's (hi, lo) state
+    (biquad_scan_pair), at every block of FUSED_BLOCKS. Each must equal,
+    bit for bit, the launches it replaces on the card (the generic K2
+    launch and the torch ops around it), and its plain version within
+    -200 dBFS (float64) or one float32 ulp of its scale (float32). Times
+    each at B = 2048 (the pair at B = 1000, the flagship's per-sample
+    block) beside the composition it replaces, a call and device-only."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain import build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.ops import iir
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20312)
+    effects = build_chain_from_string(FLAGSHIP, StreamInfo(FS, CHANNELS)).effects
+    cf = next(e for e in effects if e.name == "crossfeed")
+    hp = next(e for e in effects if e.name == "highpass")
+    m4e = build_chain_from_string(MATRIX4, StreamInfo(FS, CHANNELS)).effects[0]
+    gains = (cf.direct_gain, cf.cross_gain)
+
+    def normal(*shape, dtype=torch.float64, scale=0.3):
+        return torch.as_tensor(rng.standard_normal(shape) * scale, dtype=dtype, device=dev)
+
+    def hold(rec, what, got, composed, plain, f32):
+        for k, c in zip(got, composed):
+            _require(f"{what}: differs from the launches it replaces", torch_equal(k, c))
+        if f32:
+            for name, k, r in zip(("state", "y"), got, plain):
+                _hold_f32(rec, f"{what} {name} against the plain version", k, r)
+        else:
+            err = max(_diff(k, r) for k, r in zip(got, plain))
+            check_close(f"{what}: bit-equal to the launches it replaces; plain version", err)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+
+    def time_pair(rec, what, new, old, plain, nbytes, flops, peak=F64_PEAK):
+        ms, old_ms = cuda_ms(new, 50), cuda_ms(old, 50)
+        (dev_ms, kern), (old_dev, old_kern) = device_ms(new), device_ms(old)
+        plain_ms = cuda_ms(plain, 5)
+        set_times(rec, ms, plain_ms, nbytes, flops, peak=peak)
+        print(f"  {what}: {ms:.4f} ms a call, {dev_ms:.4f} ms device-only ({kern} kernels); "
+              f"the launches it replaces {old_ms:.4f} ms, {old_dev:.4f} ms ({old_kern} kernels); "
+              f"plain {plain_ms:.4f} ms; bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+
+    print("K2 crossfeed_step (crossfeed's lanes and mix in one launch)")
+    for dtype, sfx in ((torch.float64, ""), (torch.float32, "_f32")):
+        rec = records[f"crossfeed_step{sfx}"]
+        f32 = dtype == torch.float32
+        A, Bv, c0 = (torch.as_tensor(getattr(cf, f"_ss{'32' if f32 else ''}_{k}"), device=dev)
+                     for k in ("A", "Bv", "c0"))
+        for C, cols in CROSSFEED_LAYOUTS:
+            for B in FUSED_BLOCKS:
+                x, st = normal(B, C, dtype=dtype), normal(4, 2, dtype=dtype, scale=1e-2)
+                got = iir.crossfeed_step(A, Bv, c0, st, x, *cols, *gains)
+                s_c, y = iir.biquad_scan(A, Bv, c0, st, iir.crossfeed_lanes(x, *cols))
+                composed = (s_c, iir.crossfeed_mix(x, y, *cols, *gains))
+                plain = iir.crossfeed_step_ref(A, Bv, c0, st, x, *cols, *gains)
+                torch.cuda.synchronize()
+                hold(rec, f"crossfeed_step{sfx} C={C} columns {cols} B={B}", got, composed, plain,
+                     f32)
+                if C == 2 and B == 2048:
+                    def old():
+                        s, y = iir.biquad_scan(A, Bv, c0, st, iir.crossfeed_lanes(x, *cols))
+                        return s, iir.crossfeed_mix(x, y, *cols, *gains)
+                    w = 4 if f32 else 8
+                    # x in, out written, the lanes' A, Bv, c0 and state in and
+                    # out; 10 operations a sample and lane, 5 a sample and
+                    # column for the mix
+                    time_pair(rec, f"crossfeed_step{sfx} B={B}",
+                              lambda: iir.crossfeed_step(A, Bv, c0, st, x, *cols, *gains), old,
+                              lambda: iir.crossfeed_step_ref(A, Bv, c0, st, x, *cols, *gains),
+                              w * (2 * B * C + 4 * 4 + 4 * 2 + 4 + 4 * 4), (40 + 10) * B,
+                              F32_PEAK if f32 else F64_PEAK)
+
+    print("K2 biquad_scan_series (matrix4's band-limit pair in one launch)")
+    rec = records["biquad_scan_series"]
+    hp_args = [torch.as_tensor(getattr(m4e, k), device=dev) for k in ("A_hp", "B_hp", "c0_hp")]
+    lp_args = [torch.as_tensor(getattr(m4e, k), device=dev) for k in ("A_lp", "B_lp", "c0_lp")]
+    bl = [torch.as_tensor(getattr(m4e, k), device=dev) for k in ("A_bl", "B_bl", "c0_bl")]
+    for B in FUSED_BLOCKS:
+        x, st = normal(B, 2), normal(4, 2, scale=1e-2)
+
+        def old():
+            s1, y1 = iir.biquad_scan(*hp_args, st[:2], x)
+            s2, y2 = iir.biquad_scan(*lp_args, st[2:], y1)
+            return torch.cat([s1, s2]), y2
+        got = iir.biquad_scan_series(*bl, st, x)
+        composed, plain = old(), iir.biquad_scan_series_ref(*bl, st, x)
+        torch.cuda.synchronize()
+        hold(rec, f"biquad_scan_series B={B}", got, composed, plain, False)
+        if B == 2048:
+            # x in, y out, two stages' coefficients and states; 10
+            # operations a sample, lane and stage
+            time_pair(rec, f"biquad_scan_series B={B}", lambda: iir.biquad_scan_series(*bl, st, x),
+                      old, lambda: iir.biquad_scan_series_ref(*bl, st, x),
+                      8 * (2 * B * 2 + 4 * 4 + 4 * 2 + 4 + 4 * 4), 2 * 2 * 10 * B)
+
+    print("K2 biquad_scan_pair (the per-sample biquad's (hi, lo) state in the kernel)")
+    rec = records["biquad_scan_pair"]
+    A, Bv, c0 = (torch.as_tensor(getattr(hp, k), device=dev) for k in ("_ss_A", "_ss_Bv", "_ss_c0"))
+    for B in FUSED_BLOCKS:
+        x, st = normal(B, 2), normal(2, 2, 2, scale=1e-2)
+        st[1] *= 1e-9  # a small lo part, as a state handed over from dsp_tpu may carry
+
+        def old():
+            s_end, y = iir.biquad_scan(A, Bv, c0, st[0] + st[1], x)
+            return torch.stack([s_end, torch.zeros_like(s_end)]), y
+        got = iir.biquad_scan_pair(A, Bv, c0, st, x)
+        composed, plain = old(), iir.biquad_scan_pair_ref(A, Bv, c0, st, x)
+        torch.cuda.synchronize()
+        hold(rec, f"biquad_scan_pair B={B}", got, composed, plain, False)
+        if B == 1000:
+            # x in, y out, A, Bv, c0, the (hi, lo) state in and out; 10
+            # operations a sample and lane
+            time_pair(rec, f"biquad_scan_pair B={B}", lambda: iir.biquad_scan_pair(A, Bv, c0, st, x),
+                      old, lambda: iir.biquad_scan_pair_ref(A, Bv, c0, st, x),
+                      8 * (2 * B * 2 + 4 * 2 + 2 * 2 + 2 + 2 * 8), 10 * B * 2)
 
 
 # (K, NB) of each fdl_mac call on the main path, C = 2 throughout
@@ -1105,10 +1236,8 @@ def matrix4_phase(records):
         for blk in range(warm, warm + blocks):
             st = cc.states[0]
             xb = x[blk * B:(blk + 1) * B].contiguous()
-            args = [e.device_array(k, xb) for k in ("A_hp", "B_hp", "c0_hp")]
-            _, y_hp = iir.biquad_scan(*args, st["bp_m"][:2].contiguous(), xb)
-            args = [e.device_array(k, xb) for k in ("A_lp", "B_lp", "c0_lp")]
-            _, y_bp = iir.biquad_scan(*args, st["bp_m"][2:].contiguous(), y_hp)
+            args = [e.device_array(k, xb) for k in ("A_bl", "B_bl", "c0_bl")]
+            _, y_bp = iir.biquad_scan_series(*args, st["bp_m"], xb)
             env_k = m4.m4_env(y_bp, st["env_m"], e.g_env)
             env_r = m4.m4_env_ref(y_bp, st["env_m"], e.g_env)
             errs["m4_env"] = max(errs["m4_env"], *(_rel(a, b) for a, b in zip(env_k, env_r)))
@@ -1147,6 +1276,9 @@ def matrix4_phase(records):
             records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
         if B == 65536:
             set_tick_us(records["m4_event"], B // 32, cuda_ms(lambda: m4.m4_event(e.ctl, *ins), 3))
+            dev_ms, _ = device_ms(lambda: m4.m4_audio(*a_ins), 5)
+            print(f"  m4_audio B={B}: kernel {cuda_ms(lambda: m4.m4_audio(*a_ins), 5):.4f} ms, "
+                  f"device-only {dev_ms:.4f} ms")
         if (words, fs, B) != M4_KERNEL_CASES[0]:
             continue
         Nc, L, n_in, n_out = B // 32, e.ctl.p["buf_len"], CHANNELS, e.audio.n_out
@@ -1181,6 +1313,7 @@ def matrix4_phase(records):
             plain_ms = cuda_ms(plain, 2)
             set_times(records[name], ms, plain_ms, nbytes, flops)
             print(f"  {name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        print(f"  m4_audio B={B}: device-only {device_ms(timed['m4_audio'][0])[0]:.4f} ms")
         set_tick_us(records["m4_event"], Nc, records["m4_event"]["ms"])
 
 
@@ -1786,10 +1919,16 @@ OLD_KERNELS_A_BLOCK = {
 # what the one-launch transforms must bring them to: the Upols step is
 # rfft_pack, fdl_mac and irfft_crop; the float32 resampler step
 # rfft_pack_f32 (reading the inner blocks in place), the fold and
-# irfft_ola_f32
+# irfft_ola_f32; and K2's launches in one each: crossfeed's step one
+# launch for 15 (the flagship from 33 to 19 at -b 2048 and from 54 and 36
+# to 22 at -b 1000), the per-sample biquad one for 4, matrix4's band-limit
+# pair one for 3 (10 to 8; PERF.md sections 5 and 6)
 MOST_KERNELS_A_BLOCK = {
     "fir 64k -b 2048 float64": 3, "fir 64k -b 2048 float32": 3,
     "resample 48k -b 2048 float32": 4,
+    "flagship -b 2048 float64": 19, "flagship -b 2048 float32": 19,
+    "flagship -b 1000 float64": 22, "flagship -b 1000 float32": 22,
+    "matrix4": 8, "matrix4 -6 -b 2048 float64": 8,
 }
 
 
@@ -2380,6 +2519,9 @@ def float32_m4_phase(records):
             records[name]["max_abs_err"] = max(records[name]["max_abs_err"], rel)
         if B == 65536:
             set_tick_us(records["m4_event_f32"], B // 32, cuda_ms(lambda: m4.m4_event_f32(*ins), 3))
+            dev_ms, _ = device_ms(lambda: m4.m4_audio_f32(*a_ins), 5)
+            print(f"  m4_audio_f32 B={B}: kernel "
+                  f"{cuda_ms(lambda: m4.m4_audio_f32(*a_ins), 5):.4f} ms, device-only {dev_ms:.4f} ms")
         if (words, fs, B) != M4_F32_CASES[0]:
             continue
         Nc, Lr, n_out = B // 32, e.ctl.p["buf_len"], e.audio.n_out
@@ -2408,6 +2550,7 @@ def float32_m4_phase(records):
             set_times(records[name], ms, plain_ms, nbytes, flops)
             print(f"  {name} B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                   f"{records[name]['bound_ms']:.6f} ms ({records[name]['bound_by']})")
+        print(f"  m4_audio_f32 B={B}: device-only {device_ms(timed['m4_audio_f32'][0])[0]:.4f} ms")
         set_tick_us(records["m4_event_f32"], Nc, records["m4_event_f32"]["ms"])
 
     print("K1-df, K3, K9-K13 in float32 (matrix4_mb): the fshape, the bank, m4mb_env_f32, "
@@ -2843,13 +2986,16 @@ def float32_cli(records, tmp, kept):
     src = tmp / "in.wav"
     n_in = SECONDS * FS
     f32w = {"lti_blocked_f32": iir.lti_blocked_f32, "biquad_scan_df": iir.biquad_scan_df,
-            "biquad_scan_f32": iir.biquad_scan_f32, "rfft_pack_f32": fft_conv.rfft_pack_f32,
+            "biquad_scan_f32": iir.biquad_scan_f32, "crossfeed_step_f32": iir.crossfeed_step_f32,
+            "rfft_pack_f32": fft_conv.rfft_pack_f32,
             "resample_fold": resample_ops.resample_fold,
             "irfft_ola_f32": resample_ops.irfft_ola_f32, "fdl_mac_f32": fft_conv.fdl_mac_f32,
             "irfft_crop_f32": fft_conv.irfft_crop_f32, "splice_f32": fft_conv.splice_f32,
             **{f"{name}_f32": getattr(m4, f"{name}_f32") for name in (
                 "m4_env", "m4_event", "m4_audio", "m4mb_env", "m4mb_event", "m4mb_audio")}}
     f64w = {"lti_blocked": iir.lti_blocked, "biquad_scan": iir.biquad_scan,
+            **{name: getattr(iir, name) for name in (
+                "crossfeed_step", "biquad_scan_series", "biquad_scan_pair")},
             **{name: getattr(fft_conv, name) for name in (
                 "rfft_pack", "fdl_mac", "irfft_crop", "splice")},
             **{name: getattr(m4, name) for name in (
@@ -2861,8 +3007,8 @@ def float32_cli(records, tmp, kept):
     # (label, words, block, the float32 kernels it must launch, the key of
     # main_path's float64 render or None)
     runs = [(f"{'flagship' if words == FLAGSHIP else words} -b {block}", words.split(), block,
-             {(FLAGSHIP, 2048): ("lti_blocked_f32", "biquad_scan_f32"),
-              (FLAGSHIP, 1000): ("biquad_scan_df", "biquad_scan_f32"),
+             {(FLAGSHIP, 2048): ("lti_blocked_f32", "crossfeed_step_f32"),
+              (FLAGSHIP, 1000): ("biquad_scan_df", "crossfeed_step_f32"),
               ("resample 48k", 2048): ("rfft_pack_f32", "resample_fold",
                                        "irfft_ola_f32")}[words, block],
              (words, block)) for words, block in F32_RUNS]
@@ -3106,10 +3252,14 @@ def main_path(records, seconds, tmp):
         kept[key] = tmp / f"f64_{len(kept)}.wav"
         return kept[key]
 
-    k12 = {"lti_blocked": iir.lti_blocked, "biquad_scan": iir.biquad_scan}
+    k12 = {"lti_blocked": iir.lti_blocked, "crossfeed_step": iir.crossfeed_step}
     for block in (2048, 65536):
         cli_run(f"flagship -b {block}", FLAGSHIP.split(), block, k12, *common,
                 keep=keep((FLAGSHIP, block)) if block == 2048 else None)
+    # at a block K1 does not take, the biquads run per sample on K2
+    cli_run("flagship -b 1000", FLAGSHIP.split(), 1000,
+            {"biquad_scan_pair": iir.biquad_scan_pair, "crossfeed_step": iir.crossfeed_step},
+            *common, keep=keep((FLAGSHIP, 1000)))
 
     f64k, f1m = tmp / "f64k.wav", tmp / "f1m.wav"
     write_filter(f64k, 1 << 16, seed=0xBE)
@@ -3159,7 +3309,8 @@ def main_path(records, seconds, tmp):
     from dsp_tpu_torch.ops import resample_ops
 
     # slices D and E: the upmixes
-    m4w = {"biquad_scan": iir.biquad_scan, "m4_env": m4.m4_env, "m4_event": m4.m4_event,
+    m4w = {"biquad_scan_series": iir.biquad_scan_series, "m4_env": m4.m4_env,
+           "m4_event": m4.m4_event,
            "m4_audio": m4.m4_audio, "splice": fft_conv.splice}
     cli_run("matrix4 -6 -b 2048 (44.1 kHz -> 4 ch)", MATRIX4.split(), 2048, m4w, *common,
             keep=keep((MATRIX4, 2048)))
@@ -3252,6 +3403,18 @@ def main():
         for name, src, replaces, timed_at in (
             ("lti_blocked", "lti_blocked", "dsp_tpu/ops/iir.py:566", "B=2048"),
             ("biquad_scan", "biquad_scan", "dsp_tpu/ops/iir.py:77", "B=2048"),
+            ("crossfeed_step", "biquad_scan",
+             "dsp_tpu/effects/crossfeed.py:40-55 (K2, dsp_tpu/ops/iir.py:77, and the mix)",
+             "B=2048, C=2"),
+            ("crossfeed_step_f32", "biquad_scan",
+             "dsp_tpu/effects/crossfeed.py:40-55 in float32 (K2 and the mix)",
+             "float32, B=2048, C=2"),
+            ("biquad_scan_series", "biquad_scan",
+             "dsp_tpu/effects/matrix4.py:431-432 (K2 twice, dsp_tpu/ops/iir.py:77)",
+             "matrix4's band-limit, B=2048, C=2"),
+            ("biquad_scan_pair", "biquad_scan",
+             "dsp_tpu/effects/biquad.py:329 (K2 on hi + lo, dsp_tpu/ops/iir.py:77)",
+             "highpass 30, B=1000, C=2"),
             ("rfft_pack", "fft_conv", "dsp_tpu/ops/fft_conv.py:85,137,204", "N=4096, C=2"),
             ("fdl_mac", "fdl_mac", "dsp_tpu/ops/fft_conv.py:85,137,204", "K=32, NB=2049, C=2"),
             ("irfft_crop", "fft_conv", "dsp_tpu/ops/fft_conv.py:85,137,204", "N=4096, C=2"),
@@ -3336,6 +3499,7 @@ def main():
 
         timed(build_kernels)
         timed(kernel_phases, records)
+        timed(k2_fused_phase, records)
         timed(fdl_mac_phase, records["fdl_mac"])
         timed(step_kernels_phase, records)
         timed(time_domain_phase, records)

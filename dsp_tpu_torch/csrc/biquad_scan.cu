@@ -37,24 +37,54 @@
 // thread writes the end state [C, 2] (K3: [2, C, 2]).
 //
 // The three forms are one template: T the sample type, R the type of the
-// coefficients and of every product and sum, kPair the (hi, lo) state. In
-// float32 every product and sum rounds on its own (__fmul_rn, __fadd_rn:
-// nvcc contracts none into an FMA), in the order the plain version
-// (ops/iir.py biquad_scan_f32_ref) takes, so the two agree bit for bit.
+// coefficients and of every product and sum, kPair the (hi, lo) state (also
+// with float64 storage, dsp_biquad_scan_f64_pair: BiquadEffect's per-sample
+// path hands its [2, C, 2] state in and out without three torch ops). Every
+// operation is written out as an intrinsic, so that nvcc contracts nothing
+// of its own: in float32 every product and sum rounds on its own
+// (__fmul_rn, __fadd_rn), in the order the plain version (ops/iir.py
+// biquad_scan_f32_ref) takes, so the two agree bit for bit; in float64
+// each a·b + c whose sum takes the product directly is one __fma_rn, every
+// other product and sum rounds on its own, and which product of a·b + c·d
+// is fused follows the grouping K2 has always had (compose_start). The
+// kernels that share scan_stage therefore round alike, whatever code
+// surrounds the stage, and as K2 did.
+//
+// Three entries take the launches the chain made around K2 into one; they
+// run the same segments through the same stage (scan_stage), so each lane's
+// output and end state are the bits of the K2 launch they replace:
+// * dsp_crossfeed_step_f64/_f32 replace dsp_tpu/effects/crossfeed.py:40-55
+//   `CrossfeedEffect.step` (K2 on four lanes and the mix), which the port
+//   ran as 15 launches (a stack, K2, a clone, six multiplies, four adds
+//   and two copies). Two blocks, one an output column; each thread runs
+//   the column's two lanes over its segment (two maps a thread in the
+//   scan), reads them straight from x's columns and mixes in registers,
+//   rounded as torch's separate elementwise kernels round;
+// * dsp_biquad_scan_series_f64 replaces dsp_tpu/effects/matrix4.py:431-432
+//   (two K2 launches in series and the states' concatenation, three
+//   launches): the second stage runs after a block barrier on the first's
+//   output, which each thread left in y for its own segment.
+// What bounds them is what bounds K2: the launch and the chain of a
+// segment, not bytes.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return a * b; }
-__device__ __forceinline__ double add(double a, double b) { return a + b; }
+__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+// a·b + c: float32 rounds the product and the sum, float64 once (an FMA)
+__device__ __forceinline__ float madd(float a, float b, float c) { return add(mul(a, b), c); }
+__device__ __forceinline__ double madd(double a, double b, double c) { return __fma_rn(a, b, c); }
 
 // a·b + c·d and a·b + c·d + e, left to right
 template <typename R>
 __device__ __forceinline__ R dot2(R a, R b, R c, R d) {
-    return add(mul(a, b), mul(c, d));
+    return madd(a, b, mul(c, d));
 }
 template <typename R>
 __device__ __forceinline__ R dot2(R a, R b, R c, R d, R e) {
@@ -84,6 +114,18 @@ __device__ __forceinline__ Affine<R> compose(const Affine<R>& first, const Affin
     return r;
 }
 
+// compose for a segment's start map: as compose, but m11 fuses
+// second.m11·first.m11 and rounds second.m10·first.m01 (the other terms
+// fuse their first product). K2's float64 forms have always grouped this
+// one term so; keeping it keeps their outputs' bits.
+template <typename R>
+__device__ __forceinline__ Affine<R> compose_start(const Affine<R>& first,
+                                                   const Affine<R>& second) {
+    Affine<R> r = compose(first, second);
+    r.m11 = madd(second.m11, first.m11, mul(second.m10, first.m01));
+    return r;
+}
+
 template <typename R>
 __device__ __forceinline__ Affine<R> shfl_up(const Affine<R>& a, int d) {
     const unsigned full = 0xffffffffu;
@@ -100,93 +142,256 @@ __device__ __forceinline__ R load_state(const T* st, int c, int C, int k) {
     return (R)st[c * 2 + k];
 }
 
+// the lane's end state: [C, 2], or (kPair) the [2, C, 2] pair's hi and lo;
+// with double storage the whole state is hi and lo is 0
 template <typename T, typename R, bool kPair>
 __device__ __forceinline__ void store_state(T* st, int c, int C, int k, R s) {
     const T h = (T)s;
     st[c * 2 + k] = h;
-    if (kPair) st[(C + c) * 2 + k] = (T)(s - (R)h);  // R = double here
+    if (kPair) st[(C + c) * 2 + k] = std::is_same<T, R>::value ? T(0) : (T)(s - (R)h);
 }
 
+// one lane's coefficients
+template <typename R>
+struct Coef {
+    R a00, a01, a10, a11, b0, b1, g;
+};
+
+template <typename R>
+__device__ __forceinline__ Coef<R> coef(const R* A, const R* Bv, const R* c0, int l) {
+    return {A[l * 4 + 0], A[l * 4 + 1], A[l * 4 + 2], A[l * 4 + 3],
+            Bv[l * 2 + 0], Bv[l * 2 + 1], c0[l]};
+}
+
+// one sample into a segment's map: f -> (A·M, A·v + Bv·x)
+template <typename R>
+__device__ __forceinline__ void absorb(Affine<R>& f, const Coef<R>& k, R xt) {
+    const R v0 = madd(k.b0, xt, dot2(k.a00, f.v0, k.a01, f.v1));
+    const R v1 = madd(k.b1, xt, dot2(k.a10, f.v0, k.a11, f.v1));
+    f = {dot2(k.a00, f.m00, k.a01, f.m10), dot2(k.a00, f.m01, k.a01, f.m11),
+         dot2(k.a10, f.m00, k.a11, f.m10), dot2(k.a10, f.m01, k.a11, f.m11), v0, v1};
+}
+
+// one sample of the rerun: y = c0·x + s[0], then s <- A·s + Bv·x
+template <typename R>
+__device__ __forceinline__ R advance(R& u0, R& u1, const Coef<R>& k, R xt) {
+    const R y = madd(k.g, xt, u0);
+    const R n0 = madd(k.b0, xt, dot2(k.a00, u0, k.a01, u1));
+    const R n1 = madd(k.b1, xt, dot2(k.a10, u0, k.a11, u1));
+    u0 = n0;
+    u1 = n1;
+    return y;
+}
+
+// The block-wide exclusive scan of NL maps a thread (one a lane the block
+// runs): on entry f[j] is this thread's segment map of lane j, on return
+// the map from the lane's start to the segment's start. Warp shuffles,
+// then one thread scans the warps' totals in shared memory (prefix[j][w]).
+template <typename R, int NL>
+__device__ __forceinline__ void block_exclusive_scan(Affine<R> (&f)[NL], Affine<R> (*prefix)[32]) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int nwarps = blockDim.x >> 5;
+    for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+        for (int j = 0; j < NL; ++j) {
+            const Affine<R> o = shfl_up(f[j], d);
+            if (lane >= d) f[j] = compose(o, f[j]);
+        }
+    }
+    Affine<R> excl[NL];
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+        if (lane == 31) prefix[j][warp] = f[j];
+        excl[j] = shfl_up(f[j], 1);
+        if (lane == 0) excl[j] = identity<R>();
+    }
+    __syncthreads();
+    if (tid == 0) {
+#pragma unroll
+        for (int j = 0; j < NL; ++j) {
+            Affine<R> run = identity<R>();
+            for (int w = 0; w < nwarps; ++w) {
+                const Affine<R> total = prefix[j][w];
+                prefix[j][w] = run;
+                run = compose(run, total);
+            }
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NL; ++j) f[j] = compose_start(prefix[j][warp], excl[j]);
+}
+
+// the segment [t0, t1) of B samples that thread tid of T owns: about B/T
+__device__ __forceinline__ void segment(int B, int& t0, int& t1) {
+    const int seg = (B + blockDim.x - 1) / blockDim.x;
+    t0 = min(B, (int)threadIdx.x * seg);
+    t1 = min(B, t0 + seg);
+}
+
+// one stage of NL lanes over a block of B samples: x_j(t) reads lane j's
+// input, out(t, y) takes the NL outputs of sample t; s[j] holds lane j's
+// incoming state and, in the block's last thread, returns its end state
+// (that thread's segment ends at B, or is empty, past B).
+template <typename R, int NL, class In, class Out>
+__device__ __forceinline__ void scan_stage(const Coef<R> (&k)[NL], R (&s)[NL][2], int B, In x_j,
+                                           Out out, Affine<R> (*prefix)[32]) {
+    int t0, t1;
+    segment(B, t0, t1);
+    // 1. this segment's maps
+    Affine<R> f[NL];
+#pragma unroll
+    for (int j = 0; j < NL; ++j) f[j] = identity<R>();
+    for (int t = t0; t < t1; ++t) {
+#pragma unroll
+        for (int j = 0; j < NL; ++j) absorb(f[j], k[j], x_j(j, t));
+    }
+    // 2. exclusive scan over the block's segments
+    block_exclusive_scan<R, NL>(f, prefix);
+    // 3. rerun the segment from its start state
+    R u0[NL], u1[NL];
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+        u0[j] = dot2(f[j].m00, s[j][0], f[j].m01, s[j][1], f[j].v0);
+        u1[j] = dot2(f[j].m10, s[j][0], f[j].m11, s[j][1], f[j].v1);
+    }
+    for (int t = t0; t < t1; ++t) {
+        R y[NL];
+#pragma unroll
+        for (int j = 0; j < NL; ++j) y[j] = advance(u0[j], u1[j], k[j], x_j(j, t));
+        out(t, y);
+    }
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+        s[j][0] = u0[j];
+        s[j][1] = u1[j];
+    }
+}
+
+// K2 and K3: one block a lane c of C, x and y [B, C]
 template <typename T, typename R, bool kPair>
 __global__ void biquad_scan_kernel(const R* __restrict__ A, const R* __restrict__ Bv,
                                    const R* __restrict__ c0, const T* __restrict__ state_in,
                                    T* __restrict__ state_out, const T* __restrict__ x,
                                    T* __restrict__ y, int B, int C) {
-    __shared__ Affine<R> warp_prefix[32];
+    __shared__ Affine<R> prefix[1][32];
     const int c = blockIdx.x;
-    const int tid = threadIdx.x;
-    const int T_ = blockDim.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int nwarps = T_ >> 5;
-    const R a00 = A[c * 4 + 0], a01 = A[c * 4 + 1];
-    const R a10 = A[c * 4 + 2], a11 = A[c * 4 + 3];
-    const R b0 = Bv[c * 2 + 0], b1 = Bv[c * 2 + 1];
-    const R g = c0[c];
-    const int seg = (B + T_ - 1) / T_;
-    const int t0 = min(B, tid * seg);
-    const int t1 = min(B, t0 + seg);
-
-    // 1. this segment's map
-    Affine<R> f = identity<R>();
-    for (int t = t0; t < t1; ++t) {
-        const R xt = (R)x[(size_t)t * C + c];
-        const R v0 = add(dot2(a00, f.v0, a01, f.v1), mul(b0, xt));
-        const R v1 = add(dot2(a10, f.v0, a11, f.v1), mul(b1, xt));
-        f = {dot2(a00, f.m00, a01, f.m10), dot2(a00, f.m01, a01, f.m11),
-             dot2(a10, f.m00, a11, f.m10), dot2(a10, f.m01, a11, f.m11), v0, v1};
+    const Coef<R> k[1] = {coef(A, Bv, c0, c)};
+    R s[1][2] = {{load_state<T, R, kPair>(state_in, c, C, 0),
+                  load_state<T, R, kPair>(state_in, c, C, 1)}};
+    scan_stage<R, 1>(
+        k, s, B, [&](int, int t) { return (R)x[(size_t)t * C + c]; },
+        [&](int t, const R (&yt)[1]) { y[(size_t)t * C + c] = (T)yt[0]; }, prefix);
+    if (threadIdx.x == blockDim.x - 1) {
+        store_state<T, R, kPair>(state_out, c, C, 0, s[0][0]);
+        store_state<T, R, kPair>(state_out, c, C, 1, s[0][1]);
     }
+}
 
-    // 2. exclusive scan over the block's segments
-    for (int d = 1; d < 32; d <<= 1) {
-        const Affine<R> o = shfl_up(f, d);
-        if (lane >= d) f = compose(o, f);
+// the mix of crossfeed's output column, rounded as torch's separate
+// elementwise kernels round it: (s·direct + y_lp·cross) + y_hp·cross
+__device__ __forceinline__ double mix(double s, double ylp, double yhp, double gd, double gc) {
+    return __dadd_rn(__dadd_rn(__dmul_rn(s, gd), __dmul_rn(ylp, gc)), __dmul_rn(yhp, gc));
+}
+__device__ __forceinline__ float mix(float s, float ylp, float yhp, float gd, float gc) {
+    return __fadd_rn(__fadd_rn(__fmul_rn(s, gd), __fmul_rn(ylp, gc)), __fmul_rn(yhp, gc));
+}
+
+// crossfeed's whole step: block b writes output column cb (b = 0: c0,
+// 1: c1) from lanes b (the lowpass of the other column) and 2 + b (the
+// highpass of its own), both run by every thread over its segment; the
+// blocks copy the pass-through columns between them.
+template <typename R>
+__global__ void __launch_bounds__(1024) crossfeed_kernel(const R* __restrict__ A, const R* __restrict__ Bv,
+                                 const R* __restrict__ c0, const R* __restrict__ state_in,
+                                 R* __restrict__ state_out, const R* __restrict__ x,
+                                 R* __restrict__ out, int B, int C, int col0, int col1, R gd,
+                                 R gc) {
+    __shared__ Affine<R> prefix[2][32];
+    const int b = blockIdx.x;
+    const int own = b == 0 ? col0 : col1, other = b == 0 ? col1 : col0;
+    const int lanes[2] = {b, 2 + b};
+    const Coef<R> k[2] = {coef(A, Bv, c0, lanes[0]), coef(A, Bv, c0, lanes[1])};
+    R s[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+        s[j][0] = state_in[lanes[j] * 2 + 0];
+        s[j][1] = state_in[lanes[j] * 2 + 1];
     }
-    if (lane == 31) warp_prefix[warp] = f;
-    Affine<R> excl = shfl_up(f, 1);
-    if (lane == 0) excl = identity<R>();
-    __syncthreads();
-    if (tid == 0) {
-        Affine<R> run = identity<R>();
-        for (int w = 0; w < nwarps; ++w) {
-            const Affine<R> total = warp_prefix[w];
-            warp_prefix[w] = run;
-            run = compose(run, total);
+    scan_stage<R, 2>(
+        k, s, B, [&](int j, int t) { return x[(size_t)t * C + (j == 0 ? other : own)]; },
+        [&](int t, const R (&yt)[2]) {
+            out[(size_t)t * C + own] = mix(x[(size_t)t * C + own], yt[0], yt[1], gd, gc);
+        },
+        prefix);
+    if (threadIdx.x == blockDim.x - 1) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            state_out[lanes[j] * 2 + 0] = s[j][0];
+            state_out[lanes[j] * 2 + 1] = s[j][1];
         }
     }
-    __syncthreads();
-    const Affine<R> pre = compose(warp_prefix[warp], excl);
+    if (C > 2) {
+        for (int t = b * blockDim.x + threadIdx.x; t < B; t += 2 * blockDim.x) {
+            for (int c = 0; c < C; ++c) {
+                if (c != col0 && c != col1) out[(size_t)t * C + c] = x[(size_t)t * C + c];
+            }
+        }
+    }
+}
 
-    // 3. rerun the segment from its start state
-    const R si0 = load_state<T, R, kPair>(state_in, c, C, 0);
-    const R si1 = load_state<T, R, kPair>(state_in, c, C, 1);
-    R u0 = dot2(pre.m00, si0, pre.m01, si1, pre.v0);
-    R u1 = dot2(pre.m10, si0, pre.m11, si1, pre.v1);
-    for (int t = t0; t < t1; ++t) {
-        const R xt = (R)x[(size_t)t * C + c];
-        y[(size_t)t * C + c] = (T)add(mul(g, xt), u0);
-        const R n0 = add(dot2(a00, u0, a01, u1), mul(b0, xt));
-        const R n1 = add(dot2(a10, u0, a11, u1), mul(b1, xt));
-        u0 = n0;
-        u1 = n1;
+// two stages in series over C lanes, one block a lane: coefficient and
+// state rows [0, C) the first stage, [C, 2C) the second; the first writes
+// its output to y, which the second reads and overwrites (each thread its
+// own segment)
+template <typename R>
+__global__ void __launch_bounds__(1024) series_kernel(const R* __restrict__ A, const R* __restrict__ Bv,
+                              const R* __restrict__ c0, const R* __restrict__ state_in,
+                              R* __restrict__ state_out, const R* __restrict__ x, R* y, int B,
+                              int C) {
+    __shared__ Affine<R> prefix[1][32];
+    const int c = blockIdx.x;
+    for (int stage = 0; stage < 2; ++stage) {
+        const int l = stage * C + c;
+        const R* in = stage == 0 ? x : y;
+        const Coef<R> k[1] = {coef(A, Bv, c0, l)};
+        R s[1][2] = {{state_in[l * 2 + 0], state_in[l * 2 + 1]}};
+        scan_stage<R, 1>(
+            k, s, B, [&](int, int t) { return in[(size_t)t * C + c]; },
+            [&](int t, const R (&yt)[1]) { y[(size_t)t * C + c] = yt[0]; }, prefix);
+        if (threadIdx.x == blockDim.x - 1) {
+            state_out[l * 2 + 0] = s[0][0];
+            state_out[l * 2 + 1] = s[0][1];
+        }
+        __syncthreads();  // the second stage reuses prefix
     }
-    // the last thread's segment ends at B (or is empty, past B): its state
-    // is the lane's end state
-    if (tid == T_ - 1) {
-        store_state<T, R, kPair>(state_out, c, C, 0, u0);
-        store_state<T, R, kPair>(state_out, c, C, 1, u1);
-    }
+}
+
+// about 16 samples a thread, 32..1024 threads a lane (the crossfeed and
+// series kernels are bounded to 1,024 threads' registers, so that they run
+// K2's segments at every B)
+int threads_for(int B) {
+    int T_ = ((B + 15) / 16 + 31) / 32 * 32;
+    return T_ < 32 ? 32 : (T_ > 1024 ? 1024 : T_);
 }
 
 template <typename T, typename R, bool kPair>
 int biquad_scan(const R* A, const R* Bv, const R* c0, const T* state_in, T* state_out,
                 const T* x, T* y, int B, int C, void* stream) {
     if (B <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-    // about 16 samples a thread, 32..1024 threads a lane
-    int T_ = ((B + 15) / 16 + 31) / 32 * 32;
-    T_ = T_ < 32 ? 32 : (T_ > 1024 ? 1024 : T_);
-    biquad_scan_kernel<T, R, kPair><<<C, T_, 0, static_cast<cudaStream_t>(stream)>>>(
+    biquad_scan_kernel<T, R, kPair><<<C, threads_for(B), 0, static_cast<cudaStream_t>(stream)>>>(
         A, Bv, c0, state_in, state_out, x, y, B, C);
+    return (int)cudaGetLastError();
+}
+
+template <typename R>
+int crossfeed(const R* A, const R* Bv, const R* c0, const R* state_in, R* state_out, const R* x,
+              R* out, int B, int C, int col0, int col1, R gd, R gc, void* stream) {
+    if (B <= 0 || C < 2 || col0 < 0 || col1 < 0 || col0 >= C || col1 >= C || col0 == col1) {
+        return (int)cudaErrorInvalidValue;
+    }
+    crossfeed_kernel<R><<<2, threads_for(B), 0, static_cast<cudaStream_t>(stream)>>>(
+        A, Bv, c0, state_in, state_out, x, out, B, C, col0, col1, gd, gc);
     return (int)cudaGetLastError();
 }
 
@@ -222,4 +427,46 @@ extern "C" int dsp_biquad_scan_df1(const double* A, const double* Bv, const doub
                                    const float* state_in, float* state_out, const float* x,
                                    float* y, int B, int C, void* stream) {
     return biquad_scan<float, double, false>(A, Bv, c0, state_in, state_out, x, y, B, C, stream);
+}
+
+// K2 with a float64 (hi, lo) state [2, C, 2]: the state read as hi + lo,
+// the end state written as (s, 0) (BiquadEffect's per-sample path).
+extern "C" int dsp_biquad_scan_f64_pair(const double* A, const double* Bv, const double* c0,
+                                        const double* state_in, double* state_out,
+                                        const double* x, double* y, int B, int C, void* stream) {
+    return biquad_scan<double, double, true>(A, Bv, c0, state_in, state_out, x, y, B, C, stream);
+}
+
+// crossfeed's step: x and out [B, C], the four lanes' A [4, 2, 2], Bv
+// [4, 2], c0 [4] and state [4, 2] (lanes lp(s1), lp(s0), hp(s0), hp(s1)),
+// the gains of the mix; every column of out is written.
+extern "C" int dsp_crossfeed_step_f64(const double* A, const double* Bv, const double* c0,
+                                      const double* state_in, double* state_out, const double* x,
+                                      double* out, int B, int C, int col0, int col1, double direct,
+                                      double cross, void* stream) {
+    return crossfeed<double>(A, Bv, c0, state_in, state_out, x, out, B, C, col0, col1, direct,
+                             cross, stream);
+}
+
+// The same in float32, with the gains as torch's float32 scalar multiply
+// takes them (rounded to float32).
+extern "C" int dsp_crossfeed_step_f32(const float* A, const float* Bv, const float* c0,
+                                      const float* state_in, float* state_out, const float* x,
+                                      float* out, int B, int C, int col0, int col1, float direct,
+                                      float cross, void* stream) {
+    return crossfeed<float>(A, Bv, c0, state_in, state_out, x, out, B, C, col0, col1, direct,
+                            cross, stream);
+}
+
+// Two float64 stages in series on x [B, C] (matrix4's band-limit: the
+// highpass, then the lowpass): A [2C, 2, 2], Bv [2C, 2], c0 [2C] and the
+// state [2C, 2], rows [0, C) the first stage; y [B, C] the second's output.
+extern "C" int dsp_biquad_scan_series_f64(const double* A, const double* Bv, const double* c0,
+                                          const double* state_in, double* state_out,
+                                          const double* x, double* y, int B, int C,
+                                          void* stream) {
+    if (B <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+    series_kernel<double><<<C, threads_for(B), 0, static_cast<cudaStream_t>(stream)>>>(
+        A, Bv, c0, state_in, state_out, x, y, B, C);
+    return (int)cudaGetLastError();
 }

@@ -23,13 +23,29 @@
 //
 // What bounds it on the card: each of the four signals is a chain of B
 // samples through up to three recurrences; the block reads 16·B bytes of
-// input and writes 32·B or 48·B. Latency, not bytes. Design: one block of
-// four warps, a warp a signal, as in levels.cu: for each recurrence each
-// lane composes its segment of B/32 samples into one affine map, a shuffle
-// scan gives each segment its start state, and the lane reruns its segment.
-// Between the recurrences a signal lives in a scratch row [4, B] (the lane
-// that wrote a sample reads it back; the allpass also reads the sample
-// before its segment, after a warp barrier).
+// input and writes 32·B or 48·B. Latency, not bytes.
+//
+// Design: one block of 1,024 threads, 256 a signal (warps 8s..8s+7 run
+// signal s), over tiles of TILE = 2,048 samples in time; a thread owns a
+// segment of SEG = 8 samples of each tile. A tile's signals live in shared
+// memory (sig, beside a second row aux a signal: 130 KB), loaded with
+// coalesced reads of the line and x, and its rows of y are written from
+// there in one coalesced pass with the pass-through channels. For each
+// recurrence a thread folds its segment into one affine map, computing each
+// sample's interpolated value and input term once (the rerun reads them
+// from aux); a shuffle scan inside each warp gives the maps from the
+// warp's start; one thread a signal carries the recurrence's value across
+// the signal's warps in order, m <- A·m + b (eight steps a tile), and
+// from tile to tile; each thread reruns its segment from its start value.
+// So the grouping of the rounding is set by the segments and the warps of
+// 32 segments alone: the tiling and the thread count do not move a bit
+// (tests/test_torch_m4_audio_partition.py models it). The interpolation
+// takes u from a 32-entry table of ((t+1) % D)/D (the same division) and
+// the set from a shift (the host checks D = 32), from the tile's 65
+// coefficient sets staged in shared memory as float64. A tile sits in
+// shared memory by position in the segment (`at`), so that neither the
+// segment walks nor the coalesced passes conflict on banks. A block of
+// 65,536 is 32 tiles of the same work on the one block.
 //
 // float32 (`dsp_m4_audio_f32`, dsp_tpu's float32 _audio): x, the line, the
 // coefficient sets and the filter states are float32, read into float64;
@@ -47,14 +63,45 @@ struct AudioCfg {
 namespace {
 
 constexpr int kInterp = 16;
+constexpr int kD = 32;            // the control decimation (ops/m4_engine.py)
+constexpr int kThreads = 1024;    // the block
+constexpr int kSigThreads = 256;  // a signal's threads
+constexpr int kWarps = kSigThreads / 32;
+constexpr int kSeg = 8;           // a thread's samples in a tile
+constexpr int kTile = kSigThreads * kSeg;
+// a tile's signal sits in shared memory by position in the segment first:
+// sample r at (r % SEG)·kStride + r / SEG, so that a warp walking its
+// segments touches consecutive words, and one reading consecutive samples
+// touches 16 distinct ones (the padding of 4)
+constexpr int kStride = kSigThreads + 4;
+constexpr int kRow = kSeg * kStride;
+
+__device__ __forceinline__ int at(int r) { return (r & (kSeg - 1)) * kStride + (r >> 3); }
+// the tile's coefficient sets, in float64, one row each (48 values and a
+// pad: rows an odd number of words apart)
+constexpr int kSets = kTile / kD + 1;
+constexpr int kSetStride = 3 * kInterp + 1;
 
 struct Map {
     double a, b;  // m -> a·m + b
 };
 
-// an inclusive scan of the lanes' maps, shifted to exclusive: the map from
-// the warp's start to this lane's segment start
-__device__ Map exclusive_scan(Map f) {
+// the shared memory of a block: a tile's signals, their aux rows, its
+// coefficient sets, the u table, the warps' totals and start values, and
+// the carried values
+struct Smem {
+    double sig[4][kRow];
+    double aux[4][kRow];
+    double sets[kSets][kSetStride];
+    double u[kD];
+    Map total[4][kWarps];
+    double start[4][kWarps];
+    double carry[4][4];  // shelf m, lowpass m, allpass o0, allpass i0
+};
+
+// the inclusive scan of the lanes' maps (f on return), and the exclusive
+// one returned: the map from the warp's start to this lane's segment start
+__device__ __forceinline__ Map warp_scan(Map& f) {
     const unsigned full = 0xffffffffu;
     const int lane = threadIdx.x & 31;
     for (int d = 1; d < 32; d <<= 1) {
@@ -69,171 +116,255 @@ __device__ Map exclusive_scan(Map f) {
     return pre;
 }
 
-template <class T>
-__device__ __forceinline__ double interp_val(const T* interp_c, const T* ics, int t, int k,
-                                             int D) {
-    const int set = (t + 1) / D;
-    const double u = (double)((t + 1) % D) / (double)D;
-    const T* c = set == 0 ? interp_c : ics + (size_t)(set - 1) * 3 * kInterp;
-    return ((double)c[2 * kInterp + k] * u + (double)c[kInterp + k]) * u + (double)c[k];
+// the start value of every segment, from each thread's segment map f (of
+// signal sg, on when `on`): returns this thread's start value and carries
+// the signal's value in sm.carry[sg][slot] across the tile. Every thread
+// of the block calls it (two barriers).
+__device__ __forceinline__ double segment_start(Smem& sm, Map f, int sg, int slot, bool on) {
+    const int j = threadIdx.x & (kSigThreads - 1), wl = j >> 5;
+    const Map pre = warp_scan(f);
+    if ((threadIdx.x & 31) == 31) sm.total[sg][wl] = f;
+    __syncthreads();
+    if (j == 0 && on) {
+        double v = sm.carry[sg][slot];
+        for (int w = 0; w < kWarps; ++w) {
+            sm.start[sg][w] = v;
+            v = sm.total[sg][w].a * v + sm.total[sg][w].b;
+        }
+        sm.carry[sg][slot] = v;
+    }
+    __syncthreads();
+    return pre.a * sm.start[sg][wl] + pre.b;
 }
 
-// one dynamic shelf (or lowpass) over the warp's signal in `sig`, in place
-template <class T>
-__device__ void dyn_shelf(double* sig, const T* interp_c, const T* ics, int gk, double sin_w0,
-                          double cos1, double norm, double c2, double m0, T* m_out, int t0,
-                          int t1, int D) {
+// the interpolated value k of sample t of the tile at t0: set (t+1)/D of
+// [interp_c | ics], staged in sm.sets from set t0/D on
+__device__ __forceinline__ double interp_val(const Smem& sm, int t0, int t, int k) {
+    const double u = sm.u[(t + 1) & (kD - 1)];
+    const double* c = sm.sets[((t + 1) >> 5) - (t0 >> 5)];
+    return (c[2 * kInterp + k] * u + c[kInterp + k]) * u + c[k];
+}
+
+// one dynamic shelf (or lowpass) over the tile's four signals, in place:
+// r = c0s + m, m' = -c2·m + (c1s - c2·c0s)
+__device__ void dyn_shelf(Smem& sm, int gk_front, int gk_surr,
+                          double sin_w0, double cos1, double norm, double c2, int slot, int t0,
+                          int n) {
+    const int sg = threadIdx.x / kSigThreads, j = threadIdx.x & (kSigThreads - 1);
+    const int i0 = j * kSeg;
+    const bool full = i0 < n;  // n is a multiple of 32: a segment is full or empty
+    const int gk = sg < 2 ? gk_front : gk_surr;
+    double* x = sm.sig[sg];
+    double* b = sm.aux[sg];
     const double a = -c2;
     Map f = {1.0, 0.0};
-    for (int t = t0; t < t1; ++t) {
-        const double g = interp_val(interp_c, ics, t, gk, D);
-        const double sn = sig[t] * norm;
-        const double gcp1 = g * cos1;
-        const double c0s = (sin_w0 + gcp1) * sn;
-        const double c1s = (sin_w0 - gcp1) * sn;
-        f.b = a * f.b + (c1s - c2 * c0s);
-        f.a = a * f.a;
+    if (full) {
+#pragma unroll
+        for (int i = i0; i < i0 + kSeg; ++i) {
+            const double g = interp_val(sm, t0, t0 + i, gk);
+            const double sn = x[at(i)] * norm;
+            const double gcp1 = g * cos1;
+            const double c0s = (sin_w0 + gcp1) * sn;
+            const double c1s = (sin_w0 - gcp1) * sn;
+            const double bi = c1s - c2 * c0s;
+            x[at(i)] = c0s;
+            b[at(i)] = bi;
+            f.b = a * f.b + bi;
+            f.a = a * f.a;
+        }
     }
-    const Map pre = exclusive_scan(f);
-    double m = pre.a * m0 + pre.b;
-    for (int t = t0; t < t1; ++t) {
-        const double g = interp_val(interp_c, ics, t, gk, D);
-        const double sn = sig[t] * norm;
-        const double gcp1 = g * cos1;
-        const double c0s = (sin_w0 + gcp1) * sn;
-        const double c1s = (sin_w0 - gcp1) * sn;
-        sig[t] = c0s + m;
-        m = a * m + (c1s - c2 * c0s);
+    double m = segment_start(sm, f, sg, slot, true);
+    if (full) {
+#pragma unroll
+        for (int i = i0; i < i0 + kSeg; ++i) {
+            x[at(i)] = x[at(i)] + m;
+            m = a * m + b[at(i)];
+        }
     }
-    if ((threadIdx.x & 31) == 31) *m_out = (T)m;
 }
 
 template <class T>
-__global__ void m4_audio_kernel(const T* __restrict__ x, const T* __restrict__ buf,
-                                const T* __restrict__ interp_c, const T* __restrict__ ics,
-                                const T* __restrict__ shelf_in, const T* __restrict__ lp_in,
-                                const T* __restrict__ pf_in, T* __restrict__ y,
-                                T* __restrict__ shelf_out, T* __restrict__ lp_out,
-                                T* __restrict__ pf_out, double* __restrict__ scratch,
-                                AudioCfg cfg, int B) {
-    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int seg = B / 32;  // B % 32 == 0 (the host checks)
-    const int t0 = lane * seg, t1 = t0 + seg;
-    const int D = cfg.D;
-    double* sig = scratch + (size_t)w * B;
-    // the matrix: signal w from the delayed pair
-    const int ka = 2 * w, kb = 2 * w + 1;
-    const double eps = w >= 2 ? 1e-15 : 0.0;
-    for (int t = t0; t < t1; ++t) {
-        double s0, s1;
-        if (t < cfg.len) {
-            s0 = (double)buf[2 * t];
-            s1 = (double)buf[2 * t + 1];
-        } else {
-            const T* row = x + (size_t)(t - cfg.len) * cfg.n_in;
-            s0 = (double)row[cfg.c0];
-            s1 = (double)row[cfg.c1];
+__global__ void __launch_bounds__(kThreads, 1)
+m4_audio_kernel(const T* __restrict__ x, const T* __restrict__ buf, const T* __restrict__ interp_c,
+                const T* __restrict__ ics, const T* __restrict__ shelf_in,
+                const T* __restrict__ lp_in, const T* __restrict__ pf_in, T* __restrict__ y,
+                T* __restrict__ shelf_out, T* __restrict__ lp_out, T* __restrict__ pf_out,
+                AudioCfg cfg, int B) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+    const int tid = threadIdx.x;
+    const int sg = tid / kSigThreads, j = tid & (kSigThreads - 1);
+    if (tid < kD) sm.u[tid] = (double)tid / (double)kD;
+    if (tid < 4) {
+        sm.carry[tid][0] = (double)shelf_in[tid];
+        sm.carry[tid][1] = (double)lp_in[tid];
+        sm.carry[tid][2] = tid >= 2 ? (double)pf_in[2 * (tid - 2) + 1] : 0.0;
+        sm.carry[tid][3] = tid >= 2 ? (double)pf_in[2 * (tid - 2)] : 0.0;
+    }
+    __syncthreads();
+    const int n_in = cfg.n_in, n_out = cfg.n_out;
+    for (int t0 = 0; t0 < B; t0 += kTile) {
+        const int n = min(kTile, B - t0);
+        // the tile's coefficient sets t0/D .. (t0 + n)/D
+        const int set0 = t0 >> 5, nsets = (n >> 5) + 1;
+        for (int idx = tid; idx < nsets * 3 * kInterp; idx += kThreads) {
+            const int k = idx / (3 * kInterp), gs = set0 + k;
+            const T* c = gs == 0 ? interp_c : ics + (size_t)(gs - 1) * 3 * kInterp;
+            sm.sets[k][idx - k * 3 * kInterp] = (double)c[idx - k * 3 * kInterp];
         }
-        const double v = s0 * interp_val(interp_c, ics, t, ka, D) + s1 * interp_val(interp_c, ics, t, kb, D);
-        sig[t] = w >= 2 ? v + eps : v;
-    }
-    if (cfg.shelf_on) {
-        dyn_shelf(sig, interp_c, ics, w < 2 ? 10 : 8, cfg.shelf_sin, cfg.shelf_cos1,
-                  cfg.shelf_norm, cfg.shelf_c2, (double)shelf_in[w], shelf_out + w, t0, t1, D);
-    } else if (lane == 31) {
-        shelf_out[w] = shelf_in[w];
-    }
-    if (cfg.lp_on) {
-        dyn_shelf(sig, interp_c, ics, w < 2 ? 11 : 9, cfg.lp_sin, cfg.lp_cos1, cfg.lp_norm,
-                  cfg.lp_c2, (double)lp_in[w], lp_out + w, t0, t1, D);
-    } else if (lane == 31) {
-        lp_out[w] = lp_in[w];
-    }
-    if (w < 2) {
-        const int col = w == 0 ? cfg.c0 : cfg.c1;
-        for (int t = t0; t < t1; ++t) y[(size_t)t * cfg.n_out + col] = (T)sig[t];
-    } else {
-        const int k = w - 2;  // 0: ls, 1: rs
-        __syncwarp();
-        double o0 = 0.0;
-        if (cfg.phase_flip) {
-            // the o0 chain: o0' = -c0·o0 + (i0 + c0·x), i0 the sample before
-            const int ck = 12 + k;
-            Map f = {1.0, 0.0};
-            for (int t = t0; t < t1; ++t) {
-                const double c0 = interp_val(interp_c, ics, t, ck, D);
-                const double i0 = t == 0 ? (double)pf_in[2 * k] : sig[t - 1];
-                f.b = -c0 * f.b + (i0 + c0 * sig[t]);
-                f.a = -c0 * f.a;
-            }
-            const Map pre = exclusive_scan(f);
-            o0 = pre.a * (double)pf_in[2 * k + 1] + pre.b;
-        }
-        for (int t = t0; t < t1; ++t) {
-            const double s = sig[t];
-            double pf = s;
-            if (cfg.phase_flip) {
-                const double c0 = interp_val(interp_c, ics, t, 12 + k, D);
-                const double i0 = t == 0 ? (double)pf_in[2 * k] : sig[t - 1];
-                pf = i0 + c0 * (s - o0);
-                o0 = pf;
-            }
-            T* row = y + (size_t)t * cfg.n_out + cfg.n_in;
-            if (cfg.direct) {
-                const double amb = interp_val(interp_c, ics, t, 14, D);
-                const double dire = interp_val(interp_c, ics, t, 15, D);
-                row[k] = (T)((pf - 1e-15) * amb);
-                row[2 + k] = (T)(k == 0 ? (s - 1e-15) * dire : -(s - 1e-15) * dire);
+        __syncthreads();
+        // the matrix: the four signals from the delayed pair, a thread a
+        // sample (coalesced)
+        for (int i = tid; i < n; i += kThreads) {
+            const int t = t0 + i;
+            double s0, s1;
+            if (t < cfg.len) {
+                s0 = (double)buf[2 * t];
+                s1 = (double)buf[2 * t + 1];
             } else {
-                row[k] = (T)(pf - 1e-15);
+                const T* row = x + (size_t)(t - cfg.len) * n_in;
+                s0 = (double)row[cfg.c0];
+                s1 = (double)row[cfg.c1];
+            }
+#pragma unroll
+            for (int w = 0; w < 4; ++w) {
+                const double v = s0 * interp_val(sm, t0, t, 2 * w)
+                                 + s1 * interp_val(sm, t0, t, 2 * w + 1);
+                sm.sig[w][at(i)] = w >= 2 ? v + 1e-15 : v;
             }
         }
-        if (lane == 31) {
-            pf_out[2 * k] = cfg.phase_flip ? (T)sig[B - 1] : pf_in[2 * k];
-            pf_out[2 * k + 1] = cfg.phase_flip ? (T)o0 : pf_in[2 * k + 1];
+        __syncthreads();
+        if (cfg.shelf_on) {
+            dyn_shelf(sm, 10, 8, cfg.shelf_sin, cfg.shelf_cos1, cfg.shelf_norm,
+                      cfg.shelf_c2, 0, t0, n);
+            __syncthreads();
         }
+        if (cfg.lp_on) {
+            dyn_shelf(sm, 11, 9, cfg.lp_sin, cfg.lp_cos1, cfg.lp_norm, cfg.lp_c2, 1,
+                      t0, n);
+            __syncthreads();
+        }
+        const int i0 = j * kSeg;
+        const bool full = i0 < n;
+        if (cfg.phase_flip) {
+            // the allpass on ls and rs: o0' = -c0·o0 + (i0 + c0·x), i0 the
+            // sample before (the carried one before the tile); aux keeps
+            // c0, then the output
+            const bool on = sg >= 2;
+            double* xs = sm.sig[sg];
+            double* c0s = sm.aux[sg];
+            const int ck = 12 + (sg & 1);
+            Map f = {1.0, 0.0};
+            if (on && full) {
+                double in0 = i0 == 0 ? sm.carry[sg][3] : xs[at(i0 - 1)];
+#pragma unroll
+                for (int i = i0; i < i0 + kSeg; ++i) {
+                    const double c0 = interp_val(sm, t0, t0 + i, ck);
+                    const double xi = xs[at(i)];
+                    c0s[at(i)] = c0;
+                    f.b = -c0 * f.b + (in0 + c0 * xi);
+                    f.a = -c0 * f.a;
+                    in0 = xi;
+                }
+            }
+            double o0 = segment_start(sm, f, sg, 2, on);
+            if (on && full) {
+                double in0 = i0 == 0 ? sm.carry[sg][3] : xs[at(i0 - 1)];
+#pragma unroll
+                for (int i = i0; i < i0 + kSeg; ++i) {
+                    const double s = xs[at(i)];
+                    const double pf = in0 + c0s[at(i)] * (s - o0);
+                    o0 = pf;
+                    in0 = s;
+                    c0s[at(i)] = pf;
+                }
+            }
+        }
+        if (cfg.direct && sg < 2 && full) {
+            // the ambience (aux row 0) and direct (aux row 1) pans
+#pragma unroll
+            for (int i = i0; i < i0 + kSeg; ++i) {
+                sm.aux[sg][at(i)] = interp_val(sm, t0, t0 + i, 14 + sg);
+            }
+        }
+        __syncthreads();
+        // the tile's rows of y, coalesced, with the pass-through channels
+        const double* pf0 = cfg.phase_flip ? sm.aux[2] : sm.sig[2];
+        const double* pf1 = cfg.phase_flip ? sm.aux[3] : sm.sig[3];
+        T* yt = y + (size_t)t0 * n_out;
+        for (int idx = tid; idx < n * n_out; idx += kThreads) {
+            const int r = idx / n_out, c = idx - r * n_out, q = at(r);
+            T v;
+            if (c < n_in) {
+                v = c == cfg.c0 ? (T)sm.sig[0][q]
+                    : c == cfg.c1 ? (T)sm.sig[1][q] : x[(size_t)(t0 + r) * n_in + c];
+            } else {
+                const int k = c - n_in;
+                const double pf = (k & 1) ? pf1[q] : pf0[q];
+                if (!cfg.direct) {
+                    v = (T)(pf - 1e-15);
+                } else if (k < 2) {
+                    v = (T)((pf - 1e-15) * sm.aux[0][q]);
+                } else {
+                    const double s = sm.sig[k][q] - 1e-15;
+                    v = (T)(k == 2 ? s * sm.aux[1][q] : -s * sm.aux[1][q]);
+                }
+            }
+            yt[idx] = v;
+        }
+        if (j == 0 && sg >= 2) sm.carry[sg][3] = sm.sig[sg][at(n - 1)];
+        __syncthreads();
     }
-    // the pass-through channels
-    for (int i = threadIdx.x; i < B * cfg.n_in; i += blockDim.x) {
-        const int t = i / cfg.n_in, c = i % cfg.n_in;
-        if (c != cfg.c0 && c != cfg.c1) y[(size_t)t * cfg.n_out + c] = x[i];
+    if (tid < 4) {
+        shelf_out[tid] = cfg.shelf_on ? (T)sm.carry[tid][0] : shelf_in[tid];
+        lp_out[tid] = cfg.lp_on ? (T)sm.carry[tid][1] : lp_in[tid];
+        if (tid >= 2) {
+            const int k = tid - 2;
+            pf_out[2 * k] = cfg.phase_flip ? (T)sm.carry[tid][3] : pf_in[2 * k];
+            pf_out[2 * k + 1] = cfg.phase_flip ? (T)sm.carry[tid][2] : pf_in[2 * k + 1];
+        }
     }
 }
 
 template <class T>
 int launch(const T* x, const T* buf, const T* interp_c, const T* ics, const T* shelf_in,
            const T* lp_in, const T* pf_in, T* y, T* shelf_out, T* lp_out, T* pf_out,
-           double* scratch, const AudioCfg* cfg, int B, void* stream) {
-    if (B <= 0 || B % 32 || cfg->D <= 0 || B % cfg->D || cfg->n_in < 2) {
+           const AudioCfg* cfg, int B, void* stream) {
+    if (B <= 0 || B % kD || cfg->D != kD || cfg->n_in < 2 || cfg->len < 0
+        || cfg->n_out != cfg->n_in + (cfg->direct ? 4 : 2)) {
         return (int)cudaErrorInvalidValue;
     }
-    m4_audio_kernel<T><<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, buf, interp_c, ics, shelf_in, lp_in, pf_in, y, shelf_out, lp_out, pf_out, scratch,
-        *cfg, B);
+    static bool sized = false;  // the attribute is the function's, set once
+    if (!sized) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            m4_audio_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem));
+        if (err != cudaSuccess) return (int)err;
+        sized = true;
+    }
+    m4_audio_kernel<T><<<1, kThreads, sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(
+        x, buf, interp_c, ics, shelf_in, lp_in, pf_in, y, shelf_out, lp_out, pf_out, *cfg, B);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x [B, n_in], buf [len, 2], interp_c [3, 16], ics [B/D, 3, 16], the states
-// shelf, lp [4] and pf [2, 2] in and out, y [B, n_out], scratch [4, B].
-// Returns cudaGetLastError() after the launch (0 on success). The caller
+// shelf, lp [4] and pf [2, 2] in and out, y [B, n_out]. Returns
+// cudaGetLastError() after the launch (0 on success). The caller
 // (dsp_tpu_torch/ops/m4_engine.py) checks shapes, dtypes and contiguity.
 extern "C" int dsp_m4_audio_f64(const double* x, const double* buf, const double* interp_c,
                                 const double* ics, const double* shelf_in, const double* lp_in,
                                 const double* pf_in, double* y, double* shelf_out, double* lp_out,
-                                double* pf_out, double* scratch, const AudioCfg* cfg, int B,
-                                void* stream) {
+                                double* pf_out, const AudioCfg* cfg, int B, void* stream) {
     return launch<double>(x, buf, interp_c, ics, shelf_in, lp_in, pf_in, y, shelf_out, lp_out,
-                          pf_out, scratch, cfg, B, stream);
+                          pf_out, cfg, B, stream);
 }
 
-// The same with every input, output and state float32 (scratch float64).
+// The same with every input, output and state float32.
 extern "C" int dsp_m4_audio_f32(const float* x, const float* buf, const float* interp_c,
                                 const float* ics, const float* shelf_in, const float* lp_in,
                                 const float* pf_in, float* y, float* shelf_out, float* lp_out,
-                                float* pf_out, double* scratch, const AudioCfg* cfg, int B,
-                                void* stream) {
+                                float* pf_out, const AudioCfg* cfg, int B, void* stream) {
     return launch<float>(x, buf, interp_c, ics, shelf_in, lp_in, pf_in, y, shelf_out, lp_out,
-                         pf_out, scratch, cfg, B, stream);
+                         pf_out, cfg, B, stream);
 }

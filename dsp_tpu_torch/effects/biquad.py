@@ -331,10 +331,10 @@ class BiquadEffect(Effect):
             # and the (hi, lo) state, as dsp_tpu's biquad_scan_df
             A, Bv, c0 = (self.device_array(k, x, torch.float64) for k in names)
             return iir.biquad_scan_df(A, Bv, c0, state, x)
-        # per-sample path (K2)
+        # per-sample path (K2, the (hi, lo) state read and written in the
+        # kernel)
         A, Bv, c0 = (self.device_array(k, x) for k in names)
-        s_end, y = iir.biquad_scan(A, Bv, c0, state[0] + state[1], x)
-        return torch.stack([s_end, torch.zeros_like(s_end)]), y
+        return iir.biquad_scan_pair(A, Bv, c0, state, x)
 
     def merge(self, other):
         if type(other) is not type(self):

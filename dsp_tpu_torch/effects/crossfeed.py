@@ -4,10 +4,10 @@
 out0 = direct*s0 + cross*LP(s1) + cross*HP(s0) (and symmetrically for out1)
 with first-order low/high-pass at f0; direct = sep/(1+sep), cross = 1/(1+sep),
 sep = 10^(separation_dB/20). The four first-order filters run as one 4-lane
-biquad scan (K2, dsp_tpu_torch.ops.iir.biquad_scan); the mix is torch ops.
-Under float32 the coefficients are cast to float32 before the state-space
-form is computed, and the scan and the mix run in float32, as dsp_tpu's
-do.
+biquad scan (K2) and the mix in the same launch
+(dsp_tpu_torch.ops.iir.crossfeed_step). Under float32 the coefficients are
+cast to float32 before the state-space form is computed, and the scan and
+the mix run in float32, as dsp_tpu's do.
 """
 
 import numpy as np
@@ -47,14 +47,8 @@ class CrossfeedEffect(Effect):
     def step(self, state, x):
         ss = "_ss32" if x.dtype == torch.float32 else "_ss"
         A, Bv, c0c = (self.device_array(ss + k, x) for k in ("_A", "_Bv", "_c0"))
-        s0 = x[:, self.c0]
-        s1 = x[:, self.c1]
-        lanes = torch.stack([s1, s0, s0, s1], dim=1)  # [B, 4]
-        state, y = iir.biquad_scan(A, Bv, c0c, state, lanes)
-        out = x.clone()
-        out[:, self.c0] = s0 * self.direct_gain + y[:, 0] * self.cross_gain + y[:, 2] * self.cross_gain
-        out[:, self.c1] = s1 * self.direct_gain + y[:, 1] * self.cross_gain + y[:, 3] * self.cross_gain
-        return state, out
+        return iir.crossfeed_step(A, Bv, c0c, state, x.contiguous(), self.c0, self.c1,
+                                  self.direct_gain, self.cross_gain)
 
     def channel_deps(self):
         deps = np.eye(self.istream.channels, dtype=bool)

@@ -1,10 +1,10 @@
 """matrix4 effect: 2-to-4 (or 2-to-6 with direct_path) active matrix
 surround upmixer (reference: matrix4.c), ported from dsp_tpu.effects.matrix4.
 
-A block runs in five launches and a splice (ops/m4_engine.py):
+A block runs in four launches and a splice (ops/m4_engine.py):
 
   * the 500 Hz HP + 5 kHz LP band-limit of the selected pair, hp then lp,
-    on K2 (ops/iir.biquad_scan);
+    on K2, both stages in one launch (ops/iir.biquad_scan_series);
   * K11 ``m4_env``: the eight envelope EWMAs, decimated to the fs/32 ticks;
   * K9 + K10 ``m4_event``: the event engine and the background-weight
     smoother tick by tick, then the matrix coefficients, phase flip, direct
@@ -304,6 +304,9 @@ class Matrix4Effect(Effect):
         lp = np.array(bq.normalize(*bq.design(bq.LOWPASS, fs, 5000.0, 0.5)))
         self.A_hp, self.B_hp, self.c0_hp = iir.biquad_coeffs_to_ss(np.stack([hp, hp], axis=1))
         self.A_lp, self.B_lp, self.c0_lp = iir.biquad_coeffs_to_ss(np.stack([lp, lp], axis=1))
+        # the two stages as biquad_scan_series takes them: hp rows, then lp
+        self.A_bl, self.B_bl, self.c0_bl = (np.concatenate([h, l]) for h, l in (
+            (self.A_hp, self.A_lp), (self.B_hp, self.B_lp), (self.c0_hp, self.c0_lp)))
         self.bp_c = np.stack([hp, hp, lp, lp], axis=1)  # the float32 path's cascade
         self.g_env = float(m4.ewma_g(fs, m4.ENV_SMOOTH_TIME))
         # dynamic shelf params (matrix4.c:79-87)
@@ -426,17 +429,12 @@ class Matrix4Effect(Effect):
             ctl = {"bpc": bpc, "env_m_lo": env_m_lo, "ev_lo": {k: v[0] for k, v in ev_lo.items()},
                    "bg_cs_lo": bg_lo[0]}
         else:
-            dev = x
-            st_hp, y_hp = iir.biquad_scan(
-                self.device_array("A_hp", dev), self.device_array("B_hp", dev),
-                self.device_array("c0_hp", dev), state["bp_m"][:2], pair)
-            st_lp, y_bp = iir.biquad_scan(
-                self.device_array("A_lp", dev), self.device_array("B_lp", dev),
-                self.device_array("c0_lp", dev), state["bp_m"][2:], y_hp)
+            bp_m, y_bp = iir.biquad_scan_series(
+                *(self.device_array(k, x) for k in ("A_bl", "B_bl", "c0_bl")), state["bp_m"], pair)
             env_m, env_ds = m4.m4_env(y_bp, state["env_m"], self.g_env)
             ev, bg, ics, iy, aux = m4.m4_event(self.ctl, ev, state["bg_cs"][None], env_ds[None],
                                                state["interp_y"][None], fade_p, disable)
-            ctl = {"bp_m": torch.cat([st_hp, st_lp])}
+            ctl = {"bp_m": bp_m}
         ctl.update(ev={k: v[0] for k, v in ev.items()}, env_m=env_m, bg_cs=bg[0], interp_y=iy[0],
                    ics=ics[0], aux=aux[0])
         return ctl

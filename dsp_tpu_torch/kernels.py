@@ -213,8 +213,13 @@ class _Library:
                 lib.dsp_lti_blocked_f32.argtypes = [p] * 12 + [i] * 4 + [p]
                 lib.dsp_lti_blocked_f32.restype = i
                 for fn in (lib.dsp_biquad_scan_f64, lib.dsp_biquad_scan_f32,
-                           lib.dsp_biquad_scan_df, lib.dsp_biquad_scan_df1):
+                           lib.dsp_biquad_scan_df, lib.dsp_biquad_scan_df1,
+                           lib.dsp_biquad_scan_f64_pair, lib.dsp_biquad_scan_series_f64):
                     fn.argtypes = [p] * 7 + [i] * 2 + [p]
+                    fn.restype = i
+                lib.dsp_crossfeed_step_f64.argtypes = [p] * 7 + [i] * 4 + [ctypes.c_double] * 2 + [p]
+                lib.dsp_crossfeed_step_f32.argtypes = [p] * 7 + [i] * 4 + [ctypes.c_float] * 2 + [p]
+                for fn in (lib.dsp_crossfeed_step_f64, lib.dsp_crossfeed_step_f32):
                     fn.restype = i
                 for fn in (lib.dsp_fdl_mac_c128, lib.dsp_fdl_mac_f32):
                     fn.argtypes = [p] * 5 + [ctypes.c_longlong, i, p]
@@ -263,7 +268,7 @@ class _Library:
                 lib.dsp_m4_event_f32.argtypes = [p] * 15 + [i] * 4 + [ll, ll, i, p]
                 lib.dsp_m4_event_f32.restype = i
                 for fn in (lib.dsp_m4_audio_f64, lib.dsp_m4_audio_f32):
-                    fn.argtypes = [p] * 13 + [i, p]
+                    fn.argtypes = [p] * 12 + [i, p]
                     fn.restype = i
                 lib.dsp_m4mb_event_f64.argtypes = [p] * 13 + [i] * 3 + [ll, ll, i, p]
                 lib.dsp_m4mb_event_f64.restype = i
@@ -320,12 +325,13 @@ def launch_lti_blocked(x, y, state_in, state_out, h, V, P, AL, c0, v_scratch, s_
 
 
 def launch_biquad_scan(A, Bv, c0, state_in, state_out, x, y):
-    """K2 on float64 or float32 (coefficients of x's dtype), or K3 (float64
-    coefficients, float32 x and a [2, C, 2] (hi, lo) state or a single
-    [C, 2] float32 state)."""
+    """K2 on float64 (a [C, 2] state, or a [2, C, 2] (hi, lo) one) or
+    float32 (coefficients of x's dtype), or K3 (float64 coefficients,
+    float32 x and a [2, C, 2] (hi, lo) state or a single [C, 2] float32
+    state)."""
     B, C = x.shape
     if x.dtype == torch.float64:
-        fn = load().dsp_biquad_scan_f64
+        fn = load().dsp_biquad_scan_f64 if state_in.dim() == 2 else load().dsp_biquad_scan_f64_pair
     elif A.dtype == torch.float32:
         fn = load().dsp_biquad_scan_f32
     elif state_in.dim() == 2:
@@ -335,6 +341,25 @@ def launch_biquad_scan(A, Bv, c0, state_in, state_out, x, y):
     rc = fn(_ptr(A), _ptr(Bv), _ptr(c0), _ptr(state_in), _ptr(state_out), _ptr(x), _ptr(y),
             B, C, _stream(x))
     _check(rc, "biquad_scan")
+
+
+def launch_biquad_scan_series(A, Bv, c0, state_in, state_out, x, y):
+    """Two float64 K2 stages in series (rows [0, C) of the coefficients and
+    state the first)."""
+    B, C = x.shape
+    rc = load().dsp_biquad_scan_series_f64(_ptr(A), _ptr(Bv), _ptr(c0), _ptr(state_in),
+                                           _ptr(state_out), _ptr(x), _ptr(y), B, C, _stream(x))
+    _check(rc, "biquad_scan_series")
+
+
+def launch_crossfeed_step(A, Bv, c0, state_in, state_out, x, out, col0, col1, direct, cross):
+    """crossfeed's step on float64 or float32 x (coefficients, state and
+    gains of x's dtype)."""
+    B, C = x.shape
+    fn = load().dsp_crossfeed_step_f32 if x.dtype == torch.float32 else load().dsp_crossfeed_step_f64
+    rc = fn(_ptr(A), _ptr(Bv), _ptr(c0), _ptr(state_in), _ptr(state_out), _ptr(x), _ptr(out), B, C,
+            col0, col1, direct, cross, _stream(x))
+    _check(rc, "crossfeed_step")
 
 
 def launch_fdl_mac(X, H, fdl_in, Y, fdl_out, f32=False):
@@ -525,12 +550,11 @@ def launch_m4_event(ctl, ev, ev_out, bg, bg_out, env_ds, vt, iy_in, ics, iy_out,
     _check(rc, "m4_event")
 
 
-def launch_m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m, y, shelf_out, lp_out, pf_out,
-                    scratch):
+def launch_m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m, y, shelf_out, lp_out, pf_out):
     fn = load().dsp_m4_audio_f32 if x.dtype == torch.float32 else load().dsp_m4_audio_f64
     rc = fn(
         _ptr(x), _ptr(buf), _ptr(interp_c), _ptr(ics), _ptr(shelf_m), _ptr(lp_m), _ptr(pf_m),
-        _ptr(y), _ptr(shelf_out), _ptr(lp_out), _ptr(pf_out), _ptr(scratch),
+        _ptr(y), _ptr(shelf_out), _ptr(lp_out), _ptr(pf_out),
         ctypes.byref(cfg.c_struct()), x.shape[0], _stream(x),
     )
     _check(rc, "m4_audio")

@@ -20,6 +20,11 @@ These kernels run the recurrences on the device:
 * K3, ``biquad_scan_df``: K2 on float32 samples with float64 coefficients
   and a [2, C, 2] float32 (hi, lo) state; ``biquad_scan_auto`` picks it
   under float32.
+* K2 in the launches the chain makes with it: ``biquad_scan_pair`` (a
+  float64 (hi, lo) state read and written in the kernel),
+  ``biquad_scan_series`` (matrix4's band-limit, two stages in one launch)
+  and ``crossfeed_step`` / ``crossfeed_step_f32`` (crossfeed's lanes and
+  mix in one launch).
 
 dsp_tpu runs its float32 forms of K1 and K3 in two-float32 (hi, lo)
 arithmetic, because the TPU has no usable float64. Hopper has float64 in
@@ -440,6 +445,143 @@ def biquad_scan_df(A, Bv, c0, state, x):
 
 
 biquad_scan_df.launches = 0
+
+
+def biquad_scan_pair(A, Bv, c0, state, x):
+    """K2 on a float64 (hi, lo) state [2, C, 2], as BiquadEffect's
+    per-sample path keeps it: the state read as hi + lo, the end state
+    returned as (s, 0), in the kernel's one launch. A [C,2,2], Bv [C,2],
+    c0 [C], x [B,C], all float64. Returns (state' [2,C,2], y [B,C]). CPU
+    tensors run biquad_scan_pair_ref; CUDA tensors launch
+    csrc/biquad_scan.cu (dsp_biquad_scan_f64_pair)."""
+    _check_dtypes("biquad_scan_pair", *[(t, torch.float64) for t in (x, state, A, Bv, c0)])
+    if x.device.type == "cpu":
+        return biquad_scan_pair_ref(A, Bv, c0, state, x)
+    return _launch_biquad_scan(biquad_scan_pair, A, Bv, c0, state, x, (2, x.shape[1], 2))
+
+
+biquad_scan_pair.launches = 0
+
+
+def biquad_scan_pair_ref(A, Bv, c0, state, x):
+    """Plain PyTorch version of biquad_scan_pair: K2's on hi + lo, the end
+    state stacked over zeros."""
+    s_end, y = biquad_scan_ref(A, Bv, c0, state[0] + state[1], x)
+    return torch.stack([s_end, torch.zeros_like(s_end)]), y
+
+
+def biquad_scan_series(A, Bv, c0, state, x):
+    """Two stages of per-lane biquads in series, in one launch: matrix4's
+    band-limit (the highpass, then the lowpass, dsp_tpu's two
+    biquad_scan calls and the states' concatenation). A [2C,2,2], Bv
+    [2C,2], c0 [2C] and state [2C,2], rows [0, C) the first stage; x
+    [B,C]; all float64. Returns (state' [2C,2], y [B,C] the second stage's
+    output). CPU tensors run biquad_scan_series_ref; CUDA tensors launch
+    csrc/biquad_scan.cu (dsp_biquad_scan_series_f64)."""
+    _check_dtypes("biquad_scan_series", *[(t, torch.float64) for t in (x, state, A, Bv, c0)])
+    if x.device.type == "cpu":
+        return biquad_scan_series_ref(A, Bv, c0, state, x)
+    from dsp_tpu_torch import kernels
+
+    B, C = _check_cuda("biquad_scan_series", x, state, A, Bv, c0)
+    _check_shapes("biquad_scan_series", A, Bv, c0, state, 2 * C)
+    y = torch.empty_like(x)
+    state_out = torch.empty_like(state)
+    kernels.launch_biquad_scan_series(A, Bv, c0, state, state_out, x, y)
+    biquad_scan_series.launches += 1
+    return state_out, y
+
+
+biquad_scan_series.launches = 0
+
+
+def biquad_scan_series_ref(A, Bv, c0, state, x):
+    """Plain PyTorch version of biquad_scan_series: biquad_scan_ref twice
+    and the states' concatenation."""
+    C = x.shape[1]
+    st1, y1 = biquad_scan_ref(A[:C], Bv[:C], c0[:C], state[:C], x)
+    st2, y2 = biquad_scan_ref(A[C:], Bv[C:], c0[C:], state[C:], y1)
+    return torch.cat([st1, st2]), y2
+
+
+def crossfeed_lanes(x, col0, col1):
+    """crossfeed's four scan lanes [B, 4] from x's columns: [s1, s0, s0, s1]
+    (lowpass of s1 and of s0, highpass of s0 and of s1)."""
+    s0, s1 = x[:, col0], x[:, col1]
+    return torch.stack([s1, s0, s0, s1], dim=1)
+
+
+def crossfeed_mix(x, y, col0, col1, direct, cross):
+    """crossfeed's output: x with columns col0 and col1 replaced by
+    s0·direct + y0·cross + y2·cross and s1·direct + y1·cross + y3·cross."""
+    s0, s1 = x[:, col0], x[:, col1]
+    out = x.clone()
+    out[:, col0] = s0 * direct + y[:, 0] * cross + y[:, 2] * cross
+    out[:, col1] = s1 * direct + y[:, 1] * cross + y[:, 3] * cross
+    return out
+
+
+def crossfeed_step(A, Bv, c0, state, x, col0, col1, direct, cross):
+    """crossfeed's whole step (dsp_tpu/effects/crossfeed.py:40-55) in one
+    launch: the four first-order lanes (A [4,2,2], Bv [4,2], c0 [4], state
+    [4,2], the companion form) on x's columns col0 and col1, and the mix
+    with the gains direct and cross. x [B, C]; all float64, or all float32
+    (crossfeed_step_f32). Returns (state' [4,2], out [B,C]). CPU tensors
+    run crossfeed_step_ref; CUDA tensors launch csrc/biquad_scan.cu."""
+    if x.dtype == torch.float32:
+        return crossfeed_step_f32(A, Bv, c0, state, x, col0, col1, direct, cross)
+    _check_dtypes("crossfeed_step", *[(t, torch.float64) for t in (x, state, A, Bv, c0)])
+    if x.device.type == "cpu":
+        return crossfeed_step_ref(A, Bv, c0, state, x, col0, col1, direct, cross)
+    return _launch_crossfeed(crossfeed_step, A, Bv, c0, state, x, col0, col1, direct, cross)
+
+
+crossfeed_step.launches = 0
+
+
+def crossfeed_step_f32(A, Bv, c0, state, x, col0, col1, direct, cross):
+    """crossfeed_step in float32: the scan as biquad_scan_f32's, the mix
+    with the gains rounded to float32, as torch's float32 scalar multiply
+    takes them. CPU tensors run crossfeed_step_ref; CUDA tensors launch
+    csrc/biquad_scan.cu."""
+    _check_dtypes("crossfeed_step_f32", *[(t, torch.float32) for t in (x, state, A, Bv, c0)])
+    if x.device.type == "cpu":
+        return crossfeed_step_ref(A, Bv, c0, state, x, col0, col1, direct, cross)
+    return _launch_crossfeed(crossfeed_step_f32, A, Bv, c0, state, x, col0, col1, direct, cross)
+
+
+crossfeed_step_f32.launches = 0
+
+
+def crossfeed_step_ref(A, Bv, c0, state, x, col0, col1, direct, cross):
+    """Plain PyTorch version of crossfeed_step and crossfeed_step_f32: the
+    lanes stacked, K2's plain version of x's dtype, the mix."""
+    scan = biquad_scan_f32_ref if x.dtype == torch.float32 else biquad_scan_ref
+    state, y = scan(A, Bv, c0, state, crossfeed_lanes(x, col0, col1))
+    return state, crossfeed_mix(x, y, col0, col1, direct, cross)
+
+
+def _launch_crossfeed(wrapper, A, Bv, c0, state, x, col0, col1, direct, cross):
+    from dsp_tpu_torch import kernels
+
+    B, C = _check_cuda(wrapper.__name__, x, state, A, Bv, c0)
+    _check_shapes(wrapper.__name__, A, Bv, c0, state, 4)
+    if not (0 <= col0 < C and 0 <= col1 < C and col0 != col1):
+        raise ValueError(f"{wrapper.__name__}: columns {col0}, {col1} of {C}")
+    out = torch.empty_like(x)
+    state_out = torch.empty_like(state)
+    kernels.launch_crossfeed_step(A, Bv, c0, state, state_out, x, out, col0, col1, direct, cross)
+    wrapper.launches += 1
+    return state_out, out
+
+
+def _check_shapes(name, A, Bv, c0, state, n):
+    """Raise unless A, Bv, c0 and state are of n lanes: [n,2,2], [n,2], [n],
+    [n,2]."""
+    for what, t, shape in (("A", A, (n, 2, 2)), ("Bv", Bv, (n, 2)), ("c0", c0, (n,)),
+                           ("state", state, (n, 2))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {what} {tuple(t.shape)}, expected {shape}")
 
 
 def _launch_biquad_scan(wrapper, A, Bv, c0, state, x, state_shape):

@@ -1271,9 +1271,8 @@ def m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m):
     _check_audio_shapes("m4_audio", cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m)
     B = x.shape[0]
     y = torch.empty((B, cfg.n_out), dtype=torch.float64, device=x.device)
-    scratch = torch.empty((4, B), dtype=torch.float64, device=x.device)
     outs = (torch.empty_like(shelf_m), torch.empty_like(lp_m), torch.empty_like(pf_m))
-    kernels.launch_m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m, y, *outs, scratch)
+    kernels.launch_m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m, y, *outs)
     m4_audio.launches += 1
     return (y, *outs)
 
@@ -1296,9 +1295,8 @@ def m4_audio_f32(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m):
     _check_audio_shapes("m4_audio_f32", cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m)
     B = x.shape[0]
     y = torch.empty((B, cfg.n_out), dtype=torch.float32, device=x.device)
-    scratch = torch.empty((4, B), dtype=torch.float64, device=x.device)
     outs = (torch.empty_like(shelf_m), torch.empty_like(lp_m), torch.empty_like(pf_m))
-    kernels.launch_m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m, y, *outs, scratch)
+    kernels.launch_m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m, y, *outs)
     m4_audio_f32.launches += 1
     return (y, *outs)
 

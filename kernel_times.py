@@ -9,7 +9,8 @@ of the repository on the same card.
     python3 kernel_times.py --against DIR      # DIR and this checkout in turns
                                                # (DIR, this, this, DIR), a table
     python3 kernel_times.py --rows engines ... # only the engine rows (or fft,
-                                               # cli, td or tdcli)
+                                               # cli, td, tdcli, k2, audio,
+                                               # k2cli or profile)
 
 DIR is an unpacked checkout of another commit (e.g. `git archive <commit> |
 tar -x -C .smoke_tmp/parent`). Each tree runs in a process of its own, since
@@ -59,6 +60,25 @@ stats -i) through dsp-torch to s16 at -b 2048 and 65536 in float64 and
 float32, numpy's generator seeded alike before each run, with each run's
 x realtime and a digest of its render.
 
+The k2 rows time K2 in the launches the chain makes with it, each as its
+tree calls it: crossfeed's step (CrossfeedEffect.step, float64 and
+float32) and matrix4's band-limit pair (biquad_scan_series, or two
+biquad_scan launches and the concatenation in a tree without it) at
+B = 2048 and 1000, and the float64 per-sample biquad (BiquadEffect.step on the
+flagship's highpass 30) at B = 1000; with --against the trees' outputs are
+compared bit for bit. The audio rows time m4_audio and m4_audio_f32 at
+B = 2048 and 65536 on the arguments `matrix4 -6` hands them on the card
+(saved as the engine inputs are), the outputs compared (max |diff| in
+dBFS where not bit-equal). The k2cli rows run the flagship at -b 2048 and
+1000 in both dtypes and `matrix4 -6` at -b 2048 and 65536 through
+dsp-torch to -e double, with x realtime and a digest, and keep matrix4's
+renders; with --against, the first run of each tree keeps them until
+they are compared (max |diff| in dBFS). The profile rows run the flagship (-b 2048
+and 1000, both dtypes) and `matrix4 -6` (-b 2048 in both dtypes, -b 65536
+in float64) through CompiledChain.run_blocks under torch.profiler: the
+kernels a block, the device ms a block, the largest kernels and the step's
+ms a block unprofiled.
+
 The rows are chip_smoke.py's main-path shapes, where chip_smoke.py holds
 each kernel against its plain version; this script only times them. Prints
 the card's name and power limit (nvidia-smi) with the results. Needs a
@@ -77,7 +97,7 @@ import sys
 from pathlib import Path
 
 from chip_smoke import CHANNELS, DELIVERY, FLAGSHIP, FS, MATRIX4, MATRIX4_MB, SECONDS, SLICE_C_SEED, \
-    card_info, cuda_ms, device_ms, flagship_parts, td_signal, transient_signal, write_input
+    card_info, cuda_ms, dbfs, device_ms, flagship_parts, td_signal, transient_signal, write_input
 
 ROOT = Path(__file__).resolve().parent
 ENGINE_INPUTS = ROOT / ".smoke_tmp" / "engine_inputs.pt"
@@ -141,8 +161,8 @@ def rows():
 
 
 def _engine_chain(chain, B, f32):
-    """The chain on the card, and the engine's control object (M4Control
-    or M4MbControl) of its upmix."""
+    """The chain on the card, and its upmix effect (whose ``ctl`` is the
+    engine's control object, M4Control or M4MbControl)."""
     import torch
 
     from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
@@ -150,13 +170,15 @@ def _engine_chain(chain, B, f32):
 
     cc = CompiledChain(build_chain_from_string(chain, StreamInfo(FS, CHANNELS)), B,
                        dtype=torch.float32 if f32 else None, device="cuda")
-    return cc, next(e.ctl for e in cc._runtime_effects if hasattr(e, "ctl"))
+    return cc, next(e for e in cc._runtime_effects if hasattr(e, "ctl"))
 
 
-def engine_inputs(path):
-    """{entry@B: the engine's arguments after ctl, on the CPU}: made on the
-    card by the chain itself (a spy on the wrapper catches the arguments of
-    the block after the warm-up) unless `path` holds them already."""
+def engine_inputs(path, cases=ENGINE_CASES):
+    """{entry@B: the arguments the chain hands the m4_engine wrapper
+    `entry` after its first (ctl or the audio config), on the CPU}: made on
+    the card by the chain itself (a spy on the wrapper catches the
+    arguments of the block after the warm-up) unless `path` holds them
+    already."""
     import torch
 
     from dsp_tpu_torch.ops import m4_engine as m4
@@ -164,7 +186,7 @@ def engine_inputs(path):
     if path.exists():
         return torch.load(path)
     got = {}
-    for entry, chain, B, f32 in ENGINE_CASES:
+    for entry, chain, B, f32 in cases:
         cc, _ = _engine_chain(chain, B, f32)
         warm = 21 if B == 2048 else 1
         x = torch.as_tensor(transient_signal((warm + 1) * B / FS + 0.01),
@@ -208,7 +230,8 @@ def engine_rows(inputs_path):
     inputs = engine_inputs(inputs_path)
     out = []
     for entry, chain, B, f32 in ENGINE_CASES:
-        _, ctl = _engine_chain(chain, B, f32)
+        _, e = _engine_chain(chain, B, f32)
+        ctl = e.ctl
         args = _to(inputs[f"{entry}@{B}"], "cuda")
         fn = getattr(m4, entry)
         out.append((f"{entry} Nc={B // 32}", lambda fn=fn, ctl=ctl, args=args: fn(ctl, *args),
@@ -324,6 +347,185 @@ def td_rows():
     return out
 
 
+# the k2 rows: K2 in the launches the chain makes with it, each called as
+# its tree calls it (the band-limit pair: two K2 launches and the
+# concatenation where the tree has no biquad_scan_series)
+K2_BLOCKS = (2048, 1000)
+
+
+def k2_rows():
+    """(name, the call, reps) of the k2 rows, their inputs seeded:
+    crossfeed's step (float64 and float32, stereo) and matrix4's band-limit
+    pair at B = 2048 and 1000, and the float64 per-sample biquad (the
+    flagship's highpass 30) at B = 1000."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain import build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.ops import iir
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20312)
+    effects = build_chain_from_string(FLAGSHIP, StreamInfo(FS, CHANNELS)).effects
+    cf = next(e for e in effects if e.name == "crossfeed")
+    hp = next(e for e in effects if e.name == "highpass")
+    m4e = build_chain_from_string(MATRIX4, StreamInfo(FS, CHANNELS)).effects[0]
+    hp_args = [torch.as_tensor(getattr(m4e, k), device=dev) for k in ("A_hp", "B_hp", "c0_hp")]
+    lp_args = [torch.as_tensor(getattr(m4e, k), device=dev) for k in ("A_lp", "B_lp", "c0_lp")]
+
+    def band_limit(st, x):
+        if hasattr(iir, "biquad_scan_series"):
+            A, Bv, c0 = (torch.cat([h, l]) for h, l in zip(hp_args, lp_args))
+            return lambda: iir.biquad_scan_series(A, Bv, c0, st, x)
+
+        def two_launches():
+            s1, y1 = iir.biquad_scan(*hp_args, st[:2], x)
+            s2, y2 = iir.biquad_scan(*lp_args, st[2:], y1)
+            return torch.cat([s1, s2]), y2
+        return two_launches
+
+    out = []
+    for B in K2_BLOCKS:
+        x = torch.as_tensor(rng.standard_normal((B, CHANNELS)) * 0.3, device=dev)
+        st = torch.as_tensor(rng.standard_normal((4, 2)) * 1e-2, device=dev)
+        for dt, sfx in ((torch.float64, ""), (torch.float32, " float32")):
+            xd, sd = x.to(dt), st.to(dt)
+            out.append((f"crossfeed step{sfx} B={B}", lambda xd=xd, sd=sd: cf.step(sd, xd), 50))
+        out.append((f"matrix4 band-limit pair B={B}", band_limit(st, x), 50))
+        if B % 128:  # a block K1 takes runs the biquad blocked, not per sample
+            sp = torch.as_tensor(rng.standard_normal((2, CHANNELS, 2)) * 1e-2, device=dev)
+            sp[1] *= 1e-9
+            out.append((f"biquad per-sample float64 (highpass 30) B={B}",
+                        lambda sp=sp, x=x: hp.step(sp, x), 50))
+    return out
+
+
+AUDIO_CASES = tuple((f"m4_audio{sfx}", MATRIX4, B, sfx == "_f32")
+                    for sfx in ("", "_f32") for B in (2048, 65536))
+AUDIO_INPUTS = "audio_inputs.pt"
+
+
+def audio_rows(inputs_path):
+    """(name, the call, reps) of m4_audio and m4_audio_f32 at B = 2048 and
+    65536, on the arguments `matrix4 -6` hands them after 1 s (B = 2048)
+    or one block (B = 65536) of chip_smoke.py's transient material through
+    the chain on the card, made once and saved beside ENGINE_INPUTS."""
+    from dsp_tpu_torch.ops import m4_engine as m4
+
+    inputs = engine_inputs(inputs_path.parent / AUDIO_INPUTS, AUDIO_CASES)
+    out = []
+    for entry, chain, B, f32 in AUDIO_CASES:
+        _, e = _engine_chain(chain, B, f32)
+        args = _to(inputs[f"{entry}@{B}"], "cuda")
+        fn = getattr(m4, entry)
+        out.append((f"{entry} B={B}", lambda fn=fn, cfg=e.audio, args=args: fn(cfg, *args),
+                    50 if B == 2048 else 10))
+    return out
+
+
+# the renders of the k2cli rows: (chain, block, dtype)
+K2CLI_CASES = tuple((FLAGSHIP, block, dtype) for block in (2048, 1000)
+                    for dtype in ("float64", "float32")) + tuple(
+    (MATRIX4, block, "float64") for block in (2048, 65536))
+
+
+def k2cli_rows(inputs_path, keep):
+    """Each of K2CLI_CASES through dsp-torch on the card to -e double: x
+    realtime, a digest of the render, and matrix4's renders kept as
+    `keep`_<i>.wav for the comparison of the trees (the flagship's are
+    held by digest)."""
+    from dsp_tpu_torch import kernels
+    from dsp_tpu_torch.cli.main import main as cli_main
+
+    src = inputs_path.parent / "cli_in.wav"
+    if not src.exists():
+        src.parent.mkdir(parents=True, exist_ok=True)
+        write_input(src, SECONDS)
+    kernels.load()
+    os.environ["DSP_TPU_TORCH_DEVICE"] = "cuda"
+    out = []
+    for i, (chain, block, dtype) in enumerate(K2CLI_CASES):
+        dst = keep.with_name(f"{keep.stem}_{i}.wav")
+        os.environ["DSP_TPU_TORCH_DTYPE"] = dtype
+        argv = ["-b", str(block), "-q", str(src), "-o", "-e", "double", str(dst), *chain.split()]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = cli_main(argv)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise SystemExit(f"kernel_times: dsp-torch {' '.join(argv)} exited {rc}")
+        name = "flagship" if chain == FLAGSHIP else chain
+        row = {"name": f"{name} -b {block} {dtype}", "x_realtime": SECONDS / wall,
+               "digest": hashlib.sha256(dst.read_bytes()).hexdigest()[:16]}
+        if chain == FLAGSHIP:  # held byte for byte: the digest is enough
+            dst.unlink()
+        else:
+            row["render"] = str(dst)
+        out.append(row)
+    os.environ.pop("DSP_TPU_TORCH_DTYPE")
+    return out
+
+
+# the profile rows: (chain, block, dtype, blocks profiled)
+PROFILE_CASES = ((FLAGSHIP, 2048, "float64", 64), (FLAGSHIP, 2048, "float32", 64),
+                 (FLAGSHIP, 1000, "float64", 64), (FLAGSHIP, 1000, "float32", 64),
+                 (MATRIX4, 2048, "float64", 64), (MATRIX4, 2048, "float32", 64),
+                 (MATRIX4, 65536, "float64", 8))
+
+
+def profile_rows():
+    """Each of PROFILE_CASES run through CompiledChain.run_blocks on the
+    card (chip_smoke.py's inputs: noise for the flagship, transients for
+    matrix4): the step's ms a block unprofiled (host clock to a
+    synchronize), then under torch.profiler the kernels the card ran a
+    block, its device ms a block and the largest kernels by device time."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+
+    rng = np.random.default_rng(13)
+    out = []
+    for chain, block, dtype, n in PROFILE_CASES:
+        dt = getattr(torch, dtype)
+        cc = CompiledChain(build_chain_from_string(chain, StreamInfo(FS, CHANNELS)), block,
+                           dtype=dt, device="cuda")
+        B = cc.block_frames
+        if chain == MATRIX4:
+            x = transient_signal((n + 4) * B / FS + 0.01)[: (n + 4) * B]
+        else:
+            x = rng.standard_normal(((n + 4) * B, CHANNELS)) * 0.1
+        xs = torch.as_tensor(x, dtype=dt, device="cuda").reshape(n + 4, B, CHANNELS)
+        cc.run_blocks(xs[:4])
+        xs = xs[4:]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cc.run_blocks(xs)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n
+        by_name, kernels = {}, 0
+        for _ in range(3):  # a profile can come back empty: take it again
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                cc.run_blocks(xs)
+                torch.cuda.synchronize()
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+                    kernels += 1
+            if kernels:
+                break
+        name = "flagship" if chain == FLAGSHIP else chain
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        out.append({"name": f"{name} -b {block} {dtype}", "step_ms": step_ms,
+                    "kernels_a_block": kernels / n, "device_ms_a_block": sum(by_name.values()),
+                    "top": [[k[:60], v] for k, v in top]})
+    return out
+
+
 TDCLI_CASES = tuple((dtype, block) for dtype in ("float64", "float32") for block in (2048, 65536))
 
 
@@ -369,10 +571,15 @@ def measure(which, inputs_path, save=None):
         return cli_rows(inputs_path)
     if which == "tdcli":
         return tdcli_rows(inputs_path)
+    if which == "k2cli":
+        return k2cli_rows(inputs_path, save)
+    if which == "profile":
+        return profile_rows()
     out = []
-    if which == "td":
+    if which in ("td", "k2", "audio"):
         outputs = {}
-        for name, kern, reps in td_rows():
+        made = {"td": td_rows, "k2": k2_rows, "audio": lambda: audio_rows(inputs_path)}[which]()
+        for name, kern, reps in made:
             r = {"name": name, "ms": cuda_ms(kern, reps)}
             r["device_ms"], r["kernels"] = device_ms(kern, min(reps, 20))
             out.append(r)
@@ -436,9 +643,22 @@ def compare_outputs(before, after):
                     worst = max(worst, float((a.double() - b.double()).abs().max()))
             elif not torch.equal(a, b):
                 moved = True
-        verdict[name] = (f"differs: max |diff| {worst:.3e}, "
+        verdict[name] = (f"differs: max |diff| {worst:.3e} ({dbfs(worst):.1f} dBFS), "
                          f"{'a decision moved' if moved else 'no decision moved'}")
     return verdict
+
+
+def render_diff(before, after):
+    """The largest difference of two -e double renders, in dBFS."""
+    import numpy as np
+
+    from chip_smoke import read_wav
+
+    (na, a), (nb, b) = read_wav(Path(before)), read_wav(Path(after))
+    if na != nb:
+        return f"{na} and {nb} frames"
+    err = float(np.abs(a - b).max())
+    return f"max |diff| {err:.3e}, {dbfs(err):.1f} dBFS"
 
 
 def _flatten(tree, out):
@@ -456,8 +676,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=None)
     ap.add_argument("--against", type=Path, default=None)
-    ap.add_argument("--rows", choices=("all", "fft", "engines", "cli", "td", "tdcli"),
-                    default="all")
+    ap.add_argument("--rows", choices=("all", "fft", "engines", "cli", "td", "tdcli", "k2",
+                                       "audio", "k2cli", "profile"), default="all")
     ap.add_argument("--inputs", type=Path, default=ENGINE_INPUTS)
     ap.add_argument("--save", type=Path, default=None)
     args = ap.parse_args()
@@ -475,13 +695,19 @@ def main():
     order = [("before", args.against), ("after", ROOT), ("after", ROOT), ("before", args.against)]
     saves = [args.inputs.parent / f"engine_out_{i}_{label}.pt"
              for i, (label, _) in enumerate(order)]
-    runs = [(label, run_tree(tree, args.rows, args.inputs, save))
-            for (label, tree), save in zip(order, saves)]
+    runs = []
+    for i, ((label, tree), save) in enumerate(zip(order, saves)):
+        runs.append((label, run_tree(tree, args.rows, args.inputs, save)))
+        if i >= 2:  # the renders of the first run of each tree are compared
+            for r in runs[-1][1]:
+                if "render" in r:
+                    Path(r["render"]).unlink()
     print(f"card: {card}; order: before, after, after, before")
-    verdict = (compare_outputs(saves[0], saves[1]) if args.rows in ("all", "engines", "td")
-               else {})
+    verdict = (compare_outputs(saves[0], saves[1])
+               if args.rows in ("all", "engines", "td", "k2", "audio") else {})
     keys = ("ms", "us_a_tick", "device_ms", "device_us_a_tick", "kernels", "library_ms",
-            "library_device_ms", "x_realtime", "digest")
+            "library_device_ms", "x_realtime", "digest", "render", "step_ms", "kernels_a_block",
+            "device_ms_a_block", "top")
     table = []
     for i, first in enumerate(runs[0][1]):
         name = first["name"]
@@ -495,10 +721,22 @@ def main():
         table.append(row)
         if "before_x_realtime" in row:
             same = len(set(row["before_digest"] + row["after_digest"])) == 1
+            if not same and "before_render" in row:
+                row["renders"] = render_diff(row["before_render"][0], row["after_render"][0])
             print(f"{name}: " + "; ".join(
                 f"{label} {'/'.join(f'{v:.1f}' for v in row[f'{label}_x_realtime'])}x realtime"
                 for label in ("before", "after"))
-                + f"; renders {'bit-equal' if same else 'differ'} across the runs")
+                + f"; renders {'bit-equal' if same else 'differ'} across the runs"
+                + (f" ({row['renders']})" if "renders" in row else ""))
+            continue
+        if "before_kernels_a_block" in row:
+            print(f"{name}: " + "; ".join(
+                f"{label} {'/'.join(f'{v:.2f}' for v in row[f'{label}_kernels_a_block'])} "
+                f"kernels a block, device "
+                f"{'/'.join(f'{v:.4f}' for v in row[f'{label}_device_ms_a_block'])} ms a block, "
+                f"step {'/'.join(f'{v:.4f}' for v in row[f'{label}_step_ms'])} ms a block, top "
+                + ", ".join(f"{k} {v:.4f}" for k, v in row[f"{label}_top"][0][:4])
+                for label in ("before", "after")))
             continue
         if "before_us_a_tick" in row:
             row["outputs"] = verdict[name]
@@ -519,6 +757,10 @@ def main():
                if f"{label}_library_ms" in row else "")
             for label in ("before", "after"))
             + (f"; outputs {verdict[name]}" if name in verdict else ""))
+    for _, rr in runs[:2]:
+        for r in rr:
+            if "render" in r:
+                Path(r["render"]).unlink()
     print(json.dumps({"card": card, "rows": table}))
     return 0
 
