@@ -28,7 +28,19 @@ nvcc and PyTorch built for CUDA. It
    block of Nc = 80, and over one block of 65536 (Nc = 2048: the event
    engine's chunk pipeline wraps many times): the engine's decisions
    equal, its floats within 1e-12 relative, the audio within -280 dBFS
-   (m4_audio timed a call and device-only at B = 2048 and 65536).
+   (m4_audio timed a call and device-only at B = 2048 and 65536). K1 and
+   K11, the one-launch designs of csrc/lti_blocked.cu and csrc/m4_env.cu,
+   are also held absolutely: K1's y and end state within K1_ABS = 1e-15
+   (the flagship at B = 2048 and 65536, the bank in every configuration),
+   K11's ticks and envelopes within ENV_ABS = 4e-15 (float32: hi + lo),
+   and each form's call is one kernel by the library's count of its
+   launches and by torch.profiler's, where CUPTI records the kernels
+   (one_launch, which prints its device-only time). K1 also on cascades
+   of 40 and 75 biquads (n = 80, 150), whose tables it cannot all stage
+   in shared memory, within K1_ABS; and K1 and K11 interleaved on their
+   shared look-back scratch with different tile counts, the aggregates'
+   storage filled with each launch's tag, bit-equal to fresh scratches
+   (lookback_phase).
    matrix4_mb's (slice F): K1 on its 13-band bank, K11 m4mb_env over 13 lanes, K9 + K10 m4mb_event (the
    13 engines coupled through their thresholds every tick) and K12 + K13
    m4mb_audio, over 3 blocks of transients in seven configurations (v4,
@@ -63,10 +75,14 @@ nvcc and PyTorch built for CUDA. It
    quad: the rate change, blocks of 2352 in and 2560 out); then slice F's:
    `matrix4_mb -6` (also at -b 65536), bench.py's `mixed` chain (an EQ, a
    fractional delay, a 4,096-tap filter, matrix4_mb) and, on 60 s,
-   examples/matrix4_mb_2_4 (6 channels), each compared on its first
-   5 s (the engine's chaotic start held to MB_ONSET); then the float32
-   phase (slices J1 and J2): K1-df lti_blocked_f32 on the flagship
-   cascade and on matrix4_mb's bank with its (hi, lo) output, K3
+   examples/matrix4_mb_2_4 (6 channels) and `matrix4_mb -6` at -b 1000
+   (the chain's block 1024) and -b 1056 (the bank's L = 1 plan, which K1
+   runs in chunks of 32), each compared on its
+   first 5 s (the engine's chaotic start held to MB_ONSET); then the
+   float32 phase (slices J1 and J2): K1-df lti_blocked_f32 on the flagship
+   cascade, on matrix4_mb's bank with its (hi, lo) output (also its L = 1
+   plan at B = 1056) and on matrix4's band-limit (L = 128 at B = 2048,
+   L = 1 at B = 1000), each one kernel a call, K3
    biquad_scan_df at B = 1000 and 100 (and with a single float32 state at
    matrix4_mb's fshape and inverse widths), K2 in float32 biquad_scan_f32 on
    crossfeed's lanes, a (hi, lo) state handed from K1-df to K3 and back,
@@ -119,8 +135,10 @@ nvcc and PyTorch built for CUDA. It
    (the upmixes and `fir` 64k at block 2048 among them) in both dtypes,
    and profiles them (torch.profiler: kernels a block, beside the count
    before the one-launch transforms, which no chain may exceed, and at most
-   3 for the Upols step of `fir` 64k and 4 for the float32 resampler;
-   device time a block by kernel, the device's share);
+   3 for the Upols step of `fir` 64k and 4 for the float32 resampler, and
+   the limits K1's one launch sets (MOST_KERNELS_A_BLOCK); device time a
+   block by kernel, the device's share), and 8 blocks of the flagship,
+   `matrix4 -6` and `matrix4_mb -6` at -b 65536 (PROFILE_65536);
 5. prints the kernels' record as one JSON line, then as the last line
    {"ok": true, "device": {...}}.
 
@@ -149,6 +167,9 @@ FLAGSHIP = (
 # budget of dsp_tpu's parity tests
 LIMIT_DBFS = -200.0
 COMPARE_SECONDS = 10
+# worker processes for the main path's CPU references (CpuReferences):
+# the card's host has 8 cores, and the card's runs keep one busy
+REFERENCE_WORKERS = 5
 SECONDS = 300  # the main path's input: a full track
 # the linear-phase crossover that ships with the repo: remix 2 -> 4, forward
 # biquads (K1) and time-reversed ones (the reverse IIR on fdl_mac)
@@ -354,6 +375,28 @@ def flagship_parts():
     }
 
 
+# cascades wider than the main path's, whose tables K1 cannot all stage in
+# shared memory at B = 2048: at n = 80 it reads V and P from global memory,
+# at n = 150 also the chunk powers (csrc/lti_blocked.cu stage_vp, stage_c)
+WIDE_CASCADES = (40, 75)
+
+
+def wide_plan(K):
+    """The fused plan of K peaking filters, +-1.5 dB alternately, from 40 Hz
+    to 16 kHz."""
+    import numpy as np
+
+    from dsp_tpu_torch.chain import build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.effects.biquad import BiquadEffect
+    from dsp_tpu_torch.ops import iir
+
+    words = " ".join(f"eq {f:.1f} 1.0 {1.5 if i % 2 else -1.5}"
+                     for i, f in enumerate(np.geomspace(40.0, 16000.0, K)))
+    chain = build_chain_from_string(words, StreamInfo(FS, CHANNELS))
+    return iir.CascadeBlockedPlan([e.c for e in chain.effects if type(e) is BiquadEffect])
+
+
 def kernel_phases(records):
     import numpy as np
     import torch
@@ -376,9 +419,12 @@ def kernel_phases(records):
         torch.cuda.synchronize()
         err = max((y_k - y_r).abs().max().item(), (s_k - s_r).abs().max().item())
         check_close(f"B={B} kernel vs plain", err)
+        _require(f"K1 B={B}: y and the end state {err:.3e} from the plain version, above "
+                 f"{K1_ABS}", err <= K1_ABS)
         ms = cuda_ms(lambda: iir.lti_blocked(plan, st, x), 50)
         plain_ms = cuda_ms(lambda: iir.lti_blocked_ref(plan, st, x), 5)
         print(f"  B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        dev_ms = one_launch(f"K1 B={B}", lambda: iir.lti_blocked(plan, st, x))
         k1["max_abs_err"] = max(k1["max_abs_err"], err)
         if B == 2048:
             # x and y, the state in and out, the tables h, V, P, A^L, c0;
@@ -387,6 +433,21 @@ def kernel_phases(records):
             nbytes = 8 * (2 * B * C + 4 * C * n + C * L + 2 * C * n * L + C * n * n + C)
             flops = 2 * C * (B // L) * (L * (L - 1) // 2 + 2 * n * L + n * n) + 2 * B * C
             set_times(k1, ms, plain_ms, nbytes, flops)
+            k1["device_ms"] = dev_ms
+    for K in WIDE_CASCADES:
+        wide = wide_plan(K)
+        x = torch.as_tensor(rng.standard_normal((2048, CHANNELS)) * 0.3, device=dev)
+        st = torch.as_tensor(rng.standard_normal((2, CHANNELS, wide.n)) * 1e-2, device=dev)
+        st[1] *= 1e-9
+        s_k, y_k = iir.lti_blocked(wide, st, x)
+        s_r, y_r = iir.lti_blocked_ref(wide, st, x)
+        torch.cuda.synchronize()
+        err = max((y_k - y_r).abs().max().item(), (s_k - s_r).abs().max().item())
+        print(f"  a cascade of {K} biquads (n = {wide.n}), B=2048: {err:.3e} from the plain "
+              f"version")
+        _require(f"K1 {K} biquads: y and the end state {err:.3e} from the plain version, above "
+                 f"{K1_ABS}", err <= K1_ABS)
+        k1["max_abs_err"] = max(k1["max_abs_err"], err)
 
     print("K2 biquad_scan")
     for label, (A, Bv, c0) in scans.items():
@@ -655,6 +716,40 @@ def fft_kernels(fn):
 def require_kernels(what, got, want):
     if got != want:
         raise SmokeError(f"{what}: {got} kernels launched a call, expected {want}")
+
+
+# K1 (csrc/lti_blocked.cu) in float64 against its plain version: y and the
+# end state, absolute; K11 (csrc/m4_env.cu) in both dtypes: the ticks and
+# the carried envelopes (float32: hi + lo), absolute
+K1_ABS = 1e-15
+ENV_ABS = 4e-15
+
+
+def one_launch(what, fn, reps=20):
+    """Device-only ms of fn() (csrc/lti_blocked.cu or csrc/m4_env.cu) and a
+    check that the call ran one kernel: by the library's own count of its
+    launches over `reps` calls, and by torch.profiler's count of every
+    kernel the card ran, the wrapper's included (a profile can miss an
+    event of the `reps` calls: the count rounds; where CUPTI recorded no
+    kernel in any try, the library's count stands alone)."""
+    import torch
+
+    from dsp_tpu_torch import kernels as lib
+
+    torch.cuda.synchronize()
+    before = lib.lookback_launches()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    launched = (lib.lookback_launches() - before) / reps
+    ms, kernels = device_ms(fn, reps, tries=5)
+    print(f"  {what}: device-only {ms:.4f} ms, {launched:g} launched a call by the library's "
+          f"count, {'none recorded' if kernels is None else kernels} by torch.profiler")
+    if launched != 1:
+        raise SmokeError(f"{what}: {launched:g} kernels launched a call, expected 1")
+    if kernels is not None and round(kernels) != 1:
+        raise SmokeError(f"{what}: {kernels} kernels a call by torch.profiler, expected 1")
+    return ms
 
 
 def row_text(row):
@@ -1233,6 +1328,7 @@ def matrix4_phase(records):
         warm = x.shape[0] // B - blocks
         cc.run_blocks(x[: warm * B].reshape(warm, B, CHANNELS))
         errs = {"m4_env": 0.0, "m4_event": 0.0, "m4_audio": 0.0}
+        env_abs = 0.0
         for blk in range(warm, warm + blocks):
             st = cc.states[0]
             xb = x[blk * B:(blk + 1) * B].contiguous()
@@ -1241,6 +1337,7 @@ def matrix4_phase(records):
             env_k = m4.m4_env(y_bp, st["env_m"], e.g_env)
             env_r = m4.m4_env_ref(y_bp, st["env_m"], e.g_env)
             errs["m4_env"] = max(errs["m4_env"], *(_rel(a, b) for a, b in zip(env_k, env_r)))
+            env_abs = max(env_abs, *(_diff(a, b) for a, b in zip(env_k, env_r)))
             fade_p, disable = int(st["fade_p"]), bool(st["disable"])
             ev1 = {k: v[None] for k, v in st["ev"].items()}
             ins = (ev1, st["bg_cs"][None], env_k[1][None], st["interp_y"][None], fade_p, disable)
@@ -1269,11 +1366,19 @@ def matrix4_phase(records):
               f"{dbfs(errs['m4_audio']):.1f} dBFS; after {int(ev['t'])} ticks {counters}")
         _require(f"matrix4 {words}: no event in the check's input", counters["diff_count"]
                  + counters["ord_count"] > 0)
+        print(f"  m4_env {words} at {fs} Hz, B={B}: ticks and envelopes within {env_abs:.3e} "
+              f"absolute (limit {ENV_ABS})")
         _require(f"m4_env {words}: {errs['m4_env']:.3e} relative", errs["m4_env"] <= 1e-12)
+        _require(f"m4_env {words}: {env_abs:.3e} absolute", env_abs <= ENV_ABS)
         _require(f"m4_event {words}: {errs['m4_event']:.3e} relative", errs["m4_event"] <= 1e-12)
         _require(f"m4_audio {words}: {dbfs(errs['m4_audio']):.1f} dBFS", errs["m4_audio"] <= limit)
+        errs["m4_env"] = env_abs
         for name, err in errs.items():
             records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+        if B in (2048, 65536) and fs == FS and words == "matrix4 -6":
+            dev_ms = one_launch(f"m4_env B={B}", lambda: m4.m4_env(y_bp, st["env_m"], e.g_env))
+            if B == 2048:
+                records["m4_env"]["device_ms"] = dev_ms
         if B == 65536:
             set_tick_us(records["m4_event"], B // 32, cuda_ms(lambda: m4.m4_event(e.ctl, *ins), 3))
             dev_ms, _ = device_ms(lambda: m4.m4_audio(*a_ins), 5)
@@ -1405,6 +1510,7 @@ def matrix4_mb_phase(records):
         for blk in range(warm):
             st, _ = e.step(st, x[blk * B:(blk + 1) * B].contiguous())
         errs = {"bank": 0.0, "m4mb_env": 0.0, "m4mb_event": 0.0, "m4mb_audio": 0.0}
+        env_abs = 0.0
         plan = e._bank_plan(B)
         for blk in range(warm, warm + blocks):
             xb = x[blk * B:(blk + 1) * B].contiguous()
@@ -1418,6 +1524,7 @@ def matrix4_mb_phase(records):
             env_k = m4.m4mb_env(bands, st["env_m"], e.g_env, w)
             env_r = m4.m4mb_env_ref(bands, st["env_m"], e.g_env, w)
             errs["m4mb_env"] = max(errs["m4mb_env"], *(_rel(a, b) for a, b in zip(env_k, env_r)))
+            env_abs = max(env_abs, *(_diff(a, b) for a, b in zip(env_k, env_r)))
             ins = (e.ctl, st["ev"], st["ev_thresh"], env_k[1], st["interp_y"], int(st["fade_p"]),
                    bool(st["disable"]))
             out_k = m4.m4mb_event(*ins)
@@ -1447,7 +1554,12 @@ def matrix4_mb_phase(records):
         _require(f"matrix4_mb {words}: no event in the check's input",
                  counters["diff_count"] + counters["ord_count"] > 0)
         _require(f"bank {words}: {dbfs(errs['bank']):.1f} dBFS", dbfs(errs["bank"]) <= -290.0)
+        _require(f"bank {words}: {errs['bank']:.3e} absolute", errs["bank"] <= K1_ABS)
+        print(f"  m4mb_env {words} at {fs} Hz, B={B}: ticks and envelopes within {env_abs:.3e} "
+              f"absolute (limit {ENV_ABS}); the bank within {errs['bank']:.3e}")
         _require(f"m4mb_env {words}: {errs['m4mb_env']:.3e}", errs["m4mb_env"] <= 1e-13)
+        _require(f"m4mb_env {words}: {env_abs:.3e} absolute", env_abs <= ENV_ABS)
+        errs["m4mb_env"] = env_abs
         _require(f"m4mb_event {words}: {errs['m4mb_event']:.3e}", errs["m4mb_event"] <= 1e-13)
         _require(f"m4mb_audio {words}: {dbfs(errs['m4mb_audio']):.1f} dBFS",
                  dbfs(errs["m4mb_audio"]) <= MB_AUDIO_DBFS)
@@ -1463,6 +1575,16 @@ def matrix4_mb_phase(records):
             ms = cuda_ms(lambda: iir.lti_blocked(plan, bank_st, xt), 10)
             print(f"  the bank at L = 1, B={B}: kernel {ms:.4f} ms (bound "
                   f"{bound(bank_bytes, bank_flops)[0]:.6f} ms)")
+        if fs == FS and words == "matrix4_mb -6":
+            dev_ms = one_launch(f"the bank at L = {L}, B={B}",
+                             lambda: iir.lti_blocked(plan, bank_st, xt))
+            if B == 2048:
+                records["lti_blocked@bank"]["device_ms"] = dev_ms
+        if fs == FS and B == 2048:
+            dev_ms = one_launch(f"m4mb_env {words} B={B}",
+                             lambda: m4.m4mb_env(bands, st["env_m"], e.g_env, w))
+            if words == "matrix4_mb -6":
+                records["m4mb_env"]["device_ms"] = dev_ms
         if B == 65536:
             set_tick_us(records["m4mb_event"], B // 32, cuda_ms(lambda: m4.m4mb_event(*ins), 3))
         if (words, fs, B) != MB_KERNEL_CASES[0]:
@@ -1536,6 +1658,82 @@ def matrix4_mb_no_sync():
              bool(torch.isfinite(ys).all()))
     st = next(s for s in cc.states if isinstance(s, dict) and "ev_thresh" in s)
     print(f"matrix4_mb step: 16 blocks ran with no host sync, t = {int(st['ev']['t'][0])}")
+
+
+def _tensors(out):
+    """The tensors of a wrapper's output, nested tuples flattened."""
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    return [out]
+
+
+def lookback_phase():
+    """K1 and K11 share one look-back scratch a stream (csrc/lookback.cuh,
+    kernels.lookback_scratch). Interleaves launches of different tile counts
+    and widths on it, LOOKBACK_ROUNDS rounds on new inputs: the flagship at
+    B = 65536 (128 slots of 12), the bank at B = 2048 (104 slots of 40) and
+    at its L = 1 plan (B = 1056), m4mb_env with the mix (16 slots of 104),
+    m4mb_env_f32 and m4_env at B = 65536 (64 slots of 8). Before each
+    launch the aggregates' storage is filled with the words of that
+    launch's own tag, so a flag read from anywhere but flag storage would
+    release a tile early. Every output is held bit-equal to the same launch
+    on a fresh scratch."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch import kernels
+    from dsp_tpu_torch.ops import iir
+    from dsp_tpu_torch.ops import m4_engine as m4
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20262)
+    flag_plan, _ = flagship_parts()
+    e, _ = mb_effect("matrix4_mb filter_type=butterworth,freq_mask=0.5 -6", FS, 2048)
+    g = e.g_env
+
+    def arr(*shape, scale=0.3, dtype=torch.float64):
+        return torch.as_tensor(rng.standard_normal(shape) * scale, device=dev).to(dtype)
+
+    def inputs():
+        bank, bank1 = e._bank_plan(2048), e._bank_plan(1056)
+        w = e.device_array("fmw", arr(1))
+        return [
+            (iir.lti_blocked, (flag_plan, arr(2, CHANNELS, flag_plan.n, scale=1e-2),
+                               arr(65536, CHANNELS))),
+            (iir.lti_blocked, (bank, arr(2, 26, bank.n, scale=1e-2), arr(2048, 26))),
+            (m4.m4mb_env, (arr(2048, 13, 2), arr(13, 8, scale=1e-2).abs(), g, w)),
+            (iir.lti_blocked, (bank1, arr(2, 26, bank1.n, scale=1e-2), arr(1056, 26))),
+            (m4.m4_env, (arr(65536, 2), arr(8, scale=1e-2).abs(), g)),
+            (m4.m4mb_env_f32, (arr(2048, 13, 2, dtype=torch.float32),
+                               arr(2048, 13, 2, scale=1e-9, dtype=torch.float32),
+                               arr(13, 8, scale=1e-2, dtype=torch.float32).abs(),
+                               arr(13, 8, scale=1e-11, dtype=torch.float32).abs(), g, w)),
+        ]
+
+    rounds = [inputs() for _ in range(LOOKBACK_ROUNDS)]
+    key = (0, kernels._stream(torch.empty(1, device=dev)))
+    fresh = []
+    for launches in rounds:
+        for fn, args in launches:
+            kernels._SCRATCH.pop(key, None)
+            fresh.append(_tensors(fn(*args)))
+    flags, agg = kernels.lookback_scratch(torch.empty(1, device=dev), 4096, 16)
+    shared = []
+    for launches in rounds:
+        for fn, args in launches:
+            agg.view(torch.int32).fill_(int(flags[2].item()) + 1)
+            shared.append(_tensors(fn(*args)))
+    torch.cuda.synchronize()
+    _require("the look-back scratch was replaced during the shared run",
+             kernels._SCRATCH[key][0] is flags and kernels._SCRATCH[key][1] is agg)
+    for i, (a, b) in enumerate(zip(fresh, shared)):
+        _require(f"launch {i} on the shared look-back scratch differs from the same launch on a "
+                 f"fresh one", all(bits_equal(x, y) for x, y in zip(a, b)))
+    print(f"look-back: {len(shared)} launches of K1 and K11 interleaved on one scratch, the "
+          f"aggregates' storage filled with each launch's tag: bit-equal to fresh scratches")
+
+
+LOOKBACK_ROUNDS = 16
 
 
 def program_signal(dur=4.0, fs=FS):
@@ -1709,32 +1907,113 @@ def write_filter(path, taps, seed):
         w.close()
 
 
+def cpu_reference(chain_words, block, enc, seed, head):
+    """The port's CPU run of chain_words at `block` on head (the input's
+    first seconds), through what the CLI's writer does for enc: its dither
+    policy, its app-level dither, the clip and the encoding. With `seed`,
+    numpy's global generator is seeded before the chain is built, which
+    then draws as the CLI does (the chain's init, the output writer's two
+    dither seeds, the effects' initial states). What cli_run compares the
+    card's render with; module-level, so a CpuReferences worker runs it."""
+    import numpy as np
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_args
+    from dsp_tpu_torch.chain.chain import chain_set_dither_params
+    from dsp_tpu_torch.codecs.sampleconv import encoding_info, raw_to_sample, sample_to_raw
+    from dsp_tpu_torch.core.prng import TpdfNoise, tpdf_dither_get_mult
+    from dsp_tpu_torch.core.types import StreamInfo
+
+    if seed is not None:
+        np.random.seed(seed)
+    chain = build_chain_from_args(chain_words, StreamInfo(FS, CHANNELS))
+    # the output writer's two seeds for its app-level dither, drawn as the
+    # CLI draws them (cli/main.py OutputWriter), and the CLI's dither policy
+    seeds = np.random.randint(1, 1 << 30), np.random.randint(1, 1 << 30)
+    prec, can_dither = encoding_info(enc)[1:]
+    app_dither = chain_set_dither_params(chain, prec, can_dither and prec < 24)
+    ref = CompiledChain(chain, block, device="cpu").process_array(head, drain=False)
+    if app_dither:
+        # the alignment pass can put an align effect after a dither effect
+        # (delivery: the delay's integer part), and then the writer dithers
+        # too, as dsp_tpu's does
+        ref = ref + TpdfNoise(*seeds).block(ref.size, tpdf_dither_get_mult(prec)).reshape(ref.shape)
+    # what the writer stores and read_wav returns: clipped, encoded, decoded
+    return raw_to_sample(sample_to_raw(np.clip(ref, -1.0, 1.0), enc), enc).reshape(ref.shape)
+
+
+def _reference_worker():
+    import os
+
+    os.environ["DSP_TPU_TORCH_DEVICE"] = "cpu"
+
+
+class CpuReferences:
+    """cli_run's CPU runs (cpu_reference), submitted ahead and computed in
+    worker processes while the card renders: each takes seconds of the
+    port's plain versions a second of input (matrix4's event engine is a
+    loop of torch ops a tick), against a fraction of a second on the card.
+    A run is keyed by everything it depends on, the input's bytes
+    included, so cli_run takes only the reference of its own run. The
+    workers start with spawn and never touch the card; close() stops
+    them."""
+
+    def __init__(self, workers):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
+                                        initializer=_reference_worker)
+        self.jobs = {}
+
+    @staticmethod
+    def _key(chain_words, block, enc, seed, head):
+        import hashlib
+
+        return (tuple(chain_words), block, enc, seed, head.shape,
+                hashlib.sha256(head.tobytes()).hexdigest())
+
+    def submit(self, chain_words, block, head, enc="double", seed=None, compare=COMPARE_SECONDS):
+        head = head[: compare * FS]
+        self.jobs[self._key(chain_words, block, enc, seed, head)] = self.pool.submit(
+            cpu_reference, list(chain_words), block, enc, seed, head)
+
+    def take(self, chain_words, block, enc, seed, head):
+        """The reference computed for this run, or None if none was submitted."""
+        job = self.jobs.pop(self._key(chain_words, block, enc, seed, head), None)
+        return None if job is None else job.result()
+
+    def close(self):
+        """Stop the workers (a job not yet started is cancelled); return
+        the number of jobs submitted and never taken."""
+        left = len(self.jobs)
+        self.jobs.clear()
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        return left
+
+
 def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, seconds, tmp,
             enc="double", limit_dbfs=LIMIT_DBFS, seed=None, onset=None, compare=COMPARE_SECONDS,
-            keep=None):
+            keep=None, refs=None):
     """One file-to-file run of dsp-torch on the card. Fails unless it
     writes the expected frame count, launches every kernel in `wrappers`
     (their counts are zeroed just before the run) and matches the port's
-    CPU run on the first `compare` seconds within `limit_dbfs` (None: equal).
-    With `seed`, numpy's global generator is seeded before the card run and
-    before the CPU run's chain, which then draws as the CLI does (the
-    chain's init, the output writer's two dither seeds, the effects'
-    initial states). The CPU run's output goes through what the CLI's
-    writer does for `enc`: its dither policy, its app-level dither, the
-    clip and the encoding. With `onset` = (seconds, dBFS), the output's
+    CPU run (cpu_reference) on the first `compare` seconds within
+    `limit_dbfs` (None: equal). With `seed`, numpy's global generator is
+    seeded before the card run and before the CPU run's chain, which then
+    draws as the CLI does. With `onset` = (seconds, dBFS), the output's
     first seconds are held to that limit instead (see ONSET). With `keep`
     (a path), the run's output file is kept there (the float32 phase holds
-    its own runs against it). Returns what the run wrote to stderr."""
+    its own runs against it). With `refs` (CpuReferences), the CPU run is
+    the one computed there ahead, if one was, else it runs here. Returns
+    what the run wrote to stderr."""
     import contextlib
     import io
 
     import numpy as np
 
-    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_args
-    from dsp_tpu_torch.chain.chain import chain_set_dither_params, expected_out_frames
+    from dsp_tpu_torch.chain import build_chain_from_args
+    from dsp_tpu_torch.chain.chain import expected_out_frames
     from dsp_tpu_torch.cli.main import main as cli_main
-    from dsp_tpu_torch.codecs.sampleconv import encoding_info, raw_to_sample, sample_to_raw
-    from dsp_tpu_torch.core.prng import TpdfNoise, tpdf_dither_get_mult
     from dsp_tpu_torch.core.types import StreamInfo
 
     chain = build_chain_from_args(chain_words, StreamInfo(FS, CHANNELS))
@@ -1763,22 +2042,9 @@ def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, secon
     got, y = read_wav(out, compare * chain.ostream.fs)
     if got != want:
         raise SmokeError(f"{label}: {got} output frames, expected {want}")
-    if seed is not None:
-        np.random.seed(seed)
-    chain = build_chain_from_args(chain_words, StreamInfo(FS, CHANNELS))
-    # the output writer's two seeds for its app-level dither, drawn as the
-    # CLI draws them (cli/main.py OutputWriter), and the CLI's dither policy
-    seeds = np.random.randint(1, 1 << 30), np.random.randint(1, 1 << 30)
-    prec, can_dither = encoding_info(enc)[1:]
-    app_dither = chain_set_dither_params(chain, prec, can_dither and prec < 24)
-    ref = CompiledChain(chain, block, device="cpu").process_array(head, drain=False)
-    if app_dither:
-        # the alignment pass can put an align effect after a dither effect
-        # (delivery: the delay's integer part), and then the writer dithers
-        # too, as dsp_tpu's does
-        ref = ref + TpdfNoise(*seeds).block(ref.size, tpdf_dither_get_mult(prec)).reshape(ref.shape)
-    # what the writer stores and read_wav returns: clipped, encoded, decoded
-    ref = raw_to_sample(sample_to_raw(np.clip(ref, -1.0, 1.0), enc), enc).reshape(ref.shape)
+    ref = None if refs is None else refs.take(chain_words, block, enc, seed, head)
+    if ref is None:
+        ref = cpu_reference(chain_words, block, enc, seed, head)
     if not np.isfinite(y).all():
         raise SmokeError(f"{label}: non-finite output")
     if len(ref) == 0 or len(y) < len(ref):
@@ -1922,14 +2188,20 @@ OLD_KERNELS_A_BLOCK = {
 # irfft_ola_f32; and K2's launches in one each: crossfeed's step one
 # launch for 15 (the flagship from 33 to 19 at -b 2048 and from 54 and 36
 # to 22 at -b 1000), the per-sample biquad one for 4, matrix4's band-limit
-# pair one for 3 (10 to 8; PERF.md sections 5 and 6)
+# pair one for 3 (10 to 8; PERF.md sections 5 and 6); and K1 in one launch
+# for 3 (the flagship from 19 to 17, matrix4_mb from 27 to 25, float32
+# matrix4's band-limit from 10 to 8)
 MOST_KERNELS_A_BLOCK = {
     "fir 64k -b 2048 float64": 3, "fir 64k -b 2048 float32": 3,
     "resample 48k -b 2048 float32": 4,
-    "flagship -b 2048 float64": 19, "flagship -b 2048 float32": 19,
+    "flagship -b 2048 float64": 17, "flagship -b 2048 float32": 17,
     "flagship -b 1000 float64": 22, "flagship -b 1000 float32": 22,
-    "matrix4": 8, "matrix4 -6 -b 2048 float64": 8,
+    "matrix4": 8, "matrix4 -6 -b 2048 float64": 8, "matrix4 -6 -b 2048 float32": 8,
+    "matrix4_mb": 25, "matrix4_mb -6 -b 2048 float64": 25,
 }
+# chains profiled at -b 65536 too (8 blocks each), where the card sets the
+# pace: K1's and K11's tiles over the card
+PROFILE_65536 = ((FLAGSHIP, "flagship"), (MATRIX4, "matrix4 -6"), (MATRIX4_MB, "matrix4_mb -6"))
 
 
 def profile_chains(f4k, f64k):
@@ -1938,7 +2210,8 @@ def profile_chains(f4k, f64k):
     filter f4k) and the float32 mode's chains (F32_RUNS, F32_UPMIXES, and
     `fir` with the 65,536-tap filter f64k at block 2048) beside their
     float64 twins:
-    CompiledChain.run_blocks over 256 blocks on the card,
+    CompiledChain.run_blocks over 256 blocks on the card (8 at -b 65536:
+    PROFILE_65536),
     timed unprofiled (host clock to a synchronize), then under
     torch.profiler for the device time of each kernel. Prints the step time
     a block, the kernels the card ran a block, the device time a block by
@@ -1953,7 +2226,6 @@ def profile_chains(f4k, f64k):
     from dsp_tpu_torch.core.types import StreamInfo
 
     rng = np.random.default_rng(13)
-    n = 256
     f64, f32 = torch.float64, torch.float32
     runs = [(label, words, prec, 2048, f64) for label, words, prec in (
         ("delivery", DELIVERY, 16), ("modulated", MODULATED, 53), ("matrix4", MATRIX4, 53),
@@ -1966,7 +2238,9 @@ def profile_chains(f4k, f64k):
         label = f"{name} -b {block}"
         runs += [(f"{label} float64", words, 53, block, f64),
                  (f"{label} float32", words, 53, block, f32)]
+    runs += [(f"{name} -b 65536 float64", words, 53, 65536, f64) for words, name in PROFILE_65536]
     for label, words, prec, block, dtype in runs:
+        n = 8 if block == 65536 else 256
         np.random.seed(SLICE_C_SEED)
         chain = build_chain_from_args(words.split(), StreamInfo(FS, CHANNELS))
         chain_set_dither_params(chain, prec, prec < 24)
@@ -2481,7 +2755,7 @@ def float32_m4_phase(records):
         x = torch.as_tensor(transient_signal(seconds, fs), dtype=f32, device="cuda")
         warm = x.shape[0] // B - blocks
         cc.run_blocks(x[: warm * B].reshape(warm, B, CHANNELS))
-        rel = ulps = 0.0
+        rel = ulps = env_abs = 0.0
         for blk in range(warm, warm + blocks):
             st = cc.states[0]
             xb = x[blk * B:(blk + 1) * B].contiguous()
@@ -2491,6 +2765,9 @@ def float32_m4_phase(records):
             rel = max(rel, _rel(env_k[2], env_r[2]),
                       _rel(env_k[0].double() + env_k[1].double(),
                            env_r[0].double() + env_r[1].double()))
+            env_abs = max(env_abs, _diff(env_k[2], env_r[2]),
+                          _diff(env_k[0].double() + env_k[1].double(),
+                                env_r[0].double() + env_r[1].double()))
             ins = (e.ctl, {k: v[None] for k, v in st["ev"].items()},
                    {k: v[None] for k, v in st["ev_lo"].items()}, st["bg_cs"][None],
                    st["bg_cs_lo"][None], env_k[2][None], st["interp_y"][None],
@@ -2514,9 +2791,16 @@ def float32_m4_phase(records):
               f"ticks {counters}")
         _require(f"matrix4 {words}: no event in the check's input",
                  counters["diff_count"] + counters["ord_count"] > 0)
+        print(f"  m4_env_f32 {words}: ticks and envelopes (hi + lo) within {env_abs:.3e} "
+              f"absolute (limit {ENV_ABS})")
         _require(f"m4_env_f32 {words}: {rel:.3e} relative", rel <= M4_F32_REL)
-        for name in ("m4_env_f32", "m4_event_f32"):
-            records[name]["max_abs_err"] = max(records[name]["max_abs_err"], rel)
+        _require(f"m4_env_f32 {words}: {env_abs:.3e} absolute", env_abs <= ENV_ABS)
+        records["m4_env_f32"]["max_abs_err"] = max(records["m4_env_f32"]["max_abs_err"], env_abs)
+        records["m4_event_f32"]["max_abs_err"] = max(records["m4_event_f32"]["max_abs_err"], rel)
+        if B in (2048, 65536) and fs == FS and words == "matrix4 -6":
+            dev_ms = one_launch(f"m4_env_f32 {words} B={B}", lambda: m4.m4_env_f32(*env_args))
+            if B == 2048:
+                records["m4_env_f32"]["device_ms"] = dev_ms
         if B == 65536:
             set_tick_us(records["m4_event_f32"], B // 32, cuda_ms(lambda: m4.m4_event_f32(*ins), 3))
             dev_ms, _ = device_ms(lambda: m4.m4_audio_f32(*a_ins), 5)
@@ -2563,7 +2847,7 @@ def float32_m4_phase(records):
         for blk in range(warm):
             st, _ = e.step(st, x[blk * B:(blk + 1) * B].contiguous())
         plan = e._bank_plan(B)
-        rel = ulps = 0.0
+        rel = ulps = env_abs = 0.0
         for blk in range(warm, warm + blocks):
             xb = x[blk * B:(blk + 1) * B].contiguous()
             _, s_pre = e._cascade("fsh", st["fshape_m"].reshape(2, 2, 2), xb)
@@ -2575,6 +2859,9 @@ def float32_m4_phase(records):
             rel = max(rel, _rel(env_k[2], env_r[2]),
                       _rel(env_k[0].double() + env_k[1].double(),
                            env_r[0].double() + env_r[1].double()))
+            env_abs = max(env_abs, _diff(env_k[2], env_r[2]),
+                          _diff(env_k[0].double() + env_k[1].double(),
+                                env_r[0].double() + env_r[1].double()))
             ins = (e.ctl, st["ev"], st["ev_lo"], st["ev_thresh"], st["ev_thresh_lo"], env_k[2],
                    st["interp_y"], int(st["fade_p"]), bool(st["disable"]))
             out_k, out_r = m4.m4mb_event_f32(*ins), m4.m4mb_event_f32_ref(*ins)
@@ -2595,9 +2882,18 @@ def float32_m4_phase(records):
               f"{int(ev['t'][0])} ticks, over the 13 bands {counters}")
         _require(f"matrix4_mb {words}: no event in the check's input",
                  counters["diff_count"] + counters["ord_count"] > 0)
+        print(f"  m4mb_env_f32 {words}: ticks and envelopes (hi + lo) within {env_abs:.3e} "
+              f"absolute (limit {ENV_ABS})")
         _require(f"m4mb_env_f32 {words}: {rel:.3e} relative", rel <= MB_F32_REL)
-        for name in ("m4mb_env_f32", "m4mb_event_f32"):
-            records[name]["max_abs_err"] = max(records[name]["max_abs_err"], rel)
+        _require(f"m4mb_env_f32 {words}: {env_abs:.3e} absolute", env_abs <= ENV_ABS)
+        records["m4mb_env_f32"]["max_abs_err"] = max(records["m4mb_env_f32"]["max_abs_err"],
+                                                     env_abs)
+        records["m4mb_event_f32"]["max_abs_err"] = max(records["m4mb_event_f32"]["max_abs_err"],
+                                                       rel)
+        if B == 2048 and fs == FS:
+            dev_ms = one_launch(f"m4mb_env_f32 {words} B={B}", lambda: m4.m4mb_env_f32(*env_args))
+            if words == "matrix4_mb -6":
+                records["m4mb_env_f32"]["device_ms"] = dev_ms
         if B == 65536:
             set_tick_us(records["m4mb_event_f32"], B // 32,
                         cuda_ms(lambda: m4.m4mb_event_f32(*ins), 3))
@@ -2764,11 +3060,18 @@ def float32_phase(records, tmp, kept):
         return torch.stack(iir.split_f64(torch.as_tensor(rng.standard_normal(shape) * 1e-2,
                                                          device=dev)))
 
+    bank1 = mb_effect(MATRIX4_MB, FS, 1056)[0]._bank_plan(1056)
+    m4e = build_chain_from_string(MATRIX4, StreamInfo(FS, CHANNELS)).effects[0]
     rec = records["lti_blocked_f32"]
     print("K1-df lti_blocked_f32 (float32 samples and (hi, lo) state, float64 inside)")
     for label, pl, B, df in (("flagship cascade", plan, 2048, False),
                              ("flagship cascade", plan, 65536, False),
-                             ("matrix4_mb's bank, (hi, lo) out", bank, 2048, True)):
+                             ("matrix4_mb's bank, (hi, lo) out", bank, 2048, True),
+                             ("matrix4_mb's bank at L = 1, (hi, lo) out", bank1, 1056, True),
+                             ("matrix4's band-limit, (hi, lo) out", m4e._bp_plan(2048), 2048,
+                              True),
+                             ("matrix4's band-limit at L = 1, (hi, lo) out", m4e._bp_plan(1000),
+                              1000, True)):
         x, st = f32(B, pl.C), pair(pl.C, pl.n)
         s_k, y_k = iir.lti_blocked_f32(pl, st, x, df)
         s_r, y_r = iir.lti_blocked_f32_ref(pl, st, x, df)
@@ -2780,6 +3083,9 @@ def float32_phase(records, tmp, kept):
             print(f"  {what}: y hi + lo within {rel:.2e} relative")
             _require(f"{what}: y hi + lo {rel:.2e} relative from the plain version",
                      rel <= F32_STATE_REL)
+        dev_ms = one_launch(f"K1-df {what}", lambda: iir.lti_blocked_f32(pl, st, x, df))
+        if pl is plan and B == 2048:
+            rec["device_ms"] = dev_ms
         if (pl is plan and B == 2048) or df:
             ms = cuda_ms(lambda: iir.lti_blocked_f32(pl, st, x, df), 50)
             plain_ms = cuda_ms(lambda: iir.lti_blocked_f32_ref(pl, st, x, df), 5)
@@ -3232,113 +3538,136 @@ def float32_no_sync():
 
 
 def main_path(records, seconds, tmp):
-    """The flagship chain, then the FFT-convolution paths, file to file.
-    Returns the 1M- and 4k-tap filter files and the float64 renders it kept
-    for the float32 phase ({(chain, block): path})."""
+    """The flagship chain, then the FFT-convolution paths, the delivery
+    chains and the upmixes, file to file. Their CPU references run ahead
+    in REFERENCE_WORKERS worker processes (CpuReferences) while the card
+    renders. Returns the 1M- and 4k-tap filter files and the float64
+    renders it kept for the float32 phase ({(chain, block): path})."""
     import os
 
     from dsp_tpu_torch.ops import fft_conv, iir
+    from dsp_tpu_torch.ops import m4_engine as m4
+    from dsp_tpu_torch.ops import resample_ops
+    from dsp_tpu_torch.ops import time_domain as td
 
     src = tmp / "in.wav"
     t0 = time.perf_counter()
     n_in, head = write_input(src, seconds)
     print(f"main path: wrote {seconds} s of stereo {FS} Hz float64 ({n_in} frames, "
           f"{src.stat().st_size / 1e6:.1f} MB) in {time.perf_counter() - t0:.2f} s")
+    f64k, f1m, f4k = tmp / "f64k.wav", tmp / "f1m.wav", tmp / "f4k.wav"
+    write_filter(f64k, 1 << 16, seed=0xBE)
+    write_filter(f1m, 1 << 20, seed=0xBF)
+    write_filter(f4k, 1 << 12, seed=0xC4)
+    src60 = tmp / "in60.wav"
+    n60, head60 = write_input(src60, 60)
     os.environ["DSP_TPU_TORCH_DEVICE"] = "cuda"
-    common = (records, src, n_in, head, seconds, tmp)
     kept = {}
 
     def keep(key):  # a float64 render the float32 phase compares with
         kept[key] = tmp / f"f64_{len(kept)}.wav"
         return kept[key]
 
-    k12 = {"lti_blocked": iir.lti_blocked, "crossfeed_step": iir.crossfeed_step}
-    for block in (2048, 65536):
-        cli_run(f"flagship -b {block}", FLAGSHIP.split(), block, k12, *common,
-                keep=keep((FLAGSHIP, block)) if block == 2048 else None)
-    # at a block K1 does not take, the biquads run per sample on K2
-    cli_run("flagship -b 1000", FLAGSHIP.split(), 1000,
-            {"biquad_scan_pair": iir.biquad_scan_pair, "crossfeed_step": iir.crossfeed_step},
-            *common, keep=keep((FLAGSHIP, 1000)))
-
-    f64k, f1m = tmp / "f64k.wav", tmp / "f1m.wav"
-    write_filter(f64k, 1 << 16, seed=0xBE)
-    write_filter(f1m, 1 << 20, seed=0xBF)
     # the OLS and Upols steps take their carried input from rfft_pack; the
     # Nupols step splices its stage
     mac = {name: getattr(fft_conv, name) for name in ("rfft_pack", "fdl_mac", "irfft_crop")}
-    for label, words, block, wrappers, kept_as in (
-        ("fir 64k -b 65536 (OLS)", ["fir", str(f64k)], 65536, mac, "fir 64k"),
-        ("fir 64k -b 2048 (Upols, K = 32)", ["fir", str(f64k)], 2048, mac, "fir 64k"),
-        ("fir_p 1M -b 2048 (Nupols, m = 32)", ["fir_p", str(f1m)], 2048,
-         {**mac, "splice": fft_conv.splice}, "fir_p 1M"),
-        ("fir_p 1M -b 65536 (Upols, K = 16)", ["fir_p", str(f1m)], 65536, mac, None),
-        ("crossover_lr4_2kHz_riir_linphase -b 2048", [f"@{CROSSOVER}"], 2048,
-         {"lti_blocked": iir.lti_blocked, **mac}, None),
-    ):
-        cli_run(label, words, block, wrappers, *common,
-                keep=None if kept_as is None else keep((kept_as, block)))
-
-    from dsp_tpu_torch.ops import time_domain as td
-
-    # slice C: numpy's generator seeded alike before the card and CPU runs
-    # (their renders and stats tables kept as tmp/f64_<label>.wav and .txt
-    # for float32_time_domain_cli)
-    err = cli_run("delivery -e s16 -b 2048", DELIVERY.split(), 2048,
-                  {"biquad_scan": iir.biquad_scan, "tpdf_dither": td.tpdf_dither,
-                   "stats_step": td.stats_step},
-                  *common, enc="s16", limit_dbfs=None, seed=SLICE_C_SEED,
-                  keep=tmp / "f64_delivery.wav")
-    table = stats_table(err)
-    if table is None:
-        raise SmokeError("the delivery run printed no stats table")
-    print("  " + table.replace("\n", "\n  "))
-    (tmp / "f64_delivery.txt").write_text(table)
-    err = cli_run("modulated -b 2048", MODULATED.split(), 2048,
-                  {"mod_delay": td.mod_delay, "splice": fft_conv.splice,
-                   "tpdf_noise": td.tpdf_noise, "tpdf_dither": td.tpdf_dither,
-                   "stats_step": td.stats_step, "levels_step": td.levels_step},
-                  *common, limit_dbfs=-280.0, seed=SLICE_C_SEED, keep=tmp / "f64_modulated.wav")
-    table = stats_table(err)
-    if table is None:
-        raise SmokeError("the modulated run printed no stats table")
-    (tmp / "f64_modulated.txt").write_text(table)
-    stats_table_check(head, tmp)
-
-    from dsp_tpu_torch.ops import m4_engine as m4
-    from dsp_tpu_torch.ops import resample_ops
-
-    # slices D and E: the upmixes
     m4w = {"biquad_scan_series": iir.biquad_scan_series, "m4_env": m4.m4_env,
            "m4_event": m4.m4_event,
            "m4_audio": m4.m4_audio, "splice": fft_conv.splice}
-    cli_run("matrix4 -6 -b 2048 (44.1 kHz -> 4 ch)", MATRIX4.split(), 2048, m4w, *common,
-            keep=keep((MATRIX4, 2048)))
-    # a block of 2048 control ticks, where the engine sets the pace
-    cli_run("matrix4 -6 -b 65536 (44.1 kHz -> 4 ch)", MATRIX4.split(), 65536, m4w, *common)
-    cli_run("resample 48k matrix4 -6 -b 2048 (48 kHz quad)", UPMIX48.split(), 2048,
-            {**m4w, "rfft_pack": fft_conv.rfft_pack, "resample_fold": resample_ops.resample_fold,
-             "irfft_crop": fft_conv.irfft_crop}, *common, onset=ONSET)
-
-    # slice F: the multiband upmixes (the fir before the effect is its
-    # phase-linearising FIR, on K5/K6)
-    f4k = tmp / "f4k.wav"
-    write_filter(f4k, 1 << 12, seed=0xC4)
     mbw = {"biquad_scan": iir.biquad_scan, "lti_blocked": iir.lti_blocked,
            "m4mb_env": m4.m4mb_env, "m4mb_event": m4.m4mb_event, "m4mb_audio": m4.m4mb_audio,
            "splice": fft_conv.splice, "rfft_pack": fft_conv.rfft_pack,
            "fdl_mac": fft_conv.fdl_mac, "irfft_crop": fft_conv.irfft_crop}
-    cli_run("matrix4_mb -6 -b 2048 (44.1 kHz -> 4 ch)", MATRIX4_MB.split(), 2048, mbw, *common,
-            onset=MB_ONSET, compare=MB_COMPARE_SECONDS, keep=keep((MATRIX4_MB, 2048)))
-    records["lti_blocked@bank"]["launches"] += iir.lti_blocked.launches
-    cli_run("matrix4_mb -6 -b 65536 (44.1 kHz -> 4 ch)", MATRIX4_MB.split(), 65536, mbw, *common,
-            onset=MB_ONSET, compare=MB_COMPARE_SECONDS)
-    cli_run("mixed -b 2048 (eq, delay -f, fir 4k, matrix4_mb)", mixed_chain(f4k).split(), 2048,
-            mbw, *common, onset=MB_ONSET, compare=MB_COMPARE_SECONDS)
-    src60 = tmp / "in60.wav"
-    n60, head60 = write_input(src60, 60)
-    cli_run("examples/matrix4_mb_2_4 -b 2048 (6 ch)", [f"@{MB_EXAMPLE}"], 2048, mbw, records, src60,
-            n60, head60, 60, tmp, onset=MB_ONSET, compare=MB_COMPARE_SECONDS)
+    mb = {"onset": MB_ONSET, "compare": MB_COMPARE_SECONDS}
+    k12 = {"lti_blocked": iir.lti_blocked, "crossfeed_step": iir.crossfeed_step}
+    on60 = (src60, n60, head60, 60)
+    # (label, chain words, block, wrappers, cli_run's keywords, the input
+    # (src, frames, head, seconds) or None for in.wav), in the card's order
+    runs = [
+        (f"flagship -b {block}", FLAGSHIP.split(), block, k12,
+         {"keep": keep((FLAGSHIP, block))} if block == 2048 else {}, None)
+        for block in (2048, 65536)
+    ] + [
+        # at a block K1 does not take, the biquads run per sample on K2
+        ("flagship -b 1000", FLAGSHIP.split(), 1000,
+         {"biquad_scan_pair": iir.biquad_scan_pair, "crossfeed_step": iir.crossfeed_step},
+         {"keep": keep((FLAGSHIP, 1000))}, None),
+        ("fir 64k -b 65536 (OLS)", ["fir", str(f64k)], 65536, mac,
+         {"keep": keep(("fir 64k", 65536))}, None),
+        ("fir 64k -b 2048 (Upols, K = 32)", ["fir", str(f64k)], 2048, mac,
+         {"keep": keep(("fir 64k", 2048))}, None),
+        ("fir_p 1M -b 2048 (Nupols, m = 32)", ["fir_p", str(f1m)], 2048,
+         {**mac, "splice": fft_conv.splice}, {"keep": keep(("fir_p 1M", 2048))}, None),
+        ("fir_p 1M -b 65536 (Upols, K = 16)", ["fir_p", str(f1m)], 65536, mac, {}, None),
+        ("crossover_lr4_2kHz_riir_linphase -b 2048", [f"@{CROSSOVER}"], 2048,
+         {"lti_blocked": iir.lti_blocked, **mac}, {}, None),
+        # slice C: numpy's generator seeded alike before the card and CPU
+        # runs (their renders and stats tables kept as tmp/f64_<label>.wav
+        # and .txt for float32_time_domain_cli)
+        ("delivery -e s16 -b 2048", DELIVERY.split(), 2048,
+         {"biquad_scan": iir.biquad_scan, "tpdf_dither": td.tpdf_dither,
+          "stats_step": td.stats_step},
+         {"enc": "s16", "limit_dbfs": None, "seed": SLICE_C_SEED,
+          "keep": tmp / "f64_delivery.wav"}, None),
+        ("modulated -b 2048", MODULATED.split(), 2048,
+         {"mod_delay": td.mod_delay, "splice": fft_conv.splice,
+          "tpdf_noise": td.tpdf_noise, "tpdf_dither": td.tpdf_dither,
+          "stats_step": td.stats_step, "levels_step": td.levels_step},
+         {"limit_dbfs": -280.0, "seed": SLICE_C_SEED, "keep": tmp / "f64_modulated.wav"}, None),
+        # slices D and E: the upmixes
+        ("matrix4 -6 -b 2048 (44.1 kHz -> 4 ch)", MATRIX4.split(), 2048, m4w,
+         {"keep": keep((MATRIX4, 2048))}, None),
+        # a block of 2048 control ticks, where the engine sets the pace
+        ("matrix4 -6 -b 65536 (44.1 kHz -> 4 ch)", MATRIX4.split(), 65536, m4w, {}, None),
+        ("resample 48k matrix4 -6 -b 2048 (48 kHz quad)", UPMIX48.split(), 2048,
+         {**m4w, "rfft_pack": fft_conv.rfft_pack, "resample_fold": resample_ops.resample_fold,
+          "irfft_crop": fft_conv.irfft_crop}, {"onset": ONSET}, None),
+        # slice F: the multiband upmixes (the fir before the effect is its
+        # phase-linearising FIR, on K5/K6)
+        ("matrix4_mb -6 -b 2048 (44.1 kHz -> 4 ch)", MATRIX4_MB.split(), 2048, mbw,
+         {**mb, "keep": keep((MATRIX4_MB, 2048))}, None),
+        ("matrix4_mb -6 -b 65536 (44.1 kHz -> 4 ch)", MATRIX4_MB.split(), 65536, mbw, mb, None),
+        ("mixed -b 2048 (eq, delay -f, fir 4k, matrix4_mb)", mixed_chain(f4k).split(), 2048,
+         mbw, mb, None),
+        ("examples/matrix4_mb_2_4 -b 2048 (6 ch)", [f"@{MB_EXAMPLE}"], 2048, mbw, mb, on60),
+    ] + [
+        # -b 1000: the chain rounds the block up to 1024 (its quantum of 32
+        # samples), an L = 128 plan; -b 1056 is off the 128 grid: the
+        # bank's L = 1 plan, which K1 runs in chunks of 32
+        # (csrc/lti_blocked.cu)
+        (f"matrix4_mb -6 -b {block} (44.1 kHz -> 4 ch, the bank at {bank})", MATRIX4_MB.split(),
+         block, mbw, mb, on60)
+        for block, bank in ((1000, "L = 128 at 1024"), (1056, "L = 1"))
+    ]
+    # the runs whose bank launches count as lti_blocked@bank's
+    bank_runs = {"matrix4_mb -6 -b 2048 (44.1 kHz -> 4 ch)",
+                 "matrix4_mb -6 -b 1000 (44.1 kHz -> 4 ch, the bank at L = 128 at 1024)",
+                 "matrix4_mb -6 -b 1056 (44.1 kHz -> 4 ch, the bank at L = 1)"}
+    refs = CpuReferences(REFERENCE_WORKERS)
+    try:
+        for _, words, block, _, kw, inp in runs:
+            refs.submit(words, block, head if inp is None else inp[2],
+                        **{k: kw[k] for k in ("enc", "seed", "compare") if k in kw})
+        for label, words, block, wrappers, kw, inp in runs:
+            src_i, n_i, head_i, secs = (src, n_in, head, seconds) if inp is None else inp
+            err = cli_run(label, words, block, wrappers, records, src_i, n_i, head_i, secs, tmp,
+                          refs=refs, **kw)
+            if label in bank_runs:
+                records["lti_blocked@bank"]["launches"] += iir.lti_blocked.launches
+            if label.startswith(("delivery", "modulated")):
+                table = stats_table(err)
+                if table is None:
+                    raise SmokeError(f"the {label.split()[0]} run printed no stats table")
+                if label.startswith("delivery"):
+                    print("  " + table.replace("\n", "\n  "))
+                (tmp / f"f64_{label.split()[0]}.txt").write_text(table)
+                if label.startswith("modulated"):
+                    stats_table_check(head, tmp)
+        left = refs.close()
+    finally:
+        refs.close()
+    if left:
+        raise SmokeError(f"main path: {left} CPU references were computed for no run")
     return f1m, f4k, kept
 
 
@@ -3507,6 +3836,7 @@ def main():
         timed(resample_phase, records["resample_fold"])
         timed(matrix4_phase, records)
         timed(matrix4_mb_phase, records)
+        timed(lookback_phase)
         timed(bench_golden_check)
         timed(mb_golden_check)
         tmp.mkdir(parents=True, exist_ok=True)

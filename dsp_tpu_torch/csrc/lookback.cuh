@@ -1,0 +1,110 @@
+// A single-pass scan across the thread blocks of one launch, shared by K1
+// (csrc/lti_blocked.cu) and K11 (csrc/m4_env.cu): the reduce-then-scan of
+// an affine recurrence in one launch, in a fixed order so that every run
+// gives the same bits.
+//
+// A launch cuts its sequence into tiles, a block a tile. Each block
+//   1. takes a ticket: tiles are numbered in the order blocks start, so a
+//      block only ever waits on blocks that are already running, whatever
+//      order the card schedules them in;
+//   2. composes its tile from a zero start and publishes that aggregate
+//      (its flag set to the launch's tag);
+//   3. waits until every tile before it has published, and combines their
+//      aggregates with the carried start value, each times the power of
+//      the tile map for its distance, in tile order (a decoupled look-back
+//      that always reaches tile 0: the sum and its rounding do not depend
+//      on which tiles happened to finish first).
+// No tile waits on another's wait, so the tiles' waits overlap.
+// The flags carry the launch's epoch, so nothing is cleared between
+// launches: the last block to finish zeroes the ticket and done counters
+// and bumps the epoch, which the next launch on the stream reads at its
+// start (a CUDA graph's replays too). tag = epoch + 1; a zeroed scratch
+// (epoch 0) holds no flag of any launch.
+//
+// Scratch (two device buffers a device and stream, dsp_tpu_torch/kernels.py
+// lookback_scratch): the flag words, unsigned head[4] = {tickets, done,
+// epoch, 0} then flag[slots], zeroed when made and holding nothing but
+// tags after that; and the aggregates, double agg[slots][width]. The two
+// never share storage, so launches with different numbers of tiles or
+// widths on one stream (K1's bank beside K11's envelopes) cannot read one
+// another's aggregates as flags: a flag word only ever holds the tag of a
+// launch before this one, or this one's.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace lookback {
+
+// A wait that outlasts this many sleeps (seconds) is a fault in the
+// scratch or the tickets: the kernel traps, and the launch fails, rather
+// than hold the card.
+constexpr long long kSpinLimit = 1LL << 26;
+
+struct Scratch {
+    unsigned* head;
+    unsigned* flag;
+    double* agg;
+};
+
+__host__ __device__ inline Scratch carve(unsigned* flags, double* agg) {
+    Scratch s;
+    s.head = flags;
+    s.flag = flags + 4;
+    s.agg = agg;
+    return s;
+}
+
+// The block's ticket in tk[0] and the launch's tag in tk[1], for every
+// thread.
+__device__ inline void begin(const Scratch& s, unsigned* tk) {
+    if (threadIdx.x == 0) {
+        tk[0] = atomicAdd(&s.head[0], 1u);
+        tk[1] = *(volatile unsigned*)&s.head[2] + 1u;
+    }
+    __syncthreads();
+}
+
+// Publish `slot`: thread 0 copies the tile's `width` values from vals
+// (shared memory, complete for every thread) to the slot and sets its flag
+// behind a fence. Every thread of the block calls it.
+__device__ inline void publish(const Scratch& s, long long slot, unsigned tag, const double* vals,
+                               int width) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        double* dst = s.agg + slot * width;
+        for (int e = 0; e < width; ++e) dst[e] = vals[e];
+        __threadfence();
+        atomicExch(&s.flag[slot], tag);
+    }
+}
+
+// The calling thread waits until `slot` is published; after a barrier that
+// follows, the block reads its values with __ldcg.
+__device__ inline void wait(const Scratch& s, long long slot, unsigned tag) {
+    const volatile unsigned* f = s.flag + slot;
+    long long spins = 0;
+    while (*f != tag) {
+        __nanosleep(32);
+        if (++spins > kSpinLimit) __trap();  // a tile that never publishes
+    }
+    __threadfence();
+}
+
+// The last block of the launch to get here resets the counters and moves
+// the epoch on. Every thread of the block calls it, last.
+__device__ inline void end(const Scratch& s) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        __threadfence();
+        const unsigned nblocks = gridDim.x * gridDim.y * gridDim.z;
+        if (atomicAdd(&s.head[1], 1u) == nblocks - 1u) {
+            atomicExch(&s.head[0], 0u);
+            atomicExch(&s.head[1], 0u);
+            atomicAdd(&s.head[2], 1u);
+            __threadfence();
+        }
+    }
+}
+
+}  // namespace lookback

@@ -12,7 +12,9 @@ the library already built. A missing ``nvcc`` or a failed build raises
 Each launch function here takes tensors the caller (``ops/iir.py``,
 ``ops/fft_conv.py``, ``ops/time_domain.py``, ``ops/resample_ops.py``,
 ``ops/m4_engine.py``) has checked, passes raw pointers and the current stream, and raises ``KernelLaunchError`` when the C
-function returns a CUDA error. None of them synchronises or allocates.
+function returns a CUDA error. None of them synchronises or allocates; K1
+and K11 take the look-back scratch of ``lookback_scratch``, made once a
+device and stream (grown when a launch needs more).
 """
 
 import ctypes
@@ -208,9 +210,10 @@ class _Library:
             if self.lib is None:
                 lib = ctypes.CDLL(str(self.build()))
                 p, i = ctypes.c_void_p, ctypes.c_int
-                lib.dsp_lti_blocked_f64.argtypes = [p] * 11 + [i] * 4 + [p]
+                ll = ctypes.c_longlong
+                lib.dsp_lti_blocked_f64.argtypes = [p] * 12 + [ll, p, ll] + [i] * 6 + [p]
                 lib.dsp_lti_blocked_f64.restype = i
-                lib.dsp_lti_blocked_f32.argtypes = [p] * 12 + [i] * 4 + [p]
+                lib.dsp_lti_blocked_f32.argtypes = [p] * 13 + [ll, p, ll] + [i] * 6 + [p]
                 lib.dsp_lti_blocked_f32.restype = i
                 for fn in (lib.dsp_biquad_scan_f64, lib.dsp_biquad_scan_f32,
                            lib.dsp_biquad_scan_df, lib.dsp_biquad_scan_df1,
@@ -224,7 +227,6 @@ class _Library:
                 for fn in (lib.dsp_fdl_mac_c128, lib.dsp_fdl_mac_f32):
                     fn.argtypes = [p] * 5 + [ctypes.c_longlong, i, p]
                     fn.restype = i
-                ll = ctypes.c_longlong
                 for fn in (lib.dsp_rfft_pack_c128, lib.dsp_rfft_pack_f32):
                     fn.argtypes = [p, p, p, ll, p, ll, i, p, ll, p, p, i, i, p]
                     fn.restype = i
@@ -237,8 +239,9 @@ class _Library:
                 d = ctypes.c_double
                 lib.dsp_irfft_ola_f32.argtypes = [p] * 7 + [d, i, i, i, p]
                 lib.dsp_irfft_ola_f32.restype = i
-                lib.dsp_fft_launches.argtypes = []
-                lib.dsp_fft_launches.restype = ctypes.c_ulonglong
+                for fn in (lib.dsp_fft_launches, lib.dsp_lti_launches, lib.dsp_m4_env_launches):
+                    fn.argtypes = []
+                    fn.restype = ctypes.c_ulonglong
                 for fn in (lib.dsp_tpdf_noise_f64, lib.dsp_tpdf_noise_f32):
                     fn.argtypes = [p] * 5 + [d, i, i, p]
                     fn.restype = i
@@ -259,9 +262,9 @@ class _Library:
                     fn.restype = i
                 lib.dsp_resample_fold_c128.argtypes = [p] * 6 + [i, i, p]
                 lib.dsp_resample_fold_c128.restype = i
-                lib.dsp_m4_env_f64.argtypes = [p] * 5 + [d, i, i, i, p]
+                lib.dsp_m4_env_f64.argtypes = [p] * 5 + [d, i, i, i, i, p, ll, p, ll, p]
                 lib.dsp_m4_env_f64.restype = i
-                lib.dsp_m4_env_f32.argtypes = [p] * 8 + [d, i, i, i, p]
+                lib.dsp_m4_env_f32.argtypes = [p] * 8 + [d, i, i, i, i, p, ll, p, ll, p]
                 lib.dsp_m4_env_f32.restype = i
                 lib.dsp_m4_event_f64.argtypes = [p] * 13 + [i] * 4 + [ll, ll, i, p]
                 lib.dsp_m4_event_f64.restype = i
@@ -308,14 +311,49 @@ def _check(rc, name):
         raise KernelLaunchError(f"{name}: CUDA error {rc}: {what}")
 
 
-def launch_lti_blocked(x, y, state_in, state_out, h, V, P, AL, c0, v_scratch, s_scratch, L,
-                       y_lo=None):
+_SCRATCH = {}
+
+
+def lookback_scratch(like, nslots, width):
+    """The scratch of csrc/lookback.cuh's chained scan for a launch of
+    nslots tiles carrying `width` float64 values each, on like's device
+    and current stream: (flags, agg), an int32 buffer of 4 head words and
+    the tiles' flags, and a float64 buffer of their aggregates. One pair a
+    (device, stream), shared by every K1 and K11 launch there; the flags
+    are zeroed when made and made anew (zeroed) when a launch needs more
+    slots, the aggregates grown without clearing. The kernels leave the
+    flags ready for the next launch on that stream, so they are never
+    cleared between launches, and they never share storage with the
+    aggregates: a launch with fewer tiles than the one before cannot write
+    an aggregate over a flag that a later launch reads."""
+    key = (like.get_device(), _stream(like))
+    flags, agg = _SCRATCH.get(key, (None, None))
+    if flags is None or flags.numel() - 4 < nslots:
+        slots = max(nslots, 1020, 0 if flags is None else 2 * (flags.numel() - 4))
+        flags = torch.zeros(4 + slots, dtype=torch.int32, device=like.device)
+    if agg is None or agg.numel() < nslots * width:
+        agg = torch.empty(max(nslots * width, 4096, 0 if agg is None else 2 * agg.numel()),
+                          dtype=torch.float64, device=like.device)
+    _SCRATCH[key] = flags, agg
+    return flags, agg
+
+
+def _scratch_args(scratch):
+    """(flags, flag_slots, agg, agg_doubles) for a C entry."""
+    flags, agg = scratch
+    return _ptr(flags), flags.numel() - 4, _ptr(agg), agg.numel()
+
+
+def launch_lti_blocked(x, y, state_in, state_out, tables, scratch, L, T, y_lo=None):
     """float64 x, or float32 x with a float32 (hi, lo) state and, when
-    y_lo is given, the (hi, lo) split of y."""
+    y_lo is given, the (hi, lo) split of y; `tables` the (h, V, P, Qc, Qt,
+    At, c0) of ops/iir.py lti_kernel_tables (At None when the last chunk
+    is whole), built for chunks of L samples and tiles of T chunks."""
     B, C = x.shape
-    n = AL.shape[-1]
-    tail = (_ptr(h), _ptr(V), _ptr(P), _ptr(AL), _ptr(c0), _ptr(v_scratch), _ptr(s_scratch),
-            B, C, n, L, _stream(x))
+    h, V, P, Qc, Qt, At, c0 = tables
+    n = Qc.shape[-1]
+    tail = (_ptr(h), _ptr(V), _ptr(P), _ptr(Qc), _ptr(Qt), _ptr(At), _ptr(c0),
+            *_scratch_args(scratch), B, C, n, L, T, Qt.shape[1], _stream(x))
     if x.dtype == torch.float32:
         rc = load().dsp_lti_blocked_f32(_ptr(x), _ptr(y), _ptr(y_lo), _ptr(state_in),
                                         _ptr(state_out), *tail)
@@ -409,6 +447,12 @@ def fft_launches():
     return load().dsp_fft_launches()
 
 
+def lookback_launches():
+    """The kernels csrc/lti_blocked.cu and csrc/m4_env.cu have launched in
+    this process together (the library's own count)."""
+    return load().dsp_lti_launches() + load().dsp_m4_env_launches()
+
+
 def launch_splice(a, x, out, L, lo, shift):
     fn = load().dsp_splice_f32 if x.dtype == torch.float32 else load().dsp_splice_f64
     rc = fn(a.data_ptr(), x.data_ptr(), out.data_ptr(), L, x.shape[0], lo, shift, x.shape[1],
@@ -498,13 +542,15 @@ def launch_mod_delay(key, key_out, yk, yk_out, t, t_out, knots, buf, x, y, sel, 
     _check(rc, "mod_delay")
 
 
-def launch_m4_env(ybp, env_m, env_out, env_ds, g, w=None, lo=None):
-    """ybp [B, 2] (one lane) or [B, S, 2]; w the [S, S] mix weights or None;
-    lo None (float64), or the float32 entry's lo parts (ybp_lo, env_m_lo,
+def launch_m4_env(ybp, env_m, env_out, env_ds, g, nseg, scratch, w=None, lo=None):
+    """ybp [B, 2] (one lane) or [B, S, 2]; tiles of nseg segments; w the
+    [S, S] mix weights or None; scratch the look-back scratch; lo None
+    (float64), or the float32 entry's lo parts (ybp_lo, env_m_lo,
     env_out_lo)."""
     B = ybp.shape[0]
     S = 1 if ybp.dim() == 2 else ybp.shape[1]
-    tail = (_ptr(env_ds), g, B, S, B // env_ds.shape[0], _stream(ybp))
+    tail = (_ptr(env_ds), g, B, S, B // env_ds.shape[0], nseg, *_scratch_args(scratch),
+            _stream(ybp))
     if lo is None:
         rc = load().dsp_m4_env_f64(_ptr(ybp), _ptr(w), _ptr(env_m), _ptr(env_out), *tail)
     else:

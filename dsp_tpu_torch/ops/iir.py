@@ -11,10 +11,12 @@ recurrence (biquad.c:296-315, biquad.h:76-92)
 These kernels run the recurrences on the device:
 
 * K1, ``lti_blocked``: an n-state LTI system (a fused cascade of biquads, or
-  one biquad) over B = Nc·L samples, in chunks of L = 128, from a
-  ``CascadeBlockedPlan``'s host-precomputed tables. On float32 samples it
-  is ``lti_blocked_f32`` (K1-df), which also gives ``lti_blocked_df``'s
-  (hi, lo) output.
+  one biquad) over B = Nc·L samples, in chunks of L = 128 (or L = 1, a
+  sample a step), from a ``CascadeBlockedPlan``'s host-precomputed tables.
+  The kernel runs a call in one launch, tiles of chunks over the card
+  (``lti_partition``, ``lti_kernel_tables``; an L = 1 plan in chunks of
+  32). On float32 samples it is ``lti_blocked_f32`` (K1-df), which also
+  gives ``lti_blocked_df``'s (hi, lo) output.
 * K2, ``biquad_scan``: per-lane biquads over any B >= 1, with any 2x2 A,
   in float64, or in float32 throughout (``biquad_scan_f32``).
 * K3, ``biquad_scan_df``: K2 on float32 samples with float64 coefficients
@@ -224,7 +226,9 @@ class CascadeBlockedPlan:
     (h[:, k] = C A^k B for k < L-1, last entry 0), ``W`` [C, L, L] the
     chunk's causal Toeplitz matrix built from h (used by the plain version
     only; the kernel works from h), ``P`` [C, L, n], ``V`` [C, n, L],
-    ``AL`` = A^L [C, n, n] and ``c0`` = D [C].
+    ``AL`` = A^L [C, n, n] and ``c0`` = D [C]; and the system itself, ``A``,
+    ``B_in`` and ``C_out``, from which ``kernel_tables`` builds what
+    csrc/lti_blocked.cu takes besides (lti_kernel_tables).
     """
 
     def __init__(self, cs, L=BLOCKED_L):
@@ -249,15 +253,16 @@ class CascadeBlockedPlan:
         self.L = L
         self.C = C
         self.n = n
-        pows = np.zeros((L + 1, C, n, n))
+        dt = A.dtype  # float64; np.longdouble for the kernel's L = 1 tables
+        pows = np.zeros((L + 1, C, n, n), dtype=dt)
         pows[0] = np.eye(n)[None]
         for k in range(1, L + 1):
             pows[k] = np.einsum("cij,cjk->cik", A, pows[k - 1])
         # composite impulse response h[k] = C A^(k-1) B (k >= 1); h[0] = D
         h = np.einsum("ci,kcij,cj->kc", Crow, pows[: L - 1], B)  # h[1..L-1]
-        self.h = np.zeros((C, L))
+        self.h = np.zeros((C, L), dtype=dt)
         self.h[:, : L - 1] = h.T
-        W = np.zeros((C, L, L))
+        W = np.zeros((C, L, L), dtype=dt)
         for i in range(1, L):
             for j in range(i):
                 W[:, i, j] = h[i - 1 - j]
@@ -268,7 +273,7 @@ class CascadeBlockedPlan:
         )  # [C, n, L]
         self.AL = pows[L]
         self.c0 = D
-        self.B_in = B
+        self.A, self.B_in, self.C_out = A, B, Crow
         self._device_tables = {}
 
     def table(self, name, device, dtype=torch.float64):
@@ -282,6 +287,17 @@ class CascadeBlockedPlan:
             self._device_tables[key] = t
         return t
 
+    def kernel_tables(self, B, device):
+        """The tables csrc/lti_blocked.cu takes for a block of B samples on
+        `device` (see lti_kernel_tables), cached per block size and device."""
+        key = ("k1", B, torch.device(device))
+        t = self._device_tables.get(key)
+        if t is None:
+            t = tuple(None if a is None else torch.as_tensor(np.ascontiguousarray(a), device=device)
+                      for a in lti_kernel_tables(self, B))
+            self._device_tables[key] = t
+        return t
+
 
 class BiquadBlockedPlan(CascadeBlockedPlan):
     """A one-stage cascade: the blocked plan of a single biquad."""
@@ -291,6 +307,79 @@ class BiquadBlockedPlan(CascadeBlockedPlan):
 
 
 # --- K1: blocked LTI filter -------------------------------------------------
+
+# csrc/lti_blocked.cu's partition: the blocks a launch aims at (a tile of
+# chunks a block), the samples a tile holds at most, the doubles of chunk
+# powers a tile holds at most (they sit in shared memory), and the chunk
+# length it runs an L = 1 plan at
+K1_BLOCKS = 128
+K1_TILE_SAMPLES = 2048
+K1_POWER_DOUBLES = 13000
+K1_SUB_L = 32
+
+
+def lti_partition(plan, B, T=None):
+    """How csrc/lti_blocked.cu cuts a block of B samples for `plan`:
+    (Lk, T, Nc, ntiles, tail): chunks of Lk samples (the plan's L, or
+    K1_SUB_L for an L = 1 plan), Nc chunks of which the last holds `tail`
+    samples, tiles of T chunks (a thread block each; about K1_BLOCKS blocks
+    over the channels, at most K1_TILE_SAMPLES samples and K1_POWER_DOUBLES
+    of chunk powers a tile, unless T is given)."""
+    Lk = plan.L if plan.L >= K1_SUB_L else K1_SUB_L
+    Nc = -(-B // Lk)
+    if T is None:
+        most = min(K1_TILE_SAMPLES // Lk, K1_POWER_DOUBLES // (plan.n * plan.n))
+        T = max(1, min(most, -(-Nc * plan.C // K1_BLOCKS)))
+    return Lk, T, Nc, -(-Nc // T), B - (Nc - 1) * Lk
+
+
+def lti_kernel_tables(plan, B, T=None):
+    """csrc/lti_blocked.cu's float64 tables for a block of B samples (numpy):
+    (h, V, P, Qc, Qt, At, c0) at the partition's chunk length Lk. G is the
+    matrix the plain version steps with (the plan's AL = A^L, or an L = 1
+    plan's A) and AL = G^(Lk/L) the chunk transition: Qc [C, T+1, n, n] =
+    AL^i for i = 0..T, Qt [C, ntiles, n, n] = AL^(T·m) for m =
+    0..ntiles-1, the tile powers, and At [C, n, n] = A^tail when the last
+    chunk is short (else None). h, V, P and c0 are the plan's own; an L = 1
+    plan's are rebuilt at Lk from its system. The chunk powers and At (the
+    state's path from chunk to chunk) are computed in extended precision
+    (np.longdouble) and rounded once, so the kernel's composition adds
+    little rounding to the plain version's steps; the tile powers, whose
+    rounding moves no output (tests/test_torch_k1_partition.py), are
+    float64 products of the rounded AL^T, so a block of many tiles costs
+    milliseconds on the host, not a second."""
+    Lk, T, _, ntiles, tail = lti_partition(plan, B, T)
+    mp = np.linalg.matrix_power
+    if Lk == plan.L:
+        G, step, chunk = plan.AL.astype(np.longdouble), 1, plan
+    else:
+        G, step = plan.A.astype(np.longdouble), Lk
+        chunk = plan.__dict__.get("_sub_plan")
+        if chunk is None:
+            chunk = plan._sub_plan = _sub_plan(plan, Lk)
+    G_L, eye = mp(G, step), np.broadcast_to(np.eye(plan.n, dtype=G.dtype), G.shape)
+    Qc = [eye]
+    for _ in range(T):
+        Qc.append(G_L @ Qc[-1])
+    G_tile = Qc[T].astype(np.float64)
+    Qt = [np.broadcast_to(np.eye(plan.n), G_tile.shape)]
+    for _ in range(1, ntiles):
+        Qt.append(G_tile @ Qt[-1])
+    At = mp(G, tail).astype(np.float64) if tail < Lk else None
+    return (chunk.h, chunk.V, chunk.P, np.stack(Qc, axis=1).astype(np.float64),
+            np.stack(Qt, axis=1), At, chunk.c0)
+
+
+def _sub_plan(plan, L):
+    """An L = 1 plan's system as a blocked plan at chunk length L, its
+    tables computed in extended precision and rounded once."""
+    ld = {k: np.asarray(v, dtype=np.longdouble)
+          for k, v in (("A", plan.A), ("B", plan.B_in), ("C", plan.C_out), ("D", plan.c0))}
+    sub = CascadeBlockedPlan.from_ss(ld, L=L)
+    for k in ("h", "W", "P", "V", "AL"):
+        setattr(sub, k, getattr(sub, k).astype(np.float64))
+    sub.A, sub.B_in, sub.C_out, sub.c0 = plan.A, plan.B_in, plan.C_out, plan.c0
+    return sub
 
 
 def lti_blocked(plan, state, x):
@@ -346,14 +435,12 @@ def _launch_lti_blocked(wrapper, plan, state, x, df_out):
                          f"C={plan.C}, L={L}")
     if tuple(state.shape) != (2, C, n):
         raise ValueError(f"{wrapper.__name__}: state {tuple(state.shape)}, expected {(2, C, n)}")
-    h, V, P, AL, c0 = (plan.table(k, x.device) for k in ("h", "V", "P", "AL", "c0"))
-    Nc = B // L
+    Lk, T, _, ntiles, _ = lti_partition(plan, B)
     y = torch.empty_like(x)
     y_lo = torch.empty_like(x) if df_out else None
     state_out = torch.empty_like(state)
-    v = torch.empty((Nc, C, n), dtype=torch.float64, device=x.device)
-    s_start = torch.empty_like(v)
-    kernels.launch_lti_blocked(x, y, state, state_out, h, V, P, AL, c0, v, s_start, L, y_lo)
+    kernels.launch_lti_blocked(x, y, state, state_out, plan.kernel_tables(B, x.device),
+                               kernels.lookback_scratch(x, ntiles * C, n), Lk, T, y_lo)
     wrapper.launches += 1
     return state_out, ((y, y_lo) if df_out else y)
 

@@ -934,12 +934,27 @@ def _launch_env(name, bands, env_m, g, w=None, lo=None):
                          f"weights {None if w is None else tuple(w.shape)}")
     env_out = torch.empty_like(env_m)
     env_ds = torch.empty((B // DOWNSAMPLE_FACTOR, S, 8), dtype=torch.float64, device=bands.device)
+    nseg, ntiles = env_partition(B, S)
+    scratch = kernels.lookback_scratch(bands, ntiles, 8 * S)
     if lo is None:
-        kernels.launch_m4_env(bands, env_m, env_out, env_ds, float(g), w)
+        kernels.launch_m4_env(bands, env_m, env_out, env_ds, float(g), nseg, scratch, w)
         return env_out, env_ds
     env_out_lo = torch.empty_like(env_m)
-    kernels.launch_m4_env(bands, env_m, env_out, env_ds, float(g), w, lo=(*lo, env_out_lo))
+    kernels.launch_m4_env(bands, env_m, env_out, env_ds, float(g), nseg, scratch, w,
+                          lo=(*lo, env_out_lo))
     return env_out, env_out_lo, env_ds
+
+
+def env_partition(B, S):
+    """How csrc/m4_env.cu cuts a block of B samples of S lanes (its launch
+    takes nseg from here): (nseg, ntiles), tiles of nseg segments of
+    DOWNSAMPLE_FACTOR samples, a thread block each with all S lanes. nseg
+    is 8 for one lane
+    and 4 for more, or 32 for one lane at B >= 16384 and 8 for more above
+    B = 8192: small blocks spread over the card, large ones look back over
+    few tiles, and a tile's pairs fit in shared memory."""
+    nseg = (32 if B >= 16384 else 8) if S == 1 else (8 if B > 8192 else 4)
+    return nseg, -(-B // (nseg * DOWNSAMPLE_FACTOR))
 
 
 # csrc/m4_event.cu's launch: four warps (the chain, the pre-phase and two of

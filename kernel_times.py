@@ -10,7 +10,7 @@ of the repository on the same card.
                                                # (DIR, this, this, DIR), a table
     python3 kernel_times.py --rows engines ... # only the engine rows (or fft,
                                                # cli, td, tdcli, k2, audio,
-                                               # k2cli or profile)
+                                               # k2cli, profile, k1 or k1cli)
 
 DIR is an unpacked checkout of another commit (e.g. `git archive <commit> |
 tar -x -C .smoke_tmp/parent`). Each tree runs in a process of its own, since
@@ -78,6 +78,17 @@ and 1000, both dtypes) and `matrix4 -6` (-b 2048 in both dtypes, -b 65536
 in float64) through CompiledChain.run_blocks under torch.profiler: the
 kernels a block, the device ms a block, the largest kernels and the step's
 ms a block unprofiled.
+
+The k1 rows time K1 (csrc/lti_blocked.cu) and K11 (csrc/m4_env.cu) per
+call and device-only, with the kernels a call, at the main path's shapes
+(k1_rows), on seeded inputs; with --against the trees' outputs are
+compared (the two designs round differently: the largest difference is
+printed). The k1cli rows run `matrix4 -6` and `matrix4_mb -6` at -b 65536
+and `matrix4_mb -6` at -b 1000 (the chain rounds it to 1024) and -b 1056
+(the bank's L = 1 plan) through dsp-torch in both dtypes, as the k2cli
+rows run theirs (renders compared in dBFS).
+The profile rows also take the flagship at -b 65536 and `matrix4_mb -6`
+at -b 2048, 65536, 1000 and 1056.
 
 The rows are chip_smoke.py's main-path shapes, where chip_smoke.py holds
 each kernel against its plain version; this script only times them. Prints
@@ -401,6 +412,70 @@ def k2_rows():
     return out
 
 
+def k1_rows():
+    """(name, the call, reps) of the k1 rows, their inputs seeded: K1 on
+    the flagship cascade at B = 2048 and 65536 (float64) and 2048
+    (float32), on matrix4_mb's bank at B = 2048 (L = 128) and 1056 (its
+    L = 1 plan), and K1-df with the (hi, lo) output on the bank at 2048
+    and on matrix4's float32 band-limit at B = 1000 (L = 1); K11's m4_env
+    at B = 2048 and 65536 and m4_env_f32 at 2048, m4mb_env (13 bands)
+    without and with the frequency mask's weights at 2048, and
+    m4mb_env_f32 with them."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain import build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.ops import iir
+    from dsp_tpu_torch.ops import m4_engine as m4
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20313)
+    plan, _ = flagship_parts()
+    mb = next(e for e in build_chain_from_string(MATRIX4_MB, StreamInfo(FS, CHANNELS)).effects
+              if hasattr(e, "_bank_plan"))
+    m4e = build_chain_from_string(MATRIX4, StreamInfo(FS, CHANNELS)).effects[0]
+    out = []
+
+    def k1(name, pl, B, dtype=torch.float64, df=False):
+        x = torch.as_tensor(rng.standard_normal((B, pl.C)) * 0.3, device=dev, dtype=dtype)
+        st = torch.as_tensor(rng.standard_normal((2, pl.C, pl.n)) * 1e-2, device=dev)
+        st = torch.stack(iir.split_f64(st[0])) if dtype == torch.float32 else st
+        fn = (lambda: iir.lti_blocked(pl, st, x)) if not df else (
+            lambda: iir.lti_blocked_df(pl, st, x))
+        out.append((f"{name} B={B}", fn, 50 if B <= 2048 else 10))
+
+    k1("K1 flagship", plan, 2048)
+    k1("K1 flagship", plan, 65536)
+    k1("K1-df flagship float32", plan, 2048, torch.float32)
+    k1("K1 bank (C=26, n=40, L=128)", mb._bank_plan(2048), 2048)
+    k1("K1 bank at L = 1", mb._bank_plan(1056), 1056)
+    k1("K1-df bank float32 (hi, lo) out", mb._bank_plan(2048), 2048, torch.float32, True)
+    k1("K1-df matrix4 band-limit float32 at L = 1", m4e._bp_plan(1000), 1000, torch.float32, True)
+    g = m4e.g_env
+    w = torch.as_tensor(m4.band_mix_weights(0.5), device=dev)
+    for B in (2048, 65536):
+        ybp = torch.as_tensor(rng.standard_normal((B, 2)) * 0.1, device=dev)
+        env = torch.as_tensor(rng.uniform(0, 0.05, 8), device=dev)
+        out.append((f"m4_env B={B}", lambda ybp=ybp, env=env: m4.m4_env(ybp, env, g),
+                    50 if B == 2048 else 10))
+        if B == 2048:
+            hi = ybp.float()
+            lo, eh = (ybp - hi.double()).float(), env.float()
+            el = (env - eh.double()).float()
+            out.append((f"m4_env_f32 B={B}",
+                        lambda hi=hi, lo=lo, eh=eh, el=el: m4.m4_env_f32(hi, lo, eh, el, g), 50))
+    bands = torch.as_tensor(rng.standard_normal((2048, m4.N_BANDS, 2)) * 0.1, device=dev)
+    env = torch.as_tensor(rng.uniform(0, 0.05, (m4.N_BANDS, 8)), device=dev)
+    out.append(("m4mb_env B=2048", lambda: m4.m4mb_env(bands, env, g), 50))
+    out.append(("m4mb_env with w B=2048", lambda: m4.m4mb_env(bands, env, g, w), 50))
+    hi = bands.float()
+    lo, eh = (bands - hi.double()).float(), env.float()
+    el = (env - eh.double()).float()
+    out.append(("m4mb_env_f32 with w B=2048", lambda: m4.m4mb_env_f32(hi, lo, eh, el, g, w), 50))
+    return out
+
+
 AUDIO_CASES = tuple((f"m4_audio{sfx}", MATRIX4, B, sfx == "_f32")
                     for sfx in ("", "_f32") for B in (2048, 65536))
 AUDIO_INPUTS = "audio_inputs.pt"
@@ -430,11 +505,20 @@ K2CLI_CASES = tuple((FLAGSHIP, block, dtype) for block in (2048, 1000)
     (MATRIX4, block, "float64") for block in (2048, 65536))
 
 
-def k2cli_rows(inputs_path, keep):
-    """Each of K2CLI_CASES through dsp-torch on the card to -e double: x
-    realtime, a digest of the render, and matrix4's renders kept as
-    `keep`_<i>.wav for the comparison of the trees (the flagship's are
-    held by digest)."""
+# the renders of the k1cli rows: the upmixes where K1 and K11 set the pace
+# (-b 65536), and matrix4_mb at -b 1000 (the chain's block 1024, an
+# L = 128 plan) and at -b 1056 (off the 128 grid: the bank's L = 1 plan),
+# in both dtypes
+K1CLI_CASES = tuple((chain, block, dtype) for chain, block in (
+    (MATRIX4, 65536), (MATRIX4_MB, 65536), (MATRIX4_MB, 1000), (MATRIX4_MB, 1056))
+    for dtype in ("float64", "float32"))
+
+
+def k2cli_rows(inputs_path, keep, cases=K2CLI_CASES):
+    """Each of `cases` (K2CLI_CASES or K1CLI_CASES) through dsp-torch on the
+    card to -e double: x realtime, a digest of the render, and the
+    upmixes' renders kept as `keep`_<i>.wav for the comparison of the
+    trees (the flagship's are held by digest)."""
     from dsp_tpu_torch import kernels
     from dsp_tpu_torch.cli.main import main as cli_main
 
@@ -445,7 +529,7 @@ def k2cli_rows(inputs_path, keep):
     kernels.load()
     os.environ["DSP_TPU_TORCH_DEVICE"] = "cuda"
     out = []
-    for i, (chain, block, dtype) in enumerate(K2CLI_CASES):
+    for i, (chain, block, dtype) in enumerate(cases):
         dst = keep.with_name(f"{keep.stem}_{i}.wav")
         os.environ["DSP_TPU_TORCH_DTYPE"] = dtype
         argv = ["-b", str(block), "-q", str(src), "-o", "-e", "double", str(dst), *chain.split()]
@@ -471,7 +555,9 @@ def k2cli_rows(inputs_path, keep):
 PROFILE_CASES = ((FLAGSHIP, 2048, "float64", 64), (FLAGSHIP, 2048, "float32", 64),
                  (FLAGSHIP, 1000, "float64", 64), (FLAGSHIP, 1000, "float32", 64),
                  (MATRIX4, 2048, "float64", 64), (MATRIX4, 2048, "float32", 64),
-                 (MATRIX4, 65536, "float64", 8))
+                 (MATRIX4, 65536, "float64", 8), (FLAGSHIP, 65536, "float64", 8),
+                 (MATRIX4_MB, 2048, "float64", 64), (MATRIX4_MB, 65536, "float64", 8),
+                 (MATRIX4_MB, 1000, "float64", 64), (MATRIX4_MB, 1056, "float64", 64))
 
 
 def profile_rows():
@@ -495,7 +581,7 @@ def profile_rows():
         cc = CompiledChain(build_chain_from_string(chain, StreamInfo(FS, CHANNELS)), block,
                            dtype=dt, device="cuda")
         B = cc.block_frames
-        if chain == MATRIX4:
+        if chain in (MATRIX4, MATRIX4_MB):
             x = transient_signal((n + 4) * B / FS + 0.01)[: (n + 4) * B]
         else:
             x = rng.standard_normal(((n + 4) * B, CHANNELS)) * 0.1
@@ -573,12 +659,15 @@ def measure(which, inputs_path, save=None):
         return tdcli_rows(inputs_path)
     if which == "k2cli":
         return k2cli_rows(inputs_path, save)
+    if which == "k1cli":
+        return k2cli_rows(inputs_path, save, K1CLI_CASES)
     if which == "profile":
         return profile_rows()
     out = []
-    if which in ("td", "k2", "audio"):
+    if which in ("td", "k2", "audio", "k1"):
         outputs = {}
-        made = {"td": td_rows, "k2": k2_rows, "audio": lambda: audio_rows(inputs_path)}[which]()
+        made = {"td": td_rows, "k2": k2_rows, "audio": lambda: audio_rows(inputs_path),
+                "k1": k1_rows}[which]()
         for name, kern, reps in made:
             r = {"name": name, "ms": cuda_ms(kern, reps)}
             r["device_ms"], r["kernels"] = device_ms(kern, min(reps, 20))
@@ -677,7 +766,7 @@ def main():
     ap.add_argument("--tree", type=Path, default=None)
     ap.add_argument("--against", type=Path, default=None)
     ap.add_argument("--rows", choices=("all", "fft", "engines", "cli", "td", "tdcli", "k2",
-                                       "audio", "k2cli", "profile"), default="all")
+                                       "audio", "k2cli", "profile", "k1", "k1cli"), default="all")
     ap.add_argument("--inputs", type=Path, default=ENGINE_INPUTS)
     ap.add_argument("--save", type=Path, default=None)
     args = ap.parse_args()
@@ -704,7 +793,7 @@ def main():
                     Path(r["render"]).unlink()
     print(f"card: {card}; order: before, after, after, before")
     verdict = (compare_outputs(saves[0], saves[1])
-               if args.rows in ("all", "engines", "td", "k2", "audio") else {})
+               if args.rows in ("all", "engines", "td", "k2", "audio", "k1") else {})
     keys = ("ms", "us_a_tick", "device_ms", "device_us_a_tick", "kernels", "library_ms",
             "library_device_ms", "x_realtime", "digest", "render", "step_ms", "kernels_a_block",
             "device_ms_a_block", "top")
