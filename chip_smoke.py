@@ -40,7 +40,15 @@ nvcc and PyTorch built for CUDA. It
    in shared memory, within K1_ABS; and K1 and K11 interleaved on their
    shared look-back scratch with different tile counts, the aggregates'
    storage filled with each launch's tag, bit-equal to fresh scratches
-   (lookback_phase).
+   (lookback_phase). A run of per-sample biquads in one launch
+   (biquad_scan_run, biquad_scan_run_df: csrc/biquad_scan.cu's
+   dsp_biquad_scan_run) in its four forms, 2 and 6 stages, at B = 100,
+   1000, 1056, 2048 and 65536, bit-equal to the separate launches it
+   replaces and one launch a call by the library's count
+   (biquad_run_phase); fdl_mac and fdl_mac_f32 at every main-path shape
+   with the shifted FDL equal to the plain version, a call and
+   device-only; and the leaner wrappers of both refusing every bad input
+   (lean_wrapper_refusals).
    matrix4_mb's (slice F): K1 on its 13-band bank, K11 m4mb_env over 13 lanes, K9 + K10 m4mb_event (the
    13 engines coupled through their thresholds every tick) and K12 + K13
    m4mb_audio, over 3 blocks of transients in seven configurations (v4,
@@ -191,6 +199,9 @@ UPMIX48 = "resample 48k matrix4 -6"
 # filter) and the 6-channel example
 MATRIX4_MB = "matrix4_mb -6"
 MB_EXAMPLE = ROOT / "examples" / "matrix4_mb_2_4"
+# one biquad alone at a block K1 does not take: the per-sample biquad's own
+# launch (the flagship's six at -b 1000 run as one run)
+LONE_BIQUAD = "highpass 30 0.7071"
 
 
 def mixed_chain(f4k):
@@ -603,6 +614,206 @@ def k2_fused_phase(records):
                       8 * (2 * B * 2 + 4 * 2 + 2 * 2 + 2 + 2 * 8), 10 * B * 2)
 
 
+# a run of per-sample biquads in one launch (iir.biquad_scan_run): its
+# four forms (label, sample dtype, (hi, lo) states, lanes), the blocks and
+# the run lengths it is held at
+RUN_FORMS = (("f64 pair", "float64", True, 2), ("f64", "float64", False, 4),
+             ("df", "float32", True, 2), ("df1", "float32", False, 4))
+RUN_BLOCKS = (100, 1000, 1056, 2048, 65536)
+RUN_STAGES = (2, 6)
+
+
+def run_biquads(n, C):
+    """The coupled form of n biquads of the flagship's kind (peaking
+    filters, the 30 Hz highpass second), on C lanes: A [n, C, 2, 2], Bv
+    [n, C, 2], c0 [n, C] float64, numpy."""
+    import numpy as np
+
+    from dsp_tpu_torch.chain import build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+
+    words = " ".join("highpass 30 0.7071" if s == 1 else f"eq {40.0 * 3.1 ** s:.1f} 0.8 "
+                     f"{3.0 if s % 2 else -2.0}" for s in range(n))
+    effects = build_chain_from_string(words, StreamInfo(FS, C)).effects
+    return tuple(np.stack([getattr(e, k) for e in effects]) for k in ("_ss_A", "_ss_Bv", "_ss_c0"))
+
+
+def biquad_run_phase(records):
+    """A run of n per-sample biquads in one launch (iir.biquad_scan_run and
+    biquad_scan_run_df, csrc/biquad_scan.cu dsp_biquad_scan_run) in its four
+    forms (RUN_FORMS), at every block of RUN_BLOCKS and run of RUN_STAGES:
+    the (hi, lo) states as the chain keeps each biquad's [2, C, 2], the
+    single ones as matrix4_mb keeps its inverse fshape ([C, n, 2], stage s
+    at [:, s], written into views of a new tensor). Each call must be one
+    launch by the library's count (kernels.biquad_run_launches), equal bit
+    for bit to the n separate launches it replaces (biquad_scan,
+    biquad_scan_pair or biquad_scan_df, a stage each on the one before's
+    output), and within -200 dBFS (float64) or one float32 ulp of its scale
+    (float32) of its plain version. Times six stages at B = 1000 (the
+    flagship at -b 1000) a call and device-only beside the six launches,
+    and matrix4_mb's two cascades' shape (two stages at B = 2048)."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch import kernels
+    from dsp_tpu_torch.ops import iir
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20314)
+    print("K2 and K3 biquad_scan_run (a run of per-sample biquads in one launch)")
+    for label, dtype, pair, C in RUN_FORMS:
+        dt = getattr(torch, dtype)
+        f32 = dt == torch.float32
+        run = iir.biquad_scan_run_df if f32 else iir.biquad_scan_run
+        rec = records[run.__name__]
+        one = iir.biquad_scan_df if f32 else (iir.biquad_scan_pair if pair else iir.biquad_scan)
+        for n in RUN_STAGES:
+            A, Bv, c0 = (torch.as_tensor(a, device=dev) for a in run_biquads(n, C))
+            for B in RUN_BLOCKS:
+                x = torch.as_tensor(rng.standard_normal((B, C)) * 0.3, dtype=dt, device=dev)
+                if pair:
+                    raw = rng.standard_normal((n, 2, C, 2)) * 1e-2
+                    raw[:, 1] *= 1e-9  # a small lo part, as dsp_tpu may hand over
+                    states = [torch.as_tensor(r, dtype=dt, device=dev) for r in raw]
+                    out = None
+                else:
+                    kept = torch.as_tensor(rng.standard_normal((C, n, 2)) * 1e-2, dtype=dt,
+                                           device=dev)
+                    states, out = kept.unbind(1), torch.empty_like(kept).unbind(1)
+
+                def separate():
+                    ends, xs = [], x
+                    for s in range(n):
+                        st, xs = one(A[s], Bv[s], c0[s], states[s].contiguous(), xs)
+                        ends.append(st)
+                    return ends, xs
+                torch.cuda.synchronize()
+                before = kernels.biquad_run_launches()
+                ends, y = run(A, Bv, c0, states, x, out=out)
+                torch.cuda.synchronize()
+                launched = kernels.biquad_run_launches() - before
+                want, y_sep = separate()
+                ends_r, y_r = iir.biquad_scan_run_ref(A, Bv, c0, states, x)
+                torch.cuda.synchronize()
+                what = f"biquad_scan_run {label} n={n} B={B}"
+                require_kernels(what, launched, 1)
+                _require(f"{what}: differs from the {n} launches it replaces",
+                         torch_equal(y, y_sep) and all(torch_equal(e, w) for e, w in zip(ends, want)))
+                if f32:
+                    _hold_f32(rec, f"{what} against the plain version", y, y_r)
+                    for e, r in zip(ends, ends_r):
+                        if pair:
+                            _require(f"{what}: end state {_pair_rel(e, r):.2e} relative from "
+                                     f"the plain version", _pair_rel(e, r) <= F32_STATE_REL)
+                        else:
+                            _hold_f32(rec, f"{what} end state", e, r)
+                else:
+                    err = max(_diff(y, y_r), *(_diff(e, r) for e, r in zip(ends, ends_r)))
+                    check_close(f"{what}: one launch, bit-equal to the {n} launches; plain "
+                                f"version", err)
+                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                if (n, B, pair) == (6, 1000, True) or (n, B, pair) == (2, 2048, False):
+                    ms, sep_ms = cuda_ms(lambda: run(A, Bv, c0, states, x, out=out), 50), \
+                        cuda_ms(separate, 50)
+                    (dev_ms, kern), (sep_dev, sep_kern) = device_ms(
+                        lambda: run(A, Bv, c0, states, x, out=out)), device_ms(separate)
+                    plain_ms = cuda_ms(lambda: iir.biquad_scan_run_ref(A, Bv, c0, states, x), 5)
+                    w = 4 if f32 else 8
+                    # x in, y out, the coefficients (7 float64 a stage and
+                    # lane), the states in and out; 10 operations a sample,
+                    # lane and stage
+                    nbytes = w * 2 * B * C + 8 * 7 * n * C + w * 2 * 2 * n * C * (2 if pair else 1)
+                    print(f"  {what}: {ms:.4f} ms a call, {dev_ms:.4f} ms device-only "
+                          f"({kern} kernels); the {n} launches {sep_ms:.4f} ms, {sep_dev:.4f} ms "
+                          f"({sep_kern} kernels); plain {plain_ms:.4f} ms")
+                    rec.setdefault("times", []).append(
+                        {"n": n, "B": B, "C": C, "pair": pair, "ms": ms, "device_ms": dev_ms,
+                         "separate_ms": sep_ms, "separate_device_ms": sep_dev,
+                         "plain_ms": plain_ms})
+                    if pair:  # the record's row: the flagship's six at -b 1000
+                        set_times(rec, ms, plain_ms, nbytes, 10 * B * C * n,
+                                  peak=F64_PEAK)
+                        rec["device_ms"] = dev_ms
+
+
+def lean_wrapper_refusals():
+    """The wrappers of fdl_mac, fdl_mac_f32, biquad_scan_run and
+    biquad_scan_run_df on the card refuse every input their kernels do not
+    take: another dtype, a tensor on another device, a shape that does not
+    fit, a tensor that is not contiguous, an FDL not 16-byte aligned, and
+    for a run, states of other strides in and out, or more stages than the
+    kernel runs. Each must raise (TypeError or ValueError) and launch
+    nothing."""
+    import torch
+
+    from dsp_tpu_torch import kernels
+    from dsp_tpu_torch.ops import fft_conv as fc
+    from dsp_tpu_torch.ops import iir
+
+    dev = torch.device("cuda")
+    c128, f64, f32 = torch.complex128, torch.float64, torch.float32
+    K, NB, C = 4, 33, 2
+
+    def misaligned(shape, dtype):  # a view one element past a 16-byte boundary
+        n = math.prod(shape)
+        return torch.zeros(n + 1, dtype=dtype, device=dev)[1:].view(shape)
+
+    X = torch.zeros((NB, C), dtype=c128, device=dev)
+    H = torch.zeros((K, NB, C), dtype=c128, device=dev)
+    cases = []
+    for fn, fdt in ((fc.fdl_mac, f64), (fc.fdl_mac_f32, f32)):
+        fdl = torch.zeros((K, NB, C, 2), dtype=fdt, device=dev)
+        other = f32 if fdt == f64 else f64
+        cases += [(fn, f"{fn.__name__}: {what}", args) for what, args in (
+            ("X complex64", (X.to(torch.complex64), H, fdl)),
+            ("H complex64", (X, H.to(torch.complex64), fdl)),
+            (f"the FDL {other}", (X, H, fdl.to(other))),
+            ("H on the CPU", (X, H.cpu(), fdl)),
+            ("the FDL on the CPU", (X, H, fdl.cpu())),
+            ("H of other bins", (X, H[:, 1:].contiguous(), fdl)),
+            ("the FDL of other slots", (X, H, fdl[1:].contiguous())),
+            ("no FDL at K = 4", (X, H, None)),
+            ("X not contiguous", (torch.zeros((C, NB), dtype=c128, device=dev).t(), H, fdl)),
+            ("H not contiguous", (X, torch.zeros((K, C, NB), dtype=c128, device=dev)
+                                  .transpose(1, 2), fdl)),
+            ("the FDL not contiguous", (X, H, torch.zeros((K, NB, 2, C), dtype=fdt, device=dev)
+                                        .transpose(2, 3))),
+            ("the FDL misaligned", (X, H, misaligned((K, NB, C, 2), fdt))),
+        )]
+    A, Bv, c0 = (torch.as_tensor(a, device=dev) for a in run_biquads(2, C))
+    for fn, dt in ((iir.biquad_scan_run, f64), (iir.biquad_scan_run_df, f32)):
+        x = torch.zeros((1000, C), dtype=dt, device=dev)
+        st = [torch.zeros((2, C, 2), dtype=dt, device=dev) for _ in range(2)]
+        wide = torch.zeros((C, 2, 2), dtype=dt, device=dev)
+        many = [torch.zeros((2, C, 2), dtype=dt, device=dev)] * 17
+        A17, Bv17, c17 = (t[:1].expand(17, *t.shape[1:]).contiguous() for t in (A, Bv, c0))
+        cases += [(fn, f"{fn.__name__}: {what}", args) for what, args in (
+            ("a state of the other dtype", (A, Bv, c0, [st[0], st[1].to(f64 if dt == f32 else f32)],
+                                            x)),
+            ("float32 coefficients", (A.float(), Bv, c0, st, x)),
+            ("a state on the CPU", (A, Bv, c0, [st[0], st[1].cpu()], x)),
+            ("coefficients on the CPU", (A.cpu(), Bv, c0, st, x)),
+            ("coefficients of 3 stages", (torch.cat([A, A[:1]]), Bv, c0, st, x)),
+            ("states of another width", (A, Bv, c0, [s[:, :1] for s in st], x)),
+            ("x not contiguous", (A, Bv, c0, st, torch.zeros((C, 1000), dtype=dt,
+                                                            device=dev).t())),
+            ("states of two layouts", (A, Bv, c0, [wide[:, 0], wide[:, 1].contiguous()], x)),
+            ("17 stages", (A17, Bv17, c17, many, x)),
+        )]
+    torch.cuda.synchronize()
+    for fn, what, args in cases:
+        before, lib_before = fn.launches, kernels.biquad_run_launches()
+        try:
+            fn(*args)
+        except (TypeError, ValueError) as e:
+            _require(f"{what}: refused but counted a launch",
+                     fn.launches == before and kernels.biquad_run_launches() == lib_before)
+            print(f"  {what}: refused ({type(e).__name__})")
+            continue
+        raise SmokeError(f"{what}: the wrapper took it")
+    print(f"lean wrappers: {len(cases)} bad inputs refused")
+
+
 # (K, NB) of each fdl_mac call on the main path, C = 2 throughout
 FDL_MAC_SHAPES = (
     (1, 65537, "OLS: fir 64k at B=65536"),
@@ -613,15 +824,19 @@ FDL_MAC_SHAPES = (
 )
 
 
-def fdl_mac_phase(rec):
-    """fdl_mac against fdl_mac_ref on the card at the main path's shapes,
-    seeded inputs and a nonzero FDL; both Y and FDL_out are held to
-    LIMIT_DBFS (and Y alone for the K = 1 form without a delay line, as
-    OlsConv calls it). Times both with CUDA events."""
+def fdl_mac_phase(records):
+    """fdl_mac and fdl_mac_f32 (a float32 FDL) against their plain versions
+    on the card at the main path's shapes, seeded inputs and a nonzero FDL:
+    Y held to LIMIT_DBFS (the sums run in another order), the shifted FDL
+    equal (a copy, rounded to float32 in the float32 form); Y alone for the
+    K = 1 form without a delay line, as OlsConv calls it. Times each shape a
+    call (CUDA events) and device-only (device_ms), with the host path
+    (their difference) and the rate of the bytes the call moves over the
+    device-only time."""
     import numpy as np
     import torch
 
-    from dsp_tpu_torch.ops.fft_conv import fdl_mac, fdl_mac_ref
+    from dsp_tpu_torch.ops.fft_conv import fdl_mac, fdl_mac_f32, fdl_mac_f32_ref, fdl_mac_ref
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(20261)
@@ -630,33 +845,48 @@ def fdl_mac_phase(rec):
         return torch.as_tensor(rng.standard_normal(shape) + 1j * rng.standard_normal(shape),
                                device=dev)
 
-    print("K5-K7 fdl_mac (complex128)")
-    rec["times"] = []
-    for K, NB, what in FDL_MAC_SHAPES:
-        X, H = cnormal(NB, CHANNELS), cnormal(K, NB, CHANNELS)
-        fdl = torch.as_tensor(rng.standard_normal((K, NB, CHANNELS, 2)), device=dev)
-        y_k, f_k = fdl_mac(X, H, fdl)
-        y_r, f_r = fdl_mac_ref(X, H, fdl)
-        torch.cuda.synchronize()
-        err = max((y_k - y_r).abs().max().item(), (f_k - f_r).abs().max().item())
-        check_close(f"K={K} NB={NB} ({what}) kernel vs plain", err)
-        if K == 1:
-            y_k, _ = fdl_mac(X, H)
-            y_r, _ = fdl_mac_ref(X, H)
+    for fn, ref, dt in ((fdl_mac, fdl_mac_ref, torch.float64),
+                        (fdl_mac_f32, fdl_mac_f32_ref, torch.float32)):
+        name = fn.__name__
+        rec = records[name]
+        print(f"K5-K7 {name} (complex128, the FDL {dt})")
+        rec["times"] = []
+        for K, NB, what in FDL_MAC_SHAPES:
+            X, H = cnormal(NB, CHANNELS), cnormal(K, NB, CHANNELS)
+            fdl = torch.as_tensor(rng.standard_normal((K, NB, CHANNELS, 2)), dtype=dt, device=dev)
+            y_k, f_k = fn(X, H, fdl)
+            y_r, f_r = ref(X, H, fdl)
             torch.cuda.synchronize()
-            e1 = (y_k - y_r).abs().max().item()
-            check_close(f"K={K} NB={NB} without a delay line, kernel vs plain", e1)
-            err = max(err, e1)
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        ms = cuda_ms(lambda: fdl_mac(X, H, fdl), 50)
-        plain_ms = cuda_ms(lambda: fdl_mac_ref(X, H, fdl), 20)
-        mb = (3 * K + 1) * NB * CHANNELS * 16 / 1e6
-        print(f"  K={K} NB={NB}: kernel {ms:.4f} ms ({mb / ms:.0f} GB/s of {mb:.1f} MB), "
-              f"plain {plain_ms:.4f} ms")
-        rec["times"].append({"K": K, "NB": NB, "ms": ms, "plain_ms": plain_ms})
-        if (K, NB) == (32, 2049):
-            # X, H and the FDL in; Y and the FDL out; a complex MAC is 8
-            set_times(rec, ms, plain_ms, 16 * NB * CHANNELS * (3 * K + 2), 8 * K * NB * CHANNELS)
+            _require(f"{name} K={K} NB={NB}: the shifted FDL differs from the plain version",
+                     torch_equal(f_k, f_r))
+            err = (y_k - y_r).abs().max().item()
+            check_close(f"{name} K={K} NB={NB} ({what}) kernel vs plain, the shifted FDL equal",
+                        err)
+            if K == 1:
+                y_k, _ = fn(X, H)
+                y_r, _ = ref(X, H)
+                torch.cuda.synchronize()
+                e1 = (y_k - y_r).abs().max().item()
+                check_close(f"{name} K={K} NB={NB} without a delay line, kernel vs plain", e1)
+                err = max(err, e1)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            ms = cuda_ms(lambda: fn(X, H, fdl), 50)
+            dev_ms, kern = device_ms(lambda: fn(X, H, fdl))
+            plain_ms = cuda_ms(lambda: ref(X, H, fdl), 20)
+            # the bytes the kernel moves: X, H, the K - 1 slots it reads, Y
+            # and the K slots out
+            w = 16 if dt == torch.float64 else 8
+            moved = NB * CHANNELS * (16 * (K + 2) + w * (2 * K - 1))
+            print(f"  {name} K={K} NB={NB}: {ms:.4f} ms a call, {dev_ms:.4f} ms device-only "
+                  f"({kern} kernels; {moved / 1e6 / dev_ms:.0f} GB/s of {moved / 1e6:.1f} MB), "
+                  f"host path {ms - dev_ms:.4f} ms; plain {plain_ms:.4f} ms")
+            rec["times"].append({"K": K, "NB": NB, "ms": ms, "device_ms": dev_ms,
+                                 "plain_ms": plain_ms, "gb_s": moved / 1e6 / dev_ms})
+            if (K, NB) == (32, 2049) and dt == torch.float64:  # float32: float32_fft_phase
+                # X, H and the FDL in; Y and the FDL out; a complex MAC is 8
+                set_times(rec, ms, plain_ms, NB * CHANNELS * 16 * (3 * K + 2),
+                          8 * K * NB * CHANNELS)
+                rec["device_ms"] = dev_ms
 
 
 # One FFT-convolution step of each engine on the main path, and one size
@@ -2188,16 +2418,19 @@ OLD_KERNELS_A_BLOCK = {
 # irfft_ola_f32; and K2's launches in one each: crossfeed's step one
 # launch for 15 (the flagship from 33 to 19 at -b 2048 and from 54 and 36
 # to 22 at -b 1000), the per-sample biquad one for 4, matrix4's band-limit
-# pair one for 3 (10 to 8; PERF.md sections 5 and 6); and K1 in one launch
+# pair one for 3 (10 to 8; PERF.md sections 5 and 6); K1 in one launch
 # for 3 (the flagship from 19 to 17, matrix4_mb from 27 to 25, float32
-# matrix4's band-limit from 10 to 8)
+# matrix4's band-limit from 10 to 8); and a run of per-sample biquads in
+# one launch (the flagship's six at -b 1000 from 22 to 17; matrix4_mb's
+# two cascades, with their stack and state copies, 9 kernels to 2: 25 to
+# 18, in both dtypes)
 MOST_KERNELS_A_BLOCK = {
     "fir 64k -b 2048 float64": 3, "fir 64k -b 2048 float32": 3,
     "resample 48k -b 2048 float32": 4,
     "flagship -b 2048 float64": 17, "flagship -b 2048 float32": 17,
-    "flagship -b 1000 float64": 22, "flagship -b 1000 float32": 22,
+    "flagship -b 1000 float64": 17, "flagship -b 1000 float32": 17,
     "matrix4": 8, "matrix4 -6 -b 2048 float64": 8, "matrix4 -6 -b 2048 float32": 8,
-    "matrix4_mb": 25, "matrix4_mb -6 -b 2048 float64": 25,
+    "matrix4_mb": 18, "matrix4_mb -6 -b 2048 float64": 18, "matrix4_mb -6 -b 2048 float32": 18,
 }
 # chains profiled at -b 65536 too (8 blocks each), where the card sets the
 # pace: K1's and K11's tiles over the card
@@ -3292,6 +3525,7 @@ def float32_cli(records, tmp, kept):
     src = tmp / "in.wav"
     n_in = SECONDS * FS
     f32w = {"lti_blocked_f32": iir.lti_blocked_f32, "biquad_scan_df": iir.biquad_scan_df,
+            "biquad_scan_run_df": iir.biquad_scan_run_df,
             "biquad_scan_f32": iir.biquad_scan_f32, "crossfeed_step_f32": iir.crossfeed_step_f32,
             "rfft_pack_f32": fft_conv.rfft_pack_f32,
             "resample_fold": resample_ops.resample_fold,
@@ -3301,7 +3535,7 @@ def float32_cli(records, tmp, kept):
                 "m4_env", "m4_event", "m4_audio", "m4mb_env", "m4mb_event", "m4mb_audio")}}
     f64w = {"lti_blocked": iir.lti_blocked, "biquad_scan": iir.biquad_scan,
             **{name: getattr(iir, name) for name in (
-                "crossfeed_step", "biquad_scan_series", "biquad_scan_pair")},
+                "crossfeed_step", "biquad_scan_series", "biquad_scan_pair", "biquad_scan_run")},
             **{name: getattr(fft_conv, name) for name in (
                 "rfft_pack", "fdl_mac", "irfft_crop", "splice")},
             **{name: getattr(m4, name) for name in (
@@ -3314,7 +3548,7 @@ def float32_cli(records, tmp, kept):
     # main_path's float64 render or None)
     runs = [(f"{'flagship' if words == FLAGSHIP else words} -b {block}", words.split(), block,
              {(FLAGSHIP, 2048): ("lti_blocked_f32", "crossfeed_step_f32"),
-              (FLAGSHIP, 1000): ("biquad_scan_df", "crossfeed_step_f32"),
+              (FLAGSHIP, 1000): ("biquad_scan_run_df", "crossfeed_step_f32"),
               ("resample 48k", 2048): ("rfft_pack_f32", "resample_fold",
                                        "irfft_ola_f32")}[words, block],
              (words, block)) for words, block in F32_RUNS]
@@ -3323,8 +3557,10 @@ def float32_cli(records, tmp, kept):
          ("lti_blocked_f32", "m4_env_f32", "m4_event_f32", "m4_audio_f32", "splice_f32"),
          (MATRIX4, 2048)),
         ("matrix4_mb -6 -b 2048", MATRIX4_MB.split(), 2048,
-         fft + ("splice_f32", "biquad_scan_df", "lti_blocked_f32", "m4mb_env_f32",
+         fft + ("splice_f32", "biquad_scan_run_df", "lti_blocked_f32", "m4mb_env_f32",
                 "m4mb_event_f32", "m4mb_audio_f32"), (MATRIX4_MB, 2048)),
+        (f"{LONE_BIQUAD} -b 1000", LONE_BIQUAD.split(), 1000, ("biquad_scan_df",),
+         (LONE_BIQUAD, 1000)),
         ("fir 64k -b 65536 (OLS)", f64k, 65536, fft, ("fir 64k", 65536)),
         ("fir 64k -b 2048 (Upols, K = 32)", f64k, 2048, fft, ("fir 64k", 2048)),
         ("fir_p 1M -b 2048 (Nupols, m = 32)", f1m, 2048, fft + ("splice_f32",),
@@ -3574,7 +3810,7 @@ def main_path(records, seconds, tmp):
     m4w = {"biquad_scan_series": iir.biquad_scan_series, "m4_env": m4.m4_env,
            "m4_event": m4.m4_event,
            "m4_audio": m4.m4_audio, "splice": fft_conv.splice}
-    mbw = {"biquad_scan": iir.biquad_scan, "lti_blocked": iir.lti_blocked,
+    mbw = {"biquad_scan_run": iir.biquad_scan_run, "lti_blocked": iir.lti_blocked,
            "m4mb_env": m4.m4mb_env, "m4mb_event": m4.m4mb_event, "m4mb_audio": m4.m4mb_audio,
            "splice": fft_conv.splice, "rfft_pack": fft_conv.rfft_pack,
            "fdl_mac": fft_conv.fdl_mac, "irfft_crop": fft_conv.irfft_crop}
@@ -3588,10 +3824,14 @@ def main_path(records, seconds, tmp):
          {"keep": keep((FLAGSHIP, block))} if block == 2048 else {}, None)
         for block in (2048, 65536)
     ] + [
-        # at a block K1 does not take, the biquads run per sample on K2
+        # at a block K1 does not take, the six biquads run per sample, as
+        # one run on K2 (a launch for the six)
         ("flagship -b 1000", FLAGSHIP.split(), 1000,
-         {"biquad_scan_pair": iir.biquad_scan_pair, "crossfeed_step": iir.crossfeed_step},
+         {"biquad_scan_run": iir.biquad_scan_run, "crossfeed_step": iir.crossfeed_step},
          {"keep": keep((FLAGSHIP, 1000))}, None),
+        # a lone per-sample biquad: K2 on its (hi, lo) state
+        (f"{LONE_BIQUAD} -b 1000", LONE_BIQUAD.split(), 1000,
+         {"biquad_scan_pair": iir.biquad_scan_pair}, {"keep": keep((LONE_BIQUAD, 1000))}, None),
         ("fir 64k -b 65536 (OLS)", ["fir", str(f64k)], 65536, mac,
          {"keep": keep(("fir 64k", 65536))}, None),
         ("fir 64k -b 2048 (Upols, K = 32)", ["fir", str(f64k)], 2048, mac,
@@ -3744,6 +3984,14 @@ def main():
             ("biquad_scan_pair", "biquad_scan",
              "dsp_tpu/effects/biquad.py:329 (K2 on hi + lo, dsp_tpu/ops/iir.py:77)",
              "highpass 30, B=1000, C=2"),
+            ("biquad_scan_run", "biquad_scan",
+             "dsp_tpu/effects/biquad.py:329 (K2 a biquad, dsp_tpu/ops/iir.py:77) for a run of "
+             "biquads; dsp_tpu/effects/matrix4_mb.py:338-349,616-622 (biquad_scan_auto twice)",
+             "the flagship's six biquads, B=1000, C=2, (hi, lo) states"),
+            ("biquad_scan_run_df", "biquad_scan",
+             "dsp_tpu/ops/iir.py:89 (biquad_scan_df, effects/biquad.py:329 in float32) for a run "
+             "of biquads; dsp_tpu/ops/iir.py:129 (biquad_scan_auto, matrix4_mb's fshape)",
+             "float32, the flagship's six biquads, B=1000, C=2, (hi, lo) states"),
             ("rfft_pack", "fft_conv", "dsp_tpu/ops/fft_conv.py:85,137,204", "N=4096, C=2"),
             ("fdl_mac", "fdl_mac", "dsp_tpu/ops/fft_conv.py:85,137,204", "K=32, NB=2049, C=2"),
             ("irfft_crop", "fft_conv", "dsp_tpu/ops/fft_conv.py:85,137,204", "N=4096, C=2"),
@@ -3829,7 +4077,9 @@ def main():
         timed(build_kernels)
         timed(kernel_phases, records)
         timed(k2_fused_phase, records)
-        timed(fdl_mac_phase, records["fdl_mac"])
+        timed(biquad_run_phase, records)
+        timed(lean_wrapper_refusals)
+        timed(fdl_mac_phase, records)
         timed(step_kernels_phase, records)
         timed(time_domain_phase, records)
         timed(float32_time_domain_phase, records)

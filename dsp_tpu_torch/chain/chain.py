@@ -487,14 +487,51 @@ class CompiledChain:
         self._runtime_effects = self._fuse(
             [e for e in chain.effects if not getattr(e, "runtime_noop", False)]
         )
+        self._steps = self._schedule(self._runtime_effects)
         self.states = [self._initial_state(e) for e in self._runtime_effects]
 
     def _step(self, states, x):
         new_states = []
-        for e, st in zip(self._runtime_effects, states):
-            st, x = e.step(st, x)
-            new_states.append(st)
+        for e, n in self._steps:
+            if n:  # a BiquadRun: the states of its n effects
+                st, x = e.step(states[len(new_states):len(new_states) + n], x)
+                new_states.extend(st)
+            else:
+                st, x = e.step(states[len(new_states)], x)
+                new_states.append(st)
         return new_states, x
+
+    def _schedule(self, effects):
+        """The execution plan of the runtime effects: (stepper, n) in
+        order, n = 0 for an effect that steps alone. Runs of 2+ adjacent
+        biquads at a block _fuse leaves to the per-sample path step as one
+        BiquadRun of n of them (one launch a run, at most the kernel's stage
+        limit; a longer run is cut), so the runtime effects, their names and
+        states stay as _fuse left them."""
+        from dsp_tpu_torch.effects.biquad import BiquadEffect, BiquadRun
+        from dsp_tpu_torch.kernels import BIQUAD_RUN_MAX_STAGES
+        from dsp_tpu_torch.ops.iir import BLOCKED_L
+
+        steps, run = [], []
+
+        def flush():
+            for i in range(0, len(run), BIQUAD_RUN_MAX_STAGES):
+                part = run[i:i + BIQUAD_RUN_MAX_STAGES]
+                if len(part) >= 2:
+                    steps.append((BiquadRun(part, self.device), len(part)))
+                else:
+                    steps.extend((e, 0) for e in part)
+            run.clear()
+
+        for e in effects:
+            blk = self._block_at.get(id(e), 0)
+            if type(e) is BiquadEffect and (blk % BLOCKED_L or blk < 2 * BLOCKED_L):
+                run.append(e)
+            else:
+                flush()
+                steps.append((e, 0))
+        flush()
+        return steps
 
     def _fuse(self, effects):
         """Execution-time fusion: collapse runs of 2+ adjacent biquads into

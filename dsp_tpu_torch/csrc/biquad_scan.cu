@@ -50,9 +50,9 @@
 // kernels that share scan_stage therefore round alike, whatever code
 // surrounds the stage, and as K2 did.
 //
-// Three entries take the launches the chain made around K2 into one; they
-// run the same segments through the same stage (scan_stage), so each lane's
-// output and end state are the bits of the K2 launch they replace:
+// Further entries take the launches the chain made around K2 and K3 into
+// one; they run the same segments through the same stage (scan_stage), so
+// each lane's output and end state are the bits of the launch they replace:
 // * dsp_crossfeed_step_f64/_f32 replace dsp_tpu/effects/crossfeed.py:40-55
 //   `CrossfeedEffect.step` (K2 on four lanes and the mix), which the port
 //   ran as 15 launches (a stack, K2, a clone, six multiplies, four adds
@@ -60,12 +60,24 @@
 //   the column's two lanes over its segment (two maps a thread in the
 //   scan), reads them straight from x's columns and mixes in registers,
 //   rounded as torch's separate elementwise kernels round;
-// * dsp_biquad_scan_series_f64 replaces dsp_tpu/effects/matrix4.py:431-432
-//   (two K2 launches in series and the states' concatenation, three
-//   launches): the second stage runs after a block barrier on the first's
-//   output, which each thread left in y for its own segment.
+// * dsp_biquad_scan_run runs a run of n stages (1..kMaxStages) in series
+//   in one launch, in all four forms of the template (K3 with a (hi, lo) or
+//   a single float32 state, K2 float64 with a single or a (hi, lo) state):
+//   the chain's runs of adjacent per-sample biquads (dsp_tpu/effects/
+//   biquad.py:329, a launch each), matrix4_mb's fshape and its inverse
+//   (dsp_tpu/effects/matrix4_mb.py:338-349, :616-622: two launches each)
+//   and, as its n = 2 case, matrix4's band-limit pair
+//   (dsp_biquad_scan_series_f64, dsp_tpu/effects/matrix4.py:431-432). Stage
+//   s + 1 runs after a block barrier on stage s's output, which each thread
+//   left for its own segment, rounded to the sample type as the separate
+//   launch stored it. Up to B of about 25,000 (float64) the lane's column
+//   sits in shared memory for the whole run, staged in and out once, so a
+//   stage's serial walks over its segment read shared memory, not a global
+//   load a sample. The n states are read and written where their owners
+//   keep them (RunStates: a pointer a stage, a lane stride and the lo
+//   part's offset), so no caller stacks, splits or transposes them.
 // What bounds them is what bounds K2: the launch and the chain of a
-// segment, not bytes.
+// segment, not bytes; a run pays one launch for n.
 
 #include <cuda_runtime.h>
 
@@ -134,21 +146,22 @@ __device__ __forceinline__ Affine<R> shfl_up(const Affine<R>& a, int d) {
             __shfl_up_sync(full, a.v0, d),  __shfl_up_sync(full, a.v1, d)};
 }
 
-// the lane's incoming state: [C, 2] of T, or (kPair) the sum of the
-// [2, C, 2] pair's hi and lo
+// a lane's incoming state value k from st, the lane's first value: st[k],
+// or (kPair) the sum of its hi st[k] and its lo st[lo + k] ([2, C, 2]: lo
+// = 2C)
 template <typename T, typename R, bool kPair>
-__device__ __forceinline__ R load_state(const T* st, int c, int C, int k) {
-    if (kPair) return (R)st[c * 2 + k] + (R)st[(C + c) * 2 + k];
-    return (R)st[c * 2 + k];
+__device__ __forceinline__ R load_state(const T* st, int lo, int k) {
+    if (kPair) return (R)st[k] + (R)st[lo + k];
+    return (R)st[k];
 }
 
-// the lane's end state: [C, 2], or (kPair) the [2, C, 2] pair's hi and lo;
-// with double storage the whole state is hi and lo is 0
+// a lane's end state value k: st[k], or (kPair) its hi and lo; with double
+// storage the whole state is hi and lo is 0
 template <typename T, typename R, bool kPair>
-__device__ __forceinline__ void store_state(T* st, int c, int C, int k, R s) {
+__device__ __forceinline__ void store_state(T* st, int lo, int k, R s) {
     const T h = (T)s;
-    st[c * 2 + k] = h;
-    if (kPair) st[(C + c) * 2 + k] = std::is_same<T, R>::value ? T(0) : (T)(s - (R)h);
+    st[k] = h;
+    if (kPair) st[lo + k] = std::is_same<T, R>::value ? T(0) : (T)(s - (R)h);
 }
 
 // one lane's coefficients
@@ -277,14 +290,14 @@ __global__ void biquad_scan_kernel(const R* __restrict__ A, const R* __restrict_
     __shared__ Affine<R> prefix[1][32];
     const int c = blockIdx.x;
     const Coef<R> k[1] = {coef(A, Bv, c0, c)};
-    R s[1][2] = {{load_state<T, R, kPair>(state_in, c, C, 0),
-                  load_state<T, R, kPair>(state_in, c, C, 1)}};
+    R s[1][2] = {{load_state<T, R, kPair>(state_in + c * 2, 2 * C, 0),
+                  load_state<T, R, kPair>(state_in + c * 2, 2 * C, 1)}};
     scan_stage<R, 1>(
         k, s, B, [&](int, int t) { return (R)x[(size_t)t * C + c]; },
         [&](int t, const R (&yt)[1]) { y[(size_t)t * C + c] = (T)yt[0]; }, prefix);
     if (threadIdx.x == blockDim.x - 1) {
-        store_state<T, R, kPair>(state_out, c, C, 0, s[0][0]);
-        store_state<T, R, kPair>(state_out, c, C, 1, s[0][1]);
+        store_state<T, R, kPair>(state_out + c * 2, 2 * C, 0, s[0][0]);
+        store_state<T, R, kPair>(state_out + c * 2, 2 * C, 1, s[0][1]);
     }
 }
 
@@ -340,35 +353,74 @@ __global__ void __launch_bounds__(1024) crossfeed_kernel(const R* __restrict__ A
     }
 }
 
-// two stages in series over C lanes, one block a lane: coefficient and
-// state rows [0, C) the first stage, [C, 2C) the second; the first writes
-// its output to y, which the second reads and overwrites (each thread its
-// own segment)
-template <typename R>
-__global__ void __launch_bounds__(1024) series_kernel(const R* __restrict__ A, const R* __restrict__ Bv,
-                              const R* __restrict__ c0, const R* __restrict__ state_in,
-                              R* __restrict__ state_out, const R* __restrict__ x, R* y, int B,
-                              int C) {
+}  // namespace
+
+// The states of a run of stages, where their owners keep them: in[s] and
+// out[s] point at stage s's state, lane 0's first value; lane c's values
+// sit `lane` elements further on and, in the (hi, lo) forms, each lo `lo`
+// elements after its hi (a biquad's own [2, C, 2]: lane 2, lo 2C;
+// matrix4_mb's fshape_m [4, 2]: stage s at 4s, lane 2; its inv_fshape_m
+// [n_sig, 2, 2]: stage s at 2s, lane 4). Passed to the kernel by value.
+constexpr int kMaxStages = 16;
+struct RunStates {
+    const void* in[kMaxStages];
+    void* out[kMaxStages];
+    int lane;
+    int lo;
+};
+
+namespace {
+
+// n stages in series over C lanes, one block a lane: coefficient row
+// s * C + c is stage s's on lane c. kStaged: the lane's B samples sit in
+// shared memory for the whole run (sample j of thread i's segment at
+// col[j * threads + i], so a warp's reads and writes hit consecutive
+// words), staged in from x once and out to y once; each stage reads its
+// input there and overwrites it with its output, rounded to T, each thread
+// its own segment. Otherwise (a column too large to stage) stage 0 reads x
+// and writes y, and every later stage reads y and overwrites it.
+template <typename T, typename R, bool kPair, bool kStaged>
+__global__ void __launch_bounds__(1024) run_kernel(const R* __restrict__ A, const R* __restrict__ Bv,
+                              const R* __restrict__ c0, const RunStates st,
+                              const T* __restrict__ x, T* y, int B, int C, int n) {
     __shared__ Affine<R> prefix[1][32];
-    const int c = blockIdx.x;
-    for (int stage = 0; stage < 2; ++stage) {
-        const int l = stage * C + c;
-        const R* in = stage == 0 ? x : y;
-        const Coef<R> k[1] = {coef(A, Bv, c0, l)};
-        R s[1][2] = {{state_in[l * 2 + 0], state_in[l * 2 + 1]}};
-        scan_stage<R, 1>(
-            k, s, B, [&](int, int t) { return in[(size_t)t * C + c]; },
-            [&](int t, const R (&yt)[1]) { y[(size_t)t * C + c] = yt[0]; }, prefix);
-        if (threadIdx.x == blockDim.x - 1) {
-            state_out[l * 2 + 0] = s[0][0];
-            state_out[l * 2 + 1] = s[0][1];
+    extern __shared__ __align__(16) unsigned char run_smem[];
+    T* col = reinterpret_cast<T*>(run_smem);
+    const int c = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+    const int seg = (B + nt - 1) / nt, t0 = min(B, tid * seg);  // as segment() cuts
+    if (kStaged) {
+        for (int t = tid; t < B; t += nt) col[(t % seg) * nt + t / seg] = x[(size_t)t * C + c];
+        __syncthreads();
+    }
+    for (int stage = 0; stage < n; ++stage) {
+        const T* in = stage == 0 ? x : y;
+        const T* s_in = static_cast<const T*>(st.in[stage]) + (size_t)c * st.lane;
+        const Coef<R> k[1] = {coef(A, Bv, c0, stage * C + c)};
+        R s[1][2] = {{load_state<T, R, kPair>(s_in, st.lo, 0),
+                      load_state<T, R, kPair>(s_in, st.lo, 1)}};
+        if (kStaged) {
+            scan_stage<R, 1>(
+                k, s, B, [&](int, int t) { return (R)col[(t - t0) * nt + tid]; },
+                [&](int t, const R (&yt)[1]) { col[(t - t0) * nt + tid] = (T)yt[0]; }, prefix);
+        } else {
+            scan_stage<R, 1>(
+                k, s, B, [&](int, int t) { return (R)in[(size_t)t * C + c]; },
+                [&](int t, const R (&yt)[1]) { y[(size_t)t * C + c] = (T)yt[0]; }, prefix);
         }
-        __syncthreads();  // the second stage reuses prefix
+        if (tid == nt - 1) {
+            T* s_out = static_cast<T*>(st.out[stage]) + (size_t)c * st.lane;
+            store_state<T, R, kPair>(s_out, st.lo, 0, s[0][0]);
+            store_state<T, R, kPair>(s_out, st.lo, 1, s[0][1]);
+        }
+        __syncthreads();  // the next stage reuses prefix (and, staged, the last stage's col)
+    }
+    if (kStaged) {
+        for (int t = tid; t < B; t += nt) y[(size_t)t * C + c] = col[(t % seg) * nt + t / seg];
     }
 }
 
 // about 16 samples a thread, 32..1024 threads a lane (the crossfeed and
-// series kernels are bounded to 1,024 threads' registers, so that they run
+// run kernels are bounded to 1,024 threads' registers, so that they run
 // K2's segments at every B)
 int threads_for(int B) {
     int T_ = ((B + 15) / 16 + 31) / 32 * 32;
@@ -393,6 +445,47 @@ int crossfeed(const R* A, const R* Bv, const R* c0, const R* state_in, R* state_
     crossfeed_kernel<R><<<2, threads_for(B), 0, static_cast<cudaStream_t>(stream)>>>(
         A, Bv, c0, state_in, state_out, x, out, B, C, col0, col1, gd, gc);
     return (int)cudaGetLastError();
+}
+
+// The launches run_kernel has made in this process (host side), every form
+// and the band-limit pair's together: how a caller checks that a run is
+// one launch.
+unsigned long long run_launches = 0;
+
+// the largest column run_kernel stages in shared memory (B = 16384 in
+// float64 takes 128 KB; beside prefix, under the 227 KB a block may use)
+constexpr int kRunSmem = 200 * 1024;
+
+template <typename T, bool kPair>
+int biquad_run(const double* A, const double* Bv, const double* c0, const RunStates& st,
+               const void* x, void* y, int B, int C, int n, void* stream) {
+    if (B <= 0 || C <= 0 || n < 1 || n > kMaxStages) return (int)cudaErrorInvalidValue;
+    for (int s = 0; s < n; ++s) {
+        if (st.in[s] == nullptr || st.out[s] == nullptr) return (int)cudaErrorInvalidValue;
+    }
+    const cudaStream_t strm = static_cast<cudaStream_t>(stream);
+    const int threads = threads_for(B);
+    const size_t smem = (size_t)((B + threads - 1) / threads) * threads * sizeof(T);
+    const T* xt = static_cast<const T*>(x);
+    T* yt = static_cast<T*>(y);
+    if (smem <= (size_t)kRunSmem) {
+        static bool allowed = false;
+        if (!allowed) {
+            const cudaError_t e = cudaFuncSetAttribute(run_kernel<T, double, kPair, true>,
+                                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                       kRunSmem);
+            if (e != cudaSuccess) return (int)e;
+            allowed = true;
+        }
+        run_kernel<T, double, kPair, true><<<C, threads, smem, strm>>>(A, Bv, c0, st, xt, yt, B, C,
+                                                                       n);
+    } else {
+        run_kernel<T, double, kPair, false><<<C, threads, 0, strm>>>(A, Bv, c0, st, xt, yt, B, C,
+                                                                      n);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess) ++run_launches;
+    return (int)err;
 }
 
 }  // namespace
@@ -461,12 +554,36 @@ extern "C" int dsp_crossfeed_step_f32(const float* A, const float* Bv, const flo
 // Two float64 stages in series on x [B, C] (matrix4's band-limit: the
 // highpass, then the lowpass): A [2C, 2, 2], Bv [2C, 2], c0 [2C] and the
 // state [2C, 2], rows [0, C) the first stage; y [B, C] the second's output.
+// The n = 2 case of dsp_biquad_scan_run.
 extern "C" int dsp_biquad_scan_series_f64(const double* A, const double* Bv, const double* c0,
                                           const double* state_in, double* state_out,
                                           const double* x, double* y, int B, int C,
                                           void* stream) {
-    if (B <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-    series_kernel<double><<<C, threads_for(B), 0, static_cast<cudaStream_t>(stream)>>>(
-        A, Bv, c0, state_in, state_out, x, y, B, C);
-    return (int)cudaGetLastError();
+    RunStates st{};
+    for (int s = 0; s < 2; ++s) {
+        st.in[s] = state_in + (size_t)s * 2 * C;
+        st.out[s] = state_out + (size_t)s * 2 * C;
+    }
+    st.lane = 2;
+    return biquad_run<double, false>(A, Bv, c0, st, x, y, B, C, 2, stream);
 }
+
+// A run of n stages in series on x [B, C] in one launch: A [n, C, 2, 2],
+// Bv [n, C, 2] and c0 [n, C] float64 (row s * C + c stage s's lane c), the
+// states where *st says; y [B, C] the last stage's output. f32: float32 x,
+// y and states (K3), else float64 (K2); pair: the (hi, lo) states, else
+// single ones. Returns cudaGetLastError() after the launch (0 on
+// success); the caller checks shapes, dtypes, layouts and contiguity.
+extern "C" int dsp_biquad_scan_run(const double* A, const double* Bv, const double* c0,
+                                   const RunStates* st, const void* x, void* y, int B, int C,
+                                   int n, int f32, int pair, void* stream) {
+    if (st == nullptr) return (int)cudaErrorInvalidValue;
+    if (f32) {
+        return pair ? biquad_run<float, true>(A, Bv, c0, *st, x, y, B, C, n, stream)
+                    : biquad_run<float, false>(A, Bv, c0, *st, x, y, B, C, n, stream);
+    }
+    return pair ? biquad_run<double, true>(A, Bv, c0, *st, x, y, B, C, n, stream)
+                : biquad_run<double, false>(A, Bv, c0, *st, x, y, B, C, n, stream);
+}
+
+extern "C" unsigned long long dsp_biquad_run_launches() { return run_launches; }

@@ -529,6 +529,27 @@ for _name, _usage, _num in _USAGES:
     register_effect(_name, f"{_name} {_usage}", biquad_effect_init, _num)
 
 
+class BiquadRun:
+    """Execution-time grouping of 2 to iir's stage limit adjacent
+    BiquadEffects at a block that runs them per sample (one that
+    chain.CompiledChain._fuse leaves unfused): the run steps in one launch
+    (iir.biquad_scan_run, K2 or K3 a stage) instead of one a biquad, each
+    biquad's [2, C, 2] state read and written where it is. The chain's
+    runtime effects, their names and their states stay the biquads' own;
+    the coefficient table is built once, on `device`."""
+
+    def __init__(self, effects, device):
+        self.effects = effects
+        self._coef = tuple(
+            torch.as_tensor(np.stack([getattr(e, k) for e in effects]), dtype=torch.float64,
+                            device=device)
+            for k in ("_ss_A", "_ss_Bv", "_ss_c0"))
+
+    def step(self, states, x):
+        """The biquads' states in order and x -> (their end states, y)."""
+        return iir.biquad_scan_run(*self._coef, states, x)
+
+
 class FusedBiquadCascade:
     """Compile-time fusion of consecutive BiquadEffects (execution only).
 

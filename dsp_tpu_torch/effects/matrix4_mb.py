@@ -10,7 +10,8 @@ linear-phase FIR that equalises the bank's phase runs before it as a
 separate fir effect (matrix4_mb_effect_init). A block runs in nine launches
 and a splice:
 
-  * the fshape's two biquads on K2 (ops/iir.biquad_scan), coupled form;
+  * the fshape's two biquads in one launch (ops/iir.biquad_scan_run, K2 a
+    stage), coupled form;
   * the whole bank on K1 (ops/iir.lti_blocked): the tree composed on the
     host into one 40-state system a band and channel (26 lanes), in chunks
     of L = 128, or L = 1 for blocks that are not a multiple of 128 or are
@@ -23,12 +24,12 @@ and a splice:
   * K12 + K13 ``m4mb_audio``: the interpolated values, the delayed bands
     through their matrices, the band sums, the phase-flip allpasses over
     26 lanes and the direct path;
-  * the inverse fshape's two biquads on K2 over 4 or 6 signals;
+  * the inverse fshape's two biquads in one launch over 4 or 6 signals;
   * the carried lookahead line as a ``splice`` (ops/fft_conv.py).
 
 Under float32 (dsp_tpu's float32 _control and _audio, matrix4_mb.py:338-349,
 :616-622, :255-275) the fshape and its inverse run on K3
-(``iir.biquad_scan_coupled``, the coupled form, each stage's state handed
+(``iir.biquad_scan_run_df``, the coupled form, each stage's state handed
 in and out as one float32 array, as dsp_tpu's biquad_scan_auto does), the bank
 on K1-df with its (hi, lo) output (``iir.lti_blocked_df``): the pair feeds
 the envelopes, hi the audio path and the lookahead line. The float32 forms
@@ -84,14 +85,15 @@ def _fshape_coeffs(fs, inv):
 
 
 def _cascade_stages(coeffs, lanes):
-    """The two stages of a [5, 2] cascade as K2's (A, Bv, c0) on `lanes`
-    lanes, in the coupled form dsp_tpu's biquad_scan_auto runs."""
+    """The two stages of a [5, 2] cascade on `lanes` lanes as
+    iir.biquad_scan_run's table (A [2, lanes, 2, 2], Bv [2, lanes, 2], c0
+    [2, lanes]), in the coupled form dsp_tpu's biquad_scan_auto runs."""
     stages = []
     for s_i in range(2):
         cmat = np.tile(coeffs[:, s_i][:, None], (1, lanes))
         A, Bv = iir._coupled_form_ss(cmat)
         stages.append((A, Bv, cmat[0].copy()))
-    return stages
+    return tuple(np.stack(a) for a in zip(*stages))
 
 
 class Matrix4MbEffect(Effect):
@@ -193,13 +195,12 @@ class Matrix4MbEffect(Effect):
         )
         self.audio = m4.M4MbAudio(self.fb_buf_len, cfg.do_phase_flip, cfg.do_direct_path)
         self.fmw = m4.band_mix_weights(cfg.freq_mask)
-        # K2's coefficients: the fshape on the pair, its inverse on the 4 or 6 signals
+        # the cascades' coefficients: the fshape on the pair, its inverse on
+        # the 4 or 6 signals
         for tag, coeffs, lanes in (("fsh", self.fshape_c, 2),
                                    ("inv", self.inv_fshape_c, self.audio.n_sig)):
-            for s_i, (A, Bv, c0) in enumerate(_cascade_stages(coeffs, lanes)):
-                setattr(self, f"{tag}{s_i}_A", A)
-                setattr(self, f"{tag}{s_i}_Bv", Bv)
-                setattr(self, f"{tag}{s_i}_c0", c0)
+            for k, a in zip(("A", "Bv", "c0"), _cascade_stages(coeffs, lanes)):
+                setattr(self, f"{tag}_{k}", a)
         self._pair = ChannelPick([cfg.c0, cfg.c1], istream.channels)
 
     # --- state ---
@@ -288,16 +289,16 @@ class Matrix4MbEffect(Effect):
 
     def _cascade(self, tag, st, x):
         """The two-biquad cascade `tag` ("fsh" or "inv") on x [B, C] from
-        st [2, C, 2] (a stage a row). Returns (st', y). float64 on K2;
-        float32 on K3 with a single float32 state a stage, as dsp_tpu's
-        biquad_scan_auto."""
-        out = []
-        for s_i in range(2):
-            A, Bv, c0 = (self.device_array(f"{tag}{s_i}_{k}", x, torch.float64)
-                         for k in ("A", "Bv", "c0"))
-            s, x = iir.biquad_scan_coupled(A, Bv, c0, st[s_i].contiguous(), x)
-            out.append(s)
-        return torch.stack(out), x
+        st [2, C, 2] (a stage a row): a view of the state as the effect
+        keeps it (fshape_m [4, 2] reshaped, inv_fshape_m [n_sig, 2, 2]
+        transposed). Returns (st', y), st' the same view of a new state. One
+        launch, the kernel reading and writing each stage's state in place
+        (iir.biquad_scan_run): float64 on K2, float32 on K3 with a single
+        float32 state a stage, as dsp_tpu's biquad_scan_auto."""
+        A, Bv, c0 = (self.device_array(f"{tag}_{k}", x, torch.float64) for k in ("A", "Bv", "c0"))
+        new = torch.empty_like(st)  # st's strides: the state's own layout
+        _, y = iir.biquad_scan_run(A, Bv, c0, st.unbind(0), x, out=new.unbind(0))
+        return new, y
 
     def step(self, state, x):
         return self._audio(state, x, self._control(state, x))
@@ -357,7 +358,7 @@ class Matrix4MbEffect(Effect):
             fb_buf=splice(state["fb_buf"].view(L, 2 * N_BANDS), yb, L, L - B, B).view(
                 L, N_BANDS, 2),
             pf_m=pf_m,
-            inv_fshape_m=inv.transpose(0, 1).contiguous(),
+            inv_fshape_m=inv.transpose(0, 1),
             fade_p=torch.tensor(max(int(state["fade_p"]) - B, 0), dtype=torch.int64),
         )
         if "aux" in state:

@@ -83,6 +83,19 @@ class StatsState(ctypes.Structure):
         "m", "y", "z", "nctr", "tmin", "tmax")]
 
 
+BIQUAD_RUN_MAX_STAGES = 16  # csrc/biquad_scan.cu kMaxStages
+
+
+class BiquadRunStates(ctypes.Structure):
+    """csrc/biquad_scan.cu's RunStates: a run's per-stage state pointers
+    in and out, the elements from one lane's state to the next, and from a
+    state's hi part to its lo part."""
+
+    _fields_ = [("inp", ctypes.c_void_p * BIQUAD_RUN_MAX_STAGES),
+                ("out", ctypes.c_void_p * BIQUAD_RUN_MAX_STAGES),
+                ("lane", ctypes.c_int), ("lo", ctypes.c_int)]
+
+
 class M4EvPtrs(ctypes.Structure):
     """csrc/m4_event.cu's EvPtrs: the event state's leaves in
     ops/m4_engine.EV_LEAVES order (11 bool, 28 float64, 8 int64)."""
@@ -162,6 +175,7 @@ class _Library:
         self._lock = threading.Lock()
         self.lib = None
         self.build_log = ""  # empty when the library was built before
+        self.fdl_mac = None  # (dsp_fdl_mac_c128, dsp_fdl_mac_f32), bound once at load
 
     def build(self):
         """Compile the sources unless this hash is built; return the path.
@@ -220,6 +234,9 @@ class _Library:
                            lib.dsp_biquad_scan_f64_pair, lib.dsp_biquad_scan_series_f64):
                     fn.argtypes = [p] * 7 + [i] * 2 + [p]
                     fn.restype = i
+                lib.dsp_biquad_scan_run.argtypes = ([p] * 3 + [ctypes.POINTER(BiquadRunStates)]
+                                                    + [p] * 2 + [i] * 5 + [p])
+                lib.dsp_biquad_scan_run.restype = i
                 lib.dsp_crossfeed_step_f64.argtypes = [p] * 7 + [i] * 4 + [ctypes.c_double] * 2 + [p]
                 lib.dsp_crossfeed_step_f32.argtypes = [p] * 7 + [i] * 4 + [ctypes.c_float] * 2 + [p]
                 for fn in (lib.dsp_crossfeed_step_f64, lib.dsp_crossfeed_step_f32):
@@ -227,6 +244,7 @@ class _Library:
                 for fn in (lib.dsp_fdl_mac_c128, lib.dsp_fdl_mac_f32):
                     fn.argtypes = [p] * 5 + [ctypes.c_longlong, i, p]
                     fn.restype = i
+                self.fdl_mac = (lib.dsp_fdl_mac_c128, lib.dsp_fdl_mac_f32)
                 for fn in (lib.dsp_rfft_pack_c128, lib.dsp_rfft_pack_f32):
                     fn.argtypes = [p, p, p, ll, p, ll, i, p, ll, p, p, i, i, p]
                     fn.restype = i
@@ -239,7 +257,8 @@ class _Library:
                 d = ctypes.c_double
                 lib.dsp_irfft_ola_f32.argtypes = [p] * 7 + [d, i, i, i, p]
                 lib.dsp_irfft_ola_f32.restype = i
-                for fn in (lib.dsp_fft_launches, lib.dsp_lti_launches, lib.dsp_m4_env_launches):
+                for fn in (lib.dsp_fft_launches, lib.dsp_lti_launches, lib.dsp_m4_env_launches,
+                           lib.dsp_biquad_run_launches):
                     fn.argtypes = []
                     fn.restype = ctypes.c_ulonglong
                 for fn in (lib.dsp_tpdf_noise_f64, lib.dsp_tpdf_noise_f32):
@@ -390,6 +409,32 @@ def launch_biquad_scan_series(A, Bv, c0, state_in, state_out, x, y):
     _check(rc, "biquad_scan_series")
 
 
+def launch_biquad_scan_run(A, Bv, c0, states, out, x, y, lane, lo, pair):
+    """A run of n = len(states) stages in series on float64 or float32 x
+    (csrc/biquad_scan.cu dsp_biquad_scan_run): A [n, C, 2, 2], Bv [n, C, 2],
+    c0 [n, C] float64; states and out each stage's state in and out, whose
+    lanes sit `lane` elements apart and, with pair, each lo `lo` elements
+    after its hi."""
+    B, C = x.shape
+    n = len(states)
+    st = BiquadRunStates()
+    st.inp[:n] = [t.data_ptr() for t in states]
+    st.out[:n] = [t.data_ptr() for t in out]
+    st.lane, st.lo = lane, lo
+    rc = load().dsp_biquad_scan_run(A.data_ptr(), Bv.data_ptr(), c0.data_ptr(), ctypes.byref(st),
+                                    x.data_ptr(), y.data_ptr(), B, C, n,
+                                    int(x.dtype == torch.float32), int(pair), _stream(x))
+    if rc:
+        _check(rc, "biquad_scan_run")
+
+
+def biquad_run_launches():
+    """The kernels csrc/biquad_scan.cu's run entry (dsp_biquad_scan_run and
+    its n = 2 case dsp_biquad_scan_series_f64) has launched in this process
+    (the library's own count)."""
+    return load().dsp_biquad_run_launches()
+
+
 def launch_crossfeed_step(A, Bv, c0, state_in, state_out, x, out, col0, col1, direct, cross):
     """crossfeed's step on float64 or float32 x (coefficients, state and
     gains of x's dtype)."""
@@ -402,13 +447,12 @@ def launch_crossfeed_step(A, Bv, c0, state_in, state_out, x, out, col0, col1, di
 
 def launch_fdl_mac(X, H, fdl_in, Y, fdl_out, f32=False):
     """f32: the FDL as float32 (re, im) pairs (or none, for an overlap-save
-    step of a float32 chain)."""
-    fn = load().dsp_fdl_mac_f32 if f32 else load().dsp_fdl_mac_c128
-    rc = fn(
-        _ptr(X), _ptr(H), _ptr(fdl_in), _ptr(Y), _ptr(fdl_out), X.numel(), H.shape[0],
-        _stream(X),
-    )
-    _check(rc, "fdl_mac")
+    step of a float32 chain). The C entries are bound once, at load."""
+    load()
+    rc = LIBRARY.fdl_mac[f32](_ptr(X), _ptr(H), _ptr(fdl_in), _ptr(Y), _ptr(fdl_out), X.numel(),
+                              H.shape[0], torch._C._cuda_getCurrentRawStream(X.get_device()))
+    if rc:
+        _check(rc, "fdl_mac")
 
 
 def launch_rfft_pack(plan, tables, a, x, Lx, blocks, kept, X, work):

@@ -669,21 +669,13 @@ def fdl_mac(X, H, fdl_in=None, dtype=torch.float64):
     tensors launch csrc/fdl_mac.cu."""
     if dtype == torch.float32:
         return fdl_mac_f32(X, H, fdl_in)
+    if X.is_cuda:
+        return _launch_fdl_mac(fdl_mac, X, H, fdl_in, torch.float64)
     _check_dtypes("fdl_mac", (X, torch.complex128), (H, torch.complex128),
                   (fdl_in, torch.float64))
     if X.device.type == "cpu":
         return fdl_mac_ref(X, H, fdl_in)
-    from dsp_tpu_torch import kernels
-
-    _check_cuda("fdl_mac", X, *[(t, dt) for t, dt in (
-        (X, torch.complex128), (H, torch.complex128), (fdl_in, torch.float64)) if t is not None],
-        align=16)  # the (re, im) pairs of fdl_in are read as double2
-    _check_fdl_mac_shapes(X, H, fdl_in)
-    Y = torch.empty_like(X)
-    fdl_out = None if fdl_in is None else torch.empty_like(fdl_in)
-    kernels.launch_fdl_mac(X, H, fdl_in, Y, fdl_out)
-    fdl_mac.launches += 1
-    return Y, fdl_out
+    raise ValueError(f"fdl_mac: no kernel for device {X.device}")
 
 
 fdl_mac.launches = 0
@@ -696,24 +688,42 @@ def fdl_mac_f32(X, H, fdl_in=None):
     complex128. With fdl_in None (an overlap-save step) the product of
     fdl_mac. CPU tensors run fdl_mac_f32_ref; CUDA tensors launch
     csrc/fdl_mac.cu."""
+    if X.is_cuda:
+        return _launch_fdl_mac(fdl_mac_f32, X, H, fdl_in, torch.float32)
     _check_dtypes("fdl_mac_f32", (X, torch.complex128), (H, torch.complex128),
                   (fdl_in, torch.float32))
     if X.device.type == "cpu":
         return fdl_mac_f32_ref(X, H, fdl_in)
-    from dsp_tpu_torch import kernels
-
-    _check_cuda("fdl_mac_f32", X, *[(t, dt) for t, dt in (
-        (X, torch.complex128), (H, torch.complex128), (fdl_in, torch.float32)) if t is not None],
-        align=16)
-    _check_fdl_mac_shapes(X, H, fdl_in)
-    Y = torch.empty_like(X)
-    fdl_out = None if fdl_in is None else torch.empty_like(fdl_in)
-    kernels.launch_fdl_mac(X, H, fdl_in, Y, fdl_out, f32=True)
-    fdl_mac_f32.launches += 1
-    return Y, fdl_out
+    raise ValueError(f"fdl_mac_f32: no kernel for device {X.device}")
 
 
 fdl_mac_f32.launches = 0
+
+
+def _launch_fdl_mac(wrapper, X, H, fdl_in, fdl_dtype):
+    """The checks of _check_dtypes, _check_cuda (align=16: the (re, im)
+    pairs are read as double2; a float32 FDL's as float2) and
+    _check_fdl_mac_shapes, written out for the one call, then the launch
+    into outputs made with one torch.empty_like each."""
+    from dsp_tpu_torch import kernels
+
+    c128 = torch.complex128
+    if X.dtype != c128 or H.dtype != c128 or (fdl_in is not None and fdl_in.dtype != fdl_dtype):
+        raise TypeError(f"{wrapper.__name__}: the kernel takes complex128 X and H and a "
+                        f"{fdl_dtype} FDL, got {X.dtype}, {H.dtype}, "
+                        f"{None if fdl_in is None else fdl_in.dtype}")
+    dev = X.get_device()
+    if H.get_device() != dev or (fdl_in is not None and fdl_in.get_device() != dev):
+        raise ValueError(f"{wrapper.__name__}: tensors on more than one device")
+    for t in (X, H) if fdl_in is None else (X, H, fdl_in):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{wrapper.__name__}: tensors must be contiguous and 16-byte aligned")
+    _check_fdl_mac_shapes(X, H, fdl_in)
+    Y = torch.empty_like(X)
+    fdl_out = None if fdl_in is None else torch.empty_like(fdl_in)
+    kernels.launch_fdl_mac(X, H, fdl_in, Y, fdl_out, fdl_dtype == torch.float32)
+    wrapper.launches += 1
+    return Y, fdl_out
 
 
 def fdl_mac_f32_ref(X, H, fdl_in=None):

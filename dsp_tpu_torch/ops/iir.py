@@ -27,6 +27,11 @@ These kernels run the recurrences on the device:
   ``biquad_scan_series`` (matrix4's band-limit, two stages in one launch)
   and ``crossfeed_step`` / ``crossfeed_step_f32`` (crossfeed's lanes and
   mix in one launch).
+* A run of stages in series, K2 or K3 in one launch: ``biquad_scan_run``
+  (float64) and ``biquad_scan_run_df`` (float32 samples), each stage's
+  state single or a (hi, lo) pair, read and written where its owner keeps
+  it: the chain's runs of adjacent per-sample biquads
+  (``effects/biquad.BiquadRun``) and matrix4_mb's fshape and its inverse.
 
 dsp_tpu runs its float32 forms of K1 and K3 in two-float32 (hi, lo)
 arithmetic, because the TPU has no usable float64. Hopper has float64 in
@@ -589,6 +594,121 @@ def biquad_scan_series_ref(A, Bv, c0, state, x):
     st1, y1 = biquad_scan_ref(A[:C], Bv[:C], c0[:C], state[:C], x)
     st2, y2 = biquad_scan_ref(A[C:], Bv[C:], c0[C:], state[C:], y1)
     return torch.cat([st1, st2]), y2
+
+
+def biquad_scan_run(A, Bv, c0, states, x, out=None):
+    """A run of n stages of per-lane biquads in series, in one launch: stage
+    s runs A[s] [C,2,2], Bv[s] [C,2] and c0[s] [C] (float64 A [n,C,2,2], Bv
+    [n,C,2], c0 [n,C]) from states[s] on stage s - 1's output (stage 0 on x
+    [B, C]), as n separate biquad_scan (a [C, 2] state) or biquad_scan_pair
+    (a [2, C, 2] (hi, lo) state) calls would; under float32 x this is
+    biquad_scan_run_df. The n states share one layout and may be views with
+    other strides (matrix4_mb's inv_fshape_m[:, s]); each lane's two values
+    must be adjacent. out: n tensors of that layout the end states are
+    written into, or None: views of one new [n, *state shape] tensor.
+    Returns (the n end states, y [B, C] the last stage's output). CPU
+    tensors run biquad_scan_run_ref; CUDA tensors launch csrc/biquad_scan.cu
+    (dsp_biquad_scan_run)."""
+    if x.dtype == torch.float32:
+        return biquad_scan_run_df(A, Bv, c0, states, x, out)
+    if x.is_cuda:
+        return _launch_biquad_run(biquad_scan_run, A, Bv, c0, states, x, out)
+    return _run_on_cpu(biquad_scan_run, A, Bv, c0, states, x, out)
+
+
+biquad_scan_run.launches = 0
+
+
+def biquad_scan_run_df(A, Bv, c0, states, x, out=None):
+    """biquad_scan_run on float32 x [B, C] and float32 states, K3 a stage:
+    float64 coefficients and registers, as n separate biquad_scan_df calls
+    (a single [C, 2] state, or a [2, C, 2] (hi, lo) one). CPU tensors run
+    biquad_scan_run_ref; CUDA tensors launch csrc/biquad_scan.cu."""
+    if x.is_cuda:
+        return _launch_biquad_run(biquad_scan_run_df, A, Bv, c0, states, x, out)
+    return _run_on_cpu(biquad_scan_run_df, A, Bv, c0, states, x, out)
+
+
+biquad_scan_run_df.launches = 0
+
+
+def biquad_scan_run_ref(A, Bv, c0, states, x):
+    """Plain PyTorch version of biquad_scan_run and biquad_scan_run_df: the
+    n separate plain calls in order (biquad_scan_ref, biquad_scan_pair_ref
+    or biquad_scan_df_ref), each stage on the one before's output."""
+    ends = []
+    for s, st in enumerate(states):
+        if x.dtype == torch.float32:
+            st, x = biquad_scan_df_ref(A[s], Bv[s], c0[s], st, x)
+        elif st.dim() == 3:
+            st, x = biquad_scan_pair_ref(A[s], Bv[s], c0[s], st, x)
+        else:
+            st, x = biquad_scan_ref(A[s], Bv[s], c0[s], st, x)
+        ends.append(st)
+    return ends, x
+
+
+def _run_dtype(wrapper):
+    return torch.float32 if wrapper is biquad_scan_run_df else torch.float64
+
+
+def _run_on_cpu(wrapper, A, Bv, c0, states, x, out):
+    """The plain version for CPU tensors (any other device but CUDA
+    raises), the end states written into `out` when it is given."""
+    dt = _run_dtype(wrapper)
+    _check_dtypes(wrapper.__name__, (x, dt), (A, torch.float64), (Bv, torch.float64),
+                  (c0, torch.float64), *[(t, dt) for t in states])
+    if x.device.type != "cpu":
+        raise ValueError(f"{wrapper.__name__}: no kernel for device {x.device}")
+    ends, y = biquad_scan_run_ref(A, Bv, c0, states, x)
+    if out is None:
+        return ends, y
+    for o, e in zip(out, ends):
+        o.copy_(e)
+    return list(out), y
+
+
+def _launch_biquad_run(wrapper, A, Bv, c0, states, x, out):
+    """The checks of _check_dtypes, _check_cuda and the states' layout,
+    written out for the one call, then the launch."""
+    from dsp_tpu_torch import kernels
+
+    name, f64 = wrapper.__name__, torch.float64
+    if x.dtype != _run_dtype(wrapper) or A.dtype != f64 or Bv.dtype != f64 or c0.dtype != f64:
+        raise TypeError(f"{name}: the kernel takes float64 coefficients and "
+                        f"{_run_dtype(wrapper)} x, got {A.dtype}, {Bv.dtype}, {c0.dtype}, "
+                        f"{x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"{name}: x must be [B, C], got {tuple(x.shape)}")
+    B, C = x.shape
+    n = len(states)
+    if not 1 <= n <= kernels.BIQUAD_RUN_MAX_STAGES:
+        raise ValueError(f"{name}: {n} stages, at most {kernels.BIQUAD_RUN_MAX_STAGES}")
+    dev = x.get_device()
+    for what, t, shape in (("x", x, (B, C)), ("A", A, (n, C, 2, 2)), ("Bv", Bv, (n, C, 2)),
+                           ("c0", c0, (n, C))):
+        if t.shape != shape or t.get_device() != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} {tuple(t.shape)} on {t.device}, expected a "
+                             f"contiguous {shape} on {x.device}")
+    shape, strides = states[0].shape, states[0].stride()
+    if shape not in ((C, 2), (2, C, 2)) or strides[-1] != 1:
+        raise ValueError(f"{name}: states {tuple(shape)} with strides {strides}, expected "
+                         f"[{C}, 2] or [2, {C}, 2] with each lane's values adjacent")
+    if out is None:
+        out = torch.empty((n, *shape), dtype=x.dtype, device=x.device).unbind(0)
+    if len(out) != n:
+        raise ValueError(f"{name}: {len(out)} outputs for {n} stages")
+    for t in (*states, *out):
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name}: the kernel takes {x.dtype} states, got {t.dtype}")
+        if t.shape != shape or t.stride() != strides or t.get_device() != dev:
+            raise ValueError(f"{name}: every state in and out must be {tuple(shape)} with "
+                             f"strides {strides} on {x.device}")
+    y = torch.empty_like(x)
+    kernels.launch_biquad_scan_run(A, Bv, c0, states, out, x, y, strides[-2],
+                                   strides[0] if len(shape) == 3 else 0, len(shape) == 3)
+    wrapper.launches += 1
+    return list(out), y
 
 
 def crossfeed_lanes(x, col0, col1):

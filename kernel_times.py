@@ -10,7 +10,8 @@ of the repository on the same card.
                                                # (DIR, this, this, DIR), a table
     python3 kernel_times.py --rows engines ... # only the engine rows (or fft,
                                                # cli, td, tdcli, k2, audio,
-                                               # k2cli, profile, k1 or k1cli)
+                                               # k2cli, profile, k1, k1cli,
+                                               # k3 or k3cli)
 
 DIR is an unpacked checkout of another commit (e.g. `git archive <commit> |
 tar -x -C .smoke_tmp/parent`). Each tree runs in a process of its own, since
@@ -88,7 +89,18 @@ and `matrix4_mb -6` at -b 1000 (the chain rounds it to 1024) and -b 1056
 (the bank's L = 1 plan) through dsp-torch in both dtypes, as the k2cli
 rows run theirs (renders compared in dBFS).
 The profile rows also take the flagship at -b 65536 and `matrix4_mb -6`
-at -b 2048, 65536, 1000 and 1056.
+at -b 2048 (both dtypes), 65536, 1000 and 1056.
+
+The k3 rows time the run of per-sample biquads and fdl_mac, each as its
+tree calls it, on seeded inputs: the flagship's six biquads at B = 1000
+(CompiledChain._step of a chain of the six: one biquad_scan_run, or six
+launches where the tree has none) and matrix4_mb's fshape and inverse
+fshape at B = 2048 (_cascade on each state as the effect keeps it), in
+both dtypes, and fdl_mac and fdl_mac_f32 at every shape of chip_smoke.py's
+FDL_MAC_SHAPES; with --against the trees' outputs are compared bit for
+bit. The k3cli rows run the flagship at -b 1000 and 2048, `matrix4_mb -6`
+and `fir` with chip_smoke.py's 65,536-tap filter at -b 2048 through
+dsp-torch in both dtypes, as the k2cli rows run theirs.
 
 The rows are chip_smoke.py's main-path shapes, where chip_smoke.py holds
 each kernel against its plain version; this script only times them. Prints
@@ -108,7 +120,8 @@ import sys
 from pathlib import Path
 
 from chip_smoke import CHANNELS, DELIVERY, FLAGSHIP, FS, MATRIX4, MATRIX4_MB, SECONDS, SLICE_C_SEED, \
-    card_info, cuda_ms, dbfs, device_ms, flagship_parts, td_signal, transient_signal, write_input
+    card_info, cuda_ms, dbfs, device_ms, flagship_parts, td_signal, transient_signal, write_filter, \
+    write_input
 
 ROOT = Path(__file__).resolve().parent
 ENGINE_INPUTS = ROOT / ".smoke_tmp" / "engine_inputs.pt"
@@ -412,6 +425,70 @@ def k2_rows():
     return out
 
 
+# the k3 rows: the flagship's six biquads at -b 1000 (the per-sample path)
+# as the chain steps them, and matrix4_mb's two cascades at -b 2048
+# calls a k3 row's per-call time averages (the host's enqueue at these
+# shapes: more calls than the other rows' 50, for a steadier mean)
+K3_REPS = 500
+K3_BIQUADS = ("eq 1k 1.0 +3 eq 3.5k 0.8 -2 lowshelf 90 0.7071s +4 highshelf 10k 0.7071s -2 "
+              "lowpass 18k 0.7071 highpass 30 0.7071")
+
+
+def k3_rows():
+    """(name, the call, reps) of the k3 rows, their inputs seeded, each
+    called as its tree's chain calls it: the flagship's six biquads at
+    B = 1000 in both dtypes (CompiledChain._step of a chain of the six: one
+    run, or six per-sample launches in a tree without it), matrix4_mb's
+    fshape and inverse fshape at B = 2048 in both dtypes (_cascade on each
+    state as the effect keeps it, with the caller's transposed copy), and
+    fdl_mac and fdl_mac_f32 at every shape of chip_smoke.py's
+    FDL_MAC_SHAPES."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import FDL_MAC_SHAPES
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.ops import fft_conv as fc
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20314)
+    out = []
+    for dt in (torch.float64, torch.float32):
+        sfx = "" if dt == torch.float64 else " float32"
+        cc = CompiledChain(build_chain_from_string(K3_BIQUADS, StreamInfo(FS, CHANNELS)), 1000,
+                           dtype=dt, device="cuda")
+        raw = rng.standard_normal((6, 2, CHANNELS, 2)) * 1e-2
+        raw[:, 1] *= 1e-9
+        states = [torch.as_tensor(r, dtype=dt, device=dev) for r in raw]
+        x = torch.as_tensor(rng.standard_normal((1000, CHANNELS)) * 0.3, dtype=dt, device=dev)
+        out.append((f"flagship's six biquads B=1000{sfx}",
+                    lambda cc=cc, states=states, x=x: cc._step(states, x), K3_REPS))
+        e = build_chain_from_string("matrix4_mb -6", StreamInfo(FS, CHANNELS)).effects[1]
+        n_sig = e.audio.n_sig
+        fsh = torch.as_tensor(rng.standard_normal((4, 2)) * 1e-2, dtype=dt, device=dev)
+        inv = torch.as_tensor(rng.standard_normal((n_sig, 2, 2)) * 1e-2, dtype=dt, device=dev)
+        pair = torch.as_tensor(rng.standard_normal((2048, 2)) * 0.3, dtype=dt, device=dev)
+        sig = torch.as_tensor(rng.standard_normal((2048, n_sig)) * 0.3, dtype=dt, device=dev)
+
+        def cascades(e=e, fsh=fsh, inv=inv, pair=pair, sig=sig):
+            f, y_f = e._cascade("fsh", fsh.reshape(2, 2, 2), pair)
+            i, y_i = e._cascade("inv", inv.transpose(0, 1), sig)
+            return f.reshape(4, 2), y_f, i.transpose(0, 1).contiguous(), y_i
+        out.append((f"matrix4_mb's two cascades B=2048{sfx}", cascades, K3_REPS))
+    for K, NB, _ in FDL_MAC_SHAPES:
+        X = torch.as_tensor(rng.standard_normal((NB, CHANNELS))
+                            + 1j * rng.standard_normal((NB, CHANNELS)), device=dev)
+        H = torch.as_tensor(rng.standard_normal((K, NB, CHANNELS))
+                            + 1j * rng.standard_normal((K, NB, CHANNELS)), device=dev)
+        fdl = torch.as_tensor(rng.standard_normal((K, NB, CHANNELS, 2)), device=dev)
+        out.append((f"fdl_mac K={K} NB={NB}", lambda X=X, H=H, f=fdl: fc.fdl_mac(X, H, f),
+                    K3_REPS))
+        out.append((f"fdl_mac_f32 K={K} NB={NB}",
+                    lambda X=X, H=H, f=fdl.float(): fc.fdl_mac_f32(X, H, f), K3_REPS))
+    return out
+
+
 def k1_rows():
     """(name, the call, reps) of the k1 rows, their inputs seeded: K1 on
     the flagship cascade at B = 2048 and 65536 (float64) and 2048
@@ -514,6 +591,14 @@ K1CLI_CASES = tuple((chain, block, dtype) for chain, block in (
     for dtype in ("float64", "float32"))
 
 
+# the renders of the k3cli rows: the flagship at -b 1000 (its six biquads
+# per sample) and 2048, `matrix4_mb -6` and `fir` 64k (the Upols step, K =
+# 32) at -b 2048, in both dtypes
+K3CLI_CASES = tuple((chain, block, dtype) for chain, block in (
+    (FLAGSHIP, 1000), (FLAGSHIP, 2048), (MATRIX4_MB, 2048), ("fir {f64k}", 2048))
+    for dtype in ("float64", "float32"))
+
+
 def k2cli_rows(inputs_path, keep, cases=K2CLI_CASES):
     """Each of `cases` (K2CLI_CASES or K1CLI_CASES) through dsp-torch on the
     card to -e double: x realtime, a digest of the render, and the
@@ -526,20 +611,24 @@ def k2cli_rows(inputs_path, keep, cases=K2CLI_CASES):
     if not src.exists():
         src.parent.mkdir(parents=True, exist_ok=True)
         write_input(src, SECONDS)
+    f64k = inputs_path.parent / "f64k.wav"  # chip_smoke.py's 65,536-tap filter
+    if not f64k.exists():
+        write_filter(f64k, 1 << 16, seed=0xBE)
     kernels.load()
     os.environ["DSP_TPU_TORCH_DEVICE"] = "cuda"
     out = []
     for i, (chain, block, dtype) in enumerate(cases):
         dst = keep.with_name(f"{keep.stem}_{i}.wav")
         os.environ["DSP_TPU_TORCH_DTYPE"] = dtype
-        argv = ["-b", str(block), "-q", str(src), "-o", "-e", "double", str(dst), *chain.split()]
+        words = chain.format(f64k=f64k).split()
+        argv = ["-b", str(block), "-q", str(src), "-o", "-e", "double", str(dst), *words]
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(io.StringIO()):
             rc = cli_main(argv)
         wall = time.perf_counter() - t0
         if rc != 0:
             raise SystemExit(f"kernel_times: dsp-torch {' '.join(argv)} exited {rc}")
-        name = "flagship" if chain == FLAGSHIP else chain
+        name = "flagship" if chain == FLAGSHIP else chain.format(f64k="64k")
         row = {"name": f"{name} -b {block} {dtype}", "x_realtime": SECONDS / wall,
                "digest": hashlib.sha256(dst.read_bytes()).hexdigest()[:16]}
         if chain == FLAGSHIP:  # held byte for byte: the digest is enough
@@ -556,7 +645,8 @@ PROFILE_CASES = ((FLAGSHIP, 2048, "float64", 64), (FLAGSHIP, 2048, "float32", 64
                  (FLAGSHIP, 1000, "float64", 64), (FLAGSHIP, 1000, "float32", 64),
                  (MATRIX4, 2048, "float64", 64), (MATRIX4, 2048, "float32", 64),
                  (MATRIX4, 65536, "float64", 8), (FLAGSHIP, 65536, "float64", 8),
-                 (MATRIX4_MB, 2048, "float64", 64), (MATRIX4_MB, 65536, "float64", 8),
+                 (MATRIX4_MB, 2048, "float64", 64), (MATRIX4_MB, 2048, "float32", 64),
+                 (MATRIX4_MB, 65536, "float64", 8),
                  (MATRIX4_MB, 1000, "float64", 64), (MATRIX4_MB, 1056, "float64", 64))
 
 
@@ -661,13 +751,15 @@ def measure(which, inputs_path, save=None):
         return k2cli_rows(inputs_path, save)
     if which == "k1cli":
         return k2cli_rows(inputs_path, save, K1CLI_CASES)
+    if which == "k3cli":
+        return k2cli_rows(inputs_path, save, K3CLI_CASES)
     if which == "profile":
         return profile_rows()
     out = []
-    if which in ("td", "k2", "audio", "k1"):
+    if which in ("td", "k2", "audio", "k1", "k3"):
         outputs = {}
         made = {"td": td_rows, "k2": k2_rows, "audio": lambda: audio_rows(inputs_path),
-                "k1": k1_rows}[which]()
+                "k1": k1_rows, "k3": k3_rows}[which]()
         for name, kern, reps in made:
             r = {"name": name, "ms": cuda_ms(kern, reps)}
             r["device_ms"], r["kernels"] = device_ms(kern, min(reps, 20))
@@ -766,7 +858,8 @@ def main():
     ap.add_argument("--tree", type=Path, default=None)
     ap.add_argument("--against", type=Path, default=None)
     ap.add_argument("--rows", choices=("all", "fft", "engines", "cli", "td", "tdcli", "k2",
-                                       "audio", "k2cli", "profile", "k1", "k1cli"), default="all")
+                                       "audio", "k2cli", "profile", "k1", "k1cli", "k3", "k3cli"),
+                    default="all")
     ap.add_argument("--inputs", type=Path, default=ENGINE_INPUTS)
     ap.add_argument("--save", type=Path, default=None)
     args = ap.parse_args()
@@ -793,7 +886,7 @@ def main():
                     Path(r["render"]).unlink()
     print(f"card: {card}; order: before, after, after, before")
     verdict = (compare_outputs(saves[0], saves[1])
-               if args.rows in ("all", "engines", "td", "k2", "audio", "k1") else {})
+               if args.rows in ("all", "engines", "td", "k2", "audio", "k1", "k3") else {})
     keys = ("ms", "us_a_tick", "device_ms", "device_us_a_tick", "kernels", "library_ms",
             "library_device_ms", "x_realtime", "digest", "render", "step_ms", "kernels_a_block",
             "device_ms_a_block", "top")

@@ -145,9 +145,11 @@ def _unfused_crossfeed_step(self, state, x):
                                                                 "flagship -b 2048"])
 def test_chain_equals_the_unfused_formulas(spec, block, monkeypatch):
     """The chain through CompiledChain on the CPU (the f64 per-sample
-    biquads at -b 1000 on biquad_scan_pair, crossfeed on crossfeed_step)
-    equals, bit for bit, the same chain with the step formulas of the
-    torch ops around a generic K2 launch, states included."""
+    biquads at -b 1000 as one biquad_scan_run, crossfeed on crossfeed_step)
+    equals, bit for bit, the same chain with each biquad stepped alone and
+    the step formulas of the torch ops around a generic K2 launch, states
+    included."""
+    from dsp_tpu_torch.chain import CompiledChain
     from dsp_tpu_torch.effects.biquad import BiquadEffect
     from dsp_tpu_torch.effects.crossfeed import CrossfeedEffect
 
@@ -159,6 +161,7 @@ def test_chain_equals_the_unfused_formulas(spec, block, monkeypatch):
         _unfused_biquad_step(self, s, xb) if xb.shape[0] % tiir.BLOCKED_L or xb.shape[0] < 256
         else tiir.lti_blocked(self._plan(), s, xb)))
     monkeypatch.setattr(CrossfeedEffect, "step", _unfused_crossfeed_step)
+    monkeypatch.setattr(CompiledChain, "_schedule", lambda self, effects: [(e, 0) for e in effects])
     old = port_chain(spec, block)
     y_old = old.process_array(x)
     np.testing.assert_array_equal(y_new, y_old)
