@@ -37,10 +37,10 @@ nvcc and PyTorch built for CUDA. It
    launches and by torch.profiler's, where CUPTI records the kernels
    (one_launch, which prints its device-only time). K1 also on cascades
    of 40 and 75 biquads (n = 80, 150), whose tables it cannot all stage
-   in shared memory, within K1_ABS; and K1 and K11 interleaved on their
-   shared look-back scratch with different tile counts, the aggregates'
-   storage filled with each launch's tag, bit-equal to fresh scratches
-   (lookback_phase). A run of per-sample biquads in one launch
+   in shared memory, within K1_ABS; and K1, K11 and m4mb_audio interleaved
+   on their shared look-back scratch with different tile counts, the
+   aggregates' storage filled with each launch's tag, bit-equal to fresh
+   scratches (lookback_phase). A run of per-sample biquads in one launch
    (biquad_scan_run, biquad_scan_run_df: csrc/biquad_scan.cu's
    dsp_biquad_scan_run) in its four forms, 2 and 6 stages, at B = 100,
    1000, 1056, 2048 and 65536, bit-equal to the separate launches it
@@ -48,7 +48,12 @@ nvcc and PyTorch built for CUDA. It
    (biquad_run_phase); fdl_mac and fdl_mac_f32 at every main-path shape
    with the shifted FDL equal to the plain version, a call and
    device-only; and the leaner wrappers of both refusing every bad input
-   (lean_wrapper_refusals).
+   (lean_wrapper_refusals). K14's modulated step (ModDelayEffect.step) is
+   one launch of csrc/mod_delay.cu by the library's count and no splice,
+   its carried line bit-equal to the plain version's, over blocks of 2048,
+   2048 and 64 (shorter than the line), with a 1 kHz modulator (float64:
+   within MOD_DELAY_FAST_DBFS) and a 0.2 s depth (a line window too long
+   to stage), in both dtypes.
    matrix4_mb's (slice F): K1 on its 13-band bank, K11 m4mb_env over 13 lanes, K9 + K10 m4mb_event (the
    13 engines coupled through their thresholds every tick) and K12 + K13
    m4mb_audio, over 3 blocks of transients in seven configurations (v4,
@@ -57,7 +62,10 @@ nvcc and PyTorch built for CUDA. It
    441, 470.4 and 768 kHz (HIGH_RATE_MB: the 13 bands' rings in a device
    scratch from 461.9 kHz; also in float32): decisions and
    thresholds equal, floats
-   within 1e-13 relative, the bank and the audio within -290 dBFS. Times
+   within 1e-13 relative, the bank and the audio within -290 dBFS;
+   m4mb_audio (and m4mb_audio_f32) one launch a call by the library's
+   count, with the phase flip and without it, at B = 2048, 1056 and 65536
+   (mb_audio_launches, device-only time printed). Times
    each kernel, its plain version and, where one PyTorch call computes the
    same function, that call, with CUDA events, and computes each kernel's
    roofline bound from its shapes; the transforms, the splices and their
@@ -1233,6 +1241,44 @@ def dither_cases(dtype, rng):
         print(f"  {shape}: equal at " + ", ".join(f"B={B} ({hist})" for B, _, hist in cases))
 
 
+# K14's checks: (quality, -M, depth in samples, modulator bandwidth in Hz);
+# a 1 kHz modulator reads about 10 knot rows a tile, and a 0.2 s depth
+# (17,640 samples) is a line window too long to stage in shared memory
+MOD_DELAY_CASES = tuple((qual, mono, 0.5e-3 * FS, 1.0) for qual in (0, 1, 2)
+                        for mono in (False, True)) + ((2, False, 0.5e-3 * FS, 1000.0),
+                                                      (1, True, 0.2 * FS, 1.0))
+# the float64 read against its plain version: -280 dBFS at the default 1 Hz
+# modulator; -260 at 1 kHz, whose phase t0 + step·n reaches 93 in a block:
+# one ulp of it (1.4e-14) moves the read position by the modulator's slope
+# times the depth, and the kernel may round the phase's product and sum
+# once (nvcc contracts a·b + c into an FMA) where the plain version rounds
+# twice (one ulp of the step alone moves the plain version's read by -254
+# dBFS on this input)
+MOD_DELAY_DBFS = -280.0
+MOD_DELAY_FAST_DBFS = -260.0
+# the blocks each case steps through: longer than the line, then shorter
+MOD_DELAY_BLOCKS = (2048, 2048, 64)
+
+
+def mod_delay_step(e, st, x, wrapper):
+    """ModDelayEffect.step on the card, required to run as one launch of
+    csrc/mod_delay.cu (by the library's own count and the wrapper's) and
+    no splice: (state', y)."""
+    from dsp_tpu_torch import kernels
+    from dsp_tpu_torch.ops import fft_conv
+
+    lib, own = kernels.mod_delay_launches(), wrapper.launches
+    spl = fft_conv.splice.launches + fft_conv.splice_f32.launches
+    out = e.step(st, x)
+    launched = kernels.mod_delay_launches() - lib
+    _require(f"{wrapper.__name__} step: {launched} kernels launched by the library's count "
+             f"({wrapper.launches - own} by the wrapper's), expected 1",
+             launched == 1 and wrapper.launches - own == 1)
+    _require(f"{wrapper.__name__} step: a splice was launched",
+             fft_conv.splice.launches + fft_conv.splice_f32.launches == spl)
+    return out
+
+
 def time_domain_phase(records):
     """Slice C's kernels against their plain versions at the main path's
     shape (B = 2048, stereo): the plain version runs on a host copy of the
@@ -1250,7 +1296,6 @@ def time_domain_phase(records):
     from dsp_tpu_torch.effects.dither import DitherEffect
     from dsp_tpu_torch.effects.stats import StatsEffect
     from dsp_tpu_torch.ops import time_domain as td
-    from dsp_tpu_torch.ops.fft_conv import splice
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(20264)
@@ -1369,43 +1414,55 @@ def time_domain_phase(records):
     print(f"  within 1e-12 relative; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
           f"(a chain of {B} samples a channel)")
 
-    print("K14 mod_delay (0.5 ms depth, q0/q1/q2, -m and -M, 3 blocks of 2048, stereo)")
+    print("K14 mod_delay (0.5 ms depth, q0/q1/q2, -m and -M, blocks of 2048, 2048 and 64, "
+          "stereo; a 1 kHz modulator; a 0.2 s depth read through L1)")
     rec = records["mod_delay"]
-    limit = 10.0 ** (-280.0 / 20.0)
-    for qual in (0, 1, 2):
-        for mono in (False, True):
-            e = ModDelayEffect("delay", StreamInfo(FS, C), np.ones(C, dtype=bool),
-                               0.5e-3 * FS, 1.0, mono, qual, seed=31337)
-            st = {k: torch.as_tensor(v, device=dev) for k, v in e.state0().items()}
-            table = None if e.table is None else torch.as_tensor(e.table, device=dev)
-            sel = torch.ones(C, dtype=torch.bool, device=dev)
-            H = e.len + e.n_taps
-            for blk in range(3):
-                xin = torch.as_tensor(rng.standard_normal((B, C)) * 0.3, device=dev)
-                args = (st["key"], st["y"], st["t"], st["buf"], xin, sel, table)
-                k_k, y_k, t_k, o_k = td.mod_delay(*args, e.depth, e.step_size, e.n_taps, qual)
-                k_r, y_r, t_r, o_r = td.mod_delay_ref(*_to_cpu(args), e.depth, e.step_size,
-                                                      e.n_taps, qual)
-                torch.cuda.synchronize()
-                err = max(_diff(o_k, o_r), _diff(y_k, y_r), _diff(t_k, t_r))
-                _require(f"mod_delay q{qual} {'-M' if mono else '-m'} block {blk}: key differs",
-                         torch.equal(k_k.cpu(), k_r))
-                _require(f"mod_delay q{qual} block {blk}: {dbfs(err):.1f} dBFS", err <= limit)
+    for qual, mono, samples, fc in MOD_DELAY_CASES:
+        limit = 10.0 ** ((MOD_DELAY_DBFS if fc == 1.0 else MOD_DELAY_FAST_DBFS) / 20.0)
+        e = ModDelayEffect("delay", StreamInfo(FS, C), np.ones(C, dtype=bool), samples, fc, mono,
+                           qual, seed=31337)
+        st = {k: torch.as_tensor(v, device=dev) for k, v in e.state0().items()}
+        table = None if e.table is None else torch.as_tensor(e.table, device=dev)
+        sel = torch.ones(C, dtype=torch.bool, device=dev)
+        what = f"mod_delay q{qual} {'-M' if mono else '-m'} depth {e.depth:g} fc {fc:g}"
+        for blk, Bk in enumerate(MOD_DELAY_BLOCKS):
+            xin = torch.as_tensor(rng.standard_normal((Bk, C)) * 0.3, device=dev)
+            args = (st["key"], st["y"], st["t"], st["buf"], xin, sel, table)
+            out_k = mod_delay_step(e, st, xin, td.mod_delay)
+            k_k, y_k, t_k, o_k, b_k = (out_k[0]["key"], out_k[0]["y"], out_k[0]["t"], out_k[1],
+                                       out_k[0]["buf"])
+            k_r, y_r, t_r, o_r, b_r = td.mod_delay_ref(*_to_cpu(args), e.depth, e.step_size,
+                                                       e.n_taps, qual)
+            torch.cuda.synchronize()
+            err = max(_diff(o_k, o_r), _diff(y_k, y_r), _diff(t_k, t_r))
+            _require(f"{what} block {blk}: key differs", torch.equal(k_k.cpu(), k_r))
+            _require(f"{what} block {blk}: the carried line differs from the plain version's",
+                     torch.equal(b_k.cpu(), b_r))
+            _require(f"{what} block {blk}: {dbfs(err):.1f} dBFS (limit {dbfs(limit):.0f})",
+                     err <= limit)
+            if fc == 1.0:
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
-                st = {"key": k_k, "y": y_k, "t": t_k, "buf": splice(st["buf"], xin, H, H - B, B)}
-            if qual == 2 and mono:
-                run = (lambda: td.mod_delay(st["key"], st["y"], st["t"], st["buf"], xin, sel,
-                                            table, e.depth, e.step_size, e.n_taps, qual))
-                ms = cuda_ms(run, 50)
-                plain_ms = cuda_ms(lambda: td.mod_delay_ref(
-                    st["key"], st["y"], st["t"], st["buf"], xin, sel, table, e.depth,
-                    e.step_size, e.n_taps, qual), 10)
-                # x and the line in, y out, the table; the B-spline (~20),
-                # 4 x 32 multiply-adds and the join (~15) a sample
-                nbytes = 8 * (2 * B * C + H * C + table.numel()) + 80
-                set_times(rec, ms, plain_ms, nbytes, (20 + 8 * e.n_taps + 15) * B * C)
-                print(f"  q2 -M: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    print(f"  all within {dbfs(rec['max_abs_err']):.1f} dBFS, keys equal")
+            else:
+                print(f"  {what} block {blk}: {dbfs(err):.1f} dBFS from the plain version")
+            st = out_k[0]
+        if (qual, mono, fc) == (2, True, 1.0):
+            xin = torch.as_tensor(rng.standard_normal((B, C)) * 0.3, device=dev)
+            H = e.len + e.n_taps
+            run = (lambda: td.mod_delay(st["key"], st["y"], st["t"], st["buf"], xin, sel,
+                                        table, e.depth, e.step_size, e.n_taps, qual))
+            ms = cuda_ms(run, 50)
+            plain_ms = cuda_ms(lambda: td.mod_delay_ref(
+                st["key"], st["y"], st["t"], st["buf"], xin, sel, table, e.depth,
+                e.step_size, e.n_taps, qual), 10)
+            # x and the line in, y and the line out, the table; the B-spline
+            # (~20), 4 x 32 multiply-adds and the join (~15) a sample
+            nbytes = 8 * (2 * B * C + 2 * H * C + table.numel()) + 80
+            set_times(rec, ms, plain_ms, nbytes, (20 + 8 * e.n_taps + 15) * B * C)
+            rec["device_ms"] = device_ms(run)[0]
+            print(f"  q2 -M B={B}: kernel {ms:.4f} ms a call, {rec['device_ms']:.4f} ms "
+                  f"device-only, plain {plain_ms:.4f} ms")
+    print(f"  the 1 Hz modulator's within {dbfs(rec['max_abs_err']):.1f} dBFS; keys and carried "
+          f"lines equal; one launch a step")
 
 
 def resample_phase(rec):
@@ -1714,6 +1771,24 @@ def mb_effect(words, fs, B, dtype=None):
     return cc._runtime_effects[i], cc.states[i]
 
 
+def mb_audio_launches(rec, wrapper, plain, cfg, ins, B, close):
+    """m4mb_audio (or its float32 form) with the phase flip and without it
+    (the same block's inputs): one launch a call by the library's count
+    (and torch.profiler's, where it records), the output `close` to the
+    plain version's. Keeps the device-only ms of the flip at B = 2048."""
+    from dsp_tpu_torch.ops import m4_engine as m4
+
+    for flip in (True, False):
+        c = cfg if flip else m4.M4MbAudio(cfg.len, False, cfg.direct_path)
+        got, want = wrapper(c, *ins), plain(c, *ins)
+        _require(f"{wrapper.__name__} B={B} phase_flip={flip}: differs from the plain version",
+                 all(close(a, b) for a, b in zip(got, want)))
+        dev_ms = one_launch(f"{wrapper.__name__} B={B} phase_flip={flip}",
+                            lambda: wrapper(c, *ins))
+        if flip and B == 2048:
+            rec["device_ms"] = dev_ms
+
+
 def matrix4_mb_phase(records):
     """matrix4_mb's kernels against their plain versions on the card, on the
     same inputs, over 3 blocks of transient material after 2 s of it
@@ -1815,6 +1890,10 @@ def matrix4_mb_phase(records):
                              lambda: m4.m4mb_env(bands, st["env_m"], e.g_env, w))
             if words == "matrix4_mb -6":
                 records["m4mb_env"]["device_ms"] = dev_ms
+        if fs == FS and words == "matrix4_mb -6":
+            mb_audio_launches(records["m4mb_audio"], m4.m4mb_audio, m4.m4mb_audio_ref, e.audio,
+                              (bands, st["fb_buf"], st["interp_c"], out_k[2], st["pf_m"]), B,
+                              lambda a, b: _diff(a, b) <= 10.0 ** (MB_AUDIO_DBFS / 20.0))
         if B == 65536:
             set_tick_us(records["m4mb_event"], B // 32, cuda_ms(lambda: m4.m4mb_event(*ins), 3))
         if (words, fs, B) != MB_KERNEL_CASES[0]:
@@ -1898,12 +1977,14 @@ def _tensors(out):
 
 
 def lookback_phase():
-    """K1 and K11 share one look-back scratch a stream (csrc/lookback.cuh,
-    kernels.lookback_scratch). Interleaves launches of different tile counts
-    and widths on it, LOOKBACK_ROUNDS rounds on new inputs: the flagship at
-    B = 65536 (128 slots of 12), the bank at B = 2048 (104 slots of 40) and
-    at its L = 1 plan (B = 1056), m4mb_env with the mix (16 slots of 104),
-    m4mb_env_f32 and m4_env at B = 65536 (64 slots of 8). Before each
+    """K1, K11 and m4mb_audio share one look-back scratch a stream
+    (csrc/lookback.cuh, kernels.lookback_scratch). Interleaves launches of
+    different tile counts and widths on it, LOOKBACK_ROUNDS rounds on new
+    inputs: the flagship at B = 65536 (128 slots of 12), the bank at B =
+    2048 (104 slots of 40) and at its L = 1 plan (B = 1056), m4mb_env with
+    the mix (16 slots of 104), m4mb_env_f32 and m4_env at B = 65536 (64
+    slots of 8), m4mb_audio at B = 65536 (256 slots of 26 maps, 52 values)
+    and 1056 (5), m4mb_audio_f32 at 2048 (8). Before each
     launch the aggregates' storage is filled with the words of that
     launch's own tag, so a flag read from anywhere but flag storage would
     release a tile early. Every output is held bit-equal to the same launch
@@ -1938,7 +2019,15 @@ def lookback_phase():
                                arr(2048, 13, 2, scale=1e-9, dtype=torch.float32),
                                arr(13, 8, scale=1e-2, dtype=torch.float32).abs(),
                                arr(13, 8, scale=1e-11, dtype=torch.float32).abs(), g, w)),
+            (m4.m4mb_audio, audio_args(65536)),
+            (m4.m4mb_audio_f32, audio_args(2048, torch.float32)),
+            (m4.m4mb_audio, audio_args(1056)),
         ]
+
+    def audio_args(B, dtype=torch.float64):  # m4mb_audio's, the allpasses' coefficients in (-1, 1)
+        sets = arr(B // 32 + 1, 3, 13, 12, scale=0.1, dtype=dtype)
+        return (e.audio, arr(B, 13, 2, dtype=dtype), arr(e.audio.len, 13, 2, dtype=dtype),
+                sets[0].contiguous(), sets[1:].contiguous(), arr(13, 2, 2, scale=0.05, dtype=dtype))
 
     rounds = [inputs() for _ in range(LOOKBACK_ROUNDS)]
     key = (0, kernels._stream(torch.empty(1, device=dev)))
@@ -1959,7 +2048,7 @@ def lookback_phase():
     for i, (a, b) in enumerate(zip(fresh, shared)):
         _require(f"launch {i} on the shared look-back scratch differs from the same launch on a "
                  f"fresh one", all(bits_equal(x, y) for x, y in zip(a, b)))
-    print(f"look-back: {len(shared)} launches of K1 and K11 interleaved on one scratch, the "
+    print(f"look-back: {len(shared)} launches of K1, K11 and m4mb_audio interleaved on one scratch, the "
           f"aggregates' storage filled with each launch's tag: bit-equal to fresh scratches")
 
 
@@ -2423,14 +2512,17 @@ OLD_KERNELS_A_BLOCK = {
 # matrix4's band-limit from 10 to 8); and a run of per-sample biquads in
 # one launch (the flagship's six at -b 1000 from 22 to 17; matrix4_mb's
 # two cascades, with their stack and state copies, 9 kernels to 2: 25 to
-# 18, in both dtypes)
+# 18, in both dtypes); matrix4_mb's audio path in one launch for 2 (18 to
+# 17) and the modulated delay's step in one for 3 (the modulated chain
+# from 10 to 8), in both dtypes
 MOST_KERNELS_A_BLOCK = {
     "fir 64k -b 2048 float64": 3, "fir 64k -b 2048 float32": 3,
     "resample 48k -b 2048 float32": 4,
     "flagship -b 2048 float64": 17, "flagship -b 2048 float32": 17,
     "flagship -b 1000 float64": 17, "flagship -b 1000 float32": 17,
     "matrix4": 8, "matrix4 -6 -b 2048 float64": 8, "matrix4 -6 -b 2048 float32": 8,
-    "matrix4_mb": 18, "matrix4_mb -6 -b 2048 float64": 18, "matrix4_mb -6 -b 2048 float32": 18,
+    "matrix4_mb": 17, "matrix4_mb -6 -b 2048 float64": 17, "matrix4_mb -6 -b 2048 float32": 17,
+    "modulated": 8, "modulated float32": 8,
 }
 # chains profiled at -b 65536 too (8 blocks each), where the card sets the
 # pace: K1's and K11's tiles over the card
@@ -2619,7 +2711,6 @@ def float32_time_domain_phase(records):
     from dsp_tpu_torch.effects.dither import DitherEffect
     from dsp_tpu_torch.effects.stats import StatsEffect
     from dsp_tpu_torch.ops import time_domain as td
-    from dsp_tpu_torch.ops.fft_conv import splice
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(20265)
@@ -2735,40 +2826,43 @@ def float32_time_domain_phase(records):
           f"(a chain of {B} samples a channel)")
 
     print("K14 mod_delay_f32 (0.5 ms depth, 1 kHz modulator, q0/q1/q2, -m and -M, "
-          "3 blocks of 2048, stereo)")
+          "blocks of 2048, 2048 and 64, stereo; a 0.2 s depth read through L1)")
     rec = records["mod_delay_f32"]
-    for qual in (0, 1, 2):
-        for mono in (False, True):
-            e = ModDelayEffect("delay", StreamInfo(FS, C), np.ones(C, dtype=bool),
-                               0.5e-3 * FS, 1000.0, mono, qual, seed=31338)
-            st = _f32_state(e, dev)
-            table = None if e.table is None else torch.as_tensor(e.table, dtype=f32, device=dev)
-            sel = torch.ones(C, dtype=torch.bool, device=dev)
+    for qual, mono, samples, _ in (c for c in MOD_DELAY_CASES if c[3] == 1.0):
+        e = ModDelayEffect("delay", StreamInfo(FS, C), np.ones(C, dtype=bool), samples, 1000.0,
+                           mono, qual, seed=31338)
+        st = _f32_state(e, dev)
+        table = None if e.table is None else torch.as_tensor(e.table, dtype=f32, device=dev)
+        sel = torch.ones(C, dtype=torch.bool, device=dev)
+        what = f"mod_delay_f32 q{qual} {'-M' if mono else '-m'} depth {e.depth:g}"
+        for blk, Bk in enumerate(MOD_DELAY_BLOCKS):
+            xin = torch.as_tensor(rng.standard_normal((Bk, C)) * 0.3, dtype=f32, device=dev)
+            args = (st["key"], st["y"], st["t"], st["buf"], xin, sel, table)
+            st_k, y_k = mod_delay_step(e, st, xin, td.mod_delay_f32)
+            out_k = (st_k["key"], st_k["y"], st_k["t"], y_k, st_k["buf"])
+            out_r = td.mod_delay_f32_ref(*_to_cpu(args), e.depth, e.step_size, e.n_taps, qual)
+            _hold_td32(rec, f"{what} block {blk}", (("key", "y", "t", "out", "buf"), out_k),
+                       out_r, exact=("key", "y", "t", "buf"))
+            st = st_k
+        if (qual, mono, samples) == (2, True, 0.5e-3 * FS):
+            xin = block()
             H = e.len + e.n_taps
-            for blk in range(3):
-                xin = block()
-                args = (st["key"], st["y"], st["t"], st["buf"], xin, sel, table)
-                out_k = td.mod_delay_f32(*args, e.depth, e.step_size, e.n_taps, qual)
-                out_r = td.mod_delay_f32_ref(*_to_cpu(args), e.depth, e.step_size, e.n_taps,
-                                             qual)
-                _hold_td32(rec, f"mod_delay_f32 q{qual} {'-M' if mono else '-m'} block {blk}",
-                           (("key", "y", "t", "out"), out_k), out_r, exact=("key", "y", "t"))
-                k_k, y_k, t_k, _ = out_k
-                st = {"key": k_k, "y": y_k, "t": t_k, "buf": splice(st["buf"], xin, H, H - B, B)}
-            if qual == 2 and mono:
-                run = (lambda: td.mod_delay_f32(st["key"], st["y"], st["t"], st["buf"], xin, sel,
-                                                table, e.depth, e.step_size, e.n_taps, qual))
-                ms = cuda_ms(run, 50)
-                plain_ms = cuda_ms(lambda: td.mod_delay_f32_ref(
-                    st["key"], st["y"], st["t"], st["buf"], xin, sel, table, e.depth,
-                    e.step_size, e.n_taps, qual), 10)
-                # x and the line in, y out, the table, float32; the B-spline
-                # (~20 float32 operations), 4 x 32 multiply-adds and the join
-                # (~15) in float64 a sample
-                nbytes = 4 * (2 * B * C + H * C + table.numel()) + 40
-                set_times(rec, ms, plain_ms, nbytes, (20 + 8 * e.n_taps + 15) * B * C)
-                print(f"  q2 -M: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    print("  keys, knots and phases equal, the reads within one ulp of their scale")
+            run = (lambda: td.mod_delay_f32(st["key"], st["y"], st["t"], st["buf"], xin, sel,
+                                            table, e.depth, e.step_size, e.n_taps, qual))
+            ms = cuda_ms(run, 50)
+            plain_ms = cuda_ms(lambda: td.mod_delay_f32_ref(
+                st["key"], st["y"], st["t"], st["buf"], xin, sel, table, e.depth,
+                e.step_size, e.n_taps, qual), 10)
+            # x and the line in, y and the line out, the table, float32; the
+            # B-spline (~20 float32 operations), 4 x 32 multiply-adds and the
+            # join (~15) in float64 a sample
+            nbytes = 4 * (2 * B * C + 2 * H * C + table.numel()) + 40
+            set_times(rec, ms, plain_ms, nbytes, (20 + 8 * e.n_taps + 15) * B * C)
+            rec["device_ms"] = device_ms(run)[0]
+            print(f"  q2 -M B={B}: kernel {ms:.4f} ms a call, {rec['device_ms']:.4f} ms "
+                  f"device-only, plain {plain_ms:.4f} ms")
+    print("  keys, knots, phases and carried lines equal, the reads within one ulp of their "
+          "scale; one launch a step")
 
 
 # slice J3's float32 FFT convolution engines on the main path's shapes:
@@ -3127,6 +3221,10 @@ def float32_m4_phase(records):
             dev_ms = one_launch(f"m4mb_env_f32 {words} B={B}", lambda: m4.m4mb_env_f32(*env_args))
             if words == "matrix4_mb -6":
                 records["m4mb_env_f32"]["device_ms"] = dev_ms
+        if fs == FS and words == "matrix4_mb -6":
+            mb_audio_launches(records["m4mb_audio_f32"], m4.m4mb_audio_f32, m4.m4mb_audio_f32_ref,
+                              e.audio, (bands, st["fb_buf"], st["interp_c"], out_k[4], st["pf_m"]),
+                              B, lambda a, b: _ulps(a, b)[0] <= 1.0)
         if B == 65536:
             set_tick_us(records["m4mb_event_f32"], B // 32,
                         cuda_ms(lambda: m4.m4mb_event_f32(*ins), 3))
@@ -3690,7 +3788,7 @@ def float32_time_domain_cli(records, tmp):
          # shaped by 1 - H(z): gain 1 + sum h^2; two draws
          math.sqrt(2 * (1 + sum(h * h for h in lipshitz)) * step ** 2 / 4)),
         ("modulated", MODULATED, "double", -20 * math.log10(2.0 ** 24),
-         {"mod_delay_f32": td.mod_delay_f32, "splice_f32": fft_conv.splice_f32,
+         {"mod_delay_f32": td.mod_delay_f32,
           "tpdf_noise_f32": td.tpdf_noise_f32, "tpdf_dither_f32": td.tpdf_dither_f32,
           "stats_step_f32": td.stats_step_f32, "levels_step_f32": td.levels_step_f32},
          # noise -90's TPDF (var level^2 / 6) and the sloped2 dither's
@@ -3850,7 +3948,7 @@ def main_path(records, seconds, tmp):
          {"enc": "s16", "limit_dbfs": None, "seed": SLICE_C_SEED,
           "keep": tmp / "f64_delivery.wav"}, None),
         ("modulated -b 2048", MODULATED.split(), 2048,
-         {"mod_delay": td.mod_delay, "splice": fft_conv.splice,
+         {"mod_delay": td.mod_delay,
           "tpdf_noise": td.tpdf_noise, "tpdf_dither": td.tpdf_dither,
           "stats_step": td.stats_step, "levels_step": td.levels_step},
          {"limit_dbfs": -280.0, "seed": SLICE_C_SEED, "keep": tmp / "f64_modulated.wav"}, None),

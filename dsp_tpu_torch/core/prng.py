@@ -147,25 +147,36 @@ def split(key, n=2):
 def uniform_f64(key, shape, maxval):
     """jax.random.uniform(key, shape, float64, minval=0, maxval=maxval): the
     top 52 of element i's 64 bits threefry2x32(key, (i >> 32, i & mask)) as
-    a mantissa, (1.m - 1) * maxval. The mantissa is built as
-    (x0 << 20) | (x1 >> 12), since int64 shifts right arithmetically."""
-    k0, k1 = _key_words(key)
+    a mantissa, (1.m - 1) * maxval."""
     n = int(np.prod(shape, dtype=np.int64))
-    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    return uniform_f64_at(key, torch.arange(n, dtype=torch.int64, device=key.device),
+                          maxval).reshape(shape)
+
+
+def uniform_f64_at(key, i, maxval):
+    """Elements i (an int64 tensor of counters) of uniform_f64's draws. The
+    mantissa is built as (x0 << 20) | (x1 >> 12), since int64 shifts right
+    arithmetically."""
+    k0, k1 = _key_words(key)
     x0, x1 = threefry2x32(k0, k1, i >> 32, i & MASK32)
     mant = (x0 << 20) | (x1 >> 12)  # < 2^52: exact in float64
     u = mant.to(torch.float64) * 2.0**-52  # exact: (1.m - 1)
-    return (u * float(maxval)).reshape(shape)
+    return u * float(maxval)
 
 
 def uniform_f32(key, shape, maxval):
     """jax.random.uniform(key, shape, float32, minval=0, maxval=maxval): the
     top 23 of element i's 32 bits x0 ^ x1 of threefry2x32(key, (i >> 32,
     i & mask)) as a mantissa, (1.m - 1) · float32(maxval) in float32."""
-    k0, k1 = _key_words(key)
     n = int(np.prod(shape, dtype=np.int64))
-    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    return uniform_f32_at(key, torch.arange(n, dtype=torch.int64, device=key.device),
+                          maxval).reshape(shape)
+
+
+def uniform_f32_at(key, i, maxval):
+    """Elements i (an int64 tensor of counters) of uniform_f32's draws."""
+    k0, k1 = _key_words(key)
     x0, x1 = threefry2x32(k0, k1, i >> 32, i & MASK32)
     bits = ((x0 ^ x1) >> 9) | 0x3F800000  # 1.m, below 2^31: fits int32
     u = bits.to(torch.int32).view(torch.float32) - 1.0  # exact
-    return (u * torch.tensor(maxval, dtype=torch.float32, device=key.device)).reshape(shape)
+    return u * torch.tensor(maxval, dtype=torch.float32, device=key.device)

@@ -1,7 +1,7 @@
 // A single-pass scan across the thread blocks of one launch, shared by K1
-// (csrc/lti_blocked.cu) and K11 (csrc/m4_env.cu): the reduce-then-scan of
-// an affine recurrence in one launch, in a fixed order so that every run
-// gives the same bits.
+// (csrc/lti_blocked.cu), K11 (csrc/m4_env.cu) and matrix4_mb's K12-K13
+// (csrc/m4mb_audio.cu): the reduce-then-scan of an affine recurrence in one
+// launch, in a fixed order so that every run gives the same bits.
 //
 // A launch cuts its sequence into tiles, a block a tile. Each block
 //   1. takes a ticket: tiles are numbered in the order blocks start, so a
@@ -13,7 +13,9 @@
 //      aggregates with the carried start value, each times the power of
 //      the tile map for its distance, in tile order (a decoupled look-back
 //      that always reaches tile 0: the sum and its rounding do not depend
-//      on which tiles happened to finish first).
+//      on which tiles happened to finish first). Where the map varies from
+//      tile to tile (carry_affine), each tile publishes its maps and the
+//      waiting tile applies them to the carried values one after another.
 // No tile waits on another's wait, so the tiles' waits overlap.
 // The flags carry the launch's epoch, so nothing is cleared between
 // launches: the last block to finish zeroes the ticket and done counters
@@ -89,6 +91,37 @@ __device__ inline void wait(const Scratch& s, long long slot, unsigned tag) {
         if (++spins > kSpinLimit) __trap();  // a tile that never publishes
     }
     __threadfence();
+}
+
+// The general affine form: each of `width` lanes carries a value through
+// maps that vary from tile to tile, v <- a·v + b. A tile publishes its maps
+// as a[width] then b[width] (publish with 2·width values); carry_affine
+// waits for every tile before t and applies their maps to the values in v
+// (shared memory: the launch's start values on entry, tile t's on return)
+// one after another, in tile order, each an FMA. A value is carried, never
+// a composed map, so a tile's values meet every earlier map in the same
+// order whatever the tile length and the card's timing. buf (shared
+// memory, kAffineLook · 2 · width doubles) stages the maps. Every thread of
+// the block calls it; it ends on a barrier.
+constexpr int kAffineLook = 64;
+
+__device__ inline void carry_affine(const Scratch& s, long long t, unsigned tag, int width,
+                                    double* v, double* buf) {
+    for (long long j = threadIdx.x; j < t; j += blockDim.x) wait(s, j, tag);
+    __syncthreads();
+    const int w2 = 2 * width;
+    for (long long j0 = 0; j0 < t; j0 += kAffineLook) {
+        const int cnt = (int)(t - j0 < kAffineLook ? t - j0 : kAffineLook);
+        for (int q = threadIdx.x; q < cnt * w2; q += blockDim.x)
+            buf[q] = __ldcg(s.agg + j0 * w2 + q);
+        __syncthreads();
+        for (int e = threadIdx.x; e < width; e += blockDim.x) {
+            double x = v[e];
+            for (int i = 0; i < cnt; ++i) x = __fma_rn(buf[i * w2 + e], x, buf[i * w2 + width + e]);
+            v[e] = x;
+        }
+        __syncthreads();
+    }
 }
 
 // The last block of the launch to get here resets the counters and moves

@@ -14,16 +14,26 @@
 //      Hermite (q0), or four polyphase FIR dot products (6 x 16 taps at q1,
 //      16 x 32 at q2) joined by a cubic B-spline. -M reads one lane's
 //      modulation for every channel.
-// The carried line (the last H rows of [buf | x]) is written by the splice
-// kernel of fft_conv.cu, launched by the effect.
+//   3. the carried line: the last H rows of [buf | x], into a new tensor.
 //
 // What bounds it on the card: at B = 2048, C = 2, q2 reads 4 x 32 taps a
-// sample from the line (1 MB of loads, mostly from L1: the taps of
-// neighbouring samples overlap) and does 256 multiply-adds; the knots are
-// a few dozen threefry calls. Launch latency bounds it at this size.
-// Design: two launches. One block makes the knots into a scratch the
-// wrapper allocates and writes the carried key, window and phase; then a
-// grid of one thread per (n, c) evaluates the modulation and the read.
+// sample from the line and does 256 multiply-adds; the knots are a few
+// dozen threefry calls. Launch latency bounds it at this size.
+// Design: one launch, a block a tile of 128 samples of every channel:
+//   - the block draws only the knots its samples read, rows floor(t0 +
+//     step·n0) .. floor(t0 + step·n1) + 3 (the last tile's also reach the
+//     next window), into shared memory: a knot's twelve draws are fixed by
+//     their counters, so any block can draw any knot. A thread draws one
+//     pair's difference, a thread a knot sums its six in the order of the
+//     plain version, so each knot has the same bits in every block;
+//   - it stages the polyphase table and, where it fits, the line window
+//     its reads reach, [H + n0 - depth - taps, H + n1) of [buf | x], in
+//     shared memory (a long depth reads the line through L1 instead);
+//   - a thread a (sample, channel) evaluates the modulation and the read,
+//     each tap sum in the plain version's order;
+//   - the blocks copy the carried line to a new tensor (every block still
+//     reads the old one), and the last tile writes the carried key, knot
+//     window and phase.
 // Everything stays on the device: t0 is read there, not on the host.
 // Modulated reads are held to the plain version within a tolerance (sums
 // of taps in another order), not bit for bit.
@@ -44,6 +54,7 @@
 
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <type_traits>
 
 #include "rn.cuh"
@@ -53,49 +64,13 @@ namespace {
 
 constexpr int NOISE_N = 6;
 constexpr double MOD_MAX = 2147483647.0;
-
-template <typename T>
-__global__ void mod_knots_kernel(const uint32_t* __restrict__ key_in,
-                                 uint32_t* __restrict__ key_out, const T* __restrict__ y_in,
-                                 T* __restrict__ y_out, const T* __restrict__ t_in,
-                                 T* __restrict__ t_out, T* __restrict__ knots, int n_new,
-                                 int lanes, double step_b) {
-    constexpr bool f32 = std::is_same<T, float>::value;
-    __shared__ uint32_t k[2][2];
-    const int tid = threadIdx.x;
-    if (tid < 2) dsp_threefry::split(key_in, tid, k[tid]);
-    __syncthreads();
-    if (tid < 2) key_out[tid] = k[0][tid];
-    const T scale = (T)(0.77 / NOISE_N / MOD_MAX);
-    const int total = (4 + n_new) * lanes;
-    for (int idx = tid; idx < total; idx += blockDim.x) {
-        const int row = idx / lanes, l = idx % lanes;
-        if (row < 4) {
-            knots[idx] = y_in[idx];
-            continue;
-        }
-        const unsigned long long i = row - 4;
-        T acc = 0;
-        for (int j = 0; j < NOISE_N; ++j) {
-            const unsigned long long base = (i * NOISE_N + j) * 2;
-            const T u0 = dsp_threefry::uniform(k[1][0], k[1][1], base * lanes + l, (T)MOD_MAX);
-            const T u1 = dsp_threefry::uniform(k[1][0], k[1][1], (base + 1) * lanes + l,
-                                               (T)MOD_MAX);
-            if constexpr (f32) {
-                acc = add_rn(acc, mul_rn(sub_rn(u0, u1), scale));
-            } else {
-                acc += (u0 - u1) * scale;
-            }
-        }
-        knots[idx] = acc;
-    }
-    __syncthreads();
-    // float32: (t0 + float32(step·B)) in float32, as dsp_tpu float32
-    const T tb = f32 ? add_rn(*t_in, (T)step_b) : *t_in + (T)step_b;
-    const int consumed = (int)floor(tb);
-    for (int idx = tid; idx < 4 * lanes; idx += blockDim.x) y_out[idx] = knots[consumed * lanes + idx];
-    if (tid == 0) *t_out = f32 ? sub_rn(tb, (T)consumed) : tb - (T)consumed;
-}
+constexpr int kTile = 128;     // samples a block
+constexpr int kThreads = 256;
+// a block stages its line window where it takes at most this many bytes
+constexpr size_t kWindowBytes = 96 * 1024;
+// a block's dynamic shared memory on the H100: 232,448 bytes less the
+// static key words
+constexpr size_t kMaxShared = 232448 - 64;
 
 template <typename T>
 __device__ __forceinline__ double line_at(const T* __restrict__ buf, const T* __restrict__ x,
@@ -128,130 +103,252 @@ __device__ __forceinline__ float bspline_mod_f32(float z0, float z1, float z2, f
                      c0);
 }
 
-template <typename T>
-__global__ void mod_read_kernel(const T* __restrict__ knots, const T* __restrict__ t_in,
-                                const T* __restrict__ buf, const T* __restrict__ x,
-                                T* __restrict__ out, const bool* __restrict__ sel,
-                                const T* __restrict__ table, int H, int B, int C, int lanes,
-                                int n_phases, int taps, double depth, double step) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (long long)B * C) return;
-    const int n = (int)(i / C), c = (int)(i % C);
-    if (!sel[c]) {
-        out[i] = x[i];
-        return;
-    }
-    const int l = lanes == 1 ? 0 : c;
-    // the read position: its integer part d_int and its fraction d_frac
-    int d_int;
-    double d_frac;
-    float d_frac32 = 0.0f;
-    if constexpr (std::is_same<T, float>::value) {
-        // step·n in float64 (dsp_tpu's jnp.arange is int64), rounded to
-        // float32 where it meets the float32 phase
-        const float tev = __fadd_rn(*t_in, (float)(step * (double)n));
-        const float kf = floorf(tev);
-        const float frac = __fsub_rn(tev, kf);
-        const float* kn = knots + (size_t)(int)kf * lanes + l;
-        float z = bspline_mod_f32(kn[0], kn[lanes], kn[2 * lanes], kn[3 * lanes], frac);
-        z = fminf(fmaxf(z, 0.0f), 1.0f);
-        const float mod = __fmul_rn(z, (float)depth);
-        d_int = (int)mod;  // truncation, like (ssize_t) mod
-        d_frac32 = __fsub_rn(mod, (float)d_int);  // exact
-        d_frac = d_frac32;
-    } else {
-        const double tev = *t_in + step * n;
-        const double kf = floor(tev);
-        const int kidx = (int)kf;
-        const double frac = tev - kf;
-        const double* kn = knots + (size_t)kidx * lanes + l;
-        double z = bspline(kn[0], kn[lanes], kn[2 * lanes], kn[3 * lanes], frac, 0.5);
-        z = fmin(fmax(z, 0.0), 1.0);
-        const double mod = z * depth;
-        d_int = (int)mod;  // truncation, like (ssize_t) mod
-        d_frac = mod - d_int;
-    }
-    const int base = H + n - d_int;
-    double y;
-    if (table == nullptr) {
-        // cubic Hermite on y[-3..0] at t = d_frac (delay.c:454-459)
-        const double ym3 = line_at(buf, x, H, C, base - 3, c);
-        const double ym2 = line_at(buf, x, H, C, base - 2, c);
-        const double ym1 = line_at(buf, x, H, C, base - 1, c);
-        const double y0 = line_at(buf, x, H, C, base, c);
-        const double h1 = 0.5 * (ym2 - y0);
-        const double h2 = y0 - 2.5 * ym1 + 2.0 * ym2 - 0.5 * ym3;
-        const double h3 = 0.5 * (ym3 - y0) + 1.5 * (ym1 - ym2);
-        y = ((h3 * d_frac + h2) * d_frac + h1) * d_frac + ym1;
-    } else {
-        // the polyphase phase: in float32 for a float32 line (its integer
-        // part picks the filters)
-        double t_os;
-        if constexpr (std::is_same<T, float>::value) {
-            t_os = __fmul_rn(d_frac32, (float)n_phases);
-        } else {
-            t_os = d_frac * n_phases;
-        }
-        const int ph0 = (int)t_os;
-        double zs[4];
-        for (int k = 0; k < 4; ++k) {
-            const int phi = ph0 + k;
-            const T* flt = table + (size_t)(phi % n_phases) * taps;
-            const int top = base - phi / n_phases;  // tap j reads the line at top - j
-            double acc = 0.0;
-            for (int j = 0; j < taps; ++j)
-                acc += line_at(buf, x, H, C, top - j, c) * (double)flt[j];
-            zs[k] = acc;
-        }
-        y = bspline(zs[0], zs[1], zs[2], zs[3], t_os - ph0, 0.0);
-    }
-    out[i] = (T)y;
+// the modulator's phase at sample n: float32 adds step·n, a float64
+// product (dsp_tpu's jnp.arange is int64), to the float32 phase
+__device__ __forceinline__ double phase(double t0, double step, int n) { return t0 + step * n; }
+__device__ __forceinline__ float phase(float t0, double step, int n) {
+    return __fadd_rn(t0, (float)(step * (double)n));
 }
+
+// the line a block reads: staged rows [lo, lo + rows) of [buf | x] in
+// shared memory, or (win null) the tensors themselves
+template <typename T>
+struct Line {
+    const T* buf;
+    const T* x;
+    const T* win;
+    int H, C, lo;
+
+    __device__ __forceinline__ double at(int k, int c) const {
+        return win != nullptr ? (double)win[(size_t)(k - lo) * C + c] : line_at(buf, x, H, C, k, c);
+    }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mod_delay_kernel(const uint32_t* __restrict__ key_in, uint32_t* __restrict__ key_out,
+                 const T* __restrict__ y_in, T* __restrict__ y_out, const T* __restrict__ t_in,
+                 T* __restrict__ t_out, const T* __restrict__ buf, const T* __restrict__ x,
+                 T* __restrict__ out, T* __restrict__ line_out, const bool* __restrict__ sel,
+                 const T* __restrict__ table, int H, int B, int C, int lanes, int n_new,
+                 int n_phases, int taps, int reach, int rows_cap, int staged, double depth,
+                 double step, double step_b) {
+    constexpr bool f32 = std::is_same<T, float>::value;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* diffs = reinterpret_cast<T*>(smem_raw);    // [rows_cap][6][lanes]
+    T* knots = diffs + (size_t)rows_cap * NOISE_N * lanes;  // [rows_cap][lanes]
+    T* tab = knots + (size_t)rows_cap * lanes;    // [n_phases·taps]
+    T* win = tab + (size_t)n_phases * taps;       // the staged line window
+    __shared__ uint32_t k[2][2];
+    const int tid = threadIdx.x;
+    const int n0 = blockIdx.x * kTile, n1 = min(n0 + kTile, B);  // this tile's samples
+    const bool last = n1 == B;
+    if (tid < 2) dsp_threefry::split(key_in, tid, k[tid]);
+    // the knot rows this tile reads (the phase rises with n), and the last
+    // tile's next window
+    const T tin = *t_in;
+    const int k_lo = (int)floor(phase(tin, step, n0));
+    int k_hi = (int)floor(phase(tin, step, n1 - 1));
+    // float32: (t0 + float32(step·B)) in float32, as dsp_tpu float32
+    const T tb = f32 ? add_rn(tin, (T)step_b) : tin + (T)step_b;
+    const int consumed = (int)floor(tb);
+    if (last) k_hi = max(k_hi, consumed);
+    const int rows = k_hi + 4 - k_lo;
+    if (rows > rows_cap || k_hi + 4 > 4 + n_new) __trap();  // the host's bounds are wrong
+    // the line window [lo, hi) of [buf | x] the tile's reads reach
+    const int w_lo = max(H + n0 - reach, 0), w_hi = H + n1;
+    for (int q = tid; q < n_phases * taps; q += kThreads) tab[q] = table[q];
+    if (staged) {
+        for (int q = tid; q < (w_hi - w_lo) * C; q += kThreads) {
+            const int row = w_lo + q / C, c = q - (q / C) * C;
+            win[q] = row < H ? buf[(size_t)row * C + c] : x[(size_t)(row - H) * C + c];
+        }
+    }
+    __syncthreads();
+    // each new knot's six differences, a thread a pair of draws
+    const T scale = (T)(0.77 / NOISE_N / MOD_MAX);
+    for (int q = tid; q < rows * NOISE_N * lanes; q += kThreads) {
+        const int r = q / (NOISE_N * lanes), row = k_lo + r;
+        if (row < 4) continue;
+        const int j = (q / lanes) % NOISE_N, l = q % lanes;
+        const unsigned long long base = ((unsigned long long)(row - 4) * NOISE_N + j) * 2;
+        const T u0 = dsp_threefry::uniform(k[1][0], k[1][1], base * lanes + l, (T)MOD_MAX);
+        const T u1 = dsp_threefry::uniform(k[1][0], k[1][1], (base + 1) * lanes + l, (T)MOD_MAX);
+        diffs[q] = f32 ? sub_rn(u0, u1) : u0 - u1;
+    }
+    __syncthreads();
+    // a thread a knot: the carried window's rows, or the six-term sum from 0
+    for (int q = tid; q < rows * lanes; q += kThreads) {
+        const int r = q / lanes, row = k_lo + r, l = q - r * lanes;
+        if (row < 4) {
+            knots[q] = y_in[row * lanes + l];
+            continue;
+        }
+        const T* d = diffs + (size_t)r * NOISE_N * lanes + l;
+        T acc = 0;
+        for (int j = 0; j < NOISE_N; ++j) {
+            if constexpr (f32) {
+                acc = add_rn(acc, mul_rn(d[j * lanes], scale));
+            } else {
+                acc += d[j * lanes] * scale;
+            }
+        }
+        knots[q] = acc;
+    }
+    __syncthreads();
+    if (last) {
+        if (tid < 2) key_out[tid] = k[0][tid];
+        for (int q = tid; q < 4 * lanes; q += kThreads) y_out[q] = knots[(consumed - k_lo) * lanes + q];
+        if (tid == 0) *t_out = f32 ? sub_rn(tb, (T)consumed) : tb - (T)consumed;
+    }
+    // the carried line, the last H rows of [buf | x], shared by the blocks
+    for (long long q = (long long)blockIdx.x * kThreads + tid; q < (long long)H * C;
+         q += (long long)gridDim.x * kThreads) {
+        const int row = (int)(q / C) + B, c = (int)(q % C);
+        line_out[q] = row < H ? buf[(size_t)row * C + c] : x[(size_t)(row - H) * C + c];
+    }
+    const Line<T> ln = {buf, x, staged ? win : nullptr, H, C, w_lo};
+    for (int q = tid; q < (n1 - n0) * C; q += kThreads) {
+        const int n = n0 + q / C, c = q % C;
+        const size_t i = (size_t)n * C + c;
+        if (!sel[c]) {
+            out[i] = x[i];
+            continue;
+        }
+        const int l = lanes == 1 ? 0 : c;
+        // the read position: its integer part d_int and its fraction d_frac
+        int d_int;
+        double d_frac;
+        float d_frac32 = 0.0f;
+        if constexpr (f32) {
+            const float tev = phase(tin, step, n);
+            const float kf = floorf(tev);
+            const float frac = __fsub_rn(tev, kf);
+            const float* kn = knots + (size_t)((int)kf - k_lo) * lanes + l;
+            float z = bspline_mod_f32(kn[0], kn[lanes], kn[2 * lanes], kn[3 * lanes], frac);
+            z = fminf(fmaxf(z, 0.0f), 1.0f);
+            const float mod = __fmul_rn(z, (float)depth);
+            d_int = (int)mod;  // truncation, like (ssize_t) mod
+            d_frac32 = __fsub_rn(mod, (float)d_int);  // exact
+            d_frac = d_frac32;
+        } else {
+            const double tev = phase(tin, step, n);
+            const double kf = floor(tev);
+            const int kidx = (int)kf;
+            const double frac = tev - kf;
+            const double* kn = knots + (size_t)(kidx - k_lo) * lanes + l;
+            double z = bspline(kn[0], kn[lanes], kn[2 * lanes], kn[3 * lanes], frac, 0.5);
+            z = fmin(fmax(z, 0.0), 1.0);
+            const double mod = z * depth;
+            d_int = (int)mod;  // truncation, like (ssize_t) mod
+            d_frac = mod - d_int;
+        }
+        const int base = H + n - d_int;
+        double y;
+        if (table == nullptr) {
+            // cubic Hermite on y[-3..0] at t = d_frac (delay.c:454-459)
+            const double ym3 = ln.at(base - 3, c);
+            const double ym2 = ln.at(base - 2, c);
+            const double ym1 = ln.at(base - 1, c);
+            const double y0 = ln.at(base, c);
+            const double h1 = 0.5 * (ym2 - y0);
+            const double h2 = y0 - 2.5 * ym1 + 2.0 * ym2 - 0.5 * ym3;
+            const double h3 = 0.5 * (ym3 - y0) + 1.5 * (ym1 - ym2);
+            y = ((h3 * d_frac + h2) * d_frac + h1) * d_frac + ym1;
+        } else {
+            // the polyphase phase: in float32 for a float32 line (its integer
+            // part picks the filters)
+            double t_os;
+            if constexpr (f32) {
+                t_os = __fmul_rn(d_frac32, (float)n_phases);
+            } else {
+                t_os = d_frac * n_phases;
+            }
+            const int ph0 = (int)t_os;
+            double zs[4];
+            for (int kk = 0; kk < 4; ++kk) {
+                const int phi = ph0 + kk;
+                const T* flt = tab + (size_t)(phi % n_phases) * taps;
+                const int top = base - phi / n_phases;  // tap j reads the line at top - j
+                double acc = 0.0;
+                for (int j = 0; j < taps; ++j) acc += ln.at(top - j, c) * (double)flt[j];
+                zs[kk] = acc;
+            }
+            y = bspline(zs[0], zs[1], zs[2], zs[3], t_os - ph0, 0.0);
+        }
+        out[i] = (T)y;
+    }
+}
+
+// The kernels launch has launched in this process (host side): how a
+// caller checks that a call is one launch.
+unsigned long long mod_launches = 0;
 
 template <typename T>
 int launch_mod_delay(const uint32_t* key_in, uint32_t* key_out, const T* y_in, T* y_out,
-                     const T* t_in, T* t_out, T* knots, const T* buf, const T* x, T* out,
+                     const T* t_in, T* t_out, const T* buf, const T* x, T* out, T* line_out,
                      const bool* sel, const T* table, int H, int B, int C, int lanes, int n_new,
                      int n_phases, int taps, double depth, double step, double step_b,
                      void* stream) {
-    if (B <= 0 || C <= 0 || lanes <= 0 || n_new <= 0) return (int)cudaErrorInvalidValue;
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    mod_knots_kernel<T><<<1, 256, 0, s>>>(key_in, key_out, y_in, y_out, t_in, t_out, knots,
-                                          n_new, lanes, step_b);
+    if (B <= 0 || C <= 0 || H <= 0 || lanes <= 0 || n_new <= 0 || step < 0 || depth < 0 ||
+        (table != nullptr && (n_phases <= 0 || taps <= 0)))
+        return (int)cudaErrorInvalidValue;
+    if (table == nullptr) n_phases = taps = 0;
+    // a tile's knot rows: its phases span at most step·kTile + 1 rows, the
+    // last tile's next window one more, each read 4 rows on
+    const int rows_cap = (int)std::ceil(step * kTile) + 6;
+    // the rows a read reaches below its sample: the depth (and one for a
+    // float32 depth rounded up) and the taps (3 for the Hermite read)
+    const int reach = (int)std::floor(depth) + 1 + (table == nullptr ? 3 : taps);
+    const size_t fixed = ((size_t)rows_cap * (NOISE_N + 1) * lanes + (size_t)n_phases * taps) *
+                         sizeof(T);
+    const size_t window = (size_t)(kTile + reach) * C * sizeof(T);
+    const int staged = window <= kWindowBytes && fixed + window <= kMaxShared;
+    const size_t smem = fixed + (staged ? window : 0);
+    if (smem > kMaxShared) return (int)cudaErrorInvalidValue;
+    static size_t sized = 48 * 1024;  // the function's attribute, raised as launches need
+    if (smem > sized) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            mod_delay_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        sized = smem;
+    }
+    mod_delay_kernel<T><<<(B + kTile - 1) / kTile, kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+        key_in, key_out, y_in, y_out, t_in, t_out, buf, x, out, line_out, sel, table, H, B, C,
+        lanes, n_new, n_phases, taps, reach, rows_cap, staged, depth, step, step_b);
     const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const long long N = (long long)B * C;
-    const int T_ = 256;
-    mod_read_kernel<T><<<(int)((N + T_ - 1) / T_), T_, 0, s>>>(
-        knots, t_in, buf, x, out, sel, table, H, B, C, lanes, n_phases, taps, depth, step);
-    return (int)cudaGetLastError();
+    if (err == cudaSuccess) ++mod_launches;
+    return (int)err;
 }
 
 }  // namespace
 
-// Returns the first cudaGetLastError() after the two launches (0 on
-// success). knots: scratch [4 + n_new, lanes]; table: null for q0, else
+// Returns cudaGetLastError() after the launch (0 on success). line_out: the
+// carried line [H, C], a tensor other than buf; table: null for q0, else
 // [n_phases, taps]; all of the sample type. step_b = step·B, as the host
 // computes it. The caller (dsp_tpu_torch/ops/time_domain.py) checks shapes,
 // dtypes, contiguity and that the read stays inside the line.
 extern "C" int dsp_mod_delay_f64(const uint32_t* key_in, uint32_t* key_out, const double* y_in,
                                  double* y_out, const double* t_in, double* t_out,
-                                 double* knots, const double* buf, const double* x, double* out,
-                                 const bool* sel, const double* table, int H, int B, int C,
-                                 int lanes, int n_new, int n_phases, int taps, double depth,
-                                 double step, double step_b, void* stream) {
-    return launch_mod_delay<double>(key_in, key_out, y_in, y_out, t_in, t_out, knots, buf, x,
-                                    out, sel, table, H, B, C, lanes, n_new, n_phases, taps,
+                                 const double* buf, const double* x, double* out,
+                                 double* line_out, const bool* sel, const double* table, int H,
+                                 int B, int C, int lanes, int n_new, int n_phases, int taps,
+                                 double depth, double step, double step_b, void* stream) {
+    return launch_mod_delay<double>(key_in, key_out, y_in, y_out, t_in, t_out, buf, x, out,
+                                    line_out, sel, table, H, B, C, lanes, n_new, n_phases, taps,
                                     depth, step, step_b, stream);
 }
 
 extern "C" int dsp_mod_delay_f32(const uint32_t* key_in, uint32_t* key_out, const float* y_in,
-                                 float* y_out, const float* t_in, float* t_out, float* knots,
-                                 const float* buf, const float* x, float* out, const bool* sel,
+                                 float* y_out, const float* t_in, float* t_out, const float* buf,
+                                 const float* x, float* out, float* line_out, const bool* sel,
                                  const float* table, int H, int B, int C, int lanes, int n_new,
                                  int n_phases, int taps, double depth, double step,
                                  double step_b, void* stream) {
-    return launch_mod_delay<float>(key_in, key_out, y_in, y_out, t_in, t_out, knots, buf, x,
-                                   out, sel, table, H, B, C, lanes, n_new, n_phases, taps,
+    return launch_mod_delay<float>(key_in, key_out, y_in, y_out, t_in, t_out, buf, x, out,
+                                   line_out, sel, table, H, B, C, lanes, n_new, n_phases, taps,
                                    depth, step, step_b, stream);
 }
+
+extern "C" unsigned long long dsp_mod_delay_launches() { return mod_launches; }

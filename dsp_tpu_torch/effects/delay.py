@@ -33,7 +33,7 @@ from dsp_tpu_torch.effects.base import (
     EffectError,
     register_effect,
 )
-from dsp_tpu_torch.ops import fft_conv, iir, time_domain
+from dsp_tpu_torch.ops import iir, time_domain
 
 DELAY_MIN_FRAC = 0.1
 FD_AP_N_DEFAULT = 2
@@ -296,16 +296,13 @@ class ModDelayEffect(Effect):
         }
 
     def step(self, state, x):
-        B = x.shape[0]
-        H = self.len + self.n_taps
         table = None if self.table is None else self.device_array("table", x)
-        key, yk, t, y = time_domain.mod_delay(
+        # one call: the read, the knots and the line's last H rows of [buf | x]
+        key, yk, t, y, buf = time_domain.mod_delay(
             state["key"], state["y"], state["t"], state["buf"], x,
             self.device_array("channel_selector", x, torch.bool), table,
             self.depth, self.step_size, self.n_taps, self.qual,
         )
-        # the line keeps its last H rows of [buf | x]
-        buf = fft_conv.splice(state["buf"], x, H, H - B, B)
         return {"buf": buf, "key": key, "t": t, "y": yk}, y
 
     def channel_offsets(self):

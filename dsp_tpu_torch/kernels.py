@@ -12,9 +12,10 @@ the library already built. A missing ``nvcc`` or a failed build raises
 Each launch function here takes tensors the caller (``ops/iir.py``,
 ``ops/fft_conv.py``, ``ops/time_domain.py``, ``ops/resample_ops.py``,
 ``ops/m4_engine.py``) has checked, passes raw pointers and the current stream, and raises ``KernelLaunchError`` when the C
-function returns a CUDA error. None of them synchronises or allocates; K1
-and K11 take the look-back scratch of ``lookback_scratch``, made once a
-device and stream (grown when a launch needs more).
+function returns a CUDA error. None of them synchronises or allocates; K1,
+K11 and matrix4_mb's K12-K13 take the look-back scratch of
+``lookback_scratch``, made once a device and stream (grown when a launch
+needs more).
 """
 
 import ctypes
@@ -258,7 +259,8 @@ class _Library:
                 lib.dsp_irfft_ola_f32.argtypes = [p] * 7 + [d, i, i, i, p]
                 lib.dsp_irfft_ola_f32.restype = i
                 for fn in (lib.dsp_fft_launches, lib.dsp_lti_launches, lib.dsp_m4_env_launches,
-                           lib.dsp_biquad_run_launches):
+                           lib.dsp_biquad_run_launches, lib.dsp_m4mb_audio_launches,
+                           lib.dsp_mod_delay_launches):
                     fn.argtypes = []
                     fn.restype = ctypes.c_ulonglong
                 for fn in (lib.dsp_tpdf_noise_f64, lib.dsp_tpdf_noise_f32):
@@ -297,7 +299,7 @@ class _Library:
                 lib.dsp_m4mb_event_f32.argtypes = [p] * 15 + [i] * 3 + [ll, ll, i, p]
                 lib.dsp_m4mb_event_f32.restype = i
                 for fn in (lib.dsp_m4mb_audio_f64, lib.dsp_m4mb_audio_f32):
-                    fn.argtypes = [p] * 9 + [i, p]
+                    fn.argtypes = [p] * 8 + [i, p, ll, p, ll, p]
                     fn.restype = i
                 lib.dsp_cuda_error_string.argtypes = [i]
                 lib.dsp_cuda_error_string.restype = ctypes.c_char_p
@@ -338,7 +340,7 @@ def lookback_scratch(like, nslots, width):
     nslots tiles carrying `width` float64 values each, on like's device
     and current stream: (flags, agg), an int32 buffer of 4 head words and
     the tiles' flags, and a float64 buffer of their aggregates. One pair a
-    (device, stream), shared by every K1 and K11 launch there; the flags
+    (device, stream), shared by every K1, K11 and m4mb_audio launch there; the flags
     are zeroed when made and made anew (zeroed) when a launch needs more
     slots, the aggregates grown without clearing. The kernels leave the
     flags ready for the next launch on that stream, so they are never
@@ -492,9 +494,17 @@ def fft_launches():
 
 
 def lookback_launches():
-    """The kernels csrc/lti_blocked.cu and csrc/m4_env.cu have launched in
-    this process together (the library's own count)."""
-    return load().dsp_lti_launches() + load().dsp_m4_env_launches()
+    """The kernels csrc/lti_blocked.cu, csrc/m4_env.cu and
+    csrc/m4mb_audio.cu have launched in this process together (the
+    library's own count)."""
+    lib = load()
+    return lib.dsp_lti_launches() + lib.dsp_m4_env_launches() + lib.dsp_m4mb_audio_launches()
+
+
+def mod_delay_launches():
+    """The kernels csrc/mod_delay.cu has launched in this process (the
+    library's own count)."""
+    return load().dsp_mod_delay_launches()
 
 
 def launch_splice(a, x, out, L, lo, shift):
@@ -575,13 +585,13 @@ def launch_resample_fold(X, Y, ptr, j, flags, s):
     _check(rc, "resample_fold")
 
 
-def launch_mod_delay(key, key_out, yk, yk_out, t, t_out, knots, buf, x, y, sel, table, n_new,
+def launch_mod_delay(key, key_out, yk, yk_out, t, t_out, buf, x, y, buf_out, sel, table, n_new,
                      n_phases, n_taps, depth, step, step_b):
     B, C = x.shape
     rc = _by_dtype(x, "dsp_mod_delay")(
-        _ptr(key), _ptr(key_out), _ptr(yk), _ptr(yk_out), _ptr(t), _ptr(t_out), _ptr(knots),
-        _ptr(buf), _ptr(x), _ptr(y), _ptr(sel), _ptr(table), buf.shape[0], B, C, yk.shape[1],
-        n_new, n_phases, n_taps, depth, step, step_b, _stream(x),
+        _ptr(key), _ptr(key_out), _ptr(yk), _ptr(yk_out), _ptr(t), _ptr(t_out), _ptr(buf),
+        _ptr(x), _ptr(y), _ptr(buf_out), _ptr(sel), _ptr(table), buf.shape[0], B, C,
+        yk.shape[1], n_new, n_phases, n_taps, depth, step, step_b, _stream(x),
     )
     _check(rc, "mod_delay")
 
@@ -670,12 +680,13 @@ def launch_m4mb_event(ctl, ev, ev_out, evt, evt_out, env_ds, vt, iy_in, ics, iy_
 
 
 def launch_m4mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m, sig, pf_out, scratch):
+    """scratch: the look-back scratch (read with the phase flip only)."""
     from dsp_tpu_torch.ops.m4_engine import DOWNSAMPLE_FACTOR
 
     c = M4MbAudioCfg(cfg.len, DOWNSAMPLE_FACTOR, int(cfg.phase_flip), int(cfg.direct_path))
     fn = load().dsp_m4mb_audio_f32 if bands.dtype == torch.float32 else load().dsp_m4mb_audio_f64
     rc = fn(
         _ptr(bands), _ptr(fb_buf), _ptr(interp_c), _ptr(ics), _ptr(pf_m), _ptr(sig), _ptr(pf_out),
-        _ptr(scratch), ctypes.byref(c), bands.shape[0], _stream(bands),
+        ctypes.byref(c), bands.shape[0], *_scratch_args(scratch), _stream(bands),
     )
     _check(rc, "m4mb_audio")

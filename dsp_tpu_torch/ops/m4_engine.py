@@ -1782,18 +1782,12 @@ def m4mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m):
     launch csrc/m4mb_audio.cu."""
     if bands.device.type == "cpu":
         return m4mb_audio_ref(cfg, bands, fb_buf, interp_c, ics, pf_m)
-    from dsp_tpu_torch import kernels
-
     _check_cuda("m4mb_audio", bands, *[(t, torch.float64) for t in (bands, fb_buf, interp_c, ics,
                                                                       pf_m)])
     _check_mb_audio_shapes("m4mb_audio", cfg, bands, fb_buf, interp_c, ics, pf_m)
-    B = bands.shape[0]
-    sig = torch.empty((B, cfg.n_sig), dtype=torch.float64, device=bands.device)
-    pf_out = torch.empty_like(pf_m)
-    scratch = torch.empty((2 * N_BANDS, B), dtype=torch.float64, device=bands.device)
-    kernels.launch_m4mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m, sig, pf_out, scratch)
+    out = _launch_mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m)
     m4mb_audio.launches += 1
-    return sig, pf_out
+    return out
 
 
 m4mb_audio.launches = 0
@@ -1809,20 +1803,34 @@ def m4mb_audio_f32(cfg, bands, fb_buf, interp_c, ics, pf_m):
     _check_dtypes("m4mb_audio_f32", *[(t, torch.float32) for t in ins])
     if bands.device.type == "cpu":
         return m4mb_audio_f32_ref(cfg, *ins)
-    from dsp_tpu_torch import kernels
-
     _check_cuda("m4mb_audio_f32", bands, *[(t, torch.float32) for t in ins], align=4)
     _check_mb_audio_shapes("m4mb_audio_f32", cfg, *ins)
-    B = bands.shape[0]
-    sig = torch.empty((B, cfg.n_sig), dtype=torch.float32, device=bands.device)
-    pf_out = torch.empty_like(pf_m)
-    scratch = torch.empty((2 * N_BANDS, B), dtype=torch.float64, device=bands.device)
-    kernels.launch_m4mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m, sig, pf_out, scratch)
+    out = _launch_mb_audio(cfg, *ins)
     m4mb_audio_f32.launches += 1
-    return sig, pf_out
+    return out
 
 
 m4mb_audio_f32.launches = 0
+
+
+# csrc/m4mb_audio.cu's tiles: a warp of 32 segments of 8 samples a lane
+MB_AUDIO_TILE = 256
+
+
+def _launch_mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m):
+    """csrc/m4mb_audio.cu on checked tensors: one launch, tiles of
+    MB_AUDIO_TILE samples over the card, the 26 allpasses carried across
+    them through the look-back scratch (read with the phase flip only).
+    Returns (sig, pf_m')."""
+    from dsp_tpu_torch import kernels
+
+    B = bands.shape[0]
+    sig = bands.new_empty((B, cfg.n_sig))
+    pf_out = torch.empty_like(pf_m)
+    # a tile publishes the (a, b) maps of its 26 lanes
+    scratch = kernels.lookback_scratch(bands, -(-B // MB_AUDIO_TILE), 2 * 2 * N_BANDS)
+    kernels.launch_m4mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m, sig, pf_out, scratch)
+    return sig, pf_out
 
 
 def m4mb_audio_f32_ref(cfg, bands, fb_buf, interp_c, ics, pf_m):

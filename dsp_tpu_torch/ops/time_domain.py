@@ -739,14 +739,14 @@ def _stats_interp_f32_ref(s, xs, insert_h):
 
 
 def mod_delay(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
-    """One block of dsp_tpu's modulated delay read, without the carried
-    buffer's update (the caller splices it). key: uint32 [2]; yk: the knot
-    window [4, lanes] (lanes 1 for -M, else C); t: 0-d phase; buf: [H, C]
-    the line before this block; x: [B, C]; sel: bool [C]; table:
-    [n_phases, taps] polyphase filters for q1/q2, or None for q0 (Hermite).
-    The floats are float64 (float32: mod_delay_f32). Returns (key', yk',
-    t', y [B, C]). CPU tensors run mod_delay_ref; CUDA tensors launch
-    csrc/mod_delay.cu (the knots, then the read)."""
+    """One block of dsp_tpu's modulated delay step. key: uint32 [2]; yk:
+    the knot window [4, lanes] (lanes 1 for -M, else C); t: 0-d phase;
+    buf: [H, C] the line before this block; x: [B, C]; sel: bool [C];
+    table: [n_phases, taps] polyphase filters for q1/q2, or None for q0
+    (Hermite). The floats are float64 (float32: mod_delay_f32). Returns
+    (key', yk', t', y [B, C], buf' [H, C]: the last H rows of [buf | x], a
+    new tensor). CPU tensors run mod_delay_ref; CUDA tensors launch
+    csrc/mod_delay.cu (one launch: the knots, the read and the line)."""
     if x.dtype == torch.float32:
         return mod_delay_f32(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual)
     return _mod_delay(mod_delay, mod_delay_ref, torch.float64, key, yk, t, buf, x, sel, table,
@@ -798,14 +798,38 @@ def _mod_delay(entry, ref, dt, key, yk, t, buf, x, sel, table, depth, step, n_ta
     if H - int(math.floor(depth)) - (n_taps if qual else 3) < 0:
         raise ValueError(f"{name}: a line of {H} rows is short for depth {depth}")
     n_new = int(np.ceil(B * step)) + 1
-    knots = torch.empty((4 + n_new, lanes), dtype=dt, device=x.device)
-    key_out, yk_out, t_out = torch.empty_like(key), torch.empty_like(yk), torch.empty_like(t)
-    y = torch.empty_like(x)
-    kernels.launch_mod_delay(key, key_out, yk, yk_out, t, t_out, knots, buf, x, y, sel, table,
+    key_out, y, buf_out = torch.empty_like(key), torch.empty_like(x), torch.empty_like(buf)
+    # the knot window and the phase in one allocation
+    yt = yk.new_empty(4 * lanes + 1)
+    yk_out, t_out = yt[:-1].view(4, lanes), yt[-1]
+    kernels.launch_mod_delay(key, key_out, yk, yk_out, t, t_out, buf, x, y, buf_out, sel, table,
                              n_new, n_phases, n_taps, float(depth), float(step),
                              float(step * B))
     entry.launches += 1
-    return key_out, yk_out, t_out, y
+    return key_out, yk_out, t_out, y, buf_out
+
+
+def mod_knots_ref(key, rows, lanes, dtype=torch.float64):
+    """New knots `rows` (an int64 tensor of indices i into a block's new
+    knots) drawn from key (the block key's second split), [len(rows),
+    lanes]: each the sum over j < 6 of (u[i, j, 0] - u[i, j, 1]) times
+    0.77/6/MOD_MAXVAL, u the uniform draw of counter ((i·6 + j)·2 + s)·lanes
+    + l, so that any rows can be drawn alone. float64: the products summed
+    by torch's sum; float32 (jax's float32 draws): each operation rounded on
+    its own, summed in order from 0."""
+    j = torch.arange(MOD_NOISE_N, device=rows.device)[:, None, None]
+    s = torch.arange(2, device=rows.device)[:, None]
+    ctr = ((rows[:, None, None, None] * MOD_NOISE_N + j) * 2 + s) * lanes + torch.arange(
+        lanes, device=rows.device)  # [rows, 6, 2, lanes]
+    if dtype == torch.float64:
+        u = prng.uniform_f64_at(key, ctr, MOD_MAXVAL)
+        return ((u[:, :, 0] - u[:, :, 1]) * (0.77 / MOD_NOISE_N / MOD_MAXVAL)).sum(dim=1)
+    u = prng.uniform_f32_at(key, ctr, MOD_MAXVAL)
+    d = (u[:, :, 0] - u[:, :, 1]) * _f32c(0.77 / MOD_NOISE_N / MOD_MAXVAL, rows.device)
+    acc = torch.zeros_like(d[:, 0])
+    for jj in range(MOD_NOISE_N):  # summed in order from 0
+        acc = acc + d[:, jj]
+    return acc
 
 
 def mod_delay_ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
@@ -819,9 +843,8 @@ def mod_delay_ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
     frac = tev - torch.floor(tev)
     n_new = int(np.ceil(B * step)) + 1
     keys = prng.split(key, 2)
-    u = prng.uniform_f64(keys[1], (n_new, MOD_NOISE_N, 2, lanes), MOD_MAXVAL)
-    scale = 0.77 / MOD_NOISE_N / MOD_MAXVAL
-    knots = torch.cat([yk.to(dt), ((u[:, :, 0] - u[:, :, 1]) * scale).sum(dim=1)])
+    new = mod_knots_ref(keys[1], torch.arange(n_new, device=dev), lanes)
+    knots = torch.cat([yk.to(dt), new])
     z0, z1, z2, z3 = (knots[kidx + k] for k in range(4))
     a = z0 + z2
     c0 = (1.0 / 6.0) * a + (2.0 / 3.0) * z1 + 0.5
@@ -838,7 +861,12 @@ def mod_delay_ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
     d_frac = mod - d_int.to(dt)
     t_os = None if table is None else d_frac * table.shape[0]
     y = _mod_read(buf, x, d_int, d_frac, t_os, table, n_taps)
-    return keys[0], yk_next, t_next, torch.where(sel, y, x)
+    return keys[0], yk_next, t_next, torch.where(sel, y, x), _carried_line(buf, x)
+
+
+def _carried_line(buf, x):
+    """The line after a block: the last H rows of [buf | x]."""
+    return torch.cat([buf, x])[x.shape[0]:]
 
 
 def _mod_read(buf, x, d_int, d_frac, t_os, table, n_taps):
@@ -890,7 +918,7 @@ def mod_delay_f32_ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual)
     # the polyphase phase in float32: its integer part picks the filters
     t_os = None if table is None else d_frac * _f32c(table.shape[0], dev)
     y = _mod_read(buf, x, d_int, d_frac, t_os, table, n_taps)
-    return key_next, yk_next, t_next, torch.where(sel, y.to(f32), x)
+    return key_next, yk_next, t_next, torch.where(sel, y.to(f32), x), _carried_line(buf, x)
 
 
 def mod_noise_f32_ref(key, yk, t, B, step):
@@ -909,12 +937,7 @@ def mod_noise_f32_ref(key, yk, t, B, step):
     frac = tev - torch.floor(tev)
     n_new = int(np.ceil(B * step)) + 1
     keys = prng.split(key, 2)
-    u = prng.uniform_f32(keys[1], (n_new, MOD_NOISE_N, 2, lanes), MOD_MAXVAL)
-    d = (u[:, :, 0] - u[:, :, 1]) * _f32c(0.77 / MOD_NOISE_N / MOD_MAXVAL, dev)
-    acc = torch.zeros_like(d[:, 0])
-    for j in range(MOD_NOISE_N):  # summed in order from 0
-        acc = acc + d[:, j]
-    knots = torch.cat([yk, acc])
+    knots = torch.cat([yk, mod_knots_ref(keys[1], torch.arange(n_new, device=dev), lanes, f32)])
     z = _mod_bspline_f32(*(knots[kidx + k] for k in range(4)), frac[:, None])
     tb = t + _f32c(step * B, dev)
     n_consumed = int(torch.floor(tb))

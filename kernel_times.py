@@ -11,7 +11,8 @@ of the repository on the same card.
     python3 kernel_times.py --rows engines ... # only the engine rows (or fft,
                                                # cli, td, tdcli, k2, audio,
                                                # k2cli, profile, k1, k1cli,
-                                               # k3 or k3cli)
+                                               # k3, k3cli, delay, audiocli or
+                                               # audioprofile)
 
 DIR is an unpacked checkout of another commit (e.g. `git archive <commit> |
 tar -x -C .smoke_tmp/parent`). Each tree runs in a process of its own, since
@@ -102,6 +103,19 @@ bit. The k3cli rows run the flagship at -b 1000 and 2048, `matrix4_mb -6`
 and `fir` with chip_smoke.py's 65,536-tap filter at -b 2048 through
 dsp-torch in both dtypes, as the k2cli rows run theirs.
 
+The audio rows also take m4mb_audio and m4mb_audio_f32 on `matrix4_mb
+-6`'s arguments at B = 2048 and 65536 (outputs compared in dBFS where not
+bit-equal). The delay rows time the modulated delay's step
+(ModDelayEffect.step: the read, the knots and the carried line, as each
+tree takes them) at q0 and q2, -m and -M, B = 2048 and 65536, in both
+dtypes, and with a 1 kHz modulator and a 0.2 s depth, on seeded inputs; with --against the trees' states and outputs are
+compared bit for bit. The audiocli rows run `matrix4_mb -6` at -b 2048 and
+65536 and chip_smoke.py's modulated chain at -b 2048 through dsp-torch in
+both dtypes, as the k2cli rows run theirs (numpy's generator seeded alike
+before each run); the audioprofile rows profile `matrix4_mb -6` (-b 2048 in
+both dtypes, 65536) and the modulated chain (-b 2048, both dtypes) as the
+profile rows profile theirs.
+
 The rows are chip_smoke.py's main-path shapes, where chip_smoke.py holds
 each kernel against its plain version; this script only times them. Prints
 the card's name and power limit (nvidia-smi) with the results. Needs a
@@ -119,9 +133,9 @@ import subprocess
 import sys
 from pathlib import Path
 
-from chip_smoke import CHANNELS, DELIVERY, FLAGSHIP, FS, MATRIX4, MATRIX4_MB, SECONDS, SLICE_C_SEED, \
-    card_info, cuda_ms, dbfs, device_ms, flagship_parts, td_signal, transient_signal, write_filter, \
-    write_input
+from chip_smoke import CHANNELS, DELIVERY, FLAGSHIP, FS, MATRIX4, MATRIX4_MB, MODULATED, SECONDS, \
+    SLICE_C_SEED, card_info, cuda_ms, dbfs, device_ms, flagship_parts, td_signal, transient_signal, \
+    write_filter, write_input
 
 ROOT = Path(__file__).resolve().parent
 ENGINE_INPUTS = ROOT / ".smoke_tmp" / "engine_inputs.pt"
@@ -553,16 +567,18 @@ def k1_rows():
     return out
 
 
-AUDIO_CASES = tuple((f"m4_audio{sfx}", MATRIX4, B, sfx == "_f32")
+AUDIO_CASES = tuple((f"{name}{sfx}", chain, B, sfx == "_f32")
+                    for name, chain in (("m4_audio", MATRIX4), ("m4mb_audio", MATRIX4_MB))
                     for sfx in ("", "_f32") for B in (2048, 65536))
 AUDIO_INPUTS = "audio_inputs.pt"
 
 
 def audio_rows(inputs_path):
-    """(name, the call, reps) of m4_audio and m4_audio_f32 at B = 2048 and
-    65536, on the arguments `matrix4 -6` hands them after 1 s (B = 2048)
-    or one block (B = 65536) of chip_smoke.py's transient material through
-    the chain on the card, made once and saved beside ENGINE_INPUTS."""
+    """(name, the call, reps) of m4_audio, m4mb_audio and their float32
+    forms at B = 2048 and 65536, on the arguments `matrix4 -6` and
+    `matrix4_mb -6` hand them after 1 s (B = 2048) or one block (B = 65536)
+    of chip_smoke.py's transient material through the chain on the card,
+    made once and saved beside ENGINE_INPUTS."""
     from dsp_tpu_torch.ops import m4_engine as m4
 
     inputs = engine_inputs(inputs_path.parent / AUDIO_INPUTS, AUDIO_CASES)
@@ -574,6 +590,53 @@ def audio_rows(inputs_path):
         out.append((f"{entry} B={B}", lambda fn=fn, cfg=e.audio, args=args: fn(cfg, *args),
                     50 if B == 2048 else 10))
     return out
+
+
+# the delay rows: ModDelayEffect.step of delay -m/-M at these (quality, -M,
+# block, dtype, depth in samples, modulator bandwidth in Hz): 0.5 ms at the
+# default 1 Hz; a 1 kHz modulator (about 10 knot rows a tile); a 0.2 s
+# depth (its line window read through L1)
+DELAY_CASES = tuple((qual, mono, B, dtype, 0.5e-3 * FS, 1.0) for dtype in ("float64", "float32")
+                    for qual in (0, 2) for mono in (False, True) for B in (2048, 65536)) + tuple(
+    (qual, False, B, dtype, samples, fc) for dtype in ("float64", "float32")
+    for qual, samples, fc in ((2, 0.5e-3 * FS, 1000.0), (1, 0.2 * FS, 1.0)) for B in (2048, 65536))
+
+
+def delay_rows():
+    """(name, the call, reps) of the modulated delay's step as each tree
+    takes it (mod_delay and, in a tree without the carried line in the
+    kernel, the effect's splice) at each of DELAY_CASES, stereo, from a
+    state one block in, on inputs made from a seed alike in each tree: the
+    state and output are compared bit for bit."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.effects.delay import ModDelayEffect
+
+    rng = np.random.default_rng(15)
+    out = []
+    for qual, mono, B, dtype, samples, fc in DELAY_CASES:
+        dt = getattr(torch, dtype)
+        e = ModDelayEffect("delay", StreamInfo(FS, CHANNELS), np.ones(CHANNELS, dtype=bool),
+                           samples, fc, mono, qual, seed=31337)
+        st = {k: torch.as_tensor(v, device="cuda") for k, v in e.state0().items()}
+        st = {k: v.to(dt) if v.is_floating_point() else v for k, v in st.items()}
+        x0, x = (torch.as_tensor(rng.standard_normal((B, CHANNELS)) * 0.3, dtype=dt,
+                                 device="cuda") for _ in range(2))
+        st, _ = e.step(st, x0)
+        extra = "" if (samples, fc) == (0.5e-3 * FS, 1.0) else f" depth {e.depth:g} fc {fc:g}"
+        out.append((f"mod_delay step q{qual} {'-M' if mono else '-m'}{extra} B={B} {dtype}",
+                    lambda e=e, st=st, x=x: e.step(st, x), 50 if B == 2048 else 10))
+    return out
+
+
+# the renders of the audiocli rows: the two kernels' chains, `matrix4_mb -6`
+# at -b 2048 and 65536 and chip_smoke.py's modulated chain (numpy's generator
+# seeded before each run), in both dtypes
+AUDIOCLI_CASES = tuple((chain, block, dtype) for chain, block in (
+    (MATRIX4_MB, 2048), (MATRIX4_MB, 65536), (MODULATED, 2048))
+    for dtype in ("float64", "float32"))
 
 
 # the renders of the k2cli rows: (chain, block, dtype)
@@ -600,10 +663,13 @@ K3CLI_CASES = tuple((chain, block, dtype) for chain, block in (
 
 
 def k2cli_rows(inputs_path, keep, cases=K2CLI_CASES):
-    """Each of `cases` (K2CLI_CASES or K1CLI_CASES) through dsp-torch on the
-    card to -e double: x realtime, a digest of the render, and the
-    upmixes' renders kept as `keep`_<i>.wav for the comparison of the
-    trees (the flagship's are held by digest)."""
+    """Each of `cases` (K2CLI_CASES, K1CLI_CASES, K3CLI_CASES or
+    AUDIOCLI_CASES) through dsp-torch on the card to -e double, numpy's
+    generator seeded before each run: x realtime, a digest of the render,
+    and the renders but the flagship's kept as `keep`_<i>.wav for the
+    comparison of the trees (the flagship's are held by digest)."""
+    import numpy as np
+
     from dsp_tpu_torch import kernels
     from dsp_tpu_torch.cli.main import main as cli_main
 
@@ -622,13 +688,14 @@ def k2cli_rows(inputs_path, keep, cases=K2CLI_CASES):
         os.environ["DSP_TPU_TORCH_DTYPE"] = dtype
         words = chain.format(f64k=f64k).split()
         argv = ["-b", str(block), "-q", str(src), "-o", "-e", "double", str(dst), *words]
+        np.random.seed(SLICE_C_SEED)  # the chains that draw seeds draw alike
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(io.StringIO()):
             rc = cli_main(argv)
         wall = time.perf_counter() - t0
         if rc != 0:
             raise SystemExit(f"kernel_times: dsp-torch {' '.join(argv)} exited {rc}")
-        name = "flagship" if chain == FLAGSHIP else chain.format(f64k="64k")
+        name = {FLAGSHIP: "flagship", MODULATED: "modulated"}.get(chain, chain.format(f64k="64k"))
         row = {"name": f"{name} -b {block} {dtype}", "x_realtime": SECONDS / wall,
                "digest": hashlib.sha256(dst.read_bytes()).hexdigest()[:16]}
         if chain == FLAGSHIP:  # held byte for byte: the digest is enough
@@ -650,10 +717,16 @@ PROFILE_CASES = ((FLAGSHIP, 2048, "float64", 64), (FLAGSHIP, 2048, "float32", 64
                  (MATRIX4_MB, 1000, "float64", 64), (MATRIX4_MB, 1056, "float64", 64))
 
 
-def profile_rows():
-    """Each of PROFILE_CASES run through CompiledChain.run_blocks on the
-    card (chip_smoke.py's inputs: noise for the flagship, transients for
-    matrix4): the step's ms a block unprofiled (host clock to a
+# the audioprofile rows: the chains of this slice's two kernels
+AUDIO_PROFILE_CASES = ((MATRIX4_MB, 2048, "float64", 64), (MATRIX4_MB, 2048, "float32", 64),
+                       (MATRIX4_MB, 65536, "float64", 8), (MODULATED, 2048, "float64", 64),
+                       (MODULATED, 2048, "float32", 64))
+
+
+def profile_rows(cases=PROFILE_CASES):
+    """Each of `cases` run through CompiledChain.run_blocks on the card
+    (chip_smoke.py's inputs: transients for matrix4, noise for the rest):
+    the step's ms a block unprofiled (host clock to a
     synchronize), then under torch.profiler the kernels the card ran a
     block, its device ms a block and the largest kernels by device time."""
     import numpy as np
@@ -666,7 +739,7 @@ def profile_rows():
 
     rng = np.random.default_rng(13)
     out = []
-    for chain, block, dtype, n in PROFILE_CASES:
+    for chain, block, dtype, n in cases:
         dt = getattr(torch, dtype)
         cc = CompiledChain(build_chain_from_string(chain, StreamInfo(FS, CHANNELS)), block,
                            dtype=dt, device="cuda")
@@ -694,7 +767,7 @@ def profile_rows():
                     kernels += 1
             if kernels:
                 break
-        name = "flagship" if chain == FLAGSHIP else chain
+        name = {FLAGSHIP: "flagship", MODULATED: "modulated"}.get(chain, chain)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         out.append({"name": f"{name} -b {block} {dtype}", "step_ms": step_ms,
                     "kernels_a_block": kernels / n, "device_ms_a_block": sum(by_name.values()),
@@ -753,13 +826,17 @@ def measure(which, inputs_path, save=None):
         return k2cli_rows(inputs_path, save, K1CLI_CASES)
     if which == "k3cli":
         return k2cli_rows(inputs_path, save, K3CLI_CASES)
+    if which == "audiocli":
+        return k2cli_rows(inputs_path, save, AUDIOCLI_CASES)
     if which == "profile":
         return profile_rows()
+    if which == "audioprofile":
+        return profile_rows(AUDIO_PROFILE_CASES)
     out = []
-    if which in ("td", "k2", "audio", "k1", "k3"):
+    if which in ("td", "k2", "audio", "k1", "k3", "delay"):
         outputs = {}
         made = {"td": td_rows, "k2": k2_rows, "audio": lambda: audio_rows(inputs_path),
-                "k1": k1_rows, "k3": k3_rows}[which]()
+                "k1": k1_rows, "k3": k3_rows, "delay": delay_rows}[which]()
         for name, kern, reps in made:
             r = {"name": name, "ms": cuda_ms(kern, reps)}
             r["device_ms"], r["kernels"] = device_ms(kern, min(reps, 20))
@@ -858,7 +935,8 @@ def main():
     ap.add_argument("--tree", type=Path, default=None)
     ap.add_argument("--against", type=Path, default=None)
     ap.add_argument("--rows", choices=("all", "fft", "engines", "cli", "td", "tdcli", "k2",
-                                       "audio", "k2cli", "profile", "k1", "k1cli", "k3", "k3cli"),
+                                       "audio", "k2cli", "profile", "k1", "k1cli", "k3", "k3cli",
+                                       "delay", "audiocli", "audioprofile"),
                     default="all")
     ap.add_argument("--inputs", type=Path, default=ENGINE_INPUTS)
     ap.add_argument("--save", type=Path, default=None)
@@ -886,7 +964,8 @@ def main():
                     Path(r["render"]).unlink()
     print(f"card: {card}; order: before, after, after, before")
     verdict = (compare_outputs(saves[0], saves[1])
-               if args.rows in ("all", "engines", "td", "k2", "audio", "k1", "k3") else {})
+               if args.rows in ("all", "engines", "td", "k2", "audio", "k1", "k3", "delay")
+               else {})
     keys = ("ms", "us_a_tick", "device_ms", "device_us_a_tick", "kernels", "library_ms",
             "library_device_ms", "x_realtime", "digest", "render", "step_ms", "kernels_a_block",
             "device_ms_a_block", "top")
