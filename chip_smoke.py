@@ -51,9 +51,15 @@ nvcc and PyTorch built for CUDA. It
    (lean_wrapper_refusals). K14's modulated step (ModDelayEffect.step) is
    one launch of csrc/mod_delay.cu by the library's count and no splice,
    its carried line bit-equal to the plain version's, over blocks of 2048,
-   2048 and 64 (shorter than the line), with a 1 kHz modulator (float64:
-   within MOD_DELAY_FAST_DBFS) and a 0.2 s depth (a line window too long
-   to stage), in both dtypes.
+   2048 and 64 (shorter than the line), with 1 kHz and 5 kHz modulators
+   (float64; every case within MOD_DELAY_DBFS) and a 0.2 s depth (a line
+   window too long to stage), in both dtypes. K16's plain mode (tiles over
+   the card, csrc/lookback.cuh's protocol) and K17 (the same, the carried
+   value through carry_max_affine) in both dtypes at B = 2048, 1000, 65536
+   and 1 and with a limit inside a tile (meter_cases): stats' decisions
+   equal, sums and meters within 1e-12 relative (float32: one ulp), each
+   call made twice and bit-equal, and each call, stats -i's too, one
+   launch by the library's count (kernels.meter_launches).
    matrix4_mb's (slice F): K1 on its 13-band bank, K11 m4mb_env over 13 lanes, K9 + K10 m4mb_event (the
    13 engines coupled through their thresholds every tick) and K12 + K13
    m4mb_audio, over 3 blocks of transients in seven configurations (v4,
@@ -745,13 +751,13 @@ def biquad_run_phase(records):
 
 
 def lean_wrapper_refusals():
-    """The wrappers of fdl_mac, fdl_mac_f32, biquad_scan_run and
-    biquad_scan_run_df on the card refuse every input their kernels do not
-    take: another dtype, a tensor on another device, a shape that does not
-    fit, a tensor that is not contiguous, an FDL not 16-byte aligned, and
-    for a run, states of other strides in and out, or more stages than the
-    kernel runs. Each must raise (TypeError or ValueError) and launch
-    nothing."""
+    """The wrappers of fdl_mac, fdl_mac_f32, biquad_scan_run,
+    biquad_scan_run_df, stats_step (both modes and dtypes) and levels_step
+    on the card refuse every input their kernels do not take: another
+    dtype, a tensor on another device, a shape that does not fit, a tensor
+    that is not contiguous, an FDL not 16-byte aligned, and for a run,
+    states of other strides in and out, or more stages than the kernel
+    runs. Each must raise (TypeError or ValueError) and launch nothing."""
     import torch
 
     from dsp_tpu_torch import kernels
@@ -808,18 +814,75 @@ def lean_wrapper_refusals():
             ("states of two layouts", (A, Bv, c0, [wide[:, 0], wide[:, 1].contiguous()], x)),
             ("17 stages", (A17, Bv17, c17, many, x)),
         )]
+    cases += meter_refusals()
     torch.cuda.synchronize()
+
+    def lib_count():
+        return kernels.biquad_run_launches() + sum(kernels.meter_launches())
+
     for fn, what, args in cases:
-        before, lib_before = fn.launches, kernels.biquad_run_launches()
+        before, lib_before = fn.launches, lib_count()
         try:
             fn(*args)
         except (TypeError, ValueError) as e:
             _require(f"{what}: refused but counted a launch",
-                     fn.launches == before and kernels.biquad_run_launches() == lib_before)
+                     fn.launches == before and lib_count() == lib_before)
             print(f"  {what}: refused ({type(e).__name__})")
             continue
         raise SmokeError(f"{what}: the wrapper took it")
     print(f"lean wrappers: {len(cases)} bad inputs refused")
+
+
+def meter_refusals():
+    """(wrapper, what, args) of bad inputs to stats_step, stats_step_f32
+    and levels_step on the card (lean_wrapper_refusals)."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.effects.stats import StatsEffect
+    from dsp_tpu_torch.ops import time_domain as td
+
+    dev = torch.device("cuda")
+    f64, f32 = torch.float64, torch.float32
+    cases = []
+    for fn, dt in ((td.stats_step, f64), (td.stats_step_f32, f32)):
+        other = f32 if dt == f64 else f64
+        x = torch.zeros((2048, CHANNELS), dtype=dt, device=dev)
+        for interp in (False, True):
+            e = StatsEffect("stats", StreamInfo(FS, CHANNELS), np.ones(CHANNELS, dtype=bool), None,
+                            80, interp)
+            st = {k: torch.as_tensor(v, device=dev) for k, v in e.state0().items()}
+            st = {k: v.to(dt) if v.is_floating_point() else v for k, v in st.items()}
+            table = torch.as_tensor(e._insert_table, dtype=dt, device=dev) if interp else None
+            mode = "-i" if interp else "plain"
+            bad = [("sum of the other dtype", "sum", st["sum"].to(other)),
+                   ("peak_count int32", "peak_count", st["peak_count"].int()),
+                   ("min on the CPU", "min", st["min"].cpu()),
+                   ("max of another width", "max", st["max"][:1].contiguous()),
+                   ("limit int32", "limit", st["limit"].int())]
+            if interp:
+                bad += [("m of 63 rows", "m", st["m"][1:].contiguous()),
+                        ("z not contiguous", "z", torch.zeros((CHANNELS, 9), dtype=dt,
+                                                              device=dev).t())]
+            for what, k, v in bad:
+                cases.append((fn, f"{fn.__name__} {mode}: {what}", ({**st, k: v}, x, table)))
+            cases.append((fn, f"{fn.__name__} {mode}: xs not contiguous",
+                          (st, torch.zeros((CHANNELS, 2048), dtype=dt, device=dev).t(), table)))
+        cases.append((fn, f"{fn.__name__} -i: a table of 66",
+                      (st, x, torch.zeros(66, dtype=dt, device=dev))))
+    lv = [torch.zeros(CHANNELS, dtype=f64, device=dev) for _ in range(3)]
+    x = torch.zeros((2048, CHANNELS), dtype=f64, device=dev)
+    g = 1e-3
+    for what, args in (("avg float32", (lv[0].float(), lv[1], lv[2], x, g)),
+                       ("peak on the CPU", (lv[0], lv[1].cpu(), lv[2], x, g)),
+                       ("block_peak of 3", (lv[0], lv[1], torch.zeros(3, dtype=f64, device=dev),
+                                            x, g)),
+                       ("xs not contiguous", (*lv, torch.zeros((CHANNELS, 2048), dtype=f64,
+                                                               device=dev).t(), g)),
+                       ("xs of one dimension", (*lv, x[:, 0].contiguous(), g))):
+        cases.append((td.levels_step, f"levels_step: {what}", args))
+    return cases
 
 
 # (K, NB) of each fdl_mac call on the main path, C = 2 throughout
@@ -1241,21 +1304,103 @@ def dither_cases(dtype, rng):
         print(f"  {shape}: equal at " + ", ".join(f"B={B} ({hist})" for B, _, hist in cases))
 
 
+# K16's plain mode and K17: the blocks each is checked at, and the limit
+# (samples into the block) of a case that stops inside a tile of 256
+METER_BLOCKS = (2048, 1000, 65536, 1)
+METER_LIMIT = 700
+
+
+def meter_cases(rec_plain, rec_levels, dtype, rng):
+    """K16's plain mode (csrc/stats.cu's tiles) and K17 (csrc/levels.cu) in
+    dtype at METER_BLOCKS and, at B = 2048, with a limit inside a tile, each
+    over 2 blocks from a carried state, stereo: stats' decisions, min, max,
+    peak and counts equal to the plain version's and its sums within 1e-12
+    relative (float32: one ulp of their scale); levels within 1e-12 relative
+    (float32: one ulp of their scale); each call made twice, bit-equal, and
+    one launch by the library's count (kernels.meter_launches)."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch import kernels
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.effects.stats import StatsEffect
+    from dsp_tpu_torch.ops import time_domain as td
+
+    dev = torch.device("cuda")
+    f32 = dtype == torch.float32
+    stats = td.stats_step_f32 if f32 else td.stats_step
+    levels, levels_ref = ((td.levels_step_f32, td.levels_step_f32_ref) if f32 else
+                          (td.levels_step, td.levels_step_ref))
+    g = 1.0 - math.exp(-1.0 / (FS * 0.3))
+
+    def close(what, rec, a, b, floor):
+        """a within 1e-12 of max(floor, max |b|) (float32: one ulp of its
+        scale)."""
+        if f32:
+            ulps, err = _ulps(a, b)
+            _require(f"{what}: {ulps:.2f} ulp of its scale from the plain version", ulps <= 1.0)
+        else:
+            err = _diff(a, b)
+            _require(f"{what}: {err:.3e} from the plain version",
+                     err <= 1e-12 * max(floor, float(b.abs().max())))
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+
+    for B, limit in [(B, None) for B in METER_BLOCKS] + [(2048, METER_LIMIT)]:
+        e = StatsEffect("stats", StreamInfo(FS, CHANNELS), np.ones(CHANNELS, dtype=bool), None,
+                        80, False)
+        st = {k: torch.as_tensor(v, device=dev) for k, v in e.state0().items()}
+        st = {k: v.to(dtype) if v.is_floating_point() else v for k, v in st.items()}
+        lv = [torch.as_tensor(rng.uniform(0, 0.1, CHANNELS), dtype=dtype, device=dev)
+              for _ in range(3)]
+        tag = f"B={B}" + ("" if limit is None else f", a limit {limit} into the block")
+        for blk in range(2):
+            x = torch.as_tensor(np.round(rng.standard_normal((B, CHANNELS)) * 0.3 * 32768) / 32768,
+                                dtype=dtype, device=dev)
+            if limit is not None and blk == 1:
+                st["limit"] = torch.tensor(B + limit, device=dev)
+            lib = kernels.meter_launches()
+            out, again = stats(st, x), stats(st, x)
+            lv_out, lv_again = levels(*lv, x, g), levels(*lv, x, g)
+            now = kernels.meter_launches()
+            what = f"{stats.__name__} plain {tag} block {blk}"
+            _require(f"{what}: {now[0] - lib[0]} kernels for 2 calls by the library's count, "
+                     f"expected 2", now[0] - lib[0] == 2)
+            _require(f"{levels.__name__} {tag}: {now[1] - lib[1]} kernels for 2 calls by the "
+                     f"library's count, expected 2", now[1] - lib[1] == 2)
+            ref = td.stats_step_ref(_to_cpu(st), x.cpu())
+            lv_ref = levels_ref(*_to_cpu(lv), x.cpu(), g)
+            torch.cuda.synchronize()
+            for k in ref:
+                _require(f"{what}: {k} differs between two calls", bits_equal(out[k], again[k]))
+                if k in ("sum", "sum_sq"):
+                    close(f"{what}: {k}", rec_plain, out[k], ref[k], 1.0)
+                else:
+                    _require(f"{what}: {k} differs from the plain version", bits_equal(out[k], ref[k]))
+            for name, a, a2, b in zip(("avg", "peak", "block_peak"), lv_out, lv_again, lv_ref):
+                _require(f"{levels.__name__} {tag}: {name} differs between two calls",
+                         bits_equal(a, a2))
+                close(f"{levels.__name__} {tag} block {blk}: {name}", rec_levels, a, b, 0.0)
+            st, lv = out, list(lv_out)
+    print(f"  {stats.__name__} plain and {levels.__name__} at B = "
+          f"{', '.join(map(str, METER_BLOCKS))} and with a limit inside a tile: stats' decisions "
+          f"equal, sums and meters within {'one ulp' if f32 else '1e-12 relative'}, two calls "
+          f"bit-equal, one launch a call")
+
+
 # K14's checks: (quality, -M, depth in samples, modulator bandwidth in Hz);
-# a 1 kHz modulator reads about 10 knot rows a tile, and a 0.2 s depth
+# a 1 kHz modulator reads about 10 knot rows a tile and a 5 kHz one about
+# 30 (its phase t0 + step·n reaches 464 in a block), and a 0.2 s depth
 # (17,640 samples) is a line window too long to stage in shared memory
 MOD_DELAY_CASES = tuple((qual, mono, 0.5e-3 * FS, 1.0) for qual in (0, 1, 2)
                         for mono in (False, True)) + ((2, False, 0.5e-3 * FS, 1000.0),
+                                                      (2, False, 0.5e-3 * FS, 5000.0),
                                                       (1, True, 0.2 * FS, 1.0))
-# the float64 read against its plain version: -280 dBFS at the default 1 Hz
-# modulator; -260 at 1 kHz, whose phase t0 + step·n reaches 93 in a block:
-# one ulp of it (1.4e-14) moves the read position by the modulator's slope
-# times the depth, and the kernel may round the phase's product and sum
-# once (nvcc contracts a·b + c into an FMA) where the plain version rounds
-# twice (one ulp of the step alone moves the plain version's read by -254
-# dBFS on this input)
+# the float64 read against its plain version, at every modulator: the two
+# write the same operations in the same order, each rounded where written
+# (the phase's product and sum twice, the FMAs dsp_tpu's XLA:CPU takes
+# once), so nvcc contracts nothing the plain version does not; a fast
+# modulator's phase, which reaches the hundreds, then moves no read
 MOD_DELAY_DBFS = -280.0
-MOD_DELAY_FAST_DBFS = -260.0
 # the blocks each case steps through: longer than the line, then shorter
 MOD_DELAY_BLOCKS = (2048, 2048, 64)
 
@@ -1290,6 +1435,7 @@ def time_domain_phase(records):
     import numpy as np
     import torch
 
+    from dsp_tpu_torch import kernels
     from dsp_tpu_torch.core.prng import prng_key
     from dsp_tpu_torch.core.types import StreamInfo
     from dsp_tpu_torch.effects.delay import ModDelayEffect
@@ -1370,7 +1516,10 @@ def time_domain_phase(records):
             if blk == 2:
                 st["limit"] = torch.tensor(2 * B + 1000, device=dev)
                 sr["limit"] = st["limit"].cpu()
+            lib = kernels.meter_launches()[0]
             st = td.stats_step(st, q[blk], table)
+            _require(f"stats_step {'-i' if interp else 'plain'}: not one launch by the library's "
+                     f"count", kernels.meter_launches()[0] - lib == 1)
             sr = td.stats_step_ref(sr, q[blk].cpu(), None if table is None else table.cpu())
             torch.cuda.synchronize()
             for k in st:
@@ -1396,7 +1545,13 @@ def time_domain_phase(records):
         rec["times"].append({"mode": label, "ms": ms, "plain_ms": plain_ms})
         if interp:
             set_times(rec, ms, plain_ms, 8 * B * C + state_bytes, flops)
+        else:
+            prec = records["stats_step_plain"]
+            set_times(prec, ms, plain_ms, 8 * B * C + state_bytes, flops)
+            prec["device_ms"] = device_ms(lambda: td.stats_step(s0, q[0]))[0]
+            print(f"  plain: {prec['device_ms']:.4f} ms device-only")
     stats_interp_cases(rec, f64, rng)
+    meter_cases(records["stats_step_plain"], records["levels_step"], f64, rng)
 
     print("K17 levels_step (B=2048, stereo)")
     rec = records["levels_step"]
@@ -1411,14 +1566,15 @@ def time_domain_phase(records):
     ms = cuda_ms(lambda: td.levels_step(*st, x, g), 50)
     plain_ms = cuda_ms(lambda: td.levels_step_ref(*st, x, g), 10)
     set_times(rec, ms, plain_ms, 8 * B * C + 48 * C, 6 * B * C)
-    print(f"  within 1e-12 relative; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"(a chain of {B} samples a channel)")
+    rec["device_ms"] = device_ms(lambda: td.levels_step(*st, x, g))[0]
+    print(f"  within 1e-12 relative; kernel {ms:.4f} ms, {rec['device_ms']:.4f} ms device-only, "
+          f"plain {plain_ms:.4f} ms")
 
     print("K14 mod_delay (0.5 ms depth, q0/q1/q2, -m and -M, blocks of 2048, 2048 and 64, "
-          "stereo; a 1 kHz modulator; a 0.2 s depth read through L1)")
+          "stereo; 1 kHz and 5 kHz modulators; a 0.2 s depth read through L1)")
     rec = records["mod_delay"]
     for qual, mono, samples, fc in MOD_DELAY_CASES:
-        limit = 10.0 ** ((MOD_DELAY_DBFS if fc == 1.0 else MOD_DELAY_FAST_DBFS) / 20.0)
+        limit = 10.0 ** (MOD_DELAY_DBFS / 20.0)
         e = ModDelayEffect("delay", StreamInfo(FS, C), np.ones(C, dtype=bool), samples, fc, mono,
                            qual, seed=31337)
         st = {k: torch.as_tensor(v, device=dev) for k, v in e.state0().items()}
@@ -1440,9 +1596,8 @@ def time_domain_phase(records):
                      torch.equal(b_k.cpu(), b_r))
             _require(f"{what} block {blk}: {dbfs(err):.1f} dBFS (limit {dbfs(limit):.0f})",
                      err <= limit)
-            if fc == 1.0:
-                rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            else:
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if fc != 1.0:
                 print(f"  {what} block {blk}: {dbfs(err):.1f} dBFS from the plain version")
             st = out_k[0]
         if (qual, mono, fc) == (2, True, 1.0):
@@ -1461,7 +1616,7 @@ def time_domain_phase(records):
             rec["device_ms"] = device_ms(run)[0]
             print(f"  q2 -M B={B}: kernel {ms:.4f} ms a call, {rec['device_ms']:.4f} ms "
                   f"device-only, plain {plain_ms:.4f} ms")
-    print(f"  the 1 Hz modulator's within {dbfs(rec['max_abs_err']):.1f} dBFS; keys and carried "
+    print(f"  every modulator's within {dbfs(rec['max_abs_err']):.1f} dBFS; keys and carried "
           f"lines equal; one launch a step")
 
 
@@ -2412,10 +2567,12 @@ def stats_table(text):
 
 
 def stats_table_check(head, tmp):
-    """The delivery chain's stats table from the CLI on the card and on the
-    CPU, on the same COMPARE_SECONDS of input: equal character for
-    character (min, max, peak, peak count and frame are exact; the sums
-    print to 8 decimals and 4 of a dB)."""
+    """The stats tables of the delivery chain (stats -i, to s16) and the
+    modulated chain (plain stats and levels, to double) from the CLI on the
+    card and on the CPU, on the same COMPARE_SECONDS of input, numpy's
+    generator seeded alike: equal character for character (min, max, peak,
+    peak count and frame are exact; the sums print to 8 decimals and 4 of
+    a dB)."""
     import contextlib
     import io
     import os
@@ -2433,21 +2590,22 @@ def stats_table_check(head, tmp):
         w.write(head)
     finally:
         w.close()
-    tables = {}
-    for device in ("cuda", "cpu"):
-        os.environ["DSP_TPU_TORCH_DEVICE"] = device
-        np.random.seed(SLICE_C_SEED)
-        err = io.StringIO()
-        with contextlib.redirect_stderr(err):
-            rc = cli_main(["-q", str(src), "-o", "-e", "s16", str(tmp / "head_out.wav"),
-                           *DELIVERY.split()])
-        if rc != 0:
-            raise SmokeError(f"stats table run on {device}: dsp-torch exited {rc}")
-        tables[device] = stats_table(err.getvalue())
-    os.environ["DSP_TPU_TORCH_DEVICE"] = "cuda"
-    if tables["cuda"] is None or tables["cuda"] != tables["cpu"]:
-        raise SmokeError(f"delivery stats table, card:\n{tables['cuda']}\nCPU:\n{tables['cpu']}")
-    print(f"  delivery stats table on {COMPARE_SECONDS} s: card and CPU equal")
+    for label, words, enc in (("delivery", DELIVERY, "s16"), ("modulated", MODULATED, "double")):
+        tables = {}
+        for device in ("cuda", "cpu"):
+            os.environ["DSP_TPU_TORCH_DEVICE"] = device
+            np.random.seed(SLICE_C_SEED)
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc = cli_main(["-q", str(src), "-o", "-e", enc, str(tmp / "head_out.wav"),
+                               *words.split()])
+            if rc != 0:
+                raise SmokeError(f"{label} stats table run on {device}: dsp-torch exited {rc}")
+            tables[device] = stats_table(err.getvalue())
+        os.environ["DSP_TPU_TORCH_DEVICE"] = "cuda"
+        if tables["cuda"] is None or tables["cuda"] != tables["cpu"]:
+            raise SmokeError(f"{label} stats table, card:\n{tables['cuda']}\nCPU:\n{tables['cpu']}")
+        print(f"  {label} stats table on {COMPARE_SECONDS} s: card and CPU equal")
 
 
 def delivery_no_sync():
@@ -2705,6 +2863,7 @@ def float32_time_domain_phase(records):
     import numpy as np
     import torch
 
+    from dsp_tpu_torch import kernels
     from dsp_tpu_torch.core.prng import prng_key
     from dsp_tpu_torch.core.types import StreamInfo
     from dsp_tpu_torch.effects.delay import ModDelayEffect
@@ -2783,7 +2942,10 @@ def float32_time_domain_phase(records):
             if blk == 2:
                 st["limit"] = torch.tensor(2 * B + 1000, device=dev)
                 sr["limit"] = st["limit"].cpu()
+            lib = kernels.meter_launches()[0]
             st = td.stats_step_f32(st, q[blk], table)
+            _require(f"stats_step_f32 {'-i' if interp else 'plain'}: not one launch by the "
+                     f"library's count", kernels.meter_launches()[0] - lib == 1)
             sr = td.stats_step_ref(sr, q[blk].cpu(), None if table is None else table.cpu())
             torch.cuda.synchronize()
             names = tuple(st)
@@ -2805,7 +2967,13 @@ def float32_time_domain_phase(records):
         rec["times"].append({"mode": label, "ms": ms, "plain_ms": plain_ms})
         if interp:
             set_times(rec, ms, plain_ms, 4 * B * C + state_bytes, flops, peak=F32_PEAK)
+        else:
+            prec = records["stats_step_plain_f32"]
+            set_times(prec, ms, plain_ms, 4 * B * C + state_bytes, flops, peak=F32_PEAK)
+            prec["device_ms"] = device_ms(lambda: td.stats_step_f32(s0, q[0]))[0]
+            print(f"  plain: {prec['device_ms']:.4f} ms device-only")
     stats_interp_cases(rec, f32, rng)
+    meter_cases(records["stats_step_plain_f32"], records["levels_step_f32"], f32, rng)
 
     print("K17 levels_step_f32 (B=2048, stereo, 3 blocks)")
     rec = records["levels_step_f32"]
@@ -2822,6 +2990,7 @@ def float32_time_domain_phase(records):
     plain_ms = cuda_ms(lambda: td.levels_step_f32_ref(*st, x, g), 10)
     # float32 in and out; the scan runs in float64 registers
     set_times(rec, ms, plain_ms, 4 * B * C + 24 * C, 6 * B * C)
+    rec["device_ms"] = device_ms(lambda: td.levels_step_f32(*st, x, g))[0]
     print(f"  within one ulp over 3 blocks; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
           f"(a chain of {B} samples a channel)")
 
@@ -3790,7 +3959,8 @@ def float32_time_domain_cli(records, tmp):
         ("modulated", MODULATED, "double", -20 * math.log10(2.0 ** 24),
          {"mod_delay_f32": td.mod_delay_f32,
           "tpdf_noise_f32": td.tpdf_noise_f32, "tpdf_dither_f32": td.tpdf_dither_f32,
-          "stats_step_f32": td.stats_step_f32, "levels_step_f32": td.levels_step_f32},
+          "stats_step_f32": td.stats_step_f32, "stats_step_plain_f32": td.stats_step_f32.plain,
+          "levels_step_f32": td.levels_step_f32},
          # noise -90's TPDF (var level^2 / 6) and the sloped2 dither's
          # first difference of its error (var 2 step^2 / 4), two draws each
          math.sqrt(2 * (10 ** (-90 / 10) / 6 + 2 * step ** 2 / 4))),
@@ -3950,7 +4120,8 @@ def main_path(records, seconds, tmp):
         ("modulated -b 2048", MODULATED.split(), 2048,
          {"mod_delay": td.mod_delay,
           "tpdf_noise": td.tpdf_noise, "tpdf_dither": td.tpdf_dither,
-          "stats_step": td.stats_step, "levels_step": td.levels_step},
+          "stats_step": td.stats_step, "stats_step_plain": td.stats_step.plain,
+          "levels_step": td.levels_step},
          {"limit_dbfs": -280.0, "seed": SLICE_C_SEED, "keep": tmp / "f64_modulated.wav"}, None),
         # slices D and E: the upmixes
         ("matrix4 -6 -b 2048 (44.1 kHz -> 4 ch)", MATRIX4.split(), 2048, m4w,
@@ -4098,6 +4269,8 @@ def main():
             ("tpdf_dither", "tpdf", "dsp_tpu/effects/dither.py:107", "lipshitz, B=2048, C=2"),
             ("tpdf_noise", "tpdf", "dsp_tpu/effects/noise.py:51", "B=2048, C=2"),
             ("stats_step", "stats", "dsp_tpu/effects/stats.py:159,197,266", "-i, B=2048, C=2"),
+            ("stats_step_plain", "stats", "dsp_tpu/effects/stats.py:159,266 (plain mode)",
+             "plain, B=2048, C=2"),
             ("levels_step", "levels", "dsp_tpu/effects/levels.py:62", "B=2048, C=2"),
             ("resample_fold", "resample", "dsp_tpu/ops/resample_ops.py:144",
              "48 kHz, 4 x 588 frames, C=2"),
@@ -4152,6 +4325,8 @@ def main():
              "float32, lipshitz, B=2048, C=2"),
             ("tpdf_noise_f32", "tpdf", "dsp_tpu/effects/noise.py:51 in float32",
              "float32, B=2048, C=2"),
+            ("stats_step_plain_f32", "stats",
+             "dsp_tpu/effects/stats.py:159,266 (plain mode) in float32", "float32, plain, B=2048, C=2"),
             ("stats_step_f32", "stats", "dsp_tpu/effects/stats.py:159,197,266 in float32",
              "float32, -i, B=2048, C=2"),
             ("levels_step_f32", "levels", "dsp_tpu/effects/levels.py:62 in float32",

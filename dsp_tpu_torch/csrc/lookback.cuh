@@ -1,6 +1,7 @@
 // A single-pass scan across the thread blocks of one launch, shared by K1
-// (csrc/lti_blocked.cu), K11 (csrc/m4_env.cu) and matrix4_mb's K12-K13
-// (csrc/m4mb_audio.cu): the reduce-then-scan of an affine recurrence in one
+// (csrc/lti_blocked.cu), K11 (csrc/m4_env.cu), matrix4_mb's K12-K13
+// (csrc/m4mb_audio.cu), K16's plain mode (csrc/stats.cu) and K17
+// (csrc/levels.cu): the reduce-then-scan of an affine recurrence in one
 // launch, in a fixed order so that every run gives the same bits.
 //
 // A launch cuts its sequence into tiles, a block a tile. Each block
@@ -119,6 +120,45 @@ __device__ inline void carry_affine(const Scratch& s, long long t, unsigned tag,
             double x = v[e];
             for (int i = 0; i < cnt; ++i) x = __fma_rn(buf[i * w2 + e], x, buf[i * w2 + width + e]);
             v[e] = x;
+        }
+        __syncthreads();
+    }
+}
+
+// The max-affine form (K17's levels meters): each of `width` lanes carries
+// two values through maps that vary from tile to tile, u <- a·u + b and
+// v <- max(c, a·v + b). Tile j publishes its maps as a[width], b[width],
+// c[width] at slot base + j·stride (every slot of the launch 3·width
+// doubles); carry_max_affine waits for every tile before t and applies
+// their maps to u and v (shared memory, v[0..width) and v[width..2·width):
+// the launch's start values on entry, tile t's on return) one after
+// another, in tile order, each an FMA (and a max). As in carry_affine, a
+// value is carried, never a composed map. buf (shared memory,
+// kMaxAffineLook · 3 · width doubles) stages the maps. Every thread of the
+// block calls it; it ends on a barrier.
+constexpr int kMaxAffineLook = 64;
+
+__device__ inline void carry_max_affine(const Scratch& s, long long base, long long stride,
+                                        long long t, unsigned tag, int width, double* v,
+                                        double* buf) {
+    for (long long j = threadIdx.x; j < t; j += blockDim.x) wait(s, base + j * stride, tag);
+    __syncthreads();
+    const int w3 = 3 * width;
+    for (long long j0 = 0; j0 < t; j0 += kMaxAffineLook) {
+        const int cnt = (int)(t - j0 < kMaxAffineLook ? t - j0 : kMaxAffineLook);
+#pragma unroll 4
+        for (int q = threadIdx.x; q < cnt * w3; q += blockDim.x)
+            buf[q] = __ldcg(s.agg + (base + (j0 + q / w3) * stride) * w3 + q % w3);
+        __syncthreads();
+        for (int e = threadIdx.x; e < width; e += blockDim.x) {
+            double u = v[e], m = v[width + e];
+            for (int i = 0; i < cnt; ++i) {
+                const double* f = buf + i * w3;
+                u = __fma_rn(f[e], u, f[width + e]);
+                m = fmax(f[2 * width + e], __fma_rn(f[e], m, f[width + e]));
+            }
+            v[e] = u;
+            v[width + e] = m;
         }
         __syncthreads();
     }

@@ -35,8 +35,14 @@
 //     reads the old one), and the last tile writes the carried key, knot
 //     window and phase.
 // Everything stays on the device: t0 is read there, not on the host.
-// Modulated reads are held to the plain version within a tolerance (sums
-// of taps in another order), not bit for bit.
+// Rounding (float64): every operation is an intrinsic, so nvcc contracts
+// nothing on its own. The FMAs are the ones dsp_tpu's XLA:CPU takes when
+// the chain's scan runs the step (measured; PERF.md §6): each
+// knot's six terms, the B-splines' c0 and two of their Horner steps, and
+// the Hermite read's; the phase t0 + step·n rounds twice (the scan hoists
+// step·n out of its loop). The plain version writes the same operations
+// in the same order, and each polyphase filter's taps are summed from tap
+// 0, one FMA a tap, in both (XLA:CPU reduces them in an order of its own).
 //
 // float32 (dsp_mod_delay_f32): the knots are jax's float32 draws; every
 // value on the way to a read position (the knots' products and six-term
@@ -78,14 +84,20 @@ __device__ __forceinline__ double line_at(const T* __restrict__ buf, const T* __
     return (double)(k < H ? buf[(size_t)k * C + c] : x[(size_t)(k - H) * C + c]);
 }
 
-__device__ __forceinline__ double bspline(double z0, double z1, double z2, double z3, double t,
-                                          double offset) {
-    const double a = z0 + z2;
-    const double c0 = (1.0 / 6.0) * a + (2.0 / 3.0) * z1 + offset;
-    const double c1 = 0.5 * (z2 - z0);
-    const double c2 = 0.5 * a - z1;
-    const double c3 = 0.5 * (z1 - z2) + (1.0 / 6.0) * (z3 - z0);
-    return ((c3 * t + c2) * t + c1) * t + c0;
+// the cubic B-spline of z0..z3 at t (plus 0.5 for the modulator), with the
+// FMAs dsp_tpu's XLA:CPU takes in the chain's scan (measured; PERF.md §6):
+// c0 = fma(2/3, z1, a/6), then fma(c3, t, c2), a rounded product and sum,
+// and fma(·, t, c0); every other operation rounded on its own
+template <bool kHalf>
+__device__ __forceinline__ double bspline(double z0, double z1, double z2, double z3, double t) {
+    const double a = __dadd_rn(z0, z2);
+    double c0 = __fma_rn(2.0 / 3.0, z1, __dmul_rn(1.0 / 6.0, a));
+    if (kHalf) c0 = __dadd_rn(c0, 0.5);
+    const double c1 = __dmul_rn(0.5, __dsub_rn(z2, z0));
+    const double c2 = __dsub_rn(__dmul_rn(0.5, a), z1);
+    const double c3 = __dadd_rn(__dmul_rn(0.5, __dsub_rn(z1, z2)),
+                                __dmul_rn(1.0 / 6.0, __dsub_rn(z3, z0)));
+    return __fma_rn(__dadd_rn(__dmul_rn(__fma_rn(c3, t, c2), t), c1), t, c0);
 }
 
 // the modulator's B-spline (offset 0.5) in float32, each product and sum
@@ -103,9 +115,13 @@ __device__ __forceinline__ float bspline_mod_f32(float z0, float z1, float z2, f
                      c0);
 }
 
-// the modulator's phase at sample n: float32 adds step·n, a float64
-// product (dsp_tpu's jnp.arange is int64), to the float32 phase
-__device__ __forceinline__ double phase(double t0, double step, int n) { return t0 + step * n; }
+// the modulator's phase at sample n, the product and the sum each rounded
+// (the chain's scan hoists step·n out of its loop: no FMA); float32 adds
+// step·n, a float64 product (dsp_tpu's jnp.arange is int64), to the
+// float32 phase
+__device__ __forceinline__ double phase(double t0, double step, int n) {
+    return __dadd_rn(t0, __dmul_rn(step, (double)n));
+}
 __device__ __forceinline__ float phase(float t0, double step, int n) {
     return __fadd_rn(t0, (float)(step * (double)n));
 }
@@ -150,7 +166,7 @@ mod_delay_kernel(const uint32_t* __restrict__ key_in, uint32_t* __restrict__ key
     const int k_lo = (int)floor(phase(tin, step, n0));
     int k_hi = (int)floor(phase(tin, step, n1 - 1));
     // float32: (t0 + float32(step·B)) in float32, as dsp_tpu float32
-    const T tb = f32 ? add_rn(tin, (T)step_b) : tin + (T)step_b;
+    const T tb = add_rn(tin, (T)step_b);
     const int consumed = (int)floor(tb);
     if (last) k_hi = max(k_hi, consumed);
     const int rows = k_hi + 4 - k_lo;
@@ -174,7 +190,7 @@ mod_delay_kernel(const uint32_t* __restrict__ key_in, uint32_t* __restrict__ key
         const unsigned long long base = ((unsigned long long)(row - 4) * NOISE_N + j) * 2;
         const T u0 = dsp_threefry::uniform(k[1][0], k[1][1], base * lanes + l, (T)MOD_MAX);
         const T u1 = dsp_threefry::uniform(k[1][0], k[1][1], (base + 1) * lanes + l, (T)MOD_MAX);
-        diffs[q] = f32 ? sub_rn(u0, u1) : u0 - u1;
+        diffs[q] = sub_rn(u0, u1);
     }
     __syncthreads();
     // a thread a knot: the carried window's rows, or the six-term sum from 0
@@ -187,11 +203,9 @@ mod_delay_kernel(const uint32_t* __restrict__ key_in, uint32_t* __restrict__ key
         const T* d = diffs + (size_t)r * NOISE_N * lanes + l;
         T acc = 0;
         for (int j = 0; j < NOISE_N; ++j) {
-            if constexpr (f32) {
-                acc = add_rn(acc, mul_rn(d[j * lanes], scale));
-            } else {
-                acc += d[j * lanes] * scale;
-            }
+            // float32 rounds each operation; float64 takes an FMA a term,
+            // as dsp_tpu's XLA:CPU reduces the six
+            acc = f32 ? add_rn(acc, mul_rn(d[j * lanes], scale)) : fma_rn(d[j * lanes], scale, acc);
         }
         knots[q] = acc;
     }
@@ -199,7 +213,7 @@ mod_delay_kernel(const uint32_t* __restrict__ key_in, uint32_t* __restrict__ key
     if (last) {
         if (tid < 2) key_out[tid] = k[0][tid];
         for (int q = tid; q < 4 * lanes; q += kThreads) y_out[q] = knots[(consumed - k_lo) * lanes + q];
-        if (tid == 0) *t_out = f32 ? sub_rn(tb, (T)consumed) : tb - (T)consumed;
+        if (tid == 0) *t_out = sub_rn(tb, (T)consumed);
     }
     // the carried line, the last H rows of [buf | x], shared by the blocks
     for (long long q = (long long)blockIdx.x * kThreads + tid; q < (long long)H * C;
@@ -235,13 +249,13 @@ mod_delay_kernel(const uint32_t* __restrict__ key_in, uint32_t* __restrict__ key
             const double tev = phase(tin, step, n);
             const double kf = floor(tev);
             const int kidx = (int)kf;
-            const double frac = tev - kf;
+            const double frac = __dsub_rn(tev, kf);
             const double* kn = knots + (size_t)(kidx - k_lo) * lanes + l;
-            double z = bspline(kn[0], kn[lanes], kn[2 * lanes], kn[3 * lanes], frac, 0.5);
+            double z = bspline<true>(kn[0], kn[lanes], kn[2 * lanes], kn[3 * lanes], frac);
             z = fmin(fmax(z, 0.0), 1.0);
-            const double mod = z * depth;
+            const double mod = __dmul_rn(z, depth);
             d_int = (int)mod;  // truncation, like (ssize_t) mod
-            d_frac = mod - d_int;
+            d_frac = __dsub_rn(mod, (double)d_int);
         }
         const int base = H + n - d_int;
         double y;
@@ -251,10 +265,13 @@ mod_delay_kernel(const uint32_t* __restrict__ key_in, uint32_t* __restrict__ key
             const double ym2 = ln.at(base - 2, c);
             const double ym1 = ln.at(base - 1, c);
             const double y0 = ln.at(base, c);
-            const double h1 = 0.5 * (ym2 - y0);
-            const double h2 = y0 - 2.5 * ym1 + 2.0 * ym2 - 0.5 * ym3;
-            const double h3 = 0.5 * (ym3 - y0) + 1.5 * (ym1 - ym2);
-            y = ((h3 * d_frac + h2) * d_frac + h1) * d_frac + ym1;
+            // with dsp_tpu's FMAs (measured), every other operation rounded
+            const double h1 = __dmul_rn(0.5, __dsub_rn(ym2, y0));
+            const double h2 = __dsub_rn(__dadd_rn(__fma_rn(-2.5, ym1, y0), __dmul_rn(2.0, ym2)),
+                                        __dmul_rn(0.5, ym3));
+            const double h3 = __dadd_rn(__dmul_rn(0.5, __dsub_rn(ym3, y0)),
+                                        __dmul_rn(1.5, __dsub_rn(ym1, ym2)));
+            y = __fma_rn(__dadd_rn(__dmul_rn(__fma_rn(h3, d_frac, h2), d_frac), h1), d_frac, ym1);
         } else {
             // the polyphase phase: in float32 for a float32 line (its integer
             // part picks the filters)
@@ -262,7 +279,7 @@ mod_delay_kernel(const uint32_t* __restrict__ key_in, uint32_t* __restrict__ key
             if constexpr (f32) {
                 t_os = __fmul_rn(d_frac32, (float)n_phases);
             } else {
-                t_os = d_frac * n_phases;
+                t_os = __dmul_rn(d_frac, (double)n_phases);
             }
             const int ph0 = (int)t_os;
             double zs[4];
@@ -271,10 +288,11 @@ mod_delay_kernel(const uint32_t* __restrict__ key_in, uint32_t* __restrict__ key
                 const T* flt = tab + (size_t)(phi % n_phases) * taps;
                 const int top = base - phi / n_phases;  // tap j reads the line at top - j
                 double acc = 0.0;
-                for (int j = 0; j < taps; ++j) acc += ln.at(top - j, c) * (double)flt[j];
+                // in order from tap 0, one FMA a tap
+                for (int j = 0; j < taps; ++j) acc = __fma_rn(ln.at(top - j, c), (double)flt[j], acc);
                 zs[kk] = acc;
             }
-            y = bspline(zs[0], zs[1], zs[2], zs[3], t_os - ph0, 0.0);
+            y = bspline<false>(zs[0], zs[1], zs[2], zs[3], __dsub_rn(t_os, (double)ph0));
         }
         out[i] = (T)y;
     }

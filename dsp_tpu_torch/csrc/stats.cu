@@ -23,14 +23,20 @@
 // What bounds it on the card: in -i every decision depends on the one
 // before it (the gate opens on the thresholds the last fits set), so a
 // channel is one dependent chain of B samples, with 64 + 3 fused
-// multiply-adds and 4 fits a gated sample; plain mode's running min and max
-// are scans. Latency bounds both, not the 32 KB they read at B = 2048.
-// Design: a block a channel. Plain mode (one warp) splits the block into 32
-// segments: a warp scan of the segments' min and max gives each sample the
-// running min and max the sequential rule compares it with (min and max are
-// exact, so any grouping gives the same numbers), then one pass finds the
-// peak and one counts the events equal to it. -i (two warps) shortens the
-// chain to what must be serial: the gate test and the fits' compares
+// multiply-adds and 4 fits a gated sample: latency, not the 32 KB it reads
+// at B = 2048. Plain mode's running min and max are scans of exact
+// operations, and its peak, count and first frame an exact reduction, so
+// nothing in it is serial but the order of the float64 sums: the bytes it
+// reads bound it.
+// Design, plain mode: one launch of tiles over the card, the
+// partition and look-back described at stats_plain_kernel below (model:
+// tests/test_torch_stats_plain_tiles.py): a tile's min and max published
+// first, its events found against the running min and max before it, its
+// (pk, cnt, first) and sums published, the last tile of each channel group
+// adding every tile's sums in tile order; stats -i, the state's pointers
+// and its rows are passed as they are, with no struct built a call.
+// Design, -i (a block a channel): the walk shortens the chain to
+// what must be serial: the gate test and the fits' compares
 // against the running min and max. The buffer, y and the four vertices of a
 // gated sample depend only on the delayed inputs and on which samples were
 // gated, so warp 0 computes them for 32 samples at once on the assumption
@@ -50,7 +56,7 @@
 // __dsub_rn, so nvcc contracts nothing, every yq equals dsp_tpu's, and the
 // peak count (an integer decided by exact equality) comes out the same.
 //
-// float32 (dsp_stats_f32): the same kernel with T = float. Every comparison
+// float32 (dsp_stats_f32): the same kernels with T = float. Every comparison
 // and the -i estimator's arithmetic run in float32 with the same three FMAs,
 // so the decisions, min, max, peak, counts, frames and the estimator's
 // state equal dsp_tpu float32's. The sums and sums of squares are taken in
@@ -62,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "lookback.cuh"
+#include "tile_slab.cuh"
 #include "rn.cuh"
 
 // one stats state's device pointers, by value in the kernel's arguments
@@ -138,86 +146,227 @@ __device__ __forceinline__ T jmax(T a, T b) {
     return (a > b || (a == b && !signbit(a))) ? a : b;
 }
 
-// plain: one warp a channel, each lane a contiguous segment of the active
-// samples. The running min and max a sample is compared with are the
-// carried state's and every earlier sample's, so the lanes scan their
-// segments' min and max (exact operations) before they look for events.
+// plain mode, the tiles. A launch cuts the block's samples into tiles of
+// kTile samples of up to kGroup channels (a tile a thread block, numbered
+// by csrc/lookback.cuh's tickets: tile = ticket / groups, group = ticket %
+// groups). A tile
+//  1. stages its active samples' [rows, channels] slab in shared memory
+//     (16-byte loads where the slab is one contiguous, aligned run), each
+//     channel's row padded so that the lanes' 8-sample segments sit in
+//     distinct banks;
+//  2. publishes its channels' min and max (jnp's order, -0.0 < +0.0);
+//  3. takes the running min and max before it: the carried state's and every
+//     earlier tile's, folded in any order (min and max are exact);
+//  4. finds its events against them (a warp a channel, a lane a segment of
+//     8 samples, a warp scan of the segments' min and max giving each
+//     segment its start), keeping (pk, cnt, first): the largest |x| of an
+//     event, how many events equal it and the first, which combine exactly
+//     (the larger pk; on a tie the counts add and the earlier frame stays),
+//     and the float64 sums of x and x² (in order within a segment, the
+//     segments in a fixed tree), and publishes them;
+//  5. the channel group's last tile adds every tile's sums to the carried
+//     ones in tile order and writes the state (and ticket 0 samples').
+// So one launch does the block, and every run gives the same bits.
+using tile_slab::kGroup;
+using tile_slab::kPad;
+using tile_slab::kSeg;
+using tile_slab::kTile;
+constexpr int kPubWidth = 5 * kGroup;  // doubles a tile publishes, each time
+constexpr int kLook = 64;              // tiles' results staged at a time
+// threads a tile: the warps past its channels stage the slab, wait on the
+// earlier tiles and read their publications, whose latency sets the pace
+constexpr int kPlainThreads = 256;
+
+// a tile publishes twice, kPubWidth doubles each: its channels' min, then
+// max; later cnt, first, sum, sum of squares and pk (kGroup each)
 template <typename T>
-__device__ void plain_channel(const StatsState<T>& in, const StatsState<T>& out,
-                              const T* __restrict__ xs, int c, int n, int n_act,
-                              long long s0) {
+struct PlainScratch {
+    T x[kGroup * kPad];
+    double pub[kPubWidth];
+    double look[kLook * kPubWidth];
+    T lim[4 * kGroup];  // the tile's min and max, then the running ones before it
+    unsigned tk[2];
+};
+
+// the plain state's leaves in, one pointer each (the float leaves of T)
+template <typename T>
+struct PlainIn {
+    const T *sum, *sum_sq, *mn, *mx, *peak;
+    const long long *peak_count, *peak_frame, *samples;
+};
+
+// (pk, cnt, first) of one segment or tile combined with another's
+template <typename T>
+__device__ __forceinline__ void pk_combine(T& pk, int& cnt, int& first, T opk, int ocnt, int ofirst) {
+    if (opk > pk) {
+        pk = opk;
+        cnt = ocnt;
+        first = ofirst;
+    } else if (opk == pk) {
+        cnt += ocnt;
+        first = min(first, ofirst);
+    }
+}
+
+template <typename T>
+__global__ void stats_plain_kernel(PlainIn<T> in, T* __restrict__ fout, long long* __restrict__ iout,
+                                   const long long* __restrict__ limit, const T* __restrict__ xs,
+                                   int B, int n, int groups, int ntiles, lookback::Scratch lb) {
+    __shared__ PlainScratch<T> sh;
     const unsigned full = 0xffffffffu;
-    const int lane = threadIdx.x & 31;
-    const int seg = (n_act + 31) / 32;
-    const int t0 = min(n_act, lane * seg), t1 = min(n_act, t0 + seg);
-    const T mn0 = in.mn[c], mx0 = in.mx[c], pk0 = in.peak[c];
-    // 1. the segment's sums, min and max
-    // the sums in float64 whatever T is
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+    const long long s0 = *in.samples, lim = *limit;
+    const long long left = lim - s0;
+    const int n_act = left <= 0 ? 0 : (left < B ? (int)left : B);
+    lookback::begin(lb, sh.tk);
+    const unsigned ticket = sh.tk[0], tag = sh.tk[1];
+    const int tile = (int)(ticket / groups), grp = (int)(ticket % groups);
+    const int c0 = grp * kGroup, ng = min(kGroup, n - c0);
+    const int t0 = tile * kTile, rows = max(0, min(kTile, n_act - t0));
+    const long long nslots = (long long)ntiles * groups;
+    if (ticket == 0 && threadIdx.x == 0) iout[2 * n] = s0 + B < lim ? s0 + B : lim;
+    // 1. the slab
+    tile_slab::load(sh.x, xs, n, groups, c0, ng, t0, rows);
+    __syncthreads();
+    // 2. the tile's min and max, published
+    const int sb = lane * kSeg, se = min(rows, sb + kSeg);  // this lane's segment
+    for (int c = warp; c < ng; c += nw) {
+        T mn = (T)CUDART_INF, mx = (T)-CUDART_INF;
+        for (int t = sb; t < se; ++t) {
+            const T v = sh.x[tile_slab::at(c, t)];
+            mn = jmin(mn, v);
+            mx = jmax(mx, v);
+        }
+        for (int d = 16; d > 0; d >>= 1) {
+            mn = jmin(mn, __shfl_xor_sync(full, mn, d));
+            mx = jmax(mx, __shfl_xor_sync(full, mx, d));
+        }
+        if (lane == 0) {
+            sh.pub[c] = (double)mn;
+            sh.pub[kGroup + c] = (double)mx;
+            sh.lim[c] = mn;
+            sh.lim[kGroup + c] = mx;
+        }
+    }
+    lookback::publish(lb, ticket, tag, sh.pub, kPubWidth);
+    // 3. the running min and max before the tile
+    for (int j = threadIdx.x; j < tile; j += blockDim.x) lookback::wait(lb, (long long)j * groups + grp, tag);
+    __syncthreads();
+    for (int c = warp; c < ng; c += nw) {
+        T pmn = in.mn[c0 + c], pmx = in.mx[c0 + c];
+#pragma unroll 4
+        for (int j = lane; j < tile; j += 32) {
+            const double* a = lb.agg + ((long long)j * groups + grp) * kPubWidth;
+            pmn = jmin(pmn, (T)__ldcg(a + c));
+            pmx = jmax(pmx, (T)__ldcg(a + kGroup + c));
+        }
+        for (int d = 16; d > 0; d >>= 1) {
+            pmn = jmin(pmn, __shfl_xor_sync(full, pmn, d));
+            pmx = jmax(pmx, __shfl_xor_sync(full, pmx, d));
+        }
+        if (lane == 0) {
+            sh.lim[2 * kGroup + c] = pmn;
+            sh.lim[3 * kGroup + c] = pmx;
+        }
+        // 4. the segments' starts (an exclusive warp scan), then the events
+        T smin = (T)CUDART_INF, smax = (T)-CUDART_INF;
+        for (int t = sb; t < se; ++t) {
+            const T v = sh.x[tile_slab::at(c, t)];
+            smin = fmin_t(smin, v);
+            smax = fmax_t(smax, v);
+        }
+        for (int d = 1; d < 32; d <<= 1) {
+            const T omin = __shfl_up_sync(full, smin, d), omax = __shfl_up_sync(full, smax, d);
+            if (lane >= d) {
+                smin = fmin_t(omin, smin);
+                smax = fmax_t(omax, smax);
+            }
+        }
+        const T emin = __shfl_up_sync(full, smin, 1), emax = __shfl_up_sync(full, smax, 1);
+        T run_mn = lane == 0 ? pmn : fmin_t(pmn, emin);
+        T run_mx = lane == 0 ? pmx : fmax_t(pmx, emax);
+        T pk = 0;
+        int cnt = 0, first = B;  // B: no event
+        double sum = 0.0, sq = 0.0;
+        for (int t = sb; t < se; ++t) {
+            const T v = sh.x[tile_slab::at(c, t)];
+            sum = __dadd_rn(sum, (double)v);
+            sq = __dadd_rn(sq, __dmul_rn((double)v, (double)v));
+            if (v <= run_mn || v >= run_mx) {
+                const T a = fabs_t(v);
+                if (a > pk) {
+                    pk = a;
+                    cnt = 1;
+                    first = t0 + t;
+                } else if (a == pk && a > 0) {
+                    ++cnt;
+                }
+            }
+            run_mn = fmin_t(run_mn, v);
+            run_mx = fmax_t(run_mx, v);
+        }
+        for (int d = 16; d > 0; d >>= 1) {
+            pk_combine(pk, cnt, first, __shfl_xor_sync(full, pk, d), __shfl_xor_sync(full, cnt, d),
+                       __shfl_xor_sync(full, first, d));
+            sum = __dadd_rn(sum, __shfl_xor_sync(full, sum, d));
+            sq = __dadd_rn(sq, __shfl_xor_sync(full, sq, d));
+        }
+        if (lane == 0) {
+            sh.pub[c] = (double)cnt;
+            sh.pub[kGroup + c] = (double)first;
+            sh.pub[2 * kGroup + c] = sum;
+            sh.pub[3 * kGroup + c] = sq;
+            sh.pub[4 * kGroup + c] = (double)pk;
+        }
+    }
+    if (tile < ntiles - 1) {
+        lookback::publish(lb, nslots + ticket, tag, sh.pub, kPubWidth);
+        lookback::end(lb);
+        return;
+    }
+    // 5. the group's last tile: every tile's results in tile order
+    for (int j = threadIdx.x; j < tile; j += blockDim.x)
+        lookback::wait(lb, nslots + (long long)j * groups + grp, tag);
+    __syncthreads();
     double sum = 0.0, sq = 0.0;
-    T smin = (T)CUDART_INF, smax = (T)-CUDART_INF;
-    T mn = (T)CUDART_INF, mx = (T)-CUDART_INF;  // in jnp's order, -0.0 < +0.0
-    for (int t = t0; t < t1; ++t) {
-        const T v = xs[(size_t)t * n + c];
-        sum = __dadd_rn(sum, (double)v);
-        sq = __dadd_rn(sq, __dmul_rn((double)v, (double)v));
-        smin = fmin_t(smin, v);
-        smax = fmax_t(smax, v);
-        mn = jmin(mn, v);
-        mx = jmax(mx, v);
-    }
-    // 2. the min and max before the segment: the carried state's and the
-    //    earlier lanes' (an exclusive scan)
-    for (int d = 1; d < 32; d <<= 1) {
-        const T omin = __shfl_up_sync(full, smin, d), omax = __shfl_up_sync(full, smax, d);
-        if (lane >= d) {
-            smin = fmin_t(omin, smin);
-            smax = fmax_t(omax, smax);
+    T pk = 0;
+    int cnt = 0, first = B;
+    const int c = threadIdx.x;
+    for (int j0 = 0; j0 <= tile; j0 += kLook) {
+        const int m = min(kLook, tile + 1 - j0);
+        __syncthreads();
+#pragma unroll 4
+        for (int q = threadIdx.x; q < m * kPubWidth; q += blockDim.x) {
+            const int j = j0 + q / kPubWidth;
+            sh.look[q] = j == tile ? sh.pub[q % kPubWidth]
+                                   : __ldcg(lb.agg + (nslots + (long long)j * groups + grp) * kPubWidth +
+                                            q % kPubWidth);
+        }
+        __syncthreads();
+        if (c < ng) {
+            for (int i = 0; i < m; ++i) {
+                const double* r = sh.look + i * kPubWidth;
+                sum = __dadd_rn(sum, r[2 * kGroup + c]);
+                sq = __dadd_rn(sq, r[3 * kGroup + c]);
+                pk_combine(pk, cnt, first, (T)r[4 * kGroup + c], (int)r[c], (int)r[kGroup + c]);
+            }
         }
     }
-    const T pmin = __shfl_up_sync(full, smin, 1), pmax = __shfl_up_sync(full, smax, 1);
-    const T run_mn0 = lane == 0 ? mn0 : fmin_t(mn0, pmin);
-    const T run_mx0 = lane == 0 ? mx0 : fmax_t(mx0, pmax);
-    // 3. the events: a new min, or else a new max; the peak is their largest |x|
-    T pk = 0, run_mn = run_mn0, run_mx = run_mx0;
-    for (int t = t0; t < t1; ++t) {
-        const T v = xs[(size_t)t * n + c];
-        if (v <= run_mn || v >= run_mx) pk = fmax_t(pk, fabs_t(v));
-        run_mn = fmin_t(run_mn, v);
-        run_mx = fmax_t(run_mx, v);
+    if (c < ng) {
+        const int ch = c0 + c;
+        const T pk0 = in.peak[ch], peak = fmax_t(pk0, pk);
+        const bool higher = peak > pk0;
+        const long long bc = pk == peak ? cnt : 0;
+        fout[ch] = (T)__dadd_rn((double)in.sum[ch], sum);
+        fout[n + ch] = (T)__dadd_rn((double)in.sum_sq[ch], sq);
+        // the carried and earlier tiles' min and max, then this tile's
+        fout[2 * n + ch] = jmin(sh.lim[2 * kGroup + c], sh.lim[c]);
+        fout[3 * n + ch] = jmax(sh.lim[3 * kGroup + c], sh.lim[kGroup + c]);
+        fout[4 * n + ch] = peak;
+        iout[ch] = higher ? bc : in.peak_count[ch] + bc;
+        iout[n + ch] = higher ? s0 + first : in.peak_frame[ch];
     }
-    for (int d = 16; d > 0; d >>= 1) pk = fmax_t(pk, __shfl_xor_sync(full, pk, d));
-    const T peak = fmax_t(pk0, pk);
-    // 4. the events equal to the block's peak: how many, and the first
-    long long cnt = 0, first = 1LL << 62;
-    run_mn = run_mn0;
-    run_mx = run_mx0;
-    for (int t = t0; t < t1; ++t) {
-        const T v = xs[(size_t)t * n + c];
-        const T a = fabs_t(v);
-        if ((v <= run_mn || v >= run_mx) && a == peak && a > 0) {
-            if (cnt == 0) first = s0 + t;
-            ++cnt;
-        }
-        run_mn = fmin_t(run_mn, v);
-        run_mx = fmax_t(run_mx, v);
-    }
-    for (int d = 16; d > 0; d >>= 1) {
-        cnt += __shfl_xor_sync(full, cnt, d);
-        first = min(first, __shfl_xor_sync(full, first, d));
-        sum = __dadd_rn(sum, __shfl_xor_sync(full, sum, d));
-        sq = __dadd_rn(sq, __shfl_xor_sync(full, sq, d));
-        mn = jmin(mn, __shfl_xor_sync(full, mn, d));
-        mx = jmax(mx, __shfl_xor_sync(full, mx, d));
-    }
-    if (lane != 0) return;
-    const bool higher = peak > pk0;
-    out.sum[c] = (T)__dadd_rn((double)in.sum[c], sum);
-    out.sum_sq[c] = (T)__dadd_rn((double)in.sum_sq[c], sq);
-    out.mn[c] = jmin(mn0, mn);
-    out.mx[c] = jmax(mx0, mx);
-    out.peak[c] = peak;
-    out.peak_count[c] = higher ? cnt : in.peak_count[c] + cnt;
-    out.peak_frame[c] = higher ? first : in.peak_frame[c];
+    lookback::end(lb);
 }
 
 // -i, the windowed walk. The block's two warps stage the channel's input in
@@ -523,9 +672,9 @@ __device__ void interp_channel(const StatsState<T>& in, const StatsState<T>& out
 }
 
 template <typename T>
-__global__ void stats_kernel(StatsState<T> in, StatsState<T> out,
-                             const long long* __restrict__ limit, const T* __restrict__ xs,
-                             const T* __restrict__ hc, int B, int n) {
+__global__ void stats_interp_kernel(StatsState<T> in, StatsState<T> out,
+                                    const long long* __restrict__ limit, const T* __restrict__ xs,
+                                    const T* __restrict__ hc, int B, int n) {
     __shared__ InterpScratch<T> sh;
     const int c = blockIdx.x;  // a block a channel
     const long long s0 = *in.samples, lim = *limit;
@@ -533,23 +682,58 @@ __global__ void stats_kernel(StatsState<T> in, StatsState<T> out,
     if (c >= n) return;
     const long long left = lim - s0;
     const int n_act = left <= 0 ? 0 : (left < B ? (int)left : B);
-    if (hc == nullptr) {
-        plain_channel<T>(in, out, xs, c, n, n_act, s0);
-    } else {
-        interp_channel<T>(in, out, xs, hc, sh, c, n, n_act, s0);
-    }
+    interp_channel<T>(in, out, xs, hc, sh, c, n, n_act, s0);
 }
 
+// The kernels this file has launched in this process (host side): how a
+// caller checks that a call is one launch.
+unsigned long long stats_launches = 0;
+
+// The state's pointers in, as the caller passes them: the plain leaves, then
+// (-i) m, y, z, nctr, tmin, tmax
+struct StatsPtrs {
+    const void *sum, *sum_sq, *mn, *mx, *peak, *peak_count, *peak_frame, *samples;
+    const void *m, *y, *z, *nctr, *tmin, *tmax;
+};
+
 template <typename T>
-int launch_stats(const StatsState<T>* in, const StatsState<T>* out, const long long* limit,
-                 const T* xs, const T* hc, int B, int n, void* stream) {
+int launch_stats(const StatsPtrs& p, T* fout, long long* iout, int* nctr_out,
+                 const long long* limit, const T* xs, const T* hc, int B, int n,
+                 unsigned* flags, long long flag_slots, double* agg, long long agg_doubles,
+                 void* stream) {
     if (B <= 0 || n < 0) return (int)cudaErrorInvalidValue;
-    // a block a channel (one warp plain, two with -i); one block when no
-    // channel is selected
-    stats_kernel<T><<<n > 0 ? n : 1, hc != nullptr ? 64 : 32, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        *in, *out, limit, xs, hc, B, n);
-    return (int)cudaGetLastError();
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (hc == nullptr) {
+        // one launch: tiles of kTile samples of kGroup channels; no channel
+        // selected, one block that writes samples'
+        const int groups = n > 0 ? (n + kGroup - 1) / kGroup : 1;
+        const int ntiles = n > 0 ? (B + kTile - 1) / kTile : 1;
+        const long long nslots = (long long)ntiles * groups;
+        if (flags == nullptr || agg == nullptr || 2 * nslots > flag_slots ||
+            2 * nslots * kPubWidth > agg_doubles)
+            return (int)cudaErrorInvalidValue;
+        const PlainIn<T> in = {(const T*)p.sum, (const T*)p.sum_sq, (const T*)p.mn, (const T*)p.mx,
+                               (const T*)p.peak, (const long long*)p.peak_count,
+                               (const long long*)p.peak_frame, (const long long*)p.samples};
+        stats_plain_kernel<T><<<(unsigned)nslots, kPlainThreads, 0, st>>>(
+            in, fout, iout, limit, xs, B, n, groups, ntiles, lookback::carve(flags, agg));
+    } else {
+        // -i: a block (two warps) a channel; one block when no channel is
+        // selected. The outputs are rows of fout (the five plain leaves,
+        // tmin, tmax, m [64], y [6], z [9]), iout (peak_count, peak_frame,
+        // samples) and nctr_out
+        StatsState<T> in = {(T*)p.sum, (T*)p.sum_sq, (T*)p.mn, (T*)p.mx, (T*)p.peak,
+                            (long long*)p.peak_count, (long long*)p.peak_frame,
+                            (long long*)p.samples, (T*)p.m, (T*)p.y, (T*)p.z, (int*)p.nctr,
+                            (T*)p.tmin, (T*)p.tmax};
+        StatsState<T> out = {fout, fout + n, fout + 2 * n, fout + 3 * n, fout + 4 * n, iout,
+                             iout + n, iout + 2 * n, fout + 7 * n, fout + 71 * n, fout + 77 * n,
+                             nctr_out, fout + 5 * n, fout + 6 * n};
+        stats_interp_kernel<T><<<n > 0 ? n : 1, 64, 0, st>>>(in, out, limit, xs, hc, B, n);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess) ++stats_launches;
+    return (int)err;
 }
 
 }  // namespace
@@ -568,19 +752,42 @@ extern "C" int dsp_stats_set_insert_f32(const float* hc, void* stream) {
                                         static_cast<cudaStream_t>(stream));
 }
 
-// Returns cudaGetLastError() after the launch (0 on success). in and out
-// point to host structs of device pointers (the -i fields null in plain
-// mode), of the sample type; hc is null in plain mode, else [67]: the insert template H[64],
-// then the direct taps r0..r2. The caller (dsp_tpu_torch/ops/time_domain.py)
-// checks shapes, dtypes and contiguity.
-extern "C" int dsp_stats_f64(const StatsState<double>* in, const StatsState<double>* out,
-                             const long long* limit, const double* xs, const double* hc, int B,
-                             int n, void* stream) {
-    return launch_stats<double>(in, out, limit, xs, hc, B, n, stream);
+// One block of stats. The state in, a pointer a leaf (sum, sum_sq, min, max,
+// peak, peak_count, peak_frame, samples; with -i also m, y, z, nctr, tmin,
+// tmax, else null); the state out as the rows of two buffers, fout [5, n]
+// (-i: [86, n]: sum, sum_sq, min, max, peak, tmin, tmax, m, y, z) of the
+// sample type and iout [2n + 1] of int64 (peak_count, peak_frame, samples),
+// and nctr_out [n] (-i); limit the 0-d int64 limit; hc null in plain mode,
+// else [67]: the insert template H[64], then the direct taps r0..r2; flags
+// and agg the look-back scratch of csrc/lookback.cuh (plain mode). Returns
+// cudaGetLastError() after the launch (0 on success). The caller
+// (dsp_tpu_torch/ops/time_domain.py) checks shapes, dtypes and contiguity.
+extern "C" int dsp_stats_f64(const void* sum, const void* sum_sq, const void* mn, const void* mx,
+                             const void* peak, const void* peak_count, const void* peak_frame,
+                             const void* samples, const void* m, const void* y, const void* z,
+                             const void* nctr, const void* tmin, const void* tmax, double* fout,
+                             long long* iout, int* nctr_out, const long long* limit,
+                             const double* xs, const double* hc, int B, int n, unsigned* flags,
+                             long long flag_slots, double* agg, long long agg_doubles,
+                             void* stream) {
+    const StatsPtrs p = {sum, sum_sq, mn, mx, peak, peak_count, peak_frame, samples,
+                         m, y, z, nctr, tmin, tmax};
+    return launch_stats<double>(p, fout, iout, nctr_out, limit, xs, hc, B, n, flags, flag_slots,
+                                agg, agg_doubles, stream);
 }
 
-extern "C" int dsp_stats_f32(const StatsState<float>* in, const StatsState<float>* out,
-                             const long long* limit, const float* xs, const float* hc, int B,
-                             int n, void* stream) {
-    return launch_stats<float>(in, out, limit, xs, hc, B, n, stream);
+extern "C" int dsp_stats_f32(const void* sum, const void* sum_sq, const void* mn, const void* mx,
+                             const void* peak, const void* peak_count, const void* peak_frame,
+                             const void* samples, const void* m, const void* y, const void* z,
+                             const void* nctr, const void* tmin, const void* tmax, float* fout,
+                             long long* iout, int* nctr_out, const long long* limit,
+                             const float* xs, const float* hc, int B, int n, unsigned* flags,
+                             long long flag_slots, double* agg, long long agg_doubles,
+                             void* stream) {
+    const StatsPtrs p = {sum, sum_sq, mn, mx, peak, peak_count, peak_frame, samples,
+                         m, y, z, nctr, tmin, tmax};
+    return launch_stats<float>(p, fout, iout, nctr_out, limit, xs, hc, B, n, flags, flag_slots,
+                               agg, agg_doubles, stream);
 }
+
+extern "C" unsigned long long dsp_stats_launches() { return stats_launches; }

@@ -3,9 +3,10 @@
 
 avg = EWMA of squared samples; peak = set-min EWMA (jump up instantly, decay
 with the time constant), the max-affine recurrence m' = max(s, (1-g) m + g s).
-A block runs on the K17 kernel (ops/time_domain.levels_step), one thread a
-channel walking the samples in order. The meter bars render through the
-status-line subsystem (dsp_tpu_torch.cli.terminal).
+A block runs on the K17 kernel (ops/time_domain.levels_step): one launch
+of tiles of 256 samples over the card, each tile's max-affine map applied
+to the carried meters in tile order (csrc/levels.cu). The meter bars render
+through the status-line subsystem (dsp_tpu_torch.cli.terminal).
 """
 
 import numpy as np

@@ -21,9 +21,10 @@ Exactness notes (dsp_tpu's, kept here):
   ``limit`` state (set via CompiledChain.set_valid_frames) stops every
   accumulator at the true stream end, so padding never enters the results.
 
-Both modes run on the K16 kernel (ops/time_domain.stats_step), one thread a
-selected channel walking the block in order; ``samples`` and ``limit`` stay
-on the device, so a step reads nothing back.
+Both modes run on the K16 kernel (ops/time_domain.stats_step): plain mode
+as one launch of tiles of 256 samples over the card, -i as a block a
+selected channel walking the block in windows of 32 (csrc/stats.cu);
+``samples`` and ``limit`` stay on the device, so a step reads nothing back.
 """
 
 import numpy as np

@@ -13,9 +13,9 @@ Each launch function here takes tensors the caller (``ops/iir.py``,
 ``ops/fft_conv.py``, ``ops/time_domain.py``, ``ops/resample_ops.py``,
 ``ops/m4_engine.py``) has checked, passes raw pointers and the current stream, and raises ``KernelLaunchError`` when the C
 function returns a CUDA error. None of them synchronises or allocates; K1,
-K11 and matrix4_mb's K12-K13 take the look-back scratch of
-``lookback_scratch``, made once a device and stream (grown when a launch
-needs more).
+K11, matrix4_mb's K12-K13, K16's plain mode and K17 take the look-back
+scratch of ``lookback_scratch``, made once a device and stream (grown when
+a launch needs more).
 """
 
 import ctypes
@@ -73,15 +73,6 @@ def find_nvcc():
     if default.exists():
         return str(default)
     raise KernelBuildError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
-class StatsState(ctypes.Structure):
-    """csrc/stats.cu's StatsState<T>: device pointers of one stats state
-    (the same layout for either sample type)."""
-
-    _fields_ = [(name, ctypes.c_void_p) for name in (
-        "sum", "sum_sq", "min", "max", "peak", "peak_count", "peak_frame", "samples",
-        "m", "y", "z", "nctr", "tmin", "tmax")]
 
 
 BIQUAD_RUN_MAX_STAGES = 16  # csrc/biquad_scan.cu kMaxStages
@@ -260,7 +251,8 @@ class _Library:
                 lib.dsp_irfft_ola_f32.restype = i
                 for fn in (lib.dsp_fft_launches, lib.dsp_lti_launches, lib.dsp_m4_env_launches,
                            lib.dsp_biquad_run_launches, lib.dsp_m4mb_audio_launches,
-                           lib.dsp_mod_delay_launches):
+                           lib.dsp_mod_delay_launches, lib.dsp_stats_launches,
+                           lib.dsp_levels_launches):
                     fn.argtypes = []
                     fn.restype = ctypes.c_ulonglong
                 for fn in (lib.dsp_tpdf_noise_f64, lib.dsp_tpdf_noise_f32):
@@ -270,10 +262,10 @@ class _Library:
                     fn.argtypes = [p] * 13 + [i, i, i, p]
                     fn.restype = i
                 for fn in (lib.dsp_levels_f64, lib.dsp_levels_f32):
-                    fn.argtypes = [p] * 7 + [d, i, i, p]
+                    fn.argtypes = [p] * 5 + [d, i, i, p, ll, p, ll, p]
                     fn.restype = i
                 for fn in (lib.dsp_stats_f64, lib.dsp_stats_f32):
-                    fn.argtypes = [ctypes.POINTER(StatsState)] * 2 + [p] * 3 + [i, i, p]
+                    fn.argtypes = [p] * 20 + [i, i, p, ll, p, ll, p]
                     fn.restype = i
                 for fn in (lib.dsp_stats_set_insert_f64, lib.dsp_stats_set_insert_f32):
                     fn.argtypes = [p, p]
@@ -340,7 +332,8 @@ def lookback_scratch(like, nslots, width):
     nslots tiles carrying `width` float64 values each, on like's device
     and current stream: (flags, agg), an int32 buffer of 4 head words and
     the tiles' flags, and a float64 buffer of their aggregates. One pair a
-    (device, stream), shared by every K1, K11 and m4mb_audio launch there; the flags
+    (device, stream), shared by every K1, K11, m4mb_audio, stats (plain) and
+    levels launch there; the flags
     are zeroed when made and made anew (zeroed) when a launch needs more
     slots, the aggregates grown without clearing. The kernels leave the
     flags ready for the next launch on that stream, so they are never
@@ -507,6 +500,13 @@ def mod_delay_launches():
     return load().dsp_mod_delay_launches()
 
 
+def meter_launches():
+    """The kernels csrc/stats.cu and csrc/levels.cu have launched in this
+    process, (stats, levels) (the library's own counts)."""
+    lib = load()
+    return lib.dsp_stats_launches(), lib.dsp_levels_launches()
+
+
 def launch_splice(a, x, out, L, lo, shift):
     fn = load().dsp_splice_f32 if x.dtype == torch.float32 else load().dsp_splice_f64
     rc = fn(a.data_ptr(), x.data_ptr(), out.data_ptr(), L, x.shape[0], lo, shift, x.shape[1],
@@ -538,13 +538,29 @@ def launch_tpdf_dither(key, key_out, x, y, ehist, ehist_out, nprev, nprev_out, n
     _check(rc, "tpdf_dither")
 
 
-def launch_levels(avg, peak, block_peak, avg_out, peak_out, bp_out, xs, g):
-    B, n = xs.shape
-    rc = _by_dtype(xs, "dsp_levels")(
-        _ptr(avg), _ptr(peak), _ptr(block_peak), _ptr(avg_out), _ptr(peak_out), _ptr(bp_out),
-        _ptr(xs), g, B, n, _stream(xs),
-    )
-    _check(rc, "levels")
+# the look-back scratch's width for csrc/stats.cu's plain mode (kPubWidth)
+# and csrc/levels.cu (kSlot): tiles of TD_TILE samples of TD_GROUP channels
+TD_TILE, TD_GROUP = 256, 8
+STATS_SLOT, LEVELS_SLOT = 5 * TD_GROUP, 3 * TD_GROUP
+
+
+def td_scratch(xs, B, n, width):
+    """The look-back scratch of a stats (plain) or levels launch on xs [B,
+    n] as a C entry's (flags, flag_slots, agg, agg_doubles): two slots a
+    tile, `width` doubles each."""
+    tiles = -(-B // TD_TILE) * max(1, -(-n // TD_GROUP))
+    return _scratch_args(lookback_scratch(xs, 2 * tiles, width))
+
+
+def launch_levels(ptrs, out, xs, g, B, n):
+    """ptrs: the device addresses of avg, peak and block_peak [n]; out: the
+    [3, n] buffer of the new ones; one ctypes call."""
+    lib = load()
+    fn = lib.dsp_levels_f32 if xs.dtype == torch.float32 else lib.dsp_levels_f64
+    rc = fn(*ptrs, out.data_ptr(), xs.data_ptr(), g, B, n, *td_scratch(xs, B, n, LEVELS_SLOT),
+            _stream(xs))
+    if rc:
+        _check(rc, "levels")
 
 
 # the -i insert template in csrc/stats.cu's constant bank, by (device,
@@ -553,28 +569,30 @@ def launch_levels(avg, peak, block_peak, avg_out, peak_out, bp_out, xs, g):
 _STATS_INSERT = {}
 
 
-def launch_stats(state, new, keys, xs, insert_h):
-    """state, new: the stats state dicts; keys: the leaves the kernel reads
-    and writes (the -i ones included or not). With -i, the table's insert
-    template goes to the kernel's constant bank first unless that table
-    (the same tensor, unmodified) is there already: an effect hands the
-    same cached table every block."""
-    B, n = xs.shape
+def launch_stats(ptrs, fout, iout, nctr_out, limit, xs, insert_h, B, n):
+    """ptrs: the device addresses of the state's leaves in csrc/stats.cu's
+    order (plain: 8, then 6 None; -i: 14); fout, iout, nctr_out: the new
+    state's buffers (nctr_out None in plain mode); one ctypes call (and,
+    with -i, the table's upload to the kernel's constant bank unless that
+    table, the same tensor unmodified, is there already: an effect hands
+    the same cached table every block)."""
+    lib = load()
+    f32 = xs.dtype == torch.float32
     if insert_h is not None:
         slot = (xs.device.index, xs.dtype)
         held = _STATS_INSERT.get(slot)
         if held is None or held[0] is not insert_h or held[1] != insert_h._version:
-            _check(_by_dtype(xs, "dsp_stats_set_insert")(_ptr(insert_h), _stream(xs)), "stats")
+            up = lib.dsp_stats_set_insert_f32 if f32 else lib.dsp_stats_set_insert_f64
+            _check(up(insert_h.data_ptr(), _stream(xs)), "stats")
             _STATS_INSERT[slot] = (insert_h, insert_h._version)
-
-    def ptrs(d):
-        return StatsState(**{k: d[k].data_ptr() for k in keys})
-
-    rc = _by_dtype(xs, "dsp_stats")(
-        ctypes.byref(ptrs(state)), ctypes.byref(ptrs(new)), _ptr(state["limit"]), _ptr(xs),
-        _ptr(insert_h), B, n, _stream(xs),
-    )
-    _check(rc, "stats")
+        scratch = (None, 0, None, 0)
+    else:
+        scratch = td_scratch(xs, B, n, STATS_SLOT)
+    rc = (lib.dsp_stats_f32 if f32 else lib.dsp_stats_f64)(
+        *ptrs, fout.data_ptr(), iout.data_ptr(), _ptr(nctr_out), limit, xs.data_ptr(),
+        _ptr(insert_h), B, n, *scratch, _stream(xs))
+    if rc:
+        _check(rc, "stats")
 
 
 def launch_resample_fold(X, Y, ptr, j, flags, s):

@@ -58,6 +58,7 @@ float32 scalars for float32); they take tensors on any device and return
 them on the input's device.
 """
 
+import functools
 import math
 import struct
 
@@ -67,6 +68,7 @@ import torch
 from dsp_tpu_torch.core import prng
 from dsp_tpu_torch.core.prng import PM_RAND_MAX
 from dsp_tpu_torch.ops.fft_conv import _check_cuda, _check_dtypes
+from dsp_tpu_torch.ops.m4_engine import fma_ref
 
 # tpdf_dither modes: flat (no feedback), shaped (9-tap error feedback on
 # TPDF noise), sloped2 (error feedback on first-difference noise)
@@ -138,6 +140,27 @@ def _fma32s(a, b, c):
 def _check_shape(name, what, t, shape):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: {what} {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _launch_ptrs(name, like, named, specs):
+    """The device addresses of the tensors a kernel reads, after the checks
+    that guard its launch, in one pass: each (what, tensor) of named has the
+    (dtype, shape) of specs, lies on like's CUDA device, is contiguous and
+    is aligned to its element. A failing check raises as _check_dtypes,
+    _check_shape and _check_cuda do."""
+    if not like.is_cuda:
+        raise ValueError(f"{name}: no kernel for device {like.device}")
+    dev = like.get_device()
+    ptrs = []
+    for (what, t), (dtype, shape) in zip(named, specs):
+        p = t.data_ptr()
+        if (t.dtype is not dtype or t.shape != shape or not t.is_contiguous()
+                or t.get_device() != dev or p % t.element_size()):
+            _check_dtypes(name, (t, dtype))
+            _check_shape(name, what, t, shape)
+            _check_cuda(name, like, (t, dtype), align=1)
+        ptrs.append(p)
+    return ptrs
 
 
 # --- K18-noise: x + (u1 - u2)·mult -----------------------------------------
@@ -386,20 +409,26 @@ levels_step_f32.launches = 0
 
 def _levels_step(entry, ref, dt, avg, peak, block_peak, xs, g):
     name = entry.__name__
-    checks = [(xs, dt), (avg, dt), (peak, dt), (block_peak, dt)]
-    _check_dtypes(name, *checks)
     if xs.device.type == "cpu":
+        _check_dtypes(name, (xs, dt), (avg, dt), (peak, dt), (block_peak, dt))
         return ref(avg, peak, block_peak, xs, g)
     from dsp_tpu_torch import kernels
 
-    _check_cuda(name, xs, *checks, align=1)
+    if xs.dim() != 2:
+        raise ValueError(f"{name}: xs {tuple(xs.shape)}, expected [B, n]")
     B, n = xs.shape
-    for what, t in (("avg", avg), ("peak", peak), ("block_peak", block_peak)):
-        _check_shape(name, what, t, (n,))
-    outs = tuple(torch.empty_like(avg) for _ in range(3))
-    kernels.launch_levels(avg, peak, block_peak, *outs, xs, float(g))
+    ptrs = _launch_ptrs(name, xs, (("xs", xs), ("avg", avg), ("peak", peak),
+                                   ("block_peak", block_peak)), _levels_specs(dt, B, n))
+    # the new meters as the rows of one buffer
+    out = torch.empty((3, n), dtype=dt, device=xs.device)
+    kernels.launch_levels(ptrs[1:], out, xs, float(g), B, n)
     entry.launches += 1
-    return outs
+    return out.unbind(0)
+
+
+@functools.lru_cache(maxsize=64)
+def _levels_specs(dt, B, n):
+    return ((dt, (B, n)), (dt, (n,)), (dt, (n,)), (dt, (n,)))
 
 
 def levels_step_ref(avg, peak, block_peak, xs, g):
@@ -454,7 +483,16 @@ def stats_step(s, xs, insert_h=None):
     return _stats_step(stats_step, torch.float64, s, xs, insert_h)
 
 
+class _ModeLaunches:
+    """The launches of one mode of a wrapper that serves two: stats_step's
+    plain mode (csrc/stats.cu's tiles), apart from its -i walk."""
+
+    def __init__(self):
+        self.launches = 0
+
+
 stats_step.launches = 0
+stats_step.plain = _ModeLaunches()
 
 
 def stats_step_f32(s, xs, insert_h=None):
@@ -467,38 +505,70 @@ def stats_step_f32(s, xs, insert_h=None):
 
 
 stats_step_f32.launches = 0
+stats_step_f32.plain = _ModeLaunches()
 
 
 def _stats_step(entry, dt, s, xs, insert_h):
     name = entry.__name__
-    i64 = torch.int64
-    B, n = xs.shape
-    keys = STATS_KEYS + (STATS_INTERP_KEYS if insert_h is not None else ())
-    want = {"peak_count": (i64, (n,)), "peak_frame": (i64, (n,)), "samples": (i64, ()),
-            "m": (dt, (64, n)), "y": (dt, (6, n)), "z": (dt, (9, n)),
-            "nctr": (torch.int32, (n,))}
-    checks = [(xs, dt), (s["limit"], i64)]
-    if insert_h is not None:
-        checks.append((insert_h, dt))
-    for k in keys:
-        checks.append((s[k], want.get(k, (dt,))[0]))
-    _check_dtypes(name, *checks)
+    interp = insert_h is not None
     if xs.device.type == "cpu":
+        B, n = xs.shape
+        keys = STATS_KEYS + (STATS_INTERP_KEYS if interp else ())
+        spec = dict(_stats_specs(dt, B, n, interp)[1:])
+        checks = [(xs, dt), (s["limit"], torch.int64)] + [(s[k], spec[k][0]) for k in keys]
+        if interp:
+            checks.append((insert_h, dt))
+        _check_dtypes(name, *checks)
         return stats_step_ref(s, xs, insert_h)
     from dsp_tpu_torch import kernels
 
-    for k in keys:
-        _check_shape(name, k, s[k], want.get(k, (dt, (n,)))[1])
-    _check_shape(name, "limit", s["limit"], ())
-    if insert_h is not None:
-        _check_shape(name, "insert_h", insert_h, (67,))
-    _check_cuda(name, xs, *checks, align=1)
+    if xs.dim() != 2:
+        raise ValueError(f"{name}: xs {tuple(xs.shape)}, expected [B, n]")
+    B, n = xs.shape
+    specs = _stats_specs(dt, B, n, interp)
+    named = [("xs", xs)] + [(k, s[k]) for k, _ in specs[1:]]
+    if interp:
+        named.append(("insert_h", insert_h))
+    ptrs = _launch_ptrs(name, xs, named, [sp for _, sp in specs] + ([(dt, (67,))] if interp else []))
+    # the new state: its float leaves the rows of one buffer (sum, sum_sq,
+    # min, max, peak; -i: tmin, tmax, m, y, z), its int64 leaves views of a
+    # second (peak_count, peak_frame, samples) and -i's nctr a third
+    fout = torch.empty((86 if interp else 5, n), dtype=dt, device=xs.device)
+    iout = torch.empty(2 * n + 1, dtype=torch.int64, device=xs.device)
     new = dict(s)
-    for k in keys:
-        new[k] = torch.empty_like(s[k])
-    kernels.launch_stats(s, new, keys, xs, insert_h)
+    new["sum"], new["sum_sq"], new["min"], new["max"], new["peak"], *rest = (
+        fout[:7] if interp else fout).unbind(0)
+    new["peak_count"], new["peak_frame"], samples = iout.split((n, n, 1))
+    new["samples"] = samples.view(())
+    nctr = None
+    if interp:
+        new["tmin"], new["tmax"] = rest
+        new["m"], new["y"], new["z"] = fout[7:].split((64, 6, 9))
+        new["nctr"] = nctr = torch.empty(n, dtype=torch.int32, device=xs.device)
+        in_ptrs = ptrs[1:9] + [ptrs[k] for k in (10, 11, 12, 13, 14, 15)]
+    else:
+        in_ptrs = ptrs[1:9] + [None] * 6
+    kernels.launch_stats(in_ptrs, fout, iout, nctr, ptrs[9], xs, insert_h, B, n)
     entry.launches += 1
+    if not interp:
+        entry.plain.launches += 1
     return new
+
+
+@functools.lru_cache(maxsize=64)
+def _stats_specs(dt, B, n, interp):
+    """((leaf, (dtype, shape)), ...) of the tensors stats_step's kernel
+    reads, xs first, in the C entry's order: the plain leaves, limit, then
+    (-i) m, y, z, nctr, tmin, tmax."""
+    i64 = torch.int64
+    specs = [("xs", (dt, (B, n))), ("sum", (dt, (n,))), ("sum_sq", (dt, (n,))),
+             ("min", (dt, (n,))), ("max", (dt, (n,))), ("peak", (dt, (n,))),
+             ("peak_count", (i64, (n,))), ("peak_frame", (i64, (n,))), ("samples", (i64, ())),
+             ("limit", (i64, ()))]
+    if interp:
+        specs += [("m", (dt, (64, n))), ("y", (dt, (6, n))), ("z", (dt, (9, n))),
+                  ("nctr", (torch.int32, (n,))), ("tmin", (dt, (n,))), ("tmax", (dt, (n,)))]
+    return tuple(specs)
 
 
 def _jmin(a, b):
@@ -814,16 +884,21 @@ def mod_knots_ref(key, rows, lanes, dtype=torch.float64):
     knots) drawn from key (the block key's second split), [len(rows),
     lanes]: each the sum over j < 6 of (u[i, j, 0] - u[i, j, 1]) times
     0.77/6/MOD_MAXVAL, u the uniform draw of counter ((i·6 + j)·2 + s)·lanes
-    + l, so that any rows can be drawn alone. float64: the products summed
-    by torch's sum; float32 (jax's float32 draws): each operation rounded on
-    its own, summed in order from 0."""
+    + l, so that any rows can be drawn alone. float64: the sum in order from
+    0, one FMA a term, as dsp_tpu's XLA:CPU reduces it; float32 (jax's
+    float32 draws): each operation rounded on its own, summed in order from
+    0."""
     j = torch.arange(MOD_NOISE_N, device=rows.device)[:, None, None]
     s = torch.arange(2, device=rows.device)[:, None]
     ctr = ((rows[:, None, None, None] * MOD_NOISE_N + j) * 2 + s) * lanes + torch.arange(
         lanes, device=rows.device)  # [rows, 6, 2, lanes]
     if dtype == torch.float64:
         u = prng.uniform_f64_at(key, ctr, MOD_MAXVAL)
-        return ((u[:, :, 0] - u[:, :, 1]) * (0.77 / MOD_NOISE_N / MOD_MAXVAL)).sum(dim=1)
+        d = u[:, :, 0] - u[:, :, 1]
+        acc = torch.zeros_like(d[:, 0])
+        for jj in range(MOD_NOISE_N):  # one FMA a term, in order from 0
+            acc = fma_ref(d[:, jj], 0.77 / MOD_NOISE_N / MOD_MAXVAL, acc)
+        return acc
     u = prng.uniform_f32_at(key, ctr, MOD_MAXVAL)
     d = (u[:, :, 0] - u[:, :, 1]) * _f32c(0.77 / MOD_NOISE_N / MOD_MAXVAL, rows.device)
     acc = torch.zeros_like(d[:, 0])
@@ -834,11 +909,14 @@ def mod_knots_ref(key, rows, lanes, dtype=torch.float64):
 
 def mod_delay_ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
     """Plain version of mod_delay: dsp_tpu's _mod_noise_block and step on
-    torch tensors (gathers from the concatenated line)."""
+    torch tensors (gathers from the concatenated line), each float64 FMA
+    that dsp_tpu's XLA:CPU takes in the chain's scan written out (the
+    knots' sums, the B-splines and the Hermite read; the phase t0 + step·n
+    rounds twice there: its product is hoisted out of the loop)."""
     B, C = x.shape
     lanes = yk.shape[1]
     dev, dt = x.device, x.dtype
-    tev = t + step * torch.arange(B, dtype=dt, device=dev)
+    tev = t + step * torch.arange(B, dtype=dt, device=dev)  # two roundings, as in the chain
     kidx = torch.floor(tev).to(torch.int64)
     frac = tev - torch.floor(tev)
     n_new = int(np.ceil(B * step)) + 1
@@ -846,13 +924,7 @@ def mod_delay_ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
     new = mod_knots_ref(keys[1], torch.arange(n_new, device=dev), lanes)
     knots = torch.cat([yk.to(dt), new])
     z0, z1, z2, z3 = (knots[kidx + k] for k in range(4))
-    a = z0 + z2
-    c0 = (1.0 / 6.0) * a + (2.0 / 3.0) * z1 + 0.5
-    c1 = 0.5 * (z2 - z0)
-    c2 = 0.5 * a - z1
-    c3 = 0.5 * (z1 - z2) + (1.0 / 6.0) * (z3 - z0)
-    tc = frac[:, None]
-    z = torch.clamp(((c3 * tc + c2) * tc + c1) * tc + c0, 0.0, 1.0)
+    z = torch.clamp(_bspline(z0, z1, z2, z3, frac[:, None], 0.5), 0.0, 1.0)
     n_consumed = int(np.floor(float(t) + step * B))
     yk_next = knots[n_consumed:n_consumed + 4]
     t_next = t + step * B - n_consumed
@@ -864,6 +936,21 @@ def mod_delay_ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
     return keys[0], yk_next, t_next, torch.where(sel, y, x), _carried_line(buf, x)
 
 
+def _bspline(z0, z1, z2, z3, tc, offset=None):
+    """dsp_tpu's cubic B-spline of z0..z3 at tc (plus offset, the
+    modulator's 0.5) in float64, with the FMAs its XLA:CPU takes in the
+    chain's scan: c0 = fma(2/3, z1, a/6), then fma(c3, t, c2), a rounded
+    product and sum, and fma(·, t, c0)."""
+    a = z0 + z2
+    c0 = fma_ref(2.0 / 3.0, z1, (1.0 / 6.0) * a)
+    if offset is not None:
+        c0 = c0 + offset
+    c1 = 0.5 * (z2 - z0)
+    c2 = 0.5 * a - z1
+    c3 = 0.5 * (z1 - z2) + (1.0 / 6.0) * (z3 - z0)
+    return fma_ref(fma_ref(c3, tc, c2) * tc + c1, tc, c0)
+
+
 def _carried_line(buf, x):
     """The line after a block: the last H rows of [buf | x]."""
     return torch.cat([buf, x])[x.shape[0]:]
@@ -872,7 +959,9 @@ def _carried_line(buf, x):
 def _mod_read(buf, x, d_int, d_frac, t_os, table, n_taps):
     """The modulated delay's read at each sample's integer delay d_int and
     fraction d_frac (t_os = d_frac·n_phases for the polyphase filters, or
-    None for the Hermite read), in float64 on the line [buf | x]."""
+    None for the Hermite read), in float64 on the line [buf | x]: the
+    Hermite cubic with dsp_tpu's FMAs, or each filter's taps summed in order
+    from tap 0, one FMA a tap, and the B-spline join (_bspline)."""
     f64 = torch.float64
     B = x.shape[0]
     H = buf.shape[0]
@@ -881,10 +970,10 @@ def _mod_read(buf, x, d_int, d_frac, t_os, table, n_taps):
     if table is None:
         ym3, ym2, ym1, y0 = (torch.gather(line, 0, base + off) for off in (-3, -2, -1, 0))
         h1 = 0.5 * (ym2 - y0)
-        h2 = y0 - 2.5 * ym1 + 2.0 * ym2 - 0.5 * ym3
+        h2 = fma_ref(-2.5, ym1, y0) + 2.0 * ym2 - 0.5 * ym3
         h3 = 0.5 * (ym3 - y0) + 1.5 * (ym1 - ym2)
         td = d_frac.to(f64)
-        return ((h3 * td + h2) * td + h1) * td + ym1
+        return fma_ref(fma_ref(h3, td, h2) * td + h1, td, ym1)
     nph = table.shape[0]
     ph0 = t_os.to(torch.int64)
     offs = torch.arange(n_taps, device=x.device)
@@ -894,15 +983,13 @@ def _mod_read(buf, x, d_int, d_frac, t_os, table, n_taps):
         phi = ph0 + i
         idx = (base - phi // nph)[..., None] - offs  # [B, C, taps]
         vals = torch.gather(line[:, :, None].expand(-1, -1, n_taps), 0, idx)
-        zs.append((vals * tab[phi % nph]).sum(dim=-1))  # tab[..]: [B, C, taps]
-    q0, q1, q2, q3 = zs
+        flt = tab[phi % nph]  # [B, C, taps]
+        acc = torch.zeros_like(vals[..., 0])
+        for j in range(n_taps):
+            acc = fma_ref(vals[..., j], flt[..., j], acc)
+        zs.append(acc)
     td = (t_os - ph0.to(t_os.dtype)).to(f64)  # exact
-    a = q0 + q2
-    b0 = (1.0 / 6.0) * a + (2.0 / 3.0) * q1
-    b1 = 0.5 * (q2 - q0)
-    b2 = 0.5 * a - q1
-    b3 = 0.5 * (q1 - q2) + (1.0 / 6.0) * (q3 - q0)
-    return ((b3 * td + b2) * td + b1) * td + b0
+    return _bspline(*zs, td)
 
 
 def mod_delay_f32_ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):

@@ -11,8 +11,8 @@ of the repository on the same card.
     python3 kernel_times.py --rows engines ... # only the engine rows (or fft,
                                                # cli, td, tdcli, k2, audio,
                                                # k2cli, profile, k1, k1cli,
-                                               # k3, k3cli, delay, audiocli or
-                                               # audioprofile)
+                                               # k3, k3cli, delay, audiocli,
+                                               # audioprofile or meters)
 
 DIR is an unpacked checkout of another commit (e.g. `git archive <commit> |
 tar -x -C .smoke_tmp/parent`). Each tree runs in a process of its own, since
@@ -115,6 +115,16 @@ both dtypes, as the k2cli rows run theirs (numpy's generator seeded alike
 before each run); the audioprofile rows profile `matrix4_mb -6` (-b 2048 in
 both dtypes, 65536) and the modulated chain (-b 2048, both dtypes) as the
 profile rows profile theirs.
+
+The meters rows time stats_step in plain mode and with -i (the kernel of
+-i untouched, the wrapper's host path shared) and levels_step, float64 and
+float32, at B = 2048 and 65536, stereo, a call and device-only, each from a
+state one block into seeded quantized noise (outputs compared across the
+trees); then where a call's host time goes (cProfile over 2,000 calls of
+each at B = 2048, float64: the functions with the most time of their own,
+in microseconds a call, cProfile's cost included); then the modulated
+chain (their main path) at -b 2048 in both dtypes as the profile rows
+profile theirs, and through dsp-torch as the k2cli rows run theirs.
 
 The rows are chip_smoke.py's main-path shapes, where chip_smoke.py holds
 each kernel against its plain version; this script only times them. Prints
@@ -631,6 +641,99 @@ def delay_rows():
     return out
 
 
+# the meters rows: stats plain and -i and levels, both dtypes, at these blocks;
+# the modulated chain (their main path) profiled at -b 2048 in both dtypes
+METER_BLOCKS = (2048, 65536)
+METER_PROFILE_CASES = ((MODULATED, 2048, "float64", 64), (MODULATED, 2048, "float32", 64))
+METER_CLI_CASES = ((MODULATED, 2048, "float64"), (MODULATED, 2048, "float32"))
+
+
+def _meter_states(dt, B, rng):
+    """A stats state (plain and -i) one block into quantized noise and a
+    levels state, on the card in dtype dt, with the next block: seeded."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.effects.stats import StatsEffect
+    from dsp_tpu_torch.ops import time_domain as td
+
+    x = np.round(rng.standard_normal((2 * B, CHANNELS)) * 0.3 * 32768) / 32768
+    x0, x1 = (torch.as_tensor(v, dtype=dt, device="cuda") for v in (x[:B], x[B:]))
+    out = {}
+    for interp in (False, True):
+        e = StatsEffect("stats", StreamInfo(FS, CHANNELS), np.ones(CHANNELS, dtype=bool), None,
+                        80, interp)
+        table = torch.as_tensor(e._insert_table, dtype=dt, device="cuda") if interp else None
+        s0 = {k: torch.as_tensor(v, device="cuda") for k, v in e.state0().items()}
+        s0 = {k: v.to(dt) if v.is_floating_point() else v for k, v in s0.items()}
+        out[interp] = (td.stats_step(s0, x0, table), table)
+    g = 1.0 - float(np.exp(-1.0 / (FS * 0.3)))
+    lv = td.levels_step(*(torch.zeros(CHANNELS, dtype=dt, device="cuda") for _ in range(3)),
+                        x0, g)
+    return out, lv, x1, g
+
+
+def meter_rows():
+    """(name, the call, reps) of the meters rows: stats_step plain and -i
+    and levels_step, float64 and float32, at METER_BLOCKS, stereo, each
+    from a state one block in, on inputs made from a seed alike in each
+    tree."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.ops import time_domain as td
+
+    rng = np.random.default_rng(16)
+    out = []
+    for dt, sfx in ((torch.float64, ""), (torch.float32, " float32")):
+        for B in METER_BLOCKS:
+            st, lv, x, g = _meter_states(dt, B, rng)
+            reps = 50 if B == 2048 else 10
+            for interp, label in ((False, "plain"), (True, "-i")):
+                s1, table = st[interp]
+                out.append((f"stats_step {label} B={B}{sfx}",
+                            lambda s1=s1, x=x, table=table: td.stats_step(s1, x, table), reps))
+            out.append((f"levels_step B={B}{sfx}", lambda lv=lv, x=x, g=g: td.levels_step(*lv, x, g),
+                        reps))
+    return out
+
+
+def host_rows(calls=2000):
+    """Where a call's host time goes: cProfile over `calls` calls of
+    stats_step plain, stats_step -i and levels_step at B = 2048 in float64,
+    the functions with the most time of their own, in microseconds a call
+    (cProfile's own cost included)."""
+    import cProfile
+    import pstats
+
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.ops import time_domain as td
+
+    st, lv, x, g = _meter_states(torch.float64, 2048, np.random.default_rng(17))
+    out = []
+    for name, fn in (("stats_step plain", lambda: td.stats_step(st[False][0], x)),
+                     ("stats_step -i", lambda: td.stats_step(st[True][0], x, st[True][1])),
+                     ("levels_step", lambda: td.levels_step(*lv, x, g))):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        prof = cProfile.Profile()
+        prof.enable()
+        for _ in range(calls):
+            fn()
+        prof.disable()
+        torch.cuda.synchronize()
+        stats = pstats.Stats(prof).stats
+        total = sum(v[2] for v in stats.values()) * 1e6 / calls
+        top = sorted(((f"{Path(k[0]).name}:{k[1]}({k[2]})", v[2] * 1e6 / calls)
+                      for k, v in stats.items()), key=lambda kv: -kv[1])[:10]
+        out.append({"name": f"host {name} B=2048", "host_us": total, "host_top": top})
+    return out
+
+
 # the renders of the audiocli rows: the two kernels' chains, `matrix4_mb -6`
 # at -b 2048 and 65536 and chip_smoke.py's modulated chain (numpy's generator
 # seeded before each run), in both dtypes
@@ -833,10 +936,11 @@ def measure(which, inputs_path, save=None):
     if which == "audioprofile":
         return profile_rows(AUDIO_PROFILE_CASES)
     out = []
-    if which in ("td", "k2", "audio", "k1", "k3", "delay"):
+    if which in ("td", "k2", "audio", "k1", "k3", "delay", "meters"):
         outputs = {}
         made = {"td": td_rows, "k2": k2_rows, "audio": lambda: audio_rows(inputs_path),
-                "k1": k1_rows, "k3": k3_rows, "delay": delay_rows}[which]()
+                "k1": k1_rows, "k3": k3_rows, "delay": delay_rows,
+                "meters": meter_rows}[which]()
         for name, kern, reps in made:
             r = {"name": name, "ms": cuda_ms(kern, reps)}
             r["device_ms"], r["kernels"] = device_ms(kern, min(reps, 20))
@@ -845,6 +949,9 @@ def measure(which, inputs_path, save=None):
                 outputs[name] = _to(kern(), "cpu")
         if save is not None:
             torch.save(outputs, save)
+        if which == "meters":
+            out += host_rows() + profile_rows(METER_PROFILE_CASES) + k2cli_rows(
+                inputs_path, save or inputs_path.parent / "meters.pt", METER_CLI_CASES)
         return out
     if which in ("all", "engines"):
         outputs = {}
@@ -936,7 +1043,7 @@ def main():
     ap.add_argument("--against", type=Path, default=None)
     ap.add_argument("--rows", choices=("all", "fft", "engines", "cli", "td", "tdcli", "k2",
                                        "audio", "k2cli", "profile", "k1", "k1cli", "k3", "k3cli",
-                                       "delay", "audiocli", "audioprofile"),
+                                       "delay", "audiocli", "audioprofile", "meters"),
                     default="all")
     ap.add_argument("--inputs", type=Path, default=ENGINE_INPUTS)
     ap.add_argument("--save", type=Path, default=None)
@@ -964,11 +1071,12 @@ def main():
                     Path(r["render"]).unlink()
     print(f"card: {card}; order: before, after, after, before")
     verdict = (compare_outputs(saves[0], saves[1])
-               if args.rows in ("all", "engines", "td", "k2", "audio", "k1", "k3", "delay")
+               if args.rows in ("all", "engines", "td", "k2", "audio", "k1", "k3", "delay",
+                                "meters")
                else {})
     keys = ("ms", "us_a_tick", "device_ms", "device_us_a_tick", "kernels", "library_ms",
             "library_device_ms", "x_realtime", "digest", "render", "step_ms", "kernels_a_block",
-            "device_ms_a_block", "top")
+            "device_ms_a_block", "top", "host_us", "host_top")
     table = []
     for i, first in enumerate(runs[0][1]):
         name = first["name"]
@@ -997,6 +1105,13 @@ def main():
                 f"{'/'.join(f'{v:.4f}' for v in row[f'{label}_device_ms_a_block'])} ms a block, "
                 f"step {'/'.join(f'{v:.4f}' for v in row[f'{label}_step_ms'])} ms a block, top "
                 + ", ".join(f"{k} {v:.4f}" for k, v in row[f"{label}_top"][0][:4])
+                for label in ("before", "after")))
+            continue
+        if "before_host_us" in row:
+            print(f"{name}: " + "; ".join(
+                f"{label} {'/'.join(f'{v:.1f}' for v in row[f'{label}_host_us'])} us a call "
+                "under cProfile, most: " + ", ".join(
+                    f"{k} {v:.1f}" for k, v in row[f"{label}_host_top"][0][:8])
                 for label in ("before", "after")))
             continue
         if "before_us_a_tick" in row:

@@ -32,6 +32,7 @@ from torch_parity import CHAIN_LIMIT_DBFS, FS, jax_chain, port_chain, stereo_sig
 from dsp_tpu_torch.core import prng
 from dsp_tpu_torch.ops import fft_conv
 from dsp_tpu_torch.ops import time_domain as td
+from dsp_tpu_torch.ops.m4_engine import fma_ref
 
 TILE = 128  # csrc/mod_delay.cu kTile
 DTYPES = [torch.float64, torch.float32]
@@ -76,9 +77,13 @@ def test_tile_knots_equal_the_block_draw(fc, lanes, B, dtype):
     n_new = int(np.ceil(B * step)) + 1
     whole = torch.cat([yk, td.mod_knots_ref(key, torch.arange(n_new), lanes, dtype)])
     # the plain version's form before the tiles: the block's uniforms at once
+    # (float64: summed in order, one FMA a term, as dsp_tpu's XLA:CPU sums)
     if dtype == torch.float64:
         u = prng.uniform_f64(key, (n_new, td.MOD_NOISE_N, 2, lanes), td.MOD_MAXVAL)
-        old = ((u[:, :, 0] - u[:, :, 1]) * (0.77 / td.MOD_NOISE_N / td.MOD_MAXVAL)).sum(dim=1)
+        d = u[:, :, 0] - u[:, :, 1]
+        old = torch.zeros_like(d[:, 0])
+        for j in range(td.MOD_NOISE_N):
+            old = fma_ref(d[:, j], 0.77 / td.MOD_NOISE_N / td.MOD_MAXVAL, old)
     else:
         u = prng.uniform_f32(key, (n_new, td.MOD_NOISE_N, 2, lanes), td.MOD_MAXVAL)
         d = (u[:, :, 0] - u[:, :, 1]) * torch.tensor(0.77 / td.MOD_NOISE_N / td.MOD_MAXVAL,

@@ -366,7 +366,10 @@ def test_delay_matches_dsp_tpu(spec, block):
 
 def test_mod_delay_step_from_a_carried_state():
     """mod_delay against ModDelayEffect.step from a state mid-stream: a
-    phase, a knot window and a line that are not zero."""
+    phase, a knot window and a line that are not zero; dsp_tpu's step runs
+    as its chain runs it, in a jitted lax.scan (here over two blocks of each
+    size), whose FMAs the port writes out."""
+    import jax
     import jax.numpy as jnp
 
     from dsp_tpu.core.types import StreamInfo as JStream
@@ -385,11 +388,13 @@ def test_mod_delay_step_from_a_carried_state():
         st["t"] = np.float64(0.6180339887)
         st_t = {k: torch.as_tensor(v) for k, v in st.items()}
         st_j = {k: jnp.asarray(v) for k, v in st.items()}
+        run_j = jax.jit(lambda s, xs: jax.lax.scan(j.step, s, xs))
         for B in (512, 33):
-            x = rng.standard_normal((B, 2)) * 0.3
-            st_t, y_t = t.step(st_t, torch.as_tensor(x))
-            st_j, y_j = j.step(st_j, jnp.asarray(x))
-            assert worst_dbfs(y_t.numpy(), np.asarray(y_j)) <= CHAIN_LIMIT_DBFS
+            xs = rng.standard_normal((2, B, 2)) * 0.3
+            st_j, ys_j = run_j(st_j, jnp.asarray(xs))
+            for x, y_j in zip(xs, ys_j):
+                st_t, y_t = t.step(st_t, torch.as_tensor(x))
+                assert worst_dbfs(y_t.numpy(), np.asarray(y_j)) <= CHAIN_LIMIT_DBFS
             np.testing.assert_array_equal(st_t["key"].numpy(), np.asarray(st_j["key"]))
             np.testing.assert_array_equal(st_t["buf"].numpy(), np.asarray(st_j["buf"]))
             for k in ("y", "t"):
