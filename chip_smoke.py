@@ -22,8 +22,22 @@ nvcc and PyTorch built for CUDA. It
    modulated read); K16's -i walk also on gate-sparse, silent and click
    input and at B = 1000 and 65536, K15 in every shape at B = 1000 and
    2048 with zero and -0.0 error histories and lipshitz and wan9 at 65536
-   (stats_interp_cases, dither_cases: every leaf bit-equal but the sums). K8 at 48 and 192 kHz: equal, the whole step within
-   -280 dBFS. K9-K13 over 3 blocks of transient material for v4, v1,
+   (stats_interp_cases, dither_cases: every leaf bit-equal but the sums).
+   K8, the resampler's step in one launch (csrc/resample.cu), in both
+   dtypes at 44.1 -> 48 and 192 kHz, 48 -> 44.1, x2 and 96 -> 44.1 kHz on
+   1, 4 and 112 inner blocks: one launch a step by the library's count,
+   bit-equal to the route it replaced composed on the card from the kept
+   wrappers, within -280 dBFS of the plain step (float32: one ulp of the
+   scale); `resample 44101` on the route of three launches (rfft_pack,
+   resample_fold, irfft_ola: the passes, the overlap-add and the fold, no
+   torch op), bit-equal to the parent route, within -200 dBFS of the plain
+   step; on both routes the float64 step takes a float32 overlap as its
+   float64 value; the fold alone equal
+   to its plain version (resample_phase). K18's noise (and its float32
+   form) at B = 2048, 1000, 65536 and 1, with and without a channel
+   selection and through NoiseEffect.step: one launch a call by the
+   library's count, key' and y bit-equal to the plain version
+   (noise_cases). K9-K13 over 3 blocks of transient material for v4, v1,
    direct_path, phase_flip=false,shelf=none,lowpass=none and the 48 kHz
    block of Nc = 80, and over one block of 65536 (Nc = 2048: the event
    engine's chunk pipeline wraps many times): the engine's decisions
@@ -71,7 +85,9 @@ nvcc and PyTorch built for CUDA. It
    within 1e-13 relative, the bank and the audio within -290 dBFS;
    m4mb_audio (and m4mb_audio_f32) one launch a call by the library's
    count, with the phase flip and without it, at B = 2048, 1056 and 65536
-   (mb_audio_launches, device-only time printed). Times
+   (mb_audio_launches, device-only time printed). The wrappers of the
+   resampler's step, irfft_ola and the noise refuse every bad input
+   (lean_wrapper_refusals). Times
    each kernel, its plain version and, where one PyTorch call computes the
    same function, that call, with CUDA events, and computes each kernel's
    roofline bound from its shapes; the transforms, the splices and their
@@ -94,7 +110,9 @@ nvcc and PyTorch built for CUDA. It
    dither, stats, levels); then slices D and E's upmixes at the default
    block: `matrix4 -6` (44.1 kHz to 4 channels; also at -b 65536, where
    the event engine sets the pace) and `resample 48k matrix4 -6` (a 48 kHz
-   quad: the rate change, blocks of 2352 in and 2560 out); then slice F's:
+   quad: the rate change, blocks of 2352 in and 2560 out) and, on 60 s,
+   `resample 44101` (the resampler's route of three launches, blocks of
+   44,100 frames); then slice F's:
    `matrix4_mb -6` (also at -b 65536), bench.py's `mixed` chain (an EQ, a
    fractional delay, a 4,096-tap filter, matrix4_mb) and, on 60 s,
    examples/matrix4_mb_2_4 (6 channels) and `matrix4_mb -6` at -b 1000
@@ -151,7 +169,7 @@ nvcc and PyTorch built for CUDA. It
    delivery chain in float64 and in float32, 16 each of matrix4 and matrix4_mb and of the float32
    flagship (blocks 2048 and 1000), resample and upmixes, with the input on
    the card under torch.cuda.set_sync_debug_mode("error"): a step must not
-   wait on the device; then times 256 blocks of each slice C chain (in
+   wait on the device; then times 128 blocks of each slice C chain (in
    both dtypes), each
    upmix (matrix4_mb and the mixed chain among them) and each float32 run
    (the upmixes and `fir` 64k at block 2048 among them) in both dtypes,
@@ -814,11 +832,12 @@ def lean_wrapper_refusals():
             ("states of two layouts", (A, Bv, c0, [wide[:, 0], wide[:, 1].contiguous()], x)),
             ("17 stages", (A17, Bv17, c17, many, x)),
         )]
-    cases += meter_refusals()
+    cases += meter_refusals() + step_refusals()
     torch.cuda.synchronize()
 
     def lib_count():
-        return kernels.biquad_run_launches() + sum(kernels.meter_launches())
+        return (kernels.biquad_run_launches() + sum(kernels.meter_launches())
+                + kernels.resample_launches() + kernels.noise_launches())
 
     for fn, what, args in cases:
         before, lib_before = fn.launches, lib_count()
@@ -882,6 +901,64 @@ def meter_refusals():
                                                                device=dev).t(), g)),
                        ("xs of one dimension", (*lv, x[:, 0].contiguous(), g))):
         cases.append((td.levels_step, f"levels_step: {what}", args))
+    return cases
+
+
+def step_refusals():
+    """(wrapper, what, args) of bad inputs to resample_step,
+    resample_step_f32, irfft_ola, tpdf_noise and tpdf_noise_f32 on the card
+    (lean_wrapper_refusals)."""
+    import torch
+
+    from dsp_tpu_torch.ops import resample_ops as ro
+    from dsp_tpu_torch.ops import time_domain as td
+
+    dev = torch.device("cuda")
+    f64, f32 = torch.float64, torch.float32
+    rs = ro.SpectralResampler(FS, 48000)
+    cases = []
+    for fn, dt in ((ro.resample_step, f64), (ro.resample_step_f32, f32)):
+        x = torch.zeros((4 * rs.in_len, CHANNELS), dtype=dt, device=dev)
+        ov = torch.zeros((rs.out_len, CHANNELS), dtype=dt, device=dev)
+        # the float64 step converts an overlap of another dtype (resample_phase)
+        other = ((("the overlap float64", (rs, ov.double(), x)),) if dt == f32 else ())
+        for what, args in other + (
+                ("the overlap on the CPU", (rs, ov.cpu(), x)),
+                ("the overlap of 639 rows", (rs, ov[1:].contiguous(), x)),
+                ("the overlap of 3 channels", (rs, torch.zeros((rs.out_len, 3), dtype=dt,
+                                                               device=dev), x)),
+                ("the overlap not contiguous", (rs, torch.zeros((CHANNELS, rs.out_len), dtype=dt,
+                                                                device=dev).t(), x)),
+                ("x not contiguous", (rs, ov, torch.zeros((CHANNELS, 4 * rs.in_len), dtype=dt,
+                                                          device=dev).t())),
+                ("x of 2351 frames", (rs, ov, x[1:].contiguous())),
+                ("x of one dimension", (rs, ov, x[:, 0].contiguous()))):
+            cases.append((fn, f"{fn.__name__}: {what}", args))
+    Y = torch.zeros((rs.out_len + 1, 4 * CHANNELS), dtype=torch.complex128, device=dev)
+    ov = torch.zeros((rs.out_len, CHANNELS), dtype=f64, device=dev)
+    for what, args in (("Y complex64", (Y.to(torch.complex64), 2 * rs.out_len, ov, 1.0)),
+                       ("the overlap float32", (Y, 2 * rs.out_len, ov.float(), 1.0)),
+                       ("the overlap on the CPU", (Y, 2 * rs.out_len, ov.cpu(), 1.0)),
+                       ("Y of other bins", (Y[1:].contiguous(), 2 * rs.out_len, ov, 1.0)),
+                       ("the overlap of 3 channels", (Y, 2 * rs.out_len, torch.zeros(
+                           (rs.out_len, 3), dtype=f64, device=dev), 1.0))):
+        cases.append((ro.irfft_ola, f"irfft_ola: {what}", args))
+    key = torch.zeros(2, dtype=torch.uint32, device=dev)
+    sel = torch.tensor([True, False], device=dev)
+    for fn, dt in ((td.tpdf_noise, f64), (td.tpdf_noise_f32, f32)):
+        x = torch.zeros((2048, CHANNELS), dtype=dt, device=dev)
+        for what, args in (("the key int32", (key.int(), x, 1e-3, sel)),
+                           ("the key on the CPU", (key.cpu(), x, 1e-3, sel)),
+                           ("a key of 3 words", (torch.zeros(3, dtype=torch.uint32, device=dev),
+                                                 x, 1e-3)),
+                           ("the selector uint8", (key, x, 1e-3, sel.to(torch.uint8))),
+                           ("the selector of 3 channels", (key, x, 1e-3, torch.ones(
+                               3, dtype=torch.bool, device=dev))),
+                           ("the selector on the CPU", (key, x, 1e-3, sel.cpu())),
+                           ("x not contiguous", (key, torch.zeros((CHANNELS, 2048), dtype=dt,
+                                                                  device=dev).t(), 1e-3)),
+                           ("x of one dimension", (key, x[:, 0].contiguous(), 1e-3))):
+            cases.append((fn, f"{fn.__name__}: {what}", args))
     return cases
 
 
@@ -1424,6 +1501,73 @@ def mod_delay_step(e, st, x, wrapper):
     return out
 
 
+NOISE_BLOCKS = (2048, 1000, 65536, 1)
+
+
+def noise_cases(rec, dtype, rng):
+    """K18 (tpdf_noise, or tpdf_noise_f32) at each of NOISE_BLOCKS, stereo,
+    with every channel and with the first only, over 2 blocks carried
+    through the key, and through NoiseEffect.step (the selector it caches):
+    each call one launch by the library's count (kernels.noise_launches) and
+    the wrapper's, key' and y bit-equal to the plain version's on a host
+    copy. Times a call at B = 2048 and its plain version (CUDA events) and
+    its device-only time (torch.profiler)."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch import kernels
+    from dsp_tpu_torch.core.prng import prng_key
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.effects.noise import NoiseEffect
+    from dsp_tpu_torch.ops import time_domain as td
+
+    dev = torch.device("cuda")
+    f32 = dtype == torch.float32
+    entry = td.tpdf_noise_f32 if f32 else td.tpdf_noise
+    ref = td.tpdf_noise_f32_ref if f32 else td.tpdf_noise_ref
+    mult = 1e-3 / 0x7FFFFFFF
+    part = NoiseEffect("noise", StreamInfo(FS, CHANNELS), np.array([True, False]), mult)
+    first = torch.tensor([True, False], device=dev)
+    for B in NOISE_BLOCKS:
+        for how in ("every channel", "the first channel", "NoiseEffect.step"):
+            sel = {"every channel": None, "the first channel": first}.get(how)
+            key = prng_key(987654 + B).to(dev)
+            for blk in range(2):
+                x = torch.as_tensor(rng.standard_normal((B, CHANNELS)) * 0.3, dtype=dtype,
+                                    device=dev)
+                torch.cuda.synchronize()
+                lib0, w0 = kernels.noise_launches(), entry.launches
+                if how == "NoiseEffect.step":
+                    k_k, y_k = part.step(key, x)
+                    want = ref(key.cpu(), x.cpu(), mult, first.cpu())
+                else:
+                    k_k, y_k = entry(key, x, mult, sel)
+                    want = ref(key.cpu(), x.cpu(), mult, None if sel is None else sel.cpu())
+                torch.cuda.synchronize()
+                launched = (kernels.noise_launches() - lib0, entry.launches - w0)
+                what = f"{entry.__name__} B={B} {how} block {blk}"
+                _require(f"{what}: {launched} launches (library, wrapper), expected one",
+                         launched == (1, 1))
+                _require(f"{what}: key' or y differs from the plain version",
+                         bits_equal(k_k, want[0]) and bits_equal(y_k, want[1]))
+                key = k_k
+    B = 2048
+    x = torch.as_tensor(rng.standard_normal((B, CHANNELS)) * 0.3, dtype=dtype, device=dev)
+    ms = cuda_ms(lambda: entry(key, x, 1e-3), 50)
+    plain_ms = cuda_ms(lambda: ref(key, x, 1e-3), 10)
+    dev_ms, calls = device_ms(lambda: entry(key, x, 1e-3))
+    es = x.element_size()
+    # x in, y out, the keys; 3 operations a sample of the sample type (the
+    # threefry integer rounds, ~200 a sample, are not counted)
+    set_times(rec, ms, plain_ms, 2 * es * B * CHANNELS + 16, 3 * B * CHANNELS,
+              peak=F32_PEAK if f32 else F64_PEAK)
+    rec["device_ms"] = dev_ms
+    print(f"  B = {', '.join(map(str, NOISE_BLOCKS))}, with and without a channel selection "
+          f"and through NoiseEffect.step: one launch a call, key' and y bit-equal to the plain "
+          f"version; B=2048: kernel {ms:.4f} ms a call, {dev_ms:.4f} ms device-only ({calls} "
+          f"kernels a call), plain {plain_ms:.4f} ms")
+
+
 def time_domain_phase(records):
     """Slice C's kernels against their plain versions at the main path's
     shape (B = 2048, stereo): the plain version runs on a host copy of the
@@ -1451,21 +1595,8 @@ def time_domain_phase(records):
     x_c = x.cpu()
     key = prng_key(987654).to(dev)
 
-    print("K18-noise tpdf_noise (threefry, B=2048, stereo)")
-    rec = records["tpdf_noise"]
-    for sel in (None, torch.tensor([True, False], device=dev)):
-        k_k, y_k = td.tpdf_noise(key, x, 1e-3 / 0x7FFFFFFF, sel)
-        k_r, y_r = td.tpdf_noise_ref(key.cpu(), x_c, 1e-3 / 0x7FFFFFFF,
-                                     None if sel is None else sel.cpu())
-        _require("tpdf_noise: kernel and plain version differ",
-                 torch.equal(y_k.cpu(), y_r) and torch.equal(k_k.cpu(), k_r))
-    ms = cuda_ms(lambda: td.tpdf_noise(key, x, 1e-3, None), 50)
-    plain_ms = cuda_ms(lambda: td.tpdf_noise_ref(key, x, 1e-3, None), 10)
-    # x in, y out, the keys; 3 float64 operations a sample (the threefry
-    # integer rounds, ~200 a sample, are not counted)
-    set_times(rec, ms, plain_ms, 16 * B * C + 16, 3 * B * C)
-    print(f"  equal, with and without a channel selection; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
+    print("K18-noise tpdf_noise (threefry, stereo)")
+    noise_cases(records["tpdf_noise"], f64, rng)
 
     print("K15 tpdf_dither (all six shapes at 16 bits, B=2048, stereo; lipshitz at B=65536)")
     rec = records["tpdf_dither"]
@@ -1620,54 +1751,227 @@ def time_domain_phase(records):
           f"lines equal; one launch a step")
 
 
-def resample_phase(rec):
-    """K8 at the main path's shapes (block 2048 rounded up to 4 inner
-    blocks of 588 frames, stereo: 8 columns), 44.1 kHz to 48 and 192 kHz:
-    resample_fold against its plain version on a host copy, within 1e-15
-    relative (the same products, the same order: equal unless the card's
-    product rounds otherwise); the whole step (rfft_pack, fold,
-    irfft_crop, scale and overlap-add) against the plain step on the host
-    within -280 dBFS. Times the fold and its plain version on the card."""
+# the resampler's rate pairs (in_fs, out_fs) and inner blocks a step
+# (n = 1; 4: -b 2048 at 44.1 kHz; 112: -b 65536) of resample_phase
+RESAMPLE_PAIRS = ((44100, 48000), (44100, 192000), (48000, 44100), (44100, 88200),
+                  (96000, 44100))
+RESAMPLE_INNER = (1, 4, 112)
+RESAMPLE_DBFS = -280.0  # the float64 step against its plain version on the host
+
+
+def parent_step(rs, overlap, x):
+    """The resampler's step as it ran before its one-launch kernel, composed
+    on the card from the wrappers kept for the route of three launches:
+    float64 rfft_pack, resample_fold, irfft_crop, then the scale and the
+    shifted add as torch ops; float32 rfft_pack_f32, resample_fold and
+    irfft_ola_f32."""
+    import torch
+
+    from dsp_tpu_torch.ops.fft_conv import irfft_crop, rfft_pack, rfft_pack_f32
+    from dsp_tpu_torch.ops.resample_ops import irfft_ola_f32, resample_fold
+
+    n, C = x.shape[0] // rs.in_len, x.shape[1]
+    ratio = rs.out_len / rs.in_len
+    if x.dtype == torch.float32:
+        X = rfft_pack_f32(x, 2 * rs.in_len, blocks=n)
+        return irfft_ola_f32(resample_fold(X, rs.fold), 2 * rs.out_len, overlap, ratio)
+    X = rfft_pack(x[:0], x, 2 * rs.in_len, blocks=n)
+    y2 = irfft_crop(resample_fold(X, rs.fold), 2 * rs.out_len, 0, 2 * rs.out_len) * ratio
+    head, tail = y2.reshape(2, rs.out_len, n, C)
+    prev = torch.cat([overlap[:, None], tail[:, :-1]], dim=1)
+    return tail[:, -1].contiguous(), (head + prev).permute(1, 0, 2).reshape(n * rs.out_len, C)
+
+
+def resample_phase(records):
+    """K8, the resampler's step (csrc/resample.cu), in both dtypes: at each
+    of RESAMPLE_PAIRS and RESAMPLE_INNER inner blocks, stereo, one launch a
+    step by the library's count and the wrapper's; y and the overlap
+    bit-equal to parent_step's on the card, and to the plain step on a host
+    copy within RESAMPLE_DBFS (float32: one float32 ulp of the scale, the
+    float32 rounding of float64 values that differ in their last bits). Then
+    resample 44101 (a global pass of the prime 44,101 in its inverse) on the
+    route of three launches: rfft_pack, resample_fold and irfft_ola one
+    each (their float32 forms), the transforms' passes and the overlap-add
+    by the library's count and nothing else by torch.profiler's, against the
+    parent route bit for bit and the plain step as above. On both routes the
+    float64 step given a float32 overlap equals the step given that overlap
+    in float64, bit for bit. resample_fold alone
+    against its plain version (within 1e-15 relative: the same products in
+    the same order). Times the step, its plain version, the fold and
+    irfft_ola."""
     import numpy as np
     import torch
 
-    from dsp_tpu_torch.ops.resample_ops import SpectralResampler, resample_fold, resample_fold_ref
+    from dsp_tpu_torch import kernels
+    from dsp_tpu_torch.ops import fft_conv as fc
+    from dsp_tpu_torch.ops import resample_ops as ro
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(20265)
-    limit = 10.0 ** (-280.0 / 20.0)
+    limit = 10.0 ** (RESAMPLE_DBFS / 20.0)
+
+    def inputs(rs, n, dt):
+        x = torch.as_tensor(rng.standard_normal((n * rs.in_len, CHANNELS)) * 0.3, dtype=dt,
+                            device=dev)
+        ov = torch.as_tensor(rng.standard_normal((rs.out_len, CHANNELS)) * 0.1, dtype=dt,
+                             device=dev)
+        return ov, x
+
+    def hold_plain(rec, what, got, want, limit=limit):
+        if got[1].dtype == torch.float32:
+            for k, name in enumerate(("overlap", "y")):
+                _hold_f32(rec, f"{what} {name}", got[k], want[k])
+            return None
+        err = max(_diff(got[0], want[0]), _diff(got[1], want[1]))
+        _require(f"{what}: {dbfs(err):.1f} dBFS from the plain step (limit "
+                 f"{dbfs(limit):.0f})", err <= limit)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        return err
+
+    def overlap_as_float64(rs, what):
+        # the float64 step converts a float32 overlap before its route
+        ov, x = inputs(rs, 1, torch.float64)
+        ov32 = ov.float()
+        got, want = rs.block(ov32, x), rs.block(ov32.double(), x)
+        _require(f"{what}: a float32 overlap gives other bits than its float64 value",
+                 all(bits_equal(a, b) and a.dtype == torch.float64 for a, b in zip(got, want)))
+        print(f"  {what}: a float32 overlap taken as its float64 value")
+
+    def step_io(rs, n, dt):  # bytes once and float64 operations of a step
+        es, ncol = torch.tensor([], dtype=dt).element_size(), n * CHANNELS
+        Nf, Ni, T = 2 * rs.in_len, 2 * rs.out_len, len(rs.tab_l)
+        tables = 4 * (rs.out_len + 2) + 24 * T + 20 * (Nf + Ni)
+        nbytes = es * CHANNELS * (n * rs.in_len + rs.out_len * (n + 2)) + tables
+        flops = (2.5 * (Nf * math.log2(Nf) + Ni * math.log2(Ni)) + 8 * T + 3 * rs.out_len) * ncol
+        return nbytes, flops
+
+    for dt, entry, ref in ((torch.float64, ro.resample_step, ro.resample_step_ref),
+                           (torch.float32, ro.resample_step_f32, ro.resample_step_f32_ref)):
+        rec = records[entry.__name__]
+        print(f"K8 {entry.__name__} (one launch; {', '.join(map(str, RESAMPLE_INNER))} inner "
+              f"blocks, stereo)")
+        for pair in RESAMPLE_PAIRS:
+            rs = ro.SpectralResampler(*pair)
+            _require(f"resample {pair}: route {rs.route}", rs.route == ro.ONE_LAUNCH)
+            for n in RESAMPLE_INNER:
+                ov, x = inputs(rs, n, dt)
+                torch.cuda.synchronize()
+                lib0, w0 = kernels.resample_launches(), entry.launches
+                got = rs.block(ov, x)
+                torch.cuda.synchronize()
+                launched = (kernels.resample_launches() - lib0, entry.launches - w0)
+                _require(f"{entry.__name__} {pair} n={n}: {launched} launches (library, "
+                         f"wrapper), expected one", launched == (1, 1))
+                parent = parent_step(rs, ov, x)
+                for k, name in enumerate(("overlap", "y")):
+                    _require(f"{entry.__name__} {pair} n={n}: {name} differs from the parent "
+                             f"route's", bits_equal(got[k], parent[k]))
+                hold_plain(rec, f"{entry.__name__} {pair} n={n}", got,
+                           ref(rs, ov.cpu(), x.cpu()))
+            print(f"  {pair[0]} -> {pair[1]} (in_len {rs.in_len}, out_len {rs.out_len}): "
+                  f"one launch a step, bit-equal to the parent route at n = "
+                  f"{', '.join(map(str, RESAMPLE_INNER))}")
+        rs = ro.SpectralResampler(FS, 48000)
+        if dt == torch.float64:
+            overlap_as_float64(rs, "resample_step 48 kHz")
+        for n in (4, 112):
+            ov, x = inputs(rs, n, dt)
+            reps = 50 if n == 4 else 10
+            ms = cuda_ms(lambda: rs.block(ov, x), reps)
+            plain_ms = cuda_ms(lambda: ref(rs, ov, x), 10)
+            parent_ms = cuda_ms(lambda: parent_step(rs, ov, x), reps)
+            dev_ms, calls = device_ms(lambda: rs.block(ov, x), min(reps, 20))
+            parent_dev, parent_calls = device_ms(lambda: parent_step(rs, ov, x), min(reps, 20))
+            print(f"  48 kHz n={n}: step {ms:.4f} ms a call, {dev_ms:.4f} ms device-only "
+                  f"({calls} kernels a call); the parent route "
+                  f"{parent_ms:.4f} ms a call, {parent_dev:.4f} ms device-only ({parent_calls} "
+                  f"kernels); plain {plain_ms:.4f} ms")
+            rec.setdefault("times", []).append(
+                {"n": n, "ms": ms, "device_ms": dev_ms, "parent_ms": parent_ms,
+                 "parent_device_ms": parent_dev, "plain_ms": plain_ms})
+            if n == 4:
+                set_times(rec, ms, plain_ms, *step_io(rs, n, dt))
+                rec["device_ms"] = dev_ms
+
+    print("K8's route of three launches: resample 44101 (inverse N = 88,202, a global pass of "
+          "44,101), one inner block, stereo")
+    rs = ro.SpectralResampler(FS, 44101)
+    _require(f"resample 44101: route {rs.route}", rs.route == ro.THREE_LAUNCHES)
+    passes = sum(len(fc.fft_plan(N, 1).passes) for N in (2 * rs.in_len, 2 * rs.out_len))
+    for dt, entry, ref, ola in ((torch.float64, ro.resample_step, ro.resample_step_ref,
+                                 ro.irfft_ola),
+                                (torch.float32, ro.resample_step_f32, ro.resample_step_f32_ref,
+                                 ro.irfft_ola_f32)):
+        pack = fc.rfft_pack_f32 if dt == torch.float32 else fc.rfft_pack
+        ov, x = inputs(rs, 1, dt)
+        wrappers = (pack, ro.resample_fold, ola, entry)
+        torch.cuda.synchronize()
+        before = [w.launches for w in wrappers] + [kernels.resample_launches(),
+                                                   kernels.fft_launches()]
+        got = rs.block(ov, x)
+        torch.cuda.synchronize()
+        after = [w.launches for w in wrappers] + [kernels.resample_launches(),
+                                                  kernels.fft_launches()]
+        delta = [a - b for a, b in zip(after, before)]
+        _require(f"resample 44101 {dt}: launches (pack, fold, ola, step, one-launch kernel, "
+                 f"transform kernels) {delta}, expected {[1, 1, 1, 0, 0, passes + 1]}",
+                 delta == [1, 1, 1, 0, 0, passes + 1])
+        dev_ms, calls = device_ms(lambda: rs.block(ov, x), 3)
+        _require(f"resample 44101 {dt}: {calls} kernels a step by torch.profiler, expected "
+                 f"{passes + 2} (the passes, the overlap-add and the fold; no torch op)",
+                 calls is None or round(calls) == passes + 2)
+        parent = parent_step(rs, ov, x)
+        for k, name in enumerate(("overlap", "y")):
+            _require(f"resample 44101 {dt}: {name} differs from the parent route's",
+                     bits_equal(got[k], parent[k]))
+        # the direct sum of 44,101 terms rounds more than a block pass: the
+        # earlier slices' limit
+        err = hold_plain(records[entry.__name__], f"resample 44101 {dt}", got,
+                         ref(rs, ov.cpu(), x.cpu()), 10.0 ** (LIMIT_DBFS / 20.0))
+        print(f"  {dt}: rfft_pack, resample_fold, {ola.__name__}: {passes + 1} transform kernels "
+              f"and the fold, {dev_ms:.4f} ms device-only ({calls} kernels by torch.profiler); "
+              f"bit-equal to the parent route"
+              + ("" if err is None else f"; {dbfs(err):.1f} dBFS from the plain step"))
+        if dt == torch.float64:
+            overlap_as_float64(rs, "resample_step 44101")
+            Y = ro.resample_fold(fc.rfft_pack(x[:0], x, 2 * rs.in_len), rs.fold)
+            Ni, ratio = 2 * rs.out_len, rs.out_len / rs.in_len
+            row = timed_row(lambda: ro.irfft_ola(Y, Ni, ov, ratio),
+                            lambda: ro.irfft_ola_ref(Y, Ni, ov, ratio), None, reps=3)
+            o_k, o_r = ro.irfft_ola(Y, Ni, ov, ratio), ro.irfft_ola_ref(Y.cpu(), Ni, ov.cpu(),
+                                                                        ratio)
+            err = max(_diff(o_k[0], o_r[0]), _diff(o_k[1], o_r[1]))
+            check_close("irfft_ola at N = 88,202 against its plain version", err)
+            records["irfft_ola"]["max_abs_err"] = err
+            print(f"  irfft_ola N=88202 C=2: {row_text(row)}")
+            # Y in, y and both overlaps, the twiddle and position tables; the
+            # function's work, not the direct pass's: an inverse real FFT of
+            # Ni points a channel (~2.5·Ni·log2(Ni) operations), the scale
+            # and the add
+            set_row(records["irfft_ola"], row,
+                    16 * (rs.out_len + 1) * CHANNELS + 8 * rs.out_len * 3 * CHANNELS + 20 * Ni,
+                    (2.5 * Ni * math.log2(Ni) + 3 * rs.out_len) * CHANNELS)
+
     print("K8 resample_fold (complex128; 4 inner blocks of 588 frames, stereo)")
+    rec = records["resample_fold"]
     for out_fs in (48000, 192000):
-        rs = SpectralResampler(FS, out_fs)
-        n = 4
-        ncol = n * CHANNELS
+        rs = ro.SpectralResampler(FS, out_fs)
+        ncol = 4 * CHANNELS
         X = torch.as_tensor(rng.standard_normal((rs.in_len + 1, ncol))
                             + 1j * rng.standard_normal((rs.in_len + 1, ncol)), device=dev)
-        Y_k = resample_fold(X, rs.fold)
-        Y_r = resample_fold_ref(X.cpu(), rs.fold)
+        Y_k = ro.resample_fold(X, rs.fold)
+        Y_r = ro.resample_fold_ref(X.cpu(), rs.fold)
         torch.cuda.synchronize()
         err = _diff(torch.view_as_real(Y_k), torch.view_as_real(Y_r))
-        scale = float(Y_r.abs().max())
         _require(f"resample_fold {out_fs}: {err:.3e} against the plain version",
-                 err <= 1e-15 * scale)
-        x = torch.as_tensor(rng.standard_normal((n * rs.in_len, CHANNELS)) * 0.3, device=dev)
-        ov = torch.as_tensor(rng.standard_normal((rs.out_len, CHANNELS)) * 0.1, device=dev)
-        ov_k, y_k = rs.block(ov, x)
-        ov_r, y_r = rs.block(ov.cpu(), x.cpu())
-        step_err = max(_diff(y_k, y_r), _diff(ov_k, ov_r))
-        _require(f"resample step {out_fs}: {dbfs(step_err):.1f} dBFS", step_err <= limit)
+                 err <= 1e-15 * float(Y_r.abs().max()))
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        ms = cuda_ms(lambda: resample_fold(X, rs.fold), 50)
-        plain_ms = cuda_ms(lambda: resample_fold_ref(X, rs.fold), 10)
-        step_ms = cuda_ms(lambda: rs.block(ov, x), 20)
-        step_dev, step_kernels = device_ms(lambda: rs.block(ov, x))
+        ms = cuda_ms(lambda: ro.resample_fold(X, rs.fold), 50)
+        plain_ms = cuda_ms(lambda: ro.resample_fold_ref(X, rs.fold), 10)
         T = len(rs.tab_l)
-        print(f"  {FS} -> {out_fs}: {T} entries into {rs.out_len + 1} bins, fold "
-              f"{'equal' if err == 0 else f'within {err:.3e}'}, step {dbfs(step_err):.1f} dBFS; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, whole step {step_ms:.4f} ms a "
-              f"call, {step_dev:.4f} ms device-only, {step_kernels} kernels")
-        rec.setdefault("times", []).append({"out_fs": out_fs, "ms": ms, "plain_ms": plain_ms,
-                                            "step_ms": step_ms})
+        print(f"  {FS} -> {out_fs}: {T} entries into {rs.out_len + 1} bins, "
+              f"{'equal' if err == 0 else f'within {err:.3e}'}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms a call")
         if out_fs == 48000:
             # X in and Y out, the tables (ptr, j, flags, s) once; a complex
             # product and sum (8 operations) an entry and column
@@ -2672,10 +2976,11 @@ OLD_KERNELS_A_BLOCK = {
 # two cascades, with their stack and state copies, 9 kernels to 2: 25 to
 # 18, in both dtypes); matrix4_mb's audio path in one launch for 2 (18 to
 # 17) and the modulated delay's step in one for 3 (the modulated chain
-# from 10 to 8), in both dtypes
+# from 10 to 8), in both dtypes; the resampler's step in one launch (the
+# float64 step from 7.8 to 1, the float32 from 2.8 to 1)
 MOST_KERNELS_A_BLOCK = {
     "fir 64k -b 2048 float64": 3, "fir 64k -b 2048 float32": 3,
-    "resample 48k -b 2048 float32": 4,
+    "resample 48k -b 2048 float64": 1, "resample 48k -b 2048 float32": 1,
     "flagship -b 2048 float64": 17, "flagship -b 2048 float32": 17,
     "flagship -b 1000 float64": 17, "flagship -b 1000 float32": 17,
     "matrix4": 8, "matrix4 -6 -b 2048 float64": 8, "matrix4 -6 -b 2048 float32": 8,
@@ -2693,7 +2998,7 @@ def profile_chains(f4k, f64k):
     filter f4k) and the float32 mode's chains (F32_RUNS, F32_UPMIXES, and
     `fir` with the 65,536-tap filter f64k at block 2048) beside their
     float64 twins:
-    CompiledChain.run_blocks over 256 blocks on the card (8 at -b 65536:
+    CompiledChain.run_blocks over 128 blocks on the card (8 at -b 65536:
     PROFILE_65536),
     timed unprofiled (host clock to a synchronize), then under
     torch.profiler for the device time of each kernel. Prints the step time
@@ -2723,7 +3028,7 @@ def profile_chains(f4k, f64k):
                  (f"{label} float32", words, 53, block, f32)]
     runs += [(f"{name} -b 65536 float64", words, 53, 65536, f64) for words, name in PROFILE_65536]
     for label, words, prec, block, dtype in runs:
-        n = 8 if block == 65536 else 256
+        n = 8 if block == 65536 else 128
         np.random.seed(SLICE_C_SEED)
         chain = build_chain_from_args(words.split(), StreamInfo(FS, CHANNELS))
         chain_set_dither_params(chain, prec, prec < 24)
@@ -2766,7 +3071,7 @@ def profile_chains(f4k, f64k):
               f"device {dev_ms:.4f} ms a block ({100 * dev_ms / step_ms:.1f}% of the step)")
         for name, ms in top:
             print(f"  {ms:.4f} ms ({100 * ms / dev_ms:.1f}%)  {name[:90]}")
-        # (a profile can miss or add an event of 256 blocks: the count rounds)
+        # (a profile can miss or add an event of 128 blocks: the count rounds)
         if limits and round(kernels / n) > min(limits):
             raise SmokeError(f"profile {label}: {kernels / n:.2f} kernels a block, "
                              f"at most {min(limits)}")
@@ -2864,7 +3169,6 @@ def float32_time_domain_phase(records):
     import torch
 
     from dsp_tpu_torch import kernels
-    from dsp_tpu_torch.core.prng import prng_key
     from dsp_tpu_torch.core.types import StreamInfo
     from dsp_tpu_torch.effects.delay import ModDelayEffect
     from dsp_tpu_torch.effects.dither import DitherEffect
@@ -2879,23 +3183,8 @@ def float32_time_domain_phase(records):
     def block(scale=0.3):
         return torch.as_tensor(rng.standard_normal((B, C)) * scale, dtype=f32, device=dev)
 
-    print("K18-noise tpdf_noise_f32 (float32 draws, B=2048, stereo, 3 blocks)")
-    rec = records["tpdf_noise_f32"]
-    for sel in (None, torch.tensor([True, False], device=dev)):
-        key = prng_key(987654).to(dev)
-        for blk in range(3):
-            x = block()
-            out_k = td.tpdf_noise_f32(key, x, 1e-3 / 0x7FFFFFFF, sel)
-            out_r = td.tpdf_noise_f32_ref(key.cpu(), x.cpu(), 1e-3 / 0x7FFFFFFF,
-                                          None if sel is None else sel.cpu())
-            _hold_td32(rec, f"tpdf_noise_f32 block {blk}", (("key", "y"), out_k), out_r,
-                       exact=("key", "y"))
-            key = out_k[0]
-    ms = cuda_ms(lambda: td.tpdf_noise_f32(key, x, 1e-3, None), 50)
-    plain_ms = cuda_ms(lambda: td.tpdf_noise_f32_ref(key, x, 1e-3, None), 10)
-    set_times(rec, ms, plain_ms, 8 * B * C + 16, 3 * B * C, peak=F32_PEAK)
-    print(f"  equal, with and without a channel selection; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
+    print("K18-noise tpdf_noise_f32 (float32 draws, stereo)")
+    noise_cases(records["tpdf_noise_f32"], f32, rng)
 
     print("K15 tpdf_dither_f32 (all six shapes at 16 bits, B=2048, stereo, 3 blocks)")
     rec = records["tpdf_dither_f32"]
@@ -3768,7 +4057,8 @@ def float32_cli(records, tmp, kept):
     """DSP_TPU_TORCH_DTYPE=float32 dsp-torch on the main path's 300 s input
     (tmp/in.wav, written by main_path) for each of F32_RUNS and slice J3's
     chains (matrix4 -6, matrix4_mb -6, fir 64k at blocks 65536 and 2048,
-    fir_p 1M at 2048), held against the same chain's float64 render on the
+    fir_p 1M at 2048), and on its 60 s input (tmp/in60.wav) `resample 44101`
+    (the resampler's route of three launches), held against the same chain's float64 render on the
     card: the one main_path kept where it kept one (kept, {(chain, block):
     path}), else a float64 run here. Exact frame counts, the float32 run's
     kernels launched and no float64 kernel, the two within F32_LIMIT_DBFS
@@ -3790,11 +4080,11 @@ def float32_cli(records, tmp, kept):
     from dsp_tpu_torch.ops import m4_engine as m4
 
     src = tmp / "in.wav"
-    n_in = SECONDS * FS
     f32w = {"lti_blocked_f32": iir.lti_blocked_f32, "biquad_scan_df": iir.biquad_scan_df,
             "biquad_scan_run_df": iir.biquad_scan_run_df,
             "biquad_scan_f32": iir.biquad_scan_f32, "crossfeed_step_f32": iir.crossfeed_step_f32,
             "rfft_pack_f32": fft_conv.rfft_pack_f32,
+            "resample_step_f32": resample_ops.resample_step_f32,
             "resample_fold": resample_ops.resample_fold,
             "irfft_ola_f32": resample_ops.irfft_ola_f32, "fdl_mac_f32": fft_conv.fdl_mac_f32,
             "irfft_crop_f32": fft_conv.irfft_crop_f32, "splice_f32": fft_conv.splice_f32,
@@ -3805,6 +4095,7 @@ def float32_cli(records, tmp, kept):
                 "crossfeed_step", "biquad_scan_series", "biquad_scan_pair", "biquad_scan_run")},
             **{name: getattr(fft_conv, name) for name in (
                 "rfft_pack", "fdl_mac", "irfft_crop", "splice")},
+            "resample_step": resample_ops.resample_step, "irfft_ola": resample_ops.irfft_ola,
             **{name: getattr(m4, name) for name in (
                 "m4_env", "m4_event", "m4_audio", "m4mb_env", "m4mb_event", "m4mb_audio")}}
     # the engines' carried input comes out of rfft_pack_f32; only the
@@ -3816,8 +4107,7 @@ def float32_cli(records, tmp, kept):
     runs = [(f"{'flagship' if words == FLAGSHIP else words} -b {block}", words.split(), block,
              {(FLAGSHIP, 2048): ("lti_blocked_f32", "crossfeed_step_f32"),
               (FLAGSHIP, 1000): ("biquad_scan_run_df", "crossfeed_step_f32"),
-              ("resample 48k", 2048): ("rfft_pack_f32", "resample_fold",
-                                       "irfft_ola_f32")}[words, block],
+              ("resample 48k", 2048): ("resample_step_f32",)}[words, block],
              (words, block)) for words, block in F32_RUNS]
     runs += [
         ("matrix4 -6 -b 2048", MATRIX4.split(), 2048,
@@ -3832,11 +4122,17 @@ def float32_cli(records, tmp, kept):
         ("fir 64k -b 2048 (Upols, K = 32)", f64k, 2048, fft, ("fir 64k", 2048)),
         ("fir_p 1M -b 2048 (Nupols, m = 32)", f1m, 2048, fft + ("splice_f32",),
          ("fir_p 1M", 2048)),
+        # the resampler's route of three launches, on main_path's 60 s input
+        ("resample 44101 (the route of three launches)", ["resample", "44101"], 2048,
+         ("rfft_pack_f32", "resample_fold", "irfft_ola_f32"), None),
     ]
-    print(f"float32 mode: dsp-torch on {SECONDS} s, float32 against float64 on the card")
+    inputs = {"resample 44101 (the route of three launches)": (tmp / "in60.wav", 60)}
+    print(f"float32 mode: dsp-torch on {SECONDS} s (60 s where named), float32 against float64 "
+          f"on the card")
     for label, words, block, expect, key in runs:
+        src_i, secs = inputs.get(label, (src, SECONDS))
         chain = build_chain_from_args(words, StreamInfo(FS, CHANNELS))
-        want = expected_out_frames(chain, n_in) - chain.output_discard
+        want = expected_out_frames(chain, secs * FS) - chain.output_discard
         walls, ys = {}, {}
         for dtype in ("float64", "float32"):
             if dtype == "float64" and key in kept:
@@ -3844,7 +4140,7 @@ def float32_cli(records, tmp, kept):
                 continue
             out = tmp / f"out_{dtype}.wav"
             argv = (["-b", str(block)] if block != 2048 else []) + [
-                "-q", str(src), "-o", "-e", "double", str(out), *words]
+                "-q", str(src_i), "-o", "-e", "double", str(out), *words]
             for w in (*f32w.values(), *f64w.values()):
                 w.launches = 0
             os.environ["DSP_TPU_TORCH_DTYPE"] = dtype
@@ -3875,11 +4171,11 @@ def float32_cli(records, tmp, kept):
         if not np.isfinite(y32).all():
             raise SmokeError(f"{label}: non-finite float32 output")
         diff = float(np.abs(y32 - y64).max())
-        wall64 = (f"float64 {walls['float64']:.3f} s, {SECONDS / walls['float64']:.1f}x"
+        wall64 = (f"float64 {walls['float64']:.3f} s, {secs / walls['float64']:.1f}x"
                   if "float64" in walls else "float64 kept from the main path")
         print(f"  {label}: float32 {walls['float32']:.3f} s wall, "
-              f"{SECONDS / walls['float32']:.1f}x realtime; {wall64}; float32 against float64 on "
-              f"all {SECONDS} s: max |diff| {diff:.3e} ({dbfs(diff):.1f} dBFS)")
+              f"{secs / walls['float32']:.1f}x realtime; {wall64}; float32 against float64 on "
+              f"all {secs} s: max |diff| {diff:.3e} ({dbfs(diff):.1f} dBFS)")
         limit = F32_LIMIT_DBFS
         if key == (MATRIX4_MB, 2048):
             per_s = [float(np.abs(y32[i:i + FS] - y64[i:i + FS]).max())
@@ -4129,8 +4425,12 @@ def main_path(records, seconds, tmp):
         # a block of 2048 control ticks, where the engine sets the pace
         ("matrix4 -6 -b 65536 (44.1 kHz -> 4 ch)", MATRIX4.split(), 65536, m4w, {}, None),
         ("resample 48k matrix4 -6 -b 2048 (48 kHz quad)", UPMIX48.split(), 2048,
-         {**m4w, "rfft_pack": fft_conv.rfft_pack, "resample_fold": resample_ops.resample_fold,
-          "irfft_crop": fft_conv.irfft_crop}, {"onset": ONSET}, None),
+         {**m4w, "resample_step": resample_ops.resample_step}, {"onset": ONSET}, None),
+        # the resampler's route of three launches: an inverse at N = 88,202
+        # with a global pass of the prime 44,101 (blocks of 44,100 frames)
+        ("resample 44101 (the route of three launches)", ["resample", "44101"], 2048,
+         {"rfft_pack": fft_conv.rfft_pack, "resample_fold": resample_ops.resample_fold,
+          "irfft_ola": resample_ops.irfft_ola}, {}, on60),
         # slice F: the multiband upmixes (the fir before the effect is its
         # phase-linearising FIR, on K5/K6)
         ("matrix4_mb -6 -b 2048 (44.1 kHz -> 4 ch)", MATRIX4_MB.split(), 2048, mbw,
@@ -4272,8 +4572,13 @@ def main():
             ("stats_step_plain", "stats", "dsp_tpu/effects/stats.py:159,266 (plain mode)",
              "plain, B=2048, C=2"),
             ("levels_step", "levels", "dsp_tpu/effects/levels.py:62", "B=2048, C=2"),
+            ("resample_step", "resample", "dsp_tpu/ops/resample_ops.py:144",
+             "48 kHz, 4 x 588 frames, C=2 (one launch)"),
             ("resample_fold", "resample", "dsp_tpu/ops/resample_ops.py:144",
-             "48 kHz, 4 x 588 frames, C=2"),
+             "48 kHz, 4 x 588 frames, C=2 (the route of three launches)"),
+            ("irfft_ola", "fft_conv",
+             "dsp_tpu/ops/resample_ops.py:144 (its irfft, scale and overlap-add)",
+             "resample 44101: N=88202, C=2 (the route of three launches)"),
             ("m4_env", "m4_env", "dsp_tpu/ops/m4_engine.py:267", "B=2048"),
             ("m4_event", "m4_event", "dsp_tpu/ops/m4_engine.py:395,730,784,887",
              "Nc=64, v4, S=1"),
@@ -4296,6 +4601,9 @@ def main():
              "dsp_tpu/ops/resample_ops.py:191 (dfx_fft.py:30,123: the forward DfDft); "
              "dsp_tpu/ops/fft_conv.py:97,144,220 (complex64)",
              "float32, 48 kHz: N=1176, 8 columns"),
+            ("resample_step_f32", "resample",
+             "dsp_tpu/ops/resample_ops.py:191 (_block_df; dfx_fft.py:30,123)",
+             "float32, 48 kHz, 4 x 588 frames, C=2 (one launch)"),
             ("irfft_ola_f32", "fft_conv",
              "dsp_tpu/ops/resample_ops.py:191-233 (dfx_fft.py:30,123: the inverse DfDft)",
              "float32, 48 kHz: N=1280, 8 columns"),
@@ -4356,7 +4664,7 @@ def main():
         timed(step_kernels_phase, records)
         timed(time_domain_phase, records)
         timed(float32_time_domain_phase, records)
-        timed(resample_phase, records["resample_fold"])
+        timed(resample_phase, records)
         timed(matrix4_phase, records)
         timed(matrix4_mb_phase, records)
         timed(lookback_phase)

@@ -45,15 +45,22 @@ class NoiseEffect(Effect):
         self.flags = EFFECT_FLAG_PLOT_MIX | EFFECT_FLAG_CH_DEPS_IDENTITY
         self.mult = mult
         self.seed = seed
+        self._every = bool(self.channel_selector.all())
+        self._sel = {}  # the selector on each device, made at its first block there
 
     def state0(self):
         # the same draw as dsp_tpu's, so a seeded numpy gives both the same key
         return prng_key(self.seed if self.seed else np.random.randint(1 << 30)).numpy()
 
     def step(self, state, x):
+        # the selector is fixed at init: a block reads its cached copy and
+        # checks and copies nothing on the host
         sel = None
-        if not self.channel_selector.all():
-            sel = self.device_array("channel_selector", x, torch.bool)
+        if not self._every:
+            sel = self._sel.get(x.device)
+            if sel is None:
+                sel = self._sel[x.device] = torch.as_tensor(self.channel_selector,
+                                                            device=x.device)
         return time_domain.tpdf_noise(state, x, self.mult, sel)
 
     def plot(self, idx, channel_offset=0):

@@ -9,7 +9,8 @@ whole inner resampler blocks; the filter's group delay is reported as
 latency (consumed by the chain's output-side discard) instead of the
 reference's internal first-block skip (resample.c:144-147): the same
 observable stream, with fixed shapes. A block's inner blocks go through the
-K8 step (ops/resample_ops.py) together, as columns of one launch a kernel.
+K8 step (ops/resample_ops.py) together: one launch where the resampler's
+transforms are one pass each, else three.
 """
 
 import math

@@ -160,6 +160,17 @@ class M4AudioCfg(ctypes.Structure):
     )
 
 
+class ResampleStepCfg(ctypes.Structure):
+    """csrc/resample.cu's ResampleStepCfg: a resampler's plans (host int
+    arrays), its transforms' tables and fold tables on the card, the rate
+    ratio and the inner block lengths."""
+
+    _fields_ = ([(k, ctypes.c_void_p) for k in ("plan_f", "plan_i", "tables_f", "tables_i", "ptr",
+                                               "j", "flags", "s")]
+                + [("ratio", ctypes.c_double)]
+                + [(k, ctypes.c_int) for k in ("in_len", "out_len")])
+
+
 class _Library:
     """The loaded shared library and the log of the build that made it."""
 
@@ -247,12 +258,14 @@ class _Library:
                     fn.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
                     fn.restype = i
                 d = ctypes.c_double
-                lib.dsp_irfft_ola_f32.argtypes = [p] * 7 + [d, i, i, i, p]
-                lib.dsp_irfft_ola_f32.restype = i
+                for fn in (lib.dsp_irfft_ola_f64, lib.dsp_irfft_ola_f32):
+                    fn.argtypes = [p] * 7 + [d, i, i, i, p]
+                    fn.restype = i
                 for fn in (lib.dsp_fft_launches, lib.dsp_lti_launches, lib.dsp_m4_env_launches,
                            lib.dsp_biquad_run_launches, lib.dsp_m4mb_audio_launches,
                            lib.dsp_mod_delay_launches, lib.dsp_stats_launches,
-                           lib.dsp_levels_launches):
+                           lib.dsp_levels_launches, lib.dsp_resample_launches,
+                           lib.dsp_noise_launches):
                     fn.argtypes = []
                     fn.restype = ctypes.c_ulonglong
                 for fn in (lib.dsp_tpdf_noise_f64, lib.dsp_tpdf_noise_f32):
@@ -275,6 +288,8 @@ class _Library:
                     fn.restype = i
                 lib.dsp_resample_fold_c128.argtypes = [p] * 6 + [i, i, p]
                 lib.dsp_resample_fold_c128.restype = i
+                lib.dsp_resample_step.argtypes = [p] * 5 + [i, i, i, p]
+                lib.dsp_resample_step.restype = i
                 lib.dsp_m4_env_f64.argtypes = [p] * 5 + [d, i, i, i, i, p, ll, p, ll, p]
                 lib.dsp_m4_env_f64.restype = i
                 lib.dsp_m4_env_f32.argtypes = [p] * 8 + [d, i, i, i, i, p, ll, p, ll, p]
@@ -472,12 +487,37 @@ def launch_irfft_crop(plan, tables, Y, work, out, lo, add):
     _check(rc, "irfft_crop")
 
 
-def launch_irfft_ola_f32(plan, tables, Y, work, y, ov_out, ov_in, ratio):
-    rc = load().dsp_irfft_ola_f32(
+def launch_irfft_ola(plan, tables, Y, work, y, ov_out, ov_in, ratio):
+    """y, ov_out and ov_in float64 (irfft_ola) or float32 (irfft_ola_f32)."""
+    f32 = y.dtype == torch.float32
+    fn = load().dsp_irfft_ola_f32 if f32 else load().dsp_irfft_ola_f64
+    rc = fn(
         plan.c_plan, tables.data_ptr(), Y.data_ptr(), _ptr(work), y.data_ptr(), ov_out.data_ptr(),
         ov_in.data_ptr(), ratio, plan.N, plan.C, ov_in.shape[1], _stream(Y),
     )
-    _check(rc, "irfft_ola_f32")
+    _check(rc, "irfft_ola_f32" if f32 else "irfft_ola")
+
+
+def launch_resample_step(cfg, x_ptr, y, ov_out, ov_ptr, n, C, f32, device):
+    """cfg: the address of the resampler's ResampleStepCfg on `device`;
+    x_ptr and ov_ptr the checked addresses of x and the carried overlap;
+    y and ov_out the outputs (views of one buffer)."""
+    rc = load().dsp_resample_step(cfg, x_ptr, y.data_ptr(), ov_out.data_ptr(), ov_ptr, n, C,
+                                  f32, torch._C._cuda_getCurrentRawStream(device))
+    if rc:
+        _check(rc, "resample_step")
+
+
+def resample_launches():
+    """The steps csrc/resample.cu's one-launch kernel has run in this
+    process (the library's own count)."""
+    return load().dsp_resample_launches()
+
+
+def noise_launches():
+    """The kernels csrc/tpdf.cu's noise entries have launched in this
+    process (the library's own count)."""
+    return load().dsp_noise_launches()
 
 
 def fft_launches():
@@ -519,12 +559,15 @@ def _by_dtype(t, name):
     return getattr(load(), f"{name}_{'f32' if t.dtype == torch.float32 else 'f64'}")
 
 
-def launch_tpdf_noise(key, key_out, x, y, sel, mult):
-    B, C = x.shape
-    rc = _by_dtype(x, "dsp_tpdf_noise")(
-        _ptr(key), _ptr(key_out), _ptr(x), _ptr(y), _ptr(sel), mult, B, C, _stream(x),
-    )
-    _check(rc, "tpdf_noise")
+def launch_tpdf_noise(ptrs, key_out, y, mult, B, C):
+    """ptrs: the checked device addresses of x, key and, when some
+    channels are not selected, the selector; key_out and y: views of the
+    one output buffer; one ctypes call."""
+    sel = ptrs[2] if len(ptrs) > 2 else None
+    rc = _by_dtype(y, "dsp_tpdf_noise")(ptrs[1], key_out.data_ptr(), ptrs[0], y.data_ptr(), sel,
+                                        mult, B, C, _stream(y))
+    if rc:
+        _check(rc, "tpdf_noise")
 
 
 def launch_tpdf_dither(key, key_out, x, y, ehist, ehist_out, nprev, nprev_out, n_mult, q0, q1,

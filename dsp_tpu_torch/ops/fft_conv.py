@@ -768,6 +768,32 @@ def _check_cuda(name, like, *tensors, align=8):
             raise ValueError(f"{name}: tensors must be contiguous and {align}-byte aligned")
 
 
+def _check_shape(name, what, t, shape):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {what} {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _launch_ptrs(name, like, named, specs):
+    """The device addresses of the tensors a kernel reads, after the checks
+    that guard its launch, in one pass: each (what, tensor) of named has the
+    (dtype, shape) of specs, lies on like's CUDA device, is contiguous and
+    is aligned to its element. A failing check raises as _check_dtypes,
+    _check_shape and _check_cuda do."""
+    if not like.is_cuda:
+        raise ValueError(f"{name}: no kernel for device {like.device}")
+    dev = like.get_device()
+    ptrs = []
+    for (what, t), (dtype, shape) in zip(named, specs):
+        p = t.data_ptr()
+        if (t.dtype is not dtype or t.shape != shape or not t.is_contiguous()
+                or t.get_device() != dev or p % t.element_size()):
+            _check_dtypes(name, (t, dtype))
+            _check_shape(name, what, t, shape)
+            _check_cuda(name, like, (t, dtype), align=1)
+        ptrs.append(p)
+    return ptrs
+
+
 def _check_fdl_mac_shapes(X, H, fdl_in):
     """Raise unless the shapes fit the fdl_mac kernel."""
     if X.dim() != 2 or H.dim() != 3 or tuple(H.shape[1:]) != tuple(X.shape):

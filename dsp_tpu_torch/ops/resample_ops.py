@@ -10,42 +10,62 @@ aliased (folded) back into the output band — the index walk of
 resample.c:116-131 — with 50% overlap-add.
 
 The plan and the index walk's tables are host numpy, computed exactly as
-dsp_tpu computes them. One step (K8, ``SpectralResampler.block``) is three
-kernel wrappers over all inner blocks of a chain block at once, the inner
-blocks (times channels) as columns:
+dsp_tpu computes them. One step (K8, ``SpectralResampler.block``) runs all
+inner blocks of a chain block at once, the inner blocks (times channels) as
+columns, through ``resample_step`` (``resample_step_f32`` on float32
+samples), by one of two routes that the resampler fixes when it is built
+(``SpectralResampler.route``):
 
-* ``rfft_pack`` (ops/fft_conv.py, csrc/fft_conv.cu): rfft at 2·in_len,
-  reading the inner blocks in place;
-* ``resample_fold`` (csrc/resample.cu): the gather by ``tab_j``, the conj
-  masks, the product with ``tab_s`` and the segment sum into out_len+1 bins;
-* ``irfft_crop`` (csrc/fft_conv.cu): irfft at 2·out_len;
+* "one launch" (csrc/resample.cu ``dsp_resample_step``), wherever both
+  transforms are one pass of ``fft_plan`` and fit one thread block's shared
+  memory, which covers every rate pair the repo uses: a thread block a
+  column runs the forward transform at 2·in_len on the inner block read in
+  place, the fold from shared memory into the inverse's load, the inverse
+  at 2·out_len, the scale and the overlap-add with the column before
+  (handed on within a thread-block cluster), the spectra never in device
+  memory;
+* "three launches" otherwise (a transform above 8192 points or with a
+  prime pass, e.g. ``resample 44101``): ``rfft_pack`` (ops/fft_conv.py,
+  csrc/fft_conv.cu) at 2·in_len, reading the inner blocks in place;
+  ``resample_fold`` (csrc/resample.cu: the gather by ``tab_j``, the conj
+  masks, the product with ``tab_s`` and the segment sum into out_len+1
+  bins); ``irfft_ola`` (csrc/fft_conv.cu), the inverse at 2·out_len whose
+  last store does the scale and the 50% overlap-add.
 
-then the scale and the 50% overlap-add, as dsp_tpu orders them, as a
-shifted add across the columns.
+Both give the bits of the parent route, rfft_pack, the fold, irfft_crop and
+then the scale and the shifted add as torch ops, as dsp_tpu orders them:
+the same passes, twiddles and products, each product and sum rounded on its
+own.
 
 Under float32 (dsp_tpu's ``_block_df``, K8-df, whose transforms are the
 two-float32 DFTs of dsp_tpu/ops/dfx_fft.py) the step reads float32 and
-stores float32 around the same float64 transforms and fold:
-``rfft_pack_f32`` reads the float32 inner blocks, and ``irfft_ola_f32`` is the
-inverse whose last stage does the scale and the overlap-add and stores y
-and the carried overlap in float32 (csrc/fft_conv.cu).
+stores float32 around the same float64 transforms and fold: each block's
+tail rounded to float32, as the carried overlap is, and y rounded once
+(``irfft_ola_f32``, or the one-launch kernel's float32 form).
 """
 
+import ctypes
 import math
 from math import gcd
 
 import numpy as np
 import torch
 
+from dsp_tpu_torch import kernels
 from dsp_tpu_torch.ops.fft_conv import (
+    SMEM_LIMIT,
     _check_cuda,
+    _check_dtypes,
+    _launch_ptrs,
     _tables_on,
     fft_plan,
-    irfft_crop,
     irfft_crop_ref,
+    lane_points,
     next_fast_len,
     rfft_pack,
     rfft_pack_f32,
+    rfft_pack_f32_ref,
+    rfft_pack_ref,
 )
 
 M_FACT = 17.7822
@@ -57,6 +77,19 @@ _ALBRECHT9 = np.array(
     ]
 )
 SINC_MAX_OVERSAMPLE = 2
+ONE_LAUNCH, THREE_LAUNCHES = "one launch", "three launches"
+
+
+def step_route(in_len, out_len):
+    """The route of a resampler's step: ONE_LAUNCH where the forward
+    transform at 2·in_len and the inverse at 2·out_len are one block pass
+    each and a column's two lanes and its tail (float64) fit a thread
+    block's shared memory (csrc/resample.cu), else THREE_LAUNCHES."""
+    plans = fft_plan(2 * in_len, 1), fft_plan(2 * out_len, 1)
+    smem = 16 * (lane_points(2 * in_len) + lane_points(2 * out_len)) + 8 * out_len
+    if all(len(p.passes) == 1 and p.passes[0].kind == "block" for p in plans) and smem <= SMEM_LIMIT:
+        return ONE_LAUNCH
+    return THREE_LAUNCHES
 
 
 def _window(x):
@@ -123,6 +156,24 @@ class SpectralResampler:
         self.sinc_fr = np.fft.rfft(sinc)[: self.sinc_fr_len]
 
         self._build_tables()
+        self.route = step_route(self.in_len, self.out_len)
+        self._step_cfgs = {}
+
+    def step_cfg(self, index):
+        """The address of this resampler's kernels.ResampleStepCfg on CUDA
+        device `index`: its plans, its transforms' and fold's tables there
+        and the ratio, made once a device."""
+        got = self._step_cfgs.get(index)
+        if got is None:
+            Nf, Ni = 2 * self.in_len, 2 * self.out_len
+            plans = fft_plan(Nf, 1), fft_plan(Ni, 1)
+            tables = _tables_on(Nf, index), _tables_on(Ni, index)
+            fold = self.fold.on(torch.device("cuda", index))[:4]
+            cfg = kernels.ResampleStepCfg(
+                plans[0].c_plan, plans[1].c_plan, *(t.data_ptr() for t in tables + fold),
+                self.out_len / self.in_len, self.in_len, self.out_len)
+            got = self._step_cfgs[index] = (ctypes.addressof(cfg), cfg, plans, tables, fold)
+        return got[0]
 
     def _build_tables(self):
         """Simulate the spectral index walk (resample.c:116-131) into COO
@@ -173,61 +224,166 @@ class SpectralResampler:
 
     def block(self, overlap, x):
         """Every inner block of x at once: x [n·in_len, C] -> (overlap'
-        [out_len, C], y [n·out_len, C]). Inner block i is column block i of
-        each transform; its overlap-add takes the second half of inner
-        block i-1's inverse (the carried overlap for i = 0)."""
-        in_len, out_len = self.in_len, self.out_len
-        B, C = x.shape
-        n = B // in_len
-        if n * in_len != B:
-            raise ValueError(f"resample: block of {B} frames is not a multiple of {in_len}")
-        x = x.contiguous()
-        if x.dtype == torch.float32:
-            X = rfft_pack_f32(x, 2 * in_len, blocks=n)
-            return irfft_ola_f32(resample_fold(X, self.fold), 2 * out_len, overlap,
-                                 out_len / in_len)
-        X = rfft_pack(x[:0], x, 2 * in_len, blocks=n)  # [in_len+1, n·C]
-        Y = resample_fold(X, self.fold)  # [out_len+1, n·C]
-        y2 = irfft_crop(Y, 2 * out_len, 0, 2 * out_len) * (out_len / in_len)
-        y2 = y2.reshape(2, out_len, n, C)
-        head, tail = y2[0], y2[1]
-        prev = torch.cat([overlap.to(x.dtype)[:, None], tail[:, :-1]], dim=1)
-        y = (head + prev).permute(1, 0, 2).reshape(n * out_len, C)
-        return tail[:, -1].contiguous(), y
+        [out_len, C], y [n·out_len, C]), by resample_step. Inner block i is
+        column block i of each transform; its overlap-add takes the second
+        half of inner block i-1's inverse (the carried overlap for i = 0)."""
+        return resample_step(self, overlap, x.contiguous())
+
+
+def _inner_blocks(rs, x):
+    B = x.shape[0]
+    n = B // rs.in_len
+    if x.dim() != 2 or n * rs.in_len != B or n < 1:
+        raise ValueError(f"resample: block of {B} frames is not a multiple of {rs.in_len}")
+    return n
+
+
+# --- K8: the step -------------------------------------------------------------
+
+
+def resample_step(rs, overlap, x):
+    """The step of SpectralResampler rs on x [n·in_len, C] float64 with the
+    carried overlap [out_len, C]: (overlap' [out_len, C], y [n·out_len, C]);
+    on float32 x, resample_step_f32. CPU tensors run resample_step_ref;
+    CUDA tensors take rs.route: one launch of csrc/resample.cu (counted in
+    resample_step.launches and kernels.resample_launches()), or rfft_pack,
+    resample_fold and irfft_ola."""
+    if x.dtype == torch.float32:
+        return resample_step_f32(rs, overlap, x)
+    return _resample_step(resample_step, resample_step_ref, torch.float64, rs, overlap, x)
+
+
+resample_step.launches = 0
+
+
+def resample_step_f32(rs, overlap, x):
+    """resample_step on float32 x and overlap: read float32, the transforms
+    and the fold in float64, each tail rounded to float32 and y rounded
+    once. CPU tensors run resample_step_f32_ref."""
+    return _resample_step(resample_step_f32, resample_step_f32_ref, torch.float32, rs, overlap,
+                          x)
+
+
+resample_step_f32.launches = 0
+
+
+def _resample_step(entry, ref, dt, rs, overlap, x):
+    """The overlap's dtype is settled here for every route: the float64
+    step converts it, as dsp_tpu's block does; the float32 step takes
+    float32 only."""
+    n = _inner_blocks(rs, x)
+    if overlap.dtype != dt:
+        if dt == torch.float32:
+            raise TypeError(f"{entry.__name__}: the kernel takes {dt}, got {overlap.dtype}")
+        overlap = overlap.to(dt)
+    if x.is_cpu:
+        _check_dtypes(entry.__name__, (x, dt))
+        return ref(rs, overlap, x)
+    if rs.route == ONE_LAUNCH:
+        return _launch_step(entry, dt, rs, overlap, x, n)
+    ratio = rs.out_len / rs.in_len
+    if dt == torch.float32:
+        X = rfft_pack_f32(x, 2 * rs.in_len, blocks=n)
+        return irfft_ola_f32(resample_fold(X, rs.fold), 2 * rs.out_len, overlap, ratio)
+    X = rfft_pack(x[:0], x, 2 * rs.in_len, blocks=n)
+    return irfft_ola(resample_fold(X, rs.fold), 2 * rs.out_len, overlap, ratio)
+
+
+def _launch_step(entry, dt, rs, overlap, x, n):
+    """The checks in one pass, y and overlap' as views of one buffer, one
+    ctypes call."""
+    B, C = x.shape
+    ptrs = _launch_ptrs(entry.__name__, x, (("x", x), ("overlap", overlap)),
+                        ((dt, (B, C)), (dt, (rs.out_len, C))))
+    rows = n * rs.out_len
+    buf = torch.empty((rows + rs.out_len) * C, dtype=dt, device=x.device)
+    y, ov = buf[: rows * C].view(rows, C), buf[rows * C:].view(rs.out_len, C)
+    index = x.get_device()
+    kernels.launch_resample_step(rs.step_cfg(index), ptrs[0], y, ov, ptrs[1], n, C,
+                                 dt == torch.float32, index)
+    entry.launches += 1
+    return ov, y
+
+
+def resample_step_ref(rs, overlap, x):
+    """Plain version of resample_step: rfft_pack_ref of the inner blocks,
+    resample_fold_ref and irfft_ola_ref, dsp_tpu's step with the inner
+    blocks as columns."""
+    n = _inner_blocks(rs, x)
+    X = rfft_pack_ref(x[:0], x, 2 * rs.in_len, blocks=n)
+    return irfft_ola_ref(resample_fold_ref(X, rs.fold), 2 * rs.out_len, overlap.to(x.dtype),
+                         rs.out_len / rs.in_len)
+
+
+def resample_step_f32_ref(rs, overlap, x):
+    """Plain version of resample_step_f32: rfft_pack_f32_ref,
+    resample_fold_ref and irfft_ola_f32_ref."""
+    n = _inner_blocks(rs, x)
+    X = rfft_pack_f32_ref(x, 2 * rs.in_len, blocks=n)
+    return irfft_ola_f32_ref(resample_fold_ref(X, rs.fold), 2 * rs.out_len, overlap,
+                             rs.out_len / rs.in_len)
+
+
+# --- the inverse with the overlap-add, for the route of three launches --------
+
+
+def irfft_ola(Y, N, overlap, ratio):
+    """The float64 resampler's inverse and overlap-add. Y [N//2+1, n·C]:
+    the half spectra of n inner blocks (block-major columns); overlap
+    [N//2, C] float64, the tail carried in. y2 = irfft(Y, n=N)·ratio; each
+    block's tail (rows N//2..N) is added to the next block's head (rows
+    0..N//2), the carried overlap to the first block's, each product and sum
+    rounded on its own. Returns (overlap' [N//2, C], the last block's tail,
+    and y [n·N//2, C]). CPU tensors run irfft_ola_ref; CUDA tensors launch
+    csrc/fft_conv.cu."""
+    return _irfft_ola(irfft_ola, irfft_ola_ref, torch.float64, Y, N, overlap, ratio)
+
+
+irfft_ola.launches = 0
 
 
 def irfft_ola_f32(Y, N, overlap, ratio):
-    """The float32 resampler's inverse and overlap-add. Y [N//2+1, n·C]:
-    the half spectra of n inner blocks (block-major columns); overlap
-    [N//2, C] float32, the tail carried in. y2 = irfft(Y, n=N)·ratio; each
-    block's tail (rows N//2..N) is rounded to float32, as the carried
-    overlap is, and added to the next block's head (rows 0..N//2) in
-    float64, the carried overlap to the first block's. Returns (overlap'
-    [N//2, C], the last block's tail, and y [n·N//2, C]), both float32.
-    CPU tensors run irfft_ola_f32_ref; CUDA tensors launch
-    csrc/fft_conv.cu."""
-    if overlap.dtype != torch.float32:
-        raise TypeError(f"irfft_ola_f32: the kernel takes torch.float32, got {overlap.dtype}")
-    if Y.is_cpu:
-        return irfft_ola_f32_ref(Y, N, overlap, ratio)
-    from dsp_tpu_torch import kernels
+    """irfft_ola with a float32 overlap and y: each block's tail rounded to
+    float32, as the carried overlap is, and added to the next block's head
+    in float64, y rounded once. CPU tensors run irfft_ola_f32_ref; CUDA
+    tensors launch csrc/fft_conv.cu."""
+    return _irfft_ola(irfft_ola_f32, irfft_ola_f32_ref, torch.float32, Y, N, overlap, ratio)
 
-    _check_cuda("irfft_ola_f32", Y, (Y, torch.complex128), (overlap, torch.float32))
+
+irfft_ola_f32.launches = 0
+
+
+def _irfft_ola(entry, ref, dt, Y, N, overlap, ratio):
+    name = entry.__name__
+    if overlap.dtype != dt:
+        raise TypeError(f"{name}: the kernel takes {dt}, got {overlap.dtype}")
+    if Y.is_cpu:
+        return ref(Y, N, overlap, ratio)
+    _check_cuda(name, Y, (Y, torch.complex128), (overlap, dt))
     half, C = N // 2, overlap.shape[1]
     if (Y.dim() != 2 or N % 2 or Y.shape[0] != half + 1 or Y.shape[1] % C
             or tuple(overlap.shape) != (half, C)):
-        raise ValueError(f"irfft_ola_f32: Y {tuple(Y.shape)}, overlap {tuple(overlap.shape)} "
+        raise ValueError(f"{name}: Y {tuple(Y.shape)}, overlap {tuple(overlap.shape)} "
                          f"at N = {N}")
     plan = fft_plan(N, Y.shape[1], ola=True)
     y = overlap.new_empty((Y.shape[1] // C * half, C))
     ov = torch.empty_like(overlap)
-    kernels.launch_irfft_ola_f32(plan, _tables_on(N, Y.get_device()), Y, plan.work(Y), y, ov,
-                                 overlap, ratio)
-    irfft_ola_f32.launches += 1
+    kernels.launch_irfft_ola(plan, _tables_on(N, Y.get_device()), Y, plan.work(Y), y, ov,
+                             overlap, ratio)
+    entry.launches += 1
     return ov, y
 
 
-irfft_ola_f32.launches = 0
+def irfft_ola_ref(Y, N, overlap, ratio):
+    """Plain PyTorch version of irfft_ola: irfft_crop_ref, the scale, then
+    the shifted add, as dsp_tpu's step orders them."""
+    half, C = N // 2, overlap.shape[1]
+    n = Y.shape[1] // C
+    y2 = (irfft_crop_ref(Y, N, 0, N) * ratio).reshape(2, half, n, C)
+    head, tail = y2[0], y2[1]
+    prev = torch.cat([overlap[:, None], tail[:, :-1]], dim=1)
+    y = (head + prev).permute(1, 0, 2).reshape(n * half, C)
+    return tail[:, -1].contiguous(), y
 
 
 def irfft_ola_f32_ref(Y, N, overlap, ratio):
@@ -276,7 +432,7 @@ class FoldTables:
         return t
 
 
-# --- K8: the spectral fold ----------------------------------------------------
+# --- K8: the spectral fold, for the route of three launches -------------------
 
 
 def resample_fold(X, fold):

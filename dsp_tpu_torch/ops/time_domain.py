@@ -65,9 +65,10 @@ import struct
 import numpy as np
 import torch
 
+from dsp_tpu_torch import kernels
 from dsp_tpu_torch.core import prng
 from dsp_tpu_torch.core.prng import PM_RAND_MAX
-from dsp_tpu_torch.ops.fft_conv import _check_cuda, _check_dtypes
+from dsp_tpu_torch.ops.fft_conv import _check_cuda, _check_dtypes, _check_shape, _launch_ptrs
 from dsp_tpu_torch.ops.m4_engine import fma_ref
 
 # tpdf_dither modes: flat (no feedback), shaped (9-tap error feedback on
@@ -137,32 +138,6 @@ def _fma32s(a, b, c):
     return np.float32(s)
 
 
-def _check_shape(name, what, t, shape):
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: {what} {tuple(t.shape)}, expected {tuple(shape)}")
-
-
-def _launch_ptrs(name, like, named, specs):
-    """The device addresses of the tensors a kernel reads, after the checks
-    that guard its launch, in one pass: each (what, tensor) of named has the
-    (dtype, shape) of specs, lies on like's CUDA device, is contiguous and
-    is aligned to its element. A failing check raises as _check_dtypes,
-    _check_shape and _check_cuda do."""
-    if not like.is_cuda:
-        raise ValueError(f"{name}: no kernel for device {like.device}")
-    dev = like.get_device()
-    ptrs = []
-    for (what, t), (dtype, shape) in zip(named, specs):
-        p = t.data_ptr()
-        if (t.dtype is not dtype or t.shape != shape or not t.is_contiguous()
-                or t.get_device() != dev or p % t.element_size()):
-            _check_dtypes(name, (t, dtype))
-            _check_shape(name, what, t, shape)
-            _check_cuda(name, like, (t, dtype), align=1)
-        ptrs.append(p)
-    return ptrs
-
-
 # --- K18-noise: x + (u1 - u2)·mult -----------------------------------------
 
 
@@ -193,23 +168,25 @@ tpdf_noise_f32.launches = 0
 
 
 def _tpdf_noise(entry, ref, dt, key, x, mult, sel):
-    name = entry.__name__
-    _check_dtypes(name, (x, dt), (key, torch.uint32), (sel, torch.bool))
-    if x.device.type == "cpu":
-        return ref(key, x, mult, sel)
-    from dsp_tpu_torch import kernels
-
-    checks = [(x, dt), (key, torch.uint32)]
-    if sel is not None:
-        checks.append((sel, torch.bool))
-    _check_cuda(name, x, *checks, align=1)
+    """The checks in one pass, y and key' in one buffer, one ctypes call."""
+    if not x.is_cuda:
+        _check_dtypes(entry.__name__, (x, dt), (key, torch.uint32), (sel, torch.bool))
+        if x.device.type == "cpu":
+            return ref(key, x, mult, sel)
+        raise ValueError(f"{entry.__name__}: no kernel for device {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"{entry.__name__}: x {tuple(x.shape)}, expected [B, C]")
     B, C = x.shape
-    _check_shape(name, "key", key, (2,))
+    specs = ((dt, (B, C)), (torch.uint32, (2,)))
+    named = (("x", x), ("key", key))
     if sel is not None:
-        _check_shape(name, "sel", sel, (C,))
-    key_out = torch.empty_like(key)
-    y = torch.empty_like(x)
-    kernels.launch_tpdf_noise(key, key_out, x, y, sel, float(mult))
+        specs, named = specs + ((torch.bool, (C,)),), named + (("sel", sel),)
+    ptrs = _launch_ptrs(entry.__name__, x, named, specs)
+    # y [B, C], then key' (uint32 [2], the 8 bytes after it)
+    n = B * C
+    buf = x.new_empty(n + (1 if dt is torch.float64 else 2))
+    y, key_out = buf[:n].view(B, C), buf[n:].view(torch.uint32)
+    kernels.launch_tpdf_noise(ptrs, key_out, y, float(mult), B, C)
     entry.launches += 1
     return key_out, y
 
@@ -275,8 +252,6 @@ def _tpdf_dither(entry, ref, dt, key, x, ehist, nprev, n_mult, q0, q1, enabled, 
     _check_dtypes(name, *checks)
     if x.device.type == "cpu":
         return ref(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode)
-    from dsp_tpu_torch import kernels
-
     _check_cuda(name, x, *checks, align=1)
     B, C = x.shape
     for what, t, shape in (("key", key, (2,)), ("ehist", ehist, (DITHER_TAPS, C)),
@@ -412,8 +387,6 @@ def _levels_step(entry, ref, dt, avg, peak, block_peak, xs, g):
     if xs.device.type == "cpu":
         _check_dtypes(name, (xs, dt), (avg, dt), (peak, dt), (block_peak, dt))
         return ref(avg, peak, block_peak, xs, g)
-    from dsp_tpu_torch import kernels
-
     if xs.dim() != 2:
         raise ValueError(f"{name}: xs {tuple(xs.shape)}, expected [B, n]")
     B, n = xs.shape
@@ -520,8 +493,6 @@ def _stats_step(entry, dt, s, xs, insert_h):
             checks.append((insert_h, dt))
         _check_dtypes(name, *checks)
         return stats_step_ref(s, xs, insert_h)
-    from dsp_tpu_torch import kernels
-
     if xs.dim() != 2:
         raise ValueError(f"{name}: xs {tuple(xs.shape)}, expected [B, n]")
     B, n = xs.shape
@@ -847,8 +818,6 @@ def _mod_delay(entry, ref, dt, key, yk, t, buf, x, sel, table, depth, step, n_ta
     _check_dtypes(name, *checks)
     if x.device.type == "cpu":
         return ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual)
-    from dsp_tpu_torch import kernels
-
     _check_cuda(name, x, *checks, align=1)
     B, C = x.shape
     lanes = yk.shape[1] if yk.dim() == 2 else -1

@@ -12,7 +12,8 @@ of the repository on the same card.
                                                # cli, td, tdcli, k2, audio,
                                                # k2cli, profile, k1, k1cli,
                                                # k3, k3cli, delay, audiocli,
-                                               # audioprofile or meters)
+                                               # audioprofile, meters, resample,
+                                               # noise or resamplecli)
 
 DIR is an unpacked checkout of another commit (e.g. `git archive <commit> |
 tar -x -C .smoke_tmp/parent`). Each tree runs in a process of its own, since
@@ -125,6 +126,19 @@ each at B = 2048, float64: the functions with the most time of their own,
 in microseconds a call, cProfile's cost included); then the modulated
 chain (their main path) at -b 2048 in both dtypes as the profile rows
 profile theirs, and through dsp-torch as the k2cli rows run theirs.
+
+The resample rows time the resampler's step (SpectralResampler.block, as
+each tree runs it) at 44.1 to 48 and 192 kHz, 48 to 44.1, x2 and 96 to
+44.1 kHz, on 4 and 112 inner blocks (-b 2048 and 65536 at 44.1 kHz),
+stereo, in both dtypes, a call and device-only, on seeded inputs (outputs
+compared bit for bit); then a call's host path (cProfile,
+as the meters rows), and `resample 48k` at -b 2048 in both dtypes
+profiled as the profile rows profile theirs. The noise rows time
+tpdf_noise and tpdf_noise_f32 with every channel and with the first only,
+and NoiseEffect.step with the first only, at B = 2048 and 65536 (outputs
+compared bit for bit). The resamplecli rows run `resample 48k` and
+`resample 48k matrix4 -6` at -b 2048 through dsp-torch in both dtypes, as
+the k2cli rows run theirs (renders compared bit for bit).
 
 The rows are chip_smoke.py's main-path shapes, where chip_smoke.py holds
 each kernel against its plain version; this script only times them. Prints
@@ -699,11 +713,107 @@ def meter_rows():
     return out
 
 
-def host_rows(calls=2000):
-    """Where a call's host time goes: cProfile over `calls` calls of
-    stats_step plain, stats_step -i and levels_step at B = 2048 in float64,
-    the functions with the most time of their own, in microseconds a call
-    (cProfile's own cost included)."""
+# the resample rows: the step at the rate pairs the repo runs, at -b 2048 and
+# 65536 at 44.1 kHz (4 and 112 inner blocks), in both dtypes; the profile
+# and CLI runs of `resample 48k` and the 48 kHz upmix
+RESAMPLE_PAIRS = ((44100, 48000), (44100, 192000), (48000, 44100), (44100, 88200),
+                  (96000, 44100))
+RESAMPLE_INNER = (4, 112)
+RESAMPLE_PROFILE_CASES = (("resample 48k", 2048, "float64", 64),
+                          ("resample 48k", 2048, "float32", 64))
+RESAMPLE_CLI_CASES = tuple((chain, 2048, dtype) for chain in ("resample 48k",
+                                                              "resample 48k matrix4 -6")
+                           for dtype in ("float64", "float32"))
+
+
+def resample_rows():
+    """(name, the call, reps) of the resample rows: SpectralResampler.block
+    as each tree runs it, stereo, on inputs made from a seed alike in each
+    tree (outputs compared bit for bit)."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.ops import resample_ops as ro
+
+    rng = np.random.default_rng(17)
+    out = []
+    for dt, sfx in ((torch.float64, "float64"), (torch.float32, "float32")):
+        for pair in RESAMPLE_PAIRS:
+            rs = ro.SpectralResampler(*pair)
+            for n in RESAMPLE_INNER:
+                x, ov = (torch.as_tensor(rng.standard_normal((rows, CHANNELS)) * 0.3, dtype=dt,
+                                         device="cuda")
+                         for rows in (n * rs.in_len, rs.out_len))
+                reps = 50 if n == 4 else 10
+                name = f"resample step {pair[0]}->{pair[1]} n={n} {sfx}"
+                out.append((name, lambda rs=rs, ov=ov, x=x: rs.block(ov, x), reps))
+    return out
+
+
+NOISE_BLOCKS = (2048, 65536)
+
+
+def noise_rows():
+    """(name, the call, reps) of the noise rows: tpdf_noise and
+    tpdf_noise_f32 with every channel and with the first only, and
+    NoiseEffect.step with the first only, at NOISE_BLOCKS, stereo, seeded
+    (outputs compared bit for bit)."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.core.prng import prng_key
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.effects.noise import NoiseEffect
+    from dsp_tpu_torch.ops import time_domain as td
+
+    rng = np.random.default_rng(18)
+    key = prng_key(4242).to("cuda")
+    sel = torch.tensor([True, False], device="cuda")
+    e = NoiseEffect("noise", StreamInfo(FS, CHANNELS), np.array([True, False]), 1e-8)
+    out = []
+    for dt, sfx in ((torch.float64, "float64"), (torch.float32, "float32")):
+        fn = td.tpdf_noise_f32 if dt == torch.float32 else td.tpdf_noise
+        for B in NOISE_BLOCKS:
+            x = torch.as_tensor(rng.standard_normal((B, CHANNELS)) * 0.3, dtype=dt, device="cuda")
+            reps = 50 if B == 2048 else 10
+            out += [(f"tpdf_noise B={B} {sfx}", lambda fn=fn, x=x: fn(key, x, 1e-8), reps),
+                    (f"tpdf_noise B={B} {sfx} first channel",
+                     lambda fn=fn, x=x: fn(key, x, 1e-8, sel), reps),
+                    (f"NoiseEffect.step B={B} {sfx} first channel", lambda x=x: e.step(key, x),
+                     reps)]
+    return out
+
+
+def step_host_rows(calls=2000):
+    """Where a call's host time goes (as host_rows): the resampler's step
+    at 48 kHz on 4 inner blocks and tpdf_noise and NoiseEffect.step (the
+    first channel) at B = 2048, float64."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.core.prng import prng_key
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.effects.noise import NoiseEffect
+    from dsp_tpu_torch.ops import resample_ops as ro
+    from dsp_tpu_torch.ops import time_domain as td
+
+    rng = np.random.default_rng(19)
+    rs = ro.SpectralResampler(44100, 48000)
+    x, ov = (torch.as_tensor(rng.standard_normal((rows, CHANNELS)) * 0.3, device="cuda")
+             for rows in (4 * rs.in_len, rs.out_len))
+    xn = torch.as_tensor(rng.standard_normal((2048, CHANNELS)) * 0.3, device="cuda")
+    key = prng_key(4242).to("cuda")
+    e = NoiseEffect("noise", StreamInfo(FS, CHANNELS), np.array([True, False]), 1e-8)
+    return host_rows(calls, (("resample step 48k n=4", lambda: rs.block(ov, x)),
+                             ("tpdf_noise", lambda: td.tpdf_noise(key, xn, 1e-8)),
+                             ("NoiseEffect.step first channel", lambda: e.step(key, xn))))
+
+
+def host_rows(calls=2000, fns=None):
+    """Where a call's host time goes: cProfile over `calls` calls of each
+    (name, fn) of fns (by default stats_step plain, stats_step -i and
+    levels_step at B = 2048 in float64), the functions with the most time
+    of their own, in microseconds a call (cProfile's own cost included)."""
     import cProfile
     import pstats
 
@@ -712,11 +822,13 @@ def host_rows(calls=2000):
 
     from dsp_tpu_torch.ops import time_domain as td
 
-    st, lv, x, g = _meter_states(torch.float64, 2048, np.random.default_rng(17))
+    if fns is None:
+        st, lv, x, g = _meter_states(torch.float64, 2048, np.random.default_rng(17))
+        fns = (("stats_step plain", lambda: td.stats_step(st[False][0], x)),
+               ("stats_step -i", lambda: td.stats_step(st[True][0], x, st[True][1])),
+               ("levels_step", lambda: td.levels_step(*lv, x, g)))
     out = []
-    for name, fn in (("stats_step plain", lambda: td.stats_step(st[False][0], x)),
-                     ("stats_step -i", lambda: td.stats_step(st[True][0], x, st[True][1])),
-                     ("levels_step", lambda: td.levels_step(*lv, x, g))):
+    for name, fn in fns:
         for _ in range(50):
             fn()
         torch.cuda.synchronize()
@@ -730,7 +842,8 @@ def host_rows(calls=2000):
         total = sum(v[2] for v in stats.values()) * 1e6 / calls
         top = sorted(((f"{Path(k[0]).name}:{k[1]}({k[2]})", v[2] * 1e6 / calls)
                       for k, v in stats.items()), key=lambda kv: -kv[1])[:10]
-        out.append({"name": f"host {name} B=2048", "host_us": total, "host_top": top})
+        out.append({"name": f"host {name}" + ("" if "48k" in name else " B=2048"),
+                    "host_us": total, "host_top": top})
     return out
 
 
@@ -935,12 +1048,15 @@ def measure(which, inputs_path, save=None):
         return profile_rows()
     if which == "audioprofile":
         return profile_rows(AUDIO_PROFILE_CASES)
+    if which == "resamplecli":
+        return k2cli_rows(inputs_path, save or inputs_path.parent / "resamplecli.pt",
+                          RESAMPLE_CLI_CASES)
     out = []
-    if which in ("td", "k2", "audio", "k1", "k3", "delay", "meters"):
+    if which in ("td", "k2", "audio", "k1", "k3", "delay", "meters", "resample", "noise"):
         outputs = {}
         made = {"td": td_rows, "k2": k2_rows, "audio": lambda: audio_rows(inputs_path),
                 "k1": k1_rows, "k3": k3_rows, "delay": delay_rows,
-                "meters": meter_rows}[which]()
+                "meters": meter_rows, "resample": resample_rows, "noise": noise_rows}[which]()
         for name, kern, reps in made:
             r = {"name": name, "ms": cuda_ms(kern, reps)}
             r["device_ms"], r["kernels"] = device_ms(kern, min(reps, 20))
@@ -952,6 +1068,8 @@ def measure(which, inputs_path, save=None):
         if which == "meters":
             out += host_rows() + profile_rows(METER_PROFILE_CASES) + k2cli_rows(
                 inputs_path, save or inputs_path.parent / "meters.pt", METER_CLI_CASES)
+        if which == "resample":
+            out += step_host_rows() + profile_rows(RESAMPLE_PROFILE_CASES)
         return out
     if which in ("all", "engines"):
         outputs = {}
@@ -1043,7 +1161,8 @@ def main():
     ap.add_argument("--against", type=Path, default=None)
     ap.add_argument("--rows", choices=("all", "fft", "engines", "cli", "td", "tdcli", "k2",
                                        "audio", "k2cli", "profile", "k1", "k1cli", "k3", "k3cli",
-                                       "delay", "audiocli", "audioprofile", "meters"),
+                                       "delay", "audiocli", "audioprofile", "meters", "resample",
+                                       "noise", "resamplecli"),
                     default="all")
     ap.add_argument("--inputs", type=Path, default=ENGINE_INPUTS)
     ap.add_argument("--save", type=Path, default=None)
@@ -1072,7 +1191,7 @@ def main():
     print(f"card: {card}; order: before, after, after, before")
     verdict = (compare_outputs(saves[0], saves[1])
                if args.rows in ("all", "engines", "td", "k2", "audio", "k1", "k3", "delay",
-                                "meters")
+                                "meters", "resample", "noise")
                else {})
     keys = ("ms", "us_a_tick", "device_ms", "device_us_a_tick", "kernels", "library_ms",
             "library_device_ms", "x_realtime", "digest", "render", "step_ms", "kernels_a_block",

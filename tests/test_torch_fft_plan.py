@@ -12,6 +12,7 @@ numpy and the port's host code only.
 import numpy as np
 import pytest
 
+import torch_parity  # noqa: F401  (one torch thread a test process)
 import dsp_tpu_torch.ops.fft_conv as fc
 from dsp_tpu_torch.ops.resample_ops import SpectralResampler
 

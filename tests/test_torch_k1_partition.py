@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity  # noqa: F401  (one torch thread a test process)
 from dsp_tpu_torch.ops import iir
 
 FLAGSHIP = ("gain -3 eq 1k 1.0 +3 eq 3.5k 0.8 -2 lowshelf 90 0.7071s +4 highshelf 10k 0.7071s -2 "

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity  # noqa: F401  (one torch thread a test process)
 from dsp_tpu_torch.ops import time_domain as td
 from dsp_tpu_torch.ops.m4_engine import fma_ref
 

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity  # noqa: F401  (one torch thread a test process)
 from dsp_tpu_torch.ops import m4_engine as m4
 
 SEG = 8  # a thread's samples in a tile (csrc/m4_audio.cu kSeg)

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity  # noqa: F401  (one torch thread a test process)
 import dsp_tpu  # noqa: F401  (its config turns on jax's float64, as dsp_tpu runs)
 
 FS = 44100

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity  # noqa: F401  (one torch thread a test process)
 from dsp_tpu_torch.ops import time_domain as td
 
 TILE, SEG = 256, 8  # csrc/stats.cu kTile, kSeg

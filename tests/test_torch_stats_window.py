@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parity  # noqa: F401  (one torch thread a test process)
 from dsp_tpu_torch.core.types import StreamInfo
 from dsp_tpu_torch.effects.dither import DitherEffect
 from dsp_tpu_torch.effects.stats import StatsEffect

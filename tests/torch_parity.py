@@ -6,6 +6,16 @@ CPU, where every kernel wrapper takes its plain PyTorch version.
 """
 
 import numpy as np
+import torch
+
+# One intra-op thread a test process. The parallel runner starts about one
+# process a core, and torch's default of a thread a core in each of them
+# oversubscribes the cores: the plain versions' many short parallel ops
+# then wait on each other's threads. Measured on an 8-core host, six of the
+# port's heaviest test files (the partition models) on 6 workers: 388 s
+# with torch's default, 57 s with one thread. Every port test file imports
+# this module.
+torch.set_num_threads(1)
 
 FS = 44100
 
