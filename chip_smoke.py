@@ -96,7 +96,14 @@ nvcc and PyTorch built for CUDA. It
    short times the host's enqueue. Then renders the 4 s program signal at
    -b 65536 and holds it to bench_goldens/resample.npz and matrix4.npz
    (dsp_tpu f64) within -200 dBFS, and replays bench_goldens/matrix4_mb.npz's
-   control stream through the card's audio path within -120 dBFS;
+   control stream through the card's audio path within -120 dBFS. Slice
+   H1's stream-axis forms (split_kernel_phase): K1 and K1-df, crossfeed's
+   step, the run, the lone K2/K3, rfft_pack, fdl_mac, irfft_crop and
+   splice, the resampler's step and its route of three launches, each in
+   both dtypes, at S = 3 streams one launch a call (the route: the count of
+   one stream's call), each stream bit-equal to a one-stream launch and the
+   whole within its plain version on the card, timed at S = 1 and 8 (the
+   rows named <kernel>@S);
 3. writes 300 s of stereo 44.1 kHz float64 wav (seeded noise plus sines), a
    full track, and runs the port's CLI on it file to file: the flagship
    chain at the default block (2048) and at -b 65536; then the FFT
@@ -109,12 +116,12 @@ nvcc and PyTorch built for CUDA. It
    bits, stats -i) and "modulated" to double (delay -M q2, noise, sloped2
    dither, stats, levels); then slices D and E's upmixes at the default
    block: `matrix4 -6` (44.1 kHz to 4 channels; also at -b 65536, where
-   the event engine sets the pace) and `resample 48k matrix4 -6` (a 48 kHz
-   quad: the rate change, blocks of 2352 in and 2560 out) and, on 60 s,
+   the event engine sets the pace) and, on 60 s, `resample 48k matrix4 -6`
+   (a 48 kHz quad: the rate change, blocks of 2352 in and 2560 out) and
    `resample 44101` (the resampler's route of three launches, blocks of
    44,100 frames); then slice F's:
-   `matrix4_mb -6` (also at -b 65536), bench.py's `mixed` chain (an EQ, a
-   fractional delay, a 4,096-tap filter, matrix4_mb) and, on 60 s,
+   `matrix4_mb -6` (also at -b 65536) and, on 60 s, bench.py's `mixed`
+   chain (an EQ, a fractional delay, a 4,096-tap filter, matrix4_mb) and
    examples/matrix4_mb_2_4 (6 channels) and `matrix4_mb -6` at -b 1000
    (the chain's block 1024) and -b 1056 (the bank's L = 1 plan, which K1
    runs in chunks of 32), each compared on its
@@ -164,7 +171,16 @@ nvcc and PyTorch built for CUDA. It
    stats table equal on card and CPU, and the whole 300 s against the
    float64 renders by the stats table's DC, peak and RMS, with the RMS of
    the difference printed beside the level two independent noise and
-   dither draws predict;
+   dither draws predict. Between the main path and the float32 phase,
+   slice H1's split phase (split_phase): the flagship (both dtypes), `fir`
+   64k and `lowpass 18k 0.7071 resample 96k` through dsp-torch on the same
+   300 s, sequential and with DSP_TPU_SPLIT=8, × realtime and kernels a
+   host step (equal at S = 1 and 8) printed; the float64 splits' segment 0
+   bit-equal to the main path's sequential render and the whole within
+   -150 dBFS, the float32 split within -120 dBFS of the float64 render;
+   then process_batch on 8 streams of the flagship and `fir` 64k (and of
+   the chains that run the other stream-axis forms) against process_array
+   on the card, within 1e-12;
 4. runs 96 blocks of the Nupols path (fir_p 1M at B = 2048), 320 of the
    delivery chain in float64 and in float32, 16 each of matrix4 and matrix4_mb and of the float32
    flagship (blocks 2048 and 1000), resample and upmixes, with the input on
@@ -1937,7 +1953,8 @@ def resample_phase(records):
             Y = ro.resample_fold(fc.rfft_pack(x[:0], x, 2 * rs.in_len), rs.fold)
             Ni, ratio = 2 * rs.out_len, rs.out_len / rs.in_len
             row = timed_row(lambda: ro.irfft_ola(Y, Ni, ov, ratio),
-                            lambda: ro.irfft_ola_ref(Y, Ni, ov, ratio), None, reps=3)
+                            lambda: ro.irfft_ola_ref(Y, Ni, ov, ratio),
+                            lambda: torch.fft.irfft(Y, n=Ni, dim=0), reps=3)
             o_k, o_r = ro.irfft_ola(Y, Ni, ov, ratio), ro.irfft_ola_ref(Y.cpu(), Ni, ov.cpu(),
                                                                         ratio)
             err = max(_diff(o_k[0], o_r[0]), _diff(o_k[1], o_r[1]))
@@ -2769,6 +2786,9 @@ class CpuReferences:
         return left
 
 
+WALLS = {}  # cli_run's wall seconds a run, by label
+
+
 def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, seconds, tmp,
             enc="double", limit_dbfs=LIMIT_DBFS, seed=None, onset=None, compare=COMPARE_SECONDS,
             keep=None, refs=None):
@@ -2807,7 +2827,7 @@ def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, secon
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
         rc = cli_main(argv)
-    wall = time.perf_counter() - t0
+    wall = WALLS[label] = time.perf_counter() - t0
     counts = {name: w.launches for name, w in wrappers.items()}
     if rc != 0:
         raise SmokeError(f"{label}: dsp-torch exited {rc}: {err.getvalue()[-2000:]}")
@@ -4424,8 +4444,9 @@ def main_path(records, seconds, tmp):
          {"keep": keep((MATRIX4, 2048))}, None),
         # a block of 2048 control ticks, where the engine sets the pace
         ("matrix4 -6 -b 65536 (44.1 kHz -> 4 ch)", MATRIX4.split(), 65536, m4w, {}, None),
+        # on 60 s, as the mixed chain below (the split phase's time)
         ("resample 48k matrix4 -6 -b 2048 (48 kHz quad)", UPMIX48.split(), 2048,
-         {**m4w, "resample_step": resample_ops.resample_step}, {"onset": ONSET}, None),
+         {**m4w, "resample_step": resample_ops.resample_step}, {"onset": ONSET}, on60),
         # the resampler's route of three launches: an inverse at N = 88,202
         # with a global pass of the prime 44,101 (blocks of 44,100 frames)
         ("resample 44101 (the route of three launches)", ["resample", "44101"], 2048,
@@ -4437,7 +4458,7 @@ def main_path(records, seconds, tmp):
          {**mb, "keep": keep((MATRIX4_MB, 2048))}, None),
         ("matrix4_mb -6 -b 65536 (44.1 kHz -> 4 ch)", MATRIX4_MB.split(), 65536, mbw, mb, None),
         ("mixed -b 2048 (eq, delay -f, fir 4k, matrix4_mb)", mixed_chain(f4k).split(), 2048,
-         mbw, mb, None),
+         mbw, mb, on60),
         ("examples/matrix4_mb_2_4 -b 2048 (6 ch)", [f"@{MB_EXAMPLE}"], 2048, mbw, mb, on60),
     ] + [
         # -b 1000: the chain rounds the block up to 1024 (its quantum of 32
@@ -4478,6 +4499,607 @@ def main_path(records, seconds, tmp):
     if left:
         raise SmokeError(f"main path: {left} CPU references were computed for no run")
     return f1m, f4k, kept
+
+
+# --- slice H1: split and batched processing over a stream axis ---------------
+
+# the stream-axis forms are held at FORM_STREAMS streams and timed at one
+# stream ([B, C], the sequential call) and at TIMED_STREAMS
+FORM_STREAMS = 3
+TIMED_STREAMS = 8
+# the split renders (DSP_TPU_SPLIT): segments, and the limit on split
+# against sequential in float64 (tests/test_split.py's contract)
+SPLIT_SEGMENTS = 8
+SPLIT_DBFS = -150.0
+# process_batch: streams, seconds a stream, and the limit on a stream
+# against process_array (tests/test_state_hygiene.py)
+BATCH_STREAMS = 8
+BATCH_SECONDS = 5
+BATCH_ABS = 1e-12
+RESAMPLE_ABS = 10.0 ** (RESAMPLE_DBFS / 20.0)
+# (record, the wrapper whose own count is the form's launches), for every
+# stream-axis form; a form's row counts its launches in the split phase's
+# split renders and batches, where every launch runs S streams
+STREAM_FORMS = (
+    ("lti_blocked@S", "iir.lti_blocked"), ("lti_blocked_f32@S", "iir.lti_blocked_f32"),
+    ("crossfeed_step@S", "iir.crossfeed_step"), ("crossfeed_step_f32@S", "iir.crossfeed_step_f32"),
+    ("biquad_scan_run@S", "iir.biquad_scan_run"), ("biquad_scan_run_df@S", "iir.biquad_scan_run_df"),
+    ("biquad_scan@S", "iir.biquad_scan"), ("biquad_scan_f32@S", "iir.biquad_scan_f32"),
+    ("biquad_scan_pair@S", "iir.biquad_scan_pair"), ("biquad_scan_df@S", "iir.biquad_scan_df"),
+    ("rfft_pack@S", "fc.rfft_pack"), ("rfft_pack_f32@S", "fc.rfft_pack_f32"),
+    ("fdl_mac@S", "fc.fdl_mac"), ("fdl_mac_f32@S", "fc.fdl_mac_f32"),
+    ("irfft_crop@S", "fc.irfft_crop"), ("irfft_crop_f32@S", "fc.irfft_crop_f32"),
+    ("splice@S", "fc.splice"), ("splice_f32@S", "fc.splice_f32"),
+    ("resample_step@S", "ro.resample_step"), ("resample_step_f32@S", "ro.resample_step_f32"),
+    ("irfft_ola@S", "ro.irfft_ola"), ("irfft_ola_f32@S", "ro.irfft_ola_f32"),
+)
+
+
+def _stream_wrappers():
+    """{record: wrapper} of STREAM_FORMS."""
+    from dsp_tpu_torch.ops import fft_conv as fc
+    from dsp_tpu_torch.ops import iir
+    from dsp_tpu_torch.ops import resample_ops as ro
+
+    mods = {"iir": iir, "fc": fc, "ro": ro}
+    return {rec: getattr(mods[w.split(".")[0]], w.split(".")[1]) for rec, w in STREAM_FORMS}
+
+
+def _pick(tree, s):
+    """Stream s of a tree of stream-axis tensors (a 0-dim leaf is every
+    stream's)."""
+    import torch
+
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_pick(t, s) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _pick(v, s) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor) or tree.dim() == 0:
+        return tree
+    return tree[s]
+
+
+def _leaves(tree):
+    if isinstance(tree, (tuple, list)):
+        return [leaf for t in tree for leaf in _leaves(t)]
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def kernel_total():
+    """Every kernel the port has launched in this process: the libraries'
+    own counts, and the wrappers' where a kernel has no library count."""
+    from dsp_tpu_torch import kernels
+    from dsp_tpu_torch.ops import fft_conv as fc
+    from dsp_tpu_torch.ops import iir
+    from dsp_tpu_torch.ops import resample_ops as ro
+
+    return (kernels.lookback_launches() + kernels.fft_launches() + kernels.biquad_run_launches()
+            + kernels.resample_launches() + kernels.noise_launches()
+            + kernels.mod_delay_launches() + sum(kernels.meter_launches())
+            + sum(w.launches for w in (iir.crossfeed_step, iir.crossfeed_step_f32, iir.biquad_scan,
+                                       iir.biquad_scan_f32, iir.biquad_scan_pair,
+                                       iir.biquad_scan_df, fc.fdl_mac, fc.fdl_mac_f32, fc.splice,
+                                       fc.splice_f32, ro.resample_fold)))
+
+
+def split_kernel_phase(records):
+    """Every kernel form on the split-safe effects' path with a stream axis,
+    on the card: at S = FORM_STREAMS one launch a call by its own count (the
+    route of three launches: the launches of one stream's call), each
+    stream bit-equal to a one-stream call of the kernel, and the whole
+    within its plain version on the same inputs on the card at the
+    tolerances of the one-stream rows (K1: K1_ABS; float64: LIMIT_DBFS, the
+    resampler's step RESAMPLE_DBFS; float32: one float32 ulp of the scale,
+    a (hi, lo) state's sum within F32_STATE_REL). Each form timed, a call
+    (CUDA events) and device-only (torch.profiler), at one stream ([B, C])
+    and at TIMED_STREAMS, its plain version and, where one PyTorch call
+    computes the same function, that call, at TIMED_STREAMS."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch import kernels
+    from dsp_tpu_torch.chain import build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.ops import fft_conv as fc
+    from dsp_tpu_torch.ops import iir
+    from dsp_tpu_torch.ops import resample_ops as ro
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20318)
+    f64, f32 = torch.float64, torch.float32
+    C = CHANNELS
+    plan, _ = flagship_parts()
+    effects = build_chain_from_string(FLAGSHIP, StreamInfo(FS, C)).effects
+    cf = next(e for e in effects if e.name == "crossfeed")
+    hp = next(e for e in effects if e.name == "highpass")
+    gains = (cf.direct_gain, cf.cross_gain)
+    run6 = tuple(torch.as_tensor(a, device=dev) for a in run_biquads(6, C))
+    hp64 = tuple(torch.as_tensor(getattr(hp, k), device=dev) for k in ("_ss_A", "_ss_Bv", "_ss_c0"))
+    hp32 = tuple(t.float() for t in hp64)
+    cf_args = {dt: tuple(torch.as_tensor(getattr(cf, f"_ss{'32' if dt == f32 else ''}_{k}"),
+                                         device=dev) for k in ("A", "Bv", "c0"))
+               for dt in (f64, f32)}
+    rs48, rs44101 = ro.SpectralResampler(FS, 48000), ro.SpectralResampler(FS, 44101)
+    H32 = torch.as_tensor(rng.standard_normal((32, 2049, C)) + 1j * rng.standard_normal((32, 2049, C)),
+                          device=dev) * 1e-2
+
+    def normal(S, *shape, dtype=f64, scale=0.3):
+        lead = (S,) if S else ()
+        return torch.as_tensor(rng.standard_normal(lead + shape) * scale, dtype=dtype, device=dev)
+
+    log2 = math.log2
+    forms = []
+
+    def form(rec, what, call, plain, make, streamed, count, cost, pairs=(), limit=None,
+             library=None, reps=50, one=True):
+        """A form: call(*args) and plain(*args) on make(S)'s args (S = 0:
+        one stream, no stream axis); `streamed` maps the position of each
+        argument with a stream axis to how stream s is cut from it (None:
+        its index s); count() the form's launches; cost(S) its (bytes,
+        operations, peak); pairs the output leaves that are float32 (hi,
+        lo) states; limit an absolute bound on the float64 outputs; rec
+        None: checked, not timed."""
+        forms.append((rec, what, call, plain, make, streamed, count, cost, pairs, limit, library,
+                      reps, one))
+
+    # K1 and K1-df on the flagship's cascade (n = 12), B = 2048
+    n = plan.n
+    for dt, rec in ((f64, "lti_blocked@S"), (f32, "lti_blocked_f32@S")):
+        w = 8 if dt == f64 else 4
+        form(rec, f"{rec} (flagship cascade, B=2048)",
+             lambda st, x: iir.lti_blocked(plan, st, x),
+             lambda st, x: iir.lti_blocked_ref(plan, st, x) if x.dtype == f64
+             else iir.lti_blocked_f32_ref(plan, st, x),
+             lambda S, dt=dt: (normal(S, 2, C, n, dtype=dt, scale=1e-2), normal(S, 2048, C, dtype=dt)),
+             (0, 1), kernels.lookback_launches,
+             lambda S, w=w: (S * w * (2 * 2048 * C + 4 * C * n) + 8 * (C * 128 + 2 * C * n * 128
+                                                                     + C * n * n + C),
+                             S * (2 * C * 16 * (128 * 127 // 2 + 2 * n * 128 + n * n)
+                                  + 2 * 2048 * C), F64_PEAK),
+             pairs=(0,) if dt == f32 else (), limit=K1_ABS if dt == f64 else None)
+    # crossfeed's step, B = 2048
+    for dt, rec in ((f64, "crossfeed_step@S"), (f32, "crossfeed_step_f32@S")):
+        w = 8 if dt == f64 else 4
+        form(rec, f"{rec} (B=2048)",
+             lambda st, x, dt=dt: iir.crossfeed_step(*cf_args[dt], st, x, 0, 1, *gains),
+             lambda st, x, dt=dt: iir.crossfeed_step_ref(*cf_args[dt], st, x, 0, 1, *gains),
+             lambda S, dt=dt: (normal(S, 4, 2, dtype=dt, scale=1e-2), normal(S, 2048, C, dtype=dt)),
+             (0, 1), lambda dt=dt: (iir.crossfeed_step if dt == f64 else iir.crossfeed_step_f32).launches,
+             lambda S, w=w: (w * (S * (2 * 2048 * C + 16) + 28), 50 * 2048 * S,
+                             F64_PEAK if w == 8 else F32_PEAK))
+    # the run of the flagship's six biquads, B = 1000, (hi, lo) states
+    for dt, rec in ((f64, "biquad_scan_run@S"), (f32, "biquad_scan_run_df@S")):
+        w = 8 if dt == f64 else 4
+        form(rec, f"{rec} (six biquads, B=1000, (hi, lo) states)",
+             lambda sts, x: iir.biquad_scan_run(*run6, sts, x),
+             lambda sts, x: iir.biquad_scan_run_ref(*run6, sts, x),
+             lambda S, dt=dt: ([normal(S, 2, C, 2, dtype=dt, scale=1e-2) for _ in range(6)],
+                               normal(S, 1000, C, dtype=dt)),
+             (0, 1), kernels.biquad_run_launches,
+             lambda S, w=w: (w * S * (2 * 1000 * C + 6 * 8 * C) + 8 * 6 * 7 * C,
+                             10 * 1000 * C * 6 * S, F64_PEAK), pairs=(0, 1, 2, 3, 4, 5))
+    # the lone K2 (the Thiran delay's sections) and K3 / K2 on the (hi, lo)
+    # state (a lone per-sample biquad), the 30 Hz highpass
+    for rec, fn, coef, dt, pair, B in (
+            ("biquad_scan@S", iir.biquad_scan, hp64, f64, False, 2048),
+            ("biquad_scan_f32@S", iir.biquad_scan_f32, hp32, f32, False, 2048),
+            ("biquad_scan_pair@S", iir.biquad_scan_pair, hp64, f64, True, 1000),
+            ("biquad_scan_df@S", iir.biquad_scan_df, hp64, f32, True, 1000)):
+        w = 8 if dt == f64 else 4
+        ref = {"biquad_scan@S": iir.biquad_scan_ref, "biquad_scan_f32@S": iir.biquad_scan_f32_ref,
+               "biquad_scan_pair@S": iir.biquad_scan_pair_ref,
+               "biquad_scan_df@S": iir.biquad_scan_df_ref}[rec]
+        form(rec, f"{rec} (highpass 30, B={B})",
+             lambda st, x, fn=fn, coef=coef: fn(*coef, st, x),
+             lambda st, x, ref=ref, coef=coef: ref(*coef, st, x),
+             lambda S, dt=dt, pair=pair, B=B: (
+                 normal(S, *((2,) if pair else ()), C, 2, dtype=dt, scale=1e-2),
+                 normal(S, B, C, dtype=dt)),
+             (0, 1), lambda fn=fn: fn.launches,
+             lambda S, w=w, B=B, pair=pair: (w * S * (2 * B * C + (8 if pair else 4) * C)
+                                             + 8 * 7 * C, 10 * B * C * S, F64_PEAK),
+             pairs=(0,) if pair and dt == f32 else ())
+    # the FFT convolution's wrappers: N = 4096 (the Upols step at B = 2048),
+    # the FDL of K = 32, the Nupols stage of P = 65536
+    N = 4096
+    for dt, sfx in ((f64, ""), (f32, "_f32")):
+        w = 8 if dt == f64 else 4
+        form(f"rfft_pack{sfx}@S", f"rfft_pack{sfx}@S (N={N}, keep 2048)",
+             lambda a, x: fc.rfft_pack(a, x, N, keep=2048),
+             lambda a, x: (fc.rfft_pack_ref(a, x, N, keep=2048) if x.dtype == f64
+                           else fc.rfft_pack_f32_ref(x, N, a, keep=2048)),
+             lambda S, dt=dt: (normal(S, 2048, C, dtype=dt), normal(S, 2048, C, dtype=dt)),
+             (0, 1), kernels.fft_launches,
+             lambda S, w=w: (S * (w * 3 * 2048 * C + 16 * (N // 2 + 1) * C),
+                             S * C * 2.5 * N * log2(N), F64_PEAK),
+             library=lambda a, x: torch.fft.rfft(torch.cat([a, x], dim=-2), n=N, dim=-2))
+        form(f"fdl_mac{sfx}@S", f"fdl_mac{sfx}@S (K=32, NB=2049)",
+             lambda X, fdl, dt=dt: fc.fdl_mac(X, H32, fdl, dtype=dt),
+             lambda X, fdl, dt=dt: (fc.fdl_mac_ref(X, H32, fdl) if dt == f64
+                                    else fc.fdl_mac_f32_ref(X, H32, fdl)),
+             lambda S, dt=dt: (normal(S, 2049, C, dtype=f64).to(torch.complex128),
+                               normal(S, 32, 2049, C, 2, dtype=dt, scale=1e-2)),
+             (0, 1), lambda sfx=sfx: getattr(fc, f"fdl_mac{sfx}").launches,
+             lambda S, w=w: (S * 2049 * C * (32 + 2 * w * 2 * 31) + 16 * 32 * 2049 * C,
+                             8 * 32 * 2049 * C * S, F64_PEAK))
+        form(f"irfft_crop{sfx}@S", f"irfft_crop{sfx}@S (N={N}, rows [2048, 4096), the addend)",
+             lambda Y, add, dt=dt: fc.irfft_crop(Y, N, 2048, 2048, add, dtype=dt),
+             lambda Y, add, dt=dt: (fc.irfft_crop_ref(Y, N, 2048, 2048, add) if dt == f64
+                                    else fc.irfft_crop_f32_ref(Y, N, 2048, 2048, add)),
+             lambda S, dt=dt: (normal(S, N // 2 + 1, C).to(torch.complex128),
+                               normal(S, 2048, C, dtype=dt)),
+             (0, 1), kernels.fft_launches,
+             lambda S, w=w: (S * (16 * (N // 2 + 1) * C + 2 * w * 2048 * C),
+                             S * C * 2.5 * N * log2(N), F64_PEAK),
+             library=lambda Y, add: torch.fft.irfft(Y, n=N, dim=-2)[..., 2048:, :] + add)
+        form(f"splice{sfx}@S", f"splice{sfx}@S (the Nupols stage, L=65536)",
+             lambda a, x: fc.splice(a, x, 65536, 5 * 2048, 0),
+             lambda a, x: fc.splice_ref(a, x, 65536, 5 * 2048, 0),
+             lambda S, dt=dt: (normal(S, 65536, C, dtype=dt), normal(S, 2048, C, dtype=dt)),
+             (0, 1), lambda sfx=sfx: getattr(fc, f"splice{sfx}").launches,
+             lambda S, w=w: (2 * w * S * 65536 * C, 0, F64_PEAK),
+             library=lambda a, x: torch.cat([a[..., :5 * 2048, :], x, a[..., 6 * 2048:, :]], dim=-2))
+    # the resampler's step: one launch at 44.1 -> 48 kHz (4 inner blocks of
+    # 588 frames); the route of three launches at 44.1 -> 44.101 kHz (one
+    # inner block of 44,100 frames), checked whole, its inverse with the
+    # overlap-add (irfft_ola, the one of its three wrappers that reads the
+    # streams apart) timed alone
+    for rs, label, n_in, lim, reps in ((rs48, "48 kHz, 4 x 588 frames", 4, RESAMPLE_ABS, 50),
+                                       (rs44101, "44.101 kHz, the route of three launches", 1,
+                                        10.0 ** (LIMIT_DBFS / 20.0), 3)):
+        Nf, Ni, T = 2 * rs.in_len, 2 * rs.out_len, len(rs.tab_l)
+        for dt, rec in ((f64, "resample_step@S"), (f32, "resample_step_f32@S")):
+            one_launch = rs is rs48
+            if not one_launch:
+                rec = None
+            w = 8 if dt == f64 else 4
+            form(rec, f"{'resample_step' if dt == f64 else 'resample_step_f32'}@S ({label})",
+                 lambda ov, x, rs=rs: ro.resample_step(rs, ov, x),
+                 lambda ov, x, rs=rs: (ro.resample_step_ref(rs, ov, x) if x.dtype == f64
+                                       else ro.resample_step_f32_ref(rs, ov, x)),
+                 lambda S, dt=dt, rs=rs, n_in=n_in: (normal(S, rs.out_len, C, dtype=dt, scale=1e-2),
+                                                     normal(S, n_in * rs.in_len, C, dtype=dt)),
+                 (0, 1), (kernels.resample_launches if one_launch else
+                          lambda: kernels.fft_launches() + ro.resample_fold.launches),
+                 lambda S, w=w, n_in=n_in, rs=rs, Nf=Nf, Ni=Ni, T=T: (
+                     w * S * C * (n_in * rs.in_len + rs.out_len * (n_in + 2))
+                     + 4 * (rs.out_len + 2) + 24 * T + 20 * (Nf + Ni),
+                     S * n_in * C * (2.5 * (Nf * log2(Nf) + Ni * log2(Ni)) + 8 * T
+                                     + 3 * rs.out_len), F64_PEAK),
+                 limit=lim if dt == f64 else None, reps=reps, one=one_launch)
+    Ni, half = 2 * rs44101.out_len, rs44101.out_len
+    ratio = rs44101.out_len / rs44101.in_len
+    for dt, rec in ((f64, "irfft_ola@S"), (f32, "irfft_ola_f32@S")):
+        w = 8 if dt == f64 else 4
+        ola = ro.irfft_ola if dt == f64 else ro.irfft_ola_f32
+        ola_ref = ro.irfft_ola_ref if dt == f64 else ro.irfft_ola_f32_ref
+        form(rec, f"{rec} (N={Ni}: resample 44101's inverse and overlap-add, an inner block a "
+                  f"stream)",
+             lambda Y, ov, ola=ola: ola(Y, Ni, ov, ratio),
+             lambda Y, ov, ola_ref=ola_ref: ola_ref(Y, Ni, ov, ratio),
+             lambda S, dt=dt: (torch.complex(normal(S, half + 1, C), normal(S, half + 1, C))
+                               .transpose(0, 1).reshape(half + 1, -1) if S else
+                               torch.complex(normal(0, half + 1, C), normal(0, half + 1, C)),
+                               normal(S, half, C, dtype=dt, scale=1e-2)),
+             {0: lambda Y, s: Y[:, s * C:(s + 1) * C].contiguous(), 1: None},
+             kernels.fft_launches,
+             lambda S, w=w: (16 * (half + 1) * C * S + w * half * 3 * C * S + 20 * Ni,
+                             (2.5 * Ni * log2(Ni) + 3 * half) * C * S, F64_PEAK),
+             library=lambda Y, ov: torch.fft.irfft(Y, n=Ni, dim=0), reps=3, one=False,
+             limit=10.0 ** (LIMIT_DBFS / 20.0) if dt == f64 else None)
+
+    for (rec, what, call, plain, make, streamed, count, cost, pairs, limit, library, reps,
+         one) in forms:
+        print(f"{what}: S={FORM_STREAMS} in one call")
+        args = make(FORM_STREAMS)
+        cut = streamed if isinstance(streamed, dict) else {k: None for k in streamed}
+
+        def stream(s, args=args, cut=cut):
+            out = []
+            for k, a in enumerate(args):
+                if k not in cut:
+                    out.append(a)
+                elif cut[k] is not None:
+                    out.append(cut[k](a, s))
+                else:
+                    out.append([t[s] for t in a] if isinstance(a, list) else a[s])
+            return tuple(out)
+
+        torch.cuda.synchronize()
+        c0 = count()
+        call(*stream(0))
+        torch.cuda.synchronize()
+        c1 = count()
+        got = call(*args)
+        torch.cuda.synchronize()
+        want, n_s = c1 - c0, count() - c1
+        _require(f"{what}: {n_s} launches at S={FORM_STREAMS}, {want} at one stream"
+                 + (", expected 1" if one else ""), n_s == want and (want == 1 or not one))
+        for s in range(FORM_STREAMS):
+            mine = _leaves(call(*stream(s)))
+            _require(f"{what}: stream {s} differs from a one-stream call of the kernel",
+                     all(bits_equal(a, b) for a, b in zip(_leaves(_pick(got, s)), mine)))
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        err = 0.0
+        for k, (g, r) in enumerate(zip(_leaves(got), _leaves(ref))):
+            if g.dtype == torch.complex128:
+                g, r = torch.view_as_real(g), torch.view_as_real(r)
+            if g.dtype == f32:
+                if k in pairs:
+                    rel = _pair_rel(g.transpose(0, 1), r.transpose(0, 1))
+                    _require(f"{what}: (hi, lo) state {rel:.2e} relative from the plain version",
+                             rel <= F32_STATE_REL)
+                else:
+                    ulps, e = _ulps(g, r)
+                    _require(f"{what}: {ulps:.2f} float32 ulp of the scale from the plain version",
+                             ulps <= 1.0)
+                    err = max(err, e)
+                continue
+            e = _diff(g, r)
+            err = max(err, e)
+        if any(g.dtype != f32 for g in _leaves(got)):
+            check_close(f"{what}: each stream bit-equal to a one-stream call; plain version", err)
+        else:
+            print(f"  {what}: each stream bit-equal to a one-stream call; float32 within one "
+                  f"ulp of the plain version's scale")
+        if limit is not None:
+            _require(f"{what}: {err:.3e} from the plain version, above {limit:.1e}", err <= limit)
+        if rec is None:
+            continue
+        row = records[rec]
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        # times: one stream ([B, C]) and TIMED_STREAMS
+        times = {}
+        for S in (0, TIMED_STREAMS):
+            a_S = make(S)
+            ms = cuda_ms(lambda: call(*a_S), reps)
+            dev_ms, kern = device_ms(lambda: call(*a_S), min(reps, 20))
+            times[S] = (ms, dev_ms, kern)
+        a8 = make(TIMED_STREAMS)
+        plain_ms = cuda_ms(lambda: plain(*a8), min(reps, 5))
+        lib_ms = None if library is None else cuda_ms(lambda: library(*a8), reps)
+        nbytes, flops, peak = cost(TIMED_STREAMS)
+        set_times(row, times[TIMED_STREAMS][0], plain_ms, nbytes, flops, lib_ms, peak)
+        row["device_ms"] = times[TIMED_STREAMS][1]
+        row["ms_s1"], row["device_ms_s1"] = times[0][0], times[0][1]
+        print(f"  S=1: {times[0][0]:.4f} ms a call, {times[0][1]:.4f} ms device-only "
+              f"({times[0][2]} kernels); S={TIMED_STREAMS}: {times[TIMED_STREAMS][0]:.4f} ms a "
+              f"call, {times[TIMED_STREAMS][1]:.4f} ms device-only ({times[TIMED_STREAMS][2]} "
+              f"kernels); plain {plain_ms:.4f} ms"
+              + ("" if lib_ms is None else f"; library {lib_ms:.4f} ms")
+              + f"; bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+
+
+def _counting_steps():
+    """Patch CompiledChain._step to count the chain's host steps; returns
+    (the counter, a function that restores the step)."""
+    from dsp_tpu_torch.chain import chain as chain_mod
+
+    real = chain_mod.CompiledChain._step
+    steps = [0]
+
+    def counted(self, states, x):
+        steps[0] += 1
+        return real(self, states, x)
+
+    chain_mod.CompiledChain._step = counted
+
+    def restore():
+        chain_mod.CompiledChain._step = real
+    return steps, restore
+
+
+def split_phase(records, tmp, kept, n_in, seconds):
+    """Slice H1 file to file and in batches, on the card. On the main path's
+    input (tmp/in.wav, `seconds` s), for the flagship (float64 and float32),
+    `fir` 64k at -b 2048 and `lowpass 18k 0.7071 resample 96k`: dsp-torch
+    with DSP_TPU_SPLIT=SPLIT_SEGMENTS, timed (× realtime) beside the
+    sequential render (the main path's, kept, and its wall; rendered here
+    for the resampler); in the process, without the codecs, process_array
+    and process_array_split on the same input, timed, with their kernels a
+    host step from the libraries' counts (kernel_total), which must be
+    equal at S = 1 and S = 8 (and in the split render); the look-back in
+    frames and blocks. The float64 split against the sequential render:
+    segment 0 bit-equal, the whole within SPLIT_DBFS; the float32 split
+    against the float64 sequential render within F32_LIMIT_DBFS. Then
+    process_batch on BATCH_STREAMS streams of
+    BATCH_SECONDS s: the flagship and `fir` 64k (float64), each stream
+    within BATCH_ABS of a sequential process_array on the card, and the
+    chains that take the other stream-axis forms (the flagship at -b 1000,
+    a lone per-sample biquad and a Thiran delay, `fir_p` 1M's Nupols
+    stage, the float32 FFT convolution and resampler, `resample 44101`'s
+    route of three launches), float32 within one ulp of the scale. Every
+    stream-axis form's row counts the launches of the split renders and the
+    batches, and must have run."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_args
+    from dsp_tpu_torch.chain.chain import expected_out_frames
+    from dsp_tpu_torch.cli.main import main as cli_main
+    from dsp_tpu_torch.core.types import StreamInfo
+
+    src = tmp / "in.wav"
+    f64k, f1m = tmp / "f64k.wav", tmp / "f1m.wav"
+    wrappers = _stream_wrappers()
+    for rec, w in wrappers.items():
+        records[rec]["launches"] = 0
+
+    def stream_counts_zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def stream_counts_add():
+        for rec, w in wrappers.items():
+            records[rec]["launches"] += w.launches
+
+    def render(label, words, block, dtype, split):
+        """One dsp-torch run of `words` on in.wav: (output frames and
+        samples, wall s, kernels, host steps)."""
+        out = tmp / "split_out.wav"
+        argv = (["-b", str(block)] if block != 2048 else []) + [
+            "-q", str(src), "-o", "-e", "double", str(out), *words]
+        env = {"DSP_TPU_TORCH_DTYPE": dtype}
+        if split:
+            env["DSP_TPU_SPLIT"] = str(SPLIT_SEGMENTS)
+        os.environ.update(env)
+        steps, restore = _counting_steps()
+        err = io.StringIO()
+        try:
+            if split:
+                stream_counts_zero()
+            torch.cuda.synchronize()
+            k0 = kernel_total()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                rc = cli_main(argv)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            kern = kernel_total() - k0
+            if split:
+                stream_counts_add()
+        finally:
+            restore()
+            for k in env:
+                os.environ.pop(k)
+        if rc != 0:
+            raise SmokeError(f"{label}: dsp-torch exited {rc}: {err.getvalue()[-2000:]}")
+        got = read_wav(out)
+        out.unlink()
+        return got, wall, kern, steps[0]
+
+    # (label, words, the main path's kept float64 render and its cli_run
+    # label, or None: rendered here sequentially)
+    runs = (("flagship", FLAGSHIP.split(), (FLAGSHIP, 2048), "flagship -b 2048"),
+            ("fir 64k -b 2048", ["fir", str(f64k)], ("fir 64k", 2048),
+             "fir 64k -b 2048 (Upols, K = 32)"),
+            ("lowpass 18k 0.7071 resample 96k", "lowpass 18k 0.7071 resample 96k".split(), None,
+             None))
+    _, x = read_wav(src)
+    print(f"split renders: {seconds} s of stereo {FS} Hz, DSP_TPU_SPLIT={SPLIT_SEGMENTS}")
+    for label, words, key, main_label in runs:
+        chain = build_chain_from_args(words, StreamInfo(FS, CHANNELS))
+        cc = CompiledChain(chain, 2048, device="cuda")
+        B, lookback = cc.block_frames, cc.split_lookback_frames()
+        b_out = int(B * chain.ratio)
+        out_valid = expected_out_frames(chain, n_in)
+        nb = max(1, -(-(n_in + chain.drain_frames) // B), -(-out_valid // b_out))
+        wb, seg_nb = -(-lookback // B), -(-nb // SPLIT_SEGMENTS)
+        seg0 = seg_nb * b_out - chain.output_discard
+        if key is None:
+            (_, y_seq), w_seq, _, _ = render(label, words, 2048, "float64", False)
+        else:
+            _, y_seq = read_wav(kept[key])
+            w_seq = WALLS[main_label]
+        for dtype in ("float64", "float32") if label == "flagship" else ("float64",):
+            # the two routes in the process, without the codecs: their
+            # kernels a host step by the libraries' counts, and the chain's
+            # share of a render's wall time
+            cc = CompiledChain(chain, 2048, dtype=getattr(torch, dtype), device="cuda")
+            per, walls = [], []
+            for fn in (lambda: cc.process_array(x),
+                       lambda: cc.process_array_split(x, splits=SPLIT_SEGMENTS)):
+                steps, restore = _counting_steps()
+                try:
+                    torch.cuda.synchronize()
+                    k0, t0 = kernel_total(), time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                    per.append((kernel_total() - k0) / steps[0])
+                finally:
+                    restore()
+            _require(f"{label} {dtype}: {per[1]:.3f} kernels a step at S={SPLIT_SEGMENTS}, "
+                     f"{per[0]:.3f} at S=1", per[1] == per[0])
+            (n_sp, y_sp), w_sp, k_sp, st_sp = render(label, words, 2048, dtype, True)
+            _require(f"{label} {dtype}: {n_sp} split frames, {len(y_seq)} sequential",
+                     n_sp == len(y_seq) and len(y_sp) == len(y_seq))
+            _require(f"{label} {dtype}: {st_sp} split steps, expected {wb + seg_nb} (the "
+                     f"split route did not run)", st_sp == wb + seg_nb)
+            _require(f"{label} {dtype}: {k_sp / st_sp:.3f} kernels a step in the split render, "
+                     f"{per[0]:.3f} at S=1", k_sp / st_sp == per[0])
+            print(f"  {label} {dtype}: dsp-torch"
+                  + (f" sequential {w_seq:.3f} s wall, {seconds / w_seq:.1f}x realtime"
+                     + ("" if key is None else " (the main path's render)") + ";"
+                     if dtype == "float64" else "")
+                  + f" split {w_sp:.3f} s wall, {seconds / w_sp:.1f}x realtime, {st_sp} steps "
+                  f"of S={-(-nb // seg_nb)}; in the process (no codec): process_array "
+                  f"{walls[0]:.3f} s ({seconds / walls[0]:.1f}x), process_array_split "
+                  f"{walls[1]:.3f} s ({seconds / walls[1]:.1f}x); kernels a step {per[0]:.3f} at "
+                  f"S=1, {per[1]:.3f} at S={SPLIT_SEGMENTS}; look-back {lookback} frames, {wb} "
+                  f"blocks of {B}; segments of {seg_nb} blocks")
+            if not np.isfinite(y_sp).all():
+                raise SmokeError(f"{label} {dtype}: non-finite split output")
+            if dtype == "float64":
+                _require(f"{label}: segment 0 ({seg0} frames) differs from the sequential "
+                         f"render", np.array_equal(y_sp[:seg0], y_seq[:seg0]))
+                diff = float(np.abs(y_sp - y_seq).max())
+                print(f"  {label}: split against sequential: segment 0 bit-equal, max |diff| "
+                      f"{diff:.3e} ({dbfs(diff):.1f} dBFS, limit {SPLIT_DBFS})")
+                _require(f"{label}: split {dbfs(diff):.1f} dBFS from sequential",
+                         dbfs(diff) <= SPLIT_DBFS)
+            else:
+                diff = float(np.abs(y_sp - y_seq).max())
+                print(f"  {label} float32 split against the float64 sequential render: max "
+                      f"|diff| {diff:.3e} ({dbfs(diff):.1f} dBFS, limit {F32_LIMIT_DBFS})")
+                _require(f"{label}: float32 split {dbfs(diff):.1f} dBFS from float64",
+                         dbfs(diff) <= F32_LIMIT_DBFS)
+        del y_seq, y_sp
+    del x
+
+    rng = np.random.default_rng(20319)
+    batches = (("flagship", FLAGSHIP.split(), 2048, torch.float64),
+               ("fir 64k", ["fir", str(f64k)], 2048, torch.float64),
+               ("flagship -b 1000 (the run)", FLAGSHIP.split(), 1000, torch.float64),
+               ("flagship -b 1000 (the run)", FLAGSHIP.split(), 1000, torch.float32),
+               ("highpass 30 0.7071 delay -f 0.37m -b 1000", "highpass 30 0.7071 delay -f 0.37m".split(),
+                1000, torch.float64),
+               ("highpass 30 0.7071 delay -f 0.37m -b 1000", "highpass 30 0.7071 delay -f 0.37m".split(),
+                1000, torch.float32),
+               ("fir_p 1M (Nupols)", ["fir_p", str(f1m)], 2048, torch.float64),
+               ("fir_p 1M (Nupols)", ["fir_p", str(f1m)], 2048, torch.float32),
+               ("resample 48k", ["resample", "48k"], 2048, torch.float32),
+               ("resample 44101", ["resample", "44101"], 2048, torch.float64),
+               ("resample 44101", ["resample", "44101"], 2048, torch.float32))
+    print(f"process_batch: {BATCH_STREAMS} streams of {BATCH_SECONDS} s")
+    for label, words, block, dt in batches:
+        cc = CompiledChain(build_chain_from_args(words, StreamInfo(FS, CHANNELS)), block, dtype=dt,
+                           device="cuda")
+        secs = 2 if "44101" in label else BATCH_SECONDS
+        xs = rng.standard_normal((BATCH_STREAMS, secs * FS, CHANNELS)) * 0.1
+        stream_counts_zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yb = cc.process_batch(xs)
+        wall = time.perf_counter() - t0
+        stream_counts_add()
+        worst = 0.0
+        for s in range(BATCH_STREAMS):
+            cc.reset()
+            one = cc.process_array(xs[s])
+            if dt == torch.float64:
+                e = float(np.abs(yb[s] - one).max())
+                _require(f"process_batch {label}: stream {s} {e:.3e} from process_array",
+                         e <= BATCH_ABS)
+            else:
+                ulps, e = _ulps(torch.as_tensor(yb[s]), torch.as_tensor(one))
+                _require(f"process_batch {label} float32: stream {s} {ulps:.2f} ulp of the scale "
+                         f"from process_array", ulps <= 1.0)
+            worst = max(worst, e)
+        print(f"  {label} {str(dt)[6:]}: {wall:.3f} s for the batch; each stream against "
+              f"process_array on the card: max |diff| {worst:.3e}")
+    idle = [rec for rec in wrappers if records[rec]["launches"] == 0]
+    _require(f"stream-axis forms never launched in the split renders and batches: {idle}",
+             not idle)
+    print("stream-axis launches in the split renders and batches: "
+          + ", ".join(f"{rec} {records[rec]['launches']}" for rec in wrappers))
 
 
 def nupols_no_sync(f1m):
@@ -4639,7 +5261,59 @@ def main():
              "float32, -i, B=2048, C=2"),
             ("levels_step_f32", "levels", "dsp_tpu/effects/levels.py:62 in float32",
              "float32, B=2048, C=2"),
-        )
+        ) + tuple(
+            # slice H1's stream-axis forms: S streams in one launch, where
+            # dsp_tpu vmaps the chain's step over its stream axis
+            # (dsp_tpu/chain/chain.py:778 process_batch, :880
+            # process_array_split)
+            (rec, src, f"{replaces}, vmapped over streams (dsp_tpu/chain/chain.py:778,880)",
+             f"S={TIMED_STREAMS} streams (ms_s1, device_ms_s1: one stream), {at}")
+            for rec, src, replaces, at in (
+                ("lti_blocked@S", "lti_blocked", "dsp_tpu/ops/iir.py:566",
+                 "flagship cascade, B=2048, C=2"),
+                ("lti_blocked_f32@S", "lti_blocked", "dsp_tpu/ops/iir.py:574-631",
+                 "float32, flagship cascade, B=2048, C=2"),
+                ("crossfeed_step@S", "biquad_scan", "dsp_tpu/effects/crossfeed.py:40-55",
+                 "B=2048, C=2"),
+                ("crossfeed_step_f32@S", "biquad_scan",
+                 "dsp_tpu/effects/crossfeed.py:40-55 in float32", "float32, B=2048, C=2"),
+                ("biquad_scan_run@S", "biquad_scan", "dsp_tpu/effects/biquad.py:329 for a run",
+                 "six biquads, B=1000, C=2, (hi, lo) states"),
+                ("biquad_scan_run_df@S", "biquad_scan", "dsp_tpu/ops/iir.py:89 for a run",
+                 "float32, six biquads, B=1000, C=2, (hi, lo) states"),
+                ("biquad_scan@S", "biquad_scan", "dsp_tpu/ops/iir.py:77 (effects/delay.py:172)",
+                 "highpass 30, B=2048, C=2"),
+                ("biquad_scan_f32@S", "biquad_scan", "dsp_tpu/ops/iir.py:77 in float32",
+                 "float32, highpass 30, B=2048, C=2"),
+                ("biquad_scan_pair@S", "biquad_scan", "dsp_tpu/effects/biquad.py:329",
+                 "highpass 30, B=1000, C=2, (hi, lo) state"),
+                ("biquad_scan_df@S", "biquad_scan", "dsp_tpu/ops/iir.py:89",
+                 "float32, highpass 30, B=1000, C=2, (hi, lo) state"),
+                ("rfft_pack@S", "fft_conv", "dsp_tpu/ops/fft_conv.py:85,137,204",
+                 "N=4096, C=2, 2048 rows kept"),
+                ("rfft_pack_f32@S", "fft_conv", "dsp_tpu/ops/fft_conv.py:97,144,220",
+                 "float32, N=4096, C=2, 2048 rows kept"),
+                ("fdl_mac@S", "fdl_mac", "dsp_tpu/ops/fft_conv.py:85,137,204",
+                 "K=32, NB=2049, C=2"),
+                ("fdl_mac_f32@S", "fdl_mac", "dsp_tpu/ops/fft_conv.py:97,144,220",
+                 "float32 FDL, K=32, NB=2049, C=2"),
+                ("irfft_crop@S", "fft_conv", "dsp_tpu/ops/fft_conv.py:85,137,204",
+                 "N=4096, C=2, with the addend"),
+                ("irfft_crop_f32@S", "fft_conv", "dsp_tpu/ops/fft_conv.py:97,144,220",
+                 "float32, N=4096, C=2, with the addend"),
+                ("splice@S", "fft_conv", "dsp_tpu/ops/fft_conv.py:204 (the stage)",
+                 "L=65536, C=2"),
+                ("splice_f32@S", "fft_conv", "dsp_tpu/ops/fft_conv.py:220 (the stage)",
+                 "float32, L=65536, C=2"),
+                ("resample_step@S", "resample", "dsp_tpu/ops/resample_ops.py:144",
+                 "48 kHz, 4 x 588 frames, C=2"),
+                ("resample_step_f32@S", "resample", "dsp_tpu/ops/resample_ops.py:191",
+                 "float32, 48 kHz, 4 x 588 frames, C=2"),
+                ("irfft_ola@S", "fft_conv", "dsp_tpu/ops/resample_ops.py:144 (its irfft and "
+                 "overlap-add)", "resample 44101: N=88202, C=2, an inner block a stream"),
+                ("irfft_ola_f32@S", "fft_conv", "dsp_tpu/ops/resample_ops.py:191-233",
+                 "float32, resample 44101: N=88202, C=2, an inner block a stream"),
+            ))
     }
     tmp = ROOT / ".smoke_tmp" / "run"  # removed at the end; scratch scripts may sit beside it
     try:
@@ -4665,6 +5339,7 @@ def main():
         timed(time_domain_phase, records)
         timed(float32_time_domain_phase, records)
         timed(resample_phase, records)
+        timed(split_kernel_phase, records)
         timed(matrix4_phase, records)
         timed(matrix4_mb_phase, records)
         timed(lookback_phase)
@@ -4672,6 +5347,7 @@ def main():
         timed(mb_golden_check)
         tmp.mkdir(parents=True, exist_ok=True)
         f1m, f4k, kept = timed(main_path, records, SECONDS, tmp)
+        timed(split_phase, records, tmp, kept, SECONDS * FS, SECONDS)
         timed(float32_phase, records, tmp, kept)
         engine_tick_line(records)
         timed(float32_time_domain_cli, records, tmp)

@@ -7,6 +7,11 @@ tensors on one device. Offline processing loops that step over many blocks
 that stay on the device, with one host->device and one device->host copy
 per run of blocks. The passes are copied unchanged from dsp_tpu, so both
 packages build the same chain from the same string.
+
+Split and batched processing (``process_array_split``, ``process_batch``)
+run S streams through the same step, a block of each at once: x [S, B, C]
+and every state leaf with a leading S, so each kernel of the step runs
+the S streams in the launch of one.
 """
 
 from dataclasses import dataclass, field
@@ -696,6 +701,130 @@ class CompiledChain:
     def host_finish(self):
         for e, st in zip(self._runtime_effects, self.states):
             e.host_finish(st)
+
+    def split_safe(self):
+        """True when every effect tolerates zero-state lookback priming
+        (Effect.split_safe): the effects that take the stream axis, which
+        process_array_split and process_batch require."""
+        return all(getattr(e, "split_safe", True) for e in self.chain.effects)
+
+    def split_lookback_frames(self):
+        """Chain-input frames of lookback that re-establish steady state.
+
+        Sums each effect's own-rate lookback (Effect.split_lookback)
+        converted to chain-input frames: transients of a cascade convolve,
+        so the sum bounds the cascade's settle time."""
+        fs0 = self.chain.istream.fs
+        total = 0.0
+        for e in self.chain.effects:
+            total += e.split_lookback() * fs0 / e.istream.fs
+        return int(np.ceil(total))
+
+    def _unsafe_names(self):
+        return [e.name for e in self.chain.effects if not getattr(e, "split_safe", True)]
+
+    def _stream_states(self, states, S):
+        """states with a leading stream axis of S: each leaf copied for every
+        stream. A 0-dim leaf keeps one value for all streams: it is a
+        host-side counter (NupolsConv's ``cnt``, the block index within a
+        super-block), and every stream of a split or a batch sits at the
+        same block index."""
+        if isinstance(states, (tuple, list)):
+            return type(states)(self._stream_states(t, S) for t in states)
+        if isinstance(states, dict):
+            return {k: self._stream_states(v, S) for k, v in states.items()}
+        if states.dim() == 0:
+            return states
+        return states.unsqueeze(0).expand(S, *states.shape).contiguous()
+
+    def _run_streams(self, states, xs):
+        """xs [S, n·B, C] host float64 (one host->device copy) -> the output
+        [S, n·out_frames, out_ch] on the device, stepping the S streams a
+        block at a time from `states` (stream-axis states, not kept). The
+        blocks are laid out block-major, and the outputs back stream-major,
+        by one device copy each, not on the host."""
+        S, B = xs.shape[0], self.block_frames
+        xs = self._input(xs).view(S, -1, B, xs.shape[-1]).transpose(0, 1).contiguous()
+        ys = []
+        for i in range(xs.shape[0]):
+            states, y = self._step(states, xs[i])
+            ys.append(y)
+        y = torch.stack(ys, dim=1)  # [S, n, out_frames, out_ch]
+        return y.view(S, -1, y.shape[-1])
+
+    def process_batch(self, xs, drain=True, discard=True):
+        """Process S independent streams at once: xs [S, frames, in_ch] ->
+        [S, out_frames, out_ch] numpy.
+
+        Each stream starts from the live state (broadcast over the stream
+        axis; the live state is neither consumed nor advanced), so stream s
+        is process_array(xs[s]) on this chain as it stands. Every block of
+        the S streams is one step, each kernel one launch for the S. Raises
+        ChainError when the chain holds an effect without a stream axis
+        (the split-unsafe effects: matrix4, matrix4_mb, the meters, the
+        PRNG-driven effects)."""
+        bad = self._unsafe_names()
+        if bad:
+            raise ChainError(f"process_batch is not yet ported for effects without a stream "
+                             f"axis: {', '.join(bad)}")
+        xs = np.asarray(xs, dtype=np.float64)
+        S, n_in, c_in = xs.shape
+        pad = self.chain.drain_frames if drain else 0
+        total = n_in + pad
+        B = self.block_frames
+        out_valid = expected_out_frames(self.chain, n_in, drain)
+        b_out = int(B * self.chain.ratio)
+        n_blocks = max(1, -(-total // B), -(-out_valid // b_out))
+        flat = np.zeros((S, n_blocks * B, c_in), dtype=np.float64)
+        flat[:, :n_in] = xs
+        y = self._run_streams(self._stream_states(self.states, S), flat)
+        y = y[:, self.chain.output_discard if discard else 0 : out_valid]
+        return y.to("cpu", torch.float64).numpy()
+
+    def process_array_split(self, x, splits=8, lookback=None, drain=True, discard=True):
+        """Process ONE long [frames, in_ch] array as `splits` lookback-primed
+        segments over the stream axis: one host step serves S segments, and
+        each kernel of it runs the S in one launch. The reference's offline
+        path is strictly sequential (dsp.c); this is dsp_tpu's route
+        (dsp_tpu/chain/chain.py process_array_split), with the same segment
+        layout.
+
+        Segment 0 runs from the true zero state and is exact. Each later
+        segment starts from zero state primed with `lookback` frames of the
+        preceding input (default: split_lookback_frames()), and its primed
+        output is discarded; the residual error is the chain's impulse-
+        response tail past the lookback. Raises ChainError when the chain
+        holds split-unsafe effects. Uses fresh states: the live stream state
+        is neither read nor advanced. One host->device copy of the S
+        segments of wb + seg_nb blocks and one copy back."""
+        if not self.split_safe():
+            raise ChainError(f"chain is not split-safe (effects: {', '.join(self._unsafe_names())})")
+        x = np.asarray(x, dtype=np.float64)
+        n_in = len(x)
+        pad = self.chain.drain_frames if drain else 0
+        total = n_in + pad
+        B = self.block_frames
+        out_valid = expected_out_frames(self.chain, n_in, drain)
+        b_out = int(B * self.chain.ratio)
+        nb = max(1, -(-total // B), -(-out_valid // b_out))
+        if lookback is None:
+            lookback = self.split_lookback_frames()
+        wb = -(-int(lookback) // B)
+        seg_nb = max(1, -(-nb // int(splits)))
+        S = -(-nb // seg_nb)
+        # segment k: the wb look-back blocks before it (zeros before the
+        # input's start) and its seg_nb blocks (zeros past the input's end)
+        segs = np.zeros((S, (wb + seg_nb) * B, x.shape[1]), dtype=np.float64)
+        for k in range(S):
+            s0 = k * seg_nb * B
+            w0 = max(0, s0 - wb * B)
+            seg = x[w0 : min(n_in, s0 + seg_nb * B)]
+            off = wb * B - (s0 - w0)
+            segs[k, off : off + len(seg)] = seg
+        states = self._stream_states([self._initial_state(e) for e in self._runtime_effects], S)
+        y = self._run_streams(states, segs)[:, wb * b_out :]  # [S, seg_nb·b_out, ch]
+        y = y.reshape(-1, y.shape[-1])[self.chain.output_discard if discard else 0 : out_valid]
+        return y.to("cpu", torch.float64).numpy()
 
     def process_array(self, x, drain=True, discard=True):
         """Process a whole [frames, in_ch] array; returns [out, out_ch] numpy.

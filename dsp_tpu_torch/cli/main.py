@@ -397,6 +397,43 @@ def _input_chunks(state, want_frames):
                 break
 
 
+def run_offline_split(state, chain, out_writer, device=None, dtype=None):
+    """Split offline path (``DSP_TPU_SPLIT=<segments>``), dsp_tpu's
+    (dsp_tpu/cli/main.py run_offline_split): read the whole input, cut it
+    into lookback-primed segments, and run them over the stream axis
+    (CompiledChain.process_array_split), so one host step serves every
+    segment and each kernel runs them all in one launch. Opt-in through the
+    environment: it holds the whole stream in host memory and trades the
+    segment-boundary accuracy contract (tests/test_torch_split.py) for
+    throughput.
+
+    Returns frames written, or None to fall back to the streaming loop;
+    the fallback is decided before any input is read."""
+    try:
+        splits = int(os.environ.get("DSP_TPU_SPLIT", "0"))
+    except ValueError:
+        log.warn("warning: DSP_TPU_SPLIT is not an integer; ignoring")
+        return None
+    if splits < 2:
+        return None
+    cc = CompiledChain(chain, block_frames=state.block_frames, dtype=dtype, device=device)
+    if not cc.split_safe():
+        log.verbose("DSP_TPU_SPLIT: chain is not split-safe; streaming instead")
+        return None
+    bufs = list(_input_chunks(state, 1 << 20))
+    x = np.concatenate(bufs, axis=0) if bufs else np.zeros((0, chain.istream.channels))
+    drain = bool(state.drain_effects)
+    # each segment must dwarf its lookback re-compute or splitting loses
+    if len(x) < splits * 4 * cc.split_lookback_frames():
+        log.verbose("DSP_TPU_SPLIT: input too short to amortize lookback; running sequentially")
+        y = cc.process_array(x, drain=drain, discard=True)
+    else:
+        y = cc.process_array_split(x, splits=splits, drain=drain, discard=True)
+    out_writer.write(y)
+    cc.host_finish()
+    return len(y)
+
+
 def run_offline(state, chain, out_writer, progress_cb=None, device=None, dtype=None):
     """Concatenate-mode batch processing: read -> chain -> write.
 
@@ -532,8 +569,6 @@ def main(argv=None):
         not_ported = f"{state.input_mode} mode"
     elif state.interactive:
         not_ported = "interactive mode (-i)"
-    elif os.environ.get("DSP_TPU_SPLIT"):
-        not_ported = "split processing (DSP_TPU_SPLIT)"
     if not_ported:
         log.error("error: %s is not yet ported to dsp_tpu_torch", not_ported)
         return 1
@@ -585,7 +620,11 @@ def main(argv=None):
     ret = 0
     try:
         cb = _offline_progress(state)
-        run_offline(state, chain, writer, progress_cb=cb, device=device, dtype=dtype)
+        done = None
+        if os.environ.get("DSP_TPU_SPLIT"):
+            done = run_offline_split(state, chain, writer, device=device, dtype=dtype)
+        if done is None:
+            run_offline(state, chain, writer, progress_cb=cb, device=device, dtype=dtype)
         if cb is not None:
             sys.stderr.write("\r\033[K")
             sys.stderr.flush()

@@ -78,6 +78,14 @@
 //   part's offset), so no caller stacks, splits or transposes them.
 // What bounds them is what bounds K2: the launch and the chain of a
 // segment, not bytes; a run pays one launch for n.
+//
+// The stream axis (split and batched processing): K2, K3, crossfeed's step
+// and the run take x and y as [S, B, C] and each state with a leading S, S
+// independent streams in one launch: S times the blocks (block s·C + c runs
+// channel c of stream s; crossfeed's block 2s + b output column b of
+// stream s), each stream's coefficients those of its channel, so a stream
+// runs the segments, scan and rounding of a one-stream call: the same
+// bits.
 
 #include <cuda_runtime.h>
 
@@ -281,14 +289,20 @@ __device__ __forceinline__ void scan_stage(const Coef<R> (&k)[NL], R (&s)[NL][2]
     }
 }
 
-// K2 and K3: one block a lane c of C, x and y [B, C]
+// K2 and K3: one block a lane c of C of stream s (block s·C + c), x and y
+// [S, B, C], the state [S, C, 2] or, kPair, [S, 2, C, 2]
 template <typename T, typename R, bool kPair>
 __global__ void biquad_scan_kernel(const R* __restrict__ A, const R* __restrict__ Bv,
                                    const R* __restrict__ c0, const T* __restrict__ state_in,
                                    T* __restrict__ state_out, const T* __restrict__ x,
                                    T* __restrict__ y, int B, int C) {
     __shared__ Affine<R> prefix[1][32];
-    const int c = blockIdx.x;
+    const int s_ = blockIdx.x / C, c = blockIdx.x - s_ * C;
+    const size_t xs0 = (size_t)s_ * B * C, st0 = (size_t)s_ * (kPair ? 4 : 2) * C;
+    x += xs0;
+    y += xs0;
+    state_in += st0;
+    state_out += st0;
     const Coef<R> k[1] = {coef(A, Bv, c0, c)};
     R s[1][2] = {{load_state<T, R, kPair>(state_in + c * 2, 2 * C, 0),
                   load_state<T, R, kPair>(state_in + c * 2, 2 * C, 1)}};
@@ -313,7 +327,8 @@ __device__ __forceinline__ float mix(float s, float ylp, float yhp, float gd, fl
 // crossfeed's whole step: block b writes output column cb (b = 0: c0,
 // 1: c1) from lanes b (the lowpass of the other column) and 2 + b (the
 // highpass of its own), both run by every thread over its segment; the
-// blocks copy the pass-through columns between them.
+// blocks copy the pass-through columns between them. Stream s (x and out
+// [S, B, C], the state [S, 4, 2]) takes blocks 2s and 2s + 1.
 template <typename R>
 __global__ void __launch_bounds__(1024) crossfeed_kernel(const R* __restrict__ A, const R* __restrict__ Bv,
                                  const R* __restrict__ c0, const R* __restrict__ state_in,
@@ -321,7 +336,14 @@ __global__ void __launch_bounds__(1024) crossfeed_kernel(const R* __restrict__ A
                                  R* __restrict__ out, int B, int C, int col0, int col1, R gd,
                                  R gc) {
     __shared__ Affine<R> prefix[2][32];
-    const int b = blockIdx.x;
+    const int b = blockIdx.x & 1;
+    {   // this stream's columns and lanes
+        const size_t xs0 = (size_t)(blockIdx.x >> 1) * B * C, st0 = (size_t)(blockIdx.x >> 1) * 8;
+        x += xs0;
+        out += xs0;
+        state_in += st0;
+        state_out += st0;
+    }
     const int own = b == 0 ? col0 : col1, other = b == 0 ? col1 : col0;
     const int lanes[2] = {b, 2 + b};
     const Coef<R> k[2] = {coef(A, Bv, c0, lanes[0]), coef(A, Bv, c0, lanes[1])};
@@ -360,19 +382,23 @@ __global__ void __launch_bounds__(1024) crossfeed_kernel(const R* __restrict__ A
 // sit `lane` elements further on and, in the (hi, lo) forms, each lo `lo`
 // elements after its hi (a biquad's own [2, C, 2]: lane 2, lo 2C;
 // matrix4_mb's fshape_m [4, 2]: stage s at 4s, lane 2; its inv_fshape_m
-// [n_sig, 2, 2]: stage s at 2s, lane 4). Passed to the kernel by value.
+// [n_sig, 2, 2]: stage s at 2s, lane 4); with a stream axis, each stream's
+// states `stream` elements after the one before's (a biquad's [S, 2, C, 2]:
+// 4C). Passed to the kernel by value.
 constexpr int kMaxStages = 16;
 struct RunStates {
     const void* in[kMaxStages];
     void* out[kMaxStages];
     int lane;
     int lo;
+    long long stream;
 };
 
 namespace {
 
-// n stages in series over C lanes, one block a lane: coefficient row
-// s * C + c is stage s's on lane c. kStaged: the lane's B samples sit in
+// n stages in series over C lanes of S streams, one block a lane (block
+// s·C + c: channel c of stream s, x and y [S, B, C]): coefficient row
+// stage * C + c is the stage's on channel c. kStaged: the lane's B samples sit in
 // shared memory for the whole run (sample j of thread i's segment at
 // col[j * threads + i], so a warp's reads and writes hit consecutive
 // words), staged in from x once and out to y once; each stage reads its
@@ -386,7 +412,10 @@ __global__ void __launch_bounds__(1024) run_kernel(const R* __restrict__ A, cons
     __shared__ Affine<R> prefix[1][32];
     extern __shared__ __align__(16) unsigned char run_smem[];
     T* col = reinterpret_cast<T*>(run_smem);
-    const int c = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+    const int s_ = blockIdx.x / C, c = blockIdx.x - s_ * C, tid = threadIdx.x, nt = blockDim.x;
+    const size_t lane0 = (size_t)c * st.lane + (size_t)s_ * st.stream;  // this lane's state
+    x += (size_t)s_ * B * C;
+    y += (size_t)s_ * B * C;
     const int seg = (B + nt - 1) / nt, t0 = min(B, tid * seg);  // as segment() cuts
     if (kStaged) {
         for (int t = tid; t < B; t += nt) col[(t % seg) * nt + t / seg] = x[(size_t)t * C + c];
@@ -394,7 +423,7 @@ __global__ void __launch_bounds__(1024) run_kernel(const R* __restrict__ A, cons
     }
     for (int stage = 0; stage < n; ++stage) {
         const T* in = stage == 0 ? x : y;
-        const T* s_in = static_cast<const T*>(st.in[stage]) + (size_t)c * st.lane;
+        const T* s_in = static_cast<const T*>(st.in[stage]) + lane0;
         const Coef<R> k[1] = {coef(A, Bv, c0, stage * C + c)};
         R s[1][2] = {{load_state<T, R, kPair>(s_in, st.lo, 0),
                       load_state<T, R, kPair>(s_in, st.lo, 1)}};
@@ -408,7 +437,7 @@ __global__ void __launch_bounds__(1024) run_kernel(const R* __restrict__ A, cons
                 [&](int t, const R (&yt)[1]) { y[(size_t)t * C + c] = (T)yt[0]; }, prefix);
         }
         if (tid == nt - 1) {
-            T* s_out = static_cast<T*>(st.out[stage]) + (size_t)c * st.lane;
+            T* s_out = static_cast<T*>(st.out[stage]) + lane0;
             store_state<T, R, kPair>(s_out, st.lo, 0, s[0][0]);
             store_state<T, R, kPair>(s_out, st.lo, 1, s[0][1]);
         }
@@ -429,20 +458,24 @@ int threads_for(int B) {
 
 template <typename T, typename R, bool kPair>
 int biquad_scan(const R* A, const R* Bv, const R* c0, const T* state_in, T* state_out,
-                const T* x, T* y, int B, int C, void* stream) {
-    if (B <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-    biquad_scan_kernel<T, R, kPair><<<C, threads_for(B), 0, static_cast<cudaStream_t>(stream)>>>(
+                const T* x, T* y, int B, int C, int S, void* stream) {
+    if (B <= 0 || C <= 0 || S <= 0 || (long long)S * C > 0x7fffffffLL) {
+        return (int)cudaErrorInvalidValue;
+    }
+    biquad_scan_kernel<T, R, kPair><<<S * C, threads_for(B), 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
         A, Bv, c0, state_in, state_out, x, y, B, C);
     return (int)cudaGetLastError();
 }
 
 template <typename R>
 int crossfeed(const R* A, const R* Bv, const R* c0, const R* state_in, R* state_out, const R* x,
-              R* out, int B, int C, int col0, int col1, R gd, R gc, void* stream) {
-    if (B <= 0 || C < 2 || col0 < 0 || col1 < 0 || col0 >= C || col1 >= C || col0 == col1) {
+              R* out, int B, int C, int S, int col0, int col1, R gd, R gc, void* stream) {
+    if (B <= 0 || C < 2 || S <= 0 || S > (1 << 30) || col0 < 0 || col1 < 0 || col0 >= C ||
+        col1 >= C || col0 == col1) {
         return (int)cudaErrorInvalidValue;
     }
-    crossfeed_kernel<R><<<2, threads_for(B), 0, static_cast<cudaStream_t>(stream)>>>(
+    crossfeed_kernel<R><<<2 * S, threads_for(B), 0, static_cast<cudaStream_t>(stream)>>>(
         A, Bv, c0, state_in, state_out, x, out, B, C, col0, col1, gd, gc);
     return (int)cudaGetLastError();
 }
@@ -458,8 +491,10 @@ constexpr int kRunSmem = 200 * 1024;
 
 template <typename T, bool kPair>
 int biquad_run(const double* A, const double* Bv, const double* c0, const RunStates& st,
-               const void* x, void* y, int B, int C, int n, void* stream) {
-    if (B <= 0 || C <= 0 || n < 1 || n > kMaxStages) return (int)cudaErrorInvalidValue;
+               const void* x, void* y, int B, int C, int n, int S, void* stream) {
+    if (B <= 0 || C <= 0 || S <= 0 || (long long)S * C > 0x7fffffffLL || n < 1 ||
+        n > kMaxStages)
+        return (int)cudaErrorInvalidValue;
     for (int s = 0; s < n; ++s) {
         if (st.in[s] == nullptr || st.out[s] == nullptr) return (int)cudaErrorInvalidValue;
     }
@@ -477,11 +512,11 @@ int biquad_run(const double* A, const double* Bv, const double* c0, const RunSta
             if (e != cudaSuccess) return (int)e;
             allowed = true;
         }
-        run_kernel<T, double, kPair, true><<<C, threads, smem, strm>>>(A, Bv, c0, st, xt, yt, B, C,
-                                                                       n);
+        run_kernel<T, double, kPair, true><<<S * C, threads, smem, strm>>>(A, Bv, c0, st, xt, yt,
+                                                                           B, C, n);
     } else {
-        run_kernel<T, double, kPair, false><<<C, threads, 0, strm>>>(A, Bv, c0, st, xt, yt, B, C,
-                                                                      n);
+        run_kernel<T, double, kPair, false><<<S * C, threads, 0, strm>>>(A, Bv, c0, st, xt, yt, B,
+                                                                          C, n);
     }
     const cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess) ++run_launches;
@@ -494,40 +529,45 @@ int biquad_run(const double* A, const double* Bv, const double* c0, const RunSta
 // checks shapes, dtypes and contiguity.
 extern "C" int dsp_biquad_scan_f64(const double* A, const double* Bv, const double* c0,
                                    const double* state_in, double* state_out, const double* x,
-                                   double* y, int B, int C, void* stream) {
-    return biquad_scan<double, double, false>(A, Bv, c0, state_in, state_out, x, y, B, C,
+                                   double* y, int B, int C, int S, void* stream) {
+    return biquad_scan<double, double, false>(A, Bv, c0, state_in, state_out, x, y, B, C, S,
                                               stream);
 }
 
 // K2 in float32: everything float32, state [C, 2].
 extern "C" int dsp_biquad_scan_f32(const float* A, const float* Bv, const float* c0,
                                    const float* state_in, float* state_out, const float* x,
-                                   float* y, int B, int C, void* stream) {
-    return biquad_scan<float, float, false>(A, Bv, c0, state_in, state_out, x, y, B, C, stream);
+                                   float* y, int B, int C, int S, void* stream) {
+    return biquad_scan<float, float, false>(A, Bv, c0, state_in, state_out, x, y, B, C, S,
+                                            stream);
 }
 
 // K3: float64 coefficients and registers, float32 samples, a float32
 // (hi, lo) state [2, C, 2].
 extern "C" int dsp_biquad_scan_df(const double* A, const double* Bv, const double* c0,
                                   const float* state_in, float* state_out, const float* x,
-                                  float* y, int B, int C, void* stream) {
-    return biquad_scan<float, double, true>(A, Bv, c0, state_in, state_out, x, y, B, C, stream);
+                                  float* y, int B, int C, int S, void* stream) {
+    return biquad_scan<float, double, true>(A, Bv, c0, state_in, state_out, x, y, B, C, S,
+                                            stream);
 }
 
 // K3 with a single float32 state [C, 2]: float64 coefficients and
 // registers, float32 samples, the end state rounded once.
 extern "C" int dsp_biquad_scan_df1(const double* A, const double* Bv, const double* c0,
                                    const float* state_in, float* state_out, const float* x,
-                                   float* y, int B, int C, void* stream) {
-    return biquad_scan<float, double, false>(A, Bv, c0, state_in, state_out, x, y, B, C, stream);
+                                   float* y, int B, int C, int S, void* stream) {
+    return biquad_scan<float, double, false>(A, Bv, c0, state_in, state_out, x, y, B, C, S,
+                                             stream);
 }
 
 // K2 with a float64 (hi, lo) state [2, C, 2]: the state read as hi + lo,
 // the end state written as (s, 0) (BiquadEffect's per-sample path).
 extern "C" int dsp_biquad_scan_f64_pair(const double* A, const double* Bv, const double* c0,
                                         const double* state_in, double* state_out,
-                                        const double* x, double* y, int B, int C, void* stream) {
-    return biquad_scan<double, double, true>(A, Bv, c0, state_in, state_out, x, y, B, C, stream);
+                                        const double* x, double* y, int B, int C, int S,
+                                        void* stream) {
+    return biquad_scan<double, double, true>(A, Bv, c0, state_in, state_out, x, y, B, C, S,
+                                             stream);
 }
 
 // crossfeed's step: x and out [B, C], the four lanes' A [4, 2, 2], Bv
@@ -535,9 +575,9 @@ extern "C" int dsp_biquad_scan_f64_pair(const double* A, const double* Bv, const
 // the gains of the mix; every column of out is written.
 extern "C" int dsp_crossfeed_step_f64(const double* A, const double* Bv, const double* c0,
                                       const double* state_in, double* state_out, const double* x,
-                                      double* out, int B, int C, int col0, int col1, double direct,
-                                      double cross, void* stream) {
-    return crossfeed<double>(A, Bv, c0, state_in, state_out, x, out, B, C, col0, col1, direct,
+                                      double* out, int B, int C, int S, int col0, int col1,
+                                      double direct, double cross, void* stream) {
+    return crossfeed<double>(A, Bv, c0, state_in, state_out, x, out, B, C, S, col0, col1, direct,
                              cross, stream);
 }
 
@@ -545,9 +585,9 @@ extern "C" int dsp_crossfeed_step_f64(const double* A, const double* Bv, const d
 // takes them (rounded to float32).
 extern "C" int dsp_crossfeed_step_f32(const float* A, const float* Bv, const float* c0,
                                       const float* state_in, float* state_out, const float* x,
-                                      float* out, int B, int C, int col0, int col1, float direct,
-                                      float cross, void* stream) {
-    return crossfeed<float>(A, Bv, c0, state_in, state_out, x, out, B, C, col0, col1, direct,
+                                      float* out, int B, int C, int S, int col0, int col1,
+                                      float direct, float cross, void* stream) {
+    return crossfeed<float>(A, Bv, c0, state_in, state_out, x, out, B, C, S, col0, col1, direct,
                             cross, stream);
 }
 
@@ -565,25 +605,26 @@ extern "C" int dsp_biquad_scan_series_f64(const double* A, const double* Bv, con
         st.out[s] = state_out + (size_t)s * 2 * C;
     }
     st.lane = 2;
-    return biquad_run<double, false>(A, Bv, c0, st, x, y, B, C, 2, stream);
+    return biquad_run<double, false>(A, Bv, c0, st, x, y, B, C, 2, 1, stream);
 }
 
 // A run of n stages in series on x [B, C] in one launch: A [n, C, 2, 2],
 // Bv [n, C, 2] and c0 [n, C] float64 (row s * C + c stage s's lane c), the
-// states where *st says; y [B, C] the last stage's output. f32: float32 x,
-// y and states (K3), else float64 (K2); pair: the (hi, lo) states, else
-// single ones. Returns cudaGetLastError() after the launch (0 on
-// success); the caller checks shapes, dtypes, layouts and contiguity.
+// states where *st says; y [B, C] the last stage's output; S streams: x and
+// y [S, B, C]. f32: float32 x, y and states (K3), else float64 (K2); pair:
+// the (hi, lo) states, else single ones. Returns cudaGetLastError() after
+// the launch (0 on success); the caller checks shapes, dtypes, layouts and
+// contiguity.
 extern "C" int dsp_biquad_scan_run(const double* A, const double* Bv, const double* c0,
                                    const RunStates* st, const void* x, void* y, int B, int C,
-                                   int n, int f32, int pair, void* stream) {
+                                   int n, int S, int f32, int pair, void* stream) {
     if (st == nullptr) return (int)cudaErrorInvalidValue;
     if (f32) {
-        return pair ? biquad_run<float, true>(A, Bv, c0, *st, x, y, B, C, n, stream)
-                    : biquad_run<float, false>(A, Bv, c0, *st, x, y, B, C, n, stream);
+        return pair ? biquad_run<float, true>(A, Bv, c0, *st, x, y, B, C, n, S, stream)
+                    : biquad_run<float, false>(A, Bv, c0, *st, x, y, B, C, n, S, stream);
     }
-    return pair ? biquad_run<double, true>(A, Bv, c0, *st, x, y, B, C, n, stream)
-                : biquad_run<double, false>(A, Bv, c0, *st, x, y, B, C, n, stream);
+    return pair ? biquad_run<double, true>(A, Bv, c0, *st, x, y, B, C, n, S, stream)
+                : biquad_run<double, false>(A, Bv, c0, *st, x, y, B, C, n, S, stream);
 }
 
 extern "C" unsigned long long dsp_biquad_run_launches() { return run_launches; }

@@ -40,6 +40,12 @@
 //   register), then its first warp runs the 32 sums from shared memory.
 // K = 15, 16 and 32 (the main path's) are compiled with K known, their
 // loops unrolled whole; another K takes fdl_mac_kernel's generic form.
+//
+// The stream axis (split and batched processing): X and Y [S, NB, C], the
+// FDL [S, K, NB, C], against the one H [K, NB, C] of the filter. A pair i
+// of the S·NB·C is pair r = i mod m (m = NB·C) of stream (i - r) / m: H's
+// slot k at k·m + r, the FDL's at (i - r)·K + k·m + r. The S streams run in
+// the one launch, each pair's sum in the order of a one-stream call.
 
 #include <cuda_runtime.h>
 
@@ -66,6 +72,15 @@ __device__ __forceinline__ void mac(double& re, double& im, double2 d, double2 h
 
 constexpr int kGroup = 8;
 
+// pair i's place in its stream's slots: r (H's slot k at k·m + r) and the
+// stream's first FDL element fb (its slot k at fb + k·m + r); one stream
+// (m = n) needs no division
+__device__ __forceinline__ void stream_of(long long i, long long n, long long m, int K,
+                                          long long& r, long long& fb) {
+    r = m == n ? i : i % m;
+    fb = (i - r) * K;
+}
+
 // the product of slot 0, X H[0], as every sum starts
 __device__ __forceinline__ double2 product(double2 x, double2 h0) {
     double re = __dmul_rn(x.x, h0.x);
@@ -77,10 +92,13 @@ __device__ __forceinline__ double2 product(double2 x, double2 h0) {
 
 template <class F>
 __global__ void fdl_mac_product(const double2* __restrict__ X, const double2* __restrict__ H,
-                                double2* __restrict__ Y, F* __restrict__ fdl_out, long long n) {
+                                double2* __restrict__ Y, F* __restrict__ fdl_out, long long n,
+                                long long m) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const double2 x = X[i], h0 = H[i];
+    long long r, fb;
+    stream_of(i, n, m, 1, r, fb);
+    const double2 x = X[i], h0 = H[r];
     if (fdl_out != nullptr) fdl_store(fdl_out[i], x);
     Y[i] = product(x, h0);
 }
@@ -89,14 +107,19 @@ __global__ void fdl_mac_product(const double2* __restrict__ X, const double2* __
 template <class F, int KT>
 __global__ void fdl_mac_kernel(const double2* __restrict__ X, const double2* __restrict__ H,
                                const F* __restrict__ fdl_in, double2* __restrict__ Y,
-                               F* __restrict__ fdl_out, long long n, int K_rt) {
+                               F* __restrict__ fdl_out, long long n, long long m, int K_rt) {
     const int K = KT > 0 ? KT : K_rt;
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+        long long r, fb;
+        stream_of(i, n, m, K, r, fb);
+        const F* fin = fdl_in + fb + r;
+        F* fout = fdl_out + fb + r;
+        const double2* Hr = H + r;
         const double2 x = X[i];
-        const double2 y0 = product(x, H[i]);
+        const double2 y0 = product(x, Hr[0]);
         double re = y0.x, im = y0.y;
-        fdl_store(fdl_out[i], x);
+        fdl_store(fout[0], x);
         int k = 1;
 #pragma unroll
         for (; k + kGroup <= K; k += kGroup) {
@@ -104,20 +127,20 @@ __global__ void fdl_mac_kernel(const double2* __restrict__ X, const double2* __r
             double2 h[kGroup];
 #pragma unroll
             for (int j = 0; j < kGroup; ++j) {
-                raw[j] = fdl_in[(long long)(k + j - 1) * n + i];
-                h[j] = H[(long long)(k + j) * n + i];
+                raw[j] = fin[(long long)(k + j - 1) * m];
+                h[j] = Hr[(long long)(k + j) * m];
             }
 #pragma unroll
             for (int j = 0; j < kGroup; ++j) {
-                fdl_out[(long long)(k + j) * n + i] = raw[j];
+                fout[(long long)(k + j) * m] = raw[j];
                 mac(re, im, fdl_load(raw[j]), h[j]);
             }
         }
 #pragma unroll
         for (; k < K; ++k) {
-            const F raw = fdl_in[(long long)(k - 1) * n + i];
-            const double2 h = H[(long long)k * n + i];
-            fdl_out[(long long)k * n + i] = raw;
+            const F raw = fin[(long long)(k - 1) * m];
+            const double2 h = Hr[(long long)k * m];
+            fout[(long long)k * m] = raw;
             mac(re, im, fdl_load(raw), h);
         }
         Y[i] = make_double2(re, im);
@@ -131,7 +154,7 @@ template <class F, int KT>
 __global__ void __launch_bounds__(kStageThreads)
     fdl_mac_staged(const double2* __restrict__ X, const double2* __restrict__ H,
                    const F* __restrict__ fdl_in, double2* __restrict__ Y, F* __restrict__ fdl_out,
-                   long long n) {
+                   long long n, long long m) {
     constexpr int kRows = KT - 1;                 // slots 1..K-1 of H, 0..K-2 of the FDL
     constexpr int kItems = kRows * kPairs;        // of each
     constexpr int kPer = (kItems + kStageThreads - 1) / kStageThreads;
@@ -141,9 +164,11 @@ __global__ void __launch_bounds__(kStageThreads)
     const int t = threadIdx.x;
     const long long mine = p0 + t;  // the pair whose sum this thread runs (t < kPairs)
     double2 x = make_double2(0.0, 0.0), h0 = x;
+    long long rm = 0, fbm = 0;  // `mine`'s place in its stream
     if (t < kPairs && mine < n) {
+        stream_of(mine, n, m, KT, rm, fbm);
         x = X[mine];
-        h0 = H[mine];
+        h0 = H[rm];
     }
     double2 hv[kPer];
     F fv[kPer];
@@ -152,8 +177,10 @@ __global__ void __launch_bounds__(kStageThreads)
         const int item = t + j * kStageThreads, r = item / kPairs;
         const long long i = p0 + item % kPairs;
         if (item < kItems && i < n) {
-            hv[j] = H[(long long)(r + 1) * n + i];
-            fv[j] = fdl_in[(long long)r * n + i];
+            long long ri, fb;
+            stream_of(i, n, m, KT, ri, fb);
+            hv[j] = H[(long long)(r + 1) * m + ri];
+            fv[j] = fdl_in[fb + (long long)r * m + ri];
         }
     }
 #pragma unroll
@@ -161,16 +188,18 @@ __global__ void __launch_bounds__(kStageThreads)
         const int item = t + j * kStageThreads, r = item / kPairs, p = item % kPairs;
         const long long i = p0 + p;
         if (item < kItems && i < n) {
+            long long ri, fb;
+            stream_of(i, n, m, KT, ri, fb);
             hs[r][p] = hv[j];
             fs[r][p] = fv[j];
-            fdl_out[(long long)(r + 1) * n + i] = fv[j];
+            fdl_out[fb + (long long)(r + 1) * m + ri] = fv[j];
         }
     }
     __syncthreads();
     if (t >= kPairs || mine >= n) return;
     const double2 y0 = product(x, h0);
     double re = y0.x, im = y0.y;
-    fdl_store(fdl_out[mine], x);
+    fdl_store(fdl_out[fbm + rm], x);
 #pragma unroll
     for (int k = 1; k < KT; ++k) mac(re, im, fdl_load(fs[k - 1][t]), hs[k - 1][t]);
     Y[mine] = make_double2(re, im);
@@ -178,38 +207,41 @@ __global__ void __launch_bounds__(kStageThreads)
 
 template <class F, int KT>
 void launch_k(const void* X, const void* H, const void* fdl_in, void* Y, void* fdl_out,
-              long long n, int K, int blocks, int threads, cudaStream_t stream) {
+              long long n, long long m, int K, int blocks, int threads, cudaStream_t stream) {
     fdl_mac_kernel<F, KT><<<blocks, threads, 0, stream>>>(
         static_cast<const double2*>(X), static_cast<const double2*>(H),
-        static_cast<const F*>(fdl_in), static_cast<double2*>(Y), static_cast<F*>(fdl_out), n, K);
+        static_cast<const F*>(fdl_in), static_cast<double2*>(Y), static_cast<F*>(fdl_out), n, m,
+        K);
 }
 
 template <class F, int KT>
 void launch_staged(const void* X, const void* H, const void* fdl_in, void* Y, void* fdl_out,
-                   long long n, cudaStream_t stream) {
+                   long long n, long long m, cudaStream_t stream) {
     fdl_mac_staged<F, KT><<<(unsigned)((n + kPairs - 1) / kPairs), kStageThreads, 0, stream>>>(
         static_cast<const double2*>(X), static_cast<const double2*>(H),
-        static_cast<const F*>(fdl_in), static_cast<double2*>(Y), static_cast<F*>(fdl_out), n);
+        static_cast<const F*>(fdl_in), static_cast<double2*>(Y), static_cast<F*>(fdl_out), n, m);
 }
 
+// n = S·m pairs, m = NB·C a stream's
 template <class F>
 int launch(const void* X, const void* H, const void* fdl_in, void* Y, void* fdl_out,
-           long long n, int K, void* stream) {
-    if (n <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+           long long n, int K, int S, void* stream) {
+    if (n <= 0 || K <= 0 || S <= 0 || n % S) return (int)cudaErrorInvalidValue;
+    const long long m = n / S;
     if (K > 1 && (fdl_in == nullptr || fdl_out == nullptr)) return (int)cudaErrorInvalidValue;
     if ((fdl_in == nullptr) != (fdl_out == nullptr)) return (int)cudaErrorInvalidValue;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (K == 1) {
         fdl_mac_product<F><<<(unsigned)((n + 127) / 128), 128, 0, s>>>(
             static_cast<const double2*>(X), static_cast<const double2*>(H),
-            static_cast<double2*>(Y), static_cast<F*>(fdl_out), n);
+            static_cast<double2*>(Y), static_cast<F*>(fdl_out), n, m);
         return (int)cudaGetLastError();
     }
     if (n <= 132 * 4 * kPairs && (K == 15 || K == 16 || K == 32)) {  // a few blocks an SM
         switch (K) {
-            case 15: launch_staged<F, 15>(X, H, fdl_in, Y, fdl_out, n, s); break;
-            case 16: launch_staged<F, 16>(X, H, fdl_in, Y, fdl_out, n, s); break;
-            default: launch_staged<F, 32>(X, H, fdl_in, Y, fdl_out, n, s);
+            case 15: launch_staged<F, 15>(X, H, fdl_in, Y, fdl_out, n, m, s); break;
+            case 16: launch_staged<F, 16>(X, H, fdl_in, Y, fdl_out, n, m, s); break;
+            default: launch_staged<F, 32>(X, H, fdl_in, Y, fdl_out, n, m, s);
         }
         return (int)cudaGetLastError();
     }
@@ -222,27 +254,29 @@ int launch(const void* X, const void* H, const void* fdl_in, void* Y, void* fdl_
     if (blocks > 132 * 32) blocks = 132 * 32;  // then grid-stride
     const int b = (int)blocks;
     switch (K) {
-        case 15: launch_k<F, 15>(X, H, fdl_in, Y, fdl_out, n, K, b, threads, s); break;
-        case 16: launch_k<F, 16>(X, H, fdl_in, Y, fdl_out, n, K, b, threads, s); break;
-        case 32: launch_k<F, 32>(X, H, fdl_in, Y, fdl_out, n, K, b, threads, s); break;
-        default: launch_k<F, 0>(X, H, fdl_in, Y, fdl_out, n, K, b, threads, s);
+        case 15: launch_k<F, 15>(X, H, fdl_in, Y, fdl_out, n, m, K, b, threads, s); break;
+        case 16: launch_k<F, 16>(X, H, fdl_in, Y, fdl_out, n, m, K, b, threads, s); break;
+        case 32: launch_k<F, 32>(X, H, fdl_in, Y, fdl_out, n, m, K, b, threads, s); break;
+        default: launch_k<F, 0>(X, H, fdl_in, Y, fdl_out, n, m, K, b, threads, s);
     }
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// n = NB * C. Returns cudaGetLastError() after the launch (0 on success).
-// The caller checks shapes, dtypes, contiguity and 16-byte alignment.
+// n = S * NB * C: S streams (X, Y [S, NB, C], the FDL [S, K, NB, C]) against
+// the one H [K, NB, C]. Returns cudaGetLastError() after the launch (0 on
+// success). The caller checks shapes, dtypes, contiguity and 16-byte
+// alignment.
 extern "C" int dsp_fdl_mac_c128(const void* X, const void* H, const void* fdl_in, void* Y,
-                                void* fdl_out, long long n, int K, void* stream) {
-    return launch<double2>(X, H, fdl_in, Y, fdl_out, n, K, stream);
+                                void* fdl_out, long long n, int K, int S, void* stream) {
+    return launch<double2>(X, H, fdl_in, Y, fdl_out, n, K, S, stream);
 }
 
 // The same with the FDL as float32 (re, im) pairs (8-byte aligned): X, H
 // and Y complex128, the slots read into float64 and X stored rounded as the
 // newest slot.
 extern "C" int dsp_fdl_mac_f32(const void* X, const void* H, const void* fdl_in, void* Y,
-                               void* fdl_out, long long n, int K, void* stream) {
-    return launch<float2>(X, H, fdl_in, Y, fdl_out, n, K, stream);
+                               void* fdl_out, long long n, int K, int S, void* stream) {
+    return launch<float2>(X, H, fdl_in, Y, fdl_out, n, K, S, stream);
 }

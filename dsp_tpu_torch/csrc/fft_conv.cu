@@ -103,6 +103,18 @@
 // float32 [a | x] pack and float32 kept rows), irfft_crop_f32 (the crop, and
 // the Nupols tail's float32 addend added in float64, stored rounded once)
 // and splice_f32; the transforms between stay float64.
+//
+// The stream axis (split and batched processing): S streams of C channels
+// are one transform of S·C columns, the streams' tensors grouped
+// (fft_pass.cuh `grouped`: column s·C + c is column c of stream s's rows):
+// rfft_pack reads a [S, La, C] and x [S, Lx, C], stores the kept rows
+// [S, keep, C] and X [S, N/2+1, C]; irfft_crop reads Y [S, N/2+1, C] and
+// the addend [S, L, C] and stores [S, L, C]; splice copies each stream's
+// three row ranges. The resampler's inverse with its overlap-add takes S
+// streams of nb inner blocks: stream s's first block adds the carried
+// overlap ov_in[s], and ov_out[s] is its last block's tail. Each column
+// runs the passes of a one-stream call: the same bits, in one launch a
+// pass.
 
 #include "fft_pass.cuh"
 
@@ -120,13 +132,31 @@ fft_block_kernel(Load ld, Store st, Pass ps, const double2* __restrict__ tw, int
     store_tile(tl, ps, st);
 }
 
+// The column whose tail output column q of the overlap-add takes (-1: the
+// carried overlap of stream *s, channel *cc): q < C is column q, block
+// (q / ch) % nb of stream (q / ch) / nb, whose predecessor is column q - ch
+// but for a stream's first block; q >= C stores stream (q - C) / ch's
+// overlap carried out, the tail of its last block.
+__device__ __forceinline__ int ola_source(int q, int C, int ch, int nb, int* s, int* cc) {
+    if (q < C) {
+        const int g = q / ch;
+        *s = g / nb;
+        *cc = q - g * ch;
+        return g % nb ? q - ch : -1;
+    }
+    const int j = q - C;
+    *s = j / ch;
+    *cc = j - *s * ch;
+    return ((*s + 1) * nb - 1) * ch + *cc;
+}
+
 // The resampler's inverse with its overlap-add, for a plan of one pass, in
 // the sample type T (float: irfft_ola_f32; double: irfft_ola): block
-// col < C + ch. Column col - ch's tail (or the carried overlap for
-// col < ch), times 1/N, then ratio, rounded to T (ola_tail), goes to
-// `prev`; then block col < C stores y at (col / ch, d, col % ch) = head of
-// column col + prev (ola_out), and a block col >= C stores the overlap
-// carried out.
+// q < C + S ch (S streams of nb inner blocks). The tail of the column
+// ola_source names (or the stream's carried overlap), times 1/N, then
+// ratio, rounded to T (ola_tail), goes to `prev`; then block q < C stores
+// y at (q / ch, d, q % ch) = head of column q + prev (ola_out), and a block
+// q >= C stores its stream's overlap carried out.
 template <class T>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 fft_ola_kernel(Load ld, Store st, Pass ps, const double2* __restrict__ tw, int N, int C,
@@ -135,16 +165,18 @@ fft_ola_kernel(Load ld, Store st, Pass ps, const double2* __restrict__ tw, int N
     const int stride = lane_points(N);
     T* prev = reinterpret_cast<T*>(buf + stride);
     const int half = N / 2, ch = st.ch, col = blockIdx.x;
-    if (col >= ch) {
-        const Tile tl{buf, N, stride, 1, 1, col - ch, C, N, sign, tw};
+    int s, cc;
+    const int src = ola_source(col, C, ch, st.nb, &s, &cc);
+    if (src >= 0) {
+        const Tile tl{buf, N, stride, 1, 1, src, C, N, sign, tw};
         load_tile(tl, ps, ld);
         run_stages(tl, ps);
         for (int d = threadIdx.x; d < half; d += blockDim.x) {
             prev[d] = ola_tail<T>(buf[pad(half + d)].x, st.scale, st.ratio);
         }
     } else {
-        const T* ov_in = static_cast<const T*>(st.ov_in);
-        for (int d = threadIdx.x; d < half; d += blockDim.x) prev[d] = ov_in[(long long)d * ch + col];
+        const T* ov_in = static_cast<const T*>(st.ov_in) + (long long)s * half * ch;
+        for (int d = threadIdx.x; d < half; d += blockDim.x) prev[d] = ov_in[(long long)d * ch + cc];
     }
     __syncthreads();
     if (col < C) {
@@ -157,10 +189,8 @@ fft_ola_kernel(Load ld, Store st, Pass ps, const double2* __restrict__ tw, int N
             y[o + (long long)d * ch] = ola_out(buf[pad(d)].x, st.scale, st.ratio, prev[d]);
         }
     } else {
-        T* ov_out = static_cast<T*>(st.ov_out);
-        for (int d = threadIdx.x; d < half; d += blockDim.x) {
-            ov_out[(long long)d * ch + (col - C)] = prev[d];
-        }
+        T* ov_out = static_cast<T*>(st.ov_out) + (long long)s * half * ch;
+        for (int d = threadIdx.x; d < half; d += blockDim.x) ov_out[(long long)d * ch + cc] = prev[d];
     }
 }
 
@@ -171,14 +201,16 @@ fft_ola_kernel(Load ld, Store st, Pass ps, const double2* __restrict__ tw, int N
 // irfft_ola_f32 has always stored it (float32: rounded once).
 template <class T>
 __global__ void ola_kernel(const double* __restrict__ s, Store st, int N, int C) {
-    const int half = N / 2, ch = st.ch, cols = C + ch;
+    const int half = N / 2, ch = st.ch, cols = C + C / st.nb;
     const long long total = (long long)half * cols;
     const long long stride = (long long)gridDim.x * blockDim.x;
     const T* ov_in = static_cast<const T*>(st.ov_in);
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
         const int d = (int)(i / cols), col = (int)(i % cols);
-        const T prev = col >= ch ? (T)__dmul_rn(s[(long long)(half + d) * C + col - ch], st.ratio)
-                                 : ov_in[(long long)d * ch + col];
+        int sm, cc;
+        const int src = ola_source(col, C, ch, st.nb, &sm, &cc);
+        const T prev = src >= 0 ? (T)__dmul_rn(s[(long long)(half + d) * C + src], st.ratio)
+                                : ov_in[((long long)sm * half + d) * ch + cc];
         if (col < C) {
             const long long o = ((long long)(col / ch) * half + d) * ch + col % ch;
             const double h = s[(long long)d * C + col];
@@ -188,7 +220,7 @@ __global__ void ola_kernel(const double* __restrict__ s, Store st, int N, int C)
                 static_cast<double*>(st.y)[o] = __dadd_rn(__dmul_rn(h, st.ratio), prev);
             }
         } else {
-            static_cast<T*>(st.ov_out)[(long long)d * ch + (col - C)] = prev;
+            static_cast<T*>(st.ov_out)[((long long)sm * half + d) * ch + cc] = prev;
         }
     }
 }
@@ -260,11 +292,13 @@ int run_fft(const int* plan, const void* tables, const Load& first, const Store&
         return (int)cudaErrorInvalidValue;
     }
     const long long nc = (long long)N * C;
+    const int ola_cols = ola ? C + C / last.nb : 0;  // the columns and the overlaps carried out
     Store fin = last;
     if (ola && !ola_fused) {  // the scaled inverse, then the overlap-add
         fin = Store{kStoreRealCrop, nullptr, 0,
                     reinterpret_cast<double*>(work + (pl.n - 1 < 2 ? pl.n - 1 : 2) * nc), 0, N,
                     nullptr, last.scale};
+        fin.ch = C;
     }
     cudaError_t err = cudaSuccess;
     for (int i = 0; i < pl.n; ++i) {
@@ -281,8 +315,8 @@ int run_fft(const int* plan, const void* tables, const Load& first, const Store&
             const auto kernel = f64 ? fft_ola_kernel<double> : fft_ola_kernel<float>;
             err = allow_smem(kernel, &ola_smem[f64]);
             if (err != cudaSuccess) return (int)err;
-            kernel<<<C + last.ch, pl.threads[i], ola_smem_bytes, stream>>>(first, fin, ps, tw, N,
-                                                                            C, sign);
+            kernel<<<ola_cols, pl.threads[i], ola_smem_bytes, stream>>>(first, fin, ps, tw, N, C,
+                                                                         sign);
         } else {
             err = allow_smem(fft_block_kernel, &block_smem);
             if (err != cudaSuccess) return (int)err;
@@ -296,8 +330,8 @@ int run_fft(const int* plan, const void* tables, const Load& first, const Store&
     }
     if (ola && !ola_fused) {
         const auto kernel = f64 ? ola_kernel<double> : ola_kernel<float>;
-        kernel<<<grid_for((long long)(N / 2) * (C + last.ch)), kThreads, 0, stream>>>(fin.r, last,
-                                                                                     N, C);
+        kernel<<<grid_for((long long)(N / 2) * ola_cols), kThreads, 0, stream>>>(fin.r, last, N,
+                                                                                C);
         err = cudaGetLastError();
         if (err == cudaSuccess) ++fft_launches;
     }
@@ -308,24 +342,28 @@ bool shape_ok(int N, int C) { return N > 0 && C > 0 && (long long)N * C < (1LL <
 
 int rfft_pack(int mode, const int* plan, const void* tables, const void* a, long long La,
               const void* x, long long Lx, int blocks, void* kept, long long keep, void* X,
-              void* work, int N, int C, void* stream) {
+              void* work, int N, int C, int grouped_out, void* stream) {
     if (!shape_ok(N, C) || La < 0 || Lx < 0 || La + Lx > N || blocks < 1 || C % blocks ||
-        keep < 0 || keep > La + Lx || (blocks > 1 && (La > 0 || keep > 0)) ||
-        (keep > 0 && kept == nullptr)) {
+        keep < 0 || keep > La + Lx || (keep > 0 && kept == nullptr)) {
         return (int)cudaErrorInvalidValue;
     }
     const Load first{mode, nullptr, 0, a, La, x, Lx, C / blocks, kept, keep};
-    const Store last{kStoreComplex, static_cast<double2*>(X), N / 2 + 1};
+    Store last{kStoreComplex, static_cast<double2*>(X), N / 2 + 1};
+    last.ch = grouped_out ? C / blocks : C;
     return run_fft(plan, tables, first, last, static_cast<double2*>(work),
                    N, C, 1.0, static_cast<cudaStream_t>(stream));
 }
 
 int irfft_crop(bool f32, const int* plan, const void* tables, const void* Y, void* work, void* out,
-               long long lo, long long L, const void* add, int N, int C, void* stream) {
-    if (!shape_ok(N, C) || L <= 0 || lo < 0 || lo + L > N) return (int)cudaErrorInvalidValue;
-    const Load first{kLoadHermitian, static_cast<const double2*>(Y), N / 2 + 1};
+               long long lo, long long L, const void* add, int N, int C, int ch, void* stream) {
+    if (!shape_ok(N, C) || L <= 0 || lo < 0 || lo + L > N || ch <= 0 || C % ch) {
+        return (int)cudaErrorInvalidValue;
+    }
+    Load first{kLoadHermitian, static_cast<const double2*>(Y), N / 2 + 1};
+    first.ch = ch;
     Store last{f32 ? kStoreRealCropF32 : kStoreRealCrop, nullptr, 0, nullptr, lo, L, nullptr,
                1.0 / N};
+    last.ch = ch;
     if (f32) {
         last.rf = static_cast<float*>(out);
         last.addf = static_cast<const float*>(add);
@@ -340,58 +378,67 @@ int irfft_crop(bool f32, const int* plan, const void* tables, const void* Y, voi
 }  // namespace
 
 // X[N/2+1, C] = rfft([a | x | 0], n = N) along axis 0 by the plan `plan`
-// with its table `tables` on the card (ops/fft_conv.py fft_tables(N)). a is [La, C] (may be empty), x
-// is [blocks * Lx, C / blocks] (blocks > 1: column b * (C / blocks) + c is
-// inner block b of channel c, and a is empty), La + Lx <= N. With keep > 0
-// the last keep rows of [a | x] are stored in kept [keep, C]. work holds
-// the plan's complex [N, C] slots (none for one pass). Returns a CUDA
-// error code (0 on success). The caller checks shapes, dtypes and
-// contiguity.
+// with its table `tables` on the card (ops/fft_conv.py fft_tables(N)), in
+// `blocks` groups of C / blocks columns (inner blocks, or streams): a is
+// [blocks, La, C / blocks] (may be empty), x [blocks, Lx, C / blocks]
+// (column b * (C / blocks) + c is channel c of group b), La + Lx <= N.
+// With keep > 0 the last keep rows of [a | x] are stored in kept
+// [blocks, keep, C / blocks]. X is [N/2+1, C], or with grouped_out
+// [blocks, N/2+1, C / blocks]. work holds the plan's complex [N, C] slots
+// (none for one pass). Returns a CUDA error code (0 on success). The
+// caller checks shapes, dtypes and contiguity.
 extern "C" int dsp_rfft_pack_c128(const int* plan, const void* tables, const void* a, long long La,
                                   const void* x, long long Lx, int blocks, void* kept,
                                   long long keep, void* X, void* work, int N, int C,
-                                  void* stream) {
+                                  int grouped_out, void* stream) {
     return rfft_pack(kLoadRealPack, plan, tables, a, La, x, Lx, blocks, kept, keep, X, work, N, C,
-                     stream);
+                     grouped_out, stream);
 }
 
 // rfft_pack on float32 a and x (and kept): the spectrum is complex128.
 extern "C" int dsp_rfft_pack_f32(const int* plan, const void* tables, const void* a, long long La,
                                  const void* x, long long Lx, int blocks, void* kept,
                                  long long keep, void* X, void* work, int N, int C,
-                                 void* stream) {
+                                 int grouped_out, void* stream) {
     return rfft_pack(kLoadRealPackF32, plan, tables, a, La, x, Lx, blocks, kept, keep, X, work, N, C,
-                     stream);
+                     grouped_out, stream);
 }
 
 // out[L, C] = irfft(Y, n = N)[lo : lo + L] (+ add[L, C] when add is not
-// null) along axis 0; Y is [N/2+1, C], 0 <= lo, lo + L <= N.
+// null) along axis 0; Y is [N/2+1, C], 0 <= lo, lo + L <= N; all three in
+// groups of ch columns (streams): Y [C / ch, N/2+1, ch], out and add
+// [C / ch, L, ch].
 extern "C" int dsp_irfft_crop_c128(const int* plan, const void* tables, const void* Y, void* work,
                                    void* out, long long lo, long long L, const void* add, int N,
-                                   int C, void* stream) {
-    return irfft_crop(false, plan, tables, Y, work, out, lo, L, add, N, C, stream);
+                                   int C, int ch, void* stream) {
+    return irfft_crop(false, plan, tables, Y, work, out, lo, L, add, N, C, ch, stream);
 }
 
 // irfft_crop with a float32 out and add: the inverse in float64, each
 // point rounded once on its store.
 extern "C" int dsp_irfft_crop_f32(const int* plan, const void* tables, const void* Y, void* work,
                                   void* out, long long lo, long long L, const void* add, int N,
-                                  int C, void* stream) {
-    return irfft_crop(true, plan, tables, Y, work, out, lo, L, add, N, C, stream);
+                                  int C, int ch, void* stream) {
+    return irfft_crop(true, plan, tables, Y, work, out, lo, L, add, N, C, ch, stream);
 }
 
 namespace {
 
 int irfft_ola(int mode, const int* plan, const void* tables, const void* Y, void* work, void* y,
-              void* ov_out, const void* ov_in, double ratio, int N, int C, int ch, void* stream) {
-    if (!shape_ok(N, C) || N % 2 || ch <= 0 || C % ch) return (int)cudaErrorInvalidValue;
-    const Load first{kLoadHermitian, static_cast<const double2*>(Y), N / 2 + 1};
+              void* ov_out, const void* ov_in, double ratio, int N, int C, int ch, int nb,
+              void* stream) {
+    if (!shape_ok(N, C) || N % 2 || ch <= 0 || nb <= 0 || C % ((long long)ch * nb)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    Load first{kLoadHermitian, static_cast<const double2*>(Y), N / 2 + 1};
+    first.ch = C;
     Store last{mode, nullptr, 0, nullptr, 0, 0, nullptr, 1.0 / N};
     last.y = y;
     last.ov_out = ov_out;
     last.ov_in = ov_in;
     last.ratio = ratio;
     last.ch = ch;
+    last.nb = nb;
     return run_fft(plan, tables, first, last, static_cast<double2*>(work),
                    N, C, -1.0, static_cast<cudaStream_t>(stream));
 }
@@ -399,13 +446,15 @@ int irfft_ola(int mode, const int* plan, const void* tables, const void* Y, void
 }  // namespace
 
 // The resampler's inverse and overlap-add in float32 out: Y [N/2+1, C]
-// half spectra, C = blocks * ch columns (block-major); y [blocks, N/2, ch],
-// ov_out and ov_in [N/2, ch] float32; every value times 1/N, then ratio.
-// work holds the plan's slots, plus one for a plan of more than one pass.
+// half spectra, C = blocks * ch columns (block-major): S = blocks / nb
+// streams of nb inner blocks; y [blocks, N/2, ch], ov_out and ov_in
+// [S, N/2, ch] float32 (stream s's first block adds ov_in[s]); every value
+// times 1/N, then ratio. work holds the plan's slots, plus one for a plan
+// of more than one pass.
 extern "C" int dsp_irfft_ola_f32(const int* plan, const void* tables, const void* Y, void* work,
                                  void* y, void* ov_out, const void* ov_in, double ratio, int N,
-                                 int C, int ch, void* stream) {
-    return irfft_ola(kStoreOlaF32, plan, tables, Y, work, y, ov_out, ov_in, ratio, N, C, ch,
+                                 int C, int ch, int nb, void* stream) {
+    return irfft_ola(kStoreOlaF32, plan, tables, Y, work, y, ov_out, ov_in, ratio, N, C, ch, nb,
                      stream);
 }
 
@@ -414,8 +463,8 @@ extern "C" int dsp_irfft_ola_f32(const int* plan, const void* tables, const void
 // (ops/resample_ops.py `irfft_ola`).
 extern "C" int dsp_irfft_ola_f64(const int* plan, const void* tables, const void* Y, void* work,
                                  void* y, void* ov_out, const void* ov_in, double ratio, int N,
-                                 int C, int ch, void* stream) {
-    return irfft_ola(kStoreOlaF64, plan, tables, Y, work, y, ov_out, ov_in, ratio, N, C, ch,
+                                 int C, int ch, int nb, void* stream) {
+    return irfft_ola(kStoreOlaF64, plan, tables, Y, work, y, ov_out, ov_in, ratio, N, C, ch, nb,
                      stream);
 }
 
@@ -423,23 +472,27 @@ namespace {
 
 // out = three byte ranges laid end to end: [0, e0) from s0, [e0, e1) from
 // s1, [e1, total) from s2, copied W bytes a thread (every range start and
-// end a multiple of W).
+// end a multiple of W); S streams: stream s's out `total` bytes after the
+// one before's, its s0 and s2 `sa` after, its s1 `sx` after.
 template <class W>
 __global__ void copy3_kernel(const char* __restrict__ s0, const char* __restrict__ s1,
                              const char* __restrict__ s2, long long e0, long long e1,
-                             char* __restrict__ out, long long total) {
-    const long long n = total / (long long)sizeof(W);
+                             char* __restrict__ out, long long total, int S, long long sa,
+                             long long sx) {
+    const long long per = total / (long long)sizeof(W), n = per * S;
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-        const long long o = i * (long long)sizeof(W);
-        const char* src = o < e0 ? s0 + o : (o < e1 ? s1 + (o - e0) : s2 + (o - e1));
-        *reinterpret_cast<W*>(out + o) = *reinterpret_cast<const W*>(src);
+        const long long s = S == 1 ? 0 : i / per;
+        const long long o = (i - s * per) * (long long)sizeof(W);
+        const char* src = o < e0 ? s0 + s * sa + o
+                                 : (o < e1 ? s1 + s * sx + (o - e0) : s2 + s * sa + (o - e1));
+        *reinterpret_cast<W*>(out + s * total + o) = *reinterpret_cast<const W*>(src);
     }
 }
 
 int splice(int elem, const void* a, const void* x, void* out, long long L, long long Lx,
-           long long lo, long long shift, int C, void* stream) {
-    if (L <= 0 || C <= 0 || Lx < 0) return (int)cudaErrorInvalidValue;
+           long long lo, long long shift, int C, int S, long long La, void* stream) {
+    if (L <= 0 || C <= 0 || Lx < 0 || S <= 0 || La < 0) return (int)cudaErrorInvalidValue;
     // out rows [0, lo_c) from a, [lo_c, hi_c) from x, [hi_c, L) from a
     const long long lo_c = lo < 0 ? 0 : (lo > L ? L : lo);
     const long long hi_end = lo + Lx;
@@ -449,20 +502,26 @@ int splice(int elem, const void* a, const void* x, void* out, long long L, long 
     const char* s1 = static_cast<const char*>(x) + (lo_c - lo) * row;
     const char* s2 = static_cast<const char*>(a) + (hi_c + shift) * row;
     const long long e0 = lo_c * row, e1 = hi_c * row, total = L * row;
+    const long long sa = La * row, sx = Lx * row;  // a stream's a and x, in bytes
     // the widest copy that every start and end allows
     unsigned long long bits = (unsigned long long)e0 | (unsigned long long)e1 |
                               (unsigned long long)total | (unsigned long long)out;
+    if (S > 1) bits |= (unsigned long long)sa | (unsigned long long)sx;
     if (e0 > 0) bits |= (unsigned long long)s0;
     if (e1 > e0) bits |= (unsigned long long)s1;
     if (total > e1) bits |= (unsigned long long)s2;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     char* o = static_cast<char*>(out);
+    const long long all = total * S;
     if (bits % 16 == 0) {
-        copy3_kernel<int4><<<grid_for(total / 16), kThreads, 0, st>>>(s0, s1, s2, e0, e1, o, total);
+        copy3_kernel<int4><<<grid_for(all / 16), kThreads, 0, st>>>(s0, s1, s2, e0, e1, o, total,
+                                                                    S, sa, sx);
     } else if (bits % 8 == 0) {
-        copy3_kernel<long long><<<grid_for(total / 8), kThreads, 0, st>>>(s0, s1, s2, e0, e1, o, total);
+        copy3_kernel<long long><<<grid_for(all / 8), kThreads, 0, st>>>(s0, s1, s2, e0, e1, o,
+                                                                         total, S, sa, sx);
     } else if (bits % 4 == 0) {
-        copy3_kernel<int><<<grid_for(total / 4), kThreads, 0, st>>>(s0, s1, s2, e0, e1, o, total);
+        copy3_kernel<int><<<grid_for(all / 4), kThreads, 0, st>>>(s0, s1, s2, e0, e1, o, total, S,
+                                                                  sa, sx);
     } else {
         return (int)cudaErrorInvalidValue;
     }
@@ -475,14 +534,17 @@ int splice(int elem, const void* a, const void* x, void* out, long long L, long 
 extern "C" unsigned long long dsp_fft_launches() { return fft_launches; }
 
 // out[n, c] = x[n - lo, c] for lo <= n < lo + Lx, else a[n + shift, c];
-// n in [0, L). Every row read lies inside its tensor (the caller checks).
+// n in [0, L), for each of S streams (a [S, La, C], x [S, Lx, C], out
+// [S, L, C]). Every row read lies inside its tensor (the caller checks).
 extern "C" int dsp_splice_f64(const void* a, const void* x, void* out, long long L, long long Lx,
-                              long long lo, long long shift, int C, void* stream) {
-    return splice(8, a, x, out, L, Lx, lo, shift, C, stream);
+                              long long lo, long long shift, int C, int S, long long La,
+                              void* stream) {
+    return splice(8, a, x, out, L, Lx, lo, shift, C, S, La, stream);
 }
 
 // The same on float32.
 extern "C" int dsp_splice_f32(const void* a, const void* x, void* out, long long L, long long Lx,
-                              long long lo, long long shift, int C, void* stream) {
-    return splice(4, a, x, out, L, Lx, lo, shift, C, stream);
+                              long long lo, long long shift, int C, int S, long long La,
+                              void* stream) {
+    return splice(4, a, x, out, L, Lx, lo, shift, C, S, La, stream);
 }

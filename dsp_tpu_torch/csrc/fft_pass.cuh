@@ -32,34 +32,39 @@ enum StoreMode {
     kStoreOlaF64 = 4
 };
 
+// The first load's and the last store's tensors hold their columns in
+// groups of ch (inner blocks, or streams): column g·ch + c is column c of
+// group g's rows, [G, rows, ch] (grouped); one group of all C columns is
+// the plain [rows, C].
 struct Load {
     int mode;
-    const double2* c;   // kLoadHermitian: [NB, C]
+    const double2* c;   // kLoadHermitian: [G, NB, ch]
     long long NB;       // kLoadHermitian: rows of the half spectrum
-    const void* a;      // real pack: [La, C], double or float by mode
+    const void* a;      // real pack: [G, La, ch], double or float by mode
     long long La;
-    const void* x;      // real pack: [blocks * Lx, ch]
+    const void* x;      // real pack: [G, Lx, ch]
     long long Lx;
-    int ch;             // real pack: channels; column b * ch + c reads inner block b
-    void* kept;         // real pack: the last `keep` rows of [a | x], [keep, C]
+    int ch;             // the columns of a group
+    void* kept;         // real pack: the last `keep` rows of [a | x], [G, keep, ch]
     long long keep;
 };
 
 struct Store {
     int mode;
-    double2* c;         // kStoreComplex: rows [0, rows) of [N, C]
+    double2* c;         // kStoreComplex: rows [0, rows) of [N, C], grouped [G, rows, ch]
     long long rows;
-    double* r;          // kStoreRealCrop: [L, C]
+    double* r;          // kStoreRealCrop: [G, L, ch]
     long long lo, L;
-    const double* add;  // kStoreRealCrop: [L, C] or null
+    const double* add;  // kStoreRealCrop: [G, L, ch] or null
     double scale;
     void* y;            // kStoreOla*: [C / ch, N / 2, ch], float or double by mode
-    void* ov_out;       // kStoreOla*: [N / 2, ch]
-    const void* ov_in;  // kStoreOla*: [N / 2, ch]
+    void* ov_out;       // kStoreOla*: [S, N / 2, ch]
+    const void* ov_in;  // kStoreOla*: [S, N / 2, ch]
     double ratio;       // kStoreOla*: applied after scale
-    int ch;             // kStoreOla*: channels; C / ch inner blocks
-    float* rf;          // kStoreRealCropF32: [L, C], with lo, L, scale
-    const float* addf;  // kStoreRealCropF32: [L, C] or null
+    int ch;             // the columns of a group (kStoreOla*: channels, C / ch inner blocks)
+    float* rf;          // kStoreRealCropF32: [G, L, ch], with lo, L, scale
+    const float* addf;  // kStoreRealCropF32: [G, L, ch] or null
+    int nb;             // kStoreOla*: inner blocks a stream (S = C / (nb ch) streams)
 };
 
 // One pass of the plan, as the kernels take it.
@@ -80,30 +85,37 @@ __device__ __forceinline__ double real_at(const void* p, long long i) {
     return (double)static_cast<const T*>(p)[i];
 }
 
+// Row n of column c of a grouped tensor [G, rows, ch]: column c is column
+// c % ch of group c / ch.
+__device__ __forceinline__ long long grouped(long long n, int c, int ch, long long rows) {
+    const int g = c / ch;
+    return ((long long)g * rows + n) * ch + (c - g * ch);
+}
+
 template <class T>
-__device__ __forceinline__ void keep_row(const Load& ld, long long n, int c, int C) {
+__device__ __forceinline__ void keep_row(const Load& ld, long long n, int c, int) {
     const long long k0 = ld.La + ld.Lx - ld.keep;
     if (n >= k0 && n < ld.La + ld.Lx) {
-        const T v = n < ld.La ? static_cast<const T*>(ld.a)[n * C + c]
-                              : static_cast<const T*>(ld.x)[(n - ld.La) * C + c];
-        static_cast<T*>(ld.kept)[(n - k0) * C + c] = v;
+        const T v = n < ld.La ? static_cast<const T*>(ld.a)[grouped(n, c, ld.ch, ld.La)]
+                              : static_cast<const T*>(ld.x)[grouped(n - ld.La, c, ld.ch, ld.Lx)];
+        static_cast<T*>(ld.kept)[grouped(n - k0, c, ld.ch, ld.keep)] = v;
     }
 }
 
 // Point n of column c of the first pass's input.
-__device__ __forceinline__ double2 load_point(const Load& ld, long long n, int c, int C, int N) {
+__device__ __forceinline__ double2 load_point(const Load& ld, long long n, int c, int, int N) {
     if (ld.mode == kLoadHermitian) {
-        if (n < ld.NB) return ld.c[n * C + c];
-        const double2 v = ld.c[(N - n) * C + c];
+        if (n < ld.NB) return ld.c[grouped(n, c, ld.ch, ld.NB)];
+        const double2 v = ld.c[grouped(N - n, c, ld.ch, ld.NB)];
         return make_double2(v.x, -v.y);
     }
     double v = 0.0;
     const bool f32 = ld.mode == kLoadRealPackF32;
     if (n < ld.La) {
-        v = f32 ? real_at<float>(ld.a, n * C + c) : real_at<double>(ld.a, n * C + c);
+        const long long i = grouped(n, c, ld.ch, ld.La);
+        v = f32 ? real_at<float>(ld.a, i) : real_at<double>(ld.a, i);
     } else if (n < ld.La + ld.Lx) {
-        const int b = c / ld.ch, cc = c - b * ld.ch;
-        const long long i = ((long long)b * ld.Lx + n - ld.La) * ld.ch + cc;
+        const long long i = grouped(n - ld.La, c, ld.ch, ld.Lx);
         v = f32 ? real_at<float>(ld.x, i) : real_at<double>(ld.x, i);
     }
     return make_double2(v, 0.0);
@@ -123,14 +135,14 @@ __device__ __forceinline__ bool stored(const Store& st, long long d) {
     return st.mode == kStoreComplex ? d < st.rows : (d >= st.lo && d < st.lo + st.L);
 }
 
-__device__ __forceinline__ void store_point(const Store& st, long long d, int c, int C,
+__device__ __forceinline__ void store_point(const Store& st, long long d, int c, int,
                                             double2 v) {
     if (!stored(st, d)) return;
     if (st.mode == kStoreComplex) {
-        st.c[d * C + c] = v;
+        st.c[grouped(d, c, st.ch, st.rows)] = v;
         return;
     }
-    const long long o = (d - st.lo) * C + c;
+    const long long o = grouped(d - st.lo, c, st.ch, st.L);
     double y = v.x * st.scale;
     if (st.mode == kStoreRealCrop) {
         if (st.add != nullptr) y += st.add[o];

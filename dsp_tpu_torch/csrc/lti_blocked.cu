@@ -59,6 +59,14 @@
 // [B, C] row-major (channel-interleaved, as the chain passes them) and are
 // read and written strided by C; nothing is transposed.
 //
+// The stream axis (split and batched processing): x and y [S, B, C], the
+// state [S, 2, C, n]. The grid is tiles × S·C in the same ticket order
+// (tile index major), lane l = s·C + c; every stream takes channel c's
+// tables (one copy, indexed by c, not tiled into S), the partition of one
+// stream (T from C, not S·C), and slots of its own in the look-back
+// scratch (lane l's tile t at l·ntiles + t), so stream s's tiles combine
+// exactly as a one-stream call's do: the same bits.
+//
 // float32 samples (dsp_lti_blocked_f32): the same launch reads f32 x and
 // the f32 (hi, lo) state, carries everything in float64 registers and
 // shared memory, and stores f32: the state split as hi = (float)s,
@@ -93,7 +101,7 @@ struct Tables {
 };
 
 struct Shape {
-    int C, n, L, T, M, Nc, ntiles, tail, stage_c, stage_vp, stage_q;
+    int C, n, L, T, M, Nc, ntiles, tail, stage_c, stage_vp, stage_q, S, B;
 };
 
 // a state of T: float64 carries s in hi and 0 in lo; float32 splits s
@@ -175,14 +183,24 @@ __global__ void __launch_bounds__(kThreads)
     __shared__ unsigned tk[2];
     const int n = sh.n, L = sh.L, Tc = sh.T, C = sh.C;
     lookback::begin(lb, tk);
-    const int t = (int)(tk[0] / (unsigned)C), c = (int)(tk[0] % (unsigned)C);
+    const unsigned lanes = (unsigned)C * (unsigned)sh.S;
+    const int t = (int)(tk[0] / lanes), lane = (int)(tk[0] % lanes);
+    const int s = lane / C, c = lane - s * C;  // stream s, channel c
+    {   // this stream's samples and state
+        const size_t xs0 = (size_t)s * sh.B * C, st0 = (size_t)s * 2 * C * n;
+        x += xs0;
+        y += xs0;
+        if (y_lo != nullptr) y_lo += xs0;
+        state_in += st0;
+        state_out += st0;
+    }
     const unsigned tag = tk[1];
     const int k0 = t * Tc;
     const int nch = min(Tc, sh.Nc - k0);
     const bool last = t == sh.ntiles - 1;
     const bool partial = last && sh.tail < L;
     const int ns = (nch - 1) * L + (partial ? sh.tail : L);
-    const long long slot0 = (long long)c * sh.ntiles;  // this channel's tile 0
+    const long long slot0 = (long long)lane * sh.ntiles;  // this lane's tile 0
     const int nn = n * n, sa = odd(n);
 
     double* xs = smem;                  // [T·L] the tile's samples
@@ -419,10 +437,13 @@ unsigned long long lti_launches = 0;
 template <typename T>
 int lti_blocked(const T* x, T* y, T* y_lo, const T* state_in, T* state_out, const Tables& tb,
                 unsigned* flags, long long flag_slots, double* agg, long long agg_doubles, int B,
-                int C, int n, int L, int Tc, int M, cudaStream_t st) {
-    if (B <= 0 || C <= 0 || n <= 0 || L <= 0 || Tc <= 0 || flags == nullptr || agg == nullptr)
+                int C, int n, int L, int Tc, int M, int S, cudaStream_t st) {
+    if (B <= 0 || C <= 0 || n <= 0 || L <= 0 || Tc <= 0 || S <= 0 || flags == nullptr ||
+        agg == nullptr)
         return (int)cudaErrorInvalidValue;
     Shape sh;
+    sh.S = S;
+    sh.B = B;
     sh.C = C;
     sh.n = n;
     sh.L = L;
@@ -431,7 +452,7 @@ int lti_blocked(const T* x, T* y, T* y_lo, const T* state_in, T* state_out, cons
     sh.Nc = (B + L - 1) / L;
     sh.ntiles = (sh.Nc + Tc - 1) / Tc;
     sh.tail = B - (sh.Nc - 1) * L;
-    const long long blocks = (long long)sh.ntiles * C;
+    const long long blocks = (long long)sh.ntiles * C * S;
     size_t doubles = base_doubles(Tc, L, n);
     const size_t qcs = (size_t)Tc * n * odd(n);
     sh.stage_c = doubles + qcs <= kStageDoubles;
@@ -477,28 +498,31 @@ Tables tables(const double* h, const double* V, const double* P, const double* Q
 // launch. The tables are float64 in both; L is the chunk length the tables
 // were built for, T the chunks a tile, M the tile powers in Qt; flags
 // (flag_slots slots after its head) and agg (agg_doubles long) are the
-// look-back scratch of csrc/lookback.cuh.
+// look-back scratch of csrc/lookback.cuh; S streams: x and y [S, B, C], the
+// states [S, 2, C, n].
 extern "C" int dsp_lti_blocked_f64(const double* x, double* y, const double* state_in,
                                    double* state_out, const double* h, const double* V,
                                    const double* P, const double* Qc, const double* Qt,
                                    const double* At, const double* c0, unsigned* flags,
                                    long long flag_slots, double* agg, long long agg_doubles, int B,
-                                   int C, int n, int L, int T, int M, void* stream) {
+                                   int C, int n, int L, int T, int M, int S, void* stream) {
     return lti_blocked<double>(x, y, nullptr, state_in, state_out,
                                tables(h, V, P, Qc, Qt, At, c0), flags, flag_slots, agg,
-                               agg_doubles, B, C, n, L, T, M, static_cast<cudaStream_t>(stream));
+                               agg_doubles, B, C, n, L, T, M, S,
+                               static_cast<cudaStream_t>(stream));
 }
 
-// float32 samples and a float32 (hi, lo) state [2, C, n]; y_lo null rounds
-// y once, else y and y_lo are the (hi, lo) split of each output sample.
+// float32 samples and a float32 (hi, lo) state [2, C, n] ([S, 2, C, n]);
+// y_lo null rounds y once, else y and y_lo are the (hi, lo) split of each
+// output sample.
 extern "C" int dsp_lti_blocked_f32(const float* x, float* y, float* y_lo, const float* state_in,
                                    float* state_out, const double* h, const double* V,
                                    const double* P, const double* Qc, const double* Qt,
                                    const double* At, const double* c0, unsigned* flags,
                                    long long flag_slots, double* agg, long long agg_doubles, int B,
-                                   int C, int n, int L, int T, int M, void* stream) {
+                                   int C, int n, int L, int T, int M, int S, void* stream) {
     return lti_blocked<float>(x, y, y_lo, state_in, state_out, tables(h, V, P, Qc, Qt, At, c0),
-                              flags, flag_slots, agg, agg_doubles, B, C, n, L, T, M,
+                              flags, flag_slots, agg, agg_doubles, B, C, n, L, T, M, S,
                               static_cast<cudaStream_t>(stream));
 }
 

@@ -51,6 +51,15 @@
 //   the route of three launches (rfft_pack, this, irfft_ola: plans of more
 //   than one pass, e.g. a ratio with a prime above 8192).
 //
+// The stream axis (split and batched processing): x [S, n in_len, C], the
+// overlaps [S, out_len, C] and y [S, n out_len, C]. The grid's second
+// dimension runs the S·C (stream, channel) pairs; the clusters lie along
+// the first, so a cluster's blocks and their tail hand-off never leave one
+// stream's channel, and the first inner block of stream s takes stream s's
+// carried overlap, never another stream's last tail. m, the inner blocks a
+// thread block carries, is chosen on the S·C·n columns. Each column runs
+// the passes of a one-stream call: the same bits.
+//
 // What bounds it on the card: a step at the main path's shapes (48 kHz,
 // 4 inner blocks of 588 frames, stereo: 8 columns of 1,176 and 1,280-point
 // transforms) reads 38 KB and writes 41 KB, and does ~1 MFLOP of float64:
@@ -130,17 +139,19 @@ struct StepArgs {
     const int* j;
     const int* flags;
     const double2* s;
-    const void* x;              // [n in_len, C]
-    void* y;                    // [n out_len, C]
-    void* ov_out;               // [out_len, C]
-    const void* ov_in;          // [out_len, C]
+    const void* x;              // [S, n in_len, C]
+    void* y;                    // [S, n out_len, C]
+    void* ov_out;               // [S, out_len, C]
+    const void* ov_in;          // [S, out_len, C]
     double scale, ratio;        // 1 / (2 out_len), out_len / in_len
     int in_len, out_len, n;
+    int C;                      // channels a stream (gridDim.y = S C)
     int m;                      // inner blocks (lanes) a thread block
     int cluster;                // thread blocks a cluster
 };
 
-// Inner blocks b0 .. b0 + lanes - 1 of channel c, lane t for b0 + t: each
+// Inner blocks b0 .. b0 + lanes - 1 of channel c of x (a stream's
+// [n in_len, C]), lane t for b0 + t: each
 // loaded in place, zero-padded, to its forward transform's digit-reversed
 // positions in bufF (rfft_pack's inner-block read), the forward pass, the
 // fold into the inverse's load positions in bufI with the Hermitian
@@ -148,12 +159,11 @@ struct StepArgs {
 // bufI[t lane_points(2 out_len) + pad(d)]. Each lane's arithmetic is that
 // of a transform alone.
 template <class T>
-__device__ __forceinline__ void columns(const StepArgs& a, int b0, int lanes, int c,
+__device__ __forceinline__ void columns(const StepArgs& a, const T* x, int b0, int lanes, int c,
                                         double2* bufF, double2* bufI) {
     constexpr int kLoads = 8;  // loads in flight a thread before it stores any
-    const int Nf = 2 * a.in_len, Ni = 2 * a.out_len, C = gridDim.y;
+    const int Nf = 2 * a.in_len, Ni = 2 * a.out_len, C = a.C;
     const int sf = lane_points(Nf), si = lane_points(Ni), nb = a.out_len + 1;
-    const T* x = static_cast<const T*>(a.x);
     const int points = lanes * Nf;
     for (int i0 = threadIdx.x; i0 < points; i0 += kLoads * blockDim.x) {
         double v[kLoads];
@@ -195,11 +205,11 @@ __device__ __forceinline__ void cluster_wait() {
     asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// Grid (groups of m inner blocks rounded up to whole clusters, C): block
-// (g, c) owns inner blocks g m .. g m + m - 1 of channel c, lane t's
-// predecessor being lane t - 1 and lane 0's the last lane of block g - 1
-// (the carried overlap for g = 0). A block past the last inner block only
-// takes part in its cluster's barriers.
+// Grid (groups of m inner blocks rounded up to whole clusters, S C): block
+// (g, s C + c) owns inner blocks g m .. g m + m - 1 of channel c of stream
+// s, lane t's predecessor being lane t - 1 and lane 0's the last lane of
+// block g - 1 (stream s's carried overlap for g = 0). A block past the last
+// inner block only takes part in its cluster's barriers.
 template <class T>
 __global__ void __launch_bounds__(kMaxThreads, 1) resample_step_kernel(const StepArgs a) {
     extern __shared__ double2 smem[];
@@ -208,22 +218,26 @@ __global__ void __launch_bounds__(kMaxThreads, 1) resample_step_kernel(const Ste
     double2* bufF = smem;
     double2* bufI = smem + m * lane_points(2 * a.in_len);
     T* prev = reinterpret_cast<T*>(bufI + m * si);  // lane 0's predecessor's tail
-    const int g = blockIdx.x, c = blockIdx.y, C = gridDim.y;
+    const int g = blockIdx.x, C = a.C, s = blockIdx.y / C, c = blockIdx.y - s * C;
     const int b0 = g * m, lanes = min(m, a.n - b0), rank = g % a.cluster;
     const bool live = b0 < a.n, clustered = a.cluster > 1;
+    // this stream's samples, output and overlaps
+    const T* x = static_cast<const T*>(a.x) + (long long)s * a.n * a.in_len * C;
+    T* y = static_cast<T*>(a.y) + (long long)s * a.n * half * C;
+    const long long ov0 = (long long)s * half * C;
     if (clustered) cluster_arrive_relaxed();  // this block has started
     if (live) {
         if (b0 == 0) {
-            const T* ov_in = static_cast<const T*>(a.ov_in);
+            const T* ov_in = static_cast<const T*>(a.ov_in) + ov0;
             for (int d = threadIdx.x; d < half; d += blockDim.x) prev[d] = ov_in[(long long)d * C + c];
         } else if (rank == 0) {  // no block of this cluster holds inner block b0 - 1
-            columns<T>(a, b0 - 1, 1, c, bufF, bufI);
+            columns<T>(a, x, b0 - 1, 1, c, bufF, bufI);
             for (int d = threadIdx.x; d < half; d += blockDim.x) {
                 prev[d] = ola_tail<T>(bufI[pad(half + d)].x, a.scale, a.ratio);
             }
             __syncthreads();
         }
-        columns<T>(a, b0, lanes, c, bufF, bufI);
+        columns<T>(a, x, b0, lanes, c, bufF, bufI);
     }
     const double2* last = bufI + (live ? lanes - 1 : 0) * si;  // the last lane's inverse
     if (clustered) {
@@ -238,12 +252,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1) resample_step_kernel(const Ste
     }
     if (!live) return;
     if (b0 + lanes == a.n) {
-        T* ov_out = static_cast<T*>(a.ov_out);
+        T* ov_out = static_cast<T*>(a.ov_out) + ov0;
         for (int d = threadIdx.x; d < half; d += blockDim.x) {
             ov_out[(long long)d * C + c] = ola_tail<T>(last[pad(half + d)].x, a.scale, a.ratio);
         }
     }
-    T* y = static_cast<T*>(a.y);
     for (int i = threadIdx.x; i < lanes * half; i += blockDim.x) {
         const int t = i / half, d = i - t * half;
         const T p = t == 0 ? prev[d]
@@ -268,10 +281,11 @@ unsigned long long resample_launches = 0;
 
 template <class T>
 int launch_step(const ResampleStepCfg* cfg, const void* x, void* y, void* ov_out,
-                const void* ov_in, int n, int C, cudaStream_t stream) {
+                const void* ov_in, int n, int C, int S, cudaStream_t stream) {
     static unsigned smem_done = 0;
-    if (cfg == nullptr || n < 1 || C < 1 || C > 65535 || cfg->in_len < 1 || cfg->out_len < 1 ||
-        cfg->tables_f == nullptr || cfg->tables_i == nullptr) {
+    if (cfg == nullptr || n < 1 || C < 1 || S < 1 || (long long)S * C > 65535 ||
+        cfg->in_len < 1 || cfg->out_len < 1 || cfg->tables_f == nullptr ||
+        cfg->tables_i == nullptr) {
         return (int)cudaErrorInvalidValue;
     }
     const int Nf = 2 * cfg->in_len, Ni = 2 * cfg->out_len;
@@ -292,7 +306,7 @@ int launch_step(const ResampleStepCfg* cfg, const void* x, void* y, void* ov_out
         if (e != cudaSuccess || sms < 1) return (int)(e != cudaSuccess ? e : cudaErrorInvalidValue);
     }
     const int P = pf.pass[0].P > pi.pass[0].P ? pf.pass[0].P : pi.pass[0].P;
-    int m = (int)(((long long)n * C + sms - 1) / sms);
+    int m = (int)(((long long)n * S * C + sms - 1) / sms);
     m = m < n ? m : n;
     while (m > 1 && (step_smem(m, Nf, Ni, cfg->out_len) > kSmemLimit ||
                      (long long)m * P > kBlockPoints)) {
@@ -328,6 +342,7 @@ int launch_step(const ResampleStepCfg* cfg, const void* x, void* y, void* ov_out
     a.in_len = cfg->in_len;
     a.out_len = cfg->out_len;
     a.n = n;
+    a.C = C;
     a.m = m;
     a.cluster = kMaxCluster < groups ? kMaxCluster : groups;
     cudaError_t err = allow_smem(resample_step_kernel<T>, &smem_done);
@@ -338,7 +353,8 @@ int launch_step(const ResampleStepCfg* cfg, const void* x, void* y, void* ov_out
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cudaLaunchConfig_t lc = {};
-    lc.gridDim = dim3((unsigned)((groups + a.cluster - 1) / a.cluster * a.cluster), (unsigned)C, 1);
+    lc.gridDim = dim3((unsigned)((groups + a.cluster - 1) / a.cluster * a.cluster),
+                      (unsigned)(S * C), 1);
     const int tf = pass_threads(m, pf.pass[0].P), ti = pass_threads(m, pi.pass[0].P);
     lc.blockDim = dim3((unsigned)(tf > ti ? tf : ti), 1, 1);
     lc.dynamicSmemBytes = (size_t)smem;
@@ -369,18 +385,18 @@ extern "C" int dsp_resample_fold_c128(const void* X, void* Y, const int* ptr, co
     return (int)cudaGetLastError();
 }
 
-// The step on n inner blocks of C channels: x [n in_len, C] and the carried
-// overlap ov_in [out_len, C] in, y [n out_len, C] and the overlap carried
-// out ov_out [out_len, C] out, all float64 (f32 = 0) or float32 (f32 = 1).
-// Returns a CUDA error code (0 on success); cudaErrorInvalidValue, with
-// nothing launched, where the plans are not one block pass each or do not
-// fit a block's shared memory. The caller checks shapes, dtypes and
-// contiguity.
+// The step on S streams of n inner blocks of C channels: x [S, n in_len, C]
+// and the carried overlap ov_in [S, out_len, C] in, y [S, n out_len, C] and
+// the overlap carried out ov_out [S, out_len, C] out, all float64 (f32 = 0)
+// or float32 (f32 = 1). Returns a CUDA error code (0 on success);
+// cudaErrorInvalidValue, with nothing launched, where the plans are not one
+// block pass each or do not fit a block's shared memory. The caller checks
+// shapes, dtypes and contiguity.
 extern "C" int dsp_resample_step(const ResampleStepCfg* cfg, const void* x, void* y, void* ov_out,
-                                 const void* ov_in, int n, int C, int f32, void* stream) {
+                                 const void* ov_in, int n, int C, int S, int f32, void* stream) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return f32 ? launch_step<float>(cfg, x, y, ov_out, ov_in, n, C, st)
-               : launch_step<double>(cfg, x, y, ov_out, ov_in, n, C, st);
+    return f32 ? launch_step<float>(cfg, x, y, ov_out, ov_in, n, C, S, st)
+               : launch_step<double>(cfg, x, y, ov_out, ov_in, n, C, S, st);
 }
 
 // The steps dsp_resample_step has launched in this process.

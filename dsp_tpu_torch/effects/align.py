@@ -41,12 +41,13 @@ class AlignEffect(Effect):
         L = self.maxlen
         if L == 0:
             return state, x
-        B = x.shape[0]
-        buf = torch.cat([state.to(x.dtype), x])  # [L+B, C]
+        B = x.shape[-2]
+        buf = torch.cat([state.to(x.dtype), x], dim=-2)  # [L+B, C] (or [S, L+B, C])
         # out[n, k] = buf[n + L - len[k], k]
         self._gather_idx = np.arange(B)[:, None] + (L - self.lens)[None, :]
-        y = torch.gather(buf, 0, self.device_array("_gather_idx", buf, torch.int64))
-        return buf[-L:].clone(), y
+        idx = self.device_array("_gather_idx", buf, torch.int64)
+        y = torch.gather(buf, -2, idx.expand(*buf.shape[:-2], B, buf.shape[-1]))
+        return buf[..., -L:, :].clone(), y
 
     def drain_samples(self, samples):
         for k in range(self.istream.channels):

@@ -5,7 +5,11 @@ arguments and precomputes coefficients (numpy/float64, like the reference's
 init functions). The compute path is ``step(state, x)`` on torch tensors:
 ``x`` is a ``[frames, in_channels]`` block on the chain's device, the return
 is ``(new_state, y)`` with ``y`` shaped ``[frames * ratio, out_channels]``.
-``step`` returns new tensors and leaves its inputs unchanged.
+``step`` returns new tensors and leaves its inputs unchanged. A split-safe
+effect's step also takes a stream axis, ``x`` as ``[S, frames,
+in_channels]`` and every state leaf with a leading S (split and batched
+processing, ``CompiledChain.process_array_split`` / ``process_batch``), so
+it reads the block length as ``x.shape[-2]`` and the channels on dim -1.
 
 State is a tensor, a tuple of tensors (``()`` when stateless), or a dict of
 them (the FFT convolution engines), carried across blocks (filter memories,
@@ -191,8 +195,9 @@ class Effect:
 
 
 class ChannelPick:
-    """Gather and scatter of the selected channels of a [B, C] block: the
-    torch form of dsp_tpu's ``x[:, sel_idx]`` and ``x.at[:, sel_idx].set(ys)``.
+    """Gather and scatter of the selected channels of a [B, C] (or
+    [S, B, C]) block: the torch form of dsp_tpu's ``x[:, sel_idx]`` and
+    ``x.at[:, sel_idx].set(ys)``.
 
     All channels in order pass the block itself; any other set uses an
     index tensor made once per device. No step builds an index on the host
@@ -212,10 +217,10 @@ class ChannelPick:
     def take(self, x):
         if self.all:
             return x
-        return x.index_select(1, self._index_on(x.device))
+        return x.index_select(-1, self._index_on(x.device))
 
     def put(self, x, ys):
         if self.all:
             return ys
         y = x.clone()
-        return y.index_copy_(1, self._index_on(x.device), ys)
+        return y.index_copy_(x.dim() - 1, self._index_on(x.device), ys)

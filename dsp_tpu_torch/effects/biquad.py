@@ -321,7 +321,8 @@ class BiquadEffect(Effect):
         return plan
 
     def step(self, state, x):
-        if x.shape[0] % iir.BLOCKED_L == 0 and x.shape[0] >= 2 * iir.BLOCKED_L:
+        B = x.shape[-2]
+        if B % iir.BLOCKED_L == 0 and B >= 2 * iir.BLOCKED_L:
             # blocked path (K1, K1-df under float32) from the host-precomputed
             # f64 tables
             return iir.lti_blocked(self._plan(), state, x)

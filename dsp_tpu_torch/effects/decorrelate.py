@@ -111,7 +111,7 @@ class DecorrelateEffect(Effect):
         return self._engine(B).state0()
 
     def step(self, state, x):
-        eng = self._engine(x.shape[0])
+        eng = self._engine(x.shape[-2])
         st, ys = eng.step(state, self._pick.take(x))
         return st, self._pick.put(x, ys)
 

@@ -176,9 +176,10 @@ class DelayEffect(Effect):
         A, Bv, c0 = (self.device_array(ss + k, x) for k in ("_A", "_Bv", "_c0"))
         new_states = []
         for s in range(self._sections.shape[0]):
-            st, x = iir.biquad_scan(A[s], Bv[s], c0[s], state[s], x)
+            # section s's [C, 2] state ([S, C, 2] with a stream axis)
+            st, x = iir.biquad_scan(A[s], Bv[s], c0[s], state.select(-3, s).contiguous(), x)
             new_states.append(st)
-        return torch.stack(new_states), x
+        return torch.stack(new_states, dim=-3), x
 
     def channel_offsets(self):
         lat = np.zeros(self.ostream.channels, dtype=np.int64)

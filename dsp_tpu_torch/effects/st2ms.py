@@ -21,11 +21,11 @@ class St2MsEffect(Effect):
         self.c0, self.c1 = int(idx[0]), int(idx[1])
 
     def step(self, state, x):
-        s0 = x[:, self.c0]
-        s1 = x[:, self.c1]
+        s0 = x[..., self.c0]
+        s1 = x[..., self.c1]
         y = x.clone()
-        y[:, self.c0] = (s0 + s1) * self.scale
-        y[:, self.c1] = (s0 - s1) * self.scale
+        y[..., self.c0] = (s0 + s1) * self.scale
+        y[..., self.c1] = (s0 - s1) * self.scale
         return state, y
 
     def channel_deps(self):

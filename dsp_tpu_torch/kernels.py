@@ -15,7 +15,10 @@ Each launch function here takes tensors the caller (``ops/iir.py``,
 function returns a CUDA error. None of them synchronises or allocates; K1,
 K11, matrix4_mb's K12-K13, K16's plain mode and K17 take the look-back
 scratch of ``lookback_scratch``, made once a device and stream (grown when
-a launch needs more).
+a launch needs more). The entries of K1, K2/K3, crossfeed's step, the runs,
+the FFT convolution's kernels and the resampler's step take a stream count
+S (split and batched processing): x [S, B, C] and each state led by S, the
+S streams in the one launch of a single stream.
 """
 
 import ctypes
@@ -80,12 +83,13 @@ BIQUAD_RUN_MAX_STAGES = 16  # csrc/biquad_scan.cu kMaxStages
 
 class BiquadRunStates(ctypes.Structure):
     """csrc/biquad_scan.cu's RunStates: a run's per-stage state pointers
-    in and out, the elements from one lane's state to the next, and from a
-    state's hi part to its lo part."""
+    in and out, the elements from one lane's state to the next, from a
+    state's hi part to its lo part, and from one stream's state to the
+    next."""
 
     _fields_ = [("inp", ctypes.c_void_p * BIQUAD_RUN_MAX_STAGES),
                 ("out", ctypes.c_void_p * BIQUAD_RUN_MAX_STAGES),
-                ("lane", ctypes.c_int), ("lo", ctypes.c_int)]
+                ("lane", ctypes.c_int), ("lo", ctypes.c_int), ("stream", ctypes.c_longlong)]
 
 
 class M4EvPtrs(ctypes.Structure):
@@ -228,38 +232,42 @@ class _Library:
                 lib = ctypes.CDLL(str(self.build()))
                 p, i = ctypes.c_void_p, ctypes.c_int
                 ll = ctypes.c_longlong
-                lib.dsp_lti_blocked_f64.argtypes = [p] * 12 + [ll, p, ll] + [i] * 6 + [p]
+                lib.dsp_lti_blocked_f64.argtypes = [p] * 12 + [ll, p, ll] + [i] * 7 + [p]
                 lib.dsp_lti_blocked_f64.restype = i
-                lib.dsp_lti_blocked_f32.argtypes = [p] * 13 + [ll, p, ll] + [i] * 6 + [p]
+                lib.dsp_lti_blocked_f32.argtypes = [p] * 13 + [ll, p, ll] + [i] * 7 + [p]
                 lib.dsp_lti_blocked_f32.restype = i
                 for fn in (lib.dsp_biquad_scan_f64, lib.dsp_biquad_scan_f32,
                            lib.dsp_biquad_scan_df, lib.dsp_biquad_scan_df1,
-                           lib.dsp_biquad_scan_f64_pair, lib.dsp_biquad_scan_series_f64):
-                    fn.argtypes = [p] * 7 + [i] * 2 + [p]
+                           lib.dsp_biquad_scan_f64_pair):
+                    fn.argtypes = [p] * 7 + [i] * 3 + [p]
                     fn.restype = i
+                lib.dsp_biquad_scan_series_f64.argtypes = [p] * 7 + [i] * 2 + [p]
+                lib.dsp_biquad_scan_series_f64.restype = i
                 lib.dsp_biquad_scan_run.argtypes = ([p] * 3 + [ctypes.POINTER(BiquadRunStates)]
-                                                    + [p] * 2 + [i] * 5 + [p])
+                                                    + [p] * 2 + [i] * 6 + [p])
                 lib.dsp_biquad_scan_run.restype = i
-                lib.dsp_crossfeed_step_f64.argtypes = [p] * 7 + [i] * 4 + [ctypes.c_double] * 2 + [p]
-                lib.dsp_crossfeed_step_f32.argtypes = [p] * 7 + [i] * 4 + [ctypes.c_float] * 2 + [p]
+                lib.dsp_crossfeed_step_f64.argtypes = ([p] * 7 + [i] * 5 + [ctypes.c_double] * 2
+                                                       + [p])
+                lib.dsp_crossfeed_step_f32.argtypes = ([p] * 7 + [i] * 5 + [ctypes.c_float] * 2
+                                                       + [p])
                 for fn in (lib.dsp_crossfeed_step_f64, lib.dsp_crossfeed_step_f32):
                     fn.restype = i
                 for fn in (lib.dsp_fdl_mac_c128, lib.dsp_fdl_mac_f32):
-                    fn.argtypes = [p] * 5 + [ctypes.c_longlong, i, p]
+                    fn.argtypes = [p] * 5 + [ctypes.c_longlong, i, i, p]
                     fn.restype = i
                 self.fdl_mac = (lib.dsp_fdl_mac_c128, lib.dsp_fdl_mac_f32)
                 for fn in (lib.dsp_rfft_pack_c128, lib.dsp_rfft_pack_f32):
-                    fn.argtypes = [p, p, p, ll, p, ll, i, p, ll, p, p, i, i, p]
+                    fn.argtypes = [p, p, p, ll, p, ll, i, p, ll, p, p, i, i, i, p]
                     fn.restype = i
                 for fn in (lib.dsp_irfft_crop_c128, lib.dsp_irfft_crop_f32):
-                    fn.argtypes = [p, p, p, p, p, ll, ll, p, i, i, p]
+                    fn.argtypes = [p, p, p, p, p, ll, ll, p, i, i, i, p]
                     fn.restype = i
                 for fn in (lib.dsp_splice_f64, lib.dsp_splice_f32):
-                    fn.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
+                    fn.argtypes = [p, p, p, ll, ll, ll, ll, i, i, ll, p]
                     fn.restype = i
                 d = ctypes.c_double
                 for fn in (lib.dsp_irfft_ola_f64, lib.dsp_irfft_ola_f32):
-                    fn.argtypes = [p] * 7 + [d, i, i, i, p]
+                    fn.argtypes = [p] * 7 + [d, i, i, i, i, p]
                     fn.restype = i
                 for fn in (lib.dsp_fft_launches, lib.dsp_lti_launches, lib.dsp_m4_env_launches,
                            lib.dsp_biquad_run_launches, lib.dsp_m4mb_audio_launches,
@@ -288,7 +296,7 @@ class _Library:
                     fn.restype = i
                 lib.dsp_resample_fold_c128.argtypes = [p] * 6 + [i, i, p]
                 lib.dsp_resample_fold_c128.restype = i
-                lib.dsp_resample_step.argtypes = [p] * 5 + [i, i, i, p]
+                lib.dsp_resample_step.argtypes = [p] * 5 + [i] * 4 + [p]
                 lib.dsp_resample_step.restype = i
                 lib.dsp_m4_env_f64.argtypes = [p] * 5 + [d, i, i, i, i, p, ll, p, ll, p]
                 lib.dsp_m4_env_f64.restype = i
@@ -373,16 +381,17 @@ def _scratch_args(scratch):
     return _ptr(flags), flags.numel() - 4, _ptr(agg), agg.numel()
 
 
-def launch_lti_blocked(x, y, state_in, state_out, tables, scratch, L, T, y_lo=None):
+def launch_lti_blocked(x, y, state_in, state_out, tables, scratch, L, T, S=1, y_lo=None):
     """float64 x, or float32 x with a float32 (hi, lo) state and, when
     y_lo is given, the (hi, lo) split of y; `tables` the (h, V, P, Qc, Qt,
     At, c0) of ops/iir.py lti_kernel_tables (At None when the last chunk
-    is whole), built for chunks of L samples and tiles of T chunks."""
-    B, C = x.shape
+    is whole), built for chunks of L samples and tiles of T chunks; x
+    [S, B, C] and the state [S, 2, C, n] for S streams."""
+    B, C = x.shape[-2:]
     h, V, P, Qc, Qt, At, c0 = tables
     n = Qc.shape[-1]
     tail = (_ptr(h), _ptr(V), _ptr(P), _ptr(Qc), _ptr(Qt), _ptr(At), _ptr(c0),
-            *_scratch_args(scratch), B, C, n, L, T, Qt.shape[1], _stream(x))
+            *_scratch_args(scratch), B, C, n, L, T, Qt.shape[1], S, _stream(x))
     if x.dtype == torch.float32:
         rc = load().dsp_lti_blocked_f32(_ptr(x), _ptr(y), _ptr(y_lo), _ptr(state_in),
                                         _ptr(state_out), *tail)
@@ -391,22 +400,23 @@ def launch_lti_blocked(x, y, state_in, state_out, tables, scratch, L, T, y_lo=No
     _check(rc, "lti_blocked")
 
 
-def launch_biquad_scan(A, Bv, c0, state_in, state_out, x, y):
-    """K2 on float64 (a [C, 2] state, or a [2, C, 2] (hi, lo) one) or
-    float32 (coefficients of x's dtype), or K3 (float64 coefficients,
-    float32 x and a [2, C, 2] (hi, lo) state or a single [C, 2] float32
-    state)."""
-    B, C = x.shape
+def launch_biquad_scan(A, Bv, c0, state_in, state_out, x, y, S=1, pair=False):
+    """K2 on float64 (a [C, 2] state, or with pair a [2, C, 2] (hi, lo)
+    one) or float32 (coefficients of x's dtype), or K3 (float64
+    coefficients, float32 x and a [2, C, 2] (hi, lo) state or a single
+    [C, 2] float32 state); x [S, B, C] and each state with a leading S for
+    S streams."""
+    B, C = x.shape[-2:]
     if x.dtype == torch.float64:
-        fn = load().dsp_biquad_scan_f64 if state_in.dim() == 2 else load().dsp_biquad_scan_f64_pair
+        fn = load().dsp_biquad_scan_f64_pair if pair else load().dsp_biquad_scan_f64
     elif A.dtype == torch.float32:
         fn = load().dsp_biquad_scan_f32
-    elif state_in.dim() == 2:
-        fn = load().dsp_biquad_scan_df1
-    else:
+    elif pair:
         fn = load().dsp_biquad_scan_df
+    else:
+        fn = load().dsp_biquad_scan_df1
     rc = fn(_ptr(A), _ptr(Bv), _ptr(c0), _ptr(state_in), _ptr(state_out), _ptr(x), _ptr(y),
-            B, C, _stream(x))
+            B, C, S, _stream(x))
     _check(rc, "biquad_scan")
 
 
@@ -419,20 +429,22 @@ def launch_biquad_scan_series(A, Bv, c0, state_in, state_out, x, y):
     _check(rc, "biquad_scan_series")
 
 
-def launch_biquad_scan_run(A, Bv, c0, states, out, x, y, lane, lo, pair):
+def launch_biquad_scan_run(A, Bv, c0, states, out, x, y, lane, lo, stream, pair):
     """A run of n = len(states) stages in series on float64 or float32 x
     (csrc/biquad_scan.cu dsp_biquad_scan_run): A [n, C, 2, 2], Bv [n, C, 2],
     c0 [n, C] float64; states and out each stage's state in and out, whose
     lanes sit `lane` elements apart and, with pair, each lo `lo` elements
-    after its hi."""
-    B, C = x.shape
+    after its hi; x [S, B, C] for S streams, each stream's states `stream`
+    elements after the one before's."""
+    B, C = x.shape[-2:]
+    S = x.shape[0] if x.dim() == 3 else 1
     n = len(states)
     st = BiquadRunStates()
     st.inp[:n] = [t.data_ptr() for t in states]
     st.out[:n] = [t.data_ptr() for t in out]
-    st.lane, st.lo = lane, lo
+    st.lane, st.lo, st.stream = lane, lo, stream
     rc = load().dsp_biquad_scan_run(A.data_ptr(), Bv.data_ptr(), c0.data_ptr(), ctypes.byref(st),
-                                    x.data_ptr(), y.data_ptr(), B, C, n,
+                                    x.data_ptr(), y.data_ptr(), B, C, n, S,
                                     int(x.dtype == torch.float32), int(pair), _stream(x))
     if rc:
         _check(rc, "biquad_scan_run")
@@ -447,62 +459,74 @@ def biquad_run_launches():
 
 def launch_crossfeed_step(A, Bv, c0, state_in, state_out, x, out, col0, col1, direct, cross):
     """crossfeed's step on float64 or float32 x (coefficients, state and
-    gains of x's dtype)."""
-    B, C = x.shape
+    gains of x's dtype); x [S, B, C] and the state [S, 4, 2] for S
+    streams."""
+    B, C = x.shape[-2:]
+    S = x.shape[0] if x.dim() == 3 else 1
     fn = load().dsp_crossfeed_step_f32 if x.dtype == torch.float32 else load().dsp_crossfeed_step_f64
     rc = fn(_ptr(A), _ptr(Bv), _ptr(c0), _ptr(state_in), _ptr(state_out), _ptr(x), _ptr(out), B, C,
-            col0, col1, direct, cross, _stream(x))
+            S, col0, col1, direct, cross, _stream(x))
     _check(rc, "crossfeed_step")
 
 
 def launch_fdl_mac(X, H, fdl_in, Y, fdl_out, f32=False):
     """f32: the FDL as float32 (re, im) pairs (or none, for an overlap-save
-    step of a float32 chain). The C entries are bound once, at load."""
+    step of a float32 chain); X [S, NB, C] and the FDL [S, K, NB, C, 2]
+    for S streams against the one H. The C entries are bound once, at
+    load."""
     load()
+    S = X.shape[0] if X.dim() == 3 else 1
     rc = LIBRARY.fdl_mac[f32](_ptr(X), _ptr(H), _ptr(fdl_in), _ptr(Y), _ptr(fdl_out), X.numel(),
-                              H.shape[0], torch._C._cuda_getCurrentRawStream(X.get_device()))
+                              H.shape[0], S, torch._C._cuda_getCurrentRawStream(X.get_device()))
     if rc:
         _check(rc, "fdl_mac")
 
 
-def launch_rfft_pack(plan, tables, a, x, Lx, blocks, kept, X, work):
+def launch_rfft_pack(plan, tables, a, x, Lx, blocks, kept, X, work, grouped_out=False):
     """plan: ops/fft_conv.FftPlan of X's N and columns; tables its
-    fft_tables on the card; x [blocks * Lx, C / blocks]; kept [keep, C] or
-    None."""
+    fft_tables on the card; x `blocks` groups of Lx rows, [blocks, Lx,
+    C / blocks] (inner blocks, or streams), a [blocks, La, C / blocks] and
+    kept [blocks, keep, C / blocks] or None; X [N//2+1, C], or with
+    grouped_out a group at a time, [blocks, N//2+1, C / blocks]."""
     fn = load().dsp_rfft_pack_f32 if x.dtype == torch.float32 else load().dsp_rfft_pack_c128
     rc = fn(
-        plan.c_plan, tables.data_ptr(), a.data_ptr(), a.shape[0], x.data_ptr(), Lx, blocks,
-        _ptr(kept), 0 if kept is None else kept.shape[0], X.data_ptr(), _ptr(work), plan.N,
-        plan.C, _stream(x),
+        plan.c_plan, tables.data_ptr(), a.data_ptr(), a.shape[-2], x.data_ptr(), Lx, blocks,
+        _ptr(kept), 0 if kept is None else kept.shape[-2], X.data_ptr(), _ptr(work), plan.N,
+        plan.C, int(grouped_out), _stream(x),
     )
     _check(rc, "rfft_pack")
 
 
-def launch_irfft_crop(plan, tables, Y, work, out, lo, add):
+def launch_irfft_crop(plan, tables, Y, work, out, lo, add, ch):
+    """Y [G, N//2+1, ch], out and add [G, L, ch]: plan.C = G·ch columns,
+    ch a group (G streams)."""
     fn = load().dsp_irfft_crop_f32 if out.dtype == torch.float32 else load().dsp_irfft_crop_c128
     rc = fn(
-        plan.c_plan, tables.data_ptr(), Y.data_ptr(), _ptr(work), out.data_ptr(), lo, out.shape[0],
-        _ptr(add), plan.N, plan.C, _stream(Y),
+        plan.c_plan, tables.data_ptr(), Y.data_ptr(), _ptr(work), out.data_ptr(), lo,
+        out.shape[-2], _ptr(add), plan.N, plan.C, ch, _stream(Y),
     )
     _check(rc, "irfft_crop")
 
 
-def launch_irfft_ola(plan, tables, Y, work, y, ov_out, ov_in, ratio):
-    """y, ov_out and ov_in float64 (irfft_ola) or float32 (irfft_ola_f32)."""
+def launch_irfft_ola(plan, tables, Y, work, y, ov_out, ov_in, ratio, n):
+    """y, ov_out and ov_in float64 (irfft_ola) or float32 (irfft_ola_f32);
+    Y's columns are streams of n inner blocks each, ov_in and ov_out [S,
+    N//2, ch] (S = 1: [N//2, ch])."""
     f32 = y.dtype == torch.float32
     fn = load().dsp_irfft_ola_f32 if f32 else load().dsp_irfft_ola_f64
     rc = fn(
         plan.c_plan, tables.data_ptr(), Y.data_ptr(), _ptr(work), y.data_ptr(), ov_out.data_ptr(),
-        ov_in.data_ptr(), ratio, plan.N, plan.C, ov_in.shape[1], _stream(Y),
+        ov_in.data_ptr(), ratio, plan.N, plan.C, ov_in.shape[-1], n, _stream(Y),
     )
     _check(rc, "irfft_ola_f32" if f32 else "irfft_ola")
 
 
-def launch_resample_step(cfg, x_ptr, y, ov_out, ov_ptr, n, C, f32, device):
+def launch_resample_step(cfg, x_ptr, y, ov_out, ov_ptr, n, C, S, f32, device):
     """cfg: the address of the resampler's ResampleStepCfg on `device`;
     x_ptr and ov_ptr the checked addresses of x and the carried overlap;
-    y and ov_out the outputs (views of one buffer)."""
-    rc = load().dsp_resample_step(cfg, x_ptr, y.data_ptr(), ov_out.data_ptr(), ov_ptr, n, C,
+    y and ov_out the outputs (views of one buffer); S streams of n inner
+    blocks of C channels."""
+    rc = load().dsp_resample_step(cfg, x_ptr, y.data_ptr(), ov_out.data_ptr(), ov_ptr, n, C, S,
                                   f32, torch._C._cuda_getCurrentRawStream(device))
     if rc:
         _check(rc, "resample_step")
@@ -548,9 +572,12 @@ def meter_launches():
 
 
 def launch_splice(a, x, out, L, lo, shift):
+    """a [S, La, C], x [S, Lx, C] and out [S, L, C] for S streams (or
+    without the leading S)."""
     fn = load().dsp_splice_f32 if x.dtype == torch.float32 else load().dsp_splice_f64
-    rc = fn(a.data_ptr(), x.data_ptr(), out.data_ptr(), L, x.shape[0], lo, shift, x.shape[1],
-            _stream(x))
+    S = x.shape[0] if x.dim() == 3 else 1
+    rc = fn(a.data_ptr(), x.data_ptr(), out.data_ptr(), L, x.shape[-2], lo, shift, x.shape[-1],
+            S, a.shape[-2], _stream(x))
     _check(rc, "splice")
 
 

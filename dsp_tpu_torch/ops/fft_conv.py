@@ -50,6 +50,19 @@ Each engine uploads its complex128 spectra once per device (``spectra``):
 an upload per block would copy up to tens of MB host to device every step.
 NupolsConv decides its fire on the host, from a block counter that is a CPU
 int32 tensor (``cnt``, dsp_tpu's leaf), so a step never waits on the card.
+
+The stream axis (split and batched processing): every engine's step takes
+x as [S, B, C] as well as [B, C], each state leaf then with a leading S
+(``prev`` [S, B, C], ``fdl`` [S, K, B+1, C, 2], ...), but for Nupols'
+``cnt``, which stays one 0-dim counter for all S streams: the streams of a
+split or a batch all sit at the same block index, so one counter decides
+every stream's fire. The four wrappers take the same axis: rfft_pack's a
+[S, La, C] and x [S, Lx, C] give X [S, N//2+1, C] and the kept rows
+[S, keep, C]; fdl_mac's X and Y [S, NB, C] and FDL [S, K, NB, C, 2] run
+against the one H [K, NB, C] of the filter, shared by the streams;
+irfft_crop's Y [S, NB, C] and add [S, L, C] give [S, L, C]; splice's a and
+x [S, ...] give [S, L, C]. A CUDA tensor runs the S streams in the one
+launch of a one-stream call; each plain version loops over the streams.
 """
 
 import ctypes
@@ -60,6 +73,29 @@ import numpy as np
 import torch
 
 from dsp_tpu_torch import kernels
+
+
+def _stack_tree(items):
+    """Tensors, or equal tuples and lists of them, stacked item by item,
+    each stream keeping an item's memory layout: torch.fft returns a
+    transform along dim 0 column-major, and torch's complex product rounds
+    an element by the layout it walks, so a stream of the stack must lie
+    as a one-stream result lies."""
+    first = items[0]
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack_tree([it[k] for it in items]) for k in range(len(first)))
+    if first is None:
+        return None
+    if first.dim() == 2 and first.shape[1] > 1 and first.stride() == (1, first.shape[0]):
+        return torch.stack([t.t() for t in items]).transpose(1, 2)
+    return torch.stack(items)
+
+
+def each_stream(fn, state, x):
+    """The plain versions' stream axis: fn(state[s], x[s]) for each stream s
+    of x [S, ...], its results (tensors, or tuples of them) stacked, so that
+    stream s is the bits of a one-stream call."""
+    return _stack_tree([fn(state[s], x[s]) for s in range(x.shape[0])])
 
 
 def next_fast_len(n):
@@ -121,7 +157,7 @@ class OlsConv(_Spectra):
         return np.zeros((self.hist, self.C), dtype=np.float64)
 
     def step(self, state, x):
-        B = x.shape[0]
+        B = x.shape[-2]
         if B != self.B:
             raise ValueError(f"OlsConv: block of {B} frames, built for {self.B}")
         hist = state.to(x.dtype)
@@ -166,8 +202,8 @@ class UpolsConv(_Spectra):
         """One block; `add` ([B, C] or None) is added to the output (the
         Nupols tail's contribution)."""
         B = self.B
-        if x.shape[0] != B:
-            raise ValueError(f"UpolsConv: block of {x.shape[0]} frames, built for {B}")
+        if x.shape[-2] != B:
+            raise ValueError(f"UpolsConv: block of {x.shape[-2]} frames, built for {B}")
         prev = state["prev"].to(x.dtype)
         # [B+1, C], and the engine's own copy of the block as the next prev
         X, new_prev = rfft_pack(prev, x, self.N, keep=B)
@@ -183,7 +219,9 @@ class NupolsConv(_Spectra):
     P = m*B over taps [P, F), fired on the last block of each super-block of
     m chain blocks. The block index within the super-block, ``cnt``, is a
     CPU int32 tensor: the host reads it every block without waiting on the
-    device, and a checkpoint keeps dsp_tpu's int32 leaf.
+    device, and a checkpoint keeps dsp_tpu's int32 leaf. With a stream axis
+    every other leaf has a leading S and ``cnt`` stays one 0-dim counter
+    for all streams.
     """
 
     def __init__(self, filters, block_frames, super_mult):
@@ -219,13 +257,17 @@ class NupolsConv(_Spectra):
 
     def step(self, state, x):
         B, P, m = self.B, self.P, self.m
-        if x.shape[0] != B:
-            raise ValueError(f"NupolsConv: block of {x.shape[0]} frames, built for {B}")
-        i = int(state["cnt"])  # a CPU tensor: no device read
+        if x.shape[-2] != B:
+            raise ValueError(f"NupolsConv: block of {x.shape[-2]} frames, built for {B}")
+        # a CPU tensor: no device read; one counter for every stream of x
+        # [S, B, C], which all sit at the same block index
+        i = int(state["cnt"])
         if not 0 <= i < m:
             raise ValueError(f"NupolsConv: block counter {i} outside [0, {m})")
         off = i * B
-        tail_seg = state["tail_out"].to(x.dtype)[off : off + B]
+        tail_seg = state["tail_out"].to(x.dtype)[..., off : off + B, :]
+        if x.dim() == 3:  # rows of each stream: a copy, as irfft_crop reads its addend whole
+            tail_seg = tail_seg.contiguous()
         hstate, out = self.head.step(state["head"], x, add=tail_seg)  # y_head + tail_seg
         stage = splice(state["stage"].to(x.dtype), x, P, off, 0)  # x written at rows [off, off+B)
         last = i == m - 1
@@ -451,8 +493,10 @@ def rfft_pack(a, x, N, keep=None, blocks=1):
     or float32 (then this is rfft_pack_f32). With `keep` (an int), returns
     (X, the last keep rows of [a | x] as a new tensor). With blocks > 1, x
     is `blocks` inner blocks [blocks·Lx, ch] (a empty) and the columns are
-    block-major: C = blocks·ch. CPU tensors run rfft_pack_ref; CUDA tensors
-    launch csrc/fft_conv.cu."""
+    block-major: C = blocks·ch. With a stream axis (a [S, La, C], x
+    [S, Lx, C]; blocks 1) X is [S, N//2+1, C] and the kept rows [S, keep,
+    C]. CPU tensors run rfft_pack_ref; CUDA tensors launch
+    csrc/fft_conv.cu."""
     if x.dtype == torch.float32:
         return rfft_pack_f32(x, N, a, keep, blocks)
     if x.is_cpu:
@@ -477,7 +521,10 @@ def _kept(a, x, keep):
 
 def rfft_pack_ref(a, x, N, keep=None, blocks=1):
     """Plain PyTorch version of rfft_pack: dsp_tpu's concatenate, then
-    rfft; the kept rows by splice_ref."""
+    rfft; the kept rows by splice_ref; a [S, La, C] and x [S, Lx, C] a
+    stream at a time (X [S, N//2+1, C], the kept rows [S, keep, C])."""
+    if x.dim() == 3:
+        return each_stream(lambda a_s, x_s: rfft_pack_ref(a_s, x_s, N, keep), a, x)
     xs = _columns(x, blocks) if blocks > 1 else torch.cat([a, x])
     X = torch.fft.rfft(xs, n=N, dim=0)
     return X if keep is None else (X, _kept(a, x, keep))
@@ -490,7 +537,7 @@ def rfft_pack_f32(x, N, a=None, keep=None, blocks=1):
     transform, in place of dsp_tpu's complex64 rfft and two-float32 DFT.
     `keep` and `blocks` as for rfft_pack (the kept rows float32). CPU
     tensors run rfft_pack_f32_ref; CUDA tensors launch csrc/fft_conv.cu."""
-    a = x[:0] if a is None else a
+    a = x[..., :0, :] if a is None else a
     for t in (a, x):
         if t.dtype != torch.float32:
             raise TypeError(f"rfft_pack_f32: the kernel takes torch.float32, got {t.dtype}")
@@ -504,37 +551,50 @@ rfft_pack_f32.launches = 0
 
 def rfft_pack_f32_ref(x, N, a=None, keep=None, blocks=1):
     """Plain PyTorch version of rfft_pack_f32: the rfft of the upcast
-    [a | x]; the kept rows by splice_ref."""
+    [a | x]; the kept rows by splice_ref; a [S, La, C] and x [S, Lx, C]
+    a stream at a time."""
+    if x.dim() == 3:
+        a = x[:, :0] if a is None else a
+        return each_stream(lambda a_s, x_s: rfft_pack_f32_ref(x_s, N, a_s, keep), a, x)
     xs = _columns(x, blocks) if a is None or blocks > 1 else torch.cat([a, x])
     X = torch.fft.rfft(xs.double(), n=N, dim=0)
     return X if keep is None else (X, _kept(x[:0] if a is None else a, x, keep))
 
 
 def _launch_rfft_pack(wrapper, a, x, N, keep, blocks, dtype):
+    """x [S, Lx, ch] runs as S groups of columns (the kernel's blocks, a and
+    the kept rows read and written a group at a time), X stored a group at
+    a time: [S, N//2+1, ch]."""
     name = wrapper.__name__
     _check_cuda(name, x, (a, dtype), (x, dtype), align=x.element_size())
-    La, Lx = a.shape[0], x.shape[0] // max(blocks, 1)
+    S = x.shape[0] if x.dim() == 3 else 0
+    La, Lx = a.shape[-2], x.shape[-2] // max(blocks, 1)
     k = 0 if keep is None else keep
-    if (x.dim() != 2 or a.dim() != 2 or a.shape[1] != x.shape[1] or blocks < 1
-            or Lx * blocks != x.shape[0] or La + Lx > N or not 0 <= k <= La + Lx
+    if (x.dim() not in (2, 3) or a.dim() != x.dim() or a.shape[:-2] != x.shape[:-2]
+            or a.shape[-1] != x.shape[-1] or blocks < 1 or (S and blocks > 1)
+            or Lx * blocks != x.shape[-2] or La + Lx > N or not 0 <= k <= La + Lx
             or (blocks > 1 and (La or k))):
         raise ValueError(f"{name}: a {tuple(a.shape)}, x {tuple(x.shape)}, blocks {blocks}, "
                          f"keep {keep} at N = {N}")
-    C = x.shape[1] * blocks
+    ch = x.shape[-1]
+    groups = S or blocks
+    C = ch * groups
     plan = fft_plan(N, C)
-    X = x.new_empty((N // 2 + 1, C), dtype=torch.complex128)
-    kept = x.new_empty((k, x.shape[1])) if k else None
-    kernels.launch_rfft_pack(plan, _tables_on(N, x.get_device()), a, x, Lx, blocks, kept, X,
-                             plan.work(x))
+    lead = x.shape[:-2]
+    X = x.new_empty((*lead, N // 2 + 1, ch if S else C), dtype=torch.complex128)
+    kept = x.new_empty((*lead, k, ch)) if k else None
+    kernels.launch_rfft_pack(plan, _tables_on(N, x.get_device()), a, x, Lx, groups, kept, X,
+                             plan.work(x), grouped_out=bool(S))
     wrapper.launches += 1
     if keep is None:
         return X
-    return X, x.new_empty((0, x.shape[1])) if kept is None else kept
+    return X, x.new_empty((*lead, 0, ch)) if kept is None else kept
 
 
 def irfft_crop(Y, N, lo, L, add=None, dtype=torch.float64):
     """Rows [lo, lo+L) of irfft(Y, n=N) along axis 0 (Y: [N//2+1, C]
     complex128), plus `add` ([L, C] float64) when given: [L, C] float64.
+    With a stream axis, Y [S, N//2+1, C] and add [S, L, C] give [S, L, C].
     With dtype float32 (the samples' dtype) this is irfft_crop_f32. CPU
     tensors run irfft_crop_ref; CUDA tensors launch csrc/fft_conv.cu."""
     if dtype == torch.float32:
@@ -549,7 +609,12 @@ irfft_crop.launches = 0
 
 
 def irfft_crop_ref(Y, N, lo, L, add=None):
-    """Plain PyTorch version of irfft_crop: dsp_tpu's irfft, slice, add."""
+    """Plain PyTorch version of irfft_crop: dsp_tpu's irfft, slice, add; Y
+    [S, NB, C] and add [S, L, C] a stream at a time."""
+    if Y.dim() == 3:
+        if add is None:
+            return _stack_tree([irfft_crop_ref(Ys, N, lo, L) for Ys in Y])
+        return each_stream(lambda a_s, Y_s: irfft_crop_ref(Y_s, N, lo, L, a_s), add, Y)
     y = torch.fft.irfft(Y, n=N, dim=0)[lo : lo + L]
     return y if add is None else y + add
 
@@ -577,15 +642,18 @@ def irfft_crop_f32_ref(Y, N, lo, L, add=None):
 def _launch_irfft_crop(wrapper, Y, N, lo, L, add, dtype):
     name = wrapper.__name__
     _check_cuda(name, Y, (Y, torch.complex128), *(() if add is None else ((add, dtype),)))
-    C = Y.shape[1]
-    if Y.dim() != 2 or Y.shape[0] != N // 2 + 1 or not (0 <= lo and L > 0 and lo + L <= N):
+    ch, lead = Y.shape[-1], tuple(Y.shape[:-2])
+    if (Y.dim() not in (2, 3) or Y.shape[-2] != N // 2 + 1
+            or not (0 <= lo and L > 0 and lo + L <= N)):
         raise ValueError(f"{name}: Y {tuple(Y.shape)}, rows [{lo}, {lo + L}) at N = {N}")
-    if add is not None and tuple(add.shape) != (L, C):
-        raise ValueError(f"{name}: add {tuple(add.shape)}, expected {(L, C)}")
-    plan = fft_plan(N, C)
-    out = Y.new_empty((L, C), dtype=dtype)
+    if add is not None and tuple(add.shape) != (*lead, L, ch):
+        raise ValueError(f"{name}: add {tuple(add.shape)}, expected {(*lead, L, ch)}")
+    # the S streams' columns as one transform of S·ch columns, each stream's
+    # rows read and written a group at a time
+    plan = fft_plan(N, ch * (lead[0] if lead else 1))
+    out = Y.new_empty((*lead, L, ch), dtype=dtype)
     kernels.launch_irfft_crop(plan, _tables_on(N, Y.get_device()), Y, plan.work(Y), out, lo,
-                              add)
+                              add, ch)
     wrapper.launches += 1
     return out
 
@@ -595,8 +663,9 @@ def splice(a, x, L, lo, shift):
     a[n + shift]: the last L rows of [a | x] (lo = L - len(x),
     shift = len(a) + len(x) - L), or a copy of a with x written at row lo
     (shift = 0). Always a new tensor, of a's and x's dtype: float64, or
-    float32 (then this is splice_f32). CPU tensors run splice_ref; CUDA
-    tensors launch csrc/fft_conv.cu."""
+    float32 (then this is splice_f32). With a stream axis (a [S, La, C], x
+    [S, Lx, C]) the rows are each stream's: [S, L, C]. CPU tensors run
+    splice_ref; CUDA tensors launch csrc/fft_conv.cu."""
     if x.dtype == torch.float32:
         return splice_f32(a, x, L, lo, shift)
     if x.is_cpu:
@@ -634,22 +703,26 @@ def _launch_splice(wrapper, a, x, L, lo, shift):
             or (a.data_ptr() | x.data_ptr()) % x.element_size()):
         raise ValueError(f"{wrapper.__name__}: tensors must be contiguous and aligned")
     # out reads a at rows [0, lo_c) and [hi_c, L), each shifted by `shift`
-    La, Lx = a.shape[0], x.shape[0]
+    La, Lx = a.shape[-2], x.shape[-2]
     lo_c = 0 if lo < 0 else L if lo > L else lo
     hi_c = 0 if lo + Lx < 0 else L if lo + Lx > L else lo + Lx
-    if (x.dim() != 2 or a.dim() != 2 or a.shape[1] != x.shape[1] or L <= 0
+    if (x.dim() not in (2, 3) or a.dim() != x.dim() or a.shape[:-2] != x.shape[:-2]
+            or a.shape[-1] != x.shape[-1] or L <= 0
             or (lo_c > 0 and not (0 <= shift and lo_c + shift <= La))
             or (hi_c < L and not (0 <= hi_c + shift and L + shift <= La))):
         raise ValueError(f"{wrapper.__name__}: a {tuple(a.shape)}, x {tuple(x.shape)}, L {L}, "
                          f"lo {lo}, shift {shift}")
-    out = x.new_empty((L, x.shape[1]))
+    out = x.new_empty((*x.shape[:-2], L, x.shape[-1]))
     kernels.launch_splice(a, x, out, L, lo, shift)
     wrapper.launches += 1
     return out
 
 
 def splice_ref(a, x, L, lo, shift):
-    """Plain PyTorch version of splice: slices of a and x, concatenated."""
+    """Plain PyTorch version of splice: slices of a and x, concatenated;
+    a [S, La, C] and x [S, Lx, C] a stream at a time."""
+    if x.dim() == 3:
+        return torch.stack([splice_ref(a[s], x[s], L, lo, shift) for s in range(x.shape[0])])
     lo_c = min(max(lo, 0), L)
     hi_c = min(max(lo + x.shape[0], 0), L)
     return torch.cat([a[shift : shift + lo_c], x[lo_c - lo : hi_c - lo], a[hi_c + shift : L + shift]])
@@ -664,9 +737,10 @@ def fdl_mac(X, H, fdl_in=None, dtype=torch.float64):
     X: [NB, C] complex; H: [K, NB, C] complex; fdl_in: [K, NB, C, 2] real,
     the (re, im) pairs of dsp_tpu's state, or None when there is no delay
     line (K = 1, OlsConv). Returns (Y [NB, C], FDL_out [K, NB, C, 2] or
-    None). X and H are complex128, fdl_in float64; with dtype float32 (the
-    samples' dtype) this is fdl_mac_f32. CPU tensors run fdl_mac_ref; CUDA
-    tensors launch csrc/fdl_mac.cu."""
+    None). With a stream axis X and Y are [S, NB, C] and the FDL [S, K, NB,
+    C, 2], against the one H of the filter. X and H are complex128, fdl_in
+    float64; with dtype float32 (the samples' dtype) this is fdl_mac_f32.
+    CPU tensors run fdl_mac_ref; CUDA tensors launch csrc/fdl_mac.cu."""
     if dtype == torch.float32:
         return fdl_mac_f32(X, H, fdl_in)
     if X.is_cuda:
@@ -728,14 +802,20 @@ def _launch_fdl_mac(wrapper, X, H, fdl_in, fdl_dtype):
 
 def fdl_mac_f32_ref(X, H, fdl_in=None):
     """Plain PyTorch version of fdl_mac_f32: fdl_mac_ref on the upcast
-    FDL, the shifted FDL rounded to float32."""
+    FDL, the shifted FDL rounded to float32 (X [S, NB, C] a stream at a
+    time, by fdl_mac_ref)."""
     Y, fdl = fdl_mac_ref(X, H, None if fdl_in is None else fdl_in.double())
     return Y, None if fdl is None else fdl.float()
 
 
 def fdl_mac_ref(X, H, fdl_in=None):
     """Plain PyTorch version of fdl_mac (any device): dsp_tpu's
-    concatenate-then-sum (fft_conv.py:99, :145-151, :225-233)."""
+    concatenate-then-sum (fft_conv.py:99, :145-151, :225-233); X [S, NB, C]
+    and the FDL [S, K, NB, C, 2] a stream at a time, against the one H."""
+    if X.dim() == 3:
+        if fdl_in is None:
+            return _stack_tree([fdl_mac_ref(Xs, H)[0] for Xs in X]), None
+        return each_stream(lambda f_s, X_s: fdl_mac_ref(X_s, H, f_s), fdl_in, X)
     if fdl_in is None:
         if H.shape[0] != 1:
             raise ValueError(f"fdl_mac: no delay line given for K = {H.shape[0]}")
@@ -796,12 +876,13 @@ def _launch_ptrs(name, like, named, specs):
 
 def _check_fdl_mac_shapes(X, H, fdl_in):
     """Raise unless the shapes fit the fdl_mac kernel."""
-    if X.dim() != 2 or H.dim() != 3 or tuple(H.shape[1:]) != tuple(X.shape):
+    if X.dim() not in (2, 3) or H.dim() != 3 or tuple(H.shape[1:]) != tuple(X.shape[-2:]):
         raise ValueError(f"fdl_mac: X {tuple(X.shape)} and H {tuple(H.shape)} do not fit")
-    NB, C = X.shape
+    NB, C = X.shape[-2:]
     K = H.shape[0]
+    want = (*X.shape[:-2], K, NB, C, 2)
     if fdl_in is None:
         if K != 1:
             raise ValueError(f"fdl_mac: no delay line given for K = {K}")
-    elif tuple(fdl_in.shape) != (K, NB, C, 2):
-        raise ValueError(f"fdl_mac: fdl {tuple(fdl_in.shape)}, expected {(K, NB, C, 2)}")
+    elif tuple(fdl_in.shape) != want:
+        raise ValueError(f"fdl_mac: fdl {tuple(fdl_in.shape)}, expected {want}")

@@ -42,6 +42,16 @@ function at least as accurately from the plan's float64 tables, with none
 of dsp_tpu's hi/lo table splits or df carry; its outputs are not dsp_tpu
 float32's bit for bit.
 
+The stream axis (split and batched processing, ``CompiledChain.
+process_array_split`` and ``process_batch``): K1, K2 (``biquad_scan``,
+``biquad_scan_f32``, ``biquad_scan_pair``), K3 (``biquad_scan_df``),
+crossfeed's step and the runs take x as [S, B, C] as well as [B, C], S
+independent streams, each state then with a leading S ([S, 2, C, n],
+[S, C, 2], [S, 2, C, 2], [S, 4, 2]). The streams share the coefficients
+and tables (indexed by channel, never tiled into S copies), and a CUDA
+tensor runs all S streams in the one launch of S = 1; each plain version
+loops over the streams, so that stream s is the bits of a one-stream call.
+
 Each wrapper checks the dtypes it takes, then dispatches on the tensor's
 device only: a CPU tensor runs the plain version (``*_ref``), a CUDA
 tensor launches the CUDA kernel (``dsp_tpu_torch/csrc/``) or raises. Each
@@ -57,7 +67,7 @@ unchanged.
 import numpy as np
 import torch
 
-from dsp_tpu_torch.ops.fft_conv import _check_dtypes
+from dsp_tpu_torch.ops.fft_conv import _check_dtypes, each_stream
 
 # chunk length of the blocked kernel; block sizes must be multiples of this
 # (and >= 2*BLOCKED_L) to take the blocked path (see BiquadEffect.step and
@@ -392,8 +402,10 @@ def lti_blocked(plan, state, x):
 
     state: [2, C, n] (hi, lo); x: [B, C] with B a multiple of plan.L, both
     float64, or both float32 (then this is lti_blocked_f32). Returns
-    (state' [2, C, n] with lo = 0 in float64, y [B, C]). CPU tensors run
-    lti_blocked_ref; CUDA tensors launch csrc/lti_blocked.cu."""
+    (state' [2, C, n] with lo = 0 in float64, y [B, C]). With a stream
+    axis, x [S, B, C] and state [S, 2, C, n]: the S streams share the
+    plan's tables and the partition of one stream, in one launch. CPU
+    tensors run lti_blocked_ref; CUDA tensors launch csrc/lti_blocked.cu."""
     if x.dtype == torch.float32:
         return lti_blocked_f32(plan, state, x)
     _check_dtypes("lti_blocked", (x, torch.float64), (state, torch.float64))
@@ -433,26 +445,32 @@ def lti_blocked_df(plan, state, x):
 def _launch_lti_blocked(wrapper, plan, state, x, df_out):
     from dsp_tpu_torch import kernels
 
-    B, C = _check_cuda(wrapper.__name__, x, state)
+    S, B, C = _check_cuda(wrapper.__name__, x, state)
     L, n = plan.L, plan.n
     if C != plan.C or B % L:
         raise ValueError(f"{wrapper.__name__}: x {tuple(x.shape)} does not fit a plan of "
                          f"C={plan.C}, L={L}")
-    if tuple(state.shape) != (2, C, n):
-        raise ValueError(f"{wrapper.__name__}: state {tuple(state.shape)}, expected {(2, C, n)}")
+    want = (*x.shape[:-2], 2, C, n)
+    if tuple(state.shape) != want:
+        raise ValueError(f"{wrapper.__name__}: state {tuple(state.shape)}, expected {want}")
+    # the partition of one stream at any S: a stream's tiles and their
+    # sums are those of a one-stream call
     Lk, T, _, ntiles, _ = lti_partition(plan, B)
     y = torch.empty_like(x)
     y_lo = torch.empty_like(x) if df_out else None
     state_out = torch.empty_like(state)
     kernels.launch_lti_blocked(x, y, state, state_out, plan.kernel_tables(B, x.device),
-                               kernels.lookback_scratch(x, ntiles * C, n), Lk, T, y_lo)
+                               kernels.lookback_scratch(x, ntiles * S * C, n), Lk, T, S, y_lo)
     wrapper.launches += 1
     return state_out, ((y, y_lo) if df_out else y)
 
 
 def lti_blocked_ref(plan, state, x):
     """Plain PyTorch version of K1 (any device): einsums for the chunk
-    products, a loop over the Nc chunks for the carry."""
+    products, a loop over the Nc chunks for the carry. With a stream axis,
+    x [S, B, C] and state [S, 2, C, n] a stream at a time."""
+    if x.dim() == 3:
+        return each_stream(lambda st, xs: lti_blocked_ref(plan, st, xs), state, x)
     B, C = x.shape
     L = plan.L
     Nc = B // L
@@ -475,7 +493,7 @@ def lti_blocked_f32_ref(plan, state, x, df_out=False):
     upcast x and state (hi + lo), then the state and y split to float32."""
     st, y = lti_blocked_ref(plan, state.double(), x.double())
     y_hi, y_lo = split_f64(y)
-    return torch.stack(split_f64(st[0])), ((y_hi, y_lo) if df_out else y_hi)
+    return torch.stack(split_f64(st[..., 0, :, :]), dim=-3), ((y_hi, y_lo) if df_out else y_hi)
 
 
 def split_f64(v):
@@ -493,14 +511,15 @@ def biquad_scan(A, Bv, c0, state, x):
 
     A [C,2,2], Bv [C,2], c0 [C]; state [C,2] (TDF2 memories); x [B,C]; all
     float64, or all float32 (then this is biquad_scan_f32). Returns
-    (state' [C,2], y [B,C]). CPU tensors run biquad_scan_ref; CUDA tensors
-    launch csrc/biquad_scan.cu."""
+    (state' [C,2], y [B,C]); with a stream axis x [S,B,C] and state
+    [S,C,2]. CPU tensors run biquad_scan_ref; CUDA tensors launch
+    csrc/biquad_scan.cu."""
     if x.dtype == torch.float32:
         return biquad_scan_f32(A, Bv, c0, state, x)
     _check_dtypes("biquad_scan", *[(t, torch.float64) for t in (x, state, A, Bv, c0)])
     if x.device.type == "cpu":
         return biquad_scan_ref(A, Bv, c0, state, x)
-    return _launch_biquad_scan(biquad_scan, A, Bv, c0, state, x, (x.shape[1], 2))
+    return _launch_biquad_scan(biquad_scan, A, Bv, c0, state, x, False)
 
 
 biquad_scan.launches = 0
@@ -514,7 +533,7 @@ def biquad_scan_f32(A, Bv, c0, state, x):
     _check_dtypes("biquad_scan_f32", *[(t, torch.float32) for t in (x, state, A, Bv, c0)])
     if x.device.type == "cpu":
         return biquad_scan_f32_ref(A, Bv, c0, state, x)
-    return _launch_biquad_scan(biquad_scan_f32, A, Bv, c0, state, x, (x.shape[1], 2))
+    return _launch_biquad_scan(biquad_scan_f32, A, Bv, c0, state, x, False)
 
 
 biquad_scan_f32.launches = 0
@@ -526,14 +545,14 @@ def biquad_scan_df(A, Bv, c0, state, x):
     coupled form) and a float32 (hi, lo) state [2, C, 2], so that it hands
     a state to and from K1-df, or a single float32 state [C, 2] (as
     biquad_scan_auto hands it). Returns (state' of the state's shape,
-    y [B, C] float32). CPU tensors run biquad_scan_df_ref; CUDA tensors
-    launch csrc/biquad_scan.cu."""
+    y [B, C] float32); with a stream axis x [S, B, C] and the state
+    [S, 2, C, 2] or [S, C, 2]. CPU tensors run biquad_scan_df_ref; CUDA
+    tensors launch csrc/biquad_scan.cu."""
     _check_dtypes("biquad_scan_df", (x, torch.float32), (state, torch.float32),
                   *[(t, torch.float64) for t in (A, Bv, c0)])
     if x.device.type == "cpu":
         return biquad_scan_df_ref(A, Bv, c0, state, x)
-    shape = (x.shape[1], 2) if state.dim() == 2 else (2, x.shape[1], 2)
-    return _launch_biquad_scan(biquad_scan_df, A, Bv, c0, state, x, shape)
+    return _launch_biquad_scan(biquad_scan_df, A, Bv, c0, state, x, _is_pair(state, x))
 
 
 biquad_scan_df.launches = 0
@@ -543,13 +562,14 @@ def biquad_scan_pair(A, Bv, c0, state, x):
     """K2 on a float64 (hi, lo) state [2, C, 2], as BiquadEffect's
     per-sample path keeps it: the state read as hi + lo, the end state
     returned as (s, 0), in the kernel's one launch. A [C,2,2], Bv [C,2],
-    c0 [C], x [B,C], all float64. Returns (state' [2,C,2], y [B,C]). CPU
-    tensors run biquad_scan_pair_ref; CUDA tensors launch
-    csrc/biquad_scan.cu (dsp_biquad_scan_f64_pair)."""
+    c0 [C], x [B,C], all float64. Returns (state' [2,C,2], y [B,C]); with a
+    stream axis x [S,B,C] and state [S,2,C,2]. CPU tensors run
+    biquad_scan_pair_ref; CUDA tensors launch csrc/biquad_scan.cu
+    (dsp_biquad_scan_f64_pair)."""
     _check_dtypes("biquad_scan_pair", *[(t, torch.float64) for t in (x, state, A, Bv, c0)])
     if x.device.type == "cpu":
         return biquad_scan_pair_ref(A, Bv, c0, state, x)
-    return _launch_biquad_scan(biquad_scan_pair, A, Bv, c0, state, x, (2, x.shape[1], 2))
+    return _launch_biquad_scan(biquad_scan_pair, A, Bv, c0, state, x, True)
 
 
 biquad_scan_pair.launches = 0
@@ -557,7 +577,10 @@ biquad_scan_pair.launches = 0
 
 def biquad_scan_pair_ref(A, Bv, c0, state, x):
     """Plain PyTorch version of biquad_scan_pair: K2's on hi + lo, the end
-    state stacked over zeros."""
+    state stacked over zeros; x [S, B, C] and state [S, 2, C, 2] a stream
+    at a time."""
+    if x.dim() == 3:
+        return each_stream(lambda st, xs: biquad_scan_pair_ref(A, Bv, c0, st, xs), state, x)
     s_end, y = biquad_scan_ref(A, Bv, c0, state[0] + state[1], x)
     return torch.stack([s_end, torch.zeros_like(s_end)]), y
 
@@ -575,7 +598,9 @@ def biquad_scan_series(A, Bv, c0, state, x):
         return biquad_scan_series_ref(A, Bv, c0, state, x)
     from dsp_tpu_torch import kernels
 
-    B, C = _check_cuda("biquad_scan_series", x, state, A, Bv, c0)
+    _, B, C = _check_cuda("biquad_scan_series", x, state, A, Bv, c0)
+    if x.dim() != 2:
+        raise ValueError(f"biquad_scan_series: x must be [B, C], got {tuple(x.shape)}")
     _check_shapes("biquad_scan_series", A, Bv, c0, state, 2 * C)
     y = torch.empty_like(x)
     state_out = torch.empty_like(state)
@@ -606,7 +631,8 @@ def biquad_scan_run(A, Bv, c0, states, x, out=None):
     other strides (matrix4_mb's inv_fshape_m[:, s]); each lane's two values
     must be adjacent. out: n tensors of that layout the end states are
     written into, or None: views of one new [n, *state shape] tensor.
-    Returns (the n end states, y [B, C] the last stage's output). CPU
+    Returns (the n end states, y [B, C] the last stage's output). With a
+    stream axis, x [S, B, C] and each state [S, C, 2] or [S, 2, C, 2]. CPU
     tensors run biquad_scan_run_ref; CUDA tensors launch csrc/biquad_scan.cu
     (dsp_biquad_scan_run)."""
     if x.dtype == torch.float32:
@@ -635,12 +661,19 @@ biquad_scan_run_df.launches = 0
 def biquad_scan_run_ref(A, Bv, c0, states, x):
     """Plain PyTorch version of biquad_scan_run and biquad_scan_run_df: the
     n separate plain calls in order (biquad_scan_ref, biquad_scan_pair_ref
-    or biquad_scan_df_ref), each stage on the one before's output."""
+    or biquad_scan_df_ref), each stage on the one before's output; x
+    [S, B, C] and each state [S, C, 2] or [S, 2, C, 2] a stream at a
+    time."""
+    if x.dim() == 3:
+        runs = [biquad_scan_run_ref(A, Bv, c0, [st[s] for st in states], x[s])
+                for s in range(x.shape[0])]
+        return ([torch.stack([r[0][k] for r in runs]) for k in range(len(states))],
+                torch.stack([r[1] for r in runs]))
     ends = []
     for s, st in enumerate(states):
         if x.dtype == torch.float32:
             st, x = biquad_scan_df_ref(A[s], Bv[s], c0[s], st, x)
-        elif st.dim() == 3:
+        elif _is_pair(st, x):
             st, x = biquad_scan_pair_ref(A[s], Bv[s], c0[s], st, x)
         else:
             st, x = biquad_scan_ref(A[s], Bv[s], c0[s], st, x)
@@ -678,22 +711,25 @@ def _launch_biquad_run(wrapper, A, Bv, c0, states, x, out):
         raise TypeError(f"{name}: the kernel takes float64 coefficients and "
                         f"{_run_dtype(wrapper)} x, got {A.dtype}, {Bv.dtype}, {c0.dtype}, "
                         f"{x.dtype}")
-    if x.dim() != 2:
-        raise ValueError(f"{name}: x must be [B, C], got {tuple(x.shape)}")
-    B, C = x.shape
+    if x.dim() not in (2, 3):
+        raise ValueError(f"{name}: x must be [B, C] or [S, B, C], got {tuple(x.shape)}")
+    B, C = x.shape[-2:]
+    lead = tuple(x.shape[:-2])
     n = len(states)
     if not 1 <= n <= kernels.BIQUAD_RUN_MAX_STAGES:
         raise ValueError(f"{name}: {n} stages, at most {kernels.BIQUAD_RUN_MAX_STAGES}")
     dev = x.get_device()
-    for what, t, shape in (("x", x, (B, C)), ("A", A, (n, C, 2, 2)), ("Bv", Bv, (n, C, 2)),
+    for what, t, shape in (("x", x, (*lead, B, C)), ("A", A, (n, C, 2, 2)), ("Bv", Bv, (n, C, 2)),
                            ("c0", c0, (n, C))):
         if t.shape != shape or t.get_device() != dev or not t.is_contiguous():
             raise ValueError(f"{name}: {what} {tuple(t.shape)} on {t.device}, expected a "
                              f"contiguous {shape} on {x.device}")
     shape, strides = states[0].shape, states[0].stride()
-    if shape not in ((C, 2), (2, C, 2)) or strides[-1] != 1:
+    pair = _is_pair(states[0], x)
+    if shape not in ((*lead, C, 2), (*lead, 2, C, 2)) or strides[-1] != 1:
         raise ValueError(f"{name}: states {tuple(shape)} with strides {strides}, expected "
-                         f"[{C}, 2] or [2, {C}, 2] with each lane's values adjacent")
+                         f"{[*lead, C, 2]} or {[*lead, 2, C, 2]} with each lane's values "
+                         f"adjacent")
     if out is None:
         out = torch.empty((n, *shape), dtype=x.dtype, device=x.device).unbind(0)
     if len(out) != n:
@@ -706,25 +742,25 @@ def _launch_biquad_run(wrapper, A, Bv, c0, states, x, out):
                              f"strides {strides} on {x.device}")
     y = torch.empty_like(x)
     kernels.launch_biquad_scan_run(A, Bv, c0, states, out, x, y, strides[-2],
-                                   strides[0] if len(shape) == 3 else 0, len(shape) == 3)
+                                   strides[-3] if pair else 0, strides[0] if lead else 0, pair)
     wrapper.launches += 1
     return list(out), y
 
 
 def crossfeed_lanes(x, col0, col1):
-    """crossfeed's four scan lanes [B, 4] from x's columns: [s1, s0, s0, s1]
-    (lowpass of s1 and of s0, highpass of s0 and of s1)."""
-    s0, s1 = x[:, col0], x[:, col1]
-    return torch.stack([s1, s0, s0, s1], dim=1)
+    """crossfeed's four scan lanes [..., B, 4] from x's columns: [s1, s0,
+    s0, s1] (lowpass of s1 and of s0, highpass of s0 and of s1)."""
+    s0, s1 = x[..., col0], x[..., col1]
+    return torch.stack([s1, s0, s0, s1], dim=-1)
 
 
 def crossfeed_mix(x, y, col0, col1, direct, cross):
     """crossfeed's output: x with columns col0 and col1 replaced by
     s0·direct + y0·cross + y2·cross and s1·direct + y1·cross + y3·cross."""
-    s0, s1 = x[:, col0], x[:, col1]
+    s0, s1 = x[..., col0], x[..., col1]
     out = x.clone()
-    out[:, col0] = s0 * direct + y[:, 0] * cross + y[:, 2] * cross
-    out[:, col1] = s1 * direct + y[:, 1] * cross + y[:, 3] * cross
+    out[..., col0] = s0 * direct + y[..., 0] * cross + y[..., 2] * cross
+    out[..., col1] = s1 * direct + y[..., 1] * cross + y[..., 3] * cross
     return out
 
 
@@ -733,8 +769,10 @@ def crossfeed_step(A, Bv, c0, state, x, col0, col1, direct, cross):
     launch: the four first-order lanes (A [4,2,2], Bv [4,2], c0 [4], state
     [4,2], the companion form) on x's columns col0 and col1, and the mix
     with the gains direct and cross. x [B, C]; all float64, or all float32
-    (crossfeed_step_f32). Returns (state' [4,2], out [B,C]). CPU tensors
-    run crossfeed_step_ref; CUDA tensors launch csrc/biquad_scan.cu."""
+    (crossfeed_step_f32). Returns (state' [4,2], out [B,C]); with a stream
+    axis x [S,B,C] and state [S,4,2], the pair (col0, col1) of each stream.
+    CPU tensors run crossfeed_step_ref; CUDA tensors launch
+    csrc/biquad_scan.cu."""
     if x.dtype == torch.float32:
         return crossfeed_step_f32(A, Bv, c0, state, x, col0, col1, direct, cross)
     _check_dtypes("crossfeed_step", *[(t, torch.float64) for t in (x, state, A, Bv, c0)])
@@ -762,7 +800,12 @@ crossfeed_step_f32.launches = 0
 
 def crossfeed_step_ref(A, Bv, c0, state, x, col0, col1, direct, cross):
     """Plain PyTorch version of crossfeed_step and crossfeed_step_f32: the
-    lanes stacked, K2's plain version of x's dtype, the mix."""
+    lanes stacked, K2's plain version of x's dtype, the mix; x [S, B, C]
+    and state [S, 4, 2] a stream at a time."""
+    if x.dim() == 3:
+        return each_stream(
+            lambda st, xs: crossfeed_step_ref(A, Bv, c0, st, xs, col0, col1, direct, cross),
+            state, x)
     scan = biquad_scan_f32_ref if x.dtype == torch.float32 else biquad_scan_ref
     state, y = scan(A, Bv, c0, state, crossfeed_lanes(x, col0, col1))
     return state, crossfeed_mix(x, y, col0, col1, direct, cross)
@@ -771,8 +814,8 @@ def crossfeed_step_ref(A, Bv, c0, state, x, col0, col1, direct, cross):
 def _launch_crossfeed(wrapper, A, Bv, c0, state, x, col0, col1, direct, cross):
     from dsp_tpu_torch import kernels
 
-    B, C = _check_cuda(wrapper.__name__, x, state, A, Bv, c0)
-    _check_shapes(wrapper.__name__, A, Bv, c0, state, 4)
+    C = _check_cuda(wrapper.__name__, x, state, A, Bv, c0)[2]
+    _check_shapes(wrapper.__name__, A, Bv, c0, state, 4, x.shape[:-2])
     if not (0 <= col0 < C and 0 <= col1 < C and col0 != col1):
         raise ValueError(f"{wrapper.__name__}: columns {col0}, {col1} of {C}")
     out = torch.empty_like(x)
@@ -782,26 +825,34 @@ def _launch_crossfeed(wrapper, A, Bv, c0, state, x, col0, col1, direct, cross):
     return state_out, out
 
 
-def _check_shapes(name, A, Bv, c0, state, n):
+def _check_shapes(name, A, Bv, c0, state, n, lead=()):
     """Raise unless A, Bv, c0 and state are of n lanes: [n,2,2], [n,2], [n],
-    [n,2]."""
+    [*lead, n,2]."""
     for what, t, shape in (("A", A, (n, 2, 2)), ("Bv", Bv, (n, 2)), ("c0", c0, (n,)),
-                           ("state", state, (n, 2))):
+                           ("state", state, (*lead, n, 2))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {what} {tuple(t.shape)}, expected {shape}")
 
 
-def _launch_biquad_scan(wrapper, A, Bv, c0, state, x, state_shape):
+def _is_pair(state, x):
+    """Whether a biquad state beside x is a (hi, lo) pair ([2, C, 2], or
+    [S, 2, C, 2] beside x [S, B, C]) rather than a single [C, 2] or
+    [S, C, 2]."""
+    return state.dim() == x.dim() + 1
+
+
+def _launch_biquad_scan(wrapper, A, Bv, c0, state, x, pair):
     from dsp_tpu_torch import kernels
 
-    B, C = _check_cuda(wrapper.__name__, x, state, A, Bv, c0)
+    S, B, C = _check_cuda(wrapper.__name__, x, state, A, Bv, c0)
+    state_shape = (*x.shape[:-2], *((2,) if pair else ()), C, 2)
     for name, t, shape in (("A", A, (C, 2, 2)), ("Bv", Bv, (C, 2)), ("c0", c0, (C,)),
                            ("state", state, state_shape)):
         if tuple(t.shape) != shape:
             raise ValueError(f"{wrapper.__name__}: {name} {tuple(t.shape)}, expected {shape}")
     y = torch.empty_like(x)
     state_out = torch.empty_like(state)
-    kernels.launch_biquad_scan(A, Bv, c0, state, state_out, x, y)
+    kernels.launch_biquad_scan(A, Bv, c0, state, state_out, x, y, S, pair)
     wrapper.launches += 1
     return state_out, y
 
@@ -809,7 +860,9 @@ def _launch_biquad_scan(wrapper, A, Bv, c0, state, x, state_shape):
 def biquad_scan_ref(A, Bv, c0, state, x):
     """Plain PyTorch version of K2 (any device, float64 or float32): a
     Hillis-Steele doubling scan of the affine maps over the sample axis,
-    log2(B) steps."""
+    log2(B) steps; x [S, B, C] and state [S, C, 2] a stream at a time."""
+    if x.dim() == 3:
+        return each_stream(lambda st, xs: biquad_scan_ref(A, Bv, c0, st, xs), state, x)
     B = x.shape[0]
     M = A.expand((B,) + tuple(A.shape))  # [B, C, 2, 2]
     v = x[..., None] * Bv  # [B, C, 2]
@@ -840,7 +893,10 @@ def biquad_scan_f32_ref(A, Bv, c0, state, x):
     32..1024), each composing its segment of ceil(B/T) samples; an
     inclusive scan of the maps inside each warp of 32 (doubling), the warp
     totals scanned in order; each segment rerun from its start state. The
-    float64 K2 keeps its doubling scan (biquad_scan_ref)."""
+    float64 K2 keeps its doubling scan (biquad_scan_ref). x [S, B, C]
+    and state [S, C, 2] a stream at a time."""
+    if x.dim() == 3:
+        return each_stream(lambda st, xs: biquad_scan_f32_ref(A, Bv, c0, st, xs), state, x)
     B, C = x.shape
     T = min(1024, max(32, ((B + 15) // 16 + 31) // 32 * 32))
     seg = -(-B // T)
@@ -887,7 +943,10 @@ def biquad_scan_f32_ref(A, Bv, c0, state, x):
 def biquad_scan_df_ref(A, Bv, c0, state, x):
     """Plain PyTorch version of K3: biquad_scan_ref in float64 on the
     upcast x and state (hi + lo), then y rounded to float32 and the state
-    split, or, a single state, rounded."""
+    split, or, a single state, rounded; x [S, B, C] and the state
+    [S, 2, C, 2] or [S, C, 2] a stream at a time."""
+    if x.dim() == 3:
+        return each_stream(lambda st, xs: biquad_scan_df_ref(A, Bv, c0, st, xs), state, x)
     s = state.double() if state.dim() == 2 else state[0].double() + state[1].double()
     s_end, y = biquad_scan_ref(A, Bv, c0, s, x.double())
     return (s_end.float() if state.dim() == 2 else torch.stack(split_f64(s_end))), y.float()
@@ -915,15 +974,16 @@ def biquad_scan_coupled(A, Bv, c0, state, x):
 
 
 def _check_cuda(name, x, *others):
-    """Raise unless x is [B, C] on a CUDA device and every tensor is
-    contiguous on x's device; returns x's (B, C)."""
+    """Raise unless x is [B, C] or [S, B, C] on a CUDA device and every
+    tensor is contiguous on x's device; returns (S, B, C), S = 1 for
+    [B, C]."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
-    if x.dim() != 2:
-        raise ValueError(f"{name}: x must be [B, C], got {tuple(x.shape)}")
+    if x.dim() not in (2, 3):
+        raise ValueError(f"{name}: x must be [B, C] or [S, B, C], got {tuple(x.shape)}")
     for t in (x,) + others:
         if t.device != x.device:
             raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-    return x.shape
+    return (x.shape[0] if x.dim() == 3 else 1, *x.shape[-2:])

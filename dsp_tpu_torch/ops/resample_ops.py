@@ -42,6 +42,15 @@ two-float32 DFTs of dsp_tpu/ops/dfx_fft.py) the step reads float32 and
 stores float32 around the same float64 transforms and fold: each block's
 tail rounded to float32, as the carried overlap is, and y rounded once
 (``irfft_ola_f32``, or the one-launch kernel's float32 form).
+
+The stream axis (split and batched processing): the step takes x as
+[S, n·in_len, C] and the carried overlap as [S, out_len, C], S streams of
+n inner blocks each, and returns [S, out_len, C] and [S, n·out_len, C].
+One launch runs the S·C·n columns (a thread block's inner blocks and its
+cluster never cross a stream: the first inner block of stream s adds
+stream s's carried overlap); the route of three launches takes the S·n
+inner blocks as columns, its overlap-add told where each stream starts.
+The plain versions loop over the streams.
 """
 
 import ctypes
@@ -58,6 +67,7 @@ from dsp_tpu_torch.ops.fft_conv import (
     _check_dtypes,
     _launch_ptrs,
     _tables_on,
+    each_stream,
     fft_plan,
     irfft_crop_ref,
     lane_points,
@@ -224,16 +234,20 @@ class SpectralResampler:
 
     def block(self, overlap, x):
         """Every inner block of x at once: x [n·in_len, C] -> (overlap'
-        [out_len, C], y [n·out_len, C]), by resample_step. Inner block i is
-        column block i of each transform; its overlap-add takes the second
-        half of inner block i-1's inverse (the carried overlap for i = 0)."""
+        [out_len, C], y [n·out_len, C]), by resample_step (x [S, n·in_len,
+        C] and overlap [S, out_len, C]: S streams). Inner block i is column
+        block i of each transform; its overlap-add takes the second half of
+        inner block i-1's inverse (the carried overlap for i = 0)."""
         return resample_step(self, overlap, x.contiguous())
 
 
 def _inner_blocks(rs, x):
-    B = x.shape[0]
+    """The inner blocks a stream of x [n·in_len, C] or [S, n·in_len, C]."""
+    if x.dim() not in (2, 3):
+        raise ValueError(f"resample: x must be [B, C] or [S, B, C], got {tuple(x.shape)}")
+    B = x.shape[-2]
     n = B // rs.in_len
-    if x.dim() != 2 or n * rs.in_len != B or n < 1:
+    if n * rs.in_len != B or n < 1:
         raise ValueError(f"resample: block of {B} frames is not a multiple of {rs.in_len}")
     return n
 
@@ -244,7 +258,8 @@ def _inner_blocks(rs, x):
 def resample_step(rs, overlap, x):
     """The step of SpectralResampler rs on x [n·in_len, C] float64 with the
     carried overlap [out_len, C]: (overlap' [out_len, C], y [n·out_len, C]);
-    on float32 x, resample_step_f32. CPU tensors run resample_step_ref;
+    with a stream axis x [S, n·in_len, C] and overlap [S, out_len, C]; on
+    float32 x, resample_step_f32. CPU tensors run resample_step_ref;
     CUDA tensors take rs.route: one launch of csrc/resample.cu (counted in
     resample_step.launches and kernels.resample_launches()), or rfft_pack,
     resample_fold and irfft_ola."""
@@ -282,24 +297,29 @@ def _resample_step(entry, ref, dt, rs, overlap, x):
     if rs.route == ONE_LAUNCH:
         return _launch_step(entry, dt, rs, overlap, x, n)
     ratio = rs.out_len / rs.in_len
+    # the S streams' inner blocks as S·n column blocks of each transform
+    S = x.shape[0] if x.dim() == 3 else 1
+    x = x.reshape(-1, x.shape[-1])
     if dt == torch.float32:
-        X = rfft_pack_f32(x, 2 * rs.in_len, blocks=n)
+        X = rfft_pack_f32(x, 2 * rs.in_len, blocks=S * n)
         return irfft_ola_f32(resample_fold(X, rs.fold), 2 * rs.out_len, overlap, ratio)
-    X = rfft_pack(x[:0], x, 2 * rs.in_len, blocks=n)
+    X = rfft_pack(x[:0], x, 2 * rs.in_len, blocks=S * n)
     return irfft_ola(resample_fold(X, rs.fold), 2 * rs.out_len, overlap, ratio)
 
 
 def _launch_step(entry, dt, rs, overlap, x, n):
     """The checks in one pass, y and overlap' as views of one buffer, one
     ctypes call."""
-    B, C = x.shape
+    lead, C = tuple(x.shape[:-2]), x.shape[-1]
     ptrs = _launch_ptrs(entry.__name__, x, (("x", x), ("overlap", overlap)),
-                        ((dt, (B, C)), (dt, (rs.out_len, C))))
+                        ((dt, x.shape), (dt, (*lead, rs.out_len, C))))
+    S = lead[0] if lead else 1
     rows = n * rs.out_len
-    buf = torch.empty((rows + rs.out_len) * C, dtype=dt, device=x.device)
-    y, ov = buf[: rows * C].view(rows, C), buf[rows * C:].view(rs.out_len, C)
+    buf = torch.empty(S * (rows + rs.out_len) * C, dtype=dt, device=x.device)
+    y = buf[: S * rows * C].view(*lead, rows, C)
+    ov = buf[S * rows * C:].view(*lead, rs.out_len, C)
     index = x.get_device()
-    kernels.launch_resample_step(rs.step_cfg(index), ptrs[0], y, ov, ptrs[1], n, C,
+    kernels.launch_resample_step(rs.step_cfg(index), ptrs[0], y, ov, ptrs[1], n, C, S,
                                  dt == torch.float32, index)
     entry.launches += 1
     return ov, y
@@ -308,8 +328,11 @@ def _launch_step(entry, dt, rs, overlap, x, n):
 def resample_step_ref(rs, overlap, x):
     """Plain version of resample_step: rfft_pack_ref of the inner blocks,
     resample_fold_ref and irfft_ola_ref, dsp_tpu's step with the inner
-    blocks as columns."""
+    blocks as columns; x [S, n·in_len, C] and overlap [S, out_len, C] a
+    stream at a time."""
     n = _inner_blocks(rs, x)
+    if x.dim() == 3:
+        return each_stream(lambda ov, xs: resample_step_ref(rs, ov, xs), overlap, x)
     X = rfft_pack_ref(x[:0], x, 2 * rs.in_len, blocks=n)
     return irfft_ola_ref(resample_fold_ref(X, rs.fold), 2 * rs.out_len, overlap.to(x.dtype),
                          rs.out_len / rs.in_len)
@@ -317,8 +340,11 @@ def resample_step_ref(rs, overlap, x):
 
 def resample_step_f32_ref(rs, overlap, x):
     """Plain version of resample_step_f32: rfft_pack_f32_ref,
-    resample_fold_ref and irfft_ola_f32_ref."""
+    resample_fold_ref and irfft_ola_f32_ref; x [S, n·in_len, C] and
+    overlap [S, out_len, C] a stream at a time."""
     n = _inner_blocks(rs, x)
+    if x.dim() == 3:
+        return each_stream(lambda ov, xs: resample_step_f32_ref(rs, ov, xs), overlap, x)
     X = rfft_pack_f32_ref(x, 2 * rs.in_len, blocks=n)
     return irfft_ola_f32_ref(resample_fold_ref(X, rs.fold), 2 * rs.out_len, overlap,
                              rs.out_len / rs.in_len)
@@ -334,8 +360,10 @@ def irfft_ola(Y, N, overlap, ratio):
     block's tail (rows N//2..N) is added to the next block's head (rows
     0..N//2), the carried overlap to the first block's, each product and sum
     rounded on its own. Returns (overlap' [N//2, C], the last block's tail,
-    and y [n·N//2, C]). CPU tensors run irfft_ola_ref; CUDA tensors launch
-    csrc/fft_conv.cu."""
+    and y [n·N//2, C]). With a stream axis, overlap [S, N//2, C]: Y's
+    columns are S streams of n blocks each, stream s's first block takes
+    overlap[s], and the results are [S, N//2, C] and [S, n·N//2, C]. CPU
+    tensors run irfft_ola_ref; CUDA tensors launch csrc/fft_conv.cu."""
     return _irfft_ola(irfft_ola, irfft_ola_ref, torch.float64, Y, N, overlap, ratio)
 
 
@@ -360,23 +388,28 @@ def _irfft_ola(entry, ref, dt, Y, N, overlap, ratio):
     if Y.is_cpu:
         return ref(Y, N, overlap, ratio)
     _check_cuda(name, Y, (Y, torch.complex128), (overlap, dt))
-    half, C = N // 2, overlap.shape[1]
-    if (Y.dim() != 2 or N % 2 or Y.shape[0] != half + 1 or Y.shape[1] % C
-            or tuple(overlap.shape) != (half, C)):
+    half, C = N // 2, overlap.shape[-1]
+    S = overlap.shape[0] if overlap.dim() == 3 else 1
+    if (Y.dim() != 2 or N % 2 or Y.shape[0] != half + 1 or Y.shape[1] % (S * C)
+            or overlap.dim() not in (2, 3) or tuple(overlap.shape[-2:]) != (half, C)):
         raise ValueError(f"{name}: Y {tuple(Y.shape)}, overlap {tuple(overlap.shape)} "
                          f"at N = {N}")
     plan = fft_plan(N, Y.shape[1], ola=True)
-    y = overlap.new_empty((Y.shape[1] // C * half, C))
+    n = Y.shape[1] // (S * C)  # inner blocks a stream
+    y = overlap.new_empty((*overlap.shape[:-2], n * half, C))
     ov = torch.empty_like(overlap)
     kernels.launch_irfft_ola(plan, _tables_on(N, Y.get_device()), Y, plan.work(Y), y, ov,
-                             overlap, ratio)
+                             overlap, ratio, n)
     entry.launches += 1
     return ov, y
 
 
 def irfft_ola_ref(Y, N, overlap, ratio):
     """Plain PyTorch version of irfft_ola: irfft_crop_ref, the scale, then
-    the shifted add, as dsp_tpu's step orders them."""
+    the shifted add, as dsp_tpu's step orders them; overlap [S, N//2, C] a
+    stream at a time."""
+    if overlap.dim() == 3:
+        return _ola_streams(irfft_ola_ref, Y, N, overlap, ratio)
     half, C = N // 2, overlap.shape[1]
     n = Y.shape[1] // C
     y2 = (irfft_crop_ref(Y, N, 0, N) * ratio).reshape(2, half, n, C)
@@ -389,7 +422,9 @@ def irfft_ola_ref(Y, N, overlap, ratio):
 def irfft_ola_f32_ref(Y, N, overlap, ratio):
     """Plain PyTorch version of irfft_ola_f32: the float64 step's inverse,
     scale and overlap-add, with the tails rounded to float32 and y rounded
-    once."""
+    once; overlap [S, N//2, C] a stream at a time."""
+    if overlap.dim() == 3:
+        return _ola_streams(irfft_ola_f32_ref, Y, N, overlap, ratio)
     half, C = N // 2, overlap.shape[1]
     n = Y.shape[1] // C
     y2 = (irfft_crop_ref(Y, N, 0, N) * ratio).reshape(2, half, n, C)
@@ -397,6 +432,14 @@ def irfft_ola_f32_ref(Y, N, overlap, ratio):
     prev = torch.cat([overlap[:, None], tail[:, :-1]], dim=1).double()
     y = (head + prev).float().permute(1, 0, 2).reshape(n * half, C)
     return tail[:, -1].contiguous(), y
+
+
+def _ola_streams(ref, Y, N, overlap, ratio):
+    """ref on each stream's columns of Y (S equal shares, in order) with its
+    overlap[s], stacked."""
+    w = Y.shape[1] // overlap.shape[0]
+    return each_stream(lambda ov, Ys: ref(Ys, N, ov, ratio), overlap,
+                       Y.reshape(Y.shape[0], -1, w).transpose(0, 1))
 
 
 class FoldTables:
