@@ -103,7 +103,12 @@ nvcc and PyTorch built for CUDA. It
    both dtypes, at S = 3 streams one launch a call (the route: the count of
    one stream's call), each stream bit-equal to a one-stream launch and the
    whole within its plain version on the card, timed at S = 1 and 8 (the
-   rows named <kernel>@S);
+   rows named <kernel>@S); slice H2a's the same way (upmix_forms): matrix4's
+   band-limit pair, m4_env, m4_event (its lanes the streams), m4_audio,
+   m4mb_env (also with the frequency mask), m4mb_event (a block a stream)
+   and m4mb_audio, each in both dtypes, on stream states warmed by 2 s of
+   transients, held to their plain versions at the one-stream rows'
+   tolerances;
 3. writes 300 s of stereo 44.1 kHz float64 wav (seeded noise plus sines), a
    full track, and runs the port's CLI on it file to file: the flagship
    chain at the default block (2048) and at -b 65536; then the FFT
@@ -180,7 +185,12 @@ nvcc and PyTorch built for CUDA. It
    -150 dBFS, the float32 split within -120 dBFS of the float64 render;
    then process_batch on 8 streams of the flagship and `fir` 64k (and of
    the chains that run the other stream-axis forms) against process_array
-   on the card, within 1e-12;
+   on the card, within 1e-12; then slice H2a's batches (batch_upmix_phase):
+   `matrix4 -6` and `matrix4_mb -6` on 8 streams of 20 s at -b 2048 and
+   65536 in both dtypes, and matrix4_mb at 470.4 kHz (its rings in the
+   device scratch) on 2 streams, each stream bit-equal to process_array on
+   the card, kernels a host step equal at S = 1 and 8, the batch's rate
+   against process_array's printed, every upmix stream-axis form launched;
 4. runs 96 blocks of the Nupols path (fir_p 1M at B = 2048), 320 of the
    delivery chain in float64 and in float32, 16 each of matrix4 and matrix4_mb and of the float32
    flagship (blocks 2048 and 1000), resample and upmixes, with the input on
@@ -4576,7 +4586,7 @@ def kernel_total():
     from dsp_tpu_torch.ops import resample_ops as ro
 
     return (kernels.lookback_launches() + kernels.fft_launches() + kernels.biquad_run_launches()
-            + kernels.resample_launches() + kernels.noise_launches()
+            + kernels.resample_launches() + kernels.noise_launches() + kernels.upmix_launches()
             + kernels.mod_delay_launches() + sum(kernels.meter_launches())
             + sum(w.launches for w in (iir.crossfeed_step, iir.crossfeed_step_f32, iir.biquad_scan,
                                        iir.biquad_scan_f32, iir.biquad_scan_pair,
@@ -4594,8 +4604,9 @@ def split_kernel_phase(records):
     resampler's step RESAMPLE_DBFS; float32: one float32 ulp of the scale,
     a (hi, lo) state's sum within F32_STATE_REL). Each form timed, a call
     (CUDA events) and device-only (torch.profiler), at one stream ([B, C])
-    and at TIMED_STREAMS, its plain version and, where one PyTorch call
-    computes the same function, that call, at TIMED_STREAMS."""
+    and at TIMED_STREAMS, its plain version (at the form's plain_streams)
+    and, where one PyTorch call computes the same function, that call, at
+    TIMED_STREAMS."""
     import numpy as np
     import torch
 
@@ -4633,16 +4644,22 @@ def split_kernel_phase(records):
     forms = []
 
     def form(rec, what, call, plain, make, streamed, count, cost, pairs=(), limit=None,
-             library=None, reps=50, one=True):
+             library=None, reps=50, one=True, hold=None, lane=False, plain_streams=TIMED_STREAMS):
         """A form: call(*args) and plain(*args) on make(S)'s args (S = 0:
         one stream, no stream axis); `streamed` maps the position of each
         argument with a stream axis to how stream s is cut from it (None:
         its index s); count() the form's launches; cost(S) its (bytes,
         operations, peak); pairs the output leaves that are float32 (hi,
         lo) states; limit an absolute bound on the float64 outputs; rec
-        None: checked, not timed."""
+        None: checked, not timed; hold(got, ref) the one-stream rows' own
+        check against the plain version (raises; returns the error kept),
+        in place of the generic one; lane: a stream is a lane of the
+        kernel, its one-stream call a lane of one (the event engine);
+        plain_streams the streams at which the plain version is timed:
+        FORM_STREAMS, the one call of the check (a plain version that takes
+        seconds a call), or TIMED_STREAMS, up to 5 calls."""
         forms.append((rec, what, call, plain, make, streamed, count, cost, pairs, limit, library,
-                      reps, one))
+                      reps, one, hold, lane, plain_streams))
 
     # K1 and K1-df on the flagship's cascade (n = 12), B = 2048
     n = plan.n
@@ -4789,9 +4806,10 @@ def split_kernel_phase(records):
                              (2.5 * Ni * log2(Ni) + 3 * half) * C * S, F64_PEAK),
              library=lambda Y, ov: torch.fft.irfft(Y, n=Ni, dim=0), reps=3, one=False,
              limit=10.0 ** (LIMIT_DBFS / 20.0) if dt == f64 else None)
+    upmix_forms(form)
 
     for (rec, what, call, plain, make, streamed, count, cost, pairs, limit, library, reps,
-         one) in forms:
+         one, hold, lane, plain_streams) in forms:
         print(f"{what}: S={FORM_STREAMS} in one call")
         args = make(FORM_STREAMS)
         cut = streamed if isinstance(streamed, dict) else {k: None for k in streamed}
@@ -4818,13 +4836,17 @@ def split_kernel_phase(records):
         _require(f"{what}: {n_s} launches at S={FORM_STREAMS}, {want} at one stream"
                  + (", expected 1" if one else ""), n_s == want and (want == 1 or not one))
         for s in range(FORM_STREAMS):
-            mine = _leaves(call(*stream(s)))
+            mine = call(*stream(s))
+            mine = _leaves(_pick(mine, 0) if lane else mine)
             _require(f"{what}: stream {s} differs from a one-stream call of the kernel",
                      all(bits_equal(a, b) for a, b in zip(_leaves(_pick(got, s)), mine)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         ref = plain(*args)
         torch.cuda.synchronize()
+        check_ms = (time.perf_counter() - t0) * 1e3
         err = 0.0
-        for k, (g, r) in enumerate(zip(_leaves(got), _leaves(ref))):
+        for k, (g, r) in enumerate(zip(_leaves(got), _leaves(ref)) if hold is None else ()):
             if g.dtype == torch.complex128:
                 g, r = torch.view_as_real(g), torch.view_as_real(r)
             if g.dtype == f32:
@@ -4840,7 +4862,11 @@ def split_kernel_phase(records):
                 continue
             e = _diff(g, r)
             err = max(err, e)
-        if any(g.dtype != f32 for g in _leaves(got)):
+        if hold is not None:
+            err = hold(got, ref)
+            print(f"  {what}: each stream bit-equal to a one-stream call; within the plain "
+                  f"version at the one-stream rows' tolerances ({err:.3e})")
+        elif any(g.dtype != f32 for g in _leaves(got)):
             check_close(f"{what}: each stream bit-equal to a one-stream call; plain version", err)
         else:
             print(f"  {what}: each stream bit-equal to a one-stream call; float32 within one "
@@ -4859,18 +4885,416 @@ def split_kernel_phase(records):
             dev_ms, kern = device_ms(lambda: call(*a_S), min(reps, 20))
             times[S] = (ms, dev_ms, kern)
         a8 = make(TIMED_STREAMS)
-        plain_ms = cuda_ms(lambda: plain(*a8), min(reps, 5))
+        plain_ms = (check_ms if plain_streams == FORM_STREAMS
+                    else cuda_ms(lambda: plain(*a8), min(reps, 5)))
         lib_ms = None if library is None else cuda_ms(lambda: library(*a8), reps)
         nbytes, flops, peak = cost(TIMED_STREAMS)
         set_times(row, times[TIMED_STREAMS][0], plain_ms, nbytes, flops, lib_ms, peak)
+        if plain_streams != TIMED_STREAMS:
+            row["plain_streams"] = plain_streams
         row["device_ms"] = times[TIMED_STREAMS][1]
         row["ms_s1"], row["device_ms_s1"] = times[0][0], times[0][1]
         print(f"  S=1: {times[0][0]:.4f} ms a call, {times[0][1]:.4f} ms device-only "
               f"({times[0][2]} kernels); S={TIMED_STREAMS}: {times[TIMED_STREAMS][0]:.4f} ms a "
               f"call, {times[TIMED_STREAMS][1]:.4f} ms device-only ({times[TIMED_STREAMS][2]} "
-              f"kernels); plain {plain_ms:.4f} ms"
+              f"kernels); plain {plain_ms:.4f} ms at S={plain_streams}"
               + ("" if lib_ms is None else f"; library {lib_ms:.4f} ms")
               + f"; bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+
+
+# slice H2a: the upmixes' kernels with a stream axis, the stream-axis rows
+# of split_kernel_phase (record, wrapper), counted in batch_upmix_phase
+UPMIX_FORMS = (
+    ("biquad_scan_series@S", "iir.biquad_scan_series"),
+    ("m4_env@S", "m4.m4_env"), ("m4_env_f32@S", "m4.m4_env_f32"),
+    ("m4mb_env@S", "m4.m4mb_env"), ("m4mb_env_f32@S", "m4.m4mb_env_f32"),
+    ("m4_event@S", "m4.m4_event"), ("m4_event_f32@S", "m4.m4_event_f32"),
+    ("m4mb_event@S", "m4.m4mb_event"), ("m4mb_event_f32@S", "m4.m4mb_event_f32"),
+    ("m4_audio@S", "m4.m4_audio"), ("m4_audio_f32@S", "m4.m4_audio_f32"),
+    ("m4mb_audio@S", "m4.m4mb_audio"), ("m4mb_audio_f32@S", "m4.m4mb_audio_f32"),
+)
+# process_batch of the upmixes: seconds a stream (the streams are
+# BATCH_STREAMS), the blocks and the probe at the rate whose rings sit in
+# the device scratch
+UPMIX_BATCH_SECONDS = 20
+UPMIX_BATCH_BLOCKS = (2048, 65536)
+RING_PROBE = ("matrix4_mb -6", 470400, 2, 0.5)  # (chain, rate, streams, seconds)
+
+
+def _upmix_wrappers():
+    """{record: wrapper} of UPMIX_FORMS."""
+    from dsp_tpu_torch.ops import iir
+    from dsp_tpu_torch.ops import m4_engine as m4
+
+    mods = {"iir": iir, "m4": m4}
+    return {rec: getattr(mods[w.split(".")[0]], w.split(".")[1]) for rec, w in UPMIX_FORMS}
+
+
+def upmix_streams(words, dtype, S, B=2048, warm=2.0, seed=60):
+    """An upmix's effect, its stream-axis state after `warm` s of S streams
+    of transients (each its own seed) through its chain on the card, and
+    the next block x [S, B, 2]."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+
+    cc = CompiledChain(build_chain_from_string(words, StreamInfo(FS, CHANNELS)), B, dtype=dtype,
+                       device="cuda")
+    nb = int(warm * FS) // B
+    n = (nb + 1) * B
+    xs = torch.as_tensor(np.stack([transient_signal(n / FS + 0.01, seed=seed + s)[:n]
+                                   for s in range(S)]), dtype=dtype, device="cuda")
+    states = cc._stream_states(cc.states, S)
+    for b in range(nb):
+        states, _ = cc._step(states, xs[:, b * B:(b + 1) * B].contiguous())
+    i = next(i for i, e in enumerate(cc._runtime_effects) if hasattr(e, "ctl"))  # the upmix
+    ev = states[i]["ev"]
+    _require(f"{words}: no event in the streams' warm-up",
+             int(ev["diff_count"].sum()) + int(ev["ord_count"].sum()) > 0)
+    return cc._runtime_effects[i], states[i], xs[:, nb * B:].contiguous()
+
+
+def upmix_forms(form):
+    """The upmixes' stream-axis forms for split_kernel_phase: matrix4's
+    band-limit pair (biquad_scan_series), K11 (m4_env; m4mb_env, also with
+    the frequency mask's weights), K9 + K10 (m4_event, whose lanes are the
+    streams; m4mb_event, a block a stream) and K12 + K13 (m4_audio,
+    m4mb_audio), and their float32 forms, at B = 2048 on the states of
+    TIMED_STREAMS streams after 2 s of transients (each stream's engine in
+    its own state), the inputs each kernel's stage of the step gives it.
+    Each held against its plain version at the one-stream rows'
+    tolerances (matrix4_phase, matrix4_mb_phase, float32_m4_phase)."""
+    import torch
+
+    from dsp_tpu_torch import kernels
+    from dsp_tpu_torch.ops import iir
+    from dsp_tpu_torch.ops import m4_engine as m4
+
+    f64, f32, B, C, S8 = torch.float64, torch.float32, 2048, CHANNELS, TIMED_STREAMS
+    Nc = B // 32
+
+    def cut(a, S, lane=False):
+        """The first S streams of a (a tensor or a dict of them); S = 0: the
+        first stream alone, without the axis (lane: a lane of one)."""
+        if isinstance(a, dict):
+            return {k: cut(v, S, lane) for k, v in a.items()}
+        return a[:S] if S else (a[:1] if lane else a[0])
+
+    def pick(lane):
+        def fn(a, s):
+            if isinstance(a, dict):
+                return {k: fn(v, s) for k, v in a.items()}
+            return a[s:s + 1] if lane else a[s]
+        return fn
+
+    def maker(*args, lane=False):
+        return lambda S: tuple(cut(a, S, lane) for a in args)
+
+    def streamed(n, lane=False):
+        return {i: pick(lane) for i in range(n)}
+
+    def rel_env(limit):
+        def hold(got, ref):
+            rel = abs_ = 0.0
+            n = len(got)  # (env, ds) or (env, env_lo, ds)
+            pairs = [(got[-1], ref[-1])]
+            pairs.append((got[0], ref[0]) if n == 2 else
+                         (got[0].double() + got[1].double(), ref[0].double() + ref[1].double()))
+            for g, r in pairs:
+                rel, abs_ = max(rel, _rel(g, r)), max(abs_, _diff(g, r))
+            _require(f"envelopes {rel:.3e} relative from the plain version", rel <= limit)
+            _require(f"envelopes {abs_:.3e} absolute from the plain version", abs_ <= ENV_ABS)
+            return abs_
+        return hold
+
+    def hold_event(limit):
+        def hold(got, ref):
+            rel = 0.0
+            for k, kind in m4.EV_LEAVES:
+                if kind != "f":
+                    _require(f"the event state's {k} differs from the plain version",
+                             torch_equal(got[0][k], ref[0][k]))
+                else:
+                    rel = max(rel, _rel(got[0][k], ref[0][k]))
+            for g, r in zip(got[1:], ref[1:]):
+                rel = max(rel, _rel(g, r))
+            _require(f"the engine's floats {rel:.3e} relative from the plain version",
+                     rel <= limit)
+            return rel
+        return hold
+
+    def hold_engine_f32(limit):
+        def hold(got, ref):
+            return _hold_engine("the float32 engine", got, ref, limit)[0]
+        return hold
+
+    def hold_abs(limit_dbfs):
+        def hold(got, ref):
+            err = max(_diff(g, r) for g, r in zip(_leaves(got), _leaves(ref)))
+            _require(f"{dbfs(err):.1f} dBFS from the plain version", dbfs(err) <= limit_dbfs)
+            return err
+        return hold
+
+    def hold_ulp(got, ref):
+        worst = err = 0.0
+        for g, r in zip(_leaves(got), _leaves(ref)):
+            u, e = _ulps(g, r)
+            worst, err = max(worst, u), max(err, e)
+        _require(f"{worst:.2f} float32 ulp of the scale from the plain version", worst <= 1.0)
+        return err
+
+    # each upmix and dtype in a function of its own, so that the forms'
+    # closures keep that section's effect and inputs
+    def matrix4_f64():
+        # matrix4, float64: the band-limit, the envelopes, the engine, the audio
+        e, st, x = upmix_streams("matrix4 -6", f64, S8)
+        bl = tuple(e.device_array(k, x) for k in ("A_bl", "B_bl", "c0_bl"))
+        _, y_bp = iir.biquad_scan_series(*bl, st["bp_m"], x)
+        env_m, env_ds = m4.m4_env(y_bp, st["env_m"], e.g_env)
+        ev_out = m4.m4_event(e.ctl, st["ev"], st["bg_cs"], env_ds, st["interp_y"], 0, False)
+        L = e.ctl.p["buf_len"]
+        form("biquad_scan_series@S", "biquad_scan_series@S (matrix4's band-limit, B=2048)",
+             lambda s_, x_: iir.biquad_scan_series(*bl, s_, x_),
+             lambda s_, x_: iir.biquad_scan_series_ref(*bl, s_, x_),
+             maker(st["bp_m"], x), (0, 1), kernels.biquad_run_launches,
+             lambda S: (8 * S * (2 * B * C + 8 * C) + 8 * 14 * C, 20 * B * C * S, F64_PEAK))
+        form("m4_env@S", "m4_env@S (B=2048, a lane a stream)",
+             lambda y_, m_: m4.m4_env(y_, m_, e.g_env), lambda y_, m_: m4.m4_env_ref(y_, m_, e.g_env),
+             maker(y_bp, st["env_m"]), (0, 1), kernels.lookback_launches,
+             lambda S: (S * (16 * B + 128 + 64 * Nc), 8 * 3 * B * S, F64_PEAK), hold=rel_env(1e-12))
+        form("m4_event@S", "m4_event@S (Nc=64, v4, the streams the engine's lanes)",
+             lambda *a: m4.m4_event(e.ctl, *a, 0, False),
+             lambda *a: m4.m4_event_ref(e.ctl, *a, 0, False),
+             maker(st["ev"], st["bg_cs"], env_ds, st["interp_y"], lane=True), streamed(4, True),
+             kernels.upmix_launches,
+             lambda S: (S * (2 * 8 * (80 + 10 * L) + 64 * Nc + 8 * Nc * (48 + 4) + 2 * 512),
+                        (300 + 250 + 112) * Nc * S, F64_PEAK),
+             hold=hold_event(1e-12), lane=True, reps=20, plain_streams=FORM_STREAMS)
+        n_in, n_out = CHANNELS, e.audio.n_out
+        form("m4_audio@S", "m4_audio@S (B=2048, v4, a block a stream)",
+             lambda *a: m4.m4_audio(e.audio, *a), lambda *a: m4.m4_audio_ref(e.audio, *a),
+             maker(x, st["buf"], st["interp_c"], ev_out[2], st["shelf_m"], st["lp_m"], st["pf_m"]),
+             streamed(7), kernels.upmix_launches,
+             lambda S: (8 * S * (B * (n_in + n_out) + 2 * e.len + 48 * (Nc + 1) + 32),
+                        (40 + 12 + 64 + 10) * B * S, F64_PEAK), hold=hold_abs(-280.0), reps=20)
+
+    def matrix4_f32():
+        # matrix4, float32: K1-df's (hi, lo) band-limit feeds the float32 forms
+        e, st, x = upmix_streams("matrix4 -6", f32, S8)
+        _, (hi, lo) = iir.lti_blocked_df(e._bp_plan(B), st["bpc"], x)
+        env_out = m4.m4_env_f32(hi, lo, st["env_m"], st["env_m_lo"], e.g_env)
+        ev_out = m4.m4_event_f32(e.ctl, st["ev"], st["ev_lo"], st["bg_cs"], st["bg_cs_lo"],
+                                 env_out[2], st["interp_y"], 0, False)
+        L, n_in, n_out = e.ctl.p["buf_len"], CHANNELS, e.audio.n_out
+        form("m4_env_f32@S", "m4_env_f32@S (B=2048, a lane a stream)",
+             lambda *a: m4.m4_env_f32(*a, e.g_env), lambda *a: m4.m4_env_f32_ref(*a, e.g_env),
+             maker(hi, lo, st["env_m"], st["env_m_lo"]), (0, 1, 2, 3), kernels.lookback_launches,
+             lambda S: (S * (16 * B + 128 + 64 * Nc), (8 * 3 * B + 4 * B) * S, F64_PEAK),
+             hold=rel_env(M4_F32_REL))
+        form("m4_event_f32@S", "m4_event_f32@S (Nc=64, v4, the streams the engine's lanes)",
+             lambda *a: m4.m4_event_f32(e.ctl, *a, 0, False),
+             lambda *a: m4.m4_event_f32_ref(e.ctl, *a, 0, False),
+             maker(st["ev"], st["ev_lo"], st["bg_cs"], st["bg_cs_lo"], env_out[2], st["interp_y"],
+                   lane=True), streamed(6, True), kernels.upmix_launches,
+             lambda S: (S * (2 * 8 * (80 + 10 * L) + 64 * Nc + 4 * Nc * (48 + 4) + 2 * 256),
+                        (300 + 250 + 112) * Nc * S, F64_PEAK),
+             hold=hold_engine_f32(M4_F32_REL), lane=True, reps=20, plain_streams=FORM_STREAMS)
+        form("m4_audio_f32@S", "m4_audio_f32@S (B=2048, v4, a block a stream)",
+             lambda *a: m4.m4_audio_f32(e.audio, *a), lambda *a: m4.m4_audio_f32_ref(e.audio, *a),
+             maker(x, st["buf"], st["interp_c"], ev_out[4], st["shelf_m"], st["lp_m"], st["pf_m"]),
+             streamed(7), kernels.upmix_launches,
+             lambda S: (4 * S * (B * (n_in + n_out) + 2 * e.len + 48 * (Nc + 1) + 32),
+                        (40 + 12 + 64 + 10) * B * S, F64_PEAK), hold=hold_ulp, reps=20)
+
+    def matrix4_mb(dt):
+        # matrix4_mb: the fshape and the bank (stream-ready) give the bands
+        G = m4.N_BANDS
+        sfx = "_f32" if dt == f32 else ""
+        e, st, x = upmix_streams("matrix4_mb -6", dt, S8)
+        _, s_pre = e._cascade("fsh", st["fshape_m"].reshape(S8, 2, 2, 2), x)
+        xt = s_pre.repeat(1, 1, G)
+        if dt == f64:
+            _, yb = iir.lti_blocked(e._bank_plan(B), st["bank"]["fused"], xt)
+            bands = (yb.view(S8, B, G, 2),)
+            env_args, env_n = bands + (st["env_m"],), 2
+        else:
+            _, (hi, lo) = iir.lti_blocked_df(e._bank_plan(B), st["bank"]["fused"], xt)
+            bands = (hi.view(S8, B, G, 2), lo.view(S8, B, G, 2))
+            env_args, env_n = bands + (st["env_m"], st["env_m_lo"]), 4
+        env_fn = getattr(m4, f"m4mb_env{sfx}")
+        env_ref = getattr(m4, f"m4mb_env{sfx}_ref")
+        w8 = 8 if dt == f64 else 4
+        mask = torch.as_tensor(m4.band_mix_weights(0.5), device="cuda")
+        env_out = env_fn(*env_args, e.g_env)
+        rel_mb = MB_F32_REL if dt == f32 else 1e-13
+        for w, rec in ((None, f"m4mb_env{sfx}@S"), (mask, None)):
+            form(rec, f"m4mb_env{sfx}@S (B=2048, 13 lanes a stream"
+                      f"{', the mask 0.5' if w is not None else ''})",
+                 lambda *a, w=w: env_fn(*a, e.g_env, w), lambda *a, w=w: env_ref(*a, e.g_env, w),
+                 maker(*env_args), tuple(range(env_n)), kernels.lookback_launches,
+                 lambda S: (S * 8 * (2 * B * G + 2 * 8 * G + 8 * Nc * G),
+                            (8 * 3 * B * G + (4 * B * G if dt == f32 else 0)) * S, F64_PEAK),
+                 hold=rel_env(rel_mb))
+        Lr = e.ctl.p["buf_len"]
+        if dt == f64:
+            ev_args = (st["ev"], st["ev_thresh"], env_out[1], st["interp_y"])
+            hold = hold_event(1e-13)
+        else:
+            ev_args = (st["ev"], st["ev_lo"], st["ev_thresh"], st["ev_thresh_lo"], env_out[2],
+                       st["interp_y"])
+            hold = hold_engine_f32(MB_F32_REL)
+        ev_fn, ev_ref = getattr(m4, f"m4mb_event{sfx}"), getattr(m4, f"m4mb_event{sfx}_ref")
+        ev_out = ev_fn(e.ctl, *ev_args, 0, False)
+        form(f"m4mb_event{sfx}@S", f"m4mb_event{sfx}@S (Nc=64, v4, 13 bands, a block a stream)",
+             lambda *a: ev_fn(e.ctl, *a, 0, False), lambda *a: ev_ref(e.ctl, *a, 0, False),
+             maker(*ev_args), streamed(len(ev_args)), kernels.upmix_launches,
+             lambda S: (S * (8 * (2 * G * (80 + 10 * Lr) + 2 * G + 8 * Nc * G + 2 * 4 * G * 12)
+                             + w8 * (3 * Nc * G * 12 + 2 * Nc * G)),
+                        ((300 + 156 + 250) * G * Nc + 7 * G * 12 * Nc) * S, F64_PEAK),
+             hold=hold, reps=20, plain_streams=FORM_STREAMS)
+        au_fn, au_ref = getattr(m4, f"m4mb_audio{sfx}"), getattr(m4, f"m4mb_audio{sfx}_ref")
+        form(f"m4mb_audio{sfx}@S", f"m4mb_audio{sfx}@S (B=2048, v4, tiles of each stream)",
+             lambda *a: au_fn(e.audio, *a), lambda *a: au_ref(e.audio, *a),
+             maker(bands[0], st["fb_buf"], st["interp_c"], ev_out[2 if dt == f64 else 4],
+                   st["pf_m"]), streamed(5), kernels.lookback_launches,
+             lambda S: (S * w8 * (2 * B * G + 2 * min(B, e.fb_buf_len) * G + 3 * (Nc + 1) * G * 12
+                                  + 2 * 4 * G + 4 * B), (48 + 12 + 10 + 6) * G * B * S, F64_PEAK),
+             hold=hold_abs(MB_AUDIO_DBFS) if dt == f64 else hold_ulp, reps=20)
+
+    matrix4_f64()
+    matrix4_f32()
+    for dt in (f64, f32):
+        matrix4_mb(dt)
+
+
+def batch_parts(cc, xs):
+    """Wall seconds of the parts of a batch of xs (numpy [S, n, C], the
+    streams; S = 1 is process_array's route) on cc from its live state:
+    (the host's padding and the copy to the card, the steps to a
+    synchronisation, the copy back), as process_batch runs them."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain.chain import expected_out_frames
+
+    S, n_in, c = xs.shape
+    B = cc.block_frames
+    out_valid = expected_out_frames(cc.chain, n_in, True)
+    nb = max(1, -(-(n_in + cc.chain.drain_frames) // B), -(-out_valid // int(B * cc.chain.ratio)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flat = np.zeros((S, nb * B, c))
+    flat[:, :n_in] = xs
+    xd = cc._input(flat).view(S, nb, B, c).transpose(0, 1).contiguous()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    states = cc._stream_states(cc.states, S) if S > 1 else cc.states
+    ys = []
+    for i in range(nb):
+        states, y = cc._step(states, xd[i] if S > 1 else xd[i, 0])
+        ys.append(y)
+    y = torch.stack(ys, dim=-3)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    y = y.reshape(*y.shape[:-3], -1, y.shape[-1])[..., cc.chain.output_discard:out_valid, :]
+    y.to("cpu", torch.float64).numpy()
+    return t1 - t0, t2 - t1, time.perf_counter() - t2
+
+
+def batch_upmix_phase(records):
+    """Slice H2a on the card: process_batch on BATCH_STREAMS streams of
+    UPMIX_BATCH_SECONDS s of transients (each its own seed) of `matrix4
+    -6` and `matrix4_mb -6` at each block of UPMIX_BATCH_BLOCKS, float64
+    and float32: each stream bit-equal to process_array of that stream on
+    the card, and the kernels a host step equal at S = 1 and S = 8 (each
+    kernel one launch for the 8). The batch's seconds of audio a wall
+    second against process_array's (one stream) are printed, after a short
+    batch that warms the chain; in float64 at 44.1 kHz also the batch's
+    parts (batch_parts) at S = 1 and 8. Then RING_PROBE: matrix4_mb at
+    470.4 kHz on 2 streams, where the engine's rings sit in the device
+    scratch, in both dtypes, bit-equal to process_array. Each upmix
+    stream-axis form's row counts the launches of the batches alone (its
+    wrapper's count set to 0 just before a batch and read just after), and
+    every form must have run."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.ops import m4_engine as m4
+
+    wrappers = _upmix_wrappers()
+    for rec in wrappers:
+        records[rec]["launches"] = 0
+    S = BATCH_STREAMS
+
+    def run(words, fs, B, dt, xs, label):
+        cc = CompiledChain(build_chain_from_string(words, StreamInfo(fs, CHANNELS)), B,
+                           dtype=dt, device="cuda")
+        # a short batch first: the chain's first use (its tables at this
+        # block, the allocator's buffers) is not the batch's time
+        cc.process_batch(xs[:, :2 * B])
+        per, walls = [], []
+        steps, restore = _counting_steps()
+        try:
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            k0, t0 = kernel_total(), time.perf_counter()
+            yb = cc.process_batch(xs)
+            walls.append(time.perf_counter() - t0)
+            per.append((kernel_total() - k0) / steps[0])
+            for rec, w in wrappers.items():
+                records[rec]["launches"] += w.launches
+            for s in range(len(xs)):
+                cc.reset()
+                steps[0] = 0
+                torch.cuda.synchronize()
+                k0, t0 = kernel_total(), time.perf_counter()
+                one = cc.process_array(xs[s])
+                walls.append(time.perf_counter() - t0)
+                per.append((kernel_total() - k0) / steps[0])
+                _require(f"process_batch {label}: stream {s} differs from process_array on the "
+                         f"card", np.array_equal(yb[s], one))
+        finally:
+            restore()
+        _require(f"process_batch {label}: {per[0]:.3f} kernels a host step at S={len(xs)}, "
+                 f"{per[1]:.3f} at S=1", per[0] == per[1] and len(set(per[1:])) == 1)
+        if fs == FS and dt == torch.float64:  # where the time goes, S = 1 against 8
+            for n in (1, len(xs)):
+                parts = batch_parts(cc, xs[:n])
+                print(f"  {label} S={n}: the batch's parts {parts[0]:.3f} s in, {parts[1]:.3f} s "
+                      f"of steps, {parts[2]:.3f} s out")
+        secs = xs.shape[1] / fs
+        print(f"  {label}: {walls[0]:.3f} s for the batch of {len(xs)} "
+              f"({len(xs) * secs / walls[0]:.1f} s of audio a second, "
+              f"{secs / walls[0]:.1f}x realtime a stream); process_array "
+              f"{np.mean(walls[1:]):.3f} s a stream ({secs / np.mean(walls[1:]):.1f}x); the "
+              f"batch {len(xs) * np.mean(walls[1:]) / walls[0]:.2f}x the streams' rate one by "
+              f"one; {per[0]:.3f} kernels a host step at S={len(xs)} and 1; every stream "
+              f"bit-equal")
+        return cc
+
+    print(f"process_batch of the upmixes: {S} streams of {UPMIX_BATCH_SECONDS} s of transients")
+    n = UPMIX_BATCH_SECONDS * FS
+    xs = np.stack([transient_signal(UPMIX_BATCH_SECONDS, seed=70 + s)[:n] for s in range(S)])
+    for words in ("matrix4 -6", "matrix4_mb -6"):
+        for B in UPMIX_BATCH_BLOCKS:
+            for dt in (torch.float64, torch.float32):
+                run(words, FS, B, dt, xs, f"{words} -b {B} {str(dt)[6:]}")
+    words, fs, S_r, secs = RING_PROBE
+    xs = np.stack([transient_signal(secs, fs, seed=80 + s) for s in range(S_r)])
+    for dt in (torch.float64, torch.float32):
+        cc = run(words, fs, 2048, dt, xs, f"{words} at {fs} Hz, {S_r} streams, {str(dt)[6:]}")
+        e = next(e for e in cc._runtime_effects if hasattr(e, "ctl"))
+        geo = m4.event_geometry(m4.N_BANDS, e.ctl.p["buf_len"], 2048 // 32)
+        _require(f"{words} at {fs} Hz: the rings are not in the device scratch", geo[3] > 0)
+    idle = [rec for rec in wrappers if records[rec]["launches"] == 0]
+    _require(f"upmix stream-axis forms never launched in the batches: {idle}", not idle)
+    print("upmix stream-axis launches in the batches: "
+          + ", ".join(f"{rec} {records[rec]['launches']}" for rec in wrappers))
 
 
 def _counting_steps():
@@ -5313,6 +5737,42 @@ def main():
                  "overlap-add)", "resample 44101: N=88202, C=2, an inner block a stream"),
                 ("irfft_ola_f32@S", "fft_conv", "dsp_tpu/ops/resample_ops.py:191-233",
                  "float32, resample 44101: N=88202, C=2, an inner block a stream"),
+            )) + tuple(
+            # slice H2a's: the upmixes' kernels, S streams in one launch,
+            # where dsp_tpu vmaps the step of process_batch
+            (rec, src, f"{replaces}, vmapped over streams (dsp_tpu/chain/chain.py:778)",
+             f"S={TIMED_STREAMS} streams (ms_s1, device_ms_s1: one stream), {at}")
+            for rec, src, replaces, at in (
+                ("biquad_scan_series@S", "biquad_scan", "dsp_tpu/effects/matrix4.py:431-432",
+                 "matrix4's band-limit, B=2048, C=2"),
+                ("m4_env@S", "m4_env", "dsp_tpu/ops/m4_engine.py:267", "B=2048, a lane a stream"),
+                ("m4_env_f32@S", "m4_env", "dsp_tpu/ops/m4_engine.py:267 (df=True)",
+                 "float32, B=2048, a lane a stream"),
+                ("m4mb_env@S", "m4_env",
+                 "dsp_tpu/ops/m4_engine.py:267 (effects/matrix4_mb.py:397-432)",
+                 "B=2048, 13 lanes a stream"),
+                ("m4mb_env_f32@S", "m4_env",
+                 "dsp_tpu/ops/m4_engine.py:267 (df=True; effects/matrix4_mb.py:397-432)",
+                 "float32, B=2048, 13 lanes a stream"),
+                ("m4_event@S", "m4_event", "dsp_tpu/ops/m4_engine.py:395,730,784,887",
+                 "Nc=64, v4, a lane a stream"),
+                ("m4_event_f32@S", "m4_event", "dsp_tpu/ops/m4_engine.py:395 over dfx.DF",
+                 "float32, Nc=64, v4, a lane a stream"),
+                ("m4mb_event@S", "m4_event",
+                 "dsp_tpu/ops/m4_engine.py:395 (effects/matrix4_mb.py:445-551)",
+                 "Nc=64, v4, 13 bands a stream, a block a stream"),
+                ("m4mb_event_f32@S", "m4_event",
+                 "dsp_tpu/ops/m4_engine.py:395 over dfx.DF (effects/matrix4_mb.py:445-551)",
+                 "float32, Nc=64, v4, 13 bands, a block a stream"),
+                ("m4_audio@S", "m4_audio", "dsp_tpu/effects/matrix4.py:597,673,699",
+                 "B=2048, v4, a block a stream"),
+                ("m4_audio_f32@S", "m4_audio", "dsp_tpu/effects/matrix4.py:597,673,699 in float32",
+                 "float32, B=2048, v4, a block a stream"),
+                ("m4mb_audio@S", "m4mb_audio", "dsp_tpu/effects/matrix4_mb.py:569,778",
+                 "B=2048, v4, tiles of 256 of each stream"),
+                ("m4mb_audio_f32@S", "m4mb_audio",
+                 "dsp_tpu/effects/matrix4_mb.py:569,778 in float32",
+                 "float32, B=2048, v4, tiles of 256 of each stream"),
             ))
     }
     tmp = ROOT / ".smoke_tmp" / "run"  # removed at the end; scratch scripts may sit beside it
@@ -5348,6 +5808,7 @@ def main():
         tmp.mkdir(parents=True, exist_ok=True)
         f1m, f4k, kept = timed(main_path, records, SECONDS, tmp)
         timed(split_phase, records, tmp, kept, SECONDS * FS, SECONDS)
+        timed(batch_upmix_phase, records)
         timed(float32_phase, records, tmp, kept)
         engine_tick_line(records)
         timed(float32_time_domain_cli, records, tmp)

@@ -10,8 +10,9 @@ packages build the same chain from the same string.
 
 Split and batched processing (``process_array_split``, ``process_batch``)
 run S streams through the same step, a block of each at once: x [S, B, C]
-and every state leaf with a leading S, so each kernel of the step runs
-the S streams in the launch of one.
+and every state leaf with a leading S (but the host's counters, one for
+all streams), so each kernel of the step runs the S streams in the launch
+of one.
 """
 
 from dataclasses import dataclass, field
@@ -723,19 +724,18 @@ class CompiledChain:
     def _unsafe_names(self):
         return [e.name for e in self.chain.effects if not getattr(e, "split_safe", True)]
 
+    def _no_axis_names(self):
+        return [e.name for e in self.chain.effects if not getattr(e, "stream_axis", True)]
+
     def _stream_states(self, states, S):
-        """states with a leading stream axis of S: each leaf copied for every
-        stream. A 0-dim leaf keeps one value for all streams: it is a
-        host-side counter (NupolsConv's ``cnt``, the block index within a
-        super-block), and every stream of a split or a batch sits at the
-        same block index."""
-        if isinstance(states, (tuple, list)):
-            return type(states)(self._stream_states(t, S) for t in states)
-        if isinstance(states, dict):
-            return {k: self._stream_states(v, S) for k, v in states.items()}
-        if states.dim() == 0:
-            return states
-        return states.unsqueeze(0).expand(S, *states.shape).contiguous()
+        """states (one a runtime effect) with a leading stream axis of S:
+        each leaf copied for every stream, but an effect's host_leaves
+        (NupolsConv's block counter ``cnt``, matrix4's ``fade_p`` and
+        ``disable``), which keep one value for all streams: every stream of
+        a split or a batch sits at the same block index, and ``fade_p``
+        counts down by the block whatever the signal."""
+        return [_with_streams(st, S, getattr(e, "host_leaves", ()))
+                for e, st in zip(self._runtime_effects, states)]
 
     def _run_streams(self, states, xs):
         """xs [S, n·B, C] host float64 (one host->device copy) -> the output
@@ -759,11 +759,12 @@ class CompiledChain:
         Each stream starts from the live state (broadcast over the stream
         axis; the live state is neither consumed nor advanced), so stream s
         is process_array(xs[s]) on this chain as it stands. Every block of
-        the S streams is one step, each kernel one launch for the S. Raises
-        ChainError when the chain holds an effect without a stream axis
-        (the split-unsafe effects: matrix4, matrix4_mb, the meters, the
-        PRNG-driven effects)."""
-        bad = self._unsafe_names()
+        the S streams is one step, each kernel one launch for the S; as in
+        dsp_tpu, whose batch steps _step_fn_raw, no host_update runs (the
+        upmixes' status lines). Raises ChainError when the chain holds an
+        effect without a stream axis (Effect.stream_axis: the meters and
+        the PRNG-driven effects)."""
+        bad = self._no_axis_names()
         if bad:
             raise ChainError(f"process_batch is not yet ported for effects without a stream "
                              f"axis: {', '.join(bad)}")
@@ -850,6 +851,16 @@ class CompiledChain:
         if discard and self.chain.output_discard:
             y = y[self.chain.output_discard :]
         return y
+
+
+def _with_streams(tree, S, host):
+    """A state tree with a leading stream axis of S on every leaf but the
+    dict leaves named in host."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_with_streams(t, S, host) for t in tree)
+    if isinstance(tree, dict):
+        return {k: v if k in host else _with_streams(v, S, host) for k, v in tree.items()}
+    return tree.unsqueeze(0).expand(S, *tree.shape).contiguous()
 
 
 def chain_needs_dither(chain):

@@ -593,11 +593,12 @@ extern "C" int dsp_crossfeed_step_f32(const float* A, const float* Bv, const flo
 
 // Two float64 stages in series on x [B, C] (matrix4's band-limit: the
 // highpass, then the lowpass): A [2C, 2, 2], Bv [2C, 2], c0 [2C] and the
-// state [2C, 2], rows [0, C) the first stage; y [B, C] the second's output.
-// The n = 2 case of dsp_biquad_scan_run.
+// state [2C, 2], rows [0, C) the first stage; y [B, C] the second's output;
+// S streams: x and y [S, B, C], the state [S, 2C, 2] (S·C lanes, as the
+// run's). The n = 2 case of dsp_biquad_scan_run.
 extern "C" int dsp_biquad_scan_series_f64(const double* A, const double* Bv, const double* c0,
                                           const double* state_in, double* state_out,
-                                          const double* x, double* y, int B, int C,
+                                          const double* x, double* y, int B, int C, int S,
                                           void* stream) {
     RunStates st{};
     for (int s = 0; s < 2; ++s) {
@@ -605,7 +606,8 @@ extern "C" int dsp_biquad_scan_series_f64(const double* A, const double* Bv, con
         st.out[s] = state_out + (size_t)s * 2 * C;
     }
     st.lane = 2;
-    return biquad_run<double, false>(A, Bv, c0, st, x, y, B, C, 2, 1, stream);
+    st.stream = 4LL * C;
+    return biquad_run<double, false>(A, Bv, c0, st, x, y, B, C, 2, S, stream);
 }
 
 // A run of n stages in series on x [B, C] in one launch: A [n, C, 2, 2],

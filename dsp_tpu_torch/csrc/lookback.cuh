@@ -96,8 +96,9 @@ __device__ inline void wait(const Scratch& s, long long slot, unsigned tag) {
 
 // The general affine form: each of `width` lanes carries a value through
 // maps that vary from tile to tile, v <- a·v + b. A tile publishes its maps
-// as a[width] then b[width] (publish with 2·width values); carry_affine
-// waits for every tile before t and applies their maps to the values in v
+// as a[width] then b[width] (publish with 2·width values) at slot base + its
+// index; carry_affine waits for every tile before t and applies their maps
+// to the values in v
 // (shared memory: the launch's start values on entry, tile t's on return)
 // one after another, in tile order, each an FMA. A value is carried, never
 // a composed map, so a tile's values meet every earlier map in the same
@@ -106,15 +107,15 @@ __device__ inline void wait(const Scratch& s, long long slot, unsigned tag) {
 // the block calls it; it ends on a barrier.
 constexpr int kAffineLook = 64;
 
-__device__ inline void carry_affine(const Scratch& s, long long t, unsigned tag, int width,
-                                    double* v, double* buf) {
-    for (long long j = threadIdx.x; j < t; j += blockDim.x) wait(s, j, tag);
+__device__ inline void carry_affine(const Scratch& s, long long base, long long t, unsigned tag,
+                                    int width, double* v, double* buf) {
+    for (long long j = threadIdx.x; j < t; j += blockDim.x) wait(s, base + j, tag);
     __syncthreads();
     const int w2 = 2 * width;
     for (long long j0 = 0; j0 < t; j0 += kAffineLook) {
         const int cnt = (int)(t - j0 < kAffineLook ? t - j0 : kAffineLook);
         for (int q = threadIdx.x; q < cnt * w2; q += blockDim.x)
-            buf[q] = __ldcg(s.agg + j0 * w2 + q);
+            buf[q] = __ldcg(s.agg + (base + j0) * w2 + q);
         __syncthreads();
         for (int e = threadIdx.x; e < width; e += blockDim.x) {
             double x = v[e];

@@ -47,6 +47,10 @@
 // segment walks nor the coalesced passes conflict on banks. A block of
 // 65,536 is 32 tiles of the same work on the one block.
 //
+// The stream axis (batched processing): S independent streams in one
+// launch, a block each (block s: stream s's x, line, coefficient sets,
+// states and y), each running a one-stream launch's tiles: the same bits.
+//
 // float32 (`dsp_m4_audio_f32`, dsp_tpu's float32 _audio): x, the line, the
 // coefficient sets and the filter states are float32, read into float64;
 // the same float64 arithmetic runs, and y and the states are stored
@@ -194,6 +198,20 @@ m4_audio_kernel(const T* __restrict__ x, const T* __restrict__ buf, const T* __r
     Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
     const int tid = threadIdx.x;
     const int sg = tid / kSigThreads, j = tid & (kSigThreads - 1);
+    {   // stream blockIdx.x's tensors
+        const size_t s = blockIdx.x;
+        x += s * B * cfg.n_in;
+        buf += s * cfg.len * 2;
+        interp_c += s * 3 * kInterp;
+        ics += s * (B / kD) * 3 * kInterp;
+        shelf_in += s * 4;
+        lp_in += s * 4;
+        pf_in += s * 4;
+        y += s * B * cfg.n_out;
+        shelf_out += s * 4;
+        lp_out += s * 4;
+        pf_out += s * 4;
+    }
     if (tid < kD) sm.u[tid] = (double)tid / (double)kD;
     if (tid < 4) {
         sm.carry[tid][0] = (double)shelf_in[tid];
@@ -326,11 +344,15 @@ m4_audio_kernel(const T* __restrict__ x, const T* __restrict__ buf, const T* __r
     }
 }
 
+// The kernels launch has launched in this process (host side): how a
+// caller checks that a call is one launch.
+unsigned long long audio_launches = 0;
+
 template <class T>
 int launch(const T* x, const T* buf, const T* interp_c, const T* ics, const T* shelf_in,
            const T* lp_in, const T* pf_in, T* y, T* shelf_out, T* lp_out, T* pf_out,
-           const AudioCfg* cfg, int B, void* stream) {
-    if (B <= 0 || B % kD || cfg->D != kD || cfg->n_in < 2 || cfg->len < 0
+           const AudioCfg* cfg, int B, int S, void* stream) {
+    if (B <= 0 || B % kD || S <= 0 || cfg->D != kD || cfg->n_in < 2 || cfg->len < 0
         || cfg->n_out != cfg->n_in + (cfg->direct ? 4 : 2)) {
         return (int)cudaErrorInvalidValue;
     }
@@ -341,30 +363,37 @@ int launch(const T* x, const T* buf, const T* interp_c, const T* ics, const T* s
         if (err != cudaSuccess) return (int)err;
         sized = true;
     }
-    m4_audio_kernel<T><<<1, kThreads, sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(
+    m4_audio_kernel<T><<<S, kThreads, sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(
         x, buf, interp_c, ics, shelf_in, lp_in, pf_in, y, shelf_out, lp_out, pf_out, *cfg, B);
-    return (int)cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess) ++audio_launches;
+    return (int)err;
 }
 
 }  // namespace
 
+extern "C" unsigned long long dsp_m4_audio_launches() { return audio_launches; }
+
 // x [B, n_in], buf [len, 2], interp_c [3, 16], ics [B/D, 3, 16], the states
-// shelf, lp [4] and pf [2, 2] in and out, y [B, n_out]. Returns
+// shelf, lp [4] and pf [2, 2] in and out, y [B, n_out]; S streams: each of
+// them with a leading S. Returns
 // cudaGetLastError() after the launch (0 on success). The caller
 // (dsp_tpu_torch/ops/m4_engine.py) checks shapes, dtypes and contiguity.
 extern "C" int dsp_m4_audio_f64(const double* x, const double* buf, const double* interp_c,
                                 const double* ics, const double* shelf_in, const double* lp_in,
                                 const double* pf_in, double* y, double* shelf_out, double* lp_out,
-                                double* pf_out, const AudioCfg* cfg, int B, void* stream) {
+                                double* pf_out, const AudioCfg* cfg, int B, int S,
+                                void* stream) {
     return launch<double>(x, buf, interp_c, ics, shelf_in, lp_in, pf_in, y, shelf_out, lp_out,
-                          pf_out, cfg, B, stream);
+                          pf_out, cfg, B, S, stream);
 }
 
 // The same with every input, output and state float32.
 extern "C" int dsp_m4_audio_f32(const float* x, const float* buf, const float* interp_c,
                                 const float* ics, const float* shelf_in, const float* lp_in,
                                 const float* pf_in, float* y, float* shelf_out, float* lp_out,
-                                float* pf_out, const AudioCfg* cfg, int B, void* stream) {
+                                float* pf_out, const AudioCfg* cfg, int B, int S,
+                                void* stream) {
     return launch<float>(x, buf, interp_c, ics, shelf_in, lp_in, pf_in, y, shelf_out, lp_out,
-                         pf_out, cfg, B, stream);
+                         pf_out, cfg, B, S, stream);
 }

@@ -10,20 +10,28 @@
 // those rows and the carried m.
 //
 // matrix4_mb (dsp_tpu/effects/matrix4_mb.py:397-432) runs the same EWMAs on
-// each of its 13 bands: the input is S lanes of pairs [B, S, 2] (S = 1 for
+// each of its 13 bands: the input is G lanes of pairs [B, G, 2] (G = 1 for
 // matrix4), and with freq_mask the lanes are first mixed by the
-// lower-triangular weights w [S, S] (lane k's pair is sum over j <= k of
+// lower-triangular weights w [G, G] (lane k's pair is sum over j <= k of
 // w[k, j]·pair_j, summed from j = 0 up with each product rounded, as the
-// plain version sums it). The outputs are [S, 8] and [B/D, S, 8].
+// plain version sums it). The outputs are [G, 8] and [B/D, G, 8].
+//
+// The stream axis (batched processing): NS independent streams of G lanes
+// each in one launch, the input [NS, B, G, 2], the envelopes [NS, G, 8] and
+// the ticks [NS, B/D, G, 8]; w mixes within each stream's G lanes. A
+// stream keeps the partition of a one-stream launch: nseg follows G, never
+// NS·G, so its tiles, its scan and its look-back's combine order are those
+// of a one-stream call, and its slots of the look-back scratch are its own
+// (stream s's tile t at s·ntiles + t): the same bits.
 //
 // What bounds it on the card: each envelope is a dependent chain of B
-// samples (two operations a sample) over 16·S·B bytes: latency, unless the
+// samples (two operations a sample) over 16·G·B bytes: latency, unless the
 // chain is cut up. With the constant a = 1 - g, a segment of D samples maps
 // m to a^D·m + b, and equal segments share a^D, so only the b's need a
 // scan; and a segment ends on a tick, so the scan's values are the ticks.
 //
 // Design: one launch, a block a tile of nseg segments (nseg·D samples) of
-// all S lanes, tiles in ticket order over the card:
+// all G lanes, tiles in ticket order over the card:
 //   1. the tile's pairs are read once, coalesced and kStage loads a
 //      thread in flight, into shared memory (a segment's rows at an odd
 //      stride, so the segments' threads hit distinct banks); with w, all
@@ -72,9 +80,9 @@ struct SegPowers {
 };
 
 // the tile's pairs, and with the mix its mixed pairs beside them
-__host__ __device__ inline size_t shared_doubles(int S, int D, int nseg, bool mix) {
-    return (size_t)nseg * (2 * S * D + 1) * (mix ? 2 : 1) + (size_t)S * S +
-           (size_t)kLook * (8 * S + 1) + 8 * S;
+__host__ __device__ inline size_t shared_doubles(int G, int D, int nseg, bool mix) {
+    return (size_t)nseg * (2 * G * D + 1) * (mix ? 2 : 1) + (size_t)G * G +
+           (size_t)kLook * (8 * G + 1) + 8 * G;
 }
 
 template <class T>
@@ -82,30 +90,45 @@ __global__ void m4_env_tiles(const T* __restrict__ ybp, const T* __restrict__ yb
                              const double* __restrict__ w, const T* __restrict__ env_in,
                              const T* __restrict__ env_in_lo, T* __restrict__ env_out,
                              T* __restrict__ env_out_lo, double* __restrict__ env_ds, double g,
-                             SegPowers pw, int B, int S, int D, int nseg, int ntiles,
+                             SegPowers pw, int B, int G, int NS, int D, int nseg, int ntiles,
                              lookback::Scratch lb) {
     extern __shared__ double smem[];
     __shared__ unsigned tk[2];
     const unsigned full = 0xffffffffu;
-    const int W8 = 8 * S;  // the values a tile carries
+    const int W8 = 8 * G;  // the values a tile carries
     lookback::begin(lb, tk);
-    const int t = (int)tk[0];
+    // tile t of stream st: the tickets run tile-major, so every tile a
+    // block waits on has a ticket before its own
+    const int t = (int)(tk[0] / NS), st = (int)(tk[0] % NS);
     const unsigned tag = tk[1];
+    const long long slot0 = (long long)st * ntiles;  // the stream's look-back slots
+    {   // this stream's pairs, envelopes and ticks
+        const size_t in = (size_t)st * B * G * 2, env = (size_t)st * G * 8;
+        ybp += in;
+        if (ybp_lo != nullptr) ybp_lo += in;
+        env_in += env;
+        env_out += env;
+        if (env_in_lo != nullptr) {
+            env_in_lo += env;
+            env_out_lo += env;
+        }
+        env_ds += (size_t)st * (B / D) * G * 8;
+    }
     const int TS = nseg * D;
     const int nsv = min(TS, B - t * TS) / D;  // segments in this tile
     const bool last = t == ntiles - 1;
-    const int RS = 2 * S * D + 1;      // a segment's rows in shared memory
+    const int RS = 2 * G * D + 1;      // a segment's rows in shared memory
     double* raw = smem;                // [nseg·RS] the tile's pairs
-    double* ws = raw + nseg * RS;      // [S·S] the mix
-    double* lv = ws + S * S;           // [kLook·W8] earlier tiles' aggregates
+    double* ws = raw + nseg * RS;      // [G·G] the mix
+    double* lv = ws + G * G;           // [kLook·W8] earlier tiles' aggregates
     double* fac = lv + kLook * W8;     // [kLook] their factors
     double* start = fac + kLook;       // [W8] the tile's start values
     double* mixed = start + W8;        // [nseg·RS] the mixed pairs, with w
     const double a = 1.0 - g;
 
     // 1. the tile's pairs, coalesced, kStage loads a thread in flight
-    const size_t base = (size_t)t * TS * S * 2;
-    const int seg = D * S * 2;  // a segment's doubles
+    const size_t base = (size_t)t * TS * G * 2;
+    const int seg = D * G * 2;  // a segment's doubles
     const int count = nsv * seg;
     for (int q0 = threadIdx.x; q0 < count; q0 += kStage * blockDim.x) {
         double r[kStage];
@@ -121,7 +144,7 @@ __global__ void m4_env_tiles(const T* __restrict__ ybp, const T* __restrict__ yb
         }
     }
     if (w != nullptr)
-        for (int q = threadIdx.x; q < S * S; q += blockDim.x) ws[q] = w[q];
+        for (int q = threadIdx.x; q < G * G; q += blockDim.x) ws[q] = w[q];
     __syncthreads();
 
     // the mix, once a sample and lane, over all the block's threads, lane
@@ -130,10 +153,10 @@ __global__ void m4_env_tiles(const T* __restrict__ ybp, const T* __restrict__ yb
     const double* src = raw;
     if (w != nullptr) {
         const int rows = nsv * D;
-        for (int q = threadIdx.x; q < rows * S; q += blockDim.x) {
+        for (int q = threadIdx.x; q < rows * G; q += blockDim.x) {
             const int sl = q / rows, row = q - sl * rows;
-            const double* in = raw + (row / D) * RS + (row % D) * 2 * S;
-            const double* wr = ws + sl * S;
+            const double* in = raw + (row / D) * RS + (row % D) * 2 * G;
+            const double* wr = ws + sl * G;
             double l = __dmul_rn(in[0], wr[0]), r = __dmul_rn(in[1], wr[0]);
             for (int j = 1; j <= sl; ++j) {
                 l = __dadd_rn(l, __dmul_rn(in[2 * j], wr[j]));
@@ -152,10 +175,10 @@ __global__ void m4_env_tiles(const T* __restrict__ ybp, const T* __restrict__ yb
     double b[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) b[j] = 0.0;
-    if (s < S && k < nsv) {
+    if (s < G && k < nsv) {
         const double* sg = src + k * RS + 2 * s;
         for (int i = 0; i < D; ++i) {
-            const double l = sg[i * 2 * S], r = sg[i * 2 * S + 1];
+            const double l = sg[i * 2 * G], r = sg[i * 2 * G + 1];
             const double sum = l + r, diff = l - r;
             const double in[8] = {fabs(l), fabs(r), fabs(sum), fabs(diff),
                                   l * l,   r * r,   sum * sum, diff * diff};
@@ -174,9 +197,9 @@ __global__ void m4_env_tiles(const T* __restrict__ ybp, const T* __restrict__ yb
         }
     }
     if (!last) {
-        if (s < S && k == nseg - 1)
+        if (s < G && k == nseg - 1)
             for (int j = 0; j < 8; ++j) lv[s * 8 + j] = b[j];
-        lookback::publish(lb, t, tag, lv, W8);
+        lookback::publish(lb, slot0 + t, tag, lv, W8);
         __syncthreads();  // lv is the look-back's next
     }
 
@@ -188,12 +211,12 @@ __global__ void m4_env_tiles(const T* __restrict__ ybp, const T* __restrict__ yb
         fac[i] = pow(a, (double)TS * (t - 1 - i));
     for (int e = threadIdx.x; e < W8; e += blockDim.x)
         start[e] = f0 * pair_load(env_in, env_in_lo, (size_t)e);
-    for (int j = threadIdx.x; j < t; j += blockDim.x) lookback::wait(lb, j, tag);
+    for (int j = threadIdx.x; j < t; j += blockDim.x) lookback::wait(lb, slot0 + j, tag);
     __syncthreads();
     for (int j0 = 0; j0 < t; j0 += kLook) {
         const int cnt = min(kLook, t - j0);
         for (int q = threadIdx.x; q < cnt * W8; q += blockDim.x)
-            lv[q] = __ldcg(lb.agg + (size_t)j0 * W8 + q);
+            lv[q] = __ldcg(lb.agg + (size_t)(slot0 + j0) * W8 + q);
         if (j0 > 0)
             for (int i = threadIdx.x; i < cnt; i += blockDim.x)
                 fac[i] = pow(a, (double)TS * (t - 1 - j0 - i));
@@ -207,9 +230,9 @@ __global__ void m4_env_tiles(const T* __restrict__ ybp, const T* __restrict__ yb
     }
 
     // 5. each segment's end is a tick
-    if (s < S && k < nsv) {
+    if (s < G && k < nsv) {
         const double fk = pw.p[k];
-        double* out = env_ds + ((size_t)(t * nseg + k) * S + s) * 8;
+        double* out = env_ds + ((size_t)(t * nseg + k) * G + s) * 8;
         double m[8];
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -228,19 +251,20 @@ unsigned long long env_launches = 0;
 
 template <class T>
 int launch(const T* ybp, const T* ybp_lo, const double* w, const T* env_in, const T* env_in_lo,
-           T* env_out, T* env_out_lo, double* env_ds, double g, int B, int S, int D, int nseg,
-           unsigned* flags, long long flag_slots, double* agg, long long agg_doubles,
+           T* env_out, T* env_out_lo, double* env_ds, double g, int B, int G, int NS, int D,
+           int nseg, unsigned* flags, long long flag_slots, double* agg, long long agg_doubles,
            void* stream) {
-    if (B <= 0 || S <= 0 || D <= 0 || B % D || nseg <= 0 || nseg > 32 || (nseg & (nseg - 1)) ||
+    if (B <= 0 || G <= 0 || NS <= 0 || D <= 0 || B % D || nseg <= 0 || nseg > 32 ||
+        (nseg & (nseg - 1)) ||
         flags == nullptr || agg == nullptr)
         return (int)cudaErrorInvalidValue;
-    const int used = ((S * nseg + 31) / 32) * 32;
-    const int least = S == 1 ? 128 : 256;  // threads for the staging and the mix
+    const int used = ((G * nseg + 31) / 32) * 32;
+    const int least = G == 1 ? 128 : 256;  // threads for the staging and the mix
     const int threads = used < least ? least : used;
     const int ntiles = (B + nseg * D - 1) / (nseg * D);
-    const size_t smem = shared_doubles(S, D, nseg, w != nullptr) * sizeof(double);
-    if (threads > 1024 || smem > kMaxShared || ntiles > flag_slots ||
-        (long long)ntiles * 8 * S > agg_doubles)
+    const size_t smem = shared_doubles(G, D, nseg, w != nullptr) * sizeof(double);
+    if (threads > 1024 || smem > kMaxShared || (long long)ntiles * NS > flag_slots ||
+        (long long)ntiles * NS * 8 * G > agg_doubles)
         return (int)cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
@@ -249,8 +273,8 @@ int launch(const T* ybp, const T* ybp_lo, const double* w, const T* env_in, cons
     }
     SegPowers pw;
     for (int k = 0; k < nseg; ++k) pw.p[k] = std::pow(1.0 - g, (double)D * (k + 1));
-    m4_env_tiles<T><<<ntiles, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-        ybp, ybp_lo, w, env_in, env_in_lo, env_out, env_out_lo, env_ds, g, pw, B, S, D, nseg,
+    m4_env_tiles<T><<<ntiles * NS, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        ybp, ybp_lo, w, env_in, env_in_lo, env_out, env_out_lo, env_ds, g, pw, B, G, NS, D, nseg,
         ntiles, lookback::carve(flags, agg));
     const cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess) ++env_launches;
@@ -259,30 +283,31 @@ int launch(const T* ybp, const T* ybp_lo, const double* w, const T* env_in, cons
 
 }  // namespace
 
-// ybp [B, S, 2], w [S, S] or null, env_in and env_out [S, 8], env_ds
-// [B / D, S, 8]; tiles of nseg segments of D samples; flags (flag_slots
+// ybp [NS, B, G, 2], w [G, G] or null, env_in and env_out [NS, G, 8],
+// env_ds [NS, B / D, G, 8]: NS streams of G lanes; tiles of nseg segments
+// of D samples (the partition of one stream); flags (flag_slots
 // slots after its head) and agg (agg_doubles long) the look-back scratch of
 // csrc/lookback.cuh. Returns cudaGetLastError() after the launch (0 on
 // success). The caller (dsp_tpu_torch/ops/m4_engine.py) checks shapes,
 // dtypes and contiguity.
 extern "C" int dsp_m4_env_f64(const double* ybp, const double* w, const double* env_in,
-                              double* env_out, double* env_ds, double g, int B, int S, int D,
-                              int nseg, unsigned* flags, long long flag_slots, double* agg,
+                              double* env_out, double* env_ds, double g, int B, int G, int NS,
+                              int D, int nseg, unsigned* flags, long long flag_slots, double* agg,
                               long long agg_doubles, void* stream) {
-    return launch<double>(ybp, nullptr, w, env_in, nullptr, env_out, nullptr, env_ds, g, B, S, D,
-                          nseg, flags, flag_slots, agg, agg_doubles, stream);
+    return launch<double>(ybp, nullptr, w, env_in, nullptr, env_out, nullptr, env_ds, g, B, G, NS,
+                          D, nseg, flags, flag_slots, agg, agg_doubles, stream);
 }
 
-// The same from float32 pairs: the input (ybp, ybp_lo) [B, S, 2] and the
-// envelopes (env_in, env_in_lo) in and (env_out, env_out_lo) out, [S, 8]
-// each; env_ds float64.
+// The same from float32 pairs: the input (ybp, ybp_lo) [NS, B, G, 2] and
+// the envelopes (env_in, env_in_lo) in and (env_out, env_out_lo) out,
+// [NS, G, 8] each; env_ds float64.
 extern "C" int dsp_m4_env_f32(const float* ybp, const float* ybp_lo, const double* w,
                               const float* env_in, const float* env_in_lo, float* env_out,
-                              float* env_out_lo, double* env_ds, double g, int B, int S, int D,
-                              int nseg, unsigned* flags, long long flag_slots, double* agg,
+                              float* env_out_lo, double* env_ds, double g, int B, int G, int NS,
+                              int D, int nseg, unsigned* flags, long long flag_slots, double* agg,
                               long long agg_doubles, void* stream) {
-    return launch<float>(ybp, ybp_lo, w, env_in, env_in_lo, env_out, env_out_lo, env_ds, g, B, S,
-                         D, nseg, flags, flag_slots, agg, agg_doubles, stream);
+    return launch<float>(ybp, ybp_lo, w, env_in, env_in_lo, env_out, env_out_lo, env_ds, g, B, G,
+                         NS, D, nseg, flags, flag_slots, agg, agg_doubles, stream);
 }
 
 extern "C" unsigned long long dsp_m4_env_launches() { return env_launches; }

@@ -70,6 +70,13 @@
 // torch's CUDA ops call them. The decisions (booleans, counters, tick stamps)
 // are exact comparisons of those values.
 //
+// The stream axis (batched processing): S independent streams in one
+// launch, a block each. matrix4's streams are the lanes of m4_event (block
+// s: lane s); matrix4_mb's take a block each (block s: stream s's 13
+// coupled engines, state lanes 13s .. 13s + 12, its rings in shared memory
+// or its own part of the device scratch). A block runs a one-stream
+// launch's geometry, roles and order: the same bits.
+//
 // float32 (`dsp_m4_event_f32`, `dsp_m4mb_event_f32`): dsp_tpu runs the whole
 // control path of both upmixes in two-float32 under float32
 // (`event_step` over dfx.DF with cast_params(df=True), m4_engine.py:225,
@@ -1256,7 +1263,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // P and T as m4_event_kernel's; the thresholds are a (hi, lo) pair under
-// float32. One block, C ticks a chunk, the roles as m4_event_kernel's.
+// float32. One block a stream of 13 bands, C ticks a chunk, the roles as
+// m4_event_kernel's.
 template <class P, class T>
 __global__ void __launch_bounds__(kMaxThreads)
     m4mb_event_kernel(P in, P out, const T* __restrict__ evt_in, const T* __restrict__ evt_in_lo,
@@ -1269,17 +1277,20 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int L = base.buf_len;
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int nch = (Nc + C - 1) / C;
-    const Smem sm = carve(smem, kBands, L, C, ring_dev);
+    const int b0 = blockIdx.x * kBands;  // the stream's first lane of the state
+    const Smem sm = carve(smem, kBands, L, C,
+                          ring_dev != nullptr ? ring_dev + (size_t)b0 * R_ALL * L : nullptr);
     constexpr int kRow = kBands * kSigMb;
     const size_t ts = kBands * 8;  // a tick's envelopes
+    env_ds += (size_t)blockIdx.x * Nc * ts;
     const int rec = warp == 1 && lane < kBands ? lane : -1;  // band rec's recurrences
     Pre q;
     if (rec >= 0) {
-        load_pre(q, in, rec);
-        sm.dprev[rec] = leaf_get(in, F_DIFF_LAST, (size_t)rec * 2);
-        sm.dprev[kBands + rec] = leaf_get(in, F_DIFF_LAST, (size_t)rec * 2 + 1);
+        load_pre(q, in, b0 + rec);
+        sm.dprev[rec] = leaf_get(in, F_DIFF_LAST, (size_t)(b0 + rec) * 2);
+        sm.dprev[kBands + rec] = leaf_get(in, F_DIFF_LAST, (size_t)(b0 + rec) * 2 + 1);
     }
-    rings_in(sm.ring, in, 0, kBands, L);
+    rings_in(sm.ring, in, b0, kBands, L);
     __syncthreads();
     pre_phase<kBands, Block>(base, q, threadIdx.x, blockDim.x, rec, env_ds, ts, min(C, Nc), C,
                              sm.tab[0], sm.sim[0], sm.dprev);
@@ -1290,8 +1301,8 @@ __global__ void __launch_bounds__(kMaxThreads)
         Ev e;
         double evt = 0.0, etmax = 0.0, etmin = 0.0;
         if (b < kBands) {
-            load_ev(e, in, b);
-            evt = pair_load(evt_in, evt_in_lo, b);
+            load_ev(e, in, b0 + b);
+            evt = pair_load(evt_in, evt_in_lo, b0 + b);
             etmax = k.etmax[b];
             etmin = k.etmin[b];
         }
@@ -1331,8 +1342,8 @@ __global__ void __launch_bounds__(kMaxThreads)
             named_barrier(kChunkBarrier, blockDim.x);
         }
         if (b < kBands) {
-            store_ev(e, out, b);
-            pair_store(evt_out, evt_out_lo, b, evt);
+            store_ev(e, out, b0 + b);
+            pair_store(evt_out, evt_out_lo, b0 + b, evt);
         }
     } else if (warp == 1) {
         for (int c = 0; c < nch; ++c) {
@@ -1343,28 +1354,39 @@ __global__ void __launch_bounds__(kMaxThreads)
             }
             named_barrier(kChunkBarrier, blockDim.x);
         }
-        if (rec >= 0) store_pre(q, out, rec);
+        if (rec >= 0) store_pre(q, out, b0 + rec);
     } else {
+        // the stream's scratch, window, coefficient sets and display values
+        const size_t s = blockIdx.x;
+        double* vt_s = vt + s * Nc * kRow;
+        const T* iy_s = iy_in + s * 4 * kRow;
+        T* ics_s = ics + s * Nc * 3 * kRow;
+        T* aux_s = aux + s * Nc * kBands * 2;
         const int et = threadIdx.x - 64, ne = blockDim.x - 64;
         for (int c = 0; c < nch; ++c) {
             if (c > 0) {
                 const int i0 = (c - 1) * C;
-                k10_rows_mb(k, sm.eo[(c - 1) & 1], C, i0, C, vt, aux, fade_p, disable, et, ne);
+                k10_rows_mb(k, sm.eo[(c - 1) & 1], C, i0, C, vt_s, aux_s, fade_p, disable, et,
+                            ne);
                 named_barrier(kEpilogueBarrier, ne);
-                insert_rows(iy_in, vt, ics, i0, C, kRow, et, ne);
+                insert_rows(iy_s, vt_s, ics_s, i0, C, kRow, et, ne);
             }
             named_barrier(kChunkBarrier, blockDim.x);
         }
     }
-    // the last chunk's epilogue, by the whole block
+    // the last chunk's epilogue, by the whole block (the stream's pointers
+    // computed again, as m4_event_kernel's)
     __syncthreads();
+    const size_t s = blockIdx.x;
+    double* vt_s = vt + s * Nc * kRow;
+    const T* iy_s = iy_in + s * 4 * kRow;
     const int i0 = (nch - 1) * C;
-    k10_rows_mb(k, sm.eo[(nch - 1) & 1], C, i0, Nc - i0, vt, aux, fade_p, disable, threadIdx.x,
-                blockDim.x);
-    rings_out(out, sm.ring, 0, kBands, L);
+    k10_rows_mb(k, sm.eo[(nch - 1) & 1], C, i0, Nc - i0, vt_s, aux + s * Nc * kBands * 2, fade_p,
+                disable, threadIdx.x, blockDim.x);
+    rings_out(out, sm.ring, b0, kBands, L);
     __syncthreads();
-    insert_rows(iy_in, vt, ics, i0, Nc - i0, kRow, threadIdx.x, blockDim.x);
-    window_out(iy_in, vt, iy_out, Nc, kRow);
+    insert_rows(iy_s, vt_s, ics + s * Nc * 3 * kRow, i0, Nc - i0, kRow, threadIdx.x, blockDim.x);
+    window_out(iy_s, vt_s, iy_out + s * 4 * kRow, Nc, kRow);
 }
 
 // What a launch's geometry must hold: the roles' threads, a chunk of 1 to
@@ -1374,6 +1396,15 @@ __host__ inline bool geometry_ok(int nb, int L, int threads, int C, size_t smem,
     return threads >= kMinThreads && threads <= kMaxThreads && threads % 32 == 0 && C >= 1 &&
            C <= kMaxChunk && smem >= sizeof(double) * smem_doubles(nb, L, C, ring_dev) &&
            smem <= kMaxSmem;
+}
+
+// The kernels launch_m4 and launch_m4mb have launched in this process (host
+// side): how a caller checks that a call is one launch.
+unsigned long long event_launches = 0;
+
+int counted(cudaError_t err) {
+    if (err == cudaSuccess) ++event_launches;
+    return (int)err;
 }
 
 template <class K>
@@ -1397,27 +1428,30 @@ int launch_m4(const P* in, const P* out, const T* bg_in, const T* bg_in_lo, T* b
     m4_event_kernel<P, T><<<S, threads, smem, static_cast<cudaStream_t>(stream)>>>(
         *in, *out, bg_in, bg_in_lo, bg_out, bg_out_lo, env_ds, vt, iy_in, ics, iy_out, aux,
         ring_dev, *p, *k, Nc, C, fade_p, disable);
-    return (int)cudaGetLastError();
+    return counted(cudaGetLastError());
 }
 
 template <class P, class T>
 int launch_m4mb(const P* in, const P* out, const T* evt_in, const T* evt_in_lo, T* evt_out,
                 T* evt_out_lo, const double* env_ds, double* vt, const T* iy_in, T* ics,
-                T* iy_out, T* aux, double* ring_dev, const EvParams* p, const MbParams* k, int Nc,
-                int threads, int C, size_t smem, long long fade_p, int disable, void* stream) {
-    if (Nc <= 0 || p->buf_len <= 0 || k->fade_frames <= 0 ||
+                T* iy_out, T* aux, double* ring_dev, const EvParams* p, const MbParams* k, int S,
+                int Nc, int threads, int C, size_t smem, long long fade_p, int disable,
+                void* stream) {
+    if (S <= 0 || Nc <= 0 || p->buf_len <= 0 || k->fade_frames <= 0 ||
         !geometry_ok(kBands, p->buf_len, threads, C, smem, ring_dev != nullptr)) {
         return (int)cudaErrorInvalidValue;
     }
     const int err = set_smem(m4mb_event_kernel<P, T>, smem);
     if (err != 0) return err;
-    m4mb_event_kernel<P, T><<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+    m4mb_event_kernel<P, T><<<S, threads, smem, static_cast<cudaStream_t>(stream)>>>(
         *in, *out, evt_in, evt_in_lo, evt_out, evt_out_lo, env_ds, vt, iy_in, ics, iy_out, aux,
         ring_dev, *p, *k, Nc, C, fade_p, disable);
-    return (int)cudaGetLastError();
+    return counted(cudaGetLastError());
 }
 
 }  // namespace
+
+extern "C" unsigned long long dsp_m4_event_launches() { return event_launches; }
 
 // S lanes of Nc ticks: the event state in and out (EvPtrs), bg [S, 2],
 // env_ds [S, Nc, 8], the scratch vt [S, Nc, 16], interp_y [S, 4, 16] in and
@@ -1452,21 +1486,22 @@ extern "C" int dsp_m4_event_f32(const EvPtrsF32* in, const EvPtrsF32* out, const
                                        (size_t)smem, fade_p, disable, stream);
 }
 
-// matrix4_mb's 13 coupled band engines over Nc ticks: the event state in and
-// out (EvPtrs, every leaf [13, ...]), the thresholds evt [13], env_ds
-// [Nc, 13, 8], the scratch vt [Nc, 13, 12], interp_y [4, 13, 12] in and out,
-// ics [Nc, 3, 13, 12], aux [Nc, 13, 2], ring null or [13 · 10 · buf_len];
+// matrix4_mb's 13 coupled band engines over Nc ticks, for S streams: the
+// event state in and out (EvPtrs, every leaf [S, 13, ...]), the thresholds
+// evt [S, 13], env_ds [S, Nc, 13, 8], the scratch vt [S, Nc, 13, 12],
+// interp_y [S, 4, 13, 12] in and out, ics [S, Nc, 3, 13, 12], aux
+// [S, Nc, 13, 2], ring null or [S · 13 · 10 · buf_len];
 // threads, chunk and shared memory as dsp_m4_event_f64's. `p` holds band
 // 0's event parameters; MbParams the ones that differ by band. Returns as
 // dsp_m4_event_f64.
 extern "C" int dsp_m4mb_event_f64(const EvPtrs* in, const EvPtrs* out, const double* evt_in,
                                   double* evt_out, const double* env_ds, double* vt,
                                   const double* iy_in, double* ics, double* iy_out, double* aux,
-                                  double* ring, const EvParams* p, const MbParams* k, int Nc,
-                                  int threads, int chunk, long long smem, long long fade_p,
-                                  int disable, void* stream) {
+                                  double* ring, const EvParams* p, const MbParams* k, int S,
+                                  int Nc, int threads, int chunk, long long smem,
+                                  long long fade_p, int disable, void* stream) {
     return launch_m4mb<EvPtrs, double>(in, out, evt_in, nullptr, evt_out, nullptr, env_ds, vt,
-                                       iy_in, ics, iy_out, aux, ring, p, k, Nc, threads, chunk,
+                                       iy_in, ics, iy_out, aux, ring, p, k, S, Nc, threads, chunk,
                                        (size_t)smem, fade_p, disable, stream);
 }
 
@@ -1477,9 +1512,9 @@ extern "C" int dsp_m4mb_event_f32(const EvPtrsF32* in, const EvPtrsF32* out, con
                                   const float* evt_in_lo, float* evt_out, float* evt_out_lo,
                                   const double* env_ds, double* vt, const float* iy_in, float* ics,
                                   float* iy_out, float* aux, double* ring, const EvParams* p,
-                                  const MbParams* k, int Nc, int threads, int chunk,
+                                  const MbParams* k, int S, int Nc, int threads, int chunk,
                                   long long smem, long long fade_p, int disable, void* stream) {
     return launch_m4mb<EvPtrsF32, float>(in, out, evt_in, evt_in_lo, evt_out, evt_out_lo, env_ds,
-                                         vt, iy_in, ics, iy_out, aux, ring, p, k, Nc, threads,
+                                         vt, iy_in, ics, iy_out, aux, ring, p, k, S, Nc, threads,
                                          chunk, (size_t)smem, fade_p, disable, stream);
 }

@@ -54,6 +54,12 @@
 // tile sits in shared memory by position in the segment (`at`), so that
 // neither the segment walks nor the sums conflict on banks.
 //
+// The stream axis (batched processing): S independent streams in one
+// launch, ntiles·S blocks; ticket q (or, without the flip, block q) takes
+// tile q / S of stream q % S, so a tile only waits on tiles with earlier
+// tickets. A stream runs a one-stream launch's tiles and its own slots of
+// the look-back scratch (stream s's tile t at s·ntiles + t): the same bits.
+//
 // float32 (`dsp_m4mb_audio_f32`, dsp_tpu's float32 _audio): the bands (the
 // hi half of the bank's float32 (hi, lo) output), the line, the
 // coefficient sets and the allpass states are float32, read into float64;
@@ -142,18 +148,29 @@ __global__ void __launch_bounds__(kThreads, 1)
 m4mb_audio_kernel(const T* __restrict__ bands, const T* __restrict__ fb_buf,
                   const T* __restrict__ interp_c, const T* __restrict__ ics,
                   const T* __restrict__ pf_in, T* __restrict__ sig, T* __restrict__ pf_out,
-                  MbAudioCfg cfg, int B, int ntiles, lookback::Scratch lb) {
+                  MbAudioCfg cfg, int B, int ntiles, int S, lookback::Scratch lb) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
     __shared__ unsigned tk[2];
     const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
     const bool flip = cfg.phase_flip != 0, direct = cfg.direct != 0;
-    int t = blockIdx.x;
-    unsigned tag = 0;
+    unsigned ticket = blockIdx.x, tag = 0;
     if (flip) {
         lookback::begin(lb, tk);
-        t = (int)tk[0];
+        ticket = tk[0];
         tag = tk[1];
+    }
+    const int t = (int)(ticket / S), strm = (int)(ticket % S);  // tile t of stream strm
+    const long long slot0 = (long long)strm * ntiles;
+    {   // this stream's tensors
+        const size_t s = strm;
+        bands += s * B * kLanes;
+        fb_buf += s * cfg.len * kLanes;
+        interp_c += s * 3 * kRow;
+        ics += s * (B / kD) * 3 * kRow;
+        pf_in += s * 4 * kBands;
+        sig += s * B * (direct ? 6 : 4);
+        pf_out += s * 4 * kBands;
     }
     const int t0 = t * kTile, n = min(kTile, B - t0);
     const int set0 = t0 / kD;
@@ -255,9 +272,9 @@ m4mb_audio_kernel(const T* __restrict__ bands, const T* __restrict__ fb_buf,
         }
         // 3. publish this tile's maps (a tile with tiles after it), then
         // carry o0 over every earlier tile's, in order
-        if (t < ntiles - 1) lookback::publish(lb, t, tag, sm.agg, 2 * kLanes);
+        if (t < ntiles - 1) lookback::publish(lb, slot0 + t, tag, sm.agg, 2 * kLanes);
         __syncthreads();
-        lookback::carry_affine(lb, t, tag, kLanes, sm.v, &sm.y[0][0]);
+        lookback::carry_affine(lb, slot0, t, tag, kLanes, sm.v, &sm.y[0][0]);
         // 4. the rerun from the segment's start value
         const double v0 = sm.v[w];
         if (full) {
@@ -323,12 +340,13 @@ unsigned long long audio_launches = 0;
 
 template <class T>
 int launch(const T* bands, const T* fb_buf, const T* interp_c, const T* ics, const T* pf_in,
-           T* sig, T* pf_out, const MbAudioCfg* cfg, int B, unsigned* flags,
+           T* sig, T* pf_out, const MbAudioCfg* cfg, int B, int S, unsigned* flags,
            long long flag_slots, double* agg, long long agg_doubles, void* stream) {
     const int ntiles = (B + kTile - 1) / kTile;
-    if (B <= 0 || B % 32 || cfg->D != kD || cfg->len < 0 ||
-        (cfg->phase_flip && (flags == nullptr || agg == nullptr || ntiles > flag_slots ||
-                             (long long)ntiles * 2 * kLanes > agg_doubles)))
+    if (B <= 0 || B % 32 || S <= 0 || cfg->D != kD || cfg->len < 0 ||
+        (cfg->phase_flip && (flags == nullptr || agg == nullptr ||
+                             (long long)ntiles * S > flag_slots ||
+                             (long long)ntiles * S * 2 * kLanes > agg_doubles)))
         return (int)cudaErrorInvalidValue;
     static bool sized = false;  // the attribute is the function's, set once
     if (!sized) {
@@ -337,8 +355,9 @@ int launch(const T* bands, const T* fb_buf, const T* interp_c, const T* ics, con
         if (err != cudaSuccess) return (int)err;
         sized = true;
     }
-    m4mb_audio_kernel<T><<<ntiles, kThreads, sizeof(Smem), static_cast<cudaStream_t>(stream)>>>(
-        bands, fb_buf, interp_c, ics, pf_in, sig, pf_out, *cfg, B, ntiles,
+    m4mb_audio_kernel<T><<<ntiles * S, kThreads, sizeof(Smem),
+                           static_cast<cudaStream_t>(stream)>>>(
+        bands, fb_buf, interp_c, ics, pf_in, sig, pf_out, *cfg, B, ntiles, S,
         lookback::carve(flags, agg));
     const cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess) ++audio_launches;
@@ -348,7 +367,8 @@ int launch(const T* bands, const T* fb_buf, const T* interp_c, const T* ics, con
 }  // namespace
 
 // bands [B, 13, 2], fb_buf [len, 13, 2], interp_c [3, 13, 12], ics
-// [B/D, 3, 13, 12], pf [13, 2, 2] in and out, sig [B, 4 or 6]; flags
+// [B/D, 3, 13, 12], pf [13, 2, 2] in and out, sig [B, 4 or 6], each with a
+// leading S for S streams; flags
 // (flag_slots slots after its head) and agg (agg_doubles long) the
 // look-back scratch of csrc/lookback.cuh, read only with the phase flip.
 // Returns cudaGetLastError() after the launch (0 on success). The caller
@@ -356,9 +376,9 @@ int launch(const T* bands, const T* fb_buf, const T* interp_c, const T* ics, con
 extern "C" int dsp_m4mb_audio_f64(const double* bands, const double* fb_buf,
                                   const double* interp_c, const double* ics, const double* pf_in,
                                   double* sig, double* pf_out, const MbAudioCfg* cfg, int B,
-                                  unsigned* flags, long long flag_slots, double* agg,
+                                  int S, unsigned* flags, long long flag_slots, double* agg,
                                   long long agg_doubles, void* stream) {
-    return launch<double>(bands, fb_buf, interp_c, ics, pf_in, sig, pf_out, cfg, B, flags,
+    return launch<double>(bands, fb_buf, interp_c, ics, pf_in, sig, pf_out, cfg, B, S, flags,
                           flag_slots, agg, agg_doubles, stream);
 }
 
@@ -366,10 +386,10 @@ extern "C" int dsp_m4mb_audio_f64(const double* bands, const double* fb_buf,
 // the signals float32.
 extern "C" int dsp_m4mb_audio_f32(const float* bands, const float* fb_buf, const float* interp_c,
                                   const float* ics, const float* pf_in, float* sig, float* pf_out,
-                                  const MbAudioCfg* cfg, int B, unsigned* flags,
+                                  const MbAudioCfg* cfg, int B, int S, unsigned* flags,
                                   long long flag_slots, double* agg, long long agg_doubles,
                                   void* stream) {
-    return launch<float>(bands, fb_buf, interp_c, ics, pf_in, sig, pf_out, cfg, B, flags,
+    return launch<float>(bands, fb_buf, interp_c, ics, pf_in, sig, pf_out, cfg, B, S, flags,
                          flag_slots, agg, agg_doubles, stream);
 }
 

@@ -33,6 +33,9 @@ from dsp_tpu_torch.ops.fft_conv import NupolsConv, OlsConv, UpolsConv
 
 
 class FirEffect(Effect):
+    # NupolsConv's block index within a super-block, read on the host
+    host_leaves = frozenset({"cnt"})
+
     def __init__(self, name, istream, selector, filter_data, ref=0, partitioned=False):
         """filter_data: [frames, filter_channels] (1 or n_selected channels)."""
         self.name = name

@@ -30,6 +30,10 @@ band-limit, the envelopes and the engine: everything that decides the
 coefficient sets) and ``_audio``, split as dsp_tpu splits it, so that a
 replay can put another control stream into the audio path.
 
+With a stream axis (batched processing, CompiledChain.process_batch) x is
+[S, B, C] and every leaf but ``fade_p`` and ``disable`` is led by S: the S
+streams are the event engine's lanes, and each launch runs them all.
+
 Config options (status/matrix/shelf/lowpass/contour_pwrcmp/phase_flip/
 signal/direct_path/rear_event_mask/surround_delay) follow
 matrix4_config_init (matrix4_common.c:74-356).
@@ -287,6 +291,8 @@ class Matrix4Effect(Effect):
     # adaptive event engine: multi-second ring buffers and discrete
     # decisions make zero-state priming content-dependent, not bounded
     split_safe = False
+    host_leaves = frozenset({"fade_p", "disable"})
+
     def __init__(self, name, istream, selector, argv):
         cfg = matrix4_config_init(name, istream, selector, argv, is_mb=False)
         self.cfg = cfg
@@ -414,36 +420,42 @@ class Matrix4Effect(Effect):
     def _control(self, state, x):
         """The band-limit, the envelopes and the engine (K2 or K1-df, K11,
         K9 + K10): the state leaves they carry, and the block's coefficient
-        sets ``ics`` [Nc, 3, 16] and display values ``aux`` [Nc, 4]."""
+        sets ``ics`` [Nc, 3, 16] and display values ``aux`` [Nc, 4] (each
+        led by S with a stream axis)."""
         pair = self._pair.take(x).contiguous()  # [B, 2]: the selected channels
         fade_p, disable = int(state["fade_p"]), bool(state["disable"])  # CPU tensors
-        ev = {k: v[None] for k, v in state["ev"].items()}  # one lane
+        # the engine's lanes: one for one stream, else the S streams
+        if x.dim() == 2:
+            lanes, unlane = (lambda v: v[None]), (lambda v: v[0])
+        else:
+            lanes = unlane = (lambda v: v)
+        ev = {k: lanes(v) for k, v in state["ev"].items()}
         if x.dtype == torch.float32:
-            bpc, (y_hi, y_lo) = iir.lti_blocked_df(self._bp_plan(x.shape[0]), state["bpc"], pair)
+            bpc, (y_hi, y_lo) = iir.lti_blocked_df(self._bp_plan(x.shape[-2]), state["bpc"], pair)
             env_m, env_m_lo, env_ds = m4.m4_env_f32(y_hi, y_lo, state["env_m"], state["env_m_lo"],
                                                     self.g_env)
             ev, ev_lo, bg, bg_lo, ics, iy, aux = m4.m4_event_f32(
-                self.ctl, ev, {k: v[None] for k, v in state["ev_lo"].items()},
-                state["bg_cs"][None], state["bg_cs_lo"][None], env_ds[None],
-                state["interp_y"][None], fade_p, disable)
-            ctl = {"bpc": bpc, "env_m_lo": env_m_lo, "ev_lo": {k: v[0] for k, v in ev_lo.items()},
-                   "bg_cs_lo": bg_lo[0]}
+                self.ctl, ev, {k: lanes(v) for k, v in state["ev_lo"].items()},
+                lanes(state["bg_cs"]), lanes(state["bg_cs_lo"]), lanes(env_ds),
+                lanes(state["interp_y"]), fade_p, disable)
+            ctl = {"bpc": bpc, "env_m_lo": env_m_lo,
+                   "ev_lo": {k: unlane(v) for k, v in ev_lo.items()}, "bg_cs_lo": unlane(bg_lo)}
         else:
             bp_m, y_bp = iir.biquad_scan_series(
                 *(self.device_array(k, x) for k in ("A_bl", "B_bl", "c0_bl")), state["bp_m"], pair)
             env_m, env_ds = m4.m4_env(y_bp, state["env_m"], self.g_env)
-            ev, bg, ics, iy, aux = m4.m4_event(self.ctl, ev, state["bg_cs"][None], env_ds[None],
-                                               state["interp_y"][None], fade_p, disable)
+            ev, bg, ics, iy, aux = m4.m4_event(self.ctl, ev, lanes(state["bg_cs"]), lanes(env_ds),
+                                               lanes(state["interp_y"]), fade_p, disable)
             ctl = {"bp_m": bp_m}
-        ctl.update(ev={k: v[0] for k, v in ev.items()}, env_m=env_m, bg_cs=bg[0], interp_y=iy[0],
-                   ics=ics[0], aux=aux[0])
+        ctl.update(ev={k: unlane(v) for k, v in ev.items()}, env_m=env_m, bg_cs=unlane(bg),
+                   interp_y=unlane(iy), ics=unlane(ics), aux=unlane(aux))
         return ctl
 
     def _audio(self, state, x, ctl):
         """The lookahead-delayed matrix, the dynamic shelf and lowpass and
         the phase-flip allpasses (K12 + K13), and the lookahead line's
         splice, from ctl (_control's result)."""
-        B = x.shape[0]
+        B = x.shape[-2]
         pair = self._pair.take(x).contiguous()
         audio = m4.m4_audio_f32 if x.dtype == torch.float32 else m4.m4_audio
         ics = ctl["ics"]
@@ -453,7 +465,7 @@ class Matrix4Effect(Effect):
         new_state = dict(
             state,
             **{k: v for k, v in ctl.items() if k not in ("ics", "aux")},
-            interp_c=ics[-1],
+            interp_c=ics[..., -1, :, :].contiguous(),  # a copy only with a stream axis
             buf=splice(state["buf"], pair, self.len, self.len - B, B),
             shelf_m=shelf_m,
             lp_m=lp_m,

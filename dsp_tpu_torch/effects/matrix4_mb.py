@@ -37,6 +37,10 @@ the envelopes, hi the audio path and the lookahead line. The float32 forms
 carry the ``*_lo`` leaves (``ev_lo``, ``ev_thresh_lo``, ``env_m_lo``), which
 float64 passes through untouched.
 
+With a stream axis (batched processing, CompiledChain.process_batch) x is
+[S, B, C] and every leaf but ``fade_p`` and ``disable`` is led by S (the
+event state [S, 13, ...]); each launch runs the S streams.
+
 The state's leaves, dtypes and shapes are dsp_tpu's, so a checkpoint
 crosses between the packages both ways. The bank is always the fused one: dsp_tpu's sequential
 per-cap bank (state0's dict of ``a1``, ``a2p``, ``a2o``, ``comp``) is not
@@ -98,6 +102,7 @@ def _cascade_stages(coeffs, lanes):
 
 class Matrix4MbEffect(Effect):
     split_safe = False  # see Matrix4Effect: adaptive event engine
+    host_leaves = frozenset({"fade_p", "disable"})
     def __init__(self, name, istream, selector, argv):
         cfg = matrix4_config_init(name, istream, selector, argv, is_mb=True)
         self.cfg = cfg
@@ -291,13 +296,14 @@ class Matrix4MbEffect(Effect):
         """The two-biquad cascade `tag` ("fsh" or "inv") on x [B, C] from
         st [2, C, 2] (a stage a row): a view of the state as the effect
         keeps it (fshape_m [4, 2] reshaped, inv_fshape_m [n_sig, 2, 2]
-        transposed). Returns (st', y), st' the same view of a new state. One
-        launch, the kernel reading and writing each stage's state in place
+        transposed); with a stream axis x [S, B, C] and st [S, 2, C, 2].
+        Returns (st', y), st' the same view of a new state. One launch, the
+        kernel reading and writing each stage's state in place
         (iir.biquad_scan_run): float64 on K2, float32 on K3 with a single
         float32 state a stage, as dsp_tpu's biquad_scan_auto."""
         A, Bv, c0 = (self.device_array(f"{tag}_{k}", x, torch.float64) for k in ("A", "Bv", "c0"))
         new = torch.empty_like(st)  # st's strides: the state's own layout
-        _, y = iir.biquad_scan_run(A, Bv, c0, st.unbind(0), x, out=new.unbind(0))
+        _, y = iir.biquad_scan_run(A, Bv, c0, st.unbind(-3), x, out=new.unbind(-3))
         return new, y
 
     def step(self, state, x):
@@ -308,17 +314,17 @@ class Matrix4MbEffect(Effect):
         or K1-df, K11, K9 + K10): everything the audio path needs from the
         block's input. Split from _audio as dsp_tpu splits it, so that a
         replay can put another control stream (ics) into the audio path."""
-        B = x.shape[0]
+        lead, B = x.shape[:-2], x.shape[-2]  # lead: (S,) with a stream axis
         pair = self._pair.take(x).contiguous()
-        fsh, s_pre = self._cascade("fsh", state["fshape_m"].reshape(2, 2, 2), pair)
+        fsh, s_pre = self._cascade("fsh", state["fshape_m"].reshape(*lead, 2, 2, 2), pair)
         # cols: [b0L, b0R, b1L, ...]
-        xt = s_pre.repeat(1, N_BANDS)
+        xt = s_pre.repeat(*(1,) * len(lead), 1, N_BANDS)
         w = None if self.fmw is None else self.device_array("fmw", x, torch.float64)
         fade_p, disable = int(state["fade_p"]), bool(state["disable"])  # CPU tensors
         if x.dtype == torch.float32:
             bst, (yb, yb_lo) = iir.lti_blocked_df(self._bank_plan(B), state["bank"]["fused"], xt)
             env_m, env_m_lo, env_ds = m4.m4mb_env_f32(
-                yb.view(B, N_BANDS, 2), yb_lo.view(B, N_BANDS, 2), state["env_m"],
+                yb.view(*lead, B, N_BANDS, 2), yb_lo.view(*lead, B, N_BANDS, 2), state["env_m"],
                 state["env_m_lo"], self.g_env, w)
             ev, ev_lo, evt, evt_lo, ics, iy, aux = m4.m4mb_event_f32(
                 self.ctl, state["ev"], state["ev_lo"], state["ev_thresh"], state["ev_thresh_lo"],
@@ -326,12 +332,13 @@ class Matrix4MbEffect(Effect):
             ctl = {"env_m_lo": env_m_lo, "ev_lo": ev_lo, "ev_thresh_lo": evt_lo}
         else:
             bst, yb = iir.lti_blocked(self._bank_plan(B), state["bank"]["fused"], xt)
-            env_m, env_ds = m4.m4mb_env(yb.view(B, N_BANDS, 2), state["env_m"], self.g_env, w)
+            env_m, env_ds = m4.m4mb_env(yb.view(*lead, B, N_BANDS, 2), state["env_m"], self.g_env,
+                                        w)
             ev, evt, ics, iy, aux = m4.m4mb_event(self.ctl, state["ev"], state["ev_thresh"],
                                                    env_ds, state["interp_y"], fade_p, disable)
             ctl = {}
-        ctl.update(fshape_m=fsh.reshape(4, 2), bank={"fused": bst}, bands=yb, env_m=env_m, ev=ev,
-                   ev_thresh=evt, ics=ics, interp_y=iy, aux=aux)
+        ctl.update(fshape_m=fsh.reshape(*lead, 4, 2), bank={"fused": bst}, bands=yb, env_m=env_m,
+                   ev=ev, ev_thresh=evt, ics=ics, interp_y=iy, aux=aux)
         return ctl
 
     def _audio(self, state, x, ctl):
@@ -339,31 +346,32 @@ class Matrix4MbEffect(Effect):
         (K12 + K13), the inverse fshape (K2, or K3 under float32), the
         output columns and the lookahead line's splice, from ctl (_control's
         result)."""
-        B = x.shape[0]
+        lead, B = x.shape[:-2], x.shape[-2]  # lead: (S,) with a stream axis
         L = self.fb_buf_len
         yb = ctl["bands"]
         audio = m4.m4mb_audio_f32 if x.dtype == torch.float32 else m4.m4mb_audio
-        sig, pf_m = audio(self.audio, yb.view(B, N_BANDS, 2), state["fb_buf"], state["interp_c"],
-                          ctl["ics"], state["pf_m"])
-        inv, sig = self._cascade("inv", state["inv_fshape_m"].transpose(0, 1), sig)
+        sig, pf_m = audio(self.audio, yb.view(*lead, B, N_BANDS, 2), state["fb_buf"],
+                          state["interp_c"], ctl["ics"], state["pf_m"])
+        inv, sig = self._cascade("inv", state["inv_fshape_m"].transpose(-3, -2), sig)
         cols = []
         for k in range(self.istream.channels):
-            cols.append(sig[:, 0] if k == self.cfg.c0 else sig[:, 1] if k == self.cfg.c1
-                        else x[:, k])
-        cols += [sig[:, j] - 1e-15 for j in range(2, self.audio.n_sig)]
+            cols.append(sig[..., 0] if k == self.cfg.c0 else sig[..., 1] if k == self.cfg.c1
+                        else x[..., k])
+        cols += [sig[..., j] - 1e-15 for j in range(2, self.audio.n_sig)]
         new_state = dict(
             state,
             **{k: v for k, v in ctl.items() if k not in ("bands", "ics", "aux")},
-            interp_c=ctl["ics"][-1],
-            fb_buf=splice(state["fb_buf"].view(L, 2 * N_BANDS), yb, L, L - B, B).view(
-                L, N_BANDS, 2),
+            # the last coefficient set (a copy only with a stream axis)
+            interp_c=ctl["ics"][..., -1, :, :, :].contiguous(),
+            fb_buf=splice(state["fb_buf"].view(*lead, L, 2 * N_BANDS), yb, L, L - B, B).view(
+                *lead, L, N_BANDS, 2),
             pf_m=pf_m,
-            inv_fshape_m=inv.transpose(0, 1),
+            inv_fshape_m=inv.transpose(-3, -2),
             fade_p=torch.tensor(max(int(state["fade_p"]) - B, 0), dtype=torch.int64),
         )
         if "aux" in state:
             new_state["aux"] = ctl["aux"]
-        return new_state, torch.stack(cols, dim=1)
+        return new_state, torch.stack(cols, dim=-1)
 
     # --- chain hooks (mirror matrix4) ---
 

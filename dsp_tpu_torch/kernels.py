@@ -241,7 +241,7 @@ class _Library:
                            lib.dsp_biquad_scan_f64_pair):
                     fn.argtypes = [p] * 7 + [i] * 3 + [p]
                     fn.restype = i
-                lib.dsp_biquad_scan_series_f64.argtypes = [p] * 7 + [i] * 2 + [p]
+                lib.dsp_biquad_scan_series_f64.argtypes = [p] * 7 + [i] * 3 + [p]
                 lib.dsp_biquad_scan_series_f64.restype = i
                 lib.dsp_biquad_scan_run.argtypes = ([p] * 3 + [ctypes.POINTER(BiquadRunStates)]
                                                     + [p] * 2 + [i] * 6 + [p])
@@ -273,7 +273,8 @@ class _Library:
                            lib.dsp_biquad_run_launches, lib.dsp_m4mb_audio_launches,
                            lib.dsp_mod_delay_launches, lib.dsp_stats_launches,
                            lib.dsp_levels_launches, lib.dsp_resample_launches,
-                           lib.dsp_noise_launches):
+                           lib.dsp_noise_launches, lib.dsp_m4_event_launches,
+                           lib.dsp_m4_audio_launches):
                     fn.argtypes = []
                     fn.restype = ctypes.c_ulonglong
                 for fn in (lib.dsp_tpdf_noise_f64, lib.dsp_tpdf_noise_f32):
@@ -298,23 +299,23 @@ class _Library:
                 lib.dsp_resample_fold_c128.restype = i
                 lib.dsp_resample_step.argtypes = [p] * 5 + [i] * 4 + [p]
                 lib.dsp_resample_step.restype = i
-                lib.dsp_m4_env_f64.argtypes = [p] * 5 + [d, i, i, i, i, p, ll, p, ll, p]
+                lib.dsp_m4_env_f64.argtypes = [p] * 5 + [d] + [i] * 5 + [p, ll, p, ll, p]
                 lib.dsp_m4_env_f64.restype = i
-                lib.dsp_m4_env_f32.argtypes = [p] * 8 + [d, i, i, i, i, p, ll, p, ll, p]
+                lib.dsp_m4_env_f32.argtypes = [p] * 8 + [d] + [i] * 5 + [p, ll, p, ll, p]
                 lib.dsp_m4_env_f32.restype = i
                 lib.dsp_m4_event_f64.argtypes = [p] * 13 + [i] * 4 + [ll, ll, i, p]
                 lib.dsp_m4_event_f64.restype = i
                 lib.dsp_m4_event_f32.argtypes = [p] * 15 + [i] * 4 + [ll, ll, i, p]
                 lib.dsp_m4_event_f32.restype = i
                 for fn in (lib.dsp_m4_audio_f64, lib.dsp_m4_audio_f32):
-                    fn.argtypes = [p] * 12 + [i, p]
+                    fn.argtypes = [p] * 12 + [i, i, p]
                     fn.restype = i
-                lib.dsp_m4mb_event_f64.argtypes = [p] * 13 + [i] * 3 + [ll, ll, i, p]
+                lib.dsp_m4mb_event_f64.argtypes = [p] * 13 + [i] * 4 + [ll, ll, i, p]
                 lib.dsp_m4mb_event_f64.restype = i
-                lib.dsp_m4mb_event_f32.argtypes = [p] * 15 + [i] * 3 + [ll, ll, i, p]
+                lib.dsp_m4mb_event_f32.argtypes = [p] * 15 + [i] * 4 + [ll, ll, i, p]
                 lib.dsp_m4mb_event_f32.restype = i
                 for fn in (lib.dsp_m4mb_audio_f64, lib.dsp_m4mb_audio_f32):
-                    fn.argtypes = [p] * 8 + [i, p, ll, p, ll, p]
+                    fn.argtypes = [p] * 8 + [i, i, p, ll, p, ll, p]
                     fn.restype = i
                 lib.dsp_cuda_error_string.argtypes = [i]
                 lib.dsp_cuda_error_string.restype = ctypes.c_char_p
@@ -420,12 +421,13 @@ def launch_biquad_scan(A, Bv, c0, state_in, state_out, x, y, S=1, pair=False):
     _check(rc, "biquad_scan")
 
 
-def launch_biquad_scan_series(A, Bv, c0, state_in, state_out, x, y):
+def launch_biquad_scan_series(A, Bv, c0, state_in, state_out, x, y, S=1):
     """Two float64 K2 stages in series (rows [0, C) of the coefficients and
-    state the first)."""
-    B, C = x.shape
+    state the first); x [S, B, C] and the state [S, 2C, 2] for S streams."""
+    B, C = x.shape[-2:]
     rc = load().dsp_biquad_scan_series_f64(_ptr(A), _ptr(Bv), _ptr(c0), _ptr(state_in),
-                                           _ptr(state_out), _ptr(x), _ptr(y), B, C, _stream(x))
+                                           _ptr(state_out), _ptr(x), _ptr(y), B, C, S,
+                                           _stream(x))
     _check(rc, "biquad_scan_series")
 
 
@@ -558,6 +560,13 @@ def lookback_launches():
     return lib.dsp_lti_launches() + lib.dsp_m4_env_launches() + lib.dsp_m4mb_audio_launches()
 
 
+def upmix_launches():
+    """The kernels csrc/m4_event.cu (both engines) and csrc/m4_audio.cu have
+    launched in this process together (the library's own count)."""
+    lib = load()
+    return lib.dsp_m4_event_launches() + lib.dsp_m4_audio_launches()
+
+
 def mod_delay_launches():
     """The kernels csrc/mod_delay.cu has launched in this process (the
     library's own count)."""
@@ -685,13 +694,12 @@ def launch_mod_delay(key, key_out, yk, yk_out, t, t_out, buf, x, y, buf_out, sel
 
 
 def launch_m4_env(ybp, env_m, env_out, env_ds, g, nseg, scratch, w=None, lo=None):
-    """ybp [B, 2] (one lane) or [B, S, 2]; tiles of nseg segments; w the
-    [S, S] mix weights or None; scratch the look-back scratch; lo None
-    (float64), or the float32 entry's lo parts (ybp_lo, env_m_lo,
-    env_out_lo)."""
-    B = ybp.shape[0]
-    S = 1 if ybp.dim() == 2 else ybp.shape[1]
-    tail = (_ptr(env_ds), g, B, S, B // env_ds.shape[0], nseg, *_scratch_args(scratch),
+    """ybp [NS, B, G, 2]: NS streams of G lanes; env_ds [NS, B/D, G, 8];
+    tiles of nseg segments; w the [G, G] mix weights or None; scratch the
+    look-back scratch; lo None (float64), or the float32 entry's lo parts
+    (ybp_lo, env_m_lo, env_out_lo)."""
+    NS, B, G = ybp.shape[:3]
+    tail = (_ptr(env_ds), g, B, G, NS, B // env_ds.shape[1], nseg, *_scratch_args(scratch),
             _stream(ybp))
     if lo is None:
         rc = load().dsp_m4_env_f64(_ptr(ybp), _ptr(w), _ptr(env_m), _ptr(env_out), *tail)
@@ -739,22 +747,24 @@ def launch_m4_event(ctl, ev, ev_out, bg, bg_out, env_ds, vt, iy_in, ics, iy_out,
 
 
 def launch_m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m, y, shelf_out, lp_out, pf_out):
+    """x [B, n_in], or [S, B, n_in] with every other tensor led by S."""
     fn = load().dsp_m4_audio_f32 if x.dtype == torch.float32 else load().dsp_m4_audio_f64
     rc = fn(
         _ptr(x), _ptr(buf), _ptr(interp_c), _ptr(ics), _ptr(shelf_m), _ptr(lp_m), _ptr(pf_m),
         _ptr(y), _ptr(shelf_out), _ptr(lp_out), _ptr(pf_out),
-        ctypes.byref(cfg.c_struct()), x.shape[0], _stream(x),
+        ctypes.byref(cfg.c_struct()), x.shape[-2], x.shape[0] if x.dim() == 3 else 1, _stream(x),
     )
     _check(rc, "m4_audio")
 
 
 def launch_m4mb_event(ctl, ev, ev_out, evt, evt_out, env_ds, vt, iy_in, ics, iy_out, aux, fade_p,
-                      disable, geometry, ring, lo=None):
-    """geometry, ring and lo as launch_m4_event's (lo: ev_lo, ev_out_lo,
-    evt_lo, evt_out_lo)."""
+                      disable, geometry, ring, S=1, lo=None):
+    """env_ds [Nc, 13, 8], or [S, Nc, 13, 8] for S streams with every other
+    tensor led by S; geometry, ring and lo as launch_m4_event's (lo: ev_lo,
+    ev_out_lo, evt_lo, evt_out_lo)."""
     evp, mb = ctl.c_structs()
     tail = (_ptr(env_ds), _ptr(vt), _ptr(iy_in), _ptr(ics), _ptr(iy_out), _ptr(aux), _ptr(ring),
-            ctypes.byref(evp), ctypes.byref(mb), env_ds.shape[0], *geometry[:3], fade_p,
+            ctypes.byref(evp), ctypes.byref(mb), S, env_ds.shape[-3], *geometry[:3], fade_p,
             int(disable), _stream(env_ds))
     if lo is None:
         rc = load().dsp_m4mb_event_f64(ctypes.byref(_ev_ptrs(ev)), ctypes.byref(_ev_ptrs(ev_out)),
@@ -768,13 +778,15 @@ def launch_m4mb_event(ctl, ev, ev_out, evt, evt_out, env_ds, vt, iy_in, ics, iy_
 
 
 def launch_m4mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m, sig, pf_out, scratch):
-    """scratch: the look-back scratch (read with the phase flip only)."""
+    """bands [B, 13, 2], or [S, B, 13, 2] with every other tensor led by S;
+    scratch: the look-back scratch (read with the phase flip only)."""
     from dsp_tpu_torch.ops.m4_engine import DOWNSAMPLE_FACTOR
 
     c = M4MbAudioCfg(cfg.len, DOWNSAMPLE_FACTOR, int(cfg.phase_flip), int(cfg.direct_path))
     fn = load().dsp_m4mb_audio_f32 if bands.dtype == torch.float32 else load().dsp_m4mb_audio_f64
     rc = fn(
         _ptr(bands), _ptr(fb_buf), _ptr(interp_c), _ptr(ics), _ptr(pf_m), _ptr(sig), _ptr(pf_out),
-        ctypes.byref(c), bands.shape[0], *_scratch_args(scratch), _stream(bands),
+        ctypes.byref(c), bands.shape[-3], bands.shape[0] if bands.dim() == 4 else 1,
+        *_scratch_args(scratch), _stream(bands),
     )
     _check(rc, "m4mb_audio")

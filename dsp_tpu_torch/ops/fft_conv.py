@@ -76,7 +76,7 @@ from dsp_tpu_torch import kernels
 
 
 def _stack_tree(items):
-    """Tensors, or equal tuples and lists of them, stacked item by item,
+    """Tensors, or equal tuples, lists and dicts of them, stacked item by item,
     each stream keeping an item's memory layout: torch.fft returns a
     transform along dim 0 column-major, and torch's complex product rounds
     an element by the layout it walks, so a stream of the stack must lie
@@ -84,6 +84,8 @@ def _stack_tree(items):
     first = items[0]
     if isinstance(first, (tuple, list)):
         return type(first)(_stack_tree([it[k] for it in items]) for k in range(len(first)))
+    if isinstance(first, dict):
+        return {k: _stack_tree([it[k] for it in items]) for k in first}
     if first is None:
         return None
     if first.dim() == 2 and first.shape[1] > 1 and first.stride() == (1, first.shape[0]):

@@ -591,20 +591,19 @@ def biquad_scan_series(A, Bv, c0, state, x):
     biquad_scan calls and the states' concatenation). A [2C,2,2], Bv
     [2C,2], c0 [2C] and state [2C,2], rows [0, C) the first stage; x
     [B,C]; all float64. Returns (state' [2C,2], y [B,C] the second stage's
-    output). CPU tensors run biquad_scan_series_ref; CUDA tensors launch
+    output); with a stream axis x [S,B,C] and state [S,2C,2], S·C lanes in
+    one launch. CPU tensors run biquad_scan_series_ref; CUDA tensors launch
     csrc/biquad_scan.cu (dsp_biquad_scan_series_f64)."""
     _check_dtypes("biquad_scan_series", *[(t, torch.float64) for t in (x, state, A, Bv, c0)])
     if x.device.type == "cpu":
         return biquad_scan_series_ref(A, Bv, c0, state, x)
     from dsp_tpu_torch import kernels
 
-    _, B, C = _check_cuda("biquad_scan_series", x, state, A, Bv, c0)
-    if x.dim() != 2:
-        raise ValueError(f"biquad_scan_series: x must be [B, C], got {tuple(x.shape)}")
-    _check_shapes("biquad_scan_series", A, Bv, c0, state, 2 * C)
+    S, B, C = _check_cuda("biquad_scan_series", x, state, A, Bv, c0)
+    _check_shapes("biquad_scan_series", A, Bv, c0, state, 2 * C, x.shape[:-2])
     y = torch.empty_like(x)
     state_out = torch.empty_like(state)
-    kernels.launch_biquad_scan_series(A, Bv, c0, state, state_out, x, y)
+    kernels.launch_biquad_scan_series(A, Bv, c0, state, state_out, x, y, S)
     biquad_scan_series.launches += 1
     return state_out, y
 
@@ -614,7 +613,10 @@ biquad_scan_series.launches = 0
 
 def biquad_scan_series_ref(A, Bv, c0, state, x):
     """Plain PyTorch version of biquad_scan_series: biquad_scan_ref twice
-    and the states' concatenation."""
+    and the states' concatenation; x [S, B, C] and state [S, 2C, 2] a
+    stream at a time."""
+    if x.dim() == 3:
+        return each_stream(lambda st, xs: biquad_scan_series_ref(A, Bv, c0, st, xs), state, x)
     C = x.shape[1]
     st1, y1 = biquad_scan_ref(A[:C], Bv[:C], c0[:C], state[:C], x)
     st2, y2 = biquad_scan_ref(A[C:], Bv[C:], c0[C:], state[C:], y1)

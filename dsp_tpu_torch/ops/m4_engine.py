@@ -37,7 +37,15 @@ modulate together every tick (``mb_threshold_ref``), on three more:
   the direct path.
 
 Each wrapper takes CUDA tensors (or raises) and counts its launches; a CPU
-tensor runs ``<name>_ref``. dsp_tpu's f64 path is plain jnp (dfx's f64
+tensor runs ``<name>_ref``.
+
+The stream axis (batched processing, ``CompiledChain.process_batch``): each
+wrapper also takes S independent streams, every tensor with a leading S
+(matrix4's streams are ``m4_event``'s lanes; matrix4_mb's a leading S before
+the 13 bands), and runs them in the launch of one, each stream with a
+one-stream launch's partition and order, so its bits. The plain versions
+run the streams one at a time, so that on the CPU each stream is a
+one-stream call bit for bit. dsp_tpu's f64 path is plain jnp (dfx's f64
 branches pass straight through: atan_pos is arctan), so the plain versions
 are plain torch; the two-float32 machinery is not ported.
 
@@ -63,7 +71,8 @@ import math
 import numpy as np
 import torch
 
-from dsp_tpu_torch.ops.fft_conv import SMEM_LIMIT, _check_cuda, _check_dtypes
+from dsp_tpu_torch.ops.fft_conv import (SMEM_LIMIT, _check_cuda, _check_dtypes, _stack_tree,
+                                        each_stream)
 from dsp_tpu_torch.ops.iir import split_f64
 
 EVENT_THRESH = 1.8
@@ -866,13 +875,16 @@ def m4_env(ybp, env_m, g):
     """K11: the eight envelope EWMAs (|l|, |r|, |l+r|, |l-r| and the four
     squares) of the band-limited pair ybp [B, 2], m' = (1-g)·m + g·s, from
     env_m [8]; returns (env_m' [8], env_ds [Nc, 8]), the envelopes at the
-    control ticks D-1, 2D-1, ... (D = 32). CPU tensors run m4_env_ref;
-    CUDA tensors launch csrc/m4_env.cu."""
+    control ticks D-1, 2D-1, ... (D = 32). With a stream axis ybp [S, B, 2]
+    and env_m [S, 8]: (env_m' [S, 8], env_ds [S, Nc, 8]). CPU tensors run
+    m4_env_ref; CUDA tensors launch csrc/m4_env.cu."""
     if ybp.device.type == "cpu":
         return m4_env_ref(ybp, env_m, g)
-    env_out, env_ds = _launch_env("m4_env", ybp[:, None], env_m[None], g)
+    one = ybp.dim() == 2
+    env_out, env_ds = _launch_env("m4_env", _streams(ybp, one)[:, :, None],
+                                  _streams(env_m, one)[:, None], g)
     m4_env.launches += 1
-    return env_out[0], env_ds[:, 0]
+    return _unstream((env_out[:, 0], env_ds[:, :, 0]), one)
 
 
 m4_env.launches = 0
@@ -880,7 +892,9 @@ m4_env.launches = 0
 
 def m4_env_ref(ybp, env_m, g):
     """Plain PyTorch version of m4_env: the affine scan with the constant
-    1 - g as a doubling scan."""
+    1 - g as a doubling scan; ybp [S, B, 2] a stream at a time."""
+    if ybp.dim() == 3:
+        return each_stream(lambda st, y: m4_env_ref(y, st, g), env_m, ybp)
     l, r = ybp[:, 0], ybp[:, 1]
     sum_, diff = l + r, l - r
     env_in = torch.stack([l.abs(), r.abs(), sum_.abs(), diff.abs(),
@@ -894,15 +908,17 @@ def m4_env_f32(ybp, ybp_lo, env_m, env_m_lo, g):
     """K11 in float32: m4_env on the (hi, lo) pair (ybp, ybp_lo) [B, 2] of
     the band-limit's output, from the carried pair (env_m, env_m_lo) [8],
     all float32, in float64 inside. Returns (env_m', env_m_lo', env_ds
-    [Nc, 8] float64). CPU tensors run m4_env_f32_ref; CUDA tensors launch
-    csrc/m4_env.cu."""
+    [Nc, 8] float64); with a stream axis each led by S. CPU tensors run
+    m4_env_f32_ref; CUDA tensors launch csrc/m4_env.cu."""
     _check_dtypes("m4_env_f32", *[(t, torch.float32) for t in (ybp, ybp_lo, env_m, env_m_lo)])
     if ybp.device.type == "cpu":
         return m4_env_f32_ref(ybp, ybp_lo, env_m, env_m_lo, g)
-    env_out, env_out_lo, env_ds = _launch_env("m4_env_f32", ybp[:, None], env_m[None], g,
-                                              lo=(ybp_lo[:, None], env_m_lo[None]))
+    one = ybp.dim() == 2
+    env_out, env_out_lo, env_ds = _launch_env(
+        "m4_env_f32", _streams(ybp, one)[:, :, None], _streams(env_m, one)[:, None], g,
+        lo=(_streams(ybp_lo, one)[:, :, None], _streams(env_m_lo, one)[:, None]))
     m4_env_f32.launches += 1
-    return env_out[0], env_out_lo[0], env_ds[:, 0]
+    return _unstream((env_out[:, 0], env_out_lo[:, 0], env_ds[:, :, 0]), one)
 
 
 m4_env_f32.launches = 0
@@ -915,27 +931,40 @@ def m4_env_f32_ref(ybp, ybp_lo, env_m, env_m_lo, g):
     return (*split_f64(env), env_ds)
 
 
+def _streams(t, one):
+    """t with a stream axis: a one-stream tensor (one) as one stream."""
+    return t[None] if one else t
+
+
+def _unstream(outs, one):
+    """The outputs of a launch on stream-axis tensors, each of a one-stream
+    call's shape where the call had no stream axis (one)."""
+    return tuple(t[0] for t in outs) if one else outs
+
+
 def _launch_env(name, bands, env_m, g, w=None, lo=None):
-    """csrc/m4_env.cu on S lanes: bands [B, S, 2] and env_m [S, 8] float64,
-    or float32 with their lo parts lo = (bands_lo, env_m_lo); w [S, S]
-    float64 or None. Returns (env_m', env_ds [Nc, S, 8] float64), with
-    env_m_lo' between them under float32."""
+    """csrc/m4_env.cu on NS streams of G lanes: bands [NS, B, G, 2] and
+    env_m [NS, G, 8] float64, or float32 with their lo parts lo =
+    (bands_lo, env_m_lo); w [G, G] float64 or None, mixing each stream's
+    lanes. Returns (env_m', env_ds [NS, Nc, G, 8] float64), with env_m_lo'
+    between them under float32. Each stream takes the partition of G lanes
+    (env_partition), never of NS·G: a one-stream launch's."""
     from dsp_tpu_torch import kernels
 
     dtype = torch.float64 if lo is None else torch.float32
     _check_cuda(name, bands, *[(t, dtype) for t in (bands, env_m, *(lo or ()))],
                 *([(w, torch.float64)] if w is not None else []), align=4)
-    B = bands.shape[0]
-    S = bands.shape[1] if bands.dim() == 3 else 0
-    if (bands.dim() != 3 or bands.shape[2] != 2 or B % DOWNSAMPLE_FACTOR
-            or tuple(env_m.shape) != (S, 8) or (w is not None and tuple(w.shape) != (S, S))
+    NS, B, G = bands.shape[:3] if bands.dim() == 4 else (0, 0, 0)
+    if (bands.dim() != 4 or bands.shape[3] != 2 or B % DOWNSAMPLE_FACTOR
+            or tuple(env_m.shape) != (NS, G, 8) or (w is not None and tuple(w.shape) != (G, G))
             or (lo is not None and (lo[0].shape != bands.shape or lo[1].shape != env_m.shape))):
         raise ValueError(f"{name}: bands {tuple(bands.shape)}, env_m {tuple(env_m.shape)}, "
                          f"weights {None if w is None else tuple(w.shape)}")
     env_out = torch.empty_like(env_m)
-    env_ds = torch.empty((B // DOWNSAMPLE_FACTOR, S, 8), dtype=torch.float64, device=bands.device)
-    nseg, ntiles = env_partition(B, S)
-    scratch = kernels.lookback_scratch(bands, ntiles, 8 * S)
+    env_ds = torch.empty((NS, B // DOWNSAMPLE_FACTOR, G, 8), dtype=torch.float64,
+                         device=bands.device)
+    nseg, ntiles = env_partition(B, G)
+    scratch = kernels.lookback_scratch(bands, ntiles * NS, 8 * G)
     if lo is None:
         kernels.launch_m4_env(bands, env_m, env_out, env_ds, float(g), nseg, scratch, w)
         return env_out, env_ds
@@ -945,15 +974,16 @@ def _launch_env(name, bands, env_m, g, w=None, lo=None):
     return env_out, env_out_lo, env_ds
 
 
-def env_partition(B, S):
-    """How csrc/m4_env.cu cuts a block of B samples of S lanes (its launch
-    takes nseg from here): (nseg, ntiles), tiles of nseg segments of
-    DOWNSAMPLE_FACTOR samples, a thread block each with all S lanes. nseg
-    is 8 for one lane
-    and 4 for more, or 32 for one lane at B >= 16384 and 8 for more above
-    B = 8192: small blocks spread over the card, large ones look back over
-    few tiles, and a tile's pairs fit in shared memory."""
-    nseg = (32 if B >= 16384 else 8) if S == 1 else (8 if B > 8192 else 4)
+def env_partition(B, G):
+    """How csrc/m4_env.cu cuts a block of B samples of a stream's G lanes
+    (its launch takes nseg from here): (nseg, ntiles), tiles of nseg
+    segments of DOWNSAMPLE_FACTOR samples, a thread block each with all G
+    lanes, ntiles a stream. nseg is 8 for one lane and 4 for more, or 32
+    for one lane at B >= 16384 and 8 for more above B = 8192: small blocks
+    spread over the card, large ones look back over few tiles, and a tile's
+    pairs fit in shared memory. It follows G alone: S streams of one lane
+    (matrix4's batch) take the one-lane partition."""
+    nseg = (32 if B >= 16384 else 8) if G == 1 else (8 if B > 8192 else 4)
     return nseg, -(-B // (nseg * DOWNSAMPLE_FACTOR))
 
 
@@ -1022,9 +1052,10 @@ def fade_ticks(fade_p, disable, fade_frames, Nc, like):
 def m4_event(ctl, ev, bg, env_ds, interp_y, fade_p, disable):
     """K9 + K10 for one block of S lanes.
 
-    ev: the event state, every leaf [S, ...] (S = 1 for matrix4); bg: the
-    background smoother [S, 2]; env_ds: [S, Nc, 8]; interp_y: [S, 4, 16];
-    fade_p, disable: host ints. Runs event_step and the smoother over the
+    ev: the event state, every leaf [S, ...] (S = 1 for one stream of
+    matrix4, S streams of a batch, a block each); bg: the background
+    smoother [S, 2]; env_ds: [S, Nc, 8]; interp_y: [S, 4, 16]; fade_p,
+    disable: host ints. Runs event_step and the smoother over the
     Nc ticks, then the per-tick epilogue (fade, contour gains, matrix
     coefficients, phase flip, direct pan) and the interpolator insert.
     Returns (ev', bg', ics [S, Nc, 3, 16], interp_y' [S, 4, 16],
@@ -1040,7 +1071,7 @@ def m4_event(ctl, ev, bg, env_ds, interp_y, fade_p, disable):
                 (interp_y, torch.float64), *leaves, align=1)
     S, Nc = env_ds.shape[0], env_ds.shape[1]
     _check_event_shapes("m4_event", ctl, ev, env_ds, (S, Nc, 8), bg, (S, 2), interp_y,
-                        (S, 4, N_INTERP), S)
+                        (S, 4, N_INTERP), (S,))
     out = {k: torch.empty_like(v) for k, v in ev.items()}
     bg_out = torch.empty_like(bg)
     dev = env_ds.device
@@ -1076,7 +1107,7 @@ def m4_event_f32(ctl, ev, ev_lo, bg, bg_lo, env_ds, interp_y, fade_p, disable):
                 *[(t, torch.float32) for t in (bg, bg_lo, interp_y)], align=1)
     S, Nc = env_ds.shape[0], env_ds.shape[1]
     _check_event_shapes("m4_event_f32", ctl, ev, env_ds, (S, Nc, 8), bg, (S, 2), interp_y,
-                        (S, 4, N_INTERP), S)
+                        (S, 4, N_INTERP), (S,))
     out, out_lo = _empty_state(ev, ev_lo)
     bg_out, bg_out_lo = torch.empty_like(bg), torch.empty_like(bg_lo)
     dev, f32 = env_ds.device, torch.float32
@@ -1140,21 +1171,30 @@ def _empty_state(ev, ev_lo):
 
 
 def _check_event_shapes(name, ctl, ev, env_ds, env_shape, carry, carry_shape, interp_y, iy_shape,
-                        S):
+                        lanes):
+    """The shapes of an engine's inputs; lanes: the event state's leading
+    axes ((S,) for matrix4, (13,) or (S, 13) for matrix4_mb)."""
     if (tuple(env_ds.shape) != env_shape or tuple(carry.shape) != carry_shape
             or tuple(interp_y.shape) != iy_shape
-            or tuple(ev["ord_buf"].shape[:2]) != (S, ctl.p["buf_len"])):
+            or tuple(ev["ord_buf"].shape[:-1]) != (*lanes, ctl.p["buf_len"])):
         raise ValueError(f"{name}: env_ds {tuple(env_ds.shape)}, carry {tuple(carry.shape)}, "
                          f"interp_y {tuple(interp_y.shape)}, ord_buf {tuple(ev['ord_buf'].shape)}")
 
 
 def m4_event_ref(ctl, ev, bg, env_ds, interp_y, fade_p, disable, out_dtype=torch.float64):
     """Plain PyTorch version of m4_event: event_step and smf_asym_run tick
-    by tick over the lanes, then the epilogue over all ticks at once. With
-    out_dtype float32 the per-tick values are rounded to it before the
-    insert, and the coefficient sets, window and aux come out in it."""
+    by tick, then the epilogue over all ticks at once, a lane at a time (a
+    lane of S the bits of a one-lane call). With out_dtype float32 the
+    per-tick values are rounded to it before the insert, and the
+    coefficient sets, window and aux come out in it."""
     p = ctl.p
     S, Nc = env_ds.shape[0], env_ds.shape[1]
+    if S > 1:
+        lanes = [m4_event_ref(ctl, {k: v[s:s + 1] for k, v in ev.items()}, bg[s:s + 1],
+                              env_ds[s:s + 1], interp_y[s:s + 1], fade_p, disable, out_dtype)
+                 for s in range(S)]
+        return _stack_tree([({k: v[0] for k, v in st.items()}, *(t[0] for t in rest))
+                            for st, *rest in lanes])
     st = dict(ev)
     bg0, bg1 = bg[:, 0], bg[:, 1]
     keep = ("ax_lr", "ax_cs", "ax_ev_lr", "ax_ev_cs", "ax_dpwr_lr", "ax_dpwr_cs", "pwrcmp_factor")
@@ -1275,8 +1315,9 @@ def m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m):
     [len, 2] the lookahead line; interp_c [3, 16] and ics [Nc, 3, 16] the
     coefficient sets; shelf_m, lp_m [4] and pf_m [2, 2] the filter states.
     Returns (y [B, n_out], shelf_m', lp_m', pf_m'); the carried line is the
-    caller's (a splice). CPU tensors run m4_audio_ref; CUDA tensors launch
-    csrc/m4_audio.cu."""
+    caller's (a splice). With a stream axis x [S, B, n_in] and every other
+    tensor and output led by S. CPU tensors run m4_audio_ref; CUDA tensors
+    launch csrc/m4_audio.cu."""
     if x.device.type == "cpu":
         return m4_audio_ref(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m)
     from dsp_tpu_torch import kernels
@@ -1284,8 +1325,7 @@ def m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m):
     _check_cuda("m4_audio", x, *[(t, torch.float64) for t in (x, buf, interp_c, ics, shelf_m,
                                                                lp_m, pf_m)])
     _check_audio_shapes("m4_audio", cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m)
-    B = x.shape[0]
-    y = torch.empty((B, cfg.n_out), dtype=torch.float64, device=x.device)
+    y = x.new_empty((*x.shape[:-1], cfg.n_out))
     outs = (torch.empty_like(shelf_m), torch.empty_like(lp_m), torch.empty_like(pf_m))
     kernels.launch_m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m, y, *outs)
     m4_audio.launches += 1
@@ -1308,8 +1348,7 @@ def m4_audio_f32(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m):
 
     _check_cuda("m4_audio_f32", x, *[(t, torch.float32) for t in ins], align=4)
     _check_audio_shapes("m4_audio_f32", cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m)
-    B = x.shape[0]
-    y = torch.empty((B, cfg.n_out), dtype=torch.float32, device=x.device)
+    y = x.new_empty((*x.shape[:-1], cfg.n_out))
     outs = (torch.empty_like(shelf_m), torch.empty_like(lp_m), torch.empty_like(pf_m))
     kernels.launch_m4_audio(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m, y, *outs)
     m4_audio_f32.launches += 1
@@ -1327,12 +1366,15 @@ def m4_audio_f32_ref(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m):
 
 
 def _check_audio_shapes(name, cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m):
-    B = x.shape[0]
+    lead = tuple(x.shape[:-2])
+    B = x.shape[-2] if x.dim() in (2, 3) else 0
     Nc = B // DOWNSAMPLE_FACTOR
-    if (x.dim() != 2 or x.shape[1] != cfg.n_in or B % DOWNSAMPLE_FACTOR
-            or tuple(buf.shape) != (cfg.len, 2) or tuple(ics.shape) != (Nc, 3, N_INTERP)
-            or tuple(interp_c.shape) != (3, N_INTERP) or tuple(shelf_m.shape) != (4,)
-            or tuple(lp_m.shape) != (4,) or tuple(pf_m.shape) != (2, 2)):
+    if (x.dim() not in (2, 3) or x.shape[-1] != cfg.n_in or B % DOWNSAMPLE_FACTOR or B == 0
+            or tuple(buf.shape) != (*lead, cfg.len, 2)
+            or tuple(ics.shape) != (*lead, Nc, 3, N_INTERP)
+            or tuple(interp_c.shape) != (*lead, 3, N_INTERP)
+            or tuple(shelf_m.shape) != (*lead, 4) or tuple(lp_m.shape) != (*lead, 4)
+            or tuple(pf_m.shape) != (*lead, 2, 2)):
         raise ValueError(f"{name}: x {tuple(x.shape)}, buf {tuple(buf.shape)}, "
                          f"ics {tuple(ics.shape)}")
 
@@ -1363,7 +1405,12 @@ def _ap1_ref(st, sig, c0s):
 
 
 def m4_audio_ref(cfg, x, buf, interp_c, ics, shelf_m, lp_m, pf_m):
-    """Plain PyTorch version of m4_audio."""
+    """Plain PyTorch version of m4_audio; x [S, B, n_in] a stream at a
+    time."""
+    if x.dim() == 3:
+        return _stack_tree([m4_audio_ref(cfg, *(t[s] for t in (x, buf, interp_c, ics, shelf_m,
+                                                                lp_m, pf_m)))
+                            for s in range(x.shape[0])])
     B = x.shape[0]
     vals = interp_vals_ref(interp_c, ics, B)
     pair = x[:, [cfg.c0, cfg.c1]]
@@ -1548,8 +1595,9 @@ def m4mb_event(ctl, ev, evt, env_ds, interp_y, fade_p, disable):
     interpolator insert. ev: the event state, every leaf [13, ...]; evt:
     the thresholds [13]; env_ds: [Nc, 13, 8]; interp_y: [4, 13, 12];
     fade_p, disable: host ints. Returns (ev', evt', ics [Nc, 3, 13, 12],
-    interp_y', aux [Nc, 13, 2]), dsp_tpu's layouts. CPU tensors run
-    m4mb_event_ref; CUDA tensors launch csrc/m4_event.cu."""
+    interp_y', aux [Nc, 13, 2]), dsp_tpu's layouts. With a stream axis
+    (evt [S, 13]) every tensor and output is led by S, a block a stream.
+    CPU tensors run m4mb_event_ref; CUDA tensors launch csrc/m4_event.cu."""
     if env_ds.device.type == "cpu":
         return m4mb_event_ref(ctl, ev, evt, env_ds, interp_y, fade_p, disable)
     from dsp_tpu_torch import kernels
@@ -1558,19 +1606,21 @@ def m4mb_event(ctl, ev, evt, env_ds, interp_y, fade_p, disable):
               for k, kind in EV_LEAVES]
     _check_cuda("m4mb_event", env_ds, (env_ds, torch.float64), (evt, torch.float64),
                 (interp_y, torch.float64), *leaves, align=1)
-    Nc = env_ds.shape[0]
-    _check_event_shapes("m4mb_event", ctl, ev, env_ds, (Nc, N_BANDS, 8), evt, (N_BANDS,),
-                        interp_y, (4, N_BANDS, N_SIG_MB), N_BANDS)
+    lead, Nc = tuple(evt.shape[:-1]), env_ds.shape[-3]
+    _check_event_shapes("m4mb_event", ctl, ev, env_ds, (*lead, Nc, N_BANDS, 8), evt,
+                        (*lead, N_BANDS), interp_y, (*lead, 4, N_BANDS, N_SIG_MB),
+                        (*lead, N_BANDS))
     out = {k: torch.empty_like(v) for k, v in ev.items()}
     evt_out = torch.empty_like(evt)
     dev = env_ds.device
-    vt = torch.empty((Nc, N_BANDS, N_SIG_MB), dtype=torch.float64, device=dev)
-    ics = torch.empty((Nc, 3, N_BANDS, N_SIG_MB), dtype=torch.float64, device=dev)
+    vt = torch.empty((*lead, Nc, N_BANDS, N_SIG_MB), dtype=torch.float64, device=dev)
+    ics = torch.empty((*lead, Nc, 3, N_BANDS, N_SIG_MB), dtype=torch.float64, device=dev)
     iy_out = torch.empty_like(interp_y)
-    aux = torch.empty((Nc, N_BANDS, 2), dtype=torch.float64, device=dev)
+    aux = torch.empty((*lead, Nc, N_BANDS, 2), dtype=torch.float64, device=dev)
     geo = event_geometry(N_BANDS, ctl.p["buf_len"], Nc)
+    S = lead[0] if lead else 1
     kernels.launch_m4mb_event(ctl, ev, out, evt, evt_out, env_ds, vt, interp_y, ics, iy_out, aux,
-                              int(fade_p), bool(disable), geo, _ring_scratch(geo, 1, dev))
+                              int(fade_p), bool(disable), geo, _ring_scratch(geo, S, dev), S)
     m4mb_event.launches += 1
     return out, evt_out, ics, iy_out, aux
 
@@ -1585,9 +1635,9 @@ def m4mb_event_f32(ctl, ev, ev_lo, evt, evt_lo, env_ds, interp_y, fade_p, disabl
     [4, 13, 12] float32. The engines, the threshold modulation and the
     epilogue run in float64; the per-tick values are rounded to float32
     before the insert. Returns (ev', ev_lo', evt', evt_lo', ics
-    [Nc, 3, 13, 12], interp_y', aux [Nc, 13, 2]), the last three float32.
-    CPU tensors run m4mb_event_f32_ref; CUDA tensors launch
-    csrc/m4_event.cu."""
+    [Nc, 3, 13, 12], interp_y', aux [Nc, 13, 2]), the last three float32;
+    with a stream axis (evt [S, 13]) every tensor led by S. CPU tensors run
+    m4mb_event_f32_ref; CUDA tensors launch csrc/m4_event.cu."""
     _check_f32_state("m4mb_event_f32", ev, ev_lo, (evt, evt_lo, interp_y), env_ds)
     if env_ds.device.type == "cpu":
         return m4mb_event_f32_ref(ctl, ev, ev_lo, evt, evt_lo, env_ds, interp_y, fade_p, disable)
@@ -1595,19 +1645,21 @@ def m4mb_event_f32(ctl, ev, ev_lo, evt, evt_lo, env_ds, interp_y, fade_p, disabl
 
     _check_cuda("m4mb_event_f32", env_ds, (env_ds, torch.float64), *_leaf_checks(ev, ev_lo),
                 *[(t, torch.float32) for t in (evt, evt_lo, interp_y)], align=1)
-    Nc = env_ds.shape[0]
-    _check_event_shapes("m4mb_event_f32", ctl, ev, env_ds, (Nc, N_BANDS, 8), evt, (N_BANDS,),
-                        interp_y, (4, N_BANDS, N_SIG_MB), N_BANDS)
+    lead, Nc = tuple(evt.shape[:-1]), env_ds.shape[-3]
+    _check_event_shapes("m4mb_event_f32", ctl, ev, env_ds, (*lead, Nc, N_BANDS, 8), evt,
+                        (*lead, N_BANDS), interp_y, (*lead, 4, N_BANDS, N_SIG_MB),
+                        (*lead, N_BANDS))
     out, out_lo = _empty_state(ev, ev_lo)
     evt_out, evt_out_lo = torch.empty_like(evt), torch.empty_like(evt_lo)
     dev, f32 = env_ds.device, torch.float32
-    vt = torch.empty((Nc, N_BANDS, N_SIG_MB), dtype=torch.float64, device=dev)
-    ics = torch.empty((Nc, 3, N_BANDS, N_SIG_MB), dtype=f32, device=dev)
+    vt = torch.empty((*lead, Nc, N_BANDS, N_SIG_MB), dtype=torch.float64, device=dev)
+    ics = torch.empty((*lead, Nc, 3, N_BANDS, N_SIG_MB), dtype=f32, device=dev)
     iy_out = torch.empty_like(interp_y)
-    aux = torch.empty((Nc, N_BANDS, 2), dtype=f32, device=dev)
+    aux = torch.empty((*lead, Nc, N_BANDS, 2), dtype=f32, device=dev)
     geo = event_geometry(N_BANDS, ctl.p["buf_len"], Nc)
+    S = lead[0] if lead else 1
     kernels.launch_m4mb_event(ctl, ev, out, evt, evt_out, env_ds, vt, interp_y, ics, iy_out, aux,
-                              int(fade_p), bool(disable), geo, _ring_scratch(geo, 1, dev),
+                              int(fade_p), bool(disable), geo, _ring_scratch(geo, S, dev), S,
                               lo=(ev_lo, out_lo, evt_lo, evt_out_lo))
     m4mb_event_f32.launches += 1
     return out, out_lo, evt_out, evt_out_lo, ics, iy_out, aux
@@ -1629,7 +1681,12 @@ def m4mb_event_f32_ref(ctl, ev, ev_lo, evt, evt_lo, env_ds, interp_y, fade_p, di
 def m4mb_event_ref(ctl, ev, evt, env_ds, interp_y, fade_p, disable, out_dtype=torch.float64):
     """Plain PyTorch version of m4mb_event: a loop over the ticks of the
     threshold modulation and event_step over the 13 band lanes, then the
-    epilogue over every tick and band at once. out_dtype as m4_event_ref's."""
+    epilogue over every tick and band at once. out_dtype as m4_event_ref's.
+    With a stream axis (evt [S, 13]) a stream at a time."""
+    if evt.dim() == 2:
+        return _stack_tree([
+            m4mb_event_ref(ctl, {k: v[s] for k, v in ev.items()}, evt[s], env_ds[s], interp_y[s],
+                           fade_p, disable, out_dtype) for s in range(evt.shape[0])])
     p = ctl.tensors(env_ds.device)[0]
     Nc = env_ds.shape[0]
     st = dict(ev)
@@ -1694,13 +1751,15 @@ def m4mb_env(bands, env_m, g, w=None):
     mixed by the frequency mask's weights w [13, 13] when given, a tensor
     on the bands' device), their eight envelope EWMAs from env_m [13, 8],
     and the envelopes at the ticks. Returns (env_m' [13, 8], env_ds
-    [Nc, 13, 8]). CPU tensors run m4mb_env_ref; CUDA tensors launch
-    csrc/m4_env.cu."""
+    [Nc, 13, 8]); with a stream axis bands [S, B, 13, 2] and env_m
+    [S, 13, 8], each output led by S. CPU tensors run m4mb_env_ref; CUDA
+    tensors launch csrc/m4_env.cu."""
     if bands.device.type == "cpu":
         return m4mb_env_ref(bands, env_m, g, w)
-    out = _launch_env("m4mb_env", bands, env_m, g, w)
+    one = bands.dim() == 3
+    out = _launch_env("m4mb_env", _streams(bands, one), _streams(env_m, one), g, w)
     m4mb_env.launches += 1
-    return out
+    return _unstream(out, one)
 
 
 m4mb_env.launches = 0
@@ -1710,14 +1769,17 @@ def m4mb_env_f32(bands, bands_lo, env_m, env_m_lo, g, w=None):
     """K11 over the 13 band lanes in float32: m4mb_env on the (hi, lo) pair
     (bands, bands_lo) [B, 13, 2] of the bank's output, from the carried
     pair (env_m, env_m_lo) [13, 8], the mix and the sums in float64.
-    Returns (env_m', env_m_lo', env_ds [Nc, 13, 8] float64). CPU tensors
-    run m4mb_env_f32_ref; CUDA tensors launch csrc/m4_env.cu."""
+    Returns (env_m', env_m_lo', env_ds [Nc, 13, 8] float64); with a stream
+    axis each led by S. CPU tensors run m4mb_env_f32_ref; CUDA tensors
+    launch csrc/m4_env.cu."""
     _check_dtypes("m4mb_env_f32", *[(t, torch.float32) for t in (bands, bands_lo, env_m, env_m_lo)])
     if bands.device.type == "cpu":
         return m4mb_env_f32_ref(bands, bands_lo, env_m, env_m_lo, g, w)
-    out = _launch_env("m4mb_env_f32", bands, env_m, g, w, lo=(bands_lo, env_m_lo))
+    one = bands.dim() == 3
+    out = _launch_env("m4mb_env_f32", _streams(bands, one), _streams(env_m, one), g, w,
+                      lo=(_streams(bands_lo, one), _streams(env_m_lo, one)))
     m4mb_env_f32.launches += 1
-    return out
+    return _unstream(out, one)
 
 
 m4mb_env_f32.launches = 0
@@ -1756,7 +1818,10 @@ def mb_envelopes_ref(bands, env_m, g, w=None):
 
 
 def m4mb_env_ref(bands, env_m, g, w=None):
-    """Plain PyTorch version of m4mb_env."""
+    """Plain PyTorch version of m4mb_env; bands [S, B, 13, 2] a stream at a
+    time."""
+    if bands.dim() == 4:
+        return each_stream(lambda st, b: m4mb_env_ref(b, st, g, w), env_m, bands)
     envs = mb_envelopes_ref(bands, env_m, g, w)
     return envs[-1], envs[DOWNSAMPLE_FACTOR - 1 :: DOWNSAMPLE_FACTOR]
 
@@ -1778,8 +1843,9 @@ def m4mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m):
     band sums, the phase-flip allpasses over the 26 surround lanes (state
     pf_m [13, 2, 2]) and the direct path. Returns (sig [B, 4 or 6]: l, r,
     ls, rs (and the direct pair) with the 1e-15/324 offsets, ready for the
-    inverse fshape; pf_m'). CPU tensors run m4mb_audio_ref; CUDA tensors
-    launch csrc/m4mb_audio.cu."""
+    inverse fshape; pf_m'). With a stream axis bands [S, B, 13, 2] and every
+    other tensor and output led by S. CPU tensors run m4mb_audio_ref; CUDA
+    tensors launch csrc/m4mb_audio.cu."""
     if bands.device.type == "cpu":
         return m4mb_audio_ref(cfg, bands, fb_buf, interp_c, ics, pf_m)
     _check_cuda("m4mb_audio", bands, *[(t, torch.float64) for t in (bands, fb_buf, interp_c, ics,
@@ -1819,16 +1885,17 @@ MB_AUDIO_TILE = 256
 
 def _launch_mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m):
     """csrc/m4mb_audio.cu on checked tensors: one launch, tiles of
-    MB_AUDIO_TILE samples over the card, the 26 allpasses carried across
-    them through the look-back scratch (read with the phase flip only).
-    Returns (sig, pf_m')."""
+    MB_AUDIO_TILE samples of each stream over the card, the 26 allpasses
+    carried across them through the look-back scratch (read with the phase
+    flip only). Returns (sig, pf_m')."""
     from dsp_tpu_torch import kernels
 
-    B = bands.shape[0]
-    sig = bands.new_empty((B, cfg.n_sig))
+    B = bands.shape[-3]
+    sig = bands.new_empty((*bands.shape[:-2], cfg.n_sig))
     pf_out = torch.empty_like(pf_m)
-    # a tile publishes the (a, b) maps of its 26 lanes
-    scratch = kernels.lookback_scratch(bands, -(-B // MB_AUDIO_TILE), 2 * 2 * N_BANDS)
+    # a tile publishes the (a, b) maps of its 26 lanes, in its stream's slots
+    S = bands.shape[0] if bands.dim() == 4 else 1
+    scratch = kernels.lookback_scratch(bands, -(-B // MB_AUDIO_TILE) * S, 2 * 2 * N_BANDS)
     kernels.launch_m4mb_audio(cfg, bands, fb_buf, interp_c, ics, pf_m, sig, pf_out, scratch)
     return sig, pf_out
 
@@ -1841,13 +1908,15 @@ def m4mb_audio_f32_ref(cfg, bands, fb_buf, interp_c, ics, pf_m):
 
 
 def _check_mb_audio_shapes(name, cfg, bands, fb_buf, interp_c, ics, pf_m):
-    B = bands.shape[0]
+    lead = tuple(bands.shape[:-3])
+    B = bands.shape[-3] if bands.dim() in (3, 4) else 0
     Nc = B // DOWNSAMPLE_FACTOR
-    if (tuple(bands.shape[1:]) != (N_BANDS, 2) or B % DOWNSAMPLE_FACTOR
-            or tuple(fb_buf.shape) != (cfg.len, N_BANDS, 2)
-            or tuple(interp_c.shape) != (3, N_BANDS, N_SIG_MB)
-            or tuple(ics.shape) != (Nc, 3, N_BANDS, N_SIG_MB)
-            or tuple(pf_m.shape) != (N_BANDS, 2, 2)):
+    if (bands.dim() not in (3, 4) or tuple(bands.shape[-2:]) != (N_BANDS, 2)
+            or B % DOWNSAMPLE_FACTOR or B == 0
+            or tuple(fb_buf.shape) != (*lead, cfg.len, N_BANDS, 2)
+            or tuple(interp_c.shape) != (*lead, 3, N_BANDS, N_SIG_MB)
+            or tuple(ics.shape) != (*lead, Nc, 3, N_BANDS, N_SIG_MB)
+            or tuple(pf_m.shape) != (*lead, N_BANDS, 2, 2)):
         raise ValueError(f"{name}: bands {tuple(bands.shape)}, fb_buf {tuple(fb_buf.shape)}, "
                          f"ics {tuple(ics.shape)}, pf_m {tuple(pf_m.shape)}")
 
@@ -1861,7 +1930,12 @@ def _sum_bands(x):
 
 
 def m4mb_audio_ref(cfg, bands, fb_buf, interp_c, ics, pf_m):
-    """Plain PyTorch version of m4mb_audio (matrix4_mb.py:569-620)."""
+    """Plain PyTorch version of m4mb_audio (matrix4_mb.py:569-620); bands
+    [S, B, 13, 2] a stream at a time."""
+    if bands.dim() == 4:
+        return _stack_tree([m4mb_audio_ref(cfg, *(t[s] for t in (bands, fb_buf, interp_c, ics,
+                                                                  pf_m)))
+                            for s in range(bands.shape[0])])
     B = bands.shape[0]
     D = DOWNSAMPLE_FACTOR
     all_ics = torch.cat([interp_c[None], ics])  # [Nc + 1, 3, 13, 12]

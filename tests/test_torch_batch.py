@@ -5,8 +5,8 @@ axis of the kernels it runs:
   and against the port's own process_array a stream at a time, on
   tests/test_state_hygiene.py's chains (gain/eq/crossfeed, a 300-tap fir on
   the FDL engine, resample to 88.2 kHz);
-* a chain with an effect that has no stream axis (matrix4) refused with
-  the ChainError that names it;
+* a chain with an effect that has no stream axis (noise) refused with the
+  ChainError that names it;
 * every kernel on the split-safe effects' path, through its plain version
   (what a CPU tensor runs): S = 3 streams in one call equal three
   one-stream calls, bit for bit, since each plain version runs a stream at
@@ -82,8 +82,8 @@ def test_batch_starts_from_the_live_state_and_leaves_it(streams):
 
 
 def test_batch_refuses_effects_without_a_stream_axis():
-    cc = port_chain("gain -3 matrix4 -6", 2048)
-    with pytest.raises(ChainError, match="process_batch is not yet ported.*matrix4"):
+    cc = port_chain("gain -3 noise -90", 2048)
+    with pytest.raises(ChainError, match="process_batch is not yet ported.*noise"):
         cc.process_batch(np.zeros((2, 4096, 2)))
 
 
