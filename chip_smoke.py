@@ -108,7 +108,11 @@ nvcc and PyTorch built for CUDA. It
    m4mb_env (also with the frequency mask), m4mb_event (a block a stream)
    and m4mb_audio, each in both dtypes, on stream states warmed by 2 s of
    transients, held to their plain versions at the one-stream rows'
-   tolerances;
+   tolerances; slice H2b's (td_forms): tpdf_noise (every channel, one),
+   tpdf_dither (lipshitz, flat, sloped2), stats_step (-i, plain),
+   levels_step and mod_delay (q0, q2, -m, -M), each in both dtypes, on
+   per-stream states from one-stream runs of their own seeds and lengths
+   (distinct keys, histories, sums, meters, phases and lines);
 3. writes 300 s of stereo 44.1 kHz float64 wav (seeded noise plus sines), a
    full track, and runs the port's CLI on it file to file: the flagship
    chain at the default block (2048) and at -b 65536; then the FFT
@@ -191,6 +195,11 @@ nvcc and PyTorch built for CUDA. It
    device scratch) on 2 streams, each stream bit-equal to process_array on
    the card, kernels a host step equal at S = 1 and 8, the batch's rate
    against process_array's printed, every upmix stream-axis form launched;
+   then slice H2b's (batch_td_phase): the delivery chain (dither at 16
+   bits) and the modulated chain the same way, at -b 2048 and 65536 in
+   both dtypes, every time-domain stream-axis row launched. The float32
+   delivery and modulated chains' CPU runs and the stats tables' CPU runs
+   go to worker processes ahead of the phases that read them;
 4. runs 96 blocks of the Nupols path (fir_p 1M at B = 2048), 320 of the
    delivery chain in float64 and in float32, 16 each of matrix4 and matrix4_mb and of the float32
    flagship (blocks 2048 and 1000), resample and upmixes, with the input on
@@ -247,6 +256,8 @@ CROSSOVER = ROOT / "examples" / "crossover_lr4_2kHz_riir_linphase"
 DELIVERY = "gain -1 :1 delay -f 0.37m : dither lipshitz stats -i"
 MODULATED = "delay -M 0.5m -q 2 10m noise -90 dither sloped2 16 stats levels"
 SLICE_C_SEED = 20263  # numpy's global generator, seeded before each run
+# the chains whose stats tables stats_table_check holds: (label, words, enc)
+TABLE_CHAINS = (("delivery", DELIVERY, "s16"), ("modulated", MODULATED, "double"))
 # slices D and E (bench.py:494): the 4-channel upmix of a CD master, and a
 # 48 kHz quad upmix, which exercises the rate change and both quanta (588
 # in, 32 after it: -b 2048 becomes 2352 in, 2560 out)
@@ -914,6 +925,8 @@ def meter_refusals():
                 cases.append((fn, f"{fn.__name__} {mode}: {what}", ({**st, k: v}, x, table)))
             cases.append((fn, f"{fn.__name__} {mode}: xs not contiguous",
                           (st, torch.zeros((CHANNELS, 2048), dtype=dt, device=dev).t(), table)))
+            cases.append((fn, f"{fn.__name__} {mode}: one stream's state for 3 streams",
+                          (st, x.expand(3, -1, -1).contiguous(), table)))
         cases.append((fn, f"{fn.__name__} -i: a table of 66",
                       (st, x, torch.zeros(66, dtype=dt, device=dev))))
     lv = [torch.zeros(CHANNELS, dtype=f64, device=dev) for _ in range(3)]
@@ -925,7 +938,9 @@ def meter_refusals():
                                             x, g)),
                        ("xs not contiguous", (*lv, torch.zeros((CHANNELS, 2048), dtype=f64,
                                                                device=dev).t(), g)),
-                       ("xs of one dimension", (*lv, x[:, 0].contiguous(), g))):
+                       ("xs of one dimension", (*lv, x[:, 0].contiguous(), g)),
+                       ("one stream's meters for 3 streams",
+                        (*lv, x.expand(3, -1, -1).contiguous(), g))):
         cases.append((td.levels_step, f"levels_step: {what}", args))
     return cases
 
@@ -983,7 +998,9 @@ def step_refusals():
                            ("the selector on the CPU", (key, x, 1e-3, sel.cpu())),
                            ("x not contiguous", (key, torch.zeros((CHANNELS, 2048), dtype=dt,
                                                                   device=dev).t(), 1e-3)),
-                           ("x of one dimension", (key, x[:, 0].contiguous(), 1e-3))):
+                           ("x of one dimension", (key, x[:, 0].contiguous(), 1e-3)),
+                           ("one key for 3 streams", (key, x.expand(3, -1, -1).contiguous(),
+                                                      1e-3))):
             cases.append((fn, f"{fn.__name__}: {what}", args))
     return cases
 
@@ -2712,14 +2729,15 @@ def write_filter(path, taps, seed):
         w.close()
 
 
-def cpu_reference(chain_words, block, enc, seed, head):
+def cpu_reference(chain_words, block, enc, seed, head, dtype=None):
     """The port's CPU run of chain_words at `block` on head (the input's
     first seconds), through what the CLI's writer does for enc: its dither
     policy, its app-level dither, the clip and the encoding. With `seed`,
     numpy's global generator is seeded before the chain is built, which
     then draws as the CLI does (the chain's init, the output writer's two
-    dither seeds, the effects' initial states). What cli_run compares the
-    card's render with; module-level, so a CpuReferences worker runs it."""
+    dither seeds, the effects' initial states). dtype: the chain's (None:
+    DSP_TPU_TORCH_DTYPE's). What cli_run compares the card's render with;
+    module-level, so a CpuReferences worker runs it."""
     import numpy as np
 
     from dsp_tpu_torch.chain import CompiledChain, build_chain_from_args
@@ -2736,7 +2754,7 @@ def cpu_reference(chain_words, block, enc, seed, head):
     seeds = np.random.randint(1, 1 << 30), np.random.randint(1, 1 << 30)
     prec, can_dither = encoding_info(enc)[1:]
     app_dither = chain_set_dither_params(chain, prec, can_dither and prec < 24)
-    ref = CompiledChain(chain, block, device="cpu").process_array(head, drain=False)
+    ref = CompiledChain(chain, block, dtype=dtype, device="cpu").process_array(head, drain=False)
     if app_dither:
         # the alignment pass can put an align effect after a dither effect
         # (delivery: the delay's integer part), and then the writer dithers
@@ -2744,6 +2762,49 @@ def cpu_reference(chain_words, block, enc, seed, head):
         ref = ref + TpdfNoise(*seeds).block(ref.size, tpdf_dither_get_mult(prec)).reshape(ref.shape)
     # what the writer stores and read_wav returns: clipped, encoded, decoded
     return raw_to_sample(sample_to_raw(np.clip(ref, -1.0, 1.0), enc), enc).reshape(ref.shape)
+
+
+def cli_stats_table(label, words, enc, head, path, device, dtype=None):
+    """The stats table that dsp-torch prints on `device` for `words` on
+    head (written to `path` as a float64 wav, the run's output beside it),
+    numpy's generator seeded with SLICE_C_SEED, in dtype (None: float64):
+    what stats_table_check compares; module-level, so a CpuReferences
+    worker runs the CPU's. Returns (label, the table or None)."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+
+    from dsp_tpu_torch.cli.main import main as cli_main
+    from dsp_tpu_torch.codecs.base import CODEC_MODE_WRITE, CodecParams
+    from dsp_tpu_torch.codecs.wav import WavWriter
+
+    path = Path(path)
+    w = WavWriter(CodecParams(path=str(path), enc="double", fs=FS, channels=CHANNELS,
+                              mode=CODEC_MODE_WRITE))
+    try:
+        w.write(head)
+    finally:
+        w.close()
+    env = {"DSP_TPU_TORCH_DEVICE": device, "DSP_TPU_TORCH_DTYPE": dtype or "float64"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        np.random.seed(SLICE_C_SEED)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli_main(["-q", str(path), "-o", "-e", enc, str(path.with_suffix(".out.wav")),
+                           *words.split()])
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if rc != 0:
+        raise SmokeError(f"{label} stats table run on {device}: dsp-torch exited {rc}")
+    return label, stats_table(err.getvalue())
 
 
 def _reference_worker():
@@ -2771,21 +2832,36 @@ class CpuReferences:
         self.jobs = {}
 
     @staticmethod
-    def _key(chain_words, block, enc, seed, head):
+    def _key(chain_words, block, enc, seed, head, dtype=None):
         import hashlib
 
         return (tuple(chain_words), block, enc, seed, head.shape,
-                hashlib.sha256(head.tobytes()).hexdigest())
+                hashlib.sha256(head.tobytes()).hexdigest(), dtype)
 
-    def submit(self, chain_words, block, head, enc="double", seed=None, compare=COMPARE_SECONDS):
+    def submit(self, chain_words, block, head, enc="double", seed=None, compare=COMPARE_SECONDS,
+               dtype=None):
         head = head[: compare * FS]
-        self.jobs[self._key(chain_words, block, enc, seed, head)] = self.pool.submit(
-            cpu_reference, list(chain_words), block, enc, seed, head)
+        self.jobs[self._key(chain_words, block, enc, seed, head, dtype)] = self.pool.submit(
+            cpu_reference, list(chain_words), block, enc, seed, head, dtype)
 
-    def take(self, chain_words, block, enc, seed, head):
+    def take(self, chain_words, block, enc, seed, head, dtype=None):
         """The reference computed for this run, or None if none was submitted."""
-        job = self.jobs.pop(self._key(chain_words, block, enc, seed, head), None)
+        job = self.jobs.pop(self._key(chain_words, block, enc, seed, head, dtype), None)
         return None if job is None else job.result()
+
+    def submit_tables(self, head, tmp, dtype=None):
+        """stats_table_check's CPU runs (cli_stats_table) of the delivery
+        and modulated chains on head (its first COMPARE_SECONDS)."""
+        head = head[: COMPARE_SECONDS * FS]
+        for label, words, enc in TABLE_CHAINS:
+            self.jobs[("table", label, dtype)] = self.pool.submit(
+                cli_stats_table, label, words, enc, head, tmp / f"table_{label}_{dtype}.wav",
+                "cpu", dtype)
+
+    def take_table(self, label, dtype=None):
+        """The CPU table computed for this label and dtype, or None."""
+        job = self.jobs.pop(("table", label, dtype), None)
+        return None if job is None else job.result()[1]
 
     def close(self):
         """Stop the workers (a job not yet started is cancelled); return
@@ -2801,7 +2877,7 @@ WALLS = {}  # cli_run's wall seconds a run, by label
 
 def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, seconds, tmp,
             enc="double", limit_dbfs=LIMIT_DBFS, seed=None, onset=None, compare=COMPARE_SECONDS,
-            keep=None, refs=None):
+            keep=None, refs=None, dtype=None):
     """One file-to-file run of dsp-torch on the card. Fails unless it
     writes the expected frame count, launches every kernel in `wrappers`
     (their counts are zeroed just before the run) and matches the port's
@@ -2812,8 +2888,9 @@ def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, secon
     first seconds are held to that limit instead (see ONSET). With `keep`
     (a path), the run's output file is kept there (the float32 phase holds
     its own runs against it). With `refs` (CpuReferences), the CPU run is
-    the one computed there ahead, if one was, else it runs here. Returns
-    what the run wrote to stderr."""
+    the one computed there ahead, if one was, else it runs here; dtype
+    the CPU run's (None: DSP_TPU_TORCH_DTYPE's). Returns what the run wrote
+    to stderr."""
     import contextlib
     import io
 
@@ -2850,9 +2927,9 @@ def cli_run(label, chain_words, block, wrappers, records, src, n_in, head, secon
     got, y = read_wav(out, compare * chain.ostream.fs)
     if got != want:
         raise SmokeError(f"{label}: {got} output frames, expected {want}")
-    ref = None if refs is None else refs.take(chain_words, block, enc, seed, head)
+    ref = None if refs is None else refs.take(chain_words, block, enc, seed, head, dtype)
     if ref is None:
-        ref = cpu_reference(chain_words, block, enc, seed, head)
+        ref = cpu_reference(chain_words, block, enc, seed, head, dtype)
     if not np.isfinite(y).all():
         raise SmokeError(f"{label}: non-finite output")
     if len(ref) == 0 or len(y) < len(ref):
@@ -2900,45 +2977,19 @@ def stats_table(text):
     return "\n".join(lines[start:end])
 
 
-def stats_table_check(head, tmp):
+def stats_table_check(head, tmp, refs, dtype=None):
     """The stats tables of the delivery chain (stats -i, to s16) and the
     modulated chain (plain stats and levels, to double) from the CLI on the
     card and on the CPU, on the same COMPARE_SECONDS of input, numpy's
     generator seeded alike: equal character for character (min, max, peak,
     peak count and frame are exact; the sums print to 8 decimals and 4 of
-    a dB)."""
-    import contextlib
-    import io
-    import os
-
-    import numpy as np
-
-    from dsp_tpu_torch.cli.main import main as cli_main
-    from dsp_tpu_torch.codecs.base import CODEC_MODE_WRITE, CodecParams
-    from dsp_tpu_torch.codecs.wav import WavWriter
-
-    src = tmp / "head.wav"
-    w = WavWriter(CodecParams(path=str(src), enc="double", fs=FS, channels=CHANNELS,
-                              mode=CODEC_MODE_WRITE))
-    try:
-        w.write(head)
-    finally:
-        w.close()
-    for label, words, enc in (("delivery", DELIVERY, "s16"), ("modulated", MODULATED, "double")):
-        tables = {}
-        for device in ("cuda", "cpu"):
-            os.environ["DSP_TPU_TORCH_DEVICE"] = device
-            np.random.seed(SLICE_C_SEED)
-            err = io.StringIO()
-            with contextlib.redirect_stderr(err):
-                rc = cli_main(["-q", str(src), "-o", "-e", enc, str(tmp / "head_out.wav"),
-                               *words.split()])
-            if rc != 0:
-                raise SmokeError(f"{label} stats table run on {device}: dsp-torch exited {rc}")
-            tables[device] = stats_table(err.getvalue())
-        os.environ["DSP_TPU_TORCH_DEVICE"] = "cuda"
-        if tables["cuda"] is None or tables["cuda"] != tables["cpu"]:
-            raise SmokeError(f"{label} stats table, card:\n{tables['cuda']}\nCPU:\n{tables['cpu']}")
+    a dB). The CPU tables come from refs (CpuReferences.submit_tables, run
+    ahead in its workers); dtype the chains' (None: float64)."""
+    for label, words, enc in TABLE_CHAINS:
+        card = cli_stats_table(label, words, enc, head, tmp / "head.wav", "cuda", dtype)[1]
+        cpu = refs.take_table(label, dtype)
+        if card is None or card != cpu:
+            raise SmokeError(f"{label} stats table, card:\n{card}\nCPU:\n{cpu}")
         print(f"  {label} stats table on {COMPARE_SECONDS} s: card and CPU equal")
 
 
@@ -4243,7 +4294,20 @@ def _table_rows(table):
             for line in table.splitlines() if line.strip()}
 
 
-def float32_time_domain_cli(records, tmp):
+def float32_time_domain_refs(tmp):
+    """float32_time_domain_cli's CPU runs, submitted to workers of their own
+    (CpuReferences) as soon as the main path has written its input, so that
+    they run beside the phases between: the float32 references of the
+    delivery and modulated chains and their float32 stats tables."""
+    _, head = read_wav(tmp / "in.wav", COMPARE_SECONDS * FS)
+    refs = CpuReferences(4)
+    for words, enc in ((DELIVERY, "s16"), (MODULATED, "double")):
+        refs.submit(words.split(), 2048, head, enc=enc, seed=SLICE_C_SEED, dtype="float32")
+    refs.submit_tables(head, tmp, dtype="float32")
+    return refs
+
+
+def float32_time_domain_cli(records, tmp, refs=None):
     """DSP_TPU_TORCH_DTYPE=float32 dsp-torch on the main path's 300 s input
     (tmp/in.wav) for slice C's two chains at block 2048: the delivery chain
     to s16 and the modulated chain to double. Each run must write the
@@ -4259,7 +4323,9 @@ def float32_time_domain_cli(records, tmp):
     level within F32_TABLE_DB and its peak within F32_TABLE_PEAK_DB; the RMS of the float32 output minus
     the float64 one is printed beside the level that the noise and dither
     settings predict for two independent draws (the modulated chain's
-    difference is larger: its modulator's other draws move the delay)."""
+    difference is larger: its modulator's other draws move the delay).
+    The CPU runs come from refs (float32_time_domain_refs) where it has
+    them."""
     import os
 
     import numpy as np
@@ -4299,7 +4365,8 @@ def float32_time_domain_cli(records, tmp):
                 w.launches = 0
             err = cli_run(f"{label} float32 -e {enc} -b 2048", words.split(), 2048, f32w,
                           records, src, n_in, head, SECONDS, tmp, enc=enc, limit_dbfs=limit,
-                          seed=SLICE_C_SEED, keep=tmp / f"f32_{label}.wav")
+                          seed=SLICE_C_SEED, keep=tmp / f"f32_{label}.wav", refs=refs,
+                          dtype="float32")
             stray = {name: w.launches for name, w in f64w.items() if w.launches}
             _require(f"{label} float32: float64 kernels ran in the float32 chain: {stray}",
                      not stray)
@@ -4326,7 +4393,7 @@ def float32_time_domain_cli(records, tmp):
                   + (" (the modulator's draws move the delay too)" if "delay -M" in words else ""))
             (tmp / f"f32_{label}.wav").unlink()
             (tmp / f"f64_{label}.wav").unlink()
-        stats_table_check(head, tmp)
+        stats_table_check(head, tmp, refs, "float32")
     finally:
         os.environ.pop("DSP_TPU_TORCH_DTYPE")
 
@@ -4488,6 +4555,7 @@ def main_path(records, seconds, tmp):
         for _, words, block, _, kw, inp in runs:
             refs.submit(words, block, head if inp is None else inp[2],
                         **{k: kw[k] for k in ("enc", "seed", "compare") if k in kw})
+        refs.submit_tables(head, tmp)
         for label, words, block, wrappers, kw, inp in runs:
             src_i, n_i, head_i, secs = (src, n_in, head, seconds) if inp is None else inp
             err = cli_run(label, words, block, wrappers, records, src_i, n_i, head_i, secs, tmp,
@@ -4502,7 +4570,7 @@ def main_path(records, seconds, tmp):
                     print("  " + table.replace("\n", "\n  "))
                 (tmp / f"f64_{label.split()[0]}.txt").write_text(table)
                 if label.startswith("modulated"):
-                    stats_table_check(head, tmp)
+                    stats_table_check(head, tmp, refs)
         left = refs.close()
     finally:
         refs.close()
@@ -4586,7 +4654,8 @@ def kernel_total():
     from dsp_tpu_torch.ops import resample_ops as ro
 
     return (kernels.lookback_launches() + kernels.fft_launches() + kernels.biquad_run_launches()
-            + kernels.resample_launches() + kernels.noise_launches() + kernels.upmix_launches()
+            + kernels.resample_launches() + kernels.noise_launches() + kernels.dither_launches()
+            + kernels.upmix_launches()
             + kernels.mod_delay_launches() + sum(kernels.meter_launches())
             + sum(w.launches for w in (iir.crossfeed_step, iir.crossfeed_step_f32, iir.biquad_scan,
                                        iir.biquad_scan_f32, iir.biquad_scan_pair,
@@ -4594,9 +4663,10 @@ def kernel_total():
                                        fc.splice_f32, ro.resample_fold)))
 
 
-def split_kernel_phase(records):
-    """Every kernel form on the split-safe effects' path with a stream axis,
-    on the card: at S = FORM_STREAMS one launch a call by its own count (the
+def split_kernel_phase(records, groups=("split", "upmix", "td")):
+    """Every kernel form with a stream axis (groups: the split-safe
+    effects' path, the upmixes', upmix_forms, and the time-domain effects',
+    td_forms), on the card: at S = FORM_STREAMS one launch a call by its own count (the
     route of three launches: the launches of one stream's call), each
     stream bit-equal to a one-stream call of the kernel, and the whole
     within its plain version on the same inputs on the card at the
@@ -4642,6 +4712,7 @@ def split_kernel_phase(records):
 
     log2 = math.log2
     forms = []
+    group = ["split"]
 
     def form(rec, what, call, plain, make, streamed, count, cost, pairs=(), limit=None,
              library=None, reps=50, one=True, hold=None, lane=False, plain_streams=TIMED_STREAMS):
@@ -4658,8 +4729,9 @@ def split_kernel_phase(records):
         plain_streams the streams at which the plain version is timed:
         FORM_STREAMS, the one call of the check (a plain version that takes
         seconds a call), or TIMED_STREAMS, up to 5 calls."""
-        forms.append((rec, what, call, plain, make, streamed, count, cost, pairs, limit, library,
-                      reps, one, hold, lane, plain_streams))
+        if group[0] in groups:
+            forms.append((rec, what, call, plain, make, streamed, count, cost, pairs, limit,
+                          library, reps, one, hold, lane, plain_streams))
 
     # K1 and K1-df on the flagship's cascade (n = 12), B = 2048
     n = plan.n
@@ -4806,7 +4878,12 @@ def split_kernel_phase(records):
                              (2.5 * Ni * log2(Ni) + 3 * half) * C * S, F64_PEAK),
              library=lambda Y, ov: torch.fft.irfft(Y, n=Ni, dim=0), reps=3, one=False,
              limit=10.0 ** (LIMIT_DBFS / 20.0) if dt == f64 else None)
-    upmix_forms(form)
+    if "upmix" in groups:
+        group[0] = "upmix"
+        upmix_forms(form)
+    group[0] = "td"
+    if "td" in groups:
+        td_forms(form)
 
     for (rec, what, call, plain, make, streamed, count, cost, pairs, limit, library, reps,
          one, hold, lane, plain_streams) in forms:
@@ -5169,6 +5246,396 @@ def upmix_forms(form):
         matrix4_mb(dt)
 
 
+# slice H2b: the time-domain effects' kernels with a stream axis, the
+# stream-axis rows of split_kernel_phase (record, the wrapper whose own
+# count is the row's launches: a stats row's -i launches are its wrapper's
+# less its plain mode's), counted in batch_td_phase
+TD_FORMS = (
+    ("tpdf_noise@S", "tpdf_noise"), ("tpdf_noise_f32@S", "tpdf_noise_f32"),
+    ("tpdf_dither@S", "tpdf_dither"), ("tpdf_dither_f32@S", "tpdf_dither_f32"),
+    ("stats_step@S", "stats_step"), ("stats_step_f32@S", "stats_step_f32"),
+    ("stats_step_plain@S", "stats_step.plain"),
+    ("stats_step_plain_f32@S", "stats_step_f32.plain"),
+    ("levels_step@S", "levels_step"), ("levels_step_f32@S", "levels_step_f32"),
+    ("mod_delay@S", "mod_delay"), ("mod_delay_f32@S", "mod_delay_f32"),
+)
+# process_batch of the delivery and modulated chains: seconds a stream (the
+# streams are BATCH_STREAMS) and the blocks
+TD_BATCH_SECONDS = 20
+TD_BATCH_BLOCKS = (2048, 65536)
+
+
+def _td_wrappers():
+    """The five wrappers of ops/time_domain.py in both dtypes."""
+    from dsp_tpu_torch.ops import time_domain as td
+
+    return [getattr(td, f"{name}{sfx}") for name in (
+        "tpdf_noise", "tpdf_dither", "stats_step", "levels_step", "mod_delay")
+        for sfx in ("", "_f32")]
+
+
+def _td_counts():
+    """{record: launches} of TD_FORMS by the wrappers' own counts."""
+    from dsp_tpu_torch.ops import time_domain as td
+
+    out = {}
+    for rec, w in TD_FORMS:
+        name, _, mode = w.partition(".")
+        fn = getattr(td, name)
+        if mode:
+            out[rec] = fn.plain.launches
+        elif name.startswith("stats"):
+            out[rec] = fn.launches - fn.plain.launches
+        else:
+            out[rec] = fn.launches
+    return out
+
+
+def _td_zero():
+    for w in _td_wrappers():
+        w.launches = 0
+        if hasattr(w, "plain"):
+            w.plain.launches = 0
+
+
+def td_forms(form):
+    """The time-domain effects' stream-axis forms for split_kernel_phase, in
+    float64 and float32, stereo at B = 2048: K18 (tpdf_noise) with every
+    channel and with the first only, K15 (tpdf_dither) lipshitz, flat and
+    sloped2 at 16 bits, K16 (stats_step) -i and plain, K17 (levels_step)
+    and K14 (mod_delay) at q0 and q2, -m and -M (0.5 ms depth, a 1 kHz
+    modulator). Each stream's state comes from a one-stream run of its own
+    seed and length (1, 2, 3 blocks), so the keys, error histories, noise
+    carries, sums, meters, phases, knot windows and lines all differ by
+    stream; stats' samples too, and stream 1's limit falls inside the block.
+    S = TIMED_STREAMS takes those streams in turn. The plain version is the
+    wrapper on host copies, which runs its plain version a stream at a time.
+    Held at the one-stream rows' tolerances (time_domain_phase,
+    float32_time_domain_phase): noise and dither bit-equal; stats' sums
+    within 1e-12 relative (float32: one ulp of their scale), every other
+    leaf bit-equal; levels within 1e-12 relative (one ulp); the modulated
+    read within MOD_DELAY_DBFS (one ulp), its key and line bit-equal (and,
+    in float32, its knots and phase). The first form of each kernel and
+    dtype is its timed row (the main path's form)."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch import kernels
+    from dsp_tpu_torch.core.prng import prng_key
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.effects.delay import ModDelayEffect
+    from dsp_tpu_torch.effects.dither import DitherEffect
+    from dsp_tpu_torch.effects.stats import StatsEffect
+    from dsp_tpu_torch.ops import time_domain as td
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(20320)
+    f64, f32 = torch.float64, torch.float32
+    B, C, S3 = 2048, CHANNELS, FORM_STREAMS
+    ones = np.ones(C, dtype=bool)
+
+    def normal(dt, *shape, scale=0.3):
+        return torch.as_tensor(rng.standard_normal(shape) * scale, dtype=dt, device=dev)
+
+    def stack(items):
+        """One-stream results (tensors, or tuples or dicts of them) stacked
+        into stream-axis leaves."""
+        first = items[0]
+        if isinstance(first, dict):
+            return {k: stack([it[k] for it in items]) for k in first}
+        if isinstance(first, (tuple, list)):
+            return type(first)(stack([it[i] for it in items]) for i in range(len(first)))
+        return torch.stack(items).contiguous()
+
+    def cycle(a, S):
+        """Streams s % S3 of a (a tensor led by S3, or a dict of them) for
+        s < S; S = 0: stream 0 alone, without the axis."""
+        if isinstance(a, dict):
+            return {k: cycle(v, S) for k, v in a.items()}
+        if not S:
+            return a[0]
+        idx = torch.arange(S, device=a.device) % S3
+        if a.dtype == torch.uint32:  # the keys: CUDA indexes no uint32 tensor
+            return a.view(torch.int32)[idx].view(torch.uint32)
+        return a[idx].contiguous()
+
+    def maker(n, *args):
+        """make(S): the first n args (led by S3 streams) cycled to S, the
+        rest (the effect's constants) as they are."""
+        return lambda S: tuple(cycle(a, S) if i < n else a for i, a in enumerate(args))
+
+    def on_host(call):
+        return lambda *a: call(*_to_cpu(a))
+
+    def hold_bits(got, ref):
+        for k, (a, b) in enumerate(zip(_leaves(got), _leaves(ref))):
+            _require(f"output {k} differs from the plain version", bits_equal(a, b))
+        return 0.0
+
+    def within(a, b, f32_, rel=1e-12, floor=0.0, what="output"):
+        """a against b: one float32 ulp of b's scale, or rel of max(floor,
+        max |b|); returns max |a - b|."""
+        if f32_:
+            ulps, err = _ulps(a, b)
+            _require(f"{what} {ulps:.2f} ulp of its scale from the plain version", ulps <= 1.0)
+        else:
+            err = _diff(a, b)
+            _require(f"{what} {err:.3e} from the plain version",
+                     err <= rel * max(floor, float(b.abs().max())))
+        return err
+
+    def hold_stats(f32_):
+        def hold(got, ref):
+            err = 0.0
+            for k in ref:
+                if k in ("sum", "sum_sq"):
+                    err = max(err, within(got[k], ref[k], f32_, floor=1.0, what=k))
+                else:
+                    _require(f"{k} differs from the plain version", bits_equal(got[k], ref[k]))
+            return err
+        return hold
+
+    def hold_levels(f32_):
+        def hold(got, ref):
+            return max(within(a, b, f32_, what=k)
+                       for k, a, b in zip(("avg", "peak", "block_peak"), got, ref))
+        return hold
+
+    def hold_delay(f32_):
+        def hold(got, ref):
+            # (key', knots, phase, y, line')
+            exact = (0, 1, 2, 4) if f32_ else (0, 4)
+            err = 0.0
+            for k, (a, b) in enumerate(zip(got, ref)):
+                if k in exact:
+                    _require(f"output {k} differs from the plain version", bits_equal(a, b))
+                elif f32_:
+                    err = max(err, within(a, b, True, what="y"))
+                else:
+                    e = _diff(a, b)
+                    _require(f"output {k} {dbfs(e):.1f} dBFS from the plain version",
+                             dbfs(e) <= MOD_DELAY_DBFS)
+                    err = max(err, e)
+            return err
+        return hold
+
+    def noise(dt):
+        sfx, es, peak = ("_f32", 4, F32_PEAK) if dt == f32 else ("", 8, F64_PEAK)
+        entry = getattr(td, f"tpdf_noise{sfx}")
+        mult = 10.0 ** (-90 / 20) / 0x7FFFFFFF  # noise -90
+        keys = []
+        for s in range(S3):
+            k = prng_key(987000 + 17 * s).to(dev)
+            for _ in range(1 + s):
+                k, _ = entry(k, normal(dt, B, C), mult)
+            keys.append(k)
+        keys, x = stack(keys), normal(dt, S3, B, C)
+
+        def call(k, x_, sel):
+            return entry(k, x_, mult, sel)
+
+        for sel, rec in ((None, f"tpdf_noise{sfx}@S"),
+                         (torch.tensor([True, False], device=dev), None)):
+            form(rec, f"tpdf_noise{sfx}@S (B=2048, "
+                      f"{'every channel' if sel is None else 'the first channel'})",
+                 call, on_host(call), maker(2, keys, x, sel), (0, 1), kernels.noise_launches,
+                 # x in, y out, the keys; 3 operations a sample
+                 lambda S: (S * (2 * es * B * C + 16), 3 * B * C * S, peak),
+                 hold=hold_bits, plain_streams=FORM_STREAMS)
+
+    def dither(dt):
+        sfx, es, peak = ("_f32", 4, F32_PEAK) if dt == f32 else ("", 8, F64_PEAK)
+        entry = getattr(td, f"tpdf_dither{sfx}")
+        for shape in ("lipshitz", "flat", "sloped2"):
+            e = DitherEffect("dither", StreamInfo(FS, C), ones, shape, 16.0, 16, False, False,
+                             seed=4242)
+            consts = tuple(torch.as_tensor(v, dtype=None if v.dtype == bool else dt, device=dev)
+                           for v in (e.n_mult, e.q_mult0, e.q_mult1, e.enabled, e.fir))
+            sts = []
+            for s in range(S3):
+                st = (prng_key(4242 + 31 * s).to(dev), normal(dt, 9, C, scale=1e-5),
+                      torch.as_tensor(rng.uniform(0, 0x7FFFFFFF, C), dtype=dt, device=dev))
+                for _ in range(1 + s):
+                    st = entry(st[0], normal(dt, B, C), st[1], st[2], *consts, e.mode)[:3]
+                sts.append(st)
+            key, eh, npv = stack(sts)
+
+            def call(k, x_, eh_, np_, *c, mode=e.mode):
+                return entry(k, x_, eh_, np_, *c, mode)
+
+            form(f"tpdf_dither{sfx}@S" if shape == "lipshitz" else None,
+                 f"tpdf_dither{sfx}@S ({shape}, 16 bits, B=2048)",
+                 call, on_host(call), maker(4, key, normal(dt, S3, B, C), eh, npv, *consts),
+                 (0, 1, 2, 3), kernels.dither_launches,
+                 # x in, y out, the states, the constants; 2 operations a
+                 # sample for the noise, 23 for the 9-tap feedback quantizer
+                 lambda S: (S * (2 * es * B * C + es * 20 * C + 16) + es * (3 * C + 9) + C,
+                            25 * B * C * S, peak),
+                 hold=hold_bits, plain_streams=FORM_STREAMS)
+
+    def stats(dt):
+        sfx, es, peak = ("_f32", 4, F32_PEAK) if dt == f32 else ("", 8, F64_PEAK)
+        entry = getattr(td, f"stats_step{sfx}")
+        kinds = ("noise", "gate-sparse", "click")
+        for interp in (True, False):
+            e = StatsEffect("stats", StreamInfo(FS, C), ones, None, 80, interp)
+            table = torch.as_tensor(e._insert_table, dtype=dt, device=dev) if interp else None
+            sts = []
+            for s in range(S3):
+                st = {k: torch.as_tensor(v, device=dev) for k, v in e.state0().items()}
+                st = {k: v.to(dt) if v.is_floating_point() else v for k, v in st.items()}
+                for _ in range(1 + s):
+                    st = entry(st, torch.as_tensor(td_signal(kinds[s], B, rng), dtype=dt,
+                                                   device=dev), table)
+                sts.append(st)
+            st = stack(sts)
+            st["limit"][1] = int(st["samples"][1]) + 700  # inside the next block
+            x = torch.as_tensor(np.stack([td_signal(kinds[s], B, rng) for s in range(S3)]),
+                                dtype=dt, device=dev)
+            gated = []  # the -i gate's samples, by stream, in the plain call
+
+            def plain(st_, x_, tb, gated=gated):
+                outs = []
+                for s in range(x_.shape[0]):
+                    outs.append(entry(_to_cpu(_pick(st_, s)), x_[s].cpu(), _to_cpu(tb)))
+                    gated.append(td.stats_step_ref.gated_samples)
+                return stack(outs)
+
+            # the accumulators, 4 operations a sample; -i, a gated sample
+            # (counted on these inputs) adds 134 for the buffer and direct
+            # taps and 4 fits of about 12
+            state = es * 5 * C + 8 * (2 * C + 2) + (es * C * 81 + 4 * C if interp else 0)
+            form(f"stats_step{'' if interp else '_plain'}{sfx}@S",
+                 f"stats_step{sfx}@S ({'-i' if interp else 'plain'}, B=2048, inputs "
+                 f"{', '.join(kinds)}, a limit in stream 1)",
+                 entry, plain, maker(2, st, x, table), {0: _pick, 1: None},
+                 lambda: kernels.meter_launches()[0],
+                 lambda S, interp=interp, state=state, gated=gated: (
+                     S * (es * B * C + 2 * state) + (es * 67 if interp else 0),
+                     4 * B * C * S + 182 * sum(gated[s % S3] for s in range(S)), peak),
+                 hold=hold_stats(dt == f32), plain_streams=FORM_STREAMS)
+
+    def levels(dt):
+        sfx, es, peak = ("_f32", 4, F32_PEAK) if dt == f32 else ("", 8, F64_PEAK)
+        entry = getattr(td, f"levels_step{sfx}")
+        g = 1.0 - math.exp(-1.0 / (FS * 0.3))
+        sts = []
+        for s in range(S3):
+            st = tuple(torch.as_tensor(rng.uniform(0, 0.1, C), dtype=dt, device=dev)
+                       for _ in range(3))
+            for _ in range(1 + s):
+                st = entry(*st, normal(dt, B, C), g)
+            sts.append(st)
+        st = stack(sts)
+
+        def call(*a):
+            return entry(*a, g)
+
+        form(f"levels_step{sfx}@S", f"levels_step{sfx}@S (B=2048)", call, on_host(call),
+             maker(4, *st, normal(dt, S3, B, C)), (0, 1, 2, 3), lambda: kernels.meter_launches()[1],
+             lambda S: (S * es * (B * C + 6 * C), 6 * B * C * S, peak),
+             hold=hold_levels(dt == f32), plain_streams=FORM_STREAMS)
+
+    def mod_delay(dt):
+        sfx, es, peak = ("_f32", 4, F32_PEAK) if dt == f32 else ("", 8, F64_PEAK)
+        entry = getattr(td, f"mod_delay{sfx}")
+        sel = torch.ones(C, dtype=torch.bool, device=dev)
+        for qual, mono in ((2, True), (0, True), (2, False), (0, False)):
+            e = ModDelayEffect("delay", StreamInfo(FS, C), ones, 0.5e-3 * FS, 1000.0, mono, qual,
+                               seed=31337)
+            table = None if e.table is None else torch.as_tensor(e.table, dtype=dt, device=dev)
+            sts = []
+            for s in range(S3):
+                e.seed = 31337 + 13 * s
+                st = {k: torch.as_tensor(v, dtype=dt if np.asarray(v).dtype.kind == "f" else None,
+                                         device=dev) for k, v in e.state0().items()}
+                for _ in range(1 + s):
+                    st = e.step(st, normal(dt, B, C))[0]
+                sts.append((st["key"], st["y"], st["t"], st["buf"]))
+            key, yk, t, buf = stack(sts)
+            H = buf.shape[-2]
+
+            def call(k, yk_, t_, buf_, x_, sel_, tb, e=e):
+                return entry(k, yk_, t_, buf_, x_, sel_, tb, e.depth, e.step_size, e.n_taps,
+                             e.qual)
+
+            taps = e.n_taps
+            form(f"mod_delay{sfx}@S" if (qual, mono) == (2, True) else None,
+                 f"mod_delay{sfx}@S (q{qual} {'-M' if mono else '-m'}, 0.5 ms, 1 kHz, B=2048)",
+                 call, on_host(call), maker(5, key, yk, t, buf, normal(dt, S3, B, C), sel, table),
+                 (0, 1, 2, 3, 4), kernels.mod_delay_launches,
+                 # x and the line in, y and the line out, the table; the
+                 # B-spline (~20), 4 x taps multiply-adds and the join (~15)
+                 # a sample
+                 lambda S, H=H, taps=taps, table=table: (
+                     S * es * (2 * B * C + 2 * H * C) + 80 * S
+                     + (0 if table is None else es * table.numel()),
+                     (20 + 8 * taps + 15) * B * C * S, F64_PEAK),
+                 hold=hold_delay(dt == f32), plain_streams=FORM_STREAMS)
+
+    for dt in (f64, f32):
+        noise(dt)
+        dither(dt)
+        stats(dt)
+        levels(dt)
+        mod_delay(dt)
+
+
+def batch_td_phase(records):
+    """Slice H2b on the card: process_batch on BATCH_STREAMS streams of
+    TD_BATCH_SECONDS s of noise and sines (each its own seed) of the
+    delivery chain (its dither enabled at 16 bits, as the CLI's s16 writer
+    enables it) and the modulated chain at each block of TD_BATCH_BLOCKS,
+    float64 and float32, numpy's generator seeded before each chain is
+    built (the effects draw their keys from it): each stream bit-equal to
+    process_array of that stream from the same live state on the card, and
+    the kernels a host step equal at S = 1 and S = 8 (each kernel one
+    launch for the 8). The batch's seconds of audio a wall second against
+    process_array's (one stream) are printed, after a short batch that
+    warms the chain; in float64 at 2048 also the batch's parts
+    (batch_parts) at S = 1 and 8. Each time-domain stream-axis row counts
+    the launches of the batches alone (the wrappers' counts set to 0 just
+    before a batch and read just after), and every row must have run."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_args
+    from dsp_tpu_torch.chain.chain import chain_set_dither_params
+    from dsp_tpu_torch.core.types import StreamInfo
+
+    for rec, _ in TD_FORMS:
+        records[rec]["launches"] = 0
+    S = BATCH_STREAMS
+
+    def add():
+        for rec, c in _td_counts().items():
+            records[rec]["launches"] += c
+
+    def run(words, B, dt, xs, label):
+        np.random.seed(SLICE_C_SEED)
+        chain = build_chain_from_args(words.split(), StreamInfo(FS, CHANNELS))
+        chain_set_dither_params(chain, 16, True)
+        cc = CompiledChain(chain, B, dtype=dt, device="cuda")
+        batch_check(cc, xs, label, _td_zero, add, parts=B == 2048 and dt == torch.float64)
+
+    print(f"process_batch of the delivery and modulated chains: {S} streams of "
+          f"{TD_BATCH_SECONDS} s")
+    n = TD_BATCH_SECONDS * FS
+    rng = np.random.default_rng(90)
+    t = np.arange(n)[:, None] / FS
+    xs = np.stack([0.2 * rng.standard_normal((n, CHANNELS))
+                   + 0.3 * np.sin(2 * np.pi * np.array([40.0, 1000.0]) * (1 + 0.1 * s) * t)
+                   for s in range(S)])
+    for label, words in (("delivery", DELIVERY), ("modulated", MODULATED)):
+        for B in TD_BATCH_BLOCKS:
+            for dt in (torch.float64, torch.float32):
+                run(words, B, dt, xs, f"{label} -b {B} {str(dt)[6:]}")
+    idle = [rec for rec, _ in TD_FORMS if records[rec]["launches"] == 0]
+    _require(f"time-domain stream-axis rows never launched in the batches: {idle}", not idle)
+    print("time-domain stream-axis launches in the batches: "
+          + ", ".join(f"{rec} {records[rec]['launches']}" for rec, _ in TD_FORMS))
+
+
 def batch_parts(cc, xs):
     """Wall seconds of the parts of a batch of xs (numpy [S, n, C], the
     streams; S = 1 is process_array's route) on cc from its live state:
@@ -5203,6 +5670,72 @@ def batch_parts(cc, xs):
     return t1 - t0, t2 - t1, time.perf_counter() - t2
 
 
+def _clone(tree):
+    """A state tree with every tensor copied."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def batch_check(cc, xs, label, zero, add, parts=False):
+    """process_batch(xs) (numpy [S, n, C]) on cc, after a short batch that
+    warms the chain (its tables at this block, the allocator's buffers are
+    not the batch's time), against process_array of each stream from the
+    same live state, on the card: each stream bit-equal, and the kernels a
+    host step (kernel_total) equal at S = 1 and S (each kernel one launch
+    for the S). zero() runs just before the batch and add() just after it
+    (the rows' launches of the batch alone). Prints the batch's seconds of
+    audio a wall second against process_array's and, with parts, where the
+    time goes (batch_parts) at S = 1 and S."""
+    import numpy as np
+    import torch
+
+    live = _clone(cc.states)
+    cc.process_batch(xs[:, :2 * cc.block_frames])
+    per, walls = [], []
+    steps, restore = _counting_steps()
+    try:
+        zero()
+        torch.cuda.synchronize()
+        k0, t0 = kernel_total(), time.perf_counter()
+        yb = cc.process_batch(xs)
+        walls.append(time.perf_counter() - t0)
+        per.append((kernel_total() - k0) / steps[0])
+        add()
+        for s in range(len(xs)):
+            cc.states = _clone(live)
+            steps[0] = 0
+            torch.cuda.synchronize()
+            k0, t0 = kernel_total(), time.perf_counter()
+            one = cc.process_array(xs[s])
+            walls.append(time.perf_counter() - t0)
+            per.append((kernel_total() - k0) / steps[0])
+            _require(f"process_batch {label}: stream {s} differs from process_array on the "
+                     f"card", np.array_equal(yb[s], one))
+    finally:
+        restore()
+    _require(f"process_batch {label}: {per[0]:.3f} kernels a host step at S={len(xs)}, "
+             f"{per[1]:.3f} at S=1", per[0] == per[1] and len(set(per[1:])) == 1)
+    if parts:
+        for n in (1, len(xs)):
+            cc.states = _clone(live)
+            p = batch_parts(cc, xs[:n])
+            print(f"  {label} S={n}: the batch's parts {p[0]:.3f} s in, {p[1]:.3f} s of steps, "
+                  f"{p[2]:.3f} s out")
+    secs = xs.shape[1] / cc.chain.istream.fs
+    print(f"  {label}: {walls[0]:.3f} s for the batch of {len(xs)} "
+          f"({len(xs) * secs / walls[0]:.1f} s of audio a second, "
+          f"{secs / walls[0]:.1f}x realtime a stream); process_array "
+          f"{np.mean(walls[1:]):.3f} s a stream ({secs / np.mean(walls[1:]):.1f}x); the "
+          f"batch {len(xs) * np.mean(walls[1:]) / walls[0]:.2f}x the streams' rate one by "
+          f"one; {per[0]:.3f} kernels a host step at S={len(xs)} and 1; every stream "
+          f"bit-equal")
+
+
 def batch_upmix_phase(records):
     """Slice H2a on the card: process_batch on BATCH_STREAMS streams of
     UPMIX_BATCH_SECONDS s of transients (each its own seed) of `matrix4
@@ -5230,51 +5763,18 @@ def batch_upmix_phase(records):
         records[rec]["launches"] = 0
     S = BATCH_STREAMS
 
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def add():
+        for rec, w in wrappers.items():
+            records[rec]["launches"] += w.launches
+
     def run(words, fs, B, dt, xs, label):
         cc = CompiledChain(build_chain_from_string(words, StreamInfo(fs, CHANNELS)), B,
                            dtype=dt, device="cuda")
-        # a short batch first: the chain's first use (its tables at this
-        # block, the allocator's buffers) is not the batch's time
-        cc.process_batch(xs[:, :2 * B])
-        per, walls = [], []
-        steps, restore = _counting_steps()
-        try:
-            for w in wrappers.values():
-                w.launches = 0
-            torch.cuda.synchronize()
-            k0, t0 = kernel_total(), time.perf_counter()
-            yb = cc.process_batch(xs)
-            walls.append(time.perf_counter() - t0)
-            per.append((kernel_total() - k0) / steps[0])
-            for rec, w in wrappers.items():
-                records[rec]["launches"] += w.launches
-            for s in range(len(xs)):
-                cc.reset()
-                steps[0] = 0
-                torch.cuda.synchronize()
-                k0, t0 = kernel_total(), time.perf_counter()
-                one = cc.process_array(xs[s])
-                walls.append(time.perf_counter() - t0)
-                per.append((kernel_total() - k0) / steps[0])
-                _require(f"process_batch {label}: stream {s} differs from process_array on the "
-                         f"card", np.array_equal(yb[s], one))
-        finally:
-            restore()
-        _require(f"process_batch {label}: {per[0]:.3f} kernels a host step at S={len(xs)}, "
-                 f"{per[1]:.3f} at S=1", per[0] == per[1] and len(set(per[1:])) == 1)
-        if fs == FS and dt == torch.float64:  # where the time goes, S = 1 against 8
-            for n in (1, len(xs)):
-                parts = batch_parts(cc, xs[:n])
-                print(f"  {label} S={n}: the batch's parts {parts[0]:.3f} s in, {parts[1]:.3f} s "
-                      f"of steps, {parts[2]:.3f} s out")
-        secs = xs.shape[1] / fs
-        print(f"  {label}: {walls[0]:.3f} s for the batch of {len(xs)} "
-              f"({len(xs) * secs / walls[0]:.1f} s of audio a second, "
-              f"{secs / walls[0]:.1f}x realtime a stream); process_array "
-              f"{np.mean(walls[1:]):.3f} s a stream ({secs / np.mean(walls[1:]):.1f}x); the "
-              f"batch {len(xs) * np.mean(walls[1:]) / walls[0]:.2f}x the streams' rate one by "
-              f"one; {per[0]:.3f} kernels a host step at S={len(xs)} and 1; every stream "
-              f"bit-equal")
+        batch_check(cc, xs, label, zero, add, parts=fs == FS and dt == torch.float64)
         return cc
 
     print(f"process_batch of the upmixes: {S} streams of {UPMIX_BATCH_SECONDS} s of transients")
@@ -5773,9 +6273,40 @@ def main():
                 ("m4mb_audio_f32@S", "m4mb_audio",
                  "dsp_tpu/effects/matrix4_mb.py:569,778 in float32",
                  "float32, B=2048, v4, tiles of 256 of each stream"),
+            )) + tuple(
+            # slice H2b's: the time-domain effects' kernels, S streams in one
+            # launch, where dsp_tpu vmaps the step of process_batch
+            (rec, src, f"{replaces}, vmapped over streams (dsp_tpu/chain/chain.py:778)",
+             f"S={TIMED_STREAMS} streams (ms_s1, device_ms_s1: one stream), {at}")
+            for rec, src, replaces, at in (
+                ("tpdf_noise@S", "tpdf", "dsp_tpu/effects/noise.py:51", "B=2048, C=2"),
+                ("tpdf_noise_f32@S", "tpdf", "dsp_tpu/effects/noise.py:51 in float32",
+                 "float32, B=2048, C=2"),
+                ("tpdf_dither@S", "tpdf", "dsp_tpu/effects/dither.py:107",
+                 "lipshitz, B=2048, C=2, a block a channel group of each stream"),
+                ("tpdf_dither_f32@S", "tpdf", "dsp_tpu/effects/dither.py:107 in float32",
+                 "float32, lipshitz, B=2048, C=2, a block a channel group of each stream"),
+                ("stats_step@S", "stats", "dsp_tpu/effects/stats.py:159,197,266",
+                 "-i, B=2048, C=2, a block a channel of each stream"),
+                ("stats_step_f32@S", "stats", "dsp_tpu/effects/stats.py:159,197,266 in float32",
+                 "float32, -i, B=2048, C=2, a block a channel of each stream"),
+                ("stats_step_plain@S", "stats", "dsp_tpu/effects/stats.py:159,266 (plain mode)",
+                 "plain, B=2048, C=2, tiles of each stream"),
+                ("stats_step_plain_f32@S", "stats",
+                 "dsp_tpu/effects/stats.py:159,266 (plain mode) in float32",
+                 "float32, plain, B=2048, C=2, tiles of each stream"),
+                ("levels_step@S", "levels", "dsp_tpu/effects/levels.py:62",
+                 "B=2048, C=2, tiles of each stream"),
+                ("levels_step_f32@S", "levels", "dsp_tpu/effects/levels.py:62 in float32",
+                 "float32, B=2048, C=2, tiles of each stream"),
+                ("mod_delay@S", "mod_delay", "dsp_tpu/effects/delay.py:292,337",
+                 "q2 -M, 1 kHz, B=2048, C=2, tiles of each stream"),
+                ("mod_delay_f32@S", "mod_delay", "dsp_tpu/effects/delay.py:292,337 in float32",
+                 "float32, q2 -M, 1 kHz, B=2048, C=2, tiles of each stream"),
             ))
     }
     tmp = ROOT / ".smoke_tmp" / "run"  # removed at the end; scratch scripts may sit beside it
+    f32refs = None
     try:
         print(card_info())
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -5807,11 +6338,15 @@ def main():
         timed(mb_golden_check)
         tmp.mkdir(parents=True, exist_ok=True)
         f1m, f4k, kept = timed(main_path, records, SECONDS, tmp)
+        f32refs = float32_time_domain_refs(tmp)
         timed(split_phase, records, tmp, kept, SECONDS * FS, SECONDS)
         timed(batch_upmix_phase, records)
+        timed(batch_td_phase, records)
         timed(float32_phase, records, tmp, kept)
         engine_tick_line(records)
-        timed(float32_time_domain_cli, records, tmp)
+        timed(float32_time_domain_cli, records, tmp, f32refs)
+        left = f32refs.close()
+        _require(f"float32_time_domain_cli: {left} CPU runs were computed for no run", not left)
         timed(nupols_no_sync, f1m)
         timed(delivery_no_sync)
         timed(matrix4_no_sync)
@@ -5822,6 +6357,8 @@ def main():
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
+        if f32refs is not None:
+            f32refs.close()
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -705,8 +705,7 @@ class CompiledChain:
 
     def split_safe(self):
         """True when every effect tolerates zero-state lookback priming
-        (Effect.split_safe): the effects that take the stream axis, which
-        process_array_split and process_batch require."""
+        (Effect.split_safe), which process_array_split requires."""
         return all(getattr(e, "split_safe", True) for e in self.chain.effects)
 
     def split_lookback_frames(self):
@@ -723,9 +722,6 @@ class CompiledChain:
 
     def _unsafe_names(self):
         return [e.name for e in self.chain.effects if not getattr(e, "split_safe", True)]
-
-    def _no_axis_names(self):
-        return [e.name for e in self.chain.effects if not getattr(e, "stream_axis", True)]
 
     def _stream_states(self, states, S):
         """states (one a runtime effect) with a leading stream axis of S:
@@ -758,16 +754,12 @@ class CompiledChain:
 
         Each stream starts from the live state (broadcast over the stream
         axis; the live state is neither consumed nor advanced), so stream s
-        is process_array(xs[s]) on this chain as it stands. Every block of
-        the S streams is one step, each kernel one launch for the S; as in
-        dsp_tpu, whose batch steps _step_fn_raw, no host_update runs (the
-        upmixes' status lines). Raises ChainError when the chain holds an
-        effect without a stream axis (Effect.stream_axis: the meters and
-        the PRNG-driven effects)."""
-        bad = self._no_axis_names()
-        if bad:
-            raise ChainError(f"process_batch is not yet ported for effects without a stream "
-                             f"axis: {', '.join(bad)}")
+        is process_array(xs[s]) on this chain as it stands: every stream
+        draws its noise from the live key, and stats counts to the live
+        limit. Every block of the S streams is one step, each kernel one
+        launch for the S; as in dsp_tpu, whose batch steps _step_fn_raw and
+        drops the states, no host hook runs (the meters' and upmixes' status
+        lines, stats' table) and the streams' states are not kept."""
         xs = np.asarray(xs, dtype=np.float64)
         S, n_in, c_in = xs.shape
         pad = self.chain.drain_frames if drain else 0

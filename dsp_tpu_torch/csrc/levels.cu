@@ -28,6 +28,14 @@
 // unrounded, so each meter rounds once, where it is stored. dsp_tpu float32
 // scans in float32; the two differ by float32 rounding, not by decisions
 // (a meter decides nothing).
+//
+// The stream axis (batched processing): S independent streams in one
+// launch, xs [S, B, n], the meters [S, n] and out [3, S, n]. A stream keeps
+// the partition of a one-stream launch (its tiles follow its own B and n,
+// never S·n), and its look-back slots are its own (stream s's tile t of
+// group g at s·ntiles·groups + t·groups + g), so it gets the same bits.
+// The tickets run tile-major (tile t of stream s, group g is ticket
+// (t·S + s)·groups + g), so a block only waits on earlier tickets.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -82,17 +90,27 @@ template <typename T>
 __global__ void levels_kernel(const T* __restrict__ avg_in, const T* __restrict__ peak_in,
                               const T* __restrict__ bp_in, T* __restrict__ out,
                               const T* __restrict__ xs, double g, int B, int n, int groups,
-                              int ntiles, lookback::Scratch lb) {
+                              int ntiles, int S, lookback::Scratch lb) {
     __shared__ Smem<T> sh;
     const unsigned full = 0xffffffffu;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
     const double a = 1.0 - g;
     lookback::begin(lb, sh.tk);
     const unsigned ticket = sh.tk[0], tag = sh.tk[1];
-    const int tile = (int)(ticket / groups), grp = (int)(ticket % groups);
+    const int tile = (int)(ticket / ((unsigned)groups * S));
+    const int st = (int)(ticket / groups % S), grp = (int)(ticket % groups);
     const int c0 = grp * kGroup, ng = min(kGroup, n - c0);
     const int t0 = tile * kTile, rows = min(kTile, B - t0);
-    const long long nslots = (long long)ntiles * groups;
+    // the stream's slots: its tile's at slot, every earlier one's `groups`
+    // apart from base; the second publications nslots on
+    const long long nslots = (long long)ntiles * groups * S;
+    const long long base = (long long)st * ntiles * groups + grp;
+    const long long slot = base + (long long)tile * groups;
+    avg_in += (size_t)st * n;
+    peak_in += (size_t)st * n;
+    bp_in += (size_t)st * n;
+    out += (size_t)st * n;
+    xs += (size_t)st * B * n;
     // the slab
     tile_slab::load(sh.x, xs, n, groups, c0, ng, t0, rows);
     if (threadIdx.x < kGroup) {
@@ -131,9 +149,9 @@ __global__ void levels_kernel(const T* __restrict__ avg_in, const T* __restrict_
             sh.pub[2 * kGroup + c] = f.c;
         }
     }
-    if (tile < ntiles - 1) lookback::publish(lb, ticket, tag, sh.pub, kSlot);
+    if (tile < ntiles - 1) lookback::publish(lb, slot, tag, sh.pub, kSlot);
     // the carried value through every earlier tile's maps, in tile order
-    lookback::carry_max_affine(lb, grp, groups, tile, tag, kGroup, sh.v, sh.buf);
+    lookback::carry_max_affine(lb, base, groups, tile, tag, kGroup, sh.v, sh.buf);
     // rerun each segment from its start; the largest m of the tile
     for (int c = warp; c < ng; c += nw) {
         const double pa = sh.pre[c][0][lane], pb = sh.pre[c][1][lane], pc = sh.pre[c][2][lane];
@@ -158,24 +176,25 @@ __global__ void levels_kernel(const T* __restrict__ avg_in, const T* __restrict_
         }
     }
     if (tile < ntiles - 1) {
-        lookback::publish(lb, nslots + ticket, tag, sh.pub, kSlot);
+        lookback::publish(lb, nslots + slot, tag, sh.pub, kSlot);
         lookback::end(lb);
         return;
     }
     // the group's last tile: the end state, and block_peak over every tile
     for (int j = threadIdx.x; j < tile; j += blockDim.x)
-        lookback::wait(lb, nslots + (long long)j * groups + grp, tag);
+        lookback::wait(lb, nslots + base + (long long)j * groups, tag);
     __syncthreads();
+    const size_t row = (size_t)S * n;  // out's rows: avg, peak, block_peak
     for (int c = warp; c < ng; c += nw) {
         double bp = lane == 0 ? fmax((double)bp_in[c0 + c], sh.pub[c]) : 0.0;
 #pragma unroll 4
         for (int j = lane; j < tile; j += 32)
-            bp = fmax(bp, __ldcg(lb.agg + (nslots + (long long)j * groups + grp) * kSlot + c));
+            bp = fmax(bp, __ldcg(lb.agg + (nslots + base + (long long)j * groups) * kSlot + c));
         for (int d = 16; d > 0; d >>= 1) bp = fmax(bp, __shfl_xor_sync(full, bp, d));
         if (lane == 0) {
             out[c0 + c] = (T)sh.v[c];
-            out[n + c0 + c] = (T)sh.v[kGroup + c];
-            out[2 * n + c0 + c] = (T)bp;
+            out[row + c0 + c] = (T)sh.v[kGroup + c];
+            out[2 * row + c0 + c] = (T)bp;
         }
     }
     lookback::end(lb);
@@ -187,17 +206,19 @@ unsigned long long levels_launches = 0;
 
 template <typename T>
 int launch_levels(const T* avg_in, const T* peak_in, const T* bp_in, T* out, const T* xs,
-                  double g, int B, int n, unsigned* flags, long long flag_slots, double* agg,
-                  long long agg_doubles, void* stream) {
-    if (B <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+                  double g, int B, int n, int S, unsigned* flags, long long flag_slots,
+                  double* agg, long long agg_doubles, void* stream) {
+    if (B <= 0 || n <= 0 || S <= 0) return (int)cudaErrorInvalidValue;
+    // a stream's partition: its tiles and groups follow its own B and n
     const int groups = (n + kGroup - 1) / kGroup, ntiles = (B + kTile - 1) / kTile;
-    const long long nslots = (long long)ntiles * groups;
+    const long long nslots = (long long)ntiles * groups * S;
     if (flags == nullptr || agg == nullptr || 2 * nslots > flag_slots ||
-        2 * nslots * kSlot > agg_doubles)
+        2 * nslots * kSlot > agg_doubles || nslots > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
     levels_kernel<T><<<(unsigned)nslots, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-        avg_in, peak_in, bp_in, out, xs, g, B, n, groups, ntiles, lookback::carve(flags, agg));
+        avg_in, peak_in, bp_in, out, xs, g, B, n, groups, ntiles, S,
+        lookback::carve(flags, agg));
     const cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess) ++levels_launches;
     return (int)err;
@@ -205,26 +226,26 @@ int launch_levels(const T* avg_in, const T* peak_in, const T* bp_in, T* out, con
 
 }  // namespace
 
-// One block of the meters: avg_in, peak_in, bp_in [n]; out [3, n] the new
-// avg, peak and block_peak as rows; xs [B, n]; flags (flag_slots slots
-// after its head) and agg (agg_doubles long) the look-back scratch of
-// csrc/lookback.cuh. Returns cudaGetLastError() after the launch (0 on
+// One block of the meters of S streams: avg_in, peak_in, bp_in [S, n]; out
+// [3, S, n] the new avg, peak and block_peak as rows; xs [S, B, n]; flags
+// (flag_slots slots after its head) and agg (agg_doubles long) the
+// look-back scratch of csrc/lookback.cuh. Returns cudaGetLastError() after the launch (0 on
 // success). The caller (dsp_tpu_torch/ops/time_domain.py) checks shapes,
 // dtypes and contiguity.
 extern "C" int dsp_levels_f64(const double* avg_in, const double* peak_in, const double* bp_in,
-                              double* out, const double* xs, double g, int B, int n,
+                              double* out, const double* xs, double g, int B, int n, int S,
                               unsigned* flags, long long flag_slots, double* agg,
                               long long agg_doubles, void* stream) {
-    return launch_levels<double>(avg_in, peak_in, bp_in, out, xs, g, B, n, flags, flag_slots, agg,
-                                 agg_doubles, stream);
+    return launch_levels<double>(avg_in, peak_in, bp_in, out, xs, g, B, n, S, flags, flag_slots,
+                                 agg, agg_doubles, stream);
 }
 
 extern "C" int dsp_levels_f32(const float* avg_in, const float* peak_in, const float* bp_in,
-                              float* out, const float* xs, double g, int B, int n, unsigned* flags,
-                              long long flag_slots, double* agg, long long agg_doubles,
-                              void* stream) {
-    return launch_levels<float>(avg_in, peak_in, bp_in, out, xs, g, B, n, flags, flag_slots, agg,
-                                agg_doubles, stream);
+                              float* out, const float* xs, double g, int B, int n, int S,
+                              unsigned* flags, long long flag_slots, double* agg,
+                              long long agg_doubles, void* stream) {
+    return launch_levels<float>(avg_in, peak_in, bp_in, out, xs, g, B, n, S, flags, flag_slots,
+                                agg, agg_doubles, stream);
 }
 
 extern "C" unsigned long long dsp_levels_launches() { return levels_launches; }

@@ -57,6 +57,14 @@
 // (Hermite or the four polyphase dot products and their B-spline) runs in
 // float64 registers on the float32 line and table and rounds to float32
 // once, when stored.
+//
+// The stream axis (batched processing): S independent streams in one
+// launch, x and y [S, B, C], the key [S, 2], the knot window [S, 4, lanes],
+// the phase [S], the line and the carried line [S, H, C] (sel and the
+// table one for all; n_new and step_b the host's, the same for every
+// stream, whose blocks are all B long). A stream is the grid's y index and
+// runs the tiles of a one-stream launch on its own key, phase, knots and
+// line, every operation in the same order: the same bits.
 
 #include <cuda_runtime.h>
 
@@ -150,6 +158,19 @@ mod_delay_kernel(const uint32_t* __restrict__ key_in, uint32_t* __restrict__ key
                  int n_phases, int taps, int reach, int rows_cap, int staged, double depth,
                  double step, double step_b) {
     constexpr bool f32 = std::is_same<T, float>::value;
+    {   // the stream: the grid's y index
+        const int s = blockIdx.y;
+        key_in += 2 * s;
+        key_out += 2 * s;
+        y_in += (size_t)s * 4 * lanes;
+        y_out += (size_t)s * 4 * lanes;
+        t_in += s;
+        t_out += s;
+        buf += (size_t)s * H * C;
+        line_out += (size_t)s * H * C;
+        x += (size_t)s * B * C;
+        out += (size_t)s * B * C;
+    }
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* diffs = reinterpret_cast<T*>(smem_raw);    // [rows_cap][6][lanes]
     T* knots = diffs + (size_t)rows_cap * NOISE_N * lanes;  // [rows_cap][lanes]
@@ -306,9 +327,10 @@ template <typename T>
 int launch_mod_delay(const uint32_t* key_in, uint32_t* key_out, const T* y_in, T* y_out,
                      const T* t_in, T* t_out, const T* buf, const T* x, T* out, T* line_out,
                      const bool* sel, const T* table, int H, int B, int C, int lanes, int n_new,
-                     int n_phases, int taps, double depth, double step, double step_b,
+                     int n_phases, int taps, double depth, double step, double step_b, int S,
                      void* stream) {
     if (B <= 0 || C <= 0 || H <= 0 || lanes <= 0 || n_new <= 0 || step < 0 || depth < 0 ||
+        S <= 0 || S > 65535 ||
         (table != nullptr && (n_phases <= 0 || taps <= 0)))
         return (int)cudaErrorInvalidValue;
     if (table == nullptr) n_phases = taps = 0;
@@ -331,7 +353,7 @@ int launch_mod_delay(const uint32_t* key_in, uint32_t* key_out, const T* y_in, T
         if (err != cudaSuccess) return (int)err;
         sized = smem;
     }
-    mod_delay_kernel<T><<<(B + kTile - 1) / kTile, kThreads, smem,
+    mod_delay_kernel<T><<<dim3((B + kTile - 1) / kTile, S), kThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
         key_in, key_out, y_in, y_out, t_in, t_out, buf, x, out, line_out, sel, table, H, B, C,
         lanes, n_new, n_phases, taps, reach, rows_cap, staged, depth, step, step_b);
@@ -345,17 +367,20 @@ int launch_mod_delay(const uint32_t* key_in, uint32_t* key_out, const T* y_in, T
 // Returns cudaGetLastError() after the launch (0 on success). line_out: the
 // carried line [H, C], a tensor other than buf; table: null for q0, else
 // [n_phases, taps]; all of the sample type. step_b = step·B, as the host
-// computes it. The caller (dsp_tpu_torch/ops/time_domain.py) checks shapes,
-// dtypes, contiguity and that the read stays inside the line.
+// computes it. S streams: each tensor but sel and table led by S (the knot
+// window [S, 4, lanes], the phase [S]). The caller
+// (dsp_tpu_torch/ops/time_domain.py) checks shapes, dtypes, contiguity and
+// that the read stays inside the line.
 extern "C" int dsp_mod_delay_f64(const uint32_t* key_in, uint32_t* key_out, const double* y_in,
                                  double* y_out, const double* t_in, double* t_out,
                                  const double* buf, const double* x, double* out,
                                  double* line_out, const bool* sel, const double* table, int H,
                                  int B, int C, int lanes, int n_new, int n_phases, int taps,
-                                 double depth, double step, double step_b, void* stream) {
+                                 double depth, double step, double step_b, int S,
+                                 void* stream) {
     return launch_mod_delay<double>(key_in, key_out, y_in, y_out, t_in, t_out, buf, x, out,
                                     line_out, sel, table, H, B, C, lanes, n_new, n_phases, taps,
-                                    depth, step, step_b, stream);
+                                    depth, step, step_b, S, stream);
 }
 
 extern "C" int dsp_mod_delay_f32(const uint32_t* key_in, uint32_t* key_out, const float* y_in,
@@ -363,10 +388,10 @@ extern "C" int dsp_mod_delay_f32(const uint32_t* key_in, uint32_t* key_out, cons
                                  const float* x, float* out, float* line_out, const bool* sel,
                                  const float* table, int H, int B, int C, int lanes, int n_new,
                                  int n_phases, int taps, double depth, double step,
-                                 double step_b, void* stream) {
+                                 double step_b, int S, void* stream) {
     return launch_mod_delay<float>(key_in, key_out, y_in, y_out, t_in, t_out, buf, x, out,
                                    line_out, sel, table, H, B, C, lanes, n_new, n_phases, taps,
-                                   depth, step, step_b, stream);
+                                   depth, step, step_b, S, stream);
 }
 
 extern "C" unsigned long long dsp_mod_delay_launches() { return mod_launches; }

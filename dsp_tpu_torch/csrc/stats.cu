@@ -64,6 +64,18 @@
 // are added to the carried sums (dsp_tpu float32 sums in float32, in
 // XLA's order): the printed DC offset and RMS agree to their last digit
 // or one unit in it.
+//
+// The stream axis (batched processing): S independent streams in one
+// launch, xs [S, B, n] and every leaf of the state with a leading S
+// (samples and limit [S]); the new state's float leaves are the rows of
+// fout [rows, S, n] and its matrices after them ([S, 64, n], [S, 6, n],
+// [S, 9, n] with -i), its int64 leaves those of iout [2, S, n], then
+// samples' [S]. A stream keeps the partition of a one-stream launch: plain
+// mode's tiles follow its own B and n, never S·n, its look-back slots are
+// its own (stream s's tile t of group g at s·ntiles·groups + t·groups + g)
+// and its tickets run tile-major ((t·S + s)·groups + g), so a block only
+// waits on earlier tickets; -i runs a block a channel of each stream. So
+// each stream gets the bits of a one-stream launch.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -82,6 +94,16 @@ struct StatsState {
     T *m, *y, *z;
     int* nctr;
     T *tmin, *tmax;
+
+    // stream s's leaves, each stream's [n] rows n apart, its m, y and z
+    // [64, n], [6, n], [9, n] apart and its samples one apart (the state in,
+    // and the new state's buffers alike)
+    __host__ __device__ StatsState at(int s, int n) const {
+        const size_t r = (size_t)s * n;
+        return {sum + r, sum_sq + r, mn + r, mx + r, peak + r, peak_count + r,
+                peak_frame + r, samples + s, m + 64 * r, y + 6 * r, z + 9 * r, nctr + r,
+                tmin + r, tmax + r};
+    }
 };
 
 namespace {
@@ -211,20 +233,39 @@ __device__ __forceinline__ void pk_combine(T& pk, int& cnt, int& first, T opk, i
 template <typename T>
 __global__ void stats_plain_kernel(PlainIn<T> in, T* __restrict__ fout, long long* __restrict__ iout,
                                    const long long* __restrict__ limit, const T* __restrict__ xs,
-                                   int B, int n, int groups, int ntiles, lookback::Scratch lb) {
+                                   int B, int n, int groups, int ntiles, int S,
+                                   lookback::Scratch lb) {
     __shared__ PlainScratch<T> sh;
     const unsigned full = 0xffffffffu;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-    const long long s0 = *in.samples, lim = *limit;
-    const long long left = lim - s0;
-    const int n_act = left <= 0 ? 0 : (left < B ? (int)left : B);
     lookback::begin(lb, sh.tk);
     const unsigned ticket = sh.tk[0], tag = sh.tk[1];
-    const int tile = (int)(ticket / groups), grp = (int)(ticket % groups);
+    const int tile = (int)(ticket / ((unsigned)groups * S));
+    const int st = (int)(ticket / groups % S), grp = (int)(ticket % groups);
+    // the stream's leaves; fout's and iout's rows S·n apart
+    const size_t r0 = (size_t)st * n, rs = (size_t)S * n;
+    in.sum += r0;
+    in.sum_sq += r0;
+    in.mn += r0;
+    in.mx += r0;
+    in.peak += r0;
+    in.peak_count += r0;
+    in.peak_frame += r0;
+    in.samples += st;
+    fout += r0;
+    xs += r0 * B;
+    const long long s0 = *in.samples, lim = limit[st];
+    const long long left = lim - s0;
+    const int n_act = left <= 0 ? 0 : (left < B ? (int)left : B);
     const int c0 = grp * kGroup, ng = min(kGroup, n - c0);
     const int t0 = tile * kTile, rows = max(0, min(kTile, n_act - t0));
-    const long long nslots = (long long)ntiles * groups;
-    if (ticket == 0 && threadIdx.x == 0) iout[2 * n] = s0 + B < lim ? s0 + B : lim;
+    // the stream's slots: its tile's at slot, every earlier one's `groups`
+    // apart from base; the second publications nslots on
+    const long long nslots = (long long)ntiles * groups * S;
+    const long long base = (long long)st * ntiles * groups + grp;
+    const long long slot = base + (long long)tile * groups;
+    if (tile == 0 && grp == 0 && threadIdx.x == 0) iout[2 * rs + st] = s0 + B < lim ? s0 + B : lim;
+    iout += r0;
     // 1. the slab
     tile_slab::load(sh.x, xs, n, groups, c0, ng, t0, rows);
     __syncthreads();
@@ -248,15 +289,15 @@ __global__ void stats_plain_kernel(PlainIn<T> in, T* __restrict__ fout, long lon
             sh.lim[kGroup + c] = mx;
         }
     }
-    lookback::publish(lb, ticket, tag, sh.pub, kPubWidth);
+    lookback::publish(lb, slot, tag, sh.pub, kPubWidth);
     // 3. the running min and max before the tile
-    for (int j = threadIdx.x; j < tile; j += blockDim.x) lookback::wait(lb, (long long)j * groups + grp, tag);
+    for (int j = threadIdx.x; j < tile; j += blockDim.x) lookback::wait(lb, base + (long long)j * groups, tag);
     __syncthreads();
     for (int c = warp; c < ng; c += nw) {
         T pmn = in.mn[c0 + c], pmx = in.mx[c0 + c];
 #pragma unroll 4
         for (int j = lane; j < tile; j += 32) {
-            const double* a = lb.agg + ((long long)j * groups + grp) * kPubWidth;
+            const double* a = lb.agg + (base + (long long)j * groups) * kPubWidth;
             pmn = jmin(pmn, (T)__ldcg(a + c));
             pmx = jmax(pmx, (T)__ldcg(a + kGroup + c));
         }
@@ -320,13 +361,13 @@ __global__ void stats_plain_kernel(PlainIn<T> in, T* __restrict__ fout, long lon
         }
     }
     if (tile < ntiles - 1) {
-        lookback::publish(lb, nslots + ticket, tag, sh.pub, kPubWidth);
+        lookback::publish(lb, nslots + slot, tag, sh.pub, kPubWidth);
         lookback::end(lb);
         return;
     }
     // 5. the group's last tile: every tile's results in tile order
     for (int j = threadIdx.x; j < tile; j += blockDim.x)
-        lookback::wait(lb, nslots + (long long)j * groups + grp, tag);
+        lookback::wait(lb, nslots + base + (long long)j * groups, tag);
     __syncthreads();
     double sum = 0.0, sq = 0.0;
     T pk = 0;
@@ -339,7 +380,7 @@ __global__ void stats_plain_kernel(PlainIn<T> in, T* __restrict__ fout, long lon
         for (int q = threadIdx.x; q < m * kPubWidth; q += blockDim.x) {
             const int j = j0 + q / kPubWidth;
             sh.look[q] = j == tile ? sh.pub[q % kPubWidth]
-                                   : __ldcg(lb.agg + (nslots + (long long)j * groups + grp) * kPubWidth +
+                                   : __ldcg(lb.agg + (nslots + base + (long long)j * groups) * kPubWidth +
                                             q % kPubWidth);
         }
         __syncthreads();
@@ -358,13 +399,13 @@ __global__ void stats_plain_kernel(PlainIn<T> in, T* __restrict__ fout, long lon
         const bool higher = peak > pk0;
         const long long bc = pk == peak ? cnt : 0;
         fout[ch] = (T)__dadd_rn((double)in.sum[ch], sum);
-        fout[n + ch] = (T)__dadd_rn((double)in.sum_sq[ch], sq);
+        fout[rs + ch] = (T)__dadd_rn((double)in.sum_sq[ch], sq);
         // the carried and earlier tiles' min and max, then this tile's
-        fout[2 * n + ch] = jmin(sh.lim[2 * kGroup + c], sh.lim[c]);
-        fout[3 * n + ch] = jmax(sh.lim[3 * kGroup + c], sh.lim[kGroup + c]);
-        fout[4 * n + ch] = peak;
+        fout[2 * rs + ch] = jmin(sh.lim[2 * kGroup + c], sh.lim[c]);
+        fout[3 * rs + ch] = jmax(sh.lim[3 * kGroup + c], sh.lim[kGroup + c]);
+        fout[4 * rs + ch] = peak;
         iout[ch] = higher ? bc : in.peak_count[ch] + bc;
-        iout[n + ch] = higher ? s0 + first : in.peak_frame[ch];
+        iout[rs + ch] = higher ? s0 + first : in.peak_frame[ch];
     }
     lookback::end(lb);
 }
@@ -676,8 +717,11 @@ __global__ void stats_interp_kernel(StatsState<T> in, StatsState<T> out,
                                     const long long* __restrict__ limit, const T* __restrict__ xs,
                                     const T* __restrict__ hc, int B, int n) {
     __shared__ InterpScratch<T> sh;
-    const int c = blockIdx.x;  // a block a channel
-    const long long s0 = *in.samples, lim = *limit;
+    const int c = blockIdx.x, st = blockIdx.y;  // a block a channel of a stream
+    in = in.at(st, n);
+    out = out.at(st, n);
+    xs += (size_t)st * B * n;
+    const long long s0 = *in.samples, lim = limit[st];
     if (c == 0 && threadIdx.x == 0) *out.samples = s0 + B < lim ? s0 + B : lim;
     if (c >= n) return;
     const long long left = lim - s0;
@@ -698,38 +742,42 @@ struct StatsPtrs {
 
 template <typename T>
 int launch_stats(const StatsPtrs& p, T* fout, long long* iout, int* nctr_out,
-                 const long long* limit, const T* xs, const T* hc, int B, int n,
+                 const long long* limit, const T* xs, const T* hc, int B, int n, int S,
                  unsigned* flags, long long flag_slots, double* agg, long long agg_doubles,
                  void* stream) {
-    if (B <= 0 || n < 0) return (int)cudaErrorInvalidValue;
+    if (B <= 0 || n < 0 || S <= 0 || S > 65535) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (hc == nullptr) {
-        // one launch: tiles of kTile samples of kGroup channels; no channel
-        // selected, one block that writes samples'
+        // one launch: tiles of kTile samples of kGroup channels of each
+        // stream; no channel selected, one block a stream that writes its
+        // samples'
         const int groups = n > 0 ? (n + kGroup - 1) / kGroup : 1;
         const int ntiles = n > 0 ? (B + kTile - 1) / kTile : 1;
-        const long long nslots = (long long)ntiles * groups;
+        const long long nslots = (long long)ntiles * groups * S;
         if (flags == nullptr || agg == nullptr || 2 * nslots > flag_slots ||
-            2 * nslots * kPubWidth > agg_doubles)
+            2 * nslots * kPubWidth > agg_doubles || nslots > 0x7fffffffLL)
             return (int)cudaErrorInvalidValue;
         const PlainIn<T> in = {(const T*)p.sum, (const T*)p.sum_sq, (const T*)p.mn, (const T*)p.mx,
                                (const T*)p.peak, (const long long*)p.peak_count,
                                (const long long*)p.peak_frame, (const long long*)p.samples};
         stats_plain_kernel<T><<<(unsigned)nslots, kPlainThreads, 0, st>>>(
-            in, fout, iout, limit, xs, B, n, groups, ntiles, lookback::carve(flags, agg));
+            in, fout, iout, limit, xs, B, n, groups, ntiles, S, lookback::carve(flags, agg));
     } else {
-        // -i: a block (two warps) a channel; one block when no channel is
-        // selected. The outputs are rows of fout (the five plain leaves,
-        // tmin, tmax, m [64], y [6], z [9]), iout (peak_count, peak_frame,
-        // samples) and nctr_out
+        // -i: a block (two warps) a channel of a stream; one block a stream
+        // when no channel is selected. The outputs are rows of fout, S·n
+        // apart (the five plain leaves, tmin, tmax), then m [S, 64, n], y
+        // [S, 6, n] and z [S, 9, n]; iout (peak_count, peak_frame rows, then
+        // samples [S]) and nctr_out [S, n]
+        const size_t rs = (size_t)S * n;
         StatsState<T> in = {(T*)p.sum, (T*)p.sum_sq, (T*)p.mn, (T*)p.mx, (T*)p.peak,
                             (long long*)p.peak_count, (long long*)p.peak_frame,
                             (long long*)p.samples, (T*)p.m, (T*)p.y, (T*)p.z, (int*)p.nctr,
                             (T*)p.tmin, (T*)p.tmax};
-        StatsState<T> out = {fout, fout + n, fout + 2 * n, fout + 3 * n, fout + 4 * n, iout,
-                             iout + n, iout + 2 * n, fout + 7 * n, fout + 71 * n, fout + 77 * n,
-                             nctr_out, fout + 5 * n, fout + 6 * n};
-        stats_interp_kernel<T><<<n > 0 ? n : 1, 64, 0, st>>>(in, out, limit, xs, hc, B, n);
+        StatsState<T> out = {fout, fout + rs, fout + 2 * rs, fout + 3 * rs, fout + 4 * rs, iout,
+                             iout + rs, iout + 2 * rs, fout + 7 * rs, fout + 71 * rs,
+                             fout + 77 * rs, nctr_out, fout + 5 * rs, fout + 6 * rs};
+        stats_interp_kernel<T><<<dim3(n > 0 ? n : 1, S), 64, 0, st>>>(in, out, limit, xs, hc, B,
+                                                                       n);
     }
     const cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess) ++stats_launches;
@@ -752,12 +800,14 @@ extern "C" int dsp_stats_set_insert_f32(const float* hc, void* stream) {
                                         static_cast<cudaStream_t>(stream));
 }
 
-// One block of stats. The state in, a pointer a leaf (sum, sum_sq, min, max,
-// peak, peak_count, peak_frame, samples; with -i also m, y, z, nctr, tmin,
-// tmax, else null); the state out as the rows of two buffers, fout [5, n]
-// (-i: [86, n]: sum, sum_sq, min, max, peak, tmin, tmax, m, y, z) of the
-// sample type and iout [2n + 1] of int64 (peak_count, peak_frame, samples),
-// and nctr_out [n] (-i); limit the 0-d int64 limit; hc null in plain mode,
+// One block of stats on S streams (S = 1: the shapes below without their
+// S). The state in, a pointer a leaf (sum, sum_sq, min, max, peak,
+// peak_count, peak_frame, samples; with -i also m, y, z, nctr, tmin, tmax,
+// else null), each led by S; the state out as the rows of two buffers,
+// fout [5, S, n] (-i: [7, S, n] sum, sum_sq, min, max, peak, tmin, tmax,
+// then m [S, 64, n], y [S, 6, n], z [S, 9, n]) of the sample type and iout
+// [2, S, n] of int64 (peak_count, peak_frame), then samples [S], and
+// nctr_out [S, n] (-i); limit the int64 limit [S]; hc null in plain mode,
 // else [67]: the insert template H[64], then the direct taps r0..r2; flags
 // and agg the look-back scratch of csrc/lookback.cuh (plain mode). Returns
 // cudaGetLastError() after the launch (0 on success). The caller
@@ -767,12 +817,12 @@ extern "C" int dsp_stats_f64(const void* sum, const void* sum_sq, const void* mn
                              const void* samples, const void* m, const void* y, const void* z,
                              const void* nctr, const void* tmin, const void* tmax, double* fout,
                              long long* iout, int* nctr_out, const long long* limit,
-                             const double* xs, const double* hc, int B, int n, unsigned* flags,
-                             long long flag_slots, double* agg, long long agg_doubles,
-                             void* stream) {
+                             const double* xs, const double* hc, int B, int n, int S,
+                             unsigned* flags, long long flag_slots, double* agg,
+                             long long agg_doubles, void* stream) {
     const StatsPtrs p = {sum, sum_sq, mn, mx, peak, peak_count, peak_frame, samples,
                          m, y, z, nctr, tmin, tmax};
-    return launch_stats<double>(p, fout, iout, nctr_out, limit, xs, hc, B, n, flags, flag_slots,
+    return launch_stats<double>(p, fout, iout, nctr_out, limit, xs, hc, B, n, S, flags, flag_slots,
                                 agg, agg_doubles, stream);
 }
 
@@ -781,12 +831,12 @@ extern "C" int dsp_stats_f32(const void* sum, const void* sum_sq, const void* mn
                              const void* samples, const void* m, const void* y, const void* z,
                              const void* nctr, const void* tmin, const void* tmax, float* fout,
                              long long* iout, int* nctr_out, const long long* limit,
-                             const float* xs, const float* hc, int B, int n, unsigned* flags,
-                             long long flag_slots, double* agg, long long agg_doubles,
-                             void* stream) {
+                             const float* xs, const float* hc, int B, int n, int S,
+                             unsigned* flags, long long flag_slots, double* agg,
+                             long long agg_doubles, void* stream) {
     const StatsPtrs p = {sum, sum_sq, mn, mx, peak, peak_count, peak_frame, samples,
                          m, y, z, nctr, tmin, tmax};
-    return launch_stats<float>(p, fout, iout, nctr_out, limit, xs, hc, B, n, flags, flag_slots,
+    return launch_stats<float>(p, fout, iout, nctr_out, limit, xs, hc, B, n, S, flags, flag_slots,
                                agg, agg_doubles, stream);
 }
 

@@ -50,6 +50,13 @@
 // block size (an FMA chain for lipshitz at B = 2048, in order at B = 1000),
 // so a shaped float32 dither follows dsp_tpu float32 until one rounding
 // flips a quantizer step, and the plain version exactly.
+//
+// The stream axis (batched processing): S independent streams in one
+// launch, x and y [S, B, C], the key [S, 2], ehist [S, 9, C] and nprev
+// [S, C] (n_mult, q0, q1, enabled, sel and fir are the effect's, one for
+// all streams). Each stream has its own blocks, and its threads, counters
+// (b·C + c, from key[s]) and order of operations are those of a
+// one-stream launch: the same bits.
 
 #include <cuda_runtime.h>
 
@@ -78,6 +85,11 @@ __global__ void tpdf_noise_kernel(const uint32_t* __restrict__ key_in,
                                   T* __restrict__ y, const bool* __restrict__ sel, T mult,
                                   long long N, int C) {
     __shared__ uint32_t k[3][2];
+    const int s = blockIdx.y;  // the stream
+    key_in += 2 * s;
+    key_out += 2 * s;
+    x += s * N;
+    y += s * N;
     split3(key_in, k);
     if (blockIdx.x == 0 && threadIdx.x < 2) key_out[threadIdx.x] = k[0][threadIdx.x];
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < N;
@@ -101,10 +113,19 @@ __global__ void __launch_bounds__(512) tpdf_flat_kernel(const uint32_t* __restri
                                    const T* __restrict__ q0, const T* __restrict__ q1,
                                    const bool* __restrict__ enabled, int B, int C) {
     __shared__ uint32_t k[3][2];
+    const int s = blockIdx.x;  // a block a stream
+    const long long N = (long long)B * C;
+    key_in += 2 * s;
+    key_out += 2 * s;
+    x += s * N;
+    y += s * N;
+    ehist_in += (size_t)s * TAPS * C;
+    ehist_out += (size_t)s * TAPS * C;
+    nprev_in += (size_t)s * C;
+    nprev_out += (size_t)s * C;
     split3(key_in, k);
     const int tid = threadIdx.x;
     if (tid < 2) key_out[tid] = k[0][tid];
-    const long long N = (long long)B * C;
     for (long long i = tid; i < N; i += blockDim.x) {
         const int c = (int)(i % C);
         const T v = fma_rn(sub_rn(draw<T>(k[1], i), draw<T>(k[2], i)), n_mult[c], x[i]);
@@ -206,6 +227,18 @@ __global__ void __launch_bounds__(kShapedThreads) tpdf_shaped_kernel(
     __shared__ T ring_x[kRing * kSlot];
     __shared__ T ring_n[kRing * kSlot];
     __shared__ uint32_t k[3][2];
+    {   // the stream: the grid's y index
+        const int s = blockIdx.y;
+        const size_t n = (size_t)B * C;
+        key_in += 2 * s;
+        key_out += 2 * s;
+        x += s * n;
+        y += s * n;
+        ehist_in += (size_t)s * TAPS * C;
+        ehist_out += (size_t)s * TAPS * C;
+        nprev_in += (size_t)s * C;
+        nprev_out += (size_t)s * C;
+    }
     split3(key_in, k);
     const int c0 = blockIdx.x * kChainCh, cb = min(kChainCh, C - c0);
     if (blockIdx.x == 0 && threadIdx.x < 2) key_out[threadIdx.x] = k[0][threadIdx.x];
@@ -279,19 +312,20 @@ __global__ void __launch_bounds__(kShapedThreads) tpdf_shaped_kernel(
     }
 }
 
-// The noise kernels launched in this process (host side).
+// The noise and dither kernels launched in this process (host side).
 unsigned long long noise_launches = 0;
+unsigned long long dither_launches = 0;
 
 template <typename T>
 int launch_noise(const uint32_t* key_in, uint32_t* key_out, const T* x, T* y, const bool* sel,
-                 double mult, int B, int C, void* stream) {
-    if (B <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+                 double mult, int B, int C, int S, void* stream) {
+    if (B <= 0 || C <= 0 || S <= 0 || S > 65535) return (int)cudaErrorInvalidValue;
     const long long N = (long long)B * C;
     const int T_ = 256;
-    long long blocks = (N + T_ - 1) / T_;
+    long long blocks = (N + T_ - 1) / T_;  // a stream's
     if (blocks > 1024) blocks = 1024;
     // mult in the sample type: dsp_tpu's jnp.asarray(mult, x.dtype)
-    tpdf_noise_kernel<T><<<(int)blocks, T_, 0, static_cast<cudaStream_t>(stream)>>>(
+    tpdf_noise_kernel<T><<<dim3((unsigned)blocks, S), T_, 0, static_cast<cudaStream_t>(stream)>>>(
         key_in, key_out, x, y, sel, (T)mult, N, C);
     const cudaError_t err = cudaGetLastError();
     if (err == cudaSuccess) ++noise_launches;
@@ -302,21 +336,23 @@ template <typename T>
 int launch_dither(const uint32_t* key_in, uint32_t* key_out, const T* x, T* y,
                   const T* ehist_in, T* ehist_out, const T* nprev_in, T* nprev_out,
                   const T* n_mult, const T* q0, const T* q1, const bool* enabled, const T* fir,
-                  int mode, int B, int C, void* stream) {
-    if (B <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+                  int mode, int B, int C, int S, void* stream) {
+    if (B <= 0 || C <= 0 || S <= 0 || S > 65535) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (mode == DITHER_FLAT) {
-        tpdf_flat_kernel<T><<<1, 512, 0, st>>>(key_in, key_out, x, y, ehist_in, ehist_out,
+        tpdf_flat_kernel<T><<<S, 512, 0, st>>>(key_in, key_out, x, y, ehist_in, ehist_out,
                                                 nprev_in, nprev_out, n_mult, q0, q1, enabled, B,
                                                 C);
     } else if (mode == DITHER_SHAPED || mode == DITHER_SLOPED2) {
-        tpdf_shaped_kernel<T><<<(C + kChainCh - 1) / kChainCh, kShapedThreads, 0, st>>>(
+        tpdf_shaped_kernel<T><<<dim3((C + kChainCh - 1) / kChainCh, S), kShapedThreads, 0, st>>>(
             key_in, key_out, x, y, ehist_in, ehist_out, nprev_in, nprev_out, n_mult, q0, q1,
             enabled, fir, mode, B, C);
     } else {
         return (int)cudaErrorInvalidValue;
     }
-    return (int)cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess) ++dither_launches;
+    return (int)err;
 }
 
 }  // namespace
@@ -324,30 +360,36 @@ int launch_dither(const uint32_t* key_in, uint32_t* key_out, const T* x, T* y,
 // Each returns cudaGetLastError() after its launch (0 on success). The
 // caller (dsp_tpu_torch/ops/time_domain.py) checks shapes, dtypes and
 // contiguity. sel may be null: every channel, fused. mult is rounded to the
-// sample type here.
+// sample type here. S streams: x and y [S, B, C], the keys [S, 2].
 extern "C" int dsp_tpdf_noise_f64(const uint32_t* key_in, uint32_t* key_out, const double* x,
                                   double* y, const bool* sel, double mult, int B, int C,
-                                  void* stream) {
-    return launch_noise<double>(key_in, key_out, x, y, sel, mult, B, C, stream);
+                                  int S, void* stream) {
+    return launch_noise<double>(key_in, key_out, x, y, sel, mult, B, C, S, stream);
 }
 
 extern "C" int dsp_tpdf_noise_f32(const uint32_t* key_in, uint32_t* key_out, const float* x,
                                   float* y, const bool* sel, double mult, int B, int C,
-                                  void* stream) {
-    return launch_noise<float>(key_in, key_out, x, y, sel, mult, B, C, stream);
+                                  int S, void* stream) {
+    return launch_noise<float>(key_in, key_out, x, y, sel, mult, B, C, S, stream);
 }
 
 // The noise kernels dsp_tpdf_noise_f64 and _f32 have launched in this process.
 extern "C" unsigned long long dsp_noise_launches() { return noise_launches; }
+
+// The kernels dsp_tpdf_dither_f64 and _f32 have launched in this process.
+extern "C" unsigned long long dsp_dither_launches() { return dither_launches; }
+
+// S streams: x and y [S, B, C], the keys [S, 2], ehist [S, 9, C], nprev
+// [S, C]; n_mult, q0, q1, enabled [C] and fir [9] one for all streams.
 
 extern "C" int dsp_tpdf_dither_f64(const uint32_t* key_in, uint32_t* key_out, const double* x,
                                    double* y, const double* ehist_in, double* ehist_out,
                                    const double* nprev_in, double* nprev_out,
                                    const double* n_mult, const double* q0, const double* q1,
                                    const bool* enabled, const double* fir, int mode, int B,
-                                   int C, void* stream) {
+                                   int C, int S, void* stream) {
     return launch_dither<double>(key_in, key_out, x, y, ehist_in, ehist_out, nprev_in,
-                                 nprev_out, n_mult, q0, q1, enabled, fir, mode, B, C, stream);
+                                 nprev_out, n_mult, q0, q1, enabled, fir, mode, B, C, S, stream);
 }
 
 extern "C" int dsp_tpdf_dither_f32(const uint32_t* key_in, uint32_t* key_out, const float* x,
@@ -355,7 +397,7 @@ extern "C" int dsp_tpdf_dither_f32(const uint32_t* key_in, uint32_t* key_out, co
                                    const float* nprev_in, float* nprev_out,
                                    const float* n_mult, const float* q0, const float* q1,
                                    const bool* enabled, const float* fir, int mode, int B,
-                                   int C, void* stream) {
+                                   int C, int S, void* stream) {
     return launch_dither<float>(key_in, key_out, x, y, ehist_in, ehist_out, nprev_in,
-                                nprev_out, n_mult, q0, q1, enabled, fir, mode, B, C, stream);
+                                nprev_out, n_mult, q0, q1, enabled, fir, mode, B, C, S, stream);
 }

@@ -5,10 +5,9 @@ arguments and precomputes coefficients (numpy/float64, like the reference's
 init functions). The compute path is ``step(state, x)`` on torch tensors:
 ``x`` is a ``[frames, in_channels]`` block on the chain's device, the return
 is ``(new_state, y)`` with ``y`` shaped ``[frames * ratio, out_channels]``.
-``step`` returns new tensors and leaves its inputs unchanged. An effect
-with a stream axis (``stream_axis``: every split-safe effect, and the
-upmixes) also takes ``x`` as ``[S, frames, in_channels]`` and every state
-leaf with a leading S but its ``host_leaves`` (split and batched
+``step`` returns new tensors and leaves its inputs unchanged. Every effect
+also takes ``x`` as ``[S, frames, in_channels]`` (a stream axis) and every
+state leaf with a leading S but its ``host_leaves`` (split and batched
 processing, ``CompiledChain.process_array_split`` / ``process_batch``), so
 it reads the block length as ``x.shape[-2]`` and the channels on dim -1.
 
@@ -110,11 +109,6 @@ class Effect:
     # streams (noise/dither/mod-delay), external plugins, and the adaptive
     # matrix4 event engines (multi-second ring buffers + discrete decisions).
     split_safe = True
-    # Batched processing (CompiledChain.process_batch): True when step takes
-    # a stream axis (x [S, B, C]). Every split-safe effect does; so do the
-    # upmixes, which a split cannot prime but a batch runs from the live
-    # state. False where an effect has no stream axis yet.
-    stream_axis = True
     # The names of the state's dict leaves that the host reads and writes a
     # block (CPU tensors): with a stream axis they stay one for all streams,
     # which sit at the same block index.

@@ -256,7 +256,6 @@ class ModDelayEffect(Effect):
     """Randomly modulated delay line (-m/-M options of delay)."""
 
     split_safe = False  # PRNG-driven modulator: segments would replay it
-    stream_axis = False  # process_batch refuses it
 
     def plot(self, idx, channel_offset=0):
         # the modulator list-member uses effect_plot_noop (delay.c:651)

@@ -43,7 +43,6 @@ _TYPES = {
 
 class DitherEffect(Effect):
     split_safe = False  # PRNG stream: segments would replay the sequence
-    stream_axis = False  # process_batch refuses it
 
     def __init__(self, name, istream, selector, shape, noise_bits, quantize_bits,
                  noise_auto, quantize_auto, seed=0):

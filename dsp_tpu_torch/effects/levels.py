@@ -45,7 +45,6 @@ def draw_bar(avg, peak):
 
 class LevelsEffect(Effect):
     split_safe = False  # host-visible meters
-    stream_axis = False  # process_batch refuses it
 
     def __init__(self, name, istream, selector, tc):
         self.name = name

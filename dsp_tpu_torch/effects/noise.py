@@ -36,7 +36,6 @@ def parse_level(s):
 
 class NoiseEffect(Effect):
     split_safe = False  # PRNG stream: segments would replay the sequence
-    stream_axis = False  # process_batch refuses it
 
     def __init__(self, name, istream, selector, mult, seed=0):
         self.name = name

@@ -107,7 +107,6 @@ _INSERT_H = _derive_insert_layout()
 
 class StatsEffect(Effect):
     split_safe = False  # host-visible whole-stream accumulators
-    stream_axis = False  # process_batch refuses it
 
     def __init__(self, name, istream, selector, ref_level, width, interp):
         self.name = name

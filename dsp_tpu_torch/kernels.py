@@ -15,9 +15,8 @@ Each launch function here takes tensors the caller (``ops/iir.py``,
 function returns a CUDA error. None of them synchronises or allocates; K1,
 K11, matrix4_mb's K12-K13, K16's plain mode and K17 take the look-back
 scratch of ``lookback_scratch``, made once a device and stream (grown when
-a launch needs more). The entries of K1, K2/K3, crossfeed's step, the runs,
-the FFT convolution's kernels and the resampler's step take a stream count
-S (split and batched processing): x [S, B, C] and each state led by S, the
+a launch needs more). Every entry on a chain's path takes a stream count S
+(split and batched processing): x [S, B, C] and each state led by S, the
 S streams in the one launch of a single stream.
 """
 
@@ -273,27 +272,27 @@ class _Library:
                            lib.dsp_biquad_run_launches, lib.dsp_m4mb_audio_launches,
                            lib.dsp_mod_delay_launches, lib.dsp_stats_launches,
                            lib.dsp_levels_launches, lib.dsp_resample_launches,
-                           lib.dsp_noise_launches, lib.dsp_m4_event_launches,
-                           lib.dsp_m4_audio_launches):
+                           lib.dsp_noise_launches, lib.dsp_dither_launches,
+                           lib.dsp_m4_event_launches, lib.dsp_m4_audio_launches):
                     fn.argtypes = []
                     fn.restype = ctypes.c_ulonglong
                 for fn in (lib.dsp_tpdf_noise_f64, lib.dsp_tpdf_noise_f32):
-                    fn.argtypes = [p] * 5 + [d, i, i, p]
+                    fn.argtypes = [p] * 5 + [d, i, i, i, p]
                     fn.restype = i
                 for fn in (lib.dsp_tpdf_dither_f64, lib.dsp_tpdf_dither_f32):
-                    fn.argtypes = [p] * 13 + [i, i, i, p]
+                    fn.argtypes = [p] * 13 + [i, i, i, i, p]
                     fn.restype = i
                 for fn in (lib.dsp_levels_f64, lib.dsp_levels_f32):
-                    fn.argtypes = [p] * 5 + [d, i, i, p, ll, p, ll, p]
+                    fn.argtypes = [p] * 5 + [d, i, i, i, p, ll, p, ll, p]
                     fn.restype = i
                 for fn in (lib.dsp_stats_f64, lib.dsp_stats_f32):
-                    fn.argtypes = [p] * 20 + [i, i, p, ll, p, ll, p]
+                    fn.argtypes = [p] * 20 + [i, i, i, p, ll, p, ll, p]
                     fn.restype = i
                 for fn in (lib.dsp_stats_set_insert_f64, lib.dsp_stats_set_insert_f32):
                     fn.argtypes = [p, p]
                     fn.restype = i
                 for fn in (lib.dsp_mod_delay_f64, lib.dsp_mod_delay_f32):
-                    fn.argtypes = [p] * 12 + [i] * 7 + [d] * 3 + [p]
+                    fn.argtypes = [p] * 12 + [i] * 7 + [d] * 3 + [i, p]
                     fn.restype = i
                 lib.dsp_resample_fold_c128.argtypes = [p] * 6 + [i, i, p]
                 lib.dsp_resample_fold_c128.restype = i
@@ -546,6 +545,12 @@ def noise_launches():
     return load().dsp_noise_launches()
 
 
+def dither_launches():
+    """The kernels csrc/tpdf.cu's dither entries have launched in this
+    process (the library's own count)."""
+    return load().dsp_dither_launches()
+
+
 def fft_launches():
     """The kernels csrc/fft_conv.cu's transforms have launched in this
     process, every pass counted (the library's own count)."""
@@ -595,24 +600,26 @@ def _by_dtype(t, name):
     return getattr(load(), f"{name}_{'f32' if t.dtype == torch.float32 else 'f64'}")
 
 
-def launch_tpdf_noise(ptrs, key_out, y, mult, B, C):
+def launch_tpdf_noise(ptrs, key_out, y, mult, B, C, S=1):
     """ptrs: the checked device addresses of x, key and, when some
     channels are not selected, the selector; key_out and y: views of the
-    one output buffer; one ctypes call."""
+    one output buffer; S streams; one ctypes call."""
     sel = ptrs[2] if len(ptrs) > 2 else None
     rc = _by_dtype(y, "dsp_tpdf_noise")(ptrs[1], key_out.data_ptr(), ptrs[0], y.data_ptr(), sel,
-                                        mult, B, C, _stream(y))
+                                        mult, B, C, S, _stream(y))
     if rc:
         _check(rc, "tpdf_noise")
 
 
 def launch_tpdf_dither(key, key_out, x, y, ehist, ehist_out, nprev, nprev_out, n_mult, q0, q1,
                        enabled, fir, mode):
-    B, C = x.shape
+    """x [S, B, C] (or [B, C]), each state led by S."""
+    B, C = x.shape[-2:]
+    S = x.shape[0] if x.dim() == 3 else 1
     rc = _by_dtype(x, "dsp_tpdf_dither")(
         _ptr(key), _ptr(key_out), _ptr(x), _ptr(y), _ptr(ehist), _ptr(ehist_out), _ptr(nprev),
         _ptr(nprev_out), _ptr(n_mult), _ptr(q0), _ptr(q1), _ptr(enabled), _ptr(fir), mode, B, C,
-        _stream(x),
+        S, _stream(x),
     )
     _check(rc, "tpdf_dither")
 
@@ -623,21 +630,21 @@ TD_TILE, TD_GROUP = 256, 8
 STATS_SLOT, LEVELS_SLOT = 5 * TD_GROUP, 3 * TD_GROUP
 
 
-def td_scratch(xs, B, n, width):
-    """The look-back scratch of a stats (plain) or levels launch on xs [B,
-    n] as a C entry's (flags, flag_slots, agg, agg_doubles): two slots a
-    tile, `width` doubles each."""
-    tiles = -(-B // TD_TILE) * max(1, -(-n // TD_GROUP))
+def td_scratch(xs, B, n, width, S=1):
+    """The look-back scratch of a stats (plain) or levels launch on S
+    streams of [B, n] as a C entry's (flags, flag_slots, agg, agg_doubles):
+    two slots a tile of each stream, `width` doubles each."""
+    tiles = -(-B // TD_TILE) * max(1, -(-n // TD_GROUP)) * S
     return _scratch_args(lookback_scratch(xs, 2 * tiles, width))
 
 
-def launch_levels(ptrs, out, xs, g, B, n):
-    """ptrs: the device addresses of avg, peak and block_peak [n]; out: the
-    [3, n] buffer of the new ones; one ctypes call."""
+def launch_levels(ptrs, out, xs, g, B, n, S=1):
+    """ptrs: the device addresses of avg, peak and block_peak [S, n]; out:
+    the [3, S, n] buffer of the new ones; one ctypes call."""
     lib = load()
     fn = lib.dsp_levels_f32 if xs.dtype == torch.float32 else lib.dsp_levels_f64
-    rc = fn(*ptrs, out.data_ptr(), xs.data_ptr(), g, B, n, *td_scratch(xs, B, n, LEVELS_SLOT),
-            _stream(xs))
+    rc = fn(*ptrs, out.data_ptr(), xs.data_ptr(), g, B, n, S,
+            *td_scratch(xs, B, n, LEVELS_SLOT, S), _stream(xs))
     if rc:
         _check(rc, "levels")
 
@@ -648,10 +655,11 @@ def launch_levels(ptrs, out, xs, g, B, n):
 _STATS_INSERT = {}
 
 
-def launch_stats(ptrs, fout, iout, nctr_out, limit, xs, insert_h, B, n):
+def launch_stats(ptrs, fout, iout, nctr_out, limit, xs, insert_h, B, n, S=1):
     """ptrs: the device addresses of the state's leaves in csrc/stats.cu's
-    order (plain: 8, then 6 None; -i: 14); fout, iout, nctr_out: the new
-    state's buffers (nctr_out None in plain mode); one ctypes call (and,
+    order (plain: 8, then 6 None; -i: 14), each led by S for S streams;
+    fout, iout, nctr_out: the new state's buffers (nctr_out None in plain
+    mode); one ctypes call (and,
     with -i, the table's upload to the kernel's constant bank unless that
     table, the same tensor unmodified, is there already: an effect hands
     the same cached table every block)."""
@@ -666,10 +674,10 @@ def launch_stats(ptrs, fout, iout, nctr_out, limit, xs, insert_h, B, n):
             _STATS_INSERT[slot] = (insert_h, insert_h._version)
         scratch = (None, 0, None, 0)
     else:
-        scratch = td_scratch(xs, B, n, STATS_SLOT)
+        scratch = td_scratch(xs, B, n, STATS_SLOT, S)
     rc = (lib.dsp_stats_f32 if f32 else lib.dsp_stats_f64)(
         *ptrs, fout.data_ptr(), iout.data_ptr(), _ptr(nctr_out), limit, xs.data_ptr(),
-        _ptr(insert_h), B, n, *scratch, _stream(xs))
+        _ptr(insert_h), B, n, S, *scratch, _stream(xs))
     if rc:
         _check(rc, "stats")
 
@@ -684,11 +692,13 @@ def launch_resample_fold(X, Y, ptr, j, flags, s):
 
 def launch_mod_delay(key, key_out, yk, yk_out, t, t_out, buf, x, y, buf_out, sel, table, n_new,
                      n_phases, n_taps, depth, step, step_b):
-    B, C = x.shape
+    """x [S, B, C] (or [B, C]), each state led by S."""
+    B, C = x.shape[-2:]
+    S = x.shape[0] if x.dim() == 3 else 1
     rc = _by_dtype(x, "dsp_mod_delay")(
         _ptr(key), _ptr(key_out), _ptr(yk), _ptr(yk_out), _ptr(t), _ptr(t_out), _ptr(buf),
-        _ptr(x), _ptr(y), _ptr(buf_out), _ptr(sel), _ptr(table), buf.shape[0], B, C,
-        yk.shape[1], n_new, n_phases, n_taps, depth, step, step_b, _stream(x),
+        _ptr(x), _ptr(y), _ptr(buf_out), _ptr(sel), _ptr(table), buf.shape[-2], B, C,
+        yk.shape[-1], n_new, n_phases, n_taps, depth, step, step_b, S, _stream(x),
     )
     _check(rc, "mod_delay")
 

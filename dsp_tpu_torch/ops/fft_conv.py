@@ -95,9 +95,19 @@ def _stack_tree(items):
 
 def each_stream(fn, state, x):
     """The plain versions' stream axis: fn(state[s], x[s]) for each stream s
-    of x [S, ...], its results (tensors, or tuples of them) stacked, so that
-    stream s is the bits of a one-stream call."""
-    return _stack_tree([fn(state[s], x[s]) for s in range(x.shape[0])])
+    of x [S, ...], its results (tensors, or tuples, lists or dicts of them)
+    stacked, so that stream s is the bits of a one-stream call. state is a
+    tensor led by S, or a tuple, list or dict of them (None kept), each cut
+    at s."""
+    return _stack_tree([fn(_stream_of(state, s), x[s]) for s in range(x.shape[0])])
+
+
+def _stream_of(tree, s):
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_stream_of(t, s) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _stream_of(v, s) for k, v in tree.items()}
+    return None if tree is None else tree[s]
 
 
 def next_fast_len(n):

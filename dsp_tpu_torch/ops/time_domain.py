@@ -56,6 +56,16 @@ The serial recurrences (the shaped dither, ``stats -i``) have plain versions
 that loop over samples on the host (Python floats for float64, numpy
 float32 scalars for float32); they take tensors on any device and return
 them on the input's device.
+
+The stream axis (batched processing): each entry takes x [S, B, C] (stats
+and levels: xs [S, B, n]) with every state leaf led by S (the noise key
+[S, 2], stats' samples and limit [S], the delay's phase [S]) and returns
+the new state the same way; the effect's constants (selectors, gains,
+taps, tables) stay one for all streams. A CUDA tensor runs the S streams
+in the one launch of a one-stream call, each stream with that call's
+bits, from the same one pass of checks, one allocation of the outputs and
+one ctypes call; a CPU tensor runs the plain version a stream at a time
+(fft_conv.each_stream), so each stream is a one-stream call bit for bit.
 """
 
 import functools
@@ -68,7 +78,8 @@ import torch
 from dsp_tpu_torch import kernels
 from dsp_tpu_torch.core import prng
 from dsp_tpu_torch.core.prng import PM_RAND_MAX
-from dsp_tpu_torch.ops.fft_conv import _check_cuda, _check_dtypes, _check_shape, _launch_ptrs
+from dsp_tpu_torch.ops.fft_conv import (_check_cuda, _check_dtypes, _check_shape, _launch_ptrs,
+                                        each_stream)
 from dsp_tpu_torch.ops.m4_engine import fma_ref
 
 # tpdf_dither modes: flat (no feedback), shaped (9-tap error feedback on
@@ -144,7 +155,8 @@ def _fma32s(a, b, c):
 def tpdf_noise(key, x, mult, sel=None):
     """key' and x + where(sel, (u1 - u2)·mult, 0): key, k1, k2 = split(key,
     3), u1 and u2 uniform in [0, PM_RAND_MAX] over x's [B, C] (counter
-    b·C + c). key: uint32 [2]; x: float64 [B, C] (float32: tpdf_noise_f32);
+    b·C + c). key: uint32 [2]; x: float64 [B, C] (float32: tpdf_noise_f32),
+    or key [S, 2] and x [S, B, C] for S streams, each drawn from its key;
     sel: bool [C], or None for every channel, where the sum is one FMA,
     x + (u1 - u2)·mult, as XLA:CPU folds dsp_tpu's all-true select away and
     fuses it. CPU tensors run tpdf_noise_ref; CUDA tensors launch
@@ -174,25 +186,29 @@ def _tpdf_noise(entry, ref, dt, key, x, mult, sel):
         if x.device.type == "cpu":
             return ref(key, x, mult, sel)
         raise ValueError(f"{entry.__name__}: no kernel for device {x.device}")
-    if x.dim() != 2:
-        raise ValueError(f"{entry.__name__}: x {tuple(x.shape)}, expected [B, C]")
-    B, C = x.shape
-    specs = ((dt, (B, C)), (torch.uint32, (2,)))
+    if x.dim() not in (2, 3):
+        raise ValueError(f"{entry.__name__}: x {tuple(x.shape)}, expected [B, C] or [S, B, C]")
+    *lead, B, C = x.shape
+    S = lead[0] if lead else 1
+    specs = ((dt, x.shape), (torch.uint32, (*lead, 2)))
     named = (("x", x), ("key", key))
     if sel is not None:
         specs, named = specs + ((torch.bool, (C,)),), named + (("sel", sel),)
     ptrs = _launch_ptrs(entry.__name__, x, named, specs)
-    # y [B, C], then key' (uint32 [2], the 8 bytes after it)
-    n = B * C
-    buf = x.new_empty(n + (1 if dt is torch.float64 else 2))
-    y, key_out = buf[:n].view(B, C), buf[n:].view(torch.uint32)
-    kernels.launch_tpdf_noise(ptrs, key_out, y, float(mult), B, C)
+    # y [S, B, C], then key' (uint32 [S, 2], the 8·S bytes after it)
+    n = S * B * C
+    buf = x.new_empty(n + (S if dt is torch.float64 else 2 * S))
+    y, key_out = buf[:n].view(x.shape), buf[n:].view(torch.uint32).view(*lead, 2)
+    kernels.launch_tpdf_noise(ptrs, key_out, y, float(mult), B, C, S)
     entry.launches += 1
     return key_out, y
 
 
 def tpdf_noise_ref(key, x, mult, sel=None):
-    """Plain version of tpdf_noise: dsp_tpu's noise step on torch tensors."""
+    """Plain version of tpdf_noise: dsp_tpu's noise step on torch tensors
+    (x [S, B, C] and key [S, 2] a stream at a time)."""
+    if x.dim() == 3:
+        return each_stream(lambda k, xs: tpdf_noise_ref(k, xs, mult, sel), key, x)
     keys = prng.split(key, 3)
     u1 = prng.uniform_f64(keys[1], x.shape, PM_RAND_MAX)
     u2 = prng.uniform_f64(keys[2], x.shape, PM_RAND_MAX)
@@ -203,7 +219,10 @@ def tpdf_noise_ref(key, x, mult, sel=None):
 
 
 def tpdf_noise_f32_ref(key, x, mult, sel=None):
-    """Plain version of tpdf_noise_f32: dsp_tpu float32's noise step."""
+    """Plain version of tpdf_noise_f32: dsp_tpu float32's noise step (a
+    stream at a time)."""
+    if x.dim() == 3:
+        return each_stream(lambda k, xs: tpdf_noise_f32_ref(k, xs, mult, sel), key, x)
     keys = prng.split(key, 3)
     u1 = prng.uniform_f32(keys[1], x.shape, PM_RAND_MAX)
     u2 = prng.uniform_f32(keys[2], x.shape, PM_RAND_MAX)
@@ -222,9 +241,9 @@ def tpdf_dither(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode):
     ehist: [9, C] error history (newest first); nprev: [C] the sloped
     noise's carried uniform; n_mult, q0, q1: [C]; enabled: bool [C]; fir:
     [9] feedback taps; mode: DITHER_FLAT, DITHER_SHAPED or DITHER_SLOPED2.
-    The floats are float64 (float32: tpdf_dither_f32). Returns (key',
-    ehist', nprev', y). CPU tensors run tpdf_dither_ref; CUDA tensors
-    launch csrc/tpdf.cu."""
+    For S streams x, key, ehist and nprev are led by S. The floats are
+    float64 (float32: tpdf_dither_f32). Returns (key', ehist', nprev', y).
+    CPU tensors run tpdf_dither_ref; CUDA tensors launch csrc/tpdf.cu."""
     if x.dtype == torch.float32:
         return tpdf_dither_f32(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode)
     return _tpdf_dither(tpdf_dither, tpdf_dither_ref, torch.float64, key, x, ehist, nprev,
@@ -253,10 +272,12 @@ def _tpdf_dither(entry, ref, dt, key, x, ehist, nprev, n_mult, q0, q1, enabled, 
     if x.device.type == "cpu":
         return ref(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode)
     _check_cuda(name, x, *checks, align=1)
-    B, C = x.shape
-    for what, t, shape in (("key", key, (2,)), ("ehist", ehist, (DITHER_TAPS, C)),
-                           ("nprev", nprev, (C,)), ("n_mult", n_mult, (C,)), ("q0", q0, (C,)),
-                           ("q1", q1, (C,)), ("enabled", enabled, (C,)),
+    if x.dim() not in (2, 3):
+        raise ValueError(f"{name}: x {tuple(x.shape)}, expected [B, C] or [S, B, C]")
+    *lead, B, C = x.shape
+    for what, t, shape in (("key", key, (*lead, 2)), ("ehist", ehist, (*lead, DITHER_TAPS, C)),
+                           ("nprev", nprev, (*lead, C)), ("n_mult", n_mult, (C,)),
+                           ("q0", q0, (C,)), ("q1", q1, (C,)), ("enabled", enabled, (C,)),
                            ("fir", fir, (DITHER_TAPS,))):
         _check_shape(name, what, t, shape)
     if mode not in (DITHER_FLAT, DITHER_SHAPED, DITHER_SLOPED2):
@@ -275,7 +296,11 @@ def tpdf_dither_ref(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode):
     """Plain version of tpdf_dither: the noise and the flat quantizer as
     torch ops, the error-feedback loop over samples in Python floats (the
     taps summed in order, each product and sum rounded on its own, as
-    dsp_tpu's scan does)."""
+    dsp_tpu's scan does); x [S, B, C] and the states a stream at a time."""
+    if x.dim() == 3:
+        return each_stream(lambda st, xs: tpdf_dither_ref(st[0], xs, st[1], st[2], n_mult, q0,
+                                                          q1, enabled, fir, mode),
+                           (key, ehist, nprev), x)
     B, C = x.shape
     keys = prng.split(key, 3)
     u1 = prng.uniform_f64(keys[1], (B, C), PM_RAND_MAX)
@@ -316,7 +341,12 @@ def tpdf_dither_f32_ref(key, x, ehist, nprev, n_mult, q0, q1, enabled, fir, mode
     """Plain version of tpdf_dither_f32: the noise and the flat quantizer as
     float32 torch ops, the error-feedback loop over samples on numpy
     float32 scalars (the taps summed in order, each product and sum
-    rounded to float32 on its own, as dsp_tpu float32's scan does)."""
+    rounded to float32 on its own, as dsp_tpu float32's scan does); a stream
+    at a time."""
+    if x.dim() == 3:
+        return each_stream(lambda st, xs: tpdf_dither_f32_ref(st[0], xs, st[1], st[2], n_mult, q0,
+                                                              q1, enabled, fir, mode),
+                           (key, ehist, nprev), x)
     B, C = x.shape
     keys = prng.split(key, 3)
     u1 = prng.uniform_f32(keys[1], (B, C), PM_RAND_MAX)
@@ -360,8 +390,9 @@ def levels_step(avg, peak, block_peak, xs, g):
     avg' = EWMA of x² (weight g), peak' = the set-min EWMA
     m' = max(x², (1 - g)·m + g·x²), block_peak' = max(block_peak, every m of
     the block). Returns (avg', peak', block_peak'), each [n], float64
-    (float32: levels_step_f32). CPU tensors run levels_step_ref; CUDA
-    tensors launch csrc/levels.cu."""
+    (float32: levels_step_f32); for S streams xs [S, B, n] and the meters
+    [S, n]. CPU tensors run levels_step_ref; CUDA tensors launch
+    csrc/levels.cu."""
     if xs.dtype == torch.float32:
         return levels_step_f32(avg, peak, block_peak, xs, g)
     return _levels_step(levels_step, levels_step_ref, torch.float64, avg, peak, block_peak, xs, g)
@@ -387,27 +418,31 @@ def _levels_step(entry, ref, dt, avg, peak, block_peak, xs, g):
     if xs.device.type == "cpu":
         _check_dtypes(name, (xs, dt), (avg, dt), (peak, dt), (block_peak, dt))
         return ref(avg, peak, block_peak, xs, g)
-    if xs.dim() != 2:
-        raise ValueError(f"{name}: xs {tuple(xs.shape)}, expected [B, n]")
-    B, n = xs.shape
+    if xs.dim() not in (2, 3):
+        raise ValueError(f"{name}: xs {tuple(xs.shape)}, expected [B, n] or [S, B, n]")
+    *lead, B, n = xs.shape
+    lead = tuple(lead)
     ptrs = _launch_ptrs(name, xs, (("xs", xs), ("avg", avg), ("peak", peak),
-                                   ("block_peak", block_peak)), _levels_specs(dt, B, n))
+                                   ("block_peak", block_peak)), _levels_specs(dt, lead, B, n))
     # the new meters as the rows of one buffer
-    out = torch.empty((3, n), dtype=dt, device=xs.device)
-    kernels.launch_levels(ptrs[1:], out, xs, float(g), B, n)
+    out = torch.empty((3, *lead, n), dtype=dt, device=xs.device)
+    kernels.launch_levels(ptrs[1:], out, xs, float(g), B, n, lead[0] if lead else 1)
     entry.launches += 1
     return out.unbind(0)
 
 
 @functools.lru_cache(maxsize=64)
-def _levels_specs(dt, B, n):
-    return ((dt, (B, n)), (dt, (n,)), (dt, (n,)), (dt, (n,)))
+def _levels_specs(dt, lead, B, n):
+    return ((dt, (*lead, B, n)), (dt, (*lead, n)), (dt, (*lead, n)), (dt, (*lead, n)))
 
 
 def levels_step_ref(avg, peak, block_peak, xs, g):
     """Plain version of levels_step: dsp_tpu's associative scan of
     (a, b, c) = (1 - g, g·x², x²) triples under m -> max(c, a·m + b), as a
-    Hillis-Steele doubling scan over the block."""
+    Hillis-Steele doubling scan over the block; xs [S, B, n] and the meters
+    [S, n] a stream at a time."""
+    if xs.dim() == 3:
+        return each_stream(lambda st, x: levels_step_ref(*st, x, g), (avg, peak, block_peak), xs)
     s2 = xs * xs
     B = s2.shape[0]
     a = torch.full_like(s2, 1.0 - g)
@@ -428,7 +463,7 @@ def levels_step_ref(avg, peak, block_peak, xs, g):
 
 def levels_step_f32_ref(avg, peak, block_peak, xs, g):
     """Plain version of levels_step_f32: levels_step_ref in float64 on the
-    upcast leaves, rounded to float32."""
+    upcast leaves, rounded to float32 (a stream at a time)."""
     f64 = torch.float64
     outs = levels_step_ref(avg.to(f64), peak.to(f64), block_peak.to(f64), xs.to(f64), g)
     return tuple(t.to(torch.float32) for t in outs)
@@ -448,9 +483,10 @@ def stats_step(s, xs, insert_h=None):
     also m [64, n], y [6, n], z [9, n], int32 nctr [n], tmin, tmax [n]).
     insert_h: None for plain stats, or the -i estimator's float64 [67]
     table (the 64-slot insert template, then the three direct taps). Float
-    leaves and xs float32: stats_step_f32. Returns the new state dict;
-    nothing is read back to the host. CPU tensors run stats_step_ref; CUDA
-    tensors launch csrc/stats.cu."""
+    leaves and xs float32: stats_step_f32. For S streams xs is [S, B, n]
+    and every leaf led by S (samples and limit [S]). Returns the new state
+    dict; nothing is read back to the host. CPU tensors run stats_step_ref;
+    CUDA tensors launch csrc/stats.cu."""
     if xs.dtype == torch.float32:
         return stats_step_f32(s, xs, insert_h)
     return _stats_step(stats_step, torch.float64, s, xs, insert_h)
@@ -485,41 +521,48 @@ def _stats_step(entry, dt, s, xs, insert_h):
     name = entry.__name__
     interp = insert_h is not None
     if xs.device.type == "cpu":
-        B, n = xs.shape
         keys = STATS_KEYS + (STATS_INTERP_KEYS if interp else ())
-        spec = dict(_stats_specs(dt, B, n, interp)[1:])
+        spec = dict(_stats_specs(dt, (), 1, 1, interp)[1:])
         checks = [(xs, dt), (s["limit"], torch.int64)] + [(s[k], spec[k][0]) for k in keys]
         if interp:
             checks.append((insert_h, dt))
         _check_dtypes(name, *checks)
         return stats_step_ref(s, xs, insert_h)
-    if xs.dim() != 2:
-        raise ValueError(f"{name}: xs {tuple(xs.shape)}, expected [B, n]")
-    B, n = xs.shape
-    specs = _stats_specs(dt, B, n, interp)
+    if xs.dim() not in (2, 3):
+        raise ValueError(f"{name}: xs {tuple(xs.shape)}, expected [B, n] or [S, B, n]")
+    *lead, B, n = xs.shape
+    lead = tuple(lead)
+    S = lead[0] if lead else 1
+    specs = _stats_specs(dt, lead, B, n, interp)
     named = [("xs", xs)] + [(k, s[k]) for k, _ in specs[1:]]
     if interp:
         named.append(("insert_h", insert_h))
     ptrs = _launch_ptrs(name, xs, named, [sp for _, sp in specs] + ([(dt, (67,))] if interp else []))
     # the new state: its float leaves the rows of one buffer (sum, sum_sq,
-    # min, max, peak; -i: tmin, tmax, m, y, z), its int64 leaves views of a
-    # second (peak_count, peak_frame, samples) and -i's nctr a third
-    fout = torch.empty((86 if interp else 5, n), dtype=dt, device=xs.device)
-    iout = torch.empty(2 * n + 1, dtype=torch.int64, device=xs.device)
+    # min, max, peak; -i: tmin, tmax, each [S, n], then m, y, z, each led by
+    # S), its int64 leaves views of a second (peak_count, peak_frame, then
+    # samples [S]) and -i's nctr a third
+    sn = S * n
+    fout = torch.empty((86 if interp else 5) * sn, dtype=dt, device=xs.device)
+    iout = torch.empty(2 * sn + S, dtype=torch.int64, device=xs.device)
     new = dict(s)
-    new["sum"], new["sum_sq"], new["min"], new["max"], new["peak"], *rest = (
-        fout[:7] if interp else fout).unbind(0)
-    new["peak_count"], new["peak_frame"], samples = iout.split((n, n, 1))
-    new["samples"] = samples.view(())
+    rows = fout[:(7 if interp else 5) * sn].view(-1, *lead, n)
+    new["sum"], new["sum_sq"], new["min"], new["max"], new["peak"], *rest = rows.unbind(0)
+    new["peak_count"], new["peak_frame"], samples = iout.split((sn, sn, S))
+    new["peak_count"], new["peak_frame"] = (new["peak_count"].view(*lead, n),
+                                            new["peak_frame"].view(*lead, n))
+    new["samples"] = samples.view(lead)
     nctr = None
     if interp:
         new["tmin"], new["tmax"] = rest
-        new["m"], new["y"], new["z"] = fout[7:].split((64, 6, 9))
-        new["nctr"] = nctr = torch.empty(n, dtype=torch.int32, device=xs.device)
+        m, y, z = fout[7 * sn:].split((64 * sn, 6 * sn, 9 * sn))
+        new["m"], new["y"], new["z"] = (m.view(*lead, 64, n), y.view(*lead, 6, n),
+                                        z.view(*lead, 9, n))
+        new["nctr"] = nctr = torch.empty((*lead, n), dtype=torch.int32, device=xs.device)
         in_ptrs = ptrs[1:9] + [ptrs[k] for k in (10, 11, 12, 13, 14, 15)]
     else:
         in_ptrs = ptrs[1:9] + [None] * 6
-    kernels.launch_stats(in_ptrs, fout, iout, nctr, ptrs[9], xs, insert_h, B, n)
+    kernels.launch_stats(in_ptrs, fout, iout, nctr, ptrs[9], xs, insert_h, B, n, S)
     entry.launches += 1
     if not interp:
         entry.plain.launches += 1
@@ -527,19 +570,22 @@ def _stats_step(entry, dt, s, xs, insert_h):
 
 
 @functools.lru_cache(maxsize=64)
-def _stats_specs(dt, B, n, interp):
+def _stats_specs(dt, lead, B, n, interp):
     """((leaf, (dtype, shape)), ...) of the tensors stats_step's kernel
     reads, xs first, in the C entry's order: the plain leaves, limit, then
-    (-i) m, y, z, nctr, tmin, tmax."""
+    (-i) m, y, z, nctr, tmin, tmax; each led by `lead`, () or (S,)."""
     i64 = torch.int64
-    specs = [("xs", (dt, (B, n))), ("sum", (dt, (n,))), ("sum_sq", (dt, (n,))),
-             ("min", (dt, (n,))), ("max", (dt, (n,))), ("peak", (dt, (n,))),
-             ("peak_count", (i64, (n,))), ("peak_frame", (i64, (n,))), ("samples", (i64, ())),
-             ("limit", (i64, ()))]
+    v = (*lead, n)
+    specs = [("xs", (dt, (*lead, B, n))), ("sum", (dt, v)), ("sum_sq", (dt, v)),
+             ("min", (dt, v)), ("max", (dt, v)), ("peak", (dt, v)),
+             ("peak_count", (i64, v)), ("peak_frame", (i64, v)), ("samples", (i64, lead)),
+             ("limit", (i64, lead))]
     if interp:
-        specs += [("m", (dt, (64, n))), ("y", (dt, (6, n))), ("z", (dt, (9, n))),
-                  ("nctr", (torch.int32, (n,))), ("tmin", (dt, (n,))), ("tmax", (dt, (n,)))]
+        specs += [("m", (dt, (*lead, 64, n))), ("y", (dt, (*lead, 6, n))),
+                  ("z", (dt, (*lead, 9, n))), ("nctr", (torch.int32, v)), ("tmin", (dt, v)),
+                  ("tmax", (dt, v))]
     return tuple(specs)
+
 
 
 def _jmin(a, b):
@@ -557,7 +603,23 @@ def stats_step_ref(s, xs, insert_h=None):
     (for float32 samples, rounded to float32 once they are added to the
     carried sums); dsp_tpu's vectorized plain mode (cummin/cummax, exact
     comparisons) as torch ops; or the -i estimator over samples, in Python
-    floats (float64) or numpy float32 scalars (float32)."""
+    floats (float64) or numpy float32 scalars (float32). xs [S, B, n] and
+    the state's leaves led by S a stream at a time (gated_samples then the
+    streams' sum)."""
+    if xs.dim() == 3:
+        gated = 0
+
+        def one(st, x):
+            nonlocal gated
+            new = stats_step_ref(st, x, insert_h)
+            gated += stats_step_ref.gated_samples
+            return new
+
+        stats_step_ref.gated_samples = 0
+        new = each_stream(one, s, xs)
+        stats_step_ref.gated_samples = gated
+        return new
+    stats_step_ref.gated_samples = 0
     f64 = torch.float64
     B = xs.shape[0]
     idx = s["samples"] + torch.arange(B, dtype=torch.int64, device=xs.device)
@@ -786,8 +848,10 @@ def mod_delay(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
     table: [n_phases, taps] polyphase filters for q1/q2, or None for q0
     (Hermite). The floats are float64 (float32: mod_delay_f32). Returns
     (key', yk', t', y [B, C], buf' [H, C]: the last H rows of [buf | x], a
-    new tensor). CPU tensors run mod_delay_ref; CUDA tensors launch
-    csrc/mod_delay.cu (one launch: the knots, the read and the line)."""
+    new tensor). For S streams x is [S, B, C] and key, yk, t, buf and the
+    results are led by S (t [S]); sel and table stay one for all. CPU
+    tensors run mod_delay_ref; CUDA tensors launch csrc/mod_delay.cu (one
+    launch: the knots, the read and the line)."""
     if x.dtype == torch.float32:
         return mod_delay_f32(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual)
     return _mod_delay(mod_delay, mod_delay_ref, torch.float64, key, yk, t, buf, x, sel, table,
@@ -819,14 +883,17 @@ def _mod_delay(entry, ref, dt, key, yk, t, buf, x, sel, table, depth, step, n_ta
     if x.device.type == "cpu":
         return ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual)
     _check_cuda(name, x, *checks, align=1)
-    B, C = x.shape
-    lanes = yk.shape[1] if yk.dim() == 2 else -1
-    H = buf.shape[0]
-    _check_shape(name, "key", key, (2,))
-    _check_shape(name, "t", t, ())
-    _check_shape(name, "buf", buf, (H, C))
+    if x.dim() not in (2, 3):
+        raise ValueError(f"{name}: x {tuple(x.shape)}, expected [B, C] or [S, B, C]")
+    *lead, B, C = x.shape
+    S = lead[0] if lead else 1
+    lanes = yk.shape[-1] if yk.dim() == len(lead) + 2 else -1
+    H = buf.shape[-2] if buf.dim() >= 2 else -1
+    _check_shape(name, "key", key, (*lead, 2))
+    _check_shape(name, "t", t, lead)
+    _check_shape(name, "buf", buf, (*lead, H, C))
     _check_shape(name, "sel", sel, (C,))
-    if lanes not in (1, C) or yk.shape[0] != 4:
+    if lanes not in (1, C) or tuple(yk.shape[:-1]) != (*lead, 4):
         raise ValueError(f"{name}: knot window {tuple(yk.shape)} for {C} channels")
     if (qual == 0) != (table is None) or (table is not None and table.shape[1] != n_taps):
         raise ValueError(f"{name}: quality {qual} with table "
@@ -838,9 +905,9 @@ def _mod_delay(entry, ref, dt, key, yk, t, buf, x, sel, table, depth, step, n_ta
         raise ValueError(f"{name}: a line of {H} rows is short for depth {depth}")
     n_new = int(np.ceil(B * step)) + 1
     key_out, y, buf_out = torch.empty_like(key), torch.empty_like(x), torch.empty_like(buf)
-    # the knot window and the phase in one allocation
-    yt = yk.new_empty(4 * lanes + 1)
-    yk_out, t_out = yt[:-1].view(4, lanes), yt[-1]
+    # the knot windows and the phases in one allocation
+    yt = yk.new_empty(S * (4 * lanes + 1))
+    yk_out, t_out = yt[:S * 4 * lanes].view(*lead, 4, lanes), yt[S * 4 * lanes:].view(lead)
     kernels.launch_mod_delay(key, key_out, yk, yk_out, t, t_out, buf, x, y, buf_out, sel, table,
                              n_new, n_phases, n_taps, float(depth), float(step),
                              float(step * B))
@@ -881,7 +948,11 @@ def mod_delay_ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
     torch tensors (gathers from the concatenated line), each float64 FMA
     that dsp_tpu's XLA:CPU takes in the chain's scan written out (the
     knots' sums, the B-splines and the Hermite read; the phase t0 + step·n
-    rounds twice there: its product is hoisted out of the loop)."""
+    rounds twice there: its product is hoisted out of the loop). x [S, B,
+    C] and key, yk, t, buf led by S a stream at a time."""
+    if x.dim() == 3:
+        return each_stream(lambda st, xs: mod_delay_ref(*st, xs, sel, table, depth, step, n_taps,
+                                                        qual), (key, yk, t, buf), x)
     B, C = x.shape
     lanes = yk.shape[1]
     dev, dt = x.device, x.dtype
@@ -964,7 +1035,10 @@ def _mod_read(buf, x, d_int, d_frac, t_os, table, n_taps):
 def mod_delay_f32_ref(key, yk, t, buf, x, sel, table, depth, step, n_taps, qual):
     """Plain version of mod_delay_f32: the float32 modulator and read
     positions (mod_noise_f32_ref), the read in float64 on the float32 line
-    and table."""
+    and table; a stream at a time."""
+    if x.dim() == 3:
+        return each_stream(lambda st, xs: mod_delay_f32_ref(*st, xs, sel, table, depth, step,
+                                                            n_taps, qual), (key, yk, t, buf), x)
     B, C = x.shape
     dev, f32 = x.device, torch.float32
     key_next, yk_next, t_next, z = mod_noise_f32_ref(key, yk, t, B, step)

@@ -5,8 +5,8 @@ axis of the kernels it runs:
   and against the port's own process_array a stream at a time, on
   tests/test_state_hygiene.py's chains (gain/eq/crossfeed, a 300-tap fir on
   the FDL engine, resample to 88.2 kHz);
-* a chain with an effect that has no stream axis (noise) refused with the
-  ChainError that names it;
+* a chain with noise, which process_batch once refused, accepted: each
+  stream equal to process_array of that stream from the live key;
 * every kernel on the split-safe effects' path, through its plain version
   (what a CPU tensor runs): S = 3 streams in one call equal three
   one-stream calls, bit for bit, since each plain version runs a stream at
@@ -25,7 +25,6 @@ import torch
 
 import dsp_tpu  # noqa: F401  (its config turns on jax's float64, as dsp_tpu runs)
 from torch_parity import FLAGSHIP, FS, jax_chain, port_chain, stereo_signal, worst_dbfs
-from dsp_tpu_torch.chain import ChainError
 from dsp_tpu_torch.ops import fft_conv as fc
 from dsp_tpu_torch.ops import iir
 from dsp_tpu_torch.ops import resample_ops as ro
@@ -81,10 +80,15 @@ def test_batch_starts_from_the_live_state_and_leaves_it(streams):
         np.testing.assert_array_equal(batch[s - 1], one.process_array(streams[s]))
 
 
-def test_batch_refuses_effects_without_a_stream_axis():
+def test_batch_refuses_effects_without_a_stream_axis(streams):
+    """Every effect takes the stream axis now: noise, once refused, runs
+    each stream from the live key, as process_array does."""
     cc = port_chain("gain -3 noise -90", 2048)
-    with pytest.raises(ChainError, match="process_batch is not yet ported.*noise"):
-        cc.process_batch(np.zeros((2, 4096, 2)))
+    live = _clone(cc.states)
+    batch = cc.process_batch(streams[:2, :4096])
+    for s in range(2):
+        cc.states = _clone(live)
+        np.testing.assert_array_equal(batch[s], cc.process_array(streams[s, :4096]))
 
 
 # --- the kernels' plain versions: S streams in one call ---------------------
@@ -268,3 +272,11 @@ def test_resample_step_streams(rate, dt):
     x = _rand((S, n * rs.in_len, 2), 17, dt)
     ov = _rand((S, rs.out_len, 2), 18, dt, 1e-2)
     _equal_streams(lambda o_, x_: ro.resample_step(rs, o_, x_), ov, x)
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree

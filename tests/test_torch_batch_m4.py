@@ -12,9 +12,10 @@ dsp_tpu's is tests/test_torch_batch_m4_jax.py):
 * CompiledChain._stream_states: every event leaf gets the stream axis;
   the host's leaves (matrix4's fade_p and disable, NupolsConv's cnt) stay
   one for all streams;
-* a chain of matrix4 and one of the effects still without a stream axis
-  (stats, levels, noise, dither, the modulated delay) refused with the
-  ChainError that names that effect alone.
+* a chain of matrix4 and one of the time-domain effects (stats, levels,
+  noise, dither, the modulated delay), which process_batch once refused,
+  accepted: each stream equal to process_array of that stream from the
+  live state.
 
 About 24 s serial.
 """
@@ -184,12 +185,22 @@ def test_stream_states_give_every_event_leaf_a_stream():
 @pytest.mark.parametrize("spec", ["stats", "levels", "noise -90", "dither",
                                   "delay -M 0.5m -q 2 10m"],
                          ids=["stats", "levels", "noise", "dither", "delay -M"])
-def test_batch_still_refuses_effects_without_a_stream_axis(spec):
-    """matrix4 has its stream axis; the five time-domain effects have none
-    yet, and a chain with one is refused, by name."""
-    from dsp_tpu_torch.chain import ChainError
-
-    name = spec.split()[0]
+def test_batch_still_refuses_effects_without_a_stream_axis(spec, streams):
+    """matrix4 and each of the five time-domain effects, which have their
+    stream axis now: a batch of 2 streams runs, each stream equal to
+    process_array of that stream from the live state (the live keys)."""
     cc = port_chain(f"matrix4 -6 {spec}", 2048)
-    with pytest.raises(ChainError, match=f"process_batch is not yet ported.*: {name}$"):
-        cc.process_batch(np.zeros((2, 4096, 2)))
+    live = _clone(cc.states)
+    xs = streams[:2, :2048]
+    batch = cc.process_batch(xs)
+    for s in range(2):
+        cc.states = _clone(live)
+        np.testing.assert_array_equal(batch[s], cc.process_array(xs[s]))
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
