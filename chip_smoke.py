@@ -197,7 +197,21 @@ nvcc and PyTorch built for CUDA. It
    against process_array's printed, every upmix stream-axis form launched;
    then slice H2b's (batch_td_phase): the delivery chain (dither at 16
    bits) and the modulated chain the same way, at -b 2048 and 65536 in
-   both dtypes, every time-domain stream-axis row launched. The float32
+   both dtypes, every time-domain stream-axis row launched; then slice
+   H2c's (devices_phase): process_batch(xs, devices=["cuda:0", "cuda:0"])
+   (two groups of 4 streams stepped in turn) against one group of 8 on 8
+   streams of 20 s, the flagship at -b 2048 and 65536, the dry run's
+   MC_CHAIN at -b 2048 and 65536, the modulated chain at -b 2048 and the
+   flagship in float32 at -b 2048: bit-equal, twice one group's kernels,
+   both routes timed in turns; the float64 cases at -b 2048 also with one
+   group on the card and one on the CPU (a replica of the chain on the
+   other device), the chain built on either, within -200 dBFS of one
+   group and the one group's kernels launched; and the port's dry run on
+   the two groups;
+   then slice A's: the flagship through dsp-torch from the port's sgen
+   codec (10 s of two sines) on the card, held to the same command on the
+   CPU within -200 dBFS (sgen_cli_phase), and dsp-torch -p and -P of the
+   flagship, which must print the gnuplot program (plot_phase). The float32
    delivery and modulated chains' CPU runs and the stats tables' CPU runs
    go to worker processes ahead of the phases that read them;
 4. runs 96 blocks of the Nupols path (fir_p 1M at B = 2048), 320 of the
@@ -5797,6 +5811,212 @@ def batch_upmix_phase(records):
           + ", ".join(f"{rec} {records[rec]['launches']}" for rec in wrappers))
 
 
+# slice H2c: process_batch across a list of devices, here two groups on the
+# one card (no run here can show two cards); (label, chain, block, dtype)
+# on DEVICES_STREAMS streams of DEVICES_SECONDS s, each its own seed
+DEVICES = ("cuda:0", "cuda:0")
+DEVICES_STREAMS = 8
+DEVICES_SECONDS = 20
+DEVICES_CASES = (
+    ("flagship", FLAGSHIP, 2048, "float64"),
+    ("flagship", FLAGSHIP, 65536, "float64"),
+    ("MC_CHAIN", None, 2048, "float64"),  # None: dsp_tpu_torch.dryrun.MC_CHAIN
+    ("MC_CHAIN", None, 65536, "float64"),
+    ("modulated", MODULATED, 2048, "float64"),
+    ("flagship", FLAGSHIP, 2048, "float32"),
+)
+# a real replica on a second device: the float64 cases at -b 2048 with one
+# group on the card and one on the CPU, the chain built on either, on
+# MIXED_FRAMES frames of the same streams (the CPU group runs the plain
+# versions: matrix4's event engine there is a Python loop a tick)
+MIXED_DEVICES = (("cuda", ("cuda:0", "cpu")), ("cpu", ("cpu", "cuda:0")))
+MIXED_FRAMES = 16384
+
+
+def mixed_devices_check(what, words, B, xs):
+    """process_batch(xs, devices=...) for each of MIXED_DEVICES, the chain
+    built on its home device (numpy's generator seeded alike before each
+    build), each group's rows held to the card's one-group batch within
+    LIMIT_DBFS. The kernels launched (kernel_total, zeroed just before the
+    run, read just after) must equal the one-group batch's: the card group
+    launches every kernel of the step once a block, the CPU group none."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+
+    def built(device):
+        np.random.seed(SLICE_C_SEED)
+        return CompiledChain(build_chain_from_string(words, StreamInfo(FS, CHANNELS)), B,
+                             device=device)
+
+    k0 = kernel_total()
+    one = built("cuda").process_batch(xs)
+    k1 = kernel_total() - k0
+    k = len(xs) // 2
+    for home, devices in MIXED_DEVICES:
+        cc = built(home)
+        k0 = kernel_total()
+        y = cc.process_batch(xs, devices=list(devices))
+        torch.cuda.synchronize()
+        launched = kernel_total() - k0
+        errs = [dbfs(float(np.abs(y[g * k:(g + 1) * k] - one[g * k:(g + 1) * k]).max()))
+                for g in range(2)]
+        print(f"  {what}, chain on {home}, devices {list(devices)}: groups vs one group on the "
+              f"card {errs[0]:.1f} and {errs[1]:.1f} dBFS (limit {LIMIT_DBFS}); kernels {launched} "
+              f"(one group's {k1})")
+        _require(f"devices {what} on {list(devices)}: {y.shape} against {one.shape}, or not finite",
+                 y.shape == one.shape and np.isfinite(y).all())
+        _require(f"devices {what} on {list(devices)}: {errs} dBFS", max(errs) <= LIMIT_DBFS)
+        _require(f"devices {what} on {list(devices)}: kernels {launched}, one group's {k1}",
+                 k1 > 0 and launched == k1)
+
+
+def devices_phase():
+    """Slice H2c on the card: process_batch(xs, devices=DEVICES), two groups
+    of 4 streams stepped in turn from one thread, against devices=None (one
+    group of 8), on DEVICES_STREAMS streams of DEVICES_SECONDS s of noise
+    and sines (each its own seed) for each case of DEVICES_CASES, numpy's
+    generator seeded before each chain is built (the modulated chain's
+    noise and dither draw their keys from it: every group starts from the
+    live key). Each case: a short warming batch on both routes, then one
+    group and two groups in turns (one, two, two, one), each output bit-equal
+    to the first one-group output, and each two-group run's kernels (the
+    libraries' counts, kernel_total) twice the one-group run's: each group
+    launches every kernel of the step once a block. Prints both routes'
+    wall seconds. The float64 cases at -b 2048 then run a real replica
+    (mixed_devices_check). Then the port's dry run (dryrun_multidevice) on
+    DEVICES."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+    from dsp_tpu_torch.dryrun import MC_CHAIN, dryrun_multidevice
+
+    S, n = DEVICES_STREAMS, DEVICES_SECONDS * FS
+    rng = np.random.default_rng(95)
+    t = np.arange(n)[:, None] / FS
+    xs = np.stack([0.2 * rng.standard_normal((n, CHANNELS))
+                   + 0.3 * np.sin(2 * np.pi * np.array([40.0, 1000.0]) * (1 + 0.1 * s) * t)
+                   for s in range(S)])
+    print(f"process_batch across devices {list(DEVICES)}: {S} streams of {DEVICES_SECONDS} s, "
+          f"{S // len(DEVICES)} a group, against one group of {S}")
+    for label, words, B, dt in DEVICES_CASES:
+        np.random.seed(SLICE_C_SEED)
+        chain = build_chain_from_string(words or MC_CHAIN, StreamInfo(FS, CHANNELS))
+        cc = CompiledChain(chain, B, dtype=getattr(torch, dt), device="cuda")
+        what = f"{label} -b {B} {dt}"
+        warm = xs[:, :2 * cc.block_frames]
+        _require(f"devices {what}: the warming batch differs",
+                 np.array_equal(cc.process_batch(warm), cc.process_batch(warm, devices=DEVICES)))
+        walls, kernels, first = {1: [], 2: []}, {1: [], 2: []}, None
+        for groups in (1, 2, 2, 1):
+            torch.cuda.synchronize()
+            k0, t0 = kernel_total(), time.perf_counter()
+            y = cc.process_batch(xs, devices=DEVICES if groups == 2 else None)
+            walls[groups].append(time.perf_counter() - t0)
+            kernels[groups].append(kernel_total() - k0)
+            if first is None:
+                first = y
+                _require(f"devices {what}: output {y.shape}, not finite or empty",
+                         y.shape[0] == S and y.shape[1] > 0 and np.isfinite(y).all())
+            _require(f"devices {what}: {groups} group(s) differ from one group",
+                     np.array_equal(y, first))
+        k1, k2 = kernels[1][0], kernels[2][0]
+        _require(f"devices {what}: kernels {kernels}: two groups must launch twice one group's",
+                 k1 > 0 and set(kernels[1]) == {k1} and set(kernels[2]) == {2 * k1})
+        w1, w2 = float(np.mean(walls[1])), float(np.mean(walls[2]))
+        secs = S * DEVICES_SECONDS
+        print(f"  {what} (block {cc.block_frames}): one group {walls[1][0]:.3f}, "
+              f"{walls[1][1]:.3f} s ({secs / w1:.1f} s of audio a second); two groups "
+              f"{walls[2][0]:.3f}, {walls[2][1]:.3f} s ({secs / w2:.1f}); two / one "
+              f"{w2 / w1:.3f}; kernels {k1} and {k2}; bit-equal")
+        if B == 2048 and dt == "float64":
+            mixed_devices_check(what, words or MC_CHAIN, B, xs[:, :MIXED_FRAMES])
+    shape = dryrun_multidevice(list(DEVICES))
+    _require(f"dryrun_multidevice: output {shape}", shape[0] == 4)
+
+
+# the port's sgen as the CLI's input: 10 s of two sines
+SGEN_INPUT = "sine@0:freq=1k/sine@1:freq=3k+10"
+
+
+def sgen_cli_phase(records, tmp):
+    """The flagship through dsp-torch on the card from the port's sgen codec
+    (SGEN_INPUT), held to the same command on the CPU within LIMIT_DBFS;
+    its K1 and crossfeed launches counted (zeroed just before the card's
+    run, read just after) and required."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+
+    from dsp_tpu_torch.cli.main import main as cli_main
+    from dsp_tpu_torch.ops import iir
+
+    wrappers = {"lti_blocked": iir.lti_blocked, "crossfeed_step": iir.crossfeed_step}
+    outs = {}
+    for device in ("cuda", "cpu"):
+        out = tmp / f"sgen_{device}.wav"
+        os.environ["DSP_TPU_TORCH_DEVICE"] = device
+        for w in wrappers.values():
+            w.launches = 0
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stderr(err):
+                rc = cli_main(["-q", "-t", "sgen", "-c", str(CHANNELS), SGEN_INPUT, "-o", "-e",
+                               "double", str(out), *FLAGSHIP.split()])
+        finally:
+            os.environ["DSP_TPU_TORCH_DEVICE"] = "cuda"
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise SmokeError(f"sgen on {device}: dsp-torch exited {rc}: {err.getvalue()[-2000:]}")
+        counts = {name: w.launches for name, w in wrappers.items()}
+        if device == "cuda":
+            _require(f"sgen on the card: kernels not launched: {counts}", min(counts.values()) > 0)
+            for name, c in counts.items():
+                records[name]["launches"] += c
+        total, outs[device] = read_wav(out)
+        out.unlink()
+        print(f"  sgen -> flagship on {device}: {wall:.3f} s wall, {total} frames, launches {counts}")
+    y, ref = outs["cuda"], outs["cpu"]
+    _require(f"sgen: {y.shape} frames on the card, {ref.shape} on the CPU",
+             y.shape == ref.shape == (10 * FS, CHANNELS) and np.isfinite(y).all()
+             and np.abs(ref).max() > 0.1)
+    diff = float(np.abs(y - ref).max())
+    print(f"  sgen -> flagship: card vs CPU max |diff| {diff:.3e} ({dbfs(diff):.1f} dBFS, "
+          f"limit {LIMIT_DBFS})")
+    _require(f"sgen: card vs CPU {dbfs(diff):.1f} dBFS", dbfs(diff) <= LIMIT_DBFS)
+
+
+def plot_phase():
+    """dsp-torch -p and -P of the flagship (two channels): exit 0 and the
+    gnuplot program on stdout, each channel's magnitude plotted (and with
+    -P its phase), ending in `pause mouse close`."""
+    import contextlib
+    import io
+
+    from dsp_tpu_torch.cli.main import main as cli_main
+
+    for flag in ("-p", "-P"):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_main([flag, "-c", str(CHANNELS), "-n", *FLAGSHIP.split()])
+        text = out.getvalue()
+        _require(f"dsp-torch {flag}: exit {rc}: {err.getvalue()[-2000:]}", rc == 0)
+        need = ["Ht0_mag_dB(x)", "Ht1_mag_dB(x)"] + (
+            ["Ht0_phase_deg(x) axes x1y2", "set y2range"] if flag == "-P" else [])
+        _require(f"dsp-torch {flag}: not the gnuplot program: {text[:400]!r}",
+                 text.startswith("set xlabel 'Frequency (Hz)'")
+                 and text.endswith("pause mouse close\n") and all(k in text for k in need))
+        print(f"  dsp-torch {flag} (flagship): {len(text.splitlines())} lines of gnuplot, "
+              f"{len(text)} bytes")
+
+
 def _counting_steps():
     """Patch CompiledChain._step to count the chain's host steps; returns
     (the counter, a function that restores the step)."""
@@ -6342,6 +6562,9 @@ def main():
         timed(split_phase, records, tmp, kept, SECONDS * FS, SECONDS)
         timed(batch_upmix_phase, records)
         timed(batch_td_phase, records)
+        timed(devices_phase)
+        timed(sgen_cli_phase, records, tmp)
+        timed(plot_phase)
         timed(float32_phase, records, tmp, kept)
         engine_tick_line(records)
         timed(float32_time_domain_cli, records, tmp, f32refs)

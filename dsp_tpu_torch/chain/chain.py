@@ -12,9 +12,12 @@ Split and batched processing (``process_array_split``, ``process_batch``)
 run S streams through the same step, a block of each at once: x [S, B, C]
 and every state leaf with a leading S (but the host's counters, one for
 all streams), so each kernel of the step runs the S streams in the launch
-of one.
+of one. ``process_batch(xs, devices=[...])`` cuts the streams into one
+group a device, each on its device's replica of the compiled chain.
 """
 
+import contextlib
+import copy
 from dataclasses import dataclass, field
 from fractions import Fraction
 from math import gcd, lcm
@@ -490,11 +493,36 @@ class CompiledChain:
             self._ratio_at[id(e)] = ratio
             frames *= e.ratio
             ratio *= e.ratio
+        self._replicas = {}
+        self._compile()
+        self.states = [self._initial_state(e) for e in self._runtime_effects]
+
+    def _compile(self):
+        """The runtime effects (fused cascades bound to self.device) and
+        their execution plan."""
         self._runtime_effects = self._fuse(
-            [e for e in chain.effects if not getattr(e, "runtime_noop", False)]
+            [e for e in self.chain.effects if not getattr(e, "runtime_noop", False)]
         )
         self._steps = self._schedule(self._runtime_effects)
-        self.states = [self._initial_state(e) for e in self._runtime_effects]
+
+    def _replica(self, device):
+        """This chain compiled for `device` (a torch.device): self on its own
+        device; elsewhere a copy made once a device that shares the chain,
+        its effects (whose device tensors are cached a device) and its block
+        plan, and builds its own fused cascades and biquad runs there. A
+        replica holds no states: a batch gives each group its own copy of
+        the live ones. Built without _initial_state, so no effect draws a
+        seed from numpy's generator for it."""
+        key = _device_key(device)
+        if key == _device_key(self.device):
+            return self
+        cc = self._replicas.get(key)
+        if cc is None:
+            cc = copy.copy(self)
+            cc.device, cc.states, cc._replicas = key, None, {}
+            cc._compile()
+            self._replicas[key] = cc
+        return cc
 
     def _step(self, states, x):
         new_states = []
@@ -723,32 +751,50 @@ class CompiledChain:
     def _unsafe_names(self):
         return [e.name for e in self.chain.effects if not getattr(e, "split_safe", True)]
 
-    def _stream_states(self, states, S):
-        """states (one a runtime effect) with a leading stream axis of S:
-        each leaf copied for every stream, but an effect's host_leaves
-        (NupolsConv's block counter ``cnt``, matrix4's ``fade_p`` and
-        ``disable``), which keep one value for all streams: every stream of
-        a split or a batch sits at the same block index, and ``fade_p``
-        counts down by the block whatever the signal."""
-        return [_with_streams(st, S, getattr(e, "host_leaves", ()))
-                for e, st in zip(self._runtime_effects, states)]
+    def _stream_states(self, states, S, device=None):
+        """states (one a runtime effect) copied to `device` (this chain's
+        own by default) with a leading stream axis of S: each leaf copied
+        for every stream, but an effect's host_leaves (NupolsConv's block
+        counter ``cnt``, matrix4's ``fade_p`` and ``disable``), which stay on
+        the host and keep one value for all streams: every stream of a split or a group sits at
+        the same block index, and ``fade_p`` counts down by the block
+        whatever the signal. Each call copies the host leaves, so each group
+        of a batch holds its own, which its own steps advance once a block."""
+        device = self.device if device is None else device
+        return [_with_streams(_moved(st, device, host), S, host)
+                for e, st in zip(self._runtime_effects, states)
+                for host in (getattr(e, "host_leaves", ()),)]
 
-    def _run_streams(self, states, xs):
-        """xs [S, n·B, C] host float64 (one host->device copy) -> the output
-        [S, n·out_frames, out_ch] on the device, stepping the S streams a
-        block at a time from `states` (stream-axis states, not kept). The
-        blocks are laid out block-major, and the outputs back stream-major,
-        by one device copy each, not on the host."""
-        S, B = xs.shape[0], self.block_frames
-        xs = self._input(xs).view(S, -1, B, xs.shape[-1]).transpose(0, 1).contiguous()
-        ys = []
-        for i in range(xs.shape[0]):
-            states, y = self._step(states, xs[i])
-            ys.append(y)
-        y = torch.stack(ys, dim=1)  # [S, n, out_frames, out_ch]
-        return y.view(S, -1, y.shape[-1])
+    def _run_groups(self, groups):
+        """groups: (compiled chain, stream-axis states, xs [S_g, n·B, C]
+        host float64) a group -> each group's output [S_g, n·out_frames,
+        out_ch] on its chain's device, stepping its streams a block at a
+        time from its states (not kept). A group's input takes one
+        host->device copy; its blocks are laid out block-major, and its
+        outputs back stream-major, by one device copy each, not on the
+        host. The groups step in turn, block by block, from this thread,
+        each under its CUDA device (a launch goes to the thread's current
+        device, whatever its tensors' device); nothing here synchronises,
+        so the launches of groups on different cards overlap."""
+        B = self.block_frames
+        runs = []
+        for cc, states, xs in groups:
+            S = xs.shape[0]
+            x = cc._input(xs).view(S, -1, B, xs.shape[-1]).transpose(0, 1).contiguous()
+            runs.append([cc, states, x, []])
+        for i in range(runs[0][2].shape[0]):
+            for run in runs:
+                cc, states, x, ys = run
+                with _current_device(cc.device):
+                    run[1], y = cc._step(states, x[i])
+                ys.append(y)
+        out = []
+        for _, _, _, ys in runs:
+            y = torch.stack(ys, dim=1)  # [S_g, n, out_frames, out_ch]
+            out.append(y.view(y.shape[0], -1, y.shape[-1]))
+        return out
 
-    def process_batch(self, xs, drain=True, discard=True):
+    def process_batch(self, xs, devices=None, drain=True, discard=True):
         """Process S independent streams at once: xs [S, frames, in_ch] ->
         [S, out_frames, out_ch] numpy.
 
@@ -759,7 +805,20 @@ class CompiledChain:
         limit. Every block of the S streams is one step, each kernel one
         launch for the S; as in dsp_tpu, whose batch steps _step_fn_raw and
         drops the states, no host hook runs (the meters' and upmixes' status
-        lines, stats' table) and the streams' states are not kept."""
+        lines, stats' table) and the streams' states are not kept.
+
+        ``devices`` (devices or their names) is dsp_tpu's mesh route
+        (process_batch(xs, mesh=...)) in one process: the S streams are cut
+        into len(devices) contiguous groups, one a device, and S must be a
+        multiple of len(devices) (ValueError, as dsp_tpu's sharding raises).
+        Each group runs on its device's replica of this chain (_replica)
+        from its own copy of the live states, the host leaves too; the
+        groups step in turn, block by block (_run_groups), and each group's
+        output comes back in one copy, into its rows of the result (one
+        copy a device where each device holds one group). Every device is
+        resolved by config.resolve_device, which raises for one that cannot
+        be reached: nothing falls back. None is one group on this chain's
+        own device."""
         xs = np.asarray(xs, dtype=np.float64)
         S, n_in, c_in = xs.shape
         pad = self.chain.drain_frames if drain else 0
@@ -768,11 +827,21 @@ class CompiledChain:
         out_valid = expected_out_frames(self.chain, n_in, drain)
         b_out = int(B * self.chain.ratio)
         n_blocks = max(1, -(-total // B), -(-out_valid // b_out))
+        first = self.chain.output_discard if discard else 0
+        devices = [self.device] if devices is None else [config.resolve_device(d) for d in devices]
+        if not devices or S % len(devices):
+            raise ValueError(f"process_batch: {S} streams do not split evenly over "
+                             f"{len(devices)} devices")
         flat = np.zeros((S, n_blocks * B, c_in), dtype=np.float64)
         flat[:, :n_in] = xs
-        y = self._run_streams(self._stream_states(self.states, S), flat)
-        y = y[:, self.chain.output_discard if discard else 0 : out_valid]
-        return y.to("cpu", torch.float64).numpy()
+        k = S // len(devices)
+        groups = [(self._replica(d), self._stream_states(self.states, k, d), flat[g * k:(g + 1) * k])
+                  for g, d in enumerate(devices)]
+        ys = self._run_groups(groups)
+        out = torch.empty((S, max(0, out_valid - first), ys[0].shape[-1]), dtype=torch.float64)
+        for g, y in enumerate(ys):  # one copy to the host a group, into its rows
+            out[g * k:(g + 1) * k].copy_(y[:, first:out_valid])
+        return out.numpy()
 
     def process_array_split(self, x, splits=8, lookback=None, drain=True, discard=True):
         """Process ONE long [frames, in_ch] array as `splits` lookback-primed
@@ -815,7 +884,7 @@ class CompiledChain:
             off = wb * B - (s0 - w0)
             segs[k, off : off + len(seg)] = seg
         states = self._stream_states([self._initial_state(e) for e in self._runtime_effects], S)
-        y = self._run_streams(states, segs)[:, wb * b_out :]  # [S, seg_nb·b_out, ch]
+        y = self._run_groups([(self, states, segs)])[0][:, wb * b_out :]  # [S, seg_nb·b_out, ch]
         y = y.reshape(-1, y.shape[-1])[self.chain.output_discard if discard else 0 : out_valid]
         return y.to("cpu", torch.float64).numpy()
 
@@ -843,6 +912,28 @@ class CompiledChain:
         if discard and self.chain.output_discard:
             y = y[self.chain.output_discard :]
         return y
+
+
+def _device_key(device):
+    """A device with its index: CUDA's current device for ``cuda``."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _current_device(device):
+    """A context in which `device`, if CUDA, is the thread's current device."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def _moved(tree, device, host):
+    """A state tree on `device`, but the dict leaves named in host, each a
+    copy on the host."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_moved(t, device, host) for t in tree)
+    if isinstance(tree, dict):
+        return {k: v.clone() if k in host else _moved(v, device, host) for k, v in tree.items()}
+    return tree.to(device)
 
 
 def _with_streams(tree, S, host):

@@ -2,11 +2,12 @@
 
 Synopsis: ``dsp-torch [options] path ... [effect [args]] ...``
 
-The same option/input parsing, dither policy, clip accounting and
-concatenate-mode processing loop as ``dsp``, running the chain on the device
-that ``DSP_TPU_TORCH_DEVICE`` names (default ``cuda``; it raises when CUDA is
-asked for and absent). Plot, interactive, ABX, sequence, watch and split
-modes are not ported yet and exit with an error saying so.
+The same option/input parsing, dither policy, clip accounting, plot mode
+and concatenate-mode processing loop as ``dsp``, running the chain on the
+device that ``DSP_TPU_TORCH_DEVICE`` names (default ``cuda``; it raises when
+CUDA is asked for and absent; plot mode touches no device). Interactive,
+ABX, sequence and watch modes are not ported yet and exit with an error
+saying so.
 """
 
 import os
@@ -20,6 +21,7 @@ from dsp_tpu_torch import config
 from dsp_tpu_torch.chain import ChainError, CompiledChain, build_chain_from_args
 from dsp_tpu_torch.chain.chain import chain_needs_dither, chain_set_dither_params
 from dsp_tpu_torch.chain.parser import ChainParseError
+from dsp_tpu_torch.chain.plot import PlotError, plot_chain
 from dsp_tpu_torch.codecs import (
     CODEC_HINT_CAN_DITHER,
     CODEC_MODE_READ,
@@ -562,10 +564,16 @@ def main(argv=None):
         log.error("%s", str(e))
         return 1
 
+    if state.plot:  # no audio and no device: runs with or without CUDA
+        try:
+            sys.stdout.write(plot_chain(chain, state.plot > 1))
+        except PlotError as e:
+            log.error("%s", e)
+            return 1
+        return 0
+
     not_ported = None
-    if state.plot:
-        not_ported = "plot mode (-p/-P)"
-    elif state.input_mode != "concat":
+    if state.input_mode != "concat":
         not_ported = f"{state.input_mode} mode"
     elif state.interactive:
         not_ported = "interactive mode (-i)"

@@ -9,6 +9,8 @@ from dataclasses import dataclass, replace
 
 import numpy as np
 
+from dsp_tpu_torch.core import log
+
 CODEC_MODE_READ = 1 << 0
 CODEC_MODE_WRITE = 1 << 1
 
@@ -168,14 +170,26 @@ def print_all_codecs(file=None):
 
 
 def _register_builtins():
-    # imports at call time to avoid cycles; order = codec.c's table order.
-    # Only null, pcm (with raw) and wav are ported so far: wavpipe, sgen,
-    # sndfile, ffmpeg, mp3 and the device codecs (alsa, pulse, ao) come in
-    # later slices, and the fallback probes above skip the names that are
-    # not registered.
+    # imports at call time to avoid cycles; order = codec.c's table order
+    # (null, sgen, ffmpeg, pcm, wavpipe) with dsp_tpu's additions after, as
+    # dsp_tpu/codecs/base.py registers them
     from dsp_tpu_torch.codecs import null as _null  # noqa: F401
+    from dsp_tpu_torch.codecs import sgen as _sgen  # noqa: F401
+
+    try:
+        from dsp_tpu_torch.codecs import sndfile as _sndfile  # noqa: F401
+    except ImportError:
+        log.verbose("codecs: libsndfile support unavailable")
+    from dsp_tpu_torch.codecs import mp3 as _mp3  # noqa: F401 (self-gating, HAVE_MAD analog)
+    from dsp_tpu_torch.codecs import ffmpeg as _ffmpeg  # noqa: F401 (self-gating)
     from dsp_tpu_torch.codecs import pcm as _pcm  # noqa: F401
     from dsp_tpu_torch.codecs import wav as _wav  # noqa: F401
+    # device codecs gate on their system libraries (configure:128-151 analog)
+    for _dev in ("alsa", "pulse", "ao"):
+        try:
+            __import__(f"dsp_tpu_torch.codecs.{_dev}")
+        except ImportError:
+            log.verbose("codecs: %s support unavailable", _dev)
 
 
 _register_builtins()

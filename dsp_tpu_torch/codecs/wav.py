@@ -63,6 +63,18 @@ class WavReader(Codec):
         self.hints = CODEC_HINT_CAN_DITHER if can_dither else 0
         self._frame_bytes = self._bps * self.channels
         self._pos = 0
+        # native prefetching reader (dspio); wav data is little-endian
+        self._native = None
+        if params.path != "-" and self.enc not in ("mu-law", "a-law"):
+            from dsp_tpu_torch.codecs import native
+
+            if native.available():
+                try:
+                    self._native = native.NativeReader(
+                        params.path, self.enc, self.channels, self._data_off, self.frames
+                    )
+                except OSError:
+                    self._native = None
 
     def _parse_header(self):
         f = self._f
@@ -149,6 +161,10 @@ class WavReader(Codec):
             frames = min(frames, self.frames - self._pos)
         if frames <= 0:
             return np.zeros((0, self.channels), dtype=np.float64)
+        if self._native is not None:
+            buf = self._native.read(frames)
+            self._pos += len(buf)
+            return buf
         data = self._f.read(frames * self._frame_bytes)
         n = len(data) // self._frame_bytes
         buf = sampleconv.raw_to_sample(data[: n * self._frame_bytes], self.enc, "<")
@@ -159,11 +175,17 @@ class WavReader(Codec):
         if not self._f.seekable():
             return -1
         pos = min(max(pos, 0), self.frames) if self.frames >= 0 else max(pos, 0)
-        self._f.seek(self._data_off + pos * self._frame_bytes)
+        if self._native is not None:
+            self._native.seek(pos)
+        else:
+            self._f.seek(self._data_off + pos * self._frame_bytes)
         self._pos = pos
         return pos
 
     def close(self):
+        if self._native is not None:
+            self._native.close()
+            self._native = None
         if self._f is not getattr(sys.stdin, "buffer", None):
             self._f.close()
 

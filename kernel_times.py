@@ -13,7 +13,7 @@ of the repository on the same card.
                                                # k2cli, profile, k1, k1cli,
                                                # k3, k3cli, delay, audiocli,
                                                # audioprofile, meters, resample,
-                                               # noise or resamplecli)
+                                               # noise, resamplecli or batch)
 
 DIR is an unpacked checkout of another commit (e.g. `git archive <commit> |
 tar -x -C .smoke_tmp/parent`). Each tree runs in a process of its own, since
@@ -138,7 +138,11 @@ tpdf_noise and tpdf_noise_f32 with every channel and with the first only,
 and NoiseEffect.step with the first only, at B = 2048 and 65536 (outputs
 compared bit for bit). The resamplecli rows run `resample 48k` and
 `resample 48k matrix4 -6` at -b 2048 through dsp-torch in both dtypes, as
-the k2cli rows run theirs (renders compared bit for bit).
+the k2cli rows run theirs (renders compared bit for bit). The batch rows
+time CompiledChain.process_batch(xs) on one group of 8 streams of 20 s
+(the flagship at -b 2048 and 65536, the modulated chain at 2048), the copy
+to the host included, a call and device-only (outputs compared bit for
+bit).
 
 The rows are chip_smoke.py's main-path shapes, where chip_smoke.py holds
 each kernel against its plain version; this script only times them. Prints
@@ -750,6 +754,37 @@ def resample_rows():
     return out
 
 
+# process_batch's one group: (chain, block, dtype) on BATCH_STREAMS streams
+# of BATCH_SECONDS s, chip_smoke.py's devices_phase cases
+BATCH_CASES = (("flagship", FLAGSHIP, 2048, "float64"), ("flagship", FLAGSHIP, 65536, "float64"),
+               ("modulated", MODULATED, 2048, "float64"))
+BATCH_STREAMS, BATCH_SECONDS = 8, 20
+
+
+def batch_rows():
+    """(name, the call, reps) of the batch rows: CompiledChain.process_batch(xs)
+    (one group of BATCH_STREAMS streams on the card, the copy to the host
+    included) for each of BATCH_CASES, on inputs made from a seed alike in
+    each tree, numpy's generator seeded before each chain is built (outputs
+    compared bit for bit)."""
+    import numpy as np
+    import torch
+
+    from dsp_tpu_torch.chain import CompiledChain, build_chain_from_string
+    from dsp_tpu_torch.core.types import StreamInfo
+
+    n = BATCH_SECONDS * FS
+    xs = np.random.default_rng(95).standard_normal((BATCH_STREAMS, n, CHANNELS)) * 0.3
+    out = []
+    for label, words, B, dt in BATCH_CASES:
+        np.random.seed(SLICE_C_SEED)
+        cc = CompiledChain(build_chain_from_string(words, StreamInfo(FS, CHANNELS)), B,
+                           dtype=getattr(torch, dt), device="cuda")
+        out.append((f"process_batch {label} -b {B} {dt}, {BATCH_STREAMS} x {BATCH_SECONDS} s",
+                    lambda cc=cc: torch.from_numpy(cc.process_batch(xs)), 5))
+    return out
+
+
 NOISE_BLOCKS = (2048, 65536)
 
 
@@ -1052,11 +1087,12 @@ def measure(which, inputs_path, save=None):
         return k2cli_rows(inputs_path, save or inputs_path.parent / "resamplecli.pt",
                           RESAMPLE_CLI_CASES)
     out = []
-    if which in ("td", "k2", "audio", "k1", "k3", "delay", "meters", "resample", "noise"):
+    if which in ("td", "k2", "audio", "k1", "k3", "delay", "meters", "resample", "noise", "batch"):
         outputs = {}
         made = {"td": td_rows, "k2": k2_rows, "audio": lambda: audio_rows(inputs_path),
                 "k1": k1_rows, "k3": k3_rows, "delay": delay_rows,
-                "meters": meter_rows, "resample": resample_rows, "noise": noise_rows}[which]()
+                "meters": meter_rows, "resample": resample_rows, "noise": noise_rows,
+                "batch": batch_rows}[which]()
         for name, kern, reps in made:
             r = {"name": name, "ms": cuda_ms(kern, reps)}
             r["device_ms"], r["kernels"] = device_ms(kern, min(reps, 20))
@@ -1162,7 +1198,7 @@ def main():
     ap.add_argument("--rows", choices=("all", "fft", "engines", "cli", "td", "tdcli", "k2",
                                        "audio", "k2cli", "profile", "k1", "k1cli", "k3", "k3cli",
                                        "delay", "audiocli", "audioprofile", "meters", "resample",
-                                       "noise", "resamplecli"),
+                                       "noise", "resamplecli", "batch"),
                     default="all")
     ap.add_argument("--inputs", type=Path, default=ENGINE_INPUTS)
     ap.add_argument("--save", type=Path, default=None)
@@ -1191,7 +1227,7 @@ def main():
     print(f"card: {card}; order: before, after, after, before")
     verdict = (compare_outputs(saves[0], saves[1])
                if args.rows in ("all", "engines", "td", "k2", "audio", "k1", "k3", "delay",
-                                "meters", "resample", "noise")
+                                "meters", "resample", "noise", "batch")
                else {})
     keys = ("ms", "us_a_tick", "device_ms", "device_us_a_tick", "kernels", "library_ms",
             "library_device_ms", "x_realtime", "digest", "render", "step_ms", "kernels_a_block",

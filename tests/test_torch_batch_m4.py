@@ -171,14 +171,16 @@ def test_stream_states_give_every_event_leaf_a_stream():
         assert st["ev"][k].shape == (S, *live["ev"][k].shape), k
     for k in ("bp_m", "env_m", "bg_cs", "interp_y", "interp_c", "buf", "aux"):
         assert st[k].shape == (S, *live[k].shape), k
-    for k in ("fade_p", "disable"):
-        assert st[k] is live[k] and st[k].dim() == 0 and st[k].device.type == "cpu", k
-    # NupolsConv's block counter: one for all streams
+    for k in ("fade_p", "disable"):  # one for all streams, the group's own copy
+        assert st[k] is not live[k] and torch.equal(st[k], live[k]), k
+        assert st[k].dim() == 0 and st[k].device.type == "cpu", k
+    # NupolsConv's block counter: one for all streams, the group's own copy
     rng = np.random.default_rng(1)
     spec = "fir_p coefs:" + ",".join(f"{v:.5f}" for v in rng.uniform(-0.1, 0.1, 9000))
     cc = port_chain(spec, 128)  # 71 partitions of 128: the Nupols engine
     st = cc._stream_states(cc.states, S)[0]
-    assert st["cnt"] is cc.states[0]["cnt"] and st["cnt"].dim() == 0
+    assert st["cnt"] is not cc.states[0]["cnt"] and torch.equal(st["cnt"], cc.states[0]["cnt"])
+    assert st["cnt"].dim() == 0 and st["cnt"].device.type == "cpu"
     assert st["stage"].shape == (S, *cc.states[0]["stage"].shape)
 
 

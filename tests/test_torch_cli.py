@@ -51,13 +51,22 @@ def test_cli_s16_output_matches_dsp(tmp_path, cpu_device):
 
 @pytest.mark.parametrize("mode", [["-p"], ["-P"], ["-S"], ["-X"], ["-i"]])
 def test_cli_unported_modes_exit_nonzero(mode, tmp_path, cpu_device, capsys):
+    """Sequence, ABX and interactive modes exit 1 with "not yet ported".
+    Plot mode (-p, -P) is ported: it exits 0 with the gnuplot program on
+    stdout. No mode writes the output file."""
     from dsp_tpu_torch.cli.main import main as dsp_torch
 
     src = tmp_path / "in.wav"
     write_wav(src, stereo_signal(0.1))
     out = tmp_path / "out.wav"
-    assert dsp_torch([*mode, str(src), "-o", "-e", "double", str(out), "gain", "-3"]) == 1
-    assert "not yet ported to dsp_tpu_torch" in capsys.readouterr().err
+    rc = dsp_torch([*mode, str(src), "-o", "-e", "double", str(out), "gain", "-3"])
+    got = capsys.readouterr()
+    if mode[0] in ("-p", "-P"):
+        assert rc == 0 and got.out.endswith("pause mouse close\n") and "Ht1_mag_dB" in got.out
+        assert ("axes x1y2" in got.out) == (mode[0] == "-P")
+    else:
+        assert rc == 1
+        assert "not yet ported to dsp_tpu_torch" in got.err
     assert not out.exists()
 
 

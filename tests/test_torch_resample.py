@@ -140,14 +140,14 @@ def test_chain_passes_match_dsp_tpu():
 ])
 def test_c_goldens_through_the_port_cli(name, spec, rate, tmp_path, monkeypatch):
     """tests/goldens' renders of the C build (golden_cases.py), through
-    dsp-torch: the sgen input is written by dsp_tpu's CLI (the port has no
-    sgen codec yet), then resampled by the port's CLI, raw f64 to raw f64."""
-    from dsp_tpu.cli.main import main as dsp
+    dsp-torch: the sgen input is written by the port's CLI (its sgen codec,
+    bit for bit dsp_tpu's: test_torch_codecs.py), then resampled by the
+    port's CLI, raw f64 to raw f64."""
     from dsp_tpu_torch.cli.main import main as dsp_torch
 
     monkeypatch.setenv("DSP_TPU_TORCH_DEVICE", "cpu")
     src, out = tmp_path / "in.raw", tmp_path / "out.raw"
-    assert dsp(["-q", "-t", "sgen", spec, "-o", "-t", "pcm", "-e", "double", str(src)]) == 0
+    assert dsp_torch(["-q", "-t", "sgen", spec, "-o", "-t", "pcm", "-e", "double", str(src)]) == 0
     assert dsp_torch(["-q", "-t", "pcm", "-e", "double", "-r", str(FS), "-c", "1", str(src),
                       "-o", "-t", "pcm", "-e", "double", str(out), "resample", rate]) == 0
     got = np.fromfile(out, dtype=np.float64)

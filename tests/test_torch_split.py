@@ -159,10 +159,17 @@ def _cli(argv, split, monkeypatch):
 
 
 def _raw_input(path, seconds):
-    """Raw float64 stereo: sines at 500 and 1200 Hz, -6 dB (the port has no
-    sgen codec)."""
+    """Raw float64 stereo: sines at 500 and 1200 Hz, -6 dB, rendered by the
+    port's sgen codec (a reader, so no chain runs on it) and held bit for bit
+    to the same sines from numpy, so that a wrong sgen cannot weaken the
+    split tests."""
+    from dsp_tpu_torch.codecs import CodecParams, init_codec
+
+    c = init_codec(CodecParams(f"sine@0:freq=500/sine@1:freq=1200+{seconds}", type="sgen",
+                               fs=FS, channels=2))
+    x = 0.5 * c.read(c.frames)
     t = np.arange(int(FS * seconds))[:, None] / FS
-    x = 0.5 * np.sin(2 * np.pi * np.array([500.0, 1200.0]) * t)
+    np.testing.assert_array_equal(x, 0.5 * np.sin(2 * np.pi * np.array([500.0, 1200.0]) * t))
     x.astype("<f8").tofile(path)
 
 
